@@ -1,0 +1,8 @@
+"""PyTorch + CUDA port of the batched Filter/Score/assign scheduler.
+
+The port runs the greedy batch solve on an NVIDIA Hopper card through
+three hand-written CUDA kernels (csrc/), with a plain-torch version of
+every device function beside each kernel.  Entry points run on the card
+unless the caller asks for the CPU (``device="cpu"``), where the plain
+versions run.
+"""
