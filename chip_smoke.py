@@ -147,20 +147,41 @@ def match_terms_need(n: int, expr_ids, expr_op, expr_slot, term_valid, torch) ->
     return need, ops
 
 
-def class_statics_need(cluster, pods, c_dim: int) -> tuple:
+def class_statics_need(cluster, pods, reps, torch) -> tuple:
+    """(bytes, operations) one class_statics launch needs on this data: the
+    representatives' pod fields; per node the valid byte, the name id only
+    where a class pins a node, the taint words of each effect that some
+    class does not tolerate wholesale, the port words that some class
+    claims (a zero claim word conflicts with nothing), one byte of each
+    selector and preferred mask row a class reads; the three [C, N]
+    outputs.  Two integer operations a tested word or live term."""
     n = cluster.node_valid.shape[0]
+    c = reps.shape[0]
+    r = reps.long()
     tw = cluster.taint_bits.shape[2]
-    pw = cluster.port_bits.shape[1]
     mt = pods.pref_idx.shape[1]
-    need = (nbytes(cluster.node_valid, cluster.name_id, cluster.taint_bits,
-                   cluster.port_bits) + c_dim * n * 9)
-    ops = c_dim * n * (3 * 2 * tw + 2 * pw + 2 * mt + 8)
-    return need, ops
+    pod_bytes = nbytes(reps, pods.valid[r], pods.name_id[r], pods.sel_idx[r],
+                       pods.tol_bits[:, r], pods.tol_all[:, r], pods.port_bits[r],
+                       pods.pref_idx[r], pods.pref_weight[r])
+    effects = int((~pods.tol_all[:, r]).any(dim=1).sum())
+    port_words = int((pods.port_bits[r] != 0).any(dim=0).sum())
+    sel = pods.sel_idx[r]
+    sel_rows = int(torch.unique(sel[sel >= 0]).numel())
+    pref = pods.pref_idx[r]
+    live_pref = pref >= 0
+    pref_rows = int(torch.unique(pref[live_pref]).numel())
+    names = n * 4 if bool((pods.name_id[r] != -1).any()) else 0
+    node_bytes = n * (1 + 4 * effects * tw + 4 * port_words + sel_rows + pref_rows) + names
+    need = pod_bytes + node_bytes + c * n * 9
+    per_class = (2 * tw * int((~pods.tol_all[:, r]).sum())
+                 + 2 * port_words * c + 2 * int(live_pref.sum()) + 8 * c)
+    return need, n * per_class
 
 
 def greedy_scan_need(cluster, pods, sfeas, feas_counts, features, torch) -> tuple:
     """Bytes: inputs once, outputs once.  Operations: per step, the
-    fit test on every static-feasible node (2 flops a resource) and the
+    fit test on every static-feasible node (2 flops a resource the pod
+    requests; a resource it does not request is not tested) and the
     ~60 flops of the scores on every feasible node (LeastAllocated and
     BalancedAllocation over cpu+memory, two normalisations, the sum)."""
     n, r = cluster.allocatable.shape
@@ -174,7 +195,8 @@ def greedy_scan_need(cluster, pods, sfeas, feas_counts, features, torch) -> tupl
         outs += nbytes(cluster.port_bits)
     static_rows = sfeas.sum(dim=1).to(torch.float64)
     per_pod_static = static_rows[torch.clamp(pods.class_id.long(), 0, sfeas.shape[0] - 1)]
-    ops = float((per_pod_static * (2 * 2 * r)).sum()) + float(feas_counts.double().sum()) * 60
+    tested = (pods.req > 0).sum(dim=1).to(torch.float64)
+    ops = float((per_pod_static * 2 * tested).sum()) + float(feas_counts.double().sum()) * 60
     return ins + outs, ops
 
 
@@ -359,7 +381,6 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
     against its plain version on the same inputs.  With timed=True also
     time kernel and plain version and work out each kernel's bound."""
     cluster, pods, sel, pref = snap[:4]
-    before = dict(bindings.LAUNCHES)
     pref_rows = (pref.expr_ids[:, None], pref.expr_op[:, None],
                  pref.expr_slot[:, None], pref.valid[:, None])
     sel_rows = (sel.expr_ids, sel.expr_op, sel.expr_slot, sel.term_valid)
@@ -409,7 +430,7 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
     n = cluster.label_bits.shape[0]
     b1 = [match_terms_need(n, *sel_rows, torch), match_terms_need(n, *pref_rows, torch)]
     need1 = (sum(x[0] for x in b1), sum(x[1] for x in b1))
-    need2 = class_statics_need(cluster, pods, reps.shape[0])
+    need2 = class_statics_need(cluster, pods, reps, torch)
     need3 = greedy_scan_need(cluster, pods, statics[0], out[2], features, torch)
     for name, err, ms, pms, need in (
         ("match_terms", err1, k1_ms, p1_ms, need1),
@@ -419,8 +440,6 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
         bms, by = bound(*need)
         rows.append({"name": name, "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by})
-    # comparison launches do not count toward the main path's counters
-    bindings.LAUNCHES.update(before)
     return rows
 
 

@@ -157,11 +157,18 @@ def test_unported_family_raises_through_the_scheduler():
 
 
 def test_reservations_overlay_usage():
-    """A nominated reservation fills its node in this snapshot only."""
-    ts = TorchBatchScheduler(device="cpu")
-    for n in basic_nodes(tw, 2):
-        ts.add_node(n)
-    big = tw.make_pod("nominated").req(cpu_milli=3950, mem=500 * tw.MI).obj()
-    names = ts.schedule_pending(basic_pods(tw, 2, "p"), reservations=[("node-0", big)])
-    assert names == ["node-1", "node-1"]
+    """A nominated reservation fills its node in this snapshot only: the
+    port and TPUBatchScheduler(mode="greedy") given the same nodes, pods
+    and reservation agree on names and every last_result field, and
+    neither keeps the reservation in its live state."""
+    js, ts = TPUBatchScheduler(mode="greedy"), TorchBatchScheduler(device="cpu")
+    for a, b in zip(basic_nodes(jw, 2), basic_nodes(tw, 2)):
+        js.add_node(a)
+        ts.add_node(b)
+    jbig = jw.make_pod("nominated").req(cpu_milli=3950, mem=500 * jw.MI).obj()
+    tbig = tw.make_pod("nominated").req(cpu_milli=3950, mem=500 * tw.MI).obj()
+    jnames = js.schedule_pending(basic_pods(jw, 2, "p"), reservations=[("node-0", jbig)])
+    tnames = ts.schedule_pending(basic_pods(tw, 2, "p"), reservations=[("node-0", tbig)])
+    assert tnames == jnames == ["node-1", "node-1"]
+    assert_last_result_equal(js, ts)
     assert not ts.state.requested[:2, 0].any()
