@@ -1,9 +1,13 @@
-"""ctypes bindings of the three CUDA kernels, with their launch counters.
+"""ctypes bindings of the CUDA kernels, with their launch counters.
 
 Each function takes tensors on one CUDA device, checks their dtypes,
 allocates the outputs with torch, launches the kernel on torch's current
 stream, raises if the launch returned a CUDA error, and adds one to
-`LAUNCHES[name]` for every kernel launch.  Nothing here synchronises.
+`LAUNCHES[name]` for every call of the kernel's C launch function.  A call
+enqueues the kernel's work for one unit: one table (match_terms), one
+batch (class_statics, greedy_scan, wavefront — the wavefront's call
+enqueues two kernels a wave), one bidding round (auction_bids,
+auction_accept — two kernels each).  Nothing here synchronises.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ _ARGTYPES = {
     "match_terms": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "class_statics": [_I] * 8 + [_P] * 19,
     "greedy_scan": [_I] * 7 + [_P] * 22,
+    "wavefront": [_I] * 9 + [_P] * 29,
+    "auction_bids": [_I] * 7 + [_P] * 25,
+    "auction_accept": [_I] * 4 + [_P] * 19,
 }
 
 # greedy_scan.cu's static capacities and parameter-block layout
@@ -32,6 +39,8 @@ IP_COUNT = 4 + 2 * MAX_FIT
 FP_COUNT = 5 + MAX_FIT + 2 * MAX_SHAPE
 _STRATEGY = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_GRID_Y = 65535
+MAX_WAVE = 32        # wavefront.cu's widest wave
+BIDS_GRID = 132      # auction_bids' class-pass blocks: one an SM, at most
 
 
 def reset_launches() -> None:
@@ -52,6 +61,11 @@ def _launcher(name: str):
             want = (MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, IP_COUNT, FP_COUNT)
             if got != want:
                 raise RuntimeError(f"greedy_scan limits {got} != bindings {want}")
+        if name == "wavefront":
+            max_k = getattr(lib, "wavefront_max_k")
+            max_k.restype, max_k.argtypes = ctypes.c_int, []
+            if max_k() != MAX_WAVE:
+                raise RuntimeError(f"wavefront max K {max_k()} != bindings {MAX_WAVE}")
     return fn
 
 
@@ -243,3 +257,230 @@ def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
         )
     return (assignment, scores, feas_counts, reasons, requested, nonzero,
             ports if use_ports else cluster.port_bits)
+
+
+def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
+              n_groups: int, cfg):
+    """The whole wavefront solve in one call (two kernels a wave, then the
+    gang release).  Returns (assignment, scores, feasible_counts, reasons,
+    requested, nonzero_requested, port_bits, wave_count, wave_fallbacks);
+    the carry tensors are fresh copies."""
+    dev = cluster.allocatable.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
+    requested = _arg(cluster.requested, f32, dev, "requested").clone()
+    nonzero = _arg(cluster.nonzero_requested, f32, dev, "nonzero_requested").clone()
+    use_ports = bool(features.ports)
+    ports = _arg(cluster.port_bits, i32, dev, "port_bits")
+    if use_ports:
+        ports = ports.clone()
+    sfeas_c = _arg(sfeas_c, b, dev, "sfeas")
+    aff_c = _arg(aff_c, f32, dev, "aff")
+    taint_c = _arg(taint_c, f32, dev, "taint")
+    members = _arg(members, i32, dev, "members")
+    class_id = _arg(pods.class_id, i32, dev, "pods.class_id")
+    pod_valid = _arg(pods.valid, b, dev, "pods.valid")
+    group_id = _arg(pods.group_id, i32, dev, "pods.group_id")
+    pod_req = _arg(pods.req, f32, dev, "pods.req")
+    pod_nz = _arg(pods.nonzero_req, f32, dev, "pods.nonzero_req")
+    pod_ports = _arg(pods.port_bits, i32, dev, "pods.port_bits")
+    n, r = alloc.shape
+    p = pod_req.shape[0]
+    pw = ports.shape[1]
+    w_rows, k_dim = members.shape
+    if r > MAX_R or pw > MAX_PW or not 1 <= k_dim <= MAX_WAVE:
+        raise ValueError(
+            f"wavefront takes at most {MAX_R} resources, {MAX_PW} port words "
+            f"and waves of 1..{MAX_WAVE}, got {r}, {pw} and {k_dim}"
+        )
+    iparams, fparams = score_params(cfg, r, dev)
+    kk = min(k_dim + 1, n)
+    masked = torch.empty((k_dim, n), dtype=f32, device=dev)
+    topv = torch.empty((k_dim, kk), dtype=f32, device=dev)
+    topi = torch.empty((k_dim, kk), dtype=i32, device=dev)
+    found_k, reason_k, cnt_k = (torch.empty(k_dim, dtype=i32, device=dev) for _ in range(3))
+    # pods in no wave keep the reference's scatter defaults
+    assignment = torch.full((p,), -1, dtype=i32, device=dev)
+    scores = torch.full((p,), float("-inf"), dtype=f32, device=dev)
+    feas_counts = torch.zeros(p, dtype=i32, device=dev)
+    reasons = torch.full((p,), -1, dtype=i32, device=dev)
+    counters = torch.zeros(2, dtype=i32, device=dev)
+    incomplete = torch.zeros(max(n_groups, 1), dtype=i32, device=dev)
+    if p and n and w_rows:
+        _launch(
+            "wavefront", dev,
+            n, r, p, sfeas_c.shape[0], pw, k_dim, w_rows, int(use_ports), int(n_groups),
+            _ptr(members), _ptr(alloc), _ptr(requested), _ptr(nonzero), _ptr(ports),
+            _ptr(sfeas_c), _ptr(aff_c), _ptr(taint_c), _ptr(class_id),
+            _ptr(pod_valid), _ptr(group_id), _ptr(pod_req), _ptr(pod_nz),
+            _ptr(pod_ports), _ptr(iparams), _ptr(fparams), _ptr(masked),
+            _ptr(topv), _ptr(topi), _ptr(found_k), _ptr(reason_k), _ptr(cnt_k),
+            _ptr(assignment), _ptr(scores), _ptr(feas_counts), _ptr(reasons),
+            _ptr(counters), _ptr(incomplete),
+        )
+    return (assignment, scores, feas_counts, reasons, requested, nonzero,
+            ports if use_ports else cluster.port_bits, counters[0], counters[1])
+
+
+def auction_state(rnd: int, go: bool, device) -> torch.Tensor:
+    """i32[3] round state the auction kernels share on the device:
+    (rounds executed, continue flag, last round's progress)."""
+    return torch.tensor([rnd, int(go), 0], dtype=torch.int32, device=device)
+
+
+def auction_bids(cluster, pods, st, requested, nonzero, assigned, state,
+                 tie_k: int, cfg, bufs):
+    """One bidding round at round state[0], if state[1] is set, into the
+    buffers of `auction_buffers`.  Returns (bid i32[P], val f32[P],
+    (inv_c, cnt_c, best_c)), views of those buffers (left at "no bid" when
+    the flag is down)."""
+    args, _keep = _bids_args(cluster, pods, st, requested, nonzero, assigned,
+                             state, tie_k, cfg, bufs)
+    _launch("auction_bids", requested.device, *args)
+    return bufs["bid"], bufs["val"], (bufs["inv_c"], bufs["cnt_c"], bufs["best_c"])
+
+
+def _scan_rows(p: int) -> int:
+    """Rows of auction_accept's prefix-scan scratch: the block totals of
+    every level above the P requests (ops.auction.prefix_sum's levels)."""
+    from ..ops.auction import SCAN_BLOCK
+
+    rows = 0
+    while p > SCAN_BLOCK:
+        p = -(-p // SCAN_BLOCK)
+        rows += p
+    return rows
+
+
+def auction_buffers(cluster, pods, tie_k: int) -> Dict[str, torch.Tensor]:
+    """Scratch and outputs of the two auction kernels, allocated once a
+    batch."""
+    dev = cluster.allocatable.device
+    i32, f32 = torch.int32, torch.float32
+    n, r = cluster.allocatable.shape
+    p = pods.req.shape[0]
+    c_dim = pods.class_rep.shape[0]
+    grid = max(1, min(c_dim, BIDS_GRID))
+    return {
+        "grid": grid,
+        "inv_c": torch.zeros((c_dim, tie_k), dtype=i32, device=dev),
+        "cnt_c": torch.zeros(c_dim, dtype=i32, device=dev),
+        "best_c": torch.empty(c_dim, dtype=f32, device=dev),
+        "masked": torch.empty((grid, n), dtype=f32, device=dev),
+        "slots": torch.empty((grid, n), dtype=i32, device=dev),
+        "bid": torch.full((p,), n, dtype=i32, device=dev),
+        "val": torch.full((p,), float("-inf"), dtype=f32, device=dev),
+        "perm": torch.empty(p, dtype=i32, device=dev),
+        "firstpos": torch.empty(p, dtype=i32, device=dev),
+        "perm_idx": torch.empty(p, dtype=i32, device=dev),
+        "prefix": torch.empty((p, r), dtype=f32, device=dev),
+        "scan": torch.empty((max(1, _scan_rows(p)), r), dtype=f32, device=dev),
+        "accept": torch.empty(p, dtype=torch.uint8, device=dev),
+    }
+
+
+def _bids_args(cluster, pods, st, requested, nonzero, assigned, state, tie_k,
+               cfg, bufs):
+    """The checked ctypes arguments of one auction_bids launch, and the
+    tensors they point into (kept alive by the caller)."""
+    dev = requested.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    keep = [
+        _arg(cluster.allocatable, f32, dev, "allocatable"),
+        _arg(requested, f32, dev, "requested"),
+        _arg(nonzero, f32, dev, "nonzero_requested"),
+        _arg(st.sfeas_s, b, dev, "sfeas_s"),
+        _arg(st.aff_s, f32, dev, "aff_s"),
+        _arg(st.taint_s, f32, dev, "taint_s"),
+        _arg(st.s_reps, i32, dev, "s_reps"),
+        _arg(st.jspec, i32, dev, "jspec"),
+        _arg(pods.req, f32, dev, "pods.req"),
+        _arg(pods.nonzero_req, f32, dev, "pods.nonzero_req"),
+        _arg(st.order, i32, dev, "order"),
+        _arg(pods.class_id, i32, dev, "pods.class_id"),
+        _arg(pods.valid, b, dev, "pods.valid"),
+        _arg(assigned, i32, dev, "assigned"),
+    ]
+    for t, what in ((requested, "requested"), (nonzero, "nonzero_requested"),
+                    (assigned, "assigned"), (state, "state")):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: rounds update it in place; it must be contiguous")
+    n, r = keep[0].shape
+    p = keep[8].shape[0]
+    if r > MAX_R:
+        raise ValueError(f"auction_bids takes at most {MAX_R} resources, got {r}")
+    if not 1 <= tie_k <= n:
+        raise ValueError(f"tie_k {tie_k} outside 1..{n}")
+    iparams, fparams = score_params(cfg, r, dev)
+    keep += [iparams, fparams, _arg(state, i32, dev, "state")]
+    keep += [bufs[k] for k in ("inv_c", "cnt_c", "best_c", "masked", "slots", "bid", "val")]
+    args = (n, r, p, st.jspec.shape[0], st.s_reps.shape[0], tie_k, bufs["grid"],
+            *(_ptr(t) for t in keep))
+    return args, keep
+
+
+def _accept_args(allocatable, pods, order, bid, val, requested, nonzero,
+                 assigned, bid_scores, state, max_rounds, bufs):
+    """The checked ctypes arguments of one auction_accept launch, and the
+    tensors they point into."""
+    dev = allocatable.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    for t, dt, what in ((requested, f32, "requested"), (nonzero, f32, "nonzero"),
+                        (assigned, i32, "assigned"), (bid_scores, f32, "bid_scores"),
+                        (state, i32, "state")):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: the kernel updates it in place; it must be a "
+                             f"contiguous {dt} tensor on {dev}")
+    keep = [
+        _arg(allocatable, f32, dev, "allocatable"), requested, nonzero,
+        _arg(pods.req, f32, dev, "pods.req"),
+        _arg(pods.nonzero_req, f32, dev, "pods.nonzero_req"),
+        _arg(pods.valid, b, dev, "pods.valid"),
+        _arg(order, i32, dev, "order"),
+        _arg(bid, i32, dev, "bid"),
+        _arg(val, f32, dev, "val"),
+        assigned, bid_scores, state,
+    ]
+    n, r = keep[0].shape
+    p = keep[3].shape[0]
+    if r > MAX_R:
+        raise ValueError(f"auction_accept takes at most {MAX_R} resources, got {r}")
+    keep += [bufs[k] for k in ("perm", "firstpos", "perm_idx", "prefix", "scan", "accept")]
+    return (n, r, p, int(max_rounds), *(_ptr(t) for t in keep)), keep
+
+
+def auction_accept(allocatable, pods, order, bid, val, requested, nonzero,
+                   assigned, bid_scores, state, max_rounds: int, bufs) -> None:
+    """One round's acceptance and commit, in place on (requested, nonzero,
+    assigned, bid_scores, state), if state[1] is set, with the scratch of
+    `auction_buffers`."""
+    dev = allocatable.device
+    args, _keep = _accept_args(allocatable, pods, order, bid, val, requested,
+                               nonzero, assigned, bid_scores, state, max_rounds, bufs)
+    _launch("auction_accept", dev, *args)
+
+
+def auction_rounds(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
+    """All rounds with no host sync: max_rounds (bids, accept) pairs are
+    enqueued, their arguments checked once; every launch after the loop's
+    end returns at once on the device's flag.  Returns (assigned,
+    bid_scores, requested, nonzero, rounds i32[])."""
+    dev = cluster.allocatable.device
+    p = pods.req.shape[0]
+    requested = cluster.requested.clone().contiguous()
+    nonzero = cluster.nonzero_requested.clone().contiguous()
+    assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    bid_scores = torch.full((p,), float("-inf"), dtype=torch.float32, device=dev)
+    # the loop condition before round 0: max_rounds > 0 and a valid pod
+    state = torch.zeros(3, dtype=torch.int32, device=dev)
+    state[1] = pods.valid.any().to(torch.int32) * int(max_rounds > 0)
+    bufs = auction_buffers(cluster, pods, tie_k)
+    bids, _k1 = _bids_args(cluster, pods, st, requested, nonzero, assigned,
+                           state, tie_k, cfg, bufs)
+    accept, _k2 = _accept_args(cluster.allocatable, pods, st.order, bufs["bid"],
+                               bufs["val"], requested, nonzero, assigned,
+                               bid_scores, state, max_rounds, bufs)
+    for _ in range(max_rounds):
+        _launch("auction_bids", dev, *bids)
+        _launch("auction_accept", dev, *accept)
+    return assigned, bid_scores, requested, nonzero, state[0]

@@ -2,9 +2,10 @@
 
 Each source is compiled by its own `nvcc` process into a shared library
 with a plain C interface (all processes started together), then bound
-with ctypes.  Libraries are named by a hash of their source and flags and
-kept in `kubernetes_tpu_torch/_build/`, so an unchanged source is built
-once.  A failed build raises; nothing falls back.
+with ctypes.  Libraries are named by a hash of their source, the shared
+headers of csrc/ and the flags, and kept in `kubernetes_tpu_torch/_build/`,
+so an unchanged source is built once.  A failed build raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-KERNELS = ("match_terms", "class_statics", "greedy_scan")
+KERNELS = ("match_terms", "class_statics", "greedy_scan", "wavefront",
+           "auction_bids", "auction_accept")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,7 +49,10 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -64,7 +69,7 @@ def build_all(names=KERNELS) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

@@ -1,9 +1,8 @@
 """TorchBatchScheduler: the batched scheduler on one CUDA card.
 
 Owns the incremental cluster state (persistent vocabularies) and runs the
-greedy batch solve (ops.assign.greedy_assign) on the device the scheduler
-was built for.  The surface is the one the host scheduler and the bench
-drive:
+batch solve on the device the scheduler was built for.  The surface is the
+one the host scheduler and the bench drive:
 
     sched = TorchBatchScheduler()                  # on "cuda"
     placements = sched.schedule(nodes, pending_pods, bound_pods)
@@ -12,8 +11,16 @@ drive:
     sched.assume(pod, node_name) / sched.forget(pod)
     placements = sched.schedule_pending(pending_pods)
 
+Three solve routes, chosen at encode time on the PADDED pod axis exactly
+as the reference package's TPUBatchScheduler chooses them (`_route`):
+under mode="auto" (the default) batches of >= AUCTION_MIN_PODS padded pods
+and every gang batch take the auction when its families allow it
+(ops.auction.auction_features_ok); other batches of >= WAVEFRONT_MIN_PODS
+take the wavefront; the rest take the greedy scan.  mode="greedy" and
+mode="auction" pin the family.
+
 Every batch is encoded on the host and transferred in full (no resident
-mirror yet), solved by the three kernels, and read back once through
+mirror yet), solved by the route's kernels, and read back once through
 pinned host buffers and a CUDA event (DeviceSolve).  There is no host
 fallback: a device fault raises to the caller.
 """
@@ -29,6 +36,7 @@ import torch
 
 from ..api import types as api
 from ..ops import assign as assign_ops
+from ..ops import auction as auction_ops
 from ..ops import device as device_ops
 from ..ops import schema
 from ..ops.scores import DEFAULT_SCORE_CONFIG, ScoreConfig
@@ -55,6 +63,14 @@ class DeviceSolve:
         self._decoded = None
         dev = result.assignment.device
         fields = (result.assignment, result.scores, result.reasons)
+        # wavefront telemetry rides the same readback (None off that route;
+        # an AuctionResult has no such fields)
+        wave = tuple(
+            getattr(result, f, None) for f in ("wave_count", "wave_fallbacks")
+        )
+        self._has_wave = wave[0] is not None
+        if self._has_wave:
+            fields = fields + wave
         if dev.type == "cuda":
             self._host = tuple(
                 torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in fields
@@ -84,7 +100,7 @@ class DeviceSolve:
             if self._event is not None:
                 self._event.synchronize()
             self.decode_wait_s = self._clock() - t0
-            assignment, scores, reasons = (h.numpy() for h in self._host)
+            assignment, scores, reasons = (h.numpy() for h in self._host[:3])
             # health check: a NaN score, or a placed pod whose winning score
             # is non-finite, means none of this batch's placements can be
             # trusted
@@ -92,7 +108,11 @@ class DeviceSolve:
             placed = assignment[: self.meta.num_pods] >= 0
             if np.isnan(s).any() or not np.isfinite(s[placed]).all():
                 raise SolveUnhealthy("non-finite score tensor in device solve")
-            self._decoded = (assignment.copy(), reasons.copy())
+            wave = (
+                tuple(int(h) for h in self._host[3:]) if self._has_wave
+                else (None, None)
+            )
+            self._decoded = (assignment.copy(), reasons.copy()) + wave
         return self._decoded
 
     def names(self) -> List[Optional[str]]:
@@ -102,14 +122,35 @@ class DeviceSolve:
     def reasons(self) -> Optional[List[int]]:
         return [int(r) for r in self._decode()[1][: self.meta.num_pods]]
 
+    @property
+    def wave_count(self) -> Optional[int]:
+        """Executed waves (None off the wavefront route)."""
+        return self._decode()[2]
+
+    @property
+    def wave_fallbacks(self) -> Optional[int]:
+        """Serialized members + per-pod full re-evaluations (None off the
+        wavefront route)."""
+        return self._decode()[3]
+
 
 class TorchBatchScheduler:
     """Owns the incremental cluster state and solves batches on `device`.
 
     device: None means the CUDA card; without one the constructor raises
     rather than carry on on the CPU (pass device="cpu" for the plain
-    versions).  mode: "auto" or "greedy" (both route to the greedy solve
-    in this port); "auction" is not ported yet and raises."""
+    versions).  mode: "auto" | "greedy" | "auction" (see the module
+    docstring).  use_wavefront=False keeps greedy-family batches on the
+    classic scan."""
+
+    # Greedy-family batches at least this large (padded) solve through the
+    # wavefront (ops.assign.wavefront_assign), as in the reference package.
+    WAVEFRONT_MIN_PODS = 64
+    # Batches at least this large (padded) route to the auction when its
+    # constraint coverage allows, as in the reference package.
+    AUCTION_MIN_PODS = 1024
+    # members a wave may hold (the wavefront kernel's widest wave)
+    WAVE_CAP = assign_ops.DEFAULT_WAVE_CAP
 
     def __init__(
         self,
@@ -118,13 +159,10 @@ class TorchBatchScheduler:
         mode: str = "auto",
         state: Optional[schema.ClusterState] = None,
         device=None,
+        use_wavefront: bool = True,
     ):
-        if mode == "auction":
-            raise NotImplementedError(
-                "the auction solve is not ported yet: use mode='greedy'"
-            )
-        if mode not in ("auto", "greedy"):
-            raise ValueError(f"mode must be auto|greedy, got {mode!r}")
+        if mode not in ("auto", "greedy", "auction"):
+            raise ValueError(f"mode must be auto|greedy|auction, got {mode!r}")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -139,7 +177,8 @@ class TorchBatchScheduler:
             self.state = schema.ClusterState(self.builder)
         self.score_config = score_config
         self.mode = mode
-        self.last_result: Optional[assign_ops.SolveResult] = None
+        self.use_wavefront = use_wavefront
+        self.last_result = None  # SolveResult or auction_ops.AuctionResult
         self.last_solve: Optional[DeviceSolve] = None
         self.last_timings: Dict[str, float] = {}
 
@@ -164,17 +203,51 @@ class TorchBatchScheduler:
 
     # -- scheduling -------------------------------------------------------
 
-    def _route(self, features: assign_ops.FeatureFlags) -> str:
-        """The solve route: the greedy scan (the only route ported)."""
-        return "greedy"
+    def _route(
+        self,
+        snap: schema.Snapshot,
+        features: assign_ops.FeatureFlags,
+        topo_split: Tuple[int, int],
+        n_groups: int,
+    ) -> str:
+        """The solve route, decided on the padded pod axis as the reference
+        package's TPUBatchScheduler._route decides it.  A batch whose
+        families this port does not solve yet is routed all the same; its
+        solve raises (assign.check_supported) and is never rerouted."""
+        p = snap.pods.req.shape[0]
+        route = self.mode
+        if route == "auto":
+            route = "greedy"
+            if auction_ops.auction_features_ok(features):
+                ok = True
+                if features.interpod:
+                    # the reference's bound on the repair's [P, T] tables
+                    t_dim = snap.terms.valid.shape[0]
+                    if t_dim * max(p, topo_split[1]) > 2**25:
+                        ok = False
+                if ok and (n_groups > 0 or p >= self.AUCTION_MIN_PODS):
+                    route = "auction"
+        if route == "greedy" and (
+            self.use_wavefront and p >= self.WAVEFRONT_MIN_PODS
+            and not features.slices
+        ):
+            route = "wavefront"
+        return route
 
     def _annotate(self, snap: schema.Snapshot, meta: schema.SnapshotMeta,
                   no_bound_pods: bool = False) -> None:
-        """Routing statics, derived while the snapshot is host numpy."""
+        """Routing statics, derived while the snapshot is host numpy: the
+        features, the auction's tie_k, the route and, on the wavefront
+        route, the wave plan."""
         meta.features = assign_ops.features_of(snap, no_bound_pods=no_bound_pods)
         meta.topo_split = assign_ops.required_topo_z_split(snap)
         meta.n_groups = schema.num_groups(snap)
-        meta.route = self._route(meta.features)
+        meta.tie_k = auction_ops.default_tie_k(snap)
+        meta.route = self._route(snap, meta.features, meta.topo_split, meta.n_groups)
+        if meta.route == "wavefront":
+            meta.wave_plan = assign_ops.plan_waves(
+                snap, features=meta.features, wave_cap=self.WAVE_CAP
+            )
 
     def encode_pending(
         self,
@@ -220,6 +293,16 @@ class TorchBatchScheduler:
     def _dispatch(self, snap: schema.Snapshot, meta: schema.SnapshotMeta):
         if meta.features is None:
             self._annotate(snap, meta)
+        if meta.route == "auction":
+            return auction_ops.auction_assign(
+                snap, self.score_config, n_groups=meta.n_groups,
+                features=meta.features, tie_k=meta.tie_k,
+            )
+        if meta.route == "wavefront":
+            return assign_ops.wavefront_assign(
+                snap, meta.wave_plan.members, self.score_config,
+                features=meta.features, n_groups=meta.n_groups,
+            )
         return assign_ops.greedy_assign(
             snap, self.score_config, features=meta.features,
             n_groups=meta.n_groups,

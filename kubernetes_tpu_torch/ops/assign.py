@@ -1,4 +1,4 @@
-"""Batched assignment solve: the greedy route.
+"""Batched assignment solve: the greedy family (the scan and the wavefront).
 
 The reference schedules one pod at a time: pop, filter, score, pick, then
 `assume` the pod into the cache so the next pod sees its resources
@@ -15,8 +15,10 @@ affinity/taint score rows — is hoisted out of the loop per pod *class*
 
 On the card the solve is three CUDA kernels: `match_terms` (selector and
 preferred masks), `class_statics` and `greedy_scan` (the whole sequential
-loop in one launch).  On the CPU the plain versions below run; they are
-what the tests hold against the reference package.
+loop in one launch) — or `wavefront` in place of `greedy_scan` for the
+wave-parallel solve of the same semantics (section below).  On the CPU the
+plain versions below run; they are what the tests hold against the
+reference package.
 
 This slice covers the static, resource and host-port families.  Batches
 that use topology spread, inter-pod (anti-)affinity, ImageLocality or
@@ -44,6 +46,7 @@ from .scores import (
     DEFAULT_SCORE_CONFIG,
     ScoreConfig,
     node_affinity_raw,
+    resource_score_parts,
     score_from_raw,
     taint_toleration_raw,
 )
@@ -204,6 +207,10 @@ class SolveResult(NamedTuple):
     feasible_counts: torch.Tensor  # i32[P]: feasible nodes seen by each pod
     cluster: ClusterTensors    # post-solve cluster (assumed placements applied)
     reasons: torch.Tensor = None   # i32[P]: REASON_* for unplaced pods
+    # wavefront telemetry (None on the classic scan): executed wave count
+    # and fallback count (serialized members + per-pod full re-evaluations)
+    wave_count: torch.Tensor = None      # i32[]
+    wave_fallbacks: torch.Tensor = None  # i32[]
 
 
 def class_statics_plain(
@@ -446,3 +453,399 @@ def greedy_assign(
         requested=requested, nonzero_requested=nonzero, port_bits=port_bits,
     )
     return SolveResult(assignment, win_scores, feas_counts, final, reasons)
+
+
+# -- wavefront greedy -------------------------------------------------------
+#
+# The scan pays one sequential step per pod.  The wavefront solve
+# partitions the solve order into WAVES and pays one heavy step per wave:
+# every member is evaluated against the wave-start carry, and the
+# sequential decisions inside the wave run in an O(K) mini-scan that only
+# corrects the wave-start scores at nodes picked earlier in the wave (the
+# allocation scores are the only usage-dependent family, and they are
+# per-node closed forms).  Placements equal the scan's exactly:
+#
+#   * a wave whose members claim a common host port is serialized through
+#     the scan's own step (`wave_safe` re-checks on the device, so any
+#     contiguous partition of the solve order is correct);
+#   * inside a safe wave, a member's score vector differs from its
+#     wave-start vector only at nodes picked earlier in the wave, so the
+#     corrected picked-node scores are compared against the best unpicked
+#     candidate of a top-(K+1) list ordered by (score desc, index asc);
+#   * a member whose fit FLIPS at a picked node is re-evaluated in full
+#     against the live carry (its feasible set, and the normalisation
+#     over it, changed).
+#
+# `plan_waves` is host numpy, as in the reference package.
+
+DEFAULT_WAVE_CAP = 32
+
+
+class WavePlan(NamedTuple):
+    """Host-side wave partition of one batch (plan_waves)."""
+
+    members: np.ndarray  # i32[W_pad, K] pod indices in solve order, -1 pad
+    n_waves: int         # real (non-empty) wave count
+
+
+def _pack_idx_rows(idx: np.ndarray, dim: int) -> np.ndarray:
+    """i32[P, M] index lists (-1 pad) -> packed u32[P, words] membership."""
+    p = idx.shape[0]
+    words = max(1, (dim + 31) // 32)
+    out = np.zeros((p, words), dtype=np.uint32)
+    rows, vals = np.nonzero(idx >= 0)
+    ids = idx[rows, vals]
+    np.bitwise_or.at(
+        out, (rows, ids >> 5), np.uint32(1) << (ids & 31).astype(np.uint32)
+    )
+    return out
+
+
+def plan_waves(
+    snapshot: Snapshot,
+    features: Optional[FeatureFlags] = None,
+    wave_cap: int = DEFAULT_WAVE_CAP,
+) -> WavePlan:
+    """Partition the solve order into conflict-free waves (host numpy).
+
+    A pod joins the open wave unless one of these would break:
+      * size: the wave already holds `wave_cap` members;
+      * ports: its host-port bits intersect a member's;
+      * spread/terms: a wave member WRITES a constraint row this pod
+        READS (kept for the constraint-families slice; those batches
+        raise before a solve today);
+      * headroom: aggregate wave demand would exceed the roomiest
+        node's free capacity (elementwise; the reference's default
+        headroom_frac of 1.0) — a heuristic
+        that keeps fit-flip fallbacks rare, not a correctness condition.
+
+    The partition is a performance hint only: the solve re-checks
+    coupling on the device and serializes unsafe waves."""
+    if features is None:
+        features = features_of(snapshot)
+    pods = snapshot.pods
+    priority = _np(pods.priority)
+    p = priority.shape[0]
+    order = np.argsort(-priority, kind="stable").astype(np.int32)
+
+    use_ports = bool(features.ports)
+    use_spread = bool(features.spread or features.soft_spread)
+    use_terms = bool(features.interpod)
+    port_bits = _np(pods.port_bits).view(np.uint32) if use_ports else None
+    if use_spread:
+        sp_idx = _np(snapshot.spread.pod_idx)
+        reads_sp = _pack_idx_rows(sp_idx, _np(snapshot.spread.valid).shape[0])
+        pm = _np(snapshot.spread.pod_matches)
+        writes_sp = np.packbits(pm, axis=1, bitorder="little")
+        w32 = reads_sp.shape[1] * 4
+        if writes_sp.shape[1] < w32:
+            writes_sp = np.pad(writes_sp, ((0, 0), (0, w32 - writes_sp.shape[1])))
+        writes_sp = writes_sp[:, :w32].copy().view(np.uint32)
+    if use_terms:
+        t_dim = _np(snapshot.terms.valid).shape[0]
+        mi = _np(snapshot.terms.matches_incoming).view(np.uint32)
+        anti = _pack_idx_rows(_np(snapshot.terms.anti_idx), t_dim)
+        aff = _pack_idx_rows(_np(snapshot.terms.aff_idx), t_dim)
+        w = min(mi.shape[1], anti.shape[1])
+        writes_tm = mi[:, :w] | anti[:, :w]
+        reads_tm = writes_tm | aff[:, :w]
+
+    req = _np(pods.req)
+    alloc = _np(snapshot.cluster.allocatable)
+    used = _np(snapshot.cluster.requested)
+    valid = _np(snapshot.cluster.node_valid)
+    free = np.where(valid[:, None], alloc - used, 0.0)
+    slack = free.max(axis=0)
+
+    waves = []
+    cur = []
+    port_acc = np.zeros_like(port_bits[0]) if use_ports else None
+    sp_acc = np.zeros_like(writes_sp[0]) if use_spread else None
+    tm_acc = np.zeros_like(writes_tm[0]) if use_terms else None
+    # f32, the schema's request dtype (request quantities stay inside
+    # f32's exact-integer envelope by construction)
+    demand = np.zeros(req.shape[1], dtype=np.float32)
+
+    for i in order.tolist():
+        conflict = len(cur) >= wave_cap
+        if not conflict and cur:
+            if use_ports and (port_acc & port_bits[i]).any():
+                conflict = True
+            elif use_spread and (sp_acc & reads_sp[i]).any():
+                conflict = True
+            elif use_terms and (tm_acc & reads_tm[i]).any():
+                conflict = True
+            elif ((demand + req[i]) > slack).any():
+                conflict = True
+        if conflict:
+            waves.append(cur)
+            cur = []
+            if use_ports:
+                port_acc = np.zeros_like(port_bits[0])
+            if use_spread:
+                sp_acc = np.zeros_like(writes_sp[0])
+            if use_terms:
+                tm_acc = np.zeros_like(writes_tm[0])
+            demand = np.zeros(req.shape[1], dtype=np.float32)
+        cur.append(i)
+        if use_ports:
+            port_acc |= port_bits[i]
+        if use_spread:
+            sp_acc |= writes_sp[i]
+        if use_terms:
+            tm_acc |= writes_tm[i]
+        demand += req[i]
+    if cur:
+        waves.append(cur)
+
+    n_waves = len(waves)
+    w_pad = pad_dim(max(n_waves, 1), 8)
+    members = np.full((w_pad, wave_cap), -1, dtype=np.int32)
+    for wi, wv in enumerate(waves):
+        members[wi, : len(wv)] = wv
+    return WavePlan(members=members, n_waves=n_waves)
+
+
+def _top_stable(masked: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of each row in (value desc, index asc) order —
+    lax.top_k's order.  torch.topk promises no order among equal values,
+    so this is a stable descending sort."""
+    vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def _pick_full(cl, pods, i, cls, sfeas_c, aff_c, taint_c, ports, features, cfg):
+    """One exact scan step's decision for pod i against carry `cl`:
+    (choice, win, count, reason, found)."""
+    _, masked, found, reason, cnt = _eval_pod(
+        cl, pods, i, cls, sfeas_c, aff_c, taint_c, ports, features, cfg,
+    )
+    choice = int(_pick(masked))
+    return choice, float(masked[choice]) if found else NEG_INF, cnt, reason, found
+
+
+def wavefront_assign_plain(
+    cluster: ClusterTensors,
+    pods: PodBatch,
+    sfeas_c: torch.Tensor,
+    aff_c: torch.Tensor,
+    taint_c: torch.Tensor,
+    members: torch.Tensor,
+    features: FeatureFlags,
+    n_groups: int,
+    cfg: ScoreConfig,
+):
+    """Plain version of kernel `wavefront`: the wave loop in torch ops.
+    members: i32[W, K] pod indices in solve order (-1 pad).  Returns
+    (assignment, scores, feasible_counts, reasons, requested,
+    nonzero_requested, port_bits, wave_count, wave_fallbacks)."""
+    n = cluster.allocatable.shape[0]
+    p = pods.req.shape[0]
+    c_dim = sfeas_c.shape[0]
+    dev = cluster.allocatable.device
+    k_dim = members.shape[1]
+    kk = min(k_dim + 1, n)
+    requested = cluster.requested.clone()
+    nonzero = cluster.nonzero_requested.clone()
+    new_ports = torch.zeros_like(cluster.port_bits) if features.ports else None
+    class_id = pods.class_id.tolist()
+    assignment = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    win_scores = torch.full((p,), NEG_INF, dtype=torch.float32, device=dev)
+    feas_counts = torch.zeros(p, dtype=torch.int32, device=dev)
+    reasons = torch.full((p,), REASON_NONE, dtype=torch.int32, device=dev)
+    n_waves = n_fb = 0
+
+    def record(i, choice, win, cnt, reason, found):
+        assignment[i] = choice if found else -1
+        win_scores[i] = win
+        feas_counts[i] = cnt
+        reasons[i] = reason
+
+    for row in members.tolist():
+        live = [(j, i) for j, i in enumerate(row) if i >= 0]
+        if not live:
+            continue  # an all-padding row is skipped, not counted
+        n_waves += 1
+        cl0 = cluster._replace(requested=requested, nonzero_requested=nonzero)
+        if not _wave_safe(pods, [i for _, i in live], features):
+            # coupled wave: the scan's own step, member by member
+            for _, i in live:
+                cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
+                cls = min(max(class_id[i], 0), c_dim - 1)
+                choice, win, cnt, reason, found = _pick_full(
+                    cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
+                    features, cfg,
+                )
+                record(i, choice, win, cnt, reason, found)
+                if found:
+                    requested[choice] += pods.req[i]
+                    nonzero[choice] += pods.nonzero_req[i]
+                    if features.ports:
+                        new_ports[choice] |= pods.port_bits[i]
+            n_fb += len(live)
+            continue
+        # heavy half: every member against the wave-start carry
+        req0, nz0 = requested.clone(), nonzero.clone()
+        evals = {}
+        for j, i in live:
+            cls = min(max(class_id[i], 0), c_dim - 1)
+            _, masked, found, reason, cnt = _eval_pod(
+                cl0, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
+                features, cfg,
+            )
+            topv, topi = _top_stable(masked, kk)
+            evals[j] = (masked, found, reason, cnt, topv, topi)
+        # the O(K) mini-scan
+        picked = []  # (node, ...) of earlier members in this wave
+        for j, i in live:
+            masked, found_k, reason_k, cnt_k, topv, topi = evals[j]
+            pod = pod_view(pods, i)
+            cls = min(max(class_id[i], 0), c_dim - 1)
+            pxc = torch.tensor(picked, dtype=torch.long, device=dev)
+            cap_rows = cluster.allocatable[pxc]
+            req0_rows, reqc_rows = req0[pxc], requested[pxc]
+            skip = pod.req[None, :] <= 0
+            fits0 = (skip | (req0_rows + pod.req[None, :] <= cap_rows)).all(-1)
+            fitsc = (skip | (reqc_rows + pod.req[None, :] <= cap_rows)).all(-1)
+            flip = bool((sfeas_c[cls][pxc] & (fits0 != fitsc)).any())
+            if flip:
+                cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
+                choice, win, cnt, reason, found = _pick_full(
+                    cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
+                    features, cfg,
+                )
+                n_fb += 1
+            else:
+                choice, win, found = _cheap_pick(
+                    cluster, pod, cfg, pxc, cap_rows, req0_rows, reqc_rows,
+                    nz0[pxc], nonzero[pxc], masked, topv, topi, found_k, n,
+                )
+                cnt, reason = cnt_k, reason_k
+            record(i, choice, win, cnt, reason, found)
+            if found:
+                requested[choice] += pods.req[i]
+                nonzero[choice] += pods.nonzero_req[i]
+                picked.append(choice)
+        # deferred port commit: no member of a safe wave read these
+        if features.ports:
+            for j, i in live:
+                a = int(assignment[i])
+                if a >= 0:
+                    new_ports[a] |= pods.port_bits[i]
+    if n_groups > 0:
+        assignment, win_scores, reasons, requested, nonzero = _gang_release(
+            assignment, win_scores, reasons, requested, nonzero,
+            pods, n_groups, n,
+        )
+    port_bits = (
+        cluster.port_bits | new_ports if features.ports else cluster.port_bits
+    )
+    i32 = torch.int32
+    return (assignment, win_scores, feas_counts, reasons, requested, nonzero,
+            port_bits, torch.tensor(n_waves, dtype=i32, device=dev),
+            torch.tensor(n_fb, dtype=i32, device=dev))
+
+
+def _wave_safe(pods: PodBatch, live, features: FeatureFlags) -> bool:
+    """No member claims a host port that a later member claims (the only
+    in-wave coupling of the families this slice covers)."""
+    if not features.ports or len(live) < 2:
+        return True
+    pb = pods.port_bits[torch.tensor(live, dtype=torch.long, device=pods.port_bits.device)]
+    hit = ((pb[:, None, :] & pb[None, :, :]) != 0).any(-1)
+    return not bool(torch.triu(hit, diagonal=1).any())
+
+
+def _cheap_pick(cluster, pod, cfg, pxc, cap_rows, req0_rows, reqc_rows,
+                nz0_rows, nzc_rows, masked, topv, topi, found_k, n):
+    """The closed-form correction of the wave-start scores at the nodes
+    picked earlier in the wave, against the best unpicked candidate of the
+    top list: (choice, win, found), exactly the scan's pick."""
+    fit0, bal0 = resource_score_parts(
+        cluster._replace(allocatable=cap_rows, requested=req0_rows,
+                         nonzero_requested=nz0_rows), pod, cfg)
+    fitc, balc = resource_score_parts(
+        cluster._replace(allocatable=cap_rows, requested=reqc_rows,
+                         nonzero_requested=nzc_rows), pod, cfg)
+    d_alloc = cfg.fit_weight * (fitc - fit0) + cfg.balanced_weight * (balc - bal0)
+    base = masked[pxc]
+    cand_ok = base > NEG_INF
+    cand_val = base + d_alloc
+    ispicked = (topi.long()[:, None] == pxc[None, :]).any(-1)
+    un_ok = ~ispicked & (topv > NEG_INF)
+    if bool(un_ok.any()):
+        first = int(torch.nonzero(un_ok)[0, 0])
+        bu_val, bu_idx = topv[first : first + 1], topi.long()[first : first + 1]
+    else:
+        bu_val = torch.full((1,), NEG_INF, device=masked.device)
+        bu_idx = torch.full((1,), n, dtype=torch.long, device=masked.device)
+    vals = torch.cat([torch.where(cand_ok, cand_val, NEG_INF), bu_val])
+    idxs = torch.cat([pxc, bu_idx])
+    best = float(vals.max())
+    found = found_k and best > NEG_INF
+    if not found:
+        return -1, NEG_INF, False
+    choice = int(idxs[(vals >= best) & (vals > NEG_INF)].min())
+    return min(max(choice, 0), n - 1), best, True
+
+
+def wavefront(
+    cluster: ClusterTensors,
+    pods: PodBatch,
+    sfeas_c: torch.Tensor,
+    aff_c: torch.Tensor,
+    taint_c: torch.Tensor,
+    members: torch.Tensor,
+    features: FeatureFlags,
+    n_groups: int,
+    cfg: ScoreConfig,
+):
+    """Wrapper of kernel `wavefront`: the kernel for tensors on the card,
+    the plain version for tensors on the CPU.  The carry tensors are
+    copied first, so the input snapshot is left as it was."""
+    if cluster.allocatable.device.type == "cpu":
+        return wavefront_assign_plain(
+            cluster, pods, sfeas_c, aff_c, taint_c, members, features,
+            n_groups, cfg,
+        )
+    from ..kernels import bindings
+
+    return bindings.wavefront(
+        cluster, pods, sfeas_c, aff_c, taint_c, members, features, n_groups, cfg,
+    )
+
+
+def wavefront_assign(
+    snapshot: Snapshot,
+    wave_members=None,
+    cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
+    features: Optional[FeatureFlags] = None,
+    n_groups: Optional[int] = None,
+) -> SolveResult:
+    """Wave-parallel greedy solve with exact scan parity, on the device
+    the snapshot's tensors lie on.  wave_members: i32[W, K] pod indices
+    covering every batch position in solve order (-1 pads), from
+    plan_waves (planned here with the default cap when not given)."""
+    if features is None:
+        features = features_of(snapshot)
+    check_supported(features)
+    if n_groups is None:
+        n_groups = int(_np(snapshot.pods.group_id).max()) + 1
+    if wave_members is None:
+        wave_members = plan_waves(snapshot, features).members
+    cluster, pods, sfeas_c, aff_c, taint_c = _solver_prep(snapshot)
+    members = torch.as_tensor(
+        np.asarray(wave_members, dtype=np.int32)
+        if not isinstance(wave_members, torch.Tensor) else wave_members,
+    ).to(device=cluster.allocatable.device, dtype=torch.int32)
+    (assignment, win_scores, feas_counts, reasons, requested, nonzero,
+     port_bits, n_waves, n_fb) = wavefront(
+        cluster, pods, sfeas_c, aff_c, taint_c, members, features, n_groups, cfg,
+    )
+    final = cluster._replace(
+        requested=requested, nonzero_requested=nonzero, port_bits=port_bits,
+    )
+    return SolveResult(
+        assignment, win_scores, feas_counts, final, reasons,
+        wave_count=n_waves, wave_fallbacks=n_fb,
+    )

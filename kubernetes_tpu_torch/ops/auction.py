@@ -1,0 +1,388 @@
+"""Joint batched assignment — the auction route.
+
+The greedy scan is sequential: one step per pod.  For large bursts and
+gangs the reference package solves the batch *jointly*, in rounds:
+
+  1. filtering and scoring run once per pod *class* (pods with identical
+     specs see identical masks and score rows); each class's max-score
+     tie nodes are listed in a per-(class, round) hashed order and the
+     class's j-th active pod bids the j-th tie node, so identical pods
+     bid distinct nodes while ties last;
+  2. each node accepts its bidders in solve order (priority, then batch
+     index) while they fit its remaining capacity — one stable sort by
+     bid and a difference of global prefix sums;
+  3. accepted pods commit; rejected pods bid again next round.
+
+A round in which an unplaced pod still has a feasible node commits at
+least one pod, so the loop ends; `max_rounds` bounds it regardless.
+After the rounds, a staged filter pass names each unplaced pod's reason
+and gangs with an unplaced member release every placement.
+
+On the card a round is two CUDA kernels, `auction_bids` and
+`auction_accept`; all `max_rounds` rounds are enqueued without a host
+sync and each launch reads the device's own continue flag, which the
+previous round's `auction_accept` wrote.  The reasons pass and the gang
+post-pass are elementwise and scatter glue in torch.
+
+This slice covers the static, resource and gang families; spread and
+inter-pod batches raise (assign.check_supported), batches with in-batch
+host ports never route here (auction_features_ok).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.vocab import pad_dim
+from .assign import (
+    NEG_INF,
+    REASON_GANG,
+    REASON_INTERPOD,
+    REASON_NONE,
+    REASON_RESOURCES,
+    REASON_SPREAD,
+    REASON_STATIC,
+    FeatureFlags,
+    _np,
+    check_supported,
+    class_statics,
+    features_of,
+    solve_order,
+)
+from .filters import fits_resources, pod_view, preferred_match, selector_match
+from .schema import ClusterTensors, Snapshot
+from .scores import (
+    DEFAULT_SCORE_CONFIG,
+    ScoreConfig,
+    combine_scores,
+    resource_score_parts,
+)
+
+_U32 = 0xFFFFFFFF
+HASH_GOLDEN = 0x9E3779B9
+HASH_ROUND = 0x85EBCA6B
+HASH_MIX = 0x27D4EB2F
+# the reference's tie_seed as TPUBatchScheduler passes it (0); the hash
+# mixes in tie_seed * 2 + 1
+TIE_SEED = 0
+# XLA's rewrite of a cumulative sum on the CPU: sequential sums within
+# blocks of this many rows, the block totals summed the same way
+SCAN_BLOCK = 16
+
+
+class AuctionResult(NamedTuple):
+    assignment: torch.Tensor    # i32[P]: node index, -1 unschedulable/dropped
+    scores: torch.Tensor        # f32[P]: accepted bid's score (-inf if none)
+    rounds: torch.Tensor        # i32[]: bidding rounds executed
+    gang_dropped: torch.Tensor  # bool[P]: placed but released with its gang
+    cluster: ClusterTensors     # post-solve cluster
+    reasons: torch.Tensor = None  # i32[P]: REASON_* for unplaced pods
+
+
+def auction_features_ok(features: FeatureFlags) -> bool:
+    """True when the joint solve covers this batch's constraint families
+    (the reference's rule: in-batch host ports, affinity-direction
+    inter-pod terms and slice carve-outs stay on the greedy routes)."""
+    return not (features.ports or features.interpod_aff or features.slices)
+
+
+def default_tie_k(snapshot: Snapshot) -> int:
+    """Tie nodes listed per class per round: enough for the LARGEST class
+    to bid distinct nodes, power-of-two bucketed, bounded by the node
+    axis (host numpy, at encode time)."""
+    cid = _np(snapshot.pods.class_id)
+    live = cid[_np(snapshot.pods.valid)]
+    biggest = int(np.bincount(live).max()) if live.size else 1
+    return min(pad_dim(max(biggest, 64), 1), _np(snapshot.cluster.allocatable).shape[0])
+
+
+def tie_keys(c: int, rnd: int, n: int, tie_seed: int, device) -> torch.Tensor:
+    """i64[N] hashed tie key of every node for class c in round rnd:
+    ((gid * 0x9E3779B9) ^ rot) >> 2 in wrapping u32 arithmetic, gid = node
+    index + 1.  Torch has no u32 multiply/shift on the CPU, so this is
+    int64 masked to 32 bits (every product stays below 2^63)."""
+    seed_c = (tie_seed * 2 + 1) & _U32
+    rot = (((c * HASH_GOLDEN) & _U32) ^ ((rnd * HASH_ROUND) & _U32) ^ seed_c)
+    rot = (rot * HASH_MIX) & _U32
+    gids = torch.arange(1, n + 1, dtype=torch.int64, device=device)
+    return (((gids * HASH_GOLDEN) & _U32) ^ rot) >> 2
+
+
+class AuctionStatics(NamedTuple):
+    """Per-batch tables every round reads (built once, on the solve's
+    device)."""
+
+    sfeas_s: torch.Tensor  # bool[Cs, N] static feasibility per spec class
+    aff_s: torch.Tensor    # f32[Cs, N]  raw affinity rows
+    taint_s: torch.Tensor  # f32[Cs, N]  raw taint rows
+    s_reps: torch.Tensor   # i32[Cs]     spec representatives (clipped)
+    jspec: torch.Tensor    # i32[C]      spec class of each joint class (clipped)
+    order: torch.Tensor    # i32[P]      solve order
+
+
+def auction_prep(snapshot: Snapshot) -> Tuple[ClusterTensors, object, AuctionStatics]:
+    """The selector/preferred masks (kernel match_terms) and the spec-class
+    static tables (kernel class_statics) the rounds read."""
+    cluster, pods, sel, pref = snapshot[:4]
+    p = pods.req.shape[0]
+    sel_mask = selector_match(cluster, sel)
+    pref_mask = preferred_match(cluster, pref)
+    s_reps = torch.clamp(pods.spec_rep, 0, p - 1)
+    sfeas_s, aff_s, taint_s = class_statics(
+        cluster, pods, sel_mask, pref_mask, reps=s_reps
+    )
+    jspec = torch.clamp(pods.joint_spec, 0, pods.spec_rep.shape[0] - 1)
+    return cluster, pods, AuctionStatics(
+        sfeas_s, aff_s, taint_s, s_reps.to(torch.int32), jspec.to(torch.int32),
+        solve_order(pods),
+    )
+
+
+def auction_bids_plain(
+    cluster: ClusterTensors,
+    pods,
+    st: AuctionStatics,
+    requested: torch.Tensor,
+    nonzero: torch.Tensor,
+    assigned: torch.Tensor,
+    rnd: int,
+    tie_k: int,
+    cfg: ScoreConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel `auction_bids`: one round's bids.  Returns
+    (bid i32[P] — a node index, or N for no bid; val f32[P])."""
+    n = cluster.allocatable.shape[0]
+    p = pods.req.shape[0]
+    dev = requested.device
+    c_dim = pods.class_rep.shape[0]
+    cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
+    fits_s, fit_s, bal_s = [], [], []
+    for rep in st.s_reps.tolist():
+        pod = pod_view(pods, rep)
+        fit, bal = resource_score_parts(cl, pod, cfg)
+        fits_s.append(fits_resources(cl, pod))
+        fit_s.append(fit)
+        bal_s.append(bal)
+    inv_c = torch.zeros((c_dim, tie_k), dtype=torch.int64, device=dev)
+    cnt_c = torch.zeros(c_dim, dtype=torch.int64, device=dev)
+    best_c = torch.full((c_dim,), NEG_INF, dtype=torch.float32, device=dev)
+    for c, s in enumerate(st.jspec.tolist()):
+        feas = st.sfeas_s[s] & fits_s[s]
+        scores = combine_scores(
+            fit_s[s], bal_s[s], st.aff_s[s], st.taint_s[s], feas, cfg
+        )
+        masked = torch.where(feas, scores, NEG_INF)
+        best = torch.max(masked)
+        tie = feas & (masked == best)
+        key = torch.where(tie, tie_keys(c, rnd, n, TIE_SEED, dev), -1)
+        # (key desc, index asc): lax.top_k's order
+        order_k = torch.sort(key, descending=True, stable=True).indices
+        inv_c[c] = order_k[:tie_k]
+        cnt_c[c] = min(int(tie.sum()), tie_k)
+        best_c[c] = best
+
+    # within-class position j of each active pod, in solve order
+    cls = torch.clamp(pods.class_id, 0, c_dim - 1).long()
+    active = (assigned < 0) & pods.valid
+    actkey = torch.where(active, cls, c_dim)
+    order = st.order.long()
+    sperm = order[torch.argsort(actkey[order], stable=True)]
+    skey = actkey[sperm].contiguous()
+    firstpos = torch.searchsorted(skey, skey, side="left")
+    j = torch.zeros(p, dtype=torch.int64, device=dev)
+    j[sperm] = torch.arange(p, device=dev) - firstpos
+    cnt = cnt_c[cls]
+    has = active & (best_c[cls] > NEG_INF) & (cnt > 0)
+    slot = j % torch.clamp(cnt, min=1)
+    bid = torch.where(has, inv_c[cls, slot], n).to(torch.int32)
+    val = torch.where(has, best_c[cls], NEG_INF)
+    return bid, val
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum along axis 0, added in the order XLA's
+    CPU backend adds jnp.cumsum: sequential sums within blocks of
+    SCAN_BLOCK rows (zero-padded), the block totals prefix-summed the same
+    way, then each block's exclusive total added to its rows.  torch.cumsum
+    adds in another order (in double on the CPU), and once the sums pass
+    float32's exact range the order decides the rounding."""
+    n = x.shape[0]
+    nb = -(-n // SCAN_BLOCK)
+    pad = torch.zeros((nb * SCAN_BLOCK,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    pad[:n] = x
+    blocks = pad.view((nb, SCAN_BLOCK) + tuple(x.shape[1:]))
+    inner = torch.empty_like(blocks)
+    run = torch.zeros_like(blocks[:, 0])
+    for k in range(SCAN_BLOCK):
+        run = run + blocks[:, k]
+        inner[:, k] = run
+    if nb > 1:
+        outer = prefix_sum(inner[:, -1])
+        inner[1:] = inner[1:] + outer[:-1, None]
+    return inner.view(pad.shape)[:n]
+
+
+def add_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """dst with vals[i] added to row idx[i], each row's additions in
+    increasing i: the order of the reference's scatter-add, which decides
+    the rounding once a row's sum passes float32's exact range.  On the
+    CPU index_add adds serially; on the card index_add adds with atomics in
+    no fixed order, while index_put_ with accumulate sorts the indices
+    stably and adds each row's values in order."""
+    if dst.device.type == "cpu":
+        return dst.index_add(0, idx, vals)
+    return dst.index_put((idx,), vals, accumulate=True)
+
+
+def auction_accept_plain(
+    allocatable: torch.Tensor,
+    pods,
+    order: torch.Tensor,
+    bid: torch.Tensor,
+    val: torch.Tensor,
+    requested: torch.Tensor,
+    nonzero: torch.Tensor,
+    assigned: torch.Tensor,
+    bid_scores: torch.Tensor,
+):
+    """Plain version of kernel `auction_accept`: one round's per-node
+    prefix acceptance and commit.  Pods are pre-permuted into solve order,
+    then stably sorted by bid; a pod's demand on its node is a difference
+    of global prefix sums, added in the reference's order (prefix_sum);
+    it equals the per-node running sum while every partial sum is exact in
+    float32.
+    Returns (assigned, bid_scores, requested, nonzero, progress)."""
+    n = allocatable.shape[0]
+    p = bid.shape[0]
+    order = order.long()
+    perm = order[torch.argsort(bid[order], stable=True)]
+    sbid = bid[perm].contiguous()
+    sreq = pods.req[perm]
+    prefix = prefix_sum(sreq)
+    first = torch.searchsorted(sbid, sbid, side="left")
+    within = prefix - prefix[first] + sreq[first]
+    remaining = (allocatable - requested)[torch.clamp(sbid, 0, n - 1).long()]
+    ok = ((sreq <= 0) | (within <= remaining)).all(dim=-1) & (sbid < n)
+    accept = torch.zeros(p, dtype=torch.bool, device=bid.device)
+    accept[perm] = ok
+    progress = bool(accept.any())
+    tgt = bid[accept].long()
+    requested = add_rows(requested, tgt, pods.req[accept])
+    nonzero = add_rows(nonzero, tgt, pods.nonzero_req[accept])
+    assigned = torch.where(accept, bid, assigned)
+    bid_scores = torch.where(accept, val, bid_scores)
+    return assigned, bid_scores, requested, nonzero, progress
+
+
+def _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds):
+    """The reference's while_loop with host control flow (CPU)."""
+    p = pods.req.shape[0]
+    dev = cluster.allocatable.device
+    assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    bid_scores = torch.full((p,), NEG_INF, dtype=torch.float32, device=dev)
+    requested, nonzero = cluster.requested, cluster.nonzero_requested
+    rnd, progress = 0, True
+    while rnd < max_rounds and progress and bool(((assigned < 0) & pods.valid).any()):
+        bid, val = auction_bids_plain(
+            cluster, pods, st, requested, nonzero, assigned, rnd, tie_k, cfg,
+        )
+        assigned, bid_scores, requested, nonzero, progress = auction_accept_plain(
+            cluster.allocatable, pods, st.order, bid, val, requested, nonzero,
+            assigned, bid_scores,
+        )
+        rnd += 1
+    return (assigned, bid_scores, requested, nonzero,
+            torch.tensor(rnd, dtype=torch.int32, device=dev))
+
+
+def auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds=64):
+    """All bidding rounds: (assigned, bid_scores, requested, nonzero,
+    rounds).  On the CPU the plain loop; on the card `max_rounds` rounds
+    of the two kernels are enqueued with no host sync, each launch
+    returning at once when the device's continue flag is down."""
+    if cluster.allocatable.device.type == "cpu":
+        return _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds)
+    from ..kernels import bindings
+
+    return bindings.auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
+
+
+def auction_assign(
+    snapshot: Snapshot,
+    cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
+    n_groups: int = 0,
+    max_rounds: int = 64,
+    features: Optional[FeatureFlags] = None,
+    tie_k: Optional[int] = None,
+) -> AuctionResult:
+    """Jointly assign the pending batch on the device its tensors lie on:
+    rounds of (bid → per-node prefix acceptance → commit), then the staged
+    reasons pass and the gang post-pass (n_groups > 0)."""
+    if features is None:
+        features = features_of(snapshot)
+    check_supported(features)
+    if not auction_features_ok(features):
+        raise ValueError(
+            "auction_assign does not cover in-batch host ports or "
+            "affinity-direction inter-pod terms; route this batch through "
+            "the greedy solves"
+        )
+    n = snapshot.cluster.allocatable.shape[0]
+    tie_k = min(default_tie_k(snapshot) if tie_k is None else tie_k, n)
+    cluster, pods, st = auction_prep(snapshot)
+    assigned, bid_scores, requested, nonzero, rounds = auction_rounds(
+        cluster, pods, st, tie_k, cfg, max_rounds,
+    )
+    c_dim = pods.class_rep.shape[0]
+
+    # failure reasons: one staged filter pass per class against the final
+    # state — the first stage that empties the candidate set; a class with
+    # survivors at every stage parked on contention (a resource reason).
+    # Tensor ops only, so the card's solve is not waited on here.
+    cl_f = cluster._replace(requested=requested, nonzero_requested=nonzero)
+    fits_f = torch.stack([
+        fits_resources(cl_f, pod_view(pods, st.s_reps[s]))
+        for s in range(st.s_reps.shape[0])
+    ])
+    jspec = st.jspec.long()
+    s_static = st.sfeas_s[jspec]                               # [C, N]
+    any_static = s_static.any(dim=1)
+    a_res = (s_static & fits_f[jspec]).any(dim=1)
+    a_spread = a_inter = a_res  # no spread / inter-pod stage in this slice
+    reason_c = torch.where(
+        a_inter, REASON_RESOURCES,
+        torch.where(
+            ~any_static, REASON_STATIC,
+            torch.where(
+                ~a_res, REASON_RESOURCES,
+                torch.where(~a_spread, REASON_SPREAD, REASON_INTERPOD),
+            ),
+        ),
+    ).to(torch.int32)
+    cls_all = torch.clamp(pods.class_id, 0, c_dim - 1).long()
+    reasons = torch.where(assigned >= 0, REASON_NONE, reason_c[cls_all])
+
+    # gang post-pass: all-or-nothing groups; the release subtracts every
+    # pod's requests times its 0/1 drop weight, as the reference's masked
+    # scatter does
+    gang_dropped = torch.zeros_like(pods.valid)
+    if n_groups > 0:
+        g = pods.group_id
+        gc = torch.clamp(g, 0, n_groups - 1).long()
+        unplaced = ((assigned < 0) & pods.valid & (g >= 0)).to(torch.int32)
+        incomplete = torch.zeros(n_groups, dtype=torch.int32, device=g.device)
+        incomplete = incomplete.index_add(0, gc, unplaced) > 0
+        gang_dropped = (g >= 0) & incomplete[gc] & (assigned >= 0)
+        tgt = torch.clamp(assigned, 0, n - 1).long()
+        w = gang_dropped[:, None].to(pods.req.dtype)
+        requested = add_rows(requested, tgt, -pods.req * w)
+        nonzero = add_rows(nonzero, tgt, -pods.nonzero_req * w)
+        assigned = torch.where(gang_dropped, -1, assigned)
+        bid_scores = torch.where(gang_dropped, NEG_INF, bid_scores)
+        reasons = torch.where(gang_dropped, REASON_GANG, reasons)
+
+    final = cluster._replace(requested=requested, nonzero_requested=nonzero)
+    return AuctionResult(assigned, bid_scores, rounds, gang_dropped, final, reasons)

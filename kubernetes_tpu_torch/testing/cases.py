@@ -9,6 +9,16 @@ selectors (In, NotIn, Exists, DoesNotExist, Gt over labels and topology
 slots), preferred terms, taints of every effect with and without
 tolerations, host ports (bound and in-batch), NodeName, priorities and
 gangs.
+
+The other builders size batches to each solve route (the route is decided
+on the padded pod axis: < 64 greedy, 64-512 wavefront, >= 1024 or any
+gang auction): `basic_objects` (SchedulingBasic's shape), `contended_objects`
+(a uniform cluster and identical pods, so every node ties and more pods
+contend than the tie list holds), `gang_objects` (gangs, one of which
+cannot be placed whole), and `capacity_edge_objects` /
+`fractional_mix_objects` (memory requests that are not whole MiB, whose
+sums leave float32's exact range, so the auction's order of additions
+shows).
 """
 
 from __future__ import annotations
@@ -90,3 +100,117 @@ def mixed_objects(wrappers, seed: int, n_nodes: int = 0, n_pods: int = 0):
         for i in range(0, n_nodes, 5)
     ]
     return nodes, pods, bound
+
+
+def basic_objects(wrappers, n_nodes: int, n_pods: int, seed: int = 0):
+    """SchedulingBasic's node-default / pod-default shape (4 CPU, 32Gi,
+    110 pods, zone-$index_mod8; pods 100m / 500Mi), with a seeded share of
+    pods that differ in size, priority and a zone selector, so the batch
+    has several pod classes."""
+    api = wrappers.api
+    gi, mi = wrappers.GI, wrappers.MI
+    rng = np.random.default_rng(seed)
+    nodes = [
+        wrappers.make_node(f"node-{i}")
+        .capacity(cpu_milli=4000, mem=32 * gi, pods=110)
+        .zone(f"zone-{i % 8}").obj()
+        for i in range(n_nodes)
+    ]
+    pods = []
+    for i in range(n_pods):
+        w = wrappers.make_pod(f"pod-{i}")
+        r = rng.random()
+        if r < 0.7:
+            w = w.req(cpu_milli=100, mem=500 * mi)
+        elif r < 0.85:
+            w = w.req(cpu_milli=900, mem=2 * gi).priority(int(rng.integers(0, 3)))
+        else:
+            w = w.req(cpu_milli=300, mem=1 * gi).node_selector_kv(
+                api.LABEL_ZONE, f"zone-{int(rng.integers(0, 8))}"
+            )
+        pods.append(w.obj())
+    return nodes, pods, []
+
+
+def contended_objects(wrappers, n_nodes: int = 8, n_pods: int = 64,
+                      pod_slots: int = 110):
+    """A uniform cluster and identical pods: every node ties for every
+    pod, so tie order decides each pick; with n_pods > n_nodes more pods
+    contend than there are tie nodes."""
+    gi, mi = wrappers.GI, wrappers.MI
+    nodes = [
+        wrappers.make_node(f"n{i}").capacity(cpu_milli=4000, mem=16 * gi, pods=pod_slots).obj()
+        for i in range(n_nodes)
+    ]
+    pods = [wrappers.make_pod(f"p{i}").req(cpu_milli=250, mem=512 * mi).obj()
+            for i in range(n_pods)]
+    return nodes, pods, []
+
+
+def gang_objects(wrappers, n_nodes: int = 4, n_gangs: int = 4, size: int = 3,
+                 loose: int = 4):
+    """Gangs of `size` members and `loose` ungrouped pods on a small
+    cluster; the last gang asks for more than the cluster has left, so it
+    is released whole (REASON_GANG for its placed members)."""
+    gi, mi = wrappers.GI, wrappers.MI
+    nodes = [
+        wrappers.make_node(f"n{i}").capacity(cpu_milli=4000, mem=8 * gi, pods=110)
+        .zone(f"z{i % 2}").obj()
+        for i in range(n_nodes)
+    ]
+    pods = []
+    for g in range(n_gangs):
+        cpu = 3000 if g == n_gangs - 1 else 700
+        for m in range(size):
+            pods.append(
+                wrappers.make_pod(f"g{g}-{m}").req(cpu_milli=cpu, mem=512 * mi)
+                .group(f"gang-{g}").priority(g % 2).obj()
+            )
+    for i in range(loose):
+        pods.append(wrappers.make_pod(f"loose-{i}").req(cpu_milli=400, mem=256 * mi).obj())
+    return nodes, pods, []
+
+
+# 100M: 95.367431640625 MiB, a multiple of 2^-12 MiB, so float32 holds a
+# sum of such requests exactly only below 4,096 MiB
+FRACTIONAL_MEM = 100_000_000
+
+
+def capacity_edge_objects(wrappers, n_nodes: int, n_pods: int, per_node: int,
+                          priorities: int = 1):
+    """Identical pods whose memory request is not a whole number of MiB, on
+    nodes that hold exactly `per_node` of them: the last pod a node takes
+    lands on its capacity, and past the 43rd pod in the auction's sorted
+    order the acceptance prefix leaves float32's exact range, so the order
+    of the additions decides acceptance at each node's edge."""
+    nodes = [
+        wrappers.make_node(f"n{i}")
+        .capacity(cpu_milli=64000, mem=per_node * FRACTIONAL_MEM, pods=110).obj()
+        for i in range(n_nodes)
+    ]
+    pods = [
+        wrappers.make_pod(f"p{i}").req(cpu_milli=10, mem=FRACTIONAL_MEM)
+        .priority(i % priorities).obj()
+        for i in range(n_pods)
+    ]
+    return nodes, pods, []
+
+
+def fractional_mix_objects(wrappers, seed: int, n_nodes: int = 8, n_pods: int = 1000):
+    """Pods of several memory sizes that are not whole MiB, in four
+    priorities, on nodes of 60 GB and up: each node's committed sum passes
+    float32's exact range, so the order in which a round adds its accepted
+    pods to a node decides the rounding of requested."""
+    rng = np.random.default_rng(seed)
+    sizes = (FRACTIONAL_MEM, 150_000_000, 333_000_000, 77_777_777, 1_234_567)
+    nodes = [
+        wrappers.make_node(f"n{i}")
+        .capacity(cpu_milli=64000, mem=(60 + i) * 1_000_000_000, pods=500).obj()
+        for i in range(n_nodes)
+    ]
+    pods = [
+        wrappers.make_pod(f"p{i}").req(cpu_milli=10, mem=int(rng.choice(sizes)))
+        .priority(int(rng.integers(0, 4))).obj()
+        for i in range(n_pods)
+    ]
+    return nodes, pods, []

@@ -1,5 +1,8 @@
 """The slice as a whole: TorchBatchScheduler on the CPU equals the
-reference's TPUBatchScheduler(mode="greedy") and the host oracle.
+reference's TPUBatchScheduler and the host oracle — on the greedy family
+(both pinned to mode="greedy") and on the default mode="auto", where both
+route each batch to the greedy scan, the wavefront or the auction by its
+padded size and its gangs.
 
 SchedulingBasic's node-default / pod-default shape (4 CPU, 32Gi, 110 pods,
 zone-$index_mod8; pods 100m / 500Mi) at a small node count, with bound
@@ -17,7 +20,7 @@ from kubernetes_tpu.testing import wrappers as jw
 from kubernetes_tpu.testing.oracle import Oracle
 from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
 from kubernetes_tpu_torch.testing import wrappers as tw
-from kubernetes_tpu_torch.testing.cases import mixed_objects
+from kubernetes_tpu_torch.testing.cases import basic_objects, gang_objects, mixed_objects
 
 
 def basic_nodes(w, n):
@@ -123,7 +126,7 @@ def test_gang_admission_retry_matches_reference():
     jn, jp = build(jw)
     tn, tp = build(tw)
     want = TPUBatchScheduler(mode="greedy").schedule(jn, jp)
-    got = TorchBatchScheduler(device="cpu").schedule(tn, tp)
+    got = TorchBatchScheduler(mode="greedy", device="cpu").schedule(tn, tp)
     assert got == want
     assert sum(n is not None for n in got) == 6
 
@@ -141,11 +144,18 @@ def test_default_device_is_the_card():
 
 
 def test_modes():
-    with pytest.raises(NotImplementedError):
-        TorchBatchScheduler(mode="auction", device="cpu")
+    """auto | greedy | auction, as in the reference package; "auction"
+    now solves (it raised before the auction was ported)."""
     with pytest.raises(ValueError):
         TorchBatchScheduler(mode="wavefront", device="cpu")
-    assert TorchBatchScheduler(mode="greedy", device="cpu")._route(None) == "greedy"
+    nodes, pods, _ = basic_objects(tw, 8, 20)
+    for mode, want in (("greedy", "greedy"), ("auction", "auction"), ("auto", "greedy")):
+        ts = TorchBatchScheduler(mode=mode, device="cpu")
+        for n in nodes:
+            ts.add_node(n)
+        _, meta = ts.encode_pending(pods)
+        assert meta.route == want
+        assert None not in ts.schedule_pending(pods)
 
 
 def test_unported_family_raises_through_the_scheduler():
@@ -172,3 +182,89 @@ def test_reservations_overlay_usage():
     assert tnames == jnames == ["node-1", "node-1"]
     assert_last_result_equal(js, ts)
     assert not ts.state.requested[:2, 0].any()
+
+
+def assert_route_results_equal(js, ts):
+    """Every last_result field of either result type, and the wave
+    telemetry DeviceSolve read back, exactly."""
+    jr, tr = js.last_result, ts.last_result
+    assert type(jr).__name__ == type(tr).__name__
+    fields = ["assignment", "scores", "reasons"]
+    if type(tr).__name__ == "AuctionResult":
+        fields += ["gang_dropped", "rounds"]
+    else:
+        fields += ["feasible_counts", "wave_count", "wave_fallbacks"]
+    for f in fields:
+        a, b = getattr(jr, f), getattr(tr, f)
+        if a is None or b is None:
+            assert a is None and b is None, f
+            continue
+        assert np.array_equal(np.asarray(a), b.numpy()), f
+    for f in ("requested", "nonzero_requested"):
+        assert np.array_equal(np.asarray(getattr(jr.cluster, f)), getattr(tr.cluster, f).numpy()), f
+    assert (js.last_solve is None) == (ts.last_solve is None)
+    if ts.last_solve is not None:  # the one-shot schedule() keeps none
+        assert js.last_solve.wave_count == ts.last_solve.wave_count
+        assert js.last_solve.wave_fallbacks == ts.last_solve.wave_fallbacks
+
+
+ROUTE_CASES = {
+    # name: (builder, route): 20 pods pad to 32, 100 to 128, 600 to 1,024
+    "greedy-20": (lambda w: basic_objects(w, 16, 20, seed=1), "greedy"),
+    "wavefront-100": (lambda w: basic_objects(w, 24, 100, seed=2), "wavefront"),
+    "auction-600": (lambda w: basic_objects(w, 40, 600, seed=3), "auction"),
+    "auction-gangs": (lambda w: gang_objects(w), "auction"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_default_route_matches_reference(case):
+    """TorchBatchScheduler() and TPUBatchScheduler(), both on their
+    defaults: the same route, the same names, every last_result field."""
+    build, route = ROUTE_CASES[case]
+    jn, jp, _ = build(jw)
+    tn, tp, _ = build(tw)
+    js, ts = TPUBatchScheduler(), TorchBatchScheduler(device="cpu")
+    for a, b in zip(jn, tn):
+        js.add_node(a)
+        ts.add_node(b)
+    _, jmeta = js.encode_pending(jp)
+    _, tmeta = ts.encode_pending(tp)
+    assert jmeta.route == tmeta.route == route
+    assert jmeta.tie_k == tmeta.tie_k
+    if route == "wavefront":
+        assert np.array_equal(jmeta.wave_plan.members, tmeta.wave_plan.members)
+    jnames, tnames = js.schedule_pending(jp), ts.schedule_pending(tp)
+    assert jnames == tnames
+    assert_route_results_equal(js, ts)
+    if route == "auction":
+        assert int(ts.last_result.rounds) >= 1
+
+
+def test_default_route_incremental_and_one_shot():
+    """SchedulingBasic's shape on defaults: a 600-pod init batch (auction)
+    assumed, then a 100-pod batch (wavefront), then the one-shot
+    schedule() of a gang batch (auction) — names and results equal the
+    reference's at every step."""
+    js, ts = TPUBatchScheduler(), TorchBatchScheduler(device="cpu")
+    for a, b in zip(basic_nodes(jw, 64), basic_nodes(tw, 64)):
+        js.add_node(a)
+        ts.add_node(b)
+    ji, ti = basic_pods(jw, 600, "init"), basic_pods(tw, 600, "init")
+    jnames, tnames = js.schedule_pending(ji), ts.schedule_pending(ti)
+    assert jnames == tnames and None not in tnames
+    assert_route_results_equal(js, ts)
+    assert type(ts.last_result).__name__ == "AuctionResult"
+    for a, b, name in zip(ji, ti, tnames):
+        js.assume(a, name)
+        ts.assume(b, name)
+    jnames = js.schedule_pending(basic_pods(jw, 100, "m"))
+    tnames = ts.schedule_pending(basic_pods(tw, 100, "m"))
+    assert jnames == tnames
+    assert_route_results_equal(js, ts)
+    assert ts.last_solve.wave_count is not None
+    jn, jp, _ = gang_objects(jw, n_gangs=5)
+    tn, tp, _ = gang_objects(tw, n_gangs=5)
+    js1, ts1 = TPUBatchScheduler(), TorchBatchScheduler(device="cpu")
+    assert js1.schedule(jn, jp) == ts1.schedule(tn, tp)
+    assert_route_results_equal(js1, ts1)
