@@ -4,13 +4,19 @@
 
 Phases (one JSON line each on stdout):
 
-  build      build the six CUDA kernels from kubernetes_tpu_torch/csrc
-  parity     each kernel against its plain torch version on the card, exact,
-             on mixed small batches (selectors, taints, ports, gangs, all
-             three fit strategies): the greedy scan; the wavefront with the
+  build      build the seven CUDA kernels from kubernetes_tpu_torch/csrc
+  parity     each kernel against its plain torch version, exact (on the
+             card, or on CPU copies of the inputs where the plain version
+             adds in pod index order: the scan, the wavefront and the
+             auction's commit), on mixed small batches (selectors, taints, ports, gangs, all
+             three fit strategies) and PodTopologySpread batches (zone and
+             hostname keys, maxSkew 1-5, hard and soft, minDomains, matching
+             bound pods, gangs): the greedy scan; the wavefront with the
              planner's waves and with random partitions (coupled waves and
-             fit flips); the auction's two kernels round by round and the
-             whole enqueued round loop, on batches without in-batch ports
+             fit flips); the auction's kernels round by round and the whole
+             enqueued round loop, on batches without in-batch ports (some
+             also against the plain loop on the CPU, among them a gang
+             released past float32's exact range)
   main       SchedulingBasic/5000Nodes through TorchBatchScheduler() on its
              default route: 5,000 nodes, 1,000 init pods scheduled and
              assumed, then a measured 1,000-pod batch; both pad to 1,024
@@ -20,6 +26,16 @@ Phases (one JSON line each on stdout):
   wavefront  SchedulingNodeAffinity/5000Nodes: 5,000 nodes, 1,000 init and
              1,000 measured pods with a required zone affinity, in batches
              of 500 (padded to 512: the wavefront route)
+  spread     TopologySpreading/5000Nodes: 5,000 nodes, 5,000 init pods
+             (padded to 8,192: the auction) scheduled and assumed, then the
+             2,000 measured pods of maxSkew 5 on the zone (padded to 2,048:
+             the auction with its spread repair) through
+             TorchBatchScheduler(); the same measured batch on the scan
+             (mode="greedy", use_wavefront=False), in 500-pod batches (the
+             wavefront), and with whenUnsatisfiable: ScheduleAnyway (the
+             auction, scored by the soft spread score); every result equal
+             to the plain path's on the CPU for the same snapshot, and each
+             kernel of the spread path timed at these shapes
   kernels    each kernel against its plain version at the shapes of the
              phase that launches it, exact, timed with CUDA events, with
              the bound of its work on this run's data
@@ -27,9 +43,10 @@ Phases (one JSON line each on stdout):
              the CPU, default route: identical placements and scores
   north      one 10,000-pod batch onto 50,000 nodes (the auction)
 
-In main, greedy and wavefront the launch counters are reset just before
-the phase and read just after; each phase fails unless every kernel of
-its route was launched and no kernel of another route was.  Then the
+In main, greedy, wavefront and each part of spread the launch counters
+are reset just before the part and read just after; each fails unless
+every kernel of its route was launched and no kernel of another route was
+(auction_spread belongs to the auction route of a spread batch only).  Then the
 card's name and power limit, the `kernels` summary object, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises and the
 script exits non-zero; with no CUDA device it exits non-zero and prints no
@@ -58,6 +75,12 @@ NORTH = (50000, 0, 10000)
 AFFINITY = (5000, 1000, 1000)
 AFFINITY_BATCH = 500
 AFFINITY_ZONES = ("zone-1", "zone-2")
+# TopologySpreading/5000Nodes (performance-config.yaml:115-139,
+# pod-with-topology-spreading.yaml: maxSkew 5 on the zone, DoNotSchedule),
+# the measured batch also in batches of 500 for the wavefront
+SPREAD = (5000, 5000, 2000)
+SPREAD_BATCH = 500
+SPREAD_MAX_SKEW = 5
 
 # H100 SXM published peaks (NVIDIA data sheet: HBM3 rate, non-tensor float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
@@ -76,13 +99,18 @@ SOURCES = {
                      "kubernetes_tpu/ops/auction.py:355"),
     "auction_accept": ("kubernetes_tpu_torch/csrc/auction_accept.cu",
                        "kubernetes_tpu/ops/auction.py:680"),
+    "auction_spread": ("kubernetes_tpu_torch/csrc/auction_spread.cu",
+                       "kubernetes_tpu/ops/auction.py:507"),
 }
 
-# the kernels each route launches (match_terms and class_statics: all)
+# the kernels each route launches (match_terms and class_statics: all);
+# "auction_spread" is the auction route of a batch with the spread family
 ROUTE_KERNELS = {
     "greedy": ("match_terms", "class_statics", "greedy_scan"),
     "wavefront": ("match_terms", "class_statics", "wavefront"),
     "auction": ("match_terms", "class_statics", "auction_bids", "auction_accept"),
+    "auction_spread": ("match_terms", "class_statics", "auction_bids", "auction_accept",
+                       "auction_spread"),
 }
 
 
@@ -134,11 +162,25 @@ def cuda_ms(fn, iters: int, torch) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def _pairs(a, b):
+    """Matching outputs of two result tuples, as CPU tensors (a kernel's
+    output on the card, a plain version's on either side); an output both
+    leave out (None: a family the batch does not use) is skipped."""
+    if len(a) != len(b):
+        raise AssertionError(f"results of {len(a)} and {len(b)} outputs")
+    for x, y in zip(a, b):
+        if x is None and y is None:
+            continue
+        if x is None or y is None:
+            raise AssertionError("one result has an output the other lacks")
+        yield x.cpu(), y.cpu()
+
+
 def max_abs_err(a, b, torch) -> float:
     """Largest |a - b| over matching outputs (0.0 when equal; inf when
     infinities or non-finite entries differ)."""
     worst = 0.0
-    for x, y in zip(a, b):
+    for x, y in _pairs(a, b):
         if x.dtype == torch.bool:
             x, y = x.to(torch.int32), y.to(torch.int32)
         x, y = x.double(), y.double()
@@ -152,7 +194,7 @@ def max_abs_err(a, b, torch) -> float:
 
 def check_equal(name: str, got, want, torch) -> float:
     err = max_abs_err(got, want, torch)
-    same = all(torch.equal(x, y) for x, y in zip(got, want))
+    same = all(torch.equal(x, y) for x, y in _pairs(got, want))
     if not same or err != 0.0:
         raise AssertionError(f"kernel {name} differs from its plain version: max_abs_err {err}")
     return err
@@ -209,12 +251,81 @@ def class_statics_need(cluster, pods, reps, torch) -> tuple:
     return need, n * per_class
 
 
-def greedy_scan_need(cluster, pods, sfeas, feas_counts, features, torch) -> tuple:
+def live_spread_rows(table, torch):
+    """The spread rows some pod's constraints reference (each referenced
+    row is valid): the only rows a spread computation needs to read; the
+    padded rows of the [C, N] tables are left out of every bound."""
+    return torch.unique(table.pod_idx[table.pod_idx >= 0]).long()
+
+
+def spread_rows_bytes(table, state, live, counts_passes: int = 2, pod_rows=None) -> int:
+    """Bytes of the live spread rows: the row indices and the match flags
+    on those rows of the pods that are read (pod_rows; None: all), each
+    row's parameters, eligibility, values and size, and its counts
+    `counts_passes` times (in and out)."""
+    pod_idx, pod_matches = table.pod_idx, table.pod_matches[:, live]
+    if pod_rows is not None:
+        pod_idx, pod_matches = pod_idx[pod_rows], pod_matches[pod_rows]
+    return (nbytes(pod_idx, pod_matches, table.max_skew[live], table.min_domains[live],
+                   table.hard[live], state.eligible[live], state.v[live], state.sizes[live])
+            + counts_passes * nbytes(state.counts_node[live]))
+
+
+def spread_need(sp_args, pods, feas_counts, torch) -> tuple:
+    """(bytes, operations) the spread family adds to a greedy solve on this
+    data: the live rows' tables once and their counts in and out; per pod,
+    one pass over the N nodes for each hard row's minimum and for each
+    live row it matches (the count update), and on each feasible node 4
+    flops a hard row (the skew test) and 3 a soft row (the multiply-add
+    and the sum)."""
+    if sp_args is None:
+        return 0, 0.0
+    table, st = sp_args.table, sp_args.state
+    n = st.v.shape[1]
+    live_rows = live_spread_rows(table, torch)
+    need = spread_rows_bytes(table, st, live_rows)
+    rows = torch.clamp(table.pod_idx, 0, st.v.shape[0] - 1).long()
+    live = table.pod_idx >= 0
+    hard = (live & table.hard[rows]).sum(dim=1).double()
+    soft = (live & ~table.hard[rows]).sum(dim=1).double()
+    matched = table.pod_matches[:, live_rows].sum(dim=1).double()
+    feas = feas_counts.double()
+    ops = float(((hard + matched) * n + (4 * hard + 3 * soft) * feas).sum())
+    return need, ops
+
+
+def auction_spread_need(st, accepted, bid, counts, torch) -> tuple:
+    """(bytes, operations) one round of the spread repair needs on this
+    data: the accepted set, bids and solve order, the live rows' tables,
+    eligibility, values and counts in; their counts and the kept set out.
+    Operations per admit pass, over the L live rows: the row minima (L N),
+    a sort of the A accepted pods by value (A log2 A), the segmented count
+    (A L), the admit tests (6 a row a pod), the commit (L N); then the
+    final commit."""
+    import math
+
+    table, sps = st.sp.table, st.sp.state
+    n = counts.shape[1]
+    p = bid.shape[0]
+    live = live_spread_rows(table, torch)
+    c_live = int(live.numel())
+    need = (nbytes(accepted, bid, st.order) + p
+            + spread_rows_bytes(table, sps._replace(counts_node=counts), live))
+    a = max(int(accepted.sum()), 1)
+    mc = table.pod_idx.shape[1]
+    per_pass = (c_live * n + a * max(1, math.ceil(math.log2(max(a, 2)))) + a * c_live
+                + 6 * a * mc + c_live * n)
+    return need, float(3 * per_pass + c_live * n)
+
+
+def greedy_scan_need(cluster, pods, sfeas, feas_counts, features, torch,
+                     sp_args=None) -> tuple:
     """Bytes: inputs once, outputs once.  Operations: per step, the
     fit test on every static-feasible node (2 flops a resource the pod
     requests; a resource it does not request is not tested) and the
     ~60 flops of the scores on every feasible node (LeastAllocated and
-    BalancedAllocation over cpu+memory, two normalisations, the sum)."""
+    BalancedAllocation over cpu+memory, two normalisations, the sum),
+    plus the spread family's work (spread_need)."""
     n, r = cluster.allocatable.shape
     p = pods.req.shape[0]
     ins = nbytes(cluster.allocatable, cluster.requested, cluster.nonzero_requested,
@@ -228,7 +339,8 @@ def greedy_scan_need(cluster, pods, sfeas, feas_counts, features, torch) -> tupl
     per_pod_static = static_rows[torch.clamp(pods.class_id.long(), 0, sfeas.shape[0] - 1)]
     tested = (pods.req > 0).sum(dim=1).to(torch.float64)
     ops = float((per_pod_static * 2 * tested).sum()) + float(feas_counts.double().sum()) * 60
-    return ins + outs, ops
+    sp_bytes, sp_ops = spread_need(sp_args, pods, feas_counts, torch)
+    return ins + outs + sp_bytes, ops + sp_ops
 
 
 def auction_bids_need(cluster, pods, st, requested, tie_k, torch) -> tuple:
@@ -256,7 +368,47 @@ def auction_bids_need(cluster, pods, st, requested, tie_k, torch) -> tuple:
         n_feas = int((stat & fits).sum())
         per_joint = int((st.jspec == s).sum())
         ops += per_joint * (n_static * 2 * tested + n_feas * 60 + n_feas * 4)
+    if st.sp is not None:
+        # each joint class's spread rows: the live rows' tables and counts
+        # once, the constraint classes' row indices and match flags; the
+        # eligible counts once (the minima), the skew test (4 flops) and
+        # the soft score (3) a row on each feasible node
+        table, sps = st.sp.table, st.sp.state
+        ins += spread_rows_bytes(table, sps, live_spread_rows(table, torch), 1,
+                                 pod_rows=st.k_reps.long())
+        for rep in st.reps.tolist():
+            live = table.pod_idx[rep] >= 0
+            rows = torch.clamp(table.pod_idx[rep], 0, sps.v.shape[0] - 1)
+            hard = int((live & table.hard[rows]).sum())
+            soft = int((live & ~table.hard[rows]).sum())
+            ops += hard * n + (4 * hard + 3 * soft) * n
     return ins + outs, ops + p * 4
+
+
+def reasons_need(cluster, pods, st, assigned, requested, nonzero, sp_counts,
+                 torch) -> tuple:
+    """(bytes, operations) the auction's reasons pass needs on this data:
+    allocatable and the final usage once, the spec classes' static rows
+    and requests, the pods' class and assignment in and reasons out, and
+    with the spread family the live rows' tables and final counts; the fit
+    test (2 flops a node and requested resource a spec class), the stage
+    ands (3 a node a joint class) and the spread skew test (4 flops a node
+    a constraint class's hard row)."""
+    n, r = cluster.allocatable.shape
+    reps = st.s_reps.long()
+    tested = int((pods.req[reps] > 0).sum())
+    need = (nbytes(cluster.allocatable, requested, st.sfeas_s, pods.req[reps], st.jspec,
+                   pods.class_id, assigned) + assigned.shape[0] * 4)
+    ops = 2 * n * tested + 3 * n * st.jspec.shape[0]
+    if st.features.spread:
+        table, sps = st.sp.table, st.sp.state
+        live = live_spread_rows(table, torch)
+        need += spread_rows_bytes(table, sps._replace(counts_node=sp_counts), live, 1,
+                                  pod_rows=st.k_reps.long()) + nbytes(st.jcons)
+        rows = table.pod_idx[st.k_reps.long()]
+        hard = int(((rows >= 0) & table.hard[torch.clamp(rows, 0, None).long()]).sum())
+        ops += 4 * n * hard
+    return need, float(ops)
 
 
 def auction_accept_need(cluster, pods, bid, torch) -> tuple:
@@ -354,62 +506,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": secs, "card": card})
 
-    # ---- parity on mixed small batches ------------------------------------
-    import numpy as np
-    from kubernetes_tpu_torch.ops import schema, scores
-    from kubernetes_tpu_torch.testing.cases import (
-        capacity_edge_objects, contended_objects, fractional_mix_objects,
-        gang_objects, mixed_objects,
-    )
-
-    cfgs = (
-        scores.ScoreConfig(),
-        scores.ScoreConfig(fit_strategy="MostAllocated"),
-        scores.ScoreConfig(
-            fit_strategy="RequestedToCapacityRatio",
-            rtcr_shape=((0.0, 0.0), (50.0, 7.0), (100.0, 10.0)),
-        ),
-    )
-    checked = {"greedy": 0, "wavefront": 0, "auction": 0, "rounds": 0}
-    fallbacks = 0
-    for seed in range(6):
-        nodes, pending, bound_pods = mixed_objects(wrappers, seed)
-        snap, _meta = schema.SnapshotBuilder().build(nodes, pending, bound_pods=bound_pods)
-        cfg = cfgs[seed % 3]
-        ts = dv.to_device(snap, "cuda")
-        features = assign.features_of(snap)
-        n_groups = int(snap.pods.group_id.max()) + 1
-        run_kernels(ts, features, n_groups, cfg, assign, filters, bindings, torch)
-        checked["greedy"] += 1
-        rng = np.random.default_rng(seed)
-        for members in (assign.plan_waves(snap, features, 8).members,
-                        random_partition(snap, rng, 8, np),
-                        random_partition(snap, rng, 32, np)):
-            fallbacks += run_wavefront(ts, features, n_groups, cfg, members, assign, bindings, torch)
-            checked["wavefront"] += 1
-        for p in pending:  # in-batch ports route away from the auction
-            p.spec.containers[0].ports = []
-        snap, _meta = schema.SnapshotBuilder().build(nodes, pending, bound_pods=bound_pods)
-        checked["rounds"] += run_auction(dv.to_device(snap, "cuda"), cfg, None, auction, bindings, torch)
-        checked["auction"] += 1
-    for (nodes, pending, _b), tie_k, on_cpu in (
-            (contended_objects(wrappers, 32, 256, 16), None, False),
-            (contended_objects(wrappers, 10, 300, 20), None, False),
-            (contended_objects(wrappers, 24, 96, 110), 8, False),
-            (gang_objects(wrappers), None, False),
-            # requests that are not whole MiB, sums past float32's exact
-            # range: the prefix's and the commit's order of additions show
-            (capacity_edge_objects(wrappers, 64, 1000, 10), None, True),
-            (fractional_mix_objects(wrappers, 0), None, True)):
-        snap, _meta = schema.SnapshotBuilder().build(nodes, pending)
-        checked["rounds"] += run_auction(dv.to_device(snap, "cuda"), cfgs[0], tie_k, auction,
-                                         bindings, torch,
-                                         cpu_snap=dv.to_device(snap, "cpu") if on_cpu else None)
-        checked["auction"] += 1
-    torch.cuda.synchronize()
-    if not fallbacks:
-        raise AssertionError("parity: no wavefront fallback was exercised")
-    emit({"phase": "parity", "cases": checked, "wavefront_fallbacks": fallbacks, "exact": True})
+    # ---- parity on small batches ------------------------------------------
+    parity_phase(wrappers, assign, auction, dv, filters, bindings, torch)
 
     # ---- main path: SchedulingBasic/5000Nodes, default route ---------------
     sched = TorchBatchScheduler()
@@ -521,6 +619,10 @@ def main() -> int:
           "measured_s": meas_s, "pods_per_s": AFFINITY[2] / meas_s,
           "launches": wave_launches, "card": card})
 
+    # ---- spread: TopologySpreading/5000Nodes, every route ------------------
+    spread_rows, spread_launches = spread_phase(
+        wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
+
     # ---- each kernel against its plain version at its phase's shapes -------
     summary = run_kernels(
         snap_k, meta_k.features, meta_k.n_groups, sched.score_config,
@@ -537,12 +639,16 @@ def main() -> int:
     launches_of = {"greedy_scan": greedy_launches, "wavefront": wave_launches}
     for row in summary:
         row["launches"] = launches_of.get(row["name"], main_launches)[row["name"]]
+    row = next(r for r in spread_rows if r["name"] == "auction_spread")
+    summary.append(dict(row, launches=spread_launches["auction_spread"]))
     order_ms = cuda_ms(lambda: assign.solve_order(snap_k.pods), 50, torch)
     order_bound = bound(*solve_order_need(snap_k.pods))
     emit({"phase": "kernels", "card": card,
-          "shapes": {"match_terms, class_statics, auction_*": "SchedulingBasic/5000Nodes measured batch",
+          "shapes": {"match_terms, class_statics, auction_bids, auction_accept":
+                     "SchedulingBasic/5000Nodes measured batch",
                      "greedy_scan": "the same batch, mode=greedy",
-                     "wavefront": "SchedulingNodeAffinity/5000Nodes first measured batch"},
+                     "wavefront": "SchedulingNodeAffinity/5000Nodes first measured batch",
+                     "auction_spread": "TopologySpreading/5000Nodes measured batch"},
           "kernels": [dict({k: row[k] for k in ("name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")},
                            equal=True) for row in summary],
           "solve_order": {"ms": order_ms, "bound_ms": order_bound[0], "bound_by": order_bound[1]}})
@@ -611,6 +717,378 @@ def main() -> int:
     return 0
 
 
+def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> None:
+    """Every kernel against its plain version on small batches (see the
+    module docstring), exact."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import schema, scores
+    from kubernetes_tpu_torch.testing.cases import (
+        capacity_edge_objects, contended_objects, fractional_gang_objects,
+        fractional_mix_objects, gang_objects, mixed_objects, spread_objects,
+        topology_spreading_objects,
+    )
+
+    cfgs = (
+        scores.ScoreConfig(),
+        scores.ScoreConfig(fit_strategy="MostAllocated"),
+        scores.ScoreConfig(
+            fit_strategy="RequestedToCapacityRatio",
+            rtcr_shape=((0.0, 0.0), (50.0, 7.0), (100.0, 10.0)),
+        ),
+    )
+    checked = {"greedy": 0, "wavefront": 0, "auction": 0, "rounds": 0, "spread_batches": 0}
+    fallbacks = 0
+    for seed in range(6):
+        nodes, pending, bound_pods = mixed_objects(wrappers, seed)
+        snap, _meta = schema.SnapshotBuilder().build(nodes, pending, bound_pods=bound_pods)
+        cfg = cfgs[seed % 3]
+        ts = dv.to_device(snap, "cuda")
+        features = assign.features_of(snap)
+        n_groups = int(snap.pods.group_id.max()) + 1
+        run_kernels(ts, features, n_groups, cfg, assign, filters, bindings, torch)
+        checked["greedy"] += 1
+        rng = np.random.default_rng(seed)
+        for members in (assign.plan_waves(snap, features, 8).members,
+                        random_partition(snap, rng, 8, np),
+                        random_partition(snap, rng, 32, np)):
+            fallbacks += run_wavefront(ts, features, n_groups, cfg, members, assign, bindings, torch)
+            checked["wavefront"] += 1
+        for p in pending:  # in-batch ports route away from the auction
+            p.spec.containers[0].ports = []
+        snap, _meta = schema.SnapshotBuilder().build(nodes, pending, bound_pods=bound_pods)
+        checked["rounds"] += run_auction(dv.to_device(snap, "cuda"), cfg, None, auction, bindings, torch)
+        checked["auction"] += 1
+    for (nodes, pending, _b), tie_k, on_cpu in (
+            (contended_objects(wrappers, 32, 256, 16), None, False),
+            (contended_objects(wrappers, 10, 300, 20), None, False),
+            (contended_objects(wrappers, 24, 96, 110), 8, False),
+            (gang_objects(wrappers), None, False),
+            # requests that are not whole MiB, sums past float32's exact
+            # range: the prefix's and the commit's order of additions show
+            (capacity_edge_objects(wrappers, 64, 1000, 10), None, True),
+            (fractional_mix_objects(wrappers, 0), None, True),
+            # an incomplete gang released by the post-pass on such nodes
+            (fractional_gang_objects(wrappers, 1), None, True)):
+        snap, _meta = schema.SnapshotBuilder().build(nodes, pending)
+        checked["rounds"] += run_auction(dv.to_device(snap, "cuda"), cfgs[0], tie_k, auction,
+                                         bindings, torch,
+                                         cpu_snap=dv.to_device(snap, "cpu") if on_cpu else None)
+        checked["auction"] += 1
+    # the gang post-pass itself, card against CPU, past the exact range
+    nodes, pending, _b = fractional_gang_objects(wrappers, 1)
+    snap, _meta = schema.SnapshotBuilder().build(nodes, pending)
+    gang_card = auction.auction_assign(dv.to_device(snap, "cuda"), n_groups=schema.num_groups(snap))
+    gang_cpu = auction.auction_assign(dv.to_device(snap, "cpu"), n_groups=schema.num_groups(snap))
+    if not bool(gang_cpu.gang_dropped.any()):
+        raise AssertionError("parity: the fractional gang case released no gang")
+    check_equal("auction gang post-pass (card against CPU)",
+                result_fields(gang_card, True), result_fields(gang_cpu, False), torch)
+    # the scan's and the wavefront's gang release on such nodes
+    nodes, pending, _b = fractional_gang_objects(wrappers, 2, 8, 300)
+    snap, _meta = schema.SnapshotBuilder().build(nodes, pending)
+    ts, cs_ = dv.to_device(snap, "cuda"), dv.to_device(snap, "cpu")
+    features = assign.features_of(snap)
+    members = assign.plan_waves(snap, features, 32).members
+    for label, solve in (("greedy", lambda x: assign.greedy_assign(x)),
+                         ("wavefront", lambda x: assign.wavefront_assign(x, members))):
+        card_res, cpu_res = solve(ts), solve(cs_)
+        if not bool((cpu_res.reasons == assign.REASON_GANG).any()):
+            raise AssertionError(f"parity: the fractional gang case released no gang ({label})")
+        check_equal(f"{label} gang release (card against CPU)",
+                    result_fields(card_res, True), result_fields(cpu_res, False), torch)
+    checked["gang_release"] = 3
+    # PodTopologySpread batches through the three solves
+    spread_cases = [spread_objects(wrappers, seed) for seed in range(4)]
+    spread_cases.append(spread_objects(wrappers, 4, 40, 200, soft_share=0.7))
+    tsn, _ti, tsm = topology_spreading_objects(wrappers, 64, 0, 300)
+    spread_cases.append((tsn, tsm, []))
+    for k, (nodes, pending, bound_pods) in enumerate(spread_cases):
+        snap, _meta = schema.SnapshotBuilder().build(nodes, pending, bound_pods=bound_pods)
+        cfg = (cfgs + (scores.ScoreConfig(spread_weight=1.7),))[k % 4]
+        ts = dv.to_device(snap, "cuda")
+        features = assign.features_of(snap)
+        n_groups = schema.num_groups(snap)
+        run_kernels(ts, features, n_groups, cfg, assign, filters, bindings, torch)
+        rng = np.random.default_rng(100 + k)
+        for members in (assign.plan_waves(snap, features, 8).members,
+                        random_partition(snap, rng, 8, np),
+                        random_partition(snap, rng, 32, np)):
+            fallbacks += run_wavefront(ts, features, n_groups, cfg, members, assign, bindings, torch)
+        checked["rounds"] += run_auction(ts, cfg, None, auction, bindings, torch,
+                                         cpu_snap=dv.to_device(snap, "cpu"))
+        checked["spread_batches"] += 1
+    torch.cuda.synchronize()
+    if not fallbacks:
+        raise AssertionError("parity: no wavefront fallback was exercised")
+    emit({"phase": "parity", "cases": checked, "wavefront_fallbacks": fallbacks, "exact": True})
+
+
+def cpu_copy(snap):
+    """The snapshot's tensors copied to the CPU (the plain path's input)."""
+    return type(snap)(*(type(t)(*(x.cpu() for x in t)) for t in snap))
+
+
+def result_fields(res, to_cpu: bool) -> tuple:
+    """The compared fields of a solve result, as CPU tensors: assignment,
+    scores, reasons and the post-solve usage; then the route's own —
+    feasible counts (scan, wavefront), wave counters (wavefront), rounds,
+    gang_dropped and the final spread counts (auction)."""
+    names = ("assignment", "scores", "reasons", "feasible_counts", "wave_count",
+             "wave_fallbacks", "rounds", "gang_dropped", "debug_sp_counts")
+    out = [getattr(res, f, None) for f in names]
+    out += [res.cluster.requested, res.cluster.nonzero_requested]
+    return tuple(None if t is None else (t.cpu() if to_cpu else t) for t in out)
+
+
+def host_syncs(fn, torch) -> list:
+    """file:line of every host sync fn() makes with the card (torch's
+    sync debug mode, one warning a sync)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught]
+
+
+def zone_skew(names, zone_of) -> int:
+    """max - min of the placed pods' counts over the zones."""
+    counts = {z: 0 for z in set(zone_of.values())}
+    for name in names:
+        if name is not None:
+            counts[zone_of[name]] += 1
+    return max(counts.values()) - min(counts.values())
+
+
+def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch,
+                 card):
+    """TopologySpreading/5000Nodes through TorchBatchScheduler on every
+    route, each result held against the plain path on the CPU for the
+    same snapshot; returns the spread path's kernel rows (timed at these
+    shapes) and the launch counts of the default-route run."""
+    from kubernetes_tpu_torch.testing.cases import topology_spreading_objects
+
+    nodes, init, measured = topology_spreading_objects(wrappers, *SPREAD)
+    zone_of = {nd.meta.name: f"zone-{i % ZONES}" for i, nd in enumerate(nodes)}
+    timing = {}
+
+    def new_sched(**kw):
+        s = TorchBatchScheduler(**kw)
+        for node in nodes:
+            s.add_node(node)
+        return s
+
+    def check_cpu(what, snap, meta, res, solve):
+        t = time.perf_counter()
+        want = solve(cpu_copy(snap), meta)
+        timing[f"{what}_cpu_s"] = time.perf_counter() - t
+        check_equal(f"spread/{what} (card against the plain path on the CPU)",
+                    result_fields(res, True), result_fields(want, False), torch)
+
+    def auction_solve(snap, meta):
+        return auction.auction_assign(snap, n_groups=meta.n_groups, features=meta.features,
+                                      tie_k=meta.tie_k, topo_z=meta.topo_split[0])
+
+    def greedy_solve(snap, meta):
+        return assign.greedy_assign(snap, features=meta.features, n_groups=meta.n_groups,
+                                    topo_z=meta.topo_split[0])
+
+    def wavefront_solve(snap, meta):
+        return assign.wavefront_assign(snap, meta.wave_plan.members, features=meta.features,
+                                       n_groups=meta.n_groups, topo_z=meta.topo_split[0])
+
+    # the default route: init batch (auction, no spread), measured (auction + repair)
+    sched = new_sched()
+
+    def run_default():
+        t = time.perf_counter()
+        init_names = sched.schedule_pending(init)
+        timing["init_s"] = time.perf_counter() - t
+        timing["init_rounds"] = int(sched.last_result.rounds)
+        for pod, name in zip(init, init_names):
+            if name is None:
+                raise AssertionError(f"spread: init pod {pod.meta.name} was not placed")
+            sched.assume(pod, name)
+        snap, meta = sched.encode_pending(measured)
+        if meta.route != "auction" or not meta.features.spread:
+            raise AssertionError(f"spread: measured batch took route {meta.route}")
+        timing["snap"] = (snap, meta)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        names = sched.schedule_pending(measured)
+        timing["measured_s"] = time.perf_counter() - t
+        return init_names, names
+
+    (init_names, names), launches = drive_phase("spread", "auction_spread", run_default,
+                                                bindings)
+    snap, meta = timing["snap"]
+    res = sched.last_result
+    rounds = int(res.rounds)
+    check_cpu("auction", snap, meta, res, auction_solve)
+    skew = zone_skew(names, zone_of)
+    if skew > SPREAD_MAX_SKEW:
+        raise AssertionError(f"spread: measured pods' zone skew {skew} > {SPREAD_MAX_SKEW}")
+    placed = sum(n is not None for n in names)
+    for pod, name in zip(measured, names):
+        if name is not None:
+            sched.assume(pod, name)
+    check_capacity(sched.state)
+    syncs = host_syncs(lambda: auction_solve(snap, meta), torch)
+    out = {"phase": "spread", "workload": "TopologySpreading/5000Nodes", "route": "auction",
+           "auction_host_syncs": syncs,
+           "init_s": timing["init_s"], "init_rounds": timing["init_rounds"],
+           "measured_s": timing["measured_s"], "pods_per_s": len(measured) / timing["measured_s"],
+           "placed": placed, "rounds": rounds, "zone_skew": skew, "tie_k": meta.tie_k,
+           "last_timings": sched.last_timings, "launches": launches}
+
+    # the scan: the same measured batch, same state
+    gsched = new_sched(mode="greedy", use_wavefront=False)
+    for pod, name in zip(init, init_names):
+        gsched.assume(pod, name)
+
+    def run_scan():
+        s, m = gsched.encode_pending(measured)
+        if m.route != "greedy":
+            raise AssertionError(f"spread/greedy: route {m.route}")
+        timing["gsnap"] = (s, m)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = gsched.schedule_pending(measured)
+        timing["greedy_s"] = time.perf_counter() - t
+        return got
+
+    gnames, glaunches = drive_phase("spread/greedy", "greedy", run_scan, bindings)
+    gsnap, gmeta = timing["gsnap"]
+    check_cpu("greedy", gsnap, gmeta, gsched.last_result, greedy_solve)
+    out["greedy"] = {"measured_s": timing["greedy_s"],
+                     "pods_per_s": len(measured) / timing["greedy_s"],
+                     "placed": sum(n is not None for n in gnames),
+                     "zone_skew": zone_skew(gnames, zone_of),
+                     "last_timings": gsched.last_timings, "launches": glaunches}
+
+    # the wavefront: the measured batch in batches of 500 (pad 512)
+    wsched = new_sched()
+    for pod, name in zip(init, init_names):
+        wsched.assume(pod, name)
+    wave = {"batches": []}
+
+    def run_waves():
+        for lo in range(0, len(measured), SPREAD_BATCH):
+            batch = measured[lo : lo + SPREAD_BATCH]
+            s, m = wsched.encode_pending(batch)
+            if m.route != "wavefront":
+                raise AssertionError(f"spread/wavefront: a batch took route {m.route}")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = wsched.schedule_pending(batch)
+            dt = time.perf_counter() - t
+            wave["batches"].append({
+                "pods": len(batch), "s": dt, "wave_count": wsched.last_solve.wave_count,
+                "wave_fallbacks": wsched.last_solve.wave_fallbacks,
+                "solve_s": wsched.last_timings["solve_s"],
+                "encode_s": wsched.last_timings["encode_s"],
+            })
+            wave.setdefault("solves", []).append((s, m, wsched.last_result))
+            for pod, name in zip(batch, got):
+                if name is not None:
+                    wsched.assume(pod, name)
+
+    _, wlaunches = drive_phase("spread/wavefront", "wavefront", run_waves, bindings)
+    for k, (s, m, r) in enumerate(wave["solves"]):
+        check_cpu(f"wavefront{k}", s, m, r, wavefront_solve)
+    wsec = sum(b["s"] for b in wave["batches"])
+    out["wavefront"] = {"batch_size": SPREAD_BATCH, "batches": wave["batches"],
+                        "measured_s": wsec, "pods_per_s": len(measured) / wsec,
+                        "launches": wlaunches}
+
+    # ScheduleAnyway (PreferredTopologySpreading's shape): the soft score;
+    # the measured template with that one field changed (the case builder
+    # is held to the YAML templates by tests/test_torch_spread_solves.py)
+    _n, _i, soft = topology_spreading_objects(wrappers, *SPREAD, when="ScheduleAnyway")
+    ssched = new_sched()
+    for pod, name in zip(init, init_names):
+        ssched.assume(pod, name)
+
+    def run_soft():
+        s, m = ssched.encode_pending(soft)
+        if m.route != "auction" or not m.features.soft_spread:
+            raise AssertionError(f"spread/soft: route {m.route}")
+        timing["ssnap"] = (s, m)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = ssched.schedule_pending(soft)
+        timing["soft_s"] = time.perf_counter() - t
+        return got
+
+    snames, slaunches = drive_phase("spread/soft", "auction_spread", run_soft, bindings)
+    ssnap, smeta = timing["ssnap"]
+    check_cpu("soft", ssnap, smeta, ssched.last_result, auction_solve)
+    out["soft"] = {"template": "pod-with-topology-spreading.yaml with whenUnsatisfiable: "
+                               "ScheduleAnyway", "measured_s": timing["soft_s"],
+                   "pods_per_s": len(soft) / timing["soft_s"],
+                   "placed": sum(n is not None for n in snames),
+                   "rounds": int(ssched.last_result.rounds),
+                   "zone_skew": zone_skew(snames, zone_of),
+                   "last_timings": ssched.last_timings, "launches": slaunches}
+    out["cpu_check_s"] = {k: v for k, v in timing.items() if k.endswith("_cpu_s")}
+
+    # the spread prep (plain torch on the card) at these shapes, timed
+    sel_mask = filters.selector_match(snap.cluster, snap.selectors)
+    torch.cuda.synchronize()
+    prep_ms = cuda_ms(lambda: assign.spread_prep(snap, sel_mask, meta.features,
+                                                 meta.topo_split[0]), 20, torch)
+    sp = assign.spread_prep(snap, sel_mask, meta.features, meta.topo_split[0])
+    c_dim, n = sp.state.v.shape
+    # the bound charges the live rows only: their owners' selector rows,
+    # the topology columns they read, their tables in and state out
+    sps, live = snap.spread, live_spread_rows(snap.spread, torch)
+    sel_rows = torch.unique(sps.owner_sel_idx[live][sps.owner_sel_idx[live] >= 0]).long()
+    slots = torch.unique(sps.slot[live]).long()
+    prep_bytes = (nbytes(snap.cluster.topo_ids[:, slots], snap.cluster.node_valid,
+                         sel_mask[sel_rows], sps.node_matches[live], sps.owner_keys[live],
+                         sps.slot[live], sps.valid[live], sps.owner_sel_idx[live])
+                  + nbytes(*(t[live] for t in sp.state)))
+    prep_bound = bound(prep_bytes, 8.0 * int(live.numel()) * n)
+    out["prep_spread"] = {"ms": prep_ms, "bound_ms": prep_bound[0], "bound_by": prep_bound[1],
+                          "rows": c_dim, "live_rows": int(live.numel()), "nodes": n,
+                          "route": "plain torch"}
+
+    # the auction's reasons pass (plain torch on the card, its spread
+    # filter included) at these shapes, timed, on the solve's final state
+    cl_r, pods_r, st_r = auction.auction_prep(snap, meta.features, meta.topo_split[0])
+    reason_args = (cl_r, pods_r, st_r, res.assignment, res.cluster.requested,
+                   res.cluster.nonzero_requested, res.debug_sp_counts)
+    check_equal("spread/reasons pass", (auction.failure_reasons(*reason_args),),
+                (res.reasons,), torch)
+    reasons_ms = cuda_ms(lambda: auction.failure_reasons(*reason_args), 20, torch)
+    reasons_bound = bound(*reasons_need(*reason_args, torch))
+    out["reasons_pass"] = {"ms": reasons_ms, "bound_ms": reasons_bound[0],
+                           "bound_by": reasons_bound[1], "route": "plain torch"}
+
+    # the spread path's kernels at these shapes, timed
+    rows = run_kernels(gsnap, gmeta.features, gmeta.n_groups, gsched.score_config,
+                       assign, filters, bindings, torch, timed=True)
+    rows = [r for r in rows if r["name"] == "greedy_scan"]
+    s0, m0, _r0 = wave["solves"][0]
+    rows.append(run_wavefront(s0, m0.features, m0.n_groups, wsched.score_config,
+                              m0.wave_plan.members, assign, bindings, torch, timed=True))
+    rows.extend(run_auction(snap, sched.score_config, meta.tie_k, auction, bindings, torch,
+                            timed=True))
+    launches_of = {"greedy_scan": glaunches, "wavefront": wlaunches}
+    for r in rows:
+        r["launches"] = launches_of.get(r["name"], launches)[r["name"]]
+    out["kernels"] = rows
+    out["card"] = card
+    emit(out)
+    return rows, launches
+
+
 def check_capacity(state) -> None:
     """No node's accounted requests exceed its allocatable resources."""
     h = state._high
@@ -642,8 +1120,21 @@ def random_partition(snap, rng, k: int, np):
     return members
 
 
+def cpu_args(x, torch):
+    """x (a tensor, or tuples and NamedTuples of them, nested) with every
+    tensor copied to the CPU: the input of a plain version that adds in
+    pod index order (ops/assign.py add_rows), which runs there only."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        vals = [cpu_args(v, torch) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
 def time_plain(fn, torch) -> float:
-    """Milliseconds of one host-timed run of a plain version on the card."""
+    """Milliseconds of one host-timed run of a plain version (on the card
+    or on the CPU, as its inputs lie)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -653,81 +1144,110 @@ def time_plain(fn, torch) -> float:
 
 def run_wavefront(snap, features, n_groups, cfg, members, assign, bindings, torch,
                   timed: bool = False):
-    """Kernel wavefront against its plain version on the card (and the
-    plain scan), exact.  Returns the fallbacks taken, or with timed=True
-    the kernel's summary row."""
-    cluster, pods, sfeas, aff, taint = assign._solver_prep(snap)
+    """Kernel wavefront against its plain version (and the plain scan) on
+    CPU copies of the same inputs, exact.  Returns the fallbacks taken, or
+    with timed=True the kernel's summary row."""
+    cluster, pods, sfeas, aff, taint, sp_args = assign._solver_prep(snap, features)
     m = torch.as_tensor(members, dtype=torch.int32, device=cluster.allocatable.device)
+    cpu_in = cpu_args((cluster, pods, sfeas, aff, taint, m, features), torch)
+    cpu_sp = cpu_args(sp_args, torch)
 
     def kern():
-        return bindings.wavefront(cluster, pods, sfeas, aff, taint, m, features, n_groups, cfg)
+        return bindings.wavefront(cluster, pods, sfeas, aff, taint, m, features, n_groups, cfg,
+                                  sp_args)
 
     def plain():
-        return assign.wavefront_assign_plain(cluster, pods, sfeas, aff, taint, m, features, n_groups, cfg)
+        return assign.wavefront_assign_plain(*cpu_in, n_groups, cfg, cpu_sp)
 
     out = kern()
     want = plain()
     err = check_equal("wavefront", out, want, torch)
     if not timed:
-        scan = assign.greedy_assign_plain(cluster, pods, sfeas, aff, taint,
-                                          assign.solve_order(pods), features, n_groups, cfg)
-        check_equal("wavefront (against the scan)", out[:7], scan, torch)
+        c_cl, c_pods, c_sf, c_aff, c_taint, _m, _f = cpu_in
+        scan = assign.greedy_assign_plain(c_cl, c_pods, c_sf, c_aff, c_taint,
+                                          assign.solve_order(c_pods), features, n_groups, cfg,
+                                          cpu_sp)
+        check_equal("wavefront (against the scan)", out[:7] + out[9:], scan, torch)
         return int(out[8])
     ms = cuda_ms(kern, 10, torch)
     plain_ms = time_plain(plain, torch)
-    bms, by = bound(*greedy_scan_need(cluster, pods, sfeas, out[2], features, torch))
+    bms, by = bound(*greedy_scan_need(cluster, pods, sfeas, out[2], features, torch, sp_args))
     return {"name": "wavefront", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by}
 
 
 def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
                 cpu_snap=None):
-    """Kernels auction_bids and auction_accept against their plain versions
-    on the card, round by round along the plain trajectory, then the whole
-    enqueued round loop against the plain loop, exact (given cpu_snap, the
-    same snapshot on the CPU, also against the plain loop there).  Returns the rounds, or with
-    timed=True the two kernels' summary rows (one round each, at round
-    0)."""
+    """Kernels auction_bids, auction_accept (and auction_spread) against
+    their plain versions, round by round along the plain trajectory, then
+    the whole enqueued round loop against the plain loop, exact.  The bids
+    and the repair's plain versions run on the card; the commit's and the
+    plain loop, which add in pod index order, on CPU copies (given
+    cpu_snap, the same snapshot on the CPU, also against the plain loop
+    prepared there).  Returns the rounds, or with timed=True the kernels'
+    summary rows (one round each, at round 0)."""
     n = snap.cluster.allocatable.shape[0]
     tie_k = min(auction.default_tie_k(snap) if tie_k is None else tie_k, n)
     cluster, pods, st = auction.auction_prep(snap)
+    use_spread = st.features.spread
     p = pods.req.shape[0]
     dev = cluster.allocatable.device
     assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
     bid_scores = torch.full((p,), float("-inf"), device=dev)
     req, nz = cluster.requested, cluster.nonzero_requested
+    counts = st.sp.state.counts_node.clone() if use_spread else None
     max_rounds = 64
-    bufs = bindings.auction_buffers(cluster, pods, tie_k)
-    rnd, errs, rows = 0, [0.0, 0.0], []
+    bufs = bindings.auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None)
+    rnd, errs, rows = 0, [0.0, 0.0, 0.0], []
     while rnd < max_rounds and bool(((assigned < 0) & pods.valid).any()):
         state = bindings.auction_state(rnd, True, dev)
         got = bindings.auction_bids(cluster, pods, st, req, nz, assigned, state, tie_k, cfg,
-                                    bufs)[:2]
-        bid, val = auction.auction_bids_plain(cluster, pods, st, req, nz, assigned, rnd, tie_k, cfg)
+                                    bufs, counts)[:2]
+        bid, val = auction.auction_bids_plain(cluster, pods, st, req, nz, assigned, rnd, tie_k,
+                                              cfg, counts)
         errs[0] = max(errs[0], check_equal("auction_bids", got, (bid, val), torch))
         kr, kn, ka, ks = req.clone(), nz.clone(), assigned.clone(), bid_scores.clone()
         state = bindings.auction_state(rnd, True, dev)
+        accept = auction.auction_decide_plain(cluster.allocatable, pods, st.order, bid, req)
+        progress = bool(accept.any())
+        kc = None
+        if use_spread:
+            bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka,
+                                    ks, state, max_rounds, bufs, stage=1)
+            errs[1] = max(errs[1], check_equal(
+                "auction_accept (acceptance)", (bufs["accept"].bool(),), (accept,), torch))
+            if int(state[2]) != int(progress):
+                raise AssertionError("auction_accept: progress differs from its plain version")
+            kc = counts.clone()
+            bindings.auction_spread(cluster, pods, st, kc, state, bufs)
+            accept, counts = auction.spread_repair_plain(accept, bid, counts, st,
+                                                         cluster.topo_ids)
+            errs[2] = max(errs[2], check_equal(
+                "auction_spread", (bufs["accept"].bool(), kc), (accept, counts), torch))
+            stage = 2
+        else:
+            stage = 3
         bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka, ks,
-                                state, max_rounds, bufs)
-        want = auction.auction_accept_plain(cluster.allocatable, pods, st.order, bid, val,
-                                            req, nz, assigned, bid_scores)
-        errs[1] = max(errs[1], check_equal("auction_accept", (ka, ks, kr, kn), want[:4], torch))
-        if int(state[2]) != int(want[4]):
-            raise AssertionError("auction_accept: progress differs from its plain version")
+                                state, max_rounds, bufs, stage=stage)
+        want = auction.auction_commit_plain(*cpu_args(
+            (pods, accept, bid, val, req, nz, assigned, bid_scores), torch))
+        errs[1] = max(errs[1], check_equal("auction_accept", (ka, ks, kr, kn), want, torch))
+        if int(state[2]) != int(progress) or int(state[0]) != rnd + 1:
+            raise AssertionError("auction_accept: round state differs from its plain version")
         if timed and rnd == 0:
             rows = time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores,
                                       bid, val, tie_k, cfg, max_rounds, bufs, auction,
-                                      bindings, torch)
-        assigned, bid_scores, req, nz, progress = want
+                                      bindings, torch, counts_before=kc)
+        assigned, bid_scores, req, nz = (t.to(dev) for t in want)
         rnd += 1
         if not progress:
             break
     got = bindings.auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
-    want = auction._rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds)
+    want = auction._rounds_plain(*cpu_args((cluster, pods, st), torch), tie_k, cfg, max_rounds)
     check_equal("auction rounds", got, want, torch)
     if cpu_snap is not None:
         on_cpu = auction._rounds_plain(*auction.auction_prep(cpu_snap), tie_k, cfg, max_rounds)
-        check_equal("auction rounds (card against CPU)", [t.cpu() for t in got], on_cpu, torch)
+        check_equal("auction rounds (card against CPU)", got, on_cpu, torch)
     if not timed:
         return int(got[4])
     for row, err in zip(rows, errs):
@@ -736,18 +1256,23 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
 
 
 def time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores, bid, val,
-                       tie_k, cfg, max_rounds, bufs, auction, bindings, torch):
+                       tie_k, cfg, max_rounds, bufs, auction, bindings, torch,
+                       counts_before=None):
     """CUDA-event times of one round of each auction kernel (the state is
-    reset before every launch, so each runs the round) and host times of
-    their plain versions, with their bounds."""
+    reset before every launch, so each runs the round; with the spread
+    family auction_accept's two stages together, and auction_spread on the
+    round's accepted set and the counts before it) and host times of their
+    plain versions (auction_accept's on CPU copies: its commit adds in pod
+    index order), with their bounds."""
     dev = req.device
     go = bindings.auction_state(0, True, dev)
     state = go.clone()
+    use_spread = counts_before is not None
 
     def k_bids():
         state.copy_(go)
         return bindings.auction_bids(cluster, pods, st, req, nz, assigned, state, tie_k, cfg,
-                                     bufs)
+                                     bufs, counts_before)
 
     kr, kn, ka, ks = req.clone(), nz.clone(), assigned.clone(), bid_scores.clone()
 
@@ -757,23 +1282,45 @@ def time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores, bid, va
         kn.copy_(nz)
         ka.copy_(assigned)
         ks.copy_(bid_scores)
-        bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka, ks,
-                                state, max_rounds, bufs)
+        for stage in ((1, 2) if use_spread else (3,)):
+            bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka,
+                                    ks, state, max_rounds, bufs, stage=stage)
 
     bids_ms = cuda_ms(k_bids, 20, torch)
     accept_ms = cuda_ms(k_accept, 20, torch)
     bids_plain = time_plain(lambda: auction.auction_bids_plain(
-        cluster, pods, st, req, nz, assigned, 0, tie_k, cfg), torch)
-    accept_plain = time_plain(lambda: auction.auction_accept_plain(
-        cluster.allocatable, pods, st.order, bid, val, req, nz, assigned, bid_scores), torch)
+        cluster, pods, st, req, nz, assigned, 0, tie_k, cfg, counts_before), torch)
+    c_alloc, c_pods, c_order, c_bid, c_val, c_req, c_nz, c_as, c_bs = cpu_args(
+        (cluster.allocatable, pods, st.order, bid, val, req, nz, assigned, bid_scores), torch)
+    accept_plain = time_plain(lambda: auction.auction_commit_plain(
+        c_pods, auction.auction_decide_plain(c_alloc, c_pods, c_order, c_bid, c_req),
+        c_bid, c_val, c_req, c_nz, c_as, c_bs), torch)
     b1 = bound(*auction_bids_need(cluster, pods, st, req, tie_k, torch))
     b2 = bound(*auction_accept_need(cluster, pods, bid, torch))
-    return [
+    rows = [
         {"name": "auction_bids", "ms": bids_ms, "plain_ms": bids_plain,
          "bound_ms": b1[0], "bound_by": b1[1]},
         {"name": "auction_accept", "ms": accept_ms, "plain_ms": accept_plain,
          "bound_ms": b2[0], "bound_by": b2[1]},
     ]
+    if use_spread:
+        accepted = auction.auction_decide_plain(cluster.allocatable, pods, st.order, bid, req)
+        kc = counts_before.clone()
+        bufs["bid"].copy_(bid)
+
+        def k_spread():
+            state.copy_(go)
+            bufs["accept"].copy_(accepted)
+            kc.copy_(counts_before)
+            bindings.auction_spread(cluster, pods, st, kc, state, bufs)
+
+        spread_ms = cuda_ms(k_spread, 20, torch)
+        spread_plain = time_plain(lambda: auction.spread_repair_plain(
+            accepted, bid, counts_before, st, cluster.topo_ids), torch)
+        b3 = bound(*auction_spread_need(st, accepted, bid, counts_before, torch))
+        rows.append({"name": "auction_spread", "ms": spread_ms, "plain_ms": spread_plain,
+                     "bound_ms": b3[0], "bound_by": b3[1]})
+    return rows
 
 
 def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
@@ -809,17 +1356,21 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
     statics = k2()
     err2 = check_equal("class_statics", statics, p2(), torch)
     order = assign.solve_order(pods)
+    sp_args = assign.spread_prep(snap, sel_mask, features)
 
     def k3():
-        return bindings.greedy_scan(cluster, pods, *statics, order, features, n_groups, cfg)
+        return bindings.greedy_scan(cluster, pods, *statics, order, features, n_groups, cfg,
+                                    sp_args)
 
-    def p3():
-        return assign.greedy_assign_plain(cluster, pods, *statics, order, features, n_groups, cfg)
+    cpu_in = cpu_args((cluster, pods, *statics, order, features), torch)
+    cpu_sp = cpu_args(sp_args, torch)
+
+    def p3():  # on CPU copies: its gang release adds in pod index order
+        return assign.greedy_assign_plain(*cpu_in, n_groups, cfg, cpu_sp)
 
     out = k3()
     t0 = time.perf_counter()
     want = p3()
-    torch.cuda.synchronize()
     plain3_ms = (time.perf_counter() - t0) * 1e3
     err3 = check_equal("greedy_scan", out, want, torch)
     if not timed:
@@ -833,7 +1384,7 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
     b1 = [match_terms_need(n, *sel_rows, torch), match_terms_need(n, *pref_rows, torch)]
     need1 = (sum(x[0] for x in b1), sum(x[1] for x in b1))
     need2 = class_statics_need(cluster, pods, reps, torch)
-    need3 = greedy_scan_need(cluster, pods, statics[0], out[2], features, torch)
+    need3 = greedy_scan_need(cluster, pods, statics[0], out[2], features, torch, sp_args)
     for name, err, ms, pms, need in (
         ("match_terms", err1, k1_ms, p1_ms, need1),
         ("class_statics", err2, k2_ms, p2_ms, need2),

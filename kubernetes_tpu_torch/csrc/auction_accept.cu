@@ -1,8 +1,9 @@
 // Kernel `auction_accept`: one round's per-node acceptance and commit.
 //
 // Replaces: kubernetes_tpu/ops/auction.py:680-745, the `body` of the
-// auction's while_loop without its spread / anti-affinity repair branches,
-// and its `cond`: pods pre-permuted into solve order and stably sorted by
+// auction's while_loop around its spread repair (kernel auction_spread)
+// and without its anti-affinity branch, and its `cond`: pods pre-permuted
+// into solve order and stably sorted by
 // bid (:694-695); a pod's demand on its node as a difference of global
 // prefix sums, within = prefix - prefix[first] + sreq[first] (:697-699),
 // held against the node's remaining capacity (:700-705); the commit
@@ -15,9 +16,12 @@
 // nodes' rows once.  At the main path's shapes both are microseconds of
 // the card's rates.
 //
-// Design: two launches per round, both returning at once when the
-// device's continue flag (state[1]) is down, so all max_rounds rounds are
-// enqueued with no host sync:
+// Design: two kernels per round, both returning at once when the device's
+// continue flag (state[1]) is down, so all max_rounds rounds are enqueued
+// with no host sync.  `stage` 3 runs the round whole; with the spread
+// family the round is split around the repair: stage 1 (sort, acceptance,
+// progress into state[2]), then kernel auction_spread (which narrows the
+// accepted set in `accept`), then stage 2 (the commit and the state):
 //   sort_pass    one thread per solve position, 256 a block: its sorted
 //                position is the count of pods with a smaller bid plus the
 //                count with the same bid earlier in solve order (a tiled
@@ -34,6 +38,10 @@
 //                bid_scores update, then state: rounds + 1, progress, and
 //                the flag = rounds < max_rounds && progress && some valid
 //                pod unplaced.
+// A third entry point, auction_accept_release, is the gang post-pass's
+// subtraction (auction.py:771-848): every node takes its released pods'
+// requests off in pod index order, the order of the reference's masked
+// scatter-add, one thread a node.
 // The prefix adds in the order XLA's CPU backend adds the reference's
 // jnp.cumsum (a cumulative reduce-window rewritten as sequential scans of
 // blocks of 16 rows, the block totals scanned the same way, recursively,
@@ -108,20 +116,16 @@ __device__ void scan_blocks(float* a, int len, int r, float* totals, int tid)
     }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) commit_pass_kernel(
-    int n, int r, int p, int max_rounds,
-    const float* __restrict__ alloc, float* requested, float* nonzero,
-    const float* __restrict__ pod_req, const float* __restrict__ pod_nz,
-    const uint8_t* __restrict__ pod_valid,
-    const int32_t* __restrict__ perm, const int32_t* __restrict__ firstpos,
-    const int32_t* __restrict__ perm_idx,
-    const int32_t* __restrict__ bid, const float* __restrict__ val,
-    int32_t* assigned, float* bid_scores, int32_t* state,
-    float* prefix, float* scan, uint8_t* accept)  // [P, R], [levels, R], [P] scratch
+// The acceptance half of a round, block-wide: the prefix of the requests
+// in sorted order, then accept[i] per pod; returns the round's progress
+// (some pod accepted).
+__device__ int accept_block(
+    int n, int r, int p, const float* __restrict__ alloc, const float* requested,
+    const float* __restrict__ pod_req, const int32_t* __restrict__ perm,
+    const int32_t* __restrict__ firstpos, const int32_t* __restrict__ bid,
+    float* prefix, float* scan, uint8_t* accept)
 {
-    if (!state[1]) return;
     const int tid = threadIdx.x;
-
     // inclusive prefix of the requests in sorted order, in XLA's order:
     // level 0 is the gathered requests, level k + 1 the block totals of
     // level k (in `scan`), up to a level of one block; scanned upwards,
@@ -180,7 +184,33 @@ __global__ void __launch_bounds__(kThreads, 1) commit_pass_kernel(
         accept[i] = ok ? 1 : 0;
         any_ok |= ok ? 1 : 0;
     }
-    const int progress = __syncthreads_or(any_ok);
+    return __syncthreads_or(any_ok);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) commit_pass_kernel(
+    int n, int r, int p, int max_rounds, int stage,
+    const float* __restrict__ alloc, float* requested, float* nonzero,
+    const float* __restrict__ pod_req, const float* __restrict__ pod_nz,
+    const uint8_t* __restrict__ pod_valid,
+    const int32_t* __restrict__ perm, const int32_t* __restrict__ firstpos,
+    const int32_t* __restrict__ perm_idx,
+    const int32_t* __restrict__ bid, const float* __restrict__ val,
+    int32_t* assigned, float* bid_scores, int32_t* state,
+    float* prefix, float* scan, uint8_t* accept)  // [P, R], [levels, R], [P] scratch
+{
+    if (!state[1]) return;
+    const int tid = threadIdx.x;
+    int progress;
+    if (stage & 1) {
+        progress = accept_block(n, r, p, alloc, requested, pod_req, perm, firstpos, bid,
+                                prefix, scan, accept);
+        if (!(stage & 2)) {
+            if (tid == 0) state[2] = progress;
+            return;
+        }
+    } else {
+        progress = state[2];  // stage 2: the acceptance's progress, before the repair
+    }
 
     // commit: each node group's first member adds the accepted requests
     // in pod index order (the group spans the same positions in perm_idx)
@@ -215,26 +245,57 @@ __global__ void __launch_bounds__(kThreads, 1) commit_pass_kernel(
     }
 }
 
+// The gang post-pass's release: node b subtracts the requests of every
+// dropped pod assigned to it, in pod index order (one thread a node).
+__global__ void release_kernel(
+    int n, int r, int p, const int32_t* __restrict__ assigned,
+    const uint8_t* __restrict__ dropped, const float* __restrict__ pod_req,
+    const float* __restrict__ pod_nz, float* requested, float* nonzero)
+{
+    const int b = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+    if (b >= n) return;
+    for (int i = 0; i < p; ++i) {
+        if (!dropped[i] || assigned[i] != b) continue;
+        for (int rr = 0; rr < r; ++rr) {
+            requested[(size_t)b * r + rr] = sub(requested[(size_t)b * r + rr], pod_req[(size_t)i * r + rr]);
+            nonzero[(size_t)b * r + rr] = sub(nonzero[(size_t)b * r + rr], pod_nz[(size_t)i * r + rr]);
+        }
+    }
+}
+
 }  // namespace
 
+extern "C" int auction_accept_release(
+    int n, int r, int p, const void* assigned, const void* dropped, const void* pod_req,
+    const void* pod_nz, void* requested, void* nonzero, void* stream)
+{
+    if (p == 0 || n == 0) return 0;
+    release_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        n, r, p, (const int32_t*)assigned, (const uint8_t*)dropped, (const float*)pod_req,
+        (const float*)pod_nz, (float*)requested, (float*)nonzero);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int auction_accept_launch(
-    int n, int r, int p, int max_rounds,
+    int n, int r, int p, int max_rounds, int stage,
     const void* alloc, void* requested, void* nonzero, const void* pod_req,
     const void* pod_nz, const void* pod_valid, const void* order, const void* bid,
     const void* val, void* assigned, void* bid_scores, void* state, void* perm,
     void* firstpos, void* perm_idx, void* prefix, void* scan, void* accept,
     void* stream)
 {
-    if (r > kMaxR) return (int)cudaErrorInvalidValue;
+    if (r > kMaxR || stage < 1 || stage > 3) return (int)cudaErrorInvalidValue;
     if (p == 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    sort_pass_kernel<<<(p + kSortThreads - 1) / kSortThreads, kSortThreads, 0, s>>>(
-        p, (const int32_t*)order, (const int32_t*)bid, (const int32_t*)state,
-        (int32_t*)perm, (int32_t*)firstpos, (int32_t*)perm_idx);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (stage & 1) {
+        sort_pass_kernel<<<(p + kSortThreads - 1) / kSortThreads, kSortThreads, 0, s>>>(
+            p, (const int32_t*)order, (const int32_t*)bid, (const int32_t*)state,
+            (int32_t*)perm, (int32_t*)firstpos, (int32_t*)perm_idx);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
     commit_pass_kernel<<<1, kThreads, 0, s>>>(
-        n, r, p, max_rounds, (const float*)alloc, (float*)requested, (float*)nonzero,
+        n, r, p, max_rounds, stage, (const float*)alloc, (float*)requested, (float*)nonzero,
         (const float*)pod_req, (const float*)pod_nz, (const uint8_t*)pod_valid,
         (const int32_t*)perm, (const int32_t*)firstpos, (const int32_t*)perm_idx,
         (const int32_t*)bid, (const float*)val, (int32_t*)assigned, (float*)bid_scores,

@@ -2,8 +2,10 @@
 //
 // Replaces: kubernetes_tpu/ops/auction.py:355-478 `bids` inside
 // `auction_assign` (auction.py:140) — per spec class the resource fit and
-// the fit / balanced score rows (`per_spec`), per joint class the combine
-// with the affinity and taint rows, the best score, the tie set, its
+// the fit / balanced score rows (`per_spec`), per constraint class the
+// spread filter row (`spf_k`, topology.py:121), per joint class the combine
+// with the affinity and taint rows and the soft spread score
+// (topology.py:153; auction.py:372-425), the best score, the tie set, its
 // hashed (key desc, index asc) top list of cnt = min(#ties, tie_k) nodes
 // (`per_class`, auction.py:403-454), then per pod the within-class
 // position j among active pods in solve order and its slot, bid and value
@@ -20,8 +22,10 @@
 // host sync; both return at once when the device's continue flag
 // (state[1], written by the previous round's auction_accept) is down.
 //   class_pass  one 1,024-thread block per joint class (grid-strided): the
-//               scan's block-wide evaluation (solve_common.cuh `block_eval`)
-//               writes the class's masked score row and its best; a pass
+//               scan's block-wide evaluation (solve_common.cuh `block_eval`,
+//               with the spread rows of the class's constraint-class
+//               representative against the round's counts) writes the
+//               class's masked score row and its best; a pass
 //               over the ties counts them and histograms the top 12 bits of
 //               their 30-bit keys (4,096 buckets in shared memory); a
 //               descending exclusive scan of the histogram gives each
@@ -82,6 +86,8 @@ __global__ void __launch_bounds__(kThreads, 1) class_pass_kernel(
     const float* __restrict__ pod_req, const float* __restrict__ pod_nz,
     const int32_t* __restrict__ iparams, const float* __restrict__ fparams,
     const int32_t* __restrict__ state,
+    int cc_dim, const int32_t* __restrict__ k_reps,  // [Cc] constraint-class reps
+    const int32_t* __restrict__ jcons, Spread sp,     // [C]; counts read only
     int32_t* inv_c, int32_t* cnt_c, float* best_c,   // [C, tie_k], [C], [C]
     float* scratch_masked, int32_t* scratch_idx)     // [grid, N] each
 {
@@ -90,6 +96,7 @@ __global__ void __launch_bounds__(kThreads, 1) class_pass_kernel(
     __shared__ Config cfg;
     __shared__ float s_req[kMaxR], s_nz[kMaxR];
     __shared__ Scratch sc;
+    __shared__ PodSpread ps;
     __shared__ int s_fill[kBuckets];   // histogram, then each bucket's fill pointer
     __shared__ int s_start[kBuckets];  // first rank of each bucket
     __shared__ int s_warp_sum[kMaxWarps];
@@ -109,17 +116,20 @@ __global__ void __launch_bounds__(kThreads, 1) class_pass_kernel(
         }
         for (int b = tid; b < kBuckets; b += kThreads) s_fill[b] = 0;
         __syncthreads();
+        // the constraint class's representative carries the joint class's
+        // spread rows and match flags (the encoder's constraint signature)
+        if (sp.on) block_spread_pod(sp, n, k_reps[min(max(jcons[c], 0), cc_dim - 1)], ps, sc);
 
         const Eval ev = block_eval(
             n, r, 0, false, alloc, requested, nonzero, nullptr,
             sfeas_s + (size_t)s * n, aff_s + (size_t)s * n, taint_s + (size_t)s * n,
-            s_req, s_nz, nullptr, cfg, sc, mrow);
+            s_req, s_nz, nullptr, sp, ps, cfg, sc, mrow);
         const float best = ev.best;
         const uint32_t rot = (((uint32_t)c * kGolden) ^ (rnd * kRound) ^ kSeedC) * kMix;
 
         // the tie set (feasible nodes at the best score), counted and
         // histogrammed by the top bits of their keys
-        Step st = {0, 0, 0.0f, 0.0f};
+        Step st = step_zero();
         if (ev.found) {
             for (int nd = tid; nd < n; nd += kThreads) {
                 if (mrow[nd] == best) {
@@ -249,11 +259,20 @@ extern "C" int auction_bids_launch(
     const void* s_reps, const void* jspec, const void* pod_req, const void* pod_nz,
     const void* order, const void* class_id, const void* pod_valid,
     const void* assigned, const void* iparams, const void* fparams,
-    const void* state, void* inv_c, void* cnt_c, void* best_c,
+    const void* state, int cc_dim, const void* k_reps, const void* jcons,
+    int sp_on, int sp_soft, int sp_c, int sp_mc, const void* sp_pod_idx,
+    const void* sp_pod_matches, const void* sp_max_skew, const void* sp_min_domains,
+    const void* sp_hard, const void* sp_eligible, const void* sp_v, const void* sp_sizes,
+    const void* sp_counts,
+    void* inv_c, void* cnt_c, void* best_c,
     void* scratch_masked, void* scratch_idx, void* bid, void* val, void* stream)
 {
-    if (r > kMaxR || tie_k < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+    if (r > kMaxR || tie_k < 1 || grid < 1 || cc_dim < 1) return (int)cudaErrorInvalidValue;
+    if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1)) return (int)cudaErrorInvalidValue;
     if (p == 0 || n == 0 || c_dim == 0) return 0;
+    const Spread sp = make_spread(sp_on, sp_soft, sp_c, sp_mc, sp_pod_idx, sp_pod_matches,
+                                  sp_max_skew, sp_min_domains, sp_hard, sp_eligible, sp_v,
+                                  sp_sizes, (void*)sp_counts);
     cudaStream_t s = (cudaStream_t)stream;
     class_pass_kernel<<<grid, kThreads, 0, s>>>(
         n, r, c_dim, cs_dim, tie_k, (const float*)alloc,
@@ -261,6 +280,7 @@ extern "C" int auction_bids_launch(
         (const float*)aff_s, (const float*)taint_s, (const int32_t*)s_reps,
         (const int32_t*)jspec, (const float*)pod_req, (const float*)pod_nz,
         (const int32_t*)iparams, (const float*)fparams, (const int32_t*)state,
+        cc_dim, (const int32_t*)k_reps, (const int32_t*)jcons, sp,
         (int32_t*)inv_c, (int32_t*)cnt_c, (float*)best_c, (float*)scratch_masked,
         (int32_t*)scratch_idx);
     const cudaError_t err = cudaGetLastError();

@@ -2,11 +2,12 @@
 //
 // Replaces: kubernetes_tpu/ops/assign.py:591 `greedy_assign` — the lax.scan
 // over pods in solve order of `_eval_pod` (assign.py:374: class statics,
-// `fits_resources`, in-batch ports), the scores (`least_allocated`,
-// `most_allocated`, `requested_to_capacity_ratio`, `balanced_allocation`,
-// `normalize`, `combine_scores`, scores.py), `_pick` (first-max-index,
-// assign.py:358) and the assume carry update, followed by the
-// `_gang_release` epilogue (assign.py:558).
+// `fits_resources`, in-batch ports, `spread_filter` / `spread_score`,
+// topology.py:121/153), the scores (`least_allocated`, `most_allocated`,
+// `requested_to_capacity_ratio`, `balanced_allocation`, `normalize`,
+// `combine_scores`, scores.py), `_pick` (first-max-index, assign.py:358)
+// and the assume carry update (with `spread_update`, topology.py:201),
+// followed by the `_gang_release` epilogue (assign.py:558).
 //
 // Bound on this card: latency of the sequential chain.  Pod k+1 must see
 // pod k's placement, so the P steps run one after another; each step is
@@ -19,7 +20,10 @@
 //
 // Design: one persistent block of 1024 threads on one SM of 132 loops over
 // the pods.  Per step:
-//   pass 1  strided over N: static row, resource fit, in-batch ports; block
+//   pass 0  with the spread family, one block min over N per hard row of
+//           the pod (its critical-path minimum);
+//   pass 1  strided over N: static row, resource fit, in-batch ports, hard
+//           spread rows; block
 //           reduction of the stage anys (s_any, a_res, a_ports), the
 //           feasible count and the two normalisation maxima over feasible
 //           nodes (0-floored, scores.py:191);
@@ -27,8 +31,10 @@
 //           taint and the weighted total; block reduction of (score, lowest
 //           index), which is jnp.argmax's first-index tie-break;
 //   then thread 0 writes the pod's outputs and threads 0..R / 0..PW add the
-//           winner's requests and ports to its rows in place, before the
-//           closing barrier makes them visible to the next step.
+//           winner's requests and ports to its rows in place, and the block
+//           adds one to every spread row the pod matches at the nodes that
+//           share the winner's value, before the closing barrier makes them
+//           visible to the next step.
 // Host ports are checked against one carried port table that starts as the
 // bound pods' claims: a node whose bound claims conflict is already outside
 // the class's static row, so the test equals the reference's in-batch-only
@@ -71,6 +77,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     const uint32_t* __restrict__ pod_ports, // [P, PW]
     const int32_t* __restrict__ iparams,
     const float* __restrict__ fparams,
+    Spread sp,                              // counts: the carry, in place
     int32_t* assignment, float* scores, int32_t* feas_counts, int32_t* reasons,
     int32_t* incomplete)                    // [max(G, 1)] zeroed scratch
 {
@@ -78,6 +85,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     __shared__ float s_req[kMaxR], s_nz[kMaxR];
     __shared__ uint32_t s_ports[kMaxPW];
     __shared__ Scratch sc;
+    __shared__ PodSpread ps;
 
     const int tid = threadIdx.x;
     if (tid == 0) load_config(cfg, iparams, fparams);
@@ -93,11 +101,12 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
             for (int t = tid; t < pw; t += kThreads) s_ports[t] = pod_ports[(size_t)i * pw + t];
         }
         __syncthreads();
+        if (sp.on) block_spread_pod(sp, n, i, ps, sc);
 
         const Eval ev = block_eval(
             n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
             sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-            s_req, s_nz, s_ports, cfg, sc, nullptr);
+            s_req, s_nz, s_ports, sp, ps, cfg, sc, nullptr);
 
         const int choice = ev.choice;
         if (tid == 0) {
@@ -114,13 +123,14 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
             if (use_ports) {
                 for (int t = tid; t < pw; t += kThreads) ports[(size_t)choice * pw + t] |= s_ports[t];
             }
+            if (sp.on) block_spread_update(sp, n, i, choice);
         }
         __syncthreads();
     }
 
     // gang all-or-nothing: release every placement of an incomplete group
     if (n_groups > 0) {
-        block_gang_release(p, r, n_groups, pod_valid, group_id, pod_req, pod_nz,
+        block_gang_release(n, p, r, n_groups, pod_valid, group_id, pod_req, pod_nz,
                            requested, nonzero, assignment, scores, reasons, incomplete);
     }
 }
@@ -136,6 +146,7 @@ extern "C" int greedy_scan_limits(int which)
         case 3: return kMaxShape;
         case 4: return kIpCount;
         case 5: return kFpCount;
+        case 6: return kMaxMC;
         default: return -1;
     }
 }
@@ -147,10 +158,18 @@ extern "C" int greedy_scan_launch(
     const void* order, const void* class_id, const void* pod_valid,
     const void* group_id, const void* pod_req, const void* pod_nz,
     const void* pod_ports, const void* iparams, const void* fparams,
+    int sp_on, int sp_soft, int sp_c, int sp_mc, const void* sp_pod_idx,
+    const void* sp_pod_matches, const void* sp_max_skew, const void* sp_min_domains,
+    const void* sp_hard, const void* sp_eligible, const void* sp_v, const void* sp_sizes,
+    void* sp_counts,
     void* assignment, void* scores, void* feas_counts, void* reasons,
     void* incomplete, void* stream)
 {
+    if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1)) return (int)cudaErrorInvalidValue;
     if (p == 0) return 0;
+    const Spread sp = make_spread(sp_on, sp_soft, sp_c, sp_mc, sp_pod_idx, sp_pod_matches,
+                                  sp_max_skew, sp_min_domains, sp_hard, sp_eligible, sp_v,
+                                  sp_sizes, sp_counts);
     greedy_scan_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
         n, r, p, c_dim, pw, use_ports, n_groups,
         (const float*)alloc, (float*)requested, (float*)nonzero,
@@ -159,7 +178,7 @@ extern "C" int greedy_scan_launch(
         (const uint8_t*)pod_valid, (const int32_t*)group_id,
         (const float*)pod_req, (const float*)pod_nz,
         (const uint32_t*)pod_ports, (const int32_t*)iparams,
-        (const float*)fparams, (int32_t*)assignment, (float*)scores,
+        (const float*)fparams, sp, (int32_t*)assignment, (float*)scores,
         (int32_t*)feas_counts, (int32_t*)reasons, (int32_t*)incomplete);
     return (int)cudaGetLastError();
 }

@@ -1,14 +1,18 @@
 // Device code shared by the three solves (greedy_scan.cu, wavefront.cu,
 // auction_bids.cu): the score parameter block, the per-node filter and
-// score functions and the block-wide evaluation of one pod, so every solve
-// evaluates a pod with one body.
+// score functions, the PodTopologySpread family (ops/topology.py) and the
+// block-wide evaluation of one pod, so every solve evaluates a pod with
+// one body.
 //
 // Numerics: every score is a floor of IEEE float32 operations in the
 // reference package's order (__fadd_rn / __fmul_rn / __fdiv_rn /
 // __fsqrt_rn; every file that includes this one is built with
-// --fmad=false), so the results equal the reference bit for bit.  The one
-// multiply-add the reference's compiler fuses (inside jnp.interp) is fused
-// here too (__fmaf_rn).
+// --fmad=false), so the results equal the reference bit for bit.  The
+// multiply-adds the reference's compiler fuses (inside jnp.interp, the
+// spread score's cnt * weight + (maxSkew - 1), and inside its float32 log)
+// are fused here too (__fmaf_rn); `log32` is that compiler's log, not
+// CUDA's logf, and the spread score rounds half to even (rintf), as
+// jnp.round does.
 
 #pragma once
 
@@ -33,7 +37,11 @@ constexpr int kReasonNone = -1;
 constexpr int kReasonStatic = 0;
 constexpr int kReasonResources = 1;
 constexpr int kReasonPorts = 2;
+constexpr int kReasonSpread = 3;
 constexpr int kReasonGang = 5;
+
+constexpr int kMaxMC = 8;        // spread constraints per pod
+constexpr float kBig = 1e9f;     // ops/topology.py _BIG
 
 // integer parameter block (iparams), filled by bindings.score_params
 enum {
@@ -44,13 +52,13 @@ enum {
 enum {
     kFpFitWeight = 0, kFpBalWeight, kFpAffWeight, kFpTaintWeight, kFpInterpEps,
     kFpFitW, kFpShapeX = kFpFitW + kMaxFit, kFpShapeY = kFpShapeX + kMaxShape,
-    kFpCount = kFpShapeY + kMaxShape,
+    kFpSpreadWeight = kFpShapeY + kMaxShape, kFpCount,
 };
 
 struct Config {
     int strategy, n_fit, n_bal, n_shape;
     int fit_idx[kMaxFit], bal_idx[kMaxFit];
-    float fit_weight, bal_weight, aff_weight, taint_weight, interp_eps;
+    float fit_weight, bal_weight, aff_weight, taint_weight, interp_eps, spread_weight;
     float fit_w[kMaxFit], xs[kMaxShape], ys[kMaxShape];
 };
 
@@ -75,6 +83,7 @@ __device__ inline void load_config(Config& cfg, const int32_t* iparams, const fl
     cfg.aff_weight = fparams[kFpAffWeight];
     cfg.taint_weight = fparams[kFpTaintWeight];
     cfg.interp_eps = fparams[kFpInterpEps];
+    cfg.spread_weight = fparams[kFpSpreadWeight];
 }
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -196,12 +205,99 @@ __device__ __forceinline__ bool ports_clash(const uint32_t* node_ports, const ui
     return clash;
 }
 
+// ---- PodTopologySpread (ops/topology.py) ---------------------------------
+
+// The reference compiler's float32 log (XLA on the CPU: a Cephes-style
+// polynomial with fused multiply-adds at these places, denormals read as
+// zero), bit for bit; ops/topology.py `log32` is its plain version.
+__device__ inline float log32(float x)
+{
+    if (fabsf(x) < 1.17549435e-38f) return -INFINITY;  // zeros and denormals
+    if (!(x > 0.0f)) return NAN;                        // negatives and NaN
+    if (isinf(x)) return INFINITY;
+    const int bits = __float_as_int(x);
+    float e = add(__int2float_rn((bits >> 23) - 127), 1.0f);
+    const float xm = __int_as_float((bits & (int)0x807fffff) | 0x3f000000);  // [0.5, 1)
+    const bool small = xm < 0.707106781186547524f;
+    const float xr = add(sub(xm, 1.0f), small ? xm : 0.0f);
+    e = sub(e, small ? 1.0f : 0.0f);
+    const float x2 = mul(xr, xr);
+    const float x3 = mul(x2, xr);
+    float y = __fmaf_rn(__fmaf_rn(xr, 7.0376836292e-2f, -1.1514610310e-1f), xr, 1.1676998740e-1f);
+    const float y1 = __fmaf_rn(__fmaf_rn(xr, -1.2420140846e-1f, 1.4249322787e-1f), xr,
+                               -1.6668057665e-1f);
+    const float y2 = __fmaf_rn(__fmaf_rn(xr, 2.0000714765e-1f, -2.4999993993e-1f), xr,
+                               3.3333331174e-1f);
+    y = __fmaf_rn(y, x3, y1);
+    y = __fmaf_rn(y, x3, y2);
+    y = __fmaf_rn(y, x3, mul(-2.12194440e-4f, e));
+    return __fmaf_rn(0.693359375f, e, add(sub(xr, mul(0.5f, x2)), y));
+}
+
+// The spread family's tables for a solve (`counts` is the carry, null when
+// the family is off).  Built by make_spread from the launch arguments.
+struct Spread {
+    int on, soft_on, c_dim, mc;
+    const int32_t* pod_idx;      // [P, MC] constraint rows per pod, -1 pad
+    const uint8_t* pod_matches;  // [P, C]
+    const float* max_skew;       // [C]
+    const float* min_domains;    // [C] 0 = unset
+    const uint8_t* hard;         // [C]
+    const uint8_t* eligible;     // [C, N]
+    const int32_t* v;            // [C, N] node's value, -1 absent
+    const float* sizes;          // [C] distinct eligible values
+    float* counts;               // [C, N] match count of the node's value
+};
+
+inline Spread make_spread(int on, int soft_on, int c_dim, int mc, const void* pod_idx,
+                          const void* pod_matches, const void* max_skew,
+                          const void* min_domains, const void* hard, const void* eligible,
+                          const void* v, const void* sizes, void* counts)
+{
+    Spread sp;
+    sp.on = on;
+    sp.soft_on = soft_on;
+    sp.c_dim = c_dim;
+    sp.mc = mc;
+    sp.pod_idx = (const int32_t*)pod_idx;
+    sp.pod_matches = (const uint8_t*)pod_matches;
+    sp.max_skew = (const float*)max_skew;
+    sp.min_domains = (const float*)min_domains;
+    sp.hard = (const uint8_t*)hard;
+    sp.eligible = (const uint8_t*)eligible;
+    sp.v = (const int32_t*)v;
+    sp.sizes = (const float*)sizes;
+    sp.counts = (float*)counts;
+    return sp;
+}
+
+// One pod's constraint rows, in shared memory (block_spread_pod).
+struct PodSpread {
+    int any_hard, any_soft;
+    int c[kMaxMC];
+    int enforced[kMaxMC];   // a hard row: the filter reads it
+    int soft[kMaxMC];       // a soft row: the score reads it
+    float self_m[kMaxMC];   // the pod matches the row's selector
+    float minm[kMaxMC];     // the row's critical-path minimum
+    float skew[kMaxMC];     // maxSkew
+    float weight[kMaxMC];   // log32(sizes + 2)
+    float damp[kMaxMC];     // maxSkew - 1
+};
+
 struct Step {
-    int flags;      // bit 0 s_any, bit 1 a_res, bit 2 a_ports
+    int flags;      // bit 0 s_any, bit 1 a_res, bit 2 a_ports, bit 3 passes every filter
     int count;      // feasible nodes
     float max_aff;  // normalisation maxima over feasible nodes, 0-floored
     float max_taint;
+    float sp_mx;    // spread score: max / min raw over scored nodes
+    float sp_mn;
 };
+
+__device__ __forceinline__ Step step_zero()
+{
+    Step s = {0, 0, 0.0f, 0.0f, -kBig, kBig};
+    return s;
+}
 
 __device__ __forceinline__ Step warp_reduce_step(Step s)
 {
@@ -210,6 +306,8 @@ __device__ __forceinline__ Step warp_reduce_step(Step s)
         s.count += __shfl_down_sync(0xffffffffu, s.count, off);
         s.max_aff = fmaxf(s.max_aff, __shfl_down_sync(0xffffffffu, s.max_aff, off));
         s.max_taint = fmaxf(s.max_taint, __shfl_down_sync(0xffffffffu, s.max_taint, off));
+        s.sp_mx = fmaxf(s.sp_mx, __shfl_down_sync(0xffffffffu, s.sp_mx, off));
+        s.sp_mn = fminf(s.sp_mn, __shfl_down_sync(0xffffffffu, s.sp_mn, off));
     }
     return s;
 }
@@ -248,8 +346,7 @@ __device__ inline Step block_reduce_step(Step st, Scratch& sc)
     if (lane == 0) sc.warp_step[warp] = st;
     __syncthreads();
     if (warp == 0) {
-        Step z = {0, 0, 0.0f, 0.0f};
-        st = lane < nwarps ? sc.warp_step[lane] : z;
+        st = lane < nwarps ? sc.warp_step[lane] : step_zero();
         st = warp_reduce_step(st);
         if (lane == 0) sc.step = st;
     }
@@ -278,6 +375,120 @@ __device__ inline void block_reduce_best(float& best, int& idx, Scratch& sc)
     __syncthreads();
 }
 
+// Block-wide float min; every thread returns the block's min.
+__device__ inline float block_reduce_min(float m, Scratch& sc)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = (blockDim.x + 31) >> 5;
+    for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_down_sync(0xffffffffu, m, off));
+    if (lane == 0) sc.warp_best[warp] = m;
+    __syncthreads();
+    if (warp == 0) {
+        m = lane < nwarps ? sc.warp_best[lane] : INFINITY;
+        for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_down_sync(0xffffffffu, m, off));
+        if (lane == 0) sc.best = m;
+    }
+    __syncthreads();
+    m = sc.best;
+    __syncthreads();
+    return m;
+}
+
+// The critical-path minimum of row c (topology.py spread_min_match): the
+// min count over eligible nodes, 0 without an eligible node or when fewer
+// eligible domains exist than minDomains asks for.  Block-wide.
+__device__ inline float block_spread_min(const Spread& sp, int n, int c, Scratch& sc)
+{
+    float m = kBig;
+    const size_t o = (size_t)c * n;
+    for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
+        if (sp.eligible[o + nd]) m = fminf(m, sp.counts[o + nd]);
+    }
+    m = block_reduce_min(m, sc);
+    if (m >= kBig) m = 0.0f;
+    const float md = sp.min_domains[c];
+    if (md > 0.0f && sp.sizes[c] < md) m = 0.0f;
+    return m;
+}
+
+// Fill `ps` (shared) with pod i's rows and each hard row's minimum against
+// the current counts.  Every thread of the block calls it.
+__device__ inline void block_spread_pod(const Spread& sp, int n, int i, PodSpread& ps, Scratch& sc)
+{
+    if (threadIdx.x == 0) {
+        ps.any_hard = ps.any_soft = 0;
+        for (int j = 0; j < sp.mc; ++j) {
+            const int cidx = sp.pod_idx[(size_t)i * sp.mc + j];
+            const int c = min(max(cidx, 0), sp.c_dim - 1);
+            const bool hard = sp.hard[c] != 0;
+            ps.c[j] = c;
+            ps.enforced[j] = cidx >= 0 && hard;
+            ps.soft[j] = cidx >= 0 && !hard;
+            ps.any_hard |= ps.enforced[j];
+            ps.any_soft |= ps.soft[j];
+            ps.self_m[j] = sp.pod_matches[(size_t)i * sp.c_dim + c] ? 1.0f : 0.0f;
+            ps.skew[j] = sp.max_skew[c];
+            ps.damp[j] = sub(sp.max_skew[c], 1.0f);
+            ps.weight[j] = log32(add(sp.sizes[c], 2.0f));
+            ps.minm[j] = 0.0f;
+        }
+    }
+    __syncthreads();
+    for (int j = 0; j < sp.mc; ++j) {
+        if (!ps.enforced[j]) continue;  // uniform: read from shared memory
+        const float m = block_spread_min(sp, n, ps.c[j], sc);
+        if (threadIdx.x == 0) ps.minm[j] = m;
+    }
+    __syncthreads();
+}
+
+// spread_filter at node nd: count + selfMatch - min <= maxSkew on every
+// hard row, and the node has the row's topology key.
+__device__ __forceinline__ bool spread_ok(const Spread& sp, const PodSpread& ps, int n, int nd)
+{
+    for (int j = 0; j < sp.mc; ++j) {
+        if (!ps.enforced[j]) continue;
+        const size_t o = (size_t)ps.c[j] * n + nd;
+        const float skew = sub(add(sp.counts[o], ps.self_m[j]), ps.minm[j]);
+        if (!(skew <= ps.skew[j]) || sp.v[o] < 0) return false;
+    }
+    return true;
+}
+
+// spread_score's raw row at node nd: round(sum over soft rows of
+// fma(count, weight, maxSkew - 1)), rows added in order; `ignored` when the
+// node lacks a soft row's key.
+__device__ __forceinline__ float spread_raw(const Spread& sp, const PodSpread& ps, int n, int nd,
+                                            bool& ignored)
+{
+    float total = 0.0f;
+    ignored = false;
+    for (int j = 0; j < sp.mc; ++j) {
+        if (!ps.soft[j]) continue;
+        const size_t o = (size_t)ps.c[j] * n + nd;
+        ignored |= sp.v[o] < 0;
+        total = add(total, __fmaf_rn(sp.counts[o], ps.weight[j], ps.damp[j]));
+    }
+    return rintf(total);
+}
+
+// Account pod i placed on node `choice` (spread_update): every row the pod
+// matches, at an eligible node with a value, gains one on every node that
+// shares the value.  Block-wide; the caller synchronises after it.
+__device__ inline void block_spread_update(const Spread& sp, int n, int i, int choice)
+{
+    for (int c = 0; c < sp.c_dim; ++c) {
+        const size_t oc = (size_t)c * n;
+        const int v_at = sp.v[oc + choice];
+        if (!sp.pod_matches[(size_t)i * sp.c_dim + c] || !sp.eligible[oc + choice] || v_at < 0) {
+            continue;
+        }
+        for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
+            if (sp.v[oc + nd] == v_at) sp.counts[oc + nd] = add(sp.counts[oc + nd], 1.0f);
+        }
+    }
+}
+
 // What one pod's evaluation against the carry gives every thread.
 struct Eval {
     Step all;     // stage flags, feasible count, normalisation maxima
@@ -288,19 +499,25 @@ struct Eval {
 };
 
 // The scan's step for one pod, block-wide (ops/assign.py `_eval_pod` +
-// `_pick`): pass 1 over N for the filters, the stage anys, the feasible
-// count and the normalisation maxima; pass 2 for the scores of feasible
-// nodes and the first-index argmax.  With `masked` non-null, pass 2 also
-// writes every node's masked score (-inf where infeasible).  pod_req,
-// pod_nz and pod_ports may point to shared memory.
+// `_pick`): pass 1 over N for the filters in the reference's stage order
+// (static, resources, ports, spread), the stage anys, the feasible count,
+// the normalisation maxima and the spread score's raw max / min over
+// scored nodes; pass 2 for the scores of feasible nodes and the
+// first-index argmax.  With `masked` non-null, pass 2 also writes every
+// node's masked score (-inf where infeasible).  pod_req, pod_nz and
+// pod_ports may point to shared memory; `ps` is the pod's block_spread_pod
+// (read only when sp.on).
 __device__ inline Eval block_eval(
     int n, int r, int pw, bool use_ports,
     const float* alloc, const float* requested, const float* nonzero, const uint32_t* ports,
     const uint8_t* srow, const float* arow, const float* trow,
     const float* pod_req, const float* pod_nz, const uint32_t* pod_ports,
+    const Spread& sp, const PodSpread& ps,
     const Config& cfg, Scratch& sc, float* masked)
 {
-    Step st = {0, 0, 0.0f, 0.0f};
+    const bool sp_hard = sp.on && ps.any_hard;
+    const bool sp_soft = sp.on && sp.soft_on && ps.any_soft;
+    Step st = step_zero();
     for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
         if (!srow[nd]) continue;
         st.flags |= 1;
@@ -308,13 +525,24 @@ __device__ inline Eval block_eval(
         st.flags |= 2;
         if (use_ports && ports_clash(ports + (size_t)nd * pw, pod_ports, pw)) continue;
         st.flags |= 4;
+        if (sp_hard && !spread_ok(sp, ps, n, nd)) continue;
+        st.flags |= 8;
         st.count += 1;
         st.max_aff = fmaxf(st.max_aff, arow[nd]);
         st.max_taint = fmaxf(st.max_taint, trow[nd]);
+        if (sp_soft) {
+            bool ignored;
+            const float raw = spread_raw(sp, ps, n, nd, ignored);
+            if (!ignored) {
+                st.sp_mx = fmaxf(st.sp_mx, raw);
+                st.sp_mn = fminf(st.sp_mn, raw);
+            }
+        }
     }
     Eval ev;
     ev.all = block_reduce_step(st, sc);
-    ev.found = (ev.all.flags & 4) != 0;
+    ev.found = (ev.all.flags & 8) != 0;
+    const float mx = ev.all.sp_mx, mn = ev.all.sp_mn;
 
     float best = -INFINITY;
     int best_idx = 0x7fffffff;
@@ -324,11 +552,27 @@ __device__ inline Eval block_eval(
             const float* cap = alloc + (size_t)nd * r;
             const float* rq = requested + (size_t)nd * r;
             if (srow[nd] && node_fits(rq, cap, pod_req, r)
-                && !(use_ports && ports_clash(ports + (size_t)nd * pw, pod_ports, pw))) {
+                && !(use_ports && ports_clash(ports + (size_t)nd * pw, pod_ports, pw))
+                && !(sp_hard && !spread_ok(sp, ps, n, nd))) {
                 const float fit_s = fit_score(cap, nonzero + (size_t)nd * r, pod_nz, cfg);
                 const float bal_s = balanced_score(cap, rq, pod_req, cfg);
                 total = node_total(fit_s, bal_s, arow[nd], trow[nd],
                                    ev.all.max_aff, ev.all.max_taint, cfg);
+                if (sp.on && sp.soft_on) {
+                    // spread_score: 0 for a pod without soft rows and at
+                    // nodes that lack a soft row's key
+                    float s = 0.0f;
+                    if (sp_soft) {
+                        bool ignored;
+                        const float raw = spread_raw(sp, ps, n, nd, ignored);
+                        if (!ignored) {
+                            s = mx <= 0.0f ? kMaxNodeScore
+                                : floorf(dv(mul(kMaxNodeScore, sub(add(mx, mn), raw)),
+                                            fmaxf(mx, 1e-30f)));
+                        }
+                    }
+                    total = add(total, mul(cfg.spread_weight, s));
+                }
                 if (total > best) { best = total; best_idx = nd; }
             }
             if (masked != nullptr) masked[nd] = total;
@@ -340,15 +584,19 @@ __device__ inline Eval block_eval(
     ev.reason = ev.found ? kReasonNone
         : !(ev.all.flags & 1) ? kReasonStatic
         : !(ev.all.flags & 2) ? kReasonResources
-        : kReasonPorts;
+        : !(ev.all.flags & 4) ? kReasonPorts
+        : kReasonSpread;
     return ev;
 }
 
 // Gang all-or-nothing post-pass (assign.py `_gang_release`), block-wide:
-// release every placement of a group with an unplaced member.
+// release every placement of a group with an unplaced member.  Each node
+// takes its released pods' requests off in pod index order (one thread a
+// node), the order of the reference's scatter-add, which decides the
+// rounding once a node's sum is past float32's exact range.
 // `incomplete` is zeroed scratch of max(n_groups, 1) ints.
 __device__ inline void block_gang_release(
-    int p, int r, int n_groups, const uint8_t* pod_valid, const int32_t* group_id,
+    int n, int p, int r, int n_groups, const uint8_t* pod_valid, const int32_t* group_id,
     const float* pod_req, const float* pod_nz, float* requested, float* nonzero,
     int32_t* assignment, float* scores, int32_t* reasons, int32_t* incomplete)
 {
@@ -357,14 +605,20 @@ __device__ inline void block_gang_release(
         if (g >= 0 && pod_valid[i] && assignment[i] < 0) incomplete[min(g, n_groups - 1)] = 1;
     }
     __syncthreads();
+    for (int b = threadIdx.x; b < n; b += blockDim.x) {
+        for (int i = 0; i < p; ++i) {
+            const int g = group_id[i];
+            if (g < 0 || assignment[i] != b || !incomplete[min(g, n_groups - 1)]) continue;
+            for (int rr = 0; rr < r; ++rr) {
+                requested[(size_t)b * r + rr] = sub(requested[(size_t)b * r + rr], pod_req[(size_t)i * r + rr]);
+                nonzero[(size_t)b * r + rr] = sub(nonzero[(size_t)b * r + rr], pod_nz[(size_t)i * r + rr]);
+            }
+        }
+    }
+    __syncthreads();
     for (int i = threadIdx.x; i < p; i += blockDim.x) {
         const int g = group_id[i];
-        const int a = assignment[i];
-        if (g < 0 || a < 0 || !incomplete[min(g, n_groups - 1)]) continue;
-        for (int rr = 0; rr < r; ++rr) {
-            atomicAdd(&requested[(size_t)a * r + rr], -pod_req[(size_t)i * r + rr]);
-            atomicAdd(&nonzero[(size_t)a * r + rr], -pod_nz[(size_t)i * r + rr]);
-        }
+        if (g < 0 || assignment[i] < 0 || !incomplete[min(g, n_groups - 1)]) continue;
         assignment[i] = -1;
         scores[i] = -INFINITY;
         reasons[i] = kReasonGang;

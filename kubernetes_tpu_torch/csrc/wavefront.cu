@@ -2,11 +2,13 @@
 //
 // Replaces: kubernetes_tpu/ops/assign.py:1090 `wavefront_assign` — the
 // lax.scan over waves of the batched [K, N] member evaluation against the
-// wave-start carry (`_eval_pod`, assign.py:374), the top-(K+1) candidate
-// lists (:1263), `wave_safe` (:1188), the O(K) mini-scan with its `cheap`
-// closed-form correction (:1328-1377) and `full` re-evaluation on a fit
-// flip (:1305-1326), the deferred port commit (:1406-1419), the `serial`
-// fallback for coupled waves (:1450-1521), the wave telemetry and the
+// wave-start carry (`_eval_pod`, assign.py:374, with the spread filter and
+// score of topology.py:121/153), the top-(K+1) candidate lists (:1263),
+// `wave_safe` (:1188, ports and the spread rows of :1182-1203), the O(K)
+// mini-scan with its `cheap` closed-form correction (:1328-1377) and `full`
+// re-evaluation on a fit flip (:1305-1326), the deferred port and spread
+// commits (:1406-1431), the `serial` fallback for coupled waves
+// (:1450-1521, with `spread_update` per member), the wave telemetry and the
 // `_gang_release` epilogue (:558).  The wave plan itself is host numpy
 // (`plan_waves`), as in the reference.
 //
@@ -26,19 +28,24 @@
 //               argmax over the entries after the previous pick, giving the
 //               top list in (score desc, index asc) order — lax.top_k's
 //               order, with no sort;
-//   wave_step   one block of 1024 threads: the port-conflict check, then
+//   wave_step   one block of 1024 threads: the coupling check (a host port
+//               or a spread row one member writes and a later one reads), then
 //               either the mini-scan (one warp corrects the wave-start
 //               scores at nodes picked earlier in the wave, thread 0 picks
 //               between them and the best unpicked top-list entry; a fit
 //               flip at a picked node re-evaluates the member block-wide
 //               against the live carry) and the deferred port commit, or
-//               the serial fallback (the scan's step per member).  It adds
-//               the wave and its fallbacks to two device counters.
+//               the serial fallback (the scan's step per member).  A safe
+//               wave's spread counts are committed after its mini-scan (no
+//               member read what another wrote).  It adds the wave and its
+//               fallbacks to two device counters.
 // A last single-block launch releases incomplete gangs.  One host call
 // enqueues all of it.  The carry (requested, nonzero, ports) is the
-// caller's copy, updated in place; the port table starts as the bound
-// claims (a node whose bound claims conflict is already outside the
-// class's static row, so the test equals the reference's in-batch carry).
+// caller's copy, updated in place (the spread counts too); the port table
+// starts as the bound claims (a node whose bound claims conflict is
+// already outside the class's static row, so the test equals the
+// reference's in-batch carry).  Spread members couple through their
+// counts, so the planner gives them waves of one.
 
 #include "solve_common.cuh"
 
@@ -60,6 +67,7 @@ __global__ void __launch_bounds__(kEvalThreads) wave_eval_kernel(
     const float* __restrict__ pod_req, const float* __restrict__ pod_nz,
     const uint32_t* __restrict__ pod_ports,
     const int32_t* __restrict__ iparams, const float* __restrict__ fparams,
+    Spread sp,                              // counts read only
     float* masked,                          // [K, N]
     float* topv, int32_t* topi,             // [K, kk]
     int32_t* found_k, int32_t* reason_k, int32_t* cnt_k)  // [K]
@@ -68,6 +76,7 @@ __global__ void __launch_bounds__(kEvalThreads) wave_eval_kernel(
     __shared__ float s_req[kMaxR], s_nz[kMaxR];
     __shared__ uint32_t s_ports[kMaxPW];
     __shared__ Scratch sc;
+    __shared__ PodSpread ps;
 
     const int j = blockIdx.x;
     const int i = row[j];
@@ -85,10 +94,11 @@ __global__ void __launch_bounds__(kEvalThreads) wave_eval_kernel(
 
     const int c = min(max(class_id[i], 0), c_dim - 1);
     float* mrow = masked + (size_t)j * n;
+    if (sp.on) block_spread_pod(sp, n, i, ps, sc);
     const Eval ev = block_eval(
         n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
         sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-        s_req, s_nz, s_ports, cfg, sc, mrow);
+        s_req, s_nz, s_ports, sp, ps, cfg, sc, mrow);
     if (tid == 0) {
         found_k[j] = ev.found ? 1 : 0;
         reason_k[j] = ev.reason;
@@ -137,6 +147,7 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
     const float* __restrict__ pod_req, const float* __restrict__ pod_nz,
     const uint32_t* __restrict__ pod_ports,
     const int32_t* __restrict__ iparams, const float* __restrict__ fparams,
+    Spread sp,                              // counts: the carry, in place
     const float* masked, const float* topv, const int32_t* topi,
     const int32_t* found_k, const int32_t* reason_k, const int32_t* cnt_k,
     int32_t* assignment, float* scores, int32_t* feas_counts, int32_t* reasons,
@@ -146,6 +157,7 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
     __shared__ float s_req[kMaxR], s_nz[kMaxR];
     __shared__ uint32_t s_ports[kMaxPW];
     __shared__ Scratch sc;
+    __shared__ PodSpread ps;
     __shared__ int s_mem[kMaxK];
     __shared__ int s_pick[kMaxK];              // node member j took in this wave, -1 none
     __shared__ float s_r0[kMaxK][kMaxR];       // wave-start requested row of s_pick[j]
@@ -167,7 +179,9 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
     for (int j = 0; j < k_dim; ++j) live += s_mem[j] >= 0 ? 1 : 0;
     if (live == 0) return;  // an all-padding row is skipped, not counted
 
-    // wave_safe: no member claims a host port that a later member claims
+    // wave_safe: no member claims a host port that a later member claims,
+    // and no member matches a spread row that a later member's constraints
+    // read
     int clash = 0;
     if (use_ports) {
         const int total = k_dim * k_dim * pw;
@@ -177,6 +191,19 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
             if (a < b && ia >= 0 && ib >= 0
                 && (pod_ports[(size_t)ia * pw + w] & pod_ports[(size_t)ib * pw + w]) != 0u) {
                 clash = 1;
+            }
+        }
+    }
+    if (sp.on) {
+        const int total = k_dim * k_dim * sp.mc;
+        for (int t = tid; t < total; t += blockDim.x) {
+            const int jj = t % sp.mc, ab = t / sp.mc, a = ab / k_dim, b = ab % k_dim;
+            const int ia = s_mem[a], ib = s_mem[b];
+            if (a < b && ia >= 0 && ib >= 0) {
+                const int row = sp.pod_idx[(size_t)ib * sp.mc + jj];
+                if (row >= 0 && row < sp.c_dim && sp.pod_matches[(size_t)ia * sp.c_dim + row]) {
+                    clash = 1;
+                }
             }
         }
     }
@@ -190,10 +217,11 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
             load_pod(i, r, pw, use_ports != 0, pod_req, pod_nz, pod_ports, s_req, s_nz, s_ports);
             __syncthreads();
             const int c = min(max(class_id[i], 0), c_dim - 1);
+            if (sp.on) block_spread_pod(sp, n, i, ps, sc);
             const Eval ev = block_eval(
                 n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
                 sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-                s_req, s_nz, s_ports, cfg, sc, nullptr);
+                s_req, s_nz, s_ports, sp, ps, cfg, sc, nullptr);
             if (tid == 0) {
                 assignment[i] = ev.found ? ev.choice : -1;
                 scores[i] = ev.best;
@@ -209,6 +237,7 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
                 if (use_ports) {
                     for (int t = tid; t < pw; t += blockDim.x) ports[(size_t)nd * pw + t] |= s_ports[t];
                 }
+                if (sp.on) block_spread_update(sp, n, i, nd);
             }
             __syncthreads();
         }
@@ -237,12 +266,14 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
             flip = sfeas[(size_t)c * n + nd] && (f0 != fc) ? 1 : 0;
         }
         if (__syncthreads_or(flip)) {
-            // exact re-evaluation against the live carry (the port table is
-            // still the wave start's, which a safe wave's members never touch)
+            // exact re-evaluation against the live carry (the port table and
+            // the spread counts are still the wave start's, which a safe
+            // wave's members never touch)
+            if (sp.on) block_spread_pod(sp, n, i, ps, sc);
             const Eval ev = block_eval(
                 n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
                 sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-                s_req, s_nz, s_ports, cfg, sc, nullptr);
+                s_req, s_nz, s_ports, sp, ps, cfg, sc, nullptr);
             if (tid == 0) {
                 s_found = ev.found ? 1 : 0;
                 s_choice = ev.choice;
@@ -331,13 +362,20 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
         }
         __syncthreads();
     }
-    // deferred port commit: no member of a safe wave read these
+    // deferred port and spread commits: no member of a safe wave read these
+    // (each thread adds to the same nodes for every member, so the spread
+    // adds need no barrier between members)
     if (use_ports) {
         for (int t = tid; t < k_dim * pw; t += blockDim.x) {
             const int j = t / pw, w = t % pw;
             if (s_mem[j] >= 0 && s_pick[j] >= 0) {
                 atomicOr(&ports[(size_t)s_pick[j] * pw + w], pod_ports[(size_t)s_mem[j] * pw + w]);
             }
+        }
+    }
+    if (sp.on) {
+        for (int j = 0; j < k_dim; ++j) {
+            if (s_mem[j] >= 0 && s_pick[j] >= 0) block_spread_update(sp, n, s_mem[j], s_pick[j]);
         }
     }
     if (tid == 0) {
@@ -347,11 +385,11 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
 }
 
 __global__ void __launch_bounds__(kStepThreads, 1) wave_gang_kernel(
-    int p, int r, int n_groups, const uint8_t* pod_valid, const int32_t* group_id,
+    int n, int p, int r, int n_groups, const uint8_t* pod_valid, const int32_t* group_id,
     const float* pod_req, const float* pod_nz, float* requested, float* nonzero,
     int32_t* assignment, float* scores, int32_t* reasons, int32_t* incomplete)
 {
-    block_gang_release(p, r, n_groups, pod_valid, group_id, pod_req, pod_nz,
+    block_gang_release(n, p, r, n_groups, pod_valid, group_id, pod_req, pod_nz,
                        requested, nonzero, assignment, scores, reasons, incomplete);
 }
 
@@ -366,13 +404,22 @@ extern "C" int wavefront_launch(
     const void* sfeas, const void* aff, const void* taint, const void* class_id,
     const void* pod_valid, const void* group_id, const void* pod_req,
     const void* pod_nz, const void* pod_ports, const void* iparams,
-    const void* fparams, void* masked, void* topv, void* topi, void* found_k,
+    const void* fparams,
+    int sp_on, int sp_soft, int sp_c, int sp_mc, const void* sp_pod_idx,
+    const void* sp_pod_matches, const void* sp_max_skew, const void* sp_min_domains,
+    const void* sp_hard, const void* sp_eligible, const void* sp_v, const void* sp_sizes,
+    void* sp_counts,
+    void* masked, void* topv, void* topi, void* found_k,
     void* reason_k, void* cnt_k, void* assignment, void* scores,
     void* feas_counts, void* reasons, void* counters, void* incomplete,
     void* stream)
 {
     if (k_dim < 1 || k_dim > kMaxK || r > kMaxR || pw > kMaxPW) return (int)cudaErrorInvalidValue;
+    if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1)) return (int)cudaErrorInvalidValue;
     if (p == 0 || n == 0) return 0;
+    const Spread sp = make_spread(sp_on, sp_soft, sp_c, sp_mc, sp_pod_idx, sp_pod_matches,
+                                  sp_max_skew, sp_min_domains, sp_hard, sp_eligible, sp_v,
+                                  sp_sizes, sp_counts);
     const int kk = min(k_dim + 1, n);
     cudaStream_t s = (cudaStream_t)stream;
     for (int w = 0; w < w_rows; ++w) {
@@ -383,7 +430,7 @@ extern "C" int wavefront_launch(
             (const uint8_t*)sfeas, (const float*)aff, (const float*)taint,
             (const int32_t*)class_id, (const float*)pod_req, (const float*)pod_nz,
             (const uint32_t*)pod_ports, (const int32_t*)iparams, (const float*)fparams,
-            (float*)masked, (float*)topv, (int32_t*)topi, (int32_t*)found_k,
+            sp, (float*)masked, (float*)topv, (int32_t*)topi, (int32_t*)found_k,
             (int32_t*)reason_k, (int32_t*)cnt_k);
         cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
@@ -393,7 +440,7 @@ extern "C" int wavefront_launch(
             (const uint8_t*)sfeas, (const float*)aff, (const float*)taint,
             (const int32_t*)class_id, (const float*)pod_req, (const float*)pod_nz,
             (const uint32_t*)pod_ports, (const int32_t*)iparams, (const float*)fparams,
-            (const float*)masked, (const float*)topv, (const int32_t*)topi,
+            sp, (const float*)masked, (const float*)topv, (const int32_t*)topi,
             (const int32_t*)found_k, (const int32_t*)reason_k, (const int32_t*)cnt_k,
             (int32_t*)assignment, (float*)scores, (int32_t*)feas_counts,
             (int32_t*)reasons, (int32_t*)counters);
@@ -402,7 +449,7 @@ extern "C" int wavefront_launch(
     }
     if (n_groups > 0) {
         wave_gang_kernel<<<1, kStepThreads, 0, s>>>(
-            p, r, n_groups, (const uint8_t*)pod_valid, (const int32_t*)group_id,
+            n, p, r, n_groups, (const uint8_t*)pod_valid, (const int32_t*)group_id,
             (const float*)pod_req, (const float*)pod_nz, (float*)requested,
             (float*)nonzero, (int32_t*)assignment, (float*)scores, (int32_t*)reasons,
             (int32_t*)incomplete);

@@ -6,8 +6,10 @@ stream, raises if the launch returned a CUDA error, and adds one to
 `LAUNCHES[name]` for every call of the kernel's C launch function.  A call
 enqueues the kernel's work for one unit: one table (match_terms), one
 batch (class_statics, greedy_scan, wavefront — the wavefront's call
-enqueues two kernels a wave), one bidding round (auction_bids,
-auction_accept — two kernels each).  Nothing here synchronises.
+enqueues two kernels a wave), one bidding round (auction_bids — two
+kernels; auction_spread — one), one stage of a round (auction_accept: a
+round whole, or with the spread family its acceptance and its commit, one
+call each).  Nothing here synchronises.
 """
 
 from __future__ import annotations
@@ -24,19 +26,23 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# the spread family's launch arguments (_spread_args): 4 ints, 9 pointers
+_SPREAD = [_I] * 4 + [_P] * 9
+
 _ARGTYPES = {
     "match_terms": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "class_statics": [_I] * 8 + [_P] * 19,
-    "greedy_scan": [_I] * 7 + [_P] * 22,
-    "wavefront": [_I] * 9 + [_P] * 29,
-    "auction_bids": [_I] * 7 + [_P] * 25,
-    "auction_accept": [_I] * 4 + [_P] * 19,
+    "greedy_scan": [_I] * 7 + [_P] * 16 + _SPREAD + [_P] * 6,
+    "wavefront": [_I] * 9 + [_P] * 16 + _SPREAD + [_P] * 13,
+    "auction_bids": [_I] * 7 + [_P] * 17 + [_I, _P, _P] + _SPREAD + [_P] * 8,
+    "auction_accept": [_I] * 5 + [_P] * 19,
+    "auction_spread": [_I] * 5 + [_P] * 20,
 }
 
 # greedy_scan.cu's static capacities and parameter-block layout
-MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE = 32, 256, 8, 16
+MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, MAX_MC = 32, 256, 8, 16, 8
 IP_COUNT = 4 + 2 * MAX_FIT
-FP_COUNT = 5 + MAX_FIT + 2 * MAX_SHAPE
+FP_COUNT = 5 + MAX_FIT + 2 * MAX_SHAPE + 1
 _STRATEGY = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_GRID_Y = 65535
 MAX_WAVE = 32        # wavefront.cu's widest wave
@@ -57,8 +63,8 @@ def _launcher(name: str):
         if name == "greedy_scan":
             limits = getattr(lib, "greedy_scan_limits")
             limits.restype, limits.argtypes = ctypes.c_int, [ctypes.c_int]
-            got = tuple(limits(i) for i in range(6))
-            want = (MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, IP_COUNT, FP_COUNT)
+            got = tuple(limits(i) for i in range(7))
+            want = (MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, IP_COUNT, FP_COUNT, MAX_MC)
             if got != want:
                 raise RuntimeError(f"greedy_scan limits {got} != bindings {want}")
         if name == "wavefront":
@@ -200,17 +206,51 @@ def score_params(cfg, r: int, device: torch.device) -> Tuple[torch.Tensor, torch
     for j, (x, y) in enumerate(shape):
         fp[5 + MAX_FIT + j] = x
         fp[5 + MAX_FIT + MAX_SHAPE + j] = y
+    fp[FP_COUNT - 1] = cfg.spread_weight
     return (
         torch.tensor(ip, dtype=torch.int32, device=device),
         torch.tensor(fp, dtype=torch.float32, device=device),
     )
 
 
+def _spread_args(sp_args, features, dev, n: int, p: int, counts=None):
+    """The spread family's checked launch arguments: ([on, soft_on, C, MC]
+    + 9 pointers, the tensors they point into).  `counts` is the f32[C, N]
+    carry the kernel reads (and updates, where it does); without the
+    family, zeros and a placeholder pointer."""
+    if not features.spread:
+        pad = torch.zeros(1, dtype=torch.int32, device=dev)
+        return [0, 0, 1, 1] + [_ptr(pad)] * 9, [pad]
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    table, st = sp_args.table, sp_args.state
+    keep = [
+        _arg(table.pod_idx, i32, dev, "spread.pod_idx"),
+        _arg(table.pod_matches, b, dev, "spread.pod_matches"),
+        _arg(table.max_skew, f32, dev, "spread.max_skew"),
+        _arg(table.min_domains, f32, dev, "spread.min_domains"),
+        _arg(table.hard, b, dev, "spread.hard"),
+        _arg(st.eligible, b, dev, "spread eligible"),
+        _arg(st.v, i32, dev, "spread v"),
+        _arg(st.sizes, f32, dev, "spread sizes"),
+        counts,
+    ]
+    c_dim = keep[6].shape[0]
+    mc = keep[0].shape[1]
+    if not 1 <= mc <= MAX_MC:
+        raise ValueError(f"the kernels take 1..{MAX_MC} spread constraints a pod, got {mc}")
+    if (keep[0].shape[0] != p or keep[1].shape != (p, c_dim)
+            or keep[5].shape != (c_dim, n) or counts.shape != (c_dim, n)
+            or counts.dtype != f32 or not counts.is_contiguous() or counts.device != dev):
+        raise ValueError("spread tables do not match the batch's pod and node axes")
+    return [1, int(features.soft_spread), c_dim, mc] + [_ptr(t) for t in keep], keep
+
+
 def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
-                n_groups: int, cfg):
+                n_groups: int, cfg, sp_args=None):
     """The whole greedy solve in one launch.  Returns (assignment,
     scores, feasible_counts, reasons, requested, nonzero_requested,
-    port_bits); the carry tensors are fresh copies."""
+    port_bits, spread counts or None); the carry tensors are fresh
+    copies."""
     dev = cluster.allocatable.device
     i32, f32, b = torch.int32, torch.float32, torch.bool
     alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
@@ -239,6 +279,8 @@ def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
             f"words, got {r} and {pw}"
         )
     iparams, fparams = score_params(cfg, r, dev)
+    counts = sp_args.state.counts_node.clone().contiguous() if features.spread else None
+    sp, _keep = _spread_args(sp_args, features, dev, n, p, counts)
     assignment = torch.empty(p, dtype=i32, device=dev)
     scores = torch.empty(p, dtype=f32, device=dev)
     feas_counts = torch.empty(p, dtype=i32, device=dev)
@@ -251,20 +293,20 @@ def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
             _ptr(alloc), _ptr(requested), _ptr(nonzero), _ptr(ports),
             _ptr(sfeas_c), _ptr(aff_c), _ptr(taint_c), _ptr(order),
             _ptr(class_id), _ptr(pod_valid), _ptr(group_id), _ptr(pod_req),
-            _ptr(pod_nz), _ptr(pod_ports), _ptr(iparams), _ptr(fparams),
+            _ptr(pod_nz), _ptr(pod_ports), _ptr(iparams), _ptr(fparams), *sp,
             _ptr(assignment), _ptr(scores), _ptr(feas_counts), _ptr(reasons),
             _ptr(incomplete),
         )
     return (assignment, scores, feas_counts, reasons, requested, nonzero,
-            ports if use_ports else cluster.port_bits)
+            ports if use_ports else cluster.port_bits, counts)
 
 
 def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
-              n_groups: int, cfg):
+              n_groups: int, cfg, sp_args=None):
     """The whole wavefront solve in one call (two kernels a wave, then the
     gang release).  Returns (assignment, scores, feasible_counts, reasons,
-    requested, nonzero_requested, port_bits, wave_count, wave_fallbacks);
-    the carry tensors are fresh copies."""
+    requested, nonzero_requested, port_bits, wave_count, wave_fallbacks,
+    spread counts or None); the carry tensors are fresh copies."""
     dev = cluster.allocatable.device
     i32, f32, b = torch.int32, torch.float32, torch.bool
     alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
@@ -294,6 +336,8 @@ def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
             f"and waves of 1..{MAX_WAVE}, got {r}, {pw} and {k_dim}"
         )
     iparams, fparams = score_params(cfg, r, dev)
+    counts = sp_args.state.counts_node.clone().contiguous() if features.spread else None
+    sp, _keep = _spread_args(sp_args, features, dev, n, p, counts)
     kk = min(k_dim + 1, n)
     masked = torch.empty((k_dim, n), dtype=f32, device=dev)
     topv = torch.empty((k_dim, kk), dtype=f32, device=dev)
@@ -313,13 +357,14 @@ def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
             _ptr(members), _ptr(alloc), _ptr(requested), _ptr(nonzero), _ptr(ports),
             _ptr(sfeas_c), _ptr(aff_c), _ptr(taint_c), _ptr(class_id),
             _ptr(pod_valid), _ptr(group_id), _ptr(pod_req), _ptr(pod_nz),
-            _ptr(pod_ports), _ptr(iparams), _ptr(fparams), _ptr(masked),
+            _ptr(pod_ports), _ptr(iparams), _ptr(fparams), *sp, _ptr(masked),
             _ptr(topv), _ptr(topi), _ptr(found_k), _ptr(reason_k), _ptr(cnt_k),
             _ptr(assignment), _ptr(scores), _ptr(feas_counts), _ptr(reasons),
             _ptr(counters), _ptr(incomplete),
         )
     return (assignment, scores, feas_counts, reasons, requested, nonzero,
-            ports if use_ports else cluster.port_bits, counters[0], counters[1])
+            ports if use_ports else cluster.port_bits, counters[0], counters[1],
+            counts)
 
 
 def auction_state(rnd: int, go: bool, device) -> torch.Tensor:
@@ -329,13 +374,14 @@ def auction_state(rnd: int, go: bool, device) -> torch.Tensor:
 
 
 def auction_bids(cluster, pods, st, requested, nonzero, assigned, state,
-                 tie_k: int, cfg, bufs):
+                 tie_k: int, cfg, bufs, sp_counts=None):
     """One bidding round at round state[0], if state[1] is set, into the
-    buffers of `auction_buffers`.  Returns (bid i32[P], val f32[P],
-    (inv_c, cnt_c, best_c)), views of those buffers (left at "no bid" when
-    the flag is down)."""
+    buffers of `auction_buffers`, against the round's spread counts
+    (st.features.spread).  Returns (bid i32[P], val f32[P], (inv_c, cnt_c,
+    best_c)), views of those buffers (left at "no bid" when the flag is
+    down)."""
     args, _keep = _bids_args(cluster, pods, st, requested, nonzero, assigned,
-                             state, tie_k, cfg, bufs)
+                             state, tie_k, cfg, bufs, sp_counts)
     _launch("auction_bids", requested.device, *args)
     return bufs["bid"], bufs["val"], (bufs["inv_c"], bufs["cnt_c"], bufs["best_c"])
 
@@ -352,16 +398,28 @@ def _scan_rows(p: int) -> int:
     return rows
 
 
-def auction_buffers(cluster, pods, tie_k: int) -> Dict[str, torch.Tensor]:
-    """Scratch and outputs of the two auction kernels, allocated once a
-    batch."""
+def auction_buffers(cluster, pods, tie_k: int, sp_args=None) -> Dict[str, torch.Tensor]:
+    """Scratch and outputs of the auction kernels, allocated once a
+    batch (with sp_args, auction_spread's too)."""
     dev = cluster.allocatable.device
-    i32, f32 = torch.int32, torch.float32
+    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
     n, r = cluster.allocatable.shape
     p = pods.req.shape[0]
     c_dim = pods.class_rep.shape[0]
     grid = max(1, min(c_dim, BIDS_GRID))
+    spread = {}
+    if sp_args is not None:
+        rows = sp_args.state.v.shape[0]
+        spread = {
+            "counts_it": torch.empty((rows, n), dtype=f32, device=dev),
+            "adds": torch.empty((rows, sp_args.z), dtype=i32, device=dev),
+            "minc": torch.empty(rows, dtype=f32, device=dev),
+            "kept": torch.empty(p, dtype=u8, device=dev),
+            "cand": torch.empty(p, dtype=u8, device=dev),
+            "admit": torch.empty(p, dtype=u8, device=dev),
+        }
     return {
+        **spread,
         "grid": grid,
         "inv_c": torch.zeros((c_dim, tie_k), dtype=i32, device=dev),
         "cnt_c": torch.zeros(c_dim, dtype=i32, device=dev),
@@ -380,7 +438,7 @@ def auction_buffers(cluster, pods, tie_k: int) -> Dict[str, torch.Tensor]:
 
 
 def _bids_args(cluster, pods, st, requested, nonzero, assigned, state, tie_k,
-               cfg, bufs):
+               cfg, bufs, sp_counts=None):
     """The checked ctypes arguments of one auction_bids launch, and the
     tensors they point into (kept alive by the caller)."""
     dev = requested.device
@@ -413,14 +471,20 @@ def _bids_args(cluster, pods, st, requested, nonzero, assigned, state, tie_k,
         raise ValueError(f"tie_k {tie_k} outside 1..{n}")
     iparams, fparams = score_params(cfg, r, dev)
     keep += [iparams, fparams, _arg(state, i32, dev, "state")]
-    keep += [bufs[k] for k in ("inv_c", "cnt_c", "best_c", "masked", "slots", "bid", "val")]
+    k_reps = _arg(st.k_reps, i32, dev, "k_reps")
+    jcons = _arg(st.jcons, i32, dev, "jcons")
+    if jcons.shape != st.jspec.shape:
+        raise ValueError("jcons and jspec must both be [C]")
+    sp, sp_keep = _spread_args(st.sp, st.features, dev, n, p, sp_counts)
+    outs = [bufs[k] for k in ("inv_c", "cnt_c", "best_c", "masked", "slots", "bid", "val")]
     args = (n, r, p, st.jspec.shape[0], st.s_reps.shape[0], tie_k, bufs["grid"],
-            *(_ptr(t) for t in keep))
-    return args, keep
+            *(_ptr(t) for t in keep), k_reps.shape[0], _ptr(k_reps), _ptr(jcons),
+            *sp, *(_ptr(t) for t in outs))
+    return args, keep + [k_reps, jcons] + sp_keep + outs
 
 
 def _accept_args(allocatable, pods, order, bid, val, requested, nonzero,
-                 assigned, bid_scores, state, max_rounds, bufs):
+                 assigned, bid_scores, state, max_rounds, bufs, stage=3):
     """The checked ctypes arguments of one auction_accept launch, and the
     tensors they point into."""
     dev = allocatable.device
@@ -446,41 +510,107 @@ def _accept_args(allocatable, pods, order, bid, val, requested, nonzero,
     if r > MAX_R:
         raise ValueError(f"auction_accept takes at most {MAX_R} resources, got {r}")
     keep += [bufs[k] for k in ("perm", "firstpos", "perm_idx", "prefix", "scan", "accept")]
-    return (n, r, p, int(max_rounds), *(_ptr(t) for t in keep)), keep
+    return (n, r, p, int(max_rounds), int(stage), *(_ptr(t) for t in keep)), keep
 
 
 def auction_accept(allocatable, pods, order, bid, val, requested, nonzero,
-                   assigned, bid_scores, state, max_rounds: int, bufs) -> None:
-    """One round's acceptance and commit, in place on (requested, nonzero,
-    assigned, bid_scores, state), if state[1] is set, with the scratch of
-    `auction_buffers`."""
+                   assigned, bid_scores, state, max_rounds: int, bufs,
+                   stage: int = 3) -> None:
+    """One round's acceptance and commit (stage 3), or its acceptance into
+    bufs["accept"] (stage 1) or its commit of bufs["accept"] (stage 2), in
+    place on (requested, nonzero, assigned, bid_scores, state), if
+    state[1] is set, with the scratch of `auction_buffers`."""
     dev = allocatable.device
     args, _keep = _accept_args(allocatable, pods, order, bid, val, requested,
-                               nonzero, assigned, bid_scores, state, max_rounds, bufs)
+                               nonzero, assigned, bid_scores, state, max_rounds,
+                               bufs, stage)
     _launch("auction_accept", dev, *args)
 
 
+def auction_release(allocatable, pods, assigned, dropped, requested, nonzero) -> None:
+    """The gang post-pass's subtraction, in place on (requested, nonzero):
+    each node takes off its dropped pods' requests in pod index order
+    (kernel auction_accept's release entry point)."""
+    dev = allocatable.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    for t, what in ((requested, "requested"), (nonzero, "nonzero")):
+        if t.device != dev or t.dtype != f32 or not t.is_contiguous():
+            raise ValueError(f"{what}: updated in place; it must be a contiguous {f32} "
+                             f"tensor on {dev}")
+    keep = [_arg(assigned, i32, dev, "assigned"), _arg(dropped, b, dev, "dropped"),
+            _arg(pods.req, f32, dev, "pods.req"), _arg(pods.nonzero_req, f32, dev,
+                                                         "pods.nonzero_req")]
+    n, r = requested.shape
+    p = keep[0].shape[0]
+    fn = build.library("auction_accept").auction_accept_release
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_I] * 3 + [_P] * 7
+    with torch.cuda.device(dev):
+        code = fn(n, r, p, *(_ptr(t) for t in keep), _ptr(requested), _ptr(nonzero),
+                  _stream(dev))
+    build.check("auction_accept", code)
+    LAUNCHES["auction_accept"] += 1
+
+
+def _spread_repair_args(cluster, pods, st, counts, state, bufs):
+    """The checked ctypes arguments of one auction_spread launch, and the
+    tensors they point into."""
+    dev = cluster.allocatable.device
+    i32 = torch.int32
+    n = cluster.allocatable.shape[0]
+    p = pods.req.shape[0]
+    sp, keep = _spread_args(st.sp, st.features, dev, n, p, counts)
+    keep += [_arg(st.order, i32, dev, "order"), bufs["bid"], state, bufs["accept"]]
+    scratch = [bufs[k] for k in ("counts_it", "adds", "minc", "kept", "cand", "admit")]
+    if scratch[0].shape != counts.shape:
+        raise ValueError("auction_spread scratch does not match the counts")
+    args = (n, p, int(st.sp.z), *sp[2:],
+            *(_ptr(t) for t in keep[-4:]), *(_ptr(t) for t in scratch))
+    return args, keep + scratch
+
+
+def auction_spread(cluster, pods, st, counts, state, bufs) -> None:
+    """One round's spread repair of bufs["accept"] (against bufs["bid"])
+    and the commit of the kept pods into `counts`, in place, if state[1]
+    is set."""
+    args, _keep = _spread_repair_args(cluster, pods, st, counts, state, bufs)
+    _launch("auction_spread", cluster.allocatable.device, *args)
+
+
 def auction_rounds(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
-    """All rounds with no host sync: max_rounds (bids, accept) pairs are
-    enqueued, their arguments checked once; every launch after the loop's
-    end returns at once on the device's flag.  Returns (assigned,
-    bid_scores, requested, nonzero, rounds i32[])."""
+    """All rounds with no host sync: max_rounds rounds are enqueued, their
+    arguments checked once — (bids, accept) pairs, or with the spread
+    family (bids, accept stage 1, spread, accept stage 2); every launch
+    after the loop's end returns at once on the device's flag.  Returns
+    (assigned, bid_scores, requested, nonzero, rounds i32[], spread counts
+    or None)."""
     dev = cluster.allocatable.device
     p = pods.req.shape[0]
+    use_spread = bool(st.features.spread)
     requested = cluster.requested.clone().contiguous()
     nonzero = cluster.nonzero_requested.clone().contiguous()
     assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
     bid_scores = torch.full((p,), float("-inf"), dtype=torch.float32, device=dev)
+    counts = st.sp.state.counts_node.clone().contiguous() if use_spread else None
     # the loop condition before round 0: max_rounds > 0 and a valid pod
     state = torch.zeros(3, dtype=torch.int32, device=dev)
     state[1] = pods.valid.any().to(torch.int32) * int(max_rounds > 0)
-    bufs = auction_buffers(cluster, pods, tie_k)
+    bufs = auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None)
     bids, _k1 = _bids_args(cluster, pods, st, requested, nonzero, assigned,
-                           state, tie_k, cfg, bufs)
-    accept, _k2 = _accept_args(cluster.allocatable, pods, st.order, bufs["bid"],
-                               bufs["val"], requested, nonzero, assigned,
-                               bid_scores, state, max_rounds, bufs)
+                           state, tie_k, cfg, bufs, counts)
+    accept_args = [
+        _accept_args(cluster.allocatable, pods, st.order, bufs["bid"],
+                     bufs["val"], requested, nonzero, assigned, bid_scores,
+                     state, max_rounds, bufs, stage)
+        for stage in ((1, 2) if use_spread else (3,))
+    ]
+    if use_spread:
+        repair, _k3 = _spread_repair_args(cluster, pods, st, counts, state, bufs)
     for _ in range(max_rounds):
         _launch("auction_bids", dev, *bids)
-        _launch("auction_accept", dev, *accept)
-    return assigned, bid_scores, requested, nonzero, state[0]
+        _launch("auction_accept", dev, *accept_args[0][0])
+        if use_spread:
+            _launch("auction_spread", dev, *repair)
+            _launch("auction_accept", dev, *accept_args[1][0])
+    return assigned, bid_scores, requested, nonzero, state[0], counts

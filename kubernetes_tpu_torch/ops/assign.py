@@ -20,10 +20,10 @@ wave-parallel solve of the same semantics (section below).  On the CPU the
 plain versions below run; they are what the tests hold against the
 reference package.
 
-This slice covers the static, resource and host-port families.  Batches
-that use topology spread, inter-pod (anti-)affinity, ImageLocality or
-slice carve-outs raise NotImplementedError naming the slice that brings
-them.
+The solves cover the static, resource, host-port and PodTopologySpread
+(hard and soft; ops/topology.py) families.  Batches that use inter-pod
+(anti-)affinity, ImageLocality or slice carve-outs raise
+NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -49,6 +49,13 @@ from .scores import (
     resource_score_parts,
     score_from_raw,
     taint_toleration_raw,
+)
+from .topology import (
+    SpreadState,
+    prep_spread,
+    spread_filter,
+    spread_score,
+    spread_update,
 )
 
 NEG_INF = float("-inf")
@@ -78,7 +85,6 @@ class FeatureFlags(NamedTuple):
 
 # constraint families this slice does not solve, and the slice that will
 _DEFERRED_FAMILIES = (
-    ("spread", "PodTopologySpread (constraint-families slice)"),
     ("interpod", "required InterPodAffinity (constraint-families slice)"),
     ("interpod_pref", "preferred InterPodAffinity (constraint-families slice)"),
     ("images", "ImageLocality (constraint-families slice)"),
@@ -183,8 +189,8 @@ def check_supported(features: FeatureFlags) -> None:
     for flag, what in _DEFERRED_FAMILIES:
         if getattr(features, flag):
             raise NotImplementedError(
-                f"{what} is not ported yet: the torch greedy solve covers "
-                "the static, resource and host-port families only"
+                f"{what} is not ported yet: the torch solves cover the "
+                "static, resource, host-port and topology-spread families"
             )
 
 
@@ -278,12 +284,15 @@ def _eval_pod(
     aff_c: torch.Tensor,
     taint_c: torch.Tensor,
     new_ports: Optional[torch.Tensor],
+    sp: Optional[SpreadState],
+    spread,
     features: FeatureFlags,
     cfg: ScoreConfig,
 ):
     """The Filter+Score half of one scheduling step for pod i against the
-    carried state: (feas[N], masked_scores[N], found, reason,
-    feasible_count), for the static, resource and port families."""
+    carried state (sp: the spread counts, when features.spread):
+    (feas[N], masked_scores[N], found, reason, feasible_count), in the
+    reference's stage order — static, resources, ports, spread."""
     pod = pod_view(pods, i)
     s_static = sfeas_c[cls]
     s_any = bool(s_static.any())
@@ -292,19 +301,39 @@ def _eval_pod(
     if features.ports:
         feas = feas & ~((new_ports & pod.port_bits[None, :]) != 0).any(dim=-1)
     a_ports = bool(feas.any())
-    found = a_ports
+    if features.spread:
+        feas = feas & spread_filter(sp, spread, i)
+    found = bool(feas.any())
     if found:
         reason = REASON_NONE
     elif not s_any:
         reason = REASON_STATIC
     elif not a_res:
         reason = REASON_RESOURCES
-    else:
+    elif not a_ports:
         reason = REASON_PORTS
-    scores = score_from_raw(cl, pod, feas, aff_c[cls], taint_c[cls], cfg)
+    else:
+        reason = REASON_SPREAD
+    sp_score = spread_score(sp, spread, i, feas) if features.soft_spread else None
+    scores = score_from_raw(
+        cl, pod, feas, aff_c[cls], taint_c[cls], cfg, spread_score=sp_score,
+    )
     masked = torch.where(feas, scores, NEG_INF)
     cnt = int(feas.sum())
     return feas, masked, found, reason, cnt
+
+
+def add_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """dst with vals[i] added to row idx[i], each row's additions in
+    increasing i: the order of the reference's scatter-add, which decides
+    the rounding once a row's sum passes float32's exact range.  index_add
+    on the CPU adds serially, in that order; on the card its atomics keep
+    no order, so this plain version runs on the CPU only (the card's
+    solves commit and release through their kernels)."""
+    if dst.device.type != "cpu":
+        raise ValueError("add_rows adds in pod index order on the CPU only; "
+                         "on the card the solve kernels add")
+    return dst.index_add(0, idx, vals)
 
 
 def _gang_release(
@@ -312,8 +341,9 @@ def _gang_release(
 ):
     """All-or-nothing gang post-pass: release every placement of a group
     with an unplaced member, subtracting the released requests from the
-    carried usage.  The reference drops its out-of-bounds scatter rows;
-    index_add_ would raise on them, so only dropped pods are scattered."""
+    carried usage, each node's in pod index order (add_rows).  The
+    reference drops its out-of-bounds scatter rows; index_add_ would raise
+    on them, so only dropped pods are scattered."""
     g = pods.group_id
     gc = torch.clamp(g, 0, n_groups - 1).long()
     unplaced = (assignment < 0) & pods.valid & (g >= 0)
@@ -321,12 +351,21 @@ def _gang_release(
     incomplete.index_put_((gc[unplaced],), torch.ones_like(gc[unplaced], dtype=torch.bool))
     dropped = (g >= 0) & incomplete[gc] & (assignment >= 0)
     tgt = assignment[dropped].long()
-    requested = requested.index_add(0, tgt, -pods.req[dropped])
-    nonzero = nonzero.index_add(0, tgt, -pods.nonzero_req[dropped])
+    requested = add_rows(requested, tgt, -pods.req[dropped])
+    nonzero = add_rows(nonzero, tgt, -pods.nonzero_req[dropped])
     assignment = torch.where(dropped, -1, assignment)
     win_scores = torch.where(dropped, NEG_INF, win_scores)
     reasons = torch.where(dropped, REASON_GANG, reasons)
     return assignment, win_scores, reasons, requested, nonzero
+
+
+class SpreadArgs(NamedTuple):
+    """What the spread family hands a solve: the constraint table and the
+    per-batch prep state (prep_spread); the solve carries counts_node."""
+
+    table: object        # schema.SpreadTable (tensors)
+    state: SpreadState
+    z: int               # value capacity of the spread slots (z_spread)
 
 
 def greedy_assign_plain(
@@ -339,10 +378,12 @@ def greedy_assign_plain(
     features: FeatureFlags,
     n_groups: int,
     cfg: ScoreConfig,
+    sp_args: Optional[SpreadArgs] = None,
 ):
     """Plain version of kernel `greedy_scan`: the sequential loop in
     torch ops.  Returns (assignment, scores, feasible_counts, reasons,
-    requested, nonzero_requested, port_bits)."""
+    requested, nonzero_requested, port_bits, spread counts_node or
+    None)."""
     n = cluster.allocatable.shape[0]
     p = pods.req.shape[0]
     c_dim = sfeas_c.shape[0]
@@ -355,11 +396,13 @@ def greedy_assign_plain(
     win_scores = torch.full((p,), NEG_INF, dtype=torch.float32, device=dev)
     feas_counts = torch.zeros(p, dtype=torch.int32, device=dev)
     reasons = torch.full((p,), REASON_NONE, dtype=torch.int32, device=dev)
+    sp, spread = _spread_carry(sp_args, features)
     for i in order.tolist():
         cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
         cls = min(max(class_id[i], 0), c_dim - 1)
         feas, masked, found, reason, cnt = _eval_pod(
-            cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports, features, cfg,
+            cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports, sp, spread,
+            features, cfg,
         )
         feas_counts[i] = cnt
         reasons[i] = reason
@@ -371,6 +414,8 @@ def greedy_assign_plain(
             nonzero[choice] += pods.nonzero_req[i]
             if features.ports:
                 new_ports[choice] |= pods.port_bits[i]
+            if features.spread:
+                sp = spread_update(sp, spread, i, choice)
     if n_groups > 0:
         assignment, win_scores, reasons, requested, nonzero = _gang_release(
             assignment, win_scores, reasons, requested, nonzero,
@@ -380,7 +425,18 @@ def greedy_assign_plain(
         cluster.port_bits | new_ports if features.ports else cluster.port_bits
     )
     return (assignment, win_scores, feas_counts, reasons, requested, nonzero,
-            port_bits)
+            port_bits, sp.counts_node if features.spread else None)
+
+
+def _spread_carry(sp_args: Optional[SpreadArgs], features: FeatureFlags):
+    """(state, table) a plain solve starts from: a copy of the prep
+    state's counts, or (None, None) without the spread family."""
+    if not features.spread:
+        return None, None
+    if sp_args is None:
+        raise ValueError("features.spread is set but no spread prep was given")
+    st = sp_args.state
+    return st._replace(counts_node=st.counts_node.clone()), sp_args.table
 
 
 def greedy_scan(
@@ -393,6 +449,7 @@ def greedy_scan(
     features: FeatureFlags,
     n_groups: int,
     cfg: ScoreConfig,
+    sp_args: Optional[SpreadArgs] = None,
 ):
     """Wrapper of kernel `greedy_scan`: the kernel for tensors on the
     card, the plain version for tensors on the CPU.  The carry tensors
@@ -400,24 +457,47 @@ def greedy_scan(
     if cluster.allocatable.device.type == "cpu":
         return greedy_assign_plain(
             cluster, pods, sfeas_c, aff_c, taint_c, order, features,
-            n_groups, cfg,
+            n_groups, cfg, sp_args,
         )
     from ..kernels import bindings
 
     return bindings.greedy_scan(
         cluster, pods, sfeas_c, aff_c, taint_c, order, features, n_groups, cfg,
+        sp_args,
     )
 
 
-def _solver_prep(snapshot: Snapshot):
+def spread_prep(snapshot: Snapshot, sel_mask: torch.Tensor,
+                features: FeatureFlags,
+                topo_z: Optional[int] = None) -> Optional[SpreadArgs]:
+    """The spread family's per-batch prep (plain torch on the solve's
+    device), or None without it.  topo_z: the value capacity of the
+    spread slots (required_topo_z_split's first entry, derived here — a
+    host readback for tensors on the card — when not given); any capacity
+    above the largest value gives the same state."""
+    if not features.spread:
+        return None
+    if topo_z is None:
+        topo_z, _ = required_topo_z_split(snapshot)
+    state = prep_spread(
+        snapshot.cluster, sel_mask, snapshot.spread, topo_z,
+        has_bound=features.bound_spread,
+    )
+    return SpreadArgs(snapshot.spread, state, topo_z)
+
+
+def _solver_prep(snapshot: Snapshot, features: FeatureFlags,
+                 topo_z: Optional[int] = None):
     """Per-batch device prep, cold path: the selector and preferred masks
-    (kernel match_terms) and the class-hoisted static tables (kernel
-    class_statics).  Returns (cluster, pods, sfeas_c, aff_c, taint_c)."""
+    (kernel match_terms), the class-hoisted static tables (kernel
+    class_statics) and the spread state.  Returns (cluster, pods, sfeas_c,
+    aff_c, taint_c, sp_args)."""
     cluster, pods, sel, pref = snapshot[:4]
     sel_mask = selector_match(cluster, sel)
     pref_mask = preferred_match(cluster, pref)
     sfeas_c, aff_c, taint_c = class_statics(cluster, pods, sel_mask, pref_mask)
-    return cluster, pods, sfeas_c, aff_c, taint_c
+    sp_args = spread_prep(snapshot, sel_mask, features, topo_z)
+    return cluster, pods, sfeas_c, aff_c, taint_c, sp_args
 
 
 def greedy_assign(
@@ -425,6 +505,7 @@ def greedy_assign(
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
     features: Optional[FeatureFlags] = None,
     n_groups: Optional[int] = None,
+    topo_z: Optional[int] = None,
 ) -> SolveResult:
     """Sequential-greedy solve of the whole pending batch, on the device
     the snapshot's tensors lie on.
@@ -435,19 +516,21 @@ def greedy_assign(
     placement after the loop (all-or-nothing); later pods saw the released
     placements' usage (conservative, as in the reference package).
 
-    features / n_groups are derived from the snapshot when not given
-    (a host readback for tensors on the card; encode_pending derives them
-    before the transfer)."""
+    features / n_groups / topo_z (the spread slots' value capacity) are
+    derived from the snapshot when not given (a host readback for tensors
+    on the card; encode_pending derives them before the transfer)."""
     if features is None:
         features = features_of(snapshot)
     check_supported(features)
     if n_groups is None:
         n_groups = int(_np(snapshot.pods.group_id).max()) + 1
-    cluster, pods, sfeas_c, aff_c, taint_c = _solver_prep(snapshot)
+    cluster, pods, sfeas_c, aff_c, taint_c, sp_args = _solver_prep(
+        snapshot, features, topo_z)
     order = solve_order(pods)
     (assignment, win_scores, feas_counts, reasons, requested, nonzero,
-     port_bits) = greedy_scan(
+     port_bits, _sp_counts) = greedy_scan(
         cluster, pods, sfeas_c, aff_c, taint_c, order, features, n_groups, cfg,
+        sp_args,
     )
     final = cluster._replace(
         requested=requested, nonzero_requested=nonzero, port_bits=port_bits,
@@ -512,8 +595,8 @@ def plan_waves(
       * size: the wave already holds `wave_cap` members;
       * ports: its host-port bits intersect a member's;
       * spread/terms: a wave member WRITES a constraint row this pod
-        READS (kept for the constraint-families slice; those batches
-        raise before a solve today);
+        READS (the inter-pod rows are kept for the slice that ports the
+        family; such batches raise before a solve today);
       * headroom: aggregate wave demand would exceed the roomiest
         node's free capacity (elementwise; the reference's default
         headroom_frac of 1.0) — a heuristic
@@ -614,11 +697,12 @@ def _top_stable(masked: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return vals[..., :k], idx[..., :k].to(torch.int32)
 
 
-def _pick_full(cl, pods, i, cls, sfeas_c, aff_c, taint_c, ports, features, cfg):
+def _pick_full(cl, pods, i, cls, sfeas_c, aff_c, taint_c, ports, sp, spread,
+               features, cfg):
     """One exact scan step's decision for pod i against carry `cl`:
     (choice, win, count, reason, found)."""
     _, masked, found, reason, cnt = _eval_pod(
-        cl, pods, i, cls, sfeas_c, aff_c, taint_c, ports, features, cfg,
+        cl, pods, i, cls, sfeas_c, aff_c, taint_c, ports, sp, spread, features, cfg,
     )
     choice = int(_pick(masked))
     return choice, float(masked[choice]) if found else NEG_INF, cnt, reason, found
@@ -634,11 +718,13 @@ def wavefront_assign_plain(
     features: FeatureFlags,
     n_groups: int,
     cfg: ScoreConfig,
+    sp_args: Optional[SpreadArgs] = None,
 ):
     """Plain version of kernel `wavefront`: the wave loop in torch ops.
     members: i32[W, K] pod indices in solve order (-1 pad).  Returns
     (assignment, scores, feasible_counts, reasons, requested,
-    nonzero_requested, port_bits, wave_count, wave_fallbacks)."""
+    nonzero_requested, port_bits, wave_count, wave_fallbacks, spread
+    counts_node or None)."""
     n = cluster.allocatable.shape[0]
     p = pods.req.shape[0]
     c_dim = sfeas_c.shape[0]
@@ -654,6 +740,7 @@ def wavefront_assign_plain(
     feas_counts = torch.zeros(p, dtype=torch.int32, device=dev)
     reasons = torch.full((p,), REASON_NONE, dtype=torch.int32, device=dev)
     n_waves = n_fb = 0
+    sp, spread = _spread_carry(sp_args, features)
 
     def record(i, choice, win, cnt, reason, found):
         assignment[i] = choice if found else -1
@@ -667,14 +754,14 @@ def wavefront_assign_plain(
             continue  # an all-padding row is skipped, not counted
         n_waves += 1
         cl0 = cluster._replace(requested=requested, nonzero_requested=nonzero)
-        if not _wave_safe(pods, [i for _, i in live], features):
+        if not _wave_safe(pods, [i for _, i in live], features, spread):
             # coupled wave: the scan's own step, member by member
             for _, i in live:
                 cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
                 cls = min(max(class_id[i], 0), c_dim - 1)
                 choice, win, cnt, reason, found = _pick_full(
                     cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
-                    features, cfg,
+                    sp, spread, features, cfg,
                 )
                 record(i, choice, win, cnt, reason, found)
                 if found:
@@ -682,6 +769,8 @@ def wavefront_assign_plain(
                     nonzero[choice] += pods.nonzero_req[i]
                     if features.ports:
                         new_ports[choice] |= pods.port_bits[i]
+                    if features.spread:
+                        sp = spread_update(sp, spread, i, choice)
             n_fb += len(live)
             continue
         # heavy half: every member against the wave-start carry
@@ -691,7 +780,7 @@ def wavefront_assign_plain(
             cls = min(max(class_id[i], 0), c_dim - 1)
             _, masked, found, reason, cnt = _eval_pod(
                 cl0, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
-                features, cfg,
+                sp, spread, features, cfg,
             )
             topv, topi = _top_stable(masked, kk)
             evals[j] = (masked, found, reason, cnt, topv, topi)
@@ -709,10 +798,12 @@ def wavefront_assign_plain(
             fitsc = (skip | (reqc_rows + pod.req[None, :] <= cap_rows)).all(-1)
             flip = bool((sfeas_c[cls][pxc] & (fits0 != fitsc)).any())
             if flip:
+                # the spread counts are the wave start's, which no member
+                # of a safe wave reads after another writes them
                 cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
                 choice, win, cnt, reason, found = _pick_full(
                     cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
-                    features, cfg,
+                    sp, spread, features, cfg,
                 )
                 n_fb += 1
             else:
@@ -726,12 +817,16 @@ def wavefront_assign_plain(
                 requested[choice] += pods.req[i]
                 nonzero[choice] += pods.nonzero_req[i]
                 picked.append(choice)
-        # deferred port commit: no member of a safe wave read these
-        if features.ports:
-            for j, i in live:
-                a = int(assignment[i])
-                if a >= 0:
-                    new_ports[a] |= pods.port_bits[i]
+        # deferred port and spread commits, in member order: no member of
+        # a safe wave read these
+        for j, i in live:
+            a = int(assignment[i])
+            if a < 0:
+                continue
+            if features.ports:
+                new_ports[a] |= pods.port_bits[i]
+            if features.spread:
+                sp = spread_update(sp, spread, i, a)
     if n_groups > 0:
         assignment, win_scores, reasons, requested, nonzero = _gang_release(
             assignment, win_scores, reasons, requested, nonzero,
@@ -743,16 +838,26 @@ def wavefront_assign_plain(
     i32 = torch.int32
     return (assignment, win_scores, feas_counts, reasons, requested, nonzero,
             port_bits, torch.tensor(n_waves, dtype=i32, device=dev),
-            torch.tensor(n_fb, dtype=i32, device=dev))
+            torch.tensor(n_fb, dtype=i32, device=dev),
+            sp.counts_node if features.spread else None)
 
 
-def _wave_safe(pods: PodBatch, live, features: FeatureFlags) -> bool:
-    """No member claims a host port that a later member claims (the only
-    in-wave coupling of the families this slice covers)."""
-    if not features.ports or len(live) < 2:
+def _wave_safe(pods: PodBatch, live, features: FeatureFlags, spread=None) -> bool:
+    """No member writes dynamic state that a later member reads: a host
+    port a later member claims, or a spread row (the member matches its
+    selector) a later member's constraints read."""
+    if len(live) < 2:
         return True
-    pb = pods.port_bits[torch.tensor(live, dtype=torch.long, device=pods.port_bits.device)]
-    hit = ((pb[:, None, :] & pb[None, :, :]) != 0).any(-1)
+    idx = torch.tensor(live, dtype=torch.long, device=pods.port_bits.device)
+    hit = torch.zeros((len(live), len(live)), dtype=torch.bool, device=idx.device)
+    if features.ports:
+        pb = pods.port_bits[idx]
+        hit |= ((pb[:, None, :] & pb[None, :, :]) != 0).any(-1)
+    if features.spread:
+        wr = spread.pod_matches[idx]                          # [K, C] rows written
+        rows = torch.arange(wr.shape[1], device=idx.device)
+        rd = (rows[None, None, :] == spread.pod_idx[idx][:, :, None]).any(dim=1)  # read
+        hit |= (wr[:, None, :] & rd[None, :, :]).any(-1)
     return not bool(torch.triu(hit, diagonal=1).any())
 
 
@@ -799,6 +904,7 @@ def wavefront(
     features: FeatureFlags,
     n_groups: int,
     cfg: ScoreConfig,
+    sp_args: Optional[SpreadArgs] = None,
 ):
     """Wrapper of kernel `wavefront`: the kernel for tensors on the card,
     the plain version for tensors on the CPU.  The carry tensors are
@@ -806,12 +912,13 @@ def wavefront(
     if cluster.allocatable.device.type == "cpu":
         return wavefront_assign_plain(
             cluster, pods, sfeas_c, aff_c, taint_c, members, features,
-            n_groups, cfg,
+            n_groups, cfg, sp_args,
         )
     from ..kernels import bindings
 
     return bindings.wavefront(
         cluster, pods, sfeas_c, aff_c, taint_c, members, features, n_groups, cfg,
+        sp_args,
     )
 
 
@@ -821,6 +928,7 @@ def wavefront_assign(
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
     features: Optional[FeatureFlags] = None,
     n_groups: Optional[int] = None,
+    topo_z: Optional[int] = None,
 ) -> SolveResult:
     """Wave-parallel greedy solve with exact scan parity, on the device
     the snapshot's tensors lie on.  wave_members: i32[W, K] pod indices
@@ -833,14 +941,16 @@ def wavefront_assign(
         n_groups = int(_np(snapshot.pods.group_id).max()) + 1
     if wave_members is None:
         wave_members = plan_waves(snapshot, features).members
-    cluster, pods, sfeas_c, aff_c, taint_c = _solver_prep(snapshot)
+    cluster, pods, sfeas_c, aff_c, taint_c, sp_args = _solver_prep(
+        snapshot, features, topo_z)
     members = torch.as_tensor(
         np.asarray(wave_members, dtype=np.int32)
         if not isinstance(wave_members, torch.Tensor) else wave_members,
     ).to(device=cluster.allocatable.device, dtype=torch.int32)
     (assignment, win_scores, feas_counts, reasons, requested, nonzero,
-     port_bits, n_waves, n_fb) = wavefront(
+     port_bits, n_waves, n_fb, _sp_counts) = wavefront(
         cluster, pods, sfeas_c, aff_c, taint_c, members, features, n_groups, cfg,
+        sp_args,
     )
     final = cluster._replace(
         requested=requested, nonzero_requested=nonzero, port_bits=port_bits,

@@ -11,7 +11,12 @@ gangs the reference package solves the batch *jointly*, in rounds:
   2. each node accepts its bidders in solve order (priority, then batch
      index) while they fit its remaining capacity — one stable sort by
      bid and a difference of global prefix sums;
-  3. accepted pods commit; rejected pods bid again next round.
+  3. with the spread family, a repair releases accepted pods whose
+     placements, taken together, would break a hard constraint (rank r
+     in its (row, topology value) group kept iff count + r + 1 - globalMin
+     <= maxSkew, in three admit passes whose admits raise the minimum);
+  4. accepted pods commit (resources and spread counts); rejected and
+     released pods bid again next round.
 
 A round in which an unplaced pod still has a feasible node commits at
 least one pod, so the loop ends; `max_rounds` bounds it regardless.
@@ -19,14 +24,16 @@ After the rounds, a staged filter pass names each unplaced pod's reason
 and gangs with an unplaced member release every placement.
 
 On the card a round is two CUDA kernels, `auction_bids` and
-`auction_accept`; all `max_rounds` rounds are enqueued without a host
-sync and each launch reads the device's own continue flag, which the
-previous round's `auction_accept` wrote.  The reasons pass and the gang
+`auction_accept` — with the spread family three: the acceptance, then
+`auction_spread` (the repair and the count commit), then the acceptance
+kernel's commit; all `max_rounds` rounds are enqueued without a host sync
+and each launch reads the device's own continue flag, which the previous
+round's commit wrote.  The spread prep, the reasons pass and the gang
 post-pass are elementwise and scatter glue in torch.
 
-This slice covers the static, resource and gang families; spread and
-inter-pod batches raise (assign.check_supported), batches with in-batch
-host ports never route here (auction_features_ok).
+The static, resource, gang and spread families are covered; inter-pod
+batches raise (assign.check_supported), batches with in-batch host ports
+never route here (auction_features_ok).
 """
 
 from __future__ import annotations
@@ -46,11 +53,14 @@ from .assign import (
     REASON_SPREAD,
     REASON_STATIC,
     FeatureFlags,
+    SpreadArgs,
     _np,
+    add_rows,
     check_supported,
     class_statics,
     features_of,
     solve_order,
+    spread_prep,
 )
 from .filters import fits_resources, pod_view, preferred_match, selector_match
 from .schema import ClusterTensors, Snapshot
@@ -60,6 +70,7 @@ from .scores import (
     combine_scores,
     resource_score_parts,
 )
+from .topology import spread_filter, spread_min_match, spread_score
 
 _U32 = 0xFFFFFFFF
 HASH_GOLDEN = 0x9E3779B9
@@ -71,6 +82,11 @@ TIE_SEED = 0
 # XLA's rewrite of a cumulative sum on the CPU: sequential sums within
 # blocks of this many rows, the block totals summed the same way
 SCAN_BLOCK = 16
+# admit passes of one round's spread repair: each pass admits what fits
+# under the current global minimum and commits it, so the next pass sees
+# the raised minimum (the reference's SPREAD_REPAIR_ITERS)
+SPREAD_REPAIR_ITERS = 3
+_BIG_I = 2**30
 
 
 class AuctionResult(NamedTuple):
@@ -80,6 +96,7 @@ class AuctionResult(NamedTuple):
     gang_dropped: torch.Tensor  # bool[P]: placed but released with its gang
     cluster: ClusterTensors     # post-solve cluster
     reasons: torch.Tensor = None  # i32[P]: REASON_* for unplaced pods
+    debug_sp_counts: torch.Tensor = None  # f32[C, N] final spread counts
 
 
 def auction_features_ok(features: FeatureFlags) -> bool:
@@ -121,11 +138,22 @@ class AuctionStatics(NamedTuple):
     s_reps: torch.Tensor   # i32[Cs]     spec representatives (clipped)
     jspec: torch.Tensor    # i32[C]      spec class of each joint class (clipped)
     order: torch.Tensor    # i32[P]      solve order
+    k_reps: torch.Tensor   # i32[Cc]     constraint-class representatives (clipped)
+    jcons: torch.Tensor    # i32[C]      constraint class of each joint class (clipped)
+    reps: torch.Tensor     # i32[C]      joint-class representatives (clipped)
+    features: FeatureFlags
+    sp: Optional[SpreadArgs] = None  # spread table + prep state (features.spread)
 
 
-def auction_prep(snapshot: Snapshot) -> Tuple[ClusterTensors, object, AuctionStatics]:
-    """The selector/preferred masks (kernel match_terms) and the spec-class
-    static tables (kernel class_statics) the rounds read."""
+def auction_prep(
+    snapshot: Snapshot, features: Optional[FeatureFlags] = None,
+    topo_z: Optional[int] = None,
+) -> Tuple[ClusterTensors, object, AuctionStatics]:
+    """The selector/preferred masks (kernel match_terms), the spec-class
+    static tables (kernel class_statics) and the spread prep the rounds
+    read."""
+    if features is None:
+        features = features_of(snapshot)
     cluster, pods, sel, pref = snapshot[:4]
     p = pods.req.shape[0]
     sel_mask = selector_match(cluster, sel)
@@ -134,10 +162,15 @@ def auction_prep(snapshot: Snapshot) -> Tuple[ClusterTensors, object, AuctionSta
     sfeas_s, aff_s, taint_s = class_statics(
         cluster, pods, sel_mask, pref_mask, reps=s_reps
     )
+    i32 = torch.int32
     jspec = torch.clamp(pods.joint_spec, 0, pods.spec_rep.shape[0] - 1)
+    jcons = torch.clamp(pods.joint_cons, 0, pods.cons_rep.shape[0] - 1)
     return cluster, pods, AuctionStatics(
-        sfeas_s, aff_s, taint_s, s_reps.to(torch.int32), jspec.to(torch.int32),
+        sfeas_s, aff_s, taint_s, s_reps.to(i32), jspec.to(i32),
         solve_order(pods),
+        torch.clamp(pods.cons_rep, 0, p - 1).to(i32), jcons.to(i32),
+        torch.clamp(pods.class_rep, 0, p - 1).to(i32),
+        features, spread_prep(snapshot, sel_mask, features, topo_z),
     )
 
 
@@ -151,14 +184,23 @@ def auction_bids_plain(
     rnd: int,
     tie_k: int,
     cfg: ScoreConfig,
+    sp_counts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of kernel `auction_bids`: one round's bids.  Returns
-    (bid i32[P] — a node index, or N for no bid; val f32[P])."""
+    """Plain version of kernel `auction_bids`: one round's bids against
+    the round's usage and (with the spread family) spread counts.
+    Returns (bid i32[P] — a node index, or N for no bid; val f32[P])."""
     n = cluster.allocatable.shape[0]
     p = pods.req.shape[0]
     dev = requested.device
     c_dim = pods.class_rep.shape[0]
+    features = st.features
     cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
+    sp = spread = None
+    spf_k = None
+    if features.spread:
+        spread = st.sp.table
+        sp = st.sp.state._replace(counts_node=sp_counts)
+        spf_k = [spread_filter(sp, spread, rep) for rep in st.k_reps.tolist()]
     fits_s, fit_s, bal_s = [], [], []
     for rep in st.s_reps.tolist():
         pod = pod_view(pods, rep)
@@ -169,10 +211,17 @@ def auction_bids_plain(
     inv_c = torch.zeros((c_dim, tie_k), dtype=torch.int64, device=dev)
     cnt_c = torch.zeros(c_dim, dtype=torch.int64, device=dev)
     best_c = torch.full((c_dim,), NEG_INF, dtype=torch.float32, device=dev)
+    jcons, reps = st.jcons.tolist(), st.reps.tolist()
     for c, s in enumerate(st.jspec.tolist()):
         feas = st.sfeas_s[s] & fits_s[s]
+        if features.spread:
+            feas = feas & spf_k[jcons[c]]
+        sp_score = (
+            spread_score(sp, spread, reps[c], feas) if features.soft_spread else None
+        )
         scores = combine_scores(
-            fit_s[s], bal_s[s], st.aff_s[s], st.taint_s[s], feas, cfg
+            fit_s[s], bal_s[s], st.aff_s[s], st.taint_s[s], feas, cfg,
+            spread_score=sp_score,
         )
         masked = torch.where(feas, scores, NEG_INF)
         best = torch.max(masked)
@@ -225,36 +274,19 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return inner.view(pad.shape)[:n]
 
 
-def add_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """dst with vals[i] added to row idx[i], each row's additions in
-    increasing i: the order of the reference's scatter-add, which decides
-    the rounding once a row's sum passes float32's exact range.  On the
-    CPU index_add adds serially; on the card index_add adds with atomics in
-    no fixed order, while index_put_ with accumulate sorts the indices
-    stably and adds each row's values in order."""
-    if dst.device.type == "cpu":
-        return dst.index_add(0, idx, vals)
-    return dst.index_put((idx,), vals, accumulate=True)
-
-
-def auction_accept_plain(
+def auction_decide_plain(
     allocatable: torch.Tensor,
     pods,
     order: torch.Tensor,
     bid: torch.Tensor,
-    val: torch.Tensor,
     requested: torch.Tensor,
-    nonzero: torch.Tensor,
-    assigned: torch.Tensor,
-    bid_scores: torch.Tensor,
-):
-    """Plain version of kernel `auction_accept`: one round's per-node
-    prefix acceptance and commit.  Pods are pre-permuted into solve order,
+) -> torch.Tensor:
+    """The acceptance half of kernel `auction_accept`: bool[P], pod
+    accepted by its bid node.  Pods are pre-permuted into solve order,
     then stably sorted by bid; a pod's demand on its node is a difference
     of global prefix sums, added in the reference's order (prefix_sum);
     it equals the per-node running sum while every partial sum is exact in
-    float32.
-    Returns (assigned, bid_scores, requested, nonzero, progress)."""
+    float32."""
     n = allocatable.shape[0]
     p = bid.shape[0]
     order = order.long()
@@ -268,46 +300,230 @@ def auction_accept_plain(
     ok = ((sreq <= 0) | (within <= remaining)).all(dim=-1) & (sbid < n)
     accept = torch.zeros(p, dtype=torch.bool, device=bid.device)
     accept[perm] = ok
-    progress = bool(accept.any())
+    return accept
+
+
+def auction_commit_plain(pods, accept, bid, val, requested, nonzero, assigned,
+                         bid_scores):
+    """The commit half of kernel `auction_accept`: (assigned, bid_scores,
+    requested, nonzero) with the accepted pods placed."""
     tgt = bid[accept].long()
     requested = add_rows(requested, tgt, pods.req[accept])
     nonzero = add_rows(nonzero, tgt, pods.nonzero_req[accept])
     assigned = torch.where(accept, bid, assigned)
     bid_scores = torch.where(accept, val, bid_scores)
-    return assigned, bid_scores, requested, nonzero, progress
+    return assigned, bid_scores, requested, nonzero
+
+
+# -- the spread repair -------------------------------------------------------
+
+
+def spread_slot_sorts(order: torch.Tensor, topo_pt: torch.Tensor, slots):
+    """Per spread slot, (perm, inv, firstv) of the round's bid nodes'
+    values: solve order stably sorted by value (-1 last), its inverse, and
+    each sorted position's group start.  They depend only on the bids, so
+    one round's admit passes share them."""
+    out = {}
+    p = order.shape[0]
+    order = order.long()
+    for s in slots:
+        v_p = topo_pt[:, s]
+        key = torch.where(v_p >= 0, v_p, _BIG_I)
+        perm = order[torch.argsort(key[order], stable=True)]
+        skey = key[perm].contiguous()
+        firstv = torch.searchsorted(skey, skey, side="left")
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(p, device=perm.device)
+        out[s] = (perm, inv, firstv)
+    return out
+
+
+def spread_ranks(cand, v_pc, spread, slot_sorts) -> torch.Tensor:
+    """i32[P, C]: among the `cand` pods matching row c, each pod's 0-based
+    position in solve order within its (row, bid-node value) group — a
+    segmented exclusive count over the value-sorted order."""
+    act_pc = cand[:, None] & spread.pod_matches & (v_pc >= 0)
+    rank_pc = torch.zeros(act_pc.shape, dtype=torch.int32, device=cand.device)
+    for s, (perm, inv, firstv) in slot_sorts.items():
+        rows_s = spread.slot == s
+        srt = (act_pc & rows_s[None, :])[perm].to(torch.int32)
+        exc = torch.cumsum(srt, dim=0, dtype=torch.int32) - srt
+        seg = exc - exc[firstv]
+        rank_pc = torch.where(rows_s[None, :], seg[inv], rank_pc)
+    return rank_pc
+
+
+def commit_spread(accept, nodes, counts, sp: SpreadArgs):
+    """Fold the accepted pods into the node-space counts (the batched
+    spread_update): every row a placed pod matches, at an eligible node
+    with a value, gains one on every node sharing that value.  The
+    reference adds in value space by Precision.HIGHEST matmuls of 0/1
+    one-hots over the spread slots' rows; the counts are integers below
+    2^24, so a direct index add gives the same floats, and `eligible`
+    already leaves out every row outside those slots (the invalid ones)."""
+    table, st, z = sp
+    c_dim = counts.shape[0]
+    v_pc = st.v.T[nodes]                                     # [P, C]
+    elig_pc = st.eligible.T[nodes]
+    act = accept[:, None] & table.pod_matches & elig_pc & (v_pc >= 0)
+    pi, ci = torch.nonzero(act, as_tuple=True)
+    adds = torch.zeros(c_dim * z, dtype=counts.dtype, device=counts.device)
+    adds.index_add_(0, ci * z + v_pc[pi, ci].long(),
+                    torch.ones(pi.shape[0], dtype=counts.dtype, device=counts.device))
+    vc = torch.clamp(st.v, 0, z - 1).long()
+    delta = torch.gather(adds.view(c_dim, z), 1, vc)
+    return counts + torch.where(st.v >= 0, delta, 0.0)
+
+
+def spread_repair_plain(accept, bid, counts, st: AuctionStatics, topo_ids):
+    """Plain version of kernel `auction_spread`: the repair of one round's
+    accepted set (SPREAD_REPAIR_ITERS admit passes, each committing its
+    admits into a working copy of the counts so the minimum rises within
+    the round), then the commit of the kept pods into the counts.
+    Returns (kept bool[P], counts after the commit)."""
+    table, sps, _ = st.sp
+    n = topo_ids.shape[0]
+    p = accept.shape[0]
+    nodes = torch.clamp(bid, 0, n - 1).long()
+    topo_pt = topo_ids[nodes]                                # [P, TK]
+    v_pc = sps.v.T[nodes]                                    # [P, C]
+    sorts = spread_slot_sorts(st.order, topo_pt, st.features.spread_slots)
+    ar = torch.arange(p, device=accept.device)
+    kept = torch.zeros_like(accept)
+    counts_it = counts
+    cmax = counts.shape[0]
+    for _ in range(SPREAD_REPAIR_ITERS):
+        cand = accept & ~kept
+        min_c = spread_min_match(
+            sps._replace(counts_node=counts_it), table,
+            torch.arange(cmax, device=accept.device),
+        )
+        rank_pc = spread_ranks(cand, v_pc, table, sorts)
+        admit = cand
+        for j in range(table.pod_idx.shape[1]):
+            cidx = table.pod_idx[:, j]
+            c = torch.clamp(cidx, 0, cmax - 1).long()
+            own = cand & (cidx >= 0) & table.hard[c] & (v_pc[ar, c] >= 0)
+            cnt = counts_it[c, nodes]
+            self_m = table.pod_matches[ar, c].to(counts.dtype)
+            allowed = table.max_skew[c] + min_c[c] - cnt + (1.0 - self_m)
+            rank = rank_pc[ar, c].to(counts.dtype)
+            admit = admit & ~(own & (rank >= allowed))
+        kept = kept | admit
+        counts_it = commit_spread(admit, nodes, counts_it, st.sp)
+    return kept, commit_spread(kept, nodes, counts, st.sp)
 
 
 def _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds):
-    """The reference's while_loop with host control flow (CPU)."""
+    """The reference's while_loop with host control flow (CPU).  Returns
+    (assigned, bid_scores, requested, nonzero, rounds, spread counts or
+    None)."""
     p = pods.req.shape[0]
     dev = cluster.allocatable.device
     assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
     bid_scores = torch.full((p,), NEG_INF, dtype=torch.float32, device=dev)
     requested, nonzero = cluster.requested, cluster.nonzero_requested
+    use_spread = st.features.spread
+    counts = st.sp.state.counts_node.clone() if use_spread else None
     rnd, progress = 0, True
     while rnd < max_rounds and progress and bool(((assigned < 0) & pods.valid).any()):
         bid, val = auction_bids_plain(
             cluster, pods, st, requested, nonzero, assigned, rnd, tie_k, cfg,
+            counts,
         )
-        assigned, bid_scores, requested, nonzero, progress = auction_accept_plain(
-            cluster.allocatable, pods, st.order, bid, val, requested, nonzero,
-            assigned, bid_scores,
+        accept = auction_decide_plain(
+            cluster.allocatable, pods, st.order, bid, requested,
+        )
+        # a round that only releases still progresses: the released pods
+        # bid again against the raised counts
+        progress = bool(accept.any())
+        if use_spread:
+            accept, counts = spread_repair_plain(
+                accept, bid, counts, st, cluster.topo_ids,
+            )
+        assigned, bid_scores, requested, nonzero = auction_commit_plain(
+            pods, accept, bid, val, requested, nonzero, assigned, bid_scores,
         )
         rnd += 1
     return (assigned, bid_scores, requested, nonzero,
-            torch.tensor(rnd, dtype=torch.int32, device=dev))
+            torch.tensor(rnd, dtype=torch.int32, device=dev), counts)
 
 
 def auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds=64):
     """All bidding rounds: (assigned, bid_scores, requested, nonzero,
-    rounds).  On the CPU the plain loop; on the card `max_rounds` rounds
-    of the two kernels are enqueued with no host sync, each launch
-    returning at once when the device's continue flag is down."""
+    rounds, spread counts or None).  On the CPU the plain loop; on the
+    card `max_rounds` rounds of the kernels are enqueued with no host
+    sync, each launch returning at once when the device's continue flag
+    is down."""
     if cluster.allocatable.device.type == "cpu":
         return _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds)
     from ..kernels import bindings
 
     return bindings.auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
+
+
+def gang_release_plain(pods, assigned, dropped, requested, nonzero):
+    """Plain version of the gang post-pass's subtraction (auction_accept's
+    release entry point): (requested, nonzero) less every dropped pod's
+    requests on its node, each node's in pod index order."""
+    n = requested.shape[0]
+    tgt = torch.clamp(assigned, 0, n - 1).long()
+    w = dropped[:, None].to(pods.req.dtype)
+    return (add_rows(requested, tgt, -pods.req * w),
+            add_rows(nonzero, tgt, -pods.nonzero_req * w))
+
+
+def gang_release(allocatable, pods, assigned, dropped, requested, nonzero):
+    """Wrapper of the release: the kernel for tensors on the card (on
+    copies of the usage), the plain version for tensors on the CPU."""
+    if requested.device.type == "cpu":
+        return gang_release_plain(pods, assigned, dropped, requested, nonzero)
+    from ..kernels import bindings
+
+    requested = requested.clone().contiguous()
+    nonzero = nonzero.clone().contiguous()
+    bindings.auction_release(allocatable, pods, assigned, dropped, requested, nonzero)
+    return requested, nonzero
+
+
+def failure_reasons(cluster, pods, st: AuctionStatics, assigned, requested, nonzero,
+                    sp_counts=None) -> torch.Tensor:
+    """The reasons pass (plain torch on either device): one staged filter
+    pass per class against the final state — the first stage that empties
+    the candidate set; a class with survivors at every stage parked on
+    contention (a resource reason).  i32[P], REASON_NONE for placed pods.
+    Tensor ops only, every class index read on the device (a 0-d or
+    .tolist() index would wait for the card's rounds to finish), so the
+    card's solve is not waited on here."""
+    c_dim = pods.class_rep.shape[0]
+    cl_f = cluster._replace(requested=requested, nonzero_requested=nonzero)
+    fits_f = torch.cat([
+        fits_resources(cl_f, pod_view(pods, st.s_reps[s : s + 1].long()))
+        for s in range(st.s_reps.shape[0])
+    ])
+    jspec = st.jspec.long()
+    s_static = st.sfeas_s[jspec]                               # [C, N]
+    any_static = s_static.any(dim=1)
+    f = s_static & fits_f[jspec]
+    a_res = f.any(dim=1)
+    if st.features.spread:
+        sp_f = st.sp.state._replace(counts_node=sp_counts)
+        spf_k = spread_filter(sp_f, st.sp.table, st.k_reps.long())  # [K, N]
+        f = f & spf_k[st.jcons.long()]
+    a_spread = f.any(dim=1)
+    a_inter = a_spread  # no inter-pod stage in this slice
+    reason_c = torch.where(
+        a_inter, REASON_RESOURCES,
+        torch.where(
+            ~any_static, REASON_STATIC,
+            torch.where(
+                ~a_res, REASON_RESOURCES,
+                torch.where(~a_spread, REASON_SPREAD, REASON_INTERPOD),
+            ),
+        ),
+    ).to(torch.int32)
+    cls_all = torch.clamp(pods.class_id, 0, c_dim - 1).long()
+    return torch.where(assigned >= 0, REASON_NONE, reason_c[cls_all])
 
 
 def auction_assign(
@@ -317,6 +533,7 @@ def auction_assign(
     max_rounds: int = 64,
     features: Optional[FeatureFlags] = None,
     tie_k: Optional[int] = None,
+    topo_z: Optional[int] = None,
 ) -> AuctionResult:
     """Jointly assign the pending batch on the device its tensors lie on:
     rounds of (bid → per-node prefix acceptance → commit), then the staged
@@ -332,42 +549,16 @@ def auction_assign(
         )
     n = snapshot.cluster.allocatable.shape[0]
     tie_k = min(default_tie_k(snapshot) if tie_k is None else tie_k, n)
-    cluster, pods, st = auction_prep(snapshot)
-    assigned, bid_scores, requested, nonzero, rounds = auction_rounds(
+    cluster, pods, st = auction_prep(snapshot, features, topo_z)
+    assigned, bid_scores, requested, nonzero, rounds, sp_counts = auction_rounds(
         cluster, pods, st, tie_k, cfg, max_rounds,
     )
-    c_dim = pods.class_rep.shape[0]
+    reasons = failure_reasons(cluster, pods, st, assigned, requested, nonzero, sp_counts)
 
-    # failure reasons: one staged filter pass per class against the final
-    # state — the first stage that empties the candidate set; a class with
-    # survivors at every stage parked on contention (a resource reason).
-    # Tensor ops only, so the card's solve is not waited on here.
-    cl_f = cluster._replace(requested=requested, nonzero_requested=nonzero)
-    fits_f = torch.stack([
-        fits_resources(cl_f, pod_view(pods, st.s_reps[s]))
-        for s in range(st.s_reps.shape[0])
-    ])
-    jspec = st.jspec.long()
-    s_static = st.sfeas_s[jspec]                               # [C, N]
-    any_static = s_static.any(dim=1)
-    a_res = (s_static & fits_f[jspec]).any(dim=1)
-    a_spread = a_inter = a_res  # no spread / inter-pod stage in this slice
-    reason_c = torch.where(
-        a_inter, REASON_RESOURCES,
-        torch.where(
-            ~any_static, REASON_STATIC,
-            torch.where(
-                ~a_res, REASON_RESOURCES,
-                torch.where(~a_spread, REASON_SPREAD, REASON_INTERPOD),
-            ),
-        ),
-    ).to(torch.int32)
-    cls_all = torch.clamp(pods.class_id, 0, c_dim - 1).long()
-    reasons = torch.where(assigned >= 0, REASON_NONE, reason_c[cls_all])
-
-    # gang post-pass: all-or-nothing groups; the release subtracts every
-    # pod's requests times its 0/1 drop weight, as the reference's masked
-    # scatter does
+    # gang post-pass: all-or-nothing groups; the release subtracts the
+    # dropped pods' requests from each node in pod index order, as the
+    # reference's masked scatter-add does (on the card: kernel
+    # auction_accept's release entry point)
     gang_dropped = torch.zeros_like(pods.valid)
     if n_groups > 0:
         g = pods.group_id
@@ -376,13 +567,12 @@ def auction_assign(
         incomplete = torch.zeros(n_groups, dtype=torch.int32, device=g.device)
         incomplete = incomplete.index_add(0, gc, unplaced) > 0
         gang_dropped = (g >= 0) & incomplete[gc] & (assigned >= 0)
-        tgt = torch.clamp(assigned, 0, n - 1).long()
-        w = gang_dropped[:, None].to(pods.req.dtype)
-        requested = add_rows(requested, tgt, -pods.req * w)
-        nonzero = add_rows(nonzero, tgt, -pods.nonzero_req * w)
+        requested, nonzero = gang_release(
+            cluster.allocatable, pods, assigned, gang_dropped, requested, nonzero)
         assigned = torch.where(gang_dropped, -1, assigned)
         bid_scores = torch.where(gang_dropped, NEG_INF, bid_scores)
         reasons = torch.where(gang_dropped, REASON_GANG, reasons)
 
     final = cluster._replace(requested=requested, nonzero_requested=nonzero)
-    return AuctionResult(assigned, bid_scores, rounds, gang_dropped, final, reasons)
+    return AuctionResult(assigned, bid_scores, rounds, gang_dropped, final, reasons,
+                         sp_counts)

@@ -43,7 +43,7 @@ class ScoreConfig:
     balanced_weight: float = 1.0         # NodeResourcesBalancedAllocation
     node_affinity_weight: float = 2.0    # NodeAffinity
     taint_weight: float = 3.0            # TaintToleration
-    spread_weight: float = 2.0           # PodTopologySpread (later slice)
+    spread_weight: float = 2.0           # PodTopologySpread
     # (resource_index, weight) pairs for Least/MostAllocated
     fit_resources: Tuple[Tuple[int, float], ...] = (
         (RESOURCE_CPU, 1.0),
@@ -120,11 +120,26 @@ def most_allocated(
     return torch.where(wsum > 0, _floor(total / torch.clamp(wsum, min=1.0)), 0.0)
 
 
-def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def fma32(a, b, c) -> torch.Tensor:
     """float32 a * b + c with one rounding, as a fused multiply-add gives
-    it: the product of two float32 values is exact in float64, and so is
-    its sum with c for the magnitudes the scorers use."""
-    return (a.double() * b.double() + c.double()).float()
+    it.  The product of two float32 values is exact in float64; the sum
+    with c is rounded to float64 and then to float32, and where that first
+    rounding was inexact the float64 sum is moved one step towards the
+    exact sum, so the second rounding cannot land on a tie the exact sum
+    is not on (no double rounding)."""
+    dev = next(t.device for t in (a, b, c) if isinstance(t, torch.Tensor))
+    a, b, c = torch.broadcast_tensors(
+        *(torch.as_tensor(t, dtype=_F32, device=dev) for t in (a, b, c))
+    )
+    prod = a.double() * b.double()
+    cd = c.double()
+    s = prod + cd
+    bb = s - prod
+    err = (prod - (s - bb)) + (cd - bb)   # s + err == prod + c exactly
+    inf = torch.full_like(s, float("inf"))
+    s = torch.where(err > 0, torch.nextafter(s, inf),
+                    torch.where(err < 0, torch.nextafter(s, -inf), s))
+    return s.float()
 
 
 def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
@@ -246,12 +261,15 @@ def score_from_raw(
     aff_raw: torch.Tensor,
     taint_raw: torch.Tensor,
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
+    spread_score: torch.Tensor = None,
 ) -> torch.Tensor:
     """Weighted plugin-score sum with precomputed *raw* static scores
     (hoisted per pod class); normalization stays per step because its
-    maxima range over the pod's current feasible set."""
+    maxima range over the pod's current feasible set.  spread_score: the
+    already-normalized PodTopologySpread row (ops/topology.py)."""
     fit, bal = resource_score_parts(cluster, pod, cfg)
-    return combine_scores(fit, bal, aff_raw, taint_raw, feasible, cfg)
+    return combine_scores(fit, bal, aff_raw, taint_raw, feasible, cfg,
+                          spread_score=spread_score)
 
 
 def resource_score_parts(
@@ -274,6 +292,7 @@ def combine_scores(
     taint_raw: torch.Tensor,
     feasible: torch.Tensor,
     cfg: ScoreConfig,
+    spread_score: torch.Tensor = None,
 ) -> torch.Tensor:
     """Normalize + weight-sum precomputed score rows over a feasible set
     (the RunScorePlugins NormalizeScore pass, runtime/framework.go:1147).
@@ -286,4 +305,6 @@ def combine_scores(
         + cfg.node_affinity_weight * aff
         + cfg.taint_weight * taint
     )
+    if spread_score is not None:
+        total = total + cfg.spread_weight * spread_score
     return torch.where(feasible, total, -1.0)

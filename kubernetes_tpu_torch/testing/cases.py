@@ -18,7 +18,14 @@ contend than the tie list holds), `gang_objects` (gangs, one of which
 cannot be placed whole), and `capacity_edge_objects` /
 `fractional_mix_objects` (memory requests that are not whole MiB, whose
 sums leave float32's exact range, so the auction's order of additions
-shows).
+shows).  `fractional_gang_objects` adds an incomplete gang to such a batch,
+so the auction's gang post-pass subtracts past the exact range too.
+
+`spread_objects` builds PodTopologySpread batches (zone and hostname
+keys, maxSkew 1-5, hard and soft constraints, minDomains, carriers whose
+own labels do not match their selector, nodes without a zone, matching
+bound pods and gangs); `topology_spreading_objects` is scheduler_perf's
+TopologySpreading workload at any scale.
 """
 
 from __future__ import annotations
@@ -214,3 +221,119 @@ def fractional_mix_objects(wrappers, seed: int, n_nodes: int = 8, n_pods: int = 
         for i in range(n_pods)
     ]
     return nodes, pods, []
+
+
+def fractional_gang_objects(wrappers, seed: int, n_nodes: int = 8, n_pods: int = 1000,
+                            n_gangs: int = 6):
+    """fractional_mix_objects with every 7th pod in one of `n_gangs` gangs
+    and one extra gang member that fits nowhere, so the gang post-pass
+    releases a whole gang whose members sit on nodes whose sums are past
+    float32's exact range."""
+    nodes, pods, bound = fractional_mix_objects(wrappers, seed, n_nodes, n_pods)
+    for i in range(0, n_pods, 7):
+        pods[i].spec.scheduling_group = f"fg{(i // 7) % n_gangs}"
+    pods.append(
+        wrappers.make_pod("fg-too-big").req(cpu_milli=10, mem=120 * 10**9)
+        .group("fg0").obj()
+    )
+    return nodes, pods, bound
+
+
+def _spread_constraint(wrappers, w, rng, app: str, key: str, hard: bool,
+                       min_domains: int = 0):
+    w = w.spread(
+        max_skew=int(rng.integers(1, 6)),
+        topology_key=key,
+        when_unsatisfiable="DoNotSchedule" if hard else "ScheduleAnyway",
+        selector={"app": app},
+    )
+    if hard and min_domains:
+        w.pod.spec.topology_spread_constraints[-1].min_domains = min_domains
+    return w
+
+
+def spread_objects(wrappers, seed: int, n_nodes: int = 24, n_pods: int = 60,
+                   gangs: bool = True, soft_share: float = 0.4):
+    """A PodTopologySpread batch drawn from numpy's seeded generator: nodes
+    in 2-5 zones (one in ten without a zone label), three services whose
+    pods mostly carry a zone or hostname constraint over their own service
+    (hard or soft, maxSkew 1-5, sometimes minDomains, sometimes both keys),
+    carriers labelled with another service than the one they spread over
+    (selfMatch 0), plain pods, matching bound pods (so the bound counts
+    are folded in) and, with `gangs`, gang members."""
+    api = wrappers.api
+    gi, mi = wrappers.GI, wrappers.MI
+    rng = np.random.default_rng(seed)
+    n_zones = int(rng.integers(2, 6))
+    nodes = []
+    for i in range(n_nodes):
+        w = wrappers.make_node(f"n{i}").capacity(
+            cpu_milli=int(rng.integers(2, 9)) * 1000,
+            mem=int(rng.integers(4, 33)) * gi,
+            pods=int(rng.integers(4, 40)),
+        )
+        if rng.random() >= 0.1:
+            w = w.zone(f"z{i % n_zones}")
+        nodes.append(w.obj())
+    apps = ("a", "b", "c")
+    pods = []
+    for i in range(n_pods):
+        app = str(rng.choice(apps))
+        w = wrappers.make_pod(f"p{i}").req(
+            cpu_milli=int(rng.integers(1, 10)) * 100,
+            mem=int(rng.integers(1, 16)) * 128 * mi,
+        ).priority(int(rng.integers(0, 2)))
+        r = rng.random()
+        sel_app = app
+        if r < 0.1:
+            sel_app = apps[(apps.index(app) + 1) % 3]  # selfMatch 0
+        if r < 0.8:
+            w = w.label("app", app)
+        if r < 0.75:
+            key = api.LABEL_ZONE if rng.random() < 0.6 else api.LABEL_HOSTNAME
+            hard = rng.random() >= soft_share
+            md = int(rng.integers(2, 8)) if rng.random() < 0.15 else 0
+            w = _spread_constraint(wrappers, w, rng, sel_app, key, hard, md)
+            if rng.random() < 0.2:
+                other = api.LABEL_HOSTNAME if key == api.LABEL_ZONE else api.LABEL_ZONE
+                w = _spread_constraint(wrappers, w, rng, sel_app, other,
+                                       rng.random() >= soft_share)
+        if gangs and rng.random() < 0.15:
+            w = w.group(f"g{int(rng.integers(0, 3))}")
+        pods.append(w.obj())
+    bound = [
+        wrappers.make_pod(f"b{i}").label("app", str(rng.choice(apps)))
+        .req(cpu_milli=100, mem=128 * mi).node_name(f"n{int(rng.integers(0, n_nodes))}").obj()
+        for i in range(max(1, n_nodes // 3))
+    ]
+    return nodes, pods, bound
+
+
+def topology_spreading_objects(wrappers, n_nodes: int, n_init: int, n_measure: int,
+                               when: str = "DoNotSchedule"):
+    """scheduler_perf's TopologySpreading workload
+    (kubernetes_tpu/perf/config/performance-config.yaml:115-139):
+    node-default nodes (4 CPU, 32Gi, 110 pods, zone-$index_mod8),
+    pod-default init pods (100m / 500Mi, no labels) and measured pods of
+    pod-with-topology-spreading.yaml (label color=blue; maxSkew 5 on
+    topology.kubernetes.io/zone over color=blue; 100m / 500Mi).  `when` is
+    the template's whenUnsatisfiable: "ScheduleAnyway" gives upstream's
+    PreferredTopologySpreading shape with the same counts.
+    Returns (nodes, init_pods, measured_pods)."""
+    api = wrappers.api
+    gi, mi = wrappers.GI, wrappers.MI
+    nodes = [
+        wrappers.make_node(f"scheduler-perf-{i}")
+        .capacity(cpu_milli=4000, mem=32 * gi, pods=110)
+        .zone(f"zone-{i % 8}").obj()
+        for i in range(n_nodes)
+    ]
+    init = [wrappers.make_pod(f"pod-{i}").req(cpu_milli=100, mem=500 * mi).obj()
+            for i in range(n_init)]
+    measured = [
+        wrappers.make_pod(f"spreading-pod-{i}").label("color", "blue")
+        .req(cpu_milli=100, mem=500 * mi)
+        .spread(5, api.LABEL_ZONE, when, {"color": "blue"}).obj()
+        for i in range(n_measure)
+    ]
+    return nodes, init, measured

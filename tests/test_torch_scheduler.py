@@ -161,8 +161,8 @@ def test_modes():
 def test_unported_family_raises_through_the_scheduler():
     ts = TorchBatchScheduler(device="cpu")
     nodes = basic_nodes(tw, 4)
-    pods = [tw.make_pod("s").spread(selector={"app": "a"}).obj()]
-    with pytest.raises(NotImplementedError, match="PodTopologySpread"):
+    pods = [tw.make_pod("s").pod_anti_affinity({"app": "a"}).obj()]
+    with pytest.raises(NotImplementedError, match="InterPodAffinity"):
         ts.schedule(nodes, pods)
 
 
