@@ -4,19 +4,22 @@
 
 Phases (one JSON line each on stdout):
 
-  build      build the seven CUDA kernels from kubernetes_tpu_torch/csrc
+  build      build the nine CUDA kernels from kubernetes_tpu_torch/csrc
   parity     each kernel against its plain torch version, exact (on the
              card, or on CPU copies of the inputs where the plain version
              adds in pod index order: the scan, the wavefront and the
              auction's commit), on mixed small batches (selectors, taints, ports, gangs, all
-             three fit strategies) and PodTopologySpread batches (zone and
+             three fit strategies), PodTopologySpread batches (zone and
              hostname keys, maxSkew 1-5, hard and soft, minDomains, matching
-             bound pods, gangs): the greedy scan; the wavefront with the
+             bound pods, gangs) and inter-pod, preferred inter-pod and
+             ImageLocality batches (default weights and weights that are not
+             powers of two): the greedy scan; the wavefront with the
              planner's waves and with random partitions (coupled waves and
              fit flips); the auction's kernels round by round and the whole
-             enqueued round loop, on batches without in-batch ports (some
-             also against the plain loop on the CPU, among them a gang
-             released past float32's exact range)
+             enqueued round loop, on batches without in-batch ports or
+             affinity-direction terms (some also against the plain loop on
+             the CPU, among them a gang released past float32's exact
+             range); class_extras on the scan's and the auction's pairs
   main       SchedulingBasic/5000Nodes through TorchBatchScheduler() on its
              default route: 5,000 nodes, 1,000 init pods scheduled and
              assumed, then a measured 1,000-pod batch; both pad to 1,024
@@ -36,6 +39,22 @@ Phases (one JSON line each on stdout):
              auction, scored by the soft spread score); every result equal
              to the plain path's on the CPU for the same snapshot, and each
              kernel of the spread path timed at these shapes
+  interpod   SchedulingPodAntiAffinity/5000Nodes (1,000 init pods in
+             sched-0, 1,000 measured in sched-1, both padded to 1,024: the
+             auction with auction_interpod; the measured batch also on the
+             scan; no two color=green pods on a node) and
+             SchedulingPodAffinity/5000Nodes (init and measured on the
+             wavefront, one-pod waves; the measured batch also on the scan;
+             every measured pod in a zone of a color=blue pod), every batch
+             equal to the plain path on the CPU; auction_interpod and the
+             plain-torch prep_terms timed at these shapes
+  extras     the preferred-affinity variant (upstream's
+             SchedulingPreferredPodAffinity shape: 5,000 nodes, 1,000 init
+             and 1,000 measured pods; the auction with class_extras, and the
+             scan) and a synthetic ImageLocality batch (5,000 nodes, 1,000
+             pods; the auction and the scan), every batch equal to the plain
+             path on the CPU; class_extras and the plain-torch prep_pref_pod
+             timed at these shapes
   kernels    each kernel against its plain version at the shapes of the
              phase that launches it, exact, timed with CUDA events, with
              the bound of its work on this run's data
@@ -43,10 +62,12 @@ Phases (one JSON line each on stdout):
              the CPU, default route: identical placements and scores
   north      one 10,000-pod batch onto 50,000 nodes (the auction)
 
-In main, greedy, wavefront and each part of spread the launch counters
-are reset just before the part and read just after; each fails unless
-every kernel of its route was launched and no kernel of another route was
-(auction_spread belongs to the auction route of a spread batch only).  Then the
+In main, greedy, wavefront and each part of spread, interpod and extras
+the launch counters are reset just before the part and read just after;
+each fails unless every kernel of its route was launched and no kernel of
+another route was (auction_spread and auction_interpod belong to the
+auction route of a spread / inter-pod batch only, class_extras to a batch
+with preferred inter-pod terms or images).  Then the
 card's name and power limit, the `kernels` summary object, and as the
 last line {"ok": true, "device": {...}}.  Any failed check raises and the
 script exits non-zero; with no CUDA device it exits non-zero and prints no
@@ -81,6 +102,15 @@ AFFINITY_ZONES = ("zone-1", "zone-2")
 SPREAD = (5000, 5000, 2000)
 SPREAD_BATCH = 500
 SPREAD_MAX_SKEW = 5
+# SchedulingPodAntiAffinity/5000Nodes and SchedulingPodAffinity/5000Nodes
+# (performance-config.yaml:30-58, :60-88): init pods in sched-0, measured in
+# sched-1; the preferred-affinity variant (upstream's
+# SchedulingPreferredPodAffinity shape) at the same counts; the synthetic
+# image batch: (nodes, pods)
+ANTI = (5000, 1000, 1000)
+AFFINITY_POD = (5000, 1000, 1000)
+PREFERRED = (5000, 1000, 1000)
+IMAGES = (5000, 1000)
 
 # H100 SXM published peaks (NVIDIA data sheet: HBM3 rate, non-tensor float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
@@ -101,16 +131,22 @@ SOURCES = {
                        "kubernetes_tpu/ops/auction.py:680"),
     "auction_spread": ("kubernetes_tpu_torch/csrc/auction_spread.cu",
                        "kubernetes_tpu/ops/auction.py:507"),
+    "auction_interpod": ("kubernetes_tpu_torch/csrc/auction_interpod.cu",
+                         "kubernetes_tpu/ops/auction.py:587"),
+    "class_extras": ("kubernetes_tpu_torch/csrc/class_extras.cu",
+                     "kubernetes_tpu/ops/scores.py:337"),
 }
 
 # the kernels each route launches (match_terms and class_statics: all);
 # "auction_spread" is the auction route of a batch with the spread family
+# (route_kernels adds the inter-pod and extras kernels from a batch's
+# features)
+_AUCTION = ("match_terms", "class_statics", "auction_bids", "auction_accept")
 ROUTE_KERNELS = {
     "greedy": ("match_terms", "class_statics", "greedy_scan"),
     "wavefront": ("match_terms", "class_statics", "wavefront"),
-    "auction": ("match_terms", "class_statics", "auction_bids", "auction_accept"),
-    "auction_spread": ("match_terms", "class_statics", "auction_bids", "auction_accept",
-                       "auction_spread"),
+    "auction": _AUCTION,
+    "auction_spread": _AUCTION + ("auction_spread",),
 }
 
 
@@ -318,14 +354,39 @@ def auction_spread_need(st, accepted, bid, counts, torch) -> tuple:
     return need, float(3 * per_pass + c_live * n)
 
 
+def interpod_need(tm_args, extra, pods, feas_counts, assignment, torch) -> tuple:
+    """(bytes, operations) the inter-pod family and the extra rows add to
+    a greedy solve on this data: the present, blocked and key words and
+    the used slots' values in, present and blocked out, each pod's term
+    words; the extra rows in.  Operations: on each feasible node 4 word
+    tests a term word (the three checks); per placed pod one compare a
+    node and used slot (the update); one add a feasible node for the
+    extra row."""
+    need, ops = 0, 0.0
+    feas = float(feas_counts.double().sum())
+    if tm_args is not None:
+        st = tm_args.state
+        w = st.present_bits.shape[1]
+        n = st.slot_v.shape[1]
+        need += (nbytes(st.present_bits, st.blocked_bits, st.key_bits, st.slot_v,
+                        st.global_any, st.mi_slot_bits, st.anti_slot_bits, st.aff_bits,
+                        st.anti_bits) + nbytes(st.present_bits, st.blocked_bits))
+        ops += 4 * w * feas + float(int((assignment >= 0).sum()) * n * st.slot_v.shape[0])
+    if extra is not None:
+        need += nbytes(extra)
+        ops += feas
+    return need, ops
+
+
 def greedy_scan_need(cluster, pods, sfeas, feas_counts, features, torch,
-                     sp_args=None) -> tuple:
+                     sp_args=None, tm_args=None, extra=None, assignment=None) -> tuple:
     """Bytes: inputs once, outputs once.  Operations: per step, the
     fit test on every static-feasible node (2 flops a resource the pod
     requests; a resource it does not request is not tested) and the
     ~60 flops of the scores on every feasible node (LeastAllocated and
     BalancedAllocation over cpu+memory, two normalisations, the sum),
-    plus the spread family's work (spread_need)."""
+    plus the spread family's work (spread_need) and the inter-pod
+    family's and the extra rows' (interpod_need)."""
     n, r = cluster.allocatable.shape
     p = pods.req.shape[0]
     ins = nbytes(cluster.allocatable, cluster.requested, cluster.nonzero_requested,
@@ -340,7 +401,8 @@ def greedy_scan_need(cluster, pods, sfeas, feas_counts, features, torch,
     tested = (pods.req > 0).sum(dim=1).to(torch.float64)
     ops = float((per_pod_static * 2 * tested).sum()) + float(feas_counts.double().sum()) * 60
     sp_bytes, sp_ops = spread_need(sp_args, pods, feas_counts, torch)
-    return ins + outs + sp_bytes, ops + sp_ops
+    tm_bytes, tm_ops = interpod_need(tm_args, extra, pods, feas_counts, assignment, torch)
+    return ins + outs + sp_bytes + tm_bytes, ops + sp_ops + tm_ops
 
 
 def auction_bids_need(cluster, pods, st, requested, tie_k, torch) -> tuple:
@@ -382,6 +444,17 @@ def auction_bids_need(cluster, pods, st, requested, tie_k, torch) -> tuple:
             hard = int((live & table.hard[rows]).sum())
             soft = int((live & ~table.hard[rows]).sum())
             ops += hard * n + (4 * hard + 3 * soft) * n
+    if st.tm is not None:
+        # the round's term words in, the constraint classes' term words; the
+        # three checks (4 word tests a term word) on each node a joint class
+        tms = st.tm.state
+        ins += nbytes(tms.present_bits, tms.blocked_bits, tms.key_bits, tms.global_any)
+        k = st.k_reps.long()
+        ins += nbytes(tms.mi_slot_bits[:, k], tms.aff_bits[k], tms.anti_bits[k])
+        ops += 4 * tms.present_bits.shape[1] * n * c
+    if st.extra is not None:
+        ins += nbytes(st.extra)
+        ops += n * c
     return ins + outs, ops + p * 4
 
 
@@ -430,6 +503,90 @@ def auction_accept_need(cluster, pods, bid, torch) -> tuple:
     return ins + rows + outs, float(ops)
 
 
+def live_term_rows(terms, torch):
+    """The valid terms (rows of the term table) and their slots: the only
+    rows an inter-pod computation needs to read."""
+    live = torch.nonzero(terms.valid).flatten()
+    return live, torch.unique(terms.slot[live]).long()
+
+
+def auction_interpod_need(st, accepted, bid, bits, cluster, torch) -> tuple:
+    """(bytes, operations) one round of the anti-affinity repair and term
+    commit needs on this data: the accepted set, bids and solve positions;
+    the accepted pods' rows of the dense term tables over the live terms
+    and their bid nodes' values in the live slots; every node's values in
+    those slots (to map the committed groups back); the present and
+    blocked words in and out, the global word, the kept set out.
+    Operations: three passes over the accepted pods' live (pod, term)
+    pairs (minima, releases, commit) and one over the nodes' live terms,
+    about 4 integer operations a pair."""
+    table = st.tm.table
+    live, slots = live_term_rows(table, torch)
+    t_live, u = int(live.numel()), int(slots.numel())
+    n, p = cluster.topo_ids.shape[0], bid.shape[0]
+    a = int(accepted.sum())
+    need = (p + p * 4 * 2 + a * t_live * 2 + a * u * 4 + n * u * 4 + t_live * 4
+            + 2 * 2 * nbytes(bits[0]) + 2 * nbytes(bits[2]) + p)
+    return need, float(4 * (3 * a * t_live + n * t_live))
+
+
+def class_extras_need(snap, features, reps, feas, torch) -> tuple:
+    """(bytes, operations) one class_extras launch needs on this data: per
+    pair, its feasible row and its output row; the preferred rows its
+    representative reads (its own live rows of counts_dom, the rows it
+    matches of ownerw_dom) and the image words of its images, node
+    validity and sizes.  Operations per pair and node: 2 per preferred row
+    read and ~6 for the min / max normalisation; 2 per image and ~6 for
+    the clamp and scale."""
+    n = snap.cluster.allocatable.shape[0]
+    c = reps.shape[0]
+    r = reps.long()
+    need = c * n * (1 + 4) + nbytes(reps)
+    ops = 0
+    if features.interpod_pref:
+        pp = snap.prefpod
+        own = int((pp.pod_idx[r] >= 0).sum())
+        theirs = int(pp.matches_incoming[r].sum())
+        need += (own + theirs) * n * 4 + nbytes(pp.pod_idx[r], pp.pod_weight[r],
+                                                pp.matches_incoming[r])
+        ops += n * (2 * (own + theirs) + 6 * c)
+    if features.images:
+        ids = snap.images.pod_ids[r]
+        active = int((ids >= 0).sum())
+        words = int(torch.unique(ids[ids >= 0] >> 5).numel())
+        need += n * (4 * words + 1) + nbytes(ids, snap.images.n_containers[r]) + active * 4
+        ops += n * (2 * active + 6 * c)
+    return need, float(ops)
+
+
+def run_class_extras(snap, features, cfg, reps, feas, assign, bindings, torch,
+                     timed: bool = False) -> dict:
+    """Kernel class_extras against its plain version on CPU copies of the
+    same inputs, exact.  Returns {"out": the kernel's rows} and, timed, the
+    kernel's summary row."""
+    pp = None
+    if features.interpod_pref:
+        pp = assign.prep_pref_pod(snap.cluster, snap.prefpod, assign.required_topo_z_split(snap)[1],
+                                  has_bound=features.bound_pref)
+    args = (snap.cluster, snap.prefpod, snap.images, features, cfg, reps, feas, pp)
+
+    def kern():
+        return bindings.class_extras(*args)
+
+    out = kern()
+    cpu_in = cpu_args(args, torch)
+    t0 = time.perf_counter()
+    want = assign.class_extras_plain(*cpu_in)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = check_equal("class_extras", (out,), (want,), torch)
+    res = {"out": out}
+    if timed:
+        bms, by = bound(*class_extras_need(snap, features, reps, feas, torch))
+        res["row"] = {"name": "class_extras", "max_abs_err": err, "ms": cuda_ms(kern, 20, torch),
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+    return res
+
+
 def solve_order_need(pods) -> tuple:
     """torch.argsort(-priority, stable=True): P floats in, P indices out,
     P log2 P comparisons."""
@@ -445,9 +602,10 @@ def bound(need_bytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def drive_phase(name, route, fn, bindings):
+def drive_phase(name, route, fn, bindings, want=None):
     """Run fn() with every launch counter at 0 and check the counters just
-    after: every kernel of `route` launched, none of another route."""
+    after: every kernel of `route` launched and no other — or, given
+    `want`, every kernel of want(fn's output) and no other."""
     import torch
 
     torch.cuda.synchronize()
@@ -455,14 +613,16 @@ def drive_phase(name, route, fn, bindings):
     out = fn()
     torch.cuda.synchronize()
     launches = dict(bindings.LAUNCHES)
-    for k in ROUTE_KERNELS[route]:
-        if launches[k] <= 0:
-            raise AssertionError(f"phase {name}: kernel {k} was not launched")
-    others = {k for r, ks in ROUTE_KERNELS.items() if r != route for k in ks}
-    for k in others - set(ROUTE_KERNELS[route]):
-        if launches[k]:
-            raise AssertionError(f"phase {name}: kernel {k} of another route was launched")
+    check_launches(name, launches, want(out) if want else set(ROUTE_KERNELS[route]))
     return out, launches
+
+
+def check_launches(name, launches, want) -> None:
+    """Every kernel of `want` was launched, and no other."""
+    for k, count in launches.items():
+        if (k in want) != (count > 0):
+            raise AssertionError(f"phase {name}: kernel {k} launched {count} times, "
+                                 f"expected {'some' if k in want else 'none'}")
 
 
 def affinity_pods(wrappers, n_pods: int, prefix: str):
@@ -623,6 +783,14 @@ def main() -> int:
     spread_rows, spread_launches = spread_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
 
+    # ---- inter-pod: SchedulingPodAntiAffinity and SchedulingPodAffinity ----
+    interpod_rows, interpod_launches, prep_terms_row = interpod_phase(
+        wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
+
+    # ---- extras: preferred inter-pod affinity and ImageLocality -----------
+    extras_row, prep_pref_pod_row = extras_phase(
+        wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
+
     # ---- each kernel against its plain version at its phase's shapes -------
     summary = run_kernels(
         snap_k, meta_k.features, meta_k.n_groups, sched.score_config,
@@ -641,6 +809,8 @@ def main() -> int:
         row["launches"] = launches_of.get(row["name"], main_launches)[row["name"]]
     row = next(r for r in spread_rows if r["name"] == "auction_spread")
     summary.append(dict(row, launches=spread_launches["auction_spread"]))
+    summary.append(next(r for r in interpod_rows if r["name"] == "auction_interpod"))
+    summary.append(extras_row)
     order_ms = cuda_ms(lambda: assign.solve_order(snap_k.pods), 50, torch)
     order_bound = bound(*solve_order_need(snap_k.pods))
     emit({"phase": "kernels", "card": card,
@@ -648,10 +818,14 @@ def main() -> int:
                      "SchedulingBasic/5000Nodes measured batch",
                      "greedy_scan": "the same batch, mode=greedy",
                      "wavefront": "SchedulingNodeAffinity/5000Nodes first measured batch",
-                     "auction_spread": "TopologySpreading/5000Nodes measured batch"},
+                     "auction_spread": "TopologySpreading/5000Nodes measured batch",
+                     "auction_interpod": "SchedulingPodAntiAffinity/5000Nodes measured batch",
+                     "class_extras": "the preferred-affinity variant's measured batch "
+                                     "(the auction's class pairs)"},
           "kernels": [dict({k: row[k] for k in ("name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")},
                            equal=True) for row in summary],
-          "solve_order": {"ms": order_ms, "bound_ms": order_bound[0], "bound_by": order_bound[1]}})
+          "solve_order": {"ms": order_ms, "bound_ms": order_bound[0], "bound_by": order_bound[1]},
+          "prep_terms": prep_terms_row, "prep_pref_pod": prep_pref_pod_row})
 
     # ---- small input against the plain path on the CPU ------------------
     small = {}
@@ -817,10 +991,57 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> Non
         checked["rounds"] += run_auction(ts, cfg, None, auction, bindings, torch,
                                          cpu_snap=dv.to_device(snap, "cpu"))
         checked["spread_batches"] += 1
+    checked["family_batches"] = 0
+    fallbacks += family_parity(wrappers, assign, auction, dv, filters, bindings, torch, checked)
     torch.cuda.synchronize()
     if not fallbacks:
         raise AssertionError("parity: no wavefront fallback was exercised")
     emit({"phase": "parity", "cases": checked, "wavefront_fallbacks": fallbacks, "exact": True})
+
+
+def family_cases(wrappers):
+    """(label, (nodes, pending, bound)) of the inter-pod, preferred
+    inter-pod and ImageLocality parity batches (testing/cases.py)."""
+    from kubernetes_tpu_torch.testing import cases
+
+    out = []
+    for seed in range(2):
+        out.append((f"interpod{seed}", cases.interpod_objects(wrappers, seed)))
+        out.append((f"anti{seed}", cases.interpod_objects(wrappers, seed, anti_only=True)))
+        out.append((f"prefpod{seed}", cases.prefpod_objects(wrappers, seed)))
+        out.append((f"image{seed}", cases.image_objects(wrappers, seed)))
+    return out
+
+
+def family_parity(wrappers, assign, auction, dv, filters, bindings, torch, checked) -> int:
+    """The family batches through the three solves, every kernel against
+    its plain version (the auction where its families allow it, also
+    against the plain loop on the CPU), under the default weights and
+    under weights that are not powers of two; returns the wavefront
+    fallbacks taken."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import schema, scores
+
+    cfgs = (scores.ScoreConfig(), scores.ScoreConfig(interpod_weight=1.3, image_weight=0.7))
+    fallbacks = 0
+    for k, (label, (nodes, pending, bound_pods)) in enumerate(family_cases(wrappers)):
+        snap, _meta = schema.SnapshotBuilder().build(nodes, pending, bound_pods=bound_pods)
+        cfg = cfgs[k % 2]
+        ts = dv.to_device(snap, "cuda")
+        features = assign.features_of(snap)
+        n_groups = schema.num_groups(snap)
+        run_kernels(ts, features, n_groups, cfg, assign, filters, bindings, torch)
+        rng = np.random.default_rng(200 + k)
+        for members in (assign.plan_waves(snap, features, 8).members,
+                        random_partition(snap, rng, 8, np)):
+            fallbacks += run_wavefront(ts, features, n_groups, cfg, members, assign, bindings,
+                                       torch)
+        if auction.auction_features_ok(features):
+            checked["rounds"] += run_auction(ts, cfg, None, auction, bindings, torch,
+                                             cpu_snap=dv.to_device(snap, "cpu"))
+            checked["auction"] += 1
+        checked["family_batches"] += 1
+    return fallbacks
 
 
 def cpu_copy(snap):
@@ -832,10 +1053,11 @@ def result_fields(res, to_cpu: bool) -> tuple:
     """The compared fields of a solve result, as CPU tensors: assignment,
     scores, reasons and the post-solve usage; then the route's own —
     feasible counts (scan, wavefront), wave counters (wavefront), rounds,
-    gang_dropped and the final spread counts (auction)."""
+    gang_dropped and the final spread counts and term bits (auction)."""
     names = ("assignment", "scores", "reasons", "feasible_counts", "wave_count",
              "wave_fallbacks", "rounds", "gang_dropped", "debug_sp_counts")
     out = [getattr(res, f, None) for f in names]
+    out += list(getattr(res, "debug_term_bits", None) or (None,) * 3)
     out += [res.cluster.requested, res.cluster.nonzero_requested]
     return tuple(None if t is None else (t.cpu() if to_cpu else t) for t in out)
 
@@ -884,24 +1106,11 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
             s.add_node(node)
         return s
 
-    def check_cpu(what, snap, meta, res, solve):
-        t = time.perf_counter()
-        want = solve(cpu_copy(snap), meta)
-        timing[f"{what}_cpu_s"] = time.perf_counter() - t
-        check_equal(f"spread/{what} (card against the plain path on the CPU)",
-                    result_fields(res, True), result_fields(want, False), torch)
+    cfg = assign.DEFAULT_SCORE_CONFIG
 
-    def auction_solve(snap, meta):
-        return auction.auction_assign(snap, n_groups=meta.n_groups, features=meta.features,
-                                      tie_k=meta.tie_k, topo_z=meta.topo_split[0])
-
-    def greedy_solve(snap, meta):
-        return assign.greedy_assign(snap, features=meta.features, n_groups=meta.n_groups,
-                                    topo_z=meta.topo_split[0])
-
-    def wavefront_solve(snap, meta):
-        return assign.wavefront_assign(snap, meta.wave_plan.members, features=meta.features,
-                                       n_groups=meta.n_groups, topo_z=meta.topo_split[0])
+    def check_cpu(what, snap, meta, res):
+        check_plain(f"spread/{what}", {"snap": snap, "meta": meta, "result": res}, assign,
+                    auction, cfg, torch, timing)
 
     # the default route: init batch (auction, no spread), measured (auction + repair)
     sched = new_sched()
@@ -930,7 +1139,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
     snap, meta = timing["snap"]
     res = sched.last_result
     rounds = int(res.rounds)
-    check_cpu("auction", snap, meta, res, auction_solve)
+    check_cpu("auction", snap, meta, res)
     skew = zone_skew(names, zone_of)
     if skew > SPREAD_MAX_SKEW:
         raise AssertionError(f"spread: measured pods' zone skew {skew} > {SPREAD_MAX_SKEW}")
@@ -939,7 +1148,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
         if name is not None:
             sched.assume(pod, name)
     check_capacity(sched.state)
-    syncs = host_syncs(lambda: auction_solve(snap, meta), torch)
+    syncs = host_syncs(lambda: solve_route("auction", snap, meta, assign, auction, cfg), torch)
     out = {"phase": "spread", "workload": "TopologySpreading/5000Nodes", "route": "auction",
            "auction_host_syncs": syncs,
            "init_s": timing["init_s"], "init_rounds": timing["init_rounds"],
@@ -965,7 +1174,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
 
     gnames, glaunches = drive_phase("spread/greedy", "greedy", run_scan, bindings)
     gsnap, gmeta = timing["gsnap"]
-    check_cpu("greedy", gsnap, gmeta, gsched.last_result, greedy_solve)
+    check_cpu("greedy", gsnap, gmeta, gsched.last_result)
     out["greedy"] = {"measured_s": timing["greedy_s"],
                      "pods_per_s": len(measured) / timing["greedy_s"],
                      "placed": sum(n is not None for n in gnames),
@@ -1001,7 +1210,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
 
     _, wlaunches = drive_phase("spread/wavefront", "wavefront", run_waves, bindings)
     for k, (s, m, r) in enumerate(wave["solves"]):
-        check_cpu(f"wavefront{k}", s, m, r, wavefront_solve)
+        check_cpu(f"wavefront{k}", s, m, r)
     wsec = sum(b["s"] for b in wave["batches"])
     out["wavefront"] = {"batch_size": SPREAD_BATCH, "batches": wave["batches"],
                         "measured_s": wsec, "pods_per_s": len(measured) / wsec,
@@ -1028,7 +1237,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
 
     snames, slaunches = drive_phase("spread/soft", "auction_spread", run_soft, bindings)
     ssnap, smeta = timing["ssnap"]
-    check_cpu("soft", ssnap, smeta, ssched.last_result, auction_solve)
+    check_cpu("soft", ssnap, smeta, ssched.last_result)
     out["soft"] = {"template": "pod-with-topology-spreading.yaml with whenUnsatisfiable: "
                                "ScheduleAnyway", "measured_s": timing["soft_s"],
                    "pods_per_s": len(soft) / timing["soft_s"],
@@ -1061,7 +1270,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
 
     # the auction's reasons pass (plain torch on the card, its spread
     # filter included) at these shapes, timed, on the solve's final state
-    cl_r, pods_r, st_r = auction.auction_prep(snap, meta.features, meta.topo_split[0])
+    cl_r, pods_r, st_r = auction.auction_prep(snap, meta.features, meta.topo_split)
     reason_args = (cl_r, pods_r, st_r, res.assignment, res.cluster.requested,
                    res.cluster.nonzero_requested, res.debug_sp_counts)
     check_equal("spread/reasons pass", (auction.failure_reasons(*reason_args),),
@@ -1087,6 +1296,305 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
     out["card"] = card
     emit(out)
     return rows, launches
+
+
+def solve_route(route, snap, meta, assign, auction, cfg):
+    """The solve TorchBatchScheduler dispatches for `route`, called on
+    `snap` (on the card, or a CPU copy for the plain path)."""
+    if route == "auction":
+        return auction.auction_assign(snap, cfg, n_groups=meta.n_groups, features=meta.features,
+                                      tie_k=meta.tie_k, topo_z=meta.topo_split)
+    if route == "wavefront":
+        return assign.wavefront_assign(snap, meta.wave_plan.members, cfg, features=meta.features,
+                                       n_groups=meta.n_groups, topo_z=meta.topo_split)
+    return assign.greedy_assign(snap, cfg, features=meta.features, n_groups=meta.n_groups,
+                                topo_z=meta.topo_split)
+
+
+def route_kernels(meta) -> set:
+    """The kernels a batch's solve launches, from its route and families:
+    the route's own, auction_spread / auction_interpod on the auction with
+    the spread / inter-pod family, class_extras with preferred inter-pod
+    terms or images."""
+    f = meta.features
+    kernels = set(ROUTE_KERNELS[meta.route])
+    if meta.route == "auction":
+        kernels |= {"auction_spread"} if f.spread else set()
+        kernels |= {"auction_interpod"} if f.interpod else set()
+    if f.interpod_pref or f.images:
+        kernels.add("class_extras")
+    return kernels
+
+
+def drive_workload(name, sched, batches, bindings, torch):
+    """Solve each (label, pods, route) batch in turn through `sched`
+    (encode, check the route, solve, assume every placement), with the
+    launch counters reset before the first and read after the last: every
+    kernel the batches' routes and families launch (route_kernels) was
+    launched, and no other.  Returns the batches' records (label, pods,
+    names, snapshot, meta, result, seconds, last_timings) and the launch
+    counts."""
+    def run():
+        out = []
+        for label, pods, route in batches:
+            snap, meta = sched.encode_pending(pods)
+            if meta.route != route:
+                raise AssertionError(f"{name}/{label}: route {meta.route}, not {route}")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            names = sched.schedule_pending(pods)
+            dt = time.perf_counter() - t
+            out.append({"label": label, "pods": pods, "names": names, "snap": snap,
+                        "meta": meta, "result": sched.last_result, "s": dt,
+                        "timings": dict(sched.last_timings)})
+            for pod, node in zip(pods, names):
+                if node is not None:
+                    sched.assume(pod, node)
+        return out
+
+    recs, launches = drive_phase(
+        name, None, run, bindings,
+        want=lambda recs: set().union(*(route_kernels(r["meta"]) for r in recs)))
+    check_capacity(sched.state)
+    return recs, launches
+
+
+def check_plain(what, rec, assign, auction, cfg, torch, timing) -> None:
+    """A batch's card result against the plain path on the CPU for the same
+    snapshot, every compared field."""
+    t = time.perf_counter()
+    want = solve_route(rec["meta"].route, cpu_copy(rec["snap"]), rec["meta"], assign, auction, cfg)
+    timing[f"{what}_cpu_s"] = time.perf_counter() - t
+    check_equal(f"{what} (card against the plain path on the CPU)",
+                result_fields(rec["result"], True), result_fields(want, False), torch)
+
+
+def batch_summary(rec) -> dict:
+    res = rec["result"]
+    out = {"batch": rec["label"], "route": rec["meta"].route, "pods": len(rec["pods"]),
+           "placed": sum(n is not None for n in rec["names"]), "s": rec["s"],
+           "pods_per_s": len(rec["pods"]) / rec["s"], "last_timings": rec["timings"]}
+    if getattr(res, "rounds", None) is not None:
+        out["rounds"] = int(res.rounds)
+    if getattr(res, "wave_count", None) is not None:
+        out["wave_count"] = int(res.wave_count)
+        out["wave_fallbacks"] = int(res.wave_fallbacks)
+    return out
+
+
+def prep_terms_need(snap, features, state, torch) -> tuple:
+    """(bytes, operations) of prep_terms on this data: the live terms'
+    topology columns, node validity and bound-pod rows in; the present,
+    blocked and key words out, and the pod-axis word tables; about 8
+    operations a live (term, node) pair (the value-space scatter, the
+    gather back, the packing)."""
+    terms = snap.terms
+    live, slots = live_term_rows(terms, torch)
+    n = snap.cluster.node_valid.shape[0]
+    need = (nbytes(snap.cluster.topo_ids[:, slots], snap.cluster.node_valid,
+                   terms.node_matches[live], terms.node_owners[live], terms.matches_incoming,
+                   terms.aff_idx, terms.anti_idx)
+            + nbytes(*state))
+    return need, 8.0 * int(live.numel()) * n
+
+
+def prep_pref_pod_need(snap, state, torch) -> tuple:
+    """(bytes, operations) of prep_pref_pod on this data: the live rows'
+    topology columns, node validity and bound-pod counts and weights in,
+    their domain sums out; about 8 operations a live (row, node) pair."""
+    table = snap.prefpod
+    live = torch.nonzero(table.valid).flatten()
+    slots = torch.unique(table.slot[live]).long()
+    n = snap.cluster.node_valid.shape[0]
+    need = (nbytes(snap.cluster.topo_ids[:, slots], snap.cluster.node_valid,
+                   table.node_counts[live], table.owner_weight[live])
+            + nbytes(state.counts_dom[live], state.ownerw_dom[live]))
+    return need, 8.0 * int(live.numel()) * n
+
+
+def interpod_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch,
+                   card):
+    """SchedulingPodAntiAffinity/5000Nodes and SchedulingPodAffinity/5000Nodes
+    through TorchBatchScheduler on their default routes (anti-affinity: the
+    auction with auction_interpod; affinity: the wavefront, one-pod waves)
+    and on the scan, every batch against the plain path on the CPU; the
+    hard constraints checked; auction_interpod and prep_terms timed at the
+    anti-affinity measured batch's shapes.  Returns (the kernel rows, the
+    launch counts of the anti-affinity default-route run, prep_terms'
+    timing row)."""
+    from kubernetes_tpu_torch.testing.cases import pod_affinity_objects, pod_anti_affinity_objects
+
+    timing = {}
+    out = {"phase": "interpod"}
+    def new_sched(nodes, **kw):
+        s = TorchBatchScheduler(**kw)
+        for node in nodes:
+            s.add_node(node)
+        return s
+
+    # SchedulingPodAntiAffinity: init and measured on the auction
+    nodes, init, measured = pod_anti_affinity_objects(wrappers, *ANTI)
+    sched = new_sched(nodes)
+    cfg = sched.score_config
+    recs, launches = drive_workload(
+        "interpod/anti", sched, [("init", init, "auction"), ("measured", measured, "auction")],
+        bindings, torch)
+    for rec in recs:
+        if None in rec["names"]:
+            raise AssertionError(f"interpod/anti: a {rec['label']} pod was not placed")
+        check_plain(f"anti/{rec['label']}", rec, assign, auction, cfg, torch, timing)
+    green = [n for rec in recs for n in rec["names"]]
+    if len(set(green)) != len(green):
+        raise AssertionError("interpod/anti: two color=green pods share a node")
+    meas = recs[1]
+    syncs = host_syncs(lambda: solve_route("auction", meas["snap"], meas["meta"], assign,
+                                           auction, cfg), torch)
+    # the same measured batch on the scan
+    gsched = new_sched(nodes, mode="greedy", use_wavefront=False)
+    for pod, node in zip(init, recs[0]["names"]):
+        gsched.assume(pod, node)
+    grecs, glaunches = drive_workload("interpod/anti/greedy", gsched,
+                                      [("measured", measured, "greedy")], bindings, torch)
+    check_plain("anti/greedy", grecs[0], assign, auction, cfg, torch, timing)
+    gnames = grecs[0]["names"]
+    if None in gnames or len(set(gnames) | set(recs[0]["names"])) != len(gnames) + len(init):
+        raise AssertionError("interpod/anti/greedy: a pod unplaced, or two green pods on a node")
+    out["anti"] = {"workload": "SchedulingPodAntiAffinity/5000Nodes",
+                   "batches": [batch_summary(r) for r in recs], "auction_host_syncs": syncs,
+                   "launches": launches, "greedy": dict(batch_summary(grecs[0]),
+                                                        launches=glaunches)}
+
+    # SchedulingPodAffinity: init and measured on the wavefront
+    nodes_a, init_a, measured_a = pod_affinity_objects(wrappers, *AFFINITY_POD)
+    zone_of = {nd.meta.name: f"zone-{i % ZONES}" for i, nd in enumerate(nodes_a)}
+    asched = new_sched(nodes_a)
+    arecs, alaunches = drive_workload(
+        "interpod/affinity", asched,
+        [("init", init_a, "wavefront"), ("measured", measured_a, "wavefront")], bindings, torch)
+    for rec in arecs:
+        check_plain(f"affinity/{rec['label']}", rec, assign, auction, cfg, torch, timing)
+    blue_zones = {zone_of[n] for n in arecs[0]["names"] if n is not None}
+    if None in arecs[1]["names"] or any(zone_of[n] not in blue_zones for n in arecs[1]["names"]):
+        raise AssertionError("interpod/affinity: a measured pod outside the zones of the "
+                             "color=blue pods")
+    gsched = new_sched(nodes_a, mode="greedy", use_wavefront=False)
+    for pod, node in zip(init_a, arecs[0]["names"]):
+        if node is not None:
+            gsched.assume(pod, node)
+    agrecs, aglaunches = drive_workload("interpod/affinity/greedy", gsched,
+                                        [("measured", measured_a, "greedy")], bindings, torch)
+    check_plain("affinity/greedy", agrecs[0], assign, auction, cfg, torch, timing)
+    if any(n is None or zone_of[n] not in blue_zones for n in agrecs[0]["names"]):
+        raise AssertionError("interpod/affinity/greedy: a measured pod outside the blue zones")
+    out["affinity"] = {"workload": "SchedulingPodAffinity/5000Nodes",
+                       "batches": [batch_summary(r) for r in arecs],
+                       "zones": sorted(blue_zones), "launches": alaunches,
+                       "greedy": dict(batch_summary(agrecs[0]), launches=aglaunches)}
+
+    # the inter-pod path's kernels at the anti-affinity measured batch's
+    # shapes, timed (the scan's, the wavefront's at the affinity batch's)
+    snap, meta = meas["snap"], meas["meta"]
+    rows = run_auction(snap, cfg, meta.tie_k, auction, bindings, torch, timed=True)
+    g0 = grecs[0]
+    rows += [r for r in run_kernels(g0["snap"], g0["meta"].features, g0["meta"].n_groups, cfg,
+                                    assign, filters, bindings, torch, timed=True)
+             if r["name"] == "greedy_scan"]
+    a0 = arecs[1]
+    rows.append(run_wavefront(a0["snap"], a0["meta"].features, a0["meta"].n_groups, cfg,
+                              a0["meta"].wave_plan.members, assign, bindings, torch, timed=True))
+    launch_of = {"greedy_scan": glaunches, "wavefront": alaunches}
+    for r in rows:
+        r["launches"] = launch_of.get(r["name"], launches)[r["name"]]
+    z_terms = meta.topo_split[1]
+    torch.cuda.synchronize()
+    prep_ms = cuda_ms(lambda: assign.terms_prep(snap, meta.features, z_terms), 20, torch)
+    tm = assign.terms_prep(snap, meta.features, z_terms)
+    pb = bound(*prep_terms_need(snap, meta.features, tm.state, torch))
+    out["prep_terms"] = {"ms": prep_ms, "bound_ms": pb[0], "bound_by": pb[1],
+                         "terms": int(snap.terms.valid.shape[0]), "z_terms": z_terms,
+                         "route": "plain torch"}
+    out["kernels"] = rows
+    out["cpu_check_s"] = timing
+    out["card"] = card
+    emit(out)
+    return rows, launches, out["prep_terms"]
+
+
+def extras_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch,
+                 card):
+    """The preferred-affinity variant (upstream's SchedulingPreferredPodAffinity
+    shape) at 5,000 nodes / 1,000 / 1,000 and a synthetic image batch at
+    5,000 nodes through TorchBatchScheduler on their default route (the
+    auction, with class_extras) and on the scan, every batch against the
+    plain path on the CPU; class_extras and prep_pref_pod timed at the
+    preferred measured batch's shapes.  Returns (the class_extras row,
+    prep_pref_pod's timing row)."""
+    from kubernetes_tpu_torch.testing.cases import image_objects, preferred_affinity_objects
+
+    timing = {}
+    out = {"phase": "extras"}
+
+    def new_sched(nodes, **kw):
+        s = TorchBatchScheduler(**kw)
+        for node in nodes:
+            s.add_node(node)
+        return s
+
+    nodes, init, measured = preferred_affinity_objects(wrappers, *PREFERRED)
+    sched = new_sched(nodes)
+    cfg = sched.score_config
+    recs, launches = drive_workload(
+        "extras/preferred", sched, [("init", init, "auction"), ("measured", measured, "auction")],
+        bindings, torch)
+    for rec in recs:
+        check_plain(f"preferred/{rec['label']}", rec, assign, auction, cfg, torch, timing)
+    gsched = new_sched(nodes, mode="greedy", use_wavefront=False)
+    for pod, node in zip(init, recs[0]["names"]):
+        if node is not None:
+            gsched.assume(pod, node)
+    grecs, glaunches = drive_workload("extras/preferred/greedy", gsched,
+                                      [("measured", measured, "greedy")], bindings, torch)
+    check_plain("preferred/greedy", grecs[0], assign, auction, cfg, torch, timing)
+    out["preferred"] = {
+        "workload": "SchedulingPreferredPodAffinity shape, 5000 nodes / 1000 / 1000",
+        "batches": [batch_summary(r) for r in recs], "launches": launches,
+        "greedy": dict(batch_summary(grecs[0]), launches=glaunches)}
+
+    inodes, ipods, _b = image_objects(wrappers, 0, *IMAGES)
+    isched = new_sched(inodes)
+    irecs, ilaunches = drive_workload("extras/images", isched, [("batch", ipods, "auction")],
+                                      bindings, torch)
+    check_plain("images/auction", irecs[0], assign, auction, cfg, torch, timing)
+    igsched = new_sched(inodes, mode="greedy", use_wavefront=False)
+    igrecs, iglaunches = drive_workload("extras/images/greedy", igsched,
+                                        [("batch", ipods, "greedy")], bindings, torch)
+    check_plain("images/greedy", igrecs[0], assign, auction, cfg, torch, timing)
+    out["images"] = {"workload": "synthetic ImageLocality batch, 5000 nodes / 1000 pods",
+                     "batches": [batch_summary(irecs[0]), batch_summary(igrecs[0])],
+                     "launches": [ilaunches, iglaunches]}
+
+    # class_extras (the auction's pairs) and prep_pref_pod at the preferred
+    # measured batch's shapes, timed
+    snap, meta = recs[1]["snap"], recs[1]["meta"]
+    _cl, _pods, st = auction.auction_prep(snap, meta.features, meta.topo_split, cfg)
+    pairs = (st.k_reps[st.jcons.long()], st.sfeas_s[st.jspec.long()])
+    ext = run_class_extras(snap, meta.features, cfg, *pairs, assign, bindings, torch, timed=True)
+    row = dict(ext["row"], launches=launches["class_extras"])
+    z_terms = meta.topo_split[1]
+    torch.cuda.synchronize()
+    prep_ms = cuda_ms(lambda: assign.prep_pref_pod(snap.cluster, snap.prefpod, z_terms,
+                                                   has_bound=meta.features.bound_pref), 20, torch)
+    pp = assign.prep_pref_pod(snap.cluster, snap.prefpod, z_terms,
+                              has_bound=meta.features.bound_pref)
+    pb = bound(*prep_pref_pod_need(snap, pp, torch))
+    out["prep_pref_pod"] = {"ms": prep_ms, "bound_ms": pb[0], "bound_by": pb[1],
+                            "rows": int(snap.prefpod.valid.shape[0]), "z_terms": z_terms,
+                            "route": "plain torch"}
+    out["class_extras"] = row
+    out["cpu_check_s"] = timing
+    out["card"] = card
+    emit(out)
+    return row, out["prep_pref_pod"]
 
 
 def check_capacity(state) -> None:
@@ -1147,17 +1655,18 @@ def run_wavefront(snap, features, n_groups, cfg, members, assign, bindings, torc
     """Kernel wavefront against its plain version (and the plain scan) on
     CPU copies of the same inputs, exact.  Returns the fallbacks taken, or
     with timed=True the kernel's summary row."""
-    cluster, pods, sfeas, aff, taint, sp_args = assign._solver_prep(snap, features)
+    cluster, pods, sfeas, aff, taint, sp_args, tm_args, extra = assign._solver_prep(
+        snap, features, cfg=cfg)
     m = torch.as_tensor(members, dtype=torch.int32, device=cluster.allocatable.device)
     cpu_in = cpu_args((cluster, pods, sfeas, aff, taint, m, features), torch)
-    cpu_sp = cpu_args(sp_args, torch)
+    cpu_fam = cpu_args((sp_args, tm_args, extra), torch)
 
     def kern():
         return bindings.wavefront(cluster, pods, sfeas, aff, taint, m, features, n_groups, cfg,
-                                  sp_args)
+                                  sp_args, tm_args, extra)
 
     def plain():
-        return assign.wavefront_assign_plain(*cpu_in, n_groups, cfg, cpu_sp)
+        return assign.wavefront_assign_plain(*cpu_in, n_groups, cfg, *cpu_fam)
 
     out = kern()
     want = plain()
@@ -1166,12 +1675,13 @@ def run_wavefront(snap, features, n_groups, cfg, members, assign, bindings, torc
         c_cl, c_pods, c_sf, c_aff, c_taint, _m, _f = cpu_in
         scan = assign.greedy_assign_plain(c_cl, c_pods, c_sf, c_aff, c_taint,
                                           assign.solve_order(c_pods), features, n_groups, cfg,
-                                          cpu_sp)
+                                          *cpu_fam)
         check_equal("wavefront (against the scan)", out[:7] + out[9:], scan, torch)
         return int(out[8])
     ms = cuda_ms(kern, 10, torch)
     plain_ms = time_plain(plain, torch)
-    bms, by = bound(*greedy_scan_need(cluster, pods, sfeas, out[2], features, torch, sp_args))
+    bms, by = bound(*greedy_scan_need(cluster, pods, sfeas, out[2], features, torch, sp_args,
+                                      tm_args, extra, out[0]))
     return {"name": "wavefront", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by}
 
@@ -1188,45 +1698,63 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     summary rows (one round each, at round 0)."""
     n = snap.cluster.allocatable.shape[0]
     tie_k = min(auction.default_tie_k(snap) if tie_k is None else tie_k, n)
-    cluster, pods, st = auction.auction_prep(snap)
-    use_spread = st.features.spread
+    cluster, pods, st = auction.auction_prep(snap, cfg=cfg)
+    use_spread, use_terms = st.features.spread, st.features.interpod
+    if st.extra is not None:
+        # the auction's (constraint-class representative, spec-class
+        # static row) pairs, against the plain version on the CPU
+        from kubernetes_tpu_torch.ops import assign
+
+        pairs = (st.k_reps[st.jcons.long()], st.sfeas_s[st.jspec.long()])
+        check_equal("class_extras (auction pairs)", (st.extra,), (assign.extras_prep(
+            cpu_copy(snap), st.features, cfg, *cpu_args(pairs, torch)),), torch)
     p = pods.req.shape[0]
     dev = cluster.allocatable.device
     assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
     bid_scores = torch.full((p,), float("-inf"), device=dev)
     req, nz = cluster.requested, cluster.nonzero_requested
     counts = st.sp.state.counts_node.clone() if use_spread else None
+    bits = auction.term_bits_copy(st.tm, st.features)
     max_rounds = 64
-    bufs = bindings.auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None)
-    rnd, errs, rows = 0, [0.0, 0.0, 0.0], []
+    bufs = bindings.auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None,
+                                    st.tm if use_terms else None)
+    rnd, errs, rows = 0, [0.0, 0.0, 0.0, 0.0], []
     while rnd < max_rounds and bool(((assigned < 0) & pods.valid).any()):
         state = bindings.auction_state(rnd, True, dev)
         got = bindings.auction_bids(cluster, pods, st, req, nz, assigned, state, tie_k, cfg,
-                                    bufs, counts)[:2]
+                                    bufs, counts, bits)[:2]
         bid, val = auction.auction_bids_plain(cluster, pods, st, req, nz, assigned, rnd, tie_k,
-                                              cfg, counts)
+                                              cfg, counts, bits)
         errs[0] = max(errs[0], check_equal("auction_bids", got, (bid, val), torch))
         kr, kn, ka, ks = req.clone(), nz.clone(), assigned.clone(), bid_scores.clone()
         state = bindings.auction_state(rnd, True, dev)
         accept = auction.auction_decide_plain(cluster.allocatable, pods, st.order, bid, req)
         progress = bool(accept.any())
-        kc = None
-        if use_spread:
+        kc = kbits = None
+        if use_spread or use_terms:
             bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka,
                                     ks, state, max_rounds, bufs, stage=1)
             errs[1] = max(errs[1], check_equal(
                 "auction_accept (acceptance)", (bufs["accept"].bool(),), (accept,), torch))
             if int(state[2]) != int(progress):
                 raise AssertionError("auction_accept: progress differs from its plain version")
+            stage = 2
+        else:
+            stage = 3
+        if use_spread:
             kc = counts.clone()
             bindings.auction_spread(cluster, pods, st, kc, state, bufs)
             accept, counts = auction.spread_repair_plain(accept, bid, counts, st,
                                                          cluster.topo_ids)
             errs[2] = max(errs[2], check_equal(
                 "auction_spread", (bufs["accept"].bool(), kc), (accept, counts), torch))
-            stage = 2
-        else:
-            stage = 3
+        if use_terms:
+            kbits = tuple(t.clone() for t in bits)
+            bits_before, accept_before = bits, accept
+            bindings.auction_interpod(cluster, pods, st, kbits, state, bufs)
+            accept, bits = auction.interpod_repair_plain(accept, bid, st, cluster.topo_ids, bits)
+            errs[3] = max(errs[3], check_equal(
+                "auction_interpod", (bufs["accept"].bool(), *kbits), (accept, *bits), torch))
         bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka, ks,
                                 state, max_rounds, bufs, stage=stage)
         want = auction.auction_commit_plain(*cpu_args(
@@ -1237,7 +1765,9 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
         if timed and rnd == 0:
             rows = time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores,
                                       bid, val, tie_k, cfg, max_rounds, bufs, auction,
-                                      bindings, torch, counts_before=kc)
+                                      bindings, torch, counts_before=kc,
+                                      bits_before=bits_before if use_terms else None,
+                                      accept_before=accept_before if use_terms else None)
         assigned, bid_scores, req, nz = (t.to(dev) for t in want)
         rnd += 1
         if not progress:
@@ -1246,33 +1776,39 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     want = auction._rounds_plain(*cpu_args((cluster, pods, st), torch), tie_k, cfg, max_rounds)
     check_equal("auction rounds", got, want, torch)
     if cpu_snap is not None:
-        on_cpu = auction._rounds_plain(*auction.auction_prep(cpu_snap), tie_k, cfg, max_rounds)
+        on_cpu = auction._rounds_plain(*auction.auction_prep(cpu_snap, cfg=cfg), tie_k, cfg,
+                                        max_rounds)
         check_equal("auction rounds (card against CPU)", got, on_cpu, torch)
     if not timed:
         return int(got[4])
-    for row, err in zip(rows, errs):
-        row["max_abs_err"] = err
+    err_of = {"auction_bids": errs[0], "auction_accept": errs[1], "auction_spread": errs[2],
+              "auction_interpod": errs[3]}
+    for row in rows:
+        row["max_abs_err"] = err_of[row["name"]]
     return rows
 
 
 def time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores, bid, val,
                        tie_k, cfg, max_rounds, bufs, auction, bindings, torch,
-                       counts_before=None):
+                       counts_before=None, bits_before=None, accept_before=None):
     """CUDA-event times of one round of each auction kernel (the state is
-    reset before every launch, so each runs the round; with the spread
-    family auction_accept's two stages together, and auction_spread on the
-    round's accepted set and the counts before it) and host times of their
-    plain versions (auction_accept's on CPU copies: its commit adds in pod
-    index order), with their bounds."""
+    reset before every launch, so each runs the round; with a repair
+    family auction_accept's two stages together, auction_spread on the
+    round's accepted set and the counts before it, auction_interpod on
+    the set the spread repair kept and the bits before it) and host times
+    of their plain versions (auction_accept's on CPU copies: its commit
+    adds in pod index order), with their bounds."""
     dev = req.device
     go = bindings.auction_state(0, True, dev)
     state = go.clone()
     use_spread = counts_before is not None
+    use_terms = bits_before is not None
+    split = use_spread or use_terms
 
     def k_bids():
         state.copy_(go)
         return bindings.auction_bids(cluster, pods, st, req, nz, assigned, state, tie_k, cfg,
-                                     bufs, counts_before)
+                                     bufs, counts_before, bits_before)
 
     kr, kn, ka, ks = req.clone(), nz.clone(), assigned.clone(), bid_scores.clone()
 
@@ -1282,14 +1818,14 @@ def time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores, bid, va
         kn.copy_(nz)
         ka.copy_(assigned)
         ks.copy_(bid_scores)
-        for stage in ((1, 2) if use_spread else (3,)):
+        for stage in ((1, 2) if split else (3,)):
             bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka,
                                     ks, state, max_rounds, bufs, stage=stage)
 
     bids_ms = cuda_ms(k_bids, 20, torch)
     accept_ms = cuda_ms(k_accept, 20, torch)
     bids_plain = time_plain(lambda: auction.auction_bids_plain(
-        cluster, pods, st, req, nz, assigned, 0, tie_k, cfg, counts_before), torch)
+        cluster, pods, st, req, nz, assigned, 0, tie_k, cfg, counts_before, bits_before), torch)
     c_alloc, c_pods, c_order, c_bid, c_val, c_req, c_nz, c_as, c_bs = cpu_args(
         (cluster.allocatable, pods, st.order, bid, val, req, nz, assigned, bid_scores), torch)
     accept_plain = time_plain(lambda: auction.auction_commit_plain(
@@ -1320,6 +1856,23 @@ def time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores, bid, va
         b3 = bound(*auction_spread_need(st, accepted, bid, counts_before, torch))
         rows.append({"name": "auction_spread", "ms": spread_ms, "plain_ms": spread_plain,
                      "bound_ms": b3[0], "bound_by": b3[1]})
+    if use_terms:
+        kbits = tuple(t.clone() for t in bits_before)
+        bufs["bid"].copy_(bid)
+
+        def k_interpod():
+            state.copy_(go)
+            bufs["accept"].copy_(accept_before)
+            for t, t0 in zip(kbits, bits_before):
+                t.copy_(t0)
+            bindings.auction_interpod(cluster, pods, st, kbits, state, bufs)
+
+        interpod_ms = cuda_ms(k_interpod, 20, torch)
+        interpod_plain = time_plain(lambda: auction.interpod_repair_plain(
+            accept_before, bid, st, cluster.topo_ids, bits_before), torch)
+        b4 = bound(*auction_interpod_need(st, accept_before, bid, bits_before, cluster, torch))
+        rows.append({"name": "auction_interpod", "ms": interpod_ms, "plain_ms": interpod_plain,
+                     "bound_ms": b4[0], "bound_by": b4[1]})
     return rows
 
 
@@ -1357,22 +1910,30 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
     err2 = check_equal("class_statics", statics, p2(), torch)
     order = assign.solve_order(pods)
     sp_args = assign.spread_prep(snap, sel_mask, features)
+    tm_args = assign.terms_prep(snap, features)
+    extras = None
+    if features.interpod_pref or features.images:
+        extras = run_class_extras(snap, features, cfg, reps, statics[0], assign, bindings,
+                                  torch, timed)
+    extra = extras["out"] if extras else None
 
     def k3():
         return bindings.greedy_scan(cluster, pods, *statics, order, features, n_groups, cfg,
-                                    sp_args)
+                                    sp_args, tm_args, extra)
 
     cpu_in = cpu_args((cluster, pods, *statics, order, features), torch)
-    cpu_sp = cpu_args(sp_args, torch)
+    cpu_fam = cpu_args((sp_args, tm_args, extra), torch)
 
     def p3():  # on CPU copies: its gang release adds in pod index order
-        return assign.greedy_assign_plain(*cpu_in, n_groups, cfg, cpu_sp)
+        return assign.greedy_assign_plain(*cpu_in, n_groups, cfg, *cpu_fam)
 
     out = k3()
     t0 = time.perf_counter()
     want = p3()
     plain3_ms = (time.perf_counter() - t0) * 1e3
     err3 = check_equal("greedy_scan", out, want, torch)
+    if extras and timed:
+        rows.append(extras["row"])
     if not timed:
         return rows
     k1_ms = cuda_ms(k1, 50, torch)
@@ -1384,7 +1945,8 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
     b1 = [match_terms_need(n, *sel_rows, torch), match_terms_need(n, *pref_rows, torch)]
     need1 = (sum(x[0] for x in b1), sum(x[1] for x in b1))
     need2 = class_statics_need(cluster, pods, reps, torch)
-    need3 = greedy_scan_need(cluster, pods, statics[0], out[2], features, torch, sp_args)
+    need3 = greedy_scan_need(cluster, pods, statics[0], out[2], features, torch, sp_args,
+                             tm_args, extra, out[0])
     for name, err, ms, pms, need in (
         ("match_terms", err1, k1_ms, p1_ms, need1),
         ("class_statics", err2, k2_ms, p2_ms, need2),

@@ -76,7 +76,7 @@ def main() -> int:
         sched.assume(pod, name)
     snap, meta = sched.encode_pending(
         chip_smoke.make_pods(wrappers, chip_smoke.MAIN[2], "measured"))
-    cluster, pods, sfeas, aff, taint, _sp = assign._solver_prep(snap, meta.features)
+    cluster, pods, sfeas, aff, taint = assign._solver_prep(snap, meta.features)[:5]
     order = assign.solve_order(pods)
     args = (cluster, pods, sfeas, aff, taint, order, meta.features, meta.n_groups,
             sched.score_config)

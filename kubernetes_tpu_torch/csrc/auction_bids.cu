@@ -3,9 +3,12 @@
 // Replaces: kubernetes_tpu/ops/auction.py:355-478 `bids` inside
 // `auction_assign` (auction.py:140) — per spec class the resource fit and
 // the fit / balanced score rows (`per_spec`), per constraint class the
-// spread filter row (`spf_k`, topology.py:121), per joint class the combine
-// with the affinity and taint rows and the soft spread score
-// (topology.py:153; auction.py:372-425), the best score, the tie set, its
+// spread filter row (`spf_k`, topology.py:121) and the inter-pod filter row
+// (`ipf_k`, interpod.py:156; auction.py:396-409), per joint class the
+// combine with the affinity and taint rows, the soft spread score
+// (topology.py:153) and the joint class's hoisted extra row (`joint_extra`,
+// auction.py:303-318, built once by kernel class_extras;
+// auction.py:372-425), the best score, the tie set, its
 // hashed (key desc, index asc) top list of cnt = min(#ties, tie_k) nodes
 // (`per_class`, auction.py:403-454), then per pod the within-class
 // position j among active pods in solve order and its slot, bid and value
@@ -23,8 +26,9 @@
 // (state[1], written by the previous round's auction_accept) is down.
 //   class_pass  one 1,024-thread block per joint class (grid-strided): the
 //               scan's block-wide evaluation (solve_common.cuh `block_eval`,
-//               with the spread rows of the class's constraint-class
-//               representative against the round's counts) writes the
+//               with the spread rows and term words of the class's
+//               constraint-class representative against the round's counts
+//               and bits, and the class's extra row) writes the
 //               class's masked score row and its best; a pass
 //               over the ties counts them and histograms the top 12 bits of
 //               their 30-bit keys (4,096 buckets in shared memory); a
@@ -88,6 +92,8 @@ __global__ void __launch_bounds__(kThreads, 1) class_pass_kernel(
     const int32_t* __restrict__ state,
     int cc_dim, const int32_t* __restrict__ k_reps,  // [Cc] constraint-class reps
     const int32_t* __restrict__ jcons, Spread sp,     // [C]; counts read only
+    Terms tm,                                         // bits read only
+    const float* __restrict__ extra,                  // [C, N] or null
     int32_t* inv_c, int32_t* cnt_c, float* best_c,   // [C, tie_k], [C], [C]
     float* scratch_masked, int32_t* scratch_idx)     // [grid, N] each
 {
@@ -97,6 +103,7 @@ __global__ void __launch_bounds__(kThreads, 1) class_pass_kernel(
     __shared__ float s_req[kMaxR], s_nz[kMaxR];
     __shared__ Scratch sc;
     __shared__ PodSpread ps;
+    __shared__ PodTerms pt;
     __shared__ int s_fill[kBuckets];   // histogram, then each bucket's fill pointer
     __shared__ int s_start[kBuckets];  // first rank of each bucket
     __shared__ int s_warp_sum[kMaxWarps];
@@ -117,13 +124,17 @@ __global__ void __launch_bounds__(kThreads, 1) class_pass_kernel(
         for (int b = tid; b < kBuckets; b += kThreads) s_fill[b] = 0;
         __syncthreads();
         // the constraint class's representative carries the joint class's
-        // spread rows and match flags (the encoder's constraint signature)
-        if (sp.on) block_spread_pod(sp, n, k_reps[min(max(jcons[c], 0), cc_dim - 1)], ps, sc);
+        // spread rows, terms and match flags (the encoder's constraint
+        // signature)
+        const int k_rep = k_reps[min(max(jcons[c], 0), cc_dim - 1)];
+        if (sp.on) block_spread_pod(sp, n, k_rep, ps, sc);
+        if (tm.on) block_interpod_pod(tm, k_rep, pt);
 
         const Eval ev = block_eval(
             n, r, 0, false, alloc, requested, nonzero, nullptr,
             sfeas_s + (size_t)s * n, aff_s + (size_t)s * n, taint_s + (size_t)s * n,
-            s_req, s_nz, nullptr, sp, ps, cfg, sc, mrow);
+            s_req, s_nz, nullptr, sp, ps, tm, pt,
+            extra != nullptr ? extra + (size_t)c * n : nullptr, cfg, sc, mrow);
         const float best = ev.best;
         const uint32_t rot = (((uint32_t)c * kGolden) ^ (rnd * kRound) ^ kSeedC) * kMix;
 
@@ -264,15 +275,27 @@ extern "C" int auction_bids_launch(
     const void* sp_pod_matches, const void* sp_max_skew, const void* sp_min_domains,
     const void* sp_hard, const void* sp_eligible, const void* sp_v, const void* sp_sizes,
     const void* sp_counts,
+    int tm_on, int tm_w, int tm_u, int tm_p, int tm_cw, const void* tm_key_bits,
+    const void* tm_slot_v, const void* tm_mi_slot, const void* tm_anti_slot,
+    const void* tm_aff_bits, const void* tm_anti_bits, const void* tm_self_match,
+    const void* tm_present, const void* tm_blocked, const void* tm_global_any,
+    const void* tm_writes, const void* tm_reads, const void* extra,
     void* inv_c, void* cnt_c, void* best_c,
     void* scratch_masked, void* scratch_idx, void* bid, void* val, void* stream)
 {
     if (r > kMaxR || tie_k < 1 || grid < 1 || cc_dim < 1) return (int)cudaErrorInvalidValue;
     if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1)) return (int)cudaErrorInvalidValue;
+    if (tm_on && (tm_w < 1 || tm_w > kMaxTW || tm_u < 1 || tm_p != p)) {
+        return (int)cudaErrorInvalidValue;
+    }
     if (p == 0 || n == 0 || c_dim == 0) return 0;
     const Spread sp = make_spread(sp_on, sp_soft, sp_c, sp_mc, sp_pod_idx, sp_pod_matches,
                                   sp_max_skew, sp_min_domains, sp_hard, sp_eligible, sp_v,
                                   sp_sizes, (void*)sp_counts);
+    const Terms tm = make_terms(tm_on, tm_w, tm_u, tm_p, tm_key_bits, tm_slot_v, tm_mi_slot,
+                                tm_anti_slot, tm_aff_bits, tm_anti_bits, tm_self_match,
+                                (void*)tm_present, (void*)tm_blocked, (void*)tm_global_any,
+                                tm_cw, tm_writes, tm_reads);
     cudaStream_t s = (cudaStream_t)stream;
     class_pass_kernel<<<grid, kThreads, 0, s>>>(
         n, r, c_dim, cs_dim, tie_k, (const float*)alloc,
@@ -280,7 +303,7 @@ extern "C" int auction_bids_launch(
         (const float*)aff_s, (const float*)taint_s, (const int32_t*)s_reps,
         (const int32_t*)jspec, (const float*)pod_req, (const float*)pod_nz,
         (const int32_t*)iparams, (const float*)fparams, (const int32_t*)state,
-        cc_dim, (const int32_t*)k_reps, (const int32_t*)jcons, sp,
+        cc_dim, (const int32_t*)k_reps, (const int32_t*)jcons, sp, tm, (const float*)extra,
         (int32_t*)inv_c, (int32_t*)cnt_c, (float*)best_c, (float*)scratch_masked,
         (int32_t*)scratch_idx);
     const cudaError_t err = cudaGetLastError();

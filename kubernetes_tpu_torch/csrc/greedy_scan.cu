@@ -3,11 +3,13 @@
 // Replaces: kubernetes_tpu/ops/assign.py:591 `greedy_assign` — the lax.scan
 // over pods in solve order of `_eval_pod` (assign.py:374: class statics,
 // `fits_resources`, in-batch ports, `spread_filter` / `spread_score`,
-// topology.py:121/153), the scores (`least_allocated`, `most_allocated`,
-// `requested_to_capacity_ratio`, `balanced_allocation`, `normalize`,
-// `combine_scores`, scores.py), `_pick` (first-max-index, assign.py:358)
-// and the assume carry update (with `spread_update`, topology.py:201),
-// followed by the `_gang_release` epilogue (assign.py:558).
+// topology.py:121/153, `interpod_filter`, interpod.py:156), the scores
+// (`least_allocated`, `most_allocated`, `requested_to_capacity_ratio`,
+// `balanced_allocation`, `normalize`, `combine_scores` with the class's
+// hoisted extra row, scores.py), `_pick` (first-max-index, assign.py:358)
+// and the assume carry update (with `spread_update`, topology.py:201, and
+// `interpod_update`, interpod.py:182), followed by the `_gang_release`
+// epilogue (assign.py:558), which leaves the term bits as they are.
 //
 // Bound on this card: latency of the sequential chain.  Pod k+1 must see
 // pod k's placement, so the P steps run one after another; each step is
@@ -23,7 +25,7 @@
 //   pass 0  with the spread family, one block min over N per hard row of
 //           the pod (its critical-path minimum);
 //   pass 1  strided over N: static row, resource fit, in-batch ports, hard
-//           spread rows; block
+//           spread rows, the inter-pod bit checks; block
 //           reduction of the stage anys (s_any, a_res, a_ports), the
 //           feasible count and the two normalisation maxima over feasible
 //           nodes (0-floored, scores.py:191);
@@ -33,8 +35,9 @@
 //   then thread 0 writes the pod's outputs and threads 0..R / 0..PW add the
 //           winner's requests and ports to its rows in place, and the block
 //           adds one to every spread row the pod matches at the nodes that
-//           share the winner's value, before the closing barrier makes them
-//           visible to the next step.
+//           share the winner's value and ORs the pod's term bits into the
+//           nodes that share the winner's value in each term slot, before
+//           the closing barrier makes them visible to the next step.
 // Host ports are checked against one carried port table that starts as the
 // bound pods' claims: a node whose bound claims conflict is already outside
 // the class's static row, so the test equals the reference's in-batch-only
@@ -78,6 +81,8 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     const int32_t* __restrict__ iparams,
     const float* __restrict__ fparams,
     Spread sp,                              // counts: the carry, in place
+    Terms tm,                               // bits: the carry, in place
+    const float* __restrict__ extra,        // [C, N] extra score rows, or null
     int32_t* assignment, float* scores, int32_t* feas_counts, int32_t* reasons,
     int32_t* incomplete)                    // [max(G, 1)] zeroed scratch
 {
@@ -86,6 +91,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     __shared__ uint32_t s_ports[kMaxPW];
     __shared__ Scratch sc;
     __shared__ PodSpread ps;
+    __shared__ PodTerms pt;
 
     const int tid = threadIdx.x;
     if (tid == 0) load_config(cfg, iparams, fparams);
@@ -102,11 +108,13 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
         }
         __syncthreads();
         if (sp.on) block_spread_pod(sp, n, i, ps, sc);
+        if (tm.on) block_interpod_pod(tm, i, pt);
 
         const Eval ev = block_eval(
             n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
             sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-            s_req, s_nz, s_ports, sp, ps, cfg, sc, nullptr);
+            s_req, s_nz, s_ports, sp, ps, tm, pt,
+            extra != nullptr ? extra + (size_t)c * n : nullptr, cfg, sc, nullptr);
 
         const int choice = ev.choice;
         if (tid == 0) {
@@ -124,6 +132,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
                 for (int t = tid; t < pw; t += kThreads) ports[(size_t)choice * pw + t] |= s_ports[t];
             }
             if (sp.on) block_spread_update(sp, n, i, choice);
+            if (tm.on) block_interpod_update(tm, n, i, choice);
         }
         __syncthreads();
     }
@@ -147,6 +156,7 @@ extern "C" int greedy_scan_limits(int which)
         case 4: return kIpCount;
         case 5: return kFpCount;
         case 6: return kMaxMC;
+        case 7: return kMaxTW;
         default: return -1;
     }
 }
@@ -162,14 +172,26 @@ extern "C" int greedy_scan_launch(
     const void* sp_pod_matches, const void* sp_max_skew, const void* sp_min_domains,
     const void* sp_hard, const void* sp_eligible, const void* sp_v, const void* sp_sizes,
     void* sp_counts,
+    int tm_on, int tm_w, int tm_u, int tm_p, int tm_cw, const void* tm_key_bits,
+    const void* tm_slot_v, const void* tm_mi_slot, const void* tm_anti_slot,
+    const void* tm_aff_bits, const void* tm_anti_bits, const void* tm_self_match,
+    void* tm_present, void* tm_blocked, void* tm_global_any, const void* tm_writes,
+    const void* tm_reads, const void* extra,
     void* assignment, void* scores, void* feas_counts, void* reasons,
     void* incomplete, void* stream)
 {
     if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1)) return (int)cudaErrorInvalidValue;
+    if (tm_on && (tm_w < 1 || tm_w > kMaxTW || tm_u < 1 || tm_p != p)) {
+        return (int)cudaErrorInvalidValue;
+    }
     if (p == 0) return 0;
     const Spread sp = make_spread(sp_on, sp_soft, sp_c, sp_mc, sp_pod_idx, sp_pod_matches,
                                   sp_max_skew, sp_min_domains, sp_hard, sp_eligible, sp_v,
                                   sp_sizes, sp_counts);
+    const Terms tm = make_terms(tm_on, tm_w, tm_u, tm_p, tm_key_bits, tm_slot_v, tm_mi_slot,
+                                tm_anti_slot, tm_aff_bits, tm_anti_bits, tm_self_match,
+                                tm_present, tm_blocked, tm_global_any, tm_cw, tm_writes,
+                                tm_reads);
     greedy_scan_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
         n, r, p, c_dim, pw, use_ports, n_groups,
         (const float*)alloc, (float*)requested, (float*)nonzero,
@@ -178,7 +200,7 @@ extern "C" int greedy_scan_launch(
         (const uint8_t*)pod_valid, (const int32_t*)group_id,
         (const float*)pod_req, (const float*)pod_nz,
         (const uint32_t*)pod_ports, (const int32_t*)iparams,
-        (const float*)fparams, sp, (int32_t*)assignment, (float*)scores,
+        (const float*)fparams, sp, tm, (const float*)extra, (int32_t*)assignment, (float*)scores,
         (int32_t*)feas_counts, (int32_t*)reasons, (int32_t*)incomplete);
     return (int)cudaGetLastError();
 }

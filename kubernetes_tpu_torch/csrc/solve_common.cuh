@@ -1,8 +1,11 @@
 // Device code shared by the three solves (greedy_scan.cu, wavefront.cu,
 // auction_bids.cu): the score parameter block, the per-node filter and
-// score functions, the PodTopologySpread family (ops/topology.py) and the
-// block-wide evaluation of one pod, so every solve evaluates a pod with
-// one body.
+// score functions, the PodTopologySpread family (ops/topology.py), the
+// required InterPodAffinity family (ops/interpod.py: the three bitset
+// checks and the carry update) and the block-wide evaluation of one pod,
+// so every solve evaluates a pod with one body.  The hoisted extra score
+// row of a class (preferred inter-pod affinity and ImageLocality, kernel
+// class_extras) is added after the spread term.
 //
 // Numerics: every score is a floor of IEEE float32 operations in the
 // reference package's order (__fadd_rn / __fmul_rn / __fdiv_rn /
@@ -38,9 +41,11 @@ constexpr int kReasonStatic = 0;
 constexpr int kReasonResources = 1;
 constexpr int kReasonPorts = 2;
 constexpr int kReasonSpread = 3;
+constexpr int kReasonInterpod = 4;
 constexpr int kReasonGang = 5;
 
 constexpr int kMaxMC = 8;        // spread constraints per pod
+constexpr int kMaxTW = 32;       // inter-pod term words (1,024 terms)
 constexpr float kBig = 1e9f;     // ops/topology.py _BIG
 
 // integer parameter block (iparams), filled by bindings.score_params
@@ -285,7 +290,8 @@ struct PodSpread {
 };
 
 struct Step {
-    int flags;      // bit 0 s_any, bit 1 a_res, bit 2 a_ports, bit 3 passes every filter
+    int flags;      // bit 0 s_any, bit 1 a_res, bit 2 a_ports, bit 3 a_spread,
+                    // bit 4 passes every filter
     int count;      // feasible nodes
     float max_aff;  // normalisation maxima over feasible nodes, 0-floored
     float max_taint;
@@ -489,6 +495,133 @@ __device__ inline void block_spread_update(const Spread& sp, int n, int i, int c
     }
 }
 
+// ---- InterPodAffinity, required terms (ops/interpod.py) -------------------
+
+// The inter-pod family's tables for a solve (the three bitsets are the
+// carry, null when the family is off).  Words are the int32 views of the
+// reference's u32 bitsets, read here as uint32_t.  Built by make_terms.
+struct Terms {
+    int on, w, u, p;             // family on; words a row; used slots; pod axis
+    const uint32_t* key_bits;    // [N, W] the node has term t's topology key
+    const int32_t* slot_v;       // [U, N] node values of each used slot
+    const uint32_t* mi_slot;     // [U, P, W] terms the pod matches, by slot
+    const uint32_t* anti_slot;   // [U, P, W] the pod's anti terms, by slot
+    const uint32_t* aff_bits;    // [P, W] the pod's affinity terms
+    const uint32_t* anti_bits;   // [P, W] the pod's anti terms
+    const uint8_t* self_match;   // [P] the pod matches all its affinity terms
+    uint32_t* present;           // [N, W] carry
+    uint32_t* blocked;           // [N, W] carry
+    uint32_t* global_any;        // [W] carry
+    int cw;                      // words of the wave-safety rows (wavefront)
+    const uint32_t* writes;      // [P, CW] terms a placement writes
+    const uint32_t* reads;       // [P, CW] terms an evaluation reads
+};
+
+inline Terms make_terms(int on, int w, int u, int p, const void* key_bits,
+                        const void* slot_v, const void* mi_slot, const void* anti_slot,
+                        const void* aff_bits, const void* anti_bits, const void* self_match,
+                        void* present, void* blocked, void* global_any, int cw,
+                        const void* writes, const void* reads)
+{
+    Terms tm;
+    tm.on = on;
+    tm.w = w;
+    tm.u = u;
+    tm.p = p;
+    tm.key_bits = (const uint32_t*)key_bits;
+    tm.slot_v = (const int32_t*)slot_v;
+    tm.mi_slot = (const uint32_t*)mi_slot;
+    tm.anti_slot = (const uint32_t*)anti_slot;
+    tm.aff_bits = (const uint32_t*)aff_bits;
+    tm.anti_bits = (const uint32_t*)anti_bits;
+    tm.self_match = (const uint8_t*)self_match;
+    tm.present = (uint32_t*)present;
+    tm.blocked = (uint32_t*)blocked;
+    tm.global_any = (uint32_t*)global_any;
+    tm.cw = cw;
+    tm.writes = (const uint32_t*)writes;
+    tm.reads = (const uint32_t*)reads;
+    return tm;
+}
+
+// One pod's term words, in shared memory (block_interpod_pod).
+struct PodTerms {
+    int any_aff;             // the pod has an affinity term
+    int fallback;            // first-pod escape: no affinity term matched
+                             // anywhere, and the pod matches them all
+    uint32_t mi[kMaxTW];     // terms the pod matches (every used slot)
+    uint32_t anti[kMaxTW];   // its anti terms
+    uint32_t aff[kMaxTW];    // its affinity terms
+};
+
+// Fill `pt` (shared) with pod i's words against the current global bits.
+// Every thread of the block calls it.
+__device__ inline void block_interpod_pod(const Terms& tm, int i, PodTerms& pt)
+{
+    if (threadIdx.x == 0) {
+        int any_aff = 0, none_anywhere = 1;
+        for (int w = 0; w < tm.w; ++w) {
+            uint32_t mi = 0u;
+            for (int j = 0; j < tm.u; ++j) mi |= tm.mi_slot[((size_t)j * tm.p + i) * tm.w + w];
+            const uint32_t aff = tm.aff_bits[(size_t)i * tm.w + w];
+            pt.mi[w] = mi;
+            pt.anti[w] = tm.anti_bits[(size_t)i * tm.w + w];
+            pt.aff[w] = aff;
+            any_aff |= aff != 0u;
+            if (aff & tm.global_any[w]) none_anywhere = 0;
+        }
+        pt.any_aff = any_aff;
+        pt.fallback = none_anywhere && tm.self_match[i];
+    }
+    __syncthreads();
+}
+
+// interpod_filter at node nd: no existing pod's anti term matches the pod,
+// none of the pod's anti terms matches an existing pod, and every affinity
+// term is present with the node's keys (or the first-pod escape holds).
+__device__ __forceinline__ bool interpod_ok(const Terms& tm, const PodTerms& pt, int nd)
+{
+    const uint32_t* pr = tm.present + (size_t)nd * tm.w;
+    const uint32_t* bl = tm.blocked + (size_t)nd * tm.w;
+    const uint32_t* kb = tm.key_bits + (size_t)nd * tm.w;
+    bool all_here = true, keys_ok = true;
+    for (int w = 0; w < tm.w; ++w) {
+        if ((bl[w] & pt.mi[w]) || (pr[w] & pt.anti[w])) return false;
+        all_here &= (pt.aff[w] & ~pr[w]) == 0u;
+        keys_ok &= (pt.aff[w] & ~kb[w]) == 0u;
+    }
+    return !pt.any_aff || (keys_ok && (all_here || pt.fallback));
+}
+
+// Account pod i placed on node `choice` (interpod_update): per used slot,
+// the terms it matches turn present on every node sharing the node's value
+// in that slot (and global), its anti terms blocked.  Block-wide; each
+// thread writes its own node rows, thread 0 the global word; the caller
+// synchronises after it.
+__device__ inline void block_interpod_update(const Terms& tm, int n, int i, int choice)
+{
+    for (int j = 0; j < tm.u; ++j) {
+        const int32_t* sv = tm.slot_v + (size_t)j * n;
+        const int ta = sv[choice];
+        if (ta < 0) continue;
+        const uint32_t* mi = tm.mi_slot + ((size_t)j * tm.p + i) * tm.w;
+        const uint32_t* an = tm.anti_slot + ((size_t)j * tm.p + i) * tm.w;
+        bool any = false;
+        for (int w = 0; w < tm.w; ++w) any |= (mi[w] | an[w]) != 0u;
+        if (!any) continue;  // uniform across the block
+        for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
+            if (sv[nd] != ta) continue;
+            for (int w = 0; w < tm.w; ++w) {
+                tm.present[(size_t)nd * tm.w + w] |= mi[w];
+                tm.blocked[(size_t)nd * tm.w + w] |= an[w];
+            }
+        }
+        if (threadIdx.x == 0) {
+            for (int w = 0; w < tm.w; ++w) tm.global_any[w] |= mi[w];
+        }
+    }
+}
+
 // What one pod's evaluation against the carry gives every thread.
 struct Eval {
     Step all;     // stage flags, feasible count, normalisation maxima
@@ -500,20 +633,21 @@ struct Eval {
 
 // The scan's step for one pod, block-wide (ops/assign.py `_eval_pod` +
 // `_pick`): pass 1 over N for the filters in the reference's stage order
-// (static, resources, ports, spread), the stage anys, the feasible count,
-// the normalisation maxima and the spread score's raw max / min over
-// scored nodes; pass 2 for the scores of feasible nodes and the
+// (static, resources, ports, spread, inter-pod), the stage anys, the
+// feasible count, the normalisation maxima and the spread score's raw max
+// / min over scored nodes; pass 2 for the scores of feasible nodes and the
 // first-index argmax.  With `masked` non-null, pass 2 also writes every
 // node's masked score (-inf where infeasible).  pod_req, pod_nz and
 // pod_ports may point to shared memory; `ps` is the pod's block_spread_pod
-// (read only when sp.on).
+// (read only when sp.on), `pt` its block_interpod_pod (read only when
+// tm.on); `erow` is the class's extra score row, or null.
 __device__ inline Eval block_eval(
     int n, int r, int pw, bool use_ports,
     const float* alloc, const float* requested, const float* nonzero, const uint32_t* ports,
     const uint8_t* srow, const float* arow, const float* trow,
     const float* pod_req, const float* pod_nz, const uint32_t* pod_ports,
-    const Spread& sp, const PodSpread& ps,
-    const Config& cfg, Scratch& sc, float* masked)
+    const Spread& sp, const PodSpread& ps, const Terms& tm, const PodTerms& pt,
+    const float* erow, const Config& cfg, Scratch& sc, float* masked)
 {
     const bool sp_hard = sp.on && ps.any_hard;
     const bool sp_soft = sp.on && sp.soft_on && ps.any_soft;
@@ -527,6 +661,8 @@ __device__ inline Eval block_eval(
         st.flags |= 4;
         if (sp_hard && !spread_ok(sp, ps, n, nd)) continue;
         st.flags |= 8;
+        if (tm.on && !interpod_ok(tm, pt, nd)) continue;
+        st.flags |= 16;
         st.count += 1;
         st.max_aff = fmaxf(st.max_aff, arow[nd]);
         st.max_taint = fmaxf(st.max_taint, trow[nd]);
@@ -541,7 +677,7 @@ __device__ inline Eval block_eval(
     }
     Eval ev;
     ev.all = block_reduce_step(st, sc);
-    ev.found = (ev.all.flags & 8) != 0;
+    ev.found = (ev.all.flags & 16) != 0;
     const float mx = ev.all.sp_mx, mn = ev.all.sp_mn;
 
     float best = -INFINITY;
@@ -553,7 +689,8 @@ __device__ inline Eval block_eval(
             const float* rq = requested + (size_t)nd * r;
             if (srow[nd] && node_fits(rq, cap, pod_req, r)
                 && !(use_ports && ports_clash(ports + (size_t)nd * pw, pod_ports, pw))
-                && !(sp_hard && !spread_ok(sp, ps, n, nd))) {
+                && !(sp_hard && !spread_ok(sp, ps, n, nd))
+                && !(tm.on && !interpod_ok(tm, pt, nd))) {
                 const float fit_s = fit_score(cap, nonzero + (size_t)nd * r, pod_nz, cfg);
                 const float bal_s = balanced_score(cap, rq, pod_req, cfg);
                 total = node_total(fit_s, bal_s, arow[nd], trow[nd],
@@ -573,6 +710,7 @@ __device__ inline Eval block_eval(
                     }
                     total = add(total, mul(cfg.spread_weight, s));
                 }
+                if (erow != nullptr) total = add(total, erow[nd]);
                 if (total > best) { best = total; best_idx = nd; }
             }
             if (masked != nullptr) masked[nd] = total;
@@ -585,7 +723,8 @@ __device__ inline Eval block_eval(
         : !(ev.all.flags & 1) ? kReasonStatic
         : !(ev.all.flags & 2) ? kReasonResources
         : !(ev.all.flags & 4) ? kReasonPorts
-        : kReasonSpread;
+        : !(ev.all.flags & 8) ? kReasonSpread
+        : kReasonInterpod;
     return ev;
 }
 

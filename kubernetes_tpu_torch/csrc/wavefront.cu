@@ -3,13 +3,15 @@
 // Replaces: kubernetes_tpu/ops/assign.py:1090 `wavefront_assign` — the
 // lax.scan over waves of the batched [K, N] member evaluation against the
 // wave-start carry (`_eval_pod`, assign.py:374, with the spread filter and
-// score of topology.py:121/153), the top-(K+1) candidate lists (:1263),
-// `wave_safe` (:1188, ports and the spread rows of :1182-1203), the O(K)
-// mini-scan with its `cheap` closed-form correction (:1328-1377) and `full`
-// re-evaluation on a fit flip (:1305-1326), the deferred port and spread
-// commits (:1406-1431), the `serial` fallback for coupled waves
-// (:1450-1521, with `spread_update` per member), the wave telemetry and the
-// `_gang_release` epilogue (:558).  The wave plan itself is host numpy
+// score of topology.py:121/153, the inter-pod filter of interpod.py:156 and
+// the class's hoisted extra row), the top-(K+1) candidate lists (:1263),
+// `wave_safe` (:1188, ports, the spread rows of :1182-1203 and the term
+// rows of :1173-1180, :1204-1208), the O(K) mini-scan with its `cheap`
+// closed-form correction (:1328-1377) and `full` re-evaluation on a fit
+// flip (:1305-1326), the deferred port, spread and term commits
+// (:1406-1446), the `serial` fallback for coupled waves (:1450-1521, with
+// `spread_update` and `interpod_update` per member), the wave telemetry
+// and the `_gang_release` epilogue (:558).  The wave plan itself is host numpy
 // (`plan_waves`), as in the reference.
 //
 // Bound on this card: latency of the chain of waves.  Wave w+1 must see
@@ -28,24 +30,26 @@
 //               argmax over the entries after the previous pick, giving the
 //               top list in (score desc, index asc) order — lax.top_k's
 //               order, with no sort;
-//   wave_step   one block of 1024 threads: the coupling check (a host port
-//               or a spread row one member writes and a later one reads), then
+//   wave_step   one block of 1024 threads: the coupling check (a host port,
+//               a spread row or a term one member writes and a later one
+//               reads), then
 //               either the mini-scan (one warp corrects the wave-start
 //               scores at nodes picked earlier in the wave, thread 0 picks
 //               between them and the best unpicked top-list entry; a fit
 //               flip at a picked node re-evaluates the member block-wide
 //               against the live carry) and the deferred port commit, or
 //               the serial fallback (the scan's step per member).  A safe
-//               wave's spread counts are committed after its mini-scan (no
-//               member read what another wrote).  It adds the wave and its
-//               fallbacks to two device counters.
+//               wave's spread counts and term bits are committed after its
+//               mini-scan (no member read what another wrote).  It adds the
+//               wave and its fallbacks to two device counters.
 // A last single-block launch releases incomplete gangs.  One host call
 // enqueues all of it.  The carry (requested, nonzero, ports) is the
 // caller's copy, updated in place (the spread counts too); the port table
 // starts as the bound claims (a node whose bound claims conflict is
 // already outside the class's static row, so the test equals the
 // reference's in-batch carry).  Spread members couple through their
-// counts, so the planner gives them waves of one.
+// counts and inter-pod members through their term bits, so the planner
+// gives them waves of one.
 
 #include "solve_common.cuh"
 
@@ -68,6 +72,8 @@ __global__ void __launch_bounds__(kEvalThreads) wave_eval_kernel(
     const uint32_t* __restrict__ pod_ports,
     const int32_t* __restrict__ iparams, const float* __restrict__ fparams,
     Spread sp,                              // counts read only
+    Terms tm,                               // bits read only
+    const float* __restrict__ extra,        // [C, N] or null
     float* masked,                          // [K, N]
     float* topv, int32_t* topi,             // [K, kk]
     int32_t* found_k, int32_t* reason_k, int32_t* cnt_k)  // [K]
@@ -77,6 +83,7 @@ __global__ void __launch_bounds__(kEvalThreads) wave_eval_kernel(
     __shared__ uint32_t s_ports[kMaxPW];
     __shared__ Scratch sc;
     __shared__ PodSpread ps;
+    __shared__ PodTerms pt;
 
     const int j = blockIdx.x;
     const int i = row[j];
@@ -95,10 +102,12 @@ __global__ void __launch_bounds__(kEvalThreads) wave_eval_kernel(
     const int c = min(max(class_id[i], 0), c_dim - 1);
     float* mrow = masked + (size_t)j * n;
     if (sp.on) block_spread_pod(sp, n, i, ps, sc);
+    if (tm.on) block_interpod_pod(tm, i, pt);
     const Eval ev = block_eval(
         n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
         sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-        s_req, s_nz, s_ports, sp, ps, cfg, sc, mrow);
+        s_req, s_nz, s_ports, sp, ps, tm, pt,
+        extra != nullptr ? extra + (size_t)c * n : nullptr, cfg, sc, mrow);
     if (tid == 0) {
         found_k[j] = ev.found ? 1 : 0;
         reason_k[j] = ev.reason;
@@ -148,6 +157,8 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
     const uint32_t* __restrict__ pod_ports,
     const int32_t* __restrict__ iparams, const float* __restrict__ fparams,
     Spread sp,                              // counts: the carry, in place
+    Terms tm,                               // bits: the carry, in place
+    const float* __restrict__ extra,        // [C, N] or null
     const float* masked, const float* topv, const int32_t* topi,
     const int32_t* found_k, const int32_t* reason_k, const int32_t* cnt_k,
     int32_t* assignment, float* scores, int32_t* feas_counts, int32_t* reasons,
@@ -158,6 +169,7 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
     __shared__ uint32_t s_ports[kMaxPW];
     __shared__ Scratch sc;
     __shared__ PodSpread ps;
+    __shared__ PodTerms pt;
     __shared__ int s_mem[kMaxK];
     __shared__ int s_pick[kMaxK];              // node member j took in this wave, -1 none
     __shared__ float s_r0[kMaxK][kMaxR];       // wave-start requested row of s_pick[j]
@@ -180,8 +192,9 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
     if (live == 0) return;  // an all-padding row is skipped, not counted
 
     // wave_safe: no member claims a host port that a later member claims,
-    // and no member matches a spread row that a later member's constraints
-    // read
+    // no member matches a spread row that a later member's constraints
+    // read, and no member writes a term (matched, or carried as
+    // anti-affinity) that a later member's terms read
     int clash = 0;
     if (use_ports) {
         const int total = k_dim * k_dim * pw;
@@ -207,6 +220,17 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
             }
         }
     }
+    if (tm.on) {
+        const int total = k_dim * k_dim * tm.cw;
+        for (int t = tid; t < total; t += blockDim.x) {
+            const int w = t % tm.cw, ab = t / tm.cw, a = ab / k_dim, b = ab % k_dim;
+            const int ia = s_mem[a], ib = s_mem[b];
+            if (a < b && ia >= 0 && ib >= 0
+                && (tm.writes[(size_t)ia * tm.cw + w] & tm.reads[(size_t)ib * tm.cw + w]) != 0u) {
+                clash = 1;
+            }
+        }
+    }
     const bool safe = !__syncthreads_or(clash);
 
     if (!safe) {
@@ -218,10 +242,12 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
             __syncthreads();
             const int c = min(max(class_id[i], 0), c_dim - 1);
             if (sp.on) block_spread_pod(sp, n, i, ps, sc);
+            if (tm.on) block_interpod_pod(tm, i, pt);
             const Eval ev = block_eval(
                 n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
                 sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-                s_req, s_nz, s_ports, sp, ps, cfg, sc, nullptr);
+                s_req, s_nz, s_ports, sp, ps, tm, pt,
+                extra != nullptr ? extra + (size_t)c * n : nullptr, cfg, sc, nullptr);
             if (tid == 0) {
                 assignment[i] = ev.found ? ev.choice : -1;
                 scores[i] = ev.best;
@@ -238,6 +264,7 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
                     for (int t = tid; t < pw; t += blockDim.x) ports[(size_t)nd * pw + t] |= s_ports[t];
                 }
                 if (sp.on) block_spread_update(sp, n, i, nd);
+                if (tm.on) block_interpod_update(tm, n, i, nd);
             }
             __syncthreads();
         }
@@ -266,14 +293,16 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
             flip = sfeas[(size_t)c * n + nd] && (f0 != fc) ? 1 : 0;
         }
         if (__syncthreads_or(flip)) {
-            // exact re-evaluation against the live carry (the port table and
-            // the spread counts are still the wave start's, which a safe
-            // wave's members never touch)
+            // exact re-evaluation against the live carry (the port table, the
+            // spread counts and the term bits are still the wave start's,
+            // which a safe wave's members never touch)
             if (sp.on) block_spread_pod(sp, n, i, ps, sc);
+            if (tm.on) block_interpod_pod(tm, i, pt);
             const Eval ev = block_eval(
                 n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
                 sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-                s_req, s_nz, s_ports, sp, ps, cfg, sc, nullptr);
+                s_req, s_nz, s_ports, sp, ps, tm, pt,
+                extra != nullptr ? extra + (size_t)c * n : nullptr, cfg, sc, nullptr);
             if (tid == 0) {
                 s_found = ev.found ? 1 : 0;
                 s_choice = ev.choice;
@@ -362,9 +391,9 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
         }
         __syncthreads();
     }
-    // deferred port and spread commits: no member of a safe wave read these
-    // (each thread adds to the same nodes for every member, so the spread
-    // adds need no barrier between members)
+    // deferred port, spread and term commits: no member of a safe wave read
+    // these (each thread adds to the same nodes for every member, so the
+    // spread adds and the term ORs need no barrier between members)
     if (use_ports) {
         for (int t = tid; t < k_dim * pw; t += blockDim.x) {
             const int j = t / pw, w = t % pw;
@@ -376,6 +405,11 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
     if (sp.on) {
         for (int j = 0; j < k_dim; ++j) {
             if (s_mem[j] >= 0 && s_pick[j] >= 0) block_spread_update(sp, n, s_mem[j], s_pick[j]);
+        }
+    }
+    if (tm.on) {
+        for (int j = 0; j < k_dim; ++j) {
+            if (s_mem[j] >= 0 && s_pick[j] >= 0) block_interpod_update(tm, n, s_mem[j], s_pick[j]);
         }
     }
     if (tid == 0) {
@@ -409,6 +443,11 @@ extern "C" int wavefront_launch(
     const void* sp_pod_matches, const void* sp_max_skew, const void* sp_min_domains,
     const void* sp_hard, const void* sp_eligible, const void* sp_v, const void* sp_sizes,
     void* sp_counts,
+    int tm_on, int tm_w, int tm_u, int tm_p, int tm_cw, const void* tm_key_bits,
+    const void* tm_slot_v, const void* tm_mi_slot, const void* tm_anti_slot,
+    const void* tm_aff_bits, const void* tm_anti_bits, const void* tm_self_match,
+    void* tm_present, void* tm_blocked, void* tm_global_any, const void* tm_writes,
+    const void* tm_reads, const void* extra,
     void* masked, void* topv, void* topi, void* found_k,
     void* reason_k, void* cnt_k, void* assignment, void* scores,
     void* feas_counts, void* reasons, void* counters, void* incomplete,
@@ -416,10 +455,17 @@ extern "C" int wavefront_launch(
 {
     if (k_dim < 1 || k_dim > kMaxK || r > kMaxR || pw > kMaxPW) return (int)cudaErrorInvalidValue;
     if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1)) return (int)cudaErrorInvalidValue;
+    if (tm_on && (tm_w < 1 || tm_w > kMaxTW || tm_u < 1 || tm_p != p || tm_cw < 1)) {
+        return (int)cudaErrorInvalidValue;
+    }
     if (p == 0 || n == 0) return 0;
     const Spread sp = make_spread(sp_on, sp_soft, sp_c, sp_mc, sp_pod_idx, sp_pod_matches,
                                   sp_max_skew, sp_min_domains, sp_hard, sp_eligible, sp_v,
                                   sp_sizes, sp_counts);
+    const Terms tm = make_terms(tm_on, tm_w, tm_u, tm_p, tm_key_bits, tm_slot_v, tm_mi_slot,
+                                tm_anti_slot, tm_aff_bits, tm_anti_bits, tm_self_match,
+                                tm_present, tm_blocked, tm_global_any, tm_cw, tm_writes,
+                                tm_reads);
     const int kk = min(k_dim + 1, n);
     cudaStream_t s = (cudaStream_t)stream;
     for (int w = 0; w < w_rows; ++w) {
@@ -430,7 +476,8 @@ extern "C" int wavefront_launch(
             (const uint8_t*)sfeas, (const float*)aff, (const float*)taint,
             (const int32_t*)class_id, (const float*)pod_req, (const float*)pod_nz,
             (const uint32_t*)pod_ports, (const int32_t*)iparams, (const float*)fparams,
-            sp, (float*)masked, (float*)topv, (int32_t*)topi, (int32_t*)found_k,
+            sp, tm, (const float*)extra, (float*)masked, (float*)topv, (int32_t*)topi,
+            (int32_t*)found_k,
             (int32_t*)reason_k, (int32_t*)cnt_k);
         cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
@@ -440,7 +487,8 @@ extern "C" int wavefront_launch(
             (const uint8_t*)sfeas, (const float*)aff, (const float*)taint,
             (const int32_t*)class_id, (const float*)pod_req, (const float*)pod_nz,
             (const uint32_t*)pod_ports, (const int32_t*)iparams, (const float*)fparams,
-            sp, (const float*)masked, (const float*)topv, (const int32_t*)topi,
+            sp, tm, (const float*)extra, (const float*)masked, (const float*)topv,
+            (const int32_t*)topi,
             (const int32_t*)found_k, (const int32_t*)reason_k, (const int32_t*)cnt_k,
             (int32_t*)assignment, (float*)scores, (int32_t*)feas_counts,
             (int32_t*)reasons, (int32_t*)counters);

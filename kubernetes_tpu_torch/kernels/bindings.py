@@ -5,11 +5,12 @@ allocates the outputs with torch, launches the kernel on torch's current
 stream, raises if the launch returned a CUDA error, and adds one to
 `LAUNCHES[name]` for every call of the kernel's C launch function.  A call
 enqueues the kernel's work for one unit: one table (match_terms), one
-batch (class_statics, greedy_scan, wavefront — the wavefront's call
-enqueues two kernels a wave), one bidding round (auction_bids — two
-kernels; auction_spread — one), one stage of a round (auction_accept: a
-round whole, or with the spread family its acceptance and its commit, one
-call each).  Nothing here synchronises.
+batch (class_statics, class_extras, greedy_scan, wavefront — the
+wavefront's call enqueues two kernels a wave), one bidding round
+(auction_bids — two kernels; auction_spread, auction_interpod — one), one
+stage of a round (auction_accept: a round whole, or with a repair family
+its acceptance and its commit, one call each).  Nothing here
+synchronises.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..ops.assign import term_bits_copy, wave_term_rows
 from . import build
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
@@ -26,27 +28,35 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+_F = ctypes.c_float
+
 # the spread family's launch arguments (_spread_args): 4 ints, 9 pointers
 _SPREAD = [_I] * 4 + [_P] * 9
+# the inter-pod family's (_terms_args): 5 ints, 12 pointers; then the
+# classes' extra score rows (one pointer, null without extras)
+_TERMS = [_I] * 5 + [_P] * 12 + [_P]
 
 _ARGTYPES = {
     "match_terms": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "class_statics": [_I] * 8 + [_P] * 19,
-    "greedy_scan": [_I] * 7 + [_P] * 16 + _SPREAD + [_P] * 6,
-    "wavefront": [_I] * 9 + [_P] * 16 + _SPREAD + [_P] * 13,
-    "auction_bids": [_I] * 7 + [_P] * 17 + [_I, _P, _P] + _SPREAD + [_P] * 8,
+    "greedy_scan": [_I] * 7 + [_P] * 16 + _SPREAD + _TERMS + [_P] * 6,
+    "wavefront": [_I] * 9 + [_P] * 16 + _SPREAD + _TERMS + [_P] * 13,
+    "auction_bids": [_I] * 7 + [_P] * 17 + [_I, _P, _P] + _SPREAD + _TERMS + [_P] * 8,
     "auction_accept": [_I] * 5 + [_P] * 19,
     "auction_spread": [_I] * 5 + [_P] * 20,
+    "auction_interpod": [_I] * 6 + [_P] * 17,
+    "class_extras": [_I] * 6 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
 }
 
 # greedy_scan.cu's static capacities and parameter-block layout
-MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, MAX_MC = 32, 256, 8, 16, 8
+MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, MAX_MC, MAX_TW = 32, 256, 8, 16, 8, 32
 IP_COUNT = 4 + 2 * MAX_FIT
 FP_COUNT = 5 + MAX_FIT + 2 * MAX_SHAPE + 1
 _STRATEGY = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_GRID_Y = 65535
 MAX_WAVE = 32        # wavefront.cu's widest wave
 BIDS_GRID = 132      # auction_bids' class-pass blocks: one an SM, at most
+MAX_MI = 16          # class_extras.cu's images a pod
 
 
 def reset_launches() -> None:
@@ -63,8 +73,8 @@ def _launcher(name: str):
         if name == "greedy_scan":
             limits = getattr(lib, "greedy_scan_limits")
             limits.restype, limits.argtypes = ctypes.c_int, [ctypes.c_int]
-            got = tuple(limits(i) for i in range(7))
-            want = (MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, IP_COUNT, FP_COUNT, MAX_MC)
+            got = tuple(limits(i) for i in range(8))
+            want = (MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, IP_COUNT, FP_COUNT, MAX_MC, MAX_TW)
             if got != want:
                 raise RuntimeError(f"greedy_scan limits {got} != bindings {want}")
         if name == "wavefront":
@@ -72,6 +82,11 @@ def _launcher(name: str):
             max_k.restype, max_k.argtypes = ctypes.c_int, []
             if max_k() != MAX_WAVE:
                 raise RuntimeError(f"wavefront max K {max_k()} != bindings {MAX_WAVE}")
+        if name == "class_extras":
+            max_mi = getattr(lib, "class_extras_limits")
+            max_mi.restype, max_mi.argtypes = ctypes.c_int, []
+            if max_mi() != MAX_MI:
+                raise RuntimeError(f"class_extras max MI {max_mi()} != bindings {MAX_MI}")
     return fn
 
 
@@ -245,12 +260,65 @@ def _spread_args(sp_args, features, dev, n: int, p: int, counts=None):
     return [1, int(features.soft_spread), c_dim, mc] + [_ptr(t) for t in keep], keep
 
 
+def _terms_args(tm_args, features, dev, n: int, p: int, bits=None, rows=None,
+                extra=None, c_dim: int = 0):
+    """The inter-pod family's checked launch arguments ([on, W, U, P, CW] +
+    12 pointers) and the extra rows' pointer, and the tensors they point
+    into.  `bits` is the (present, blocked, global_any) carry the kernel
+    reads (and updates, where it does); `rows` the wavefront's (writes,
+    reads) safety rows; `extra` the f32[C, N] rows or None.  Without the
+    family, zeros and placeholder pointers."""
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    keep = []
+    extra_ptr = ctypes.c_void_p(None)
+    if extra is not None:
+        extra = _arg(extra, f32, dev, "extra")
+        if extra.shape != (c_dim, n):
+            raise ValueError(f"extra rows {tuple(extra.shape)} are not [{c_dim}, {n}]")
+        keep.append(extra)
+        extra_ptr = _ptr(extra)
+    if not features.interpod:
+        pad = torch.zeros(1, dtype=i32, device=dev)
+        return [0, 1, 1, p, 0] + [_ptr(pad)] * 12 + [extra_ptr], keep + [pad]
+    st = tm_args.state
+    tabs = [
+        _arg(st.key_bits, i32, dev, "term key_bits"),
+        _arg(st.slot_v, i32, dev, "term slot_v"),
+        _arg(st.mi_slot_bits, i32, dev, "term mi_slot_bits"),
+        _arg(st.anti_slot_bits, i32, dev, "term anti_slot_bits"),
+        _arg(st.aff_bits, i32, dev, "term aff_bits"),
+        _arg(st.anti_bits, i32, dev, "term anti_bits"),
+        _arg(tm_args.table.self_match_all, b, dev, "terms.self_match_all"),
+    ]
+    for t, what in zip(bits, ("present", "blocked", "global_any")):
+        if t.device != dev or t.dtype != i32 or not t.is_contiguous():
+            raise ValueError(f"term {what}: the carry must be a contiguous {i32} tensor on {dev}")
+    u, w = tabs[1].shape[0], bits[0].shape[1]
+    if rows is None:
+        rows = (bits[2], bits[2])  # placeholders: the wavefront alone reads them
+        cw = 0
+    else:
+        rows = tuple(_arg(t, i32, dev, "wave term rows") for t in rows)
+        cw = rows[0].shape[1]
+    if not 1 <= w <= MAX_TW:
+        raise ValueError(f"the kernels take 1..{MAX_TW} term words, got {w}")
+    if (tabs[0].shape != (n, w) or tabs[1].shape != (u, n) or tabs[2].shape != (u, p, w)
+            or tabs[3].shape != (u, p, w) or tabs[4].shape != (p, w)
+            or tabs[5].shape != (p, w) or tabs[6].shape != (p,)
+            or bits[1].shape != (n, w) or bits[2].shape != (w,)
+            or (cw and (rows[0].shape != (p, cw) or rows[1].shape != (p, cw)))):
+        raise ValueError("term tables do not match the batch's pod and node axes")
+    ptrs = [_ptr(t) for t in tabs + list(bits) + list(rows)]
+    return [1, w, u, p, cw] + ptrs + [extra_ptr], keep + tabs + list(bits) + list(rows)
+
+
 def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
-                n_groups: int, cfg, sp_args=None):
+                n_groups: int, cfg, sp_args=None, tm_args=None, extra_c=None):
     """The whole greedy solve in one launch.  Returns (assignment,
     scores, feasible_counts, reasons, requested, nonzero_requested,
-    port_bits, spread counts or None); the carry tensors are fresh
-    copies."""
+    port_bits, spread counts, inter-pod present, blocked and global_any
+    bits; None for a family the batch does not use); the carry tensors are
+    fresh copies."""
     dev = cluster.allocatable.device
     i32, f32, b = torch.int32, torch.float32, torch.bool
     alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
@@ -281,6 +349,9 @@ def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
     iparams, fparams = score_params(cfg, r, dev)
     counts = sp_args.state.counts_node.clone().contiguous() if features.spread else None
     sp, _keep = _spread_args(sp_args, features, dev, n, p, counts)
+    bits = term_bits_copy(tm_args, features)
+    tm, _keep_tm = _terms_args(tm_args, features, dev, n, p, bits, None, extra_c,
+                               sfeas_c.shape[0])
     assignment = torch.empty(p, dtype=i32, device=dev)
     scores = torch.empty(p, dtype=f32, device=dev)
     feas_counts = torch.empty(p, dtype=i32, device=dev)
@@ -293,20 +364,23 @@ def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
             _ptr(alloc), _ptr(requested), _ptr(nonzero), _ptr(ports),
             _ptr(sfeas_c), _ptr(aff_c), _ptr(taint_c), _ptr(order),
             _ptr(class_id), _ptr(pod_valid), _ptr(group_id), _ptr(pod_req),
-            _ptr(pod_nz), _ptr(pod_ports), _ptr(iparams), _ptr(fparams), *sp,
+            _ptr(pod_nz), _ptr(pod_ports), _ptr(iparams), _ptr(fparams), *sp, *tm,
             _ptr(assignment), _ptr(scores), _ptr(feas_counts), _ptr(reasons),
             _ptr(incomplete),
         )
     return (assignment, scores, feas_counts, reasons, requested, nonzero,
-            ports if use_ports else cluster.port_bits, counts)
+            ports if use_ports else cluster.port_bits, counts, *(bits or (None,) * 3))
 
 
 def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
-              n_groups: int, cfg, sp_args=None):
+              n_groups: int, cfg, sp_args=None, tm_args=None, extra_c=None):
     """The whole wavefront solve in one call (two kernels a wave, then the
     gang release).  Returns (assignment, scores, feasible_counts, reasons,
     requested, nonzero_requested, port_bits, wave_count, wave_fallbacks,
-    spread counts or None); the carry tensors are fresh copies."""
+    spread counts, inter-pod present, blocked and global_any bits; None for
+    a family the batch does not use); the carry tensors are fresh
+    copies."""
+
     dev = cluster.allocatable.device
     i32, f32, b = torch.int32, torch.float32, torch.bool
     alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
@@ -338,6 +412,10 @@ def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
     iparams, fparams = score_params(cfg, r, dev)
     counts = sp_args.state.counts_node.clone().contiguous() if features.spread else None
     sp, _keep = _spread_args(sp_args, features, dev, n, p, counts)
+    bits = term_bits_copy(tm_args, features)
+    rows = wave_term_rows(tm_args.table) if features.interpod else None
+    tm, _keep_tm = _terms_args(tm_args, features, dev, n, p, bits, rows, extra_c,
+                               sfeas_c.shape[0])
     kk = min(k_dim + 1, n)
     masked = torch.empty((k_dim, n), dtype=f32, device=dev)
     topv = torch.empty((k_dim, kk), dtype=f32, device=dev)
@@ -357,14 +435,14 @@ def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
             _ptr(members), _ptr(alloc), _ptr(requested), _ptr(nonzero), _ptr(ports),
             _ptr(sfeas_c), _ptr(aff_c), _ptr(taint_c), _ptr(class_id),
             _ptr(pod_valid), _ptr(group_id), _ptr(pod_req), _ptr(pod_nz),
-            _ptr(pod_ports), _ptr(iparams), _ptr(fparams), *sp, _ptr(masked),
+            _ptr(pod_ports), _ptr(iparams), _ptr(fparams), *sp, *tm, _ptr(masked),
             _ptr(topv), _ptr(topi), _ptr(found_k), _ptr(reason_k), _ptr(cnt_k),
             _ptr(assignment), _ptr(scores), _ptr(feas_counts), _ptr(reasons),
             _ptr(counters), _ptr(incomplete),
         )
     return (assignment, scores, feas_counts, reasons, requested, nonzero,
             ports if use_ports else cluster.port_bits, counters[0], counters[1],
-            counts)
+            counts, *(bits or (None,) * 3))
 
 
 def auction_state(rnd: int, go: bool, device) -> torch.Tensor:
@@ -374,14 +452,14 @@ def auction_state(rnd: int, go: bool, device) -> torch.Tensor:
 
 
 def auction_bids(cluster, pods, st, requested, nonzero, assigned, state,
-                 tie_k: int, cfg, bufs, sp_counts=None):
+                 tie_k: int, cfg, bufs, sp_counts=None, term_bits=None):
     """One bidding round at round state[0], if state[1] is set, into the
     buffers of `auction_buffers`, against the round's spread counts
-    (st.features.spread).  Returns (bid i32[P], val f32[P], (inv_c, cnt_c,
-    best_c)), views of those buffers (left at "no bid" when the flag is
-    down)."""
+    (st.features.spread) and term bits (st.features.interpod).  Returns
+    (bid i32[P], val f32[P], (inv_c, cnt_c, best_c)), views of those
+    buffers (left at "no bid" when the flag is down)."""
     args, _keep = _bids_args(cluster, pods, st, requested, nonzero, assigned,
-                             state, tie_k, cfg, bufs, sp_counts)
+                             state, tie_k, cfg, bufs, sp_counts, term_bits)
     _launch("auction_bids", requested.device, *args)
     return bufs["bid"], bufs["val"], (bufs["inv_c"], bufs["cnt_c"], bufs["best_c"])
 
@@ -398,9 +476,11 @@ def _scan_rows(p: int) -> int:
     return rows
 
 
-def auction_buffers(cluster, pods, tie_k: int, sp_args=None) -> Dict[str, torch.Tensor]:
+def auction_buffers(cluster, pods, tie_k: int, sp_args=None,
+                    tm_args=None) -> Dict[str, torch.Tensor]:
     """Scratch and outputs of the auction kernels, allocated once a
-    batch (with sp_args, auction_spread's too)."""
+    batch (with sp_args, auction_spread's too; with tm_args,
+    auction_interpod's group tables)."""
     dev = cluster.allocatable.device
     i32, f32, u8 = torch.int32, torch.float32, torch.uint8
     n, r = cluster.allocatable.shape
@@ -418,8 +498,19 @@ def auction_buffers(cluster, pods, tie_k: int, sp_args=None) -> Dict[str, torch.
             "cand": torch.empty(p, dtype=u8, device=dev),
             "admit": torch.empty(p, dtype=u8, device=dev),
         }
+    terms = {}
+    if tm_args is not None:
+        groups = tm_args.z * tm_args.table.valid.shape[0]
+        terms = {
+            "minpos": torch.empty(groups, dtype=i32, device=dev),
+            "carrier": torch.empty(groups, dtype=u8, device=dev),
+            "z_mi": torch.empty(groups, dtype=u8, device=dev),
+            "z_an": torch.empty(groups, dtype=u8, device=dev),
+            "release": torch.empty(p, dtype=u8, device=dev),
+        }
     return {
         **spread,
+        **terms,
         "grid": grid,
         "inv_c": torch.zeros((c_dim, tie_k), dtype=i32, device=dev),
         "cnt_c": torch.zeros(c_dim, dtype=i32, device=dev),
@@ -438,7 +529,7 @@ def auction_buffers(cluster, pods, tie_k: int, sp_args=None) -> Dict[str, torch.
 
 
 def _bids_args(cluster, pods, st, requested, nonzero, assigned, state, tie_k,
-               cfg, bufs, sp_counts=None):
+               cfg, bufs, sp_counts=None, term_bits=None):
     """The checked ctypes arguments of one auction_bids launch, and the
     tensors they point into (kept alive by the caller)."""
     dev = requested.device
@@ -476,11 +567,13 @@ def _bids_args(cluster, pods, st, requested, nonzero, assigned, state, tie_k,
     if jcons.shape != st.jspec.shape:
         raise ValueError("jcons and jspec must both be [C]")
     sp, sp_keep = _spread_args(st.sp, st.features, dev, n, p, sp_counts)
+    tm, tm_keep = _terms_args(st.tm, st.features, dev, n, p, term_bits, None, st.extra,
+                              st.jspec.shape[0])
     outs = [bufs[k] for k in ("inv_c", "cnt_c", "best_c", "masked", "slots", "bid", "val")]
     args = (n, r, p, st.jspec.shape[0], st.s_reps.shape[0], tie_k, bufs["grid"],
             *(_ptr(t) for t in keep), k_reps.shape[0], _ptr(k_reps), _ptr(jcons),
-            *sp, *(_ptr(t) for t in outs))
-    return args, keep + [k_reps, jcons] + sp_keep + outs
+            *sp, *tm, *(_ptr(t) for t in outs))
+    return args, keep + [k_reps, jcons] + sp_keep + tm_keep + outs
 
 
 def _accept_args(allocatable, pods, order, bid, val, requested, nonzero,
@@ -578,39 +671,133 @@ def auction_spread(cluster, pods, st, counts, state, bufs) -> None:
     _launch("auction_spread", cluster.allocatable.device, *args)
 
 
+def _interpod_repair_args(cluster, pods, st, bits, state, bufs):
+    """The checked ctypes arguments of one auction_interpod launch, and the
+    tensors they point into."""
+    dev = cluster.allocatable.device
+    i32, b = torch.int32, torch.bool
+    n, tk = cluster.topo_ids.shape
+    p = pods.req.shape[0]
+    table = st.tm.table
+    t_dim = table.valid.shape[0]
+    keep = [
+        _arg(cluster.topo_ids, i32, dev, "topo_ids"), _arg(table.slot, i32, dev, "terms.slot"),
+        bufs["bid"], _arg(st.mi_dense, b, dev, "mi_dense"),
+        _arg(st.anti_dense, b, dev, "anti_dense"), _arg(st.solve_pos, i32, dev, "solve_pos"),
+        state, bufs["accept"], *bits,
+        *(bufs[k] for k in ("minpos", "carrier", "z_mi", "z_an", "release")),
+    ]
+    w = bits[0].shape[1]
+    if (keep[3].shape != (p, t_dim) or keep[4].shape != (p, t_dim)
+            or bits[0].shape != (n, w) or bits[2].shape != (w,)
+            or bufs["minpos"].shape[0] != st.tm.z * t_dim):
+        raise ValueError("auction_interpod tables do not match the batch's axes")
+    return (n, p, t_dim, tk, int(st.tm.z), w, *(_ptr(t) for t in keep)), keep
+
+
+def auction_interpod(cluster, pods, st, bits, state, bufs) -> None:
+    """One round's anti-affinity repair of bufs["accept"] (against
+    bufs["bid"]) and the commit of the kept pods into the (present,
+    blocked, global_any) `bits`, in place, if state[1] is set."""
+    args, _keep = _interpod_repair_args(cluster, pods, st, bits, state, bufs)
+    _launch("auction_interpod", cluster.allocatable.device, *args)
+
+
 def auction_rounds(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
     """All rounds with no host sync: max_rounds rounds are enqueued, their
-    arguments checked once — (bids, accept) pairs, or with the spread
-    family (bids, accept stage 1, spread, accept stage 2); every launch
-    after the loop's end returns at once on the device's flag.  Returns
-    (assigned, bid_scores, requested, nonzero, rounds i32[], spread counts
-    or None)."""
+    arguments checked once — (bids, accept) pairs, or with a repair family
+    (bids, accept stage 1, auction_spread and/or auction_interpod, accept
+    stage 2); every launch after the loop's end returns at once on the
+    device's flag.  Returns (assigned, bid_scores, requested, nonzero,
+    rounds i32[], spread counts, inter-pod present, blocked and global_any
+    bits; None for a family the batch does not use)."""
     dev = cluster.allocatable.device
     p = pods.req.shape[0]
     use_spread = bool(st.features.spread)
+    use_terms = bool(st.features.interpod)
     requested = cluster.requested.clone().contiguous()
     nonzero = cluster.nonzero_requested.clone().contiguous()
     assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
     bid_scores = torch.full((p,), float("-inf"), dtype=torch.float32, device=dev)
     counts = st.sp.state.counts_node.clone().contiguous() if use_spread else None
+    bits = term_bits_copy(st.tm, st.features)
     # the loop condition before round 0: max_rounds > 0 and a valid pod
     state = torch.zeros(3, dtype=torch.int32, device=dev)
     state[1] = pods.valid.any().to(torch.int32) * int(max_rounds > 0)
-    bufs = auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None)
+    bufs = auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None,
+                           st.tm if use_terms else None)
     bids, _k1 = _bids_args(cluster, pods, st, requested, nonzero, assigned,
-                           state, tie_k, cfg, bufs, counts)
+                           state, tie_k, cfg, bufs, counts, bits)
+    split = use_spread or use_terms
     accept_args = [
         _accept_args(cluster.allocatable, pods, st.order, bufs["bid"],
                      bufs["val"], requested, nonzero, assigned, bid_scores,
                      state, max_rounds, bufs, stage)
-        for stage in ((1, 2) if use_spread else (3,))
+        for stage in ((1, 2) if split else (3,))
     ]
     if use_spread:
-        repair, _k3 = _spread_repair_args(cluster, pods, st, counts, state, bufs)
+        spread_repair, _k3 = _spread_repair_args(cluster, pods, st, counts, state, bufs)
+    if use_terms:
+        term_repair, _k4 = _interpod_repair_args(cluster, pods, st, bits, state, bufs)
     for _ in range(max_rounds):
         _launch("auction_bids", dev, *bids)
         _launch("auction_accept", dev, *accept_args[0][0])
         if use_spread:
-            _launch("auction_spread", dev, *repair)
+            _launch("auction_spread", dev, *spread_repair)
+        if use_terms:
+            _launch("auction_interpod", dev, *term_repair)
+        if split:
             _launch("auction_accept", dev, *accept_args[1][0])
-    return assigned, bid_scores, requested, nonzero, state[0], counts
+    return (assigned, bid_scores, requested, nonzero, state[0], counts,
+            *(bits or (None,) * 3))
+
+
+def class_extras(cluster, prefpod, images, features, cfg, reps, feas, pp) -> torch.Tensor:
+    """f32[C, N]: each (reps[c], feas[c]) pair's already-weighted extra
+    score row (preferred inter-pod affinity normalised over feas[c], plus
+    ImageLocality), in one launch."""
+    dev = cluster.allocatable.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    n = cluster.allocatable.shape[0]
+    reps = _arg(reps, i32, dev, "reps")
+    feas = _arg(feas, b, dev, "feas")
+    c_dim = reps.shape[0]
+    p = images.pod_ids.shape[0]
+    if feas.shape != (c_dim, n):
+        raise ValueError(f"feasible rows {tuple(feas.shape)} are not [{c_dim}, {n}]")
+    pref_on, img_on = bool(features.interpod_pref), bool(features.images)
+    pad = torch.zeros(1, dtype=i32, device=dev)
+    if pref_on:
+        pref = [_arg(pp.counts_dom, f32, dev, "counts_dom"),
+                _arg(pp.ownerw_dom, f32, dev, "ownerw_dom"),
+                _arg(prefpod.pod_idx, i32, dev, "prefpod.pod_idx"),
+                _arg(prefpod.pod_weight, f32, dev, "prefpod.pod_weight"),
+                _arg(prefpod.matches_incoming, b, dev, "prefpod.matches_incoming")]
+        u_dim, ma = pref[0].shape[0], pref[2].shape[1]
+        if (pref[0].shape != (u_dim, n) or pref[1].shape != (u_dim, n)
+                or pref[3].shape != (p, ma) or pref[4].shape != (p, u_dim)):
+            raise ValueError("preferred inter-pod tables do not match the batch's axes")
+    else:
+        pref, u_dim, ma = [pad] * 5, 0, 0
+    if img_on:
+        img = [_arg(cluster.image_bits, i32, dev, "image_bits"),
+               _arg(cluster.node_valid, b, dev, "node_valid"),
+               _arg(images.sizes, f32, dev, "images.sizes"),
+               _arg(images.pod_ids, i32, dev, "images.pod_ids"),
+               _arg(images.n_containers, f32, dev, "images.n_containers")]
+        iw, i_dim, mi = img[0].shape[1], img[2].shape[0], img[3].shape[1]
+        if mi > MAX_MI or img[0].shape[0] != n or img[4].shape != (p,):
+            raise ValueError(f"image tables do not match the batch's axes (at most {MAX_MI} "
+                             "images a pod)")
+    else:
+        img, iw, i_dim, mi = [pad] * 5, 0, 0, 0
+    out = torch.empty((c_dim, n), dtype=f32, device=dev)
+    if n and c_dim and p:
+        _launch(
+            "class_extras", dev,
+            n, c_dim, p, max(1, min(c_dim, BIDS_GRID)), int(pref_on), int(img_on),
+            float(cfg.interpod_weight), float(cfg.image_weight), _ptr(reps), _ptr(feas),
+            u_dim, ma, *(_ptr(t) for t in pref), iw, i_dim, mi, *(_ptr(t) for t in img),
+            _ptr(out),
+        )
+    return out

@@ -25,7 +25,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 KERNELS = ("match_terms", "class_statics", "greedy_scan", "wavefront",
-           "auction_bids", "auction_accept", "auction_spread")
+           "auction_bids", "auction_accept", "auction_spread", "auction_interpod",
+           "class_extras")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

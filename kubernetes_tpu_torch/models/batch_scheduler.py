@@ -297,17 +297,17 @@ class TorchBatchScheduler:
             return auction_ops.auction_assign(
                 snap, self.score_config, n_groups=meta.n_groups,
                 features=meta.features, tie_k=meta.tie_k,
-                topo_z=meta.topo_split[0],
+                topo_z=meta.topo_split,
             )
         if meta.route == "wavefront":
             return assign_ops.wavefront_assign(
                 snap, meta.wave_plan.members, self.score_config,
                 features=meta.features, n_groups=meta.n_groups,
-                topo_z=meta.topo_split[0],
+                topo_z=meta.topo_split,
             )
         return assign_ops.greedy_assign(
             snap, self.score_config, features=meta.features,
-            n_groups=meta.n_groups, topo_z=meta.topo_split[0],
+            n_groups=meta.n_groups, topo_z=meta.topo_split,
         )
 
     def solve_encoded_async(

@@ -20,10 +20,13 @@ wave-parallel solve of the same semantics (section below).  On the CPU the
 plain versions below run; they are what the tests hold against the
 reference package.
 
-The solves cover the static, resource, host-port and PodTopologySpread
-(hard and soft; ops/topology.py) families.  Batches that use inter-pod
-(anti-)affinity, ImageLocality or slice carve-outs raise
-NotImplementedError naming the slice that brings them.
+The solves cover the static, resource, host-port, PodTopologySpread
+(hard and soft; ops/topology.py), required and preferred InterPodAffinity
+(ops/interpod.py) and ImageLocality families; the preferred terms and the
+images are hoisted per class as one already-weighted extra score row
+(`class_extras`, kernel `class_extras` on the card).  Batches that use
+slice carve-outs raise NotImplementedError naming the slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -41,6 +44,16 @@ from .filters import (
     selector_match,
     static_feasible_for_pod,
 )
+from .interpod import (
+    PrefPodState,
+    TermState,
+    _idx_to_bits,
+    _pack_bits_t,
+    interpod_filter,
+    interpod_update,
+    prep_pref_pod,
+    prep_terms,
+)
 from .schema import ClusterTensors, PodBatch, Snapshot
 from .scores import (
     DEFAULT_SCORE_CONFIG,
@@ -48,6 +61,7 @@ from .scores import (
     node_affinity_raw,
     resource_score_parts,
     score_from_raw,
+    static_extra,
     taint_toleration_raw,
 )
 from .topology import (
@@ -83,11 +97,8 @@ class FeatureFlags(NamedTuple):
     slice_dim: int = 1
 
 
-# constraint families this slice does not solve, and the slice that will
+# constraint families the port does not solve yet, and the slice that will
 _DEFERRED_FAMILIES = (
-    ("interpod", "required InterPodAffinity (constraint-families slice)"),
-    ("interpod_pref", "preferred InterPodAffinity (constraint-families slice)"),
-    ("images", "ImageLocality (constraint-families slice)"),
     ("slices", "TPU slice carve-outs (slice carve-out slice)"),
 )
 
@@ -190,7 +201,8 @@ def check_supported(features: FeatureFlags) -> None:
         if getattr(features, flag):
             raise NotImplementedError(
                 f"{what} is not ported yet: the torch solves cover the "
-                "static, resource, host-port and topology-spread families"
+                "static, resource, host-port, topology-spread, inter-pod "
+                "affinity and ImageLocality families"
             )
 
 
@@ -288,11 +300,16 @@ def _eval_pod(
     spread,
     features: FeatureFlags,
     cfg: ScoreConfig,
+    tm: Optional[TermState] = None,
+    terms=None,
+    extra_c: Optional[torch.Tensor] = None,
 ):
     """The Filter+Score half of one scheduling step for pod i against the
-    carried state (sp: the spread counts, when features.spread):
-    (feas[N], masked_scores[N], found, reason, feasible_count), in the
-    reference's stage order — static, resources, ports, spread."""
+    carried state (sp: the spread counts, when features.spread; tm: the
+    inter-pod bits, when features.interpod; extra_c: the classes' extra
+    score rows): (feas[N], masked_scores[N], found, reason,
+    feasible_count), in the reference's stage order — static, resources,
+    ports, spread, inter-pod."""
     pod = pod_view(pods, i)
     s_static = sfeas_c[cls]
     s_any = bool(s_static.any())
@@ -303,6 +320,9 @@ def _eval_pod(
     a_ports = bool(feas.any())
     if features.spread:
         feas = feas & spread_filter(sp, spread, i)
+    a_spread = bool(feas.any())
+    if features.interpod:
+        feas = feas & interpod_filter(tm, terms, i)
     found = bool(feas.any())
     if found:
         reason = REASON_NONE
@@ -312,11 +332,14 @@ def _eval_pod(
         reason = REASON_RESOURCES
     elif not a_ports:
         reason = REASON_PORTS
-    else:
+    elif not a_spread:
         reason = REASON_SPREAD
+    else:
+        reason = REASON_INTERPOD
     sp_score = spread_score(sp, spread, i, feas) if features.soft_spread else None
     scores = score_from_raw(
         cl, pod, feas, aff_c[cls], taint_c[cls], cfg, spread_score=sp_score,
+        extra=extra_c[cls] if extra_c is not None else None,
     )
     masked = torch.where(feas, scores, NEG_INF)
     cnt = int(feas.sum())
@@ -368,6 +391,32 @@ class SpreadArgs(NamedTuple):
     z: int               # value capacity of the spread slots (z_spread)
 
 
+class TermArgs(NamedTuple):
+    """What the inter-pod family hands a solve: the term table and the
+    per-batch prep state (prep_terms); the solve carries the three
+    bitsets."""
+
+    table: object        # schema.TermTable (tensors)
+    state: TermState
+    z: int               # value capacity of the term slots (z_terms)
+
+
+def _term_bits(tm: Optional[TermState]) -> tuple:
+    """(present, blocked, global_any) of a term carry, or three Nones."""
+    if tm is None:
+        return None, None, None
+    return tm.present_bits, tm.blocked_bits, tm.global_any
+
+
+def term_bits_copy(tm_args: Optional[TermArgs], features: FeatureFlags):
+    """Fresh contiguous copies of the prep's (present, blocked,
+    global_any) bits, the carry a solve updates in place; None without
+    the inter-pod family."""
+    if not features.interpod:
+        return None
+    return tuple(t.clone().contiguous() for t in _term_bits(tm_args.state))
+
+
 def greedy_assign_plain(
     cluster: ClusterTensors,
     pods: PodBatch,
@@ -379,11 +428,15 @@ def greedy_assign_plain(
     n_groups: int,
     cfg: ScoreConfig,
     sp_args: Optional[SpreadArgs] = None,
+    tm_args: Optional[TermArgs] = None,
+    extra_c: Optional[torch.Tensor] = None,
 ):
     """Plain version of kernel `greedy_scan`: the sequential loop in
     torch ops.  Returns (assignment, scores, feasible_counts, reasons,
-    requested, nonzero_requested, port_bits, spread counts_node or
-    None)."""
+    requested, nonzero_requested, port_bits, spread counts_node, and the
+    inter-pod present, blocked and global_any bits; None for a family the
+    batch does not use).  The gang release leaves the inter-pod bits as
+    they are, as the reference does."""
     n = cluster.allocatable.shape[0]
     p = pods.req.shape[0]
     c_dim = sfeas_c.shape[0]
@@ -397,12 +450,13 @@ def greedy_assign_plain(
     feas_counts = torch.zeros(p, dtype=torch.int32, device=dev)
     reasons = torch.full((p,), REASON_NONE, dtype=torch.int32, device=dev)
     sp, spread = _spread_carry(sp_args, features)
+    tm, terms = _term_carry(tm_args, features)
     for i in order.tolist():
         cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
         cls = min(max(class_id[i], 0), c_dim - 1)
         feas, masked, found, reason, cnt = _eval_pod(
             cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports, sp, spread,
-            features, cfg,
+            features, cfg, tm, terms, extra_c,
         )
         feas_counts[i] = cnt
         reasons[i] = reason
@@ -416,6 +470,8 @@ def greedy_assign_plain(
                 new_ports[choice] |= pods.port_bits[i]
             if features.spread:
                 sp = spread_update(sp, spread, i, choice)
+            if features.interpod:
+                tm = interpod_update(tm, i, choice)
     if n_groups > 0:
         assignment, win_scores, reasons, requested, nonzero = _gang_release(
             assignment, win_scores, reasons, requested, nonzero,
@@ -425,7 +481,7 @@ def greedy_assign_plain(
         cluster.port_bits | new_ports if features.ports else cluster.port_bits
     )
     return (assignment, win_scores, feas_counts, reasons, requested, nonzero,
-            port_bits, sp.counts_node if features.spread else None)
+            port_bits, sp.counts_node if features.spread else None, *_term_bits(tm))
 
 
 def _spread_carry(sp_args: Optional[SpreadArgs], features: FeatureFlags):
@@ -439,6 +495,16 @@ def _spread_carry(sp_args: Optional[SpreadArgs], features: FeatureFlags):
     return st._replace(counts_node=st.counts_node.clone()), sp_args.table
 
 
+def _term_carry(tm_args: Optional[TermArgs], features: FeatureFlags):
+    """(state, table) a plain solve starts from: the prep state (its bits
+    are replaced, never written), or (None, None) without the family."""
+    if not features.interpod:
+        return None, None
+    if tm_args is None:
+        raise ValueError("features.interpod is set but no inter-pod prep was given")
+    return tm_args.state, tm_args.table
+
+
 def greedy_scan(
     cluster: ClusterTensors,
     pods: PodBatch,
@@ -450,6 +516,8 @@ def greedy_scan(
     n_groups: int,
     cfg: ScoreConfig,
     sp_args: Optional[SpreadArgs] = None,
+    tm_args: Optional[TermArgs] = None,
+    extra_c: Optional[torch.Tensor] = None,
 ):
     """Wrapper of kernel `greedy_scan`: the kernel for tensors on the
     card, the plain version for tensors on the CPU.  The carry tensors
@@ -457,14 +525,25 @@ def greedy_scan(
     if cluster.allocatable.device.type == "cpu":
         return greedy_assign_plain(
             cluster, pods, sfeas_c, aff_c, taint_c, order, features,
-            n_groups, cfg, sp_args,
+            n_groups, cfg, sp_args, tm_args, extra_c,
         )
     from ..kernels import bindings
 
     return bindings.greedy_scan(
         cluster, pods, sfeas_c, aff_c, taint_c, order, features, n_groups, cfg,
-        sp_args,
+        sp_args, tm_args, extra_c,
     )
+
+
+def family_z(snapshot: Snapshot, features: FeatureFlags, topo_z) -> tuple:
+    """(z_spread, z_terms): the given value capacities, or — when a family
+    that reads them is on — required_topo_z_split's (a host readback for
+    tensors on the card); (None, None) otherwise."""
+    if topo_z is not None:
+        return tuple(topo_z)
+    if features.spread or features.interpod or features.interpod_pref:
+        return required_topo_z_split(snapshot)
+    return None, None
 
 
 def spread_prep(snapshot: Snapshot, sel_mask: torch.Tensor,
@@ -486,18 +565,92 @@ def spread_prep(snapshot: Snapshot, sel_mask: torch.Tensor,
     return SpreadArgs(snapshot.spread, state, topo_z)
 
 
+def terms_prep(snapshot: Snapshot, features: FeatureFlags,
+               z_terms: Optional[int] = None) -> Optional[TermArgs]:
+    """The inter-pod family's per-batch prep (prep_terms, plain torch on
+    the solve's device), or None without it.  z_terms: the value capacity
+    of the term slots (required_topo_z_split's second entry, derived here
+    when not given)."""
+    if not features.interpod:
+        return None
+    if z_terms is None:
+        _, z_terms = required_topo_z_split(snapshot)
+    state = prep_terms(
+        snapshot.cluster, snapshot.terms, z_terms, slots=features.term_slots,
+        has_bound=features.bound_terms,
+    )
+    return TermArgs(snapshot.terms, state, z_terms)
+
+
+def class_extras_plain(
+    cluster: ClusterTensors, prefpod, images, features: FeatureFlags,
+    cfg: ScoreConfig, reps: torch.Tensor, feas: torch.Tensor,
+    pp: Optional[PrefPodState],
+) -> torch.Tensor:
+    """Plain version of kernel `class_extras`: f32[C, N], row c the
+    already-weighted static extras (static_extra) of pod reps[c],
+    normalised over the feasible row feas[c]."""
+    return torch.stack([
+        static_extra(cluster, prefpod, images, features, cfg, rep, feas[c], pp)
+        for c, rep in enumerate(reps.tolist())
+    ])
+
+
+def class_extras(
+    cluster: ClusterTensors, prefpod, images, features: FeatureFlags,
+    cfg: ScoreConfig, reps: torch.Tensor, feas: torch.Tensor,
+    pp: Optional[PrefPodState],
+) -> torch.Tensor:
+    """Wrapper of kernel `class_extras`: the kernel for tensors on the
+    card, the plain version for tensors on the CPU."""
+    if cluster.allocatable.device.type == "cpu":
+        return class_extras_plain(cluster, prefpod, images, features, cfg, reps, feas, pp)
+    from ..kernels import bindings
+
+    return bindings.class_extras(cluster, prefpod, images, features, cfg, reps, feas, pp)
+
+
+def extras_prep(snapshot: Snapshot, features: FeatureFlags, cfg: ScoreConfig,
+                reps: torch.Tensor, feas: torch.Tensor,
+                z_terms: Optional[int] = None) -> Optional[torch.Tensor]:
+    """The hoisted static score extras (preferred inter-pod affinity and
+    ImageLocality) of the (representative, feasible row) pairs, or None
+    without either family.  The preferred terms count BOUND pods only, as
+    scoring.go's PreScore over the cycle's snapshot does (in-batch
+    placements do not attract later batchmates within a solve: the
+    reference package's documented divergence); images never change
+    mid-solve."""
+    if not (features.interpod_pref or features.images):
+        return None
+    pp = None
+    if features.interpod_pref:
+        if z_terms is None:
+            _, z_terms = required_topo_z_split(snapshot)
+        pp = prep_pref_pod(snapshot.cluster, snapshot.prefpod, z_terms,
+                           has_bound=features.bound_pref)
+    return class_extras(snapshot.cluster, snapshot.prefpod, snapshot.images, features,
+                        cfg, reps, feas, pp)
+
+
 def _solver_prep(snapshot: Snapshot, features: FeatureFlags,
-                 topo_z: Optional[int] = None):
+                 topo_z: Optional[Tuple[int, int]] = None,
+                 cfg: ScoreConfig = DEFAULT_SCORE_CONFIG):
     """Per-batch device prep, cold path: the selector and preferred masks
     (kernel match_terms), the class-hoisted static tables (kernel
-    class_statics) and the spread state.  Returns (cluster, pods, sfeas_c,
-    aff_c, taint_c, sp_args)."""
+    class_statics), the spread and inter-pod states and the classes' extra
+    score rows (kernel class_extras).  topo_z: (z_spread, z_terms).
+    Returns (cluster, pods, sfeas_c, aff_c, taint_c, sp_args, tm_args,
+    extra_c)."""
     cluster, pods, sel, pref = snapshot[:4]
+    z_spread, z_terms = family_z(snapshot, features, topo_z)
     sel_mask = selector_match(cluster, sel)
     pref_mask = preferred_match(cluster, pref)
     sfeas_c, aff_c, taint_c = class_statics(cluster, pods, sel_mask, pref_mask)
-    sp_args = spread_prep(snapshot, sel_mask, features, topo_z)
-    return cluster, pods, sfeas_c, aff_c, taint_c, sp_args
+    sp_args = spread_prep(snapshot, sel_mask, features, z_spread)
+    tm_args = terms_prep(snapshot, features, z_terms)
+    reps = torch.clamp(pods.class_rep, 0, pods.req.shape[0] - 1)
+    extra_c = extras_prep(snapshot, features, cfg, reps, sfeas_c, z_terms)
+    return cluster, pods, sfeas_c, aff_c, taint_c, sp_args, tm_args, extra_c
 
 
 def greedy_assign(
@@ -505,7 +658,7 @@ def greedy_assign(
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
     features: Optional[FeatureFlags] = None,
     n_groups: Optional[int] = None,
-    topo_z: Optional[int] = None,
+    topo_z: Optional[Tuple[int, int]] = None,
 ) -> SolveResult:
     """Sequential-greedy solve of the whole pending batch, on the device
     the snapshot's tensors lie on.
@@ -516,22 +669,23 @@ def greedy_assign(
     placement after the loop (all-or-nothing); later pods saw the released
     placements' usage (conservative, as in the reference package).
 
-    features / n_groups / topo_z (the spread slots' value capacity) are
-    derived from the snapshot when not given (a host readback for tensors
-    on the card; encode_pending derives them before the transfer)."""
+    features / n_groups / topo_z (the (z_spread, z_terms) value capacities
+    of the spread and inter-pod slots) are derived from the snapshot when
+    not given (a host readback for tensors on the card; encode_pending
+    derives them before the transfer)."""
     if features is None:
         features = features_of(snapshot)
     check_supported(features)
     if n_groups is None:
         n_groups = int(_np(snapshot.pods.group_id).max()) + 1
-    cluster, pods, sfeas_c, aff_c, taint_c, sp_args = _solver_prep(
-        snapshot, features, topo_z)
+    cluster, pods, sfeas_c, aff_c, taint_c, sp_args, tm_args, extra_c = _solver_prep(
+        snapshot, features, topo_z, cfg)
     order = solve_order(pods)
     (assignment, win_scores, feas_counts, reasons, requested, nonzero,
-     port_bits, _sp_counts) = greedy_scan(
+     port_bits) = greedy_scan(
         cluster, pods, sfeas_c, aff_c, taint_c, order, features, n_groups, cfg,
-        sp_args,
-    )
+        sp_args, tm_args, extra_c,
+    )[:7]
     final = cluster._replace(
         requested=requested, nonzero_requested=nonzero, port_bits=port_bits,
     )
@@ -595,8 +749,8 @@ def plan_waves(
       * size: the wave already holds `wave_cap` members;
       * ports: its host-port bits intersect a member's;
       * spread/terms: a wave member WRITES a constraint row this pod
-        READS (the inter-pod rows are kept for the slice that ports the
-        family; such batches raise before a solve today);
+        READS (a spread row it matches, or a term it matches or carries as
+        anti-affinity, read by a later member's constraints or terms);
       * headroom: aggregate wave demand would exceed the roomiest
         node's free capacity (elementwise; the reference's default
         headroom_frac of 1.0) — a heuristic
@@ -698,11 +852,12 @@ def _top_stable(masked: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
 
 
 def _pick_full(cl, pods, i, cls, sfeas_c, aff_c, taint_c, ports, sp, spread,
-               features, cfg):
+               features, cfg, tm, terms, extra_c):
     """One exact scan step's decision for pod i against carry `cl`:
     (choice, win, count, reason, found)."""
     _, masked, found, reason, cnt = _eval_pod(
         cl, pods, i, cls, sfeas_c, aff_c, taint_c, ports, sp, spread, features, cfg,
+        tm, terms, extra_c,
     )
     choice = int(_pick(masked))
     return choice, float(masked[choice]) if found else NEG_INF, cnt, reason, found
@@ -719,12 +874,15 @@ def wavefront_assign_plain(
     n_groups: int,
     cfg: ScoreConfig,
     sp_args: Optional[SpreadArgs] = None,
+    tm_args: Optional[TermArgs] = None,
+    extra_c: Optional[torch.Tensor] = None,
 ):
     """Plain version of kernel `wavefront`: the wave loop in torch ops.
     members: i32[W, K] pod indices in solve order (-1 pad).  Returns
     (assignment, scores, feasible_counts, reasons, requested,
     nonzero_requested, port_bits, wave_count, wave_fallbacks, spread
-    counts_node or None)."""
+    counts_node, inter-pod present, blocked and global_any bits; None for
+    a family the batch does not use)."""
     n = cluster.allocatable.shape[0]
     p = pods.req.shape[0]
     c_dim = sfeas_c.shape[0]
@@ -741,6 +899,8 @@ def wavefront_assign_plain(
     reasons = torch.full((p,), REASON_NONE, dtype=torch.int32, device=dev)
     n_waves = n_fb = 0
     sp, spread = _spread_carry(sp_args, features)
+    tm, terms = _term_carry(tm_args, features)
+    term_rows = wave_term_rows(terms) if features.interpod else None
 
     def record(i, choice, win, cnt, reason, found):
         assignment[i] = choice if found else -1
@@ -754,14 +914,14 @@ def wavefront_assign_plain(
             continue  # an all-padding row is skipped, not counted
         n_waves += 1
         cl0 = cluster._replace(requested=requested, nonzero_requested=nonzero)
-        if not _wave_safe(pods, [i for _, i in live], features, spread):
+        if not _wave_safe(pods, [i for _, i in live], features, spread, term_rows):
             # coupled wave: the scan's own step, member by member
             for _, i in live:
                 cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
                 cls = min(max(class_id[i], 0), c_dim - 1)
                 choice, win, cnt, reason, found = _pick_full(
                     cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
-                    sp, spread, features, cfg,
+                    sp, spread, features, cfg, tm, terms, extra_c,
                 )
                 record(i, choice, win, cnt, reason, found)
                 if found:
@@ -771,6 +931,8 @@ def wavefront_assign_plain(
                         new_ports[choice] |= pods.port_bits[i]
                     if features.spread:
                         sp = spread_update(sp, spread, i, choice)
+                    if features.interpod:
+                        tm = interpod_update(tm, i, choice)
             n_fb += len(live)
             continue
         # heavy half: every member against the wave-start carry
@@ -780,7 +942,7 @@ def wavefront_assign_plain(
             cls = min(max(class_id[i], 0), c_dim - 1)
             _, masked, found, reason, cnt = _eval_pod(
                 cl0, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
-                sp, spread, features, cfg,
+                sp, spread, features, cfg, tm, terms, extra_c,
             )
             topv, topi = _top_stable(masked, kk)
             evals[j] = (masked, found, reason, cnt, topv, topi)
@@ -798,12 +960,12 @@ def wavefront_assign_plain(
             fitsc = (skip | (reqc_rows + pod.req[None, :] <= cap_rows)).all(-1)
             flip = bool((sfeas_c[cls][pxc] & (fits0 != fitsc)).any())
             if flip:
-                # the spread counts are the wave start's, which no member
-                # of a safe wave reads after another writes them
+                # the spread counts and term bits are the wave start's, which
+                # no member of a safe wave reads after another writes them
                 cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
                 choice, win, cnt, reason, found = _pick_full(
                     cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports,
-                    sp, spread, features, cfg,
+                    sp, spread, features, cfg, tm, terms, extra_c,
                 )
                 n_fb += 1
             else:
@@ -817,8 +979,8 @@ def wavefront_assign_plain(
                 requested[choice] += pods.req[i]
                 nonzero[choice] += pods.nonzero_req[i]
                 picked.append(choice)
-        # deferred port and spread commits, in member order: no member of
-        # a safe wave read these
+        # deferred port, spread and term commits, in member order: no
+        # member of a safe wave read these
         for j, i in live:
             a = int(assignment[i])
             if a < 0:
@@ -827,6 +989,8 @@ def wavefront_assign_plain(
                 new_ports[a] |= pods.port_bits[i]
             if features.spread:
                 sp = spread_update(sp, spread, i, a)
+            if features.interpod:
+                tm = interpod_update(tm, i, a)
     if n_groups > 0:
         assignment, win_scores, reasons, requested, nonzero = _gang_release(
             assignment, win_scores, reasons, requested, nonzero,
@@ -839,13 +1003,29 @@ def wavefront_assign_plain(
     return (assignment, win_scores, feas_counts, reasons, requested, nonzero,
             port_bits, torch.tensor(n_waves, dtype=i32, device=dev),
             torch.tensor(n_fb, dtype=i32, device=dev),
-            sp.counts_node if features.spread else None)
+            sp.counts_node if features.spread else None, *_term_bits(tm))
 
 
-def _wave_safe(pods: PodBatch, live, features: FeatureFlags, spread=None) -> bool:
+def wave_term_rows(terms) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(writes, reads) i32[P, TW]: the terms each pod writes when placed
+    (those it matches, and those it carries as anti-affinity) and those
+    its evaluation reads (the written ones and its affinity terms) — the
+    reference's wave-safety rows, packed over the narrower of the two
+    word widths and not masked by validity, as the reference's are."""
+    t_dim = terms.valid.shape[0]
+    anti_w = _pack_bits_t(_idx_to_bits(terms.anti_idx, t_dim))
+    aff_w = _pack_bits_t(_idx_to_bits(terms.aff_idx, t_dim))
+    tw = min(terms.matches_incoming.shape[1], anti_w.shape[1])
+    writes = terms.matches_incoming[:, :tw] | anti_w[:, :tw]
+    return writes.contiguous(), (writes | aff_w[:, :tw]).contiguous()
+
+
+def _wave_safe(pods: PodBatch, live, features: FeatureFlags, spread=None,
+               term_rows=None) -> bool:
     """No member writes dynamic state that a later member reads: a host
-    port a later member claims, or a spread row (the member matches its
-    selector) a later member's constraints read."""
+    port a later member claims, a spread row (the member matches its
+    selector) a later member's constraints read, or a term (matched or
+    carried as anti-affinity) a later member's terms read."""
     if len(live) < 2:
         return True
     idx = torch.tensor(live, dtype=torch.long, device=pods.port_bits.device)
@@ -858,6 +1038,9 @@ def _wave_safe(pods: PodBatch, live, features: FeatureFlags, spread=None) -> boo
         rows = torch.arange(wr.shape[1], device=idx.device)
         rd = (rows[None, None, :] == spread.pod_idx[idx][:, :, None]).any(dim=1)  # read
         hit |= (wr[:, None, :] & rd[None, :, :]).any(-1)
+    if features.interpod:
+        wr, rd = (t[idx] for t in term_rows)
+        hit |= ((wr[:, None, :] & rd[None, :, :]) != 0).any(-1)
     return not bool(torch.triu(hit, diagonal=1).any())
 
 
@@ -905,6 +1088,8 @@ def wavefront(
     n_groups: int,
     cfg: ScoreConfig,
     sp_args: Optional[SpreadArgs] = None,
+    tm_args: Optional[TermArgs] = None,
+    extra_c: Optional[torch.Tensor] = None,
 ):
     """Wrapper of kernel `wavefront`: the kernel for tensors on the card,
     the plain version for tensors on the CPU.  The carry tensors are
@@ -912,13 +1097,13 @@ def wavefront(
     if cluster.allocatable.device.type == "cpu":
         return wavefront_assign_plain(
             cluster, pods, sfeas_c, aff_c, taint_c, members, features,
-            n_groups, cfg, sp_args,
+            n_groups, cfg, sp_args, tm_args, extra_c,
         )
     from ..kernels import bindings
 
     return bindings.wavefront(
         cluster, pods, sfeas_c, aff_c, taint_c, members, features, n_groups, cfg,
-        sp_args,
+        sp_args, tm_args, extra_c,
     )
 
 
@@ -928,7 +1113,7 @@ def wavefront_assign(
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
     features: Optional[FeatureFlags] = None,
     n_groups: Optional[int] = None,
-    topo_z: Optional[int] = None,
+    topo_z: Optional[Tuple[int, int]] = None,
 ) -> SolveResult:
     """Wave-parallel greedy solve with exact scan parity, on the device
     the snapshot's tensors lie on.  wave_members: i32[W, K] pod indices
@@ -941,17 +1126,17 @@ def wavefront_assign(
         n_groups = int(_np(snapshot.pods.group_id).max()) + 1
     if wave_members is None:
         wave_members = plan_waves(snapshot, features).members
-    cluster, pods, sfeas_c, aff_c, taint_c, sp_args = _solver_prep(
-        snapshot, features, topo_z)
+    cluster, pods, sfeas_c, aff_c, taint_c, sp_args, tm_args, extra_c = _solver_prep(
+        snapshot, features, topo_z, cfg)
     members = torch.as_tensor(
         np.asarray(wave_members, dtype=np.int32)
         if not isinstance(wave_members, torch.Tensor) else wave_members,
     ).to(device=cluster.allocatable.device, dtype=torch.int32)
     (assignment, win_scores, feas_counts, reasons, requested, nonzero,
-     port_bits, n_waves, n_fb, _sp_counts) = wavefront(
+     port_bits, n_waves, n_fb) = wavefront(
         cluster, pods, sfeas_c, aff_c, taint_c, members, features, n_groups, cfg,
-        sp_args,
-    )
+        sp_args, tm_args, extra_c,
+    )[:9]
     final = cluster._replace(
         requested=requested, nonzero_requested=nonzero, port_bits=port_bits,
     )

@@ -15,8 +15,11 @@ gangs the reference package solves the batch *jointly*, in rounds:
      placements, taken together, would break a hard constraint (rank r
      in its (row, topology value) group kept iff count + r + 1 - globalMin
      <= maxSkew, in three admit passes whose admits raise the minimum);
-  4. accepted pods commit (resources and spread counts); rejected and
-     released pods bid again next round.
+     with inter-pod anti-affinity terms, a second repair keeps, in each
+     (term, topology value) group holding an accepted carrier of the term,
+     only the first involved pod in solve order;
+  4. accepted pods commit (resources, spread counts and term bits);
+     rejected and released pods bid again next round.
 
 A round in which an unplaced pod still has a feasible node commits at
 least one pod, so the loop ends; `max_rounds` bounds it regardless.
@@ -24,16 +27,20 @@ After the rounds, a staged filter pass names each unplaced pod's reason
 and gangs with an unplaced member release every placement.
 
 On the card a round is two CUDA kernels, `auction_bids` and
-`auction_accept` — with the spread family three: the acceptance, then
-`auction_spread` (the repair and the count commit), then the acceptance
-kernel's commit; all `max_rounds` rounds are enqueued without a host sync
-and each launch reads the device's own continue flag, which the previous
-round's commit wrote.  The spread prep, the reasons pass and the gang
-post-pass are elementwise and scatter glue in torch.
+`auction_accept` — with a repair family more: the acceptance, then
+`auction_spread` (the spread repair and the count commit) and
+`auction_interpod` (the anti-affinity repair and the term-bit commit),
+then the acceptance kernel's commit; all `max_rounds` rounds are enqueued
+without a host sync and each launch reads the device's own continue flag,
+which the previous round's commit wrote.  The spread and inter-pod preps,
+the reasons pass and the gang post-pass are elementwise and scatter glue
+in torch; the preferred inter-pod and image extras are one row per joint
+class (kernel `class_extras`), built once.
 
-The static, resource, gang and spread families are covered; inter-pod
-batches raise (assign.check_supported), batches with in-batch host ports
-never route here (auction_features_ok).
+The static, resource, gang, spread, inter-pod anti-affinity, preferred
+inter-pod and ImageLocality families are covered; batches with in-batch
+host ports or affinity-direction terms never route here
+(auction_features_ok).
 """
 
 from __future__ import annotations
@@ -54,14 +61,20 @@ from .assign import (
     REASON_STATIC,
     FeatureFlags,
     SpreadArgs,
+    TermArgs,
     _np,
     add_rows,
     check_supported,
     class_statics,
+    extras_prep,
+    family_z,
     features_of,
     solve_order,
     spread_prep,
+    term_bits_copy,
+    terms_prep,
 )
+from .interpod import _idx_to_bits, _pack_bits_t, _unpack_bits_t, interpod_filter, used_slots
 from .filters import fits_resources, pod_view, preferred_match, selector_match
 from .schema import ClusterTensors, Snapshot
 from .scores import (
@@ -97,6 +110,8 @@ class AuctionResult(NamedTuple):
     cluster: ClusterTensors     # post-solve cluster
     reasons: torch.Tensor = None  # i32[P]: REASON_* for unplaced pods
     debug_sp_counts: torch.Tensor = None  # f32[C, N] final spread counts
+    # final inter-pod (present i32[N, W], blocked i32[N, W], global_any i32[W])
+    debug_term_bits: tuple = None
 
 
 def auction_features_ok(features: FeatureFlags) -> bool:
@@ -143,19 +158,32 @@ class AuctionStatics(NamedTuple):
     reps: torch.Tensor     # i32[C]      joint-class representatives (clipped)
     features: FeatureFlags
     sp: Optional[SpreadArgs] = None  # spread table + prep state (features.spread)
+    tm: Optional[TermArgs] = None    # term table + prep state (features.interpod)
+    extra: Optional[torch.Tensor] = None  # f32[C, N] each joint class's extras
+    # the anti-affinity repair's dense [P, T] tables (features.interpod):
+    # the valid terms each pod matches, and those it carries as anti terms
+    mi_dense: Optional[torch.Tensor] = None
+    anti_dense: Optional[torch.Tensor] = None
+    solve_pos: Optional[torch.Tensor] = None  # i32[P] each pod's solve position
 
 
 def auction_prep(
     snapshot: Snapshot, features: Optional[FeatureFlags] = None,
-    topo_z: Optional[int] = None,
+    topo_z: Optional[Tuple[int, int]] = None,
+    cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
 ) -> Tuple[ClusterTensors, object, AuctionStatics]:
     """The selector/preferred masks (kernel match_terms), the spec-class
-    static tables (kernel class_statics) and the spread prep the rounds
-    read."""
+    static tables (kernel class_statics), the spread and inter-pod preps,
+    the repair's dense term tables and each joint class's extra score row
+    (kernel class_extras: the preferred inter-pod row of its constraint
+    class's representative normalised over its spec class's static row,
+    and that representative's image score) the rounds read.  topo_z:
+    (z_spread, z_terms)."""
     if features is None:
         features = features_of(snapshot)
     cluster, pods, sel, pref = snapshot[:4]
     p = pods.req.shape[0]
+    z_spread, z_terms = family_z(snapshot, features, topo_z)
     sel_mask = selector_match(cluster, sel)
     pref_mask = preferred_match(cluster, pref)
     s_reps = torch.clamp(pods.spec_rep, 0, p - 1)
@@ -165,12 +193,24 @@ def auction_prep(
     i32 = torch.int32
     jspec = torch.clamp(pods.joint_spec, 0, pods.spec_rep.shape[0] - 1)
     jcons = torch.clamp(pods.joint_cons, 0, pods.cons_rep.shape[0] - 1)
+    k_reps = torch.clamp(pods.cons_rep, 0, p - 1).to(i32)
+    order = solve_order(pods)
+    tm_args = terms_prep(snapshot, features, z_terms)
+    mi_dense = anti_dense = solve_pos = None
+    if tm_args is not None:
+        terms = tm_args.table
+        t_dim = terms.valid.shape[0]
+        mi_dense = _unpack_bits_t(terms.matches_incoming, t_dim) & terms.valid[None, :]
+        anti_dense = _idx_to_bits(terms.anti_idx, t_dim) & terms.valid[None, :]
+        solve_pos = torch.empty_like(order)
+        solve_pos[order.long()] = torch.arange(p, dtype=i32, device=order.device)
+    extra = extras_prep(snapshot, features, cfg, k_reps[jcons.long()], sfeas_s[jspec.long()],
+                        z_terms)
     return cluster, pods, AuctionStatics(
-        sfeas_s, aff_s, taint_s, s_reps.to(i32), jspec.to(i32),
-        solve_order(pods),
-        torch.clamp(pods.cons_rep, 0, p - 1).to(i32), jcons.to(i32),
-        torch.clamp(pods.class_rep, 0, p - 1).to(i32),
-        features, spread_prep(snapshot, sel_mask, features, topo_z),
+        sfeas_s, aff_s, taint_s, s_reps.to(i32), jspec.to(i32), order,
+        k_reps, jcons.to(i32), torch.clamp(pods.class_rep, 0, p - 1).to(i32),
+        features, spread_prep(snapshot, sel_mask, features, z_spread),
+        tm_args, extra, mi_dense, anti_dense, solve_pos,
     )
 
 
@@ -185,10 +225,12 @@ def auction_bids_plain(
     tie_k: int,
     cfg: ScoreConfig,
     sp_counts: Optional[torch.Tensor] = None,
+    term_bits: Optional[tuple] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernel `auction_bids`: one round's bids against
-    the round's usage and (with the spread family) spread counts.
-    Returns (bid i32[P] — a node index, or N for no bid; val f32[P])."""
+    the round's usage and (with the spread family) spread counts and
+    (with the inter-pod family) term bits.  Returns (bid i32[P] — a node
+    index, or N for no bid; val f32[P])."""
     n = cluster.allocatable.shape[0]
     p = pods.req.shape[0]
     dev = requested.device
@@ -201,6 +243,10 @@ def auction_bids_plain(
         spread = st.sp.table
         sp = st.sp.state._replace(counts_node=sp_counts)
         spf_k = [spread_filter(sp, spread, rep) for rep in st.k_reps.tolist()]
+    ipf_k = None
+    if features.interpod:
+        tm = _term_state(st, term_bits)
+        ipf_k = interpod_filter(tm, st.tm.table, st.k_reps.long())   # [Cc, N]
     fits_s, fit_s, bal_s = [], [], []
     for rep in st.s_reps.tolist():
         pod = pod_view(pods, rep)
@@ -216,12 +262,15 @@ def auction_bids_plain(
         feas = st.sfeas_s[s] & fits_s[s]
         if features.spread:
             feas = feas & spf_k[jcons[c]]
+        if features.interpod:
+            feas = feas & ipf_k[jcons[c]]
         sp_score = (
             spread_score(sp, spread, reps[c], feas) if features.soft_spread else None
         )
         scores = combine_scores(
             fit_s[s], bal_s[s], st.aff_s[s], st.taint_s[s], feas, cfg,
             spread_score=sp_score,
+            extra=st.extra[c] if st.extra is not None else None,
         )
         masked = torch.where(feas, scores, NEG_INF)
         best = torch.max(masked)
@@ -414,47 +463,133 @@ def spread_repair_plain(accept, bid, counts, st: AuctionStatics, topo_ids):
     return kept, commit_spread(kept, nodes, counts, st.sp)
 
 
+# -- the inter-pod anti-affinity repair --------------------------------------
+
+
+def _term_state(st: AuctionStatics, term_bits):
+    """The prep's TermState with the round's (present, blocked,
+    global_any) bits."""
+    present, blocked, global_any = term_bits
+    return st.tm.state._replace(present_bits=present, blocked_bits=blocked,
+                                global_any=global_any)
+
+
+def _term_groups(st: AuctionStatics, topo_pt: torch.Tensor, s: int):
+    """For topology slot s: the terms of that slot (bool[T]), each pod's
+    bid-node value there (i32[P]) and its (value, term) group index
+    (i64[P, T]), values clipped into [0, z_terms) as the reference clips."""
+    table, _, z = st.tm
+    t_dim = table.valid.shape[0]
+    v_p = topo_pt[:, s]
+    flat = (torch.clamp(v_p, 0, z - 1).long()[:, None] * t_dim
+            + torch.arange(t_dim, device=v_p.device)[None, :])
+    return table.slot == s, v_p, flat
+
+
+def commit_terms_plain(accept, nodes, st: AuctionStatics, topo_ids, term_bits):
+    """The batched interpod_update: every term an accepted pod matches
+    turns present (and global) on each node sharing its bid node's value
+    in the term's slot, and every anti term it carries turns blocked there
+    — OR-ed in value space, then mapped back to the nodes and packed."""
+    table, _, z = st.tm
+    t_dim = table.valid.shape[0]
+    present, blocked, global_any = term_bits
+    topo_pt = topo_ids[nodes]
+    for s in used_slots(st.features.term_slots, topo_ids.shape[1]):
+        rel_t, v_p, _flat = _term_groups(st, topo_pt, s)
+        ok_p = accept & (v_p >= 0)
+        vcp = torch.clamp(v_p, 0, z - 1).long()
+        z_mi = torch.zeros((z, t_dim), dtype=torch.int32, device=nodes.device)
+        z_an = torch.zeros_like(z_mi)
+        z_mi.index_add_(0, vcp, (st.mi_dense & rel_t[None, :] & ok_p[:, None]).to(torch.int32))
+        z_an.index_add_(0, vcp, (st.anti_dense & rel_t[None, :] & ok_p[:, None]).to(torch.int32))
+        z_mi, z_an = z_mi > 0, z_an > 0
+        v_n = topo_ids[:, s]
+        vn = torch.clamp(v_n, 0, z - 1).long()
+        has = (v_n >= 0)[:, None]
+        present = present | _pack_bits_t(z_mi[vn] & has)
+        blocked = blocked | _pack_bits_t(z_an[vn] & has)
+        global_any = global_any | _pack_bits_t(z_mi.any(dim=0))
+    return present, blocked, global_any
+
+
+def interpod_repair_plain(accept, bid, st: AuctionStatics, topo_ids, term_bits):
+    """Plain version of kernel `auction_interpod`: release the round's
+    within-round anti-affinity conflicts — in each (term, topology value)
+    group holding an accepted CARRIER of the term, only the first accepted
+    involved pod (matching or carrying the term) in solve order stays —
+    then commit the kept pods' term bits.  Returns (kept bool[P], bits)."""
+    table, _, z = st.tm
+    t_dim = table.valid.shape[0]
+    n = topo_ids.shape[0]
+    p = accept.shape[0]
+    nodes = torch.clamp(bid, 0, n - 1).long()
+    topo_pt = topo_ids[nodes]
+    release = torch.zeros_like(accept)
+    pos_p = st.solve_pos[:, None].expand(p, t_dim)
+    for s in used_slots(st.features.term_slots, topo_ids.shape[1]):
+        rel_t, v_p, flat = _term_groups(st, topo_pt, s)
+        involved = ((st.mi_dense | st.anti_dense) & rel_t[None, :]
+                    & accept[:, None] & (v_p >= 0)[:, None])
+        pos = torch.where(involved, pos_p, _BIG_I)
+        minpos = torch.full((z * t_dim,), _BIG_I, dtype=pos.dtype, device=pos.device)
+        minpos = minpos.scatter_reduce(0, flat.reshape(-1), pos.reshape(-1), "amin")
+        carrier = (involved & st.anti_dense).to(torch.int32)
+        c_any = torch.zeros(z * t_dim, dtype=torch.int32, device=pos.device)
+        c_any = c_any.index_add(0, flat.reshape(-1), carrier.reshape(-1)) > 0
+        viol = involved & c_any[flat] & (pos_p > minpos[flat])
+        release = release | viol.any(dim=1)
+    kept = accept & ~release
+    return kept, commit_terms_plain(kept, nodes, st, topo_ids, term_bits)
+
+
 def _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds):
     """The reference's while_loop with host control flow (CPU).  Returns
-    (assigned, bid_scores, requested, nonzero, rounds, spread counts or
-    None)."""
+    (assigned, bid_scores, requested, nonzero, rounds, spread counts, and
+    the inter-pod present, blocked and global_any bits; None for a family
+    the batch does not use)."""
     p = pods.req.shape[0]
     dev = cluster.allocatable.device
     assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
     bid_scores = torch.full((p,), NEG_INF, dtype=torch.float32, device=dev)
     requested, nonzero = cluster.requested, cluster.nonzero_requested
-    use_spread = st.features.spread
+    use_spread, use_terms = st.features.spread, st.features.interpod
     counts = st.sp.state.counts_node.clone() if use_spread else None
+    bits = term_bits_copy(st.tm, st.features)
     rnd, progress = 0, True
     while rnd < max_rounds and progress and bool(((assigned < 0) & pods.valid).any()):
         bid, val = auction_bids_plain(
             cluster, pods, st, requested, nonzero, assigned, rnd, tie_k, cfg,
-            counts,
+            counts, bits,
         )
         accept = auction_decide_plain(
             cluster.allocatable, pods, st.order, bid, requested,
         )
         # a round that only releases still progresses: the released pods
-        # bid again against the raised counts
+        # bid again against the raised counts and bits
         progress = bool(accept.any())
         if use_spread:
             accept, counts = spread_repair_plain(
                 accept, bid, counts, st, cluster.topo_ids,
             )
+        if use_terms:
+            accept, bits = interpod_repair_plain(accept, bid, st, cluster.topo_ids, bits)
         assigned, bid_scores, requested, nonzero = auction_commit_plain(
             pods, accept, bid, val, requested, nonzero, assigned, bid_scores,
         )
         rnd += 1
     return (assigned, bid_scores, requested, nonzero,
-            torch.tensor(rnd, dtype=torch.int32, device=dev), counts)
+            torch.tensor(rnd, dtype=torch.int32, device=dev), counts,
+            *(bits if use_terms else (None, None, None)))
 
 
 def auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds=64):
     """All bidding rounds: (assigned, bid_scores, requested, nonzero,
-    rounds, spread counts or None).  On the CPU the plain loop; on the
-    card `max_rounds` rounds of the kernels are enqueued with no host
-    sync, each launch returning at once when the device's continue flag
-    is down."""
+    rounds, spread counts, inter-pod present, blocked and global_any bits;
+    None for a family the batch does not use).  On the CPU the plain loop;
+    on the card `max_rounds` rounds of the kernels are enqueued with no
+    host sync, each launch returning at once when the device's continue
+    flag is down."""
     if cluster.allocatable.device.type == "cpu":
         return _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds)
     from ..kernels import bindings
@@ -487,7 +622,7 @@ def gang_release(allocatable, pods, assigned, dropped, requested, nonzero):
 
 
 def failure_reasons(cluster, pods, st: AuctionStatics, assigned, requested, nonzero,
-                    sp_counts=None) -> torch.Tensor:
+                    sp_counts=None, term_bits=None) -> torch.Tensor:
     """The reasons pass (plain torch on either device): one staged filter
     pass per class against the final state — the first stage that empties
     the candidate set; a class with survivors at every stage parked on
@@ -511,7 +646,11 @@ def failure_reasons(cluster, pods, st: AuctionStatics, assigned, requested, nonz
         spf_k = spread_filter(sp_f, st.sp.table, st.k_reps.long())  # [K, N]
         f = f & spf_k[st.jcons.long()]
     a_spread = f.any(dim=1)
-    a_inter = a_spread  # no inter-pod stage in this slice
+    if st.features.interpod:
+        ipf_k = interpod_filter(_term_state(st, term_bits), st.tm.table,
+                                st.k_reps.long())                    # [K, N]
+        f = f & ipf_k[st.jcons.long()]
+    a_inter = f.any(dim=1)
     reason_c = torch.where(
         a_inter, REASON_RESOURCES,
         torch.where(
@@ -533,7 +672,7 @@ def auction_assign(
     max_rounds: int = 64,
     features: Optional[FeatureFlags] = None,
     tie_k: Optional[int] = None,
-    topo_z: Optional[int] = None,
+    topo_z: Optional[Tuple[int, int]] = None,
 ) -> AuctionResult:
     """Jointly assign the pending batch on the device its tensors lie on:
     rounds of (bid → per-node prefix acceptance → commit), then the staged
@@ -549,11 +688,12 @@ def auction_assign(
         )
     n = snapshot.cluster.allocatable.shape[0]
     tie_k = min(default_tie_k(snapshot) if tie_k is None else tie_k, n)
-    cluster, pods, st = auction_prep(snapshot, features, topo_z)
-    assigned, bid_scores, requested, nonzero, rounds, sp_counts = auction_rounds(
-        cluster, pods, st, tie_k, cfg, max_rounds,
-    )
-    reasons = failure_reasons(cluster, pods, st, assigned, requested, nonzero, sp_counts)
+    cluster, pods, st = auction_prep(snapshot, features, topo_z, cfg)
+    (assigned, bid_scores, requested, nonzero, rounds, sp_counts,
+     *term_bits) = auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
+    term_bits = tuple(term_bits) if features.interpod else None
+    reasons = failure_reasons(cluster, pods, st, assigned, requested, nonzero, sp_counts,
+                              term_bits)
 
     # gang post-pass: all-or-nothing groups; the release subtracts the
     # dropped pods' requests from each node in pod index order, as the
@@ -575,4 +715,4 @@ def auction_assign(
 
     final = cluster._replace(requested=requested, nonzero_requested=nonzero)
     return AuctionResult(assigned, bid_scores, rounds, gang_dropped, final, reasons,
-                         sp_counts)
+                         sp_counts, term_bits)

@@ -8,6 +8,8 @@ Plain-torch versions of the reference package's scorers.  Implemented:
   RequestedToCapacityRatio          requested_to_capacity_ratio.go
   NodeAffinity (preferred terms)    nodeaffinity/node_affinity.go Score
   TaintToleration (PreferNoSchedule) tainttoleration/taint_toleration.go Score
+  InterPodAffinity (preferred terms) interpodaffinity/scoring.go (normalize_minmax)
+  ImageLocality                     imagelocality/image_locality.go
 
 Go-side scorers run in int64 with truncating division; these mimic that
 with float32 + floor, which is exact for the quantities the schema
@@ -52,8 +54,8 @@ class ScoreConfig:
     # resource indices for BalancedAllocation
     balanced_resources: Tuple[int, ...] = (RESOURCE_CPU, RESOURCE_MEMORY)
     fit_strategy: str = "LeastAllocated"  # or MostAllocated | RequestedToCapacityRatio
-    interpod_weight: float = 2.0         # InterPodAffinity (later slice)
-    image_weight: float = 1.0            # ImageLocality (later slice)
+    interpod_weight: float = 2.0         # InterPodAffinity
+    image_weight: float = 1.0            # ImageLocality
     # RequestedToCapacityRatio shape: (utilization%, score) points,
     # piecewise-linear (requested_to_capacity_ratio.go buildBrokenLinear).
     rtcr_shape: Tuple[Tuple[float, float], ...] = ((0.0, 0.0), (100.0, 10.0))
@@ -262,14 +264,16 @@ def score_from_raw(
     taint_raw: torch.Tensor,
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
     spread_score: torch.Tensor = None,
+    extra: torch.Tensor = None,
 ) -> torch.Tensor:
     """Weighted plugin-score sum with precomputed *raw* static scores
     (hoisted per pod class); normalization stays per step because its
     maxima range over the pod's current feasible set.  spread_score: the
-    already-normalized PodTopologySpread row (ops/topology.py)."""
+    already-normalized PodTopologySpread row (ops/topology.py); extra: the
+    class's already-weighted static extras (static_extra)."""
     fit, bal = resource_score_parts(cluster, pod, cfg)
     return combine_scores(fit, bal, aff_raw, taint_raw, feasible, cfg,
-                          spread_score=spread_score)
+                          spread_score=spread_score, extra=extra)
 
 
 def resource_score_parts(
@@ -293,10 +297,12 @@ def combine_scores(
     feasible: torch.Tensor,
     cfg: ScoreConfig,
     spread_score: torch.Tensor = None,
+    extra: torch.Tensor = None,
 ) -> torch.Tensor:
     """Normalize + weight-sum precomputed score rows over a feasible set
     (the RunScorePlugins NormalizeScore pass, runtime/framework.go:1147).
-    Infeasible nodes score -1."""
+    The extras are added after the spread term, as separate float32 adds
+    (the reference's compiler fuses neither).  Infeasible nodes score -1."""
     aff = normalize(aff_raw, feasible)
     taint = normalize(taint_raw, feasible, reverse=True)
     total = (
@@ -307,4 +313,80 @@ def combine_scores(
     )
     if spread_score is not None:
         total = total + cfg.spread_weight * spread_score
+    if extra is not None:
+        total = total + extra
     return torch.where(feasible, total, -1.0)
+
+
+_IMG_MB = 1024.0 * 1024.0
+_IMG_MIN = 23.0 * _IMG_MB              # minThreshold (image_locality.go)
+_IMG_MAX_PER_CONTAINER = 1000.0 * _IMG_MB
+
+
+def image_locality_score(cluster: ClusterTensors, images, p: int) -> torch.Tensor:
+    """ImageLocality Score, 0..100 per node (imagelocality/image_locality.go):
+    the sum of the pod's image sizes already present on the node, each
+    scaled by its spread ratio (nodes having it / valid nodes), clamped into
+    [23MB, 1000MB x containers] and mapped linearly onto the score range.
+    No NormalizeScore pass.
+
+    Sizes in bytes times node counts leave float32's exact range, so the
+    order of operations is the reference compiler's: (size * count) /
+    n_valid, then the image terms added one after another in slot order
+    (XLA on the CPU reduces the [MI] axis sequentially; a pairwise or
+    reversed sum rounds differently, tests/test_torch_extras.py).  Its
+    multiply-add is not a question: presence is 0 or 1, so each product is
+    exact and a fused add rounds as the plain one does."""
+    ids = images.pod_ids[p]                                     # [MI]
+    active = ids >= 0
+    idc = torch.clamp(ids, 0, images.sizes.shape[0] - 1).long()
+    word, bit = idc // 32, (idc % 32).to(torch.int32)
+    present = ((cluster.image_bits[:, word] >> bit) & 1).to(_F32)   # [N, MI]
+    n_valid = torch.clamp(cluster.node_valid.sum(), min=1).to(_F32)
+    counts = (present * cluster.node_valid[:, None]).sum(dim=0)     # [MI], integers
+    scaled = torch.where(active, images.sizes[idc] * counts / n_valid, 0.0)
+    raw = torch.zeros(present.shape[0], dtype=_F32, device=present.device)
+    for j in range(present.shape[1]):
+        raw = raw + present[:, j] * scaled[j]
+    # the threshold scales with the pod's image-bearing container count
+    n_containers = torch.clamp(images.n_containers[p], min=1.0)
+    lo = _IMG_MIN
+    hi = _IMG_MAX_PER_CONTAINER * n_containers
+    score = _floor(MAX_NODE_SCORE * (torch.minimum(torch.clamp(raw, min=lo), hi) - lo)
+                   / (hi - lo))
+    return torch.where(active.any(), score, 0.0)
+
+
+def normalize_minmax(raw: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
+    """interpodaffinity/scoring.go NormalizeScore: scale to [0, 100] by
+    (raw - min) / (max - min) over the feasible nodes — unlike the default
+    normalizer this handles negative raws (anti-affinity weights); 0 where
+    max == min and outside the feasible set."""
+    big = 1e30
+    mx = torch.max(torch.where(feasible, raw, -big))
+    mn = torch.min(torch.where(feasible, raw, big))
+    span = mx - mn
+    out = torch.where(
+        span > 0, _floor(MAX_NODE_SCORE * (raw - mn) / torch.clamp(span, min=1e-30)), 0.0
+    )
+    return torch.where(feasible, out, 0.0)
+
+
+def static_extra(cluster: ClusterTensors, prefpod, images, features, cfg: ScoreConfig,
+                 rep: int, feasible: torch.Tensor, pp_state=None) -> torch.Tensor:
+    """The hoisted static score extras of one class (preferred inter-pod
+    affinity, normalised over `feasible`, and ImageLocality), already
+    weighted: f32[N].  Each weighted term is its own multiply and add (the
+    reference's compiler fuses neither, tests/test_torch_extras.py);
+    pp_state is prep_pref_pod's output (required with
+    features.interpod_pref)."""
+    from .interpod import pref_pod_raw
+
+    total = torch.zeros(cluster.allocatable.shape[0], dtype=_F32,
+                        device=cluster.allocatable.device)
+    if features.interpod_pref:
+        raw = pref_pod_raw(pp_state, prefpod, rep)
+        total = total + cfg.interpod_weight * normalize_minmax(raw, feasible)
+    if features.images:
+        total = total + cfg.image_weight * image_locality_score(cluster, images, rep)
+    return total

@@ -26,6 +26,13 @@ keys, maxSkew 1-5, hard and soft constraints, minDomains, carriers whose
 own labels do not match their selector, nodes without a zone, matching
 bound pods and gangs); `topology_spreading_objects` is scheduler_perf's
 TopologySpreading workload at any scale.
+
+`interpod_objects`, `prefpod_objects` and `image_objects` build seeded
+batches of required inter-pod (anti-)affinity, preferred inter-pod terms
+and ImageLocality; `pod_anti_affinity_objects`, `pod_affinity_objects`
+and `preferred_affinity_objects` are scheduler_perf's
+SchedulingPodAntiAffinity, SchedulingPodAffinity and (upstream's)
+SchedulingPreferredPodAffinity workloads at any scale.
 """
 
 from __future__ import annotations
@@ -337,3 +344,253 @@ def topology_spreading_objects(wrappers, n_nodes: int, n_init: int, n_measure: i
         for i in range(n_measure)
     ]
     return nodes, init, measured
+
+
+def _term(api, selector, key: str, namespaces=()):
+    return api.PodAffinityTerm(
+        label_selector=api.LabelSelector(match_labels=dict(selector)),
+        topology_key=key, namespaces=list(namespaces),
+    )
+
+
+def _add_terms(api, pod, req_aff=(), req_anti=(), pref_aff=(), pref_anti=()):
+    """Attach inter-pod terms to a pod object: required lists of terms,
+    preferred lists of (weight, term)."""
+    aff = pod.spec.affinity or api.Affinity()
+    if req_aff or pref_aff:
+        aff.pod_affinity = aff.pod_affinity or api.PodAffinity()
+        aff.pod_affinity.required.extend(req_aff)
+        aff.pod_affinity.preferred.extend(
+            api.WeightedPodAffinityTerm(wt, t) for wt, t in pref_aff)
+    if req_anti or pref_anti:
+        aff.pod_anti_affinity = aff.pod_anti_affinity or api.PodAntiAffinity()
+        aff.pod_anti_affinity.required.extend(req_anti)
+        aff.pod_anti_affinity.preferred.extend(
+            api.WeightedPodAffinityTerm(wt, t) for wt, t in pref_anti)
+    pod.spec.affinity = aff
+    return pod
+
+
+def _interpod_nodes(wrappers, rng, n_nodes: int, zones: int = 3, bare: float = 0.1):
+    gi = wrappers.GI
+    nodes = []
+    for i in range(n_nodes):
+        w = wrappers.make_node(f"n{i}").capacity(
+            cpu_milli=int(rng.integers(2, 9)) * 1000, mem=int(rng.integers(4, 33)) * gi,
+            pods=int(rng.integers(4, 110)))
+        if rng.random() >= bare:
+            w = w.zone(f"z{i % zones}")
+        nodes.append(w.obj())
+    return nodes
+
+
+def interpod_objects(wrappers, seed: int, n_nodes: int = 24, n_pods: int = 60,
+                     anti_only: bool = False):
+    """A seeded batch of required inter-pod terms: hostname and zone keys,
+    anti-affinity within and across apps, affinity (with and without a
+    matching bound pod, so the first-pod escape both applies and does
+    not), pods that do not match their own affinity term, terms limited to
+    other namespaces, nodes without a zone, and bound pods that match or
+    carry terms.  anti_only=True leaves the affinity direction out (the
+    auction's families).  Returns (nodes, pending, bound)."""
+    api = wrappers.api
+    mi = wrappers.MI
+    rng = np.random.default_rng(seed)
+    nodes = _interpod_nodes(wrappers, rng, n_nodes)
+    apps = ["a", "b", "c", "d"]
+    keys = [api.LABEL_HOSTNAME, api.LABEL_ZONE]
+    bound = []
+    for i in range(int(rng.integers(0, n_nodes // 2 + 1))):
+        app = str(rng.choice(apps))
+        pod = wrappers.make_pod(f"b{i}", str(rng.choice(["default", "other"]))).label(
+            "app", app).node_name(f"n{int(rng.integers(0, n_nodes))}").obj()
+        if rng.random() < 0.3:
+            _add_terms(api, pod, req_anti=[_term(api, {"app": str(rng.choice(apps))},
+                                                 str(rng.choice(keys)))])
+        bound.append(pod)
+    pending = []
+    for i in range(n_pods):
+        app = str(rng.choice(apps))
+        pod = wrappers.make_pod(f"p{i}").label("app", app).req(
+            cpu_milli=int(rng.integers(1, 10)) * 100, mem=int(rng.integers(1, 16)) * 64 * mi,
+        ).priority(int(rng.integers(0, 3))).obj()
+        r = rng.random()
+        key = str(rng.choice(keys))
+        ns = ("default", "other") if rng.random() < 0.2 else ()
+        if r < 0.35:
+            _add_terms(api, pod, req_anti=[_term(api, {"app": app}, key, ns)])
+        elif r < 0.5:
+            _add_terms(api, pod, req_anti=[_term(api, {"app": str(rng.choice(apps))}, key)])
+        elif r < 0.7 and not anti_only:
+            # self-matching affinity (the first-pod escape applies), or an
+            # affinity to another app (only a present pod satisfies it)
+            target = app if rng.random() < 0.6 else str(rng.choice(apps))
+            _add_terms(api, pod, req_aff=[_term(api, {"app": target}, key, ns)])
+        elif r < 0.8 and not anti_only:
+            _add_terms(api, pod, req_aff=[_term(api, {"app": app}, api.LABEL_ZONE)],
+                       req_anti=[_term(api, {"app": app}, api.LABEL_HOSTNAME)])
+        pending.append(pod)
+    return nodes, pending, bound
+
+
+def prefpod_objects(wrappers, seed: int, n_nodes: int = 24, n_pods: int = 60):
+    """A seeded batch of preferred inter-pod terms: affinity and
+    anti-affinity (negative raws) of weights 1-100 on hostname and zone
+    keys, several terms a pod, bound pods that match them, bound pods that
+    carry preferred terms and required affinity terms (the owner
+    direction, the hard-affinity weight), and pods with no term at all.
+    Returns (nodes, pending, bound)."""
+    api = wrappers.api
+    mi = wrappers.MI
+    rng = np.random.default_rng(seed)
+    nodes = _interpod_nodes(wrappers, rng, n_nodes, zones=4)
+    apps = ["a", "b", "c"]
+    keys = [api.LABEL_HOSTNAME, api.LABEL_ZONE]
+
+    def weighted(k):
+        return [(int(rng.integers(1, 101)),
+                 _term(api, {"app": str(rng.choice(apps))}, str(rng.choice(keys))))
+                for _ in range(k)]
+
+    bound = []
+    for i in range(int(rng.integers(n_nodes // 2, 2 * n_nodes))):
+        pod = wrappers.make_pod(f"b{i}").label("app", str(rng.choice(apps))).node_name(
+            f"n{int(rng.integers(0, n_nodes))}").obj()
+        r = rng.random()
+        if r < 0.25:
+            _add_terms(api, pod, pref_aff=weighted(1), pref_anti=weighted(int(rng.integers(0, 2))))
+        elif r < 0.35:
+            _add_terms(api, pod, req_aff=[_term(api, {"app": str(rng.choice(apps))},
+                                                str(rng.choice(keys)))])
+        bound.append(pod)
+    pending = []
+    for i in range(n_pods):
+        pod = wrappers.make_pod(f"p{i}").label("app", str(rng.choice(apps))).req(
+            cpu_milli=int(rng.integers(1, 10)) * 100, mem=int(rng.integers(1, 16)) * 64 * mi,
+        ).obj()
+        if rng.random() < 0.8:
+            _add_terms(api, pod, pref_aff=weighted(int(rng.integers(0, 3))),
+                       pref_anti=weighted(int(rng.integers(0, 3))))
+        pending.append(pod)
+    return nodes, pending, bound
+
+
+# ImageLocality's clamps: images straddle the 23 MB threshold and the
+# 1000 MB a container ceiling
+IMAGE_SIZES_MB = (1, 22, 23, 24, 150, 480, 999, 1000, 1001, 1900, 2600, 3800)
+
+
+def image_objects(wrappers, seed: int, n_nodes: int = 24, n_pods: int = 60,
+                  n_images: int = 8):
+    """A seeded ImageLocality batch (a synthetic check, not a user
+    workload): nodes hold a few of `n_images` images whose sizes straddle
+    the 23 MB and 1000 MB x containers clamps (whole MB and odd byte
+    counts, so sums leave float32's exact range); pods run one to three
+    containers, some with init containers, some images unknown to every
+    node.  Returns (nodes, pending, [])."""
+    api = wrappers.api
+    mi = wrappers.MI
+    rng = np.random.default_rng(seed)
+    mb = 1024 * 1024
+    sizes = [int(rng.choice(IMAGE_SIZES_MB)) * mb + int(rng.integers(0, mb))
+             for _ in range(n_images)]
+    nodes = []
+    for i in range(n_nodes):
+        w = wrappers.make_node(f"n{i}").capacity(cpu_milli=8000, mem=32 * wrappers.GI,
+                                                 pods=110).zone(f"z{i % 3}")
+        for k in range(n_images):
+            if rng.random() < 0.35:
+                w = w.image(f"img{k}:v1", sizes[k])
+        nodes.append(w.obj())
+    pending = []
+    for i in range(n_pods):
+        pod = wrappers.make_pod(f"p{i}").req(
+            cpu_milli=int(rng.integers(1, 10)) * 100, mem=int(rng.integers(1, 16)) * 64 * mi,
+        ).obj()
+        n_c = int(rng.integers(1, 4))
+        pod.spec.containers = [
+            api.Container(name=f"c{j}", image=f"img{int(rng.integers(0, n_images + 2))}:v1",
+                          requests=dict(pod.spec.containers[0].requests) if j == 0 else {})
+            for j in range(n_c)
+        ]
+        if rng.random() < 0.3:
+            pod.spec.init_containers = [
+                api.Container(name="init", image=f"img{int(rng.integers(0, n_images))}:v1")]
+        pending.append(pod)
+    return nodes, pending, []
+
+
+def _perf_nodes(wrappers, n_nodes: int):
+    """node-default.yaml's nodes as scheduler_perf names them."""
+    gi = wrappers.GI
+    return [
+        wrappers.make_node(f"scheduler-perf-{i}")
+        .capacity(cpu_milli=4000, mem=32 * gi, pods=110)
+        .zone(f"zone-{i % 8}").obj()
+        for i in range(n_nodes)
+    ]
+
+
+def _perf_pods(wrappers, n: int, prefix: str, namespace: str, color: str, terms):
+    """n pods of a scheduler_perf inter-pod template: label color, 100m /
+    500Mi, each given its own copy of `terms(api)` (req_aff, req_anti,
+    pref_aff, pref_anti keyword lists)."""
+    api = wrappers.api
+    mi = wrappers.MI
+    return [
+        _add_terms(api, wrappers.make_pod(f"{prefix}{i}", namespace).label("color", color)
+                   .req(cpu_milli=100, mem=500 * mi).obj(), **terms(api))
+        for i in range(n)
+    ]
+
+
+SCHED_NAMESPACES = ("sched-1", "sched-0")
+
+
+def pod_anti_affinity_objects(wrappers, n_nodes: int, n_init: int, n_measure: int):
+    """scheduler_perf's SchedulingPodAntiAffinity workload
+    (kubernetes_tpu/perf/config/performance-config.yaml:30-58,
+    pod-with-pod-anti-affinity.yaml): node-default nodes; init pods in
+    namespace sched-0 and measured pods in sched-1, both of the template:
+    label color=green, required anti-affinity to color=green on
+    kubernetes.io/hostname over namespaces [sched-1, sched-0], 100m /
+    500Mi.  Returns (nodes, init_pods, measured_pods)."""
+    def terms(api):
+        return {"req_anti": [_term(api, {"color": "green"}, api.LABEL_HOSTNAME,
+                                   SCHED_NAMESPACES)]}
+
+    return (_perf_nodes(wrappers, n_nodes),
+            _perf_pods(wrappers, n_init, "anti-affinity-pod-", "sched-0", "green", terms),
+            _perf_pods(wrappers, n_measure, "anti-affinity-pod-", "sched-1", "green", terms))
+
+
+def pod_affinity_objects(wrappers, n_nodes: int, n_init: int, n_measure: int):
+    """scheduler_perf's SchedulingPodAffinity workload
+    (performance-config.yaml:60-88, pod-with-pod-affinity.yaml):
+    node-default nodes; init pods in sched-0 and measured pods in sched-1
+    of the template: label color=blue, required affinity to color=blue on
+    topology.kubernetes.io/zone over namespaces [sched-1, sched-0], 100m /
+    500Mi.  Returns (nodes, init_pods, measured_pods)."""
+    def terms(api):
+        return {"req_aff": [_term(api, {"color": "blue"}, api.LABEL_ZONE, SCHED_NAMESPACES)]}
+
+    return (_perf_nodes(wrappers, n_nodes),
+            _perf_pods(wrappers, n_init, "affinity-pod-", "sched-0", "blue", terms),
+            _perf_pods(wrappers, n_measure, "affinity-pod-", "sched-1", "blue", terms))
+
+
+def preferred_affinity_objects(wrappers, n_nodes: int, n_init: int, n_measure: int):
+    """Upstream scheduler_perf's SchedulingPreferredPodAffinity shape
+    (test/integration/scheduler_perf/config/performance-config.yaml,
+    template pod-with-preferred-pod-affinity.yaml, which this repo does
+    not carry): SchedulingPodAffinity's counts and namespaces with the
+    template's term moved under preferredDuringScheduling, weight 1, on
+    kubernetes.io/hostname over color=red; pods labelled color=red.
+    Returns (nodes, init_pods, measured_pods)."""
+    def terms(api):
+        return {"pref_aff": [(1, _term(api, {"color": "red"}, api.LABEL_HOSTNAME,
+                                       SCHED_NAMESPACES))]}
+
+    return (_perf_nodes(wrappers, n_nodes),
+            _perf_pods(wrappers, n_init, "preferred-affinity-pod-", "sched-0", "red", terms),
+            _perf_pods(wrappers, n_measure, "preferred-affinity-pod-", "sched-1", "red", terms))

@@ -126,12 +126,17 @@ def test_gang_release():
 
 @pytest.mark.parametrize("family", ["spread", "anti-affinity", "pref-interpod", "image"])
 def test_unported_families_raise(family):
-    nodes = [jw.make_node(f"n{i}").zone(f"z{i}").image("app:v1").obj() for i in range(3)]
+    """Every family of the parametrisation is ported; a batch that mixes
+    one with the one unported family (TPU slice carve-outs: shaped pods on
+    slice-labelled nodes) still raises, and is never solved with that
+    family dropped."""
+    nodes = [jw.make_node(f"n{i}").zone(f"z{i}").image("app:v1")
+             .label(japi.LABEL_TPU_SLICE, "s0").label(japi.LABEL_TPU_TOPOLOGY, "2x2x1")
+             .label(japi.LABEL_TPU_COORDS, f"{i % 2},{i // 2},0").obj() for i in range(3)]
     pod = jw.make_pod("p").req(cpu_milli=100)
+    pod.pod.spec.tpu_topology = "2x1x1"
     if family == "spread":
-        # spread is ported: a batch that mixes it with an unported family
-        # still raises, and is never solved with that family dropped
-        pod = pod.spread(selector={"app": "a"}).pod_anti_affinity({"app": "a"})
+        pod = pod.spread(selector={"app": "a"})
     elif family == "anti-affinity":
         pod = pod.pod_anti_affinity({"app": "a"})
     elif family == "pref-interpod":
@@ -141,7 +146,10 @@ def test_unported_families_raise(family):
         pod = pod.image("app:v1")
     snap, _ = jschema.SnapshotBuilder().build(nodes, [pod.obj()])
     tsnap = dv.to_device(dv.snapshot_from_numpy(snap), "cpu")
-    with pytest.raises(NotImplementedError):
+    features = tassign.features_of(tsnap)
+    assert features.slices and any(getattr(features, f) for f in (
+        "spread", "interpod", "interpod_pref", "images"))
+    with pytest.raises(NotImplementedError, match="slice carve-outs"):
         tassign.greedy_assign(tsnap)
 
 

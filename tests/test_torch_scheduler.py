@@ -159,11 +159,17 @@ def test_modes():
 
 
 def test_unported_family_raises_through_the_scheduler():
+    """A slice carve-out batch (shaped pods on slice-labelled nodes, the
+    one unported family) raises through the scheduler."""
     ts = TorchBatchScheduler(device="cpu")
-    nodes = basic_nodes(tw, 4)
-    pods = [tw.make_pod("s").pod_anti_affinity({"app": "a"}).obj()]
-    with pytest.raises(NotImplementedError, match="InterPodAffinity"):
-        ts.schedule(nodes, pods)
+    nodes = [n for n in basic_nodes(tw, 4)]
+    for i, n in enumerate(nodes):
+        n.meta.labels.update({tw.api.LABEL_TPU_SLICE: "s0", tw.api.LABEL_TPU_TOPOLOGY: "2x2x1",
+                              tw.api.LABEL_TPU_COORDS: f"{i % 2},{i // 2},0"})
+    pod = tw.make_pod("s").pod_anti_affinity({"app": "a"}).obj()
+    pod.spec.tpu_topology = "2x1x1"
+    with pytest.raises(NotImplementedError, match="slice carve-outs"):
+        ts.schedule(nodes, [pod])
 
 
 def test_reservations_overlay_usage():
