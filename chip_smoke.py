@@ -1,10 +1,13 @@
 """Drive the torch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--log PATH]
 
-Phases (one JSON line each on stdout):
+Every TorchBatchScheduler below runs the reference's default
+configuration: the resident cluster mirror and the warm partials on
+(use_mirror=False is the cold path).  Phases (one JSON line each on
+stdout; with --log also appended to PATH):
 
-  build      build the nine CUDA kernels from kubernetes_tpu_torch/csrc
+  build      build the eleven CUDA kernels from kubernetes_tpu_torch/csrc
   parity     each kernel against its plain torch version, exact (on the
              card, or on CPU copies of the inputs where the plain version
              adds in pod index order: the scan, the wavefront and the
@@ -20,15 +23,19 @@ Phases (one JSON line each on stdout):
              affinity-direction terms (some also against the plain loop on
              the CPU, among them a gang released past float32's exact
              range); class_extras on the scan's and the auction's pairs
+  resident_parity
+             partials_eval and mirror_rows against their plain versions on
+             the mixed and family batches (a warm scheduler's store, column
+             refreshes, a delta sync against the state) and on random leaves
   main       SchedulingBasic/5000Nodes through TorchBatchScheduler() on its
              default route: 5,000 nodes, 1,000 init pods scheduled and
              assumed, then a measured 1,000-pod batch; both pad to 1,024
-             pods and take the auction
+             pods and take the auction (cold statics, the mirror's delta)
   greedy     the same measured batch through TorchBatchScheduler(
-             mode="greedy", use_wavefront=False): the classic scan
+             mode="greedy", use_wavefront=False): the classic scan, warm
   wavefront  SchedulingNodeAffinity/5000Nodes: 5,000 nodes, 1,000 init and
              1,000 measured pods with a required zone affinity, in batches
-             of 500 (padded to 512: the wavefront route)
+             of 500 (padded to 512: the wavefront route, warm)
   spread     TopologySpreading/5000Nodes: 5,000 nodes, 5,000 init pods
              (padded to 8,192: the auction) scheduled and assumed, then the
              2,000 measured pods of maxSkew 5 on the zone (padded to 2,048:
@@ -55,23 +62,43 @@ Phases (one JSON line each on stdout):
              pods; the auction and the scan), every batch equal to the plain
              path on the CPU; class_extras and the plain-torch prep_pref_pod
              timed at these shapes
+  resident   the same batches through TorchBatchScheduler() (warm) and
+             TorchBatchScheduler(use_mirror=False) (cold), every batch equal
+             field for field: SchedulingNodeAffinity/5000Nodes in 500-pod
+             batches (the first a full upload and a full partials_eval, each
+             later one a delta sync of exactly the rows the state dirtied;
+             after the second, node-default nodes until the bucket moves
+             past 8,192: an in-place grow, no full upload, no partials
+             reseed) and SchedulingWithMixedChurn/5000Nodes (400 measured
+             and the 100 recreated churn pods a batch, each refused with the
+             fit reason; on the wavefront and on the scan); per batch the
+             step split, both residents' counters and the host->card bytes
   kernels    each kernel against its plain version at the shapes of the
              phase that launches it, exact, timed with CUDA events, with
-             the bound of its work on this run's data
+             the bound of its work on this run's data (partials_eval over
+             every column and over 500, mirror_rows for a 500-row usage and
+             a 64-row static delta, with index_copy_ a leaf as its library
+             call; the plain-torch gather, grows and packed copy)
   small      SchedulingBasic/500Nodes on the card against the plain path on
              the CPU, default route: identical placements and scores
-  north      one 10,000-pod batch onto 50,000 nodes (the auction)
+  north      one 10,000-pod batch onto 50,000 nodes (the auction), then a
+             second 10,000-pod batch after the first one's assumes: a delta
+             sync of the assumed rows, warm against cold
 
-In main, greedy, wavefront and each part of spread, interpod and extras
-the launch counters are reset just before the part and read just after;
-each fails unless every kernel of its route was launched and no kernel of
-another route was (auction_spread and auction_interpod belong to the
-auction route of a spread / inter-pod batch only, class_extras to a batch
-with preferred inter-pod terms or images).  Then the
-card's name and power limit, the `kernels` summary object, and as the
-last line {"ok": true, "device": {...}}.  Any failed check raises and the
-script exits non-zero; with no CUDA device it exits non-zero and prints no
-result.
+In every part of main, greedy, wavefront, spread, interpod, extras,
+resident and north the launch counters are reset just before the part and
+read just after; the kernels expected are derived from the batches the
+part's schedulers encoded (route_kernels): the route's own — warm statics
+drop match_terms (kept for the spread family's selector mask) and
+class_statics —, the families' (auction_spread and auction_interpod on the
+auction of a spread / inter-pod batch, class_extras with preferred
+inter-pod terms or images) and the residents' (partials_eval,
+mirror_rows, each launched exactly as often as the residents recorded).
+Each part fails unless every expected kernel was launched and no other.
+Then the card's name and power limit, the `kernels` summary object, and
+as the last line {"ok": true, "device": {...}}.  Any failed check raises
+and the script exits non-zero; with no CUDA device it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -111,6 +138,12 @@ ANTI = (5000, 1000, 1000)
 AFFINITY_POD = (5000, 1000, 1000)
 PREFERRED = (5000, 1000, 1000)
 IMAGES = (5000, 1000)
+# SchedulingWithMixedChurn/5000Nodes (performance-config.yaml:163-188):
+# (nodes, measured pod-default pods); each batch holds 400 measured pods and
+# the 100 recreated pod-large-cpu.yaml churn pods (500 -> pad 512: the
+# wavefront; the same batches also on the scan)
+CHURN = (5000, 2000)
+CHURN_MEASURED_BATCH, CHURN_PODS = 400, 100
 
 # H100 SXM published peaks (NVIDIA data sheet: HBM3 rate, non-tensor float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
@@ -135,23 +168,38 @@ SOURCES = {
                          "kubernetes_tpu/ops/auction.py:587"),
     "class_extras": ("kubernetes_tpu_torch/csrc/class_extras.cu",
                      "kubernetes_tpu/ops/scores.py:337"),
+    "partials_eval": ("kubernetes_tpu_torch/csrc/partials_eval.cu",
+                      "kubernetes_tpu/ops/partials.py:203"),
+    "mirror_rows": ("kubernetes_tpu_torch/csrc/mirror_rows.cu",
+                    "kubernetes_tpu/models/mirror.py:81"),
 }
 
-# the kernels each route launches (match_terms and class_statics: all);
-# "auction_spread" is the auction route of a batch with the spread family
-# (route_kernels adds the inter-pod and extras kernels from a batch's
-# features)
+# the kernels each route launches with cold statics (match_terms and
+# class_statics: all); route_kernels derives a batch's kernels from its
+# meta: warm statics (the partials) drop match_terms and class_statics
+# (match_terms stays with the spread family), the families add theirs, and
+# the residents' recorded launches add partials_eval and mirror_rows
 _AUCTION = ("match_terms", "class_statics", "auction_bids", "auction_accept")
 ROUTE_KERNELS = {
     "greedy": ("match_terms", "class_statics", "greedy_scan"),
     "wavefront": ("match_terms", "class_statics", "wavefront"),
     "auction": _AUCTION,
-    "auction_spread": _AUCTION + ("auction_spread",),
 }
+# kernels the residents launch while a batch is encoded
+RESIDENT_KERNELS = ("partials_eval", "mirror_rows")
+
+
+# `--log PATH`: every emitted line is also appended there (the phases'
+# lines can outgrow the end of the output a caller keeps)
+LOG = None
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LOG is not None:
+        with open(LOG, "a") as f:
+            f.write(line + "\n")
 
 
 def card_line() -> str:
@@ -602,18 +650,27 @@ def bound(need_bytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def drive_phase(name, route, fn, bindings, want=None):
+def drive_phase(name, fn, bindings, scheds):
     """Run fn() with every launch counter at 0 and check the counters just
-    after: every kernel of `route` launched and no other — or, given
-    `want`, every kernel of want(fn's output) and no other."""
+    after against the batches `scheds` (recording schedulers) encoded
+    meanwhile: every kernel their routes, families and residents launch
+    (route_kernels) was launched and no other, and each resident kernel
+    exactly as many times as the residents recorded."""
     import torch
 
+    marks = [len(s.metas) for s in scheds]
     torch.cuda.synchronize()
     bindings.reset_launches()
     out = fn()
     torch.cuda.synchronize()
     launches = dict(bindings.LAUNCHES)
-    check_launches(name, launches, want(out) if want else set(ROUTE_KERNELS[route]))
+    metas = [m for s, k in zip(scheds, marks) for m in s.metas[k:]]
+    check_launches(name, launches, set().union(*(route_kernels(m) for m in metas)))
+    for k in RESIDENT_KERNELS:
+        want = sum((m.resident_launches or {}).get(k, 0) for m in metas)
+        if launches[k] != want:
+            raise AssertionError(f"phase {name}: kernel {k} launched {launches[k]} times, "
+                                 f"the residents recorded {want}")
     return out, launches
 
 
@@ -638,6 +695,9 @@ def affinity_pods(wrappers, n_pods: int, prefix: str):
 
 
 def main() -> int:
+    global LOG
+    if "--log" in sys.argv:
+        LOG = sys.argv[sys.argv.index("--log") + 1]
     try:
         import torch
     except ImportError:
@@ -651,6 +711,7 @@ def main() -> int:
         from kubernetes_tpu_torch.kernels import bindings, build
         from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
         from kubernetes_tpu_torch.ops import assign, auction, device as dv, filters
+        from kubernetes_tpu_torch.ops import partials as pops
         from kubernetes_tpu_torch.testing import wrappers
     except ImportError as exc:
         print(f"chip_smoke: the kubernetes_tpu_torch package is missing ({exc})",
@@ -659,6 +720,7 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    TorchBatchScheduler = recording(TorchBatchScheduler)
 
     # ---- build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -668,6 +730,7 @@ def main() -> int:
 
     # ---- parity on small batches ------------------------------------------
     parity_phase(wrappers, assign, auction, dv, filters, bindings, torch)
+    resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch)
 
     # ---- main path: SchedulingBasic/5000Nodes, default route ---------------
     sched = TorchBatchScheduler()
@@ -697,7 +760,7 @@ def main() -> int:
         timing["measured_s"] = time.perf_counter() - t
         return init_names, names
 
-    (init_names, names), main_launches = drive_phase("main", "auction", run_main, bindings)
+    (init_names, names), main_launches = drive_phase("main", run_main, bindings, [sched])
     if any(n is None for n in names):
         raise AssertionError("a measured pod was not placed")
     rounds = int(sched.last_result.rounds)
@@ -727,7 +790,7 @@ def main() -> int:
         timing["greedy_s"] = time.perf_counter() - t
         return out
 
-    gnames, greedy_launches = drive_phase("greedy", "greedy", run_greedy, bindings)
+    gnames, greedy_launches = drive_phase("greedy", run_greedy, bindings, [gsched])
     if gmeta.route != "greedy" or any(n is None for n in gnames):
         raise AssertionError("greedy: wrong route or an unplaced pod")
     emit({"phase": "greedy", "workload": "SchedulingBasic/5000Nodes (measured batch)",
@@ -770,7 +833,7 @@ def main() -> int:
                     "encode_s": wsched.last_timings["encode_s"],
                 })
 
-    _, wave_launches = drive_phase("wavefront", "wavefront", run_wavefront_phase, bindings)
+    _, wave_launches = drive_phase("wavefront", run_wavefront_phase, bindings, [wsched])
     check_capacity(wsched.state)
     meas = [b for b in wave["batches"] if b["batch"] == "measured"]
     meas_s = sum(b["s"] for b in meas)
@@ -791,7 +854,13 @@ def main() -> int:
     extras_row, prep_pref_pod_row = extras_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
 
+    # ---- the residents: warm against cold at full width ---------------------
+    resident_launches = resident_phase(
+        wrappers, TorchBatchScheduler, bindings, torch, card)
+
     # ---- each kernel against its plain version at its phase's shapes -------
+    resident_rows, resident_extra = time_resident_kernels(wsched, dv, wrappers, pops, bindings,
+                                                          torch)
     summary = run_kernels(
         snap_k, meta_k.features, meta_k.n_groups, sched.score_config,
         assign, filters, bindings, torch, timed=True,
@@ -811,6 +880,9 @@ def main() -> int:
     summary.append(dict(row, launches=spread_launches["auction_spread"]))
     summary.append(next(r for r in interpod_rows if r["name"] == "auction_interpod"))
     summary.append(extras_row)
+    for name, shape in (("partials_eval", "full"), ("mirror_rows", "usage500")):
+        row = next(r for r in resident_rows if r["name"] == name and r["shape"].startswith(shape))
+        summary.append(dict(row, launches=resident_launches[name]))
     order_ms = cuda_ms(lambda: assign.solve_order(snap_k.pods), 50, torch)
     order_bound = bound(*solve_order_need(snap_k.pods))
     emit({"phase": "kernels", "card": card,
@@ -821,9 +893,13 @@ def main() -> int:
                      "auction_spread": "TopologySpreading/5000Nodes measured batch",
                      "auction_interpod": "SchedulingPodAntiAffinity/5000Nodes measured batch",
                      "class_extras": "the preferred-affinity variant's measured batch "
-                                     "(the auction's class pairs)"},
+                                     "(the auction's class pairs)",
+                     "partials_eval, mirror_rows": "the wavefront phase's warm "
+                                                   "SchedulingNodeAffinity/5000Nodes scheduler "
+                                                   "(8,192 padded nodes, 32 slots)"},
           "kernels": [dict({k: row[k] for k in ("name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")},
                            equal=True) for row in summary],
+          "resident_kernels": resident_rows, "resident_torch": resident_extra,
           "solve_order": {"ms": order_ms, "bound_ms": order_bound[0], "bound_by": order_bound[1]},
           "prep_terms": prep_terms_row, "prep_pref_pod": prep_pref_pod_row})
 
@@ -861,18 +937,50 @@ def main() -> int:
         timing["north_s"] = time.perf_counter() - t
         return out
 
-    got, north_launches = drive_phase("north", "auction", run_north, bindings)
+    got, north_launches = drive_phase("north", run_north, bindings, [big])
     if any(n is None for n in got):
         raise AssertionError("north star: a pod was not placed")
     north_rounds = int(big.last_result.rounds)
     for pod, name in zip(pods, got):
         big.assume(pod, name)
     check_capacity(big.state)
-    emit({"phase": "north", "nodes": NORTH[0], "pods": NORTH[2], "route": "auction",
-          "add_nodes_s": t_nodes, "batch_s": timing["north_s"],
-          "pods_per_s": len(pods) / timing["north_s"], "rounds": north_rounds,
-          "solve_s": big.last_timings["solve_s"], "last_timings": big.last_timings,
-          "launches": north_launches, "card": card})
+    north = {"phase": "north", "nodes": NORTH[0], "pods": NORTH[2], "route": "auction",
+             "add_nodes_s": t_nodes, "batch_s": timing["north_s"],
+             "pods_per_s": len(pods) / timing["north_s"], "rounds": north_rounds,
+             "solve_s": big.last_timings["solve_s"], "last_timings": big.last_timings,
+             "transfer_bytes": big.metas[-1].transfer_bytes, "launches": north_launches,
+             "card": card}
+
+    # the second batch: the first one's placements assumed, another 10,000
+    # pods, warm (a delta sync of the rows the assumes dirtied) against cold
+    bigc = TorchBatchScheduler(use_mirror=False)
+    for node in make_cluster(wrappers, NORTH[0]):
+        bigc.add_node(node)
+    for pod, name in zip(pods, got):
+        bigc.assume(pod, name)
+    pods2 = make_pods(wrappers, NORTH[2], "burst2")
+    before = big._mirror.stats()
+    want_rows = len(set(got))
+
+    def run_north2():
+        return solve_pair("north/second", big, bigc, pods2, torch)
+
+    (names2, rw, rc, meta2), north2_launches = drive_phase("north/second", run_north2,
+                                                           bindings, [big, bigc])
+    after = big._mirror.stats()
+    if (meta2.route != "auction" or after["resync_total"] != before["resync_total"]
+            or after["delta_syncs"] != before["delta_syncs"] + 1
+            or after["delta_rows_total"] - before["delta_rows_total"] != want_rows):
+        raise AssertionError(f"north/second: not a delta sync of {want_rows} rows "
+                             f"({before} -> {after}, route {meta2.route})")
+    if any(n is None for n in names2):
+        raise AssertionError("north star: a second-batch pod was not placed")
+    for pod, name in zip(pods2, names2):
+        big.assume(pod, name)
+    check_capacity(big.state)
+    north["second"] = {"delta_rows": want_rows, "padded_nodes": big.state.node_axis_bucket,
+                       "warm": rw, "cold": rc, "launches": north2_launches}
+    emit(north)
 
     print(card, flush=True)
     kernels = []
@@ -883,7 +991,7 @@ def main() -> int:
             "replaces": replaces, "launches": row["launches"],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -997,6 +1105,97 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> Non
     if not fallbacks:
         raise AssertionError("parity: no wavefront fallback was exercised")
     emit({"phase": "parity", "cases": checked, "wavefront_fallbacks": fallbacks, "exact": True})
+
+
+def resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch) -> None:
+    """partials_eval and mirror_rows against their plain versions on the
+    parity batches (mixed seeds 0-5 and the family batches), exact: each
+    batch encoded by a warm TorchBatchScheduler(mode="greedy") on the card;
+    its resident store equals the plain evaluation of every slot over every
+    column, and kernel refreshes of random column subsets equal the plain
+    ones; after a few assumes a delta sync (mirror_rows) leaves the
+    resident cluster equal to the state's tensors and the store equal to a
+    full recompute; then mirror_rows on random leaves of every dtype and
+    both row axes."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import schema
+    from kubernetes_tpu_torch.testing.cases import mixed_objects
+
+    cases = [mixed_objects(wrappers, seed) for seed in range(6)]
+    cases += [c for _label, c in family_cases(wrappers)]
+    checked = {"stores": 0, "refreshes": 0, "deltas": 0, "leaves": 0}
+    for k, (nodes, pending, bound_pods) in enumerate(cases):
+        sched = TorchBatchScheduler(mode="greedy")
+        for node in nodes:
+            sched.add_node(node)
+        for pod in bound_pods:
+            sched.assume(pod, pod.spec.node_name)
+        snap, meta = sched.encode_pending(pending)
+        if meta.statics is None:
+            raise AssertionError(f"resident parity {k}: the batch ran cold")
+        cl, specs, store = sched._mirror.sync(), sched._partials._specs, sched._partials._store
+        g = specs.valid.shape[0]
+        slots = torch.arange(g, dtype=torch.int32, device="cuda")
+        check_equal(f"partials_eval (parity {k}, full)", tuple(store),
+                    pops.eval_cols_plain(cl, specs, slots, None), torch)
+        checked["stores"] += 1
+        rng = np.random.default_rng(300 + k)
+        n = cl.allocatable.shape[0]
+        for size in (1, max(1, n // 3), n):
+            cols = torch.from_numpy(rng.choice(n, size, replace=False).astype(np.int32)).cuda()
+            fresh = pops.refresh_rows(pops.PartialsStore(*(torch.zeros_like(t) for t in store)),
+                                      specs, cl, cols)
+            check_equal(f"partials_eval (parity {k}, {size} columns)",
+                        tuple(t[:, cols.long()] for t in fresh),
+                        pops.eval_cols_plain(cl, specs, slots, cols), torch)
+            checked["refreshes"] += 1
+        names = sched.solve_encoded(snap, meta)
+        placed = [(pod, name) for pod, name in zip(pending, names) if name is not None][:3]
+        for pod, name in placed:
+            sched.assume(pod, name)
+        sched.encode_pending([wrappers.make_pod("resident-probe")
+                              .req(cpu_milli=100, mem=wrappers.MI).obj()])
+        if placed and sched._mirror.last_sync != "delta":
+            raise AssertionError(f"resident parity {k}: {sched._mirror.last_sync}, not a delta")
+        dev = sched._mirror.sync()
+        for f, want in zip(schema.ClusterTensors._fields, sched.state.tensors()):
+            got = getattr(dev, f).cpu().numpy()
+            if not np.array_equal(got, dv._canon(want)):
+                raise AssertionError(f"resident parity {k}: leaf {f} differs from the state")
+        if not sched._partials.verify(dev):
+            raise AssertionError(f"resident parity {k}: the store differs from a full recompute")
+        checked["deltas"] += bool(placed)
+    # random leaves, every dtype, node axis 0 and 1
+    rng = np.random.default_rng(7)
+    stage = dv.PinnedStage()
+    for n in (8, 37, 8192):
+        targets_k, targets_p = [], []
+        for shape, dtype, ax in (((n, 4), np.float32, 0), ((n,), np.bool_, 0),
+                                 ((n, 3), np.int32, 0), ((n, 128), np.uint32, 0),
+                                 ((3, n, 8), np.uint32, 1), ((3, n), np.bool_, 1)):
+            d = int(rng.integers(1, min(n, 600)))
+            idx = np.sort(rng.choice(n, d, replace=False)).astype(np.int32)
+            vshape = list(shape)
+            vshape[ax] = d
+            if dtype == np.bool_:
+                base, vals = rng.random(shape) < 0.5, rng.random(vshape) < 0.5
+            elif dtype == np.float32:
+                base = rng.standard_normal(shape).astype(np.float32)
+                vals = rng.standard_normal(vshape).astype(np.float32)
+            else:
+                base = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(dtype)
+                vals = rng.integers(0, 2**32, vshape, dtype=np.uint64).astype(dtype)
+            dst = torch.from_numpy(dv._canon(base).copy()).cuda()
+            targets_k.append(dv.RowTarget(dst, ax, idx, vals))
+            targets_p.append(dv.RowTarget(dst.clone(), ax, idx, vals))
+        dv.set_rows(targets_k, stage, torch.device("cuda"))
+        buf, lay, _units = dv.pack_rows(targets_p, stage, torch.device("cuda"))
+        dv.set_rows_plain(buf, targets_p, lay)
+        check_equal(f"mirror_rows (random leaves, {n} rows)", tuple(t.dst for t in targets_k),
+                    tuple(t.dst for t in targets_p), torch)
+        checked["leaves"] += len(targets_k)
+    torch.cuda.synchronize()
+    emit({"phase": "resident_parity", "cases": checked, "exact": True})
 
 
 def family_cases(wrappers):
@@ -1134,8 +1333,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
         timing["measured_s"] = time.perf_counter() - t
         return init_names, names
 
-    (init_names, names), launches = drive_phase("spread", "auction_spread", run_default,
-                                                bindings)
+    (init_names, names), launches = drive_phase("spread", run_default, bindings, [sched])
     snap, meta = timing["snap"]
     res = sched.last_result
     rounds = int(res.rounds)
@@ -1172,7 +1370,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
         timing["greedy_s"] = time.perf_counter() - t
         return got
 
-    gnames, glaunches = drive_phase("spread/greedy", "greedy", run_scan, bindings)
+    gnames, glaunches = drive_phase("spread/greedy", run_scan, bindings, [gsched])
     gsnap, gmeta = timing["gsnap"]
     check_cpu("greedy", gsnap, gmeta, gsched.last_result)
     out["greedy"] = {"measured_s": timing["greedy_s"],
@@ -1208,7 +1406,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
                 if name is not None:
                     wsched.assume(pod, name)
 
-    _, wlaunches = drive_phase("spread/wavefront", "wavefront", run_waves, bindings)
+    _, wlaunches = drive_phase("spread/wavefront", run_waves, bindings, [wsched])
     for k, (s, m, r) in enumerate(wave["solves"]):
         check_cpu(f"wavefront{k}", s, m, r)
     wsec = sum(b["s"] for b in wave["batches"])
@@ -1235,7 +1433,7 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
         timing["soft_s"] = time.perf_counter() - t
         return got
 
-    snames, slaunches = drive_phase("spread/soft", "auction_spread", run_soft, bindings)
+    snames, slaunches = drive_phase("spread/soft", run_soft, bindings, [ssched])
     ssnap, smeta = timing["ssnap"]
     check_cpu("soft", ssnap, smeta, ssched.last_result)
     out["soft"] = {"template": "pod-with-topology-spreading.yaml with whenUnsatisfiable: "
@@ -1312,12 +1510,19 @@ def solve_route(route, snap, meta, assign, auction, cfg):
 
 
 def route_kernels(meta) -> set:
-    """The kernels a batch's solve launches, from its route and families:
-    the route's own, auction_spread / auction_interpod on the auction with
-    the spread / inter-pod family, class_extras with preferred inter-pod
-    terms or images."""
+    """The kernels a batch launches, from its meta: the route's own; with
+    warm statics (meta.statics, the resident partials) no class_statics and
+    no match_terms unless the spread family needs the selector mask;
+    auction_spread / auction_interpod on the auction with the spread /
+    inter-pod family; class_extras with preferred inter-pod terms or
+    images; and the kernels the residents launched while encoding it."""
     f = meta.features
     kernels = set(ROUTE_KERNELS[meta.route])
+    if meta.statics is not None:
+        kernels -= {"match_terms", "class_statics"}
+        if f.spread:
+            kernels.add("match_terms")
+    kernels |= {k for k, v in (meta.resident_launches or {}).items() if v}
     if meta.route == "auction":
         kernels |= {"auction_spread"} if f.spread else set()
         kernels |= {"auction_interpod"} if f.interpod else set()
@@ -1352,9 +1557,7 @@ def drive_workload(name, sched, batches, bindings, torch):
                     sched.assume(pod, node)
         return out
 
-    recs, launches = drive_phase(
-        name, None, run, bindings,
-        want=lambda recs: set().union(*(route_kernels(r["meta"]) for r in recs)))
+    recs, launches = drive_phase(name, run, bindings, [sched])
     check_capacity(sched.state)
     return recs, launches
 
@@ -1956,6 +2159,330 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
         rows.append({"name": name, "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by})
     return rows
+
+
+# ---- the residents: the mirror and the warm partials ------------------------
+
+def recording(cls):
+    """TorchBatchScheduler keeping the meta of every batch it encodes: the
+    launch checks derive each phase's kernels from them."""
+    class Recorded(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.metas = []
+
+        def encode_pending(self, *args, **kw):
+            snap, meta = super().encode_pending(*args, **kw)
+            self.metas.append(meta)
+            return snap, meta
+
+    return Recorded
+
+
+def residents(sched) -> dict:
+    """Both residents' counters."""
+    return {"mirror": sched._mirror.stats(),
+            "partials": sched._partials.stats() if sched._partials is not None else None}
+
+
+def batch_record(sched, meta, seconds: float) -> dict:
+    """One batch's step split, residents' counters and host->card bytes."""
+    t = sched.last_timings
+    return {"encode_s": t["encode_s"], "compile_s": t["compile_s"], "solve_s": t["solve_s"],
+            "s": seconds, "encode_split": meta.encode_split, "transfer_bytes": meta.transfer_bytes,
+            "resident_launches": meta.resident_launches, **residents(sched)}
+
+
+def solve_pair(what, warm, cold, pods, torch) -> tuple:
+    """Encode and solve `pods` through the warm and the cold scheduler;
+    every result field and the wave counters equal.  Returns (names, warm
+    record, cold record, warm meta)."""
+    recs, names, metas = [], [], []
+    for s in (warm, cold):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        names.append(s.schedule_pending(pods))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        meta = s.last_solve.meta
+        metas.append(meta)
+        recs.append(batch_record(s, meta, dt))
+    if names[0] != names[1]:
+        raise AssertionError(f"{what}: warm and cold placements differ")
+    if metas[0].route != metas[1].route:
+        raise AssertionError(f"{what}: routes {metas[0].route} / {metas[1].route}")
+    check_equal(f"{what} (warm against cold)", result_fields(warm.last_result, True),
+                result_fields(cold.last_result, True), torch)
+    if warm.last_solve.wave_count != cold.last_solve.wave_count:
+        raise AssertionError(f"{what}: wave counts differ")
+    return names[0], recs[0], recs[1], metas[0]
+
+
+def dirtied_rows(sched) -> int:
+    """Rows the state dirtied since the mirror's last sync (static and
+    usage families counted apart, as the counters count them)."""
+    st = sched.state
+    n = st.node_axis_bucket
+    static, usage = st.dirty_rows(sched._mirror._synced_gen, n)
+    return int(static.shape[0] + usage.shape[0])
+
+
+def resident_phase(wrappers, TorchBatchScheduler, bindings, torch, card):
+    """The residents at full width, warm (TorchBatchScheduler(): mirror and
+    partials on) against cold (use_mirror=False), every batch equal field
+    for field: SchedulingNodeAffinity/5000Nodes in 500-pod batches with a
+    pad-bucket crossing after the second, and SchedulingWithMixedChurn/
+    5000Nodes on the wavefront and on the scan.  Returns the NodeAffinity
+    part's launch counts."""
+    from kubernetes_tpu_torch.testing.cases import mixed_churn_objects
+
+    out = {"phase": "resident", "card": card}
+    pods = affinity_pods(wrappers, AFFINITY[1] + AFFINITY[2], "res")
+    batches = [pods[lo : lo + AFFINITY_BATCH] for lo in range(0, len(pods), AFFINITY_BATCH)]
+    warm, cold = TorchBatchScheduler(), TorchBatchScheduler(use_mirror=False)
+    for s in (warm, cold):
+        for node in make_cluster(wrappers, AFFINITY[0]):
+            s.add_node(node)
+    zone_of = {f"node-{i}": f"zone-{i % ZONES}" for i in range(2 * AFFINITY[0])}
+    recs = []
+
+    def run_affinity():
+        prev_rows = 0
+        for k, batch in enumerate(batches):
+            added = 0
+            if k == 2:
+                # a pad-bucket crossing at width: node-default nodes until
+                # the bucket moves past 8,192
+                b0 = warm.state.node_axis_bucket
+                for node in make_cluster(wrappers, b0 + 1)[AFFINITY[0]:]:
+                    for s in (warm, cold):
+                        s.add_node(node)
+                    added += 1
+                warm.state.tensors()  # the bucket follows the rows at the next snapshot
+                if warm.state.node_axis_bucket <= b0:
+                    raise AssertionError("resident: the node bucket did not move")
+            before = residents(warm)
+            # the rows dirtied since the last batch: the previous batch's
+            # assumed rows (usage), each added node's row (static and usage)
+            want_rows = prev_rows + 2 * added
+            if k and dirtied_rows(warm) != want_rows:
+                raise AssertionError(f"resident/affinity{k}: the state dirtied "
+                                     f"{dirtied_rows(warm)} rows, not {want_rows}")
+            names, rw, rc, meta = solve_pair(f"resident/affinity{k}", warm, cold, batch, torch)
+            after = residents(warm)
+            m0, m1 = before["mirror"], after["mirror"]
+            p0, p1 = before["partials"], after["partials"]
+            if meta.route != "wavefront" or meta.statics is None:
+                raise AssertionError(f"resident/affinity{k}: route {meta.route}, warm "
+                                     f"{meta.statics is not None}")
+            if k == 0:
+                if m1["resync_total"] != 1 or p1["full_recomputes"] != 1:
+                    raise AssertionError("resident: the first batch is not a full upload + eval")
+            else:
+                if m1["resync_total"] != m0["resync_total"] or m1["delta_syncs"] != m0["delta_syncs"] + 1:
+                    raise AssertionError(f"resident/affinity{k}: not a delta sync ({m0} -> {m1})")
+                if m1["delta_rows_total"] - m0["delta_rows_total"] != want_rows:
+                    raise AssertionError(f"resident/affinity{k}: delta rows "
+                                         f"{m1['delta_rows_total'] - m0['delta_rows_total']}, "
+                                         f"the state dirtied {want_rows}")
+                if p1["full_recomputes"] != p0["full_recomputes"]:
+                    raise AssertionError(f"resident/affinity{k}: the partials recomputed in full")
+                if k == 2 and (m1["grow_syncs"] != 1 or p1["grows"] != 1):
+                    raise AssertionError(f"resident/affinity{k}: no in-place grow ({m1}, {p1})")
+            for pod, name in zip(batch, names):
+                if name is None or zone_of[name] not in AFFINITY_ZONES:
+                    raise AssertionError(f"resident: {pod.meta.name} placed on {name}")
+                for s in (warm, cold):
+                    s.assume(pod, name)
+            prev_rows = len(set(names))
+            recs.append({"batch": k, "pods": len(batch), "nodes": warm.state.num_nodes,
+                         "bucket": warm.state.node_axis_bucket, "added_nodes": added,
+                         "delta_rows": want_rows if k else None, "warm": rw, "cold": rc})
+
+    _, launches = drive_phase("resident", run_affinity, bindings, [warm, cold])
+    if not warm._partials.verify(warm._mirror.sync()):
+        raise AssertionError("resident: the partials store differs from a full recompute")
+    check_capacity(warm.state)
+    out["affinity"] = {"workload": "SchedulingNodeAffinity/5000Nodes", "route": "wavefront",
+                       "batch_size": AFFINITY_BATCH, "batches": recs, "launches": launches}
+
+    # SchedulingWithMixedChurn/5000Nodes: 400 measured + the 100 recreated
+    # churn pods a batch, on the wavefront and on the scan
+    nodes, measured, churn = mixed_churn_objects(wrappers, *CHURN)
+    pairs = {"wavefront": (TorchBatchScheduler(), TorchBatchScheduler(use_mirror=False)),
+             "greedy": (TorchBatchScheduler(mode="greedy", use_wavefront=False),
+                        TorchBatchScheduler(mode="greedy", use_wavefront=False,
+                                            use_mirror=False))}
+    for pair in pairs.values():
+        for s in pair:
+            for node in nodes:
+                s.add_node(node)
+    out["churn"] = {"workload": "SchedulingWithMixedChurn/5000Nodes"}
+    for route, (w, c) in pairs.items():
+        crecs = []
+
+        def run_churn():
+            for k, lo in enumerate(range(0, len(measured), CHURN_MEASURED_BATCH)):
+                batch = churn(k, CHURN_PODS) + measured[lo : lo + CHURN_MEASURED_BATCH]
+                names, rw, rc, meta = solve_pair(f"resident/churn/{route}{k}", w, c, batch,
+                                                 torch)
+                if meta.route != route or meta.statics is None:
+                    raise AssertionError(f"resident/churn: route {meta.route}")
+                reasons = w.last_result.reasons.cpu().tolist()
+                for i in range(CHURN_PODS):
+                    if names[i] is not None or reasons[i] != 1:  # REASON_RESOURCES
+                        raise AssertionError(f"resident/churn: churn pod {i} placed or reason "
+                                             f"{reasons[i]}")
+                for pod, name in zip(batch[CHURN_PODS:], names[CHURN_PODS:]):
+                    if name is None:
+                        raise AssertionError(f"resident/churn: {pod.meta.name} unplaced")
+                    for s in (w, c):
+                        s.assume(pod, name)
+                crecs.append({"batch": k, "pods": len(batch),
+                              "classes": int(meta.statics.sfeas.shape[0]),
+                              "slots": w._partials.stats()["slots"], "warm": rw, "cold": rc})
+
+        _, clog = drive_phase(f"resident/churn/{route}", run_churn, bindings, [w, c])
+        if w._partials.stats()["delta_syncs"] < 3:
+            raise AssertionError("resident/churn: the partials served no delta syncs")
+        check_capacity(w.state)
+        out["churn"][route] = {"batches": crecs, "launches": clog}
+    emit(out)
+    return launches
+
+
+def partials_eval_need(cluster, specs, cols, torch) -> tuple:
+    """(bytes, operations) one partials_eval launch needs on this data:
+    every slot's spec; per evaluated column the valid byte, the name id
+    only where a slot pins a node, the taint words of each effect some
+    slot does not tolerate wholesale, the port words some slot claims,
+    the label words and topology ids the live selector and preferred
+    expressions test; the three [G, cols] outputs.  Two integer operations
+    a tested word or id, eight a (slot, column) pair besides."""
+    g = specs.valid.shape[0]
+    tw = cluster.taint_bits.shape[2]
+    effects = int((~specs.tol_all).any(dim=1).sum())
+    port_words = int((specs.port_bits != 0).any(dim=0).sum())
+    names = 4 if bool((specs.name_id != -1).any()) else 0
+    sel_live = (specs.sel_tv[:, :, None] & ((specs.sel_op == 1) | (specs.sel_op == 2))
+                & specs.has_sel[:, None, None])
+    pref_live = specs.pref_valid[:, :, None] & ((specs.pref_op == 1) | (specs.pref_op == 2))
+    ids = torch.cat([specs.sel_ids[sel_live], specs.pref_ids[pref_live]])
+    slots = torch.cat([specs.sel_slot[sel_live], specs.pref_slot[pref_live]])
+    label = ids[(slots < 0)[:, None].expand_as(ids) & (ids >= 0)]
+    words = int(torch.unique(label >> 5).numel()) if label.numel() else 0
+    topo = int(torch.unique(slots[slots >= 0]).numel())
+    per_col = 1 + names + 4 * effects * tw + 4 * port_words + 4 * (words + topo)
+    need = nbytes(*specs) + cols * per_col + g * cols * 9
+    tested = int((ids != -1).sum())
+    return need, float(cols) * (2 * tested + g * (8 + 2 * effects * tw + 2 * port_words))
+
+
+def time_resident_kernels(warm, dv, dv_wrappers, pops, bindings, torch) -> tuple:
+    """partials_eval (every slot over every column, and a 500-column
+    refresh) and mirror_rows (a 500-row usage delta and a 64-row static
+    delta) on a warm scheduler's residents, each against its plain version
+    (exact) and timed; mirror_rows also against index_copy_ a leaf (the
+    library call); then the plain-torch gather, grows and packed copy.
+    Returns (kernel rows, plain-torch rows)."""
+    import numpy as np
+
+    cl = warm._mirror.sync()
+    specs = warm._partials._specs
+    g, n = specs.valid.shape[0], cl.allocatable.shape[0]
+    rows = []
+    all_slots = torch.arange(g, dtype=torch.int32, device=cl.allocatable.device)
+    rng = np.random.default_rng(5)
+    refresh = torch.from_numpy(np.sort(rng.choice(warm.state._high, 500, replace=False))
+                               .astype(np.int32)).cuda()
+    for label, col_idx in (("full", None), ("refresh500", refresh)):
+        def kern(col_idx=col_idx):
+            store = tuple(torch.empty((g, n), dtype=d, device="cuda")
+                          for d in (torch.bool, torch.float32, torch.float32))
+            bindings.partials_eval(cl, specs, all_slots, col_idx, pops.PartialsStore(*store))
+            return store
+
+        def plain(col_idx=col_idx):
+            return pops.eval_cols_plain(cl, specs, all_slots, col_idx)
+
+        got = kern()
+        if col_idx is not None:
+            got = tuple(t[:, col_idx.long()] for t in got)
+        err = check_equal(f"partials_eval ({label})", got, plain(), torch)
+        cols = n if col_idx is None else int(col_idx.numel())
+        bms, by = bound(*partials_eval_need(cl, specs, cols, torch))
+        rows.append({"name": "partials_eval", "shape": f"{label}: {g} slots x {cols} columns",
+                     "max_abs_err": err, "ms": cuda_ms(kern, 50, torch),
+                     "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by,
+                     "library_ms": None})
+    host = warm.state.tensors()
+    stage = dv.PinnedStage()
+    from kubernetes_tpu_torch.models import mirror as mirror_mod
+    for label, leaves, d in (("usage500", mirror_mod._USAGE_LEAVES, 500),
+                             ("static64", mirror_mod._STATIC_LEAVES + ("taint_bits",), 64)):
+        idx = np.sort(rng.choice(warm.state._high, d, replace=False)).astype(np.int32)
+        axes = [1 if f == "taint_bits" else 0 for f in leaves]
+        vals = [np.take(np.asarray(getattr(host, f)), idx, axis=a) for f, a in zip(leaves, axes)]
+
+        def targets():
+            return [dv.RowTarget(getattr(cl, f).clone(), a, idx, v)
+                    for f, a, v in zip(leaves, axes, vals)]
+
+        tk, tp = targets(), targets()
+        buf, lay, units = dv.pack_rows(tk, stage, torch.device("cuda"))
+        bindings.mirror_rows(buf, len(tk), units)
+        buf_p, lay_p, _u = dv.pack_rows(tp, stage, torch.device("cuda"))
+        dv.set_rows_plain(buf_p, tp, lay_p)
+        err = check_equal(f"mirror_rows ({label})", tuple(t.dst for t in tk),
+                          tuple(t.dst for t in tp), torch)
+        ms = cuda_ms(lambda: bindings.mirror_rows(buf, len(tk), units), 50, torch)
+        plain_ms = cuda_ms(lambda: dv.set_rows_plain(buf_p, tp, lay_p), 20, torch)
+        idx_dev = torch.from_numpy(idx).long().cuda()
+        dev_vals = [torch.from_numpy(np.ascontiguousarray(dv._canon(v))).cuda() for v in vals]
+
+        def library():
+            for t, v in zip(tp, dev_vals):
+                t.dst.index_copy_(t.axis, idx_dev, v)
+
+        lib_ms = cuda_ms(library, 20, torch)
+        data = sum(v.nbytes for v in vals)
+        bms, by = bound(2 * data + 4 * d * len(tk) + 48 * len(tk), 0.0)
+        rows.append({"name": "mirror_rows", "shape": f"{label}: {d} rows x {len(tk)} leaves, "
+                     f"{data} B", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    # plain torch on the card, timed: the gather at the last warm batch's
+    # class count, the in-place grows (store columns, cluster leaves) to
+    # the next bucket, and a batch's fill shortcut plus packed copy
+    c_dim = warm.metas[-1].statics.sfeas.shape[0]
+    slots = torch.zeros(c_dim, dtype=torch.int32, device="cuda")
+    store = warm._partials._store
+    extra = {"gather_statics": {"ms": cuda_ms(lambda: pops.gather_statics(store, slots), 50, torch),
+                                "classes": c_dim, "bound_ms": bound(2 * c_dim * n * 9, 0.0)[0],
+                                "bound_by": "bytes", "route": "plain torch (index_select)",
+                                "library_ms": cuda_ms(lambda: store.aff.index_select(
+                                    0, slots.long()), 50, torch)}}
+    extra["grow_store_cols"] = {"ms": cuda_ms(lambda: pops.grow_store_cols(store, n), 20, torch),
+                                "bound_ms": bound(3 * g * n * 9, 0.0)[0], "bound_by": "bytes",
+                                "route": "plain torch (cat)"}
+    extra["grow_rows"] = {"ms": cuda_ms(lambda: [mirror_mod._grow_rows(
+        getattr(cl, f), n, 0, 1 if f == "taint_bits" else 0) for f in cl._fields], 20, torch),
+        "bound_ms": bound(3 * nbytes(*cl), 0.0)[0], "bound_by": "bytes",
+        "route": "plain torch (cat, 14 leaves)"}
+    batch = affinity_pods(dv_wrappers, AFFINITY_BATCH, "put")
+    snap, meta = warm.builder.build_from_state(warm.state, batch)
+    warm._annotate(snap, meta)
+    snap = snap._replace(cluster=cl)
+
+    def put():
+        s = dv.device_fill_shortcut(snap, warm._fill_cache, "cuda", features=meta.features)
+        return dv.packed_device_put(s, stage, "cuda")
+
+    put_ms = time_plain(put, torch)
+    put_ms = min(put_ms, *(time_plain(put, torch) for _ in range(4)))
+    extra["fill_shortcut_and_put"] = {"ms": put_ms, "bytes": stage.bytes_sent,
+                                      "bound_ms": bound(stage.bytes_sent, 0.0)[0],
+                                      "bound_by": "bytes", "route": "one pinned copy (host clock)"}
+    return rows, extra
 
 
 if __name__ == "__main__":

@@ -20,19 +20,20 @@
 //
 // Design: one thread per (class, node) on a 2-D grid (x = node, y = class).
 // The per-class pod fields are the same for every thread of a row and are
-// served from L1.  Affinity weights are summed in term order with IEEE adds
-// (__fadd_rn / __fmul_rn): every term is an integer weight, so the sum is
-// exact and equals the reference's reduction.
+// served from L1.  The per-(class, node) body is statics_common.cuh's,
+// which partials_eval (the warm statics) shares.  Affinity weights are
+// summed in term order with IEEE adds (__fadd_rn / __fmul_rn): every term
+// is an integer weight, so the sum is exact and equals the reference's
+// reduction.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "statics_common.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
-constexpr int kNoSchedule = 0;
-constexpr int kPreferNoSchedule = 1;
-constexpr int kNoExecute = 2;
 
 __global__ void class_statics_kernel(
     int n, int p, int tw, int pw, int mt, int s_rows, int f_rows,
@@ -59,31 +60,12 @@ __global__ void class_statics_kernel(
     const int c = blockIdx.y;
     if (node >= n) return;
     const int rep = reps[c];
+    const statics::Nodes nd{n, tw, pw, node_valid, node_name, taint_bits, node_ports};
+    const statics::Spec sp{p, rep, pod_valid, pod_name, tol_bits, tol_all, pod_ports};
 
-    bool ok = node_valid[node] && pod_valid[rep];
-    const int pname = pod_name[rep];
-    ok = ok && (pname == -1 || node_name[node] == pname);
-
-    // TaintToleration filter: NoSchedule and NoExecute rows
-    for (int eff = kNoSchedule; eff <= kNoExecute; eff += kNoExecute - kNoSchedule) {
-        if (tol_all[eff * p + rep]) continue;
-        const uint32_t* tb = taint_bits + ((size_t)eff * n + node) * tw;
-        const uint32_t* tl = tol_bits + ((size_t)eff * p + rep) * tw;
-        for (int w = 0; w < tw; ++w) {
-            if (tb[w] & ~tl[w]) ok = false;
-        }
-    }
-
-    // NodeAffinity / nodeSelector
+    // NodeAffinity / nodeSelector: the batch's selector row
     const int si = sel_idx[rep];
-    if (si >= 0) ok = ok && sel_mask[(size_t)min(si, s_rows - 1) * n + node];
-
-    // NodePorts against the bound pods' claims
-    const uint32_t* np = node_ports + (size_t)node * pw;
-    const uint32_t* pp = pod_ports + (size_t)rep * pw;
-    for (int w = 0; w < pw; ++w) {
-        if (np[w] & pp[w]) ok = false;
-    }
+    const bool sel_ok = si < 0 || sel_mask[(size_t)min(si, s_rows - 1) * n + node];
 
     // NodeAffinity raw score: weights of matching preferred terms
     float a = 0.0f;
@@ -91,22 +73,13 @@ __global__ void class_statics_kernel(
         const int pi = pref_idx[rep * mt + j];
         const float w = pi >= 0 ? pref_weight[rep * mt + j] : 0.0f;
         const int row = min(max(pi, 0), f_rows - 1);
-        const float hit = pref_mask[(size_t)row * n + node] ? 1.0f : 0.0f;
-        a = __fadd_rn(a, __fmul_rn(w, hit));
-    }
-
-    // TaintToleration raw score: untolerated PreferNoSchedule taints
-    unsigned int cnt = 0;
-    if (!tol_all[kPreferNoSchedule * p + rep]) {
-        const uint32_t* tb = taint_bits + ((size_t)kPreferNoSchedule * n + node) * tw;
-        const uint32_t* tl = tol_bits + ((size_t)kPreferNoSchedule * p + rep) * tw;
-        for (int w = 0; w < tw; ++w) cnt += __popc(tb[w] & ~tl[w]);
+        a = statics::affinity_add(a, w, pref_mask[(size_t)row * n + node] != 0);
     }
 
     const size_t o = (size_t)c * n + node;
-    sfeas[o] = ok ? 1 : 0;
+    sfeas[o] = statics::static_feasible(nd, sp, node, sel_ok) ? 1 : 0;
     aff[o] = a;
-    taint[o] = (float)cnt;
+    taint[o] = statics::prefer_taints(nd, sp, node);
 }
 
 }  // namespace

@@ -15,20 +15,16 @@
 // neighbouring threads read neighbouring nodes' label rows.  Terms and
 // expressions end early on the first decided outcome (a satisfied term, a
 // failed expression), as the boolean algebra allows; the result is exact.
-// Output is one uint8 per (row, node).  Semantics follow filters.py:107-131:
-// OP_POS is satisfied when any listed id is present, OP_NEG when none is,
-// any other op (OP_PAD) is true; in a topology slot TOPO_ANY_VALUE means
-// "key present" and PAD_ID never matches.
+// Output is one uint8 per (row, node).  The per-(row, node) body is
+// statics::match_row (statics_common.cuh), which partials_eval shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "statics_common.cuh"
+
 namespace {
 
-constexpr int kOpPos = 1;
-constexpr int kOpNeg = 2;
-constexpr int kTopoAnyValue = -2;
-constexpr int kPadId = -1;
 constexpr int kBlock = 256;
 
 __global__ void match_terms_kernel(
@@ -46,42 +42,11 @@ __global__ void match_terms_kernel(
     const int node = blockIdx.x * blockDim.x + threadIdx.x;
     const int row = blockIdx.y;
     if (node >= n) return;
-    const uint32_t* bits = label_bits + (size_t)node * lw;
-    const int32_t* topo = topo_ids + (size_t)node * tk;
-    bool row_ok = false;
-    for (int ti = 0; ti < t && !row_ok; ++ti) {
-        const int term = row * t + ti;
-        if (!term_valid[term]) continue;
-        bool all_sat = true;
-        for (int ei = 0; ei < e && all_sat; ++ei) {
-            const int ex = term * e + ei;
-            const int op = expr_op[ex];
-            if (op != kOpPos && op != kOpNeg) continue;
-            const int slot = expr_slot[ex];
-            const int32_t* ids = expr_ids + (size_t)ex * k;
-            bool any = false;
-            if (slot >= 0 && tk > 0) {
-                const int v = topo[min(slot, tk - 1)];
-                for (int ki = 0; ki < k; ++ki) {
-                    const int id = ids[ki];
-                    if (id != kPadId && (v == id || (id == kTopoAnyValue && v >= 0))) {
-                        any = true;
-                    }
-                }
-            } else {
-                for (int ki = 0; ki < k; ++ki) {
-                    const int id = ids[ki];
-                    if (id >= 0) {
-                        const int w = min(id >> 5, lw - 1);
-                        if ((bits[w] >> (id & 31)) & 1u) any = true;
-                    }
-                }
-            }
-            all_sat = (op == kOpPos) ? any : !any;
-        }
-        row_ok = all_sat;
-    }
-    out[(size_t)row * n + node] = row_ok ? 1 : 0;
+    const bool ok = statics::match_row(
+        label_bits + (size_t)node * lw, lw, topo_ids + (size_t)node * tk, tk,
+        expr_ids + (size_t)row * t * e * k, expr_op + (size_t)row * t * e,
+        expr_slot + (size_t)row * t * e, term_valid + (size_t)row * t, t, e, k);
+    out[(size_t)row * n + node] = ok ? 1 : 0;
 }
 
 }  // namespace

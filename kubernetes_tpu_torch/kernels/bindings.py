@@ -6,7 +6,9 @@ stream, raises if the launch returned a CUDA error, and adds one to
 `LAUNCHES[name]` for every call of the kernel's C launch function.  A call
 enqueues the kernel's work for one unit: one table (match_terms), one
 batch (class_statics, class_extras, greedy_scan, wavefront — the
-wavefront's call enqueues two kernels a wave), one bidding round
+wavefront's call enqueues two kernels a wave), one index-list pair of
+the partials store (partials_eval), one packed row delta (mirror_rows:
+every leaf it names), one bidding round
 (auction_bids — two kernels; auction_spread, auction_interpod — one), one
 stage of a round (auction_accept: a round whole, or with a repair family
 its acceptance and its commit, one call each).  Nothing here
@@ -46,6 +48,8 @@ _ARGTYPES = {
     "auction_spread": [_I] * 5 + [_P] * 20,
     "auction_interpod": [_I] * 6 + [_P] * 17,
     "class_extras": [_I] * 6 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
+    "partials_eval": [_I] * 12 + [_P] * 27,
+    "mirror_rows": [_P, _I, _I, _P],
 }
 
 # greedy_scan.cu's static capacities and parameter-block layout
@@ -57,6 +61,7 @@ MAX_GRID_Y = 65535
 MAX_WAVE = 32        # wavefront.cu's widest wave
 BIDS_GRID = 132      # auction_bids' class-pass blocks: one an SM, at most
 MAX_MI = 16          # class_extras.cu's images a pod
+LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
 
 
 def reset_launches() -> None:
@@ -82,6 +87,11 @@ def _launcher(name: str):
             max_k.restype, max_k.argtypes = ctypes.c_int, []
             if max_k() != MAX_WAVE:
                 raise RuntimeError(f"wavefront max K {max_k()} != bindings {MAX_WAVE}")
+        if name == "mirror_rows":
+            leaf = getattr(lib, "mirror_rows_leaf_bytes")
+            leaf.restype, leaf.argtypes = ctypes.c_int, []
+            if leaf() != LEAF_BYTES:
+                raise RuntimeError(f"mirror_rows descriptor {leaf()} B != bindings {LEAF_BYTES} B")
         if name == "class_extras":
             max_mi = getattr(lib, "class_extras_limits")
             max_mi.restype, max_mi.argtypes = ctypes.c_int, []
@@ -192,6 +202,86 @@ def class_statics(cluster, pods, sel_mask, pref_mask, reps) -> Tuple[torch.Tenso
             _ptr(sfeas), _ptr(aff), _ptr(taint),
         )
     return sfeas.view(torch.bool), aff, taint
+
+
+def partials_eval(cluster, specs, slot_idx, col_idx, store) -> None:
+    """Evaluate the partials store at (slot in slot_idx) x (column in
+    col_idx, or every column when None) from the slots' stored specs,
+    writing store.sfeas / aff / taint [G, N] in place (the caller hands in
+    fresh store tensors)."""
+    dev = cluster.allocatable.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    node_valid = _arg(cluster.node_valid, b, dev, "node_valid")
+    node_name = _arg(cluster.name_id, i32, dev, "name_id")
+    label_bits = _arg(cluster.label_bits, i32, dev, "label_bits")
+    topo_ids = _arg(cluster.topo_ids, i32, dev, "topo_ids")
+    taint_bits = _arg(cluster.taint_bits, i32, dev, "taint_bits")
+    node_ports = _arg(cluster.port_bits, i32, dev, "port_bits")
+    sp = [
+        _arg(specs.valid, b, dev, "specs.valid"),
+        _arg(specs.name_id, i32, dev, "specs.name_id"),
+        _arg(specs.has_sel, b, dev, "specs.has_sel"),
+        _arg(specs.sel_ids, i32, dev, "specs.sel_ids"),
+        _arg(specs.sel_op, i32, dev, "specs.sel_op"),
+        _arg(specs.sel_slot, i32, dev, "specs.sel_slot"),
+        _arg(specs.sel_tv, b, dev, "specs.sel_tv"),
+        _arg(specs.tol_bits, i32, dev, "specs.tol_bits"),
+        _arg(specs.tol_all, b, dev, "specs.tol_all"),
+        _arg(specs.port_bits, i32, dev, "specs.port_bits"),
+        _arg(specs.pref_ids, i32, dev, "specs.pref_ids"),
+        _arg(specs.pref_op, i32, dev, "specs.pref_op"),
+        _arg(specs.pref_slot, i32, dev, "specs.pref_slot"),
+        _arg(specs.pref_valid, b, dev, "specs.pref_valid"),
+        _arg(specs.pref_weight, f32, dev, "specs.pref_weight"),
+    ]
+    slot_idx = _arg(slot_idx, i32, dev, "slot_idx")
+    n, lw = label_bits.shape
+    tk = topo_ids.shape[1]
+    tw = taint_bits.shape[2]
+    pw = node_ports.shape[1]
+    g, t, e, k = sp[3].shape
+    mt = sp[10].shape[1]
+    if (sp[7].shape != (3, g, tw) or sp[9].shape != (g, pw) or sp[10].shape != (g, mt, e, k)
+            or sp[0].shape != (g,) or sp[6].shape != (g, t)):
+        raise ValueError("partials specs do not match the cluster's widths")
+    outs = []
+    for t_, dtype, what in ((store.sfeas, b, "sfeas"), (store.aff, f32, "aff"),
+                            (store.taint, f32, "taint")):
+        if (t_.device != dev or t_.dtype != dtype or not t_.is_contiguous()
+                or tuple(t_.shape) != (g, n)):
+            raise ValueError(f"store.{what}: a contiguous {dtype} [{g}, {n}] tensor on {dev}")
+        outs.append(t_.view(torch.uint8) if dtype == b else t_)
+    if col_idx is None:
+        n_cols, col_ptr = n, ctypes.c_void_p(None)
+    else:
+        col_idx = _arg(col_idx, i32, dev, "col_idx")
+        n_cols, col_ptr = col_idx.shape[0], _ptr(col_idx)
+    n_slots = slot_idx.shape[0]
+    if n_slots > MAX_GRID_Y:
+        raise ValueError(f"{n_slots} slots exceed the grid's {MAX_GRID_Y}")
+    if n_slots == 0 or n_cols == 0:
+        return
+    _launch(
+        "partials_eval", dev,
+        n, lw, tk, tw, pw, g, t, e, k, mt, n_slots, n_cols,
+        _ptr(node_valid), _ptr(node_name), _ptr(label_bits), _ptr(topo_ids),
+        _ptr(taint_bits), _ptr(node_ports), *[_ptr(x) for x in sp],
+        _ptr(slot_idx), col_ptr, *[_ptr(x) for x in outs],
+    )
+
+
+def mirror_rows(buf: torch.Tensor, n_leaves: int, max_units: int) -> None:
+    """Scatter a packed row delta (ops/device.py pack_rows: descriptors,
+    indices, rows) into the leaves its descriptors name, in one launch."""
+    dev = buf.device
+    buf = _arg(buf, torch.uint8, dev, "packed rows")
+    if buf.numel() < n_leaves * LEAF_BYTES:
+        raise ValueError("packed rows shorter than their descriptors")
+    if n_leaves > MAX_GRID_Y:
+        raise ValueError(f"{n_leaves} leaves exceed the grid's {MAX_GRID_Y}")
+    if n_leaves == 0 or max_units == 0:
+        return
+    _launch("mirror_rows", dev, _ptr(buf), n_leaves, max_units)
 
 
 def score_params(cfg, r: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -19,10 +19,20 @@ and every gang batch take the auction when its families allow it
 take the wavefront; the rest take the greedy scan.  mode="greedy" and
 mode="auction" pin the family.
 
-Every batch is encoded on the host and transferred in full (no resident
-mirror yet), solved by the route's kernels, and read back once through
-pinned host buffers and a CUDA event (DeviceSolve).  There is no host
-fallback: a device fault raises to the caller.
+By default (use_mirror=True, use_partials=True, as the reference's
+DeviceClusterMirror and IncrementalSolve gates) the cluster half of every
+batch stays resident on the device (models/mirror.py): a batch sends only
+the node rows dirtied since the last sync, in one packed copy scattered by
+one `mirror_rows` launch, plus its pod and constraint tables in one packed
+copy (ops/device.py); the greedy scan and the wavefront take warm class
+statics gathered from the resident partials (models/partials.py) instead
+of launching `class_statics`, and the auction stays cold for statics, as
+in the reference.  use_mirror=False is the cold path: the whole snapshot
+is copied every batch and every solve recomputes its statics.
+
+Every batch is read back once through pinned host buffers and a CUDA
+event (DeviceSolve).  There is no host fallback: a device fault
+invalidates both residents and raises to the caller.
 """
 
 from __future__ import annotations
@@ -34,12 +44,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis import epochs
 from ..api import types as api
 from ..ops import assign as assign_ops
 from ..ops import auction as auction_ops
 from ..ops import device as device_ops
 from ..ops import schema
 from ..ops.scores import DEFAULT_SCORE_CONFIG, ScoreConfig
+from .mirror import DeviceClusterMirror
+from .partials import PartialsCache
 
 
 class SolveUnhealthy(RuntimeError):
@@ -141,7 +154,9 @@ class TorchBatchScheduler:
     rather than carry on on the CPU (pass device="cpu" for the plain
     versions).  mode: "auto" | "greedy" | "auction" (see the module
     docstring).  use_wavefront=False keeps greedy-family batches on the
-    classic scan."""
+    classic scan.  use_mirror / use_partials / partials_resync_interval:
+    the resident cluster mirror and the warm partials (the module
+    docstring); the partials need the mirror."""
 
     # Greedy-family batches at least this large (padded) solve through the
     # wavefront (ops.assign.wavefront_assign), as in the reference package.
@@ -160,6 +175,9 @@ class TorchBatchScheduler:
         state: Optional[schema.ClusterState] = None,
         device=None,
         use_wavefront: bool = True,
+        use_mirror: bool = True,
+        use_partials: bool = True,
+        partials_resync_interval: int = PartialsCache.DEFAULT_RESYNC_INTERVAL,
     ):
         if mode not in ("auto", "greedy", "auction"):
             raise ValueError(f"mode must be auto|greedy|auction, got {mode!r}")
@@ -178,6 +196,14 @@ class TorchBatchScheduler:
         self.score_config = score_config
         self.mode = mode
         self.use_wavefront = use_wavefront
+        self.use_mirror = use_mirror
+        self._mirror = DeviceClusterMirror(self.state, self.device)
+        self._partials: Optional[PartialsCache] = (
+            PartialsCache(self.state, self.device, resync_interval=partials_resync_interval)
+            if use_partials and use_mirror else None
+        )
+        self._fill_cache: dict = {}
+        self._put_stage = device_ops.PinnedStage()
         self.last_result = None  # SolveResult or auction_ops.AuctionResult
         self.last_solve: Optional[DeviceSolve] = None
         self.last_timings: Dict[str, float] = {}
@@ -256,15 +282,23 @@ class TorchBatchScheduler:
         lock=None,
         reservations: Sequence[Tuple[str, api.Pod]] = (),
     ) -> Tuple[schema.Snapshot, schema.SnapshotMeta]:
-        """Encode pending pods + live cluster state and copy the snapshot to
-        the device.  `lock` (the scheduler cache's mutex) is held across
-        the encode and the copy: build_from_state returns views aliasing
-        live arrays.  reservations: (node_name, pod) pairs whose requests
-        overlay the named node's usage in THIS snapshot only."""
+        """Encode pending pods + live cluster state and put the snapshot on
+        the device, in the reference's order: build, annotate and route
+        while host-resident; then the mirror's sync; then, on the greedy
+        and wavefront routes, the partials' sync into `meta.statics`; then
+        the fill shortcut and the packed copy of the pod and constraint
+        tables; then the reservations overlay.  `lock` (the scheduler
+        cache's mutex) is held across the encode and the syncs:
+        build_from_state returns views aliasing live arrays.
+        reservations: (node_name, pod) pairs whose requests overlay the
+        named node's usage in THIS snapshot only (out of place: the
+        resident tensors are never written here)."""
         with lock if lock is not None else contextlib.nullcontext():
+            t0 = time.perf_counter()
             snap, meta = self.builder.build_from_state(
                 self.state, pending, num_pods_hint=num_pods_hint
             )
+            split = {"build_s": time.perf_counter() - t0}
             rows, reqs, nzs = [], [], []
             for node_name, pod in reservations:
                 row = self.state._rows.get(node_name)
@@ -274,8 +308,19 @@ class TorchBatchScheduler:
                 rows.append(row)
                 reqs.append(req)
                 nzs.append(nz)
-            self._annotate(snap, meta, no_bound_pods=not self.state._pods)
-            snap = device_ops.to_device(snap, self.device)
+            no_bound = not self.state._pods
+            t0 = time.perf_counter()
+            self._annotate(snap, meta, no_bound_pods=no_bound)
+            split["annotate_s"] = time.perf_counter() - t0
+            meta.encode_split = split
+            if self.use_mirror:
+                snap = self._put_mirrored(snap, meta, no_bound)
+            else:
+                t0 = time.perf_counter()
+                snap = device_ops.to_device(snap, self.device)
+                split["put_s"] = time.perf_counter() - t0
+                meta.transfer_bytes = {"put": sum(
+                    t.numel() * t.element_size() for table in snap for t in table)}
         if rows:
             idx = torch.tensor(rows, dtype=torch.long, device=self.device)
             cl = snap.cluster
@@ -290,9 +335,57 @@ class TorchBatchScheduler:
             snap = snap._replace(cluster=cluster)
         return snap, meta
 
+    def _put_mirrored(self, snap: schema.Snapshot, meta: schema.SnapshotMeta,
+                      no_bound: bool) -> schema.Snapshot:
+        """The transfer of a mirrored batch: the resident cluster (synced),
+        the warm statics on the greedy-family routes, and one packed copy
+        of the pod and constraint tables.  Caller holds the cache lock."""
+        split = meta.encode_split
+        t0 = time.perf_counter()
+        dev_cluster = self._mirror.sync()
+        epochs.audit_mirror(self._mirror, self.state)
+        split["mirror_s"] = time.perf_counter() - t0
+        launches = dict(self._mirror.last_launches)
+        partials_bytes = 0
+        t0 = time.perf_counter()
+        if self._partials is not None and meta.route in ("greedy", "wavefront"):
+            meta.statics = self._partials.sync(
+                dev_cluster, snap, meta, cluster_epoch=self._mirror.epoch())
+            for k, v in self._partials.last_launches.items():
+                launches[k] = launches.get(k, 0) + v
+            partials_bytes = self._partials.last_sync_bytes
+            if meta.statics is not None:
+                # a MAX_SLOTS decline leaves the store behind the state:
+                # audit only what this solve consumes
+                epochs.audit_partials(self._partials, self.state)
+                meta.coherence_stamp = (self._mirror.epoch(), self._partials.epoch())
+        split["partials_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snap = snap._replace(cluster=dev_cluster)
+        snap = device_ops.device_fill_shortcut(
+            snap, self._fill_cache, self.device, no_bound_pods=no_bound,
+            features=meta.features)
+        snap = device_ops.packed_device_put(snap, self._put_stage, self.device)
+        split["put_s"] = time.perf_counter() - t0
+        meta.resident_launches = launches
+        meta.transfer_bytes = {"mirror": self._mirror.last_sync_bytes,
+                               "partials": partials_bytes,
+                               "put": self._put_stage.bytes_sent}
+        return snap
+
+    def _invalidate_residents(self, lock=None) -> None:
+        """Drop the mirror and the partials: after a failed dispatch or
+        readback either may be the fault, and the next encode rebuilds
+        both in full."""
+        with lock if lock is not None else contextlib.nullcontext():
+            if self._partials is not None:
+                self._partials.invalidate()
+            self._mirror.invalidate()
+
     def _dispatch(self, snap: schema.Snapshot, meta: schema.SnapshotMeta):
         if meta.features is None:
             self._annotate(snap, meta)
+        epochs.audit_dispatch(meta)
         if meta.route == "auction":
             return auction_ops.auction_assign(
                 snap, self.score_config, n_groups=meta.n_groups,
@@ -303,11 +396,11 @@ class TorchBatchScheduler:
             return assign_ops.wavefront_assign(
                 snap, meta.wave_plan.members, self.score_config,
                 features=meta.features, n_groups=meta.n_groups,
-                topo_z=meta.topo_split,
+                topo_z=meta.topo_split, statics=meta.statics,
             )
         return assign_ops.greedy_assign(
             snap, self.score_config, features=meta.features,
-            n_groups=meta.n_groups, topo_z=meta.topo_split,
+            n_groups=meta.n_groups, topo_z=meta.topo_split, statics=meta.statics,
         )
 
     def solve_encoded_async(
@@ -342,7 +435,11 @@ class TorchBatchScheduler:
             reservations=reservations,
         )
         t1 = time.perf_counter()
-        ds = self.solve_encoded_async(snap, meta)
+        try:
+            ds = self.solve_encoded_async(snap, meta)
+        except Exception:
+            self._invalidate_residents(lock)
+            raise
         ds.encode_s = t1 - t0
         ds.dispatch_s = ds.dispatched_at - t1
         return ds
@@ -358,7 +455,11 @@ class TorchBatchScheduler:
         split, and run the gang admission retry if the batch needs it."""
         if ds is None:
             return []
-        names = ds.names()
+        try:
+            names = ds.names()
+        except Exception:
+            self._invalidate_residents(lock)
+            raise
         self.last_solve = ds
         self.last_timings = {
             "encode_s": ds.encode_s,

@@ -634,18 +634,26 @@ def extras_prep(snapshot: Snapshot, features: FeatureFlags, cfg: ScoreConfig,
 
 def _solver_prep(snapshot: Snapshot, features: FeatureFlags,
                  topo_z: Optional[Tuple[int, int]] = None,
-                 cfg: ScoreConfig = DEFAULT_SCORE_CONFIG):
-    """Per-batch device prep, cold path: the selector and preferred masks
-    (kernel match_terms), the class-hoisted static tables (kernel
-    class_statics), the spread and inter-pod states and the classes' extra
-    score rows (kernel class_extras).  topo_z: (z_spread, z_terms).
-    Returns (cluster, pods, sfeas_c, aff_c, taint_c, sp_args, tm_args,
-    extra_c)."""
+                 cfg: ScoreConfig = DEFAULT_SCORE_CONFIG, statics=None):
+    """Per-batch device prep: the class-hoisted static tables, the spread
+    and inter-pod states and the classes' extra score rows (kernel
+    class_extras).  Cold (statics None): the selector and preferred masks
+    (kernel match_terms), then class_statics.  Warm: `statics` is the
+    (sfeas, aff, taint) triple gathered from the resident partials
+    (ops.partials.ClassStatics), equal to what class_statics would give,
+    and neither match_terms nor class_statics runs — except the selector
+    mask when the spread family needs it (its owner eligibility).
+    topo_z: (z_spread, z_terms).  Returns (cluster, pods, sfeas_c, aff_c,
+    taint_c, sp_args, tm_args, extra_c)."""
     cluster, pods, sel, pref = snapshot[:4]
     z_spread, z_terms = family_z(snapshot, features, topo_z)
-    sel_mask = selector_match(cluster, sel)
-    pref_mask = preferred_match(cluster, pref)
-    sfeas_c, aff_c, taint_c = class_statics(cluster, pods, sel_mask, pref_mask)
+    if statics is None:
+        sel_mask = selector_match(cluster, sel)
+        pref_mask = preferred_match(cluster, pref)
+        sfeas_c, aff_c, taint_c = class_statics(cluster, pods, sel_mask, pref_mask)
+    else:
+        sfeas_c, aff_c, taint_c = statics
+        sel_mask = selector_match(cluster, sel) if features.spread else None
     sp_args = spread_prep(snapshot, sel_mask, features, z_spread)
     tm_args = terms_prep(snapshot, features, z_terms)
     reps = torch.clamp(pods.class_rep, 0, pods.req.shape[0] - 1)
@@ -659,6 +667,7 @@ def greedy_assign(
     features: Optional[FeatureFlags] = None,
     n_groups: Optional[int] = None,
     topo_z: Optional[Tuple[int, int]] = None,
+    statics=None,
 ) -> SolveResult:
     """Sequential-greedy solve of the whole pending batch, on the device
     the snapshot's tensors lie on.
@@ -672,14 +681,15 @@ def greedy_assign(
     features / n_groups / topo_z (the (z_spread, z_terms) value capacities
     of the spread and inter-pod slots) are derived from the snapshot when
     not given (a host readback for tensors on the card; encode_pending
-    derives them before the transfer)."""
+    derives them before the transfer).  statics: the warm (sfeas, aff,
+    taint) triple of the resident partials (see _solver_prep)."""
     if features is None:
         features = features_of(snapshot)
     check_supported(features)
     if n_groups is None:
         n_groups = int(_np(snapshot.pods.group_id).max()) + 1
     cluster, pods, sfeas_c, aff_c, taint_c, sp_args, tm_args, extra_c = _solver_prep(
-        snapshot, features, topo_z, cfg)
+        snapshot, features, topo_z, cfg, statics)
     order = solve_order(pods)
     (assignment, win_scores, feas_counts, reasons, requested, nonzero,
      port_bits) = greedy_scan(
@@ -1114,11 +1124,13 @@ def wavefront_assign(
     features: Optional[FeatureFlags] = None,
     n_groups: Optional[int] = None,
     topo_z: Optional[Tuple[int, int]] = None,
+    statics=None,
 ) -> SolveResult:
     """Wave-parallel greedy solve with exact scan parity, on the device
     the snapshot's tensors lie on.  wave_members: i32[W, K] pod indices
     covering every batch position in solve order (-1 pads), from
-    plan_waves (planned here with the default cap when not given)."""
+    plan_waves (planned here with the default cap when not given).
+    statics: the warm triple of the resident partials (see _solver_prep)."""
     if features is None:
         features = features_of(snapshot)
     check_supported(features)
@@ -1127,7 +1139,7 @@ def wavefront_assign(
     if wave_members is None:
         wave_members = plan_waves(snapshot, features).members
     cluster, pods, sfeas_c, aff_c, taint_c, sp_args, tm_args, extra_c = _solver_prep(
-        snapshot, features, topo_z, cfg)
+        snapshot, features, topo_z, cfg, statics)
     members = torch.as_tensor(
         np.asarray(wave_members, dtype=np.int32)
         if not isinstance(wave_members, torch.Tensor) else wave_members,

@@ -351,6 +351,17 @@ class SnapshotMeta:
     # auditor's dispatch-time cross-resident audit (analysis/epochs.py);
     # None when the solve is cold or the auditor is disarmed
     coherence_stamp: Optional[tuple] = None
+    # kernel launches the residents made while encoding this batch
+    # (mirror_rows for the mirror's delta and the partials' spec rows,
+    # partials_eval for the store): {name: count}; None when cold
+    resident_launches: Optional[dict] = None
+    # host->device bytes of this batch's encode: {"mirror": ..,
+    # "partials": .., "put": ..} (the cold path's whole snapshot is "put")
+    transfer_bytes: Optional[dict] = None
+    # host seconds of the encode's steps: build_s, annotate_s, and then
+    # mirror_s, partials_s, put_s (mirrored) or put_s (cold); copies are
+    # asynchronous on the card, so a step ends when its copies are queued
+    encode_split: Optional[dict] = None
 
     def node_name(self, idx: int) -> Optional[str]:
         if 0 <= idx < self.num_nodes:

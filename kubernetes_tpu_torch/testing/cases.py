@@ -594,3 +594,126 @@ def preferred_affinity_objects(wrappers, n_nodes: int, n_init: int, n_measure: i
     return (_perf_nodes(wrappers, n_nodes),
             _perf_pods(wrappers, n_init, "preferred-affinity-pod-", "sched-0", "red", terms),
             _perf_pods(wrappers, n_measure, "preferred-affinity-pod-", "sched-1", "red", terms))
+
+
+def mixed_churn_objects(wrappers, n_nodes: int, n_measure: int):
+    """scheduler_perf's SchedulingWithMixedChurn workload
+    (kubernetes_tpu/perf/config/performance-config.yaml:163-188):
+    node-default nodes (4 CPU, 32Gi, 110 pods, zone-$index_mod8) and
+    pod-default measured pods (100m / 500Mi).  Returns (nodes, measured,
+    churn) where churn(round) gives the template's 100 recreated churn
+    pods of pod-large-cpu.yaml (cpu 9, 500Mi, priority 10 — more CPU than
+    any node has, so each is refused with the fit reason) under names
+    fresh to that round."""
+    gi, mi = wrappers.GI, wrappers.MI
+    nodes = _perf_nodes(wrappers, n_nodes)
+    measured = [wrappers.make_pod(f"pod-{i}").req(cpu_milli=100, mem=500 * mi).obj()
+                for i in range(n_measure)]
+
+    def churn(round_: int, n: int = 100):
+        return [wrappers.make_pod(f"pod-churn-{round_}-{i}").req(cpu_milli=9000, mem=500 * mi)
+                .priority(10).obj() for i in range(n)]
+
+    return nodes, measured, churn
+
+
+class Churn:
+    """Seeded cluster churn: mutations and pending batches drawn from
+    numpy's generator, so two instances of one seed (over this package's
+    wrappers and the reference's) make the same objects and the same
+    operations, given the same placements.
+
+    nodes(n)          the initial cluster (zones, some labels and taints)
+    batch(step, n)    pending pods whose static specs repeat across steps
+                      (selectors, preferred terms, tolerations, host ports)
+                      with a class first seen now and then
+    mutate(placed)    operations after a batch: assume most placements,
+                      forget some earlier ones, update a node, remove one
+                      and add a fresh one
+    apply(ops, *s)    run the operations against schedulers
+
+    An operation is ("add_node", node) | ("update_node", node) |
+    ("remove_node", name) | ("assume", pod, node_name) | ("forget", pod)."""
+
+    def __init__(self, wrappers, seed: int):
+        self.w = wrappers
+        self.api = wrappers.api
+        self.rng = np.random.default_rng(seed)
+        self.live: list = []       # node names, in add order
+        self.bound: list = []      # (pod, node_name) assumed, in order
+        self.fresh = 0
+
+    def _node(self, name: str, cpu: int = 8000):
+        w, api, rng = self.w, self.api, self.rng
+        nd = (w.make_node(name).capacity(cpu_milli=cpu, mem=16 * w.GI, pods=110)
+              .zone(f"z-{int(rng.integers(0, 3))}"))
+        if rng.random() < 0.3:
+            nd = nd.label("disk", "ssd")
+        if rng.random() < 0.2:
+            nd = nd.taint("dedicated", "gpu", api.PREFER_NO_SCHEDULE)
+        if rng.random() < 0.1:
+            nd = nd.taint("maint", "true", api.NO_SCHEDULE)
+        return nd.obj()
+
+    def nodes(self, n: int):
+        out = [self._node(f"n-{i}") for i in range(n)]
+        self.live = [f"n-{i}" for i in range(n)]
+        return out
+
+    def batch(self, step: int, n: int, ports: bool = True):
+        """ports=False leaves host ports out (the auction solves no batch
+        that claims one)."""
+        w, api, rng = self.w, self.api, self.rng
+        pods = []
+        for i in range(n):
+            p = w.make_pod(f"s{step}-p{i}").req(
+                cpu_milli=int(rng.choice([100, 250, 500])), mem=256 * w.MI)
+            r = int(rng.integers(0, 8))
+            if r == 0:
+                p = p.required_affinity(api.LABEL_ZONE, api.OP_IN, [f"z-{i % 3}"])
+            elif r == 1:
+                p = p.preferred_affinity(10, "disk", api.OP_IN, ["ssd"])
+            elif r == 2:
+                p = p.toleration("dedicated", api.OP_EQUAL, "gpu", api.PREFER_NO_SCHEDULE)
+            elif r == 3:
+                p = p.toleration("maint", api.OP_EQUAL, "true", api.NO_SCHEDULE)
+            elif r == 4 and ports:
+                p = p.host_port(7000 + i % 4)
+            elif r == 5 and rng.random() < 0.5:
+                # a class first seen at this step
+                p = p.preferred_affinity(1 + step, api.LABEL_ZONE, api.OP_IN, ["z-1"])
+            pods.append(p.obj())
+        return pods
+
+    def mutate(self, placed):
+        """Operations after a batch; `placed` is [(pod, node_name or None)]."""
+        rng = self.rng
+        ops = []
+        for pod, name in placed:
+            if name is not None and name in self.live and rng.random() < 0.6:
+                ops.append(("assume", pod, name))
+                self.bound.append((pod, name))
+        if self.bound and rng.random() < 0.5:
+            pod, _ = self.bound.pop(int(rng.integers(0, len(self.bound))))
+            ops.append(("forget", pod))
+        if self.live and rng.random() < 0.5:
+            name = self.live[int(rng.integers(0, len(self.live)))]
+            ops.append(("update_node", self._node(name, cpu=16000)))
+        if len(self.live) > 4 and rng.random() < 0.3:
+            name = self.live.pop(int(rng.integers(0, len(self.live))))
+            gone = [b for b in self.bound if b[1] == name]
+            for b in gone:
+                self.bound.remove(b)
+                ops.append(("forget", b[0]))
+            ops.append(("remove_node", name))
+            self.fresh += 1
+            fresh = f"fresh-{self.fresh}"
+            self.live.append(fresh)
+            ops.append(("add_node", self._node(fresh)))
+        return ops
+
+    @staticmethod
+    def apply(ops, *scheds) -> None:
+        for op in ops:
+            for s in scheds:
+                getattr(s, op[0])(*op[1:])
