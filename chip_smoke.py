@@ -7,7 +7,7 @@ configuration: the resident cluster mirror and the warm partials on
 (use_mirror=False is the cold path).  Phases (one JSON line each on
 stdout; with --log also appended to PATH):
 
-  build      build the eleven CUDA kernels from kubernetes_tpu_torch/csrc
+  build      build the thirteen CUDA kernels from kubernetes_tpu_torch/csrc
   parity     each kernel against its plain torch version, exact (on the
              card, or on CPU copies of the inputs where the plain version
              adds in pod index order: the scan, the wavefront and the
@@ -23,6 +23,10 @@ stdout; with --log also appended to PATH):
              affinity-direction terms (some also against the plain loop on
              the CPU, among them a gang released past float32's exact
              range); class_extras on the scan's and the auction's pairs
+  overlay    the reservations overlay on the card against the CPU: twelve
+             nominated pods with requests that are not whole MiB on a node
+             already past float32's exact range, two on another; the
+             overlaid usage and the batch equal
   resident_parity
              partials_eval and mirror_rows against their plain versions on
              the mixed and family batches (a warm scheduler's store, column
@@ -62,6 +66,28 @@ stdout; with --log also appended to PATH):
              pods; the auction and the scan), every batch equal to the plain
              path on the CPU; class_extras and the plain-torch prep_pref_pod
              timed at these shapes
+  slices     the randomized slice cases (seeds 0-5) and a multi-core
+             coordinate case under both policies, greedy_scan's carve-out
+             stage, slice_stats and evaluate_single against their plain
+             versions; then bench.py's c10 at full width (4,096 nodes as 64
+             slices of 4x4x4, six rounds of 208 pods in 26 gangs, half the
+             live gangs leaving between rounds) through
+             TorchBatchScheduler(carveout_policy=...) under "prefer" and
+             "require", each round equal to the same scheduler on the CPU
+             field for field (placements, scores, reasons, usage and the
+             four carve-out counters), on the scan; the contiguous rate and
+             the final fragmentation beside bench.py's gates; greedy_scan
+             and slice_stats timed at the c10 shape
+  extender   SchedulingBasic/5000Nodes behind the HTTP extender on
+             127.0.0.1: 200 filter + 200 prioritize requests in
+             nodeCacheCapable mode, every response equal to a CPU backend's;
+             variant pods (spread, soft spread, anti-affinity, preferred
+             affinity, image) and a shaped pod on a c10 slice cluster under
+             both policies; requests/s; evaluate_single timed at 8,192
+             padded nodes
+  proto      one SolveRequest of 1,000 pods onto 5,000 nodes over the
+             socket to the card's proto service (the auction, cold), the
+             response equal to the CPU backend's
   resident   the same batches through TorchBatchScheduler() (warm) and
              TorchBatchScheduler(use_mirror=False) (cold), every batch equal
              field for field: SchedulingNodeAffinity/5000Nodes in 500-pod
@@ -86,14 +112,18 @@ stdout; with --log also appended to PATH):
              sync of the assumed rows, warm against cold
 
 In every part of main, greedy, wavefront, spread, interpod, extras,
-resident and north the launch counters are reset just before the part and
+slices, extender, proto, resident and north the launch counters are reset
+just before the part and
 read just after; the kernels expected are derived from the batches the
 part's schedulers encoded (route_kernels): the route's own — warm statics
 drop match_terms (kept for the spread family's selector mask) and
 class_statics —, the families' (auction_spread and auction_interpod on the
 auction of a spread / inter-pod batch, class_extras with preferred
-inter-pod terms or images) and the residents' (partials_eval,
-mirror_rows, each launched exactly as often as the residents recorded).
+inter-pod terms or images, slice_stats after a slice batch's scan) and
+the residents' (partials_eval, mirror_rows, each launched exactly as often
+as the residents recorded); the extender's windows expect match_terms,
+class_statics and evaluate_single (two launches a request), with
+class_extras for the variants, and the proto request the cold auction's.
 Each part fails unless every expected kernel was launched and no other.
 Then the card's name and power limit, the `kernels` summary object, and
 as the last line {"ok": true, "device": {...}}.  Any failed check raises
@@ -144,6 +174,16 @@ IMAGES = (5000, 1000)
 # wavefront; the same batches also on the scan)
 CHURN = (5000, 2000)
 CHURN_MEASURED_BATCH, CHURN_PODS = 400, 100
+# bench.py's c10 slice packing (config10, bench.py:1273-1400): 64 slices of
+# 4x4x4 (4,096 nodes), rounds of 208 pods in 26 gangs, half the live gangs
+# leaving between rounds (seed 10); its quality gates (bench.py:1268-1269)
+C10_ROUNDS = 6
+C10_CONTIG_MIN, C10_FRAG_MAX = 0.9, 0.5
+# SchedulingBasic/5000Nodes behind the extender: (nodes, bound pods,
+# filter + prioritize request pairs); the proto service's one request:
+# (nodes, pods)
+EXTENDER = (5000, 1000, 200)
+PROTO = (5000, 1000)
 
 # H100 SXM published peaks (NVIDIA data sheet: HBM3 rate, non-tensor float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
@@ -172,6 +212,10 @@ SOURCES = {
                       "kubernetes_tpu/ops/partials.py:203"),
     "mirror_rows": ("kubernetes_tpu_torch/csrc/mirror_rows.cu",
                     "kubernetes_tpu/models/mirror.py:81"),
+    "slice_stats": ("kubernetes_tpu_torch/csrc/slice_stats.cu",
+                    "kubernetes_tpu/ops/slices.py:269"),
+    "evaluate_single": ("kubernetes_tpu_torch/csrc/evaluate_single.cu",
+                        "kubernetes_tpu/ops/assign.py:1665"),
 }
 
 # the kernels each route launches with cold statics (match_terms and
@@ -730,6 +774,7 @@ def main() -> int:
 
     # ---- parity on small batches ------------------------------------------
     parity_phase(wrappers, assign, auction, dv, filters, bindings, torch)
+    overlay_parity(wrappers, TorchBatchScheduler, torch)
     resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch)
 
     # ---- main path: SchedulingBasic/5000Nodes, default route ---------------
@@ -854,6 +899,15 @@ def main() -> int:
     extras_row, prep_pref_pod_row = extras_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
 
+    # ---- slices: bench.py's c10 on the scan, card against CPU -------------
+    slice_rows, slice_launches = slices_phase(
+        wrappers, TorchBatchScheduler, assign, filters, dv, bindings, torch, card)
+
+    # ---- the extender and the proto service ----------------------------
+    eval_row, extender_launches = extender_phase(
+        wrappers, TorchBatchScheduler, assign, dv, bindings, torch, card)
+    proto_phase(wrappers, torch, bindings, card)
+
     # ---- the residents: warm against cold at full width ---------------------
     resident_launches = resident_phase(
         wrappers, TorchBatchScheduler, bindings, torch, card)
@@ -883,6 +937,9 @@ def main() -> int:
     for name, shape in (("partials_eval", "full"), ("mirror_rows", "usage500")):
         row = next(r for r in resident_rows if r["name"] == name and r["shape"].startswith(shape))
         summary.append(dict(row, launches=resident_launches[name]))
+    row = next(r for r in slice_rows if r["name"] == "slice_stats")
+    summary.append(dict(row, launches=slice_launches["slice_stats"]))
+    summary.append(dict(eval_row, launches=extender_launches["evaluate_single"]))
     order_ms = cuda_ms(lambda: assign.solve_order(snap_k.pods), 50, torch)
     order_bound = bound(*solve_order_need(snap_k.pods))
     emit({"phase": "kernels", "card": card,
@@ -896,7 +953,11 @@ def main() -> int:
                                      "(the auction's class pairs)",
                      "partials_eval, mirror_rows": "the wavefront phase's warm "
                                                    "SchedulingNodeAffinity/5000Nodes scheduler "
-                                                   "(8,192 padded nodes, 32 slots)"},
+                                                   "(8,192 padded nodes, 32 slots)",
+                     "slice_stats": "c10 (4,096 nodes, 256 padded pods, 26 gangs) after the "
+                                    "scan (greedy_scan at this shape: the slices line)",
+                     "evaluate_single": "one pod-default pod against "
+                                        "SchedulingBasic/5000Nodes (8,192 padded nodes)"},
           "kernels": [dict({k: row[k] for k in ("name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")},
                            equal=True) for row in summary],
           "resident_kernels": resident_rows, "resident_torch": resident_extra,
@@ -1528,6 +1589,8 @@ def route_kernels(meta) -> set:
         kernels |= {"auction_interpod"} if f.interpod else set()
     if f.interpod_pref or f.images:
         kernels.add("class_extras")
+    if meta.route == "greedy" and f.slices:
+        kernels.add("slice_stats")
     return kernels
 
 
@@ -2483,6 +2546,495 @@ def time_resident_kernels(warm, dv, dv_wrappers, pops, bindings, torch) -> tuple
                                       "bound_ms": bound(stage.bytes_sent, 0.0)[0],
                                       "bound_by": "bytes", "route": "one pinned copy (host clock)"}
     return rows, extra
+
+
+# ---- slice carve-outs, the extender, the proto service -----------------------
+
+def run_slice_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
+                      timed: bool = False):
+    """The scan route of a slice batch, kernel by kernel against the plain
+    versions on the same inputs, exact: match_terms, class_statics and
+    greedy_scan with its carve-out stage and carry (run_kernels; the scan's
+    plain version on CPU copies), then slice_stats over the scan's
+    post-release usage and final carry (its plain version on the card).
+    With timed=True returns the summary rows of greedy_scan and
+    slice_stats."""
+    from kubernetes_tpu_torch.ops import slices as slices_ops
+
+    rows = run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
+                       timed=timed)
+    cluster, pods, sfeas, aff, taint, sp_args, tm_args, extra = assign._solver_prep(
+        snap, features, cfg=cfg)
+    out = bindings.greedy_scan(cluster, pods, sfeas, aff, taint, assign.solve_order(pods),
+                               features, n_groups, cfg, sp_args, tm_args, extra)
+    final = cluster._replace(requested=out[4], nonzero_requested=out[5])
+    gang = out[11:14] if len(out) > 11 else None
+
+    def kern():
+        return bindings.slice_stats(final, pods, out[0], gang, features, n_groups)
+
+    def plain():
+        return slices_ops.carve_stats_plain(final, pods, out[0], gang, features, n_groups)
+
+    err = check_equal("slice_stats", kern(), plain(), torch)
+    if not timed:
+        return []
+    bms, by = bound(*slice_stats_need(final, pods, gang, features, torch))
+    stats_row = {"name": "slice_stats", "max_abs_err": err, "ms": cuda_ms(kern, 50, torch),
+                 "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by}
+    return [r for r in rows if r["name"] == "greedy_scan"] + [stats_row]
+
+
+def slice_stats_need(cluster, pods, gang, features, torch) -> tuple:
+    """(bytes, operations) of slice_stats on this data: per node its
+    validity, slice id, coordinates, extent and RESOURCE_PODS usage; per
+    pod its assignment, validity, group and shape; the gang carry; four
+    scalars out.  Operations: the grid (one scatter a node), the integral
+    (three prefix passes over S (D+1)^3 cells) and the cube sweep (eight
+    gathers and a compare for every corner, edge and slice)."""
+    n, p = cluster.allocatable.shape[0], pods.req.shape[0]
+    z, d = features.slice_z, features.slice_dim
+    need = n * (1 + 4 + 16 + 12 + 4) + p * (4 + 1 + 4 + 12) + 16
+    if gang is not None:
+        need += nbytes(*gang)
+    ops = n + 3 * z * (d + 1) ** 3 + 9 * z * d * d ** 3 + 10 * p
+    return need, float(ops)
+
+
+def run_evaluate_single(snap, features, cfg, assign, bindings, torch, timed: bool = False):
+    """Kernel evaluate_single (its filter stage, then its score stage, with
+    class_extras between them on the filter's feasible row) against its
+    plain versions on the same card inputs, exact; the whole entry point
+    evaluate_single on the card against the plain path on a CPU copy.
+    Returns (feas, masked) and, timed, the kernel's summary row."""
+    topo_z = assign.required_topo_z(snap) if assign.needs_topo(features) else 1
+    cluster, pods, sel, pref = snap[:4]
+    sel_mask, pref_mask = assign.selector_match(cluster, sel), assign.preferred_match(cluster, pref)
+    reps = torch.zeros(1, dtype=torch.int32, device=cluster.allocatable.device)
+    sfeas, aff, taint = bindings.class_statics(cluster, pods, sel_mask, pref_mask, reps)
+    sp_args = assign.spread_prep(snap, sel_mask, features, topo_z)
+    tm_args = assign.terms_prep(snap, features, topo_z)
+
+    def k_filter():
+        return bindings.evaluate_single_filter(cluster, pods, sfeas[0], features, sp_args, tm_args)
+
+    stage1 = k_filter()
+    check_equal("evaluate_single (filter)", stage1,
+                assign.single_filter_plain(cluster, pods, sfeas[0], features, sp_args, tm_args),
+                torch)
+    feas, feas_sp, bonus = stage1
+    extra = assign.extras_prep(snap, features, cfg, reps, feas[None], topo_z)
+    extra = extra[0] if extra is not None else None
+
+    def k_score():
+        return bindings.evaluate_single_score(cluster, pods, feas, feas_sp, bonus, aff[0],
+                                              taint[0], extra, features, cfg, sp_args)
+
+    def plain_score():
+        return assign.single_score_plain(cluster, pods, feas, feas_sp, bonus, aff[0], taint[0],
+                                         extra, features, cfg, sp_args)
+
+    masked = k_score()
+    err = check_equal("evaluate_single (score)", (masked,), (plain_score(),), torch)
+    whole = assign.evaluate_single(snap, cfg, topo_z, features)
+    check_equal("evaluate_single (card against the plain path on the CPU)", whole,
+                assign.evaluate_single(cpu_copy(snap), cfg, topo_z, features), torch)
+    if not timed:
+        return whole, None
+
+    def kern():
+        k_filter()
+        return k_score()
+
+    def plain():
+        assign.single_filter_plain(cluster, pods, sfeas[0], features, sp_args, tm_args)
+        return plain_score()
+
+    n, r = cluster.allocatable.shape
+    need = n * (1 + 3 * r * 4 + 2 * 4 + 1 + 4) + nbytes(pods.req[0], pods.nonzero_req[0])
+    if extra is not None:
+        need += n * 4
+    bms, by = bound(need, float(n * (2 * r + 60)))
+    return whole, {"name": "evaluate_single", "max_abs_err": err, "ms": cuda_ms(kern, 50, torch),
+                   "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by}
+
+
+def overlay_parity(wrappers, TorchBatchScheduler, torch) -> None:
+    """The reservations overlay on the card against the CPU: several
+    nominated pods whose memory requests are not whole MiB on one node
+    already past float32's exact range (4.5e9 bytes of 100M requests), two
+    on another; the overlaid usage and every result field equal.  Also
+    records whether one plain index_add on the card would have matched
+    (the order the overlay replaces)."""
+    import numpy as np
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sched = TorchBatchScheduler(device=dev, mode="greedy", use_wavefront=False)
+        for i in range(4):
+            sched.add_node(wrappers.make_node(f"ov-{i}")
+                           .capacity(cpu_milli=64000, mem=64 * wrappers.GI, pods=110).obj())
+        for k in range(45):
+            sched.assume(wrappers.make_pod(f"ov-bound-{k}").req(cpu_milli=10, mem=100_000_000)
+                         .obj(), "ov-0")
+        nominated = [("ov-0", wrappers.make_pod(f"ov-nom-{k}")
+                      .req(cpu_milli=10, mem=100_000_000 + 4099 * k).obj()) for k in range(12)]
+        nominated += [("ov-1", wrappers.make_pod(f"ov-nom-x{k}").req(cpu_milli=10, mem=123_456_789)
+                       .obj()) for k in range(2)]
+        pods = [wrappers.make_pod(f"ov-p-{i}").req(cpu_milli=100, mem=100_000_000).obj()
+                for i in range(16)]
+        snap, _meta = sched.encode_pending(pods, reservations=nominated)
+        names = sched.schedule_pending(pods, reservations=nominated)
+        got[dev] = (snap.cluster.requested.cpu(), snap.cluster.nonzero_requested.cpu(), names,
+                    result_fields(sched.last_result, True))
+        if dev == "cuda":
+            rows = [sched.state._rows[n] for n, _p in nominated]
+            vals = np.stack([sched.builder.pod_usage(p, sched.state._r)[0] for _n, p in nominated])
+            base = snap.cluster.requested.new_tensor(sched.state.tensors().requested)
+            naive = base.index_add(0, torch.tensor(rows, device=base.device),
+                                   torch.from_numpy(vals).to(base.device)).cpu()
+    if got["cuda"][2] != got["cpu"][2]:
+        raise AssertionError("overlay: card and CPU placements differ")
+    check_equal("reservations overlay (card against CPU)", got["cuda"][:2], got["cpu"][:2], torch)
+    check_equal("overlay batch (card against CPU)", got["cuda"][3], got["cpu"][3], torch)
+    emit({"phase": "overlay", "reservations": 14, "past_exact_range": True, "equal_cpu": True,
+          "naive_index_add_equal_cpu": bool(torch.equal(naive, got["cpu"][0]))})
+
+
+def slices_phase(wrappers, TorchBatchScheduler, assign, filters, dv, bindings, torch, card):
+    """bench.py's c10 at full width through TorchBatchScheduler(
+    carveout_policy=...) on the card and on the CPU in lockstep, both
+    policies: every round equal field for field, on the scan; the
+    kernels at the c10 shape; the randomized slice cases and a multi-core
+    coordinate case against the plain versions."""
+    from kubernetes_tpu_torch.ops import schema
+    from kubernetes_tpu_torch.ops import slices as slices_ops
+    from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_CONFIG
+    from kubernetes_tpu_torch.testing import cases
+
+    checked = 0
+    for seed in range(6):
+        nodes, pods, bound_pods, _p = cases.random_slice_objects(wrappers, seed)
+        snap, _m = schema.SnapshotBuilder().build(nodes, pods, bound_pods=bound_pods)
+        for policy in ("prefer", "require"):
+            f = assign.features_of(snap, slice_policy=policy)
+            ts = dv.to_device(snap, "cuda")
+            run_slice_kernels(ts, f, schema.num_groups(snap), DEFAULT_SCORE_CONFIG, assign, filters,
+                              bindings, torch)
+            one, _m1 = schema.SnapshotBuilder().build(nodes, pods[:1], bound_pods=bound_pods)
+            run_evaluate_single(dv.to_device(one, "cuda"),
+                                assign.features_of(one, slice_policy=policy), DEFAULT_SCORE_CONFIG,
+                                assign, bindings, torch)
+            checked += 1
+    # several nodes on one coordinate (LABEL_TPU_CORE): a coordinate is
+    # free only when every core on it is
+    mc_nodes = [cases.slice_node(wrappers, f"mc{s}", x, y, 0, (2, 2, 1), core=c)
+                for s in range(2) for y in range(2) for x in range(2) for c in range(2)]
+    mc_bound = [wrappers.make_pod("mc-b0").req(cpu_milli=100).node_name("mc0-000c1").obj(),
+                wrappers.make_pod("mc-b1").req(cpu_milli=100).node_name("mc1-110").obj()]
+    mc_pods = (cases.gang(wrappers, "mc-g0", 2, "2x1x1") + cases.gang(wrappers, "mc-g1", 4, "2x2x1")
+               + cases.gang(wrappers, "mc-g2", 2, "1x2x1"))
+    snap, _m = schema.SnapshotBuilder().build(mc_nodes, mc_pods, bound_pods=mc_bound)
+    for policy in ("prefer", "require"):
+        run_slice_kernels(dv.to_device(snap, "cuda"), assign.features_of(snap, slice_policy=policy),
+                          schema.num_groups(snap), DEFAULT_SCORE_CONFIG, assign, filters, bindings, torch)
+        checked += 1
+
+    out = {"phase": "slices", "workload": "c10 slice packing (bench.py config10)",
+           "nodes": 64 * 64, "slices": 64, "slice_dims": "4x4x4", "rounds": C10_ROUNDS,
+           "pods_per_round": 208, "gangs_per_round": 26, "parity_cases": checked,
+           "gates": {"contiguous_rate_min": C10_CONTIG_MIN, "frag_score_final_max": C10_FRAG_MAX},
+           "policies": {}, "card": card}
+    launches_all = {}
+    timed_snap = None
+    for policy in ("prefer", "require"):
+        pair = {"cuda": TorchBatchScheduler(carveout_policy=policy),
+                "cpu": TorchBatchScheduler(device="cpu", carveout_policy=policy)}
+        churn = {d: cases.SliceChurn(wrappers) for d in pair}
+        live = {d: [] for d in pair}
+        for d, s in pair.items():
+            for node in churn[d].nodes():
+                s.add_node(node)
+        stats = {"completed": 0, "contiguous": 0, "fallbacks": 0, "carveouts": 0,
+                 "placed": 0, "arrived": 0}
+        walls, frags, cpu_walls = [], [], []
+
+        def run():
+            for r in range(C10_ROUNDS):
+                names = {}
+                for d, s in pair.items():
+                    if r:
+                        for members in churn[d].depart(live[d]):
+                            for pod, _n in members:
+                                s.forget(pod)
+                    pods = churn[d].round_pods(r)
+                    if d == "cuda":
+                        torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    names[d] = s.schedule_pending(pods)
+                    (walls if d == "cuda" else cpu_walls).append(time.perf_counter() - t)
+                    for pod, n in zip(pods, names[d]):
+                        if n is not None:
+                            s.assume(pod, n)
+                    live[d].extend(churn[d].placed_gangs(pods, names[d]))
+                card_s, cpu_s = pair["cuda"], pair["cpu"]
+                if card_s.metas[-1].route != "greedy":
+                    raise AssertionError(f"slices/{policy} round {r}: route "
+                                         f"{card_s.metas[-1].route}")
+                if names["cuda"] != names["cpu"]:
+                    raise AssertionError(f"slices/{policy} round {r}: card and CPU names differ")
+                check_equal(f"slices/{policy} round {r} (card against CPU)",
+                            result_fields(card_s.last_result, True),
+                            result_fields(cpu_s.last_result, False), torch)
+                ds, dc = card_s.last_solve, cpu_s.last_solve
+                tele = tuple(getattr(ds, f) for f in ("frag_score", "carveouts",
+                                                      "contiguous_gangs", "carveout_fallbacks"))
+                if tele != tuple(getattr(dc, f) for f in ("frag_score", "carveouts",
+                                                          "contiguous_gangs",
+                                                          "carveout_fallbacks")):
+                    raise AssertionError(f"slices/{policy} round {r}: telemetry differs")
+                stats["arrived"] += len(names["cuda"])
+                stats["placed"] += sum(n is not None for n in names["cuda"])
+                stats["carveouts"] += tele[1]
+                stats["contiguous"] += tele[2]
+                stats["fallbacks"] += tele[3]
+                stats["completed"] += tele[2] + tele[3]
+                frags.append(tele[0])
+
+        _, launches = drive_phase(f"slices/{policy}", run, bindings, [pair["cuda"]])
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        final = slices_ops.fragmentation_report(pair["cuda"].state.tensors())
+        if final != slices_ops.fragmentation_report(pair["cpu"].state.tensors()):
+            raise AssertionError(f"slices/{policy}: final fragmentation differs")
+        rate = stats["contiguous"] / max(stats["completed"], 1)
+        out["policies"][policy] = {
+            **stats, "contiguous_rate": rate, "frag_score_per_round": frags,
+            "frag_score_final": final["score"],
+            "meets_gates": rate >= C10_CONTIG_MIN and final["score"] <= C10_FRAG_MAX,
+            "round_s": walls, "round_s_min": min(walls), "cpu_round_s": cpu_walls,
+            "pods_per_s": 208 / min(walls), "launches": launches, "equal_cpu": True}
+        if policy == "prefer":
+            timed_snap = pair["cuda"].encode_pending(churn["cuda"].round_pods(C10_ROUNDS))
+    snap, meta = timed_snap
+    rows = run_slice_kernels(snap, meta.features, meta.n_groups, DEFAULT_SCORE_CONFIG, assign, filters,
+                             bindings, torch, timed=True)
+    out["kernels_c10"] = rows
+    emit(out)
+    return rows, launches_all
+
+
+def _pod_json(name, labels=None, image="", spec=None):
+    d = {"metadata": {"name": name, "namespace": "default", "labels": labels or {}},
+         "spec": {"containers": [{"name": "c", "image": image, "resources": {"requests": {
+             "cpu": f"{POD_CPU_MILLI}m", "memory": f"{POD_MEM_MI}Mi"}}}]}}
+    d["spec"].update(spec or {})
+    return d
+
+
+def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, card):
+    """SchedulingBasic/5000Nodes behind the HTTP extender: 5,000
+    node-default nodes and 1,000 bound pod-default pods in a card backend
+    (served on 127.0.0.1) and a CPU backend fed alike; EXTENDER[2]
+    filter + prioritize pairs in nodeCacheCapable mode over HTTP, every
+    response equal to the CPU backend's; then variant pods (spread, soft
+    spread, anti-affinity, preferred affinity, image) over HTTP and a
+    shaped pod on a c10 slice cluster under both policies.  Each window's
+    launch counters are read: match_terms, class_statics and
+    evaluate_single (two a request), class_extras for the variants."""
+    import json
+    import urllib.request
+
+    from kubernetes_tpu_torch.extender import ExtenderBackend, ExtenderServer
+    from kubernetes_tpu_torch.extender.types import ExtenderArgs
+    from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_CONFIG
+    from kubernetes_tpu_torch.testing import cases
+
+    n_nodes, n_bound, n_req = EXTENDER
+    backends = {}
+    for dev in ("cuda", "cpu"):
+        be = ExtenderBackend(TorchBatchScheduler(device=dev))
+        for node in make_cluster(wrappers, n_nodes):
+            be.add_node(node)
+        for i, pod in enumerate(make_pods(wrappers, n_bound, "ext-bound")):
+            be.tpu.state.add_pod(pod, f"node-{(i * 7) % n_nodes}")
+        backends[dev] = be
+    names = [f"node-{i}" for i in range(n_nodes)]
+    srv = ExtenderServer(backends["cuda"]).start()
+    url = f"http://127.0.0.1:{srv.port}"
+
+    def post(verb, body):
+        req = urllib.request.Request(url + "/" + verb, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req) as r:
+            return json.load(r)
+
+    def exchange(bodies):
+        return [(b, post("filter", b), post("prioritize", b)) for b in bodies]
+
+    def check(tag, got):
+        for body, f, p in got:
+            args = ExtenderArgs.from_dict(body)
+            want_f = json.loads(json.dumps(backends["cpu"].filter(args)))
+            want_p = json.loads(json.dumps(backends["cpu"].prioritize(args)))
+            if f != want_f or p != want_p:
+                raise AssertionError(f"extender/{tag}: {body['Pod']['metadata']['name']} differs "
+                                     "from the CPU backend")
+            if f["Error"]:
+                raise AssertionError(f"extender/{tag}: {f['Error']}")
+    try:
+        bodies = [{"Pod": _pod_json(f"ext-req-{i}"), "Nodes": None, "NodeNames": names}
+                  for i in range(n_req)]
+        torch.cuda.synchronize()
+        bindings.reset_launches()
+        t0 = time.perf_counter()
+        got = exchange(bodies)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        basic_launches = dict(bindings.LAUNCHES)
+        check_launches("extender", basic_launches, {"match_terms", "class_statics",
+                                                    "evaluate_single"})
+        if basic_launches["evaluate_single"] != 2 * 2 * n_req:
+            raise AssertionError(f"extender: evaluate_single launched "
+                                 f"{basic_launches['evaluate_single']} times for {2 * n_req} "
+                                 "requests")
+        check("basic", got)
+        placed = sum(len(f["NodeNames"]) for _b, f, _p in got)
+        # variant pods over HTTP: the families evaluate_single covers
+        for dev, be in backends.items():
+            for k in range(8):
+                be.add_node(wrappers.make_node(f"img-{k}")
+                            .capacity(cpu_milli=NODE_CPU_MILLI, mem=NODE_MEM_GI * wrappers.GI,
+                                      pods=NODE_PODS).zone(f"zone-{k % ZONES}")
+                            .image("app:v1", 700 * wrappers.MI).obj())
+            for i, pod in enumerate(wrappers.make_pod(f"ext-a-{i}").label("app", "a")
+                                    .req(cpu_milli=100).obj() for i in range(40)):
+                be.tpu.state.add_pod(pod, f"node-{(i * 37) % n_nodes}")
+        sel = {"labelSelector": {"matchLabels": {"app": "a"}}}
+        variants = {
+            "spread": _pod_json("ext-spread", {"app": "a"}, spec={"topologySpreadConstraints": [
+                dict(sel, maxSkew=1, topologyKey="topology.kubernetes.io/zone",
+                     whenUnsatisfiable="DoNotSchedule")]}),
+            "soft_spread": _pod_json("ext-soft", {"app": "a"}, spec={"topologySpreadConstraints": [
+                dict(sel, maxSkew=2, topologyKey="topology.kubernetes.io/zone",
+                     whenUnsatisfiable="ScheduleAnyway")]}),
+            "anti_affinity": _pod_json("ext-anti", {"app": "a"}, spec={"affinity": {
+                "podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+                    dict(sel, topologyKey="kubernetes.io/hostname")]}}}),
+            "preferred_affinity": _pod_json("ext-pref", spec={"affinity": {"podAffinity": {
+                "preferredDuringSchedulingIgnoredDuringExecution": [{
+                    "weight": 10, "podAffinityTerm": dict(sel, topologyKey=(
+                        "topology.kubernetes.io/zone"))}]}}}),
+            "image": _pod_json("ext-image", image="app:v1"),
+        }
+        all_names = names + [f"img-{k}" for k in range(8)]
+        bindings.reset_launches()
+        got = exchange([{"Pod": v, "Nodes": None, "NodeNames": all_names}
+                        for v in variants.values()])
+        # a shaped pod on a c10 slice cluster (its shape rides the pod
+        # object, not the v1 JSON): the backends' verbs under the default
+        # policy, and evaluate_single under both
+        churn = cases.SliceChurn(wrappers)
+        slice_pair = {}
+        for dev in ("cuda", "cpu"):
+            be = ExtenderBackend(TorchBatchScheduler(device=dev))
+            for node in churn.nodes():
+                be.add_node(node)
+            for i, pod in enumerate(churn.round_pods(0)[:40]):
+                be.tpu.state.add_pod(pod, f"s{i % 64:02d}-{i % 4}{(i // 4) % 4}0")
+            slice_pair[dev] = be
+        shaped = wrappers.make_pod("ext-shaped").req(cpu_milli=100).obj()
+        shaped.spec.tpu_topology = "2x2x2"
+        slice_names = [n.meta.name for n in churn.nodes()]
+        args = ExtenderArgs(shaped, node_names=slice_names)
+        slice_out = {dev: (be.filter(args), be.prioritize(args)) for dev, be in slice_pair.items()}
+        if slice_out["cuda"] != slice_out["cpu"] or slice_out["cuda"][0]["Error"]:
+            raise AssertionError("extender/shaped: card and CPU verbs differ")
+        policies = {}
+        for policy in ("prefer", "require"):
+            be = slice_pair["cuda"]
+            snap, _m = be.tpu.builder.build_from_state(be.tpu.state, [shaped])
+            f = assign.features_of(snap, slice_policy=policy)
+            (feas, scores), _row = run_evaluate_single(dv.to_device(snap, "cuda"), f,
+                                                       DEFAULT_SCORE_CONFIG, assign, bindings, torch)
+            policies[policy] = {"feasible": int(feas.sum()),
+                                "best": float(scores.max())}
+        torch.cuda.synchronize()
+        variant_launches = dict(bindings.LAUNCHES)
+        check_launches("extender/variants", variant_launches,
+                       {"match_terms", "class_statics", "evaluate_single", "class_extras"})
+        check("variants", got)
+        # the timed kernel at SchedulingBasic/5000Nodes (8,192 padded nodes)
+        be = backends["cuda"]
+        snap, _m = be.tpu.builder.build_from_state(be.tpu.state,
+                                                    [ExtenderArgs.from_dict(bodies[0]).pod])
+        _whole, row = run_evaluate_single(dv.to_device(snap, "cuda"), assign.features_of(snap),
+                                          DEFAULT_SCORE_CONFIG, assign, bindings, torch, timed=True)
+    finally:
+        srv.stop()
+    emit({"phase": "extender", "workload": "SchedulingBasic/5000Nodes behind the extender",
+          "nodes": n_nodes, "bound_pods": n_bound, "requests": 2 * n_req,
+          "padded_nodes": int(snap.cluster.allocatable.shape[0]), "wall_s": wall,
+          "requests_per_s": 2 * n_req / wall, "feasible_per_filter": placed / n_req,
+          "variants": sorted(variants), "shaped": {"nodes": len(slice_names), **policies},
+          "equal_cpu": True, "launches": basic_launches, "variant_launches": variant_launches,
+          "card": card})
+    return row, basic_launches
+
+
+def proto_phase(wrappers, torch, bindings, card):
+    """One SolveRequest of PROTO[1] pod-default pods onto PROTO[0]
+    node-default nodes (a fifth of them with current usage) over the
+    socket to the card's ProtoSchedulerServer; the response equals the CPU
+    backend's (but for solve_seconds); the batch pads to 1,024 pods: the
+    auction, cold (every request is a fresh scheduler)."""
+    from kubernetes_tpu_torch.extender.protoserver import (
+        ProtoBackend, ProtoSchedulerServer, solve_over_socket,
+    )
+    from kubernetes_tpu_torch.proto import snapshot_pb2 as pb
+
+    n_nodes, n_pods = PROTO
+    mi, gi = wrappers.MI, wrappers.GI
+    req = pb.SolveRequest()
+    req.cluster.resources.names.extend(["cpu", "memory", "pods"])
+    req.cluster.allocatable.rows, req.cluster.allocatable.cols = n_nodes, 3
+    req.cluster.requested.rows, req.cluster.requested.cols = n_nodes, 3
+    for i in range(n_nodes):
+        req.cluster.node_names.append(f"node-{i}")
+        req.cluster.allocatable.data.extend([float(NODE_CPU_MILLI), float(NODE_MEM_GI * gi),
+                                             float(NODE_PODS)])
+        used = i % 5 == 0
+        req.cluster.requested.data.extend([1000.0 if used else 0.0, float(2 * gi) if used else 0.0,
+                                           3.0 if used else 0.0])
+    req.pods.requests.rows, req.pods.requests.cols = n_pods, 3
+    for i in range(n_pods):
+        req.pods.pod_names.append(f"proto-{i}")
+        req.pods.requests.data.extend([float(POD_CPU_MILLI), float(POD_MEM_MI * mi), 1.0])
+        req.pods.priorities.append(i % 3)
+    srv = ProtoSchedulerServer(ProtoBackend()).start()
+    try:
+        solve_over_socket("127.0.0.1", srv.port, req)   # the process's first batch
+        torch.cuda.synchronize()
+        bindings.reset_launches()
+        t0 = time.perf_counter()
+        resp = solve_over_socket("127.0.0.1", srv.port, req)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(bindings.LAUNCHES)
+    finally:
+        srv.stop()
+    check_launches("proto", launches, set(ROUTE_KERNELS["auction"]))
+    want = ProtoBackend(device="cpu").solve(req)
+    got = pb.SolveResponse()
+    got.CopyFrom(resp)
+    got.solve_seconds = want.solve_seconds = 0.0
+    if got != want:
+        raise AssertionError("proto: the card's response differs from the CPU backend's")
+    placed = sum(1 for a in resp.assignments if a.node_name)
+    emit({"phase": "proto", "nodes": n_nodes, "pods": n_pods, "placed": placed,
+          "round_trip_s": wall, "solve_seconds": resp.solve_seconds,
+          "pods_per_s": n_pods / wall, "route": "auction", "equal_cpu": True,
+          "launches": launches, "card": card})
 
 
 if __name__ == "__main__":

@@ -411,6 +411,15 @@ class Container:
 
 
 @dataclass
+class Volume:
+    """Pod volume: only the PVC source is modelled (the scheduling-
+    relevant one; core/v1/types.go Volume has ~30 sources)."""
+
+    name: str = ""
+    persistent_volume_claim: Optional[str] = None  # claim name in pod ns
+
+
+@dataclass
 class PodSpec:
     node_name: str = ""           # set at bind time
     containers: List[Container] = field(default_factory=list)
@@ -441,7 +450,7 @@ class PodSpec:
     restart_policy: str = "Always"
     termination_grace_period_seconds: int = 30
     service_account: str = ""  # defaulted to "default" at admission
-    volumes: List[Any] = field(default_factory=list)  # unused by this port
+    volumes: List[Volume] = field(default_factory=list)  # unused by the solves
     # ResourceClaim names (pod namespace) this pod consumes — the
     # pod.spec.resourceClaims reference (DRA)
     resource_claims: List[str] = field(default_factory=list)

@@ -9,7 +9,10 @@
 // hoisted extra row, scores.py), `_pick` (first-max-index, assign.py:358)
 // and the assume carry update (with `spread_update`, topology.py:201, and
 // `interpod_update`, interpod.py:182), followed by the `_gang_release`
-// epilogue (assign.py:558), which leaves the term bits as they are.
+// epilogue (assign.py:558), which leaves the term bits as they are.  With
+// the slice family, the carve-out stage (`carveout_eval`, slices.py:191)
+// and the gangs' carve-out carry (assign.py:650-735: gang_sl, gang_lo,
+// gang_corner) too.
 //
 // Bound on this card: latency of the sequential chain.  Pod k+1 must see
 // pod k's placement, so the P steps run one after another; each step is
@@ -43,6 +46,17 @@
 // the class's static row, so the test equals the reference's in-batch-only
 // carry and the table is the post-solve port_bits as it stands.
 // The carry tensors are copies made by the caller; nothing else is written.
+//
+// Slice carve-outs (slices_common.cuh): a shaped pod whose gang has no box
+// yet (or a shaped pod outside any gang) is an anchor: the block first
+// rebuilds the occupancy grid and its integral image from the carried
+// `requested` in global scratch (64 slices of 16^3 cells do not fit in
+// shared memory), then block_eval runs the carve-out stage on it.  An
+// anchored member needs only the free test and its gang's box, and an
+// unshaped pod only the zero bonus, so neither rebuilds the grid.  After
+// the pick, thread 0 writes a new anchor's slice, coordinates and whether
+// it sat on a free-box corner of this step's grid (the reference's second
+// corner_mask, assign.py:717-721, reads the same pre-placement state).
 //
 // The filters, scores and the block-wide evaluation of one pod live in
 // solve_common.cuh, shared with the wavefront and auction kernels.
@@ -83,6 +97,9 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     Spread sp,                              // counts: the carry, in place
     Terms tm,                               // bits: the carry, in place
     const float* __restrict__ extra,        // [C, N] extra score rows, or null
+    slices::Slices sl,                      // the carve-out family (sl.on = 0: off)
+    int32_t* gang_sl, int32_t* gang_lo,     // [G], [G, 3] carry, or null
+    uint8_t* gang_corner,                   // [G] carry, or null
     int32_t* assignment, float* scores, int32_t* feas_counts, int32_t* reasons,
     int32_t* incomplete)                    // [max(G, 1)] zeroed scratch
 {
@@ -92,6 +109,8 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     __shared__ Scratch sc;
     __shared__ PodSpread ps;
     __shared__ PodTerms pt;
+    __shared__ slices::PodCarve pc;
+    const bool carry = sl.on && gang_sl != nullptr;
 
     const int tid = threadIdx.x;
     if (tid == 0) load_config(cfg, iparams, fparams);
@@ -106,15 +125,20 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
         if (use_ports) {
             for (int t = tid; t < pw; t += kThreads) s_ports[t] = pod_ports[(size_t)i * pw + t];
         }
+        if (sl.on && tid == 0) {
+            slices::load_pod_carve(sl, i, group_id[i], n_groups, carry ? gang_sl : nullptr, gang_lo, pc);
+        }
         __syncthreads();
         if (sp.on) block_spread_pod(sp, n, i, ps, sc);
         if (tm.on) block_interpod_pod(tm, i, pt);
+        if (sl.on && pc.shaped && !pc.anchored) slices::block_build_grid(sl, n, requested);
 
         const Eval ev = block_eval(
             n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
             sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
             s_req, s_nz, s_ports, sp, ps, tm, pt,
-            extra != nullptr ? extra + (size_t)c * n : nullptr, cfg, sc, nullptr);
+            extra != nullptr ? extra + (size_t)c * n : nullptr, cfg, sc, nullptr,
+            sl.on ? &sl : nullptr, &pc);
 
         const int choice = ev.choice;
         if (tid == 0) {
@@ -122,6 +146,18 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
             scores[i] = ev.best;
             feas_counts[i] = ev.all.count;
             reasons[i] = ev.reason;
+        }
+        const int g = group_id[i];
+        if (carry && ev.found && g >= 0 && pc.shaped && !pc.anchored) {
+            // a new anchor (the pod is shaped, its gang has no box yet),
+            // read against the pre-placement carry and this step's grid
+            if (tid == 0) {
+                const int gc = slices::clampi(g, 0, n_groups - 1);
+                gang_sl[gc] = sl.slice_id[choice];
+                for (int j = 0; j < 3; ++j) gang_lo[(size_t)gc * 3 + j] = sl.coords[(size_t)choice * 4 + j];
+                gang_corner[gc] = slices::corner_at(sl, pc, requested, choice) ? 1 : 0;
+            }
+            __syncthreads();
         }
         if (ev.found) {
             for (int t = tid; t < r; t += kThreads) {
@@ -177,9 +213,16 @@ extern "C" int greedy_scan_launch(
     const void* tm_aff_bits, const void* tm_anti_bits, const void* tm_self_match,
     void* tm_present, void* tm_blocked, void* tm_global_any, const void* tm_writes,
     const void* tm_reads, const void* extra,
+    int sl_on, int sl_require, int sl_z, int sl_d, int sl_pods_col, const void* sl_node_valid,
+    const void* sl_slice_id, const void* sl_coords, const void* sl_dims, const void* sl_pod_shape,
+    void* sl_pres, void* sl_occ, void* sl_integral, void* sl_free_count,
+    void* gang_sl, void* gang_lo, void* gang_corner,
     void* assignment, void* scores, void* feas_counts, void* reasons,
     void* incomplete, void* stream)
 {
+    if (sl_on && (sl_z < 1 || sl_d < 1 || sl_d > slices::kMaxDim || sl_pods_col >= r)) {
+        return (int)cudaErrorInvalidValue;
+    }
     if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1)) return (int)cudaErrorInvalidValue;
     if (tm_on && (tm_w < 1 || tm_w > kMaxTW || tm_u < 1 || tm_p != p)) {
         return (int)cudaErrorInvalidValue;
@@ -192,6 +235,9 @@ extern "C" int greedy_scan_launch(
                                 tm_anti_slot, tm_aff_bits, tm_anti_bits, tm_self_match,
                                 tm_present, tm_blocked, tm_global_any, tm_cw, tm_writes,
                                 tm_reads);
+    const slices::Slices sl = slices::make_slices(
+        sl_on, sl_require, sl_z, sl_d, r, sl_pods_col, sl_node_valid, sl_slice_id, sl_coords,
+        sl_dims, sl_pod_shape, sl_pres, sl_occ, sl_integral, sl_free_count);
     greedy_scan_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
         n, r, p, c_dim, pw, use_ports, n_groups,
         (const float*)alloc, (float*)requested, (float*)nonzero,
@@ -200,7 +246,8 @@ extern "C" int greedy_scan_launch(
         (const uint8_t*)pod_valid, (const int32_t*)group_id,
         (const float*)pod_req, (const float*)pod_nz,
         (const uint32_t*)pod_ports, (const int32_t*)iparams,
-        (const float*)fparams, sp, tm, (const float*)extra, (int32_t*)assignment, (float*)scores,
+        (const float*)fparams, sp, tm, (const float*)extra, sl, (int32_t*)gang_sl,
+        (int32_t*)gang_lo, (uint8_t*)gang_corner, (int32_t*)assignment, (float*)scores,
         (int32_t*)feas_counts, (int32_t*)reasons, (int32_t*)incomplete);
     return (int)cudaGetLastError();
 }

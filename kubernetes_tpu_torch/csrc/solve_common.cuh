@@ -5,7 +5,9 @@
 // checks and the carry update) and the block-wide evaluation of one pod,
 // so every solve evaluates a pod with one body.  The hoisted extra score
 // row of a class (preferred inter-pod affinity and ImageLocality, kernel
-// class_extras) is added after the spread term.
+// class_extras) is added after the spread term; the TPU slice carve-out
+// stage (slices_common.cuh) filters last under "require" and adds its
+// bonus after everything else, outside the normalised sum.
 //
 // Numerics: every score is a floor of IEEE float32 operations in the
 // reference package's order (__fadd_rn / __fmul_rn / __fdiv_rn /
@@ -22,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "slices_common.cuh"
 
 namespace solve {
 
@@ -291,7 +295,7 @@ struct PodSpread {
 
 struct Step {
     int flags;      // bit 0 s_any, bit 1 a_res, bit 2 a_ports, bit 3 a_spread,
-                    // bit 4 passes every filter
+                    // bit 4 passes every filter, bit 5 a_interpod
     int count;      // feasible nodes
     float max_aff;  // normalisation maxima over feasible nodes, 0-floored
     float max_taint;
@@ -640,17 +644,23 @@ struct Eval {
 // node's masked score (-inf where infeasible).  pod_req, pod_nz and
 // pod_ports may point to shared memory; `ps` is the pod's block_spread_pod
 // (read only when sp.on), `pt` its block_interpod_pod (read only when
-// tm.on); `erow` is the class's extra score row, or null.
+// tm.on); `erow` is the class's extra score row, or null; `sl` / `pc` the
+// slice carve-out family and the pod's view of it (null off the family;
+// for an anchor, block_build_grid has run on `requested`).
 __device__ inline Eval block_eval(
     int n, int r, int pw, bool use_ports,
     const float* alloc, const float* requested, const float* nonzero, const uint32_t* ports,
     const uint8_t* srow, const float* arow, const float* trow,
     const float* pod_req, const float* pod_nz, const uint32_t* pod_ports,
     const Spread& sp, const PodSpread& ps, const Terms& tm, const PodTerms& pt,
-    const float* erow, const Config& cfg, Scratch& sc, float* masked)
+    const float* erow, const Config& cfg, Scratch& sc, float* masked,
+    const slices::Slices* sl = nullptr, const slices::PodCarve* pc = nullptr)
 {
     const bool sp_hard = sp.on && ps.any_hard;
     const bool sp_soft = sp.on && sp.soft_on && ps.any_soft;
+    const bool carve = sl != nullptr && sl->on;             // the bonus is added
+    const bool carve_shaped = carve && pc->shaped;          // unshaped: 0 and ok
+    const bool carve_filter = carve_shaped && sl->require;
     Step st = step_zero();
     for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
         if (!srow[nd]) continue;
@@ -662,6 +672,11 @@ __device__ inline Eval block_eval(
         if (sp_hard && !spread_ok(sp, ps, n, nd)) continue;
         st.flags |= 8;
         if (tm.on && !interpod_ok(tm, pt, nd)) continue;
+        st.flags |= 32;
+        if (carve_filter) {
+            float bonus;
+            if (!slices::carve_node(*sl, *pc, requested, nd, bonus)) continue;
+        }
         st.flags |= 16;
         st.count += 1;
         st.max_aff = fmaxf(st.max_aff, arow[nd]);
@@ -687,10 +702,14 @@ __device__ inline Eval block_eval(
             float total = -INFINITY;
             const float* cap = alloc + (size_t)nd * r;
             const float* rq = requested + (size_t)nd * r;
+            float bonus = 0.0f;
+            bool carve_ok = true;
+            if (carve_shaped) carve_ok = slices::carve_node(*sl, *pc, requested, nd, bonus);
             if (srow[nd] && node_fits(rq, cap, pod_req, r)
                 && !(use_ports && ports_clash(ports + (size_t)nd * pw, pod_ports, pw))
                 && !(sp_hard && !spread_ok(sp, ps, n, nd))
-                && !(tm.on && !interpod_ok(tm, pt, nd))) {
+                && !(tm.on && !interpod_ok(tm, pt, nd))
+                && !(carve_filter && !carve_ok)) {
                 const float fit_s = fit_score(cap, nonzero + (size_t)nd * r, pod_nz, cfg);
                 const float bal_s = balanced_score(cap, rq, pod_req, cfg);
                 total = node_total(fit_s, bal_s, arow[nd], trow[nd],
@@ -711,6 +730,8 @@ __device__ inline Eval block_eval(
                     total = add(total, mul(cfg.spread_weight, s));
                 }
                 if (erow != nullptr) total = add(total, erow[nd]);
+                // every pod of a slice batch, shaped or not (x + 0 is +0)
+                if (carve) total = add(total, bonus);
                 if (total > best) { best = total; best_idx = nd; }
             }
             if (masked != nullptr) masked[nd] = total;
@@ -724,6 +745,8 @@ __device__ inline Eval block_eval(
         : !(ev.all.flags & 2) ? kReasonResources
         : !(ev.all.flags & 4) ? kReasonPorts
         : !(ev.all.flags & 8) ? kReasonSpread
+        : !(ev.all.flags & 32) ? kReasonInterpod
+        : carve_filter ? slices::kReasonSlice
         : kReasonInterpod;
     return ev;
 }

@@ -6,7 +6,9 @@ stream, raises if the launch returned a CUDA error, and adds one to
 `LAUNCHES[name]` for every call of the kernel's C launch function.  A call
 enqueues the kernel's work for one unit: one table (match_terms), one
 batch (class_statics, class_extras, greedy_scan, wavefront — the
-wavefront's call enqueues two kernels a wave), one index-list pair of
+wavefront's call enqueues two kernels a wave —, slice_stats — two kernels),
+one stage of one pod's evaluation (evaluate_single: its filter and its
+score, one call each), one index-list pair of
 the partials store (partials_eval), one packed row delta (mirror_rows:
 every leaf it names), one bidding round
 (auction_bids — two kernels; auction_spread, auction_interpod — one), one
@@ -37,11 +39,15 @@ _SPREAD = [_I] * 4 + [_P] * 9
 # the inter-pod family's (_terms_args): 5 ints, 12 pointers; then the
 # classes' extra score rows (one pointer, null without extras)
 _TERMS = [_I] * 5 + [_P] * 12 + [_P]
+# the slice carve-out family's (_slices_args): 5 ints, 9 pointers
+_SLICES = [_I] * 5 + [_P] * 9
 
 _ARGTYPES = {
     "match_terms": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "class_statics": [_I] * 8 + [_P] * 19,
-    "greedy_scan": [_I] * 7 + [_P] * 16 + _SPREAD + _TERMS + [_P] * 6,
+    "greedy_scan": [_I] * 7 + [_P] * 16 + _SPREAD + _TERMS + _SLICES + [_P] * 9,
+    "slice_stats": [_I] * 7 + [_P] * 18,
+    "evaluate_single": [_I] * 4 + [_P] * 10 + _SPREAD + _TERMS + _SLICES + [_P] * 5,
     "wavefront": [_I] * 9 + [_P] * 16 + _SPREAD + _TERMS + [_P] * 13,
     "auction_bids": [_I] * 7 + [_P] * 17 + [_I, _P, _P] + _SPREAD + _TERMS + [_P] * 8,
     "auction_accept": [_I] * 5 + [_P] * 19,
@@ -61,6 +67,7 @@ MAX_GRID_Y = 65535
 MAX_WAVE = 32        # wavefront.cu's widest wave
 BIDS_GRID = 132      # auction_bids' class-pass blocks: one an SM, at most
 MAX_MI = 16          # class_extras.cu's images a pod
+MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
 LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
 
 
@@ -92,6 +99,17 @@ def _launcher(name: str):
             leaf.restype, leaf.argtypes = ctypes.c_int, []
             if leaf() != LEAF_BYTES:
                 raise RuntimeError(f"mirror_rows descriptor {leaf()} B != bindings {LEAF_BYTES} B")
+        if name in ("slice_stats", "evaluate_single"):
+            lim = getattr(lib, f"{name}_limits")
+            if name == "slice_stats":
+                lim.restype, lim.argtypes = ctypes.c_int, []
+                got, want = (lim(),), (MAX_SLICE_DIM,)
+            else:
+                lim.restype, lim.argtypes = ctypes.c_int, [ctypes.c_int]
+                got = tuple(lim(i) for i in range(4))
+                want = (MAX_R, MAX_MC, MAX_TW, MAX_SLICE_DIM)
+            if got != want:
+                raise RuntimeError(f"{name} limits {got} != bindings {want}")
         if name == "class_extras":
             max_mi = getattr(lib, "class_extras_limits")
             max_mi.restype, max_mi.argtypes = ctypes.c_int, []
@@ -402,13 +420,52 @@ def _terms_args(tm_args, features, dev, n: int, p: int, bits=None, rows=None,
     return [1, w, u, p, cw] + ptrs + [extra_ptr], keep + tabs + list(bits) + list(rows)
 
 
+def _slices_args(cluster, pods, features, dev, r: int):
+    """The slice carve-out family's checked launch arguments ([on, require,
+    S, D, RESOURCE_PODS] + 9 pointers: the node and pod tables and the grid
+    scratch) and the tensors they point into; without the family, zeros
+    and placeholder pointers."""
+    from ..ops.schema import RESOURCE_PODS
+
+    i32, b = torch.int32, torch.bool
+    if not features.slices:
+        pad = torch.zeros(1, dtype=i32, device=dev)
+        return [0, 0, 1, 1, 0] + [_ptr(pad)] * 9, [pad]
+    z, d = int(features.slice_z), int(features.slice_dim)
+    if not 1 <= d <= MAX_SLICE_DIM or RESOURCE_PODS >= r:
+        raise ValueError(f"slice extent {d} outside 1..{MAX_SLICE_DIM}, or no pods column")
+    n = cluster.allocatable.shape[0]
+    tabs = [
+        _arg(cluster.node_valid, b, dev, "node_valid"),
+        _arg(cluster.slice_id, i32, dev, "slice_id"),
+        _arg(cluster.torus_coords, i32, dev, "torus_coords"),
+        _arg(cluster.slice_dims, i32, dev, "slice_dims"),
+        _arg(pods.pod_shape, i32, dev, "pods.pod_shape"),
+    ]
+    if (tabs[1].shape != (n,) or tabs[2].shape != (n, 4) or tabs[3].shape != (n, 3)
+            or tabs[4].shape != (pods.req.shape[0], 3)):
+        raise ValueError("slice tables do not match the batch's pod and node axes")
+    scratch = [
+        torch.empty(z * d ** 3, dtype=i32, device=dev),
+        torch.empty(z * d ** 3, dtype=i32, device=dev),
+        torch.empty(z * (d + 1) ** 3, dtype=i32, device=dev),
+        torch.empty(z, dtype=i32, device=dev),
+    ]
+    keep = tabs + scratch
+    return ([1, int(features.slice_require), z, d, RESOURCE_PODS]
+            + [_ptr(t) for t in keep], keep)
+
+
 def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
                 n_groups: int, cfg, sp_args=None, tm_args=None, extra_c=None):
     """The whole greedy solve in one launch.  Returns (assignment,
     scores, feasible_counts, reasons, requested, nonzero_requested,
     port_bits, spread counts, inter-pod present, blocked and global_any
-    bits; None for a family the batch does not use); the carry tensors are
-    fresh copies."""
+    bits; None for a family the batch does not use; then the carve-out
+    carry gang_sl, gang_lo, gang_corner for a slice batch with gangs); the
+    carry tensors are fresh copies."""
+    from ..ops.assign import gang_carry
+
     dev = cluster.allocatable.device
     i32, f32, b = torch.int32, torch.float32, torch.bool
     alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
@@ -442,6 +499,10 @@ def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
     bits = term_bits_copy(tm_args, features)
     tm, _keep_tm = _terms_args(tm_args, features, dev, n, p, bits, None, extra_c,
                                sfeas_c.shape[0])
+    sl, _keep_sl = _slices_args(cluster, pods, features, dev, r)
+    gang = gang_carry(features, n_groups, dev)
+    null = ctypes.c_void_p(None)
+    gang_ptrs = [_ptr(t) for t in gang] if gang is not None else [null] * 3
     assignment = torch.empty(p, dtype=i32, device=dev)
     scores = torch.empty(p, dtype=f32, device=dev)
     feas_counts = torch.empty(p, dtype=i32, device=dev)
@@ -454,12 +515,121 @@ def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
             _ptr(alloc), _ptr(requested), _ptr(nonzero), _ptr(ports),
             _ptr(sfeas_c), _ptr(aff_c), _ptr(taint_c), _ptr(order),
             _ptr(class_id), _ptr(pod_valid), _ptr(group_id), _ptr(pod_req),
-            _ptr(pod_nz), _ptr(pod_ports), _ptr(iparams), _ptr(fparams), *sp, *tm,
-            _ptr(assignment), _ptr(scores), _ptr(feas_counts), _ptr(reasons),
+            _ptr(pod_nz), _ptr(pod_ports), _ptr(iparams), _ptr(fparams), *sp, *tm, *sl,
+            *gang_ptrs, _ptr(assignment), _ptr(scores), _ptr(feas_counts), _ptr(reasons),
             _ptr(incomplete),
         )
     return (assignment, scores, feas_counts, reasons, requested, nonzero,
-            ports if use_ports else cluster.port_bits, counts, *(bits or (None,) * 3))
+            ports if use_ports else cluster.port_bits, counts, *(bits or (None,) * 3),
+            *(gang or ()))
+
+
+def slice_stats(cluster, pods, assignment, gang, features, n_groups: int) -> tuple:
+    """(frag_score f32[], carveouts, contiguous_gangs, carveout_fallbacks
+    i32[]) of the post-release cluster and assignment, in one call (two
+    kernels: the per-slice grids, then the totals).  gang: the scan's
+    final (gang_sl, gang_lo, gang_corner), or None."""
+    from ..ops.schema import RESOURCE_PODS
+
+    dev = assignment.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    z, d = int(features.slice_z), int(features.slice_dim)
+    requested = _arg(cluster.requested, f32, dev, "requested")
+    n, r = requested.shape
+    if not 1 <= d <= MAX_SLICE_DIM or RESOURCE_PODS >= r or n < 1:
+        raise ValueError(f"slice extent {d} outside 1..{MAX_SLICE_DIM}, or no pods column")
+    tabs = [
+        _arg(cluster.node_valid, b, dev, "node_valid"),
+        _arg(cluster.slice_id, i32, dev, "slice_id"),
+        _arg(cluster.torus_coords, i32, dev, "torus_coords"),
+        _arg(cluster.slice_dims, i32, dev, "slice_dims"),
+        requested,
+        _arg(assignment, i32, dev, "assignment"),
+        _arg(pods.valid, b, dev, "pods.valid"),
+        _arg(pods.group_id, i32, dev, "pods.group_id"),
+        _arg(pods.pod_shape, i32, dev, "pods.pod_shape"),
+    ]
+    p = tabs[5].shape[0]
+    if gang is None:
+        n_groups = 0
+        pad = torch.zeros(1, dtype=i32, device=dev)
+        gang = (pad, pad, pad)
+    else:
+        gang = (_arg(gang[0], i32, dev, "gang_sl"), _arg(gang[1], i32, dev, "gang_lo"),
+                _arg(gang[2], b, dev, "gang_corner"))
+        if gang[0].shape != (n_groups,) or gang[1].shape != (n_groups, 3):
+            raise ValueError("the carve-out carry does not match n_groups")
+    largest = torch.empty(z, dtype=i32, device=dev)
+    free_count = torch.empty(z, dtype=i32, device=dev)
+    flags = torch.empty(max(n_groups, 1), dtype=i32, device=dev)
+    frag = torch.empty((), dtype=f32, device=dev)
+    counters = torch.empty(3, dtype=i32, device=dev)
+    _launch("slice_stats", dev, n, z, d, r, RESOURCE_PODS, p, int(n_groups),
+            *(_ptr(t) for t in tabs), *(_ptr(t) for t in gang), _ptr(largest),
+            _ptr(free_count), _ptr(flags), _ptr(frag), _ptr(counters))
+    return frag, counters[0], counters[1], counters[2]
+
+
+def evaluate_single_filter(cluster, pods, srow, features, sp_args=None, tm_args=None):
+    """Stage 1 of kernel `evaluate_single`: pod 0's (feas bool[N], post-
+    spread feasible set bool[N], carve-out bonus f32[N])."""
+    dev = cluster.allocatable.device
+    f32, b = torch.float32, torch.bool
+    alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
+    requested = _arg(cluster.requested, f32, dev, "requested")
+    srow = _arg(srow, b, dev, "static row")
+    pod_req = _arg(pods.req[0], f32, dev, "pods.req[0]")
+    n, r = alloc.shape
+    p = pods.req.shape[0]
+    if r > MAX_R or srow.shape != (n,):
+        raise ValueError(f"evaluate_single takes at most {MAX_R} resources and one static row")
+    sp, _keep = _spread_args(sp_args, features, dev, n, p,
+                             sp_args.state.counts_node.contiguous() if features.spread else None)
+    bits = term_bits_copy(tm_args, features)
+    tm, _keep_tm = _terms_args(tm_args, features, dev, n, p, bits, None, None, 0)
+    sl, _keep_sl = _slices_args(cluster, pods, features, dev, r)
+    feas = torch.empty(n, dtype=b, device=dev)
+    feas_sp = torch.empty(n, dtype=b, device=dev)
+    bonus = torch.empty(n, dtype=f32, device=dev)
+    null = ctypes.c_void_p(None)
+    _launch("evaluate_single", dev, 0, n, r, p, _ptr(alloc), _ptr(requested), null,
+            _ptr(srow), null, null, _ptr(pod_req), null, null, null, *sp, *tm, *sl,
+            _ptr(feas.view(torch.uint8)), _ptr(feas_sp.view(torch.uint8)), _ptr(bonus), null)
+    return feas, feas_sp, bonus
+
+
+def evaluate_single_score(cluster, pods, feas, feas_sp, bonus, arow, trow, extra,
+                          features, cfg, sp_args=None) -> torch.Tensor:
+    """Stage 2 of kernel `evaluate_single`: pod 0's where(feas, score,
+    -inf) f32[N], with the extra row (or None) normalised over feas."""
+    dev = cluster.allocatable.device
+    f32, b = torch.float32, torch.bool
+    alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
+    requested = _arg(cluster.requested, f32, dev, "requested")
+    nonzero = _arg(cluster.nonzero_requested, f32, dev, "nonzero_requested")
+    n, r = alloc.shape
+    p = pods.req.shape[0]
+    rows = [_arg(feas, b, dev, "feas"), _arg(feas_sp, b, dev, "feas_sp"),
+            _arg(bonus, f32, dev, "bonus"), _arg(arow, f32, dev, "aff row"),
+            _arg(trow, f32, dev, "taint row")]
+    if extra is not None:
+        rows.append(_arg(extra, f32, dev, "extra row"))
+    if any(t.shape != (n,) for t in rows):
+        raise ValueError("evaluate_single's rows are not [N]")
+    pod_req = _arg(pods.req[0], f32, dev, "pods.req[0]")
+    pod_nz = _arg(pods.nonzero_req[0], f32, dev, "pods.nonzero_req[0]")
+    iparams, fparams = score_params(cfg, r, dev)
+    sp, _keep = _spread_args(sp_args, features, dev, n, p,
+                             sp_args.state.counts_node.contiguous() if features.spread else None)
+    tm, _keep_tm = _terms_args(None, features._replace(interpod=False), dev, n, p)
+    null = ctypes.c_void_p(None)
+    sl = [int(features.slices), 0, 1, 1, 0] + [null] * 9
+    masked = torch.empty(n, dtype=f32, device=dev)
+    _launch("evaluate_single", dev, 1, n, r, p, _ptr(alloc), _ptr(requested), _ptr(nonzero),
+            null, _ptr(rows[3]), _ptr(rows[4]), _ptr(pod_req), _ptr(pod_nz), _ptr(iparams),
+            _ptr(fparams), *sp, *tm[:-1], _ptr(rows[5]) if extra is not None else null, *sl,
+            _ptr(rows[0]), _ptr(rows[1]), _ptr(rows[2]), _ptr(masked))
+    return masked
 
 
 def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,

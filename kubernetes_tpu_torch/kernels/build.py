@@ -26,7 +26,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 KERNELS = ("match_terms", "class_statics", "greedy_scan", "wavefront",
            "auction_bids", "auction_accept", "auction_spread", "auction_interpod",
-           "class_extras", "partials_eval", "mirror_rows")
+           "class_extras", "partials_eval", "mirror_rows", "slice_stats", "evaluate_single")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

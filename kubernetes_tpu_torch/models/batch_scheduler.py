@@ -68,6 +68,8 @@ class DeviceSolve:
     a CUDA event recorded after them, so `ready()` is the event's query
     and the decode only waits on the event."""
 
+    _CARVE = ("frag_score", "carveouts", "contiguous_gangs", "carveout_fallbacks")
+
     def __init__(self, result: assign_ops.SolveResult, meta: schema.SnapshotMeta,
                  clock=time.perf_counter):
         self.result = result
@@ -84,6 +86,11 @@ class DeviceSolve:
         self._has_wave = wave[0] is not None
         if self._has_wave:
             fields = fields + wave
+        # slice carve-out telemetry rides it too (None off the family)
+        carve = tuple(getattr(result, f, None) for f in self._CARVE)
+        self._has_carve = carve[0] is not None
+        if self._has_carve:
+            fields = fields + carve
         if dev.type == "cuda":
             self._host = tuple(
                 torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in fields
@@ -121,11 +128,16 @@ class DeviceSolve:
             placed = assignment[: self.meta.num_pods] >= 0
             if np.isnan(s).any() or not np.isfinite(s[placed]).all():
                 raise SolveUnhealthy("non-finite score tensor in device solve")
+            k = 5 if self._has_wave else 3
             wave = (
-                tuple(int(h) for h in self._host[3:]) if self._has_wave
+                tuple(int(h) for h in self._host[3:5]) if self._has_wave
                 else (None, None)
             )
-            self._decoded = (assignment.copy(), reasons.copy()) + wave
+            carve = (None,) * 4
+            if self._has_carve:
+                h = self._host[k:k + 4]
+                carve = (float(h[0]), int(h[1]), int(h[2]), int(h[3]))
+            self._decoded = (assignment.copy(), reasons.copy()) + wave + carve
         return self._decoded
 
     def names(self) -> List[Optional[str]]:
@@ -146,6 +158,23 @@ class DeviceSolve:
         wavefront route)."""
         return self._decode()[3]
 
+    @property
+    def frag_score(self) -> Optional[float]:
+        """Post-solve cluster fragmentation (None off the slice family)."""
+        return self._decode()[4]
+
+    @property
+    def carveouts(self) -> Optional[int]:
+        return self._decode()[5]
+
+    @property
+    def contiguous_gangs(self) -> Optional[int]:
+        return self._decode()[6]
+
+    @property
+    def carveout_fallbacks(self) -> Optional[int]:
+        return self._decode()[7]
+
 
 class TorchBatchScheduler:
     """Owns the incremental cluster state and solves batches on `device`.
@@ -156,7 +185,8 @@ class TorchBatchScheduler:
     docstring).  use_wavefront=False keeps greedy-family batches on the
     classic scan.  use_mirror / use_partials / partials_resync_interval:
     the resident cluster mirror and the warm partials (the module
-    docstring); the partials need the mirror."""
+    docstring); the partials need the mirror.  carveout_policy:
+    "prefer" | "require" | "off" for the TPU slice carve-out family."""
 
     # Greedy-family batches at least this large (padded) solve through the
     # wavefront (ops.assign.wavefront_assign), as in the reference package.
@@ -178,9 +208,18 @@ class TorchBatchScheduler:
         use_mirror: bool = True,
         use_partials: bool = True,
         partials_resync_interval: int = PartialsCache.DEFAULT_RESYNC_INTERVAL,
+        carveout_policy: str = "prefer",
     ):
         if mode not in ("auto", "greedy", "auction"):
             raise ValueError(f"mode must be auto|greedy|auction, got {mode!r}")
+        # TPU slice carve-outs (ops/slices.py): "prefer" biases shaped
+        # gangs onto contiguous sub-cuboids, "require" filters on them (a
+        # gang that cannot fit contiguously parks whole), "off" disarms
+        # the family
+        if carveout_policy not in ("prefer", "require", "off"):
+            raise ValueError(
+                f"carveout_policy must be prefer|require|off, got {carveout_policy!r}")
+        self.carveout_policy = carveout_policy
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -237,9 +276,9 @@ class TorchBatchScheduler:
         n_groups: int,
     ) -> str:
         """The solve route, decided on the padded pod axis as the reference
-        package's TPUBatchScheduler._route decides it.  A batch whose
-        families this port does not solve yet is routed all the same; its
-        solve raises (assign.check_supported) and is never rerouted."""
+        package's TPUBatchScheduler._route decides it.  Slice carve-out
+        batches stay on the classic scan: auction_features_ok declines
+        them and the wavefront is skipped for them."""
         p = snap.pods.req.shape[0]
         route = self.mode
         if route == "auto":
@@ -265,7 +304,8 @@ class TorchBatchScheduler:
         """Routing statics, derived while the snapshot is host numpy: the
         features, the auction's tie_k, the route and, on the wavefront
         route, the wave plan."""
-        meta.features = assign_ops.features_of(snap, no_bound_pods=no_bound_pods)
+        meta.features = assign_ops.features_of(
+            snap, no_bound_pods=no_bound_pods, slice_policy=self.carveout_policy)
         meta.topo_split = assign_ops.required_topo_z_split(snap)
         meta.n_groups = schema.num_groups(snap)
         meta.tie_k = auction_ops.default_tie_k(snap)
@@ -322,15 +362,12 @@ class TorchBatchScheduler:
                 meta.transfer_bytes = {"put": sum(
                     t.numel() * t.element_size() for table in snap for t in table)}
         if rows:
-            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
             cl = snap.cluster
             cluster = cl._replace(
-                requested=cl.requested.index_add(
-                    0, idx, torch.from_numpy(np.stack(reqs)).to(self.device)
-                ),
-                nonzero_requested=cl.nonzero_requested.index_add(
-                    0, idx, torch.from_numpy(np.stack(nzs)).to(self.device)
-                ),
+                requested=device_ops.add_rows_in_order(
+                    cl.requested, rows, np.stack(reqs)),
+                nonzero_requested=device_ops.add_rows_in_order(
+                    cl.nonzero_requested, rows, np.stack(nzs)),
             )
             snap = snap._replace(cluster=cluster)
         return snap, meta

@@ -22,11 +22,17 @@ reference package.
 
 The solves cover the static, resource, host-port, PodTopologySpread
 (hard and soft; ops/topology.py), required and preferred InterPodAffinity
-(ops/interpod.py) and ImageLocality families; the preferred terms and the
-images are hoisted per class as one already-weighted extra score row
-(`class_extras`, kernel `class_extras` on the card).  Batches that use
-slice carve-outs raise NotImplementedError naming the slice that brings
-them.
+(ops/interpod.py), ImageLocality and TPU slice carve-out (ops/slices.py)
+families; the preferred terms and the images are hoisted per class as one
+already-weighted extra score row (`class_extras`, kernel `class_extras` on
+the card).  Slice batches take the scan only, as in the reference: every
+shaped pod writes the free mask that the next one's corner test reads, so
+the wavefront raises on them and the auction declines them.  After a slice
+batch's scan, kernel `slice_stats` (plain: ops/slices.py) reports the
+post-solve fragmentation and the gangs' carve-out outcomes.
+
+`evaluate_single` is the single-pod Filter + Score with no placement that
+the extender's verbs serve (kernel `evaluate_single` on the card).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from .interpod import (
     prep_terms,
 )
 from .schema import ClusterTensors, PodBatch, Snapshot
+from .slices import carveout_eval, corner_mask, free_devices, slice_stats
 from .scores import (
     DEFAULT_SCORE_CONFIG,
     ScoreConfig,
@@ -95,12 +102,6 @@ class FeatureFlags(NamedTuple):
     slice_require: bool = False
     slice_z: int = 1
     slice_dim: int = 1
-
-
-# constraint families the port does not solve yet, and the slice that will
-_DEFERRED_FAMILIES = (
-    ("slices", "TPU slice carve-outs (slice carve-out slice)"),
-)
 
 
 def _np(x) -> np.ndarray:
@@ -194,16 +195,9 @@ def features_of(
     )
 
 
-def check_supported(features: FeatureFlags) -> None:
-    """Raise NotImplementedError for a constraint family this slice does
-    not solve — a batch is never solved with a family silently dropped."""
-    for flag, what in _DEFERRED_FAMILIES:
-        if getattr(features, flag):
-            raise NotImplementedError(
-                f"{what} is not ported yet: the torch solves cover the "
-                "static, resource, host-port, topology-spread, inter-pod "
-                "affinity and ImageLocality families"
-            )
+def needs_topo(features: FeatureFlags) -> bool:
+    """True when a family reads the topology-value capacity."""
+    return features.spread or features.interpod or features.interpod_pref
 
 
 # Failure-reason codes: the FIRST filter stage that emptied the pod's
@@ -229,6 +223,12 @@ class SolveResult(NamedTuple):
     # and fallback count (serialized members + per-pod full re-evaluations)
     wave_count: torch.Tensor = None      # i32[]
     wave_fallbacks: torch.Tensor = None  # i32[]
+    # slice carve-out telemetry (None off the slice family): post-solve
+    # cluster fragmentation and the gangs' carve-out outcomes
+    frag_score: torch.Tensor = None          # f32[]
+    carveouts: torch.Tensor = None           # i32[]
+    contiguous_gangs: torch.Tensor = None    # i32[]
+    carveout_fallbacks: torch.Tensor = None  # i32[]
 
 
 def class_statics_plain(
@@ -303,13 +303,19 @@ def _eval_pod(
     tm: Optional[TermState] = None,
     terms=None,
     extra_c: Optional[torch.Tensor] = None,
+    gang_sl: Optional[torch.Tensor] = None,
+    gang_lo: Optional[torch.Tensor] = None,
 ):
     """The Filter+Score half of one scheduling step for pod i against the
     carried state (sp: the spread counts, when features.spread; tm: the
     inter-pod bits, when features.interpod; extra_c: the classes' extra
-    score rows): (feas[N], masked_scores[N], found, reason,
-    feasible_count), in the reference's stage order — static, resources,
-    ports, spread, inter-pod."""
+    score rows; gang_sl / gang_lo: the gangs' carve-out carry, when
+    features.slices and gangs are present): (feas[N], masked_scores[N],
+    found, reason, feasible_count), in the reference's stage order —
+    static, resources, ports, spread, inter-pod, and the slice carve-out
+    last (a filter under "require" only).  The carve-out bonus is added
+    after the normalised score, outside its sum, for every pod of a slice
+    batch (x + 0.0 turns -0.0 into +0.0, as in the reference)."""
     pod = pod_view(pods, i)
     s_static = sfeas_c[cls]
     s_any = bool(s_static.any())
@@ -323,6 +329,13 @@ def _eval_pod(
     a_spread = bool(feas.any())
     if features.interpod:
         feas = feas & interpod_filter(tm, terms, i)
+    s_bonus = None
+    a_interpod = True
+    if features.slices:
+        s_bonus, s_ok = carveout_eval(cl, pods, i, gang_sl, gang_lo, features)
+        if features.slice_require:
+            a_interpod = bool(feas.any())
+            feas = feas & s_ok
     found = bool(feas.any())
     if found:
         reason = REASON_NONE
@@ -334,13 +347,17 @@ def _eval_pod(
         reason = REASON_PORTS
     elif not a_spread:
         reason = REASON_SPREAD
-    else:
+    elif not a_interpod:
         reason = REASON_INTERPOD
+    else:
+        reason = REASON_SLICE if features.slice_require else REASON_INTERPOD
     sp_score = spread_score(sp, spread, i, feas) if features.soft_spread else None
     scores = score_from_raw(
         cl, pod, feas, aff_c[cls], taint_c[cls], cfg, spread_score=sp_score,
         extra=extra_c[cls] if extra_c is not None else None,
     )
+    if s_bonus is not None:
+        scores = scores + s_bonus
     masked = torch.where(feas, scores, NEG_INF)
     cnt = int(feas.sum())
     return feas, masked, found, reason, cnt
@@ -433,10 +450,16 @@ def greedy_assign_plain(
 ):
     """Plain version of kernel `greedy_scan`: the sequential loop in
     torch ops.  Returns (assignment, scores, feasible_counts, reasons,
-    requested, nonzero_requested, port_bits, spread counts_node, and the
+    requested, nonzero_requested, port_bits, spread counts_node, the
     inter-pod present, blocked and global_any bits; None for a family the
-    batch does not use).  The gang release leaves the inter-pod bits as
-    they are, as the reference does."""
+    batch does not use; then, for a slice batch with gangs only, the
+    gangs' carve-out carry gang_sl i32[G], gang_lo i32[G, 3], gang_corner
+    bool[G]).  The gang release
+    leaves the inter-pod bits as they are, as the reference does.
+
+    The carve-out carry is written by a gang's first placed shaped member:
+    its slice, its coordinates and whether it sat on a free-box corner of
+    the pre-placement state (reference ops/assign.py:703-731)."""
     n = cluster.allocatable.shape[0]
     p = pods.req.shape[0]
     c_dim = sfeas_c.shape[0]
@@ -451,17 +474,30 @@ def greedy_assign_plain(
     reasons = torch.full((p,), REASON_NONE, dtype=torch.int32, device=dev)
     sp, spread = _spread_carry(sp_args, features)
     tm, terms = _term_carry(tm_args, features)
+    gang = gang_carry(features, n_groups, dev)
+    gang_sl, gang_lo, gang_corner = gang if gang is not None else (None,) * 3
+    group_id = pods.group_id.tolist()
     for i in order.tolist():
         cl = cluster._replace(requested=requested, nonzero_requested=nonzero)
         cls = min(max(class_id[i], 0), c_dim - 1)
         feas, masked, found, reason, cnt = _eval_pod(
             cl, pods, i, cls, sfeas_c, aff_c, taint_c, new_ports, sp, spread,
-            features, cfg, tm, terms, extra_c,
+            features, cfg, tm, terms, extra_c, gang_sl, gang_lo,
         )
         feas_counts[i] = cnt
         reasons[i] = reason
         if found:
             choice = int(_pick(masked))
+            g = group_id[i]
+            gc = min(max(g, 0), n_groups - 1)
+            if (gang is not None and g >= 0 and int(pods.pod_shape[i].prod()) > 0
+                    and int(gang_sl[gc]) < 0):
+                # a new anchor, read against the pre-placement carry
+                corner = corner_mask(cl, free_devices(cl), pods.pod_shape[i],
+                                     features.slice_z, features.slice_dim)
+                gang_sl[gc] = cluster.slice_id[choice]
+                gang_lo[gc] = cluster.torus_coords[choice, :3]
+                gang_corner[gc] = corner[choice]
             assignment[i] = choice
             win_scores[i] = masked[choice]
             requested[choice] += pods.req[i]
@@ -481,7 +517,20 @@ def greedy_assign_plain(
         cluster.port_bits | new_ports if features.ports else cluster.port_bits
     )
     return (assignment, win_scores, feas_counts, reasons, requested, nonzero,
-            port_bits, sp.counts_node if features.spread else None, *_term_bits(tm))
+            port_bits, sp.counts_node if features.spread else None, *_term_bits(tm),
+            *(gang or ()))
+
+
+def gang_carry(features: FeatureFlags, n_groups: int, dev) -> Optional[tuple]:
+    """The scan's fresh carve-out carry (gang_sl i32[G] -1, gang_lo
+    i32[G, 3] -1, gang_corner bool[G] False), or None unless the batch
+    uses the slice family and has gangs."""
+    if not (features.slices and n_groups > 0):
+        return None
+    i32 = torch.int32
+    return (torch.full((n_groups,), -1, dtype=i32, device=dev),
+            torch.full((n_groups, 3), -1, dtype=i32, device=dev),
+            torch.zeros(n_groups, dtype=torch.bool, device=dev))
 
 
 def _spread_carry(sp_args: Optional[SpreadArgs], features: FeatureFlags):
@@ -685,21 +734,27 @@ def greedy_assign(
     taint) triple of the resident partials (see _solver_prep)."""
     if features is None:
         features = features_of(snapshot)
-    check_supported(features)
     if n_groups is None:
         n_groups = int(_np(snapshot.pods.group_id).max()) + 1
     cluster, pods, sfeas_c, aff_c, taint_c, sp_args, tm_args, extra_c = _solver_prep(
         snapshot, features, topo_z, cfg, statics)
     order = solve_order(pods)
-    (assignment, win_scores, feas_counts, reasons, requested, nonzero,
-     port_bits) = greedy_scan(
+    out = greedy_scan(
         cluster, pods, sfeas_c, aff_c, taint_c, order, features, n_groups, cfg,
         sp_args, tm_args, extra_c,
-    )[:7]
+    )
+    (assignment, win_scores, feas_counts, reasons, requested, nonzero,
+     port_bits) = out[:7]
     final = cluster._replace(
         requested=requested, nonzero_requested=nonzero, port_bits=port_bits,
     )
-    return SolveResult(assignment, win_scores, feas_counts, final, reasons)
+    carve = (None,) * 4
+    if features.slices:
+        gang = out[11:14] if len(out) > 11 else None
+        carve = slice_stats(final, pods, assignment, gang, features, n_groups)
+    return SolveResult(assignment, win_scores, feas_counts, final, reasons,
+                       frag_score=carve[0], carveouts=carve[1],
+                       contiguous_gangs=carve[2], carveout_fallbacks=carve[3])
 
 
 # -- wavefront greedy -------------------------------------------------------
@@ -1133,7 +1188,13 @@ def wavefront_assign(
     statics: the warm triple of the resident partials (see _solver_prep)."""
     if features is None:
         features = features_of(snapshot)
-    check_supported(features)
+    if features.slices:
+        # every shaped pod writes the free mask that every other shaped
+        # pod's corner evaluation reads: wave-start evaluation cannot hold
+        raise ValueError(
+            "slice carve-out batches (features.slices) route to the "
+            "classic greedy scan, not the wavefront solver"
+        )
     if n_groups is None:
         n_groups = int(_np(snapshot.pods.group_id).max()) + 1
     if wave_members is None:
@@ -1156,3 +1217,99 @@ def wavefront_assign(
         assignment, win_scores, feas_counts, final, reasons,
         wave_count=n_waves, wave_fallbacks=n_fb,
     )
+
+
+# -- single-pod evaluation (the extender's verbs) ----------------------------
+
+
+def single_filter_plain(cluster: ClusterTensors, pods: PodBatch, srow: torch.Tensor,
+                        features: FeatureFlags, sp_args: Optional[SpreadArgs] = None,
+                        tm_args: Optional[TermArgs] = None):
+    """Plain version of kernel `evaluate_single`'s filter stage: pod 0's
+    (feas bool[N], the post-spread set bool[N] that the soft spread score
+    normalises over, the carve-out bonus f32[N]).  srow: its static row
+    (static filters and bound ports)."""
+    feas = srow & fits_resources(cluster, pod_view(pods, 0))
+    if features.spread:
+        feas = feas & spread_filter(sp_args.state, sp_args.table, 0)
+    feas_sp = feas
+    if features.interpod:
+        feas = feas & interpod_filter(tm_args.state, tm_args.table, 0)
+    bonus = torch.zeros(feas.shape[0], dtype=torch.float32, device=feas.device)
+    if features.slices:
+        # a lone pod has no gang carry: a shaped pod is an anchor
+        bonus, ok = carveout_eval(cluster, pods, 0, None, None, features)
+        if features.slice_require:
+            feas = feas & ok
+    return feas, feas_sp, bonus
+
+
+def single_score_plain(cluster: ClusterTensors, pods: PodBatch, feas, feas_sp, bonus,
+                       arow, trow, extra, features: FeatureFlags, cfg: ScoreConfig,
+                       sp_args: Optional[SpreadArgs] = None) -> torch.Tensor:
+    """Plain version of kernel `evaluate_single`'s score stage: pod 0's
+    where(feas, score, -inf) f32[N]."""
+    sp_score = (spread_score(sp_args.state, sp_args.table, 0, feas_sp)
+                if features.soft_spread else None)
+    scores = score_from_raw(cluster, pod_view(pods, 0), feas, arow, trow, cfg,
+                            spread_score=sp_score, extra=extra)
+    if features.slices:
+        scores = scores + bonus
+    return torch.where(feas, scores, NEG_INF)
+
+
+def single_filter(cluster, pods, srow, features, sp_args=None, tm_args=None):
+    """Wrapper of kernel `evaluate_single`'s filter stage: the kernel for
+    tensors on the card, the plain version for tensors on the CPU."""
+    if cluster.allocatable.device.type == "cpu":
+        return single_filter_plain(cluster, pods, srow, features, sp_args, tm_args)
+    from ..kernels import bindings
+
+    return bindings.evaluate_single_filter(cluster, pods, srow, features, sp_args, tm_args)
+
+
+def single_score(cluster, pods, feas, feas_sp, bonus, arow, trow, extra, features, cfg,
+                 sp_args=None):
+    """Wrapper of kernel `evaluate_single`'s score stage: the kernel for
+    tensors on the card, the plain version for tensors on the CPU."""
+    if cluster.allocatable.device.type == "cpu":
+        return single_score_plain(cluster, pods, feas, feas_sp, bonus, arow, trow, extra,
+                                  features, cfg, sp_args)
+    from ..kernels import bindings
+
+    return bindings.evaluate_single_score(cluster, pods, feas, feas_sp, bonus, arow, trow,
+                                          extra, features, cfg, sp_args)
+
+
+def evaluate_single(
+    snapshot: Snapshot,
+    cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
+    topo_z: Optional[int] = None,
+    features: Optional[FeatureFlags] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(feasible bool[N], scores f32[N]) for pod 0 of the snapshot, on the
+    device its tensors lie on: the full Filter + Score chain with no
+    placement (what an extender's filter and prioritize verbs need: the
+    node set, not one pick).  Held to the reference's evaluate_single
+    line by line: the static row and the raw affinity / taint rows are
+    kernel class_statics' for pod 0; the soft spread score normalises over
+    the post-spread set (before the inter-pod and slice filters); the extra
+    row normalises over the pod's whole feasible set (class_extras on the
+    filter stage's output, not on the static row as in the solves); the
+    slice stage is the anchor's (no gang carry)."""
+    if features is None:
+        features = features_of(snapshot)
+    if topo_z is None:
+        topo_z = required_topo_z(snapshot) if needs_topo(features) else 1
+    cluster, pods, sel, pref = snapshot[:4]
+    sel_mask = selector_match(cluster, sel)
+    pref_mask = preferred_match(cluster, pref)
+    reps = torch.zeros(1, dtype=torch.int32, device=cluster.allocatable.device)
+    sfeas, aff, taint = class_statics(cluster, pods, sel_mask, pref_mask, reps)
+    sp_args = spread_prep(snapshot, sel_mask, features, topo_z)
+    tm_args = terms_prep(snapshot, features, topo_z)
+    feas, feas_sp, bonus = single_filter(cluster, pods, sfeas[0], features, sp_args, tm_args)
+    extra = extras_prep(snapshot, features, cfg, reps, feas[None], topo_z)
+    masked = single_score(cluster, pods, feas, feas_sp, bonus, aff[0], taint[0],
+                          extra[0] if extra is not None else None, features, cfg, sp_args)
+    return feas, masked

@@ -64,7 +64,6 @@ from .assign import (
     TermArgs,
     _np,
     add_rows,
-    check_supported,
     class_statics,
     extras_prep,
     family_z,
@@ -679,12 +678,11 @@ def auction_assign(
     reasons pass and the gang post-pass (n_groups > 0)."""
     if features is None:
         features = features_of(snapshot)
-    check_supported(features)
     if not auction_features_ok(features):
         raise ValueError(
-            "auction_assign does not cover in-batch host ports or "
-            "affinity-direction inter-pod terms; route this batch through "
-            "the greedy solves"
+            "auction_assign does not cover in-batch host ports, "
+            "affinity-direction inter-pod terms or slice carve-outs; route "
+            "this batch through the greedy solves"
         )
     n = snapshot.cluster.allocatable.shape[0]
     tie_k = min(default_tie_k(snapshot) if tie_k is None else tie_k, n)

@@ -332,6 +332,30 @@ def set_rows(targets: Sequence[RowTarget], stage: PinnedStage, device) -> int:
     return int(buf.numel())
 
 
+def add_rows_in_order(dst: torch.Tensor, rows: Sequence[int],
+                      vals: np.ndarray) -> torch.Tensor:
+    """dst (out of place) with vals[k] added to row rows[k], each row's
+    additions in increasing k: the reference's scatter-add order, which
+    decides the rounding once a row's sum leaves float32's exact range.
+    On the card index_add adds a row's duplicates by atomics in no fixed
+    order, so the additions go in ranks: launch j adds every row's j-th
+    entry, and no launch names a row twice."""
+    seen: Dict[int, int] = {}
+    ranks = []
+    for r in rows:
+        ranks.append(seen.get(r, 0))
+        seen[r] = ranks[-1] + 1
+    ranks_np = np.asarray(ranks)
+    rows_np = np.asarray(rows, dtype=np.int64)
+    out = dst
+    for j in range(max(seen.values(), default=0)):
+        pick = ranks_np == j
+        idx = torch.from_numpy(rows_np[pick]).to(dst.device)
+        out = out.index_add(0, idx, torch.from_numpy(
+            np.ascontiguousarray(vals[pick])).to(dst.device))
+    return out
+
+
 # -- the reference's snapshots ------------------------------------------------
 
 

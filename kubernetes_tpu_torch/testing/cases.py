@@ -33,6 +33,14 @@ and ImageLocality; `pod_anti_affinity_objects`, `pod_affinity_objects`
 and `preferred_affinity_objects` are scheduler_perf's
 SchedulingPodAntiAffinity, SchedulingPodAffinity and (upstream's)
 SchedulingPreferredPodAffinity workloads at any scale.
+
+The TPU slice builders: `slice_node` / `mk_slices` label nodes as members
+of slices (api.LABEL_TPU_SLICE, LABEL_TPU_TOPOLOGY, LABEL_TPU_COORDS, and
+LABEL_TPU_CORE for several nodes on one coordinate), `gang` makes a
+shaped gang (pod.spec.tpu_topology), and `SliceChurn` is bench.py's c10
+slice-packing mix: 64 slices of 4x4x4 (a TPU v4 pod's cubes), rounds of
+208 pods in 26 gangs (2x2x1 x 12, 2x2x2 x 8, 4x2x2 x 4, 4x4x1 x 2), half
+the live gangs leaving between rounds.
 """
 
 from __future__ import annotations
@@ -717,3 +725,133 @@ class Churn:
         for op in ops:
             for s in scheds:
                 getattr(s, op[0])(*op[1:])
+
+
+def slice_node(wrappers, slice_name: str, x: int, y: int, z: int, dims, name=None,
+               cpu: int = 4000, core=None, pods: int = 16):
+    """A node of TPU slice `slice_name` at (x, y, z) of a `dims` torus
+    (with `core`, one of several nodes on that coordinate)."""
+    api = wrappers.api
+    nw = (
+        wrappers.make_node(name or f"{slice_name}-{x}{y}{z}" + (f"c{core}" if core else ""))
+        .capacity(cpu_milli=cpu, mem=8 * wrappers.GI, pods=pods)
+        .label(api.LABEL_TPU_SLICE, slice_name)
+        .label(api.LABEL_TPU_TOPOLOGY, "x".join(map(str, dims)))
+        .label(api.LABEL_TPU_COORDS, f"{x},{y},{z}")
+    )
+    if core is not None:
+        nw.label(api.LABEL_TPU_CORE, str(core))
+    return nw.obj()
+
+
+def mk_slices(wrappers, n_slices: int, dims, cpu: int = 4000, prefix: str = "slice"):
+    """n_slices whole slices of extent `dims`, x fastest."""
+    return [
+        slice_node(wrappers, f"{prefix}-{s}", x, y, z, dims, cpu=cpu)
+        for s in range(n_slices)
+        for z in range(dims[2])
+        for y in range(dims[1])
+        for x in range(dims[0])
+    ]
+
+
+def gang(wrappers, name: str, size: int, shape: str, cpu: int = 100, priority: int = 0):
+    """A gang of `size` pods asking for one `shape` carve-out."""
+    out = []
+    for i in range(size):
+        p = (wrappers.make_pod(f"{name}-{i}").req(cpu_milli=cpu).group(name)
+             .priority(priority).obj())
+        p.spec.tpu_topology = shape
+        out.append(p)
+    return out
+
+
+def random_slice_objects(wrappers, seed: int):
+    """The reference's randomized slice parity case (tests/test_slices.py
+    test_randomized_topology_parity) for one seed: (nodes, pending pods,
+    bound pods, policy)."""
+    rng = np.random.default_rng(seed)
+    policy = ["prefer", "require"][seed % 2]
+    dims = tuple(int(d) for d in rng.choice([1, 2, 3], size=3) + 1)
+    nodes = mk_slices(wrappers, int(rng.integers(1, 4)), dims)
+    for i in range(int(rng.integers(0, 3))):
+        nodes.append(wrappers.make_node(f"plain-{i}")
+                     .capacity(cpu_milli=4000, mem=8 * wrappers.GI, pods=16).obj())
+    bound = []
+    for i, nd in enumerate(nodes):
+        if rng.random() < 0.2:
+            bound.append(wrappers.make_pod(f"bound-{i}").req(cpu_milli=100)
+                         .node_name(nd.meta.name).obj())
+    pods = []
+    for g in range(int(rng.integers(1, 4))):
+        shape = [int(s) for s in rng.integers(1, 4, size=3)]
+        vol = shape[0] * shape[1] * shape[2]
+        pods += gang(wrappers, f"g{g}", int(rng.integers(1, vol + 1)),
+                     "x".join(map(str, shape)), priority=int(rng.integers(0, 3)))
+    for i in range(int(rng.integers(0, 4))):
+        pods.append(wrappers.make_pod(f"solo-{i}").req(cpu_milli=100).obj())
+    return nodes, pods, bound, policy
+
+
+class SliceChurn:
+    """bench.py's c10 slice-packing churn (config10), at any slice count:
+    nodes() are n_slices slices of 4x4x4 (16 CPU, 32Gi, 110 pods),
+    round_pods(r) the fixed mix of 26 gangs / 208 pods, and
+    depart(live) forgets half of the live gangs, drawn from numpy's
+    generator of seed 10 (bench.py's), so two instances over the two
+    packages' wrappers make the same objects and the same departures,
+    given the same placements.  live: a list of gangs, each a list of
+    (pod, node_name)."""
+
+    DIMS = (4, 4, 4)
+    MIX = (("2x2x1", 4, 12), ("2x2x2", 8, 8), ("4x2x2", 16, 4), ("4x4x1", 16, 2))
+
+    def __init__(self, wrappers, n_slices: int = 64, seed: int = 10):
+        self.w = wrappers
+        self.n_slices = n_slices
+        self.rng = np.random.default_rng(seed)
+
+    def nodes(self):
+        w, api = self.w, self.w.api
+        d = self.DIMS
+        return [
+            w.make_node(f"s{s:02d}-{x}{y}{z}")
+            .capacity(cpu_milli=16000, mem=32 * w.GI, pods=110)
+            .label(api.LABEL_TPU_SLICE, f"slice-{s:02d}")
+            .label(api.LABEL_TPU_TOPOLOGY, "4x4x4")
+            .label(api.LABEL_TPU_COORDS, f"{x},{y},{z}")
+            .obj()
+            for s in range(self.n_slices)
+            for z in range(d[2])
+            for y in range(d[1])
+            for x in range(d[0])
+        ]
+
+    def round_pods(self, r: int):
+        pods, gid = [], 0
+        for shape, size, count in self.MIX:
+            for _k in range(count):
+                for i in range(size):
+                    p = (self.w.make_pod(f"c10-r{r}-g{gid}-{i}").req(cpu_milli=100)
+                         .group(f"c10-r{r}-g{gid}").obj())
+                    p.spec.tpu_topology = shape
+                    pods.append(p)
+                gid += 1
+        return pods
+
+    @staticmethod
+    def placed_gangs(pods, names):
+        """The round's placed members grouped by gang, in first-seen order."""
+        by_gang = {}
+        for p, n in zip(pods, names):
+            if n is not None:
+                by_gang.setdefault(p.spec.scheduling_group, []).append((p, n))
+        return list(by_gang.values())
+
+    def depart(self, live):
+        """Shuffle `live` in place and remove the first half: the gangs
+        that leave, whose members the caller forgets."""
+        self.rng.shuffle(live)
+        gone = live[: len(live) // 2]
+        del live[: len(live) // 2]
+        return gone

@@ -131,16 +131,18 @@ def test_priority_wins_contended_slot():
 
 
 def test_unported_and_unsupported_families_raise():
-    """Slice carve-outs are not ported (NotImplementedError, never a
-    reroute); in-batch host ports and affinity-direction inter-pod terms
-    are outside the auction (ValueError, as in the reference)."""
+    """Slice carve-outs, in-batch host ports and affinity-direction
+    inter-pod terms are outside the auction: ValueError, as the reference
+    raises on each (the scheduler routes such batches to the scan)."""
     nodes = [jw.make_node("n0").capacity(cpu_milli=8000, mem=8 * GI).zone("z")
              .label(japi.LABEL_TPU_SLICE, "s0").label(japi.LABEL_TPU_TOPOLOGY, "1x1x1")
              .label(japi.LABEL_TPU_COORDS, "0,0,0").obj()]
     shaped = jw.make_pod("s0").req(cpu_milli=100).obj()
     shaped.spec.tpu_topology = "1x1x1"
     snap, _ = jschema.SnapshotBuilder().build(nodes, [shaped])
-    with pytest.raises(NotImplementedError, match="slice carve-outs"):
+    with pytest.raises(ValueError):
+        jauction.auction_assign(snap)
+    with pytest.raises(ValueError, match="slice carve-outs"):
         tauction.auction_assign(dv.to_device(dv.snapshot_from_numpy(snap), "cpu"))
     aff = [jw.make_pod("p0").label("app", "x").pod_affinity({"app": "x"}, japi.LABEL_ZONE).obj()]
     snap, _ = jschema.SnapshotBuilder().build(nodes, aff)

@@ -360,12 +360,21 @@ def test_gang_release_keeps_term_bits():
 
 
 def test_check_supported_raises_for_slices_only():
-    """Every ported family passes check_supported; slices still raise."""
+    """With slices ported no family is deferred (check_supported is gone);
+    what remains for slices is the reference's routing: the auction
+    declines exactly the families the reference's declines, and the
+    wavefront raises on a slice batch only, with the reference's error."""
+    from kubernetes_tpu.ops.auction import auction_features_ok as j_ok
+    from kubernetes_tpu_torch.ops.auction import auction_features_ok as t_ok
+
+    assert not hasattr(tassign, "check_supported")
     for flag in ("spread", "soft_spread", "interpod", "interpod_aff", "interpod_pref",
-                 "images", "ports"):
-        tassign.check_supported(tassign.FeatureFlags(**{flag: True}))
-    with pytest.raises(NotImplementedError, match="slice carve-outs"):
-        tassign.check_supported(tassign.FeatureFlags(interpod=True, slices=True))
+                 "images", "ports", "slices"):
+        assert t_ok(tassign.FeatureFlags(**{flag: True})) == j_ok(
+            jassign.FeatureFlags(**{flag: True})), flag
+    with pytest.raises(ValueError, match="classic greedy scan"):
+        tassign.wavefront_assign(None, None, features=tassign.FeatureFlags(
+            interpod=True, slices=True))
 
 
 # -- the scheduler_perf workloads through the scheduler, on each route -------

@@ -159,17 +159,23 @@ def test_modes():
 
 
 def test_unported_family_raises_through_the_scheduler():
-    """A slice carve-out batch (shaped pods on slice-labelled nodes, the
-    one unported family) raises through the scheduler."""
-    ts = TorchBatchScheduler(device="cpu")
-    nodes = [n for n in basic_nodes(tw, 4)]
-    for i, n in enumerate(nodes):
-        n.meta.labels.update({tw.api.LABEL_TPU_SLICE: "s0", tw.api.LABEL_TPU_TOPOLOGY: "2x2x1",
-                              tw.api.LABEL_TPU_COORDS: f"{i % 2},{i // 2},0"})
-    pod = tw.make_pod("s").pod_anti_affinity({"app": "a"}).obj()
-    pod.spec.tpu_topology = "2x1x1"
-    with pytest.raises(NotImplementedError, match="slice carve-outs"):
-        ts.schedule(nodes, [pod])
+    """A slice carve-out batch (shaped pods on slice-labelled nodes, with
+    anti-affinity) through the scheduler: the port places it as
+    TPUBatchScheduler does, on the scan, every result field equal."""
+    ts, js = TorchBatchScheduler(device="cpu"), TPUBatchScheduler()
+    names = {}
+    for sched, w in ((ts, tw), (js, jw)):
+        nodes = [n for n in basic_nodes(w, 4)]
+        for i, n in enumerate(nodes):
+            n.meta.labels.update({w.api.LABEL_TPU_SLICE: "s0", w.api.LABEL_TPU_TOPOLOGY: "2x2x1",
+                                  w.api.LABEL_TPU_COORDS: f"{i % 2},{i // 2},0"})
+        pod = w.make_pod("s").pod_anti_affinity({"app": "a"}).obj()
+        pod.spec.tpu_topology = "2x1x1"
+        names[w] = sched.schedule(nodes, [pod])
+    assert names[tw] == names[jw] and names[tw][0] is not None
+    assert_last_result_equal(js, ts)
+    assert ts.last_result.frag_score is not None
+    assert float(ts.last_result.frag_score) == float(js.last_result.frag_score)
 
 
 def test_reservations_overlay_usage():
