@@ -7,7 +7,7 @@ configuration: the resident cluster mirror and the warm partials on
 (use_mirror=False is the cold path).  Phases (one JSON line each on
 stdout; with --log also appended to PATH):
 
-  build      build the thirteen CUDA kernels from kubernetes_tpu_torch/csrc
+  build      build the fifteen CUDA kernels from kubernetes_tpu_torch/csrc
   parity     each kernel against its plain torch version, exact (on the
              card, or on CPU copies of the inputs where the plain version
              adds in pod index order: the scan, the wavefront and the
@@ -88,6 +88,27 @@ stdout; with --log also appended to PATH):
   proto      one SolveRequest of 1,000 pods onto 5,000 nodes over the
              socket to the card's proto service (the auction, cold), the
              response equal to the CPU backend's
+  preemption_parity (after resident_parity)
+             preempt_dry_run (both entries) and pod_filters (both modes)
+             against their plain versions on the card, exact: victim axes
+             of 4 to 300 slots of not-whole-MiB memory, PDB reorders, three
+             levels, masks that are not prefixes, the mixed parity
+             snapshots; whether torch.cumsum would have summed as the
+             reference does
+  preemption PreemptionBasic/5000Nodes through TorchBatchScheduler() and
+             PreemptionEvaluator as the reference's loop drives them: 5,000
+             node-default nodes, 20,000 pod-low-priority victims (four a
+             node), measured pod-high-priority pods in cycles of 16 (solve,
+             one PostFilter pass, the nominees solve onto their nominated
+             nodes), 256 of them (the reference's candidate cap, PREEMPT);
+             every preemptor evicts exactly three victims, one batched
+             preempt_dry_run and pod_filters launch a pass, no pass falls
+             back; the first 64 preemptors equal through use_mirror=False;
+             PreemptionBasic/500Nodes card against the CPU
+  c9         bench.py's c9 planning trace (20,000 nodes, 16 preemptors, 3
+             levels, a zero-budget PDB on every fourth victim): the batched
+             pass's plans equal the classic per-pod walk's, both timed;
+             preempt_dry_run and pod_filters timed at this shape
   resident   the same batches through TorchBatchScheduler() (warm) and
              TorchBatchScheduler(use_mirror=False) (cold), every batch equal
              field for field: SchedulingNodeAffinity/5000Nodes in 500-pod
@@ -184,6 +205,20 @@ C10_CONTIG_MIN, C10_FRAG_MAX = 0.9, 0.5
 # (nodes, pods)
 EXTENDER = (5000, 1000, 200)
 PROTO = (5000, 1000)
+# PreemptionBasic (performance-config.yaml:141-161, pod-low-priority.yaml,
+# pod-high-priority.yaml) at upstream's 5000Nodes cluster: (nodes, init
+# pods, measured pods).  measurePods is cut from upstream's 5,000 to 256:
+# the reference's evaluator lists at most MAX_CANDIDATES = 256 candidate
+# nodes BEFORE its fit test, so once the first 256 nodes each hold a
+# nominee no later preemptor of this cluster finds a candidate; one more
+# pass of PREEMPT_PASS pods shows that.  PostFilter passes hold at most 16
+# pods (max_preemptions_per_cycle, scheduler/config.py:81); warm == cold
+# over the first PREEMPT_COLD preemptors; the repo's own /500Nodes size,
+# card against CPU; bench.py's c9 planning trace: (nodes, preemptors)
+PREEMPT_MEASURED, PREEMPT_PASS, PREEMPT_COLD = 256, 16, 64
+PREEMPT = (5000, 20000, PREEMPT_MEASURED + PREEMPT_PASS)
+PREEMPT_SMALL = (500, 2000, 100)
+C9 = (20000, 16)
 
 # H100 SXM published peaks (NVIDIA data sheet: HBM3 rate, non-tensor float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
@@ -216,6 +251,10 @@ SOURCES = {
                     "kubernetes_tpu/ops/slices.py:269"),
     "evaluate_single": ("kubernetes_tpu_torch/csrc/evaluate_single.cu",
                         "kubernetes_tpu/ops/assign.py:1665"),
+    "preempt_dry_run": ("kubernetes_tpu_torch/csrc/preempt_dry_run.cu",
+                        "kubernetes_tpu/ops/preemption.py:129"),
+    "pod_filters": ("kubernetes_tpu_torch/csrc/pod_filters.cu",
+                    "kubernetes_tpu/ops/preemption.py:194"),
 }
 
 # the kernels each route launches with cold statics (match_terms and
@@ -694,12 +733,13 @@ def bound(need_bytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def drive_phase(name, fn, bindings, scheds):
+def drive_phase(name, fn, bindings, scheds, extra=()):
     """Run fn() with every launch counter at 0 and check the counters just
     after against the batches `scheds` (recording schedulers) encoded
     meanwhile: every kernel their routes, families and residents launch
-    (route_kernels) was launched and no other, and each resident kernel
-    exactly as many times as the residents recorded."""
+    (route_kernels), and the kernels of `extra`, was launched and no other,
+    and each resident kernel exactly as many times as the residents
+    recorded."""
     import torch
 
     marks = [len(s.metas) for s in scheds]
@@ -709,7 +749,8 @@ def drive_phase(name, fn, bindings, scheds):
     torch.cuda.synchronize()
     launches = dict(bindings.LAUNCHES)
     metas = [m for s, k in zip(scheds, marks) for m in s.metas[k:]]
-    check_launches(name, launches, set().union(*(route_kernels(m) for m in metas)))
+    check_launches(name, launches,
+                   set().union(*(route_kernels(m) for m in metas)) | set(extra))
     for k in RESIDENT_KERNELS:
         want = sum((m.resident_launches or {}).get(k, 0) for m in metas)
         if launches[k] != want:
@@ -776,6 +817,7 @@ def main() -> int:
     parity_phase(wrappers, assign, auction, dv, filters, bindings, torch)
     overlay_parity(wrappers, TorchBatchScheduler, torch)
     resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch)
+    preemption_parity(wrappers, filters, bindings, torch)
 
     # ---- main path: SchedulingBasic/5000Nodes, default route ---------------
     sched = TorchBatchScheduler()
@@ -908,6 +950,9 @@ def main() -> int:
         wrappers, TorchBatchScheduler, assign, dv, bindings, torch, card)
     proto_phase(wrappers, torch, bindings, card)
 
+    # ---- preemption: PreemptionBasic and c9's planning trace ----------------
+    preempt = preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, card)
+
     # ---- the residents: warm against cold at full width ---------------------
     resident_launches = resident_phase(
         wrappers, TorchBatchScheduler, bindings, torch, card)
@@ -940,6 +985,8 @@ def main() -> int:
     row = next(r for r in slice_rows if r["name"] == "slice_stats")
     summary.append(dict(row, launches=slice_launches["slice_stats"]))
     summary.append(dict(eval_row, launches=extender_launches["evaluate_single"]))
+    for row in preempt["rows"]:
+        summary.append(dict(row, launches=preempt["launches"][row["name"]]))
     order_ms = cuda_ms(lambda: assign.solve_order(snap_k.pods), 50, torch)
     order_bound = bound(*solve_order_need(snap_k.pods))
     emit({"phase": "kernels", "card": card,
@@ -957,7 +1004,10 @@ def main() -> int:
                      "slice_stats": "c10 (4,096 nodes, 256 padded pods, 26 gangs) after the "
                                     "scan (greedy_scan at this shape: the slices line)",
                      "evaluate_single": "one pod-default pod against "
-                                        "SchedulingBasic/5000Nodes (8,192 padded nodes)"},
+                                        "SchedulingBasic/5000Nodes (8,192 padded nodes)",
+                     "preempt_dry_run, pod_filters": "c9's batched pass (20,000 nodes, "
+                                                    "32,768 padded, 16 preemptors, 3 levels); "
+                                                    "launches: PreemptionBasic/5000Nodes"},
           "kernels": [dict({k: row[k] for k in ("name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")},
                            equal=True) for row in summary],
           "resident_kernels": resident_rows, "resident_torch": resident_extra,
@@ -3035,6 +3085,372 @@ def proto_phase(wrappers, torch, bindings, card):
           "round_trip_s": wall, "solve_seconds": resp.solve_seconds,
           "pods_per_s": n_pods / wall, "route": "auction", "equal_cpu": True,
           "launches": launches, "card": card})
+
+
+# ---- preemption ----------------------------------------------------------------
+
+PREEMPT_KERNELS = ("match_terms", "pod_filters", "preempt_dry_run")
+
+
+def preemption_setup(TorchBatchScheduler, nodes, victims, preemptors, pdbs=(), **kw):
+    """A scheduler (TorchBatchScheduler(**kw)), its cache and a
+    PreemptionEvaluator with a store behind it: the nodes and the victims
+    accounted as bound pods, the preemptors and budgets in the store."""
+    from kubernetes_tpu_torch.api.store import Store
+    from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
+    from kubernetes_tpu_torch.scheduler.metrics import Registry
+    from kubernetes_tpu_torch.scheduler.preemption import PreemptionEvaluator
+
+    sched = TorchBatchScheduler(**kw)
+    store = Store()
+    for node in nodes:
+        sched.add_node(node)
+        store.create(node)
+    for v in victims:
+        sched.assume(v, v.spec.node_name)
+        store.create(v)
+    for obj in list(preemptors) + list(pdbs):
+        store.create(obj)
+    cache = SchedulerCache(sched.state)
+    return sched, cache, PreemptionEvaluator(sched, cache, store, Registry())
+
+
+def result_key(res):
+    if res is None:
+        return None
+    return (res.nominated_node, sorted(v.meta.name for v in res.victims))
+
+
+def preemption_cycle(sched, cache, ev, pods):
+    """One scheduling cycle of measured pods as the reference's loop drives
+    it (kubernetes_tpu/scheduler/scheduler.py:1511-1549): the batch solves
+    with the other pods' nominations as reservations; its failed pods,
+    highest priority first and at most PREEMPT_PASS, go to one PostFilter
+    pass (preempt_batch in a shared pass); the nominees then solve with the
+    others' reservations, each must land on its nominated node, and is
+    assumed there.  Returns (the pass's results, the pass's record)."""
+    from kubernetes_tpu_torch.scheduler.queue import pod_key
+
+    names = sched.schedule_pending(
+        pods, reservations=cache.nominations_excluding({pod_key(p) for p in pods}))
+    failed = []
+    for pod, name in zip(pods, names):
+        if name is None:
+            failed.append(pod)
+        else:
+            cache.assume(pod, name)
+    failed = sorted(failed, key=lambda p: -p.spec.priority)[:PREEMPT_PASS]
+    mark = len(sched.metas)
+    t0 = time.perf_counter()
+    with ev.shared_pass(failed) as ctx:
+        results = ev.preempt_batch(failed)
+    split = {}
+    for meta in sched.metas[mark:]:
+        for k, v in meta.encode_split.items():
+            split[k] = split.get(k, 0.0) + v
+    rec = {"pods": len(failed), "pass_s": time.perf_counter() - t0,
+           "verify_solves": len(sched.metas) - mark, "verify_encode_split": split,
+           "fallback": ctx.fallback, "empty": ctx.empty, **ctx.timings,
+           "nominated": sum(r is not None for r in results)}
+    nominees = [(p, r.nominated_node) for p, r in zip(failed, results) if r is not None]
+    if nominees:
+        keys = {pod_key(p) for p, _ in nominees}
+        got = sched.schedule_pending([p for p, _ in nominees],
+                                     reservations=cache.nominations_excluding(keys))
+        for (pod, node), name in zip(nominees, got):
+            if name != node:
+                raise AssertionError(f"preemption: nominee {pod.meta.name} landed on {name}, "
+                                     f"nominated to {node}")
+            cache.assume(pod, name)
+    check_capacity(sched.state)
+    return results, rec
+
+
+def preemption_basic(wrappers, TorchBatchScheduler, dims, **kw):
+    """PreemptionBasic at `dims` (nodes, victims, measured pods) set up on
+    TorchBatchScheduler(**kw).  Returns (scheduler, cache, evaluator,
+    measured pods)."""
+    from kubernetes_tpu_torch.testing.cases import preemption_basic_objects
+
+    nodes, victims, preemptors = preemption_basic_objects(wrappers, *dims)
+    return (*preemption_setup(TorchBatchScheduler, nodes, victims, preemptors, **kw), preemptors)
+
+
+def preemption_run(sched, cache, ev, preemptors, n_cycles):
+    """`n_cycles` cycles of PREEMPT_PASS measured pods.  Returns (result
+    keys in preemptor order, the pass records, the surviving accounted
+    pods, seconds)."""
+    keys, recs = [], []
+    t0 = time.perf_counter()
+    for c in range(n_cycles):
+        batch = preemptors[c * PREEMPT_PASS:(c + 1) * PREEMPT_PASS]
+        results, rec = preemption_cycle(sched, cache, ev, batch)
+        keys.extend(result_key(r) for r in results)
+        recs.append(rec)
+    wall = time.perf_counter() - t0
+    return keys, recs, sorted(sched.state._pod_node.items()), wall
+
+
+def dry_run_need(ctx, pods) -> tuple:
+    """(bytes, operations) of one batched dry-run on this pass's data, live
+    rows only: each live node's free row, each victim's requests, the live
+    levels' orders, flags and bounds and the live pods' requests read once;
+    the three [P, N] outputs written once; two operations (mask, add) a
+    (level, victim, resource) and two (add, compare) a (pod, node, k,
+    resource) that the first-fit walk reached."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.scheduler.queue import pod_key
+
+    n, p = len(ctx.nodes), len(ctx.index)
+    levels = len(ctx.level_of)
+    v = sum(len(vs) for vs in ctx.victims)
+    r = ctx.free.shape[1]
+    need = 4 * r * n + 4 * r * v + levels * (5 * v + 4 * n) + p * (4 * r + 4) + p * n * 9
+    lvl = np.zeros(p, dtype=np.int64)
+    for pod in pods:
+        i = ctx.index.get(pod_key(pod))
+        if i is not None:
+            lvl[i] = ctx.level_of[pod.spec.priority]
+    bound = np.minimum(ctx.elig_len[lvl, :n], ctx.perm.shape[2])
+    walked = np.where(ctx.feasible, ctx.min_k, bound) + 1
+    return need, float(2 * levels * v * r + 2 * r * int(walked.sum()))
+
+
+def pod_filters_need(snap, n: int, p: int, torch) -> tuple:
+    """(bytes, operations) of the static Filter slice on this data, live
+    rows only: each live node's validity, name and NoSchedule / NoExecute
+    taint words, the selector-mask rows the pods use and each pod's fields
+    read once, the [P, N] mask written once; about 4 operations a taint
+    word and 6 more a (pod, node)."""
+    cl, pods = snap.cluster, snap.pods
+    tw = cl.taint_bits.shape[2]
+    sel = pods.sel_idx[:p]
+    rows = int(torch.unique(sel[sel >= 0]).numel())
+    need = n * (1 + 4 + 2 * 4 * tw) + rows * n + p * (1 + 4 + 4 + 2 * 4 * tw + 2) + p * n
+    return need, float(p * n * (4 * 2 * tw + 6))
+
+
+def preemption_parity(wrappers, filters, bindings, torch) -> None:
+    """preempt_dry_run and pod_filters against their plain versions on the
+    card, exact: batched dry-runs with K = 4, 20, 64, 128 and 300 victim
+    slots (not-whole-MiB memory, elig_len 0 and past the slots, rows where
+    nothing fits, PDB reorders, L = 3), dry_run_victims with masks that are
+    not prefixes, and the Filter chain in both modes on the mixed parity
+    snapshots.  Also records whether torch.cumsum would have summed the
+    victims as the reference does."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import device as dv
+    from kubernetes_tpu_torch.ops import preemption as pre
+    from kubernetes_tpu_torch.ops.schema import SnapshotBuilder
+    from kubernetes_tpu_torch.testing.cases import dry_run_inputs, mixed_objects
+
+    dev = torch.device("cuda")
+    cases, cumsum_equal, checked = [], [], 0
+    for seed, k, levels, frac in ((0, 4, 1, False), (1, 20, 3, True), (2, 64, 3, True),
+                                  (3, 128, 3, True), (4, 128, 1, True), (5, 300, 2, True)):
+        inputs = dry_run_inputs(seed, n=512, k=k, r=4, levels=levels, pods=16, frac=frac)
+        batch = pre.PreemptionBatch(*(torch.from_numpy(a).to(dev) for a in inputs))
+        got = bindings.batched_dry_run(*batch)
+        check_equal(f"preempt_dry_run (seed {seed}, K {k})", got,
+                    pre.batched_dry_run_plain(batch), torch)
+        l, n, _k, r = (*batch.perm.shape, batch.victim_req.shape[2])
+        ordered = torch.gather(batch.victim_req[None].expand(l, n, k, r), 2,
+                               batch.perm.long()[..., None].expand(l, n, k, r))
+        mask = torch.arange(k, device=dev)[None, None, :] < batch.elig_len[..., None]
+        x = ordered * mask[..., None].to(torch.float32)
+        cumsum_equal.append(bool(torch.equal(torch.cumsum(x, 2), pre._cumsum(x, 2))))
+        cases.append({"seed": seed, "k": k, "levels": levels, "frac": frac,
+                      "feasible": int(got[0].sum())})
+        checked += 1
+    for seed, k in ((6, 8), (7, 64)):
+        free, victim_req, _, _, _, pods_req, _ = dry_run_inputs(seed, n=512, k=k, frac=True)
+        valid = np.random.default_rng(seed).random((512, k)) < 0.7
+        args = [torch.from_numpy(a).to(dev) for a in (free, victim_req, valid)]
+        for p in range(pods_req.shape[0]):
+            req = torch.from_numpy(pods_req[p]).to(dev)
+            check_equal(f"preempt_dry_run victims entry (seed {seed}, pod {p})",
+                        bindings.dry_run_victims(*args, req),
+                        pre.dry_run_victims_plain(*args, req), torch)
+            checked += 1
+    for seed in range(6):
+        nodes, pods, bound = mixed_objects(wrappers, seed)
+        snap, _ = SnapshotBuilder().build(nodes, pods, bound_pods=bound)
+        snap = dv.to_device(snap, dev)
+        sel = snap.selectors
+        mask = filters.match_rows_plain(snap.cluster, sel.expr_ids, sel.expr_op, sel.expr_slot,
+                                        sel.term_valid)
+        for full in (False, True):
+            check_equal(f"pod_filters (mixed seed {seed}, full {full})",
+                        (bindings.pod_filters(snap.cluster, snap.pods, mask, full),),
+                        (filters.filter_rows_plain(snap.cluster, snap.pods, mask, full),), torch)
+            checked += 1
+    emit({"phase": "preemption_parity", "checked": checked, "dry_run_cases": cases,
+          "equal": True, "torch_cumsum_equal_block_order": cumsum_equal})
+
+
+def c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card) -> tuple:
+    """bench.py's c9 frozen-trace planning (bench.py:1087-1120) on the card:
+    20,000 nodes with one victim each (32,768 padded), the zero-budget PDB
+    on every fourth, 16 preemptors over 3 priority levels.  The shared
+    batched pass and the classic per-pod walk must plan alike; both are
+    timed, with their launches, and preempt_dry_run and pod_filters are
+    timed at this shape against their plain versions with the bound of
+    their work.  Returns the two kernels' rows."""
+    from kubernetes_tpu_torch.ops import preemption as pre
+    from kubernetes_tpu_torch.testing.cases import c9_objects
+
+    nodes, victims, failed, pdb = c9_objects(wrappers, *C9)
+    t0 = time.perf_counter()
+    sched, _cache, ev = preemption_setup(TorchBatchScheduler, nodes, victims, failed, [pdb])
+    setup_s = time.perf_counter() - t0
+
+    def plan_key(got):
+        if got is None:
+            return None
+        cands, ranked, min_k = got
+        _row, name, vs, _ = cands[ranked[0]]
+        return name, [v.meta.name for v in vs[: int(min_k[ranked[0]])]]
+
+    with ev.shared_pass(failed):                    # first use of every shape
+        [plan_key(ev._candidates(p)) for p in failed]
+    plan_key(ev._candidates_classic(failed[0]))
+    torch.cuda.synchronize()
+    bindings.reset_launches()
+    t0 = time.perf_counter()
+    with ev.shared_pass(failed) as ctx:
+        batched = [plan_key(ev._candidates(p)) for p in failed]
+        torch.cuda.synchronize()
+        t_batched = time.perf_counter() - t0
+        if ctx.fallback or ctx.empty:
+            raise AssertionError("c9: the batched pass fell back or encoded nothing")
+        batch, snap = ctx.inputs
+        timings = dict(ctx.timings)
+        need_dry = dry_run_need(ctx, failed)
+        n_live, p_live = len(ctx.nodes), len(ctx.index)
+    launches_b = dict(bindings.LAUNCHES)
+    bindings.reset_launches()
+    t0 = time.perf_counter()
+    classic = [plan_key(ev._candidates_classic(p)) for p in failed]
+    torch.cuda.synchronize()
+    t_classic = time.perf_counter() - t0
+    launches_c = dict(bindings.LAUNCHES)
+    if batched != classic or any(k is None for k in batched):
+        raise AssertionError("c9: the batched plans differ from the classic per-pod plans")
+    for what, launches, want in (("batched", launches_b, 1), ("classic", launches_c, len(failed))):
+        check_launches(f"c9/{what}", launches, set(PREEMPT_KERNELS))
+        if any(launches[k] != want for k in PREEMPT_KERNELS):
+            raise AssertionError(f"c9/{what}: launches {launches}, {want} each expected")
+    guarded = sum(1 for _node, vs in batched if int(vs[0].split("-")[1]) % 4 == 0)
+    if guarded:
+        raise AssertionError(f"c9: {guarded} plans evict a PDB-guarded victim")
+
+    # each kernel at this shape against its plain version, timed
+    got = bindings.batched_dry_run(*batch)
+    err_dry = check_equal("preempt_dry_run (c9 shape)", got, pre.batched_dry_run_plain(batch),
+                          torch)
+    sel = filters.selector_match(snap.cluster, snap.selectors)
+    got = bindings.pod_filters(snap.cluster, snap.pods, sel, False)
+    err_pf = check_equal("pod_filters (c9 shape)", (got,),
+                         (filters.filter_rows_plain(snap.cluster, snap.pods, sel, False),), torch)
+    rows = []
+    for name, fn, plain, need, err in (
+        ("preempt_dry_run", lambda: bindings.batched_dry_run(*batch),
+         lambda: pre.batched_dry_run_plain(batch), need_dry, err_dry),
+        ("pod_filters", lambda: bindings.pod_filters(snap.cluster, snap.pods, sel, False),
+         lambda: filters.filter_rows_plain(snap.cluster, snap.pods, sel, False),
+         pod_filters_need(snap, n_live, p_live, torch), err_pf),
+    ):
+        b_ms, b_by = bound(*need)
+        rows.append({"name": name, "max_abs_err": err, "ms": cuda_ms(fn, 50, torch),
+                     "plain_ms": min(time_plain(plain, torch) for _ in range(3)),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "need_bytes": need[0], "need_ops": need[1]})
+    emit({"phase": "c9", "nodes": C9[0], "padded_nodes": int(batch.free.shape[0]),
+          "preemptors": C9[1], "levels": int(batch.perm.shape[0]),
+          "victim_slots": int(batch.perm.shape[2]), "plans_equal": True, "setup_s": setup_s,
+          "batched_s": t_batched, "classic_s": t_classic,
+          "speedup": t_classic / t_batched, "pass_split": timings,
+          "launches_batched": {k: launches_b[k] for k in PREEMPT_KERNELS},
+          "launches_classic": {k: launches_c[k] for k in PREEMPT_KERNELS},
+          "kernels": rows, "card": card})
+    return rows
+
+
+def preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, card) -> dict:
+    """PreemptionBasic through TorchBatchScheduler on the card: 5,000 nodes
+    (warm; the first PREEMPT_COLD preemptors also through use_mirror=False,
+    equal), /500Nodes card against the CPU, then c9's planning trace.
+    Returns the launch counts of the 5,000-node run and the kernels' rows."""
+    cycles = PREEMPT_MEASURED // PREEMPT_PASS
+    t0 = time.perf_counter()
+    sched, cache, ev, pods = preemption_basic(wrappers, TorchBatchScheduler, PREEMPT)
+    setup_s = time.perf_counter() - t0
+    # the measured cycles, and one more past the reference's candidate cap
+    (keys, recs, pod_node, wall), launches = drive_phase(
+        "preemption", lambda: preemption_run(sched, cache, ev, pods, cycles + 1), bindings,
+        [sched], extra=PREEMPT_KERNELS)
+    passes = len(recs)
+    if launches["preempt_dry_run"] != passes or launches["pod_filters"] != passes:
+        raise AssertionError(f"preemption: {passes} passes, launches {launches}")
+    if any(r["fallback"] or r["empty"] for r in recs):
+        raise AssertionError("preemption: a pass fell back or encoded no victim")
+    measured = keys[:PREEMPT_MEASURED]
+    for i, key in enumerate(measured):
+        if key is None or len(key[1]) != 3:
+            raise AssertionError(f"preemption: preemptor {i} got {key}, not three victims")
+    if len({k[0] for k in measured}) != len(measured):
+        raise AssertionError("preemption: two preemptors nominated to one node")
+    # the reference's candidate cap (MAX_CANDIDATES nodes are listed before
+    # the fit test): once every listed node holds a nominee, no later
+    # preemptor of this cluster finds a feasible candidate
+    stalled = keys[PREEMPT_MEASURED:]
+    if any(k is not None for k in stalled):
+        raise AssertionError(f"preemption: past the candidate cap a preemptor got {stalled}")
+
+    # warm against cold over the first PREEMPT_COLD preemptors
+    runs = {}
+    for label, kw in (("cold", {"use_mirror": False}), ("warm", {})):
+        s, c, e, p = preemption_basic(wrappers, TorchBatchScheduler, PREEMPT, **kw)
+        runs[label] = preemption_run(s, c, e, p, PREEMPT_COLD // PREEMPT_PASS)
+    if (runs["cold"][0] != keys[:PREEMPT_COLD] or runs["warm"][0] != runs["cold"][0]
+            or runs["warm"][2] != runs["cold"][2]):
+        raise AssertionError("preemption: warm and cold results differ")
+
+    small = {}
+    for dev in ("cuda", "cpu"):
+        s, c, e, p = preemption_basic(wrappers, TorchBatchScheduler, PREEMPT_SMALL, device=dev)
+        small[dev] = preemption_run(s, c, e, p, -(-PREEMPT_SMALL[2] // PREEMPT_PASS))
+    if small["cuda"][0] != small["cpu"][0] or small["cuda"][2] != small["cpu"][2]:
+        raise AssertionError("PreemptionBasic/500Nodes: card and CPU differ")
+    if any(k is None for k in small["cuda"][0]):
+        raise AssertionError("PreemptionBasic/500Nodes: a preemptor found no victims")
+    done = [r for r in recs if r["nominated"]]
+
+    def mean(key):
+        return sum(r[key] for r in done) / len(done)
+
+    # the verify solves' host encode, per preemptor (encode_pending's split)
+    verify_split = {k: sum(r["verify_encode_split"].get(k, 0.0) for r in done) / len(measured)
+                    for k in done[0]["verify_encode_split"]}
+
+    emit({"phase": "preemption", "workload": "PreemptionBasic/5000Nodes",
+          "nodes": PREEMPT[0], "victims": PREEMPT[1], "measured": PREEMPT_MEASURED,
+          "setup_s": setup_s, "passes": passes, "preempted": len(measured),
+          "stall_pass": {"pods": len(stalled), "pass_s": recs[-1]["pass_s"]},
+          "wall_s": wall, "preempted_per_s": len(measured) / wall,
+          "pass_s": mean("pass_s"), "encode_s": mean("encode_s"),
+          "dispatch_s": mean("dispatch_s"),
+          "verify_solves_per_preemptor": sum(r["verify_solves"] for r in done) / len(measured),
+          "verify_encode_split_per_preemptor": verify_split,
+          "warm_equal_cold_preemptors": PREEMPT_COLD, "launches": launches,
+          "small": {"workload": "PreemptionBasic/500Nodes", "equal_cpu": True,
+                    "preempted": len(small["cuda"][0]), "card_s": small["cuda"][3],
+                    "cpu_s": small["cpu"][3]},
+          "card": card})
+    rows = c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card)
+    return {"launches": launches, "rows": rows}
 
 
 if __name__ == "__main__":

@@ -581,3 +581,47 @@ class Node:
             if t not in taints:
                 taints.append(t)
         return taints
+
+
+# ---------------------------------------------------------------------------
+# Policy APIs (reference: staging/src/k8s.io/api/policy/v1/types.go
+# PodDisruptionBudget) — consumed by preemption's victim ranking.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PodDisruptionBudgetSpec:
+    selector: Optional[LabelSelector] = None
+    min_available: Optional[int] = None     # at least this many healthy
+    max_unavailable: Optional[int] = None   # at most this many disrupted
+
+
+@dataclass
+class PodDisruptionBudgetStatus:
+    disruptions_allowed: int = 0
+    current_healthy: int = 0
+    desired_healthy: int = 0
+    expected_pods: int = 0
+
+
+@dataclass
+class PodDisruptionBudget:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodDisruptionBudgetSpec = field(
+        default_factory=PodDisruptionBudgetSpec
+    )
+    status: PodDisruptionBudgetStatus = field(
+        default_factory=PodDisruptionBudgetStatus
+    )
+
+    KIND = "PodDisruptionBudget"
+
+    def matches(self, pod: "Pod") -> bool:
+        if pod.meta.namespace != self.meta.namespace:
+            return False
+        sel = self.spec.selector
+        return sel is not None and sel.matches(pod.meta.labels)
+
+
+# kinds that live outside namespaces (the store keys them at namespace "")
+CLUSTER_SCOPED_KINDS = frozenset({"Node"})

@@ -4,6 +4,8 @@
 // per-node functions: a selector row's term match (filters.py:88), the
 // static Filter slice with the bound-port test (filters.py:166 + the port
 // check of assign.py:316) and the two raw scores (scores.py:163, :173).
+// pod_filters.cu (the preemption and Filter-chain kernel) calls the static
+// slice without the port test.
 // Cold statics (match_terms, then class_statics over the batch's masks)
 // and warm statics (partials_eval over a resident slot's stored spec) call
 // these functions, so the two cannot drift.
@@ -86,9 +88,10 @@ struct Spec {
 };
 
 // static_feasible_for_pod (filters.py:166: node validity, NodeName,
-// TaintToleration over NoSchedule and NoExecute) and the bound-port test,
-// given the NodeAffinity outcome `sel_ok`.
-__device__ inline bool static_feasible(const Nodes& nd, const Spec& sp, int node, bool sel_ok)
+// TaintToleration over NoSchedule and NoExecute), given the NodeAffinity
+// outcome `sel_ok`.  No port test: preemption's Filter slice
+// (pod_filters.cu) calls this alone, since eviction frees ports.
+__device__ inline bool static_filters(const Nodes& nd, const Spec& sp, int node, bool sel_ok)
 {
     bool ok = nd.valid[node] && sp.valid[sp.row] && sel_ok;
     const int pname = sp.name[sp.row];
@@ -101,12 +104,26 @@ __device__ inline bool static_feasible(const Nodes& nd, const Spec& sp, int node
             if (tb[w] & ~tl[w]) ok = false;
         }
     }
+    return ok;
+}
+
+// The bound-port test (ports_free over the node's bound pods' ports).
+__device__ inline bool bound_ports_free(const Nodes& nd, const Spec& sp, int node)
+{
     const uint32_t* np = nd.ports + (size_t)node * nd.pw;
     const uint32_t* pp = sp.ports + (size_t)sp.row * nd.pw;
+    bool ok = true;
     for (int w = 0; w < nd.pw; ++w) {
         if (np[w] & pp[w]) ok = false;
     }
     return ok;
+}
+
+// The class statics' Filter slice: static_filters and the bound-port test.
+__device__ inline bool static_feasible(const Nodes& nd, const Spec& sp, int node, bool sel_ok)
+{
+    const bool ok = static_filters(nd, sp, node, sel_ok);
+    return bound_ports_free(nd, sp, node) && ok;
 }
 
 // taint_toleration_raw (scores.py:173): untolerated PreferNoSchedule taints.

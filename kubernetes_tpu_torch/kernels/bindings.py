@@ -56,7 +56,11 @@ _ARGTYPES = {
     "class_extras": [_I] * 6 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
     "partials_eval": [_I] * 12 + [_P] * 27,
     "mirror_rows": [_P, _I, _I, _P],
+    "preempt_dry_run": [_I] * 5 + [_P] * 14,
+    "pod_filters": [_I] * 7 + [_P] * 16,
 }
+# preempt_dry_run's second entry (dry_run_victims): 3 ints, 9 pointers
+_DRY_RUN_VICTIMS = [_I] * 3 + [_P] * 9
 
 # greedy_scan.cu's static capacities and parameter-block layout
 MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, MAX_MC, MAX_TW = 32, 256, 8, 16, 8, 32
@@ -69,6 +73,7 @@ BIDS_GRID = 132      # auction_bids' class-pass blocks: one an SM, at most
 MAX_MI = 16          # class_extras.cu's images a pod
 MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
 LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
+MAX_VICTIM_SLOTS = 4096  # preempt_dry_run.cu's widest victim axis
 
 
 def reset_launches() -> None:
@@ -110,6 +115,12 @@ def _launcher(name: str):
                 want = (MAX_R, MAX_MC, MAX_TW, MAX_SLICE_DIM)
             if got != want:
                 raise RuntimeError(f"{name} limits {got} != bindings {want}")
+        if name == "preempt_dry_run":
+            max_k = getattr(lib, "preempt_dry_run_max_k")
+            max_k.restype, max_k.argtypes = ctypes.c_int, []
+            if max_k() != MAX_VICTIM_SLOTS:
+                raise RuntimeError(f"preempt_dry_run max K {max_k()} != bindings "
+                                   f"{MAX_VICTIM_SLOTS}")
         if name == "class_extras":
             max_mi = getattr(lib, "class_extras_limits")
             max_mi.restype, max_mi.argtypes = ctypes.c_int, []
@@ -1061,3 +1072,121 @@ def class_extras(cluster, prefpod, images, features, cfg, reps, feas, pp) -> tor
             _ptr(out),
         )
     return out
+
+
+def batched_dry_run(free, victim_req, perm, elig_len, viol, pods_req, pod_level):
+    """(feasible bool[P, N], min_k i32[P, N], viol_k i32[P, N]) of one
+    PostFilter pass (kernel preempt_dry_run, its batched entry)."""
+    dev = free.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    free = _arg(free, f32, dev, "free")
+    victim_req = _arg(victim_req, f32, dev, "victim_req")
+    perm = _arg(perm, i32, dev, "perm")
+    elig_len = _arg(elig_len, i32, dev, "elig_len")
+    viol = _arg(viol, b, dev, "viol")
+    pods_req = _arg(pods_req, f32, dev, "pods_req")
+    pod_level = _arg(pod_level, i32, dev, "pod_level")
+    n, k, r = victim_req.shape
+    l = perm.shape[0]
+    p = pods_req.shape[0]
+    if (free.shape != (n, r) or perm.shape != (l, n, k) or elig_len.shape != (l, n)
+            or viol.shape != (l, n, k) or pods_req.shape != (p, r)
+            or pod_level.shape != (p,)):
+        raise ValueError("preemption batch tables do not match its axes "
+                         "(free [N, R], victim_req [N, K, R], perm / viol [L, N, K], "
+                         "elig_len [L, N], pods_req [P, R], pod_level [P])")
+    if not 1 <= k <= MAX_VICTIM_SLOTS or r < 1 or l < 1:
+        raise ValueError(f"victim slots {k} outside [1, {MAX_VICTIM_SLOTS}], or no "
+                         f"resources ({r}) or levels ({l})")
+    feasible = torch.empty((p, n), dtype=torch.uint8, device=dev)
+    min_k = torch.empty((p, n), dtype=i32, device=dev)
+    viol_k = torch.empty((p, n), dtype=i32, device=dev)
+    if n and p:
+        cum = torch.empty((l, n, k, r), dtype=f32, device=dev)
+        cum_viol = torch.empty((l, n, k), dtype=i32, device=dev)
+        bound = torch.empty((l, n), dtype=i32, device=dev)
+        _launch("preempt_dry_run", dev, l, n, k, r, p,
+                *(_ptr(t) for t in (free, victim_req, perm, elig_len, viol, pods_req,
+                                    pod_level, cum, cum_viol, bound, feasible, min_k,
+                                    viol_k)))
+    return feasible.view(torch.bool), min_k, viol_k
+
+
+def dry_run_victims(free, victim_req, victim_valid, pod_req):
+    """(feasible bool[C], min_k i32[C]) of one pod over its C candidates
+    (kernel preempt_dry_run, its dry_run_victims entry)."""
+    dev = free.device
+    i32, f32 = torch.int32, torch.float32
+    free = _arg(free, f32, dev, "free")
+    victim_req = _arg(victim_req, f32, dev, "victim_req")
+    victim_valid = _arg(victim_valid, torch.bool, dev, "victim_valid")
+    pod_req = _arg(pod_req, f32, dev, "pod_req")
+    c, k, r = victim_req.shape
+    if free.shape != (c, r) or victim_valid.shape != (c, k) or pod_req.shape != (r,):
+        raise ValueError("dry-run tables do not match its axes (free [C, R], "
+                         "victim_req [C, K, R], victim_valid [C, K], pod_req [R])")
+    if not 1 <= k <= MAX_VICTIM_SLOTS or r < 1:
+        raise ValueError(f"victim slots {k} outside [1, {MAX_VICTIM_SLOTS}], or no "
+                         f"resources ({r})")
+    feasible = torch.empty(c, dtype=torch.uint8, device=dev)
+    min_k = torch.empty(c, dtype=i32, device=dev)
+    if c:
+        cum = torch.empty((c, k, r), dtype=f32, device=dev)
+        cum_viol = torch.empty((c, k), dtype=i32, device=dev)
+        bound = torch.empty(c, dtype=i32, device=dev)
+        _launcher("preempt_dry_run")  # binds the library and checks its limits
+        fn = build.library("preempt_dry_run").preempt_dry_run_victims_launch
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = _DRY_RUN_VICTIMS + [_P]
+        with torch.cuda.device(dev):
+            code = fn(c, k, r, *(_ptr(t) for t in (free, victim_req, victim_valid, pod_req,
+                                                    cum, cum_viol, bound, feasible, min_k)),
+                      _stream(dev))
+        build.check("preempt_dry_run", code)
+        LAUNCHES["preempt_dry_run"] += 1
+    return feasible.view(torch.bool), min_k
+
+
+def pod_filters(cluster, pods, sel_mask, full: bool) -> torch.Tensor:
+    """bool[P, N]: per pod the static Filter slice, and with `full` the
+    whole chain with resources and ports (kernel pod_filters)."""
+    dev = cluster.node_valid.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    nodes = [_arg(cluster.node_valid, b, dev, "node_valid"),
+             _arg(cluster.name_id, i32, dev, "name_id"),
+             _arg(cluster.taint_bits, i32, dev, "taint_bits"),
+             _arg(cluster.port_bits, i32, dev, "port_bits")]
+    n = nodes[0].shape[0]
+    tw, pw = nodes[2].shape[2], nodes[3].shape[1]
+    spec = [_arg(pods.valid, b, dev, "pods.valid"),
+            _arg(pods.name_id, i32, dev, "pods.name_id"),
+            _arg(pods.sel_idx, i32, dev, "pods.sel_idx"),
+            _arg(pods.tol_bits, i32, dev, "pods.tol_bits"),
+            _arg(pods.tol_all, b, dev, "pods.tol_all"),
+            _arg(pods.port_bits, i32, dev, "pods.port_bits")]
+    p = spec[0].shape[0]
+    sel_mask = _arg(sel_mask, b, dev, "sel_mask")
+    if full:
+        res = [_arg(cluster.requested, f32, dev, "requested"),
+               _arg(cluster.allocatable, f32, dev, "allocatable")]
+        req = _arg(pods.req, f32, dev, "pods.req")
+        r = res[0].shape[1]
+        if res[1].shape != (n, r) or req.shape != (p, r):
+            raise ValueError("requested / allocatable [N, R] and pods.req [P, R] disagree")
+    else:
+        pad = torch.zeros(1, dtype=f32, device=dev)
+        res, req, r = [pad, pad], pad, 0
+    if (nodes[2].shape[:2] != (3, n) or spec[3].shape != (3, p, tw)
+            or spec[4].shape != (3, p) or spec[5].shape != (p, pw)):
+        raise ValueError("taint / toleration / port words do not match the axes")
+    s_rows = sel_mask.shape[0]
+    if sel_mask.shape[1:] != (n,) or s_rows < 1:
+        raise ValueError(f"selector mask {tuple(sel_mask.shape)} is not [S >= 1, {n}]")
+    if p > MAX_GRID_Y:
+        raise ValueError(f"{p} pods exceed the grid's {MAX_GRID_Y}")
+    out = torch.empty((p, n), dtype=torch.uint8, device=dev)
+    if n and p:
+        _launch("pod_filters", dev, n, p, tw, pw, r, s_rows, int(full),
+                *(_ptr(t) for t in nodes + res + spec + [req, sel_mask, out]))
+    return out.view(torch.bool)

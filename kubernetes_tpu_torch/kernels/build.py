@@ -26,7 +26,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 KERNELS = ("match_terms", "class_statics", "greedy_scan", "wavefront",
            "auction_bids", "auction_accept", "auction_spread", "auction_interpod",
-           "class_extras", "partials_eval", "mirror_rows", "slice_stats", "evaluate_single")
+           "class_extras", "partials_eval", "mirror_rows", "slice_stats", "evaluate_single",
+           "preempt_dry_run", "pod_filters")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -388,3 +388,25 @@ _TABLE_TYPES = (
     schema.PrefPodTable,
     schema.ImageTable,
 )
+
+
+def table_to_device(table, device):
+    """A copy of a NamedTuple of numpy arrays as torch tensors on `device`."""
+    device = torch.device(device)
+    return _map_table(table, lambda x: _leaf_to_tensor(x, device))
+
+
+def readback(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """numpy copies of `tensors`, read back from the card in one wait:
+    non-blocking copies into pinned buffers, then one event (tensors on
+    the CPU are returned as they are)."""
+    tensors = list(tensors)
+    if tensors[0].device.type == "cpu":
+        return [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(tensors[0].device))
+    event.synchronize()
+    return [h.numpy() for h in host]

@@ -222,3 +222,63 @@ def static_feasible_for_pod(
     )
 
     return cluster.node_valid & pod.valid & name_ok & taints_ok & sel_ok
+
+
+def _pod_rows(pod: PodView) -> PodBatch:
+    """A one-pod batch of a PodView's fields (the others None)."""
+    rows = {f: getattr(pod, f)[None] for f in PodView._fields}
+    rows["tol_bits"] = pod.tol_bits[:, None, :]
+    rows["tol_all"] = pod.tol_all[:, None]
+    return PodBatch(**dict({f: None for f in PodBatch._fields}, **rows))
+
+
+def filter_rows_plain(
+    cluster: ClusterTensors, pods: PodBatch, sel_mask: torch.Tensor, full: bool
+) -> torch.Tensor:
+    """Plain version of kernel `pod_filters`: bool[P, N], per pod the
+    static slice (static_feasible_for_pod), and with `full` the whole
+    chain (static ∧ fits_resources ∧ ports_free, feasible_for_pod)."""
+    rows = []
+    for i in range(pods.valid.shape[0]):
+        pod = pod_view(pods, i)
+        ok = static_feasible_for_pod(cluster, pod, sel_mask)
+        if full:
+            ok = ok & fits_resources(cluster, pod) & ports_free(cluster, pod)
+        rows.append(ok)
+    return torch.stack(rows)
+
+
+def filter_rows(
+    cluster: ClusterTensors, pods: PodBatch, sel_mask: torch.Tensor, full: bool
+) -> torch.Tensor:
+    """Wrapper of kernel `pod_filters`: the kernel for tensors on the card,
+    the plain version for tensors on the CPU."""
+    if cluster.node_valid.device.type == "cpu":
+        return filter_rows_plain(cluster, pods, sel_mask, full)
+    from ..kernels import bindings
+
+    return bindings.pod_filters(cluster, pods, sel_mask, full)
+
+
+def static_filter_row(
+    cluster: ClusterTensors, pod: PodView, sel_match: torch.Tensor
+) -> torch.Tensor:
+    """static_feasible_for_pod through the wrapper of kernel `pod_filters`
+    (one pod): the kernel on the card, the plain version on the CPU."""
+    return filter_rows(cluster, _pod_rows(pod), sel_match, full=False)[0]
+
+
+def feasible_for_pod(
+    cluster: ClusterTensors, pod: PodView, sel_match: torch.Tensor
+) -> torch.Tensor:
+    """The fused Filter chain for one pod against every node: bool[N].
+    sel_match is the [S, N] selector mask from selector_match()."""
+    return filter_rows(cluster, _pod_rows(pod), sel_match, full=True)[0]
+
+
+def feasible_batch(
+    cluster: ClusterTensors, pods: PodBatch, sel: SelectorTable
+) -> torch.Tensor:
+    """Filter the whole batch at once: bool[P, N] (no inter-pod
+    interaction; the solves re-evaluate per step instead)."""
+    return filter_rows(cluster, pods, selector_match(cluster, sel), full=True)

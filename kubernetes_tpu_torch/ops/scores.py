@@ -276,6 +276,24 @@ def score_from_raw(
                           spread_score=spread_score, extra=extra)
 
 
+def score_for_pod(
+    cluster: ClusterTensors,
+    pod: PodView,
+    feasible: torch.Tensor,
+    pref_mask: torch.Tensor,
+    cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
+    spread_score: torch.Tensor = None,
+) -> torch.Tensor:
+    """Weighted plugin-score sum for one pod over all nodes: f32[N]
+    (kubernetes_tpu/ops/scores.py:274, plain torch; no solve calls it).
+    Infeasible nodes score -1.  spread_score: the pre-normalized
+    PodTopologySpread row, weighted in here."""
+    return score_from_raw(
+        cluster, pod, feasible, node_affinity_raw(pod, pref_mask),
+        taint_toleration_raw(cluster, pod), cfg, spread_score=spread_score,
+    )
+
+
 def resource_score_parts(
     cluster: ClusterTensors, pod: PodView, cfg: ScoreConfig
 ) -> tuple:

@@ -41,6 +41,11 @@ shaped gang (pod.spec.tpu_topology), and `SliceChurn` is bench.py's c10
 slice-packing mix: 64 slices of 4x4x4 (a TPU v4 pod's cubes), rounds of
 208 pods in 26 gangs (2x2x1 x 12, 2x2x2 x 8, 4x2x2 x 4, 4x4x1 x 2), half
 the live gangs leaving between rounds.
+
+Preemption: `preemption_basic_objects` is scheduler_perf's PreemptionBasic
+at any scale, `c9_objects` bench.py's c9 preemption cluster (one victim a
+node, a zero-budget PDB on every fourth), and `dry_run_inputs` random
+inputs of the batched dry-run.
 """
 
 from __future__ import annotations
@@ -855,3 +860,117 @@ class SliceChurn:
         gone = live[: len(live) // 2]
         del live[: len(live) // 2]
         return gone
+
+
+# -- preemption ----------------------------------------------------------------
+
+PREEMPT_FRAC_MIB = 100_000_000 / 2**20  # 100M in MiB: not a whole MiB
+
+
+def preemption_basic_objects(wrappers, n_nodes: int, n_init: int, n_measure: int):
+    """scheduler_perf's PreemptionBasic (kubernetes_tpu/perf/config/
+    performance-config.yaml:141-161): node-default nodes (4 CPU, 32Gi, 110
+    pods, zone-$index_mod8); `n_init` pod-low-priority.yaml pods (priority
+    0, 900m / 500Mi) bound round-robin — four a node at initPods = 4 x
+    initNodes, the only packing a scheduler can reach, since a fifth does
+    not fit —; `n_measure` pod-high-priority.yaml pods (priority 10, 3000m /
+    500Mi), each of which fits nowhere (0.4 CPU free) until three victims
+    of one node are evicted.  Returns (nodes, victims, preemptors)."""
+    mi = wrappers.MI
+    nodes = _perf_nodes(wrappers, n_nodes)
+    victims = []
+    for i in range(n_init):
+        p = (wrappers.make_pod(f"low-{i}").req(cpu_milli=900, mem=500 * mi).priority(0)
+             .node_name(nodes[i % n_nodes].meta.name).obj())
+        p.status.phase = "Running"
+        victims.append(p)
+    preemptors = [
+        wrappers.make_pod(f"high-{i}").req(cpu_milli=3000, mem=500 * mi).priority(10).obj()
+        for i in range(n_measure)
+    ]
+    return nodes, victims, preemptors
+
+
+def c9_objects(wrappers, n_nodes: int, n_preempt: int, prefix: str = "plan"):
+    """bench.py's c9 preemption cluster (bench.py:971-1002): nodes of 2 CPU
+    / 8Gi / 16 pods in 16 zones, one victim a node (1600m, 512Mi, priority
+    i % 5, every fourth labelled app=guarded and held by a zero-budget
+    PodDisruptionBudget), preemptors of 1800m / 512Mi at priorities 50,
+    100 and 200 in turn.  Returns (nodes, victims, preemptors, pdb)."""
+    api = wrappers.api
+    gi = wrappers.GI
+    nodes = [
+        wrappers.make_node(f"node-{i}").capacity(cpu_milli=2000, mem=8 * gi, pods=16)
+        .zone(f"zone-{i % 16}").obj()
+        for i in range(n_nodes)
+    ]
+    victims = []
+    for i in range(n_nodes):
+        w = (wrappers.make_pod(f"victim-{i}").req(cpu_milli=1600, mem=gi // 2)
+             .priority(i % 5).node_name(f"node-{i}"))
+        if i % 4 == 0:
+            w = w.labels(app="guarded")
+        p = w.obj()
+        p.status.phase = "Running"
+        victims.append(p)
+    preemptors = [
+        wrappers.make_pod(f"{prefix}-{i}").req(cpu_milli=1800, mem=gi // 2)
+        .priority([50, 100, 200][i % 3]).obj()
+        for i in range(n_preempt)
+    ]
+    pdb = api.PodDisruptionBudget(
+        meta=api.ObjectMeta(name="guard", namespace="default"),
+        spec=api.PodDisruptionBudgetSpec(
+            selector=api.LabelSelector(match_labels={"app": "guarded"})),
+    )
+    pdb.status.disruptions_allowed = 0
+    return nodes, victims, preemptors, pdb
+
+
+def dry_run_inputs(seed: int, n: int = 40, k: int = 8, r: int = 4, levels: int = 1,
+                   pods: int = 8, frac: bool = False):
+    """Random inputs of a batched preemption dry-run, as numpy arrays in
+    PreemptionBatch's field order (free, victim_req, perm, elig_len, viol,
+    pods_req, pod_level): per node a random victim count with junk (99.0)
+    in the padding slots; per level a random evictable prefix (0 on some
+    nodes, past the slots on one) reordered PDB-clean first with its
+    violation flags; pods that fit with no eviction, after some, or never,
+    with some requests at 0.  With `frac` the memory column is in
+    not-whole-MiB units, so the victims' sums leave float32's exact
+    range."""
+    rng = np.random.default_rng(seed)
+    unit = PREEMPT_FRAC_MIB if frac else 1.0
+    count = rng.integers(0, k + 1, size=n)
+    victim_req = np.full((n, k, r), 99.0, np.float32)
+    for j in range(n):
+        c = int(count[j])
+        victim_req[j, :c, 0] = rng.integers(1, 16, size=c) * 100.0
+        victim_req[j, :c, 1] = (rng.integers(50, 900, size=c) * unit).astype(np.float32)
+        victim_req[j, :c, 2:] = 0.0
+        victim_req[j, :c, r - 1] = 1.0
+    free = np.zeros((n, r), np.float32)
+    free[:, 0] = rng.integers(0, 8, size=n) * 100.0
+    free[:, 1] = (rng.integers(0, 2000, size=n) * unit).astype(np.float32)
+    free[:, r - 1] = rng.integers(0, 3, size=n)
+    perm = np.tile(np.arange(k, dtype=np.int32), (levels, n, 1))
+    elig_len = np.zeros((levels, n), np.int32)
+    viol = np.zeros((levels, n, k), bool)
+    for li in range(levels):
+        for j in range(n):
+            e = int(rng.integers(0, int(count[j]) + 1))
+            elig_len[li, j] = e
+            flags = rng.random(e) < 0.3
+            order = sorted(range(e), key=lambda i: flags[i])
+            perm[li, j, :e] = order
+            viol[li, j, :e] = flags[order]
+    elig_len[0, 0] = k + 3  # a bound past the slots
+    total = victim_req[..., 1].sum(axis=1, where=np.arange(k)[None, :] < count[:, None])
+    pods_req = np.zeros((pods, r), np.float32)
+    for p in range(pods):
+        pods_req[p, 0] = rng.integers(0, 30) * 100.0
+        hi = max(float(total.max()), 1.0)
+        pods_req[p, 1] = np.float32(rng.random() * hi * 0.8) if p % 4 else 0.0
+        pods_req[p, r - 1] = 1.0
+    pods_req[pods - 1] = 1e9  # fits nowhere
+    pod_level = rng.integers(0, levels, size=pods).astype(np.int32)
+    return free, victim_req, perm, elig_len, viol, pods_req, pod_level

@@ -18,7 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "kubernetes_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "kubernetes_tpu")
 
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+                                        ROOT / "north_ab.py"]
 
 
 def _imported_modules(path: pathlib.Path):
@@ -47,7 +48,8 @@ def test_scan_covers_the_port():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("ops/schema.py", "ops/assign.py", "ops/filters.py",
                  "ops/scores.py", "ops/device.py", "ops/auction.py",
-                 "kernels/bindings.py", "models/batch_scheduler.py"):
+                 "kernels/bindings.py", "models/batch_scheduler.py",
+                 "ops/preemption.py", "scheduler/preemption.py"):
         assert want in names
 
 
@@ -58,20 +60,24 @@ def test_forbidden_matcher():
     assert not _forbidden("jaxtyping")
 
 
+def _launch_kinds(src: str, entry: str):
+    m = re.search(rf'extern "C" int {entry}\((.*?)\)\s*\{{', src, re.S)
+    assert m, f"{entry} not found"
+    return ["p" if "*" in p else "i" for p in (p.strip() for p in m.group(1).split(","))]
+
+
+def _binding_kinds(argtypes):
+    return ["p" if t.__name__ == "c_void_p" else "i" for t in argtypes]
+
+
 @pytest.mark.parametrize("name", ["match_terms", "class_statics", "greedy_scan",
-                                  "wavefront", "auction_bids", "auction_accept"])
+                                  "wavefront", "auction_bids", "auction_accept",
+                                  "preempt_dry_run", "pod_filters"])
 def test_launch_signatures_match_bindings(name):
     from kubernetes_tpu_torch.kernels import bindings
 
     src = (PORT / "csrc" / f"{name}.cu").read_text()
-    m = re.search(rf'extern "C" int {name}_launch\((.*?)\)\s*\{{', src, re.S)
-    assert m, f"{name}_launch not found"
-    params = [p.strip() for p in m.group(1).split(",")]
-    kinds = [
-        "p" if "*" in p else "i" for p in params
-    ]
-    want = ["p" if t.__name__ == "c_void_p" else "i" for t in bindings._ARGTYPES[name]]
-    assert kinds == want
+    assert _launch_kinds(src, f"{name}_launch") == _binding_kinds(bindings._ARGTYPES[name])
     # every source carries its note: what it replaces and what bounds it
     assert "Replaces:" in src and "Bound on this card:" in src and "Design:" in src
 
@@ -89,3 +95,13 @@ def test_every_kernel_source_is_built():
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         for inc in re.findall(r'#include "([^"]+)"', src):
             assert inc in headers, (name, inc)
+
+
+def test_dry_run_victims_entry_signature():
+    """preempt_dry_run.cu's second entry (dry_run_victims) against its
+    bindings argument list (the stream last)."""
+    from kubernetes_tpu_torch.kernels import bindings
+
+    src = (PORT / "csrc" / "preempt_dry_run.cu").read_text()
+    want = _binding_kinds(bindings._DRY_RUN_VICTIMS) + ["p"]
+    assert _launch_kinds(src, "preempt_dry_run_victims_launch") == want
