@@ -131,6 +131,36 @@ stdout; with --log also appended to PATH):
   north      one 10,000-pod batch onto 50,000 nodes (the auction), then a
              second 10,000-pod batch after the first one's assumes: a delta
              sync of the assumed rows, warm against cold
+  breakers   once, after every phase above (none arms a fault; the
+             counters only count up): every scheduler built so far has its
+             circuit breaker closed, no trip, no host fallback and no
+             failed partials sync (assert_healthy).  On the card a kernel
+             that fails to build or launch, or a CUDA error, re-raises
+             instead of reaching the fallback; this holds the corrupt
+             results the breaker does absorb there to zero
+  faults     degraded mode on SchedulingBasic/5000Nodes (5,000 nodes,
+             1,000 bound pods; batches the host fallback solves cut to
+             FAULT_BATCH = 64 pods), each step against a healthy twin:
+             nan_parity (the scan, the wavefront, the auction's kernels and
+             evaluate_single on +inf allocatable against their plain
+             versions, NaN for NaN; pod_filters' full mode timed);
+             batch.solve failing forever (the retry, the trip, the host
+             fallback's pods/s); the breaker pinned open (no kernel
+             launches) and its half-open probe (the route's kernels, the
+             breaker closed); batch.solve CORRUPT once (SolveUnhealthy, the
+             retry heals); solve.partials CORRUPT on a warm scan batch (the
+             poisoned solve equal to its plain version, SolveUnhealthy, a
+             full recompute, == cold, a further warm batch) and on a 500-pod
+             SchedulingNodeAffinity wavefront batch (nothing placed and no
+             trip, as the reference; a scan batch of the class heals it);
+             solve.partials failing once (that batch cold, the next warm);
+             mirror.grow failing and CORRUPT at the 8,192 -> 16,384
+             crossing; solve.carveout failing once on a c10 round (== the
+             CPU); batch.preemption failing twice on PreemptionBasic/500Nodes
+             (the per-pod path: preempt_dry_run's dry_run_victims entry
+             launched — the fault fires before the batched entry's launch —
+             and timed at the next preemptor's per-pod inputs, the breaker
+             tripped, == the batched pass on a healthy twin)
 
 In every part of main, greedy, wavefront, spread, interpod, extras,
 slices, extender, proto, resident and north the launch counters are reset
@@ -146,14 +176,16 @@ as the residents recorded); the extender's windows expect match_terms,
 class_statics and evaluate_single (two launches a request), with
 class_extras for the variants, and the proto request the cold auction's.
 Each part fails unless every expected kernel was launched and no other.
-Then the card's name and power limit, the `kernels` summary object, and
-as the last line {"ok": true, "device": {...}}.  Any failed check raises
+The faults phase runs last, with its own launch checks.  Then the card's
+name and power limit, the `kernels` summary object, and as the last line
+{"ok": true, "device": {...}}.  Any failed check raises
 and the script exits non-zero; with no CUDA device it exits non-zero and
 prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -345,12 +377,17 @@ def _pairs(a, b):
 
 def max_abs_err(a, b, torch) -> float:
     """Largest |a - b| over matching outputs (0.0 when equal; inf when
-    infinities or non-finite entries differ)."""
+    infinities or non-finite entries differ).  A NaN equals a NaN at the
+    same position (a poisoned solve's scores) and nothing else."""
     worst = 0.0
     for x, y in _pairs(a, b):
         if x.dtype == torch.bool:
             x, y = x.to(torch.int32), y.to(torch.int32)
         x, y = x.double(), y.double()
+        if not torch.equal(torch.isnan(x), torch.isnan(y)):
+            return float("inf")
+        keep = ~torch.isnan(x)
+        x, y = x[keep], y[keep]
         fin = torch.isfinite(x) & torch.isfinite(y)
         if not torch.equal(torch.isfinite(x), torch.isfinite(y)) or not torch.equal(x[~fin], y[~fin]):
             return float("inf")
@@ -359,9 +396,17 @@ def max_abs_err(a, b, torch) -> float:
     return worst
 
 
+def same_values(x, y, torch) -> bool:
+    """torch.equal, with a NaN equal to a NaN at the same position."""
+    if x.is_floating_point() and y.is_floating_point():
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        return torch.equal(nx, ny) and torch.equal(x[~nx], y[~ny])
+    return torch.equal(x, y)
+
+
 def check_equal(name: str, got, want, torch) -> float:
     err = max_abs_err(got, want, torch)
-    same = all(torch.equal(x, y) for x, y in _pairs(got, want))
+    same = all(same_values(x, y, torch) for x, y in _pairs(got, want))
     if not same or err != 0.0:
         raise AssertionError(f"kernel {name} differs from its plain version: max_abs_err {err}")
     return err
@@ -1092,6 +1137,14 @@ def main() -> int:
     north["second"] = {"delta_rows": want_rows, "padded_nodes": big.state.node_axis_bucket,
                        "warm": rw, "cold": rc, "launches": north2_launches}
     emit(north)
+    # every phase so far arms no fault: breakers, fallbacks and cold
+    # partials syncs only ever count up, so one check covers them all
+    emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
+          "trips": 0, "fallbacks": 0, "partials_sync_failures": 0})
+
+    # ---- degraded mode: the fault points, the breaker, the host fallback ----
+    faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bindings, torch,
+                 card)
 
     print(card, flush=True)
     kernels = []
@@ -1607,17 +1660,19 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
     return rows, launches
 
 
-def solve_route(route, snap, meta, assign, auction, cfg):
+def solve_route(route, snap, meta, assign, auction, cfg, statics=None):
     """The solve TorchBatchScheduler dispatches for `route`, called on
-    `snap` (on the card, or a CPU copy for the plain path)."""
+    `snap` (on the card, or a CPU copy for the plain path); `statics` are
+    warm class statics for the scan and the wavefront (None: cold)."""
     if route == "auction":
         return auction.auction_assign(snap, cfg, n_groups=meta.n_groups, features=meta.features,
                                       tie_k=meta.tie_k, topo_z=meta.topo_split)
     if route == "wavefront":
         return assign.wavefront_assign(snap, meta.wave_plan.members, cfg, features=meta.features,
-                                       n_groups=meta.n_groups, topo_z=meta.topo_split)
+                                       n_groups=meta.n_groups, topo_z=meta.topo_split,
+                                       statics=statics)
     return assign.greedy_assign(snap, cfg, features=meta.features, n_groups=meta.n_groups,
-                                topo_z=meta.topo_split)
+                                topo_z=meta.topo_split, statics=statics)
 
 
 def route_kernels(meta) -> set:
@@ -2276,13 +2331,19 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
 
 # ---- the residents: the mirror and the warm partials ------------------------
 
+# every recording scheduler the script builds (assert_healthy reads them)
+SCHEDULERS = []
+
+
 def recording(cls):
     """TorchBatchScheduler keeping the meta of every batch it encodes: the
-    launch checks derive each phase's kernels from them."""
+    launch checks derive each phase's kernels from them.  Each one is
+    registered in SCHEDULERS for assert_healthy."""
     class Recorded(cls):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.metas = []
+            SCHEDULERS.append(self)
 
         def encode_pending(self, *args, **kw):
             snap, meta = super().encode_pending(*args, **kw)
@@ -2290,6 +2351,26 @@ def recording(cls):
             return snap, meta
 
     return Recorded
+
+
+def assert_healthy() -> int:
+    """Before the faults phase, the only one that arms a fault: every
+    scheduler built so far has its breaker closed, has never tripped, has
+    solved no batch on the host and has solved no batch cold after a
+    failed partials sync.  On the card a kernel that fails to build or
+    launch, or a CUDA error, re-raises; this holds the one fault the
+    breaker does absorb there, a corrupt result, to zero.  Returns the
+    schedulers checked."""
+    for s in SCHEDULERS:
+        b = s.breaker
+        sync_failures = s._partials.sync_failures if s._partials is not None else 0
+        if (b.state != b.CLOSED or b.trips or b.fallback_count() or sync_failures):
+            route = s.metas[0].route if s.metas else None
+            raise AssertionError(
+                f"a scheduler (first route {route}) has its breaker {b.state} with "
+                f"{b.trips} trips, {b.fallback_count()} host fallbacks and "
+                f"{sync_failures} failed partials syncs before any fault was armed")
+    return len(SCHEDULERS)
 
 
 def residents(sched) -> dict:
@@ -3451,6 +3532,451 @@ def preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, ca
           "card": card})
     rows = c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card)
     return {"launches": launches, "rows": rows}
+
+
+# ---- faults: degraded mode on the card ---------------------------------------
+
+# batches the host fallback solves are cut to FAULT_BATCH pods: the Oracle
+# evaluates one pod at a time in Python (~0.09 s a pod at 5,000 nodes)
+FAULT_BATCH = 64
+# the resident phase's bucket crossing: 5,000 + 3,193 nodes move the padded
+# node axis from 8,192 to 16,384 rows
+GROW_NODES = 3193
+
+
+def fault_cluster(wrappers, TorchBatchScheduler, **kw):
+    """SchedulingBasic/5000Nodes on TorchBatchScheduler(**kw): 5,000
+    node-default nodes and 1,000 pod-default pods accounted as bound."""
+    s = TorchBatchScheduler(**kw)
+    for node in make_cluster(wrappers, MAIN[0]):
+        s.add_node(node)
+    for i, pod in enumerate(make_pods(wrappers, MAIN[1], "init")):
+        s.assume(pod, f"node-{i % MAIN[0]}")
+    return s
+
+
+def assume_all(scheds, pods, names) -> None:
+    for s in scheds:
+        for pod, name in zip(pods, names):
+            if name is not None:
+                s.assume(pod, name)
+
+
+def breaker_state(s) -> dict:
+    b = s.breaker
+    return {"state": b.state, "trips": b.trips, "probes": b.probes,
+            "fallbacks": b.fallback_count()}
+
+
+def expect(what: str, cond: bool, detail="") -> None:
+    if not cond:
+        raise AssertionError(f"faults/{what}: {detail}")
+
+
+def expect_unhealthy(what: str, ds, unhealthy) -> None:
+    """The decode of `ds` raises `unhealthy` (SolveUnhealthy)."""
+    try:
+        ds.names()
+    except unhealthy:
+        return
+    raise AssertionError(f"faults/{what}: the health check did not trip")
+
+
+def poisoned_solve(what, sched, pods, reg, faults, assign, auction, torch):
+    """Encode and dispatch `pods` with `reg` armed; hold the card solve's
+    outputs against the plain path on CPU copies of the same (poisoned)
+    inputs, NaN for NaN; check every placed pod's node is a row of the
+    snapshot.  Returns (the DeviceSolve, its meta, the NaN count of the
+    scores)."""
+    with faults.armed(reg):
+        snap, meta = sched.encode_pending(pods)
+        ds = sched.solve_encoded_async(snap, meta)
+    got = result_fields(ds.result, True)
+    want = solve_route(meta.route, cpu_copy(snap), meta, assign, auction, sched.score_config,
+                       statics=cpu_args(meta.statics, torch))
+    check_equal(f"{what} (poisoned solve, card against the plain path on the CPU)", got,
+                result_fields(want, False), torch)
+    n = snap.cluster.allocatable.shape[0]
+    a = got[0][: meta.num_pods]
+    expect(what, bool(((a >= -1) & (a < n)).all()), "an assignment outside the node rows")
+    return ds, meta, int(torch.isnan(got[1][: meta.num_pods]).sum())
+
+
+def nan_parity(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bindings, torch):
+    """Step 0: the solve kernels against their plain versions on a
+    SchedulingBasic/5000Nodes snapshot (64 pods) whose allocatable is +inf
+    (mirror.grow CORRUPT's poison: every feasible score NaN), NaN for NaN:
+    the scan (with match_terms and class_statics), the wavefront, the
+    auction's kernels round by round and their round loop, and
+    evaluate_single on one pod.  Also times pod_filters' full mode
+    (feasible_batch) on the healthy snapshot."""
+    from kubernetes_tpu_torch.ops import schema
+    from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_CONFIG as cfg
+
+    cold = fault_cluster(wrappers, TorchBatchScheduler, use_mirror=False)
+    pods = make_pods(wrappers, FAULT_BATCH, "nan")
+    snap, meta = cold.encode_pending(pods)
+    expect("nan_parity", meta.route == "wavefront", f"route {meta.route}")
+    inf = snap._replace(cluster=snap.cluster._replace(
+        allocatable=torch.full_like(snap.cluster.allocatable, float("inf"))))
+    run_kernels(inf, meta.features, meta.n_groups, cfg, assign, filters, bindings, torch)
+    cluster, tpods, sfeas, aff, taint, sp_args, tm_args, extra = assign._solver_prep(
+        inf, meta.features, cfg=cfg)
+    m = torch.as_tensor(meta.wave_plan.members, dtype=torch.int32, device="cuda")
+    got = bindings.wavefront(cluster, tpods, sfeas, aff, taint, m, meta.features,
+                             meta.n_groups, cfg, sp_args, tm_args, extra)
+    want = assign.wavefront_assign_plain(
+        *cpu_args((cluster, tpods, sfeas, aff, taint, m, meta.features), torch),
+        meta.n_groups, cfg, *cpu_args((sp_args, tm_args, extra), torch))
+    check_equal("wavefront (+inf allocatable)", got, want, torch)
+    scan_nan = int(torch.isnan(bindings.greedy_scan(
+        cluster, tpods, sfeas, aff, taint, assign.solve_order(tpods), meta.features,
+        meta.n_groups, cfg, sp_args, tm_args, extra)[1]).sum())
+    rounds = run_auction(inf, cfg, None, auction, bindings, torch, cpu_snap=cpu_copy(inf))
+    one_np, _m = schema.SnapshotBuilder().build(make_cluster(wrappers, MAIN[0]), pods[:1])
+    one = dv.to_device(one_np, "cuda")
+    one = one._replace(cluster=one.cluster._replace(
+        allocatable=torch.full_like(one.cluster.allocatable, float("inf"))))
+    run_evaluate_single(one, assign.features_of(one_np), cfg, assign, bindings, torch)
+
+    # pod_filters' full mode (feasible_batch: the Filter chain with fit and
+    # ports), timed on the healthy snapshot; no path of the scheduler calls it
+    sel = snap.selectors
+    mask = filters.match_rows_plain(snap.cluster, sel.expr_ids, sel.expr_op, sel.expr_slot,
+                                    sel.term_valid)
+    err = check_equal("pod_filters (full mode)",
+                      (bindings.pod_filters(snap.cluster, snap.pods, mask, True),),
+                      (filters.filter_rows_plain(snap.cluster, snap.pods, mask, True),), torch)
+    n_live, p_live = MAIN[0], FAULT_BATCH
+    nb, ops = pod_filters_need(snap, n_live, p_live, torch)
+    r = snap.cluster.allocatable.shape[1]
+    pw = snap.cluster.port_bits.shape[1]
+    # the full mode also reads each live node's allocatable, requested and
+    # port words and each pod's requests and ports; 2 operations a
+    # (pod, node, resource) and one a (pod, node, port word)
+    nb += n_live * (2 * 4 * r + 4 * pw) + p_live * (4 * r + 4 * pw)
+    ops += float(p_live * n_live * (2 * r + pw))
+    b_ms, b_by = bound(nb, ops)
+    full_row = {"name": "pod_filters (full mode: feasible_for_pod / feasible_batch)",
+                "shape": "SchedulingBasic/5000Nodes, 64 pods (8,192 padded nodes)",
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: bindings.pod_filters(snap.cluster, snap.pods, mask, True),
+                              50, torch),
+                "plain_ms": min(time_plain(lambda: filters.filter_rows_plain(
+                    snap.cluster, snap.pods, mask, True), torch) for _ in range(3)),
+                "bound_ms": b_ms, "bound_by": b_by, "launches": 0}
+    return {"allocatable_inf": {"scan_nan_scores": scan_nan, "auction_rounds": rounds,
+                                "kernels": ["match_terms", "class_statics", "greedy_scan",
+                                            "wavefront", "auction_bids", "auction_accept",
+                                            "evaluate_single"]},
+            "feasible_batch": full_row}
+
+
+def dry_run_victims_need(args, out, torch) -> tuple:
+    """(bytes, operations) of one per-pod dry-run on this data: each
+    candidate's free row, its victims' requests and validity and the pod's
+    requests read once, feasible and min_k written once; two operations
+    (mask, add) a (candidate, slot, resource) of the prefix and two (add,
+    compare) a (candidate, k, resource) the first-fit walk reached."""
+    _free, victim_req, valid, _req = args
+    c, k, r = victim_req.shape
+    need = 4 * c * r + 4 * c * k * r + c * k + 4 * r + c * (1 + 4)
+    feasible, min_k = out
+    walked = (torch.where(feasible.bool(), min_k.long(), valid.sum(dim=1).long()) + 1).sum()
+    return need, float(2 * c * k * r + 2 * r * int(walked))
+
+
+def faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bindings,
+                 torch, card) -> dict:
+    """Degraded mode on the card: each armed fault ends as the reference's
+    run ends (tests/test_torch_faults.py holds the two packages to each
+    other on the CPU), each step against a healthy twin."""
+    from kubernetes_tpu_torch.models.batch_scheduler import (
+        HostSolve, SolveCircuitBreaker, SolveUnhealthy)
+    from kubernetes_tpu_torch.models.partials import _poison_aff
+    from kubernetes_tpu_torch.ops import preemption as pre
+    from kubernetes_tpu_torch.testing import cases, faults
+
+    out = {"phase": "faults", "workload": "SchedulingBasic/5000Nodes",
+           "fallback_batch": FAULT_BATCH, "card": card}
+    out["nan_parity"] = nan_parity(wrappers, TorchBatchScheduler, assign, auction, filters,
+                                   dv, bindings, torch)
+
+    # 1. batch.solve fails forever: the dispatch and its one retry fail, the
+    # breaker trips, the batch solves on the host
+    s = fault_cluster(wrappers, TorchBatchScheduler)
+    twin = fault_cluster(wrappers, TorchBatchScheduler)
+    batch = make_pods(wrappers, FAULT_BATCH, "f1")
+    reg = faults.FaultRegistry().fail("batch.solve", n=-1)
+    with faults.armed(reg):
+        t = time.perf_counter()
+        got = s.schedule_pending(batch)
+        dt = time.perf_counter() - t
+    want = twin.schedule_pending(batch)
+    br = breaker_state(s)
+    expect("batch.solve fail", reg.fired == {"batch.solve": 2}, reg.fired)
+    expect("batch.solve fail", br == {"state": "open", "trips": 1, "probes": 0, "fallbacks": 1},
+           br)
+    expect("batch.solve fail", isinstance(s.last_solve, HostSolve) and got == want,
+           "the host fallback placed otherwise than the healthy twin")
+    out["batch_solve_fail"] = {"fired": dict(reg.fired), "breaker": br, "fallback_s": dt,
+                               "fallback_pods_per_s": len(batch) / dt,
+                               "placed": sum(n is not None for n in got)}
+    assume_all((s, twin), batch, got)
+
+    # 2. the breaker pinned open: the next batch goes to the host and no
+    # kernel launches; past the cooldown the half-open probe runs on the
+    # card, launches the route's kernels and closes the breaker
+    now = [0.0]
+    s.breaker = SolveCircuitBreaker(cooldown=3600.0, clock=lambda: now[0])
+    s.breaker.record_failure()
+    batch = make_pods(wrappers, FAULT_BATCH, "f2")
+    t = time.perf_counter()
+    got, pinned_launches = drive_phase("faults/pinned open",
+                                       lambda: s.schedule_pending(batch), bindings, [s])
+    dt = time.perf_counter() - t
+    expect("pinned open", not any(pinned_launches.values()), pinned_launches)
+    expect("pinned open", got == twin.schedule_pending(batch), "placements differ")
+    assume_all((s, twin), batch, got)
+    pinned = {"breaker": breaker_state(s), "fallback_s": dt,
+              "fallback_pods_per_s": len(batch) / dt}
+    now[0] = 3601.0
+    batch = make_pods(wrappers, FAULT_BATCH, "f3")
+    got, probe_launches = drive_phase("faults/half-open probe",
+                                      lambda: s.schedule_pending(batch), bindings, [s])
+    br = breaker_state(s)
+    expect("probe", br == {"state": "closed", "trips": 1, "probes": 1, "fallbacks": 1}, br)
+    expect("probe", got == twin.schedule_pending(batch), "placements differ")
+    assume_all((s, twin), batch, got)
+    out["pinned_open"] = dict(pinned, probe={"breaker": br, "route": s.metas[-1].route,
+                                             "launches": probe_launches})
+
+    # 3. batch.solve CORRUPT once: NaN scores, SolveUnhealthy at the decode,
+    # the retry heals on the card
+    batch = make_pods(wrappers, FAULT_BATCH, "f4")
+    reg = faults.FaultRegistry().corrupt("batch.solve", n=1)
+    with faults.armed(reg):
+        ds = s.schedule_pending_async(batch)
+    expect_unhealthy("batch.solve corrupt", ds, SolveUnhealthy)
+    got = s.finalize_pending(batch, ds)
+    br = breaker_state(s)
+    expect("batch.solve corrupt", reg.fired == {"batch.solve": 1}, reg.fired)
+    expect("batch.solve corrupt", br == {"state": "closed", "trips": 1, "probes": 1,
+                                         "fallbacks": 1}, br)
+    expect("batch.solve corrupt", got == twin.schedule_pending(batch), "placements differ")
+    assume_all((s, twin), batch, got)
+    out["batch_solve_corrupt"] = {"fired": dict(reg.fired), "unhealthy": True, "breaker": br}
+
+    # 4. solve.partials CORRUPT on a warm scan batch, then on a warm
+    # wavefront batch (SchedulingNodeAffinity/5000Nodes, 500 pods)
+    steps = {}
+    warm = fault_cluster(wrappers, TorchBatchScheduler, mode="greedy", use_wavefront=False)
+    cold = fault_cluster(wrappers, TorchBatchScheduler, mode="greedy", use_wavefront=False,
+                         use_mirror=False)
+    batch = make_pods(wrappers, FAULT_BATCH, "p0")
+    got = warm.schedule_pending(batch)
+    expect("partials corrupt (scan)", got == cold.schedule_pending(batch), "warm-up differs")
+    assume_all((warm, cold), batch, got)
+    full0 = warm._partials.full_recomputes
+    batch = make_pods(wrappers, FAULT_BATCH, "p1")
+    reg = faults.FaultRegistry(seed=1).corrupt("solve.partials", n=1)
+    ds, meta, n_nan = poisoned_solve("partials corrupt (scan)", warm, batch, reg, faults,
+                                     assign, auction, torch)
+    expect("partials corrupt (scan)", meta.route == "greedy" and n_nan > 0,
+           f"route {meta.route}, {n_nan} NaN scores")
+    expect_unhealthy("partials corrupt (scan)", ds, SolveUnhealthy)
+    got = warm.finalize_pending(batch, ds)
+    expect("partials corrupt (scan)", got == cold.schedule_pending(batch), "retry differs from cold")
+    expect("partials corrupt (scan)", warm._partials.full_recomputes == full0 + 1,
+           f"full_recomputes {full0} -> {warm._partials.full_recomputes}")
+    assume_all((warm, cold), batch, got)
+    torch.cuda.synchronize()
+    batch = make_pods(wrappers, FAULT_BATCH, "p2")
+    after = warm.schedule_pending(batch)
+    expect("partials corrupt (scan)", after == cold.schedule_pending(batch)
+           and warm.last_solve.meta.statics is not None, "the next warm batch differs")
+    assume_all((warm, cold), batch, after)
+    steps["scan"] = {"fired": dict(reg.fired), "nan_scores": n_nan, "unhealthy": True,
+                     "full_recomputes": warm._partials.full_recomputes - full0,
+                     "breaker": breaker_state(warm)}
+    # _poison_aff, the fault's one device program (a plain torch fill on the
+    # card), timed on this store: its bound is one write of the [slots, N]
+    # affinity rows (a fill reads nothing)
+    store = warm._partials._store
+    b_ms, b_by = bound(nbytes(store.aff), 0.0)
+    steps["poison_aff"] = {"shape": list(store.aff.shape), "launches": 1,
+                           "ms": cuda_ms(lambda: _poison_aff(store), 50, torch),
+                           "bound_ms": b_ms, "bound_by": b_by}
+
+    wwarm, wcold = TorchBatchScheduler(), TorchBatchScheduler(use_mirror=False)
+    for node in make_cluster(wrappers, AFFINITY[0]):
+        wwarm.add_node(node)
+        wcold.add_node(node)
+    batch = affinity_pods(wrappers, AFFINITY_BATCH, "wf0")
+    got = wwarm.schedule_pending(batch)
+    expect("partials corrupt (wavefront)", got == wcold.schedule_pending(batch), "warm-up differs")
+    assume_all((wwarm, wcold), batch, got)
+    batch = affinity_pods(wrappers, AFFINITY_BATCH, "wf1")
+    reg = faults.FaultRegistry(seed=1).corrupt("solve.partials", n=1)
+    ds, meta, n_nan = poisoned_solve("partials corrupt (wavefront)", wwarm, batch, reg, faults,
+                                     assign, auction, torch)
+    # the reference's cheap pick drops NaN entries of the top list: every
+    # member is unplaced with a -inf score, and nothing trips
+    got = wwarm.finalize_pending(batch, ds)
+    expect("partials corrupt (wavefront)", meta.route == "wavefront" and n_nan == 0
+           and all(n is None for n in got) and isinstance(wwarm.last_solve, type(ds)),
+           f"route {meta.route}, {n_nan} NaN scores, {sum(n is not None for n in got)} placed")
+    torch.cuda.synchronize()
+    # the store stays poisoned (as the reference's): a scan batch trips on
+    # it and heals, and the wavefront is warm and right again
+    heal = affinity_pods(wrappers, 16, "wf-heal")  # the poisoned slot's class
+    full0 = wwarm._partials.full_recomputes
+    got = wwarm.schedule_pending(heal)
+    expect("partials corrupt (wavefront)", wwarm.last_solve.meta.route == "greedy"
+           and got == wcold.schedule_pending(heal)
+           and wwarm._partials.full_recomputes == full0 + 1, "the scan batch did not heal")
+    assume_all((wwarm, wcold), heal, got)
+    batch = affinity_pods(wrappers, AFFINITY_BATCH, "wf2")
+    got = wwarm.schedule_pending(batch)
+    expect("partials corrupt (wavefront)", got == wcold.schedule_pending(batch)
+           and all(n is not None for n in got), "the next wavefront batch differs")
+    assume_all((wwarm, wcold), batch, got)
+    steps["wavefront"] = {"fired": dict(reg.fired), "nan_scores": n_nan, "placed": 0,
+                          "healed_by_scan": True, "breaker": breaker_state(wwarm)}
+    out["partials_corrupt"] = steps
+
+    # 5. solve.partials fails once: that batch solves cold (class_statics),
+    # the next one warm again
+    batch = make_pods(wrappers, FAULT_BATCH, "p3")
+    reg = faults.FaultRegistry(seed=2).fail("solve.partials", n=1)
+    with faults.armed(reg):
+        got, cold_launches = drive_phase("faults/partials fail", lambda: warm.schedule_pending(
+            batch), bindings, [warm])
+    expect("partials fail", warm.last_solve.meta.statics is None
+           and cold_launches["class_statics"] > 0 and cold_launches["partials_eval"] == 0
+           and got == cold.schedule_pending(batch), cold_launches)
+    assume_all((warm, cold), batch, got)
+    batch = make_pods(wrappers, FAULT_BATCH, "p4")
+    got, warm_launches = drive_phase("faults/partials fail (next)",
+                                     lambda: warm.schedule_pending(batch), bindings, [warm])
+    expect("partials fail", warm.last_solve.meta.statics is not None
+           and warm_launches["class_statics"] == 0 and got == cold.schedule_pending(batch),
+           warm_launches)
+    assume_all((warm, cold), batch, got)
+    out["partials_fail"] = {"fired": dict(reg.fired), "cold_launches": cold_launches,
+                            "next_launches": warm_launches, "breaker": breaker_state(warm)}
+
+    # 6. mirror.grow at the bucket crossing (8,192 -> 16,384 padded rows)
+    grow = {}
+    for kind in ("fail", "corrupt"):
+        gw = fault_cluster(wrappers, TorchBatchScheduler, mode="greedy", use_wavefront=False)
+        gc = fault_cluster(wrappers, TorchBatchScheduler, mode="greedy", use_wavefront=False,
+                           use_mirror=False)
+        batch = make_pods(wrappers, FAULT_BATCH, f"g-{kind}0")
+        got = gw.schedule_pending(batch)
+        assume_all((gw, gc), batch, got)
+        bucket0 = gw.state.node_axis_bucket
+        for node in make_cluster(wrappers, GROW_NODES, prefix="grow"):
+            gw.add_node(node)
+            gc.add_node(node)
+        before = gw._mirror.stats()
+        batch = make_pods(wrappers, FAULT_BATCH, f"g-{kind}1")
+        reg = faults.FaultRegistry(seed=3)
+        getattr(reg, kind)("mirror.grow", n=1)
+        rec = {}
+        if kind == "fail":
+            with faults.armed(reg):
+                got = gw.schedule_pending(batch)
+        else:
+            ds, meta, n_nan = poisoned_solve("mirror.grow corrupt", gw, batch, reg, faults,
+                                             assign, auction, torch)
+            expect_unhealthy("mirror.grow corrupt", ds, SolveUnhealthy)
+            got = gw.finalize_pending(batch, ds)
+            rec["nan_scores"] = n_nan
+        want = gc.schedule_pending(batch)
+        delta = {k: v - before[k] for k, v in gw._mirror.stats().items()}
+        expect(f"mirror.grow {kind}", reg.fired == {"mirror.grow": 1} and got == want
+               and gw.state.node_axis_bucket == 2 * bucket0,
+               (reg.fired, bucket0, gw.state.node_axis_bucket))
+        if kind == "fail":
+            expect("mirror.grow fail", delta["resync_total"] == 1 and delta["grow_syncs"] == 0,
+                   delta)
+        else:
+            expect("mirror.grow corrupt", delta["resync_total"] == 1
+                   and delta["grow_syncs"] == 1, delta)
+        expect(f"mirror.grow {kind}", breaker_state(gw)["state"] == "closed"
+               and gw.breaker.fallback_count() == 0, breaker_state(gw))
+        grow[kind] = dict(rec, fired=dict(reg.fired), mirror=delta, breaker=breaker_state(gw),
+                          padded_nodes=(bucket0, gw.state.node_axis_bucket))
+    out["mirror_grow"] = grow
+
+    # 7. solve.carveout fails once on a c10 round: the retry places as the CPU
+    pair = {"cuda": TorchBatchScheduler(carveout_policy="prefer"),
+            "cpu": TorchBatchScheduler(device="cpu", carveout_policy="prefer")}
+    names = {}
+    reg = faults.FaultRegistry().fail("solve.carveout", n=1)
+    for d, sch in pair.items():
+        churn = cases.SliceChurn(wrappers)
+        for node in churn.nodes():
+            sch.add_node(node)
+        pods = churn.round_pods(0)
+        if d == "cuda":
+            with faults.armed(reg):
+                names[d] = sch.schedule_pending(pods)
+        else:
+            names[d] = sch.schedule_pending(pods)
+    expect("solve.carveout", reg.fired == {"solve.carveout": 1} and names["cuda"] == names["cpu"]
+           and breaker_state(pair["cuda"])["fallbacks"] == 0, reg.fired)
+    out["solve_carveout"] = {"fired": dict(reg.fired), "breaker": breaker_state(pair["cuda"]),
+                             "placed": sum(n is not None for n in names["cuda"]),
+                             "equal_cpu": True}
+
+    # 8. batch.preemption fails twice on PreemptionBasic/500Nodes: the pass
+    # falls back to the per-pod path (dry_run_victims) and trips the
+    # breaker; the outcome equals the batched pass on a healthy twin.  The
+    # fault fires before the batched entry's launch, so every
+    # preempt_dry_run launch of the faulted pass is the victims entry's.
+    runs = {}
+    for label in ("healthy", "faulted"):
+        sch, cache, ev, preemptors = preemption_basic(wrappers, TorchBatchScheduler,
+                                                      PREEMPT_SMALL)
+        reg = faults.FaultRegistry(seed=1).fail("batch.preemption", n=2)
+        with faults.armed(reg) if label == "faulted" else contextlib.nullcontext():
+            (results, rec), launches = drive_phase(
+                f"faults/batch.preemption {label}",
+                lambda: preemption_cycle(sch, cache, ev, preemptors[:PREEMPT_PASS]),
+                bindings, [sch], extra=PREEMPT_KERNELS)
+        runs[label] = ([result_key(r) for r in results], sorted(sch.state._pod_node.items()),
+                       rec, breaker_state(sch), launches["preempt_dry_run"], dict(reg.fired))
+    keys_h, pods_h, rec_h, br_h, batched_h, _ = runs["healthy"]
+    keys_f, pods_f, rec_f, br_f, n_calls, fired = runs["faulted"]
+    expect("batch.preemption", not rec_h["fallback"] and batched_h == 1
+           and br_h["state"] == "closed", ("the healthy pass", rec_h["fallback"], batched_h))
+    expect("batch.preemption", fired == {"batch.preemption": 2} and rec_f["fallback"]
+           and n_calls > 0 and br_f["state"] == "open" and br_f["trips"] == 1
+           and keys_f == keys_h and pods_f == pods_h, (fired, rec_f["fallback"], n_calls, br_f))
+    # the victims entry at the per-pod path's shapes: the inputs of the
+    # next preemptor, whose pass the open breaker sends down that path
+    got = ev._classic_inputs(preemptors[PREEMPT_PASS])
+    expect("batch.preemption", got is not None, "no per-pod candidate for the next preemptor")
+    args = ev._victim_tables(*got)
+    vout = bindings.dry_run_victims(*args)
+    err = check_equal("preempt_dry_run victims entry (faults)", vout,
+                      pre.dry_run_victims_plain(*args), torch)
+    b_ms, b_by = bound(*dry_run_victims_need(args, vout, torch))
+    out["batch_preemption"] = {
+        "workload": "PreemptionBasic/500Nodes", "preemptors": PREEMPT_PASS,
+        "fallback": True, "breaker": br_f, "equal_healthy_batched_pass": True,
+        "nominated": sum(k is not None for k in keys_f),
+        "dry_run_victims": {"launches": n_calls, "max_abs_err": err,
+                            "shape": f"{tuple(args[1].shape)} (candidates, slots, resources)",
+                            "ms": cuda_ms(lambda: bindings.dry_run_victims(*args), 50, torch),
+                            "plain_ms": min(time_plain(lambda: pre.dry_run_victims_plain(*args),
+                                                       torch) for _ in range(3)),
+                            "bound_ms": b_ms, "bound_by": b_by}}
+    emit(out)
+    return out
+
 
 
 if __name__ == "__main__":

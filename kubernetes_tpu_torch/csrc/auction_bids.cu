@@ -38,6 +38,9 @@
 //               within its bucket under (key desc, index asc) — the order of
 //               lax.top_k over the keys, with no sort.  The keys are a
 //               Weyl-sequence hash of the node index, so buckets stay small.
+//               A NaN score (a corrupt input) wins block_eval's pick, so
+//               the class's best is NaN, as jnp.max's is: no node equals
+//               it, and the class bids nowhere, as in the reference.
 //   pod_pass    one thread per solve position, 256 a block: j counts the
 //               active pods of the same class earlier in solve order (a
 //               tiled pass over the positions before it), then slot = j mod

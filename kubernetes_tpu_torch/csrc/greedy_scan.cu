@@ -34,7 +34,8 @@
 //           nodes (0-floored, scores.py:191);
 //   pass 2  strided over N: fit, balanced, normalised affinity, reversed
 //           taint and the weighted total; block reduction of (score, lowest
-//           index), which is jnp.argmax's first-index tie-break;
+//           index), which is jnp.argmax's first-index tie-break (a NaN
+//           score ranks first, as there: solve_common.cuh ranks_above);
 //   then thread 0 writes the pod's outputs and threads 0..R / 0..PW add the
 //           winner's requests and ports to its rows in place, and the block
 //           adds one to every spread row the pod matches at the nodes that

@@ -322,10 +322,28 @@ __device__ __forceinline__ Step warp_reduce_step(Step s)
     return s;
 }
 
-// (score, index): the larger score wins, the lower index breaks ties
+// (score, index) order of jnp.argmax, torch.argmax and lax.top_k: a NaN
+// ranks above every number (+inf included), a larger score above a smaller
+// one, and equal ranks (two NaNs too) break to the lower index.  A NaN score
+// comes only from a corrupt input (an injected fault: +inf affinity rows or
+// +inf allocatable make floor(100 * inf / inf)); it must win the pick as it
+// wins the reference's, so the decode's health check sees it.
+__device__ __forceinline__ bool ranks_above(float s, int i, float best, int idx)
+{
+    const bool sn = isnan(s), bn = isnan(best);
+    if (sn != bn) return sn;
+    return sn ? i < idx : (s > best || (s == best && i < idx));
+}
+
 __device__ __forceinline__ void better(float& best, int& idx, float s, int i)
 {
-    if (s > best || (s == best && i < idx)) { best = s; idx = i; }
+    if (ranks_above(s, i, best, idx)) { best = s; idx = i; }
+}
+
+// jnp.max / torch.max of two: NaN if either is NaN (fmaxf drops a NaN)
+__device__ __forceinline__ float nan_max(float a, float b)
+{
+    return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
 }
 
 __device__ __forceinline__ void warp_reduce_best(float& best, int& idx)
@@ -630,8 +648,8 @@ __device__ inline void block_interpod_update(const Terms& tm, int n, int i, int 
 struct Eval {
     Step all;     // stage flags, feasible count, normalisation maxima
     bool found;   // some node passes every filter
-    int choice;   // first-index argmax of the masked scores
-    float best;   // its score (-inf when !found)
+    int choice;   // first-index argmax of the masked scores, in [0, n) when found
+    float best;   // its score (-inf when !found; NaN when a feasible score is)
     int reason;   // REASON_* of the first stage that emptied the set
 };
 
@@ -732,7 +750,7 @@ __device__ inline Eval block_eval(
                 if (erow != nullptr) total = add(total, erow[nd]);
                 // every pod of a slice batch, shaped or not (x + 0 is +0)
                 if (carve) total = add(total, bonus);
-                if (total > best) { best = total; best_idx = nd; }
+                better(best, best_idx, total, nd);
             }
             if (masked != nullptr) masked[nd] = total;
         }

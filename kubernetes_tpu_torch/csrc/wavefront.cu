@@ -28,8 +28,8 @@
 //               against the wave-start carry, writing the member's masked
 //               score row [N], then kk = min(K+1, N) rounds of a block
 //               argmax over the entries after the previous pick, giving the
-//               top list in (score desc, index asc) order — lax.top_k's
-//               order, with no sort;
+//               top list in (NaN first, score desc, index asc) order —
+//               lax.top_k's order, with no sort;
 //   wave_step   one block of 1024 threads: the coupling check (a host port,
 //               a spread row or a term one member writes and a later one
 //               reads), then
@@ -113,15 +113,17 @@ __global__ void __launch_bounds__(kEvalThreads) wave_eval_kernel(
         reason_k[j] = ev.reason;
         cnt_k[j] = ev.all.count;
     }
-    // each thread reads back only the entries it wrote in block_eval
-    float pv = INFINITY;
+    // each thread reads back only the entries it wrote in block_eval; the
+    // order is ranks_above's (NaN first, then score desc, index asc), and
+    // the (NaN, -1) start ranks above every entry
+    float pv = NAN;
     int pi = -1;
     for (int t = 0; t < kk; ++t) {
         float best = -INFINITY;
         int bi = 0x7fffffff;
         for (int nd = tid; nd < n; nd += blockDim.x) {
             const float v = mrow[nd];
-            if (v < pv || (v == pv && nd > pi)) better(best, bi, v, nd);
+            if (ranks_above(pv, pi, v, nd)) better(best, bi, v, nd);
         }
         block_reduce_best(best, bi, sc);
         if (tid == 0) {
@@ -349,9 +351,11 @@ __global__ void __launch_bounds__(kStepThreads, 1) wave_step_kernel(
                         break;
                     }
                 }
+                // jnp.max over the union: a NaN candidate makes it NaN, and
+                // the member is then not found, as in the reference
                 float best = bu_v;
                 for (int jj = 0; jj < j; ++jj) {
-                    if (s_pick[jj] >= 0) best = fmaxf(best, s_cand[jj]);
+                    if (s_pick[jj] >= 0) best = nan_max(best, s_cand[jj]);
                 }
                 const bool found = found_k[j] != 0 && best > -INFINITY;
                 // first-max-index over the candidate union == over the

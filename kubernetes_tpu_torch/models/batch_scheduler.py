@@ -31,13 +31,28 @@ in the reference.  use_mirror=False is the cold path: the whole snapshot
 is copied every batch and every solve recomputes its statics.
 
 Every batch is read back once through pinned host buffers and a CUDA
-event (DeviceSolve).  There is no host fallback: a device fault
-invalidates both residents and raises to the caller.
+event (DeviceSolve), whose decode checks the scores (SolveUnhealthy on a
+NaN, or on a placed pod's non-finite score).  Degraded mode is the
+reference's: a failed dispatch or readback retries once (a readback
+retry invalidates both residents and re-encodes), a second failure trips
+the SolveCircuitBreaker, and while it is open every batch solves on the
+host (`_host_fallback`: testing/oracle.py's Oracle over the state's
+retained objects, with the gang all-or-nothing post-pass) until the
+cooldown's half-open probe succeeds on the card.  Every fallback is
+logged and counted in `breaker.fallbacks`.  A failed partials sync
+solves that batch cold (counted in the cache's `sync_failures`).  On the
+card only SolveUnhealthy and an injected fault take these paths
+(`solve_fault_recoverable`): a kernel that fails to build or launch, or a
+CUDA error, re-raises.  The fault points `batch.solve`,
+`solve.carveout` (here), `solve.partials` (models/partials.py) and
+`mirror.grow` (models/mirror.py) drive these paths (testing/faults.py).
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -51,12 +66,140 @@ from ..ops import auction as auction_ops
 from ..ops import device as device_ops
 from ..ops import schema
 from ..ops.scores import DEFAULT_SCORE_CONFIG, ScoreConfig
+from ..testing import faults
+from ..testing.oracle import Oracle
 from .mirror import DeviceClusterMirror
 from .partials import PartialsCache
 
 
+_log = logging.getLogger(__name__)
+
+
 class SolveUnhealthy(RuntimeError):
-    """A device solve returned a corrupt result (non-finite scores)."""
+    """A device solve returned a corrupt result (a NaN score, or a placed
+    pod's non-finite score): its placements cannot be trusted.  Treated
+    like a dispatch error by the circuit breaker."""
+
+
+def solve_fault_recoverable(exc: Exception, device: torch.device) -> bool:
+    """Whether a device-path fault goes to the retry, the circuit breaker
+    and the host fallback.  On the card only a corrupt result
+    (SolveUnhealthy) and an injected fault (testing/faults.py) do: a
+    kernel that fails to build or launch, or a CUDA error, re-raises, so a
+    broken card is never hidden behind host solves.  On the CPU every
+    exception does, as in the reference."""
+    return (device.type != "cuda"
+            or isinstance(exc, (SolveUnhealthy, faults.FaultInjected)))
+
+
+class SolveCircuitBreaker:
+    """Device-solve circuit breaker (the reference's, whole).
+
+    closed     device solves flow normally.
+    open       the device path failed twice in a row (one retry); every
+               batch routes to the host fallback until the cooldown
+               elapses.
+    half-open  the cooldown elapsed: ONE batch probes the device; success
+               closes the breaker, failure re-opens it with a fresh
+               cooldown.
+
+    No failure-rate window: a device solve is all-or-nothing per batch,
+    so consecutive-failure semantics (fail, retry, trip) match the
+    dispatch shape.  Every field is read and written under `_lock`."""
+
+    CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
+    _STATE_CODE = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
+
+    def __init__(self, cooldown: float = 5.0, clock=time.monotonic):
+        self.cooldown = cooldown
+        self._clock = clock
+        self._lock = threading.Lock()
+        self.state = self.CLOSED
+        self._open_until = 0.0
+        self.trips = 0       # CLOSED/HALF_OPEN -> OPEN transitions
+        self.fallbacks = 0   # batches solved on the host path
+        self.probes = 0      # half-open device attempts
+
+    def state_code(self) -> float:
+        """0 closed, 1 half-open, 2 open (the solve_breaker_state gauge)."""
+        with self._lock:
+            return self._STATE_CODE[self.state]
+
+    def record_fallback(self) -> None:
+        """Count a batch solved on the host path (the owner's
+        _host_fallback calls it)."""
+        with self._lock:
+            self.fallbacks += 1
+
+    def fallback_count(self) -> int:
+        with self._lock:
+            return self.fallbacks
+
+    def allow_device(self) -> bool:
+        """True when this batch may use the device: closed, or open with
+        the cooldown elapsed (the call turns the breaker half-open and the
+        batch becomes the probe)."""
+        with self._lock:
+            if self.state == self.CLOSED:
+                return True
+            if self.state == self.OPEN and self._clock() >= self._open_until:
+                self.state = self.HALF_OPEN
+                self.probes += 1
+                return True
+            # open inside the cooldown, or half-open with the probe in
+            # flight on another thread
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            if self.state != self.CLOSED:
+                self.state = self.CLOSED
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self.trips += 1
+            self.state = self.OPEN
+            self._open_until = self._clock() + self.cooldown
+
+    def reset(self) -> None:
+        """Snap the breaker to closed with no cooldown pending (a new
+        leader re-probes the device instead of inheriting a cooldown it
+        never observed)."""
+        with self._lock:
+            self.state = self.CLOSED
+            self._open_until = 0.0
+
+
+class HostSolve:
+    """A completed host-fallback solve with DeviceSolve's surface: the
+    names are already there; there is no device future, no pinned buffer
+    or event, and no reason tensor (reasons() is None).  The telemetry
+    properties are None, as off their routes."""
+
+    result = None
+    wave_count = None
+    wave_fallbacks = None
+    frag_score = None
+    carveouts = None
+    contiguous_gangs = None
+    carveout_fallbacks = None
+
+    def __init__(self, names: List[Optional[str]]):
+        self._names = names
+        self.encode_s = 0.0
+        self.dispatch_s = 0.0
+        self.decode_wait_s = 0.0
+        self.deferred_s = 0.0
+        self.dispatched_at = time.perf_counter()
+
+    def ready(self) -> bool:
+        return True
+
+    def names(self) -> List[Optional[str]]:
+        return self._names
+
+    def reasons(self) -> Optional[List[int]]:
+        return None
 
 
 class DeviceSolve:
@@ -243,8 +386,15 @@ class TorchBatchScheduler:
         )
         self._fill_cache: dict = {}
         self._put_stage = device_ops.PinnedStage()
+        # device-solve circuit breaker: dispatch and readback faults (and
+        # non-finite scores) retry once, then trip every batch to the host
+        # fallback for a cooldown
+        self.breaker = SolveCircuitBreaker()
         self.last_result = None  # SolveResult or auction_ops.AuctionResult
-        self.last_solve: Optional[DeviceSolve] = None
+        # the effective solve of the most recent finalize_pending (the
+        # caller's DeviceSolve unless the retry or the fallback replaced
+        # it): a DeviceSolve or a HostSolve
+        self.last_solve = None
         self.last_timings: Dict[str, float] = {}
 
     # -- incremental cluster state ---------------------------------------
@@ -386,8 +536,18 @@ class TorchBatchScheduler:
         partials_bytes = 0
         t0 = time.perf_counter()
         if self._partials is not None and meta.route in ("greedy", "wavefront"):
-            meta.statics = self._partials.sync(
-                dev_cluster, snap, meta, cluster_epoch=self._mirror.epoch())
+            # the cache is an optimisation layer: a failure inside it (an
+            # injected solve.partials fault; on the CPU any error)
+            # invalidates it and this batch solves with cold statics
+            try:
+                meta.statics = self._partials.sync(
+                    dev_cluster, snap, meta, cluster_epoch=self._mirror.epoch())
+            except Exception as exc:  # noqa: BLE001 — cold solve instead
+                if not solve_fault_recoverable(exc, self.device):
+                    raise
+                self._partials.invalidate()
+                self._partials.sync_failures += 1
+                _log.exception("partials sync failed; cold solve for this batch")
             for k, v in self._partials.last_launches.items():
                 launches[k] = launches.get(k, 0) + v
             partials_bytes = self._partials.last_sync_bytes
@@ -444,8 +604,18 @@ class TorchBatchScheduler:
         self, snap: schema.Snapshot, meta: schema.SnapshotMeta
     ) -> DeviceSolve:
         """Dispatch a prebuilt snapshot; the result stays a device future
-        (DeviceSolve) read back on first names()/reasons() access."""
+        (DeviceSolve) read back on first names()/reasons() access.  The
+        fault points: `batch.solve` on every dispatch, `solve.carveout` on
+        a slice batch with gangs; a raised fault kills the dispatch, and
+        CORRUPT fills the score tensor with NaN (a fill on the result's
+        device) so the decode's health check trips."""
+        act = faults.fire("batch.solve", pods=meta.num_pods)
+        if (meta.features is not None and meta.features.slices
+                and (meta.n_groups or 0) > 0):
+            faults.fire("solve.carveout", gangs=meta.n_groups)
         result = self._dispatch(snap, meta)
+        if act == faults.CORRUPT and getattr(result, "scores", None) is not None:
+            result = result._replace(scores=torch.full_like(result.scores, float("nan")))
         self.last_result = result
         return DeviceSolve(result, meta)
 
@@ -463,9 +633,14 @@ class TorchBatchScheduler:
         reservations: Sequence[Tuple[str, api.Pod]] = (),
     ) -> Optional[DeviceSolve]:
         """Encode + dispatch one batch without blocking on the device.
-        Returns None for an empty batch; finish with finalize_pending()."""
+        Returns None for an empty batch; finish with finalize_pending().
+        With the breaker open the batch solves on the host (a HostSolve);
+        a failed dispatch retries once, then trips the breaker, drops both
+        residents and solves on the host."""
         if not pending:
             return None
+        if not self.breaker.allow_device():
+            return self._host_fallback(pending, lock=lock, reservations=reservations)
         t0 = time.perf_counter()
         snap, meta = self.encode_pending(
             pending, num_pods_hint=num_pods_hint, lock=lock,
@@ -474,9 +649,21 @@ class TorchBatchScheduler:
         t1 = time.perf_counter()
         try:
             ds = self.solve_encoded_async(snap, meta)
-        except Exception:
-            self._invalidate_residents(lock)
-            raise
+        except Exception as exc:  # noqa: BLE001 — device dispatch fault
+            if not solve_fault_recoverable(exc, self.device):
+                raise
+            _log.exception("device solve dispatch failed; retrying once")
+            try:
+                ds = self.solve_encoded_async(snap, meta)
+            except Exception as exc2:  # noqa: BLE001
+                if not solve_fault_recoverable(exc2, self.device):
+                    raise
+                self.breaker.record_failure()
+                # either resident may be the fault, and the host fallback
+                # reads neither
+                self._invalidate_residents(lock)
+                _log.exception("device solve retry failed; breaker open, host fallback")
+                return self._host_fallback(pending, lock=lock, reservations=reservations)
         ds.encode_s = t1 - t0
         ds.dispatch_s = ds.dispatched_at - t1
         return ds
@@ -489,14 +676,41 @@ class TorchBatchScheduler:
         reservations: Sequence[Tuple[str, api.Pod]] = (),
     ) -> List[Optional[str]]:
         """Decode a dispatched batch, record the encode/solve/decode wall
-        split, and run the gang admission retry if the batch needs it."""
+        split, and run the gang admission retry if the batch needs it.
+
+        A readback fault (SolveUnhealthy at the health check, an injected
+        fault; on the CPU any error) retries once: both residents are
+        dropped under the lock and the batch is encoded and solved again.
+        A second failure trips the breaker and this batch solves on the
+        host."""
         if ds is None:
             return []
         try:
             names = ds.names()
-        except Exception:
-            self._invalidate_residents(lock)
-            raise
+            if not isinstance(ds, HostSolve):
+                self.breaker.record_success()
+        except Exception as exc:  # noqa: BLE001 — device readback fault
+            if not solve_fault_recoverable(exc, self.device):
+                raise
+            _log.exception("device solve readback failed; retrying once")
+            try:
+                # a poisoned resident (solve.partials, mirror.grow CORRUPT)
+                # surfaces here: the retry's encode uploads and
+                # recomputes in full
+                self._invalidate_residents(lock)
+                snap, meta = self.encode_pending(pending, lock=lock, reservations=reservations)
+                ds = self.solve_encoded_async(snap, meta)
+                names = ds.names()
+                self.breaker.record_success()
+            except Exception as exc2:  # noqa: BLE001
+                if not solve_fault_recoverable(exc2, self.device):
+                    raise
+                self.breaker.record_failure()
+                _log.exception("device solve retry failed; breaker open, host fallback")
+                ds = self._host_fallback(pending, lock=lock, reservations=reservations)
+                names = ds.names()
+        # the EFFECTIVE solve of this batch: telemetry readers (wave
+        # counts, reasons) must read this one, not the failed original
         self.last_solve = ds
         self.last_timings = {
             "encode_s": ds.encode_s,
@@ -534,11 +748,65 @@ class TorchBatchScheduler:
     def schedule_pending_no_retry(
         self, pending, lock=None, reservations=(), num_pods_hint: int = 0
     ) -> List[Optional[str]]:
+        if not self.breaker.allow_device():
+            return self._host_fallback(
+                pending, lock=lock, reservations=reservations).names()
         snap, meta = self.encode_pending(
             pending, lock=lock, reservations=reservations,
             num_pods_hint=num_pods_hint,
         )
         return self.solve_encoded(snap, meta)
+
+    # -- degraded mode (the circuit breaker's fallback) --------------------
+
+    def _host_fallback(
+        self,
+        pending: Sequence[api.Pod],
+        lock=None,
+        reservations: Sequence[Tuple[str, api.Pod]] = (),
+    ) -> HostSolve:
+        """Solve one batch on the host: testing/oracle.py's per-pod exact
+        evaluation over the state's retained node and pod objects, with
+        the solves' gang all-or-nothing post-pass mirrored on the host.
+        On healthy state with the default weights the oracle places as
+        the scan does, so an open breaker costs throughput, not placement
+        quality.  Nominated reservations are accounted as bound pods on
+        their nominated nodes.  Logged and counted in breaker.fallbacks."""
+        t0 = time.perf_counter()
+        with lock if lock is not None else contextlib.nullcontext():
+            state = self.state
+            nodes = [state._node_objs[name] for name in state._rows
+                     if name in state._node_objs]
+            oracle = Oracle(nodes, fit_strategy=self.score_config.fit_strategy,
+                            slice_policy=self.carveout_policy)
+            by_name = {s.node.meta.name: s for s in oracle.states}
+            for key, pod in state._pods.items():
+                ns = by_name.get(state._pod_node.get(key) or pod.spec.node_name)
+                if ns is not None:
+                    ns.add_pod(pod)
+            for node_name, pod in reservations:
+                ns = by_name.get(node_name)
+                if ns is not None:
+                    ns.add_pod(pod)
+            names = oracle.schedule(list(pending))
+        # gang all-or-nothing post-pass (ops.assign _gang_release's host
+        # mirror): an incomplete gang releases every member
+        groups: Dict[str, List[int]] = {}
+        for i, p in enumerate(pending):
+            g = p.spec.scheduling_group
+            if g:
+                groups.setdefault(g, []).append(i)
+        for idx in groups.values():
+            if any(names[i] is None for i in idx):
+                for i in idx:
+                    names[i] = None
+        self.breaker.record_fallback()
+        self.last_result = None  # no reason tensor aligns with these names
+        hs = HostSolve(names)
+        hs.encode_s = time.perf_counter() - t0
+        _log.warning("host fallback solved %d pods in %.3f s (breaker %s)",
+                     len(pending), hs.encode_s, self.breaker.state)
+        return hs
 
     def _gang_admission_retry(
         self,

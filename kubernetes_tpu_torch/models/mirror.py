@@ -29,12 +29,16 @@ the port keeps that contract.  `resync_total`, `delta_rows_total`,
 `delta_syncs`, `grow_syncs` and `grow_rows_total` count as the
 reference's do (real rows; the static and usage families counted apart).
 
+The `mirror.grow` fault point (testing/faults.py) sits in the in-place
+resize: a raised fault declines the resize (a full upload follows), and
+CORRUPT fills the grown `allocatable` with +inf, as the reference's does.
 The reference's `mesh` branches (a node-axis sharded resident) are not
 ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -43,6 +47,7 @@ import torch
 from ..analysis import epochs
 from ..ops import device as device_ops
 from ..ops import schema
+from ..testing import faults
 
 # Leaves of ClusterTensors grouped by which mutation family dirties them
 # (ClusterState._static_gen / _usage_gen).  taint_bits is static too; its
@@ -172,6 +177,12 @@ class DeviceClusterMirror:
             if (old_s[:ax] + old_s[ax + 1:] != new_s[:ax] + new_s[ax + 1:]
                     or old_s[ax] != old_n or new_s[ax] != new_n):
                 return None
+        try:
+            act = faults.fire("mirror.grow", old_n=old_n, new_n=new_n)
+        except faults.FaultInjected:  # an injected grow fault: contained
+            logging.getLogger(__name__).warning(
+                "mirror.grow fault injected; falling back to full resync")
+            return None
         dn = new_n - old_n
         updates = {}
         for f in schema.ClusterTensors._fields:
@@ -182,6 +193,11 @@ class DeviceClusterMirror:
         self.grow_syncs += 1
         if dn > 0:
             self.grow_rows_total += dn
+        if act == faults.CORRUPT:
+            # poison the carried rows so the solve's fit scores go
+            # (inf - req) / inf = NaN: the decode health check trips and
+            # the retry's invalidation heals through a full upload
+            updates["allocatable"] = torch.full_like(updates["allocatable"], float("inf"))
         return schema.ClusterTensors(**updates)
 
     def stats(self) -> dict:

@@ -38,8 +38,12 @@ Resync discipline (the reference's, whole):
     are out of place, so holding the references is the double buffer),
     and invalidate() drops everything.
 
-The reference's `solve.partials` fault point and its `mesh` branches are
-not ported yet.  All state is mutated under the scheduler-cache lock.
+The `solve.partials` fault point (testing/faults.py) fires at the top of
+every sync: a raised fault reaches the scheduler, which invalidates the
+cache and solves that batch cold; CORRUPT poisons the resident affinity
+rows after the epoch stamp (`_poison_aff`).  The reference's `mesh`
+branches are not ported yet.  All state is mutated under the
+scheduler-cache lock.
 """
 
 from __future__ import annotations
@@ -54,9 +58,20 @@ from ..analysis import epochs
 from ..ops import device as device_ops
 from ..ops import partials as pops
 from ..ops import schema
+from ..testing import faults
 from ..utils import vocab as vb
 
 _DOMAIN_LABELS = schema.DOMAIN_LABELS
+
+
+def _poison_aff(store: pops.PartialsStore) -> pops.PartialsStore:
+    """CORRUPT-grade fault: the resident raw-affinity rows as +inf (a fill,
+    plain torch on the store's device).  The per-pod normalisation divides
+    by the feasible-set max — floor(100 * inf / inf) is NaN — so every
+    feasible node's score goes NaN and the decode health check trips
+    (models.batch_scheduler.SolveUnhealthy).  A NaN poison would be
+    squashed: normalize reads a NaN max as not > 0 and zeroes the row."""
+    return store._replace(aff=torch.full_like(store.aff, float("inf")))
 
 
 class PartialsCache:
@@ -92,6 +107,10 @@ class PartialsCache:
         self.rollbacks = 0              # speculation rollbacks
         self.delta_syncs = 0
         self.grows = 0                  # in-place node-axis grows/shrinks
+        # syncs that raised and left their batch to cold statics (the
+        # owner's catch counts them; not in stats(), whose keys are the
+        # reference's)
+        self.sync_failures = 0
         # False reseeds the whole store on any node-axis change (the
         # oracle the elastic-axis tests hold the in-place resize against)
         self.incremental_grow = True
@@ -304,11 +323,12 @@ class PartialsCache:
         class_rep = np.asarray(snap.pods.class_rep)
         c_dim = class_rep.shape[0]
         n_real = int((class_rep >= 0).sum())
+        self.last_launches = {}
+        self.last_sync_bytes = 0
+        act = faults.fire("solve.partials", classes=n_real)
         keys = [self.class_key(snap.pods, int(class_rep[c]), meta) for c in range(n_real)]
         n = int(cluster.allocatable.shape[0])
         vkey = self._vocab_watermark()
-        self.last_launches = {}
-        self.last_sync_bytes = 0
 
         stale = (
             self._store is None
@@ -341,6 +361,12 @@ class PartialsCache:
             "partials", self._struct_gen, self._vocab_key, self._synced_gen,
             cluster_epoch.buffer_id if cluster_epoch is not None else 0,
         )
+        if act == faults.CORRUPT:
+            # poison the RESIDENT partials (a CORRUPT fault poisons
+            # content, not epochs): the warm solve's scores go NaN, the
+            # decode health check trips, and the retry path invalidates
+            # this cache and recomputes in full
+            self._store = _poison_aff(self._store)
         return pops.gather_statics(self._store, slot_arr)
 
     def _slot_order(self, keys: List[tuple], c_dim: int) -> np.ndarray:

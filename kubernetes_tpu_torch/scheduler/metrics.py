@@ -1,8 +1,10 @@
 """Scheduler metrics: the part of kubernetes_tpu/scheduler/metrics.py the
-preemption evaluator records into — the Histogram and Counter classes and
-a Registry carrying the six preemption metrics (metric names as the
-reference's, pkg/scheduler/metrics/metrics.go).  The rest of the Registry
-comes with the scheduler loop.
+ported modules record into — the Histogram, Counter and Gauge classes and
+a Registry carrying the six preemption metrics and the circuit breaker's
+two gauges (metric names as the reference's,
+pkg/scheduler/metrics/metrics.go).  The scheduler loop, which sets the
+gauges from TorchBatchScheduler.breaker each cycle, and the rest of the
+Registry come later.
 """
 
 from __future__ import annotations
@@ -89,8 +91,29 @@ class Counter:
             return sum(self._v.values())
 
 
+class Gauge:
+    def __init__(self, name: str):
+        self.name = name
+        self._v: Dict[Tuple[str, ...], float] = {}
+        self._lock = threading.Lock()
+
+    def set(self, value: float, *labels: str) -> None:
+        with self._lock:
+            self._v[labels] = value
+
+    def get(self, *labels: str) -> float:
+        with self._lock:
+            return self._v.get(labels, 0.0)
+
+    @property
+    def total(self) -> float:
+        """Sum over every label tuple (the bare value when unlabeled)."""
+        with self._lock:
+            return sum(self._v.values())
+
+
 class Registry:
-    """The preemption metrics of one scheduler, by reference name."""
+    """The ported metrics of one scheduler, by reference name."""
 
     def __init__(self):
         self.preemption_victims = Histogram("scheduler_preemption_victims")
@@ -117,3 +140,9 @@ class Registry:
         self.preemption_pdb_blocked_total = Counter(
             "scheduler_preemption_pdb_blocked_total"
         )
+        # -- degraded mode --------------------------------------------------
+        # circuit-breaker state: 0 closed, 1 half-open, 2 open
+        self.solve_breaker_state = Gauge("scheduler_solve_breaker_state")
+        # running total of batches solved on the host fallback path
+        # (mirrored from the breaker each cycle — monotonic)
+        self.solve_fallback_total = Gauge("scheduler_solve_fallback_total")

@@ -44,9 +44,13 @@ A copy of kubernetes_tpu/scheduler/preemption.py on TorchBatchScheduler:
 the batched dry-run is kernel preempt_dry_run, the static slice kernels
 match_terms and pod_filters (ops/preemption.py); every input is copied to
 `tpu.device` through ops/device.py and the pass's results come back in one
-readback.  The kernels are built once, so there is no prewarm hook.  The
-circuit breaker is not ported yet: `getattr(tpu, "breaker", None)` is
-None, so a failed pass falls back without recording a failure.
+readback.  The kernels are built once, so there is no prewarm hook.
+`tpu.breaker` is the scheduler's SolveCircuitBreaker: a batched pass that
+fails twice trips it, and while it is open every pass runs the per-pod
+path (kernel preempt_dry_run's second entry, the port of
+`dry_run_victims`).  On the card only an injected fault and a corrupt
+result (SolveUnhealthy) take that path; a kernel or CUDA error re-raises
+(models/batch_scheduler.py solve_fault_recoverable).
 """
 
 from __future__ import annotations
@@ -61,7 +65,8 @@ import torch
 
 from ..api import store as st
 from ..api import types as api
-from ..models.batch_scheduler import TorchBatchScheduler
+from ..models.batch_scheduler import (
+    SolveUnhealthy, TorchBatchScheduler, solve_fault_recoverable)
 from ..ops import device as device_ops
 from ..ops import preemption as pre_ops
 from ..ops.filters import pod_view, selector_match, static_filter_row
@@ -244,15 +249,20 @@ class PreemptionEvaluator:
             # per-pod fallback until the breaker closes again
             ctx.fallback = True
             return ctx
+        dev = torch.device(self.tpu.device)
         try:
             self._encode_and_dispatch(ctx, elig)
-        except Exception:  # noqa: BLE001 — batched dispatch fault
+        except Exception as exc:  # noqa: BLE001 — batched dispatch fault
+            if not solve_fault_recoverable(exc, dev):
+                raise
             logging.getLogger(__name__).exception(
                 "batched preemption dry-run failed; retrying once"
             )
             try:
                 self._encode_and_dispatch(ctx, elig)
-            except Exception:  # noqa: BLE001
+            except Exception as exc2:  # noqa: BLE001
+                if not solve_fault_recoverable(exc2, dev):
+                    raise
                 if breaker is not None:
                     breaker.record_failure()
                 logging.getLogger(__name__).exception(
@@ -393,7 +403,7 @@ class PreemptionEvaluator:
             # health check (the breaker's non-finite-score analogue): a
             # structurally-broken result means none of this pass's
             # candidate stats can be trusted
-            raise RuntimeError(
+            raise SolveUnhealthy(
                 "batched preemption dry-run returned out-of-range victim "
                 "counts — result untrusted"
             )
@@ -724,6 +734,19 @@ class PreemptionEvaluator:
         """The sequential per-pod walk (the exact-parity fallback the
         breaker routes to): one ``_pods_by_node`` scan, one single-pod
         static snapshot, one per-pod device dry-run."""
+        got = self._classic_inputs(pod)
+        if got is None:
+            return None
+        ranked, min_k = self._rank(*got)
+        if not ranked:
+            return None
+        return got[0], ranked, min_k
+
+    def _classic_inputs(self, pod: api.Pod):
+        """The per-pod walk's candidates, copied out under the lock and
+        kept where the preemptor passes the static filters: (candidates,
+        their free rows, victim usage by pod key, the pod's request), or
+        None without a candidate."""
         state = self.tpu.state
         prio = pod.spec.priority
         pdbs = self._pdbs()
@@ -779,10 +802,7 @@ class PreemptionEvaluator:
         free_rows = [free_rows[i] for i in keep]
         if not cands:
             return None
-        ranked, min_k = self._rank(cands, free_rows, usage, pod_req)
-        if not ranked:
-            return None
-        return cands, ranked, min_k
+        return cands, free_rows, usage, pod_req
 
     def _pdbs(self) -> List[api.PodDisruptionBudget]:
         if not self.pdb_aware:
@@ -825,22 +845,8 @@ class PreemptionEvaluator:
         — inputs were copied out under the lock); return candidate
         indices ranked most-preferred first (feasible only) plus
         per-candidate victim counts."""
-        r = pod_req.shape[0]
-        c_dim = pad_dim(len(cands), 8)
-        k_dim = pad_dim(max(len(c[2]) for c in cands), 4)
-        free = np.zeros((c_dim, r), dtype=np.float32)
-        victim_req = np.zeros((c_dim, k_dim, r), dtype=np.float32)
-        victim_valid = np.zeros((c_dim, k_dim), dtype=bool)
-        for ci, (row, _, victims, _flags) in enumerate(cands):
-            free[ci] = free_rows[ci]
-            for vi, v in enumerate(victims[:k_dim]):
-                victim_req[ci, vi] = usage[pod_key(v)]
-                victim_valid[ci, vi] = True
-        dev = self.tpu.device
         result = pre_ops.dry_run_victims(
-            *(torch.from_numpy(a).to(dev)
-              for a in (free, victim_req, victim_valid, pod_req.astype(np.float32)))
-        )
+            *self._victim_tables(cands, free_rows, usage, pod_req))
         feasible, min_k = device_ops.readback(result)
         feasible = feasible[: len(cands)]
         min_k = min_k[: len(cands)]
@@ -855,6 +861,25 @@ class PreemptionEvaluator:
                 n_viol[ci] = sum(flags[: int(min_k[ci])])
         ranked = self._order_candidates(cands, feasible, min_k, n_viol)
         return ranked, min_k
+
+    def _victim_tables(self, cands, free_rows, usage, pod_req) -> Tuple[torch.Tensor, ...]:
+        """The per-pod dry-run's inputs on `tpu.device`: (free [C, R],
+        victim_req [C, K, R], victim_valid [C, K], pod_req [R]), C and K
+        padded."""
+        r = pod_req.shape[0]
+        c_dim = pad_dim(len(cands), 8)
+        k_dim = pad_dim(max(len(c[2]) for c in cands), 4)
+        free = np.zeros((c_dim, r), dtype=np.float32)
+        victim_req = np.zeros((c_dim, k_dim, r), dtype=np.float32)
+        victim_valid = np.zeros((c_dim, k_dim), dtype=bool)
+        for ci, (row, _, victims, _flags) in enumerate(cands):
+            free[ci] = free_rows[ci]
+            for vi, v in enumerate(victims[:k_dim]):
+                victim_req[ci, vi] = usage[pod_key(v)]
+                victim_valid[ci, vi] = True
+        dev = self.tpu.device
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in (free, victim_req, victim_valid, pod_req.astype(np.float32)))
 
     def _order_candidates(
         self,

@@ -5,10 +5,12 @@ its store-journal crash harness.
 Named fault points are threaded through the hot path, and each point
 consults the armed registry through one module-level indirection.
 Disarmed — the production state — the check is a single global load and
-an early return.  Only the batched preemption dry-run's point
-(`batch.preemption`, scheduler/preemption.py) is wired in this package so
-far; the solve, partials and mirror points come with the port's circuit
-breaker.
+an early return.  The points wired in this package (KNOWN_POINTS):
+`batch.solve` and `solve.carveout` (models/batch_scheduler.py
+solve_encoded_async), `solve.partials` (models/partials.py sync),
+`mirror.grow` (models/mirror.py _resize_resident) and `batch.preemption`
+(scheduler/preemption.py).  The reference's store, watch, binder, leader
+and serving points come with the scheduler loop.
 
 Schedules are bounded and seeded: a `FaultRegistry(seed=N)` draws every
 probabilistic decision from its own `random.Random(N)`, so a failing
@@ -42,10 +44,30 @@ from typing import Dict, List, Optional
 # against this set so a typo'd point name fails the test loudly instead
 # of silently never firing.
 KNOWN_POINTS = frozenset({
+    # the device solve's dispatch (TorchBatchScheduler.solve_encoded_async):
+    # fail-grade schedules kill the dispatch (retried once, then the
+    # circuit breaker trips to the host fallback); CORRUPT fills the score
+    # tensor with NaN so the decode's health check trips
+    "batch.solve",
     # the batched PostFilter dry-run (one [P, N, K] dispatch per pass);
     # corrupt-grade schedules poison the decoded result so the health
     # check trips and the pass falls back to the per-pod parity path
     "batch.preemption",
+    # a gang carve-out batch dispatched to the device (slice family
+    # armed, gangs present) — fail-grade schedules kill the solve and
+    # ride the batch.solve retry/breaker containment
+    "solve.carveout",
+    # the incremental-solve partials sync (models/partials.py): CORRUPT
+    # poisons the resident affinity rows with +inf so the solve's scores
+    # go NaN and the decode health check trips (the retry recomputes in
+    # full); fail-grade schedules make the batch solve cold instead
+    "solve.partials",
+    # the in-place resident resize at a pad-bucket crossing
+    # (models/mirror.py _resize_resident): fail-grade schedules decline
+    # the resize (a full upload follows); CORRUPT fills the grown
+    # allocatable with +inf so the fit scores go NaN and the decode
+    # health check trips (the retry's invalidation re-uploads in full)
+    "mirror.grow",
 })
 
 # caller-interpreted actions returned by fire()

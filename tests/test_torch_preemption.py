@@ -389,8 +389,8 @@ def test_preempt_batch_fault_parity(mode):
     """An injected failure (or a corrupt result, which the health check
     rejects) on the batched dispatch and its retry: the pass falls back to
     the per-pod path and still equals the sequential loop and the
-    reference.  The reference also trips its solve breaker here; the
-    port's breaker is not ported yet, so that assertion waits for it."""
+    reference, and the shared solve breaker trips in both packages (the
+    reference's tests/test_preemption.py test_preempt_batch_fallback_parity)."""
     out = {}
     for name, pkg in (("ref", REF), ("port", PORT)):
         nodes, bound, preemptors = mixed_cluster(pkg["w"], 300)
@@ -404,9 +404,14 @@ def test_preempt_batch_fault_parity(mode):
                 assert ctx.fallback
                 bat = ev_bat.preempt_batch(preemptors)
         assert reg.fired.get("batch.preemption") == 2
+        br = ev_bat.tpu.breaker
+        assert br.state == br.OPEN and br.trips == 1
         assert_same_outcome(ev_seq, ev_bat, seq, bat)
         out[name] = (ev_bat, bat)
     assert_same_outcome(out["ref"][0], out["port"][0], out["ref"][1], out["port"][1])
+    ref_br, port_br = (out[k][0].tpu.breaker for k in ("ref", "port"))
+    assert (port_br.state, port_br.trips, port_br.fallback_count()) == (
+        ref_br.state, ref_br.trips, ref_br.fallback_count())
 
 
 @pytest.mark.parametrize("batched", [True, False])
