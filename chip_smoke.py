@@ -95,6 +95,20 @@ stdout; with --log also appended to PATH):
              levels, masks that are not prefixes, the mixed parity
              snapshots; whether torch.cumsum would have summed as the
              reference does
+  scan_edges (after preemption_parity)
+             greedy_scan, one thread-block cluster of 2 to 16 blocks (the
+             blocks and their threads at 4,096 / 8,192 / 16,384 / 65,536
+             padded nodes printed), at its cluster's edges, each against
+             its plain version, exact: scan batches of 1 and 16 pods at
+             50,000 nodes (65,536 padded, 16 blocks; the 16-pod batch
+             timed with its bound); 8,192 nodes whose only feasible nodes
+             are the last block's; 8,192 identical nodes (every node ties:
+             node 0 first); and ties that start at node 1,500, inside a
+             block's chunk (node 1,500 first); then a
+             spread auction of 1,500 pods on 2,000 nodes with
+             hostname-keyed hard rows (and zone rows), a value space past
+             auction_spread's shared counter table, round by round and
+             whole against the plain path
   preemption PreemptionBasic/5000Nodes through TorchBatchScheduler() and
              PreemptionEvaluator as the reference's loop drives them: 5,000
              node-default nodes, 20,000 pod-low-priority victims (four a
@@ -863,6 +877,7 @@ def main() -> int:
     overlay_parity(wrappers, TorchBatchScheduler, torch)
     resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch)
     preemption_parity(wrappers, filters, bindings, torch)
+    scan_edges_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch)
 
     # ---- main path: SchedulingBasic/5000Nodes, default route ---------------
     sched = TorchBatchScheduler()
@@ -1035,6 +1050,9 @@ def main() -> int:
     order_ms = cuda_ms(lambda: assign.solve_order(snap_k.pods), 50, torch)
     order_bound = bound(*solve_order_need(snap_k.pods))
     emit({"phase": "kernels", "card": card,
+          "greedy_scan_blocks_threads": {
+              shape: bindings.scan_shape(n)
+              for shape, n in (("B", snap_k.cluster.allocatable.shape[0]), ("C", 64 * 64))},
           "shapes": {"match_terms, class_statics, auction_bids, auction_accept":
                      "SchedulingBasic/5000Nodes measured batch",
                      "greedy_scan": "the same batch, mode=greedy",
@@ -2026,8 +2044,34 @@ def run_wavefront(snap, features, n_groups, cfg, members, assign, bindings, torc
     """Kernel wavefront against its plain version (and the plain scan) on
     CPU copies of the same inputs, exact.  Returns the fallbacks taken, or
     with timed=True the kernel's summary row."""
-    cluster, pods, sfeas, aff, taint, sp_args, tm_args, extra = assign._solver_prep(
-        snap, features, cfg=cfg)
+    kern, plain, prep = wavefront_case(snap, features, n_groups, cfg, members, assign,
+                                       bindings, torch)
+    cluster, pods, sfeas, aff, taint, sp_args, tm_args, extra = prep
+    out = kern()
+    want = plain()
+    err = check_equal("wavefront", out, want, torch)
+    if not timed:
+        c_cl, c_pods, c_sf, c_aff, c_taint = cpu_args((cluster, pods, sfeas, aff, taint), torch)
+        scan = assign.greedy_assign_plain(c_cl, c_pods, c_sf, c_aff, c_taint,
+                                          assign.solve_order(c_pods), features, n_groups, cfg,
+                                          *cpu_args((sp_args, tm_args, extra), torch))
+        check_equal("wavefront (against the scan)", out[:7] + out[9:], scan, torch)
+        return int(out[8])
+    ms = cuda_ms(kern, 10, torch)
+    plain_ms = time_plain(plain, torch)
+    bms, by = bound(*greedy_scan_need(cluster, pods, sfeas, out[2], features, torch, sp_args,
+                                      tm_args, extra, out[0]))
+    return {"name": "wavefront", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by}
+
+
+def wavefront_case(snap, features, n_groups, cfg, members, assign, bindings, torch):
+    """(kern, plain, prep) of the wavefront on a snapshot on the card: the
+    kernel on the solver prep's inputs with the planner's waves
+    `members`, its plain version on CPU copies of the same inputs, and the
+    prep (_solver_prep's tuple)."""
+    prep = assign._solver_prep(snap, features, cfg=cfg)
+    cluster, pods, sfeas, aff, taint, sp_args, tm_args, extra = prep
     m = torch.as_tensor(members, dtype=torch.int32, device=cluster.allocatable.device)
     cpu_in = cpu_args((cluster, pods, sfeas, aff, taint, m, features), torch)
     cpu_fam = cpu_args((sp_args, tm_args, extra), torch)
@@ -2039,22 +2083,28 @@ def run_wavefront(snap, features, n_groups, cfg, members, assign, bindings, torc
     def plain():
         return assign.wavefront_assign_plain(*cpu_in, n_groups, cfg, *cpu_fam)
 
-    out = kern()
-    want = plain()
-    err = check_equal("wavefront", out, want, torch)
-    if not timed:
-        c_cl, c_pods, c_sf, c_aff, c_taint, _m, _f = cpu_in
-        scan = assign.greedy_assign_plain(c_cl, c_pods, c_sf, c_aff, c_taint,
-                                          assign.solve_order(c_pods), features, n_groups, cfg,
-                                          *cpu_fam)
-        check_equal("wavefront (against the scan)", out[:7] + out[9:], scan, torch)
-        return int(out[8])
-    ms = cuda_ms(kern, 10, torch)
-    plain_ms = time_plain(plain, torch)
-    bms, by = bound(*greedy_scan_need(cluster, pods, sfeas, out[2], features, torch, sp_args,
-                                      tm_args, extra, out[0]))
-    return {"name": "wavefront", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by}
+    return kern, plain, prep
+
+
+def scan_case(snap, features, n_groups, cfg, assign, bindings, torch):
+    """(kern, plain, prep) of greedy_scan on a snapshot on the card: the
+    kernel on the solver prep's inputs, its plain version on CPU copies of
+    the same inputs (the gang release adds in pod index order there), and
+    the prep (_solver_prep's tuple)."""
+    prep = assign._solver_prep(snap, features, cfg=cfg)
+    cluster, pods, sfeas, aff, taint, sp_args, tm_args, extra = prep
+    order = assign.solve_order(pods)
+    cpu_in = cpu_args((cluster, pods, sfeas, aff, taint, order, features), torch)
+    cpu_fam = cpu_args((sp_args, tm_args, extra), torch)
+
+    def kern():
+        return bindings.greedy_scan(cluster, pods, sfeas, aff, taint, order, features,
+                                    n_groups, cfg, sp_args, tm_args, extra)
+
+    def plain():
+        return assign.greedy_assign_plain(*cpu_in, n_groups, cfg, *cpu_fam)
+
+    return kern, plain, prep
 
 
 def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
@@ -2121,7 +2171,6 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
                 "auction_spread", (bufs["accept"].bool(), kc), (accept, counts), torch))
         if use_terms:
             kbits = tuple(t.clone() for t in bits)
-            bits_before, accept_before = bits, accept
             bindings.auction_interpod(cluster, pods, st, kbits, state, bufs)
             accept, bits = auction.interpod_repair_plain(accept, bid, st, cluster.topo_ids, bits)
             errs[3] = max(errs[3], check_equal(
@@ -2133,12 +2182,6 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
         errs[1] = max(errs[1], check_equal("auction_accept", (ka, ks, kr, kn), want, torch))
         if int(state[2]) != int(progress) or int(state[0]) != rnd + 1:
             raise AssertionError("auction_accept: round state differs from its plain version")
-        if timed and rnd == 0:
-            rows = time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores,
-                                      bid, val, tie_k, cfg, max_rounds, bufs, auction,
-                                      bindings, torch, counts_before=kc,
-                                      bits_before=bits_before if use_terms else None,
-                                      accept_before=accept_before if use_terms else None)
         assigned, bid_scores, req, nz = (t.to(dev) for t in want)
         rnd += 1
         if not progress:
@@ -2152,6 +2195,8 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
         check_equal("auction rounds (card against CPU)", got, on_cpu, torch)
     if not timed:
         return int(got[4])
+    rows = time_auction_round(auction_round_inputs(snap, cfg, tie_k, auction, bindings, torch),
+                              auction, bindings, torch)
     err_of = {"auction_bids": errs[0], "auction_accept": errs[1], "auction_spread": errs[2],
               "auction_interpod": errs[3]}
     for row in rows:
@@ -2159,27 +2204,58 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     return rows
 
 
-def time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores, bid, val,
-                       tie_k, cfg, max_rounds, bufs, auction, bindings, torch,
-                       counts_before=None, bits_before=None, accept_before=None):
-    """CUDA-event times of one round of each auction kernel (the state is
-    reset before every launch, so each runs the round; with a repair
-    family auction_accept's two stages together, auction_spread on the
-    round's accepted set and the counts before it, auction_interpod on
-    the set the spread repair kept and the bits before it) and host times
-    of their plain versions (auction_accept's on CPU copies: its commit
-    adds in pod index order), with their bounds."""
-    dev = req.device
-    go = bindings.auction_state(0, True, dev)
+def auction_round_inputs(snap, cfg, tie_k, auction, bindings, torch) -> dict:
+    """Round 0 of the auction on a snapshot on the card, along the plain
+    trajectory (the values run_auction reaches at its first round): the
+    round's bids and accepted set, with a repair family the counts after
+    the spread repair's commit, and the bits and the set it kept before the
+    inter-pod repair.  The inputs round_kernels launches on."""
+    n = snap.cluster.allocatable.shape[0]
+    tie_k = min(auction.default_tie_k(snap) if tie_k is None else tie_k, n)
+    cluster, pods, st = auction.auction_prep(snap, cfg=cfg)
+    use_spread, use_terms = st.features.spread, st.features.interpod
+    p = pods.req.shape[0]
+    dev = cluster.allocatable.device
+    assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    bid_scores = torch.full((p,), float("-inf"), device=dev)
+    req, nz = cluster.requested, cluster.nonzero_requested
+    counts = st.sp.state.counts_node.clone() if use_spread else None
+    bits = auction.term_bits_copy(st.tm, st.features)
+    bufs = bindings.auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None,
+                                    st.tm if use_terms else None)
+    bid, val = auction.auction_bids_plain(cluster, pods, st, req, nz, assigned, 0, tie_k, cfg,
+                                          counts, bits)
+    accepted = auction.auction_decide_plain(cluster.allocatable, pods, st.order, bid, req)
+    kept, counts_before = accepted, None
+    if use_spread:
+        kept, counts_before = auction.spread_repair_plain(accepted, bid, counts, st,
+                                                          cluster.topo_ids)
+    return {"cluster": cluster, "pods": pods, "st": st, "req": req, "nz": nz,
+            "assigned": assigned, "bid_scores": bid_scores, "bid": bid, "val": val,
+            "accepted": accepted, "tie_k": tie_k, "cfg": cfg, "max_rounds": 64, "bufs": bufs,
+            "counts_before": counts_before, "bits_before": bits if use_terms else None,
+            "accept_before": kept if use_terms else None}
+
+
+def round_kernels(inp: dict, bindings) -> dict:
+    """One round of each auction kernel on auction_round_inputs' values, as
+    a closure by name (the state is reset before every launch, so each call
+    runs the round): auction_bids; auction_accept's stages together; with
+    spread, auction_spread on the round's accepted set and the counts
+    before it; with inter-pod, auction_interpod on the set the spread
+    repair kept and the bits before it."""
+    cluster, pods, st, bufs = inp["cluster"], inp["pods"], inp["st"], inp["bufs"]
+    req, nz, assigned, bid_scores = inp["req"], inp["nz"], inp["assigned"], inp["bid_scores"]
+    bid, val, counts_before = inp["bid"], inp["val"], inp["counts_before"]
+    bits_before, max_rounds = inp["bits_before"], inp["max_rounds"]
+    go = bindings.auction_state(0, True, req.device)
     state = go.clone()
-    use_spread = counts_before is not None
-    use_terms = bits_before is not None
-    split = use_spread or use_terms
+    split = counts_before is not None or bits_before is not None
 
     def k_bids():
         state.copy_(go)
-        return bindings.auction_bids(cluster, pods, st, req, nz, assigned, state, tie_k, cfg,
-                                     bufs, counts_before, bits_before)
+        return bindings.auction_bids(cluster, pods, st, req, nz, assigned, state, inp["tie_k"],
+                                     inp["cfg"], bufs, counts_before, bits_before)
 
     kr, kn, ka, ks = req.clone(), nz.clone(), assigned.clone(), bid_scores.clone()
 
@@ -2193,8 +2269,46 @@ def time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores, bid, va
             bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka,
                                     ks, state, max_rounds, bufs, stage=stage)
 
-    bids_ms = cuda_ms(k_bids, 20, torch)
-    accept_ms = cuda_ms(k_accept, 20, torch)
+    out = {"auction_bids": k_bids, "auction_accept": k_accept}
+    # the round's bids, as auction_bids leaves them in bufs["bid"]
+    bufs["bid"].copy_(bid)
+    if counts_before is not None:
+        kc = counts_before.clone()
+
+        def k_spread():
+            state.copy_(go)
+            bufs["accept"].copy_(inp["accepted"])
+            kc.copy_(counts_before)
+            bindings.auction_spread(cluster, pods, st, kc, state, bufs)
+            return bufs["accept"].bool(), kc
+
+        out["auction_spread"] = k_spread
+    if bits_before is not None:
+        kbits = tuple(t.clone() for t in bits_before)
+
+        def k_interpod():
+            state.copy_(go)
+            bufs["accept"].copy_(inp["accept_before"])
+            for t, t0 in zip(kbits, bits_before):
+                t.copy_(t0)
+            bindings.auction_interpod(cluster, pods, st, kbits, state, bufs)
+
+        out["auction_interpod"] = k_interpod
+    return out
+
+
+def time_auction_round(inp: dict, auction, bindings, torch) -> list:
+    """CUDA-event times of one round of each auction kernel (round_kernels
+    on auction_round_inputs' values) and host times of their plain
+    versions (auction_accept's on CPU copies: its commit adds in pod index
+    order), with their bounds."""
+    cluster, pods, st = inp["cluster"], inp["pods"], inp["st"]
+    req, nz, assigned, bid_scores = inp["req"], inp["nz"], inp["assigned"], inp["bid_scores"]
+    bid, val, tie_k, cfg = inp["bid"], inp["val"], inp["tie_k"], inp["cfg"]
+    counts_before, bits_before = inp["counts_before"], inp["bits_before"]
+    kern = round_kernels(inp, bindings)
+    bids_ms = cuda_ms(kern["auction_bids"], 20, torch)
+    accept_ms = cuda_ms(kern["auction_accept"], 20, torch)
     bids_plain = time_plain(lambda: auction.auction_bids_plain(
         cluster, pods, st, req, nz, assigned, 0, tie_k, cfg, counts_before, bits_before), torch)
     c_alloc, c_pods, c_order, c_bid, c_val, c_req, c_nz, c_as, c_bs = cpu_args(
@@ -2210,35 +2324,17 @@ def time_auction_round(cluster, pods, st, req, nz, assigned, bid_scores, bid, va
         {"name": "auction_accept", "ms": accept_ms, "plain_ms": accept_plain,
          "bound_ms": b2[0], "bound_by": b2[1]},
     ]
-    if use_spread:
-        accepted = auction.auction_decide_plain(cluster.allocatable, pods, st.order, bid, req)
-        kc = counts_before.clone()
-        bufs["bid"].copy_(bid)
-
-        def k_spread():
-            state.copy_(go)
-            bufs["accept"].copy_(accepted)
-            kc.copy_(counts_before)
-            bindings.auction_spread(cluster, pods, st, kc, state, bufs)
-
-        spread_ms = cuda_ms(k_spread, 20, torch)
+    if counts_before is not None:
+        accepted = inp["accepted"]
+        spread_ms = cuda_ms(kern["auction_spread"], 20, torch)
         spread_plain = time_plain(lambda: auction.spread_repair_plain(
             accepted, bid, counts_before, st, cluster.topo_ids), torch)
         b3 = bound(*auction_spread_need(st, accepted, bid, counts_before, torch))
         rows.append({"name": "auction_spread", "ms": spread_ms, "plain_ms": spread_plain,
                      "bound_ms": b3[0], "bound_by": b3[1]})
-    if use_terms:
-        kbits = tuple(t.clone() for t in bits_before)
-        bufs["bid"].copy_(bid)
-
-        def k_interpod():
-            state.copy_(go)
-            bufs["accept"].copy_(accept_before)
-            for t, t0 in zip(kbits, bits_before):
-                t.copy_(t0)
-            bindings.auction_interpod(cluster, pods, st, kbits, state, bufs)
-
-        interpod_ms = cuda_ms(k_interpod, 20, torch)
+    if bits_before is not None:
+        accept_before = inp["accept_before"]
+        interpod_ms = cuda_ms(kern["auction_interpod"], 20, torch)
         interpod_plain = time_plain(lambda: auction.interpod_repair_plain(
             accept_before, bid, st, cluster.topo_ids, bits_before), torch)
         b4 = bound(*auction_interpod_need(st, accept_before, bid, bits_before, cluster, torch))
@@ -2327,6 +2423,164 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
         rows.append({"name": name, "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by})
     return rows
+
+
+# ---- the inputs of the timed shapes (kernel_ab.py builds from these too) ----
+
+# scan batches at the north star's width: 50,000 nodes (65,536 padded);
+# under WAVEFRONT_MIN_PODS, so the scan is the reference's own route
+WIDE = (NORTH[0], 1, 16)
+# the cluster-edge clusters: 8,192 nodes, 8,192 padded (8 blocks of 1,024)
+EDGE_NODES, EDGE_PODS = 8192, 16
+
+
+def basic_snapshot(wrappers, TorchBatchScheduler):
+    """Shape B: SchedulingBasic/5000Nodes' measured batch after the init
+    pods were scheduled (the auction) and assumed — the state and pods of
+    the main and greedy phases.  Returns (scheduler, snapshot, meta)."""
+    sched = TorchBatchScheduler()
+    for node in make_cluster(wrappers, MAIN[0]):
+        sched.add_node(node)
+    init = make_pods(wrappers, MAIN[1], "init")
+    for pod, name in zip(init, sched.schedule_pending(init)):
+        sched.assume(pod, name)
+    return (sched, *sched.encode_pending(make_pods(wrappers, MAIN[2], "measured")))
+
+
+def spread_snapshot(wrappers, TorchBatchScheduler):
+    """Shape T: TopologySpreading/5000Nodes' measured batch after the 5,000
+    init pods (the spread phase's default route).  Returns (scheduler,
+    snapshot, meta)."""
+    from kubernetes_tpu_torch.testing.cases import topology_spreading_objects
+
+    nodes, init, measured = topology_spreading_objects(wrappers, *SPREAD)
+    sched = TorchBatchScheduler()
+    for node in nodes:
+        sched.add_node(node)
+    for pod, name in zip(init, sched.schedule_pending(init)):
+        sched.assume(pod, name)
+    return (sched, *sched.encode_pending(measured))
+
+
+def affinity_snapshot(wrappers, TorchBatchScheduler):
+    """Shape W: SchedulingNodeAffinity/5000Nodes' first measured 500-pod
+    batch after the init pods (the wavefront phase's).  Returns
+    (scheduler, snapshot, meta)."""
+    sched = TorchBatchScheduler()
+    for node in make_cluster(wrappers, AFFINITY[0]):
+        sched.add_node(node)
+    init = affinity_pods(wrappers, AFFINITY[1], "aff-init")
+    for lo in range(0, len(init), AFFINITY_BATCH):
+        batch = init[lo : lo + AFFINITY_BATCH]
+        for pod, name in zip(batch, sched.schedule_pending(batch)):
+            sched.assume(pod, name)
+    measured = affinity_pods(wrappers, AFFINITY[2], "aff-measured")
+    return (sched, *sched.encode_pending(measured[:AFFINITY_BATCH]))
+
+
+def wide_snapshot(wrappers, TorchBatchScheduler, n_pods: int):
+    """Shape L (16 pods): an n_pods-pod SchedulingBasic batch onto 50,000
+    node-default nodes, 65,536 padded.  Returns (scheduler, snapshot, meta)."""
+    sched = TorchBatchScheduler()
+    for node in make_cluster(wrappers, WIDE[0]):
+        sched.add_node(node)
+    return (sched, *sched.encode_pending(make_pods(wrappers, n_pods, f"wide{n_pods}")))
+
+
+def edge_cluster(wrappers, cpu_of):
+    """EDGE_NODES node-default nodes, node i with cpu_of(i) millicores."""
+    gi = wrappers.GI
+    return [
+        wrappers.make_node(f"edge-{i}")
+        .capacity(cpu_milli=cpu_of(i), mem=NODE_MEM_GI * gi, pods=NODE_PODS)
+        .zone(f"zone-{i % ZONES}")
+        .obj()
+        for i in range(EDGE_NODES)
+    ]
+
+
+def scan_edges_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch):
+    """greedy_scan at its cluster's edges and auction_spread with its
+    global counter table, each against its plain version, exact: scan
+    batches of 1 and 16 pods at 50,000 nodes (the widest cluster); a
+    cluster whose only feasible nodes are the last block's; a
+    uniform cluster where every node ties (the first index wins across
+    blocks) and one whose ties start at node 1,500, inside a chunk; a spread
+    auction with hostname-keyed hard rows (a value space past the shared
+    counter table)."""
+    cfg = assign.DEFAULT_SCORE_CONFIG
+    blocks = {f"{n} padded nodes": bindings.scan_shape(n) for n in (4096, 8192, 16384, 65536)}
+    if min(b for b, _t in blocks.values()) < 2:
+        raise AssertionError(f"greedy_scan: a single-block launch {blocks}")
+    out = {"phase": "scan_edges", "greedy_scan_blocks_threads": blocks, "cases": []}
+
+    def check_scan(what, snap, meta, first=None, timed=False):
+        if meta.route != "greedy":
+            raise AssertionError(f"scan_edges/{what}: route {meta.route}")
+        kern, plain, prep = scan_case(snap, meta.features, meta.n_groups, cfg, assign, bindings,
+                                      torch)
+        got = kern()
+        t0 = time.perf_counter()
+        want = plain()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = check_equal(f"greedy_scan ({what})", got, want, torch)
+        n = snap.cluster.allocatable.shape[0]
+        picks = got[0].cpu()
+        if first is not None and int(picks[0]) != first:
+            raise AssertionError(f"scan_edges/{what}: first pick {int(picks[0])} != {first}")
+        case = {"case": what, "padded_nodes": n, "padded_pods": int(picks.numel()),
+                "blocks": bindings.scan_shape(n)[0], "placed": int((picks >= 0).sum()),
+                "first_pick": int(picks[0])}
+        if timed:   # shape L: the north star's width on the scan
+            cluster, pods, sfeas = prep[:3]
+            bms, by = bound(*greedy_scan_need(cluster, pods, sfeas, got[2], meta.features, torch))
+            case.update(max_abs_err=err, ms=cuda_ms(kern, 20, torch), plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by)
+        out["cases"].append(case)
+
+    for n_pods in WIDE[1:]:
+        _s, snap, meta = wide_snapshot(wrappers, TorchBatchScheduler, n_pods)
+        check_scan(f"{n_pods} pods at {WIDE[0]} nodes", snap, meta, timed=n_pods == WIDE[2])
+    pods = make_pods(wrappers, EDGE_PODS, "edge")
+    last = bindings.scan_shape(EDGE_NODES)[0] - 1
+    owned = [bindings.scan_node_block(EDGE_NODES, i) == last for i in range(EDGE_NODES)]
+    for what, cpu_of, first in (
+        ("feasible only in the last block", lambda i: NODE_CPU_MILLI if owned[i] else 50,
+         owned.index(True)),
+        ("every node ties", lambda i: NODE_CPU_MILLI, 0),
+        ("ties from node 1,500 (mid-chunk)", lambda i: NODE_CPU_MILLI if i >= 1500 else 2000,
+         1500),
+    ):
+        sched = TorchBatchScheduler()
+        for node in edge_cluster(wrappers, cpu_of):
+            sched.add_node(node)
+        check_scan(what, *sched.encode_pending(pods), first=first)
+
+    # hostname-keyed hard rows: each node its own domain, so the value space
+    # is the node axis and the rank walk counts in the global [C, Z] table
+    api = wrappers.api
+    host_pods = []
+    for i in range(1500):
+        w = wrappers.make_pod(f"host-{i}").req(cpu_milli=POD_CPU_MILLI,
+                                               mem=POD_MEM_MI * wrappers.MI)
+        if i % 5:
+            w = w.label("color", "blue")
+        w = w.spread(1, api.LABEL_HOSTNAME, "DoNotSchedule", {"color": "blue"})
+        if i % 3 == 0:
+            w = w.spread(3, api.LABEL_ZONE, "DoNotSchedule", {"color": "blue"})
+        host_pods.append(w.obj())
+    sched = TorchBatchScheduler()
+    for node in make_cluster(wrappers, 2000, "host"):
+        sched.add_node(node)
+    snap, meta = sched.encode_pending(host_pods)
+    z = auction.auction_prep(snap, cfg=cfg)[2].sp.z
+    if meta.route != "auction" or not meta.features.spread or z <= bindings.SPREAD_SHARED_Z:
+        raise AssertionError(f"scan_edges/hostname spread: route {meta.route}, value space {z}")
+    rounds = run_auction(snap, cfg, meta.tie_k, auction, bindings, torch)
+    out["hostname_spread"] = {"nodes": 2000, "pods": len(host_pods), "value_space": int(z),
+                              "shared_table": bindings.SPREAD_SHARED_Z, "rounds": rounds}
+    emit(out)
+    return out
 
 
 # ---- the residents: the mirror and the warm partials ------------------------
@@ -2888,26 +3142,11 @@ def slices_phase(wrappers, TorchBatchScheduler, assign, filters, dv, bindings, t
                 s.add_node(node)
         stats = {"completed": 0, "contiguous": 0, "fallbacks": 0, "carveouts": 0,
                  "placed": 0, "arrived": 0}
-        walls, frags, cpu_walls = [], [], []
+        frags, round_walls = [], {}
 
         def run():
             for r in range(C10_ROUNDS):
-                names = {}
-                for d, s in pair.items():
-                    if r:
-                        for members in churn[d].depart(live[d]):
-                            for pod, _n in members:
-                                s.forget(pod)
-                    pods = churn[d].round_pods(r)
-                    if d == "cuda":
-                        torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    names[d] = s.schedule_pending(pods)
-                    (walls if d == "cuda" else cpu_walls).append(time.perf_counter() - t)
-                    for pod, n in zip(pods, names[d]):
-                        if n is not None:
-                            s.assume(pod, n)
-                    live[d].extend(churn[d].placed_gangs(pods, names[d]))
+                names = c10_round(pair, churn, live, r, torch, round_walls)
                 card_s, cpu_s = pair["cuda"], pair["cpu"]
                 if card_s.metas[-1].route != "greedy":
                     raise AssertionError(f"slices/{policy} round {r}: route "
@@ -2933,6 +3172,7 @@ def slices_phase(wrappers, TorchBatchScheduler, assign, filters, dv, bindings, t
                 frags.append(tele[0])
 
         _, launches = drive_phase(f"slices/{policy}", run, bindings, [pair["cuda"]])
+        walls, cpu_walls = round_walls["cuda"], round_walls["cpu"]
         for k, v in launches.items():
             launches_all[k] = launches_all.get(k, 0) + v
         final = slices_ops.fragmentation_report(pair["cuda"].state.tensors())
@@ -2953,6 +3193,47 @@ def slices_phase(wrappers, TorchBatchScheduler, assign, filters, dv, bindings, t
     out["kernels_c10"] = rows
     emit(out)
     return rows, launches_all
+
+
+def c10_round(scheds, churns, lives, r, torch, walls=None) -> dict:
+    """Round r of c10 on each scheduler (the three dicts keyed alike, "cuda"
+    for the card's): from the second round on, half the live gangs leave
+    first (seed 10); then the round's 208 pods are scheduled and every
+    placement assumed.  Returns each scheduler's names; with `walls`,
+    appends each schedule_pending's seconds under its key."""
+    names = {}
+    for d, s in scheds.items():
+        if r:
+            for members in churns[d].depart(lives[d]):
+                for pod, _n in members:
+                    s.forget(pod)
+        pods = churns[d].round_pods(r)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        names[d] = s.schedule_pending(pods)
+        if walls is not None:
+            walls.setdefault(d, []).append(time.perf_counter() - t)
+        for pod, n in zip(pods, names[d]):
+            if n is not None:
+                s.assume(pod, n)
+        lives[d].extend(churns[d].placed_gangs(pods, names[d]))
+    return names
+
+
+def c10_timed_snapshot(wrappers, TorchBatchScheduler, torch, policy: str = "prefer"):
+    """Shape C: c10's pending batch after its six rounds on the card (the
+    slices phase's timed batch), as (snapshot, meta)."""
+    from kubernetes_tpu_torch.testing import cases
+
+    sched = {"cuda": TorchBatchScheduler(carveout_policy=policy)}
+    churn = {"cuda": cases.SliceChurn(wrappers)}
+    live = {"cuda": []}
+    for node in churn["cuda"].nodes():
+        sched["cuda"].add_node(node)
+    for r in range(C10_ROUNDS):
+        c10_round(sched, churn, live, r, torch)
+    return sched["cuda"].encode_pending(churn["cuda"].round_pods(C10_ROUNDS))
 
 
 def _pod_json(name, labels=None, image="", spec=None):

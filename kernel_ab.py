@@ -1,17 +1,34 @@
-"""Time the greedy_scan kernel built from two sources, in one run on one card.
+"""Time one kernel built from two sources, in one run on one card.
 
-    python3 kernel_ab.py OTHER_SOURCE.cu
+    python3 kernel_ab.py KERNEL OTHER_CSRC_DIR [SHAPE]
 
-Builds kubernetes_tpu_torch/csrc/greedy_scan.cu ("change") and
-OTHER_SOURCE.cu ("other", for example the same file of another commit,
-unpacked with `git archive` into a git-ignored directory) with build.py's
-flags, each into its own library.  Both must keep greedy_scan's C
-interface.  The input is chip_smoke.py's greedy phase: the measured
-1,000-pod batch of SchedulingBasic/5000Nodes after its 1,000 init pods.
-The two libraries run in the order other, change, change, other, twice;
-each time is the mean of CUDA events around 5 launches after a warm-up.
-Both outputs must equal the plain scan's.  Prints the card's name and
-power limit, then one JSON object with every time.
+KERNEL and its shapes (the first is the default):
+
+  greedy_scan     B  SchedulingBasic/5000Nodes' measured batch (8,192
+                     padded nodes, 1,024 pods; the greedy phase's state)
+                  C  c10's batch after its six rounds (4,096 nodes, 256
+                     padded pods, 26 gangs; the slices phase's timed batch)
+                  L  16 pods onto 50,000 nodes (65,536 padded; the scan is
+                     the reference's route for a batch this small)
+  auction_spread  T  one round of TopologySpreading/5000Nodes' measured
+                     batch (round 0's accepted set, 2,048 padded pods)
+  wavefront       W  SchedulingNodeAffinity/5000Nodes' first measured
+                     500-pod batch, the planner's waves
+  auction_bids    B  one bidding round of SchedulingBasic/5000Nodes'
+                     measured batch
+
+Builds kubernetes_tpu_torch/csrc/KERNEL.cu ("change") and
+OTHER_CSRC_DIR/KERNEL.cu ("other") with build.py's flags plus -Xptxas -v,
+each with its own directory's headers into its own library: pass a whole
+csrc/ directory, for example another commit's unpacked with `git archive`
+into a git-ignored directory.  Both must keep KERNEL's C interface.  The
+inputs come from chip_smoke.py's builders of the timed shapes.  Both
+outputs must equal the plain version's on the same inputs.  The two
+libraries run in the order other, change, change, other, twice; each time
+is the mean of CUDA events around a shape's launches after a warm-up.
+Prints the card's name and power limit, then one JSON object with every
+time, the scan's cluster blocks at the shape and each library's ptxas
+report (registers, shared memory, spills).
 """
 
 from __future__ import annotations
@@ -19,82 +36,134 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 import chip_smoke
 
+# kernel -> shape -> (launches a timing, what the shape is)
+SHAPES = {
+    "greedy_scan": {
+        "B": (5, "SchedulingBasic/5000Nodes measured batch, the scan"),
+        "C": (10, "c10 batch after six rounds (4,096 nodes, 256 padded pods), the scan"),
+        "L": (20, "16 pods onto 50,000 nodes (65,536 padded), the scan"),
+    },
+    "auction_spread": {"T": (20, "TopologySpreading/5000Nodes measured batch, round 0")},
+    "wavefront": {"W": (10, "SchedulingNodeAffinity/5000Nodes first measured batch")},
+    "auction_bids": {"B": (20, "SchedulingBasic/5000Nodes measured batch, round 0")},
+}
 
-def build_library(src: Path, out_dir: Path) -> ctypes.CDLL:
+
+def build_library(kernel: str, csrc: Path, out_dir: Path) -> tuple:
+    """(library, ptxas report lines) of csrc/KERNEL.cu built with csrc's
+    own headers."""
     from kubernetes_tpu_torch.kernels import build
 
+    src = csrc / f"{kernel}.cu"
+    flags = (*build.NVCC_FLAGS, "-Xptxas", "-v")
     digest = hashlib.sha256(
         src.read_bytes()
-        + b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
-        + " ".join(build.NVCC_FLAGS).encode()
+        + b"".join(h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
+        + " ".join(flags).encode()
     ).hexdigest()[:16]
-    out = out_dir / f"libgreedy_scan-{digest}.so"
-    if not out.exists():
-        subprocess.run(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(src.parent),
-             "-o", str(out), str(src)],
-            check=True,
-        )
+    out = out_dir / f"lib{kernel}-{digest}.so"
+    proc = subprocess.run([build.nvcc_path(), *flags, "-I", str(csrc), "-o", str(out), str(src)],
+                          capture_output=True, text=True, check=True)
+    report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     lib = ctypes.CDLL(str(out))
-    lib.greedy_scan_error_string.restype = ctypes.c_char_p
-    lib.greedy_scan_error_string.argtypes = [ctypes.c_int]
-    return lib
+    err = getattr(lib, f"{kernel}_error_string")
+    err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return lib, report
+
+
+def make_case(kernel: str, shape: str, torch):
+    """(kern, want, view, n): the kernel's launch on the shape's inputs, its
+    plain version's result, the part of the launch's result that the plain
+    version gives, and the padded node axis."""
+    from kubernetes_tpu_torch.kernels import bindings
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.ops import assign, auction
+    from kubernetes_tpu_torch.testing import wrappers
+
+    if kernel == "greedy_scan":
+        if shape == "C":
+            snap, meta = chip_smoke.c10_timed_snapshot(wrappers, TorchBatchScheduler, torch)
+            cfg = assign.DEFAULT_SCORE_CONFIG
+        else:
+            build = chip_smoke.basic_snapshot if shape == "B" else (
+                lambda w, t: chip_smoke.wide_snapshot(w, t, chip_smoke.WIDE[2]))
+            sched, snap, meta = build(wrappers, TorchBatchScheduler)
+            cfg = sched.score_config
+        kern, plain, _prep = chip_smoke.scan_case(snap, meta.features, meta.n_groups, cfg,
+                                                  assign, bindings, torch)
+        return kern, plain(), lambda got: got, snap.cluster.allocatable.shape[0]
+    if kernel == "wavefront":
+        sched, snap, meta = chip_smoke.affinity_snapshot(wrappers, TorchBatchScheduler)
+        kern, plain, _prep = chip_smoke.wavefront_case(
+            snap, meta.features, meta.n_groups, sched.score_config, meta.wave_plan.members,
+            assign, bindings, torch)
+        return kern, plain(), lambda got: got, snap.cluster.allocatable.shape[0]
+    build = chip_smoke.spread_snapshot if kernel == "auction_spread" else chip_smoke.basic_snapshot
+    sched, snap, meta = build(wrappers, TorchBatchScheduler)
+    inp = chip_smoke.auction_round_inputs(snap, sched.score_config, meta.tie_k, auction,
+                                          bindings, torch)
+    kern = chip_smoke.round_kernels(inp, bindings)[kernel]
+    if kernel == "auction_spread":
+        want = auction.spread_repair_plain(inp["accepted"], inp["bid"], inp["counts_before"],
+                                           inp["st"], inp["cluster"].topo_ids)
+        return kern, want, lambda got: got, snap.cluster.allocatable.shape[0]
+    want = (inp["bid"], inp["val"])
+    return kern, want, lambda got: got[:2], snap.cluster.allocatable.shape[0]
 
 
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (3, 4) or sys.argv[1] not in SHAPES:
         print(__doc__, file=sys.stderr)
+        return 2
+    kernel, other_dir = sys.argv[1], Path(sys.argv[2]).resolve()
+    shape = sys.argv[3] if len(sys.argv) == 4 else next(iter(SHAPES[kernel]))
+    if shape not in SHAPES[kernel]:
+        print(f"kernel_ab: {kernel} has shapes {sorted(SHAPES[kernel])}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 3
     from kubernetes_tpu_torch.kernels import bindings, build
-    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
-    from kubernetes_tpu_torch.ops import assign
-    from kubernetes_tpu_torch.testing import wrappers
 
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {
-        "change": build_library(build.CSRC_DIR / "greedy_scan.cu", out_dir),
-        "other": build_library(Path(sys.argv[1]).resolve(), out_dir),
-    }
+    change, change_report = build_library(kernel, build.CSRC_DIR, out_dir)
+    other, other_report = build_library(kernel, other_dir, out_dir)
+    # the other library is bound here, so the package's check of its own
+    # build's limits (greedy_scan_limits, ...) is not asked of it
+    fn = getattr(other, f"{kernel}_launch")
+    fn.restype, fn.argtypes = ctypes.c_int, bindings._ARGTYPES[kernel]
+    libs = {"change": change, "other": other}
 
-    sched = TorchBatchScheduler(mode="greedy", use_wavefront=False)
-    for node in chip_smoke.make_cluster(wrappers, chip_smoke.MAIN[0]):
-        sched.add_node(node)
-    init_pods = chip_smoke.make_pods(wrappers, chip_smoke.MAIN[1], "init")
-    for pod, name in zip(init_pods, sched.schedule_pending(init_pods)):
-        sched.assume(pod, name)
-    snap, meta = sched.encode_pending(
-        chip_smoke.make_pods(wrappers, chip_smoke.MAIN[2], "measured"))
-    cluster, pods, sfeas, aff, taint = assign._solver_prep(snap, meta.features)[:5]
-    order = assign.solve_order(pods)
-    args = (cluster, pods, sfeas, aff, taint, order, meta.features, meta.n_groups,
-            sched.score_config)
-    want = assign.greedy_assign_plain(*args)
-
-    def run(which):
-        build._libs["greedy_scan"] = libs[which]
-        out = bindings.greedy_scan(*args)
-        chip_smoke.check_equal(f"greedy_scan ({which})", out, want, torch)
-        return chip_smoke.cuda_ms(lambda: bindings.greedy_scan(*args), 5, torch)
-
+    iters, workload = SHAPES[kernel][shape]
+    build.build_all()   # the kernels that prepare the inputs
+    kern, want, view, n_nodes = make_case(kernel, shape, torch)
     times = {"other": [], "change": []}
     for which in ("other", "change", "change", "other") * 2:
-        times[which].append(run(which))
+        build._libs[kernel] = libs[which]
+        chip_smoke.check_equal(f"{kernel} ({which})", view(kern()), want, torch)
+        times[which].append(chip_smoke.cuda_ms(kern, iters, torch))
+    build._libs[kernel] = change
+    result = {"kernel": kernel, "shape": shape, "workload": workload,
+              "other_source": str(other_dir), "launches_a_timing": iters, "ms": times,
+              "median_ms": {k: statistics.median(v) for k, v in times.items()},
+              "equal_plain": True,
+              "ptxas": {"change": change_report, "other": other_report}}
+    if kernel == "greedy_scan":
+        result["padded_nodes"] = n_nodes
+        result["cluster_blocks"], result["block_threads"] = bindings.scan_shape(n_nodes)
     print(chip_smoke.card_line(), flush=True)
-    print(json.dumps({"kernel": "greedy_scan", "workload":
-                      "SchedulingBasic/5000Nodes measured batch, mode=greedy",
-                      "other_source": sys.argv[1], "ms": times}), flush=True)
+    print(json.dumps(result), flush=True)
     return 0
 
 

@@ -17,31 +17,71 @@
 // Bound on this card: latency of the sequential chain.  Pod k+1 must see
 // pod k's placement, so the P steps run one after another; each step is
 // two passes over the N nodes (about 60 bytes a node from L2: the class
-// row, allocatable, requested and nonzero-requested) plus four block-wide
-// reductions.  The bytes the function must move (its inputs once, its
-// outputs once) take tens of microseconds at the card's memory rate; the
-// chain of P dependent steps, each bounded by one SM's L2 bandwidth and
-// barrier latency, is what this design pays.
+// row, allocatable, requested and nonzero-requested) plus the reductions
+// that end each pass.  The bytes the function must move (its inputs once,
+// its outputs once) take tens of microseconds at the card's memory rate;
+// the chain of P dependent steps is what the kernel pays.  On one block of
+// 1,024 threads (the first design) a step cost ~21.5 us at 8,192 nodes on
+// an H100: eight nodes a thread a pass, four block reductions, one SM's
+// issue rate and L2 latency.
 //
-// Design: one persistent block of 1024 threads on one SM of 132 loops over
-// the pods.  Per step:
-//   pass 0  with the spread family, one block min over N per hard row of
-//           the pod (its critical-path minimum);
-//   pass 1  strided over N: static row, resource fit, in-batch ports, hard
-//           spread rows, the inter-pod bit checks; block
-//           reduction of the stage anys (s_any, a_res, a_ports), the
-//           feasible count and the two normalisation maxima over feasible
-//           nodes (0-floored, scores.py:191);
-//   pass 2  strided over N: fit, balanced, normalised affinity, reversed
-//           taint and the weighted total; block reduction of (score, lowest
-//           index), which is jnp.argmax's first-index tie-break (a NaN
-//           score ranks first, as there: solve_common.cuh ranks_above);
-//   then thread 0 writes the pod's outputs and threads 0..R / 0..PW add the
-//           winner's requests and ports to its rows in place, and the block
-//           adds one to every spread row the pod matches at the nodes that
-//           share the winner's value and ORs the pod's term bits into the
-//           nodes that share the winner's value in each term slot, before
-//           the closing barrier makes them visible to the next step.
+// Design: one thread-block cluster of G blocks on neighbouring SMs,
+// launched with cudaLaunchKernelEx and the cluster dimension attribute
+// (non-portable sizes allowed above 8).  The shape is a fixed function of
+// N (launch_shape below), about one node a thread: blocks of 512 threads
+// up to 8,192 nodes (a 512-thread block may use 128 registers a thread, so
+// the evaluation runs without spills), of 1,024 threads (64 registers)
+// above; G = N / threads, at least 2 and at most 16 — 2 blocks of 512 at
+// 1,024 nodes and under, 8 at 4,096, 16 at 8,192; 9 to 16 blocks of 1,024
+// up to 16,384 nodes, 16 above (65,536: 4 nodes a thread).  Block b owns
+// the 32-node chunks q with q % G == b: a warp reads 32 neighbouring nodes,
+// and the padded tail of the node axis, where no node is feasible, is
+// spread over every block instead of idling the last ones.  Per step,
+// every block holds the pod's rows in its own shared memory and:
+//   spread  with the family, each hard row's min over its own nodes, then
+//           the blocks' minima merged (one cluster barrier);
+//   pass 1  over its own nodes: static row, resource fit, in-batch ports,
+//           hard spread rows, the inter-pod bit checks, and each feasible
+//           node's score against a guess of the normalisation maxima (the
+//           last step's); warp reductions of the stage anys, the feasible
+//           count, the maxima and the (score, lowest index) pick by
+//           ranks_above, one block barrier, then thread t < G merges the
+//           block's warps and writes both partials into slot [rank] of
+//           block t's shared memory (cluster.map_shared_rank); one cluster
+//           barrier (barrier.cluster arrive.release / wait.acquire), and
+//           each block merges the G slots itself;
+//   pass 2  only when the merged maxima the scores read differ from the
+//           guess (bit for bit): the scores against the merged maxima and
+//           the same exchange again.  A guess that holds makes every pass-1
+//           score the one pass 2 would compute, so its pick is the pick;
+//   carry   the block that owns the winner adds its requests and ports to
+//           the winner's rows, and every block adds the spread counts and
+//           ORs the term bits at the nodes of its own chunks that share the
+//           winner's value (each row's value at the winner read once, one
+//           thread a row, instead of one row after another).  Every later
+//           read of these rows is a read of the same block's nodes, so a
+//           block barrier orders them; the global term word is kept in each
+//           block's shared memory (every block ORs the same words) and
+//           written out once at the end.
+// So a step pays one cluster barrier while the maxima hold (batches
+// without affinity or taint rows: always), two when they move, one more
+// with hard spread rows.  The exchange slots alternate between two buffers
+// by step parity: a block writes step k+2's partials only after every
+// block has passed a barrier of step k+1, hence after every read of step
+// k's.
+// Slice anchors: the grid and its integral image are built team-wide over
+// the cluster (slices_common.cuh block_build_grid, cluster barriers
+// between the occupancy and the integral passes).  Every block writes a new
+// anchor's gang_sl / gang_lo (the same values; each block reads back its
+// own store), and the winner's block its gang_corner.  The gang release
+// runs team-wide after the loop, each node in its own block.
+//
+// Exactness: every merge across blocks is order-free — flags OR, the
+// feasible count in integers, fmaxf / fminf maxima and minima, and the pick
+// through ranks_above's total order (solve_common.cuh) — and a pass-1 pick
+// stands only when the maxima its scores read equal the merged ones bit
+// for bit, so the results equal the one-block kernel's, and the
+// reference's, whatever G is.
 // Host ports are checked against one carried port table that starts as the
 // bound pods' claims: a node whose bound claims conflict is already outside
 // the class's static row, so the test equals the reference's in-batch-only
@@ -49,34 +89,232 @@
 // The carry tensors are copies made by the caller; nothing else is written.
 //
 // Slice carve-outs (slices_common.cuh): a shaped pod whose gang has no box
-// yet (or a shaped pod outside any gang) is an anchor: the block first
+// yet (or a shaped pod outside any gang) is an anchor: the cluster first
 // rebuilds the occupancy grid and its integral image from the carried
 // `requested` in global scratch (64 slices of 16^3 cells do not fit in
 // shared memory), then block_eval runs the carve-out stage on it.  An
 // anchored member needs only the free test and its gang's box, and an
 // unshaped pod only the zero bonus, so neither rebuilds the grid.  After
-// the pick, thread 0 writes a new anchor's slice, coordinates and whether
-// it sat on a free-box corner of this step's grid (the reference's second
+// the pick, a new anchor's slice, coordinates and whether it sat on a
+// free-box corner of this step's grid are recorded (the reference's second
 // corner_mask, assign.py:717-721, reads the same pre-placement state).
 //
-// The filters, scores and the block-wide evaluation of one pod live in
-// solve_common.cuh, shared with the wavefront and auction kernels.
+// The filters, scores and the team-generic evaluation of one pod live in
+// solve_common.cuh, shared with the wavefront and auction kernels (which
+// evaluate with one block, BlockTeam).
 //
 // Numerics: every score is a floor of IEEE float32 operations in the
 // reference's order (__fadd_rn / __fmul_rn / __fdiv_rn / __fsqrt_rn, and the
 // file is built with --fmad=false), so the results equal the reference bit
 // for bit.  The one multiply-add the reference's compiler fuses (inside
-// jnp.interp) is fused here too (__fmaf_rn).  One block uses one SM;
-// spreading a step over a cluster or a cooperative grid is later work.
+// jnp.interp) is fused here too (__fmaf_rn).
+
+#include <cooperative_groups.h>
 
 #include "solve_common.cuh"
 
+namespace cg = cooperative_groups;
 using namespace solve;
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxCluster = 16;   // H100: the largest non-portable cluster
+constexpr int kSmallThreads = 512; // up to kMaxCluster * 512 nodes
 
+// The launch shape for N nodes, about one node a thread: 512 threads a
+// block up to 16 x 512 = 8,192 nodes (the register budget of a 512-thread
+// block holds the evaluation without spills), 1,024 threads above; N /
+// threads blocks, at least 2 and at most 16.
+struct Shape {
+    int threads, blocks;
+};
+
+__host__ __device__ inline Shape launch_shape(int n)
+{
+    const int t = n <= kMaxCluster * kSmallThreads ? kSmallThreads : kMaxThreads;
+    const int g = (n + t - 1) / t;
+    return {t, g < 2 ? 2 : (g > kMaxCluster ? kMaxCluster : g)};
+}
+
+// The block of a g-block cluster that owns node nd: 32-node chunks, dealt
+// round robin.
+__host__ __device__ inline int block_of(int nd, int g)
+{
+    return (nd >> 5) % g;
+}
+
+// The exchange slots of one block (shared memory; every block of the
+// cluster writes its partial into slot [its rank] of every block's copy).
+struct Slots {
+    Step step[2][kMaxCluster];
+    float best[2][kMaxCluster];       // pass 2's picks
+    int idx[2][kMaxCluster];
+    float guess_best[2][kMaxCluster]; // pass 1's picks against the guess
+    int guess_idx[2][kMaxCluster];
+    float mins[2][kMaxCluster][kMaxMC];
+};
+
+__device__ __forceinline__ bool same_bits(float a, float b)
+{
+    return __float_as_uint(a) == __float_as_uint(b);
+}
+
+// A cluster evaluating one pod: this block's nodes, the team-wide
+// thread numbering and barrier, and the reductions merged across the
+// blocks through distributed shared memory (solve_common.cuh, "Teams").
+struct ClusterTeam {
+    static constexpr bool kSpeculate = true;   // block_eval: one exchange on a hit
+    unsigned rank_, size_;   // block rank, blocks in the cluster
+    mutable Step guess;      // the maxima pass 1 scores against: the last step's
+    int par;                 // step parity: which exchange buffer
+    Slots* slots;            // this block's slots
+
+    __device__ int rank() const { return (int)(rank_ * blockDim.x + threadIdx.x); }
+    __device__ int size() const { return (int)(size_ * blockDim.x); }
+    // block b owns the 32-node chunks q with q % G == b; a warp visits
+    // 32 neighbouring nodes
+    __device__ int first() const
+    {
+        return (int)((rank_ + size_ * (threadIdx.x >> 5)) * 32 + (threadIdx.x & 31));
+    }
+    __device__ int stride() const { return (int)(size_ * blockDim.x); }
+    __device__ int end(int n) const { return n; }
+    __device__ bool owns(int nd) const { return block_of(nd, (int)size_) == (int)rank_; }
+    __device__ void sync() const { cg::this_cluster().sync(); }
+
+    // Reductions end in one block barrier: each warp's lane 0 leaves the
+    // warp's partial in sc; thread t < G then merges the block's warps and
+    // stores the block's partial into slot [rank] of block t; one cluster
+    // barrier, and every thread merges the G slots.
+    template <class T>
+    __device__ void store(T* slot, const T& v) const
+    {
+        *cg::this_cluster().map_shared_rank(slot, threadIdx.x) = v;
+    }
+
+    // pass 1's Step and its pick against the guess, merged in one exchange
+    __device__ Step reduce_step_best(Step st, float& best, int& idx, Scratch& sc) const
+    {
+        const int warp = threadIdx.x >> 5;
+        st = warp_reduce_step(st);
+        warp_reduce_best(best, idx);
+        if ((threadIdx.x & 31) == 0) {
+            sc.warp_step[warp] = st;
+            sc.warp_best[warp] = best;
+            sc.warp_idx[warp] = idx;
+        }
+        __syncthreads();
+        if (threadIdx.x < size_) {
+            Step bs = step_zero();
+            float bb = -INFINITY;
+            int bi = 0x7fffffff;
+            for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+                bs = step_merge(bs, sc.warp_step[w]);
+                better(bb, bi, sc.warp_best[w], sc.warp_idx[w]);
+            }
+            store(&slots->step[par][rank_], bs);
+            store(&slots->guess_best[par][rank_], bb);
+            store(&slots->guess_idx[par][rank_], bi);
+        }
+        sync();
+        Step all = step_zero();
+        best = -INFINITY;
+        idx = 0x7fffffff;
+        for (unsigned b = 0; b < size_; ++b) {
+            all = step_merge(all, slots->step[par][b]);
+            better(best, idx, slots->guess_best[par][b], slots->guess_idx[par][b]);
+        }
+        return all;
+    }
+
+    // whether the maxima the scores read (the spread raw max / min only
+    // with soft rows) equal the guess bit for bit; the merged maxima become
+    // the next guess
+    __device__ bool guessed(const Step& all, bool soft) const
+    {
+        const bool hit = same_bits(all.max_aff, guess.max_aff)
+            && same_bits(all.max_taint, guess.max_taint)
+            && (!soft || (same_bits(all.sp_mx, guess.sp_mx)
+                          && same_bits(all.sp_mn, guess.sp_mn)));
+        guess = all;
+        return hit;
+    }
+
+    __device__ void reduce_best(float& best, int& idx, Scratch& sc) const
+    {
+        warp_reduce_best(best, idx);
+        if ((threadIdx.x & 31) == 0) {
+            sc.warp_best[threadIdx.x >> 5] = best;
+            sc.warp_idx[threadIdx.x >> 5] = idx;
+        }
+        __syncthreads();
+        if (threadIdx.x < size_) {
+            float bb = -INFINITY;
+            int bi = 0x7fffffff;
+            for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+                better(bb, bi, sc.warp_best[w], sc.warp_idx[w]);
+            }
+            store(&slots->best[par][rank_], bb);
+            store(&slots->idx[par][rank_], bi);
+        }
+        sync();
+        best = -INFINITY;
+        idx = 0x7fffffff;
+        for (unsigned b = 0; b < size_; ++b) {
+            better(best, idx, slots->best[par][b], slots->idx[par][b]);
+        }
+    }
+
+    // ps.minm holds this block's minimum of each hard row (thread 0 wrote
+    // it); afterwards thread 0 holds the cluster's.
+    __device__ void reduce_mins(PodSpread& ps, int mc) const
+    {
+        __syncthreads();
+        if (threadIdx.x < size_) {
+            for (int j = 0; j < mc; ++j) store(&slots->mins[par][rank_][j], ps.minm[j]);
+        }
+        sync();
+        if (threadIdx.x == 0) {
+            for (int j = 0; j < mc; ++j) {
+                float m = kBig;
+                for (unsigned b = 0; b < size_; ++b) m = fminf(m, slots->mins[par][b][j]);
+                ps.minm[j] = m;
+            }
+        }
+    }
+};
+
+// Pod i placed on node `choice` (solve_common.cuh block_spread_update, over
+// this block's nodes): the rows' values at the choice are read once, one
+// thread a row, before the block walks the rows that gain a count.
+// s_vat: [blockDim] shared.
+__device__ void spread_update(const Spread& sp, int n, int i, int choice, const ClusterTeam& team,
+                              int* s_vat)
+{
+    for (int cb = 0; cb < sp.c_dim; cb += blockDim.x) {
+        const int c = cb + threadIdx.x;
+        int v_at = -1;
+        if (c < sp.c_dim && sp.pod_matches[(size_t)i * sp.c_dim + c]) {
+            const size_t o = (size_t)c * n + choice;
+            if (sp.eligible[o]) v_at = sp.v[o];
+        }
+        s_vat[threadIdx.x] = v_at;
+        __syncthreads();
+        const int rows = min((int)blockDim.x, sp.c_dim - cb);
+        for (int cc = 0; cc < rows; ++cc) {
+            const int v = s_vat[cc];
+            if (v < 0) continue;
+            const size_t oc = (size_t)(cb + cc) * n;
+            for (int nd = team.first(); nd < team.end(n); nd += team.stride()) {
+                if (sp.v[oc + nd] == v) sp.counts[oc + nd] = add(sp.counts[oc + nd], 1.0f);
+            }
+        }
+        __syncthreads();
+    }
+}
+
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     int n, int r, int p, int c_dim, int pw, int use_ports, int n_groups,
     const float* __restrict__ alloc,      // [N, R]
@@ -107,17 +345,38 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     __shared__ Config cfg;
     __shared__ float s_req[kMaxR], s_nz[kMaxR];
     __shared__ uint32_t s_ports[kMaxPW];
+    __shared__ uint32_t s_gany[kMaxTW];     // this block's copy of the term word carry
     __shared__ Scratch sc;
     __shared__ PodSpread ps;
     __shared__ PodTerms pt;
     __shared__ slices::PodCarve pc;
+    __shared__ Slots slots;
+    __shared__ int s_vat[kThreads];
     const bool carry = sl.on && gang_sl != nullptr;
 
+    cg::cluster_group cluster = cg::this_cluster();
     const int tid = threadIdx.x;
-    if (tid == 0) load_config(cfg, iparams, fparams);
+    ClusterTeam team;
+    team.rank_ = cluster.block_rank();
+    team.size_ = cluster.num_blocks();
+    team.slots = &slots;
+    team.guess = step_zero();
+    team.par = 0;
+    const bool lead = team.rank_ == 0 && tid == 0;   // writes the per-pod outputs
 
+    Terms tml = tm;                          // the term word carry read from shared memory
+    tml.global_any = s_gany;
+    if (tid == 0) load_config(cfg, iparams, fparams);
+    if (tm.on) {
+        for (int w = tid; w < tm.w; w += kThreads) s_gany[w] = tm.global_any[w];
+    }
+    cluster.sync();   // every block runs before any block writes a slot
+
+    int i_next = order[0];   // the next step's pod, loaded a step ahead
     for (int k = 0; k < p; ++k) {
-        const int i = order[k];
+        team.par = k & 1;
+        const int i = i_next;
+        if (k + 1 < p) i_next = order[k + 1];
         const int c = min(max(class_id[i], 0), c_dim - 1);
         for (int t = tid; t < r; t += kThreads) {
             s_req[t] = pod_req[(size_t)i * r + t];
@@ -130,19 +389,20 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
             slices::load_pod_carve(sl, i, group_id[i], n_groups, carry ? gang_sl : nullptr, gang_lo, pc);
         }
         __syncthreads();
-        if (sp.on) block_spread_pod(sp, n, i, ps, sc);
-        if (tm.on) block_interpod_pod(tm, i, pt);
-        if (sl.on && pc.shaped && !pc.anchored) slices::block_build_grid(sl, n, requested);
+        if (sp.on) block_spread_pod(sp, n, i, ps, sc, team);
+        if (tm.on) block_interpod_pod(tml, i, pt);
+        if (sl.on && pc.shaped && !pc.anchored) slices::block_build_grid(sl, n, requested, team);
 
         const Eval ev = block_eval(
             n, r, pw, use_ports != 0, alloc, requested, nonzero, ports,
             sfeas + (size_t)c * n, aff + (size_t)c * n, taint + (size_t)c * n,
-            s_req, s_nz, s_ports, sp, ps, tm, pt,
+            s_req, s_nz, s_ports, sp, ps, tml, pt,
             extra != nullptr ? extra + (size_t)c * n : nullptr, cfg, sc, nullptr,
-            sl.on ? &sl : nullptr, &pc);
+            sl.on ? &sl : nullptr, &pc, team);
 
         const int choice = ev.choice;
-        if (tid == 0) {
+        const bool owner = ev.found && team.owns(choice);
+        if (lead) {
             assignment[i] = ev.found ? choice : -1;
             scores[i] = ev.best;
             feas_counts[i] = ev.all.count;
@@ -156,28 +416,38 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
                 const int gc = slices::clampi(g, 0, n_groups - 1);
                 gang_sl[gc] = sl.slice_id[choice];
                 for (int j = 0; j < 3; ++j) gang_lo[(size_t)gc * 3 + j] = sl.coords[(size_t)choice * 4 + j];
-                gang_corner[gc] = slices::corner_at(sl, pc, requested, choice) ? 1 : 0;
+                if (owner) gang_corner[gc] = slices::corner_at(sl, pc, requested, choice) ? 1 : 0;
             }
             __syncthreads();
         }
         if (ev.found) {
-            for (int t = tid; t < r; t += kThreads) {
-                requested[(size_t)choice * r + t] = add(requested[(size_t)choice * r + t], s_req[t]);
-                nonzero[(size_t)choice * r + t] = add(nonzero[(size_t)choice * r + t], s_nz[t]);
+            if (owner) {
+                for (int t = tid; t < r; t += kThreads) {
+                    const size_t o = (size_t)choice * r + t;
+                    requested[o] = add(requested[o], s_req[t]);
+                    nonzero[o] = add(nonzero[o], s_nz[t]);
+                }
+                if (use_ports) {
+                    for (int t = tid; t < pw; t += kThreads) {
+                        ports[(size_t)choice * pw + t] |= s_ports[t];
+                    }
+                }
             }
-            if (use_ports) {
-                for (int t = tid; t < pw; t += kThreads) ports[(size_t)choice * pw + t] |= s_ports[t];
-            }
-            if (sp.on) block_spread_update(sp, n, i, choice);
-            if (tm.on) block_interpod_update(tm, n, i, choice);
+            if (sp.on) spread_update(sp, n, i, choice, team, s_vat);
+            if (tm.on) block_interpod_update(tml, n, i, choice, team);
         }
         __syncthreads();
     }
 
+    if (tm.on && team.rank_ == 0) {
+        for (int w = tid; w < tm.w; w += kThreads) tm.global_any[w] = s_gany[w];
+    }
+    // every block's outputs and carry rows visible to the whole cluster
+    cluster.sync();
     // gang all-or-nothing: release every placement of an incomplete group
     if (n_groups > 0) {
         block_gang_release(n, p, r, n_groups, pod_valid, group_id, pod_req, pod_nz,
-                           requested, nonzero, assignment, scores, reasons, incomplete);
+                           requested, nonzero, assignment, scores, reasons, incomplete, team);
     }
 }
 
@@ -194,8 +464,27 @@ extern "C" int greedy_scan_limits(int which)
         case 5: return kFpCount;
         case 6: return kMaxMC;
         case 7: return kMaxTW;
+        case 8: return kMaxCluster;
         default: return -1;
     }
+}
+
+// The number of blocks in the scan's cluster for N nodes.
+extern "C" int greedy_scan_cluster_size(int n)
+{
+    return launch_shape(n).blocks;
+}
+
+// The threads of each block of the scan's cluster for N nodes.
+extern "C" int greedy_scan_block_threads(int n)
+{
+    return launch_shape(n).threads;
+}
+
+// The block of the scan's cluster at N nodes that owns node nd.
+extern "C" int greedy_scan_node_block(int n, int nd)
+{
+    return block_of(nd, launch_shape(n).blocks);
 }
 
 extern "C" int greedy_scan_launch(
@@ -239,7 +528,29 @@ extern "C" int greedy_scan_launch(
     const slices::Slices sl = slices::make_slices(
         sl_on, sl_require, sl_z, sl_d, r, sl_pods_col, sl_node_valid, sl_slice_id, sl_coords,
         sl_dims, sl_pod_shape, sl_pres, sl_occ, sl_integral, sl_free_count);
-    greedy_scan_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+    const Shape shape = launch_shape(n);
+    const int g = shape.blocks;
+    auto* kernel = shape.threads == kSmallThreads ? &greedy_scan_kernel<kSmallThreads>
+                                                  : &greedy_scan_kernel<kMaxThreads>;
+    cudaError_t err = cudaSuccess;
+    if (g > 8) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return (int)err;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(g, 1, 1);
+    cfg.blockDim = dim3(shape.threads, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = g;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(
+        &cfg, kernel,
         n, r, p, c_dim, pw, use_ports, n_groups,
         (const float*)alloc, (float*)requested, (float*)nonzero,
         (uint32_t*)ports, (const uint8_t*)sfeas, (const float*)aff,
@@ -250,6 +561,7 @@ extern "C" int greedy_scan_launch(
         (const float*)fparams, sp, tm, (const float*)extra, sl, (int32_t*)gang_sl,
         (int32_t*)gang_lo, (uint8_t*)gang_corner, (int32_t*)assignment, (float*)scores,
         (int32_t*)feas_counts, (int32_t*)reasons, (int32_t*)incomplete);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 

@@ -132,21 +132,41 @@ __device__ __forceinline__ bool node_free(const Slices& sl, const float* request
         && requested[(size_t)nd * sl.r + sl.pods_col] <= 0.0f;
 }
 
-// Block-wide: the occupancy grid, its integral image and the free node
+// The threads that build one grid together: one block over every node
+// (BlockThreads, the default), or every block of a thread-block cluster,
+// each over its own nodes (greedy_scan.cu).  rank() / size() number the
+// team's threads; a thread of this block visits the nodes first(),
+// first() + stride(), ... below end(n); sync() is the team's barrier, with
+// release / acquire at the team's scope.
+struct BlockThreads {
+    __device__ int rank() const { return threadIdx.x; }
+    __device__ int size() const { return blockDim.x; }
+    __device__ int first() const { return threadIdx.x; }
+    __device__ int stride() const { return blockDim.x; }
+    __device__ int end(int n) const { return n; }
+    __device__ void sync() const { __syncthreads(); }
+};
+
+// Team-wide: the occupancy grid, its integral image and the free node
 // count of every slice, from `requested` (ops/slices.py _cell_grid,
-// _integral, slice_free_counts).  Every thread calls it; it ends on a
-// barrier.
-__device__ inline void block_build_grid(const Slices& sl, int n, const float* requested)
+// _integral, slice_free_counts).  Every thread of the team calls it; it
+// ends on the team's barrier.  The grid is integers (any order of the
+// scatter's stores and atomics gives the same cells), so a cluster builds
+// the same grid as one block.
+template <class Team = BlockThreads>
+__device__ inline void block_build_grid(const Slices& sl, int n, const float* requested,
+                                        const Team& team = Team())
 {
     const int D = sl.d, D1 = sl.d + 1;
     const int cells = sl.z * D * D * D;
-    for (int t = threadIdx.x; t < cells; t += blockDim.x) {
+    const int t0 = team.rank(), ts = team.size();
+    for (int t = t0; t < cells; t += ts) {
         sl.pres[t] = 0;
         sl.occ[t] = 0;
     }
-    for (int t = threadIdx.x; t < sl.z; t += blockDim.x) sl.free_count[t] = 0;
-    __syncthreads();
-    for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
+    for (int t = t0; t < sl.z; t += ts) sl.free_count[t] = 0;
+    team.sync();
+    for (int nd = team.first(); nd < team.end(n); nd += team.stride()) {
         const bool fr = node_free(sl, requested, nd);
         const int s = clampi(sl.slice_id[nd], 0, sl.z - 1);
         if (fr) atomicAdd(&sl.free_count[s], 1);
@@ -156,9 +176,9 @@ __device__ inline void block_build_grid(const Slices& sl, int n, const float* re
         sl.pres[idx] = 1;            // a scatter-max of ones: any store wins
         if (!fr) sl.occ[idx] = 1;
     }
-    __syncthreads();
+    team.sync();
     const int vol1 = D1 * D1 * D1;
-    for (int t = threadIdx.x; t < sl.z * vol1; t += blockDim.x) {
+    for (int t = t0; t < sl.z * vol1; t += ts) {
         const int s = t / vol1, rem = t % vol1;
         const int i = rem / (D1 * D1), j = (rem / D1) % D1, k = rem % D1;
         int v = 0;
@@ -168,26 +188,26 @@ __device__ inline void block_build_grid(const Slices& sl, int n, const float* re
         }
         sl.integral[t] = v;
     }
-    __syncthreads();
+    team.sync();
     // prefix sums along z, then y, then x (the cumsum axes 3, 2, 1)
     const int lines = sl.z * D1 * D1;
-    for (int t = threadIdx.x; t < lines; t += blockDim.x) {
+    for (int t = t0; t < lines; t += ts) {
         int32_t* row = sl.integral + (size_t)t * D1;
         for (int k = 1; k < D1; ++k) row[k] += row[k - 1];
     }
-    __syncthreads();
-    for (int t = threadIdx.x; t < lines; t += blockDim.x) {
+    team.sync();
+    for (int t = t0; t < lines; t += ts) {
         const int s = t / (D1 * D1), i = (t / D1) % D1, k = t % D1;
         int32_t* col = sl.integral + (size_t)s * vol1 + (size_t)i * D1 * D1 + k;
         for (int j = 1; j < D1; ++j) col[j * D1] += col[(j - 1) * D1];
     }
-    __syncthreads();
-    for (int t = threadIdx.x; t < lines; t += blockDim.x) {
+    team.sync();
+    for (int t = t0; t < lines; t += ts) {
         const int s = t / (D1 * D1), j = (t / D1) % D1, k = t % D1;
         int32_t* col = sl.integral + (size_t)s * vol1 + (size_t)j * D1 + k;
         for (int i = 1; i < D1; ++i) col[i * D1 * D1] += col[(i - 1) * D1 * D1];
     }
-    __syncthreads();
+    team.sync();
 }
 
 // Free cells in [lo, hi) of the integral image `I` of one slice (edge D+1).

@@ -9,6 +9,17 @@
 // stage (slices_common.cuh) filters last under "require" and adds its
 // bonus after everything else, outside the normalised sum.
 //
+// Teams.  A pod is evaluated by a team of threads: one block over every
+// node (BlockTeam, the default: the wavefront, the auction's bids,
+// evaluate_single), or a thread-block cluster whose blocks each own a
+// share of the nodes (greedy_scan.cu's ClusterTeam).  The node loops run
+// over this block's share (team.first(), stride(), end()), and the
+// reductions go through the team: a block reduces in shared memory; a
+// cluster then merges the blocks' partials through distributed shared
+// memory.  Every merge is order-free — flags OR, counts in integers,
+// fmaxf / fminf, and the pick by ranks_above's total order — so a team of
+// any size gives the bits a block gives.
+//
 // Numerics: every score is a floor of IEEE float32 operations in the
 // reference package's order (__fadd_rn / __fmul_rn / __fdiv_rn /
 // __fsqrt_rn; every file that includes this one is built with
@@ -309,6 +320,18 @@ __device__ __forceinline__ Step step_zero()
     return s;
 }
 
+// The Step of two node sets: order-free (OR, integer sum, fmaxf / fminf).
+__device__ __forceinline__ Step step_merge(Step a, const Step& b)
+{
+    a.flags |= b.flags;
+    a.count += b.count;
+    a.max_aff = fmaxf(a.max_aff, b.max_aff);
+    a.max_taint = fmaxf(a.max_taint, b.max_taint);
+    a.sp_mx = fmaxf(a.sp_mx, b.sp_mx);
+    a.sp_mn = fminf(a.sp_mn, b.sp_mn);
+    return a;
+}
+
 __device__ __forceinline__ Step warp_reduce_step(Step s)
 {
     for (int off = 16; off > 0; off >>= 1) {
@@ -422,26 +445,49 @@ __device__ inline float block_reduce_min(float m, Scratch& sc)
     return m;
 }
 
-// The critical-path minimum of row c (topology.py spread_min_match): the
-// min count over eligible nodes, 0 without an eligible node or when fewer
-// eligible domains exist than minDomains asks for.  Block-wide.
-__device__ inline float block_spread_min(const Spread& sp, int n, int c, Scratch& sc)
+// The min count of row c over the eligible nodes this block visits (a
+// thread: first, first + stride, ... below end), kBig without one.
+// Block-wide.
+__device__ inline float block_spread_min(const Spread& sp, int n, int first, int stride, int end,
+                                         int c, Scratch& sc)
 {
     float m = kBig;
     const size_t o = (size_t)c * n;
-    for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
+    for (int nd = first; nd < end; nd += stride) {
         if (sp.eligible[o + nd]) m = fminf(m, sp.counts[o + nd]);
     }
-    m = block_reduce_min(m, sc);
+    return block_reduce_min(m, sc);
+}
+
+// The critical-path minimum of row c (topology.py spread_min_match) from
+// the min count over every eligible node: 0 without an eligible node or
+// when fewer eligible domains exist than minDomains asks for.
+__device__ __forceinline__ float spread_min_final(const Spread& sp, int c, float m)
+{
     if (m >= kBig) m = 0.0f;
     const float md = sp.min_domains[c];
     if (md > 0.0f && sp.sizes[c] < md) m = 0.0f;
     return m;
 }
 
+// One block over every node: every node, a thread each blockDim apart, and
+// the block-wide reductions.  reduce_mins merges each hard row's minimum
+// across the team (ps.minm holds this block's; a block is the whole team).
+struct BlockTeam : slices::BlockThreads {
+    static constexpr bool kSpeculate = false;   // block_eval: two passes
+    __device__ Step reduce_step(Step st, Scratch& sc) const { return block_reduce_step(st, sc); }
+    __device__ void reduce_best(float& best, int& idx, Scratch& sc) const
+    {
+        block_reduce_best(best, idx, sc);
+    }
+    __device__ void reduce_mins(PodSpread&, int) const {}
+};
+
 // Fill `ps` (shared) with pod i's rows and each hard row's minimum against
-// the current counts.  Every thread of the block calls it.
-__device__ inline void block_spread_pod(const Spread& sp, int n, int i, PodSpread& ps, Scratch& sc)
+// the current counts.  Every thread of the team calls it.
+template <class Team = BlockTeam>
+__device__ inline void block_spread_pod(const Spread& sp, int n, int i, PodSpread& ps, Scratch& sc,
+                                        const Team& team = Team())
 {
     if (threadIdx.x == 0) {
         ps.any_hard = ps.any_soft = 0;
@@ -464,8 +510,15 @@ __device__ inline void block_spread_pod(const Spread& sp, int n, int i, PodSprea
     __syncthreads();
     for (int j = 0; j < sp.mc; ++j) {
         if (!ps.enforced[j]) continue;  // uniform: read from shared memory
-        const float m = block_spread_min(sp, n, ps.c[j], sc);
+        const float m = block_spread_min(sp, n, team.first(), team.stride(), team.end(n),
+                                         ps.c[j], sc);
         if (threadIdx.x == 0) ps.minm[j] = m;
+    }
+    if (ps.any_hard) team.reduce_mins(ps, sp.mc);
+    if (threadIdx.x == 0) {
+        for (int j = 0; j < sp.mc; ++j) {
+            if (ps.enforced[j]) ps.minm[j] = spread_min_final(sp, ps.c[j], ps.minm[j]);
+        }
     }
     __syncthreads();
 }
@@ -617,10 +670,12 @@ __device__ __forceinline__ bool interpod_ok(const Terms& tm, const PodTerms& pt,
 
 // Account pod i placed on node `choice` (interpod_update): per used slot,
 // the terms it matches turn present on every node sharing the node's value
-// in that slot (and global), its anti terms blocked.  Block-wide; each
-// thread writes its own node rows, thread 0 the global word; the caller
-// synchronises after it.
-__device__ inline void block_interpod_update(const Terms& tm, int n, int i, int choice)
+// in that slot (and global), its anti terms blocked.  Block-wide over this
+// block's share of the team's nodes; each thread writes its own node rows,
+// thread 0 the global word; the caller synchronises after it.
+template <class Team = BlockTeam>
+__device__ inline void block_interpod_update(const Terms& tm, int n, int i, int choice,
+                                             const Team& team = Team())
 {
     for (int j = 0; j < tm.u; ++j) {
         const int32_t* sv = tm.slot_v + (size_t)j * n;
@@ -631,7 +686,7 @@ __device__ inline void block_interpod_update(const Terms& tm, int n, int i, int 
         bool any = false;
         for (int w = 0; w < tm.w; ++w) any |= (mi[w] | an[w]) != 0u;
         if (!any) continue;  // uniform across the block
-        for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
+        for (int nd = team.first(); nd < team.end(n); nd += team.stride()) {
             if (sv[nd] != ta) continue;
             for (int w = 0; w < tm.w; ++w) {
                 tm.present[(size_t)nd * tm.w + w] |= mi[w];
@@ -664,7 +719,16 @@ struct Eval {
 // (read only when sp.on), `pt` its block_interpod_pod (read only when
 // tm.on); `erow` is the class's extra score row, or null; `sl` / `pc` the
 // slice carve-out family and the pod's view of it (null off the family;
-// for an anchor, block_build_grid has run on `requested`).
+// for an anchor, block_build_grid has run on `requested`).  The passes run
+// over this block's share of the team's nodes and reduce through the team,
+// so every thread of the team returns the same Eval.
+//
+// A team with kSpeculate (the cluster) scores in pass 1 against its guess
+// of the maxima (the previous step's) and merges the step and the pick in
+// one exchange; when the merged maxima the scores read equal the guess bit
+// for bit, every score is the one pass 2 would compute and pass 2 is
+// skipped, else pass 2 runs as for a block.
+template <class Team = BlockTeam>
 __device__ inline Eval block_eval(
     int n, int r, int pw, bool use_ports,
     const float* alloc, const float* requested, const float* nonzero, const uint32_t* ports,
@@ -672,15 +736,48 @@ __device__ inline Eval block_eval(
     const float* pod_req, const float* pod_nz, const uint32_t* pod_ports,
     const Spread& sp, const PodSpread& ps, const Terms& tm, const PodTerms& pt,
     const float* erow, const Config& cfg, Scratch& sc, float* masked,
-    const slices::Slices* sl = nullptr, const slices::PodCarve* pc = nullptr)
+    const slices::Slices* sl = nullptr, const slices::PodCarve* pc = nullptr,
+    const Team& team = Team())
 {
+    const int first = team.first(), stride = team.stride(), end = team.end(n);
     const bool sp_hard = sp.on && ps.any_hard;
     const bool sp_soft = sp.on && sp.soft_on && ps.any_soft;
     const bool carve = sl != nullptr && sl->on;             // the bonus is added
     const bool carve_shaped = carve && pc->shaped;          // unshaped: 0 and ok
     const bool carve_filter = carve_shaped && sl->require;
+
+    // a feasible node's total against the maxima (normalisation, spread)
+    auto score_at = [&](int nd, const Step& m, float bonus) {
+        const float* cap = alloc + (size_t)nd * r;
+        const float* rq = requested + (size_t)nd * r;
+        const float fit_s = fit_score(cap, nonzero + (size_t)nd * r, pod_nz, cfg);
+        const float bal_s = balanced_score(cap, rq, pod_req, cfg);
+        float total = node_total(fit_s, bal_s, arow[nd], trow[nd], m.max_aff, m.max_taint, cfg);
+        if (sp.on && sp.soft_on) {
+            // spread_score: 0 for a pod without soft rows and at nodes
+            // that lack a soft row's key
+            float s = 0.0f;
+            if (sp_soft) {
+                bool ignored;
+                const float raw = spread_raw(sp, ps, n, nd, ignored);
+                if (!ignored) {
+                    s = m.sp_mx <= 0.0f ? kMaxNodeScore
+                        : floorf(dv(mul(kMaxNodeScore, sub(add(m.sp_mx, m.sp_mn), raw)),
+                                    fmaxf(m.sp_mx, 1e-30f)));
+                }
+            }
+            total = add(total, mul(cfg.spread_weight, s));
+        }
+        if (erow != nullptr) total = add(total, erow[nd]);
+        // every pod of a slice batch, shaped or not (x + 0 is +0)
+        if (carve) total = add(total, bonus);
+        return total;
+    };
+
     Step st = step_zero();
-    for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
+    float best = -INFINITY;
+    int best_idx = 0x7fffffff;
+    for (int nd = first; nd < end; nd += stride) {
         if (!srow[nd]) continue;
         st.flags |= 1;
         if (!node_fits(requested + (size_t)nd * r, alloc + (size_t)nd * r, pod_req, r)) continue;
@@ -691,9 +788,10 @@ __device__ inline Eval block_eval(
         st.flags |= 8;
         if (tm.on && !interpod_ok(tm, pt, nd)) continue;
         st.flags |= 32;
-        if (carve_filter) {
-            float bonus;
-            if (!slices::carve_node(*sl, *pc, requested, nd, bonus)) continue;
+        float bonus = 0.0f;
+        if (carve_filter || (Team::kSpeculate && carve_shaped)) {
+            const bool ok = slices::carve_node(*sl, *pc, requested, nd, bonus);
+            if (carve_filter && !ok) continue;
         }
         st.flags |= 16;
         st.count += 1;
@@ -707,55 +805,42 @@ __device__ inline Eval block_eval(
                 st.sp_mn = fminf(st.sp_mn, raw);
             }
         }
+        if constexpr (Team::kSpeculate) better(best, best_idx, score_at(nd, team.guess, bonus), nd);
     }
     Eval ev;
-    ev.all = block_reduce_step(st, sc);
-    ev.found = (ev.all.flags & 16) != 0;
-    const float mx = ev.all.sp_mx, mn = ev.all.sp_mn;
-
-    float best = -INFINITY;
-    int best_idx = 0x7fffffff;
-    if (ev.found || masked != nullptr) {
-        for (int nd = threadIdx.x; nd < n; nd += blockDim.x) {
-            float total = -INFINITY;
-            const float* cap = alloc + (size_t)nd * r;
-            const float* rq = requested + (size_t)nd * r;
-            float bonus = 0.0f;
-            bool carve_ok = true;
-            if (carve_shaped) carve_ok = slices::carve_node(*sl, *pc, requested, nd, bonus);
-            if (srow[nd] && node_fits(rq, cap, pod_req, r)
-                && !(use_ports && ports_clash(ports + (size_t)nd * pw, pod_ports, pw))
-                && !(sp_hard && !spread_ok(sp, ps, n, nd))
-                && !(tm.on && !interpod_ok(tm, pt, nd))
-                && !(carve_filter && !carve_ok)) {
-                const float fit_s = fit_score(cap, nonzero + (size_t)nd * r, pod_nz, cfg);
-                const float bal_s = balanced_score(cap, rq, pod_req, cfg);
-                total = node_total(fit_s, bal_s, arow[nd], trow[nd],
-                                   ev.all.max_aff, ev.all.max_taint, cfg);
-                if (sp.on && sp.soft_on) {
-                    // spread_score: 0 for a pod without soft rows and at
-                    // nodes that lack a soft row's key
-                    float s = 0.0f;
-                    if (sp_soft) {
-                        bool ignored;
-                        const float raw = spread_raw(sp, ps, n, nd, ignored);
-                        if (!ignored) {
-                            s = mx <= 0.0f ? kMaxNodeScore
-                                : floorf(dv(mul(kMaxNodeScore, sub(add(mx, mn), raw)),
-                                            fmaxf(mx, 1e-30f)));
-                        }
-                    }
-                    total = add(total, mul(cfg.spread_weight, s));
-                }
-                if (erow != nullptr) total = add(total, erow[nd]);
-                // every pod of a slice batch, shaped or not (x + 0 is +0)
-                if (carve) total = add(total, bonus);
-                better(best, best_idx, total, nd);
-            }
-            if (masked != nullptr) masked[nd] = total;
-        }
+    bool picked = false;
+    if constexpr (Team::kSpeculate) {
+        ev.all = team.reduce_step_best(st, best, best_idx, sc);
+        picked = team.guessed(ev.all, sp_soft) || !(ev.all.flags & 16);
+    } else {
+        ev.all = team.reduce_step(st, sc);
     }
-    block_reduce_best(best, best_idx, sc);
+    ev.found = (ev.all.flags & 16) != 0;
+
+    if (!picked) {
+        best = -INFINITY;
+        best_idx = 0x7fffffff;
+        if (ev.found || masked != nullptr) {
+            for (int nd = first; nd < end; nd += stride) {
+                float total = -INFINITY;
+                const float* cap = alloc + (size_t)nd * r;
+                const float* rq = requested + (size_t)nd * r;
+                float bonus = 0.0f;
+                bool carve_ok = true;
+                if (carve_shaped) carve_ok = slices::carve_node(*sl, *pc, requested, nd, bonus);
+                if (srow[nd] && node_fits(rq, cap, pod_req, r)
+                    && !(use_ports && ports_clash(ports + (size_t)nd * pw, pod_ports, pw))
+                    && !(sp_hard && !spread_ok(sp, ps, n, nd))
+                    && !(tm.on && !interpod_ok(tm, pt, nd))
+                    && !(carve_filter && !carve_ok)) {
+                    total = score_at(nd, ev.all, bonus);
+                    better(best, best_idx, total, nd);
+                }
+                if (masked != nullptr) masked[nd] = total;
+            }
+        }
+        team.reduce_best(best, best_idx, sc);
+    }
     ev.choice = best_idx;
     ev.best = ev.found ? best : -INFINITY;
     ev.reason = ev.found ? kReasonNone
@@ -769,23 +854,26 @@ __device__ inline Eval block_eval(
     return ev;
 }
 
-// Gang all-or-nothing post-pass (assign.py `_gang_release`), block-wide:
+// Gang all-or-nothing post-pass (assign.py `_gang_release`), team-wide:
 // release every placement of a group with an unplaced member.  Each node
 // takes its released pods' requests off in pod index order (one thread a
-// node), the order of the reference's scatter-add, which decides the
-// rounding once a node's sum is past float32's exact range.
-// `incomplete` is zeroed scratch of max(n_groups, 1) ints.
+// node, in the block that owns it), the order of the reference's
+// scatter-add, which decides the rounding once a node's sum is past
+// float32's exact range.  `incomplete` is zeroed scratch of
+// max(n_groups, 1) ints.
+template <class Team = BlockTeam>
 __device__ inline void block_gang_release(
     int n, int p, int r, int n_groups, const uint8_t* pod_valid, const int32_t* group_id,
     const float* pod_req, const float* pod_nz, float* requested, float* nonzero,
-    int32_t* assignment, float* scores, int32_t* reasons, int32_t* incomplete)
+    int32_t* assignment, float* scores, int32_t* reasons, int32_t* incomplete,
+    const Team& team = Team())
 {
-    for (int i = threadIdx.x; i < p; i += blockDim.x) {
+    for (int i = team.rank(); i < p; i += team.size()) {
         const int g = group_id[i];
         if (g >= 0 && pod_valid[i] && assignment[i] < 0) incomplete[min(g, n_groups - 1)] = 1;
     }
-    __syncthreads();
-    for (int b = threadIdx.x; b < n; b += blockDim.x) {
+    team.sync();
+    for (int b = team.first(); b < team.end(n); b += team.stride()) {
         for (int i = 0; i < p; ++i) {
             const int g = group_id[i];
             if (g < 0 || assignment[i] != b || !incomplete[min(g, n_groups - 1)]) continue;
@@ -795,8 +883,8 @@ __device__ inline void block_gang_release(
             }
         }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < p; i += blockDim.x) {
+    team.sync();
+    for (int i = team.rank(); i < p; i += team.size()) {
         const int g = group_id[i];
         if (g < 0 || assignment[i] < 0 || !incomplete[min(g, n_groups - 1)]) continue;
         assignment[i] = -1;

@@ -64,6 +64,7 @@ _DRY_RUN_VICTIMS = [_I] * 3 + [_P] * 9
 
 # greedy_scan.cu's static capacities and parameter-block layout
 MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, MAX_MC, MAX_TW = 32, 256, 8, 16, 8, 32
+MAX_CLUSTER = 16     # greedy_scan.cu's largest cluster (blocks)
 IP_COUNT = 4 + 2 * MAX_FIT
 FP_COUNT = 5 + MAX_FIT + 2 * MAX_SHAPE + 1
 _STRATEGY = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
@@ -74,6 +75,7 @@ MAX_MI = 16          # class_extras.cu's images a pod
 MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
 LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
 MAX_VICTIM_SLOTS = 4096  # preempt_dry_run.cu's widest victim axis
+SPREAD_SHARED_Z = 256    # auction_spread.cu's value spaces counted in shared memory
 
 
 def reset_launches() -> None:
@@ -90,8 +92,9 @@ def _launcher(name: str):
         if name == "greedy_scan":
             limits = getattr(lib, "greedy_scan_limits")
             limits.restype, limits.argtypes = ctypes.c_int, [ctypes.c_int]
-            got = tuple(limits(i) for i in range(8))
-            want = (MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, IP_COUNT, FP_COUNT, MAX_MC, MAX_TW)
+            got = tuple(limits(i) for i in range(9))
+            want = (MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, IP_COUNT, FP_COUNT, MAX_MC, MAX_TW,
+                    MAX_CLUSTER)
             if got != want:
                 raise RuntimeError(f"greedy_scan limits {got} != bindings {want}")
         if name == "wavefront":
@@ -121,6 +124,12 @@ def _launcher(name: str):
             if max_k() != MAX_VICTIM_SLOTS:
                 raise RuntimeError(f"preempt_dry_run max K {max_k()} != bindings "
                                    f"{MAX_VICTIM_SLOTS}")
+        if name == "auction_spread":
+            shared_z = getattr(lib, "auction_spread_limits")
+            shared_z.restype, shared_z.argtypes = ctypes.c_int, []
+            if shared_z() != SPREAD_SHARED_Z:
+                raise RuntimeError(f"auction_spread shared value space {shared_z()} != "
+                                   f"bindings {SPREAD_SHARED_Z}")
         if name == "class_extras":
             max_mi = getattr(lib, "class_extras_limits")
             max_mi.restype, max_mi.argtypes = ctypes.c_int, []
@@ -533,6 +542,25 @@ def greedy_scan(cluster, pods, sfeas_c, aff_c, taint_c, order, features,
     return (assignment, scores, feas_counts, reasons, requested, nonzero,
             ports if use_ports else cluster.port_bits, counts, *(bits or (None,) * 3),
             *(gang or ()))
+
+
+def _scan_query(name: str, *args: int) -> int:
+    """An integer that greedy_scan's library computes (greedy_scan_NAME)."""
+    fn = getattr(build.library("greedy_scan"), f"greedy_scan_{name}")
+    if fn.argtypes is None:
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * len(args)
+    return int(fn(*(int(a) for a in args)))
+
+
+def scan_shape(n: int) -> Tuple[int, int]:
+    """(blocks, threads a block) of greedy_scan's thread-block cluster at n
+    nodes: the kernel's own launch_shape."""
+    return _scan_query("cluster_size", n), _scan_query("block_threads", n)
+
+
+def scan_node_block(n: int, nd: int) -> int:
+    """The block of greedy_scan's cluster at n nodes that owns node nd."""
+    return _scan_query("node_block", n, nd)
 
 
 def slice_stats(cluster, pods, assignment, gang, features, n_groups: int) -> tuple:
