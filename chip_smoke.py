@@ -187,8 +187,9 @@ auction of a spread / inter-pod batch, class_extras with preferred
 inter-pod terms or images, slice_stats after a slice batch's scan) and
 the residents' (partials_eval, mirror_rows, each launched exactly as often
 as the residents recorded); the extender's windows expect match_terms,
-class_statics and evaluate_single (two launches a request), with
-class_extras for the variants, and the proto request the cold auction's.
+class_statics and evaluate_single (one fused launch a request of the
+basic pod), with class_extras for the variants, and the proto request the
+cold auction's.
 Each part fails unless every expected kernel was launched and no other.
 The faults phase runs last, with its own launch checks.  Then the card's
 name and power limit, the `kernels` summary object, and as the last line
@@ -373,6 +374,52 @@ def cuda_ms(fn, iters: int, torch) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def cuda_host_ms(fn, iters: int, torch) -> tuple:
+    """(CUDA-event ms, host-clock ms) a call of fn(), over the same `iters`
+    calls after one warm-up: the host clock around the calls without a
+    sync (what enqueueing them costs the caller), the events around them
+    on the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters, host * 1e3 / iters
+
+
+def graph_ms(fn, calls: int, replays: int, torch) -> float:
+    """Mean milliseconds of one fn() on the card alone: `calls` calls
+    captured in one CUDA graph, replayed `replays` times between CUDA
+    events (no host work between the launches)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (calls * replays)
 
 
 def _pairs(a, b):
@@ -878,6 +925,7 @@ def main() -> int:
     resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch)
     preemption_parity(wrappers, filters, bindings, torch)
     scan_edges_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch)
+    wave_edges_phase(wrappers, assign, dv, bindings, torch)
 
     # ---- main path: SchedulingBasic/5000Nodes, default route ---------------
     sched = TorchBatchScheduler()
@@ -992,10 +1040,12 @@ def main() -> int:
     # ---- spread: TopologySpreading/5000Nodes, every route ------------------
     spread_rows, spread_launches = spread_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
+    spread_wave_launches = next(r for r in spread_rows if r["name"] == "wavefront")["launches"]
 
     # ---- inter-pod: SchedulingPodAntiAffinity and SchedulingPodAffinity ----
     interpod_rows, interpod_launches, prep_terms_row = interpod_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
+    interpod_wave_launches = next(r for r in interpod_rows if r["name"] == "wavefront")["launches"]
 
     # ---- extras: preferred inter-pod affinity and ImageLocality -----------
     extras_row, prep_pref_pod_row = extras_phase(
@@ -1006,15 +1056,14 @@ def main() -> int:
         wrappers, TorchBatchScheduler, assign, filters, dv, bindings, torch, card)
 
     # ---- the extender and the proto service ----------------------------
-    eval_row, extender_launches = extender_phase(
-        wrappers, TorchBatchScheduler, assign, dv, bindings, torch, card)
+    eval_rows = extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, card)
     proto_phase(wrappers, torch, bindings, card)
 
     # ---- preemption: PreemptionBasic and c9's planning trace ----------------
     preempt = preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, card)
 
     # ---- the residents: warm against cold at full width ---------------------
-    resident_launches = resident_phase(
+    resident_launches, churn_wave_launches = resident_phase(
         wrappers, TorchBatchScheduler, bindings, torch, card)
 
     # ---- each kernel against its plain version at its phase's shapes -------
@@ -1025,16 +1074,23 @@ def main() -> int:
         assign, filters, bindings, torch, timed=True,
     )
     snap_w, meta_w = wave["snap"]
-    summary.append(run_wavefront(
+    summary.append(dict(run_wavefront(
         snap_w, meta_w.features, meta_w.n_groups, wsched.score_config,
         meta_w.wave_plan.members, assign, bindings, torch, timed=True,
-    ))
+    ), shape="W"))
     summary.extend(run_auction(
         snap_k, sched.score_config, meta_k.tie_k, auction, bindings, torch, timed=True,
     ))
     launches_of = {"greedy_scan": greedy_launches, "wavefront": wave_launches}
     for row in summary:
         row["launches"] = launches_of.get(row["name"], main_launches)[row["name"]]
+    # the wavefront on the other phases' default routes: S (the spread
+    # phase's first 500-pod batch), F (SchedulingPodAffinity's measured
+    # batch); its launches over every default-route phase that runs it
+    summary.extend(dict(r, shape=shape) for rows, shape in ((spread_rows, "S"), (interpod_rows, "F"))
+                   for r in rows if r["name"] == "wavefront")
+    wave_all = (wave_launches["wavefront"] + spread_wave_launches + interpod_wave_launches
+                + resident_launches["wavefront"] + churn_wave_launches)
     row = next(r for r in spread_rows if r["name"] == "auction_spread")
     summary.append(dict(row, launches=spread_launches["auction_spread"]))
     summary.append(next(r for r in interpod_rows if r["name"] == "auction_interpod"))
@@ -1044,7 +1100,7 @@ def main() -> int:
         summary.append(dict(row, launches=resident_launches[name]))
     row = next(r for r in slice_rows if r["name"] == "slice_stats")
     summary.append(dict(row, launches=slice_launches["slice_stats"]))
-    summary.append(dict(eval_row, launches=extender_launches["evaluate_single"]))
+    summary.extend(eval_rows)
     for row in preempt["rows"]:
         summary.append(dict(row, launches=preempt["launches"][row["name"]]))
     order_ms = cuda_ms(lambda: assign.solve_order(snap_k.pods), 50, torch)
@@ -1056,7 +1112,10 @@ def main() -> int:
           "shapes": {"match_terms, class_statics, auction_bids, auction_accept":
                      "SchedulingBasic/5000Nodes measured batch",
                      "greedy_scan": "the same batch, mode=greedy",
-                     "wavefront": "SchedulingNodeAffinity/5000Nodes first measured batch",
+                     "wavefront": "W: SchedulingNodeAffinity/5000Nodes first measured batch; "
+                                  "S: TopologySpreading/5000Nodes first 500-pod measured batch "
+                                  "(one-pod waves); F: SchedulingPodAffinity/5000Nodes measured "
+                                  "batch (one-pod waves)",
                      "auction_spread": "TopologySpreading/5000Nodes measured batch",
                      "auction_interpod": "SchedulingPodAntiAffinity/5000Nodes measured batch",
                      "class_extras": "the preferred-affinity variant's measured batch "
@@ -1066,13 +1125,17 @@ def main() -> int:
                                                    "(8,192 padded nodes, 32 slots)",
                      "slice_stats": "c10 (4,096 nodes, 256 padded pods, 26 gangs) after the "
                                     "scan (greedy_scan at this shape: the slices line)",
-                     "evaluate_single": "one pod-default pod against "
-                                        "SchedulingBasic/5000Nodes (8,192 padded nodes)",
+                     "evaluate_single": "E: one pod-default pod against "
+                                        "SchedulingBasic/5000Nodes (8,192 padded nodes; the "
+                                        "fused launch); E+: the same with a preferred "
+                                        "inter-pod term (two stages); launches: the extender's "
+                                        "basic and variant windows",
                      "preempt_dry_run, pod_filters": "c9's batched pass (20,000 nodes, "
                                                     "32,768 padded, 16 preemptors, 3 levels); "
                                                     "launches: PreemptionBasic/5000Nodes"},
           "kernels": [dict({k: row[k] for k in ("name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")},
-                           equal=True) for row in summary],
+                           shape=row.get("shape"), equal=True) for row in summary],
+          "wavefront_launches_all_phases": wave_all,
           "resident_kernels": resident_rows, "resident_torch": resident_extra,
           "solve_order": {"ms": order_ms, "bound_ms": order_bound[0], "bound_by": order_bound[1]},
           "prep_terms": prep_terms_row, "prep_pref_pod": prep_pref_pod_row})
@@ -1174,6 +1237,9 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+            **({"shape": row["shape"]} if "shape" in row else {}),
+            **({"host_ms": row["host_ms"], "device_ms": row["device_ms"]}
+               if "host_ms" in row else {}),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2478,6 +2544,64 @@ def affinity_snapshot(wrappers, TorchBatchScheduler):
     return (sched, *sched.encode_pending(measured[:AFFINITY_BATCH]))
 
 
+def spread_wave_snapshot(wrappers, TorchBatchScheduler):
+    """Shape S: TopologySpreading/5000Nodes' first 500-pod batch of the
+    measured pods after the 5,000 init pods (the spread phase's wavefront
+    run: one-pod waves).  Returns (scheduler, snapshot, meta)."""
+    from kubernetes_tpu_torch.testing.cases import topology_spreading_objects
+
+    nodes, init, measured = topology_spreading_objects(wrappers, *SPREAD)
+    sched = TorchBatchScheduler()
+    for node in nodes:
+        sched.add_node(node)
+    for pod, name in zip(init, sched.schedule_pending(init)):
+        sched.assume(pod, name)
+    return (sched, *sched.encode_pending(measured[:SPREAD_BATCH]))
+
+
+def pod_affinity_snapshot(wrappers, TorchBatchScheduler):
+    """Shape F: SchedulingPodAffinity/5000Nodes' measured batch after the
+    init pods (the interpod phase's wavefront run: one-pod waves).  Returns
+    (scheduler, snapshot, meta)."""
+    from kubernetes_tpu_torch.testing.cases import pod_affinity_objects
+
+    nodes, init, measured = pod_affinity_objects(wrappers, *AFFINITY_POD)
+    sched = TorchBatchScheduler()
+    for node in nodes:
+        sched.add_node(node)
+    for pod, name in zip(init, sched.schedule_pending(init)):
+        if name is not None:
+            sched.assume(pod, name)
+    return (sched, *sched.encode_pending(measured))
+
+
+def single_snapshot(wrappers, TorchBatchScheduler, preferred: bool):
+    """Shapes E and E+: one pod against SchedulingBasic/5000Nodes behind
+    the extender (5,000 node-default nodes, 1,000 bound pod-default pods,
+    the extender phase's layout; 8,192 padded nodes): a pod-default pod
+    (E, no extra row), or (E+) the bound pods labelled color=red in
+    sched-0 and the pod upstream's SchedulingPreferredPodAffinity template
+    (a preferred term, weight 1, on the hostname over color=red in sched-0
+    and sched-1: an extra row).
+    Returns (the snapshot on the card, its features)."""
+    from kubernetes_tpu_torch.ops import assign, device as dv
+    from kubernetes_tpu_torch.testing.cases import preferred_affinity_objects
+
+    n_nodes, n_bound, _n_req = EXTENDER
+    sched = TorchBatchScheduler(device="cuda")
+    for node in make_cluster(wrappers, n_nodes):
+        sched.add_node(node)
+    for i, pod in enumerate(make_pods(wrappers, n_bound, "ext-bound")):
+        if preferred:   # in a namespace the template's term reads
+            pod.meta.labels["color"] = "red"
+            pod.meta.namespace = "sched-0"
+        sched.state.add_pod(pod, f"node-{(i * 7) % n_nodes}")
+    pod = (preferred_affinity_objects(wrappers, 1, 0, 1)[2][0] if preferred
+           else make_pods(wrappers, 1, "ext-req")[0])
+    snap, _meta = sched.builder.build_from_state(sched.state, [pod])
+    return dv.to_device(snap, "cuda"), assign.features_of(snap)
+
+
 def wide_snapshot(wrappers, TorchBatchScheduler, n_pods: int):
     """Shape L (16 pods): an n_pods-pod SchedulingBasic batch onto 50,000
     node-default nodes, 65,536 padded.  Returns (scheduler, snapshot, meta)."""
@@ -2587,6 +2711,104 @@ def scan_edges_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, t
 
 # every recording scheduler the script builds (assert_healthy reads them)
 SCHEDULERS = []
+
+
+def wave_edges_phase(wrappers, assign, dv, bindings, torch) -> None:
+    """The wavefront's thread-block cluster at its edges, each case on the
+    card against its plain version on CPU copies and against the plain scan,
+    exact (run_wavefront): a wave whose top lists tie across blocks (every
+    37th of 4,000 identical nodes feasible, 4,096 padded: 8 blocks); waves
+    of one live member at scattered slots of 32 (5,000 nodes, 8,192
+    padded: 16 blocks); fewer padded nodes than kk (20 nodes, waves of
+    32); a fit flip late in a wave (28 small pods, then 4 large ones that
+    no longer fit where the small ones went); a coupled wave (32 pods on
+    one host port: the scan's step member by member); and the gang release
+    (two gangs of four where six pods fit)."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import schema
+
+    gi, mi = wrappers.GI, wrappers.MI
+    cfg = assign.DEFAULT_SCORE_CONFIG
+
+    def node(i, cpu=NODE_CPU_MILLI, label=None):
+        w = wrappers.make_node(f"node-{i}").capacity(cpu_milli=cpu, mem=NODE_MEM_GI * gi,
+                                                     pods=NODE_PODS).zone(f"zone-{i % ZONES}")
+        return (w.label("edge", "yes") if label else w).obj()
+
+    def pod(name, cpu=POD_CPU_MILLI, edge=False, prio=0, port=None, group=None):
+        w = wrappers.make_pod(name).req(cpu_milli=cpu, mem=POD_MEM_MI * mi).priority(prio)
+        if edge:
+            w.node_selector(edge="yes")
+        if port:
+            w.host_port(port)
+        if group:
+            w.group(group)
+        return w.obj()
+
+    def one_wave(snap, k):
+        order = np.argsort(-np.asarray(snap.pods.priority), kind="stable").astype(np.int32)
+        members = np.full((max(1, -(-len(order) // k)), k), -1, np.int32)
+        for w in range(members.shape[0]):
+            part = order[w * k:(w + 1) * k]
+            members[w, :len(part)] = part
+        return members
+
+    out = []
+    cases = [
+        ("ties_across_blocks",
+         [node(i, label=i % 37 == 0) for i in range(4000)],
+         [pod(f"tie-{i}", edge=True) for i in range(64)], lambda snap: one_wave(snap, 32)),
+        ("one_member_of_32",
+         [node(i) for i in range(MAIN[0])], [pod(f"lone-{i}") for i in range(40)], None),
+        ("fewer_nodes_than_kk",
+         [node(i) for i in range(20)], [pod(f"few-{i}") for i in range(96)],
+         lambda snap: one_wave(snap, 32)),
+        ("late_fit_flip",
+         [node(i, cpu=2000, label=i % 250 == 0) for i in range(2000)],
+         [pod(f"small-{i}", cpu=200, edge=True, prio=10) for i in range(28)]
+         + [pod(f"large-{i}", cpu=1900, edge=True) for i in range(4)],
+         lambda snap: one_wave(snap, 32)),
+        ("coupled_ports",
+         [node(i) for i in range(2000)], [pod(f"port-{i}", port=8080) for i in range(32)],
+         lambda snap: one_wave(snap, 32)),
+        ("gang_release",
+         [node(i, cpu=2000, label=i % 500 == 0) for i in range(1500)],
+         [pod(f"gang-{i}", cpu=900, edge=True, group=f"g{i // 4}") for i in range(8)],
+         lambda snap: one_wave(snap, 32)),
+    ]
+    for label, nodes, pods, plan in cases:
+        snap, _meta = schema.SnapshotBuilder().build(nodes, pods)
+        features = assign.features_of(snap)
+        n_groups = schema.num_groups(snap)
+        n = int(snap.cluster.allocatable.shape[0])
+        if plan is None:   # one live member a wave, at slot (7 k) % 32
+            order = np.argsort(-np.asarray(snap.pods.priority), kind="stable").astype(np.int32)
+            members = np.full((len(order), 32), -1, np.int32)
+            for k, i in enumerate(order):
+                members[k, (7 * k) % 32] = i
+        else:
+            members = plan(snap)
+        ts = dv.to_device(snap, "cuda")
+        fallbacks = run_wavefront(ts, features, n_groups, cfg, members, assign, bindings, torch)
+        res = assign.wavefront_assign(ts, members, cfg, features=features, n_groups=n_groups)
+        placed = res.assignment.cpu().numpy()[:len(pods)]
+        blocks = sorted({bindings.scan_node_block(n, int(a)) for a in placed if a >= 0})
+        reasons = res.reasons.cpu().numpy()[:len(pods)]
+        row = {"case": label, "padded_nodes": n, "cluster_blocks": bindings.scan_shape(n)[0],
+               "placed": int((placed >= 0).sum()), "fallbacks": fallbacks,
+               "picked_blocks": len(blocks)}
+        if not {
+            "ties_across_blocks": len(blocks) >= 2 and row["placed"] == 64,
+            "one_member_of_32": row["placed"] == 40 and fallbacks == 0,
+            "fewer_nodes_than_kk": n < 33 and fallbacks == 0,
+            "late_fit_flip": fallbacks >= 1 and row["placed"] == 28,
+            "coupled_ports": fallbacks == 32,
+            "gang_release": bool((reasons == assign.REASON_GANG).any()),
+        }[label]:
+            raise AssertionError(f"wave_edges/{label}: the case did not show: {row}")
+        out.append(row)
+    torch.cuda.synchronize()
+    emit({"phase": "wave_edges", "cases": out, "exact": True})
 
 
 def recording(cls):
@@ -2796,7 +3018,7 @@ def resident_phase(wrappers, TorchBatchScheduler, bindings, torch, card):
         check_capacity(w.state)
         out["churn"][route] = {"batches": crecs, "launches": clog}
     emit(out)
-    return launches
+    return launches, out["churn"]["wavefront"]["launches"]["wavefront"]
 
 
 def partials_eval_need(cluster, specs, cols, torch) -> tuple:
@@ -2988,10 +3210,13 @@ def slice_stats_need(cluster, pods, gang, features, torch) -> tuple:
 
 def run_evaluate_single(snap, features, cfg, assign, bindings, torch, timed: bool = False):
     """Kernel evaluate_single (its filter stage, then its score stage, with
-    class_extras between them on the filter's feasible row) against its
-    plain versions on the same card inputs, exact; the whole entry point
-    evaluate_single on the card against the plain path on a CPU copy.
-    Returns (feas, masked) and, timed, the kernel's summary row."""
+    class_extras between them on the filter's feasible row; for a pod
+    without an extra row also the fused launch, against the two stages)
+    against its plain versions on the same card inputs, exact; the whole
+    entry point evaluate_single on the card against the plain path on a
+    CPU copy.  Returns (feas, masked) and, timed, the kernel's summary row:
+    the entry point's launches (one fused, or the two stages), with the
+    host clock around the same calls beside the CUDA-event time."""
     topo_z = assign.required_topo_z(snap) if assign.needs_topo(features) else 1
     cluster, pods, sel, pref = snap[:4]
     sel_mask, pref_mask = assign.selector_match(cluster, sel), assign.preferred_match(cluster, pref)
@@ -3021,6 +3246,15 @@ def run_evaluate_single(snap, features, cfg, assign, bindings, torch, timed: boo
 
     masked = k_score()
     err = check_equal("evaluate_single (score)", (masked,), (plain_score(),), torch)
+    fused = extra is None
+
+    def k_fused():
+        return bindings.evaluate_single_fused(cluster, pods, sfeas[0], aff[0], taint[0],
+                                              features, cfg, sp_args, tm_args)
+
+    if fused:
+        check_equal("evaluate_single (fused against its two stages)", k_fused(),
+                    (feas, feas_sp, bonus, masked), torch)
     whole = assign.evaluate_single(snap, cfg, topo_z, features)
     check_equal("evaluate_single (card against the plain path on the CPU)", whole,
                 assign.evaluate_single(cpu_copy(snap), cfg, topo_z, features), torch)
@@ -3028,6 +3262,8 @@ def run_evaluate_single(snap, features, cfg, assign, bindings, torch, timed: boo
         return whole, None
 
     def kern():
+        if fused:
+            return k_fused()
         k_filter()
         return k_score()
 
@@ -3040,7 +3276,10 @@ def run_evaluate_single(snap, features, cfg, assign, bindings, torch, timed: boo
     if extra is not None:
         need += n * 4
     bms, by = bound(need, float(n * (2 * r + 60)))
-    return whole, {"name": "evaluate_single", "max_abs_err": err, "ms": cuda_ms(kern, 50, torch),
+    ms, host_ms = cuda_host_ms(kern, 200, torch)
+    return whole, {"name": "evaluate_single", "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+                   "device_ms": graph_ms(kern, 20, 10, torch),
+                   "launches_a_call": 1 if fused else 2,
                    "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by}
 
 
@@ -3253,7 +3492,8 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
     spread, anti-affinity, preferred affinity, image) over HTTP and a
     shaped pod on a c10 slice cluster under both policies.  Each window's
     launch counters are read: match_terms, class_statics and
-    evaluate_single (two a request), class_extras for the variants."""
+    evaluate_single (one a request: the fused launch), class_extras for the
+    variants."""
     import json
     import urllib.request
 
@@ -3306,7 +3546,7 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
         basic_launches = dict(bindings.LAUNCHES)
         check_launches("extender", basic_launches, {"match_terms", "class_statics",
                                                     "evaluate_single"})
-        if basic_launches["evaluate_single"] != 2 * 2 * n_req:
+        if basic_launches["evaluate_single"] != 2 * n_req:
             raise AssertionError(f"extender: evaluate_single launched "
                                  f"{basic_launches['evaluate_single']} times for {2 * n_req} "
                                  "requests")
@@ -3382,6 +3622,11 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
                                                     [ExtenderArgs.from_dict(bodies[0]).pod])
         _whole, row = run_evaluate_single(dv.to_device(snap, "cuda"), assign.features_of(snap),
                                           DEFAULT_SCORE_CONFIG, assign, bindings, torch, timed=True)
+        # E+: the same with a preferred inter-pod term (an extra row: the
+        # two stages), timed too
+        _whole, row_plus = run_evaluate_single(
+            *single_snapshot(wrappers, TorchBatchScheduler, True), DEFAULT_SCORE_CONFIG, assign,
+            bindings, torch, timed=True)
     finally:
         srv.stop()
     emit({"phase": "extender", "workload": "SchedulingBasic/5000Nodes behind the extender",
@@ -3391,7 +3636,8 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
           "variants": sorted(variants), "shaped": {"nodes": len(slice_names), **policies},
           "equal_cpu": True, "launches": basic_launches, "variant_launches": variant_launches,
           "card": card})
-    return row, basic_launches
+    return (dict(row, shape="E", launches=basic_launches["evaluate_single"]),
+            dict(row_plus, shape="E+", launches=variant_launches["evaluate_single"]))
 
 
 def proto_phase(wrappers, torch, bindings, card):

@@ -13,9 +13,19 @@ KERNEL and its shapes (the first is the default):
   auction_spread  T  one round of TopologySpreading/5000Nodes' measured
                      batch (round 0's accepted set, 2,048 padded pods)
   wavefront       W  SchedulingNodeAffinity/5000Nodes' first measured
-                     500-pod batch, the planner's waves
+                     500-pod batch, the planner's waves (16 of 32 pods)
+                  S  TopologySpreading/5000Nodes' first 500-pod batch of the
+                     measured pods (the spread phase's wavefront run: one-pod
+                     waves)
+                  F  SchedulingPodAffinity/5000Nodes' measured batch (one-pod
+                     waves)
   auction_bids    B  one bidding round of SchedulingBasic/5000Nodes'
                      measured batch
+  evaluate_single E  one pod-default pod against SchedulingBasic/5000Nodes
+                     behind the extender (8,192 padded nodes, no extra row)
+                  E+ the same with a preferred inter-pod term (an extra row:
+                     filter, then score; class_extras is made once, outside
+                     the timing)
 
 Builds kubernetes_tpu_torch/csrc/KERNEL.cu ("change") and
 OTHER_CSRC_DIR/KERNEL.cu ("other") with build.py's flags plus -Xptxas -v,
@@ -23,12 +33,16 @@ each with its own directory's headers into its own library: pass a whole
 csrc/ directory, for example another commit's unpacked with `git archive`
 into a git-ignored directory.  Both must keep KERNEL's C interface.  The
 inputs come from chip_smoke.py's builders of the timed shapes.  Both
-outputs must equal the plain version's on the same inputs.  The two
-libraries run in the order other, change, change, other, twice; each time
-is the mean of CUDA events around a shape's launches after a warm-up.
-Prints the card's name and power limit, then one JSON object with every
-time, the scan's cluster blocks at the shape and each library's ptxas
-report (registers, shared memory, spills).
+outputs must equal the plain version's on the same inputs.  Each library
+runs its own sequence: evaluate_single's fused launch where the library
+has one (evaluate_single_fused_stage) and the pod no extra row, else its
+two stages.  The two libraries run in the order other, change, change,
+other, twice; each time is the mean of CUDA events around a shape's
+launches after a warm-up, with the host clock around the same calls (no
+sync) beside it; evaluate_single, whose calls the host bounds, also
+replays 20 calls from one CUDA graph (the card's time alone).  Prints the card's name and power limit, then one JSON
+object with every time, the cluster blocks at the shape and each
+library's ptxas report (registers, shared memory, spills).
 """
 
 from __future__ import annotations
@@ -51,8 +65,16 @@ SHAPES = {
         "L": (20, "16 pods onto 50,000 nodes (65,536 padded), the scan"),
     },
     "auction_spread": {"T": (20, "TopologySpreading/5000Nodes measured batch, round 0")},
-    "wavefront": {"W": (10, "SchedulingNodeAffinity/5000Nodes first measured batch")},
+    "wavefront": {
+        "W": (10, "SchedulingNodeAffinity/5000Nodes first measured batch"),
+        "S": (5, "TopologySpreading/5000Nodes first 500-pod measured batch, one-pod waves"),
+        "F": (5, "SchedulingPodAffinity/5000Nodes measured batch, one-pod waves"),
+    },
     "auction_bids": {"B": (20, "SchedulingBasic/5000Nodes measured batch, round 0")},
+    "evaluate_single": {
+        "E": (200, "one pod-default pod against SchedulingBasic/5000Nodes, no extra row"),
+        "E+": (200, "the same with a preferred inter-pod term (an extra row)"),
+    },
 }
 
 
@@ -100,8 +122,16 @@ def make_case(kernel: str, shape: str, torch):
         kern, plain, _prep = chip_smoke.scan_case(snap, meta.features, meta.n_groups, cfg,
                                                   assign, bindings, torch)
         return kern, plain(), lambda got: got, snap.cluster.allocatable.shape[0]
+    if kernel == "evaluate_single":
+        snap, features = chip_smoke.single_snapshot(wrappers, TorchBatchScheduler, shape == "E+")
+        kern, plain = single_case(snap, features, assign, bindings, torch)
+        return kern, plain(), lambda got: got, snap.cluster.allocatable.shape[0]
     if kernel == "wavefront":
-        sched, snap, meta = chip_smoke.affinity_snapshot(wrappers, TorchBatchScheduler)
+        build = {"W": chip_smoke.affinity_snapshot, "S": chip_smoke.spread_wave_snapshot,
+                 "F": chip_smoke.pod_affinity_snapshot}[shape]
+        sched, snap, meta = build(wrappers, TorchBatchScheduler)
+        if meta.route != "wavefront":
+            raise AssertionError(f"shape {shape} took route {meta.route}")
         kern, plain, _prep = chip_smoke.wavefront_case(
             snap, meta.features, meta.n_groups, sched.score_config, meta.wave_plan.members,
             assign, bindings, torch)
@@ -117,6 +147,43 @@ def make_case(kernel: str, shape: str, torch):
         return kern, want, lambda got: got, snap.cluster.allocatable.shape[0]
     want = (inp["bid"], inp["val"])
     return kern, want, lambda got: got[:2], snap.cluster.allocatable.shape[0]
+
+
+def single_case(snap, features, assign, bindings, torch):
+    """(kern, plain) of evaluate_single on a one-pod snapshot on the card:
+    the loaded library's own sequence — its fused launch where it has one
+    and the pod no extra row, else the filter stage, then the score stage
+    (with the extra row made once beforehand from the plain filter's
+    feasible row) — and the plain stages on the same inputs, each giving
+    (feas, feas_sp, bonus, masked)."""
+    cluster, pods, sel, pref = snap[:4]
+    topo_z = assign.required_topo_z(snap) if assign.needs_topo(features) else 1
+    reps = torch.zeros(1, dtype=torch.int32, device=cluster.allocatable.device)
+    sel_mask = assign.selector_match(cluster, sel)
+    sfeas, aff, taint = bindings.class_statics(cluster, pods, sel_mask,
+                                               assign.preferred_match(cluster, pref), reps)
+    sp_args = assign.spread_prep(snap, sel_mask, features, topo_z)
+    tm_args = assign.terms_prep(snap, features, topo_z)
+    stage1 = assign.single_filter_plain(cluster, pods, sfeas[0], features, sp_args, tm_args)
+    extra = assign.extras_prep(snap, features, assign.DEFAULT_SCORE_CONFIG, reps,
+                               stage1[0][None], topo_z)
+    extra = extra[0] if extra is not None else None
+    cfg = assign.DEFAULT_SCORE_CONFIG
+
+    def kern():
+        if extra is None and bindings.fused_single_stage() >= 0:
+            return bindings.evaluate_single_fused(cluster, pods, sfeas[0], aff[0], taint[0],
+                                                  features, cfg, sp_args, tm_args)
+        feas, feas_sp, bonus = bindings.evaluate_single_filter(cluster, pods, sfeas[0],
+                                                               features, sp_args, tm_args)
+        return feas, feas_sp, bonus, bindings.evaluate_single_score(
+            cluster, pods, feas, feas_sp, bonus, aff[0], taint[0], extra, features, cfg, sp_args)
+
+    def plain():
+        return (*stage1, assign.single_score_plain(cluster, pods, *stage1, aff[0], taint[0],
+                                                   extra, features, cfg, sp_args))
+
+    return kern, plain
 
 
 def main() -> int:
@@ -149,19 +216,32 @@ def main() -> int:
     build.build_all()   # the kernels that prepare the inputs
     kern, want, view, n_nodes = make_case(kernel, shape, torch)
     times = {"other": [], "change": []}
+    host = {"other": [], "change": []}
+    device = {"other": [], "change": []}   # evaluate_single: replayed from a CUDA graph
     for which in ("other", "change", "change", "other") * 2:
         build._libs[kernel] = libs[which]
         chip_smoke.check_equal(f"{kernel} ({which})", view(kern()), want, torch)
-        times[which].append(chip_smoke.cuda_ms(kern, iters, torch))
+        ms, host_ms = chip_smoke.cuda_host_ms(kern, iters, torch)
+        times[which].append(ms)
+        host[which].append(host_ms)
+        if kernel == "evaluate_single":
+            device[which].append(chip_smoke.graph_ms(kern, 20, 10, torch))
     build._libs[kernel] = change
     result = {"kernel": kernel, "shape": shape, "workload": workload,
               "other_source": str(other_dir), "launches_a_timing": iters, "ms": times,
               "median_ms": {k: statistics.median(v) for k, v in times.items()},
-              "equal_plain": True,
+              "host_ms": host,
+              "median_host_ms": {k: statistics.median(v) for k, v in host.items()},
+              "device_ms": device,
+              "median_device_ms": {k: statistics.median(v) for k, v in device.items() if v},
+              "equal_plain": True, "padded_nodes": n_nodes,
               "ptxas": {"change": change_report, "other": other_report}}
-    if kernel == "greedy_scan":
-        result["padded_nodes"] = n_nodes
+    if kernel in ("greedy_scan", "wavefront", "evaluate_single"):
         result["cluster_blocks"], result["block_threads"] = bindings.scan_shape(n_nodes)
+    if kernel == "wavefront":   # the change's dynamic shared memory at this shape
+        smem = change.wavefront_smem_bytes
+        smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int] * 4
+        result["dynamic_smem_bytes"] = smem(n_nodes, bindings.MAX_WAVE, 0, 0)
     print(chip_smoke.card_line(), flush=True)
     print(json.dumps(result), flush=True)
     return 0

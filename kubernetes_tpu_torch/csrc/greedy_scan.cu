@@ -28,7 +28,7 @@
 // Design: one thread-block cluster of G blocks on neighbouring SMs,
 // launched with cudaLaunchKernelEx and the cluster dimension attribute
 // (non-portable sizes allowed above 8).  The shape is a fixed function of
-// N (launch_shape below), about one node a thread: blocks of 512 threads
+// N (cluster_common.cuh launch_shape), about one node a thread: blocks of 512 threads
 // up to 8,192 nodes (a 512-thread block may use 128 registers a thread, so
 // the evaluation runs without spills), of 1,024 threads (64 registers)
 // above; G = N / threads, at least 2 and at most 16 — 2 blocks of 512 at
@@ -100,8 +100,9 @@
 // corner_mask, assign.py:717-721, reads the same pre-placement state).
 //
 // The filters, scores and the team-generic evaluation of one pod live in
-// solve_common.cuh, shared with the wavefront and auction kernels (which
-// evaluate with one block, BlockTeam).
+// solve_common.cuh, shared with the auction kernels (which evaluate with
+// one block, BlockTeam); the cluster's shape, team and launch live in
+// cluster_common.cuh, shared with wavefront.cu and evaluate_single.cu.
 //
 // Numerics: every score is a floor of IEEE float32 operations in the
 // reference's order (__fadd_rn / __fmul_rn / __fdiv_rn / __fsqrt_rn, and the
@@ -109,210 +110,11 @@
 // for bit.  The one multiply-add the reference's compiler fuses (inside
 // jnp.interp) is fused here too (__fmaf_rn).
 
-#include <cooperative_groups.h>
+#include "cluster_common.cuh"
 
-#include "solve_common.cuh"
-
-namespace cg = cooperative_groups;
 using namespace solve;
 
 namespace {
-
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxCluster = 16;   // H100: the largest non-portable cluster
-constexpr int kSmallThreads = 512; // up to kMaxCluster * 512 nodes
-
-// The launch shape for N nodes, about one node a thread: 512 threads a
-// block up to 16 x 512 = 8,192 nodes (the register budget of a 512-thread
-// block holds the evaluation without spills), 1,024 threads above; N /
-// threads blocks, at least 2 and at most 16.
-struct Shape {
-    int threads, blocks;
-};
-
-__host__ __device__ inline Shape launch_shape(int n)
-{
-    const int t = n <= kMaxCluster * kSmallThreads ? kSmallThreads : kMaxThreads;
-    const int g = (n + t - 1) / t;
-    return {t, g < 2 ? 2 : (g > kMaxCluster ? kMaxCluster : g)};
-}
-
-// The block of a g-block cluster that owns node nd: 32-node chunks, dealt
-// round robin.
-__host__ __device__ inline int block_of(int nd, int g)
-{
-    return (nd >> 5) % g;
-}
-
-// The exchange slots of one block (shared memory; every block of the
-// cluster writes its partial into slot [its rank] of every block's copy).
-struct Slots {
-    Step step[2][kMaxCluster];
-    float best[2][kMaxCluster];       // pass 2's picks
-    int idx[2][kMaxCluster];
-    float guess_best[2][kMaxCluster]; // pass 1's picks against the guess
-    int guess_idx[2][kMaxCluster];
-    float mins[2][kMaxCluster][kMaxMC];
-};
-
-__device__ __forceinline__ bool same_bits(float a, float b)
-{
-    return __float_as_uint(a) == __float_as_uint(b);
-}
-
-// A cluster evaluating one pod: this block's nodes, the team-wide
-// thread numbering and barrier, and the reductions merged across the
-// blocks through distributed shared memory (solve_common.cuh, "Teams").
-struct ClusterTeam {
-    static constexpr bool kSpeculate = true;   // block_eval: one exchange on a hit
-    unsigned rank_, size_;   // block rank, blocks in the cluster
-    mutable Step guess;      // the maxima pass 1 scores against: the last step's
-    int par;                 // step parity: which exchange buffer
-    Slots* slots;            // this block's slots
-
-    __device__ int rank() const { return (int)(rank_ * blockDim.x + threadIdx.x); }
-    __device__ int size() const { return (int)(size_ * blockDim.x); }
-    // block b owns the 32-node chunks q with q % G == b; a warp visits
-    // 32 neighbouring nodes
-    __device__ int first() const
-    {
-        return (int)((rank_ + size_ * (threadIdx.x >> 5)) * 32 + (threadIdx.x & 31));
-    }
-    __device__ int stride() const { return (int)(size_ * blockDim.x); }
-    __device__ int end(int n) const { return n; }
-    __device__ bool owns(int nd) const { return block_of(nd, (int)size_) == (int)rank_; }
-    __device__ void sync() const { cg::this_cluster().sync(); }
-
-    // Reductions end in one block barrier: each warp's lane 0 leaves the
-    // warp's partial in sc; thread t < G then merges the block's warps and
-    // stores the block's partial into slot [rank] of block t; one cluster
-    // barrier, and every thread merges the G slots.
-    template <class T>
-    __device__ void store(T* slot, const T& v) const
-    {
-        *cg::this_cluster().map_shared_rank(slot, threadIdx.x) = v;
-    }
-
-    // pass 1's Step and its pick against the guess, merged in one exchange
-    __device__ Step reduce_step_best(Step st, float& best, int& idx, Scratch& sc) const
-    {
-        const int warp = threadIdx.x >> 5;
-        st = warp_reduce_step(st);
-        warp_reduce_best(best, idx);
-        if ((threadIdx.x & 31) == 0) {
-            sc.warp_step[warp] = st;
-            sc.warp_best[warp] = best;
-            sc.warp_idx[warp] = idx;
-        }
-        __syncthreads();
-        if (threadIdx.x < size_) {
-            Step bs = step_zero();
-            float bb = -INFINITY;
-            int bi = 0x7fffffff;
-            for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-                bs = step_merge(bs, sc.warp_step[w]);
-                better(bb, bi, sc.warp_best[w], sc.warp_idx[w]);
-            }
-            store(&slots->step[par][rank_], bs);
-            store(&slots->guess_best[par][rank_], bb);
-            store(&slots->guess_idx[par][rank_], bi);
-        }
-        sync();
-        Step all = step_zero();
-        best = -INFINITY;
-        idx = 0x7fffffff;
-        for (unsigned b = 0; b < size_; ++b) {
-            all = step_merge(all, slots->step[par][b]);
-            better(best, idx, slots->guess_best[par][b], slots->guess_idx[par][b]);
-        }
-        return all;
-    }
-
-    // whether the maxima the scores read (the spread raw max / min only
-    // with soft rows) equal the guess bit for bit; the merged maxima become
-    // the next guess
-    __device__ bool guessed(const Step& all, bool soft) const
-    {
-        const bool hit = same_bits(all.max_aff, guess.max_aff)
-            && same_bits(all.max_taint, guess.max_taint)
-            && (!soft || (same_bits(all.sp_mx, guess.sp_mx)
-                          && same_bits(all.sp_mn, guess.sp_mn)));
-        guess = all;
-        return hit;
-    }
-
-    __device__ void reduce_best(float& best, int& idx, Scratch& sc) const
-    {
-        warp_reduce_best(best, idx);
-        if ((threadIdx.x & 31) == 0) {
-            sc.warp_best[threadIdx.x >> 5] = best;
-            sc.warp_idx[threadIdx.x >> 5] = idx;
-        }
-        __syncthreads();
-        if (threadIdx.x < size_) {
-            float bb = -INFINITY;
-            int bi = 0x7fffffff;
-            for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-                better(bb, bi, sc.warp_best[w], sc.warp_idx[w]);
-            }
-            store(&slots->best[par][rank_], bb);
-            store(&slots->idx[par][rank_], bi);
-        }
-        sync();
-        best = -INFINITY;
-        idx = 0x7fffffff;
-        for (unsigned b = 0; b < size_; ++b) {
-            better(best, idx, slots->best[par][b], slots->idx[par][b]);
-        }
-    }
-
-    // ps.minm holds this block's minimum of each hard row (thread 0 wrote
-    // it); afterwards thread 0 holds the cluster's.
-    __device__ void reduce_mins(PodSpread& ps, int mc) const
-    {
-        __syncthreads();
-        if (threadIdx.x < size_) {
-            for (int j = 0; j < mc; ++j) store(&slots->mins[par][rank_][j], ps.minm[j]);
-        }
-        sync();
-        if (threadIdx.x == 0) {
-            for (int j = 0; j < mc; ++j) {
-                float m = kBig;
-                for (unsigned b = 0; b < size_; ++b) m = fminf(m, slots->mins[par][b][j]);
-                ps.minm[j] = m;
-            }
-        }
-    }
-};
-
-// Pod i placed on node `choice` (solve_common.cuh block_spread_update, over
-// this block's nodes): the rows' values at the choice are read once, one
-// thread a row, before the block walks the rows that gain a count.
-// s_vat: [blockDim] shared.
-__device__ void spread_update(const Spread& sp, int n, int i, int choice, const ClusterTeam& team,
-                              int* s_vat)
-{
-    for (int cb = 0; cb < sp.c_dim; cb += blockDim.x) {
-        const int c = cb + threadIdx.x;
-        int v_at = -1;
-        if (c < sp.c_dim && sp.pod_matches[(size_t)i * sp.c_dim + c]) {
-            const size_t o = (size_t)c * n + choice;
-            if (sp.eligible[o]) v_at = sp.v[o];
-        }
-        s_vat[threadIdx.x] = v_at;
-        __syncthreads();
-        const int rows = min((int)blockDim.x, sp.c_dim - cb);
-        for (int cc = 0; cc < rows; ++cc) {
-            const int v = s_vat[cc];
-            if (v < 0) continue;
-            const size_t oc = (size_t)(cb + cc) * n;
-            for (int nd = team.first(); nd < team.end(n); nd += team.stride()) {
-                if (sp.v[oc + nd] == v) sp.counts[oc + nd] = add(sp.counts[oc + nd], 1.0f);
-            }
-        }
-        __syncthreads();
-    }
-}
 
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
@@ -357,11 +159,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
     cg::cluster_group cluster = cg::this_cluster();
     const int tid = threadIdx.x;
     ClusterTeam team;
-    team.rank_ = cluster.block_rank();
-    team.size_ = cluster.num_blocks();
-    team.slots = &slots;
-    team.guess = step_zero();
-    team.par = 0;
+    team.init(&slots);
     const bool lead = team.rank_ == 0 && tid == 0;   // writes the per-pod outputs
 
     Terms tml = tm;                          // the term word carry read from shared memory
@@ -433,7 +231,7 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_scan_kernel(
                     }
                 }
             }
-            if (sp.on) spread_update(sp, n, i, choice, team, s_vat);
+            if (sp.on) cluster_spread_update(sp, n, i, choice, team, s_vat);
             if (tm.on) block_interpod_update(tml, n, i, choice, team);
         }
         __syncthreads();
@@ -529,28 +327,10 @@ extern "C" int greedy_scan_launch(
         sl_on, sl_require, sl_z, sl_d, r, sl_pods_col, sl_node_valid, sl_slice_id, sl_coords,
         sl_dims, sl_pod_shape, sl_pres, sl_occ, sl_integral, sl_free_count);
     const Shape shape = launch_shape(n);
-    const int g = shape.blocks;
     auto* kernel = shape.threads == kSmallThreads ? &greedy_scan_kernel<kSmallThreads>
-                                                  : &greedy_scan_kernel<kMaxThreads>;
-    cudaError_t err = cudaSuccess;
-    if (g > 8) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-        if (err != cudaSuccess) return (int)err;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(g, 1, 1);
-    cfg.blockDim = dim3(shape.threads, 1, 1);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = (cudaStream_t)stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = g;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(
-        &cfg, kernel,
+                                                  : &greedy_scan_kernel<kClusterThreads>;
+    return (int)launch_cluster(
+        kernel, shape, 0, (cudaStream_t)stream,
         n, r, p, c_dim, pw, use_ports, n_groups,
         (const float*)alloc, (float*)requested, (float*)nonzero,
         (uint32_t*)ports, (const uint8_t*)sfeas, (const float*)aff,
@@ -561,8 +341,6 @@ extern "C" int greedy_scan_launch(
         (const float*)fparams, sp, tm, (const float*)extra, sl, (int32_t*)gang_sl,
         (int32_t*)gang_lo, (uint8_t*)gang_corner, (int32_t*)assignment, (float*)scores,
         (int32_t*)feas_counts, (int32_t*)reasons, (int32_t*)incomplete);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
 }
 
 extern "C" const char* greedy_scan_error_string(int err)

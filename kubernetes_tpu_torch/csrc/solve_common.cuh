@@ -1,5 +1,5 @@
 // Device code shared by the three solves (greedy_scan.cu, wavefront.cu,
-// auction_bids.cu): the score parameter block, the per-node filter and
+// auction_bids.cu) and evaluate_single.cu: the score parameter block, the per-node filter and
 // score functions, the PodTopologySpread family (ops/topology.py), the
 // required InterPodAffinity family (ops/interpod.py: the three bitset
 // checks and the carry update) and the block-wide evaluation of one pod,
@@ -10,9 +10,9 @@
 // bonus after everything else, outside the normalised sum.
 //
 // Teams.  A pod is evaluated by a team of threads: one block over every
-// node (BlockTeam, the default: the wavefront, the auction's bids,
-// evaluate_single), or a thread-block cluster whose blocks each own a
-// share of the nodes (greedy_scan.cu's ClusterTeam).  The node loops run
+// node (BlockTeam, the default: the auction's bids), or a thread-block
+// cluster whose blocks each own a share of the nodes (cluster_common.cuh
+// ClusterTeam: the scan, the wavefront, evaluate_single).  The node loops run
 // over this block's share (team.first(), stride(), end()), and the
 // reductions go through the team: a block reduces in shared memory; a
 // cluster then merges the blocks' partials through distributed shared
@@ -699,6 +699,47 @@ __device__ inline void block_interpod_update(const Terms& tm, int n, int i, int 
     }
 }
 
+// A feasible node's total against the maxima `m` (combine_scores' weighted
+// sum with the normalisations, the spread score when the family scores,
+// the class's extra row `erow` when not null, and with `carve` the
+// carve-out bonus).  sp_soft: the pod has soft rows the score reads.  With
+// parts non-null, parts[0] and parts[1] take the node's fit and balanced
+// scores.
+__device__ __forceinline__ float node_score(
+    int n, int r, int nd, const float* alloc, const float* requested, const float* nonzero,
+    const float* pod_req, const float* pod_nz, const float* arow, const float* trow,
+    const Spread& sp, const PodSpread& ps, bool sp_soft, const float* erow, bool carve,
+    float bonus, const Step& m, const Config& cfg, float* parts = nullptr)
+{
+    const float* cap = alloc + (size_t)nd * r;
+    const float fit_s = fit_score(cap, nonzero + (size_t)nd * r, pod_nz, cfg);
+    const float bal_s = balanced_score(cap, requested + (size_t)nd * r, pod_req, cfg);
+    if (parts != nullptr) {
+        parts[0] = fit_s;
+        parts[1] = bal_s;
+    }
+    float total = node_total(fit_s, bal_s, arow[nd], trow[nd], m.max_aff, m.max_taint, cfg);
+    if (sp.on && sp.soft_on) {
+        // spread_score: 0 for a pod without soft rows and at nodes that
+        // lack a soft row's key
+        float s = 0.0f;
+        if (sp_soft) {
+            bool ignored;
+            const float raw = spread_raw(sp, ps, n, nd, ignored);
+            if (!ignored) {
+                s = m.sp_mx <= 0.0f ? kMaxNodeScore
+                    : floorf(dv(mul(kMaxNodeScore, sub(add(m.sp_mx, m.sp_mn), raw)),
+                                fmaxf(m.sp_mx, 1e-30f)));
+            }
+        }
+        total = add(total, mul(cfg.spread_weight, s));
+    }
+    if (erow != nullptr) total = add(total, erow[nd]);
+    // every pod of a slice batch, shaped or not (x + 0 is +0)
+    if (carve) total = add(total, bonus);
+    return total;
+}
+
 // What one pod's evaluation against the carry gives every thread.
 struct Eval {
     Step all;     // stage flags, feasible count, normalisation maxima
@@ -746,32 +787,9 @@ __device__ inline Eval block_eval(
     const bool carve_shaped = carve && pc->shaped;          // unshaped: 0 and ok
     const bool carve_filter = carve_shaped && sl->require;
 
-    // a feasible node's total against the maxima (normalisation, spread)
     auto score_at = [&](int nd, const Step& m, float bonus) {
-        const float* cap = alloc + (size_t)nd * r;
-        const float* rq = requested + (size_t)nd * r;
-        const float fit_s = fit_score(cap, nonzero + (size_t)nd * r, pod_nz, cfg);
-        const float bal_s = balanced_score(cap, rq, pod_req, cfg);
-        float total = node_total(fit_s, bal_s, arow[nd], trow[nd], m.max_aff, m.max_taint, cfg);
-        if (sp.on && sp.soft_on) {
-            // spread_score: 0 for a pod without soft rows and at nodes
-            // that lack a soft row's key
-            float s = 0.0f;
-            if (sp_soft) {
-                bool ignored;
-                const float raw = spread_raw(sp, ps, n, nd, ignored);
-                if (!ignored) {
-                    s = m.sp_mx <= 0.0f ? kMaxNodeScore
-                        : floorf(dv(mul(kMaxNodeScore, sub(add(m.sp_mx, m.sp_mn), raw)),
-                                    fmaxf(m.sp_mx, 1e-30f)));
-                }
-            }
-            total = add(total, mul(cfg.spread_weight, s));
-        }
-        if (erow != nullptr) total = add(total, erow[nd]);
-        // every pod of a slice batch, shaped or not (x + 0 is +0)
-        if (carve) total = add(total, bonus);
-        return total;
+        return node_score(n, r, nd, alloc, requested, nonzero, pod_req, pod_nz, arow, trow,
+                          sp, ps, sp_soft, erow, carve, bonus, m, cfg);
     };
 
     Step st = step_zero();

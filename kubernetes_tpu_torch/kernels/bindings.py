@@ -5,10 +5,11 @@ allocates the outputs with torch, launches the kernel on torch's current
 stream, raises if the launch returned a CUDA error, and adds one to
 `LAUNCHES[name]` for every call of the kernel's C launch function.  A call
 enqueues the kernel's work for one unit: one table (match_terms), one
-batch (class_statics, class_extras, greedy_scan, wavefront — the
-wavefront's call enqueues two kernels a wave —, slice_stats — two kernels),
-one stage of one pod's evaluation (evaluate_single: its filter and its
-score, one call each), one index-list pair of
+batch (class_statics, class_extras, greedy_scan, wavefront — one
+thread-block cluster for the whole batch —, slice_stats — two kernels),
+one pod's evaluation (evaluate_single: filter and score in one call for a
+pod without an extra row, else its filter and its score, one call each,
+with class_extras between them), one index-list pair of
 the partials store (partials_eval), one packed row delta (mirror_rows:
 every leaf it names), one bidding round
 (auction_bids — two kernels; auction_spread, auction_interpod — one), one
@@ -322,9 +323,20 @@ def mirror_rows(buf: torch.Tensor, n_leaves: int, max_units: int) -> None:
     _launch("mirror_rows", dev, _ptr(buf), n_leaves, max_units)
 
 
+_PARAMS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
 def score_params(cfg, r: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(iparams i32[IP_COUNT], fparams f32[FP_COUNT]) of a ScoreConfig, on
-    `device`, in greedy_scan.cu's parameter-block layout."""
+    `device`, in greedy_scan.cu's parameter-block layout; made (two copies
+    to the card) once for each (cfg, r, device), read only by the kernels."""
+    key = (cfg, r, device)
+    if key not in _PARAMS:
+        _PARAMS[key] = _score_params(cfg, r, device)
+    return _PARAMS[key]
+
+
+def _score_params(cfg, r: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     from ..ops.scores import INTERP_EPSILON
 
     if cfg.fit_strategy not in _STRATEGY:
@@ -356,13 +368,25 @@ def score_params(cfg, r: int, device: torch.device) -> Tuple[torch.Tensor, torch
     )
 
 
+_PADS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _pad(dev: torch.device) -> torch.Tensor:
+    """A zero i32[1] on `dev`, made once: the placeholder behind the
+    pointers of a family the launch does not use (no kernel reads or
+    writes it)."""
+    if dev not in _PADS:
+        _PADS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _PADS[dev]
+
+
 def _spread_args(sp_args, features, dev, n: int, p: int, counts=None):
     """The spread family's checked launch arguments: ([on, soft_on, C, MC]
     + 9 pointers, the tensors they point into).  `counts` is the f32[C, N]
     carry the kernel reads (and updates, where it does); without the
     family, zeros and a placeholder pointer."""
     if not features.spread:
-        pad = torch.zeros(1, dtype=torch.int32, device=dev)
+        pad = _pad(dev)
         return [0, 0, 1, 1] + [_ptr(pad)] * 9, [pad]
     i32, f32, b = torch.int32, torch.float32, torch.bool
     table, st = sp_args.table, sp_args.state
@@ -406,7 +430,7 @@ def _terms_args(tm_args, features, dev, n: int, p: int, bits=None, rows=None,
         keep.append(extra)
         extra_ptr = _ptr(extra)
     if not features.interpod:
-        pad = torch.zeros(1, dtype=i32, device=dev)
+        pad = _pad(dev)
         return [0, 1, 1, p, 0] + [_ptr(pad)] * 12 + [extra_ptr], keep + [pad]
     st = tm_args.state
     tabs = [
@@ -449,7 +473,7 @@ def _slices_args(cluster, pods, features, dev, r: int):
 
     i32, b = torch.int32, torch.bool
     if not features.slices:
-        pad = torch.zeros(1, dtype=i32, device=dev)
+        pad = _pad(dev)
         return [0, 0, 1, 1, 0] + [_ptr(pad)] * 9, [pad]
     z, d = int(features.slice_z), int(features.slice_dim)
     if not 1 <= d <= MAX_SLICE_DIM or RESOURCE_PODS >= r:
@@ -671,14 +695,66 @@ def evaluate_single_score(cluster, pods, feas, feas_sp, bonus, arow, trow, extra
     return masked
 
 
+def fused_single_stage() -> int:
+    """The stage value of evaluate_single's fused launch (filter and score
+    in one launch), or -1 when the loaded library has none."""
+    fn = getattr(build.library("evaluate_single"), "evaluate_single_fused_stage", None)
+    if fn is None:
+        return -1
+    fn.restype, fn.argtypes = ctypes.c_int, []
+    return int(fn())
+
+
+def evaluate_single_fused(cluster, pods, srow, arow, trow, features, cfg, sp_args=None,
+                          tm_args=None):
+    """Kernel `evaluate_single`'s filter and score stages in one launch, for
+    a pod without an extra row: pod 0's (feas bool[N], post-spread
+    feasible set bool[N], carve-out bonus f32[N], where(feas, score, -inf)
+    f32[N])."""
+    dev = cluster.allocatable.device
+    f32, b = torch.float32, torch.bool
+    alloc = _arg(cluster.allocatable, f32, dev, "allocatable")
+    requested = _arg(cluster.requested, f32, dev, "requested")
+    nonzero = _arg(cluster.nonzero_requested, f32, dev, "nonzero_requested")
+    srow = _arg(srow, b, dev, "static row")
+    rows = [_arg(arow, f32, dev, "aff row"), _arg(trow, f32, dev, "taint row")]
+    pod_req = _arg(pods.req[0], f32, dev, "pods.req[0]")
+    pod_nz = _arg(pods.nonzero_req[0], f32, dev, "pods.nonzero_req[0]")
+    n, r = alloc.shape
+    p = pods.req.shape[0]
+    if r > MAX_R or srow.shape != (n,) or any(t.shape != (n,) for t in rows):
+        raise ValueError(f"evaluate_single takes at most {MAX_R} resources and [N] rows")
+    if features.interpod_pref or features.images:
+        raise ValueError("evaluate_single's fused launch takes no extra row")
+    stage = fused_single_stage()
+    if stage < 0:
+        raise RuntimeError("the evaluate_single library has no fused stage")
+    iparams, fparams = score_params(cfg, r, dev)
+    sp, _keep = _spread_args(sp_args, features, dev, n, p,
+                             sp_args.state.counts_node.contiguous() if features.spread else None)
+    bits = term_bits_copy(tm_args, features)
+    tm, _keep_tm = _terms_args(tm_args, features, dev, n, p, bits, None, None, 0)
+    sl, _keep_sl = _slices_args(cluster, pods, features, dev, r)
+    feas = torch.empty(n, dtype=b, device=dev)
+    feas_sp = torch.empty(n, dtype=b, device=dev)
+    bonus = torch.empty(n, dtype=f32, device=dev)
+    masked = torch.empty(n, dtype=f32, device=dev)
+    _launch("evaluate_single", dev, stage, n, r, p, _ptr(alloc), _ptr(requested), _ptr(nonzero),
+            _ptr(srow), _ptr(rows[0]), _ptr(rows[1]), _ptr(pod_req), _ptr(pod_nz),
+            _ptr(iparams), _ptr(fparams), *sp, *tm, *sl,
+            _ptr(feas.view(torch.uint8)), _ptr(feas_sp.view(torch.uint8)), _ptr(bonus),
+            _ptr(masked))
+    return feas, feas_sp, bonus, masked
+
+
 def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
               n_groups: int, cfg, sp_args=None, tm_args=None, extra_c=None):
-    """The whole wavefront solve in one call (two kernels a wave, then the
-    gang release).  Returns (assignment, scores, feasible_counts, reasons,
-    requested, nonzero_requested, port_bits, wave_count, wave_fallbacks,
-    spread counts, inter-pod present, blocked and global_any bits; None for
-    a family the batch does not use); the carry tensors are fresh
-    copies."""
+    """The whole wavefront solve in one launch (one thread-block cluster
+    runs every wave and the gang release).  Returns (assignment, scores,
+    feasible_counts, reasons, requested, nonzero_requested, port_bits,
+    wave_count, wave_fallbacks, spread counts, inter-pod present, blocked
+    and global_any bits; None for a family the batch does not use); the
+    carry tensors are fresh copies."""
 
     dev = cluster.allocatable.device
     i32, f32, b = torch.int32, torch.float32, torch.bool
@@ -716,7 +792,8 @@ def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
     tm, _keep_tm = _terms_args(tm_args, features, dev, n, p, bits, rows, extra_c,
                                sfeas_c.shape[0])
     kk = min(k_dim + 1, n)
-    masked = torch.empty((k_dim, n), dtype=f32, device=dev)
+    # the members' wave-start rows and their fit and balanced scores
+    masked = torch.empty((3, k_dim, n), dtype=f32, device=dev)
     topv = torch.empty((k_dim, kk), dtype=f32, device=dev)
     topi = torch.empty((k_dim, kk), dtype=i32, device=dev)
     found_k, reason_k, cnt_k = (torch.empty(k_dim, dtype=i32, device=dev) for _ in range(3))

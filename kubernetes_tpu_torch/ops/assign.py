@@ -1281,6 +1281,23 @@ def single_score(cluster, pods, feas, feas_sp, bonus, arow, trow, extra, feature
                                           extra, features, cfg, sp_args)
 
 
+def single_eval(cluster, pods, srow, arow, trow, features, cfg, sp_args=None, tm_args=None):
+    """Both stages of kernel `evaluate_single` for a pod without an extra
+    row (no preferred inter-pod term, no image): pod 0's (feas bool[N],
+    where(feas, score, -inf) f32[N]) — one launch on the card, the two
+    plain stages for tensors on the CPU."""
+    if cluster.allocatable.device.type == "cpu":
+        feas, feas_sp, bonus = single_filter_plain(cluster, pods, srow, features, sp_args,
+                                                   tm_args)
+        return feas, single_score_plain(cluster, pods, feas, feas_sp, bonus, arow, trow, None,
+                                        features, cfg, sp_args)
+    from ..kernels import bindings
+
+    feas, _feas_sp, _bonus, masked = bindings.evaluate_single_fused(
+        cluster, pods, srow, arow, trow, features, cfg, sp_args, tm_args)
+    return feas, masked
+
+
 def evaluate_single(
     snapshot: Snapshot,
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
@@ -1296,7 +1313,8 @@ def evaluate_single(
     the post-spread set (before the inter-pod and slice filters); the extra
     row normalises over the pod's whole feasible set (class_extras on the
     filter stage's output, not on the static row as in the solves); the
-    slice stage is the anchor's (no gang carry)."""
+    slice stage is the anchor's (no gang carry).  A pod without an extra
+    row takes both stages in one launch (single_eval)."""
     if features is None:
         features = features_of(snapshot)
     if topo_z is None:
@@ -1308,8 +1326,11 @@ def evaluate_single(
     sfeas, aff, taint = class_statics(cluster, pods, sel_mask, pref_mask, reps)
     sp_args = spread_prep(snapshot, sel_mask, features, topo_z)
     tm_args = terms_prep(snapshot, features, topo_z)
+    if not (features.interpod_pref or features.images):
+        return single_eval(cluster, pods, sfeas[0], aff[0], taint[0], features, cfg, sp_args,
+                           tm_args)
     feas, feas_sp, bonus = single_filter(cluster, pods, sfeas[0], features, sp_args, tm_args)
     extra = extras_prep(snapshot, features, cfg, reps, feas[None], topo_z)
-    masked = single_score(cluster, pods, feas, feas_sp, bonus, aff[0], taint[0],
-                          extra[0] if extra is not None else None, features, cfg, sp_args)
+    masked = single_score(cluster, pods, feas, feas_sp, bonus, aff[0], taint[0], extra[0],
+                          features, cfg, sp_args)
     return feas, masked
