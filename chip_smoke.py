@@ -7,7 +7,7 @@ configuration: the resident cluster mirror and the warm partials on
 (use_mirror=False is the cold path).  Phases (one JSON line each on
 stdout; with --log also appended to PATH):
 
-  build      build the fifteen CUDA kernels from kubernetes_tpu_torch/csrc
+  build      build the sixteen CUDA kernels from kubernetes_tpu_torch/csrc
   parity     each kernel against its plain torch version, exact (on the
              card, or on CPU copies of the inputs where the plain version
              adds in pod index order: the scan, the wavefront and the
@@ -18,11 +18,14 @@ stdout; with --log also appended to PATH):
              ImageLocality batches (default weights and weights that are not
              powers of two): the greedy scan; the wavefront with the
              planner's waves and with random partitions (coupled waves and
-             fit flips); the auction's kernels round by round and the whole
-             enqueued round loop, on batches without in-batch ports or
+             fit flips); the auction program's stages (auction_bids,
+             auction_accept, auction_spread, auction_interpod: each launched
+             alone) round by round and the whole loop in one launch
+             (auction_loop), on batches without in-batch ports or
              affinity-direction terms (some also against the plain loop on
              the CPU, among them a gang released past float32's exact
-             range); class_extras on the scan's and the auction's pairs
+             range: auction_release, launched once, timed with its bound);
+             class_extras on the scan's and the auction's pairs
   overlay    the reservations overlay on the card against the CPU: twelve
              nominated pods with requests that are not whole MiB on a node
              already past float32's exact range, two on another; the
@@ -142,9 +145,20 @@ stdout; with --log also appended to PATH):
              call; the plain-torch gather, grows and packed copy)
   small      SchedulingBasic/500Nodes on the card against the plain path on
              the CPU, default route: identical placements and scores
-  north      one 10,000-pod batch onto 50,000 nodes (the auction), then a
-             second 10,000-pod batch after the first one's assumes: a delta
-             sync of the assumed rows, warm against cold
+  north      one 10,000-pod batch onto 50,000 nodes (the auction: one
+             auction_loop launch), its snapshot's program (65,536 padded
+             nodes, 16,384 padded pods) against the plain loop on CPU copies
+             stage by stage and whole, every field, the scheduler's
+             placements equal to the plain loop's, the loop and its stages
+             timed (N); then a second 10,000-pod batch after the first
+             one's assumes: a delta sync of the assumed rows, warm against
+             cold
+  wide_edges the wavefront (a 256-pod SchedulingBasic batch, the planner's
+             waves) and evaluate_single (E: the fused launch; E+: a
+             preferred term, two stages) at 16,384 padded nodes (10,000
+             nodes) and 65,536 (the north scheduler after its batches),
+             where launch_shape takes 1,024-thread blocks, each against its
+             plain version on CPU copies, exact
   breakers   once, after every phase above (none arms a fault; the
              counters only count up): every scheduler built so far has its
              circuit breaker closed, no trip, no host fallback and no
@@ -182,11 +196,12 @@ just before the part and
 read just after; the kernels expected are derived from the batches the
 part's schedulers encoded (route_kernels): the route's own — warm statics
 drop match_terms (kept for the spread family's selector mask) and
-class_statics —, the families' (auction_spread and auction_interpod on the
-auction of a spread / inter-pod batch, class_extras with preferred
+class_statics —, the families' (class_extras with preferred
 inter-pod terms or images, slice_stats after a slice batch's scan) and
 the residents' (partials_eval, mirror_rows, each launched exactly as often
-as the residents recorded); the extender's windows expect match_terms,
+as the residents recorded); every auction batch launches auction_loop
+exactly once and no stage entry point (auction_release after a batch
+with gangs only); the extender's windows expect match_terms,
 class_statics and evaluate_single (one fused launch a request of the
 basic pod), with class_extras for the variants, and the proto request the
 cold auction's.
@@ -280,14 +295,19 @@ SOURCES = {
                     "kubernetes_tpu/ops/assign.py:591"),
     "wavefront": ("kubernetes_tpu_torch/csrc/wavefront.cu",
                   "kubernetes_tpu/ops/assign.py:1090"),
-    "auction_bids": ("kubernetes_tpu_torch/csrc/auction_bids.cu",
+    "auction_loop": ("kubernetes_tpu_torch/csrc/auction_loop.cu",
+                     "kubernetes_tpu/ops/auction.py:762"),
+    # the program's stages: auction_loop.cu's kernel launched for one stage
+    "auction_bids": ("kubernetes_tpu_torch/csrc/auction_common.cuh",
                      "kubernetes_tpu/ops/auction.py:355"),
-    "auction_accept": ("kubernetes_tpu_torch/csrc/auction_accept.cu",
+    "auction_accept": ("kubernetes_tpu_torch/csrc/auction_common.cuh",
                        "kubernetes_tpu/ops/auction.py:680"),
-    "auction_spread": ("kubernetes_tpu_torch/csrc/auction_spread.cu",
+    "auction_spread": ("kubernetes_tpu_torch/csrc/auction_common.cuh",
                        "kubernetes_tpu/ops/auction.py:507"),
-    "auction_interpod": ("kubernetes_tpu_torch/csrc/auction_interpod.cu",
+    "auction_interpod": ("kubernetes_tpu_torch/csrc/auction_common.cuh",
                          "kubernetes_tpu/ops/auction.py:587"),
+    "auction_release": ("kubernetes_tpu_torch/csrc/auction_release.cu",
+                        "kubernetes_tpu/ops/auction.py:825"),
     "class_extras": ("kubernetes_tpu_torch/csrc/class_extras.cu",
                      "kubernetes_tpu/ops/scores.py:337"),
     "partials_eval": ("kubernetes_tpu_torch/csrc/partials_eval.cu",
@@ -308,8 +328,12 @@ SOURCES = {
 # class_statics: all); route_kernels derives a batch's kernels from its
 # meta: warm statics (the partials) drop match_terms and class_statics
 # (match_terms stays with the spread family), the families add theirs, and
-# the residents' recorded launches add partials_eval and mirror_rows
-_AUCTION = ("match_terms", "class_statics", "auction_bids", "auction_accept")
+# the residents' recorded launches add partials_eval and mirror_rows.  The
+# auction is one launch of auction_loop a batch, its repairs inside; its
+# stage entry points (bindings.AUCTION_STAGES: auction_bids,
+# auction_accept's acceptance and commit, auction_spread, auction_interpod;
+# run_auction's round-by-round check launches them alone) run on no path
+_AUCTION = ("match_terms", "class_statics", "auction_loop")
 ROUTE_KERNELS = {
     "greedy": ("match_terms", "class_statics", "greedy_scan"),
     "wavefront": ("match_terms", "class_statics", "wavefront"),
@@ -642,17 +666,25 @@ def greedy_scan_need(cluster, pods, sfeas, feas_counts, features, torch,
     return ins + outs + sp_bytes + tm_bytes, ops + sp_ops + tm_ops
 
 
-def auction_bids_need(cluster, pods, st, requested, tie_k, torch) -> tuple:
+def auction_bids_need(cluster, pods, st, requested, tie_k, torch, assigned=None) -> tuple:
     """(bytes, operations) one bidding round needs on this data: the
     resource rows, the spec classes' static, affinity and taint rows, the
     pods' class, validity, assignment and solve order, the bids out and the
     tie lists out.  Operations: per class the fit test on its static-feasible
     nodes (2 flops a requested resource), ~60 flops of scores on each
     feasible node, 4 integer operations of hash on each tie node; per pod
-    4 (a counting pass for its position in its class)."""
+    4 (a counting pass for its position in its class).  Given the round's
+    `assigned`, only the classes with an active pod (unplaced and valid)
+    count, the only ones a round evaluates; else every class."""
     n, r = cluster.allocatable.shape
     p = pods.req.shape[0]
-    c = st.jspec.shape[0]
+    c_all = st.jspec.shape[0]
+    live = torch.ones(c_all, dtype=torch.bool, device=st.jspec.device)
+    if assigned is not None:
+        active = (assigned < 0) & pods.valid
+        live = torch.zeros_like(live)
+        live[torch.clamp(pods.class_id[active].long(), 0, c_all - 1)] = True
+    c = int(live.sum())
     ins = nbytes(cluster.allocatable, requested, cluster.nonzero_requested,
                  st.sfeas_s, st.aff_s, st.taint_s, pods.class_id, pods.valid, st.order)
     ins += p * 4  # assignment
@@ -665,7 +697,7 @@ def auction_bids_need(cluster, pods, st, requested, tie_k, torch) -> tuple:
                 | (requested + pods.req[rep][None, :] <= cluster.allocatable)).all(dim=1)
         n_static = int(stat.sum())
         n_feas = int((stat & fits).sum())
-        per_joint = int((st.jspec == s).sum())
+        per_joint = int(((st.jspec == s) & live).sum())
         ops += per_joint * (n_static * 2 * tested + n_feas * 60 + n_feas * 4)
     if st.sp is not None:
         # each joint class's spread rows: the live rows' tables and counts
@@ -675,11 +707,11 @@ def auction_bids_need(cluster, pods, st, requested, tie_k, torch) -> tuple:
         table, sps = st.sp.table, st.sp.state
         ins += spread_rows_bytes(table, sps, live_spread_rows(table, torch), 1,
                                  pod_rows=st.k_reps.long())
-        for rep in st.reps.tolist():
-            live = table.pod_idx[rep] >= 0
+        for rep in st.reps[live].tolist():
+            used = table.pod_idx[rep] >= 0
             rows = torch.clamp(table.pod_idx[rep], 0, sps.v.shape[0] - 1)
-            hard = int((live & table.hard[rows]).sum())
-            soft = int((live & ~table.hard[rows]).sum())
+            hard = int((used & table.hard[rows]).sum())
+            soft = int((used & ~table.hard[rows]).sum())
             ops += hard * n + (4 * hard + 3 * soft) * n
     if st.tm is not None:
         # the round's term words in, the constraint classes' term words; the
@@ -849,6 +881,7 @@ def drive_phase(name, fn, bindings, scheds, extra=()):
     import torch
 
     marks = [len(s.metas) for s in scheds]
+    solves = [s.auction_solves for s in scheds]
     torch.cuda.synchronize()
     bindings.reset_launches()
     out = fn()
@@ -862,7 +895,23 @@ def drive_phase(name, fn, bindings, scheds, extra=()):
         if launches[k] != want:
             raise AssertionError(f"phase {name}: kernel {k} launched {launches[k]} times, "
                                  f"the residents recorded {want}")
+    check_auction_launches(name, launches,
+                           sum(s.auction_solves - k for s, k in zip(scheds, solves)))
     return out, launches
+
+
+def check_auction_launches(name, launches, batches: int) -> None:
+    """One auction_loop launch an auction batch dispatched to the card, and
+    no launch of a stage entry point."""
+    from kubernetes_tpu_torch.kernels import bindings
+
+    if launches["auction_loop"] != batches:
+        raise AssertionError(f"phase {name}: auction_loop launched {launches['auction_loop']} "
+                             f"times for {batches} auction batches")
+    for k in bindings.AUCTION_STAGES:
+        if launches[k]:
+            raise AssertionError(f"phase {name}: auction stage {k} launched {launches[k]} "
+                                 "times on a path")
 
 
 def check_launches(name, launches, want) -> None:
@@ -920,7 +969,7 @@ def main() -> int:
           "per_kernel_s": secs, "card": card})
 
     # ---- parity on small batches ------------------------------------------
-    parity_phase(wrappers, assign, auction, dv, filters, bindings, torch)
+    release_row = parity_phase(wrappers, assign, auction, dv, filters, bindings, torch)
     overlay_parity(wrappers, TorchBatchScheduler, torch)
     resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch)
     preemption_parity(wrappers, filters, bindings, torch)
@@ -1078,12 +1127,17 @@ def main() -> int:
         snap_w, meta_w.features, meta_w.n_groups, wsched.score_config,
         meta_w.wave_plan.members, assign, bindings, torch, timed=True,
     ), shape="W"))
-    summary.extend(run_auction(
+    summary.extend(dict(r, shape="B") if r["name"] == "auction_loop" else r for r in run_auction(
         snap_k, sched.score_config, meta_k.tie_k, auction, bindings, torch, timed=True,
     ))
     launches_of = {"greedy_scan": greedy_launches, "wavefront": wave_launches}
     for row in summary:
         row["launches"] = launches_of.get(row["name"], main_launches)[row["name"]]
+    # the auction program on the spread (T) and anti-affinity (A) phases'
+    # measured batches, with their phases' launches
+    summary.extend(dict(r, shape=shape) for rows, shape in ((spread_rows, "T"),
+                                                            (interpod_rows, "A"))
+                   for r in rows if r["name"] == "auction_loop")
     # the wavefront on the other phases' default routes: S (the spread
     # phase's first 500-pod batch), F (SchedulingPodAffinity's measured
     # batch); its launches over every default-route phase that runs it
@@ -1095,6 +1149,7 @@ def main() -> int:
     summary.append(dict(row, launches=spread_launches["auction_spread"]))
     summary.append(next(r for r in interpod_rows if r["name"] == "auction_interpod"))
     summary.append(extras_row)
+    summary.append(release_row)
     for name, shape in (("partials_eval", "full"), ("mirror_rows", "usage500")):
         row = next(r for r in resident_rows if r["name"] == name and r["shape"].startswith(shape))
         summary.append(dict(row, launches=resident_launches[name]))
@@ -1110,7 +1165,17 @@ def main() -> int:
               shape: bindings.scan_shape(n)
               for shape, n in (("B", snap_k.cluster.allocatable.shape[0]), ("C", 64 * 64))},
           "shapes": {"match_terms, class_statics, auction_bids, auction_accept":
-                     "SchedulingBasic/5000Nodes measured batch",
+                     "SchedulingBasic/5000Nodes measured batch (the auction's stages: one "
+                     "round at round 0, each launched alone; no path launches them)",
+                     "auction_loop": "B: SchedulingBasic/5000Nodes measured batch; T: "
+                                     "TopologySpreading/5000Nodes measured batch; A: "
+                                     "SchedulingPodAntiAffinity/5000Nodes measured batch; N: "
+                                     "the north star's first batch (50,000 nodes, 10,000 "
+                                     "pods); the whole loop's launch alone, bound = each "
+                                     "round's stage bounds on that round's data, summed",
+                     "auction_release": "the parity phase's fractional gang batch (its "
+                                        "rounds' assignment, incomplete gangs dropped); "
+                                        "launches: that batch's auction_assign on the card",
                      "greedy_scan": "the same batch, mode=greedy",
                      "wavefront": "W: SchedulingNodeAffinity/5000Nodes first measured batch; "
                                   "S: TopologySpreading/5000Nodes first 500-pod measured batch "
@@ -1178,6 +1243,9 @@ def main() -> int:
     if any(n is None for n in got):
         raise AssertionError("north star: a pod was not placed")
     north_rounds = int(big.last_result.rounds)
+    north_assignment = big.last_result.assignment.cpu()[: len(pods)]
+    # the batch's snapshot again, before the assumes change the state
+    snap_n, meta_n = big.encode_pending(pods)
     for pod, name in zip(pods, got):
         big.assume(pod, name)
     check_capacity(big.state)
@@ -1187,6 +1255,22 @@ def main() -> int:
              "solve_s": big.last_timings["solve_s"], "last_timings": big.last_timings,
              "transfer_bytes": big.metas[-1].transfer_bytes, "launches": north_launches,
              "card": card}
+    # the first batch's snapshot: the program (65,536 padded nodes, 16,384
+    # padded pods) against the plain loop on CPU copies, every field, stage
+    # by stage and whole; its placements equal the scheduler's; the loop
+    # and the stages timed (N)
+    t0 = time.perf_counter()
+    north_rows = run_auction(snap_n, big.score_config, meta_n.tie_k, auction, bindings, torch,
+                             timed=True)
+    plain_n = auction._rounds_plain(*auction.auction_prep(cpu_copy(snap_n),
+                                                           cfg=big.score_config),
+                                    meta_n.tie_k, big.score_config, 64)
+    if not torch.equal(north_assignment, plain_n[0][: len(pods)]):
+        raise AssertionError("north star: the scheduler's placements differ from the plain loop")
+    north["plain_check_s"] = time.perf_counter() - t0
+    north["kernels"] = north_rows
+    summary.append(dict(next(r for r in north_rows if r["name"] == "auction_loop"), shape="N",
+                        launches=north_launches["auction_loop"]))
 
     # the second batch: the first one's placements assumed, another 10,000
     # pods, warm (a delta sync of the rows the assumes dirtied) against cold
@@ -1218,6 +1302,7 @@ def main() -> int:
     north["second"] = {"delta_rows": want_rows, "padded_nodes": big.state.node_axis_bucket,
                        "warm": rw, "cold": rc, "launches": north2_launches}
     emit(north)
+    wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, bindings, torch)
     # every phase so far arms no fault: breakers, fallbacks and cold
     # partials syncs only ever count up, so one check covers them all
     emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
@@ -1239,7 +1324,10 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             **({"shape": row["shape"]} if "shape" in row else {}),
             **({"host_ms": row["host_ms"], "device_ms": row["device_ms"]}
-               if "host_ms" in row else {}),
+               if "device_ms" in row else {}),
+            **({"host_ms": row["host_ms"], "rounds": row["rounds"]}
+               if "rounds" in row else {}),
+            **({"stage_of": row["stage_of"]} if "stage_of" in row else {}),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1247,9 +1335,9 @@ def main() -> int:
     return 0
 
 
-def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> None:
+def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> dict:
     """Every kernel against its plain version on small batches (see the
-    module docstring), exact."""
+    module docstring), exact.  Returns auction_release's summary row."""
     import numpy as np
     from kubernetes_tpu_torch.ops import schema, scores
     from kubernetes_tpu_torch.testing.cases import (
@@ -1286,7 +1374,8 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> Non
         for p in pending:  # in-batch ports route away from the auction
             p.spec.containers[0].ports = []
         snap, _meta = schema.SnapshotBuilder().build(nodes, pending, bound_pods=bound_pods)
-        checked["rounds"] += run_auction(dv.to_device(snap, "cuda"), cfg, None, auction, bindings, torch)
+        checked["rounds"] += run_auction(dv.to_device(snap, "cuda"), cfg, None, auction, bindings,
+                                         torch)
         checked["auction"] += 1
     for (nodes, pending, _b), tie_k, on_cpu in (
             (contended_objects(wrappers, 32, 256, 16), None, False),
@@ -1304,13 +1393,23 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> Non
                                          bindings, torch,
                                          cpu_snap=dv.to_device(snap, "cpu") if on_cpu else None)
         checked["auction"] += 1
-    # the gang post-pass itself, card against CPU, past the exact range
+    # the gang post-pass itself, card against CPU, past the exact range:
+    # one auction_loop and one auction_release launch
     nodes, pending, _b = fractional_gang_objects(wrappers, 1)
     snap, _meta = schema.SnapshotBuilder().build(nodes, pending)
+    torch.cuda.synchronize()
+    bindings.reset_launches()
     gang_card = auction.auction_assign(dv.to_device(snap, "cuda"), n_groups=schema.num_groups(snap))
+    torch.cuda.synchronize()
+    gang_launches = dict(bindings.LAUNCHES)
+    check_auction_launches("parity/gang", gang_launches, 1)
+    if gang_launches["auction_release"] != 1:
+        raise AssertionError(f"parity/gang: auction_release launched "
+                             f"{gang_launches['auction_release']} times, not once")
     gang_cpu = auction.auction_assign(dv.to_device(snap, "cpu"), n_groups=schema.num_groups(snap))
     if not bool(gang_cpu.gang_dropped.any()):
         raise AssertionError("parity: the fractional gang case released no gang")
+    snap_gang = snap
     check_equal("auction gang post-pass (card against CPU)",
                 result_fields(gang_card, True), result_fields(gang_cpu, False), torch)
     # the scan's and the wavefront's gang release on such nodes
@@ -1353,6 +1452,8 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> Non
     if not fallbacks:
         raise AssertionError("parity: no wavefront fallback was exercised")
     emit({"phase": "parity", "cases": checked, "wavefront_fallbacks": fallbacks, "exact": True})
+    return dict(release_row(dv.to_device(snap_gang, "cuda"), auction, bindings, torch),
+                launches=gang_launches["auction_release"])
 
 
 def resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch) -> None:
@@ -1763,9 +1864,9 @@ def route_kernels(meta) -> set:
     """The kernels a batch launches, from its meta: the route's own; with
     warm statics (meta.statics, the resident partials) no class_statics and
     no match_terms unless the spread family needs the selector mask;
-    auction_spread / auction_interpod on the auction with the spread /
-    inter-pod family; class_extras with preferred inter-pod terms or
-    images; and the kernels the residents launched while encoding it."""
+    auction_release after an auction with gangs;
+    class_extras with preferred inter-pod terms or images; and the kernels
+    the residents launched while encoding it."""
     f = meta.features
     kernels = set(ROUTE_KERNELS[meta.route])
     if meta.statics is not None:
@@ -1773,9 +1874,8 @@ def route_kernels(meta) -> set:
         if f.spread:
             kernels.add("match_terms")
     kernels |= {k for k, v in (meta.resident_launches or {}).items() if v}
-    if meta.route == "auction":
-        kernels |= {"auction_spread"} if f.spread else set()
-        kernels |= {"auction_interpod"} if f.interpod else set()
+    if meta.route == "auction" and meta.n_groups > 0:
+        kernels.add("auction_release")
     if f.interpod_pref or f.images:
         kernels.add("class_extras")
     if meta.route == "greedy" and f.slices:
@@ -2175,18 +2275,23 @@ def scan_case(snap, features, n_groups, cfg, assign, bindings, torch):
 
 def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
                 cpu_snap=None):
-    """Kernels auction_bids, auction_accept (and auction_spread) against
-    their plain versions, round by round along the plain trajectory, then
-    the whole enqueued round loop against the plain loop, exact.  The bids
-    and the repair's plain versions run on the card; the commit's and the
-    plain loop, which add in pod index order, on CPU copies (given
-    cpu_snap, the same snapshot on the CPU, also against the plain loop
-    prepared there).  Returns the rounds, or with timed=True the kernels'
-    summary rows (one round each, at round 0)."""
+    """The auction program against its plain versions, exact: each stage
+    launched alone (bindings.AuctionRun's stage methods: the bids, the
+    acceptance, the spread and inter-pod repairs, the commit) round by
+    round along the plain trajectory — the bids' and the repairs' plain
+    versions on the card, the commit's on CPU copies (it adds in pod index
+    order) —, then the whole loop in one launch (kernel auction_loop)
+    against the plain loop on CPU copies (given cpu_snap, the same
+    snapshot on the CPU, also against the plain loop prepared there).
+    Returns the rounds, or with timed=True the summary rows: auction_loop
+    (loop_row: the launch alone, its bound each round's stage bounds on
+    that round's data along the trajectory, summed) and one round of each
+    stage at round 0."""
     n = snap.cluster.allocatable.shape[0]
     tie_k = min(auction.default_tie_k(snap) if tie_k is None else tie_k, n)
     cluster, pods, st = auction.auction_prep(snap, cfg=cfg)
     use_spread, use_terms = st.features.spread, st.features.interpod
+    split = use_spread or use_terms
     if st.extra is not None:
         # the auction's (constraint-class representative, spec-class
         # static row) pairs, against the plain version on the CPU
@@ -2203,79 +2308,145 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     counts = st.sp.state.counts_node.clone() if use_spread else None
     bits = auction.term_bits_copy(st.tm, st.features)
     max_rounds = 64
-    bufs = bindings.auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None,
-                                    st.tm if use_terms else None)
-    rnd, errs, rows = 0, [0.0, 0.0, 0.0, 0.0], []
+    run = bindings.AuctionRun(cluster, pods, st, tie_k, cfg, max_rounds)
+    rnd, errs = 0, [0.0, 0.0, 0.0, 0.0]
+    bounds = []   # each round's stage bounds, (ms, bound_by)
     while rnd < max_rounds and bool(((assigned < 0) & pods.valid).any()):
-        state = bindings.auction_state(rnd, True, dev)
-        got = bindings.auction_bids(cluster, pods, st, req, nz, assigned, state, tie_k, cfg,
-                                    bufs, counts, bits)[:2]
+        run.load(rnd, req, nz, assigned, bid_scores, counts, bits)
+        run.bids()
         bid, val = auction.auction_bids_plain(cluster, pods, st, req, nz, assigned, rnd, tie_k,
                                               cfg, counts, bits)
-        errs[0] = max(errs[0], check_equal("auction_bids", got, (bid, val), torch))
-        kr, kn, ka, ks = req.clone(), nz.clone(), assigned.clone(), bid_scores.clone()
-        state = bindings.auction_state(rnd, True, dev)
+        errs[0] = max(errs[0], check_equal(
+            "auction_bids", (run.bufs["bid"], run.bufs["val"]), (bid, val), torch))
         accept = auction.auction_decide_plain(cluster.allocatable, pods, st.order, bid, req)
         progress = bool(accept.any())
-        kc = kbits = None
-        if use_spread or use_terms:
-            bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka,
-                                    ks, state, max_rounds, bufs, stage=1)
+        if timed:
+            bounds.append([bound(*auction_bids_need(cluster, pods, st, req, tie_k, torch,
+                                                    assigned)),
+                           bound(*auction_accept_need(cluster, pods, bid, torch))])
+            if use_spread:
+                bounds[-1].append(bound(*auction_spread_need(st, accept, bid, counts, torch)))
+        if split:
+            run.accept(1)
             errs[1] = max(errs[1], check_equal(
-                "auction_accept (acceptance)", (bufs["accept"].bool(),), (accept,), torch))
-            if int(state[2]) != int(progress):
+                "auction_accept (acceptance)", (run.bufs["accept"].bool(),), (accept,), torch))
+            if int(run.state[2]) != int(progress):
                 raise AssertionError("auction_accept: progress differs from its plain version")
-            stage = 2
-        else:
-            stage = 3
         if use_spread:
-            kc = counts.clone()
-            bindings.auction_spread(cluster, pods, st, kc, state, bufs)
+            run.spread()
             accept, counts = auction.spread_repair_plain(accept, bid, counts, st,
                                                          cluster.topo_ids)
             errs[2] = max(errs[2], check_equal(
-                "auction_spread", (bufs["accept"].bool(), kc), (accept, counts), torch))
+                "auction_spread", (run.bufs["accept"].bool(), run.counts), (accept, counts),
+                torch))
         if use_terms:
-            kbits = tuple(t.clone() for t in bits)
-            bindings.auction_interpod(cluster, pods, st, kbits, state, bufs)
+            if timed:
+                bounds[-1].append(bound(*auction_interpod_need(st, accept, bid, bits, cluster,
+                                                               torch)))
+            run.interpod()
             accept, bits = auction.interpod_repair_plain(accept, bid, st, cluster.topo_ids, bits)
             errs[3] = max(errs[3], check_equal(
-                "auction_interpod", (bufs["accept"].bool(), *kbits), (accept, *bits), torch))
-        bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka, ks,
-                                state, max_rounds, bufs, stage=stage)
+                "auction_interpod", (run.bufs["accept"].bool(), *run.bits), (accept, *bits),
+                torch))
+        run.accept(2 if split else 3)
         want = auction.auction_commit_plain(*cpu_args(
             (pods, accept, bid, val, req, nz, assigned, bid_scores), torch))
-        errs[1] = max(errs[1], check_equal("auction_accept", (ka, ks, kr, kn), want, torch))
-        if int(state[2]) != int(progress) or int(state[0]) != rnd + 1:
+        errs[1] = max(errs[1], check_equal(
+            "auction_accept", (run.assigned, run.bid_scores, run.requested, run.nonzero), want,
+            torch))
+        if int(run.state[2]) != int(progress) or int(run.state[0]) != rnd + 1:
             raise AssertionError("auction_accept: round state differs from its plain version")
         assigned, bid_scores, req, nz = (t.to(dev) for t in want)
         rnd += 1
         if not progress:
             break
-    got = bindings.auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
+    t0 = time.perf_counter()
     want = auction._rounds_plain(*cpu_args((cluster, pods, st), torch), tie_k, cfg, max_rounds)
-    check_equal("auction rounds", got, want, torch)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = bindings.auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
+    check_equal("auction_loop", got, want, torch)
     if cpu_snap is not None:
         on_cpu = auction._rounds_plain(*auction.auction_prep(cpu_snap, cfg=cfg), tie_k, cfg,
                                         max_rounds)
-        check_equal("auction rounds (card against CPU)", got, on_cpu, torch)
+        check_equal("auction_loop (card against CPU)", got, on_cpu, torch)
+    rounds = int(got[4])
     if not timed:
-        return int(got[4])
+        return rounds
     rows = time_auction_round(auction_round_inputs(snap, cfg, tie_k, auction, bindings, torch),
                               auction, bindings, torch)
     err_of = {"auction_bids": errs[0], "auction_accept": errs[1], "auction_spread": errs[2],
               "auction_interpod": errs[3]}
     for row in rows:
         row["max_abs_err"] = err_of[row["name"]]
+        row["stage_of"] = "auction_loop"
+    if len(bounds) != rounds:
+        raise AssertionError(f"auction: the plain trajectory ran {len(bounds)} rounds, the "
+                             f"program {rounds}")
+    rows.insert(0, loop_row(bindings.AuctionRun(cluster, pods, st, tie_k, cfg, max_rounds),
+                            want, bounds, plain_ms, torch))
     return rows
+
+
+# cycles the card spins (torch.cuda._sleep) before a timed launch's start
+# event, so the host's enqueue of the launch ends before the card reaches
+# the event: about 2 ms on an H100
+SPIN_CYCLES = 4_000_000
+
+
+def launch_ms(launch, reset, iters: int, torch) -> tuple:
+    """(CUDA-event ms, host-clock ms) a call of launch(), the mean over
+    `iters` calls after one warm-up, reset() before each: the events around
+    the launch alone, recorded behind a spin of the card (no host time
+    between them), the host clock around the call (what enqueueing it
+    costs the caller)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    card, host = 0.0, 0.0
+    for k in range(iters + 1):
+        reset()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        launch()
+        t1 = time.perf_counter()
+        stop.record()
+        stop.synchronize()
+        if k:
+            card += start.elapsed_time(stop)
+            host += (t1 - t0) * 1e3
+    return card / iters, host / iters
+
+
+def loop_row(run, want, bounds, plain_ms, torch, iters: int = 10) -> dict:
+    """The whole loop's summary row: the card's time of run.loop() alone
+    (launch_ms: its launch arrays and buffers made beforehand, the carries
+    reset before each call) and the host clock of the call, equal to the
+    plain loop's `want` after the timing; the plain loop's host time on CPU
+    copies; and the bound, each round's stage bounds on that round's data
+    (`bounds`, from the plain trajectory) summed over the rounds run,
+    bound_by the kind with the larger sum."""
+    start = [t.clone() for t in (run.requested, run.nonzero, run.assigned, run.bid_scores)]
+    counts = run.counts.clone() if run.counts is not None else None
+    bits = [t.clone() for t in run.bits] if run.bits else None
+    go = bool(run.state[1])
+    ms, host_ms = launch_ms(run.loop, lambda: run.load(0, *start, counts, bits, go=go),
+                            iters, torch)
+    check_equal("auction_loop (timed)", run.result(), want, torch)
+    by_kind = {}
+    for rnd in bounds:
+        for b_ms, by in rnd:
+            by_kind[by] = by_kind.get(by, 0.0) + b_ms
+    return {"name": "auction_loop", "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": sum(by_kind.values()), "bound_by": max(by_kind, key=by_kind.get),
+            "rounds": len(bounds), "max_abs_err": 0.0, "library_ms": None}
 
 
 def auction_round_inputs(snap, cfg, tie_k, auction, bindings, torch) -> dict:
     """Round 0 of the auction on a snapshot on the card, along the plain
     trajectory (the values run_auction reaches at its first round): the
-    round's bids and accepted set, with a repair family the counts after
-    the spread repair's commit, and the bits and the set it kept before the
-    inter-pod repair.  The inputs round_kernels launches on."""
+    round's bids and accepted set, the counts and bits it starts from, and
+    with the inter-pod family the set the spread repair kept (the
+    inter-pod repair's input).  The inputs round_kernels launches on."""
     n = snap.cluster.allocatable.shape[0]
     tie_k = min(auction.default_tie_k(snap) if tie_k is None else tie_k, n)
     cluster, pods, st = auction.auction_prep(snap, cfg=cfg)
@@ -2287,96 +2458,90 @@ def auction_round_inputs(snap, cfg, tie_k, auction, bindings, torch) -> dict:
     req, nz = cluster.requested, cluster.nonzero_requested
     counts = st.sp.state.counts_node.clone() if use_spread else None
     bits = auction.term_bits_copy(st.tm, st.features)
-    bufs = bindings.auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None,
-                                    st.tm if use_terms else None)
     bid, val = auction.auction_bids_plain(cluster, pods, st, req, nz, assigned, 0, tie_k, cfg,
                                           counts, bits)
     accepted = auction.auction_decide_plain(cluster.allocatable, pods, st.order, bid, req)
-    kept, counts_before = accepted, None
-    if use_spread:
-        kept, counts_before = auction.spread_repair_plain(accepted, bid, counts, st,
-                                                          cluster.topo_ids)
+    kept = accepted
+    if use_spread and use_terms:
+        kept = auction.spread_repair_plain(accepted, bid, counts, st, cluster.topo_ids)[0]
     return {"cluster": cluster, "pods": pods, "st": st, "req": req, "nz": nz,
             "assigned": assigned, "bid_scores": bid_scores, "bid": bid, "val": val,
-            "accepted": accepted, "tie_k": tie_k, "cfg": cfg, "max_rounds": 64, "bufs": bufs,
-            "counts_before": counts_before, "bits_before": bits if use_terms else None,
+            "accepted": accepted, "tie_k": tie_k, "cfg": cfg, "max_rounds": 64,
+            "counts": counts, "bits_before": bits if use_terms else None,
             "accept_before": kept if use_terms else None}
 
 
 def round_kernels(inp: dict, bindings) -> dict:
-    """One round of each auction kernel on auction_round_inputs' values, as
-    a closure by name (the state is reset before every launch, so each call
-    runs the round): auction_bids; auction_accept's stages together; with
-    spread, auction_spread on the round's accepted set and the counts
-    before it; with inter-pod, auction_interpod on the set the spread
-    repair kept and the bits before it."""
-    cluster, pods, st, bufs = inp["cluster"], inp["pods"], inp["st"], inp["bufs"]
+    """One round of each stage of the auction program on
+    auction_round_inputs' values, launched alone on one AuctionRun, as a
+    closure by name (the state, and the carries the stage updates, are
+    reset before every launch, so each call runs the round): auction_bids;
+    auction_accept's stages together; with spread, auction_spread on the
+    round's accepted set and counts; with inter-pod, auction_interpod on
+    the set the spread repair kept and the round's bits."""
+    cluster, pods, st = inp["cluster"], inp["pods"], inp["st"]
     req, nz, assigned, bid_scores = inp["req"], inp["nz"], inp["assigned"], inp["bid_scores"]
-    bid, val, counts_before = inp["bid"], inp["val"], inp["counts_before"]
-    bits_before, max_rounds = inp["bits_before"], inp["max_rounds"]
-    go = bindings.auction_state(0, True, req.device)
-    state = go.clone()
-    split = counts_before is not None or bits_before is not None
+    counts, bits_before = inp["counts"], inp["bits_before"]
+    run = bindings.AuctionRun(cluster, pods, st, inp["tie_k"], inp["cfg"], inp["max_rounds"])
+    run.load(0, req, nz, assigned, bid_scores, inp["counts"], bits_before)
+    go = run.state.clone()
+    split = counts is not None or bits_before is not None
 
     def k_bids():
-        state.copy_(go)
-        return bindings.auction_bids(cluster, pods, st, req, nz, assigned, state, inp["tie_k"],
-                                     inp["cfg"], bufs, counts_before, bits_before)
-
-    kr, kn, ka, ks = req.clone(), nz.clone(), assigned.clone(), bid_scores.clone()
+        run.state.copy_(go)
+        run.bids()
+        return run.bufs["bid"], run.bufs["val"]
 
     def k_accept():
-        state.copy_(go)
-        kr.copy_(req)
-        kn.copy_(nz)
-        ka.copy_(assigned)
-        ks.copy_(bid_scores)
+        run.state.copy_(go)
+        run.requested.copy_(req)
+        run.nonzero.copy_(nz)
+        run.assigned.copy_(assigned)
+        run.bid_scores.copy_(bid_scores)
         for stage in ((1, 2) if split else (3,)):
-            bindings.auction_accept(cluster.allocatable, pods, st.order, bid, val, kr, kn, ka,
-                                    ks, state, max_rounds, bufs, stage=stage)
+            run.accept(stage)
 
     out = {"auction_bids": k_bids, "auction_accept": k_accept}
-    # the round's bids, as auction_bids leaves them in bufs["bid"]
-    bufs["bid"].copy_(bid)
-    if counts_before is not None:
-        kc = counts_before.clone()
+    # the round's bids, as auction_bids leaves them
+    run.bufs["bid"].copy_(inp["bid"])
+    run.bufs["val"].copy_(inp["val"])
+    if counts is not None:
 
         def k_spread():
-            state.copy_(go)
-            bufs["accept"].copy_(inp["accepted"])
-            kc.copy_(counts_before)
-            bindings.auction_spread(cluster, pods, st, kc, state, bufs)
-            return bufs["accept"].bool(), kc
+            run.state.copy_(go)
+            run.bufs["accept"].copy_(inp["accepted"])
+            run.counts.copy_(counts)
+            run.spread()
+            return run.bufs["accept"].bool(), run.counts
 
         out["auction_spread"] = k_spread
     if bits_before is not None:
-        kbits = tuple(t.clone() for t in bits_before)
 
         def k_interpod():
-            state.copy_(go)
-            bufs["accept"].copy_(inp["accept_before"])
-            for t, t0 in zip(kbits, bits_before):
+            run.state.copy_(go)
+            run.bufs["accept"].copy_(inp["accept_before"])
+            for t, t0 in zip(run.bits, bits_before):
                 t.copy_(t0)
-            bindings.auction_interpod(cluster, pods, st, kbits, state, bufs)
+            run.interpod()
 
         out["auction_interpod"] = k_interpod
     return out
 
 
 def time_auction_round(inp: dict, auction, bindings, torch) -> list:
-    """CUDA-event times of one round of each auction kernel (round_kernels
-    on auction_round_inputs' values) and host times of their plain
-    versions (auction_accept's on CPU copies: its commit adds in pod index
-    order), with their bounds."""
+    """CUDA-event times of one round of each stage of the auction program
+    (round_kernels on auction_round_inputs' values) and host times of
+    their plain versions (auction_accept's on CPU copies: its commit adds
+    in pod index order), with their bounds."""
     cluster, pods, st = inp["cluster"], inp["pods"], inp["st"]
     req, nz, assigned, bid_scores = inp["req"], inp["nz"], inp["assigned"], inp["bid_scores"]
     bid, val, tie_k, cfg = inp["bid"], inp["val"], inp["tie_k"], inp["cfg"]
-    counts_before, bits_before = inp["counts_before"], inp["bits_before"]
+    bits_before = inp["bits_before"]
     kern = round_kernels(inp, bindings)
     bids_ms = cuda_ms(kern["auction_bids"], 20, torch)
     accept_ms = cuda_ms(kern["auction_accept"], 20, torch)
     bids_plain = time_plain(lambda: auction.auction_bids_plain(
-        cluster, pods, st, req, nz, assigned, 0, tie_k, cfg, counts_before, bits_before), torch)
+        cluster, pods, st, req, nz, assigned, 0, tie_k, cfg, inp["counts"], bits_before), torch)
     c_alloc, c_pods, c_order, c_bid, c_val, c_req, c_nz, c_as, c_bs = cpu_args(
         (cluster.allocatable, pods, st.order, bid, val, req, nz, assigned, bid_scores), torch)
     accept_plain = time_plain(lambda: auction.auction_commit_plain(
@@ -2390,12 +2555,12 @@ def time_auction_round(inp: dict, auction, bindings, torch) -> list:
         {"name": "auction_accept", "ms": accept_ms, "plain_ms": accept_plain,
          "bound_ms": b2[0], "bound_by": b2[1]},
     ]
-    if counts_before is not None:
+    if inp["counts"] is not None:
         accepted = inp["accepted"]
         spread_ms = cuda_ms(kern["auction_spread"], 20, torch)
         spread_plain = time_plain(lambda: auction.spread_repair_plain(
-            accepted, bid, counts_before, st, cluster.topo_ids), torch)
-        b3 = bound(*auction_spread_need(st, accepted, bid, counts_before, torch))
+            accepted, bid, inp["counts"], st, cluster.topo_ids), torch)
+        b3 = bound(*auction_spread_need(st, accepted, bid, inp["counts"], torch))
         rows.append({"name": "auction_spread", "ms": spread_ms, "plain_ms": spread_plain,
                      "bound_ms": b3[0], "bound_by": b3[1]})
     if bits_before is not None:
@@ -2407,6 +2572,46 @@ def time_auction_round(inp: dict, auction, bindings, torch) -> list:
         rows.append({"name": "auction_interpod", "ms": interpod_ms, "plain_ms": interpod_plain,
                      "bound_ms": b4[0], "bound_by": b4[1]})
     return rows
+
+
+def release_row(snap, auction, bindings, torch) -> dict:
+    """auction_release on a gang batch's auction (the rounds' assignment
+    and usage, the members of incomplete gangs dropped) against its plain
+    version on CPU copies, exact; CUDA events over 20 calls (each subtracts
+    again from the same usage: the same work), its plain version's host
+    time on the CPU copies (it adds in pod index order on the CPU only),
+    and its bound: each dropped pod's assignment, flag and requests
+    read, its node's two usage rows read and written, one subtraction a
+    dropped pod and resource in each of the two rows."""
+    n_groups = int(snap.pods.group_id.max()) + 1
+    n = snap.cluster.allocatable.shape[0]
+    cluster, pods, st = auction.auction_prep(snap)
+    assigned, _bs, req, nz, *_rest = bindings.auction_rounds(
+        cluster, pods, st, auction.default_tie_k(snap), auction.DEFAULT_SCORE_CONFIG, 64)
+    g = pods.group_id
+    gc = torch.clamp(g, 0, n_groups - 1).long()
+    unplaced = ((assigned < 0) & pods.valid & (g >= 0)).to(torch.int32)
+    incomplete = torch.zeros(n_groups, dtype=torch.int32, device=g.device).index_add(
+        0, gc, unplaced) > 0
+    dropped = (g >= 0) & incomplete[gc] & (assigned >= 0)
+    if not bool(dropped.any()):
+        raise AssertionError("auction_release: the gang batch drops no pod")
+    got_req, got_nz = req.clone(), nz.clone()
+    bindings.auction_release(cluster.allocatable, pods, assigned, dropped, got_req, got_nz)
+    c_pods, c_as, c_dr, c_req, c_nz = cpu_args((pods, assigned, dropped, req, nz), torch)
+    err = check_equal("auction_release", (got_req, got_nz),
+                      auction.gang_release_plain(c_pods, c_as, c_dr, c_req, c_nz), torch)
+    ms = cuda_ms(lambda: bindings.auction_release(cluster.allocatable, pods, assigned, dropped,
+                                                  got_req, got_nz), 20, torch)
+    plain_ms = time_plain(lambda: auction.gang_release_plain(c_pods, c_as, c_dr, c_req, c_nz),
+                          torch)
+    d = int(dropped.sum())
+    r = req.shape[1]
+    nodes = int(torch.unique(assigned[dropped]).numel())
+    b = bound(d * (4 + 1 + 2 * r * 4) + nodes * 2 * 2 * r * 4, float(2 * d * r))
+    return {"name": "auction_release", "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "max_abs_err": err, "library_ms": None,
+            "shape": f"parity gang batch: {n} padded nodes, {d} dropped pods"}
 
 
 def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
@@ -2526,6 +2731,34 @@ def spread_snapshot(wrappers, TorchBatchScheduler):
     for pod, name in zip(init, sched.schedule_pending(init)):
         sched.assume(pod, name)
     return (sched, *sched.encode_pending(measured))
+
+
+def measured_snapshot(wrappers, TorchBatchScheduler, objects: str, dims):
+    """A cases.py workload's measured batch after its init pods were
+    scheduled and the placed ones assumed: shape A (objects
+    "pod_anti_affinity_objects", dims ANTI: the interpod phase's auction
+    batch) and P ("preferred_affinity_objects", PREFERRED: the extras
+    phase's).  Returns (scheduler, snapshot, meta)."""
+    from kubernetes_tpu_torch.testing import cases
+
+    nodes, init, measured = getattr(cases, objects)(wrappers, *dims)
+    sched = TorchBatchScheduler()
+    for node in nodes:
+        sched.add_node(node)
+    for pod, name in zip(init, sched.schedule_pending(init)):
+        if name is not None:
+            sched.assume(pod, name)
+    return (sched, *sched.encode_pending(measured))
+
+
+def north_snapshot(wrappers, TorchBatchScheduler):
+    """Shape N: the north star's first batch (10,000 pod-default pods onto
+    50,000 node-default nodes; 16,384 and 65,536 padded), as the north
+    phase's scheduler encodes it.  Returns (scheduler, snapshot, meta)."""
+    sched = TorchBatchScheduler()
+    for node in make_cluster(wrappers, NORTH[0]):
+        sched.add_node(node)
+    return (sched, *sched.encode_pending(make_pods(wrappers, NORTH[2], "burst")))
 
 
 def affinity_snapshot(wrappers, TorchBatchScheduler):
@@ -2811,6 +3044,48 @@ def wave_edges_phase(wrappers, assign, dv, bindings, torch) -> None:
     emit({"phase": "wave_edges", "cases": out, "exact": True})
 
 
+# launch_shape's 1,024-thread blocks: WIDE_EDGE_NODES nodes pad to 16,384
+# (16 blocks); the north star's 50,000 to 65,536 (16 blocks)
+WIDE_EDGE_NODES = 10000
+WIDE_WAVE_PODS = 256
+
+
+def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, bindings, torch) -> None:
+    """The wavefront and evaluate_single at 16,384 and 65,536 padded nodes,
+    where launch_shape takes 1,024-thread blocks, exact: on a fresh
+    WIDE_EDGE_NODES-node cluster and on the north phase's scheduler `big`
+    after its two batches (50,000 nodes, 20,000 pods bound), a 256-pod
+    SchedulingBasic batch on the wavefront (the planner's waves) against
+    its plain version and the plain scan on CPU copies, and one
+    pod-default pod (E: the fused launch) and one with a preferred
+    inter-pod term (E+: filter, class_extras, score) through
+    evaluate_single against its plain versions and the plain path on a CPU
+    copy."""
+    from kubernetes_tpu_torch.testing.cases import preferred_affinity_objects
+
+    mid = TorchBatchScheduler()
+    for node in make_cluster(wrappers, WIDE_EDGE_NODES):
+        mid.add_node(node)
+    rows = []
+    for k, sched in enumerate((mid, big)):
+        snap, meta = sched.encode_pending(make_pods(wrappers, WIDE_WAVE_PODS, f"edge-wave{k}"))
+        n_pad = snap.cluster.allocatable.shape[0]
+        if meta.route != "wavefront":
+            raise AssertionError(f"wide_edges: a {WIDE_WAVE_PODS}-pod batch took {meta.route}")
+        fallbacks = run_wavefront(snap, meta.features, meta.n_groups, sched.score_config,
+                                  meta.wave_plan.members, assign, bindings, torch)
+        for preferred in (False, True):
+            pod = (preferred_affinity_objects(wrappers, 1, 0, 1)[2][0] if preferred
+                   else make_pods(wrappers, 1, f"edge-one{k}")[0])
+            one_np, _meta = sched.builder.build_from_state(sched.state, [pod])
+            run_evaluate_single(dv.to_device(one_np, "cuda"), assign.features_of(one_np),
+                                sched.score_config, assign, bindings, torch)
+        rows.append({"padded_nodes": n_pad, "blocks_threads": bindings.scan_shape(n_pad),
+                     "wave_pods": WIDE_WAVE_PODS, "waves": len(meta.wave_plan.members),
+                     "wave_fallbacks": fallbacks, "evaluate_single": ["E", "E+"]})
+    emit({"phase": "wide_edges", "cases": rows, "equal_plain": True})
+
+
 def recording(cls):
     """TorchBatchScheduler keeping the meta of every batch it encodes: the
     launch checks derive each phase's kernels from them.  Each one is
@@ -2819,12 +3094,17 @@ def recording(cls):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.metas = []
+            self.auction_solves = 0   # auction batches dispatched to the card
             SCHEDULERS.append(self)
 
         def encode_pending(self, *args, **kw):
             snap, meta = super().encode_pending(*args, **kw)
             self.metas.append(meta)
             return snap, meta
+
+        def _dispatch(self, snap, meta):
+            self.auction_solves += meta.route == "auction"
+            return super()._dispatch(snap, meta)
 
     return Recorded
 
@@ -3682,6 +3962,7 @@ def proto_phase(wrappers, torch, bindings, card):
     finally:
         srv.stop()
     check_launches("proto", launches, set(ROUTE_KERNELS["auction"]))
+    check_auction_launches("proto", launches, 1)
     want = ProtoBackend(device="cpu").solve(req)
     got = pb.SolveResponse()
     got.CopyFrom(resp)
@@ -4194,8 +4475,8 @@ def nan_parity(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bind
                 "bound_ms": b_ms, "bound_by": b_by, "launches": 0}
     return {"allocatable_inf": {"scan_nan_scores": scan_nan, "auction_rounds": rounds,
                                 "kernels": ["match_terms", "class_statics", "greedy_scan",
-                                            "wavefront", "auction_bids", "auction_accept",
-                                            "evaluate_single"]},
+                                            "wavefront", "auction_loop", "auction_bids",
+                                            "auction_accept", "evaluate_single"]},
             "feasible_batch": full_row}
 
 

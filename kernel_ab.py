@@ -10,8 +10,6 @@ KERNEL and its shapes (the first is the default):
                      padded pods, 26 gangs; the slices phase's timed batch)
                   L  16 pods onto 50,000 nodes (65,536 padded; the scan is
                      the reference's route for a batch this small)
-  auction_spread  T  one round of TopologySpreading/5000Nodes' measured
-                     batch (round 0's accepted set, 2,048 padded pods)
   wavefront       W  SchedulingNodeAffinity/5000Nodes' first measured
                      500-pod batch, the planner's waves (16 of 32 pods)
                   S  TopologySpreading/5000Nodes' first 500-pod batch of the
@@ -19,19 +17,35 @@ KERNEL and its shapes (the first is the default):
                      waves)
                   F  SchedulingPodAffinity/5000Nodes' measured batch (one-pod
                      waves)
-  auction_bids    B  one bidding round of SchedulingBasic/5000Nodes'
-                     measured batch
   evaluate_single E  one pod-default pod against SchedulingBasic/5000Nodes
                      behind the extender (8,192 padded nodes, no extra row)
                   E+ the same with a preferred inter-pod term (an extra row:
                      filter, then score; class_extras is made once, outside
                      the timing)
+  auction         B  the whole round loop of SchedulingBasic/5000Nodes'
+                     measured batch (8,192 padded nodes, 1,024 pods)
+                  T  TopologySpreading/5000Nodes' measured batch (the spread
+                     repair; 2,048 padded pods)
+                  A  SchedulingPodAntiAffinity/5000Nodes' measured batch (the
+                     inter-pod repair)
+                  P  the preferred-affinity variant's measured batch (an
+                     extra row a class)
+                  N  the north star's first batch (65,536 padded nodes,
+                     16,384 padded pods)
 
 Builds kubernetes_tpu_torch/csrc/KERNEL.cu ("change") and
 OTHER_CSRC_DIR/KERNEL.cu ("other") with build.py's flags plus -Xptxas -v,
 each with its own directory's headers into its own library: pass a whole
 csrc/ directory, for example another commit's unpacked with `git archive`
-into a git-ignored directory.  Both must keep KERNEL's C interface.  The
+into a git-ignored directory.  Both must keep KERNEL's C interface, but
+for `auction`, whose sequence is the other tree's own: OTHER_CSRC_DIR's
+package (its parent directory) is loaded under another name and its
+bindings.auction_rounds runs (an earlier tree's per-round enqueue), beside
+this tree's (one launch; both calls make their buffers and launch
+arguments), and this tree's launch alone ("change_loop": AuctionRun.loop
+with its arrays made beforehand, CUDA events behind a spin of the card,
+chip_smoke.launch_ms); the ptxas reports are of every auction source of
+either tree.  The
 inputs come from chip_smoke.py's builders of the timed shapes.  Both
 outputs must equal the plain version's on the same inputs.  Each library
 runs its own sequence: evaluate_single's fused launch where the library
@@ -53,6 +67,7 @@ import json
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import chip_smoke
@@ -64,18 +79,29 @@ SHAPES = {
         "C": (10, "c10 batch after six rounds (4,096 nodes, 256 padded pods), the scan"),
         "L": (20, "16 pods onto 50,000 nodes (65,536 padded), the scan"),
     },
-    "auction_spread": {"T": (20, "TopologySpreading/5000Nodes measured batch, round 0")},
     "wavefront": {
         "W": (10, "SchedulingNodeAffinity/5000Nodes first measured batch"),
         "S": (5, "TopologySpreading/5000Nodes first 500-pod measured batch, one-pod waves"),
         "F": (5, "SchedulingPodAffinity/5000Nodes measured batch, one-pod waves"),
     },
-    "auction_bids": {"B": (20, "SchedulingBasic/5000Nodes measured batch, round 0")},
     "evaluate_single": {
         "E": (200, "one pod-default pod against SchedulingBasic/5000Nodes, no extra row"),
         "E+": (200, "the same with a preferred inter-pod term (an extra row)"),
     },
+    "auction": {
+        "B": (10, "SchedulingBasic/5000Nodes measured batch, the whole round loop"),
+        "T": (5, "TopologySpreading/5000Nodes measured batch, the whole round loop"),
+        "A": (5, "SchedulingPodAntiAffinity/5000Nodes measured batch, the whole round loop"),
+        "P": (5, "preferred-affinity variant's measured batch, the whole round loop"),
+        "N": (3, "the north star's first batch (50,000 nodes, 10,000 pods), the whole loop"),
+    },
 }
+
+
+def auction_sources(csrc: Path) -> list:
+    """The auction's sources in a csrc/ directory (this tree's program and
+    release; an earlier tree's stage kernels)."""
+    return sorted(p.stem for p in csrc.glob("auction_*.cu"))
 
 
 def build_library(kernel: str, csrc: Path, out_dir: Path) -> tuple:
@@ -91,10 +117,15 @@ def build_library(kernel: str, csrc: Path, out_dir: Path) -> tuple:
         + " ".join(flags).encode()
     ).hexdigest()[:16]
     out = out_dir / f"lib{kernel}-{digest}.so"
-    proc = subprocess.run([build.nvcc_path(), *flags, "-I", str(csrc), "-o", str(out), str(src)],
-                          capture_output=True, text=True, check=True)
-    report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    saved = out.with_suffix(".ptxas.json")   # a library built by an earlier run
+    if out.exists() and saved.exists():
+        report = json.loads(saved.read_text())
+    else:
+        proc = subprocess.run([build.nvcc_path(), *flags, "-I", str(csrc), "-o", str(out),
+                               str(src)], capture_output=True, text=True, check=True)
+        report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        saved.write_text(json.dumps(report))
     lib = ctypes.CDLL(str(out))
     err = getattr(lib, f"{kernel}_error_string")
     err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
@@ -107,7 +138,7 @@ def make_case(kernel: str, shape: str, torch):
     version gives, and the padded node axis."""
     from kubernetes_tpu_torch.kernels import bindings
     from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
-    from kubernetes_tpu_torch.ops import assign, auction
+    from kubernetes_tpu_torch.ops import assign
     from kubernetes_tpu_torch.testing import wrappers
 
     if kernel == "greedy_scan":
@@ -136,17 +167,109 @@ def make_case(kernel: str, shape: str, torch):
             snap, meta.features, meta.n_groups, sched.score_config, meta.wave_plan.members,
             assign, bindings, torch)
         return kern, plain(), lambda got: got, snap.cluster.allocatable.shape[0]
-    build = chip_smoke.spread_snapshot if kernel == "auction_spread" else chip_smoke.basic_snapshot
+    raise ValueError(f"no case for kernel {kernel}")
+
+
+def auction_case(shape: str, torch):
+    """(cluster, pods, st, tie_k, cfg, want, n) of an auction shape: the
+    auction's prep of the shape's snapshot on the card and the plain
+    loop's result on CPU copies."""
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.ops import auction
+    from kubernetes_tpu_torch.testing import wrappers
+
+    build = {
+        "B": chip_smoke.basic_snapshot, "T": chip_smoke.spread_snapshot,
+        "A": lambda w, t: chip_smoke.measured_snapshot(w, t, "pod_anti_affinity_objects",
+                                                       chip_smoke.ANTI),
+        "P": lambda w, t: chip_smoke.measured_snapshot(w, t, "preferred_affinity_objects",
+                                                       chip_smoke.PREFERRED),
+        "N": chip_smoke.north_snapshot,
+    }[shape]
     sched, snap, meta = build(wrappers, TorchBatchScheduler)
-    inp = chip_smoke.auction_round_inputs(snap, sched.score_config, meta.tie_k, auction,
-                                          bindings, torch)
-    kern = chip_smoke.round_kernels(inp, bindings)[kernel]
-    if kernel == "auction_spread":
-        want = auction.spread_repair_plain(inp["accepted"], inp["bid"], inp["counts_before"],
-                                           inp["st"], inp["cluster"].topo_ids)
-        return kern, want, lambda got: got, snap.cluster.allocatable.shape[0]
-    want = (inp["bid"], inp["val"])
-    return kern, want, lambda got: got[:2], snap.cluster.allocatable.shape[0]
+    if meta.route != "auction":
+        raise AssertionError(f"shape {shape} took route {meta.route}")
+    cfg = sched.score_config
+    cluster, pods, st = auction.auction_prep(snap, meta.features, meta.topo_split, cfg)
+    want = auction._rounds_plain(*chip_smoke.cpu_args((cluster, pods, st), torch), meta.tie_k,
+                                 cfg, 64)
+    return cluster, pods, st, meta.tie_k, cfg, want, snap.cluster.allocatable.shape[0]
+
+
+def load_other_bindings(csrc: Path, out_dir: Path):
+    """The other tree's kernels.bindings (its package, csrc's parent,
+    loaded as `kt_other`), with its auction libraries built by
+    build_library (ptxas reports returned)."""
+    import importlib
+    import importlib.util
+
+    pkg = csrc.parent
+    spec = importlib.util.spec_from_file_location(
+        "kt_other", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["kt_other"] = mod
+    spec.loader.exec_module(mod)
+    other = importlib.import_module("kt_other.kernels.bindings")
+    other_build = importlib.import_module("kt_other.kernels.build")
+    names = auction_sources(csrc)
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(lambda name: build_library(name, csrc, out_dir), names))
+    reports = {}
+    for name, (lib, report) in zip(names, built):
+        other_build._libs[name], reports[name] = lib, report
+    return other, reports
+
+
+def auction_ab(shape: str, other_dir: Path, out_dir: Path, torch) -> dict:
+    """The auction's whole round loop, this tree's program against the
+    other tree's own sequence, on the same inputs, both equal to the plain
+    loop; other, change, change, other, twice; then this tree's launch
+    alone, twice."""
+    from kubernetes_tpu_torch.kernels import bindings, build
+
+    names = auction_sources(build.CSRC_DIR)
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(lambda name: build_library(name, build.CSRC_DIR, out_dir),
+                              names))
+    change_reports = {}
+    for name, (lib, report) in zip(names, built):
+        build._libs[name], change_reports[name] = lib, report
+    other, other_reports = load_other_bindings(other_dir, out_dir)
+    build.build_all([k for k in build.KERNELS if k not in names])   # the inputs' kernels
+    cluster, pods, st, tie_k, cfg, want, n_nodes = auction_case(shape, torch)
+    iters, workload = SHAPES["auction"][shape]
+    runs = {
+        "other": lambda: other.auction_rounds(cluster, pods, st, tie_k, cfg, 64),
+        "change": lambda: bindings.auction_rounds(cluster, pods, st, tie_k, cfg, 64),
+    }
+    times = {k: [] for k in (*runs, "change_loop")}
+    host = {k: [] for k in times}
+    for which in ("other", "change", "change", "other") * 2:
+        chip_smoke.check_equal(f"auction ({which})", runs[which](), want, torch)
+        ms, host_ms = chip_smoke.cuda_host_ms(runs[which], iters, torch)
+        times[which].append(ms)
+        host[which].append(host_ms)
+    run = bindings.AuctionRun(cluster, pods, st, tie_k, cfg, 64)
+    start = [t.clone() for t in (run.requested, run.nonzero, run.assigned, run.bid_scores)]
+    counts = run.counts.clone() if run.counts is not None else None
+    bits = [t.clone() for t in run.bits] if run.bits else None
+    go = bool(run.state[1])
+    for _ in range(2):
+        ms, host_ms = chip_smoke.launch_ms(
+            run.loop, lambda: run.load(0, *start, counts, bits, go=go), iters, torch)
+        chip_smoke.check_equal("auction (change_loop)", run.result(), want, torch)
+        times["change_loop"].append(ms)
+        host["change_loop"].append(host_ms)
+    rounds = int(want[4])
+    return {"kernel": "auction", "shape": shape, "workload": workload,
+            "other_source": str(other_dir), "launches_a_timing": iters, "rounds": rounds,
+            "classes": int(st.jspec.shape[0]), "padded_pods": int(pods.req.shape[0]),
+            "ms": times, "median_ms": {k: statistics.median(v) for k, v in times.items()},
+            "host_ms": host,
+            "median_host_ms": {k: statistics.median(v) for k, v in host.items()},
+            "equal_plain": True, "padded_nodes": n_nodes,
+            "cluster_blocks_threads": bindings.scan_shape(n_nodes),
+            "ptxas": {"change": change_reports, "other": other_reports}}
 
 
 def single_case(snap, features, assign, bindings, torch):
@@ -204,6 +327,11 @@ def main() -> int:
 
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
+    if kernel == "auction":
+        result = auction_ab(shape, other_dir, out_dir, torch)
+        print(chip_smoke.card_line(), flush=True)
+        print(json.dumps(result), flush=True)
+        return 0
     change, change_report = build_library(kernel, build.CSRC_DIR, out_dir)
     other, other_report = build_library(kernel, other_dir, out_dir)
     # the other library is bound here, so the package's check of its own

@@ -1,0 +1,1342 @@
+// The auction solve's round on a thread-block cluster: the stage bodies
+// of the one kernel that auction_loop.cu launches, as the whole loop (one
+// launch a batch) or as one stage of a round at the same cluster shape
+// (the bindings' stage entry points), so a round-by-round check holds the
+// very code the program runs.
+//
+// Replaces: kubernetes_tpu/ops/auction.py:140 `auction_assign`'s round
+// loop — the `bids` (:355-478), the repairs (:507-678), the `body`
+// (:680-745) and the `cond` (:742-745), one lax.while_loop (:762) inside
+// auction_assign_jit (:855).
+//
+// A round, every stage separated from the next by a cluster barrier
+// (barrier.cluster arrive.release / wait.acquire, cluster_common.cuh
+// ClusterTeam::sync), so one stage's global writes are seen by every block
+// in the next:
+//   class sort   the solve order stably sorted by class key (the class of
+//                an active pod, C for any other) — a least-significant-
+//                digit radix sort over the cluster (radix_sort: 8-bit
+//                digits, a tile of blockDim positions a block, a digit's
+//                lanes in a warp found by __match_any_sync, a warp's
+//                counts in shared memory, an exclusive scan over (digit,
+//                tile)), then each key's first sorted position.  A pod's
+//                j, its position among the active pods of its class in
+//                solve order, is its sorted position less its class's
+//                first: O(P) a pass, against the first design's P^2 / 2
+//                tiled count.  Each class with an active pod is stamped
+//                with the round; the class pass skips the others (no pod
+//                reads their rows).
+//   class pass   per stamped class: the evaluation (solve_common.cuh
+//                block_eval, non-speculating, so every node's masked score
+//                is written), the best, the tie set, and its hashed (key
+//                desc, index asc) top list of cnt = min(#ties, tie_k)
+//                nodes.  Each tie is histogrammed by the top 10 bits of
+//                its 30-bit key; a descending exclusive scan of the
+//                histogram gives each bucket's first rank; the ties of the
+//                buckets that reach rank cnt are listed per bucket, and
+//                each is placed by its rank within its bucket — lax.top_k's
+//                order, with no sort.  The keys are a Weyl-sequence hash of
+//                the node index, so buckets stay small.  Each class in
+//                turn runs over the whole cluster: every block evaluates
+//                its round-robin 32-node chunks, the best merges under
+//                ranks_above, the histogram is summed across the blocks
+//                through distributed shared memory — integer adds, so
+//                order-free — and each block lists its ties at its own
+//                offset within each bucket, the sum of the lower-ranked
+//                blocks' counts.  A NaN best (a corrupt input) equals no
+//                score, so the class bids nowhere, as in the reference.
+//   bids         per pod: slot = j mod max(cnt, 1), bid = the slot's tie
+//                node, val = the class's best (no bid, N and -inf, for an
+//                inactive pod or a class without a tie).
+//   bid sorts    the solve order and the pod index order, both stably
+//                sorted by bid (a node index, N for no bid) with the same
+//                radix sort (the two sorts share each pass's barriers):
+//                `perm` and `perm_idx`; each node group's first position
+//                (searchsorted left) from the run starts of `perm`.
+//   prefix       the requests in `perm` order summed in XLA's CPU cumsum
+//                order (sequential scans of blocks of 16 rows, the block
+//                totals scanned the same way, recursively, each block's
+//                exclusive total added back): the 16-row blocks of level 0
+//                are independent and run over the whole cluster; the upper
+//                levels run on block 0; a position's final prefix is its
+//                level-0 sum plus its block's exclusive total, the same add
+//                the first design's down-sweep made.
+//   acceptance   per sorted position: within = prefix - prefix[first] +
+//                req[first] against the node's remaining capacity;
+//                `progress` is the OR over the cluster.
+//   repairs      the spread repair and the inter-pod anti-affinity repair
+//                (bodies of the first design, written for any block size)
+//                on block 0 while the other blocks wait at the barrier.
+//   commit       each node group's first sorted position adds its accepted
+//                members' requests in pod index order (the group spans the
+//                same positions of perm_idx), the order of the reference's
+//                scatter-add; accepted pods take their bid and value; the
+//                flag = rounds < max_rounds && progress && some valid pod
+//                unplaced, an OR over the cluster.
+// state (i32[3] on the card): rounds executed, the continue flag, the last
+// round's progress.  Every stage entry point returns at once when the flag
+// is down.
+//
+// Exactness: the sorts are integer and stable, the histogram and the
+// flags are integer sums and ORs, the best merges under ranks_above's
+// total order, and every float sum (the prefix, the commit) is added in
+// the first design's order, so the program equals the plain loop
+// (ops/auction.py _rounds_plain) bit for bit whatever G is.
+
+#pragma once
+
+#include "cluster_common.cuh"
+
+namespace auction {
+
+using namespace solve;
+
+constexpr int kKeyBits = 30;     // hkey >> 2
+constexpr int kBucketBits = 10;
+constexpr int kBuckets = 1 << kBucketBits;
+constexpr uint32_t kGolden = 0x9E3779B9u;
+constexpr uint32_t kRound = 0x85EBCA6Bu;
+constexpr uint32_t kMix = 0x27D4EB2Fu;
+constexpr uint32_t kSeedC = 1u;  // tie_seed 0
+constexpr int kRadixBits = 8;
+constexpr int kRadix = 1 << kRadixBits;
+constexpr int kScanBlock = 16;   // XLA's block for a rewritten cumulative sum
+constexpr int kMaxLevels = 9;    // 16^8 rows
+constexpr int kRepairIters = 3;  // ops/auction.py SPREAD_REPAIR_ITERS
+constexpr int kShZ = 256;        // spread counters a warp keeps in shared memory
+constexpr int kBatch = 8;        // spread walk: chunks of 32 positions loaded at once
+constexpr int kRowChunk = 1024;  // spread rows listed at once
+constexpr int kBigI = 1 << 30;   // ops/auction.py _BIG_I
+
+// The launch arguments: ints[kI_*] and ptrs[kP_*] (host arrays), in
+// kernels/bindings.py AUCTION_INTS / AUCTION_PTRS order.
+enum {
+    kI_N, kI_R, kI_P, kI_C_DIM, kI_CS_DIM, kI_CC_DIM, kI_TIE_K, kI_MAX_ROUNDS,
+    kI_SP_ON, kI_SP_SOFT, kI_SP_C, kI_SP_MC, kI_SP_Z,
+    kI_TM_ON, kI_TM_W, kI_TM_U, kI_TM_T, kI_TM_TK, kI_TM_Z,
+    kI_COUNT
+};
+enum {
+    kP_ALLOC, kP_REQUESTED, kP_NONZERO, kP_SFEAS_S, kP_AFF_S, kP_TAINT_S, kP_S_REPS,
+    kP_JSPEC, kP_K_REPS, kP_JCONS, kP_POD_REQ, kP_POD_NZ, kP_POD_VALID, kP_ORDER,
+    kP_CLASS_ID, kP_IPARAMS, kP_FPARAMS, kP_EXTRA,
+    kP_SP_POD_IDX, kP_SP_POD_MATCHES, kP_SP_MAX_SKEW, kP_SP_MIN_DOMAINS, kP_SP_HARD,
+    kP_SP_ELIGIBLE, kP_SP_V, kP_SP_SIZES, kP_SP_COUNTS,
+    kP_TM_KEY_BITS, kP_TM_SLOT_V, kP_TM_MI_SLOT, kP_TM_ANTI_SLOT, kP_TM_AFF_BITS,
+    kP_TM_ANTI_BITS, kP_TM_SELF_MATCH, kP_TM_PRESENT, kP_TM_BLOCKED, kP_TM_GLOBAL_ANY,
+    kP_TOPO_IDS, kP_SLOT_OF_T, kP_MI_DENSE, kP_ANTI_DENSE, kP_SOLVE_POS,
+    kP_ASSIGNED, kP_BID_SCORES, kP_STATE, kP_BID, kP_VAL, kP_INV_C, kP_CNT_C, kP_BEST_C,
+    kP_MASKED, kP_SLOTS, kP_CPERM, kP_CFIRST, kP_CSEEN, kP_PERM, kP_PERM_IDX, kP_BFIRST,
+    kP_RTMP, kP_RCNT, kP_RBASE, kP_PREFIX, kP_SCAN, kP_ACCEPT,
+    kP_COUNTS_IT, kP_ADDS, kP_MINC, kP_KEPT, kP_CAND, kP_ADMIT,
+    kP_MINPOS, kP_CARRIER, kP_Z_MI, kP_Z_AN, kP_RELEASE,
+    kP_COUNT
+};
+
+// Everything a round reads and writes.
+struct Ctx {
+    int n, r, p, c_dim, cs_dim, cc_dim, tie_k, max_rounds;
+    int sp_z;                    // the spread slots' value capacity
+    int t_dim, tk, tz;           // inter-pod repair: terms, topology keys, value capacity
+    const float* alloc;          // [N, R]
+    float* requested;            // [N, R] carry
+    float* nonzero;              // [N, R] carry
+    const uint8_t* sfeas_s;      // [Cs, N]
+    const float* aff_s;          // [Cs, N]
+    const float* taint_s;        // [Cs, N]
+    const int32_t* s_reps;       // [Cs]
+    const int32_t* jspec;        // [C]
+    const int32_t* k_reps;       // [Cc]
+    const int32_t* jcons;        // [C]
+    const float* pod_req;        // [P, R]
+    const float* pod_nz;         // [P, R]
+    const uint8_t* pod_valid;    // [P]
+    const int32_t* order;        // [P] solve order
+    const int32_t* class_id;     // [P]
+    const int32_t* iparams;
+    const float* fparams;
+    const float* extra;          // [C, N] or null
+    Spread sp;                   // counts: the carry
+    Terms tm;                    // bits: the carry
+    const int32_t* topo_ids;     // [N, TK]
+    const int32_t* slot_of_t;    // [T]
+    const uint8_t* mi_dense;     // [P, T]
+    const uint8_t* anti_dense;   // [P, T]
+    const int32_t* solve_pos;    // [P]
+    int32_t* assigned;           // [P] carry
+    float* bid_scores;           // [P] carry
+    int32_t* state;              // [3]
+    int32_t* bid;                // [P]
+    float* val;                  // [P]
+    int32_t* inv_c;              // [C, tie_k]
+    int32_t* cnt_c;              // [C]
+    float* best_c;               // [C]
+    float* masked;               // [N] scratch
+    int32_t* slots;              // [N] scratch
+    int32_t* cperm;              // [P] solve order sorted by class key
+    int32_t* cfirst;             // [C + 1] each class key's first sorted position
+    int32_t* cseen;              // [C + 1] the round a class last had an active pod
+    int32_t* perm;               // [P] solve order sorted by bid
+    int32_t* perm_idx;           // [P] pod index order sorted by bid
+    int32_t* bfirst;             // [N + 1] each bid's first position in perm
+    int32_t* rtmp;               // [2, P] radix ping-pong
+    int32_t* rcnt;               // [2, tiles, kRadix]
+    int32_t* rbase;              // [2, tiles, kRadix]
+    float* prefix;               // [P, R]
+    float* scan;                 // [levels, R]
+    uint8_t* accept;             // [P]
+    float* counts_it;            // spread repair: [C_sp, N]
+    int32_t* adds;               // [C_sp, Z]
+    float* minc;                 // [C_sp]
+    uint8_t* kept;               // [P]
+    uint8_t* cand;               // [P]
+    uint8_t* admit;              // [P]
+    int32_t* minpos;             // inter-pod repair: [Z * T]
+    uint8_t* carrier;            // [Z * T]
+    uint8_t* z_mi;               // [Z * T]
+    uint8_t* z_an;               // [Z * T]
+    uint8_t* release;            // [P]
+};
+
+// The argument check and the context of a launch; returns a cudaError.
+inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
+{
+    a = Ctx{};
+    a.n = ints[kI_N];
+    a.r = ints[kI_R];
+    a.p = ints[kI_P];
+    a.c_dim = ints[kI_C_DIM];
+    a.cs_dim = ints[kI_CS_DIM];
+    a.cc_dim = ints[kI_CC_DIM];
+    a.tie_k = ints[kI_TIE_K];
+    a.max_rounds = ints[kI_MAX_ROUNDS];
+    a.sp_z = ints[kI_SP_Z];
+    a.t_dim = ints[kI_TM_T];
+    a.tk = ints[kI_TM_TK];
+    a.tz = ints[kI_TM_Z];
+    const int sp_on = ints[kI_SP_ON], sp_c = ints[kI_SP_C], sp_mc = ints[kI_SP_MC];
+    const int tm_on = ints[kI_TM_ON], tm_w = ints[kI_TM_W], tm_u = ints[kI_TM_U];
+    if (a.r < 1 || a.r > kMaxR || a.tie_k < 1 || a.c_dim < 1 || a.cs_dim < 1 || a.cc_dim < 1) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1 || a.sp_z < 1)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (tm_on && (tm_w < 1 || tm_w > kMaxTW || tm_u < 1 || a.t_dim < 1 || a.tk < 1 || a.tz < 1
+                  || tm_w != (a.t_dim + 31) / 32)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    auto f = [&](int k) { return (const float*)ptrs[k]; };
+    auto i = [&](int k) { return (const int32_t*)ptrs[k]; };
+    auto u = [&](int k) { return (const uint8_t*)ptrs[k]; };
+    a.alloc = f(kP_ALLOC);
+    a.requested = (float*)ptrs[kP_REQUESTED];
+    a.nonzero = (float*)ptrs[kP_NONZERO];
+    a.sfeas_s = u(kP_SFEAS_S);
+    a.aff_s = f(kP_AFF_S);
+    a.taint_s = f(kP_TAINT_S);
+    a.s_reps = i(kP_S_REPS);
+    a.jspec = i(kP_JSPEC);
+    a.k_reps = i(kP_K_REPS);
+    a.jcons = i(kP_JCONS);
+    a.pod_req = f(kP_POD_REQ);
+    a.pod_nz = f(kP_POD_NZ);
+    a.pod_valid = u(kP_POD_VALID);
+    a.order = i(kP_ORDER);
+    a.class_id = i(kP_CLASS_ID);
+    a.iparams = i(kP_IPARAMS);
+    a.fparams = f(kP_FPARAMS);
+    a.extra = f(kP_EXTRA);
+    a.sp = make_spread(sp_on, ints[kI_SP_SOFT], sp_c, sp_mc, ptrs[kP_SP_POD_IDX],
+                       ptrs[kP_SP_POD_MATCHES], ptrs[kP_SP_MAX_SKEW], ptrs[kP_SP_MIN_DOMAINS],
+                       ptrs[kP_SP_HARD], ptrs[kP_SP_ELIGIBLE], ptrs[kP_SP_V], ptrs[kP_SP_SIZES],
+                       ptrs[kP_SP_COUNTS]);
+    a.tm = make_terms(tm_on, tm_w, tm_u, a.p, ptrs[kP_TM_KEY_BITS], ptrs[kP_TM_SLOT_V],
+                      ptrs[kP_TM_MI_SLOT], ptrs[kP_TM_ANTI_SLOT], ptrs[kP_TM_AFF_BITS],
+                      ptrs[kP_TM_ANTI_BITS], ptrs[kP_TM_SELF_MATCH], ptrs[kP_TM_PRESENT],
+                      ptrs[kP_TM_BLOCKED], ptrs[kP_TM_GLOBAL_ANY], 0, nullptr, nullptr);
+    a.topo_ids = i(kP_TOPO_IDS);
+    a.slot_of_t = i(kP_SLOT_OF_T);
+    a.mi_dense = u(kP_MI_DENSE);
+    a.anti_dense = u(kP_ANTI_DENSE);
+    a.solve_pos = i(kP_SOLVE_POS);
+    a.assigned = (int32_t*)ptrs[kP_ASSIGNED];
+    a.bid_scores = (float*)ptrs[kP_BID_SCORES];
+    a.state = (int32_t*)ptrs[kP_STATE];
+    a.bid = (int32_t*)ptrs[kP_BID];
+    a.val = (float*)ptrs[kP_VAL];
+    a.inv_c = (int32_t*)ptrs[kP_INV_C];
+    a.cnt_c = (int32_t*)ptrs[kP_CNT_C];
+    a.best_c = (float*)ptrs[kP_BEST_C];
+    a.masked = (float*)ptrs[kP_MASKED];
+    a.slots = (int32_t*)ptrs[kP_SLOTS];
+    a.cperm = (int32_t*)ptrs[kP_CPERM];
+    a.cfirst = (int32_t*)ptrs[kP_CFIRST];
+    a.cseen = (int32_t*)ptrs[kP_CSEEN];
+    a.perm = (int32_t*)ptrs[kP_PERM];
+    a.perm_idx = (int32_t*)ptrs[kP_PERM_IDX];
+    a.bfirst = (int32_t*)ptrs[kP_BFIRST];
+    a.rtmp = (int32_t*)ptrs[kP_RTMP];
+    a.rcnt = (int32_t*)ptrs[kP_RCNT];
+    a.rbase = (int32_t*)ptrs[kP_RBASE];
+    a.prefix = (float*)ptrs[kP_PREFIX];
+    a.scan = (float*)ptrs[kP_SCAN];
+    a.accept = (uint8_t*)ptrs[kP_ACCEPT];
+    a.counts_it = (float*)ptrs[kP_COUNTS_IT];
+    a.adds = (int32_t*)ptrs[kP_ADDS];
+    a.minc = (float*)ptrs[kP_MINC];
+    a.kept = (uint8_t*)ptrs[kP_KEPT];
+    a.cand = (uint8_t*)ptrs[kP_CAND];
+    a.admit = (uint8_t*)ptrs[kP_ADMIT];
+    a.minpos = (int32_t*)ptrs[kP_MINPOS];
+    a.carrier = (uint8_t*)ptrs[kP_CARRIER];
+    a.z_mi = (uint8_t*)ptrs[kP_Z_MI];
+    a.z_an = (uint8_t*)ptrs[kP_Z_AN];
+    a.release = (uint8_t*)ptrs[kP_RELEASE];
+    return 0;
+}
+
+// ---- shared memory ---------------------------------------------------------
+
+// The block's static shared memory (every stage).
+struct Shared {
+    Config cfg;
+    Scratch sc;
+    Slots slots;
+    PodSpread ps;
+    PodTerms pt;
+    float req[kMaxR], nz[kMaxR];   // the class representative's requests
+};
+
+// The tie histogram of the class pass (dynamic shared memory; `hist` is
+// read by the other blocks of the cluster).
+struct HistSmem {
+    int hist[kBuckets];    // this block's ties a bucket
+    int start[kBuckets];   // the cluster's ties a bucket, then each bucket's first rank
+    int fill[kBuckets];    // this block's next slot in each bucket
+    int warp_sum[kMaxWarps];
+    int cand;              // ties in the buckets that reach rank cnt
+};
+
+// A radix sort pass (dynamic shared memory).
+struct RadixSmem {
+    int wc[kMaxWarps * kRadix];   // a warp's count of each digit, then its first slot
+    int warp_sum[kMaxWarps];
+};
+
+// The spread repair (dynamic shared memory, block 0).
+struct SpreadSmem {
+    int tab[kMaxWarps * kShZ];   // each warp's counter table (Z <= kShZ)
+    float part[kMaxWarps];       // partial minima
+    int rows[kRowChunk];         // the current chunk's hard rows
+    int rows2[kRowChunk];        // the rows a commit added to
+    int n_rows;
+    uint8_t touched[kRowChunk];
+};
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// Dynamic shared memory of a launch (bytes).
+constexpr int kDynSmem = cmax(cmax((int)sizeof(HistSmem), (int)sizeof(RadixSmem)),
+                              (int)sizeof(SpreadSmem));
+
+// ---- teams and block helpers ---------------------------------------------
+
+// The cluster as block_eval's team without pass 1's speculation: pass 2
+// writes every node's masked score, which the tie set is read from.
+struct ExactTeam : ClusterTeam {
+    static constexpr bool kSpeculate = false;
+};
+
+// Block-wide exclusive scan of one int a thread; every thread gets its
+// exclusive prefix and the block's total.  Ends on a barrier.
+__device__ inline int block_exclusive_scan(int v, int& total, int* warp_sum)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = (int)(blockDim.x >> 5);
+    int incl = v;
+    for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        int x = lane < nwarps ? warp_sum[lane] : 0;
+        for (int off = 1; off < 32; off <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, x, off);
+            if (lane >= off) x += y;
+        }
+        warp_sum[lane] = x;
+    }
+    __syncthreads();
+    const int base = (warp > 0 ? warp_sum[warp - 1] : 0) + incl - v;
+    total = warp_sum[nwarps - 1];
+    __syncthreads();
+    return base;
+}
+
+// Whether any thread of the cluster has `flag`: one exchange of the team's
+// Step slots (flags OR), and the slot parity advanced.
+__device__ inline bool cluster_any(bool flag, Shared& S, ExactTeam& team)
+{
+    Step st = step_zero();
+    st.flags = flag ? 1 : 0;
+    const Step all = team.reduce_step(st, S.sc);
+    team.par ^= 1;
+    return (all.flags & 1) != 0;
+}
+
+// ---- the class pass ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tie_key(uint32_t rot, int nd)
+{
+    return (((uint32_t)(nd + 1) * kGolden) ^ rot) >> 2;
+}
+
+__device__ __forceinline__ int bucket_of(uint32_t key)
+{
+    return (int)(key >> (kKeyBits - kBucketBits));
+}
+
+// (key desc, index asc): node a comes before node b in the tie list
+__device__ __forceinline__ bool before(uint32_t ka, int a, uint32_t kb, int b)
+{
+    return ka > kb || (ka == kb && a < b);
+}
+
+__device__ __forceinline__ uint32_t class_rot(int c, uint32_t rnd)
+{
+    return (((uint32_t)c * kGolden) ^ (rnd * kRound) ^ kSeedC) * kMix;
+}
+
+// H.start holds each bucket's ties: replace them by each bucket's first
+// rank in descending bucket order (thread t holds descending ranks
+// [per t, per (t + 1)), per = kBuckets / blockDim) and return the end of
+// the bucket holding rank cnt - 1 (cnt > 0).  Block-wide.
+__device__ inline int bucket_starts(HistSmem& H, int cnt)
+{
+    const int per = kBuckets / (int)blockDim.x;   // 1 or 2
+    int local[2] = {0, 0};
+    int sum = 0;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+        if (q < per) {
+            local[q] = H.start[kBuckets - 1 - (per * (int)threadIdx.x + q)];
+            sum += local[q];
+        }
+    }
+    int total;
+    int base = block_exclusive_scan(sum, total, H.warp_sum);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+        if (q < per) {
+            const int b = kBuckets - 1 - (per * (int)threadIdx.x + q);
+            H.start[b] = base;
+            if (base < cnt && base + local[q] >= cnt) H.cand = base + local[q];
+            base += local[q];
+        }
+    }
+    __syncthreads();
+    return H.cand;
+}
+
+// Block-wide sum of one int a thread (every thread gets it).
+__device__ inline int block_sum(int v, int* warp_sum)
+{
+    int total;
+    block_exclusive_scan(v, total, warp_sum);
+    return total;
+}
+
+// Class c's evaluation by the cluster: the class representative's requests
+// into shared memory, the spread rows and term words of its constraint
+// class's representative, then block_eval (every node's masked score into
+// a.masked at the block's own nodes).
+__device__ inline Eval class_eval(const Ctx& a, int c, Shared& S, const ExactTeam& team)
+{
+    const int s = min(max(a.jspec[c], 0), a.cs_dim - 1);
+    const int rep = a.s_reps[s];
+    for (int t = threadIdx.x; t < a.r; t += blockDim.x) {
+        S.req[t] = a.pod_req[(size_t)rep * a.r + t];
+        S.nz[t] = a.pod_nz[(size_t)rep * a.r + t];
+    }
+    __syncthreads();
+    // the constraint class's representative carries the joint class's
+    // spread rows, terms and match flags (the encoder's constraint
+    // signature)
+    const int k_rep = a.k_reps[min(max(a.jcons[c], 0), a.cc_dim - 1)];
+    if (a.sp.on) block_spread_pod(a.sp, a.n, k_rep, S.ps, S.sc, team);
+    if (a.tm.on) block_interpod_pod(a.tm, k_rep, S.pt);
+    return block_eval(
+        a.n, a.r, 0, false, a.alloc, a.requested, a.nonzero, nullptr,
+        a.sfeas_s + (size_t)s * a.n, a.aff_s + (size_t)s * a.n, a.taint_s + (size_t)s * a.n,
+        S.req, S.nz, nullptr, a.sp, S.ps, a.tm, S.pt,
+        a.extra != nullptr ? a.extra + (size_t)c * a.n : nullptr, S.cfg, S.sc, a.masked,
+        nullptr, nullptr, team);
+}
+
+// Class c's best, tie count and top list (inv_c[c], cnt_c[c], best_c[c])
+// at round rnd, by the cluster.  Ends on a cluster barrier.
+__device__ inline void class_pass(const Ctx& a, int c, uint32_t rnd, Shared& S, HistSmem& H,
+                                  ExactTeam& team)
+{
+    const float* mrow = a.masked;
+    int32_t* slots = a.slots;
+    const Eval ev = class_eval(a, c, S, team);
+    team.par ^= 1;
+    const float best = ev.best;
+    const uint32_t rot = class_rot(c, rnd);
+    const int n = a.n;
+
+    // this block's ties, histogrammed by the top bits of their keys
+    for (int b = threadIdx.x; b < kBuckets; b += blockDim.x) H.hist[b] = 0;
+    __syncthreads();
+    if (ev.found) {
+        for (int nd = team.first(); nd < team.end(n); nd += team.stride()) {
+            if (mrow[nd] == best) atomicAdd(&H.hist[bucket_of(tie_key(rot, nd))], 1);
+        }
+    }
+    team.sync();
+    // the team's ties a bucket, and this block's offset within each bucket
+    // (the ties of the lower-ranked blocks)
+    int part = 0;
+    for (int b = threadIdx.x; b < kBuckets; b += blockDim.x) {
+        int tot = 0, off = 0;
+        cg::cluster_group cluster = cg::this_cluster();
+        for (unsigned g = 0; g < team.size_; ++g) {
+            const int v = *cluster.map_shared_rank(&H.hist[b], g);
+            tot += v;
+            off += g < team.rank_ ? v : 0;
+        }
+        H.start[b] = tot;
+        H.fill[b] = off;
+        part += tot;
+    }
+    const int ties = block_sum(part, H.warp_sum);
+    const int cnt = min(ties, a.tie_k);
+    int cand = 0;
+    if (cnt > 0) {
+        cand = bucket_starts(H, cnt);
+        // list the ties of the buckets that reach rank cnt, each block at
+        // its own offset, unordered within a block's share
+        for (int nd = team.first(); nd < team.end(n); nd += team.stride()) {
+            if (mrow[nd] == best) {
+                const int b = bucket_of(tie_key(rot, nd));
+                if (H.start[b] < cnt) slots[H.start[b] + atomicAdd(&H.fill[b], 1)] = nd;
+            }
+        }
+    }
+    team.sync();
+    if (cnt > 0) {
+        // each listed tie's rank within its bucket gives its position
+        for (int q = team.rank(); q < cand; q += team.size()) {
+            const int nd = slots[q];
+            const uint32_t key = tie_key(rot, nd);
+            const int b = bucket_of(key);
+            const int lo = H.start[b], hi = b > 0 ? H.start[b - 1] : ties;
+            int rank = 0;
+            for (int m = lo; m < hi; ++m) {
+                const int o = slots[m];
+                if (o != nd && before(tie_key(rot, o), o, key, nd)) ++rank;
+            }
+            const int pos = lo + rank;
+            if (pos < cnt) a.inv_c[(size_t)c * a.tie_k + pos] = nd;
+        }
+    }
+    if (team.rank() == 0) {
+        a.cnt_c[c] = cnt;
+        a.best_c[c] = best;
+    }
+}
+
+// ---- the radix sort --------------------------------------------------------
+
+// One of the sorts a radix_sort call runs side by side.
+struct SortSpec {
+    const int32_t* src;   // the initial order (null: the identity)
+    int32_t* out;         // the items stably sorted by key
+    int32_t* tmp;         // [P] ping-pong
+    int32_t* cnt;         // [tiles, kRadix] each tile's digit counts
+    int32_t* base;        // [tiles, kRadix] each tile's first slot of each digit
+};
+
+// The digit of sorted position s of a tile (kRadix past the items), its
+// lanes' match mask, and this warp's digit counts into R.wc.  Block-wide.
+template <class KeyFn>
+__device__ inline int tile_digits(int p, int s, const int32_t* src, KeyFn key, int shift,
+                                  int& item, unsigned& peers, RadixSmem& R)
+{
+    const int warps = (int)(blockDim.x >> 5);
+    item = s < p ? (src != nullptr ? src[s] : s) : -1;
+    const int d = item >= 0 ? (key(item) >> shift) & (kRadix - 1) : kRadix;
+    for (int e = threadIdx.x; e < warps * kRadix; e += blockDim.x) R.wc[e] = 0;
+    __syncthreads();
+    peers = __match_any_sync(0xffffffffu, d);
+    if (d < kRadix && (int)(threadIdx.x & 31) == __ffs(peers) - 1) {
+        R.wc[(threadIdx.x >> 5) * kRadix + d] = __popc(peers);
+    }
+    __syncthreads();
+    return d;
+}
+
+// Stably sort the `nsort` orders of spec by key(item) in [0, key_max],
+// over the cluster: least-significant digit first, kRadixBits a pass.  A
+// pass: each block counts the digits of its tiles (blockDim positions;
+// tile t on block t % G), one barrier, each block scans the (digit, tile)
+// counts for its own tiles' first slots and scatters its items, one
+// barrier.  A tile's items keep their order within a digit: a warp's
+// lanes of a digit by __match_any_sync, the warps in order, the tiles in
+// order.
+template <class KeyFn>
+__device__ inline void radix_sort(int p, int key_max, int nsort, const SortSpec* spec,
+                                  KeyFn key, RadixSmem& R, const ExactTeam& team)
+{
+    const int T = (int)blockDim.x, tid = (int)threadIdx.x;
+    const int warps = T >> 5, lane = tid & 31;
+    const int g = (int)team.size_, rank = (int)team.rank_;
+    const int tiles = (p + T - 1) / T;
+    const int bits = 32 - __clz(max(key_max, 1));
+    const int passes = (bits + kRadixBits - 1) / kRadixBits;
+    for (int pass = 0; pass < passes; ++pass) {
+        const int shift = pass * kRadixBits;
+        // the last pass writes `out`; earlier ones alternate so it does
+        const bool to_out = ((passes - 1 - pass) & 1) == 0;
+        for (int k = 0; k < nsort; ++k) {
+            const SortSpec& sp = spec[k];
+            const int32_t* src = pass == 0 ? sp.src : (to_out ? sp.tmp : sp.out);
+            for (int t = rank; t < tiles; t += g) {
+                int item;
+                unsigned peers;
+                tile_digits(p, t * T + tid, src, key, shift, item, peers, R);
+                for (int d = tid; d < kRadix; d += T) {
+                    int sum = 0;
+                    for (int w = 0; w < warps; ++w) sum += R.wc[w * kRadix + d];
+                    sp.cnt[(size_t)t * kRadix + d] = sum;
+                }
+                __syncthreads();
+            }
+        }
+        team.sync();
+        for (int k = 0; k < nsort; ++k) {
+            const SortSpec& sp = spec[k];
+            const int32_t* src = pass == 0 ? sp.src : (to_out ? sp.tmp : sp.out);
+            int32_t* dst = to_out ? sp.out : sp.tmp;
+            // each digit's first slot: the digits below it, then the
+            // same digit's items in the tiles before
+            int tot = 0;
+            if (tid < kRadix) {
+                for (int t = 0; t < tiles; ++t) tot += sp.cnt[(size_t)t * kRadix + tid];
+            }
+            int all;
+            int run = block_exclusive_scan(tot, all, R.warp_sum);
+            if (tid < kRadix) {
+                for (int t = 0; t < tiles; ++t) {
+                    if (t % g == rank) sp.base[(size_t)t * kRadix + tid] = run;
+                    run += sp.cnt[(size_t)t * kRadix + tid];
+                }
+            }
+            for (int t = rank; t < tiles; t += g) {
+                int item;
+                unsigned peers;
+                const int d = tile_digits(p, t * T + tid, src, key, shift, item, peers, R);
+                if (tid < kRadix) {
+                    int x = sp.base[(size_t)t * kRadix + tid];
+                    for (int w = 0; w < warps; ++w) {
+                        const int c = R.wc[w * kRadix + tid];
+                        R.wc[w * kRadix + tid] = x;
+                        x += c;
+                    }
+                }
+                __syncthreads();
+                if (d < kRadix) {
+                    const unsigned below = (1u << lane) - 1u;
+                    dst[R.wc[(tid >> 5) * kRadix + d] + __popc(peers & below)] = item;
+                }
+                __syncthreads();
+            }
+        }
+        team.sync();
+    }
+}
+
+// first[key] = the first sorted position of each key present (and with
+// `seen`, seen[key] = stamp), over the cluster.  The caller's next barrier
+// publishes them.
+template <class KeyFn>
+__device__ inline void run_starts(int p, const int32_t* sorted, KeyFn key, int32_t* first,
+                                  int32_t* seen, int stamp, const ExactTeam& team)
+{
+    for (int s = team.rank(); s < p; s += team.size()) {
+        const int k = key(sorted[s]);
+        if (s == 0 || key(sorted[s - 1]) != k) {
+            first[k] = s;
+            if (seen != nullptr) seen[k] = stamp;
+        }
+    }
+}
+
+// ---- the round's stages ------------------------------------------------------
+
+// The class key of pod i: its class while active (unplaced and valid),
+// else C.
+__device__ __forceinline__ int class_key(const Ctx& a, int i)
+{
+    return (a.assigned[i] < 0 && a.pod_valid[i]) ? min(max(a.class_id[i], 0), a.c_dim - 1)
+                                                 : a.c_dim;
+}
+
+// Bids of round rnd into bid / val, and each class's row in inv_c, cnt_c,
+// best_c.  Ends on a cluster barrier.
+__device__ inline void round_bids(const Ctx& a, int rnd, Shared& S, unsigned char* dyn,
+                                  ExactTeam& team)
+{
+    RadixSmem& R = *(RadixSmem*)dyn;
+    HistSmem& H = *(HistSmem*)dyn;
+    auto ckey = [&](int i) { return class_key(a, i); };
+    SortSpec cs = {a.order, a.cperm, a.rtmp, a.rcnt, a.rbase};
+    radix_sort(a.p, a.c_dim, 1, &cs, ckey, R, team);
+    run_starts(a.p, a.cperm, ckey, a.cfirst, a.cseen, rnd, team);
+    team.sync();
+
+    for (int c = 0; c < a.c_dim; ++c) {
+        if (a.cseen[c] == rnd) class_pass(a, c, (uint32_t)rnd, S, H, team);
+    }
+    team.sync();
+
+    // per pod: j = its sorted position less its class's first, then the
+    // slot, the bid and the value
+    for (int s = team.rank(); s < a.p; s += team.size()) {
+        const int i = a.cperm[s];
+        const int k = class_key(a, i);
+        int b = a.n;
+        float v = -INFINITY;
+        if (k < a.c_dim) {
+            const int cnt = a.cnt_c[k];
+            const float best = a.best_c[k];
+            if (best > -INFINITY && cnt > 0) {
+                const int slot = (s - a.cfirst[k]) % max(cnt, 1);
+                b = a.inv_c[(size_t)k * a.tie_k + slot];
+                v = best;
+            }
+        }
+        a.bid[i] = b;
+        a.val[i] = v;
+    }
+    team.sync();
+}
+
+// Sequential inclusive scans of the blocks of kScanBlock rows of a [len, r]
+// array, in place, over this block's threads; with `totals`, each block's
+// total goes to its row there.
+__device__ inline void scan_blocks(float* x, int len, int r, float* totals)
+{
+    const int nb = (len + kScanBlock - 1) / kScanBlock;
+    for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+        const int lo = b * kScanBlock, hi = min(len, lo + kScanBlock);
+        for (int rr = 0; rr < r; ++rr) {
+            float run = 0.0f;
+            for (int q = lo; q < hi; ++q) {
+                run = add(run, x[(size_t)q * r + rr]);
+                x[(size_t)q * r + rr] = run;
+            }
+            if (totals) totals[(size_t)b * r + rr] = run;
+        }
+    }
+}
+
+// The acceptance of the round's bids into accept[i]: the bid sorts, the
+// prefix and the capacity test.  Returns the cluster's progress (some pod
+// accepted); ends on a cluster barrier.
+__device__ inline bool round_accept(const Ctx& a, Shared& S, unsigned char* dyn,
+                                    ExactTeam& team)
+{
+    RadixSmem& R = *(RadixSmem*)dyn;
+    const int n = a.n, r = a.r, p = a.p;
+    auto bkey = [&](int i) { return a.bid[i]; };
+    const int tiles = (p + (int)blockDim.x - 1) / (int)blockDim.x;
+    SortSpec specs[2] = {
+        {a.order, a.perm, a.rtmp, a.rcnt, a.rbase},
+        {nullptr, a.perm_idx, a.rtmp + p, a.rcnt + (size_t)tiles * kRadix,
+         a.rbase + (size_t)tiles * kRadix},
+    };
+    radix_sort(p, n, 2, specs, bkey, R, team);
+    run_starts(p, a.perm, bkey, a.bfirst, nullptr, 0, team);
+
+    // level 0 of the prefix: each 16-row block summed in sequence, over
+    // the cluster (gathered in perm order), its total into level 1
+    const int nb0 = (p + kScanBlock - 1) / kScanBlock;
+    for (int blk = team.rank(); blk < nb0; blk += team.size()) {
+        const int lo = blk * kScanBlock, hi = min(p, lo + kScanBlock);
+        for (int rr = 0; rr < r; ++rr) {
+            float run = 0.0f;
+            for (int q = lo; q < hi; ++q) {
+                run = add(run, a.pod_req[(size_t)a.perm[q] * r + rr]);
+                a.prefix[(size_t)q * r + rr] = run;
+            }
+            if (nb0 > 1) a.scan[(size_t)blk * r + rr] = run;
+        }
+    }
+    team.sync();
+    // the upper levels (block totals, recursively) on block 0: scanned
+    // upwards, then each block's exclusive total added downwards; level 0
+    // takes its add when read
+    if (team.rank_ == 0 && nb0 > 1) {
+        float* level[kMaxLevels];
+        int len[kMaxLevels];
+        level[1] = a.scan;
+        len[1] = nb0;
+        int top = 1;
+        float* next = a.scan + (size_t)nb0 * r;
+        while (len[top] > kScanBlock) {
+            len[top + 1] = (len[top] + kScanBlock - 1) / kScanBlock;
+            level[top + 1] = next;
+            next += (size_t)len[top + 1] * r;
+            ++top;
+        }
+        for (int k = 1; k <= top; ++k) {
+            scan_blocks(level[k], len[k], r, k < top ? level[k + 1] : nullptr);
+            __syncthreads();
+        }
+        for (int k = top - 1; k >= 1; --k) {
+            for (int q = threadIdx.x; q < len[k]; q += blockDim.x) {
+                const int b = q / kScanBlock;
+                if (b == 0) continue;
+                for (int rr = 0; rr < r; ++rr) {
+                    level[k][(size_t)q * r + rr] = add(level[k][(size_t)q * r + rr],
+                                                       level[k + 1][(size_t)(b - 1) * r + rr]);
+                }
+            }
+            __syncthreads();
+        }
+    }
+    team.sync();
+
+    // acceptance per sorted position
+    auto pre = [&](int q, int rr) {
+        float v = a.prefix[(size_t)q * r + rr];
+        const int b = q / kScanBlock;
+        if (b > 0) v = add(v, a.scan[(size_t)(b - 1) * r + rr]);
+        return v;
+    };
+    bool any_ok = false;
+    for (int q = team.rank(); q < p; q += team.size()) {
+        const int i = a.perm[q];
+        const int b = a.bid[i];
+        bool ok = b < n;
+        if (ok) {
+            const int f = a.bfirst[b];
+            const int fi = a.perm[f];
+            for (int rr = 0; rr < r; ++rr) {
+                const float req = a.pod_req[(size_t)i * r + rr];
+                const float within = add(sub(pre(q, rr), pre(f, rr)),
+                                         a.pod_req[(size_t)fi * r + rr]);
+                const float remaining = sub(a.alloc[(size_t)b * r + rr],
+                                            a.requested[(size_t)b * r + rr]);
+                if (!(req <= 0.0f || within <= remaining)) ok = false;
+            }
+        }
+        a.accept[i] = ok ? 1 : 0;
+        any_ok |= ok;
+    }
+    return cluster_any(any_ok, S, team);
+}
+
+// The commit of accept[] and the round state.  Returns the flag; ends on
+// a cluster barrier.
+__device__ inline bool round_commit(const Ctx& a, int rnd, bool progress, Shared& S,
+                                    ExactTeam& team)
+{
+    const int n = a.n, r = a.r, p = a.p;
+    // each node group's first position adds the accepted requests in pod
+    // index order (the group spans the same positions in perm_idx)
+    for (int q = team.rank(); q < p; q += team.size()) {
+        const int b = a.bid[a.perm[q]];
+        if (b >= n || a.bfirst[b] != q) continue;
+        for (int q2 = q; q2 < p; ++q2) {
+            const int i2 = a.perm_idx[q2];
+            if (a.bid[i2] != b) break;
+            if (!a.accept[i2]) continue;
+            for (int rr = 0; rr < r; ++rr) {
+                a.requested[(size_t)b * r + rr] = add(a.requested[(size_t)b * r + rr],
+                                                      a.pod_req[(size_t)i2 * r + rr]);
+                a.nonzero[(size_t)b * r + rr] = add(a.nonzero[(size_t)b * r + rr],
+                                                    a.pod_nz[(size_t)i2 * r + rr]);
+            }
+        }
+    }
+    bool unplaced = false;
+    for (int i = team.rank(); i < p; i += team.size()) {
+        if (a.accept[i]) {
+            a.assigned[i] = a.bid[i];
+            a.bid_scores[i] = a.val[i];
+        }
+        unplaced |= a.assigned[i] < 0 && a.pod_valid[i];
+    }
+    unplaced = cluster_any(unplaced, S, team);
+    const int rounds = rnd + 1;
+    const bool go = rounds < a.max_rounds && progress && unplaced;
+    if (team.rank() == 0) {
+        a.state[0] = rounds;
+        a.state[1] = go ? 1 : 0;
+        a.state[2] = progress ? 1 : 0;
+    }
+    return go;
+}
+
+// ---- the spread repair (block 0) -------------------------------------------
+//
+// A pass takes the accepted pods not yet kept, the critical-path minimum
+// of every row (min count over eligible nodes, 0 without one or under
+// minDomains), and for each such pod and each of its hard rows whose bid
+// node has a value: its rank, the number of earlier pods of the pass in
+// solve order that match the row and bid a node of the same value; the pod
+// is admitted unless some row has rank >= maxSkew + min - count + (1 -
+// selfMatch).  The admits are committed into a working copy of the
+// counts, so the next pass sees the raised minimum.  Then the kept pods are
+// committed into the counts, and `accept` becomes the kept set.
+//   rows     only the hard rows are read within a round (a soft row ranks
+//            no pod), so the block lists them and keeps the working counts
+//            of those rows alone;
+//   minima   every hard row's critical-path minimum: with L listed rows
+//            and W warps, W / L warps a row (one warp a row when L >= W),
+//            each strided over N, merged by fminf;
+//   ranks    a warp walks a hard row's P positions in solve order, 32 at
+//            a time (kBatch chunks' loads issued, branch-free, before they
+//            are walked); __match_any_sync gives the lanes of a value, and
+//            the rank is that value's running counter plus the matching
+//            peers in lower lanes; the lowest lane of each value then adds
+//            the value's matching peers to the counter.  The counters are
+//            the row's [Z] table: in shared memory when Z <= kShZ (a zone
+//            key), else the row's slice of the global [C, Z] scratch `adds`
+//            (a hostname key).  With shared tables and L < W hard rows,
+//            each row gets W / L warps over contiguous segments of the
+//            solve order (a counting sweep and an exclusive prefix over the
+//            row's warps give each segment its starting counters);
+//   commit   integer counts added in value space with integer atomics, then
+//            read back per node in the rows some pod added to.
+// Exactness: ranks are integers and counts integer-valued floats below
+// 2^24, so neither the order of the atomics nor the split of the minima
+// changes a bit.
+
+// List map(q) for every q < count with keep(q) into out (in no particular
+// order).  Block-wide; ends on a barrier.  Returns the count listed.
+template <class Keep, class Map>
+__device__ inline int list_rows(int count, Keep keep, Map map, int* out, SpreadSmem& sh)
+{
+    if (threadIdx.x == 0) sh.n_rows = 0;
+    __syncthreads();
+    for (int q = threadIdx.x; q < count; q += blockDim.x) {
+        if (keep(q)) out[atomicAdd(&sh.n_rows, 1)] = map(q);
+    }
+    __syncthreads();
+    return sh.n_rows;
+}
+
+__device__ inline int list_hard(const Spread& sp, int cb, SpreadSmem& sh)
+{
+    return list_rows(min(kRowChunk, sp.c_dim - cb), [&](int q) { return sp.hard[cb + q] != 0; },
+                     [&](int q) { return cb + q; }, sh.rows, sh);
+}
+
+// counts[c, n] += the marked pods' placements in row c at the nodes that
+// share their bid node's value: with hard_only in the hard rows (the
+// working counts), else in every row.
+__device__ inline void commit_marked(const Spread& sp, int n, int p, int z, const int32_t* bid,
+                                     const uint8_t* marked, bool hard_only, int32_t* adds,
+                                     float* counts, SpreadSmem& sh)
+{
+    const int tid = threadIdx.x;
+    const int c_dim = sp.c_dim;
+    for (int cb = 0; cb < c_dim; cb += kRowChunk) {
+        const int rows = hard_only ? list_hard(sp, cb, sh) : min(kRowChunk, c_dim - cb);
+        auto row = [&](int q) { return hard_only ? sh.rows[q] : cb + q; };
+        for (int q = tid; q < rows; q += blockDim.x) sh.touched[q] = 0;
+        for (int t = tid; t < rows * z; t += blockDim.x) adds[(size_t)row(t / z) * z + t % z] = 0;
+        __syncthreads();
+#pragma unroll 4
+        for (int t = tid; t < p * rows; t += blockDim.x) {
+            const int i = t / rows, q = t % rows, c = row(q);
+            if (!(marked[i] & sp.pod_matches[(size_t)i * c_dim + c])) continue;
+            const size_t o = (size_t)c * n + min(max(bid[i], 0), n - 1);
+            const int val = sp.v[o];
+            if (sp.eligible[o] && val >= 0) {
+                atomicAdd(&adds[(size_t)c * z + min(val, z - 1)], 1);
+                sh.touched[q] = 1;
+            }
+        }
+        __syncthreads();
+        const int nt = list_rows(rows, [&](int q) { return sh.touched[q] != 0; }, row,
+                                 sh.rows2, sh);
+        for (int t = tid; t < nt * n; t += blockDim.x) {
+            const int c = sh.rows2[t / n];
+            const size_t o = (size_t)c * n + t % n;
+            const int val = sp.v[o];
+            if (val < 0) continue;
+            const int x = adds[(size_t)c * z + min(val, z - 1)];
+            if (x) counts[o] = add(counts[o], (float)x);
+        }
+        __syncthreads();
+    }
+}
+
+// The critical-path minimum of each listed row against the working counts.
+__device__ inline void row_minima(const Spread& sp, int n, int n_rows, const float* counts_it,
+                                  float* minc, SpreadSmem& sh)
+{
+    if (n_rows == 0) return;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int warps = (int)(blockDim.x >> 5);
+    const int wpr = n_rows >= warps ? 1 : warps / n_rows;   // warps a row
+    const int at_once = warps / wpr;                        // rows in flight
+    for (int base = 0; base < n_rows; base += at_once) {
+        const int rw = base + warp / wpr, part = warp % wpr;
+        float m = kBig;
+        if (warp < at_once * wpr && rw < n_rows) {
+            const size_t o = (size_t)sh.rows[rw] * n;
+            for (int nd = part * 32 + lane; nd < n; nd += wpr * 32) {
+                if (sp.eligible[o + nd]) m = fminf(m, counts_it[o + nd]);
+            }
+        }
+        for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_down_sync(0xffffffffu, m, off));
+        if (lane == 0) sh.part[warp] = m;
+        __syncthreads();
+        if (tid < at_once && base + tid < n_rows) {
+            float mm = kBig;
+            for (int q = 0; q < wpr; ++q) mm = fminf(mm, sh.part[tid * wpr + q]);
+            const int c = sh.rows[base + tid];
+            minc[c] = spread_min_final(sp, c, mm);
+        }
+        __syncthreads();
+    }
+}
+
+// One solve position in row c: the candidate's value key (-1: not a
+// candidate matching or ranked in the row), whether it counts (matches the
+// row) and is ranked (the row is its own hard row), and its bound.
+struct Entry {
+    int key, pod;
+    bool from, ranked;
+    float allowed;
+};
+
+__device__ __forceinline__ Entry load_entry(const Spread& sp, int n, int p, int z, int c,
+                                            float skew_min, int k, const int32_t* order,
+                                            const int32_t* bid, const uint8_t* cand,
+                                            const float* counts_it)
+{
+    const bool in = k < p;
+    const int i = order[in ? k : 0];
+    const size_t o = (size_t)c * n + min(max(bid[i], 0), n - 1);
+    const bool m = sp.pod_matches[(size_t)i * sp.c_dim + c] != 0;
+    bool own = false;
+    for (int j = 0; j < sp.mc; ++j) {
+        const int cidx = sp.pod_idx[(size_t)i * sp.mc + j];
+        own |= cidx >= 0 && min(cidx, sp.c_dim - 1) == c;
+    }
+    const int val = sp.v[o];
+    const float cnt = counts_it[o];
+    const bool act = in && cand[i] && val >= 0 && (m || own);
+    Entry e;
+    e.key = act ? min(val, z - 1) : -1;
+    e.pod = i;
+    e.from = act && m;
+    e.ranked = act && own;
+    e.allowed = add(sub(skew_min, cnt), sub(1.0f, m ? 1.0f : 0.0f));
+    return e;
+}
+
+// The admit test of one pass over the listed (hard) rows.
+__device__ inline void rank_rows(const Spread& sp, int n, int p, int z, int n_rows,
+                                 const int32_t* order, const int32_t* bid, const uint8_t* cand,
+                                 const float* counts_it, const float* minc, int32_t* adds,
+                                 uint8_t* admit, SpreadSmem& sh)
+{
+    if (n_rows == 0) return;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int warps = (int)(blockDim.x >> 5);
+    const unsigned below = (1u << lane) - 1u;   // lanemask_lt
+    const bool in_shared = z <= kShZ;
+    const int wpr = in_shared && n_rows < warps ? warps / n_rows : 1;   // warps a row
+    const int at_once = warps / wpr;
+    const int seg = (p + wpr * 32 - 1) / (wpr * 32) * 32;   // a warp's positions
+    for (int base = 0; base < n_rows; base += at_once) {
+        const int rw = base + warp / wpr, part = warp % wpr;
+        const bool active = warp < at_once * wpr && rw < n_rows;
+        const int c = active ? sh.rows[rw] : 0;
+        int* tab = in_shared ? sh.tab + warp * kShZ : adds + (size_t)c * z;
+        const int k_lo = min(p, part * seg), k_hi = min(p, k_lo + seg);
+        const float skew_min = active ? add(sp.max_skew[c], minc[c]) : 0.0f;
+        if (active) {
+            for (int t = lane; t < z; t += 32) tab[t] = 0;
+            __syncwarp();
+        }
+        if (wpr > 1) {
+            if (active) {
+                for (int k = k_lo + lane; k < k_hi; k += 32) {
+                    const Entry e = load_entry(sp, n, p, z, c, skew_min, k, order, bid, cand,
+                                               counts_it);
+                    if (e.from) atomicAdd(&tab[e.key], 1);
+                }
+            }
+            __syncthreads();
+            // exclusive prefix over each row's warps, value by value
+            for (int t = threadIdx.x; t < at_once * z; t += blockDim.x) {
+                const int rr = t / z, v = t % z;
+                if (base + rr >= n_rows) continue;
+                int run = 0;
+                for (int q = 0; q < wpr; ++q) {
+                    int* cell = sh.tab + (rr * wpr + q) * kShZ + v;
+                    const int x = *cell;
+                    *cell = run;
+                    run += x;
+                }
+            }
+            __syncthreads();
+        }
+        if (active) {
+            for (int k0 = k_lo; k0 < k_hi; k0 += 32 * kBatch) {
+                Entry e[kBatch];
+#pragma unroll
+                for (int b = 0; b < kBatch; ++b) {
+                    const int k = k0 + b * 32 + lane;
+                    e[b] = load_entry(sp, n, p, z, c, skew_min, k < k_hi ? k : p, order, bid,
+                                      cand, counts_it);
+                }
+#pragma unroll
+                for (int b = 0; b < kBatch; ++b) {
+                    const unsigned peers = __match_any_sync(0xffffffffu, e[b].key);
+                    const unsigned group = peers & __ballot_sync(0xffffffffu, e[b].from);
+                    const int before = e[b].key >= 0 ? tab[e[b].key] : 0;
+                    if (e[b].ranked && (float)(before + __popc(group & below)) >= e[b].allowed) {
+                        admit[e[b].pod] = 0;
+                    }
+                    __syncwarp();
+                    if (e[b].key >= 0 && group != 0u && lane == __ffs(peers) - 1) {
+                        tab[e[b].key] = before + __popc(group);
+                    }
+                    __syncwarp();
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// The spread repair of accept[] against bid[] and the commit of the kept
+// pods into sp.counts.  Block-wide (any block size).
+__device__ inline void spread_repair(const Ctx& a, SpreadSmem& sh)
+{
+    const Spread& sp = a.sp;
+    const int n = a.n, p = a.p, z = a.sp_z;
+    const int tid = threadIdx.x;
+    const int c_dim = sp.c_dim;
+    for (int i = tid; i < p; i += blockDim.x) a.kept[i] = 0;
+    // the working counts: only the hard rows are ever read
+    for (int cb = 0; cb < c_dim; cb += kRowChunk) {
+        const int nh = list_hard(sp, cb, sh);
+        for (int t = tid; t < nh * n; t += blockDim.x) {
+            const size_t o = (size_t)sh.rows[t / n] * n + t % n;
+            a.counts_it[o] = sp.counts[o];
+        }
+        __syncthreads();
+    }
+    for (int it = 0; it < kRepairIters; ++it) {
+        for (int i = tid; i < p; i += blockDim.x) {
+            const uint8_t cd = a.accept[i] && !a.kept[i];
+            a.cand[i] = cd;
+            a.admit[i] = cd;
+        }
+        for (int cb = 0; cb < c_dim; cb += kRowChunk) {
+            const int nh = list_hard(sp, cb, sh);         // ends on a barrier
+            row_minima(sp, n, nh, a.counts_it, a.minc, sh);
+            rank_rows(sp, n, p, z, nh, a.order, a.bid, a.cand, a.counts_it, a.minc, a.adds,
+                      a.admit, sh);
+            __syncthreads();
+        }
+        commit_marked(sp, n, p, z, a.bid, a.admit, true, a.adds, a.counts_it, sh);
+        for (int i = tid; i < p; i += blockDim.x) a.kept[i] |= a.admit[i];
+        __syncthreads();
+    }
+    // the kept pods' counts, and the accepted set the commit reads
+    commit_marked(sp, n, p, z, a.bid, a.kept, false, a.adds, sp.counts, sh);
+    for (int i = tid; i < p; i += blockDim.x) a.accept[i] = a.kept[i];
+    __syncthreads();
+}
+
+// ---- the inter-pod anti-affinity repair (block 0) ---------------------------
+//
+// A pod of the accepted set is involved in group (v, t) when it matches
+// term t or carries t as an anti-affinity term, and its bid node has value
+// v in t's topology slot.  In every group that holds an involved carrier
+// of the term, every involved pod after the group's first in solve order
+// is released.  Then the kept pods commit: the terms they match turn
+// present, and their anti terms blocked, on every node that shares the bid
+// node's value in the term's slot; the terms they match turn globally
+// present.  The group minima are integer atomicMin and the flags plain
+// byte stores of 1, so the result does not depend on the threads' order.
+
+__device__ __forceinline__ int group_of(const Ctx& a, int i, int t)
+{
+    const int node = min(max(a.bid[i], 0), a.n - 1);
+    const int s = min(max(a.slot_of_t[t], 0), a.tk - 1);
+    const int v = a.topo_ids[(size_t)node * a.tk + s];
+    if (v < 0) return -1;
+    return min(v, a.tz - 1) * a.t_dim + t;
+}
+
+// Block-wide (any block size).
+__device__ inline void interpod_repair(const Ctx& a)
+{
+    const int p = a.p, t_dim = a.t_dim, w = a.tm.w;
+    const size_t groups = (size_t)a.tz * t_dim;
+    const size_t pairs = (size_t)p * t_dim;
+    for (size_t o = threadIdx.x; o < groups; o += blockDim.x) {
+        a.minpos[o] = kBigI;
+        a.carrier[o] = 0;
+        a.z_mi[o] = 0;
+        a.z_an[o] = 0;
+    }
+    for (int i = threadIdx.x; i < p; i += blockDim.x) a.release[i] = 0;
+    __syncthreads();
+    // each group's first involved position in solve order, and its carriers
+    for (size_t e = threadIdx.x; e < pairs; e += blockDim.x) {
+        const int i = (int)(e / t_dim), t = (int)(e % t_dim);
+        if (!a.accept[i] || !(a.mi_dense[e] | a.anti_dense[e])) continue;
+        const int gi = group_of(a, i, t);
+        if (gi < 0) continue;
+        atomicMin(&a.minpos[gi], a.solve_pos[i]);
+        if (a.anti_dense[e]) a.carrier[gi] = 1;
+    }
+    __syncthreads();
+    // release every involved pod after the first of a group with a carrier
+    for (size_t e = threadIdx.x; e < pairs; e += blockDim.x) {
+        const int i = (int)(e / t_dim), t = (int)(e % t_dim);
+        if (!a.accept[i] || !(a.mi_dense[e] | a.anti_dense[e])) continue;
+        const int gi = group_of(a, i, t);
+        if (gi >= 0 && a.carrier[gi] && a.solve_pos[i] > a.minpos[gi]) a.release[i] = 1;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < p; i += blockDim.x) {
+        if (a.release[i]) a.accept[i] = 0;
+    }
+    __syncthreads();
+    // the kept pods' terms in value space, and the global bits
+    for (size_t e = threadIdx.x; e < pairs; e += blockDim.x) {
+        const int i = (int)(e / t_dim), t = (int)(e % t_dim);
+        if (!a.accept[i] || !(a.mi_dense[e] | a.anti_dense[e])) continue;
+        const int gi = group_of(a, i, t);
+        if (gi < 0) continue;
+        if (a.mi_dense[e]) {
+            a.z_mi[gi] = 1;
+            atomicOr(&a.tm.global_any[t >> 5], 1u << (t & 31));
+        }
+        if (a.anti_dense[e]) a.z_an[gi] = 1;
+    }
+    __syncthreads();
+    // node space: bit t of a node turns on when its group in t's slot did
+    for (int nd = threadIdx.x; nd < a.n; nd += blockDim.x) {
+        for (int wi = 0; wi < w; ++wi) {
+            uint32_t pw = 0u, bw = 0u;
+            for (int b = 0; b < 32; ++b) {
+                const int t = wi * 32 + b;
+                if (t >= t_dim) break;
+                const int s = min(max(a.slot_of_t[t], 0), a.tk - 1);
+                const int v = a.topo_ids[(size_t)nd * a.tk + s];
+                if (v < 0) continue;
+                const size_t gi = (size_t)min(v, a.tz - 1) * t_dim + t;
+                if (a.z_mi[gi]) pw |= 1u << b;
+                if (a.z_an[gi]) bw |= 1u << b;
+            }
+            a.tm.present[(size_t)nd * w + wi] |= pw;
+            a.tm.blocked[(size_t)nd * w + wi] |= bw;
+        }
+    }
+    __syncthreads();
+}
+
+// The repairs of the round's accepted set, on block 0 while the others
+// wait.  Ends on a cluster barrier.
+__device__ inline void round_repairs(const Ctx& a, unsigned char* dyn, const ExactTeam& team)
+{
+    if (team.rank_ == 0) {
+        if (a.sp.on) spread_repair(a, *(SpreadSmem*)dyn);
+        if (a.tm.on) interpod_repair(a);
+    }
+    team.sync();
+}
+
+// ---- kernels -------------------------------------------------------------
+
+// The block's start: the team, the score parameters, and a cluster barrier
+// before any block writes another's shared memory.
+__device__ inline void start(const Ctx& a, Shared& S, ExactTeam& team)
+{
+    team.init(&S.slots);
+    if (threadIdx.x == 0) load_config(S.cfg, a.iparams, a.fparams);
+    team.sync();
+}
+
+// The stages of a launch: kStageBids, kStageAccept (1), kStageCommit (2),
+// kStageSpread, kStageInterpod, or the whole loop.
+enum { kStageAccept = 1, kStageCommit = 2, kStageBids = 4, kStageSpread = 8,
+       kStageInterpod = 16, kStageLoop = 32 };
+
+template <int kT>
+__global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
+{
+    __shared__ Shared S;
+    extern __shared__ __align__(16) unsigned char dyn[];
+    if (!a.state[1]) return;   // every block reads the flag before any block writes it
+    const int rnd0 = a.state[0];
+    const int progress0 = a.state[2];
+    ExactTeam team;
+    if (stages & (kStageSpread | kStageInterpod)) {
+        // a repair alone: block 0, no exchange
+        if (cg::this_cluster().block_rank() != 0) return;
+        if ((stages & kStageSpread) && a.sp.on) spread_repair(a, *(SpreadSmem*)dyn);
+        if ((stages & kStageInterpod) && a.tm.on) interpod_repair(a);
+        return;
+    }
+    start(a, S, team);
+    if (stages & kStageLoop) {
+        for (int rnd = rnd0;; ++rnd) {
+            round_bids(a, rnd, S, dyn, team);
+            const bool progress = round_accept(a, S, dyn, team);
+            if (a.sp.on || a.tm.on) round_repairs(a, dyn, team);
+            if (!round_commit(a, rnd, progress, S, team)) break;
+        }
+    } else {
+        if (stages & kStageBids) round_bids(a, rnd0, S, dyn, team);
+        bool progress = progress0 != 0;
+        if (stages & kStageAccept) {
+            progress = round_accept(a, S, dyn, team);
+            if (!(stages & kStageCommit) && team.rank() == 0) a.state[2] = progress ? 1 : 0;
+        }
+        if (stages & kStageCommit) round_commit(a, rnd0, progress, S, team);
+    }
+    // no block leaves while another may still read its shared memory
+    team.sync();
+}
+
+// Launch `stages` on the cluster of launch_shape(n): kStageLoop alone,
+// kStageSpread or kStageInterpod alone, or any of bids, acceptance and
+// commit.
+inline int launch(const int* ints, void* const* ptrs, int stages, void* stream)
+{
+    constexpr int kOneRound = kStageBids | kStageAccept | kStageCommit;
+    if (stages != kStageLoop && stages != kStageSpread && stages != kStageInterpod
+        && (stages == 0 || (stages & ~kOneRound) != 0)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    Ctx a;
+    const int err = make_ctx(ints, ptrs, a);
+    if (err) return err;
+    if (a.p == 0 || a.n == 0) return 0;
+    const Shape shape = launch_shape(a.n);
+    auto* kernel = shape.threads == kSmallThreads ? &auction_kernel<kSmallThreads>
+                                                  : &auction_kernel<kClusterThreads>;
+    return (int)launch_cluster(kernel, shape, kDynSmem, (cudaStream_t)stream, a, stages);
+}
+
+}  // namespace auction

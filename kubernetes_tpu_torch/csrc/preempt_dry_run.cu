@@ -21,7 +21,7 @@
 //   violation prefix at min_k.
 //
 // Numerics: the prefix sum adds in the reference compiler's CPU order for
-// jnp.cumsum (ops/auction.py prefix_sum, auction_accept.cu scan_blocks):
+// jnp.cumsum (ops/auction.py prefix_sum, auction_common.cuh scan_blocks):
 // sequentially inside blocks of 16 (zero-padded), the block totals
 // prefix-summed the same way, then each block's exclusive total added.
 // Requests that are not whole MiB leave float32's exact range once a

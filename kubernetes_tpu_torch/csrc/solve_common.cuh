@@ -1,5 +1,5 @@
 // Device code shared by the three solves (greedy_scan.cu, wavefront.cu,
-// auction_bids.cu) and evaluate_single.cu: the score parameter block, the per-node filter and
+// auction_loop.cu) and evaluate_single.cu: the score parameter block, the per-node filter and
 // score functions, the PodTopologySpread family (ops/topology.py), the
 // required InterPodAffinity family (ops/interpod.py: the three bitset
 // checks and the carry update) and the block-wide evaluation of one pod,

@@ -5,17 +5,17 @@ allocates the outputs with torch, launches the kernel on torch's current
 stream, raises if the launch returned a CUDA error, and adds one to
 `LAUNCHES[name]` for every call of the kernel's C launch function.  A call
 enqueues the kernel's work for one unit: one table (match_terms), one
-batch (class_statics, class_extras, greedy_scan, wavefront — one
-thread-block cluster for the whole batch —, slice_stats — two kernels),
-one pod's evaluation (evaluate_single: filter and score in one call for a
-pod without an extra row, else its filter and its score, one call each,
-with class_extras between them), one index-list pair of
-the partials store (partials_eval), one packed row delta (mirror_rows:
-every leaf it names), one bidding round
-(auction_bids — two kernels; auction_spread, auction_interpod — one), one
-stage of a round (auction_accept: a round whole, or with a repair family
-its acceptance and its commit, one call each).  Nothing here
-synchronises.
+batch (class_statics, class_extras, greedy_scan, wavefront and
+auction_loop — one thread-block cluster for the whole batch —,
+slice_stats — two kernels), one pod's evaluation (evaluate_single: filter
+and score in one call for a pod without an extra row, else its filter and
+its score, one call each, with class_extras between them), one
+index-list pair of the partials store (partials_eval), one packed row
+delta (mirror_rows: every leaf it names), one stage of an auction round
+(AuctionRun's stage methods: auction_loop's kernel launched for one stage,
+counted under the stage's own name — auction_bids, auction_accept for
+the acceptance, the commit or both, auction_spread, auction_interpod),
+one gang release (auction_release).  Nothing here synchronises.
 """
 
 from __future__ import annotations
@@ -28,7 +28,11 @@ import torch
 from ..ops.assign import term_bits_copy, wave_term_rows
 from . import build
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
+# the auction program's stage entry points: auction_loop's kernel launched
+# for one stage of a round (AuctionRun.bids, accept, spread, interpod)
+AUCTION_STAGES = ("auction_bids", "auction_accept", "auction_spread", "auction_interpod")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS + AUCTION_STAGES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,10 +54,9 @@ _ARGTYPES = {
     "slice_stats": [_I] * 7 + [_P] * 18,
     "evaluate_single": [_I] * 4 + [_P] * 10 + _SPREAD + _TERMS + _SLICES + [_P] * 5,
     "wavefront": [_I] * 9 + [_P] * 16 + _SPREAD + _TERMS + [_P] * 13,
-    "auction_bids": [_I] * 7 + [_P] * 17 + [_I, _P, _P] + _SPREAD + _TERMS + [_P] * 8,
-    "auction_accept": [_I] * 5 + [_P] * 19,
-    "auction_spread": [_I] * 5 + [_P] * 20,
-    "auction_interpod": [_I] * 6 + [_P] * 17,
+    # the auction program: (stages, ints array, pointer array, stream)
+    "auction_loop": [_I, _P, _P, _P],
+    "auction_release": [_I] * 3 + [_P] * 7,
     "class_extras": [_I] * 6 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
     "partials_eval": [_I] * 12 + [_P] * 27,
     "mirror_rows": [_P, _I, _I, _P],
@@ -71,12 +74,14 @@ FP_COUNT = 5 + MAX_FIT + 2 * MAX_SHAPE + 1
 _STRATEGY = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_GRID_Y = 65535
 MAX_WAVE = 32        # wavefront.cu's widest wave
-BIDS_GRID = 132      # auction_bids' class-pass blocks: one an SM, at most
+EXTRAS_GRID = 132    # class_extras' blocks: one an SM, at most
 MAX_MI = 16          # class_extras.cu's images a pod
 MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
 LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
 MAX_VICTIM_SLOTS = 4096  # preempt_dry_run.cu's widest victim axis
-SPREAD_SHARED_Z = 256    # auction_spread.cu's value spaces counted in shared memory
+SPREAD_SHARED_Z = 256    # the auction's spread value spaces counted in shared memory
+# auction_common.cuh's stage flags (auction_loop_layout(3..8) checked on load)
+STAGE = {"loop": 32, "bids": 4, "accept": 1, "commit": 2, "spread": 8, "interpod": 16}
 
 
 def reset_launches() -> None:
@@ -125,12 +130,15 @@ def _launcher(name: str):
             if max_k() != MAX_VICTIM_SLOTS:
                 raise RuntimeError(f"preempt_dry_run max K {max_k()} != bindings "
                                    f"{MAX_VICTIM_SLOTS}")
-        if name == "auction_spread":
-            shared_z = getattr(lib, "auction_spread_limits")
-            shared_z.restype, shared_z.argtypes = ctypes.c_int, []
-            if shared_z() != SPREAD_SHARED_Z:
-                raise RuntimeError(f"auction_spread shared value space {shared_z()} != "
-                                   f"bindings {SPREAD_SHARED_Z}")
+        if name == "auction_loop":
+            layout = getattr(lib, "auction_loop_layout")
+            layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
+            got = tuple(layout(i) for i in range(9))
+            want = (len(AUCTION_INTS), len(AUCTION_PTRS), SPREAD_SHARED_Z,
+                    *(STAGE[k] for k in ("loop", "bids", "accept", "commit", "spread",
+                                         "interpod")))
+            if got != want:
+                raise RuntimeError(f"auction_loop layout {got} != bindings {want}")
         if name == "class_extras":
             max_mi = getattr(lib, "class_extras_limits")
             max_mi.restype, max_mi.argtypes = ctypes.c_int, []
@@ -821,28 +829,36 @@ def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
             counts, *(bits or (None,) * 3))
 
 
-def auction_state(rnd: int, go: bool, device) -> torch.Tensor:
-    """i32[3] round state the auction kernels share on the device:
-    (rounds executed, continue flag, last round's progress)."""
-    return torch.tensor([rnd, int(go), 0], dtype=torch.int32, device=device)
-
-
-def auction_bids(cluster, pods, st, requested, nonzero, assigned, state,
-                 tie_k: int, cfg, bufs, sp_counts=None, term_bits=None):
-    """One bidding round at round state[0], if state[1] is set, into the
-    buffers of `auction_buffers`, against the round's spread counts
-    (st.features.spread) and term bits (st.features.interpod).  Returns
-    (bid i32[P], val f32[P], (inv_c, cnt_c, best_c)), views of those
-    buffers (left at "no bid" when the flag is down)."""
-    args, _keep = _bids_args(cluster, pods, st, requested, nonzero, assigned,
-                             state, tie_k, cfg, bufs, sp_counts, term_bits)
-    _launch("auction_bids", requested.device, *args)
-    return bufs["bid"], bufs["val"], (bufs["inv_c"], bufs["cnt_c"], bufs["best_c"])
+# the auction program's launch arguments: ints[k] and ptrs[k] in the order
+# of csrc/auction_common.cuh's kI_* / kP_* enums (auction_loop_layout gives
+# the lengths, checked on load)
+AUCTION_INTS = (
+    "n", "r", "p", "c_dim", "cs_dim", "cc_dim", "tie_k", "max_rounds",
+    "sp_on", "sp_soft", "sp_c", "sp_mc", "sp_z",
+    "tm_on", "tm_w", "tm_u", "tm_t", "tm_tk", "tm_z",
+)
+AUCTION_PTRS = (
+    "alloc", "requested", "nonzero", "sfeas_s", "aff_s", "taint_s", "s_reps", "jspec",
+    "k_reps", "jcons", "pod_req", "pod_nz", "pod_valid", "order", "class_id", "iparams",
+    "fparams", "extra",
+    "sp_pod_idx", "sp_pod_matches", "sp_max_skew", "sp_min_domains", "sp_hard",
+    "sp_eligible", "sp_v", "sp_sizes", "sp_counts",
+    "tm_key_bits", "tm_slot_v", "tm_mi_slot", "tm_anti_slot", "tm_aff_bits",
+    "tm_anti_bits", "tm_self_match", "tm_present", "tm_blocked", "tm_global_any",
+    "topo_ids", "slot_of_t", "mi_dense", "anti_dense", "solve_pos",
+    "assigned", "bid_scores", "state", "bid", "val", "inv_c", "cnt_c", "best_c",
+    "masked", "slots", "cperm", "cfirst", "cseen", "perm", "perm_idx", "bfirst",
+    "rtmp", "rcnt", "rbase", "prefix", "scan", "accept",
+    "counts_it", "adds", "minc", "kept", "cand", "admit",
+    "minpos", "carrier", "z_mi", "z_an", "release",
+)
+RADIX = 256            # auction_common.cuh's radix sort digits
+SORT_TILE = 512        # its tile at the smallest launch_shape block
 
 
 def _scan_rows(p: int) -> int:
-    """Rows of auction_accept's prefix-scan scratch: the block totals of
-    every level above the P requests (ops.auction.prefix_sum's levels)."""
+    """Rows of the acceptance prefix's scratch: the block totals of every
+    level above the P requests (ops.auction.prefix_sum's levels)."""
     from ..ops.auction import SCAN_BLOCK
 
     rows = 0
@@ -854,152 +870,222 @@ def _scan_rows(p: int) -> int:
 
 def auction_buffers(cluster, pods, tie_k: int, sp_args=None,
                     tm_args=None) -> Dict[str, torch.Tensor]:
-    """Scratch and outputs of the auction kernels, allocated once a
-    batch (with sp_args, auction_spread's too; with tm_args,
-    auction_interpod's group tables)."""
+    """Scratch and outputs of the auction program, allocated once a batch
+    (with sp_args, the spread repair's too; with tm_args, the inter-pod
+    repair's group tables)."""
     dev = cluster.allocatable.device
     i32, f32, u8 = torch.int32, torch.float32, torch.uint8
     n, r = cluster.allocatable.shape
     p = pods.req.shape[0]
     c_dim = pods.class_rep.shape[0]
-    grid = max(1, min(c_dim, BIDS_GRID))
-    spread = {}
+    tiles = -(-p // SORT_TILE)
+    out = {
+        "bid": torch.full((p,), n, dtype=i32, device=dev),
+        "val": torch.full((p,), float("-inf"), dtype=f32, device=dev),
+        "inv_c": torch.zeros((c_dim, tie_k), dtype=i32, device=dev),
+        "cnt_c": torch.zeros(c_dim, dtype=i32, device=dev),
+        "best_c": torch.empty(c_dim, dtype=f32, device=dev),
+        "masked": torch.empty(n, dtype=f32, device=dev),
+        "slots": torch.empty(n, dtype=i32, device=dev),
+        "cperm": torch.empty(p, dtype=i32, device=dev),
+        "cfirst": torch.empty(c_dim + 1, dtype=i32, device=dev),
+        "cseen": torch.full((c_dim + 1,), -1, dtype=i32, device=dev),
+        "perm": torch.empty(p, dtype=i32, device=dev),
+        "perm_idx": torch.empty(p, dtype=i32, device=dev),
+        "bfirst": torch.empty(n + 1, dtype=i32, device=dev),
+        "rtmp": torch.empty(2 * p, dtype=i32, device=dev),
+        "rcnt": torch.empty(2 * tiles * RADIX, dtype=i32, device=dev),
+        "rbase": torch.empty(2 * tiles * RADIX, dtype=i32, device=dev),
+        "prefix": torch.empty((p, r), dtype=f32, device=dev),
+        "scan": torch.empty((max(1, _scan_rows(p)), r), dtype=f32, device=dev),
+        "accept": torch.zeros(p, dtype=u8, device=dev),
+    }
     if sp_args is not None:
         rows = sp_args.state.v.shape[0]
-        spread = {
+        out.update({
             "counts_it": torch.empty((rows, n), dtype=f32, device=dev),
             "adds": torch.empty((rows, sp_args.z), dtype=i32, device=dev),
             "minc": torch.empty(rows, dtype=f32, device=dev),
             "kept": torch.empty(p, dtype=u8, device=dev),
             "cand": torch.empty(p, dtype=u8, device=dev),
             "admit": torch.empty(p, dtype=u8, device=dev),
-        }
-    terms = {}
+        })
     if tm_args is not None:
         groups = tm_args.z * tm_args.table.valid.shape[0]
-        terms = {
+        out.update({
             "minpos": torch.empty(groups, dtype=i32, device=dev),
             "carrier": torch.empty(groups, dtype=u8, device=dev),
             "z_mi": torch.empty(groups, dtype=u8, device=dev),
             "z_an": torch.empty(groups, dtype=u8, device=dev),
             "release": torch.empty(p, dtype=u8, device=dev),
+        })
+    return out
+
+
+class AuctionRun:
+    """One auction batch on the card: the carries the rounds update in
+    place (requested, nonzero, assigned, bid_scores, the spread counts,
+    the term bits — fresh copies — and `state`, i32[3]: rounds executed,
+    the continue flag, the last round's progress), the scratch of
+    `auction_buffers` (`bufs`: the round's bids in bufs["bid"] /
+    bufs["val"], its accepted set in bufs["accept"]) and the checked
+    launch arguments, two host arrays made once.  `loop()` runs every
+    round in one launch; `bids()`, `accept(stage)`, `spread()` and
+    `interpod()` launch one stage of the same program at round state[0]
+    (`load` sets the carries and the state first).  Every launch returns
+    at once on the card when state[1] is down.  Nothing here syncs."""
+
+    def __init__(self, cluster, pods, st, tie_k: int, cfg, max_rounds: int = 64):
+        dev = cluster.allocatable.device
+        self.device = dev
+        i32, f32, b = torch.int32, torch.float32, torch.bool
+        features = st.features
+        n, r = cluster.allocatable.shape
+        p = pods.req.shape[0]
+        c_dim = st.jspec.shape[0]
+        if r > MAX_R:
+            raise ValueError(f"the auction takes at most {MAX_R} resources, got {r}")
+        if not 1 <= tie_k <= n:
+            raise ValueError(f"tie_k {tie_k} outside 1..{n}")
+        if st.jcons.shape != st.jspec.shape or pods.class_rep.shape[0] != c_dim:
+            raise ValueError("jcons, jspec and the class axis must all be [C]")
+        self.requested = _arg(cluster.requested, f32, dev, "requested").clone()
+        self.nonzero = _arg(cluster.nonzero_requested, f32, dev, "nonzero_requested").clone()
+        self.assigned = torch.full((p,), -1, dtype=i32, device=dev)
+        self.bid_scores = torch.full((p,), float("-inf"), dtype=f32, device=dev)
+        self.counts = (st.sp.state.counts_node.clone().contiguous() if features.spread
+                       else None)
+        self.bits = term_bits_copy(st.tm, features)
+        # the loop condition before round 0: max_rounds > 0 and a valid pod
+        self.state = torch.zeros(3, dtype=i32, device=dev)
+        self.state[1] = pods.valid.any().to(i32) * int(max_rounds > 0)
+        self.bufs = auction_buffers(cluster, pods, tie_k, st.sp if features.spread else None,
+                                    st.tm if features.interpod else None)
+        iparams, fparams = score_params(cfg, r, dev)
+        pad = _pad(dev)
+        t = {
+            "alloc": _arg(cluster.allocatable, f32, dev, "allocatable"),
+            "requested": self.requested, "nonzero": self.nonzero,
+            "sfeas_s": _arg(st.sfeas_s, b, dev, "sfeas_s"),
+            "aff_s": _arg(st.aff_s, f32, dev, "aff_s"),
+            "taint_s": _arg(st.taint_s, f32, dev, "taint_s"),
+            "s_reps": _arg(st.s_reps, i32, dev, "s_reps"),
+            "jspec": _arg(st.jspec, i32, dev, "jspec"),
+            "k_reps": _arg(st.k_reps, i32, dev, "k_reps"),
+            "jcons": _arg(st.jcons, i32, dev, "jcons"),
+            "pod_req": _arg(pods.req, f32, dev, "pods.req"),
+            "pod_nz": _arg(pods.nonzero_req, f32, dev, "pods.nonzero_req"),
+            "pod_valid": _arg(pods.valid, b, dev, "pods.valid"),
+            "order": _arg(st.order, i32, dev, "order"),
+            "class_id": _arg(pods.class_id, i32, dev, "pods.class_id"),
+            "iparams": iparams, "fparams": fparams,
+            "assigned": self.assigned, "bid_scores": self.bid_scores, "state": self.state,
+            **self.bufs,
         }
-    return {
-        **spread,
-        **terms,
-        "grid": grid,
-        "inv_c": torch.zeros((c_dim, tie_k), dtype=i32, device=dev),
-        "cnt_c": torch.zeros(c_dim, dtype=i32, device=dev),
-        "best_c": torch.empty(c_dim, dtype=f32, device=dev),
-        "masked": torch.empty((grid, n), dtype=f32, device=dev),
-        "slots": torch.empty((grid, n), dtype=i32, device=dev),
-        "bid": torch.full((p,), n, dtype=i32, device=dev),
-        "val": torch.full((p,), float("-inf"), dtype=f32, device=dev),
-        "perm": torch.empty(p, dtype=i32, device=dev),
-        "firstpos": torch.empty(p, dtype=i32, device=dev),
-        "perm_idx": torch.empty(p, dtype=i32, device=dev),
-        "prefix": torch.empty((p, r), dtype=f32, device=dev),
-        "scan": torch.empty((max(1, _scan_rows(p)), r), dtype=f32, device=dev),
-        "accept": torch.empty(p, dtype=torch.uint8, device=dev),
-    }
+        if t["sfeas_s"].shape != (st.s_reps.shape[0], n) or t["pod_req"].shape != (p, r):
+            raise ValueError("auction tables do not match the batch's pod and node axes")
+        sp, sp_keep = _spread_args(st.sp, features, dev, n, p, self.counts)
+        t.update(zip(("sp_pod_idx", "sp_pod_matches", "sp_max_skew", "sp_min_domains",
+                      "sp_hard", "sp_eligible", "sp_v", "sp_sizes", "sp_counts"),
+                     sp_keep if features.spread else [pad] * 9))
+        tm, tm_keep = _terms_args(st.tm, features, dev, n, p, self.bits, None, st.extra, c_dim)
+        extra_ptr = tm[-1]
+        ints = dict(n=n, r=r, p=p, c_dim=c_dim, cs_dim=st.s_reps.shape[0],
+                    cc_dim=st.k_reps.shape[0], tie_k=int(tie_k), max_rounds=int(max_rounds),
+                    sp_on=sp[0], sp_soft=sp[1], sp_c=sp[2],
+                    sp_mc=sp[3], sp_z=int(st.sp.z) if features.spread else 1,
+                    tm_on=tm[0], tm_w=tm[1], tm_u=tm[2], tm_t=1, tm_tk=1, tm_z=1)
+        term_names = ("tm_key_bits", "tm_slot_v", "tm_mi_slot", "tm_anti_slot", "tm_aff_bits",
+                      "tm_anti_bits", "tm_self_match", "tm_present", "tm_blocked",
+                      "tm_global_any")
+        repair = ("topo_ids", "slot_of_t", "mi_dense", "anti_dense", "solve_pos")
+        if features.interpod:
+            tabs = tm_keep[1:] if st.extra is not None else tm_keep
+            t.update(zip(term_names, tabs[:10]))
+            table = st.tm.table
+            t_dim = table.valid.shape[0]
+            t.update(zip(repair, (
+                _arg(cluster.topo_ids, i32, dev, "topo_ids"),
+                _arg(table.slot, i32, dev, "terms.slot"),
+                _arg(st.mi_dense, b, dev, "mi_dense"),
+                _arg(st.anti_dense, b, dev, "anti_dense"),
+                _arg(st.solve_pos, i32, dev, "solve_pos"))))
+            if (t["mi_dense"].shape != (p, t_dim) or t["anti_dense"].shape != (p, t_dim)
+                    or tm[1] != -(-t_dim // 32)):
+                raise ValueError("inter-pod repair tables do not match the batch's axes")
+            ints.update(tm_t=t_dim, tm_tk=cluster.topo_ids.shape[1], tm_z=int(st.tm.z))
+        else:
+            t.update((k, pad) for k in term_names + repair)
+        for k in ("counts_it", "adds", "minc", "kept", "cand", "admit", "minpos", "carrier",
+                  "z_mi", "z_an", "release"):
+            t.setdefault(k, pad)
+        ptrs = [extra_ptr if k == "extra" else _ptr(t[k]) for k in AUCTION_PTRS]
+        self.ints = (ctypes.c_int * len(AUCTION_INTS))(*(int(ints[k]) for k in AUCTION_INTS))
+        self.ptrs = (ctypes.c_void_p * len(AUCTION_PTRS))(*(q.value for q in ptrs))
+        self._keep = list(t.values()) + sp_keep + tm_keep
 
+    def _run(self, name: str, stages: int) -> None:
+        """One launch of auction_loop's kernel for `stages`, counted under
+        `name`."""
+        with torch.cuda.device(self.device):
+            code = _launcher("auction_loop")(stages, self.ints, self.ptrs,
+                                             _stream(self.device))
+        build.check("auction_loop", code)
+        LAUNCHES[name] += 1
 
-def _bids_args(cluster, pods, st, requested, nonzero, assigned, state, tie_k,
-               cfg, bufs, sp_counts=None, term_bits=None):
-    """The checked ctypes arguments of one auction_bids launch, and the
-    tensors they point into (kept alive by the caller)."""
-    dev = requested.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    keep = [
-        _arg(cluster.allocatable, f32, dev, "allocatable"),
-        _arg(requested, f32, dev, "requested"),
-        _arg(nonzero, f32, dev, "nonzero_requested"),
-        _arg(st.sfeas_s, b, dev, "sfeas_s"),
-        _arg(st.aff_s, f32, dev, "aff_s"),
-        _arg(st.taint_s, f32, dev, "taint_s"),
-        _arg(st.s_reps, i32, dev, "s_reps"),
-        _arg(st.jspec, i32, dev, "jspec"),
-        _arg(pods.req, f32, dev, "pods.req"),
-        _arg(pods.nonzero_req, f32, dev, "pods.nonzero_req"),
-        _arg(st.order, i32, dev, "order"),
-        _arg(pods.class_id, i32, dev, "pods.class_id"),
-        _arg(pods.valid, b, dev, "pods.valid"),
-        _arg(assigned, i32, dev, "assigned"),
-    ]
-    for t, what in ((requested, "requested"), (nonzero, "nonzero_requested"),
-                    (assigned, "assigned"), (state, "state")):
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: rounds update it in place; it must be contiguous")
-    n, r = keep[0].shape
-    p = keep[8].shape[0]
-    if r > MAX_R:
-        raise ValueError(f"auction_bids takes at most {MAX_R} resources, got {r}")
-    if not 1 <= tie_k <= n:
-        raise ValueError(f"tie_k {tie_k} outside 1..{n}")
-    iparams, fparams = score_params(cfg, r, dev)
-    keep += [iparams, fparams, _arg(state, i32, dev, "state")]
-    k_reps = _arg(st.k_reps, i32, dev, "k_reps")
-    jcons = _arg(st.jcons, i32, dev, "jcons")
-    if jcons.shape != st.jspec.shape:
-        raise ValueError("jcons and jspec must both be [C]")
-    sp, sp_keep = _spread_args(st.sp, st.features, dev, n, p, sp_counts)
-    tm, tm_keep = _terms_args(st.tm, st.features, dev, n, p, term_bits, None, st.extra,
-                              st.jspec.shape[0])
-    outs = [bufs[k] for k in ("inv_c", "cnt_c", "best_c", "masked", "slots", "bid", "val")]
-    args = (n, r, p, st.jspec.shape[0], st.s_reps.shape[0], tie_k, bufs["grid"],
-            *(_ptr(t) for t in keep), k_reps.shape[0], _ptr(k_reps), _ptr(jcons),
-            *sp, *tm, *(_ptr(t) for t in outs))
-    return args, keep + [k_reps, jcons] + sp_keep + tm_keep + outs
+    def loop(self) -> None:
+        """Every round from state[0] until the flag falls: one launch."""
+        self._run("auction_loop", STAGE["loop"])
 
+    def bids(self) -> None:
+        """Round state[0]'s bids into bufs["bid"] / bufs["val"]."""
+        self._run("auction_bids", STAGE["bids"])
 
-def _accept_args(allocatable, pods, order, bid, val, requested, nonzero,
-                 assigned, bid_scores, state, max_rounds, bufs, stage=3):
-    """The checked ctypes arguments of one auction_accept launch, and the
-    tensors they point into."""
-    dev = allocatable.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    for t, dt, what in ((requested, f32, "requested"), (nonzero, f32, "nonzero"),
-                        (assigned, i32, "assigned"), (bid_scores, f32, "bid_scores"),
-                        (state, i32, "state")):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{what}: the kernel updates it in place; it must be a "
-                             f"contiguous {dt} tensor on {dev}")
-    keep = [
-        _arg(allocatable, f32, dev, "allocatable"), requested, nonzero,
-        _arg(pods.req, f32, dev, "pods.req"),
-        _arg(pods.nonzero_req, f32, dev, "pods.nonzero_req"),
-        _arg(pods.valid, b, dev, "pods.valid"),
-        _arg(order, i32, dev, "order"),
-        _arg(bid, i32, dev, "bid"),
-        _arg(val, f32, dev, "val"),
-        assigned, bid_scores, state,
-    ]
-    n, r = keep[0].shape
-    p = keep[3].shape[0]
-    if r > MAX_R:
-        raise ValueError(f"auction_accept takes at most {MAX_R} resources, got {r}")
-    keep += [bufs[k] for k in ("perm", "firstpos", "perm_idx", "prefix", "scan", "accept")]
-    return (n, r, p, int(max_rounds), int(stage), *(_ptr(t) for t in keep)), keep
+    def accept(self, stage: int = 3) -> None:
+        """The round's acceptance into bufs["accept"] (stage 1, progress
+        into state[2]), its commit of bufs["accept"] and the state (stage
+        2), or both (stage 3)."""
+        if stage not in (1, 2, 3):
+            raise ValueError(f"auction_accept stage {stage} not in 1, 2, 3")
+        self._run("auction_accept", (STAGE["accept"] if stage & 1 else 0)
+                  | (STAGE["commit"] if stage & 2 else 0))
 
+    def spread(self) -> None:
+        """The spread repair of bufs["accept"] and the kept pods' count
+        commit."""
+        self._run("auction_spread", STAGE["spread"])
 
-def auction_accept(allocatable, pods, order, bid, val, requested, nonzero,
-                   assigned, bid_scores, state, max_rounds: int, bufs,
-                   stage: int = 3) -> None:
-    """One round's acceptance and commit (stage 3), or its acceptance into
-    bufs["accept"] (stage 1) or its commit of bufs["accept"] (stage 2), in
-    place on (requested, nonzero, assigned, bid_scores, state), if
-    state[1] is set, with the scratch of `auction_buffers`."""
-    dev = allocatable.device
-    args, _keep = _accept_args(allocatable, pods, order, bid, val, requested,
-                               nonzero, assigned, bid_scores, state, max_rounds,
-                               bufs, stage)
-    _launch("auction_accept", dev, *args)
+    def interpod(self) -> None:
+        """The anti-affinity repair of bufs["accept"] and the kept pods'
+        term-bit commit."""
+        self._run("auction_interpod", STAGE["interpod"])
+
+    def load(self, rnd: int, requested, nonzero, assigned, bid_scores, counts=None,
+             bits=None, go: bool = True, progress: int = 0) -> None:
+        """Set the carries (copies of the given tensors) and the state."""
+        self.requested.copy_(requested)
+        self.nonzero.copy_(nonzero)
+        self.assigned.copy_(assigned)
+        self.bid_scores.copy_(bid_scores)
+        if counts is not None:
+            self.counts.copy_(counts)
+        if bits is not None:
+            for dst, src in zip(self.bits, bits):
+                dst.copy_(src)
+        self.state.copy_(torch.tensor([rnd, int(go), int(progress)], dtype=torch.int32))
+
+    def result(self) -> tuple:
+        """(assigned, bid_scores, requested, nonzero, rounds i32[], spread
+        counts, inter-pod present, blocked and global_any bits; None for a
+        family the batch does not use)."""
+        return (self.assigned, self.bid_scores, self.requested, self.nonzero, self.state[0],
+                self.counts, *(self.bits or (None,) * 3))
 
 
 def auction_release(allocatable, pods, assigned, dropped, requested, nonzero) -> None:
     """The gang post-pass's subtraction, in place on (requested, nonzero):
     each node takes off its dropped pods' requests in pod index order
-    (kernel auction_accept's release entry point)."""
+    (kernel auction_release)."""
     dev = allocatable.device
     i32, f32, b = torch.int32, torch.float32, torch.bool
     for t, what in ((requested, "requested"), (nonzero, "nonzero")):
@@ -1011,121 +1097,20 @@ def auction_release(allocatable, pods, assigned, dropped, requested, nonzero) ->
                                                          "pods.nonzero_req")]
     n, r = requested.shape
     p = keep[0].shape[0]
-    fn = build.library("auction_accept").auction_accept_release
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [_I] * 3 + [_P] * 7
-    with torch.cuda.device(dev):
-        code = fn(n, r, p, *(_ptr(t) for t in keep), _ptr(requested), _ptr(nonzero),
-                  _stream(dev))
-    build.check("auction_accept", code)
-    LAUNCHES["auction_accept"] += 1
-
-
-def _spread_repair_args(cluster, pods, st, counts, state, bufs):
-    """The checked ctypes arguments of one auction_spread launch, and the
-    tensors they point into."""
-    dev = cluster.allocatable.device
-    i32 = torch.int32
-    n = cluster.allocatable.shape[0]
-    p = pods.req.shape[0]
-    sp, keep = _spread_args(st.sp, st.features, dev, n, p, counts)
-    keep += [_arg(st.order, i32, dev, "order"), bufs["bid"], state, bufs["accept"]]
-    scratch = [bufs[k] for k in ("counts_it", "adds", "minc", "kept", "cand", "admit")]
-    if scratch[0].shape != counts.shape:
-        raise ValueError("auction_spread scratch does not match the counts")
-    args = (n, p, int(st.sp.z), *sp[2:],
-            *(_ptr(t) for t in keep[-4:]), *(_ptr(t) for t in scratch))
-    return args, keep + scratch
-
-
-def auction_spread(cluster, pods, st, counts, state, bufs) -> None:
-    """One round's spread repair of bufs["accept"] (against bufs["bid"])
-    and the commit of the kept pods into `counts`, in place, if state[1]
-    is set."""
-    args, _keep = _spread_repair_args(cluster, pods, st, counts, state, bufs)
-    _launch("auction_spread", cluster.allocatable.device, *args)
-
-
-def _interpod_repair_args(cluster, pods, st, bits, state, bufs):
-    """The checked ctypes arguments of one auction_interpod launch, and the
-    tensors they point into."""
-    dev = cluster.allocatable.device
-    i32, b = torch.int32, torch.bool
-    n, tk = cluster.topo_ids.shape
-    p = pods.req.shape[0]
-    table = st.tm.table
-    t_dim = table.valid.shape[0]
-    keep = [
-        _arg(cluster.topo_ids, i32, dev, "topo_ids"), _arg(table.slot, i32, dev, "terms.slot"),
-        bufs["bid"], _arg(st.mi_dense, b, dev, "mi_dense"),
-        _arg(st.anti_dense, b, dev, "anti_dense"), _arg(st.solve_pos, i32, dev, "solve_pos"),
-        state, bufs["accept"], *bits,
-        *(bufs[k] for k in ("minpos", "carrier", "z_mi", "z_an", "release")),
-    ]
-    w = bits[0].shape[1]
-    if (keep[3].shape != (p, t_dim) or keep[4].shape != (p, t_dim)
-            or bits[0].shape != (n, w) or bits[2].shape != (w,)
-            or bufs["minpos"].shape[0] != st.tm.z * t_dim):
-        raise ValueError("auction_interpod tables do not match the batch's axes")
-    return (n, p, t_dim, tk, int(st.tm.z), w, *(_ptr(t) for t in keep)), keep
-
-
-def auction_interpod(cluster, pods, st, bits, state, bufs) -> None:
-    """One round's anti-affinity repair of bufs["accept"] (against
-    bufs["bid"]) and the commit of the kept pods into the (present,
-    blocked, global_any) `bits`, in place, if state[1] is set."""
-    args, _keep = _interpod_repair_args(cluster, pods, st, bits, state, bufs)
-    _launch("auction_interpod", cluster.allocatable.device, *args)
+    _launch("auction_release", dev, n, r, p, *(_ptr(t) for t in keep), _ptr(requested),
+            _ptr(nonzero))
 
 
 def auction_rounds(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
-    """All rounds with no host sync: max_rounds rounds are enqueued, their
-    arguments checked once — (bids, accept) pairs, or with a repair family
-    (bids, accept stage 1, auction_spread and/or auction_interpod, accept
-    stage 2); every launch after the loop's end returns at once on the
-    device's flag.  Returns (assigned, bid_scores, requested, nonzero,
-    rounds i32[], spread counts, inter-pod present, blocked and global_any
-    bits; None for a family the batch does not use)."""
-    dev = cluster.allocatable.device
-    p = pods.req.shape[0]
-    use_spread = bool(st.features.spread)
-    use_terms = bool(st.features.interpod)
-    requested = cluster.requested.clone().contiguous()
-    nonzero = cluster.nonzero_requested.clone().contiguous()
-    assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
-    bid_scores = torch.full((p,), float("-inf"), dtype=torch.float32, device=dev)
-    counts = st.sp.state.counts_node.clone().contiguous() if use_spread else None
-    bits = term_bits_copy(st.tm, st.features)
-    # the loop condition before round 0: max_rounds > 0 and a valid pod
-    state = torch.zeros(3, dtype=torch.int32, device=dev)
-    state[1] = pods.valid.any().to(torch.int32) * int(max_rounds > 0)
-    bufs = auction_buffers(cluster, pods, tie_k, st.sp if use_spread else None,
-                           st.tm if use_terms else None)
-    bids, _k1 = _bids_args(cluster, pods, st, requested, nonzero, assigned,
-                           state, tie_k, cfg, bufs, counts, bits)
-    split = use_spread or use_terms
-    accept_args = [
-        _accept_args(cluster.allocatable, pods, st.order, bufs["bid"],
-                     bufs["val"], requested, nonzero, assigned, bid_scores,
-                     state, max_rounds, bufs, stage)
-        for stage in ((1, 2) if split else (3,))
-    ]
-    if use_spread:
-        spread_repair, _k3 = _spread_repair_args(cluster, pods, st, counts, state, bufs)
-    if use_terms:
-        term_repair, _k4 = _interpod_repair_args(cluster, pods, st, bits, state, bufs)
-    for _ in range(max_rounds):
-        _launch("auction_bids", dev, *bids)
-        _launch("auction_accept", dev, *accept_args[0][0])
-        if use_spread:
-            _launch("auction_spread", dev, *spread_repair)
-        if use_terms:
-            _launch("auction_interpod", dev, *term_repair)
-        if split:
-            _launch("auction_accept", dev, *accept_args[1][0])
-    return (assigned, bid_scores, requested, nonzero, state[0], counts,
-            *(bits or (None,) * 3))
+    """Every round of the auction in one launch (kernel auction_loop: one
+    thread-block cluster loops the rounds until the device's flag falls),
+    its arguments checked once, with no host sync.  Returns (assigned,
+    bid_scores, requested, nonzero, rounds i32[], spread counts, inter-pod
+    present, blocked and global_any bits; None for a family the batch does
+    not use)."""
+    run = AuctionRun(cluster, pods, st, tie_k, cfg, max_rounds)
+    run.loop()
+    return run.result()
 
 
 def class_extras(cluster, prefpod, images, features, cfg, reps, feas, pp) -> torch.Tensor:
@@ -1171,7 +1156,7 @@ def class_extras(cluster, prefpod, images, features, cfg, reps, feas, pp) -> tor
     if n and c_dim and p:
         _launch(
             "class_extras", dev,
-            n, c_dim, p, max(1, min(c_dim, BIDS_GRID)), int(pref_on), int(img_on),
+            n, c_dim, p, max(1, min(c_dim, EXTRAS_GRID)), int(pref_on), int(img_on),
             float(cfg.interpod_weight), float(cfg.image_weight), _ptr(reps), _ptr(feas),
             u_dim, ma, *(_ptr(t) for t in pref), iw, i_dim, mi, *(_ptr(t) for t in img),
             _ptr(out),

@@ -24,10 +24,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-KERNELS = ("match_terms", "class_statics", "greedy_scan", "wavefront",
-           "auction_bids", "auction_accept", "auction_spread", "auction_interpod",
-           "class_extras", "partials_eval", "mirror_rows", "slice_stats", "evaluate_single",
-           "preempt_dry_run", "pod_filters")
+KERNELS = ("match_terms", "class_statics", "greedy_scan", "wavefront", "auction_loop",
+           "auction_release", "class_extras", "partials_eval", "mirror_rows", "slice_stats",
+           "evaluate_single", "preempt_dry_run", "pod_filters")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

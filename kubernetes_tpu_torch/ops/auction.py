@@ -26,15 +26,16 @@ least one pod, so the loop ends; `max_rounds` bounds it regardless.
 After the rounds, a staged filter pass names each unplaced pod's reason
 and gangs with an unplaced member release every placement.
 
-On the card a round is two CUDA kernels, `auction_bids` and
-`auction_accept` — with a repair family more: the acceptance, then
-`auction_spread` (the spread repair and the count commit) and
-`auction_interpod` (the anti-affinity repair and the term-bit commit),
-then the acceptance kernel's commit; all `max_rounds` rounds are enqueued
-without a host sync and each launch reads the device's own continue flag,
-which the previous round's commit wrote.  The spread and inter-pod preps,
-the reasons pass and the gang post-pass are elementwise and scatter glue
-in torch; the preferred inter-pod and image extras are one row per joint
+On the card the whole round loop is one launch, kernel `auction_loop`:
+one thread-block cluster runs every round — the bids, the acceptance,
+the spread repair and count commit, the anti-affinity repair and term-bit
+commit, the commit — until the device's continue flag falls, with no host
+sync (csrc/auction_common.cuh; the stage entry points `auction_bids`,
+`auction_accept`, `auction_spread` and `auction_interpod` launch one
+stage of the same kernel).  The gang post-pass's release is kernel
+`auction_release`; the spread and inter-pod preps, the reasons pass and
+the rest of the gang post-pass are elementwise and scatter glue in
+torch; the preferred inter-pod and image extras are one row per joint
 class (kernel `class_extras`), built once.
 
 The static, resource, gang, spread, inter-pod anti-affinity, preferred
@@ -586,9 +587,8 @@ def auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds=64):
     """All bidding rounds: (assigned, bid_scores, requested, nonzero,
     rounds, spread counts, inter-pod present, blocked and global_any bits;
     None for a family the batch does not use).  On the CPU the plain loop;
-    on the card `max_rounds` rounds of the kernels are enqueued with no
-    host sync, each launch returning at once when the device's continue
-    flag is down."""
+    on the card one launch of kernel auction_loop, which runs the rounds
+    until the device's continue flag falls, with no host sync."""
     if cluster.allocatable.device.type == "cpu":
         return _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds)
     from ..kernels import bindings
@@ -597,8 +597,8 @@ def auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds=64):
 
 
 def gang_release_plain(pods, assigned, dropped, requested, nonzero):
-    """Plain version of the gang post-pass's subtraction (auction_accept's
-    release entry point): (requested, nonzero) less every dropped pod's
+    """Plain version of the gang post-pass's subtraction (kernel
+    auction_release): (requested, nonzero) less every dropped pod's
     requests on its node, each node's in pod index order."""
     n = requested.shape[0]
     tgt = torch.clamp(assigned, 0, n - 1).long()
@@ -696,7 +696,7 @@ def auction_assign(
     # gang post-pass: all-or-nothing groups; the release subtracts the
     # dropped pods' requests from each node in pod index order, as the
     # reference's masked scatter-add does (on the card: kernel
-    # auction_accept's release entry point)
+    # auction_release)
     gang_dropped = torch.zeros_like(pods.valid)
     if n_groups > 0:
         g = pods.group_id

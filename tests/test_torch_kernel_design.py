@@ -4,7 +4,7 @@ Neither kernel runs here (no card, no nvcc), so their two new designs are
 emulated in numpy step for step and held to the plain versions and to the
 reference:
 
-(a) auction_spread's rank stage (csrc/auction_spread.cu rank_rows): a
+(a) auction_spread's rank stage (csrc/auction_common.cuh rank_rows): a
     warp walks a hard row's solve order 32 positions at a time;
     __match_any_sync groups the lanes by their bid node's value, a lane's
     rank is its value's running counter plus the matching peers in lower
@@ -79,8 +79,8 @@ from kubernetes_tpu_torch.ops.filters import pod_view
 
 from test_torch_spread_solves import CONFIGS, assert_fields, build_case, encode
 
-WARPS = 32          # auction_spread.cu: 1,024 threads
-SHARED_Z = 256      # auction_spread.cu kShZ (bindings.SPREAD_SHARED_Z)
+WARPS = 32          # the spread repair at 1,024 threads a block
+SHARED_Z = 256      # auction_common.cuh kShZ (bindings.SPREAD_SHARED_Z)
 REPAIR_ITERS = 3    # ops/auction.py SPREAD_REPAIR_ITERS
 BIG = np.float32(1e9)
 F32 = np.float32
