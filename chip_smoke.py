@@ -7,7 +7,8 @@ configuration: the resident cluster mirror and the warm partials on
 (use_mirror=False is the cold path).  Phases (one JSON line each on
 stdout; with --log also appended to PATH):
 
-  build      build the sixteen CUDA kernels from kubernetes_tpu_torch/csrc
+  build      build the fourteen CUDA sources of kubernetes_tpu_torch/csrc
+             (one nvcc each, started together)
   parity     each kernel against its plain torch version, exact (on the
              card, or on CPU copies of the inputs where the plain version
              adds in pod index order: the scan, the wavefront and the
@@ -52,7 +53,12 @@ stdout; with --log also appended to PATH):
              wavefront), and with whenUnsatisfiable: ScheduleAnyway (the
              auction, scored by the soft spread score); every result equal
              to the plain path's on the CPU for the same snapshot, and each
-             kernel of the spread path timed at these shapes
+             kernel of the spread path timed at these shapes; family_prep
+             (entry spread) against its plain twin on the card and on the
+             CPU for every batch of the phase (T timed; S the wavefront's);
+             the auction's reasons stage, launched alone on the measured
+             batch's final state, equal to the loop's own run of it and to
+             the plain twin on the CPU
   interpod   SchedulingPodAntiAffinity/5000Nodes (1,000 init pods in
              sched-0, 1,000 measured in sched-1, both padded to 1,024: the
              auction with auction_interpod; the measured batch also on the
@@ -60,15 +66,18 @@ stdout; with --log also appended to PATH):
              SchedulingPodAffinity/5000Nodes (init and measured on the
              wavefront, one-pod waves; the measured batch also on the scan;
              every measured pod in a zone of a color=blue pod), every batch
-             equal to the plain path on the CPU; auction_interpod and the
-             plain-torch prep_terms timed at these shapes
+             equal to the plain path on the CPU; auction_interpod and
+             family_prep (entry terms: A timed, every other batch of the
+             phase, F among them, checked against its plain twin on the
+             card and on the CPU) timed at these shapes
   extras     the preferred-affinity variant (upstream's
              SchedulingPreferredPodAffinity shape: 5,000 nodes, 1,000 init
              and 1,000 measured pods; the auction with class_extras, and the
              scan) and a synthetic ImageLocality batch (5,000 nodes, 1,000
              pods; the auction and the scan), every batch equal to the plain
-             path on the CPU; class_extras and the plain-torch prep_pref_pod
-             timed at these shapes
+             path on the CPU; class_extras and family_prep (entry pref: P
+             timed, the phase's other batches checked) timed at these
+             shapes
   slices     the randomized slice cases (seeds 0-5) and a multi-core
              coordinate case under both policies, greedy_scan's carve-out
              stage, slice_stats and evaluate_single against their plain
@@ -158,7 +167,11 @@ stdout; with --log also appended to PATH):
              preferred term, two stages) at 16,384 padded nodes (10,000
              nodes) and 65,536 (the north scheduler after its batches),
              where launch_shape takes 1,024-thread blocks, each against its
-             plain version on CPU copies, exact
+             plain version on CPU copies, exact; then family_prep's three
+             entries at 65,536 padded nodes (2,000 bound color=red pods
+             with preferred terms, a batch with hostname and zone spread
+             rows, a zone anti-affinity term and the preferred term)
+             against their plain twins on the card and on CPU copies
   breakers   once, after every phase above (none arms a fault; the
              counters only count up): every scheduler built so far has its
              circuit breaker closed, no trip, no host fallback and no
@@ -196,12 +209,15 @@ just before the part and
 read just after; the kernels expected are derived from the batches the
 part's schedulers encoded (route_kernels): the route's own — warm statics
 drop match_terms (kept for the spread family's selector mask) and
-class_statics —, the families' (class_extras with preferred
-inter-pod terms or images, slice_stats after a slice batch's scan) and
-the residents' (partials_eval, mirror_rows, each launched exactly as often
-as the residents recorded); every auction batch launches auction_loop
-exactly once and no stage entry point (auction_release after a batch
-with gangs only); the extender's windows expect match_terms,
+class_statics —, the families' (family_prep once a family a batch,
+class_extras with preferred inter-pod terms or images, slice_stats after
+a slice batch's scan) and the residents' (partials_eval, mirror_rows,
+each launched exactly as often as the residents recorded); every
+auction batch launches auction_loop exactly once — its reasons pass
+inside — and no stage entry point (auction_release after a batch with
+gangs only); and no card path calls a plain twin of a ported prep or of
+the reasons pass (install_plain_counters: "plain:<name>" counters held to
+0 by the same check); the extender's windows expect match_terms,
 class_statics and evaluate_single (one fused launch a request of the
 basic pod), with class_extras for the variants, and the proto request the
 cold auction's.
@@ -322,7 +338,55 @@ SOURCES = {
                         "kubernetes_tpu/ops/preemption.py:129"),
     "pod_filters": ("kubernetes_tpu_torch/csrc/pod_filters.cu",
                     "kubernetes_tpu/ops/preemption.py:194"),
+    # the reasons pass: a stage of the program, run by every loop launch
+    "auction_reasons": ("kubernetes_tpu_torch/csrc/auction_common.cuh",
+                        "kubernetes_tpu/ops/auction.py:765"),
+    # three entries of one source; each row names its entry's function
+    "family_prep": ("kubernetes_tpu_torch/csrc/family_prep.cu",
+                    "kubernetes_tpu/ops/topology.py:50"),
 }
+# the JAX function each entry of family_prep replaces
+FAMILY_REPLACES = {"spread": "kubernetes_tpu/ops/topology.py:50",
+                   "terms": "kubernetes_tpu/ops/interpod.py:86",
+                   "pref": "kubernetes_tpu/ops/interpod.py:220"}
+# the plain versions no card path may run (install_plain_counters: a call
+# with tensors on the card counts under "plain:<name>" in bindings.LAUNCHES,
+# so every launch check also holds them to 0)
+PLAIN_TWINS = (("topology", "prep_spread_plain"), ("interpod", "prep_terms_plain"),
+               ("interpod", "prep_pref_pod_plain"), ("auction", "failure_reasons_plain"))
+
+def install_plain_counters(bindings, torch) -> None:
+    """Wrap each plain twin of PLAIN_TWINS in its module so that a call
+    whose first tensor lies on the card adds one to
+    bindings.LAUNCHES["plain:<name>"] (reset with the kernels' counters).
+    Comparisons call the plain twins outside the launch windows; inside
+    one, a count above 0 fails the window's check (check_launches)."""
+    import importlib
+
+    def first_tensor(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        if isinstance(x, tuple):
+            for v in x:
+                t = first_tensor(v)
+                if t is not None:
+                    return t
+        return None
+
+    for mod_name, name in PLAIN_TWINS:
+        mod = importlib.import_module(f"kubernetes_tpu_torch.ops.{mod_name}")
+        fn = getattr(mod, name)
+        key = f"plain:{name}"
+        bindings.LAUNCHES[key] = 0
+
+        def counted(*args, _fn=fn, _key=key, **kw):
+            t = first_tensor(args)
+            if t is not None and t.is_cuda:
+                bindings.LAUNCHES[_key] += 1
+            return _fn(*args, **kw)
+
+        setattr(mod, name, counted)
+
 
 # the kernels each route launches with cold statics (match_terms and
 # class_statics: all); route_kernels derives a batch's kernels from its
@@ -728,14 +792,17 @@ def auction_bids_need(cluster, pods, st, requested, tie_k, torch, assigned=None)
 
 
 def reasons_need(cluster, pods, st, assigned, requested, nonzero, sp_counts,
-                 torch) -> tuple:
+                 term_bits=None, torch=None) -> tuple:
     """(bytes, operations) the auction's reasons pass needs on this data:
     allocatable and the final usage once, the spec classes' static rows
-    and requests, the pods' class and assignment in and reasons out, and
-    with the spread family the live rows' tables and final counts; the fit
-    test (2 flops a node and requested resource a spec class), the stage
-    ands (3 a node a joint class) and the spread skew test (4 flops a node
-    a constraint class's hard row)."""
+    and requests, the pods' class and assignment in and reasons out, with
+    the spread family the live rows' tables and final counts, with the
+    inter-pod family the final present / blocked / key words and the
+    constraint classes' pod words; the fit test (2 flops a node and
+    requested resource a spec class), the stage ands (3 a node a joint
+    class), the spread skew test (4 flops a node a constraint class's hard
+    row) and the inter-pod word tests (5 a node, word and constraint
+    class)."""
     n, r = cluster.allocatable.shape
     reps = st.s_reps.long()
     tested = int((pods.req[reps] > 0).sum())
@@ -750,6 +817,11 @@ def reasons_need(cluster, pods, st, assigned, requested, nonzero, sp_counts,
         rows = table.pod_idx[st.k_reps.long()]
         hard = int(((rows >= 0) & table.hard[torch.clamp(rows, 0, None).long()]).sum())
         ops += 4 * n * hard
+    if st.features.interpod and term_bits is not None:
+        tm, k = st.tm.state, st.k_reps.long()
+        need += nbytes(*term_bits, tm.key_bits, tm.aff_bits[k], tm.anti_bits[k],
+                       tm.mi_slot_bits[:, k], st.tm.table.self_match_all[k])
+        ops += 5 * n * tm.key_bits.shape[1] * k.shape[0]
     return need, float(ops)
 
 
@@ -914,6 +986,14 @@ def check_auction_launches(name, launches, batches: int) -> None:
                                  "times on a path")
 
 
+def stage_launches(name, launches) -> int:
+    """A row's launches on its phase's path: the kernel's counter; for the
+    reasons stage, which every auction_loop launch runs after its rounds,
+    the loop's (its own counter, auction_reasons, counts only the stage
+    launched alone, 0 on every path)."""
+    return launches["auction_loop" if name == "auction_reasons" else name]
+
+
 def check_launches(name, launches, want) -> None:
     """Every kernel of `want` was launched, and no other."""
     for k, count in launches.items():
@@ -961,6 +1041,7 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     TorchBatchScheduler = recording(TorchBatchScheduler)
+    install_plain_counters(bindings, torch)
 
     # ---- build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -1092,12 +1173,12 @@ def main() -> int:
     spread_wave_launches = next(r for r in spread_rows if r["name"] == "wavefront")["launches"]
 
     # ---- inter-pod: SchedulingPodAntiAffinity and SchedulingPodAffinity ----
-    interpod_rows, interpod_launches, prep_terms_row = interpod_phase(
+    interpod_rows, interpod_launches, terms_row = interpod_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
     interpod_wave_launches = next(r for r in interpod_rows if r["name"] == "wavefront")["launches"]
 
     # ---- extras: preferred inter-pod affinity and ImageLocality -----------
-    extras_row, prep_pref_pod_row = extras_phase(
+    extras_row, pref_row = extras_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
 
     # ---- slices: bench.py's c10 on the scan, card against CPU -------------
@@ -1127,17 +1208,20 @@ def main() -> int:
         snap_w, meta_w.features, meta_w.n_groups, wsched.score_config,
         meta_w.wave_plan.members, assign, bindings, torch, timed=True,
     ), shape="W"))
-    summary.extend(dict(r, shape="B") if r["name"] == "auction_loop" else r for r in run_auction(
-        snap_k, sched.score_config, meta_k.tie_k, auction, bindings, torch, timed=True,
-    ))
+    summary.extend(dict(r, shape="B") if r["name"] in ("auction_loop", "auction_reasons") else r
+                   for r in run_auction(snap_k, sched.score_config, meta_k.tie_k, auction,
+                                        bindings, torch, timed=True))
     launches_of = {"greedy_scan": greedy_launches, "wavefront": wave_launches}
     for row in summary:
-        row["launches"] = launches_of.get(row["name"], main_launches)[row["name"]]
-    # the auction program on the spread (T) and anti-affinity (A) phases'
-    # measured batches, with their phases' launches
+        row["launches"] = stage_launches(row["name"], launches_of.get(row["name"], main_launches))
+    # the auction program and its reasons stage on the spread (T) and
+    # anti-affinity (A) phases' measured batches, with their phases'
+    # launches; family_prep's entries at T, A and P
     summary.extend(dict(r, shape=shape) for rows, shape in ((spread_rows, "T"),
                                                             (interpod_rows, "A"))
-                   for r in rows if r["name"] == "auction_loop")
+                   for r in rows if r["name"] in ("auction_loop", "auction_reasons"))
+    summary.extend([next(r for r in spread_rows if r["name"] == "family_prep"), terms_row,
+                    pref_row])
     # the wavefront on the other phases' default routes: S (the spread
     # phase's first 500-pod batch), F (SchedulingPodAffinity's measured
     # batch); its launches over every default-route phase that runs it
@@ -1182,6 +1266,14 @@ def main() -> int:
                                   "(one-pod waves); F: SchedulingPodAffinity/5000Nodes measured "
                                   "batch (one-pod waves)",
                      "auction_spread": "TopologySpreading/5000Nodes measured batch",
+                     "auction_reasons": "B, T, A, N as auction_loop: the stage alone on the "
+                                        "loop's final state; launches: the loop's (it runs "
+                                        "once in each)",
+                     "family_prep": "T (entry spread): TopologySpreading/5000Nodes measured "
+                                    "batch; A (terms): SchedulingPodAntiAffinity/5000Nodes "
+                                    "measured batch; P (pref): the preferred-affinity "
+                                    "variant's measured batch; launches: one an entry a "
+                                    "batch over that phase's default-route run",
                      "auction_interpod": "SchedulingPodAntiAffinity/5000Nodes measured batch",
                      "class_extras": "the preferred-affinity variant's measured batch "
                                      "(the auction's class pairs)",
@@ -1202,8 +1294,7 @@ def main() -> int:
                            shape=row.get("shape"), equal=True) for row in summary],
           "wavefront_launches_all_phases": wave_all,
           "resident_kernels": resident_rows, "resident_torch": resident_extra,
-          "solve_order": {"ms": order_ms, "bound_ms": order_bound[0], "bound_by": order_bound[1]},
-          "prep_terms": prep_terms_row, "prep_pref_pod": prep_pref_pod_row})
+          "solve_order": {"ms": order_ms, "bound_ms": order_bound[0], "bound_by": order_bound[1]}})
 
     # ---- small input against the plain path on the CPU ------------------
     small = {}
@@ -1271,6 +1362,8 @@ def main() -> int:
     north["kernels"] = north_rows
     summary.append(dict(next(r for r in north_rows if r["name"] == "auction_loop"), shape="N",
                         launches=north_launches["auction_loop"]))
+    summary.append(dict(next(r for r in north_rows if r["name"] == "auction_reasons"),
+                        shape="N", launches=stage_launches("auction_reasons", north_launches)))
 
     # the second batch: the first one's placements assumed, another 10,000
     # pods, warm (a delta sync of the rows the assumes dirtied) against cold
@@ -1302,7 +1395,7 @@ def main() -> int:
     north["second"] = {"delta_rows": want_rows, "padded_nodes": big.state.node_axis_bucket,
                        "warm": rw, "cold": rc, "launches": north2_launches}
     emit(north)
-    wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, bindings, torch)
+    wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bindings, torch)
     # every phase so far arms no fault: breakers, fallbacks and cold
     # partials syncs only ever count up, so one check covers them all
     emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
@@ -1318,16 +1411,12 @@ def main() -> int:
         src, replaces = SOURCES[row["name"]]
         kernels.append({
             "name": row["name"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": row["launches"],
+            "replaces": row.get("replaces", replaces), "launches": row["launches"],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-            **({"shape": row["shape"]} if "shape" in row else {}),
-            **({"host_ms": row["host_ms"], "device_ms": row["device_ms"]}
-               if "device_ms" in row else {}),
-            **({"host_ms": row["host_ms"], "rounds": row["rounds"]}
-               if "rounds" in row else {}),
-            **({"stage_of": row["stage_of"]} if "stage_of" in row else {}),
+            **{k: row[k] for k in ("shape", "host_ms", "device_ms", "rounds", "stage_of",
+                                   "entry") if k in row},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1794,38 +1883,30 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
                    "last_timings": ssched.last_timings, "launches": slaunches}
     out["cpu_check_s"] = {k: v for k, v in timing.items() if k.endswith("_cpu_s")}
 
-    # the spread prep (plain torch on the card) at these shapes, timed
-    sel_mask = filters.selector_match(snap.cluster, snap.selectors)
-    torch.cuda.synchronize()
-    prep_ms = cuda_ms(lambda: assign.spread_prep(snap, sel_mask, meta.features,
-                                                 meta.topo_split[0]), 20, torch)
-    sp = assign.spread_prep(snap, sel_mask, meta.features, meta.topo_split[0])
-    c_dim, n = sp.state.v.shape
-    # the bound charges the live rows only: their owners' selector rows,
-    # the topology columns they read, their tables in and state out
-    sps, live = snap.spread, live_spread_rows(snap.spread, torch)
-    sel_rows = torch.unique(sps.owner_sel_idx[live][sps.owner_sel_idx[live] >= 0]).long()
-    slots = torch.unique(sps.slot[live]).long()
-    prep_bytes = (nbytes(snap.cluster.topo_ids[:, slots], snap.cluster.node_valid,
-                         sel_mask[sel_rows], sps.node_matches[live], sps.owner_keys[live],
-                         sps.slot[live], sps.valid[live], sps.owner_sel_idx[live])
-                  + nbytes(*(t[live] for t in sp.state)))
-    prep_bound = bound(prep_bytes, 8.0 * int(live.numel()) * n)
-    out["prep_spread"] = {"ms": prep_ms, "bound_ms": prep_bound[0], "bound_by": prep_bound[1],
-                          "rows": c_dim, "live_rows": int(live.numel()), "nodes": n,
-                          "route": "plain torch"}
+    # kernel family_prep (the spread entry) against its plain twin on the
+    # card and on the CPU, exact, timed at the auction batch's shapes (T);
+    # the scan's and the wavefront's batches (S: the first) checked too
+    fam = check_family("T", snap, meta.features, meta.topo_split, filters, bindings, torch,
+                       timed=True)["spread"]
+    fam.update(shape="T", launches=launches["family_prep"],
+               rows=int(snap.spread.valid.shape[0]), z=int(meta.topo_split[0]))
+    check_family("spread/greedy", gsnap, gmeta.features, gmeta.topo_split, filters, bindings,
+                 torch)
+    for k, (s_w, m_w, _r) in enumerate(wave["solves"]):
+        check_family(f"S{k}", s_w, m_w.features, m_w.topo_split, filters, bindings, torch)
+    out["family_prep"] = fam
 
-    # the auction's reasons pass (plain torch on the card, its spread
-    # filter included) at these shapes, timed, on the solve's final state
+    # the reasons stage of the auction program: the measured batch's final
+    # state (before any gang release: this batch has none) through the
+    # stage alone, against the scheduler's result (the loop's own run of
+    # the stage) and the plain twin on CPU copies; timed in run_auction
     cl_r, pods_r, st_r = auction.auction_prep(snap, meta.features, meta.topo_split)
     reason_args = (cl_r, pods_r, st_r, res.assignment, res.cluster.requested,
                    res.cluster.nonzero_requested, res.debug_sp_counts)
-    check_equal("spread/reasons pass", (auction.failure_reasons(*reason_args),),
-                (res.reasons,), torch)
-    reasons_ms = cuda_ms(lambda: auction.failure_reasons(*reason_args), 20, torch)
-    reasons_bound = bound(*reasons_need(*reason_args, torch))
-    out["reasons_pass"] = {"ms": reasons_ms, "bound_ms": reasons_bound[0],
-                           "bound_by": reasons_bound[1], "route": "plain torch"}
+    stage = auction.failure_reasons(*reason_args)
+    check_equal("spread/reasons pass", (stage,), (res.reasons,), torch)
+    check_equal("spread/reasons pass (card against the CPU)", (stage,),
+                (auction.failure_reasons_plain(*cpu_args(reason_args, torch)),), torch)
 
     # the spread path's kernels at these shapes, timed
     rows = run_kernels(gsnap, gmeta.features, gmeta.n_groups, gsched.score_config,
@@ -1838,7 +1919,8 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
                             timed=True))
     launches_of = {"greedy_scan": glaunches, "wavefront": wlaunches}
     for r in rows:
-        r["launches"] = launches_of.get(r["name"], launches)[r["name"]]
+        r["launches"] = stage_launches(r["name"], launches_of.get(r["name"], launches))
+    rows.append(fam)
     out["kernels"] = rows
     out["card"] = card
     emit(out)
@@ -1865,10 +1947,13 @@ def route_kernels(meta) -> set:
     warm statics (meta.statics, the resident partials) no class_statics and
     no match_terms unless the spread family needs the selector mask;
     auction_release after an auction with gangs;
-    class_extras with preferred inter-pod terms or images; and the kernels
-    the residents launched while encoding it."""
+    class_extras with preferred inter-pod terms or images; family_prep with
+    the spread, inter-pod or preferred inter-pod family (one launch a
+    family); and the kernels the residents launched while encoding it."""
     f = meta.features
     kernels = set(ROUTE_KERNELS[meta.route])
+    if f.spread or f.interpod or f.interpod_pref:
+        kernels.add("family_prep")
     if meta.statics is not None:
         kernels -= {"match_terms", "class_statics"}
         if f.spread:
@@ -1967,6 +2052,87 @@ def prep_pref_pod_need(snap, state, torch) -> tuple:
     return need, 8.0 * int(live.numel()) * n
 
 
+def prep_spread_need(snap, sel_mask, state, torch) -> tuple:
+    """(bytes, operations) of prep_spread on this data: the live rows'
+    owners' selector rows, the topology columns they read, their tables in
+    and state out; about 8 operations a live (row, node) pair."""
+    sps, live = snap.spread, live_spread_rows(snap.spread, torch)
+    n = snap.cluster.node_valid.shape[0]
+    sel_rows = torch.unique(sps.owner_sel_idx[live][sps.owner_sel_idx[live] >= 0]).long()
+    slots = torch.unique(sps.slot[live]).long()
+    need = (nbytes(snap.cluster.topo_ids[:, slots], snap.cluster.node_valid,
+                   sel_mask[sel_rows], sps.node_matches[live], sps.owner_keys[live],
+                   sps.slot[live], sps.valid[live], sps.owner_sel_idx[live])
+            + nbytes(*(t[live] for t in state)))
+    return need, 8.0 * int(live.numel()) * n
+
+
+def family_calls(snap, features, topo_split, filters, plain: bool) -> dict:
+    """{entry: a call of its prep} for each family the batch uses, on the
+    device the snapshot lies on: the wrappers (kernel family_prep on the
+    card), or with plain=True the plain twins."""
+    from kubernetes_tpu_torch.ops import interpod, topology
+
+    z_spread, z_terms = topo_split
+    calls = {}
+    if features.spread:
+        sel = filters.selector_match(snap.cluster, snap.selectors)
+        fn = topology.prep_spread_plain if plain else topology.prep_spread
+        calls["spread"] = lambda fn=fn: fn(snap.cluster, sel, snap.spread, z_spread,
+                                           features.bound_spread)
+    if features.interpod:
+        fn = interpod.prep_terms_plain if plain else interpod.prep_terms
+        calls["terms"] = lambda fn=fn: fn(snap.cluster, snap.terms, z_terms, features.term_slots,
+                                          features.bound_terms)
+    if features.interpod_pref:
+        fn = interpod.prep_pref_pod_plain if plain else interpod.prep_pref_pod
+        calls["pref"] = lambda fn=fn: fn(snap.cluster, snap.prefpod, z_terms,
+                                         features.bound_pref)
+    return calls
+
+
+def check_family(tag, snap, features, topo_split, filters, bindings, torch,
+                 timed: bool = False) -> dict:
+    """Kernel family_prep on a snapshot on the card against its plain twins
+    on the card and on a CPU copy, exact, each family the batch uses: one
+    launch an entry.  With timed=True each entry's row: the card's time of
+    a call behind a spin (launch_ms over 20 calls; the outputs are fresh
+    each call, so no reset) with the host clock of the call beside it, the
+    plain twin on the card (CUDA events over 20 calls, as cuda_ms), the
+    bound of its work on this data.  Returns {entry: row or max_abs_err}."""
+    kern = family_calls(snap, features, topo_split, filters, False)
+    plain = family_calls(snap, features, topo_split, filters, True)
+    cpu = family_calls(cpu_copy(snap), features, topo_split, filters, True)
+    if not kern:
+        raise AssertionError(f"family_prep ({tag}): the batch uses no family")
+    out = {}
+    for entry, fn in kern.items():
+        before = bindings.LAUNCHES["family_prep"]
+        got = fn()
+        if bindings.LAUNCHES["family_prep"] != before + 1:
+            raise AssertionError(f"family_prep ({tag}, {entry}): not one launch")
+        err = check_equal(f"family_prep {entry} ({tag})", got, plain[entry](), torch)
+        check_equal(f"family_prep {entry} ({tag}, card against the CPU)", got, cpu[entry](),
+                    torch)
+        if not timed:
+            out[entry] = err
+            continue
+        ms, host_ms = launch_ms(fn, lambda: None, 20, torch)
+        plain_ms = cuda_ms(plain[entry], 20, torch)
+        if entry == "spread":
+            need = prep_spread_need(snap, filters.selector_match(snap.cluster, snap.selectors),
+                                    got, torch)
+        elif entry == "terms":
+            need = prep_terms_need(snap, features, got, torch)
+        else:
+            need = prep_pref_pod_need(snap, got, torch)
+        b = bound(*need)
+        out[entry] = {"name": "family_prep", "entry": entry, "replaces": FAMILY_REPLACES[entry],
+                      "max_abs_err": err, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    return out
+
+
 def interpod_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch,
                    card):
     """SchedulingPodAntiAffinity/5000Nodes and SchedulingPodAffinity/5000Nodes
@@ -2059,20 +2225,34 @@ def interpod_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bind
                               a0["meta"].wave_plan.members, assign, bindings, torch, timed=True))
     launch_of = {"greedy_scan": glaunches, "wavefront": alaunches}
     for r in rows:
-        r["launches"] = launch_of.get(r["name"], launches)[r["name"]]
-    z_terms = meta.topo_split[1]
-    torch.cuda.synchronize()
-    prep_ms = cuda_ms(lambda: assign.terms_prep(snap, meta.features, z_terms), 20, torch)
-    tm = assign.terms_prep(snap, meta.features, z_terms)
-    pb = bound(*prep_terms_need(snap, meta.features, tm.state, torch))
-    out["prep_terms"] = {"ms": prep_ms, "bound_ms": pb[0], "bound_by": pb[1],
-                         "terms": int(snap.terms.valid.shape[0]), "z_terms": z_terms,
-                         "route": "plain torch"}
+        r["launches"] = stage_launches(r["name"], launch_of.get(r["name"], launches))
+    # kernel family_prep (the terms entry) against its plain twin on the
+    # card and on the CPU, exact, timed at the anti-affinity measured
+    # batch (A); the other batches of the phase checked (the affinity
+    # batches' F, the scans')
+    fam = check_family("A", snap, meta.features, meta.topo_split, filters, bindings, torch,
+                       timed=True)["terms"]
+    fam.update(shape="A", launches=launches["family_prep"],
+               terms=int(snap.terms.valid.shape[0]), z=int(meta.topo_split[1]))
+    for tag, rec in (("anti/init", recs[0]), ("anti/greedy", grecs[0]),
+                     ("F/init", arecs[0]), ("F", arecs[1]), ("affinity/greedy", agrecs[0])):
+        check_family(tag, rec["snap"], rec["meta"].features, rec["meta"].topo_split, filters,
+                     bindings, torch)
+    out["family_prep"] = fam
+    # the anti-affinity repair's dense tables, still plain torch on the
+    # card (auction_prep's repair_tables), timed at A with their bound
+    order = assign.solve_order(snap.pods)
+    dense = auction.repair_tables(snap.terms, order)
+    dense_ms = cuda_ms(lambda: auction.repair_tables(snap.terms, order), 20, torch)
+    db = bound(nbytes(snap.terms.matches_incoming, snap.terms.anti_idx, snap.terms.valid, order,
+                      *dense), 4.0 * dense[0].numel())
+    out["repair_tables"] = {"ms": dense_ms, "bound_ms": db[0], "bound_by": db[1],
+                            "route": "plain torch", "shape": "A"}
     out["kernels"] = rows
     out["cpu_check_s"] = timing
     out["card"] = card
     emit(out)
-    return rows, launches, out["prep_terms"]
+    return rows, launches, fam
 
 
 def extras_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch,
@@ -2135,21 +2315,22 @@ def extras_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
     pairs = (st.k_reps[st.jcons.long()], st.sfeas_s[st.jspec.long()])
     ext = run_class_extras(snap, meta.features, cfg, *pairs, assign, bindings, torch, timed=True)
     row = dict(ext["row"], launches=launches["class_extras"])
-    z_terms = meta.topo_split[1]
-    torch.cuda.synchronize()
-    prep_ms = cuda_ms(lambda: assign.prep_pref_pod(snap.cluster, snap.prefpod, z_terms,
-                                                   has_bound=meta.features.bound_pref), 20, torch)
-    pp = assign.prep_pref_pod(snap.cluster, snap.prefpod, z_terms,
-                              has_bound=meta.features.bound_pref)
-    pb = bound(*prep_pref_pod_need(snap, pp, torch))
-    out["prep_pref_pod"] = {"ms": prep_ms, "bound_ms": pb[0], "bound_by": pb[1],
-                            "rows": int(snap.prefpod.valid.shape[0]), "z_terms": z_terms,
-                            "route": "plain torch"}
+    # kernel family_prep (the pref entry) against its plain twin on the
+    # card and on the CPU, exact, timed at the preferred measured batch (P);
+    # its init batch and its scan batch checked too
+    fam = check_family("P", snap, meta.features, meta.topo_split, filters, bindings, torch,
+                       timed=True)["pref"]
+    fam.update(shape="P", launches=launches["family_prep"],
+               rows=int(snap.prefpod.valid.shape[0]), z=int(meta.topo_split[1]))
+    for tag, rec in (("P/init", recs[0]), ("preferred/greedy", grecs[0])):
+        check_family(tag, rec["snap"], rec["meta"].features, rec["meta"].topo_split, filters,
+                     bindings, torch)
+    out["family_prep"] = fam
     out["class_extras"] = row
     out["cpu_check_s"] = timing
     out["card"] = card
     emit(out)
-    return row, out["prep_pref_pod"]
+    return row, fam
 
 
 def check_capacity(state) -> None:
@@ -2309,7 +2490,7 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     bits = auction.term_bits_copy(st.tm, st.features)
     max_rounds = 64
     run = bindings.AuctionRun(cluster, pods, st, tie_k, cfg, max_rounds)
-    rnd, errs = 0, [0.0, 0.0, 0.0, 0.0]
+    rnd, errs = 0, [0.0, 0.0, 0.0, 0.0]   # bids, accept, spread, interpod; then reasons
     bounds = []   # each round's stage bounds, (ms, bound_by)
     while rnd < max_rounds and bool(((assigned < 0) & pods.valid).any()):
         run.load(rnd, req, nz, assigned, bid_scores, counts, bits)
@@ -2361,21 +2542,34 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
         if not progress:
             break
     t0 = time.perf_counter()
-    want = auction._rounds_plain(*cpu_args((cluster, pods, st), torch), tie_k, cfg, max_rounds)
+    c_args = cpu_args((cluster, pods, st), torch)
+    want = auction._rounds_plain(*c_args, tie_k, cfg, max_rounds)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    got = bindings.auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
+    got, loop_reasons = bindings.auction_solve(cluster, pods, st, tie_k, cfg, max_rounds)
     check_equal("auction_loop", got, want, torch)
     if cpu_snap is not None:
         on_cpu = auction._rounds_plain(*auction.auction_prep(cpu_snap, cfg=cfg), tie_k, cfg,
                                         max_rounds)
         check_equal("auction_loop (card against CPU)", got, on_cpu, torch)
+    # the reasons stage: in the loop's launch, and alone on the final state,
+    # against its plain twin on the plain loop's final state on the CPU
+    final = (got[0], got[2], got[3], got[5], tuple(got[6:]) if use_terms else None)
+    want_reasons = auction.failure_reasons_plain(
+        *c_args, want[0], want[2], want[3], want[5], tuple(want[6:]) if use_terms else None)
+    errs.append(check_equal("auction_reasons (in the loop)", (loop_reasons,), (want_reasons,),
+                            torch))
+    errs[4] = max(errs[4], check_equal(
+        "auction_reasons (alone)", (bindings.auction_reasons(cluster, pods, st, *final),),
+        (want_reasons,), torch))
     rounds = int(got[4])
     if not timed:
         return rounds
     rows = time_auction_round(auction_round_inputs(snap, cfg, tie_k, auction, bindings, torch),
                               auction, bindings, torch)
+    rows.append(reasons_row(cluster, pods, st, tie_k, cfg, final, want_reasons, auction,
+                            bindings, torch))
     err_of = {"auction_bids": errs[0], "auction_accept": errs[1], "auction_spread": errs[2],
-              "auction_interpod": errs[3]}
+              "auction_interpod": errs[3], "auction_reasons": errs[4]}
     for row in rows:
         row["max_abs_err"] = err_of[row["name"]]
         row["stage_of"] = "auction_loop"
@@ -2385,6 +2579,25 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     rows.insert(0, loop_row(bindings.AuctionRun(cluster, pods, st, tie_k, cfg, max_rounds),
                             want, bounds, plain_ms, torch))
     return rows
+
+
+def reasons_row(cluster, pods, st, tie_k, cfg, final, want, auction, bindings, torch) -> dict:
+    """The reasons stage's summary row: the stage alone on the loop's final
+    state (launch_ms: its AuctionRun made and loaded beforehand; the stage
+    rewrites only its outputs, so no reset), equal to the plain twin's
+    `want` after the timing; the plain twin on the card (CUDA events over
+    20 calls, as cuda_ms); the bound of its work on this data."""
+    requested, nonzero, assigned = final[1], final[2], final[0]
+    run = bindings.AuctionRun(cluster, pods, st, tie_k, cfg, 0)
+    run.load(0, requested, nonzero, assigned, run.bid_scores, final[3], final[4], go=False)
+    ms, host_ms = launch_ms(run.reasons_stage, lambda: None, 10, torch)
+    check_equal("auction_reasons (timed)", (run.reasons,), (want,), torch)
+    plain_ms = cuda_ms(lambda: auction.failure_reasons_plain(
+        cluster, pods, st, assigned, requested, nonzero, final[3], final[4]), 20, torch)
+    b = bound(*reasons_need(cluster, pods, st, assigned, requested, nonzero, final[3],
+                            final[4], torch=torch))
+    return {"name": "auction_reasons", "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
 
 # cycles the card spins (torch.cuda._sleep) before a timed launch's start
@@ -3050,7 +3263,8 @@ WIDE_EDGE_NODES = 10000
 WIDE_WAVE_PODS = 256
 
 
-def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, bindings, torch) -> None:
+def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bindings,
+                     torch) -> None:
     """The wavefront and evaluate_single at 16,384 and 65,536 padded nodes,
     where launch_shape takes 1,024-thread blocks, exact: on a fresh
     WIDE_EDGE_NODES-node cluster and on the north phase's scheduler `big`
@@ -3060,7 +3274,8 @@ def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, bindings, t
     pod-default pod (E: the fused launch) and one with a preferred
     inter-pod term (E+: filter, class_extras, score) through
     evaluate_single against its plain versions and the plain path on a CPU
-    copy."""
+    copy.  Then on `big` kernel family_prep, every entry, against its plain
+    twins on a CPU copy (family_z_check)."""
     from kubernetes_tpu_torch.testing.cases import preferred_affinity_objects
 
     mid = TorchBatchScheduler()
@@ -3083,7 +3298,40 @@ def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, bindings, t
         rows.append({"padded_nodes": n_pad, "blocks_threads": bindings.scan_shape(n_pad),
                      "wave_pods": WIDE_WAVE_PODS, "waves": len(meta.wave_plan.members),
                      "wave_fallbacks": fallbacks, "evaluate_single": ["E", "E+"]})
-    emit({"phase": "wide_edges", "cases": rows, "equal_plain": True})
+    fam = family_z_check(wrappers, big, filters, bindings, torch)
+    emit({"phase": "wide_edges", "cases": rows, "family_prep": fam, "equal_plain": True})
+
+
+def family_z_check(wrappers, sched, filters, bindings, torch) -> dict:
+    """Kernel family_prep at the north scheduler's width (65,536 padded
+    nodes): 2,000 color=red pods of the preferred-affinity template (a
+    weight-1 preferred term over color=red on the hostname) assumed onto
+    spread-out nodes, then a batch encoded (not solved) whose pods carry
+    every family over them: hard spread rows on the hostname (a value
+    space of the padded node count) and the zone, a required
+    anti-affinity term on the zone, and the template's preferred term.
+    Each entry against its plain twins on the card and on a CPU copy."""
+    from kubernetes_tpu_torch.testing.cases import preferred_affinity_objects
+
+    _nodes, bound_red, pref = preferred_affinity_objects(wrappers, 1, 2000, 8)
+    for i, pod in enumerate(bound_red):
+        sched.assume(pod, f"node-{(i * 37) % NORTH[0]}")
+    api = wrappers.api
+    pods = list(pref)
+    for i in range(8):
+        pods.append(wrappers.make_pod(f"fam-s{i}", "sched-0").label("color", "red")
+                    .spread(1, api.LABEL_HOSTNAME, "DoNotSchedule", {"color": "red"})
+                    .spread(2, api.LABEL_ZONE, "DoNotSchedule", {"color": "red"}).obj())
+        pods.append(wrappers.make_pod(f"fam-a{i}", "sched-0").label("color", "blue")
+                    .pod_anti_affinity({"color": "red"}, api.LABEL_ZONE).obj())
+    snap, meta = sched.encode_pending(pods)
+    f = meta.features
+    if not (f.spread and f.interpod and f.interpod_pref and f.bound_spread and f.bound_terms
+            and f.bound_pref):
+        raise AssertionError(f"wide_edges/family_prep: a family is missing ({f})")
+    errs = check_family("wide", snap, f, meta.topo_split, filters, bindings, torch)
+    return {"padded_nodes": int(snap.cluster.allocatable.shape[0]),
+            "z": list(meta.topo_split), "entries": sorted(errs), "max_abs_err": max(errs.values())}
 
 
 def recording(cls):
@@ -3894,7 +4142,8 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
         torch.cuda.synchronize()
         variant_launches = dict(bindings.LAUNCHES)
         check_launches("extender/variants", variant_launches,
-                       {"match_terms", "class_statics", "evaluate_single", "class_extras"})
+                       {"match_terms", "class_statics", "evaluate_single", "class_extras",
+                        "family_prep"})
         check("variants", got)
         # the timed kernel at SchedulingBasic/5000Nodes (8,192 padded nodes)
         be = backends["cuda"]

@@ -42,10 +42,11 @@ for `auction`, whose sequence is the other tree's own: OTHER_CSRC_DIR's
 package (its parent directory) is loaded under another name and its
 bindings.auction_rounds runs (an earlier tree's per-round enqueue), beside
 this tree's (one launch; both calls make their buffers and launch
-arguments), and this tree's launch alone ("change_loop": AuctionRun.loop
-with its arrays made beforehand, CUDA events behind a spin of the card,
-chip_smoke.launch_ms); the ptxas reports are of every auction source of
-either tree.  The
+arguments), and each tree's launch alone where its bindings have one
+("change_loop", "other_loop": AuctionRun.loop with its arrays made
+beforehand, CUDA events behind a spin of the card, chip_smoke.launch_ms;
+other, change, change, other); the ptxas reports are of every auction
+source of either tree.  The
 inputs come from chip_smoke.py's builders of the timed shapes.  Both
 outputs must equal the plain version's on the same inputs.  Each library
 runs its own sequence: evaluate_single's fused launch where the library
@@ -223,8 +224,9 @@ def load_other_bindings(csrc: Path, out_dir: Path):
 def auction_ab(shape: str, other_dir: Path, out_dir: Path, torch) -> dict:
     """The auction's whole round loop, this tree's program against the
     other tree's own sequence, on the same inputs, both equal to the plain
-    loop; other, change, change, other, twice; then this tree's launch
-    alone, twice."""
+    loop; other, change, change, other, twice; then each tree's launch
+    alone (the other's where its bindings have AuctionRun): other, change,
+    change, other."""
     from kubernetes_tpu_torch.kernels import bindings, build
 
     names = auction_sources(build.CSRC_DIR)
@@ -242,24 +244,34 @@ def auction_ab(shape: str, other_dir: Path, out_dir: Path, torch) -> dict:
         "other": lambda: other.auction_rounds(cluster, pods, st, tie_k, cfg, 64),
         "change": lambda: bindings.auction_rounds(cluster, pods, st, tie_k, cfg, 64),
     }
-    times = {k: [] for k in (*runs, "change_loop")}
+    # each tree's launch alone where its bindings have one (AuctionRun:
+    # one loop launch a batch), in turns
+    loops = {"change_loop": bindings.AuctionRun}
+    if hasattr(other, "AuctionRun"):
+        loops["other_loop"] = other.AuctionRun
+    times = {k: [] for k in (*runs, *loops)}
     host = {k: [] for k in times}
     for which in ("other", "change", "change", "other") * 2:
         chip_smoke.check_equal(f"auction ({which})", runs[which](), want, torch)
         ms, host_ms = chip_smoke.cuda_host_ms(runs[which], iters, torch)
         times[which].append(ms)
         host[which].append(host_ms)
-    run = bindings.AuctionRun(cluster, pods, st, tie_k, cfg, 64)
-    start = [t.clone() for t in (run.requested, run.nonzero, run.assigned, run.bid_scores)]
-    counts = run.counts.clone() if run.counts is not None else None
-    bits = [t.clone() for t in run.bits] if run.bits else None
-    go = bool(run.state[1])
-    for _ in range(2):
-        ms, host_ms = chip_smoke.launch_ms(
-            run.loop, lambda: run.load(0, *start, counts, bits, go=go), iters, torch)
-        chip_smoke.check_equal("auction (change_loop)", run.result(), want, torch)
-        times["change_loop"].append(ms)
-        host["change_loop"].append(host_ms)
+    loop_runs = {}
+    for name, cls in loops.items():
+        run = cls(cluster, pods, st, tie_k, cfg, 64)
+        start = [t.clone() for t in (run.requested, run.nonzero, run.assigned, run.bid_scores)]
+        counts = run.counts.clone() if run.counts is not None else None
+        bits = [t.clone() for t in run.bits] if run.bits else None
+        loop_runs[name] = (run, lambda run=run, start=start, counts=counts, bits=bits,
+                           go=bool(run.state[1]): run.load(0, *start, counts, bits, go=go))
+    for name in ("other_loop", "change_loop", "change_loop", "other_loop"):
+        if name not in loop_runs:
+            continue
+        run, reset = loop_runs[name]
+        ms, host_ms = chip_smoke.launch_ms(run.loop, reset, iters, torch)
+        chip_smoke.check_equal(f"auction ({name})", run.result(), want, torch)
+        times[name].append(ms)
+        host[name].append(host_ms)
     rounds = int(want[4])
     return {"kernel": "auction", "shape": shape, "workload": workload,
             "other_source": str(other_dir), "launches_a_timing": iters, "rounds": rounds,

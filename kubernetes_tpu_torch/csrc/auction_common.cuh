@@ -73,9 +73,12 @@
 //                scatter-add; accepted pods take their bid and value; the
 //                flag = rounds < max_rounds && progress && some valid pod
 //                unplaced, an OR over the cluster.
+// After the rounds, in the same launch: the reasons pass (kStageReasons,
+// round_reasons below), one staged filter pass per joint class against the
+// final state, each pod's REASON_* into `reasons`.
 // state (i32[3] on the card): rounds executed, the continue flag, the last
-// round's progress.  Every stage entry point returns at once when the flag
-// is down.
+// round's progress.  Every stage entry point of a round returns at once
+// when the flag is down; the reasons pass runs whatever the flag.
 //
 // Exactness: the sorts are integer and stable, the histogram and the
 // flags are integer sums and ORs, the best merges under ranks_above's
@@ -130,6 +133,7 @@ enum {
     kP_RTMP, kP_RCNT, kP_RBASE, kP_PREFIX, kP_SCAN, kP_ACCEPT,
     kP_COUNTS_IT, kP_ADDS, kP_MINC, kP_KEPT, kP_CAND, kP_ADMIT,
     kP_MINPOS, kP_CARRIER, kP_Z_MI, kP_Z_AN, kP_RELEASE,
+    kP_REASON_C, kP_REASONS,
     kP_COUNT
 };
 
@@ -196,6 +200,8 @@ struct Ctx {
     uint8_t* z_mi;               // [Z * T]
     uint8_t* z_an;               // [Z * T]
     uint8_t* release;            // [P]
+    int32_t* reason_c;           // reasons pass: [C] each joint class's reason
+    int32_t* reasons;            // [P] output
 };
 
 // The argument check and the context of a launch; returns a cudaError.
@@ -293,6 +299,8 @@ inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
     a.z_mi = (uint8_t*)ptrs[kP_Z_MI];
     a.z_an = (uint8_t*)ptrs[kP_Z_AN];
     a.release = (uint8_t*)ptrs[kP_RELEASE];
+    a.reason_c = (int32_t*)ptrs[kP_REASON_C];
+    a.reasons = (int32_t*)ptrs[kP_REASONS];
     return 0;
 }
 
@@ -1266,6 +1274,78 @@ __device__ inline void round_repairs(const Ctx& a, unsigned char* dyn, const Exa
     team.sync();
 }
 
+// ---- the reasons pass ------------------------------------------------------
+//
+// After the loop's flag falls, against the final state (requested, the
+// spread counts and the term bits — before the gang post-pass, which runs
+// after the launch): per joint class, block_eval's pass-1 filter chain for
+// its spec class's representative (static row, resource fit) and its
+// constraint class's (hard spread rows with their critical-path minima from
+// block_spread_pod, the inter-pod words from block_interpod_pod), the
+// stage anys OR-merged over the cluster; the first stage that empties the
+// set names the class's reason, and a class with survivors at every stage
+// parked on contention (a resource reason), as class_reason does
+// (kubernetes_tpu/ops/auction.py:797-818).  Every class is evaluated: a
+// padded pod takes its class's reason too.  No host port stage: the
+// auction takes no batch with in-batch host ports.
+
+// Class c's stage flags (Step.flags bits 0 static, 1 resources, 3 spread,
+// 5 inter-pod) against the carries.  Ends on a cluster barrier.
+__device__ inline int class_flags(const Ctx& a, int c, Shared& S, ExactTeam& team)
+{
+    const int s = min(max(a.jspec[c], 0), a.cs_dim - 1);
+    const int rep = a.s_reps[s];
+    for (int t = threadIdx.x; t < a.r; t += blockDim.x) S.req[t] = a.pod_req[(size_t)rep * a.r + t];
+    __syncthreads();
+    const int k_rep = a.k_reps[min(max(a.jcons[c], 0), a.cc_dim - 1)];
+    if (a.sp.on) block_spread_pod(a.sp, a.n, k_rep, S.ps, S.sc, team);
+    if (a.tm.on) block_interpod_pod(a.tm, k_rep, S.pt);
+    const uint8_t* srow = a.sfeas_s + (size_t)s * a.n;
+    const bool sp_hard = a.sp.on && S.ps.any_hard;
+    Step st = step_zero();
+    for (int nd = team.first(); nd < team.end(a.n); nd += team.stride()) {
+        if (!srow[nd]) continue;
+        st.flags |= 1;
+        if (!node_fits(a.requested + (size_t)nd * a.r, a.alloc + (size_t)nd * a.r, S.req, a.r)) {
+            continue;
+        }
+        st.flags |= 2;
+        if (sp_hard && !spread_ok(a.sp, S.ps, a.n, nd)) continue;
+        st.flags |= 8;
+        if (a.tm.on && !interpod_ok(a.tm, S.pt, nd)) continue;
+        st.flags |= 32;
+    }
+    const int flags = team.reduce_step(st, S.sc).flags;
+    team.par ^= 1;
+    return flags;
+}
+
+// class_reason's code of a class's stage flags.
+__device__ __forceinline__ int reason_of(int flags)
+{
+    return (flags & 32) ? kReasonResources   // feasible yet unplaced: contention
+        : !(flags & 1) ? kReasonStatic
+        : !(flags & 2) ? kReasonResources
+        : !(flags & 8) ? kReasonSpread
+        : kReasonInterpod;
+}
+
+// Every joint class's reason into reason_c, then each pod's: REASON_NONE
+// when placed, else its class's.  Ends on a cluster barrier.
+__device__ inline void round_reasons(const Ctx& a, Shared& S, ExactTeam& team)
+{
+    for (int c = 0; c < a.c_dim; ++c) {
+        const int flags = class_flags(a, c, S, team);
+        if (team.rank() == 0) a.reason_c[c] = reason_of(flags);
+    }
+    team.sync();
+    for (int i = team.rank(); i < a.p; i += team.size()) {
+        a.reasons[i] = a.assigned[i] >= 0
+            ? kReasonNone : a.reason_c[min(max(a.class_id[i], 0), a.c_dim - 1)];
+    }
+    team.sync();
+}
+
 // ---- kernels -------------------------------------------------------------
 
 // The block's start: the team, the score parameters, and a cluster barrier
@@ -1278,16 +1358,20 @@ __device__ inline void start(const Ctx& a, Shared& S, ExactTeam& team)
 }
 
 // The stages of a launch: kStageBids, kStageAccept (1), kStageCommit (2),
-// kStageSpread, kStageInterpod, or the whole loop.
+// kStageSpread, kStageInterpod, the whole loop, and kStageReasons (alone,
+// or after the loop in the same launch).
 enum { kStageAccept = 1, kStageCommit = 2, kStageBids = 4, kStageSpread = 8,
-       kStageInterpod = 16, kStageLoop = 32 };
+       kStageInterpod = 16, kStageLoop = 32, kStageReasons = 64 };
 
 template <int kT>
 __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
 {
     __shared__ Shared S;
     extern __shared__ __align__(16) unsigned char dyn[];
-    if (!a.state[1]) return;   // every block reads the flag before any block writes it
+    // every block reads the flag before any block writes it; the rounds'
+    // stages return at once when it is down, the reasons pass runs anyway
+    const bool go = a.state[1] != 0;
+    if (!go && !(stages & kStageReasons)) return;
     const int rnd0 = a.state[0];
     const int progress0 = a.state[2];
     ExactTeam team;
@@ -1300,13 +1384,13 @@ __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
     }
     start(a, S, team);
     if (stages & kStageLoop) {
-        for (int rnd = rnd0;; ++rnd) {
+        for (int rnd = rnd0; go; ++rnd) {
             round_bids(a, rnd, S, dyn, team);
             const bool progress = round_accept(a, S, dyn, team);
             if (a.sp.on || a.tm.on) round_repairs(a, dyn, team);
             if (!round_commit(a, rnd, progress, S, team)) break;
         }
-    } else {
+    } else if (go) {
         if (stages & kStageBids) round_bids(a, rnd0, S, dyn, team);
         bool progress = progress0 != 0;
         if (stages & kStageAccept) {
@@ -1315,17 +1399,19 @@ __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
         }
         if (stages & kStageCommit) round_commit(a, rnd0, progress, S, team);
     }
+    if (stages & kStageReasons) round_reasons(a, S, team);
     // no block leaves while another may still read its shared memory
     team.sync();
 }
 
-// Launch `stages` on the cluster of launch_shape(n): kStageLoop alone,
-// kStageSpread or kStageInterpod alone, or any of bids, acceptance and
-// commit.
+// Launch `stages` on the cluster of launch_shape(n): kStageLoop with or
+// without kStageReasons, kStageReasons, kStageSpread or kStageInterpod
+// alone, or any of bids, acceptance and commit.
 inline int launch(const int* ints, void* const* ptrs, int stages, void* stream)
 {
     constexpr int kOneRound = kStageBids | kStageAccept | kStageCommit;
-    if (stages != kStageLoop && stages != kStageSpread && stages != kStageInterpod
+    if (stages != kStageLoop && stages != (kStageLoop | kStageReasons)
+        && stages != kStageReasons && stages != kStageSpread && stages != kStageInterpod
         && (stages == 0 || (stages & ~kOneRound) != 0)) {
         return (int)cudaErrorInvalidValue;
     }

@@ -39,6 +39,15 @@
 //   interpod  :587-614 `interpod_repair` (after the spread repair,
 //             :717-720) and :654-678 `commit_terms` of the kept pods into
 //             the present / blocked / global_any bits (:733-736).
+//   reasons   :765-823, the staged reasons pass after the while_loop, in
+//             the same jitted program: per spec class the resource fit of
+//             its representative, per constraint class the spread and
+//             inter-pod filters of its representative, per joint class the
+//             stage anys and `class_reason`'s code; each pod its class's
+//             code or REASON_NONE.  The loop launch runs it once after the
+//             flag falls (stages kStageLoop | kStageReasons), on the final
+//             state, before the gang post-pass (kernel auction_release);
+//             alone (kStageReasons) it is the bindings' auction_reasons.
 //
 // Bound on this card: per round, the class pass reads each active class's
 // static row, allocatable, requested and nonzero-requested (about 60 bytes
@@ -75,13 +84,21 @@
 // blocks wait (the spread repair's ranks a __match_any_sync warp walk, the
 // inter-pod repair's integer atomicMin group minima; its redesign is
 // queued); the commit adds each node's accepted requests in pod index
-// order, one thread a node group.
+// order, one thread a node group.  The reasons pass (a Python loop over
+// the spec classes and some twenty torch ops in its plain version) runs
+// every joint class over the whole cluster in turn — the
+// filter chain of block_eval's first pass, reusing block_spread_pod's
+// critical-path minima and block_interpod_pod's words, the stage anys
+// OR-merged through the team's exchange (order-free: exact) — then one
+// write a pod; its bound is each class's static row, the resource rows and
+// the family rows it reads once.
 
 #include "auction_common.cuh"
 
 // `stages` (auction_common.cuh kStage*): the whole loop from state
-// (rounds, flag, progress) until the flag falls, or one stage of round
-// state[0]; each returns at once when state[1] is down.
+// (rounds, flag, progress) until the flag falls, then with kStageReasons
+// the reasons pass; or one stage of round state[0] (each returns at once
+// when state[1] is down), or the reasons pass alone.
 extern "C" int auction_loop_launch(int stages, const int* ints, void* const* ptrs,
                                    void* stream)
 {
@@ -89,14 +106,14 @@ extern "C" int auction_loop_launch(int stages, const int* ints, void* const* ptr
 }
 
 // What the bindings check on load: 0 the ints and 1 the pointers of a
-// launch, 2 the largest spread value space counted in shared memory, 3-8
+// launch, 2 the largest spread value space counted in shared memory, 3-9
 // the stage flags of the loop, the bids, the acceptance, the commit, the
-// spread and the inter-pod repairs.
+// spread and the inter-pod repairs and the reasons pass.
 extern "C" int auction_loop_layout(int which)
 {
     using namespace auction;
     const int v[] = {kI_COUNT, kP_COUNT, kShZ, kStageLoop, kStageBids, kStageAccept,
-                     kStageCommit, kStageSpread, kStageInterpod};
+                     kStageCommit, kStageSpread, kStageInterpod, kStageReasons};
     return which >= 0 && which < (int)(sizeof(v) / sizeof(v[0])) ? v[which] : -1;
 }
 

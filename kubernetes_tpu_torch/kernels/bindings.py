@@ -29,8 +29,10 @@ from ..ops.assign import term_bits_copy, wave_term_rows
 from . import build
 
 # the auction program's stage entry points: auction_loop's kernel launched
-# for one stage of a round (AuctionRun.bids, accept, spread, interpod)
-AUCTION_STAGES = ("auction_bids", "auction_accept", "auction_spread", "auction_interpod")
+# for one stage of a round (AuctionRun.bids, accept, spread, interpod) or
+# for the reasons pass alone (AuctionRun.reasons_stage)
+AUCTION_STAGES = ("auction_bids", "auction_accept", "auction_spread", "auction_interpod",
+                  "auction_reasons")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS + AUCTION_STAGES}
 
@@ -62,6 +64,8 @@ _ARGTYPES = {
     "mirror_rows": [_P, _I, _I, _P],
     "preempt_dry_run": [_I] * 5 + [_P] * 14,
     "pod_filters": [_I] * 7 + [_P] * 16,
+    # the family preps: (entry, ints array, pointer array, stream)
+    "family_prep": [_I, _P, _P, _P],
 }
 # preempt_dry_run's second entry (dry_run_victims): 3 ints, 9 pointers
 _DRY_RUN_VICTIMS = [_I] * 3 + [_P] * 9
@@ -80,8 +84,9 @@ MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
 LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
 MAX_VICTIM_SLOTS = 4096  # preempt_dry_run.cu's widest victim axis
 SPREAD_SHARED_Z = 256    # the auction's spread value spaces counted in shared memory
-# auction_common.cuh's stage flags (auction_loop_layout(3..8) checked on load)
-STAGE = {"loop": 32, "bids": 4, "accept": 1, "commit": 2, "spread": 8, "interpod": 16}
+# auction_common.cuh's stage flags (auction_loop_layout(3..9) checked on load)
+STAGE = {"loop": 32, "bids": 4, "accept": 1, "commit": 2, "spread": 8, "interpod": 16,
+         "reasons": 64}
 
 
 def reset_launches() -> None:
@@ -133,12 +138,20 @@ def _launcher(name: str):
         if name == "auction_loop":
             layout = getattr(lib, "auction_loop_layout")
             layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
-            got = tuple(layout(i) for i in range(9))
+            got = tuple(layout(i) for i in range(10))
             want = (len(AUCTION_INTS), len(AUCTION_PTRS), SPREAD_SHARED_Z,
                     *(STAGE[k] for k in ("loop", "bids", "accept", "commit", "spread",
-                                         "interpod")))
+                                         "interpod", "reasons")))
             if got != want:
                 raise RuntimeError(f"auction_loop layout {got} != bindings {want}")
+        if name == "family_prep":
+            layout = getattr(lib, "family_prep_layout")
+            layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
+            got = tuple(layout(i) for i in range(6))
+            want = (len(FAMILY_INTS), len(FAMILY_PTRS), MAX_USED_SLOTS,
+                    *(FAMILY_ENTRIES[k] for k in ("spread", "terms", "pref")))
+            if got != want:
+                raise RuntimeError(f"family_prep layout {got} != bindings {want}")
         if name == "class_extras":
             max_mi = getattr(lib, "class_extras_limits")
             max_mi.restype, max_mi.argtypes = ctypes.c_int, []
@@ -851,6 +864,7 @@ AUCTION_PTRS = (
     "rtmp", "rcnt", "rbase", "prefix", "scan", "accept",
     "counts_it", "adds", "minc", "kept", "cand", "admit",
     "minpos", "carrier", "z_mi", "z_an", "release",
+    "reason_c", "reasons",
 )
 RADIX = 256            # auction_common.cuh's radix sort digits
 SORT_TILE = 512        # its tile at the smallest launch_shape block
@@ -899,6 +913,8 @@ def auction_buffers(cluster, pods, tie_k: int, sp_args=None,
         "prefix": torch.empty((p, r), dtype=f32, device=dev),
         "scan": torch.empty((max(1, _scan_rows(p)), r), dtype=f32, device=dev),
         "accept": torch.zeros(p, dtype=u8, device=dev),
+        "reason_c": torch.empty(c_dim, dtype=i32, device=dev),
+        "reasons": torch.empty(p, dtype=i32, device=dev),
     }
     if sp_args is not None:
         rows = sp_args.state.v.shape[0]
@@ -932,8 +948,11 @@ class AuctionRun:
     launch arguments, two host arrays made once.  `loop()` runs every
     round in one launch; `bids()`, `accept(stage)`, `spread()` and
     `interpod()` launch one stage of the same program at round state[0]
-    (`load` sets the carries and the state first).  Every launch returns
-    at once on the card when state[1] is down.  Nothing here syncs."""
+    (`load` sets the carries and the state first).  Every launch of a
+    round's stage returns at once on the card when state[1] is down.  The
+    loop's launch ends with the reasons pass on the final state, and
+    `reasons_stage()` launches that pass alone: each pod's REASON_* into
+    `reasons` (bufs["reasons"]).  Nothing here syncs."""
 
     def __init__(self, cluster, pods, st, tie_k: int, cfg, max_rounds: int = 64):
         dev = cluster.allocatable.device
@@ -961,6 +980,7 @@ class AuctionRun:
         self.state[1] = pods.valid.any().to(i32) * int(max_rounds > 0)
         self.bufs = auction_buffers(cluster, pods, tie_k, st.sp if features.spread else None,
                                     st.tm if features.interpod else None)
+        self.reasons = self.bufs["reasons"]
         iparams, fparams = score_params(cfg, r, dev)
         pad = _pad(dev)
         t = {
@@ -1034,8 +1054,13 @@ class AuctionRun:
         LAUNCHES[name] += 1
 
     def loop(self) -> None:
-        """Every round from state[0] until the flag falls: one launch."""
-        self._run("auction_loop", STAGE["loop"])
+        """Every round from state[0] until the flag falls, then the reasons
+        pass on the final state: one launch."""
+        self._run("auction_loop", STAGE["loop"] | STAGE["reasons"])
+
+    def reasons_stage(self) -> None:
+        """The reasons pass alone on the carries (whatever the flag)."""
+        self._run("auction_reasons", STAGE["reasons"])
 
     def bids(self) -> None:
         """Round state[0]'s bids into bufs["bid"] / bufs["val"]."""
@@ -1103,14 +1128,32 @@ def auction_release(allocatable, pods, assigned, dropped, requested, nonzero) ->
 
 def auction_rounds(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
     """Every round of the auction in one launch (kernel auction_loop: one
-    thread-block cluster loops the rounds until the device's flag falls),
-    its arguments checked once, with no host sync.  Returns (assigned,
-    bid_scores, requested, nonzero, rounds i32[], spread counts, inter-pod
-    present, blocked and global_any bits; None for a family the batch does
-    not use)."""
+    thread-block cluster loops the rounds until the device's flag falls,
+    then runs the reasons pass), its arguments checked once, with no host
+    sync.  Returns (assigned, bid_scores, requested, nonzero, rounds i32[],
+    spread counts, inter-pod present, blocked and global_any bits; None for
+    a family the batch does not use)."""
+    return auction_solve(cluster, pods, st, tie_k, cfg, max_rounds)[0]
+
+
+def auction_solve(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
+    """auction_rounds' tuple and the reasons pass's i32[P], from the one
+    launch of kernel auction_loop."""
     run = AuctionRun(cluster, pods, st, tie_k, cfg, max_rounds)
     run.loop()
-    return run.result()
+    return run.result(), run.reasons
+
+
+def auction_reasons(cluster, pods, st, assigned, requested, nonzero, sp_counts=None,
+                    term_bits=None) -> torch.Tensor:
+    """The reasons pass alone (auction_loop's kernel, stage reasons) on the
+    given final state: i32[P].  Its carries are copies; no host sync."""
+    from ..ops.scores import DEFAULT_SCORE_CONFIG
+
+    run = AuctionRun(cluster, pods, st, 1, DEFAULT_SCORE_CONFIG, 0)
+    run.load(0, requested, nonzero, assigned, run.bid_scores, sp_counts, term_bits, go=False)
+    run.reasons_stage()
+    return run.reasons
 
 
 def class_extras(cluster, prefpod, images, features, cfg, reps, feas, pp) -> torch.Tensor:
@@ -1280,3 +1323,164 @@ def pod_filters(cluster, pods, sel_mask, full: bool) -> torch.Tensor:
         _launch("pod_filters", dev, n, p, tw, pw, r, s_rows, int(full),
                 *(_ptr(t) for t in nodes + res + spec + [req, sel_mask, out]))
     return out.view(torch.bool)
+
+
+# ---- the family preps (kernel family_prep) ----------------------------------
+
+# family_prep.cu's entries and launch arguments: ints[k] and ptrs[k] in the
+# order of its kF_* / kQ_* enums (family_prep_layout gives the lengths and
+# the entries, checked on load); the terms entry's used slots follow the ints
+FAMILY_ENTRIES = {"spread": 0, "terms": 1, "pref": 2}
+FAMILY_INTS = ("n", "tk", "rows", "z", "has_bound", "p", "w", "ma", "ma_anti", "s", "u")
+FAMILY_PTRS = (
+    "topo_ids", "node_valid", "row_valid", "row_slot", "vals_a", "vals_b",
+    "owner_sel", "owner_keys", "sel_mask",
+    "matches_incoming", "aff_idx", "anti_idx",
+    "scratch",
+    "eligible", "v", "counts", "sizes",
+    "present", "blocked", "key_bits", "global_any", "slot_v", "mi_slot",
+    "anti_slot", "aff_bits", "anti_bits",
+    "counts_dom", "ownerw_dom",
+)
+MAX_USED_SLOTS = 32    # family_prep.cu's used topology slots (a lane each)
+
+
+def _family_launch(entry: str, dev: torch.device, ints: dict, ptrs: dict,
+                   slots=()) -> None:
+    """One launch of kernel family_prep's `entry` (its scatter and gather
+    kernels); pointers not named are null (the entry reads none of them)."""
+    vals = [int(ints.get(k, 0)) for k in FAMILY_INTS] + [int(s) for s in slots]
+    arr_i = (ctypes.c_int * len(vals))(*vals)
+    arr_p = (ctypes.c_void_p * len(FAMILY_PTRS))(
+        *(ptrs[k].data_ptr() if k in ptrs else None for k in FAMILY_PTRS))
+    with torch.cuda.device(dev):
+        code = _launcher("family_prep")(FAMILY_ENTRIES[entry], arr_i, arr_p, _stream(dev))
+    build.check("family_prep", code)
+    LAUNCHES["family_prep"] += 1
+
+
+def _family_nodes(cluster, dev):
+    """The node tables every entry reads: topo_ids i32[N, TK], node_valid."""
+    topo = _arg(cluster.topo_ids, torch.int32, dev, "topo_ids")
+    valid = _arg(cluster.node_valid, torch.bool, dev, "node_valid")
+    n, tk = topo.shape
+    if valid.shape != (n,) or tk < 1:
+        raise ValueError("topo_ids [N, TK >= 1] and node_valid [N] disagree")
+    return topo, valid, n, tk
+
+
+def _family_rows(valid, slot, vals, dev, n: int, what: str):
+    """A family's row tables: valid bool[R], slot i32[R] and the per-node
+    value tables f32[R, N]."""
+    valid = _arg(valid, torch.bool, dev, f"{what}.valid")
+    slot = _arg(slot, torch.int32, dev, f"{what}.slot")
+    rows = valid.shape[0]
+    vals = [_arg(t, torch.float32, dev, f"{what} node table") for t in vals]
+    if slot.shape != (rows,) or any(t.shape != (rows, n) for t in vals):
+        raise ValueError(f"{what} tables do not match the row and node axes")
+    return valid, slot, vals, rows
+
+
+def _family_scratch(rows: int, z: int, dev) -> torch.Tensor:
+    """family_prep's scratch: 2 R z + R words (the (row, value) sums and a
+    word a row), zeroed by the launch."""
+    z = int(z)
+    if z < 1:
+        raise ValueError(f"value capacity {z} < 1")
+    return torch.empty(2 * rows * z + max(rows, 1), dtype=torch.int32, device=dev)
+
+
+def family_prep_spread(cluster, sel_mask, spread, z: int, has_bound: bool):
+    """prep_spread's SpreadState in one launch (kernel family_prep, entry
+    spread)."""
+    from ..ops.topology import SpreadState
+
+    dev = cluster.node_valid.device
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    topo, node_valid, n, tk = _family_nodes(cluster, dev)
+    valid, slot, (matches,), rows = _family_rows(spread.valid, spread.slot,
+                                                 (spread.node_matches,), dev, n, "spread")
+    owner_sel = _arg(spread.owner_sel_idx, i32, dev, "spread.owner_sel_idx")
+    owner_keys = _arg(spread.owner_keys, b, dev, "spread.owner_keys")
+    sel = _arg(sel_mask, b, dev, "sel_mask")
+    if owner_sel.shape != (rows,) or owner_keys.shape != (rows, tk) or sel.shape[1:] != (n,):
+        raise ValueError("spread owner tables or the selector mask do not match the axes")
+    out = {
+        "eligible": torch.empty((rows, n), dtype=b, device=dev),
+        "v": torch.empty((rows, n), dtype=i32, device=dev),
+        "counts": torch.empty((rows, n), dtype=f32, device=dev),
+        "sizes": torch.empty(rows, dtype=f32, device=dev),
+        "scratch": _family_scratch(rows, z, dev),
+    }
+    ptrs = dict(out, topo_ids=topo, node_valid=node_valid, row_valid=valid, row_slot=slot,
+                vals_a=matches, owner_sel=owner_sel, owner_keys=owner_keys, sel_mask=sel)
+    _family_launch("spread", dev, dict(n=n, tk=tk, rows=rows, z=z, has_bound=int(has_bound),
+                                       s=sel.shape[0]), ptrs)
+    return SpreadState(out["counts"], out["eligible"], out["v"], out["sizes"])
+
+
+def family_prep_terms(cluster, terms, z: int, slots, has_bound: bool):
+    """prep_terms' TermState in one launch (kernel family_prep, entry
+    terms); `slots` the used topology slots (Python ints, passed in the
+    launch's int array: no host-to-card copy)."""
+    from ..ops.interpod import TermState
+
+    dev = cluster.node_valid.device
+    i32 = torch.int32
+    topo, node_valid, n, tk = _family_nodes(cluster, dev)
+    valid, slot, (matches, owners), t_dim = _family_rows(
+        terms.valid, terms.slot, (terms.node_matches, terms.node_owners), dev, n, "terms")
+    w = (t_dim + 31) // 32
+    mi = _arg(terms.matches_incoming, i32, dev, "terms.matches_incoming")
+    aff_idx = _arg(terms.aff_idx, i32, dev, "terms.aff_idx")
+    anti_idx = _arg(terms.anti_idx, i32, dev, "terms.anti_idx")
+    p = mi.shape[0]
+    slots = tuple(int(s) for s in slots)
+    if t_dim < 1 or mi.shape != (p, w) or aff_idx.shape[0] != p or anti_idx.shape[0] != p:
+        raise ValueError("term tables do not match the term and pod axes")
+    if not 1 <= len(slots) <= MAX_USED_SLOTS or any(not 0 <= s < tk for s in slots):
+        raise ValueError(f"used slots {slots} outside 0..{tk - 1} or more than "
+                         f"{MAX_USED_SLOTS}")
+    u = len(slots)
+    out = {
+        "present": torch.empty((n, w), dtype=i32, device=dev),
+        "blocked": torch.empty((n, w), dtype=i32, device=dev),
+        "key_bits": torch.empty((n, w), dtype=i32, device=dev),
+        "global_any": torch.empty(w, dtype=i32, device=dev),
+        "slot_v": torch.empty((u, n), dtype=i32, device=dev),
+        "mi_slot": torch.empty((u, p, w), dtype=i32, device=dev),
+        "anti_slot": torch.empty((u, p, w), dtype=i32, device=dev),
+        "aff_bits": torch.empty((p, w), dtype=i32, device=dev),
+        "anti_bits": torch.empty((p, w), dtype=i32, device=dev),
+    }
+    # without bound pods the scatter does not run and reads no scratch
+    scratch = _family_scratch(t_dim if has_bound else 0, z, dev)
+    ptrs = dict(out, scratch=scratch, topo_ids=topo, node_valid=node_valid, row_valid=valid,
+                row_slot=slot, vals_a=matches, vals_b=owners, matches_incoming=mi,
+                aff_idx=aff_idx, anti_idx=anti_idx)
+    _family_launch("terms", dev, dict(n=n, tk=tk, rows=t_dim, z=z, has_bound=int(has_bound),
+                                      p=p, w=w, ma=aff_idx.shape[1], ma_anti=anti_idx.shape[1],
+                                      u=u), ptrs, slots)
+    return TermState(out["present"], out["blocked"], out["global_any"], out["key_bits"],
+                     out["slot_v"], out["mi_slot"], out["anti_slot"], out["aff_bits"],
+                     out["anti_bits"])
+
+
+def family_prep_pref(cluster, table, z: int, has_bound: bool):
+    """prep_pref_pod's PrefPodState in one launch (kernel family_prep,
+    entry pref)."""
+    from ..ops.interpod import PrefPodState
+
+    dev = cluster.node_valid.device
+    f32 = torch.float32
+    topo, node_valid, n, tk = _family_nodes(cluster, dev)
+    valid, slot, (counts, weights), rows = _family_rows(
+        table.valid, table.slot, (table.node_counts, table.owner_weight), dev, n, "prefpod")
+    out = {"counts_dom": torch.empty((rows, n), dtype=f32, device=dev),
+           "ownerw_dom": torch.empty((rows, n), dtype=f32, device=dev)}
+    ptrs = dict(out, topo_ids=topo, node_valid=node_valid, row_valid=valid, row_slot=slot,
+                vals_a=counts, vals_b=weights,
+                scratch=_family_scratch(rows if has_bound else 0, z, dev))
+    _family_launch("pref", dev, dict(n=n, tk=tk, rows=rows, z=z, has_bound=int(has_bound)),
+                   ptrs)
+    return PrefPodState(out["counts_dom"], out["ownerw_dom"])

@@ -598,8 +598,8 @@ def family_z(snapshot: Snapshot, features: FeatureFlags, topo_z) -> tuple:
 def spread_prep(snapshot: Snapshot, sel_mask: torch.Tensor,
                 features: FeatureFlags,
                 topo_z: Optional[int] = None) -> Optional[SpreadArgs]:
-    """The spread family's per-batch prep (plain torch on the solve's
-    device), or None without it.  topo_z: the value capacity of the
+    """The spread family's per-batch prep (prep_spread: kernel family_prep
+    on the card), or None without it.  topo_z: the value capacity of the
     spread slots (required_topo_z_split's first entry, derived here — a
     host readback for tensors on the card — when not given); any capacity
     above the largest value gives the same state."""
@@ -616,8 +616,8 @@ def spread_prep(snapshot: Snapshot, sel_mask: torch.Tensor,
 
 def terms_prep(snapshot: Snapshot, features: FeatureFlags,
                z_terms: Optional[int] = None) -> Optional[TermArgs]:
-    """The inter-pod family's per-batch prep (prep_terms, plain torch on
-    the solve's device), or None without it.  z_terms: the value capacity
+    """The inter-pod family's per-batch prep (prep_terms: kernel
+    family_prep on the card), or None without it.  z_terms: the value capacity
     of the term slots (required_topo_z_split's second entry, derived here
     when not given)."""
     if not features.interpod:

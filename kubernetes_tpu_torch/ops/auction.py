@@ -30,13 +30,15 @@ On the card the whole round loop is one launch, kernel `auction_loop`:
 one thread-block cluster runs every round — the bids, the acceptance,
 the spread repair and count commit, the anti-affinity repair and term-bit
 commit, the commit — until the device's continue flag falls, with no host
-sync (csrc/auction_common.cuh; the stage entry points `auction_bids`,
-`auction_accept`, `auction_spread` and `auction_interpod` launch one
-stage of the same kernel).  The gang post-pass's release is kernel
-`auction_release`; the spread and inter-pod preps, the reasons pass and
-the rest of the gang post-pass are elementwise and scatter glue in
-torch; the preferred inter-pod and image extras are one row per joint
-class (kernel `class_extras`), built once.
+sync — then, in the same launch, the reasons pass on the final state
+(csrc/auction_common.cuh; the stage entry points `auction_bids`,
+`auction_accept`, `auction_spread`, `auction_interpod` and
+`auction_reasons` launch one stage of the same kernel).  The gang
+post-pass's release is kernel `auction_release`; the spread, inter-pod
+and preferred preps are kernel `family_prep`; the repair's dense term
+tables and the rest of the gang post-pass are elementwise and scatter
+glue in torch; the preferred inter-pod and image extras are one row per
+joint class (kernel `class_extras`), built once.
 
 The static, resource, gang, spread, inter-pod anti-affinity, preferred
 inter-pod and ImageLocality families are covered; batches with in-batch
@@ -198,12 +200,7 @@ def auction_prep(
     tm_args = terms_prep(snapshot, features, z_terms)
     mi_dense = anti_dense = solve_pos = None
     if tm_args is not None:
-        terms = tm_args.table
-        t_dim = terms.valid.shape[0]
-        mi_dense = _unpack_bits_t(terms.matches_incoming, t_dim) & terms.valid[None, :]
-        anti_dense = _idx_to_bits(terms.anti_idx, t_dim) & terms.valid[None, :]
-        solve_pos = torch.empty_like(order)
-        solve_pos[order.long()] = torch.arange(p, dtype=i32, device=order.device)
+        mi_dense, anti_dense, solve_pos = repair_tables(tm_args.table, order)
     extra = extras_prep(snapshot, features, cfg, k_reps[jcons.long()], sfeas_s[jspec.long()],
                         z_terms)
     return cluster, pods, AuctionStatics(
@@ -212,6 +209,20 @@ def auction_prep(
         features, spread_prep(snapshot, sel_mask, features, z_spread),
         tm_args, extra, mi_dense, anti_dense, solve_pos,
     )
+
+
+def repair_tables(terms, order: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The anti-affinity repair's dense tables (plain torch on either
+    device): bool[P, T] the valid terms each pod matches, bool[P, T] the
+    valid terms it carries as anti terms, and i32[P] each pod's position
+    in the solve order."""
+    t_dim = terms.valid.shape[0]
+    mi_dense = _unpack_bits_t(terms.matches_incoming, t_dim) & terms.valid[None, :]
+    anti_dense = _idx_to_bits(terms.anti_idx, t_dim) & terms.valid[None, :]
+    solve_pos = torch.empty_like(order)
+    solve_pos[order.long()] = torch.arange(order.shape[0], dtype=torch.int32,
+                                           device=order.device)
+    return mi_dense, anti_dense, solve_pos
 
 
 def auction_bids_plain(
@@ -622,13 +633,26 @@ def gang_release(allocatable, pods, assigned, dropped, requested, nonzero):
 
 def failure_reasons(cluster, pods, st: AuctionStatics, assigned, requested, nonzero,
                     sp_counts=None, term_bits=None) -> torch.Tensor:
-    """The reasons pass (plain torch on either device): one staged filter
+    """Wrapper of the reasons pass: for tensors on the card the reasons
+    stage of kernel auction_loop launched alone on the given state
+    (bindings.auction_reasons; the loop's launch runs the same stage after
+    its rounds, which is what auction_assign reads), for tensors on the CPU
+    failure_reasons_plain."""
+    if requested.device.type == "cpu":
+        return failure_reasons_plain(cluster, pods, st, assigned, requested, nonzero,
+                                     sp_counts, term_bits)
+    from ..kernels import bindings
+
+    return bindings.auction_reasons(cluster, pods, st, assigned, requested, nonzero,
+                                    sp_counts, term_bits)
+
+
+def failure_reasons_plain(cluster, pods, st: AuctionStatics, assigned, requested, nonzero,
+                          sp_counts=None, term_bits=None) -> torch.Tensor:
+    """Plain version of auction_loop's reasons stage: one staged filter
     pass per class against the final state — the first stage that empties
     the candidate set; a class with survivors at every stage parked on
-    contention (a resource reason).  i32[P], REASON_NONE for placed pods.
-    Tensor ops only, every class index read on the device (a 0-d or
-    .tolist() index would wait for the card's rounds to finish), so the
-    card's solve is not waited on here."""
+    contention (a resource reason).  i32[P], REASON_NONE for placed pods."""
     c_dim = pods.class_rep.shape[0]
     cl_f = cluster._replace(requested=requested, nonzero_requested=nonzero)
     fits_f = torch.cat([
@@ -687,11 +711,17 @@ def auction_assign(
     n = snapshot.cluster.allocatable.shape[0]
     tie_k = min(default_tie_k(snapshot) if tie_k is None else tie_k, n)
     cluster, pods, st = auction_prep(snapshot, features, topo_z, cfg)
-    (assigned, bid_scores, requested, nonzero, rounds, sp_counts,
-     *term_bits) = auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
+    if cluster.allocatable.device.type == "cpu":
+        out = auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
+        reasons = failure_reasons_plain(cluster, pods, st, out[0], out[2], out[3], out[5],
+                                        tuple(out[6:]) if features.interpod else None)
+    else:
+        # the reasons pass runs in the loop's launch, after its rounds
+        from ..kernels import bindings
+
+        out, reasons = bindings.auction_solve(cluster, pods, st, tie_k, cfg, max_rounds)
+    (assigned, bid_scores, requested, nonzero, rounds, sp_counts, *term_bits) = out
     term_bits = tuple(term_bits) if features.interpod else None
-    reasons = failure_reasons(cluster, pods, st, assigned, requested, nonzero, sp_counts,
-                              term_bits)
 
     # gang post-pass: all-or-nothing groups; the release subtracts the
     # dropped pods' requests from each node in pod index order, as the

@@ -1,4 +1,4 @@
-"""InterPodAffinity as per-node bitsets (plain torch).
+"""InterPodAffinity as per-node bitsets.
 
 The reference scheduler's PreFilter builds topology-pair count maps and its
 Filter makes three checks per node (interpodaffinity/filtering.go:306-366):
@@ -27,6 +27,10 @@ words as uint32_t.
 The preferred (scoring) terms are `prep_pref_pod` / `pref_pod_raw`: the
 domain sums of bound pods' matches and owner weights, and each pod's raw
 row over them.
+
+On the card both preps are kernel `family_prep` (entries terms and pref,
+csrc/family_prep.cu); `prep_terms_plain` and `prep_pref_pod_plain` are
+their plain twins.
 """
 
 from __future__ import annotations
@@ -120,7 +124,28 @@ def prep_terms(
     slots: Tuple[int, ...] = (),
     has_bound: bool = True,
 ) -> TermState:
-    """One-time assembly (the PreFilter analogue), a value-space count
+    """Wrapper of kernel `family_prep` (entry terms): the kernel for
+    tensors on the card, prep_terms_plain for tensors on the CPU.  Every
+    bit reads only whether a count is positive, and the counts are sums of
+    non-negative pod counts, so the kernel's atomics (in no fixed order)
+    give the reference's bits whatever the order."""
+    if cluster.node_valid.device.type == "cpu":
+        return prep_terms_plain(cluster, terms, z, slots, has_bound)
+    from ..kernels import bindings
+
+    return bindings.family_prep_terms(cluster, terms, z,
+                                      used_slots(slots, cluster.topo_ids.shape[1]), has_bound)
+
+
+def prep_terms_plain(
+    cluster: ClusterTensors,
+    terms: TermTable,
+    z: int,
+    slots: Tuple[int, ...] = (),
+    has_bound: bool = True,
+) -> TermState:
+    """Plain version of kernel `family_prep`'s terms entry: the one-time
+    assembly (the PreFilter analogue), a value-space count
     scatter mapped back to node-space presence, packed.  z bounds the
     topology values of the term slots; has_bound=False
     (FeatureFlags.bound_terms) leaves the bound-pod presence empty.  The
@@ -214,7 +239,28 @@ class PrefPodState(NamedTuple):
 def prep_pref_pod(
     cluster: ClusterTensors, table: PrefPodTable, z: int, has_bound: bool = True,
 ) -> PrefPodState:
-    """Domain-sum the per-node match counts and owner weights over each
+    """Wrapper of kernel `family_prep` (entry pref): the kernel for tensors
+    on the card, prep_pref_pod_plain for tensors on the CPU.  The kernel
+    adds with atomics in no fixed order; every addend is an integer (counts
+    at most 110 a node, signed owner weights 1-100 a term), so a (row,
+    value) sum is exact in any order while the magnitudes it adds stay
+    below 2^24: 1,525 nodes of 110 pods each carrying weight-100 terms of
+    one row in one domain, or 152,520 nodes of 110 pods at weight 1.  The
+    cells run so far stay far below: the preferred cell is hostname-keyed
+    at weight 1 (110 at most a domain), the extender's variant a zone of
+    5,000 nodes with 40 bound pods and no owner weight."""
+    if cluster.node_valid.device.type == "cpu":
+        return prep_pref_pod_plain(cluster, table, z, has_bound)
+    from ..kernels import bindings
+
+    return bindings.family_prep_pref(cluster, table, z, has_bound)
+
+
+def prep_pref_pod_plain(
+    cluster: ClusterTensors, table: PrefPodTable, z: int, has_bound: bool = True,
+) -> PrefPodState:
+    """Plain version of kernel `family_prep`'s pref entry: domain-sum the
+    per-node match counts and owner weights over each
     row's topology value (interpodaffinity/scoring.go PreScore builds the
     same topology-pair score map).  has_bound=False
     (FeatureFlags.bound_pref) gives the zero tables.  Counts and weights

@@ -1,4 +1,4 @@
-"""PodTopologySpread as tensor ops (plain torch).
+"""PodTopologySpread as tensor ops.
 
 The reference scheduler precomputes per-(topologyKey, value) match counts
 and a critical-path minimum in PreFilter, then filters on
@@ -14,6 +14,8 @@ The semantics are the reference package's (kubernetes_tpu/ops/topology.py),
 including its documented divergences: minDomains uses the prep-time count
 of eligible domains (`sizes`), and the soft score's log weight uses the
 distinct eligible values, not a per-cycle recount over feasible nodes.
+On the card the per-batch prep is kernel `family_prep` (entry spread,
+csrc/family_prep.cu); `prep_spread_plain` is its plain twin.
 
 Numerics: the soft score is `round(sum of cnt * log(sizes + 2) + (maxSkew
 - 1))`, and the reference's compiler (XLA on the CPU) computes both the log
@@ -51,7 +53,30 @@ def prep_spread(
     z: int,
     has_bound: bool = True,
 ) -> SpreadState:
-    """Per-batch assembly (the PreFilter/PreScore analogue).  Eligibility
+    """Wrapper of kernel `family_prep` (entry spread): the kernel for
+    tensors on the card, prep_spread_plain for tensors on the CPU.  The
+    kernel adds the bound-pod counts with atomics, in no fixed order: each
+    count is an integer-valued float32 (at most 110 pods a node), so a
+    (row, value) sum is exact in any order while it stays below 2^24 —
+    152,520 nodes of 110 matching pods in one domain.  Every cell run so
+    far stays far below (the widest, the north star's 50,000 nodes, has no
+    spread rows; TopologySpreading/5000Nodes at most 5,000 x 110)."""
+    if cluster.node_valid.device.type == "cpu":
+        return prep_spread_plain(cluster, sel_mask, spread, z, has_bound)
+    from ..kernels import bindings
+
+    return bindings.family_prep_spread(cluster, sel_mask, spread, z, has_bound)
+
+
+def prep_spread_plain(
+    cluster: ClusterTensors,
+    sel_mask: torch.Tensor,
+    spread: SpreadTable,
+    z: int,
+    has_bound: bool = True,
+) -> SpreadState:
+    """Plain version of kernel `family_prep`'s spread entry: the per-batch
+    assembly (the PreFilter/PreScore analogue).  Eligibility
     honours the owner pod's node selector/affinity and requires every
     topology key the owner's constraints use.  z bounds the value-space
     scatter that folds bound-pod counts; has_bound=False

@@ -20,8 +20,17 @@ The workloads (the default first):
   anti    SchedulingPodAntiAffinity/5000Nodes: 1,000 init pods, then two
           batches of 1,000 measured pods (the auction with its inter-pod
           repair)
+  spread_greedy, anti_greedy
+          the same batches through TorchBatchScheduler(mode="greedy",
+          use_wavefront=False): the scan
+  spread_wave
+          TopologySpreading/5000Nodes: 5,000 init pods (the auction), then
+          four batches of 500 measured pods (the wavefront)
+  affinity
+          SchedulingPodAffinity/5000Nodes: 1,000 init and 1,000 measured
+          pods in batches of 500 (the wavefront)
 
-The last three run other, this, this, other, warm.  The first batch of a
+The workloads after `north` run other, this, this, other, warm.  The first batch of a
 process pays torch's lazy loads and the kernels' build, and the first
 batch of a family its ops' lazy loads: read the last batch.  Prints one JSON
 object a run: each batch's wall time, encode_s, compile_s, solve_s, the
@@ -57,12 +66,20 @@ if workload == "north":
     nodes, batches = [node(i) for i in range(50000)], [pods(f"b{b}", 10000) for b in range(3)]
 elif workload == "basic":
     nodes, batches = [node(i) for i in range(5000)], [pods("init", 1000), pods("measured", 1000)]
-elif workload == "spread":
+elif workload in ("spread", "spread_greedy"):
     nodes, init, measured = cases.topology_spreading_objects(w, 5000, 5000, 4000)
     batches = [init, measured[:2000], measured[2000:]]
+elif workload == "spread_wave":
+    nodes, init, measured = cases.topology_spreading_objects(w, 5000, 5000, 2000)
+    batches = [init] + [measured[k:k + 500] for k in range(0, 2000, 500)]
+elif workload == "affinity":
+    nodes, init, measured = cases.pod_affinity_objects(w, 5000, 1000, 1000)
+    batches = [b[k:k + 500] for b in (init, measured) for k in (0, 500)]
 else:
     nodes, init, measured = cases.pod_anti_affinity_objects(w, 5000, 1000, 2000)
     batches = [init, measured[:1000], measured[1000:]]
+if workload.endswith("_greedy"):
+    kw = dict(kw, mode="greedy", use_wavefront=False)
 s = TorchBatchScheduler(**kw)
 for n in nodes:
     s.add_node(n)
@@ -94,7 +111,8 @@ def main() -> int:
     other = sys.argv[1]
     log = sys.argv[sys.argv.index("--log") + 1] if "--log" in sys.argv else None
     workload = sys.argv[sys.argv.index("--workload") + 1] if "--workload" in sys.argv else "north"
-    if workload not in ("north", "basic", "spread", "anti"):
+    if workload not in ("north", "basic", "spread", "anti", "spread_greedy", "anti_greedy",
+                        "spread_wave", "affinity"):
         print(__doc__, file=sys.stderr)
         return 2
     if workload == "north":
