@@ -7,7 +7,7 @@ configuration: the resident cluster mirror and the warm partials on
 (use_mirror=False is the cold path).  Phases (one JSON line each on
 stdout; with --log also appended to PATH):
 
-  build      build the fourteen CUDA sources of kubernetes_tpu_torch/csrc
+  build      build the thirteen CUDA sources of kubernetes_tpu_torch/csrc
              (one nvcc each, started together)
   parity     each kernel against its plain torch version, exact (on the
              card, or on CPU copies of the inputs where the plain version
@@ -25,7 +25,8 @@ stdout; with --log also appended to PATH):
              (auction_loop), on batches without in-batch ports or
              affinity-direction terms (some also against the plain loop on
              the CPU, among them a gang released past float32's exact
-             range: auction_release, launched once, timed with its bound);
+             range: the gang stage inside the one auction_loop launch, and
+             the stage alone timed with its bound, PG);
              class_extras on the scan's and the auction's pairs
   overlay    the reservations overlay on the card against the CPU: twelve
              nominated pods with requests that are not whole MiB on a node
@@ -162,6 +163,17 @@ stdout; with --log also appended to PATH):
              timed (N); then a second 10,000-pod batch after the first
              one's assumes: a delta sync of the assumed rows, warm against
              cold
+  gang       (after wide_edges) bench.py's c5 at full width: 50,000 of its
+             32-CPU nodes, a warm-up and three timed batches of 10,000 pods
+             in 100 gangs under fresh names (nothing assumed) through
+             TorchBatchScheduler(mode="auto"): each batch the auction, one
+             auction_loop launch (the gang stage inside), no stage alone,
+             no plain twin; gangs all or nothing; usage within capacity;
+             the last batch == auction_assign on CPU copies, every field;
+             three gangs with an unplaceable member (released in the
+             launch, == the CPU bit for bit; the gang stage alone timed
+             there, G); 200 nodes (scarcity: the admission retry's solves
+             on the auction route, names == the port on the CPU)
   wide_edges the wavefront (a 256-pod SchedulingBasic batch, the planner's
              waves) and evaluate_single (E: the fused launch; E+: a
              preferred term, two stages) at 16,384 padded nodes (10,000
@@ -204,7 +216,7 @@ stdout; with --log also appended to PATH):
              tripped, == the batched pass on a healthy twin)
 
 In every part of main, greedy, wavefront, spread, interpod, extras,
-slices, extender, proto, resident and north the launch counters are reset
+slices, extender, proto, resident, north and gang the launch counters are reset
 just before the part and
 read just after; the kernels expected are derived from the batches the
 part's schedulers encoded (route_kernels): the route's own — warm statics
@@ -213,11 +225,11 @@ class_statics —, the families' (family_prep once a family a batch,
 class_extras with preferred inter-pod terms or images, slice_stats after
 a slice batch's scan) and the residents' (partials_eval, mirror_rows,
 each launched exactly as often as the residents recorded); every
-auction batch launches auction_loop exactly once — its reasons pass
-inside — and no stage entry point (auction_release after a batch with
-gangs only); and no card path calls a plain twin of a ported prep or of
-the reasons pass (install_plain_counters: "plain:<name>" counters held to
-0 by the same check); the extender's windows expect match_terms,
+auction batch launches auction_loop exactly once — its reasons pass and
+its gang post-pass inside — and no stage entry point; and no card path
+calls a plain twin of a ported prep, of the reasons pass, of the gang
+post-pass or of the repair's dense tables (install_plain_counters:
+"plain:<name>" counters held to 0 by the same check); the extender's windows expect match_terms,
 class_statics and evaluate_single (one fused launch a request of the
 basic pod), with class_extras for the variants, and the proto request the
 cold auction's.
@@ -297,6 +309,15 @@ PREEMPT_MEASURED, PREEMPT_PASS, PREEMPT_COLD = 256, 16, 64
 PREEMPT = (5000, 20000, PREEMPT_MEASURED + PREEMPT_PASS)
 PREEMPT_SMALL = (500, 2000, 100)
 C9 = (20000, 16)
+# bench.py's c5 gang burst (config5, bench.py:297-318): (nodes of _mk_nodes —
+# 32 CPU / 64Gi / 110 pods, C5_ZONES zones —, pods from default_rng(5), gangs);
+# _Runner's steps: a warm-up batch, then C5_TIMED batches under fresh names,
+# nothing assumed.  The scarcity step's cluster: C5_SCARCE nodes (6,400 CPU
+# for ~7,700 CPU of requests: the full solve completes no gang, found with
+# the port on the CPU); the drops step's gangs with one unplaceable member
+C5 = (50000, 10000, 100)
+C5_ZONES, C5_TIMED, C5_SCARCE = 10, 3, 200
+C5_DROP_GANGS = (3, 41, 97)
 
 # H100 SXM published peaks (NVIDIA data sheet: HBM3 rate, non-tensor float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
@@ -322,8 +343,6 @@ SOURCES = {
                        "kubernetes_tpu/ops/auction.py:507"),
     "auction_interpod": ("kubernetes_tpu_torch/csrc/auction_common.cuh",
                          "kubernetes_tpu/ops/auction.py:587"),
-    "auction_release": ("kubernetes_tpu_torch/csrc/auction_release.cu",
-                        "kubernetes_tpu/ops/auction.py:825"),
     "class_extras": ("kubernetes_tpu_torch/csrc/class_extras.cu",
                      "kubernetes_tpu/ops/scores.py:337"),
     "partials_eval": ("kubernetes_tpu_torch/csrc/partials_eval.cu",
@@ -341,6 +360,10 @@ SOURCES = {
     # the reasons pass: a stage of the program, run by every loop launch
     "auction_reasons": ("kubernetes_tpu_torch/csrc/auction_common.cuh",
                         "kubernetes_tpu/ops/auction.py:765"),
+    # the gang post-pass: a stage of the program, run by every loop launch
+    # of a batch with gangs
+    "auction_gang": ("kubernetes_tpu_torch/csrc/auction_common.cuh",
+                     "kubernetes_tpu/ops/auction.py:825"),
     # three entries of one source; each row names its entry's function
     "family_prep": ("kubernetes_tpu_torch/csrc/family_prep.cu",
                     "kubernetes_tpu/ops/topology.py:50"),
@@ -353,7 +376,8 @@ FAMILY_REPLACES = {"spread": "kubernetes_tpu/ops/topology.py:50",
 # with tensors on the card counts under "plain:<name>" in bindings.LAUNCHES,
 # so every launch check also holds them to 0)
 PLAIN_TWINS = (("topology", "prep_spread_plain"), ("interpod", "prep_terms_plain"),
-               ("interpod", "prep_pref_pod_plain"), ("auction", "failure_reasons_plain"))
+               ("interpod", "prep_pref_pod_plain"), ("auction", "failure_reasons_plain"),
+               ("auction", "repair_tables"), ("auction", "gang_post_pass_plain"))
 
 def install_plain_counters(bindings, torch) -> None:
     """Wrap each plain twin of PLAIN_TWINS in its module so that a call
@@ -437,6 +461,37 @@ def make_cluster(wrappers, n_nodes: int, prefix: str = "node"):
         .obj()
         for i in range(n_nodes)
     ]
+
+
+def c5_nodes(wrappers, n_nodes: int):
+    """bench.py _mk_nodes: 32 CPU / 64Gi / 110 pods, C5_ZONES zones."""
+    return [
+        wrappers.make_node(f"node-{i}")
+        .capacity(cpu_milli=32000, mem=64 * wrappers.GI, pods=110)
+        .zone(f"zone-{i % C5_ZONES}")
+        .obj()
+        for i in range(n_nodes)
+    ]
+
+
+def c5_pods(wrappers, tag: str, drop_gangs=()):
+    """bench.py config5's batch under the names c5-<tag>-<i>: C5[1] pods
+    from default_rng(5), cpu in {100, 250, 500, 1000, 2000} m, memory in
+    {128 ... 2048} Mi, pod i in gang-<i % C5[2]>; the first member of each
+    gang in drop_gangs also asks a node label no node has."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    pods = []
+    for i in range(C5[1]):
+        w = (wrappers.make_pod(f"c5-{tag}-{i}")
+             .req(cpu_milli=int(rng.choice([100, 250, 500, 1000, 2000])),
+                  mem=int(rng.choice([128, 256, 512, 1024, 2048])) * wrappers.MI)
+             .group(f"gang-{i % C5[2]}"))
+        if i in drop_gangs:
+            w = w.node_selector_kv("c5-drop", "nowhere")
+        pods.append(w.obj())
+    return pods
 
 
 def make_pods(wrappers, n_pods: int, prefix: str):
@@ -989,9 +1044,10 @@ def check_auction_launches(name, launches, batches: int) -> None:
 def stage_launches(name, launches) -> int:
     """A row's launches on its phase's path: the kernel's counter; for the
     reasons stage, which every auction_loop launch runs after its rounds,
-    the loop's (its own counter, auction_reasons, counts only the stage
-    launched alone, 0 on every path)."""
-    return launches["auction_loop" if name == "auction_reasons" else name]
+    and the gang stage, which every loop launch of a batch with gangs runs
+    last, the loop's (their own counters, auction_reasons and auction_gang,
+    count only the stage launched alone, 0 on every path)."""
+    return launches["auction_loop" if name in ("auction_reasons", "auction_gang") else name]
 
 
 def check_launches(name, launches, want) -> None:
@@ -1050,7 +1106,7 @@ def main() -> int:
           "per_kernel_s": secs, "card": card})
 
     # ---- parity on small batches ------------------------------------------
-    release_row = parity_phase(wrappers, assign, auction, dv, filters, bindings, torch)
+    gang_parity_row = parity_phase(wrappers, assign, auction, dv, filters, bindings, torch)
     overlay_parity(wrappers, TorchBatchScheduler, torch)
     resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch)
     preemption_parity(wrappers, filters, bindings, torch)
@@ -1233,7 +1289,7 @@ def main() -> int:
     summary.append(dict(row, launches=spread_launches["auction_spread"]))
     summary.append(next(r for r in interpod_rows if r["name"] == "auction_interpod"))
     summary.append(extras_row)
-    summary.append(release_row)
+    summary.append(gang_parity_row)
     for name, shape in (("partials_eval", "full"), ("mirror_rows", "usage500")):
         row = next(r for r in resident_rows if r["name"] == name and r["shape"].startswith(shape))
         summary.append(dict(row, launches=resident_launches[name]))
@@ -1257,9 +1313,12 @@ def main() -> int:
                                      "the north star's first batch (50,000 nodes, 10,000 "
                                      "pods); the whole loop's launch alone, bound = each "
                                      "round's stage bounds on that round's data, summed",
-                     "auction_release": "the parity phase's fractional gang batch (its "
-                                        "rounds' assignment, incomplete gangs dropped); "
-                                        "launches: that batch's auction_assign on the card",
+                     "auction_gang": "the stage alone (events behind a spin) on the state "
+                                     "before the post-pass; PG: the parity phase's "
+                                     "fractional gang batch (launches: its auction_assign "
+                                     "on the card); G: bench.py c5 with three gangs given "
+                                     "an unplaceable member (launches: the gang phase's "
+                                     "auction_loop launches, every one a batch with gangs)",
                      "greedy_scan": "the same batch, mode=greedy",
                      "wavefront": "W: SchedulingNodeAffinity/5000Nodes first measured batch; "
                                   "S: TopologySpreading/5000Nodes first 500-pod measured batch "
@@ -1396,6 +1455,10 @@ def main() -> int:
                        "warm": rw, "cold": rc, "launches": north2_launches}
     emit(north)
     wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bindings, torch)
+    # ---- bench.py's c5: the gang burst, 10,000 pods in 100 gangs ---------
+    gang_c5_row, gang_loops = gang_phase(wrappers, TorchBatchScheduler, assign, auction,
+                                         bindings, torch, card)
+    summary.append(dict(gang_c5_row, launches=gang_loops))
     # every phase so far arms no fault: breakers, fallbacks and cold
     # partials syncs only ever count up, so one check covers them all
     emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
@@ -1426,7 +1489,8 @@ def main() -> int:
 
 def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> dict:
     """Every kernel against its plain version on small batches (see the
-    module docstring), exact.  Returns auction_release's summary row."""
+    module docstring), exact.  Returns the gang stage's summary row at the
+    fractional gang batch (PG)."""
     import numpy as np
     from kubernetes_tpu_torch.ops import schema, scores
     from kubernetes_tpu_torch.testing.cases import (
@@ -1483,7 +1547,8 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> dic
                                          cpu_snap=dv.to_device(snap, "cpu") if on_cpu else None)
         checked["auction"] += 1
     # the gang post-pass itself, card against CPU, past the exact range:
-    # one auction_loop and one auction_release launch
+    # one auction_loop launch (the gang stage inside), no stage alone, no
+    # plain twin on the card
     nodes, pending, _b = fractional_gang_objects(wrappers, 1)
     snap, _meta = schema.SnapshotBuilder().build(nodes, pending)
     torch.cuda.synchronize()
@@ -1491,10 +1556,8 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> dic
     gang_card = auction.auction_assign(dv.to_device(snap, "cuda"), n_groups=schema.num_groups(snap))
     torch.cuda.synchronize()
     gang_launches = dict(bindings.LAUNCHES)
+    check_launches("parity/gang", gang_launches, {"match_terms", "class_statics", "auction_loop"})
     check_auction_launches("parity/gang", gang_launches, 1)
-    if gang_launches["auction_release"] != 1:
-        raise AssertionError(f"parity/gang: auction_release launched "
-                             f"{gang_launches['auction_release']} times, not once")
     gang_cpu = auction.auction_assign(dv.to_device(snap, "cpu"), n_groups=schema.num_groups(snap))
     if not bool(gang_cpu.gang_dropped.any()):
         raise AssertionError("parity: the fractional gang case released no gang")
@@ -1541,8 +1604,10 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> dic
     if not fallbacks:
         raise AssertionError("parity: no wavefront fallback was exercised")
     emit({"phase": "parity", "cases": checked, "wavefront_fallbacks": fallbacks, "exact": True})
-    return dict(release_row(dv.to_device(snap_gang, "cuda"), auction, bindings, torch),
-                launches=gang_launches["auction_release"])
+    meta_gang = _meta_of(snap_gang, assign, auction, schema)
+    return dict(gang_row(dv.to_device(snap_gang, "cuda"), meta_gang, scores.ScoreConfig(), "PG",
+                         auction, bindings, torch),
+                shape="PG", launches=stage_launches("auction_gang", gang_launches))
 
 
 def resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch) -> None:
@@ -1946,7 +2011,6 @@ def route_kernels(meta) -> set:
     """The kernels a batch launches, from its meta: the route's own; with
     warm statics (meta.statics, the resident partials) no class_statics and
     no match_terms unless the spread family needs the selector mask;
-    auction_release after an auction with gangs;
     class_extras with preferred inter-pod terms or images; family_prep with
     the spread, inter-pod or preferred inter-pod family (one launch a
     family); and the kernels the residents launched while encoding it."""
@@ -1959,8 +2023,6 @@ def route_kernels(meta) -> set:
         if f.spread:
             kernels.add("match_terms")
     kernels |= {k for k, v in (meta.resident_launches or {}).items() if v}
-    if meta.route == "auction" and meta.n_groups > 0:
-        kernels.add("auction_release")
     if f.interpod_pref or f.images:
         kernels.add("class_extras")
     if meta.route == "greedy" and f.slices:
@@ -2239,8 +2301,9 @@ def interpod_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bind
         check_family(tag, rec["snap"], rec["meta"].features, rec["meta"].topo_split, filters,
                      bindings, torch)
     out["family_prep"] = fam
-    # the anti-affinity repair's dense tables, still plain torch on the
-    # card (auction_prep's repair_tables), timed at A with their bound
+    # the anti-affinity repair's dense tables: the plain loop's twin, on no
+    # card path since the launch writes them itself; timed at A
+    # on the card (what an auction batch's host no longer enqueues)
     order = assign.solve_order(snap.pods)
     dense = auction.repair_tables(snap.terms, order)
     dense_ms = cuda_ms(lambda: auction.repair_tables(snap.terms, order), 20, torch)
@@ -2545,7 +2608,7 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     c_args = cpu_args((cluster, pods, st), torch)
     want = auction._rounds_plain(*c_args, tie_k, cfg, max_rounds)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    got, loop_reasons = bindings.auction_solve(cluster, pods, st, tie_k, cfg, max_rounds)
+    got, loop_reasons, _ = bindings.auction_solve(cluster, pods, st, tie_k, cfg, max_rounds)
     check_equal("auction_loop", got, want, torch)
     if cpu_snap is not None:
         on_cpu = auction._rounds_plain(*auction.auction_prep(cpu_snap, cfg=cfg), tie_k, cfg,
@@ -2787,44 +2850,16 @@ def time_auction_round(inp: dict, auction, bindings, torch) -> list:
     return rows
 
 
-def release_row(snap, auction, bindings, torch) -> dict:
-    """auction_release on a gang batch's auction (the rounds' assignment
-    and usage, the members of incomplete gangs dropped) against its plain
-    version on CPU copies, exact; CUDA events over 20 calls (each subtracts
-    again from the same usage: the same work), its plain version's host
-    time on the CPU copies (it adds in pod index order on the CPU only),
-    and its bound: each dropped pod's assignment, flag and requests
-    read, its node's two usage rows read and written, one subtraction a
-    dropped pod and resource in each of the two rows."""
-    n_groups = int(snap.pods.group_id.max()) + 1
-    n = snap.cluster.allocatable.shape[0]
-    cluster, pods, st = auction.auction_prep(snap)
-    assigned, _bs, req, nz, *_rest = bindings.auction_rounds(
-        cluster, pods, st, auction.default_tie_k(snap), auction.DEFAULT_SCORE_CONFIG, 64)
-    g = pods.group_id
-    gc = torch.clamp(g, 0, n_groups - 1).long()
-    unplaced = ((assigned < 0) & pods.valid & (g >= 0)).to(torch.int32)
-    incomplete = torch.zeros(n_groups, dtype=torch.int32, device=g.device).index_add(
-        0, gc, unplaced) > 0
-    dropped = (g >= 0) & incomplete[gc] & (assigned >= 0)
-    if not bool(dropped.any()):
-        raise AssertionError("auction_release: the gang batch drops no pod")
-    got_req, got_nz = req.clone(), nz.clone()
-    bindings.auction_release(cluster.allocatable, pods, assigned, dropped, got_req, got_nz)
-    c_pods, c_as, c_dr, c_req, c_nz = cpu_args((pods, assigned, dropped, req, nz), torch)
-    err = check_equal("auction_release", (got_req, got_nz),
-                      auction.gang_release_plain(c_pods, c_as, c_dr, c_req, c_nz), torch)
-    ms = cuda_ms(lambda: bindings.auction_release(cluster.allocatable, pods, assigned, dropped,
-                                                  got_req, got_nz), 20, torch)
-    plain_ms = time_plain(lambda: auction.gang_release_plain(c_pods, c_as, c_dr, c_req, c_nz),
-                          torch)
-    d = int(dropped.sum())
-    r = req.shape[1]
-    nodes = int(torch.unique(assigned[dropped]).numel())
-    b = bound(d * (4 + 1 + 2 * r * 4) + nodes * 2 * 2 * r * 4, float(2 * d * r))
-    return {"name": "auction_release", "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
-            "bound_by": b[1], "max_abs_err": err, "library_ms": None,
-            "shape": f"parity gang batch: {n} padded nodes, {d} dropped pods"}
+def _meta_of(snap, assign, auction, schema):
+    """The routing statics auction_assign takes for a snapshot built
+    outside a scheduler (the features, topology split, gangs and tie_k
+    the scheduler's _annotate derives)."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(features=assign.features_of(snap),
+                           topo_split=assign.required_topo_z_split(snap),
+                           n_groups=schema.num_groups(snap),
+                           tie_k=auction.default_tie_k(snap))
 
 
 def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
@@ -3332,6 +3367,190 @@ def family_z_check(wrappers, sched, filters, bindings, torch) -> dict:
     errs = check_family("wide", snap, f, meta.topo_split, filters, bindings, torch)
     return {"padded_nodes": int(snap.cluster.allocatable.shape[0]),
             "z": list(meta.topo_split), "entries": sorted(errs), "max_abs_err": max(errs.values())}
+
+
+def gang_groups(pods, names) -> tuple:
+    """(gangs placed whole, gangs left wholly unplaced) of a batch; raises
+    if a gang is split."""
+    groups = {}
+    for pod, name in zip(pods, names):
+        if pod.spec.scheduling_group:
+            groups.setdefault(pod.spec.scheduling_group, []).append(name)
+    whole = empty = 0
+    for g, got in groups.items():
+        placed = sum(n is not None for n in got)
+        if 0 < placed < len(got):
+            raise AssertionError(f"gang {g}: {placed} of {len(got)} members placed")
+        whole += placed == len(got)
+        empty += placed == 0
+    return whole, empty
+
+
+def check_result_capacity(what, res) -> None:
+    """No node's post-solve usage in the result exceeds its allocatable."""
+    over = res.cluster.requested > res.cluster.allocatable
+    if bool(over.any()):
+        raise AssertionError(f"{what}: a node's post-solve usage exceeds its allocatable")
+
+
+def gang_row(snap, meta, cfg, shape, auction, bindings, torch) -> dict:
+    """The gang stage alone (AuctionRun.gang_stage, auction_loop's kernel)
+    on a gang batch's state before the post-pass — the loop's launch
+    without gangs (n_groups 0: the rounds and the reasons) —, against
+    gang_post_pass_plain on CPU copies (it adds in pod index order on the
+    CPU only), exact; CUDA events behind a spin (launch_ms: the carries and
+    reasons reloaded before each call), the plain twin host-timed on the
+    CPU copies, and the bound: each pod's group, assignment and validity
+    read and its flag written, the dropped pods' two request rows read and
+    their assignment, score and reason written, their nodes' two usage rows
+    read and written, one subtraction a dropped pod and resource in each."""
+    cluster, pods, st = auction.auction_prep(snap, meta.features, meta.topo_split, cfg)
+    out, reasons, _ = bindings.auction_solve(cluster, pods, st, meta.tie_k, cfg, 64)
+    assigned, bid_scores, req, nz = out[:4]
+    run = bindings.AuctionRun(cluster, pods, st, meta.tie_k, cfg, 0, meta.n_groups)
+
+    def reset():
+        run.load(0, req, nz, assigned, bid_scores, go=False)
+        run.reasons.copy_(reasons)
+
+    ms, host_ms = launch_ms(run.gang_stage, reset, 10, torch)
+    c_args = cpu_args((pods, assigned, bid_scores, reasons, req, nz), torch)
+    want = auction.gang_post_pass_plain(*c_args, meta.n_groups)
+    got = (run.assigned, run.bid_scores, run.reasons, run.gang_dropped, run.requested,
+           run.nonzero)
+    err = check_equal(f"auction_gang ({shape})", got, want, torch)
+    dropped = want[3]
+    if not bool(dropped.any()):
+        raise AssertionError(f"auction_gang ({shape}): the batch drops no pod")
+    plain_ms = time_plain(lambda: auction.gang_post_pass_plain(*c_args, meta.n_groups), torch)
+    p, r = pods.req.shape
+    d = int(dropped.sum())
+    nodes = int(torch.unique(assigned.cpu()[dropped]).numel())
+    b = bound(p * (4 + 4 + 1 + 1) + d * (2 * r * 4 + 12) + nodes * 2 * 2 * r * 4,
+              float(2 * d * r))
+    return {"name": "auction_gang", "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "max_abs_err": err, "library_ms": None,
+            "stage_of": "auction_loop", "dropped": d, "nodes": nodes,
+            "shape_detail": f"{cluster.allocatable.shape[0]} padded nodes, {p} padded pods, "
+                            f"{meta.n_groups} gangs, {d} dropped pods on {nodes} nodes"}
+
+
+def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, card) -> tuple:
+    """bench.py's c5 at full width (see C5): TorchBatchScheduler(mode=
+    "auto") on 50,000 nodes, a warm-up batch and C5_TIMED batches of
+    10,000 pods in 100 gangs under fresh names, nothing assumed; each batch
+    its own launch window (the auction route, one auction_loop launch, no
+    stage alone, no plain twin), gangs all or nothing, the result's usage
+    within capacity; the last batch's snapshot against auction_assign on
+    CPU copies, every field.  Then the drops step (the same cluster, one
+    member of each of C5_DROP_GANGS unplaceable: those gangs released in
+    the launch, card == CPU, the usage bit for bit) and the scarcity step
+    (C5_SCARCE nodes: the full solve completes no gang, the admission
+    retry's solves on the auction route, names == the port on the CPU).
+    Returns the gang stage's summary row at c5 with drops and the phase's
+    auction_loop launches."""
+    t0 = time.perf_counter()
+    sched = TorchBatchScheduler(mode="auto")
+    for node in c5_nodes(wrappers, C5[0]):
+        sched.add_node(node)
+    out = {"phase": "gang", "workload": "bench.py c5 (config5)", "nodes": C5[0],
+           "pods": C5[1], "gangs": C5[2], "add_nodes_s": time.perf_counter() - t0,
+           "batches": [], "card": card}
+    loops = 0
+    for k, tag in enumerate(("warmup",) + tuple(f"run{j}" for j in range(C5_TIMED))):
+        pods = c5_pods(wrappers, tag)
+
+        def run(pods=pods):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            names = sched.schedule_pending(pods)
+            return names, time.perf_counter() - t
+
+        (names, wall), launches = drive_phase(f"gang/{tag}", run, bindings, [sched])
+        meta = sched.metas[-1]
+        if meta.route != "auction" or launches["auction_loop"] != 1:
+            raise AssertionError(f"gang/{tag}: route {meta.route}, "
+                                 f"{launches['auction_loop']} auction_loop launches")
+        loops += launches["auction_loop"]
+        whole, empty = gang_groups(pods, names)
+        check_result_capacity(f"gang/{tag}", sched.last_result)
+        out["batches"].append({
+            "batch": tag, "s": wall, "pods_per_s": len(pods) / wall,
+            "placed": sum(n is not None for n in names), "complete_gangs": whole,
+            "unplaced_gangs": empty, "rounds": int(sched.last_result.rounds),
+            **{f: sched.last_timings[f] for f in ("encode_s", "compile_s", "solve_s")},
+            "build_s": meta.encode_split.get("build_s") if meta.encode_split else None})
+    timed = out["batches"][1:]
+    out["batch_s_min"] = min(b["s"] for b in timed)
+    for f in ("encode_s", "compile_s", "solve_s"):
+        out[f"{f}_min"] = min(b[f] for b in timed)
+    # the last batch's snapshot (nothing was assumed: the same state)
+    # against the plain path on CPU copies, every field
+    t0 = time.perf_counter()
+    snap, meta = sched.encode_pending(pods)
+    want = solve_route("auction", cpu_copy(snap), meta, assign, auction, sched.score_config)
+    check_equal("gang: the last batch (card against the plain path on the CPU)",
+                result_fields(sched.last_result, True), result_fields(want, False), torch)
+    out["plain_check_s"] = time.perf_counter() - t0
+
+    # drops at width: gangs with an unplaceable member come back incomplete
+    # and their placed members are released inside the launch
+    dpods = c5_pods(wrappers, "drops", C5_DROP_GANGS)
+
+    def run_drops():
+        return sched.schedule_pending(dpods)
+
+    dnames, dlaunches = drive_phase("gang/drops", run_drops, bindings, [sched])
+    loops += dlaunches["auction_loop"]
+    res = sched.last_result
+    if sched.metas[-1].route != "auction" or not bool(res.gang_dropped.any()):
+        raise AssertionError("gang/drops: no gang released on the auction route")
+    whole, empty = gang_groups(dpods, dnames)
+    check_result_capacity("gang/drops", res)
+    dsnap, dmeta = sched.encode_pending(dpods)
+    dwant = solve_route("auction", cpu_copy(dsnap), dmeta, assign, auction, sched.score_config)
+    check_equal("gang/drops (card against the plain path on the CPU)",
+                result_fields(res, True), result_fields(dwant, False), torch)
+    out["drops"] = {"gangs_with_a_misfit": len(C5_DROP_GANGS), "complete_gangs": whole,
+                    "unplaced_gangs": empty, "dropped_pods": int(res.gang_dropped.sum()),
+                    "launches": dlaunches["auction_loop"], "usage_equal_cpu": True}
+    row = dict(gang_row(dsnap, dmeta, sched.score_config, "c5 drops", auction, bindings, torch),
+               shape="G")
+
+    # scarcity: the full solve completes no gang, so the admission retry
+    # re-solves gang prefixes on the auction route
+    names_of = {}
+    solves = {}
+    for dev in ("cuda", "cpu"):
+        s = TorchBatchScheduler(mode="auto", device=dev)
+        for node in c5_nodes(wrappers, C5_SCARCE):
+            s.add_node(node)
+        spods = c5_pods(wrappers, "scarce")
+        if dev == "cuda":
+            before = s.auction_solves
+            (names_of[dev], wall), slaunches = drive_phase(
+                "gang/scarcity", lambda s=s, spods=spods: (
+                    s.schedule_pending(spods), None), bindings, [s])
+            solves[dev] = s.auction_solves - before
+            loops += slaunches["auction_loop"]
+        else:
+            names_of[dev] = s.schedule_pending(spods)
+        full = s.metas[0]
+        if full.route != "auction":
+            raise AssertionError(f"gang/scarcity ({dev}): route {full.route}")
+    if names_of["cuda"] != names_of["cpu"]:
+        raise AssertionError("gang/scarcity: card and CPU names differ")
+    whole, empty = gang_groups(spods, names_of["cuda"])
+    if solves["cuda"] < 2 or whole == 0:
+        raise AssertionError(f"gang/scarcity: {solves['cuda']} solves, {whole} gangs placed")
+    out["scarcity"] = {"nodes": C5_SCARCE, "auction_solves": solves["cuda"],
+                       "complete_gangs": whole, "placed": sum(n is not None
+                                                              for n in names_of["cuda"]),
+                       "names_equal_cpu": True}
+    out["gang_stage"] = row
+    out["auction_loop_launches"] = loops
+    emit(out)
+    return row, loops
 
 
 def recording(cls):

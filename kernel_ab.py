@@ -221,6 +221,23 @@ def load_other_bindings(csrc: Path, out_dir: Path):
     return other, reports
 
 
+def other_statics(st):
+    """st as the other tree's ops.auction.AuctionStatics: an earlier tree
+    (before the launch wrote them itself) carries the inter-pod
+    repair's dense tables, made here by this tree's repair_tables."""
+    import importlib
+
+    from kubernetes_tpu_torch.ops import auction
+
+    fields = importlib.import_module("kt_other.ops.auction").AuctionStatics._fields
+    vals = st._asdict()
+    if "mi_dense" in fields and st.features.interpod:
+        vals.update(zip(("mi_dense", "anti_dense", "solve_pos"),
+                        auction.repair_tables(st.tm.table, st.order)))
+    cls = importlib.import_module("kt_other.ops.auction").AuctionStatics
+    return cls(**{k: vals.get(k) for k in fields})
+
+
 def auction_ab(shape: str, other_dir: Path, out_dir: Path, torch) -> dict:
     """The auction's whole round loop, this tree's program against the
     other tree's own sequence, on the same inputs, both equal to the plain
@@ -240,8 +257,9 @@ def auction_ab(shape: str, other_dir: Path, out_dir: Path, torch) -> dict:
     build.build_all([k for k in build.KERNELS if k not in names])   # the inputs' kernels
     cluster, pods, st, tie_k, cfg, want, n_nodes = auction_case(shape, torch)
     iters, workload = SHAPES["auction"][shape]
+    st_other = other_statics(st)
     runs = {
-        "other": lambda: other.auction_rounds(cluster, pods, st, tie_k, cfg, 64),
+        "other": lambda: other.auction_rounds(cluster, pods, st_other, tie_k, cfg, 64),
         "change": lambda: bindings.auction_rounds(cluster, pods, st, tie_k, cfg, 64),
     }
     # each tree's launch alone where its bindings have one (AuctionRun:
@@ -258,7 +276,7 @@ def auction_ab(shape: str, other_dir: Path, out_dir: Path, torch) -> dict:
         host[which].append(host_ms)
     loop_runs = {}
     for name, cls in loops.items():
-        run = cls(cluster, pods, st, tie_k, cfg, 64)
+        run = cls(cluster, pods, st_other if name == "other_loop" else st, tie_k, cfg, 64)
         start = [t.clone() for t in (run.requested, run.nonzero, run.assigned, run.bid_scores)]
         counts = run.counts.clone() if run.counts is not None else None
         bits = [t.clone() for t in run.bits] if run.bits else None

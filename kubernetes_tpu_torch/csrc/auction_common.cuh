@@ -75,15 +75,19 @@
 //                unplaced, an OR over the cluster.
 // After the rounds, in the same launch: the reasons pass (kStageReasons,
 // round_reasons below), one staged filter pass per joint class against the
-// final state, each pod's REASON_* into `reasons`.
+// final state, each pod's REASON_* into `reasons`; then, with gangs, the
+// gang post-pass (kStageGang, round_gang below): incomplete gangs release
+// their placed members, their requests subtracted node by node in pod
+// index order.
 // state (i32[3] on the card): rounds executed, the continue flag, the last
 // round's progress.  Every stage entry point of a round returns at once
-// when the flag is down; the reasons pass runs whatever the flag.
+// when the flag is down; the reasons pass and the gang stage run whatever
+// the flag.
 //
 // Exactness: the sorts are integer and stable, the histogram and the
 // flags are integer sums and ORs, the best merges under ranks_above's
-// total order, and every float sum (the prefix, the commit) is added in
-// the first design's order, so the program equals the plain loop
+// total order, and every float sum (the prefix, the commit, the gang
+// release) is added in the first design's order, so the program equals the plain loop
 // (ops/auction.py _rounds_plain) bit for bit whatever G is.
 
 #pragma once
@@ -116,24 +120,27 @@ constexpr int kBigI = 1 << 30;   // ops/auction.py _BIG_I
 enum {
     kI_N, kI_R, kI_P, kI_C_DIM, kI_CS_DIM, kI_CC_DIM, kI_TIE_K, kI_MAX_ROUNDS,
     kI_SP_ON, kI_SP_SOFT, kI_SP_C, kI_SP_MC, kI_SP_Z,
-    kI_TM_ON, kI_TM_W, kI_TM_U, kI_TM_T, kI_TM_TK, kI_TM_Z,
+    kI_TM_ON, kI_TM_W, kI_TM_U, kI_TM_T, kI_TM_TK, kI_TM_Z, kI_TM_MA,
+    kI_N_GROUPS,
     kI_COUNT
 };
 enum {
     kP_ALLOC, kP_REQUESTED, kP_NONZERO, kP_SFEAS_S, kP_AFF_S, kP_TAINT_S, kP_S_REPS,
     kP_JSPEC, kP_K_REPS, kP_JCONS, kP_POD_REQ, kP_POD_NZ, kP_POD_VALID, kP_ORDER,
-    kP_CLASS_ID, kP_IPARAMS, kP_FPARAMS, kP_EXTRA,
+    kP_CLASS_ID, kP_GROUP_ID, kP_IPARAMS, kP_FPARAMS, kP_EXTRA,
     kP_SP_POD_IDX, kP_SP_POD_MATCHES, kP_SP_MAX_SKEW, kP_SP_MIN_DOMAINS, kP_SP_HARD,
     kP_SP_ELIGIBLE, kP_SP_V, kP_SP_SIZES, kP_SP_COUNTS,
     kP_TM_KEY_BITS, kP_TM_SLOT_V, kP_TM_MI_SLOT, kP_TM_ANTI_SLOT, kP_TM_AFF_BITS,
     kP_TM_ANTI_BITS, kP_TM_SELF_MATCH, kP_TM_PRESENT, kP_TM_BLOCKED, kP_TM_GLOBAL_ANY,
-    kP_TOPO_IDS, kP_SLOT_OF_T, kP_MI_DENSE, kP_ANTI_DENSE, kP_SOLVE_POS,
+    kP_TOPO_IDS, kP_SLOT_OF_T, kP_TM_MATCHES_IN, kP_TM_ANTI_IDX, kP_TM_VALID, kP_SOLVE_POS,
+    kP_MI_DENSE, kP_ANTI_DENSE,
     kP_ASSIGNED, kP_BID_SCORES, kP_STATE, kP_BID, kP_VAL, kP_INV_C, kP_CNT_C, kP_BEST_C,
     kP_MASKED, kP_SLOTS, kP_CPERM, kP_CFIRST, kP_CSEEN, kP_PERM, kP_PERM_IDX, kP_BFIRST,
     kP_RTMP, kP_RCNT, kP_RBASE, kP_PREFIX, kP_SCAN, kP_ACCEPT,
     kP_COUNTS_IT, kP_ADDS, kP_MINC, kP_KEPT, kP_CAND, kP_ADMIT,
     kP_MINPOS, kP_CARRIER, kP_Z_MI, kP_Z_AN, kP_RELEASE,
     kP_REASON_C, kP_REASONS,
+    kP_GANG_DROPPED, kP_GANG_FLAGS,
     kP_COUNT
 };
 
@@ -141,7 +148,9 @@ enum {
 struct Ctx {
     int n, r, p, c_dim, cs_dim, cc_dim, tie_k, max_rounds;
     int sp_z;                    // the spread slots' value capacity
-    int t_dim, tk, tz;           // inter-pod repair: terms, topology keys, value capacity
+    int t_dim, tk, tz, tm_ma;    // inter-pod repair: terms, topology keys, value capacity,
+                                 // anti terms a pod
+    int n_groups;                // gangs (0: no gang stage)
     const float* alloc;          // [N, R]
     float* requested;            // [N, R] carry
     float* nonzero;              // [N, R] carry
@@ -157,6 +166,7 @@ struct Ctx {
     const uint8_t* pod_valid;    // [P]
     const int32_t* order;        // [P] solve order
     const int32_t* class_id;     // [P]
+    const int32_t* group_id;     // [P] gang, -1 none
     const int32_t* iparams;
     const float* fparams;
     const float* extra;          // [C, N] or null
@@ -164,9 +174,12 @@ struct Ctx {
     Terms tm;                    // bits: the carry
     const int32_t* topo_ids;     // [N, TK]
     const int32_t* slot_of_t;    // [T]
-    const uint8_t* mi_dense;     // [P, T]
-    const uint8_t* anti_dense;   // [P, T]
-    const int32_t* solve_pos;    // [P]
+    const uint32_t* mi_words;    // [P, W] terms.matches_incoming: bit t of word t / 32
+    const int32_t* anti_idx;     // [P, MA] terms.anti_idx (-1 pad)
+    const uint8_t* term_valid;   // [T] terms.valid
+    int32_t* solve_pos;          // [P] each pod's solve position (written by start)
+    uint8_t* mi_dense;           // [P, T] the valid terms a pod matches (written by start)
+    uint8_t* anti_dense;         // [P, T] the valid terms it carries as anti terms (start)
     int32_t* assigned;           // [P] carry
     float* bid_scores;           // [P] carry
     int32_t* state;              // [3]
@@ -202,6 +215,8 @@ struct Ctx {
     uint8_t* release;            // [P]
     int32_t* reason_c;           // reasons pass: [C] each joint class's reason
     int32_t* reasons;            // [P] output
+    uint8_t* gang_dropped;       // [P] output: placed, then released with its gang
+    int32_t* gang_flags;         // [G] scratch: the gang has an unplaced member
 };
 
 // The argument check and the context of a launch; returns a cudaError.
@@ -220,16 +235,19 @@ inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
     a.t_dim = ints[kI_TM_T];
     a.tk = ints[kI_TM_TK];
     a.tz = ints[kI_TM_Z];
+    a.tm_ma = ints[kI_TM_MA];
+    a.n_groups = ints[kI_N_GROUPS];
     const int sp_on = ints[kI_SP_ON], sp_c = ints[kI_SP_C], sp_mc = ints[kI_SP_MC];
     const int tm_on = ints[kI_TM_ON], tm_w = ints[kI_TM_W], tm_u = ints[kI_TM_U];
-    if (a.r < 1 || a.r > kMaxR || a.tie_k < 1 || a.c_dim < 1 || a.cs_dim < 1 || a.cc_dim < 1) {
+    if (a.r < 1 || a.r > kMaxR || a.tie_k < 1 || a.c_dim < 1 || a.cs_dim < 1 || a.cc_dim < 1
+        || a.n_groups < 0) {
         return (int)cudaErrorInvalidValue;
     }
     if (sp_on && (sp_mc < 1 || sp_mc > kMaxMC || sp_c < 1 || a.sp_z < 1)) {
         return (int)cudaErrorInvalidValue;
     }
     if (tm_on && (tm_w < 1 || tm_w > kMaxTW || tm_u < 1 || a.t_dim < 1 || a.tk < 1 || a.tz < 1
-                  || tm_w != (a.t_dim + 31) / 32)) {
+                  || a.tm_ma < 1 || tm_w != (a.t_dim + 31) / 32)) {
         return (int)cudaErrorInvalidValue;
     }
     auto f = [&](int k) { return (const float*)ptrs[k]; };
@@ -250,6 +268,7 @@ inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
     a.pod_valid = u(kP_POD_VALID);
     a.order = i(kP_ORDER);
     a.class_id = i(kP_CLASS_ID);
+    a.group_id = i(kP_GROUP_ID);
     a.iparams = i(kP_IPARAMS);
     a.fparams = f(kP_FPARAMS);
     a.extra = f(kP_EXTRA);
@@ -263,9 +282,12 @@ inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
                       ptrs[kP_TM_BLOCKED], ptrs[kP_TM_GLOBAL_ANY], 0, nullptr, nullptr);
     a.topo_ids = i(kP_TOPO_IDS);
     a.slot_of_t = i(kP_SLOT_OF_T);
-    a.mi_dense = u(kP_MI_DENSE);
-    a.anti_dense = u(kP_ANTI_DENSE);
-    a.solve_pos = i(kP_SOLVE_POS);
+    a.mi_words = (const uint32_t*)ptrs[kP_TM_MATCHES_IN];
+    a.anti_idx = i(kP_TM_ANTI_IDX);
+    a.term_valid = u(kP_TM_VALID);
+    a.solve_pos = (int32_t*)ptrs[kP_SOLVE_POS];
+    a.mi_dense = (uint8_t*)ptrs[kP_MI_DENSE];
+    a.anti_dense = (uint8_t*)ptrs[kP_ANTI_DENSE];
     a.assigned = (int32_t*)ptrs[kP_ASSIGNED];
     a.bid_scores = (float*)ptrs[kP_BID_SCORES];
     a.state = (int32_t*)ptrs[kP_STATE];
@@ -301,6 +323,8 @@ inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
     a.release = (uint8_t*)ptrs[kP_RELEASE];
     a.reason_c = (int32_t*)ptrs[kP_REASON_C];
     a.reasons = (int32_t*)ptrs[kP_REASONS];
+    a.gang_dropped = (uint8_t*)ptrs[kP_GANG_DROPPED];
+    a.gang_flags = (int32_t*)ptrs[kP_GANG_FLAGS];
     return 0;
 }
 
@@ -1183,6 +1207,42 @@ __device__ inline void spread_repair(const Ctx& a, SpreadSmem& sh)
 // node's value in the term's slot; the terms they match turn globally
 // present.  The group minima are integer atomicMin and the flags plain
 // byte stores of 1, so the result does not depend on the threads' order.
+// Its [P, T] tables, as ops/auction.py repair_tables' dense rows, are
+// written once a launch by every block's start (write_repair_tables, over
+// the cluster): each pair's bits read from the batch's own term table and
+// ANDed with terms.valid — the terms a pod matches from the packed
+// terms.matches_incoming words, the anti terms it carries from
+// terms.anti_idx — and each pod's solve position.  The repair's three
+// passes then read one byte a pair: at A, reading the bits in every pass
+// instead made the loop's launch 28-31 us slower (0.390 against 0.362 ms
+// in turns, PERF.md §6), the tables written here cost ~1 us.
+
+// Pod i matches valid term t / carries valid term t as an anti term.
+__device__ __forceinline__ bool term_mi(const Ctx& a, int i, int t)
+{
+    return a.term_valid[t] && ((a.mi_words[(size_t)i * a.tm.w + (t >> 5)] >> (t & 31)) & 1u);
+}
+
+__device__ __forceinline__ bool term_anti(const Ctx& a, int i, int t)
+{
+    if (!a.term_valid[t]) return false;
+    bool hit = false;
+    for (int j = 0; j < a.tm_ma; ++j) hit |= a.anti_idx[(size_t)i * a.tm_ma + j] == t;
+    return hit;
+}
+
+// solve_pos[order[s]] = s and the dense term tables, over the threads
+// (first, first + stride, ...).
+__device__ inline void write_repair_tables(const Ctx& a, int first, int stride)
+{
+    for (int s = first; s < a.p; s += stride) a.solve_pos[a.order[s]] = s;
+    const size_t pairs = (size_t)a.p * a.t_dim;
+    for (size_t e = first; e < pairs; e += stride) {
+        const int i = (int)(e / a.t_dim), t = (int)(e % a.t_dim);
+        a.mi_dense[e] = term_mi(a, i, t);
+        a.anti_dense[e] = term_anti(a, i, t);
+    }
+}
 
 __device__ __forceinline__ int group_of(const Ctx& a, int i, int t)
 {
@@ -1277,8 +1337,8 @@ __device__ inline void round_repairs(const Ctx& a, unsigned char* dyn, const Exa
 // ---- the reasons pass ------------------------------------------------------
 //
 // After the loop's flag falls, against the final state (requested, the
-// spread counts and the term bits — before the gang post-pass, which runs
-// after the launch): per joint class, block_eval's pass-1 filter chain for
+// spread counts and the term bits — before the gang stage below, as the
+// reference names its reasons before its gang post-pass): per joint class, block_eval's pass-1 filter chain for
 // its spec class's representative (static row, resource fit) and its
 // constraint class's (hard spread rows with their critical-path minima from
 // block_spread_pod, the inter-pod words from block_interpod_pod), the
@@ -1346,22 +1406,95 @@ __device__ inline void round_reasons(const Ctx& a, Shared& S, ExactTeam& team)
     team.sync();
 }
 
+// ---- the gang post-pass ----------------------------------------------------
+//
+// Replaces: kubernetes_tpu/ops/auction.py:825-843 (inside
+// auction_assign_jit, :855): a gang with an unplaced valid member
+// (`incomplete`, groups clipped into [0, G) as jnp.clip does) releases
+// every placed member (`gang_dropped`); each dropped pod's requests and
+// nonzero requests leave its node's two usage rows (the masked
+// scatter-add, in pod index order), and it takes assigned -1, bid score
+// -inf and REASON_GANG.  It runs after the reasons pass on the final state,
+// so the other reasons are named before the release, as in the reference.
+// Until this stage, the port ran the masks as some ten torch ops and the
+// release as kernel `auction_release` (one thread a node looping over all
+// P pods: O(N x P), 65,536 x 16,384 at the north star's padded shape).
+//
+// Bound on this card: each pod's group, assignment and flag read, the
+// dropped pods' requests read and their nodes' two usage rows read and
+// written once; microseconds of the card's memory rate.  What the design
+// pays is the cluster barriers and the release sort's passes.
+//
+// Design, over the cluster: the flags are plain int stores of 1 into a
+// [G] scratch (order-free); the dropped pods, stably radix-sorted by node
+// in pod index order (the dropped pods' node, N for any other; the bid
+// sorts' buffers, free after the last round), give each node group's run;
+// one thread a node group walks its run in pod index order and subtracts
+// with __fsub_rn — the reference's order, so the usage equals the plain
+// version's bit for bit past float32's exact range; no atomics.  O(P + N)
+// a pass.  G == 0 skips the stage: no barrier on a gang-free batch.
+
+__device__ inline void round_gang(const Ctx& a, unsigned char* dyn, const ExactTeam& team)
+{
+    const int p = a.p, n = a.n, r = a.r, g_dim = a.n_groups;
+    auto grp = [&](int i) { return min(max(a.group_id[i], 0), g_dim - 1); };
+    for (int g = team.rank(); g < g_dim; g += team.size()) a.gang_flags[g] = 0;
+    team.sync();
+    for (int i = team.rank(); i < p; i += team.size()) {
+        if (a.group_id[i] >= 0 && a.assigned[i] < 0 && a.pod_valid[i]) a.gang_flags[grp(i)] = 1;
+    }
+    team.sync();
+    for (int i = team.rank(); i < p; i += team.size()) {
+        a.gang_dropped[i] = a.group_id[i] >= 0 && a.gang_flags[grp(i)] && a.assigned[i] >= 0;
+    }
+    team.sync();
+    // the dropped pods by node, in pod index order within a node
+    auto dkey = [&](int i) { return a.gang_dropped[i] ? min(a.assigned[i], n - 1) : n; };
+    SortSpec spec = {nullptr, a.perm_idx, a.rtmp, a.rcnt, a.rbase};
+    radix_sort(p, n, 1, &spec, dkey, *(RadixSmem*)dyn, team);
+    for (int s = team.rank(); s < p; s += team.size()) {
+        const int b = dkey(a.perm_idx[s]);
+        if (b >= n || (s > 0 && dkey(a.perm_idx[s - 1]) == b)) continue;
+        for (int q = s; q < p; ++q) {
+            const int i = a.perm_idx[q];
+            if (dkey(i) != b) break;
+            for (int rr = 0; rr < r; ++rr) {
+                a.requested[(size_t)b * r + rr] = sub(a.requested[(size_t)b * r + rr],
+                                                      a.pod_req[(size_t)i * r + rr]);
+                a.nonzero[(size_t)b * r + rr] = sub(a.nonzero[(size_t)b * r + rr],
+                                                    a.pod_nz[(size_t)i * r + rr]);
+            }
+        }
+    }
+    team.sync();
+    for (int i = team.rank(); i < p; i += team.size()) {
+        if (a.gang_dropped[i]) {
+            a.assigned[i] = -1;
+            a.bid_scores[i] = -INFINITY;
+            a.reasons[i] = kReasonGang;
+        }
+    }
+}
+
 // ---- kernels -------------------------------------------------------------
 
-// The block's start: the team, the score parameters, and a cluster barrier
-// before any block writes another's shared memory.
+// The block's start: the team, the score parameters, the inter-pod
+// repair's tables, and a cluster barrier before any block writes another's
+// shared memory.
 __device__ inline void start(const Ctx& a, Shared& S, ExactTeam& team)
 {
     team.init(&S.slots);
     if (threadIdx.x == 0) load_config(S.cfg, a.iparams, a.fparams);
+    if (a.tm.on) write_repair_tables(a, team.rank(), team.size());
     team.sync();
 }
 
 // The stages of a launch: kStageBids, kStageAccept (1), kStageCommit (2),
-// kStageSpread, kStageInterpod, the whole loop, and kStageReasons (alone,
-// or after the loop in the same launch).
+// kStageSpread, kStageInterpod, the whole loop, kStageReasons (alone, or
+// after the loop in the same launch) and kStageGang (alone, or after the
+// loop and the reasons pass in the same launch).
 enum { kStageAccept = 1, kStageCommit = 2, kStageBids = 4, kStageSpread = 8,
-       kStageInterpod = 16, kStageLoop = 32, kStageReasons = 64 };
+       kStageInterpod = 16, kStageLoop = 32, kStageReasons = 64, kStageGang = 128 };
 
 template <int kT>
 __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
@@ -1369,9 +1502,10 @@ __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
     __shared__ Shared S;
     extern __shared__ __align__(16) unsigned char dyn[];
     // every block reads the flag before any block writes it; the rounds'
-    // stages return at once when it is down, the reasons pass runs anyway
+    // stages return at once when it is down, the reasons pass and the gang
+    // stage run anyway
     const bool go = a.state[1] != 0;
-    if (!go && !(stages & kStageReasons)) return;
+    if (!go && !(stages & (kStageReasons | kStageGang))) return;
     const int rnd0 = a.state[0];
     const int progress0 = a.state[2];
     ExactTeam team;
@@ -1379,7 +1513,11 @@ __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
         // a repair alone: block 0, no exchange
         if (cg::this_cluster().block_rank() != 0) return;
         if ((stages & kStageSpread) && a.sp.on) spread_repair(a, *(SpreadSmem*)dyn);
-        if ((stages & kStageInterpod) && a.tm.on) interpod_repair(a);
+        if ((stages & kStageInterpod) && a.tm.on) {
+            write_repair_tables(a, threadIdx.x, blockDim.x);
+            __syncthreads();
+            interpod_repair(a);
+        }
         return;
     }
     start(a, S, team);
@@ -1400,17 +1538,20 @@ __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
         if (stages & kStageCommit) round_commit(a, rnd0, progress, S, team);
     }
     if (stages & kStageReasons) round_reasons(a, S, team);
+    if ((stages & kStageGang) && a.n_groups > 0) round_gang(a, dyn, team);
     // no block leaves while another may still read its shared memory
     team.sync();
 }
 
-// Launch `stages` on the cluster of launch_shape(n): kStageLoop with or
-// without kStageReasons, kStageReasons, kStageSpread or kStageInterpod
-// alone, or any of bids, acceptance and commit.
+// Launch `stages` on the cluster of launch_shape(n): kStageLoop alone, with
+// kStageReasons or with kStageReasons | kStageGang; kStageReasons,
+// kStageGang, kStageSpread or kStageInterpod alone; or any of bids,
+// acceptance and commit.
 inline int launch(const int* ints, void* const* ptrs, int stages, void* stream)
 {
     constexpr int kOneRound = kStageBids | kStageAccept | kStageCommit;
     if (stages != kStageLoop && stages != (kStageLoop | kStageReasons)
+        && stages != (kStageLoop | kStageReasons | kStageGang) && stages != kStageGang
         && stages != kStageReasons && stages != kStageSpread && stages != kStageInterpod
         && (stages == 0 || (stages & ~kOneRound) != 0)) {
         return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
-// Kernel `auction_loop`: the auction solve's whole round loop, one launch a
-// batch; and each stage of a round launched alone (the bindings' stage
-// entry points auction_bids, auction_accept, auction_spread and
-// auction_interpod), the same kernel at the same cluster shape.
+// Kernel `auction_loop`: the auction solve's whole round loop, its reasons
+// pass and its gang post-pass, one launch a batch; and each stage launched
+// alone (the bindings' stage entry points auction_bids, auction_accept,
+// auction_spread, auction_interpod, auction_reasons and auction_gang), the
+// same kernel at the same cluster shape.
 //
 // Replaces: kubernetes_tpu/ops/auction.py:140 `auction_assign`'s
 // lax.while_loop (:762, inside auction_assign_jit, :855): rounds of the
@@ -46,8 +47,23 @@
 //             stage anys and `class_reason`'s code; each pod its class's
 //             code or REASON_NONE.  The loop launch runs it once after the
 //             flag falls (stages kStageLoop | kStageReasons), on the final
-//             state, before the gang post-pass (kernel auction_release);
-//             alone (kStageReasons) it is the bindings' auction_reasons.
+//             state, before the gang post-pass; alone (kStageReasons) it
+//             is the bindings' auction_reasons.
+//   gang      :825-843, the gang post-pass after the reasons, in the same
+//             jitted program: `incomplete`, `gang_dropped`, the release of
+//             the dropped pods' requests (scatter_add_rows in pod index
+//             order) and the rewrites of assigned, bid_scores and reasons.
+//             The loop launch runs it last (stages kStageLoop |
+//             kStageReasons | kStageGang) when the batch has gangs; alone
+//             (kStageGang) it is the bindings' auction_gang.  It replaces
+//             the port's ten torch ops and kernel auction_release (one
+//             thread a node over all P pods); auction_common.cuh
+//             round_gang has its bound and design.
+//   tables    the inter-pod repair's dense [P, T] term tables and each
+//             pod's solve position (mi_dense, anti_dense, solve_pos, built
+//             inside auction_assign_jit, :320-349): written once a launch
+//             into scratch by every block's start, from the bits of
+//             terms.matches_incoming and terms.anti_idx.
 //
 // Bound on this card: per round, the class pass reads each active class's
 // static row, allocatable, requested and nonzero-requested (about 60 bytes
@@ -97,8 +113,9 @@
 
 // `stages` (auction_common.cuh kStage*): the whole loop from state
 // (rounds, flag, progress) until the flag falls, then with kStageReasons
-// the reasons pass; or one stage of round state[0] (each returns at once
-// when state[1] is down), or the reasons pass alone.
+// the reasons pass and with kStageGang the gang post-pass; or one stage of
+// round state[0] (each returns at once when state[1] is down), or the
+// reasons pass or the gang stage alone.
 extern "C" int auction_loop_launch(int stages, const int* ints, void* const* ptrs,
                                    void* stream)
 {
@@ -106,14 +123,14 @@ extern "C" int auction_loop_launch(int stages, const int* ints, void* const* ptr
 }
 
 // What the bindings check on load: 0 the ints and 1 the pointers of a
-// launch, 2 the largest spread value space counted in shared memory, 3-9
+// launch, 2 the largest spread value space counted in shared memory, 3-10
 // the stage flags of the loop, the bids, the acceptance, the commit, the
-// spread and the inter-pod repairs and the reasons pass.
+// spread and the inter-pod repairs, the reasons pass and the gang stage.
 extern "C" int auction_loop_layout(int which)
 {
     using namespace auction;
     const int v[] = {kI_COUNT, kP_COUNT, kShZ, kStageLoop, kStageBids, kStageAccept,
-                     kStageCommit, kStageSpread, kStageInterpod, kStageReasons};
+                     kStageCommit, kStageSpread, kStageInterpod, kStageReasons, kStageGang};
     return which >= 0 && which < (int)(sizeof(v) / sizeof(v[0])) ? v[which] : -1;
 }
 

@@ -14,8 +14,8 @@ index-list pair of the partials store (partials_eval), one packed row
 delta (mirror_rows: every leaf it names), one stage of an auction round
 (AuctionRun's stage methods: auction_loop's kernel launched for one stage,
 counted under the stage's own name — auction_bids, auction_accept for
-the acceptance, the commit or both, auction_spread, auction_interpod),
-one gang release (auction_release).  Nothing here synchronises.
+the acceptance, the commit or both, auction_spread, auction_interpod,
+auction_reasons, auction_gang).  Nothing here synchronises.
 """
 
 from __future__ import annotations
@@ -29,10 +29,11 @@ from ..ops.assign import term_bits_copy, wave_term_rows
 from . import build
 
 # the auction program's stage entry points: auction_loop's kernel launched
-# for one stage of a round (AuctionRun.bids, accept, spread, interpod) or
-# for the reasons pass alone (AuctionRun.reasons_stage)
+# for one stage of a round (AuctionRun.bids, accept, spread, interpod), for
+# the reasons pass alone (AuctionRun.reasons_stage) or for the gang
+# post-pass alone (AuctionRun.gang_stage)
 AUCTION_STAGES = ("auction_bids", "auction_accept", "auction_spread", "auction_interpod",
-                  "auction_reasons")
+                  "auction_reasons", "auction_gang")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS + AUCTION_STAGES}
 
@@ -58,7 +59,6 @@ _ARGTYPES = {
     "wavefront": [_I] * 9 + [_P] * 16 + _SPREAD + _TERMS + [_P] * 13,
     # the auction program: (stages, ints array, pointer array, stream)
     "auction_loop": [_I, _P, _P, _P],
-    "auction_release": [_I] * 3 + [_P] * 7,
     "class_extras": [_I] * 6 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
     "partials_eval": [_I] * 12 + [_P] * 27,
     "mirror_rows": [_P, _I, _I, _P],
@@ -84,9 +84,9 @@ MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
 LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
 MAX_VICTIM_SLOTS = 4096  # preempt_dry_run.cu's widest victim axis
 SPREAD_SHARED_Z = 256    # the auction's spread value spaces counted in shared memory
-# auction_common.cuh's stage flags (auction_loop_layout(3..9) checked on load)
+# auction_common.cuh's stage flags (auction_loop_layout(3..10) checked on load)
 STAGE = {"loop": 32, "bids": 4, "accept": 1, "commit": 2, "spread": 8, "interpod": 16,
-         "reasons": 64}
+         "reasons": 64, "gang": 128}
 
 
 def reset_launches() -> None:
@@ -138,10 +138,10 @@ def _launcher(name: str):
         if name == "auction_loop":
             layout = getattr(lib, "auction_loop_layout")
             layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
-            got = tuple(layout(i) for i in range(10))
+            got = tuple(layout(i) for i in range(11))
             want = (len(AUCTION_INTS), len(AUCTION_PTRS), SPREAD_SHARED_Z,
                     *(STAGE[k] for k in ("loop", "bids", "accept", "commit", "spread",
-                                         "interpod", "reasons")))
+                                         "interpod", "reasons", "gang")))
             if got != want:
                 raise RuntimeError(f"auction_loop layout {got} != bindings {want}")
         if name == "family_prep":
@@ -848,23 +848,26 @@ def wavefront(cluster, pods, sfeas_c, aff_c, taint_c, members, features,
 AUCTION_INTS = (
     "n", "r", "p", "c_dim", "cs_dim", "cc_dim", "tie_k", "max_rounds",
     "sp_on", "sp_soft", "sp_c", "sp_mc", "sp_z",
-    "tm_on", "tm_w", "tm_u", "tm_t", "tm_tk", "tm_z",
+    "tm_on", "tm_w", "tm_u", "tm_t", "tm_tk", "tm_z", "tm_ma",
+    "n_groups",
 )
 AUCTION_PTRS = (
     "alloc", "requested", "nonzero", "sfeas_s", "aff_s", "taint_s", "s_reps", "jspec",
-    "k_reps", "jcons", "pod_req", "pod_nz", "pod_valid", "order", "class_id", "iparams",
-    "fparams", "extra",
+    "k_reps", "jcons", "pod_req", "pod_nz", "pod_valid", "order", "class_id", "group_id",
+    "iparams", "fparams", "extra",
     "sp_pod_idx", "sp_pod_matches", "sp_max_skew", "sp_min_domains", "sp_hard",
     "sp_eligible", "sp_v", "sp_sizes", "sp_counts",
     "tm_key_bits", "tm_slot_v", "tm_mi_slot", "tm_anti_slot", "tm_aff_bits",
     "tm_anti_bits", "tm_self_match", "tm_present", "tm_blocked", "tm_global_any",
-    "topo_ids", "slot_of_t", "mi_dense", "anti_dense", "solve_pos",
+    "topo_ids", "slot_of_t", "tm_matches_in", "tm_anti_idx", "tm_valid", "solve_pos",
+    "mi_dense", "anti_dense",
     "assigned", "bid_scores", "state", "bid", "val", "inv_c", "cnt_c", "best_c",
     "masked", "slots", "cperm", "cfirst", "cseen", "perm", "perm_idx", "bfirst",
     "rtmp", "rcnt", "rbase", "prefix", "scan", "accept",
     "counts_it", "adds", "minc", "kept", "cand", "admit",
     "minpos", "carrier", "z_mi", "z_an", "release",
     "reason_c", "reasons",
+    "gang_dropped", "gang_flags",
 )
 RADIX = 256            # auction_common.cuh's radix sort digits
 SORT_TILE = 512        # its tile at the smallest launch_shape block
@@ -882,11 +885,13 @@ def _scan_rows(p: int) -> int:
     return rows
 
 
-def auction_buffers(cluster, pods, tie_k: int, sp_args=None,
-                    tm_args=None) -> Dict[str, torch.Tensor]:
+def auction_buffers(cluster, pods, tie_k: int, sp_args=None, tm_args=None,
+                    n_groups: int = 0) -> Dict[str, torch.Tensor]:
     """Scratch and outputs of the auction program, allocated once a batch
     (with sp_args, the spread repair's too; with tm_args, the inter-pod
-    repair's group tables)."""
+    repair's group tables, dense term tables and solve positions, which
+    the launch writes; with gangs, their flags —
+    the gang stage's release sort reuses the bid sorts' buffers)."""
     dev = cluster.allocatable.device
     i32, f32, u8 = torch.int32, torch.float32, torch.uint8
     n, r = cluster.allocatable.shape
@@ -915,7 +920,10 @@ def auction_buffers(cluster, pods, tie_k: int, sp_args=None,
         "accept": torch.zeros(p, dtype=u8, device=dev),
         "reason_c": torch.empty(c_dim, dtype=i32, device=dev),
         "reasons": torch.empty(p, dtype=i32, device=dev),
+        "gang_dropped": torch.zeros(p, dtype=torch.bool, device=dev),
     }
+    if n_groups > 0:
+        out["gang_flags"] = torch.empty(n_groups, dtype=i32, device=dev)
     if sp_args is not None:
         rows = sp_args.state.v.shape[0]
         out.update({
@@ -927,13 +935,17 @@ def auction_buffers(cluster, pods, tie_k: int, sp_args=None,
             "admit": torch.empty(p, dtype=u8, device=dev),
         })
     if tm_args is not None:
-        groups = tm_args.z * tm_args.table.valid.shape[0]
+        t_dim = tm_args.table.valid.shape[0]
+        groups = tm_args.z * t_dim
         out.update({
             "minpos": torch.empty(groups, dtype=i32, device=dev),
             "carrier": torch.empty(groups, dtype=u8, device=dev),
             "z_mi": torch.empty(groups, dtype=u8, device=dev),
             "z_an": torch.empty(groups, dtype=u8, device=dev),
             "release": torch.empty(p, dtype=u8, device=dev),
+            "solve_pos": torch.empty(p, dtype=i32, device=dev),
+            "mi_dense": torch.empty((p, t_dim), dtype=u8, device=dev),
+            "anti_dense": torch.empty((p, t_dim), dtype=u8, device=dev),
         })
     return out
 
@@ -950,11 +962,15 @@ class AuctionRun:
     `interpod()` launch one stage of the same program at round state[0]
     (`load` sets the carries and the state first).  Every launch of a
     round's stage returns at once on the card when state[1] is down.  The
-    loop's launch ends with the reasons pass on the final state, and
-    `reasons_stage()` launches that pass alone: each pod's REASON_* into
-    `reasons` (bufs["reasons"]).  Nothing here syncs."""
+    loop's launch ends with the reasons pass on the final state, each
+    pod's REASON_* into `reasons` (bufs["reasons"]), then, with
+    n_groups > 0, the gang post-pass: incomplete gangs' placed members
+    released from the carries, flagged in `gang_dropped`
+    (bufs["gang_dropped"]).  `reasons_stage()` and `gang_stage()` launch
+    those two alone.  Nothing here syncs."""
 
-    def __init__(self, cluster, pods, st, tie_k: int, cfg, max_rounds: int = 64):
+    def __init__(self, cluster, pods, st, tie_k: int, cfg, max_rounds: int = 64,
+                 n_groups: int = 0):
         dev = cluster.allocatable.device
         self.device = dev
         i32, f32, b = torch.int32, torch.float32, torch.bool
@@ -968,6 +984,11 @@ class AuctionRun:
             raise ValueError(f"tie_k {tie_k} outside 1..{n}")
         if st.jcons.shape != st.jspec.shape or pods.class_rep.shape[0] != c_dim:
             raise ValueError("jcons, jspec and the class axis must all be [C]")
+        if n_groups < 0:
+            raise ValueError(f"n_groups {n_groups} < 0")
+        group_id = _arg(pods.group_id, i32, dev, "pods.group_id")
+        if group_id.shape != (p,):
+            raise ValueError(f"pods.group_id {tuple(group_id.shape)} is not [{p}]")
         self.requested = _arg(cluster.requested, f32, dev, "requested").clone()
         self.nonzero = _arg(cluster.nonzero_requested, f32, dev, "nonzero_requested").clone()
         self.assigned = torch.full((p,), -1, dtype=i32, device=dev)
@@ -979,8 +1000,9 @@ class AuctionRun:
         self.state = torch.zeros(3, dtype=i32, device=dev)
         self.state[1] = pods.valid.any().to(i32) * int(max_rounds > 0)
         self.bufs = auction_buffers(cluster, pods, tie_k, st.sp if features.spread else None,
-                                    st.tm if features.interpod else None)
+                                    st.tm if features.interpod else None, n_groups)
         self.reasons = self.bufs["reasons"]
+        self.gang_dropped = self.bufs["gang_dropped"]
         iparams, fparams = score_params(cfg, r, dev)
         pad = _pad(dev)
         t = {
@@ -998,6 +1020,7 @@ class AuctionRun:
             "pod_valid": _arg(pods.valid, b, dev, "pods.valid"),
             "order": _arg(st.order, i32, dev, "order"),
             "class_id": _arg(pods.class_id, i32, dev, "pods.class_id"),
+            "group_id": group_id,
             "iparams": iparams, "fparams": fparams,
             "assigned": self.assigned, "bid_scores": self.bid_scores, "state": self.state,
             **self.bufs,
@@ -1014,11 +1037,15 @@ class AuctionRun:
                     cc_dim=st.k_reps.shape[0], tie_k=int(tie_k), max_rounds=int(max_rounds),
                     sp_on=sp[0], sp_soft=sp[1], sp_c=sp[2],
                     sp_mc=sp[3], sp_z=int(st.sp.z) if features.spread else 1,
-                    tm_on=tm[0], tm_w=tm[1], tm_u=tm[2], tm_t=1, tm_tk=1, tm_z=1)
+                    tm_on=tm[0], tm_w=tm[1], tm_u=tm[2], tm_t=1, tm_tk=1, tm_z=1, tm_ma=1,
+                    n_groups=int(n_groups))
         term_names = ("tm_key_bits", "tm_slot_v", "tm_mi_slot", "tm_anti_slot", "tm_aff_bits",
                       "tm_anti_bits", "tm_self_match", "tm_present", "tm_blocked",
                       "tm_global_any")
-        repair = ("topo_ids", "slot_of_t", "mi_dense", "anti_dense", "solve_pos")
+        # the inter-pod repair's dense tables are written in the launch from
+        # the term table's own words: the terms a pod matches, its anti
+        # terms, the valid terms
+        repair = ("topo_ids", "slot_of_t", "tm_matches_in", "tm_anti_idx", "tm_valid")
         if features.interpod:
             tabs = tm_keep[1:] if st.extra is not None else tm_keep
             t.update(zip(term_names, tabs[:10]))
@@ -1027,17 +1054,21 @@ class AuctionRun:
             t.update(zip(repair, (
                 _arg(cluster.topo_ids, i32, dev, "topo_ids"),
                 _arg(table.slot, i32, dev, "terms.slot"),
-                _arg(st.mi_dense, b, dev, "mi_dense"),
-                _arg(st.anti_dense, b, dev, "anti_dense"),
-                _arg(st.solve_pos, i32, dev, "solve_pos"))))
-            if (t["mi_dense"].shape != (p, t_dim) or t["anti_dense"].shape != (p, t_dim)
-                    or tm[1] != -(-t_dim // 32)):
+                _arg(table.matches_incoming, i32, dev, "terms.matches_incoming"),
+                _arg(table.anti_idx, i32, dev, "terms.anti_idx"),
+                _arg(table.valid, b, dev, "terms.valid"))))
+            ma = t["tm_anti_idx"].shape[1] if t["tm_anti_idx"].dim() == 2 else 0
+            if (t["tm_matches_in"].shape != (p, tm[1]) or t["tm_anti_idx"].shape != (p, ma)
+                    or ma < 1 or t["tm_valid"].shape != (t_dim,)
+                    or t["slot_of_t"].shape != (t_dim,) or tm[1] != -(-t_dim // 32)):
                 raise ValueError("inter-pod repair tables do not match the batch's axes")
-            ints.update(tm_t=t_dim, tm_tk=cluster.topo_ids.shape[1], tm_z=int(st.tm.z))
+            ints.update(tm_t=t_dim, tm_tk=cluster.topo_ids.shape[1], tm_z=int(st.tm.z),
+                        tm_ma=ma)
         else:
             t.update((k, pad) for k in term_names + repair)
         for k in ("counts_it", "adds", "minc", "kept", "cand", "admit", "minpos", "carrier",
-                  "z_mi", "z_an", "release"):
+                  "z_mi", "z_an", "release", "solve_pos", "mi_dense", "anti_dense",
+                  "gang_flags"):
             t.setdefault(k, pad)
         ptrs = [extra_ptr if k == "extra" else _ptr(t[k]) for k in AUCTION_PTRS]
         self.ints = (ctypes.c_int * len(AUCTION_INTS))(*(int(ints[k]) for k in AUCTION_INTS))
@@ -1055,12 +1086,18 @@ class AuctionRun:
 
     def loop(self) -> None:
         """Every round from state[0] until the flag falls, then the reasons
-        pass on the final state: one launch."""
-        self._run("auction_loop", STAGE["loop"] | STAGE["reasons"])
+        pass on the final state, then the gang post-pass (a batch without
+        gangs skips it on the card): one launch."""
+        self._run("auction_loop", STAGE["loop"] | STAGE["reasons"] | STAGE["gang"])
 
     def reasons_stage(self) -> None:
         """The reasons pass alone on the carries (whatever the flag)."""
         self._run("auction_reasons", STAGE["reasons"])
+
+    def gang_stage(self) -> None:
+        """The gang post-pass alone on the carries and `reasons` (whatever
+        the flag): gang_dropped, and the dropped pods released."""
+        self._run("auction_gang", STAGE["gang"])
 
     def bids(self) -> None:
         """Round state[0]'s bids into bufs["bid"] / bufs["val"]."""
@@ -1107,25 +1144,6 @@ class AuctionRun:
                 self.counts, *(self.bits or (None,) * 3))
 
 
-def auction_release(allocatable, pods, assigned, dropped, requested, nonzero) -> None:
-    """The gang post-pass's subtraction, in place on (requested, nonzero):
-    each node takes off its dropped pods' requests in pod index order
-    (kernel auction_release)."""
-    dev = allocatable.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    for t, what in ((requested, "requested"), (nonzero, "nonzero")):
-        if t.device != dev or t.dtype != f32 or not t.is_contiguous():
-            raise ValueError(f"{what}: updated in place; it must be a contiguous {f32} "
-                             f"tensor on {dev}")
-    keep = [_arg(assigned, i32, dev, "assigned"), _arg(dropped, b, dev, "dropped"),
-            _arg(pods.req, f32, dev, "pods.req"), _arg(pods.nonzero_req, f32, dev,
-                                                         "pods.nonzero_req")]
-    n, r = requested.shape
-    p = keep[0].shape[0]
-    _launch("auction_release", dev, n, r, p, *(_ptr(t) for t in keep), _ptr(requested),
-            _ptr(nonzero))
-
-
 def auction_rounds(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
     """Every round of the auction in one launch (kernel auction_loop: one
     thread-block cluster loops the rounds until the device's flag falls,
@@ -1136,12 +1154,14 @@ def auction_rounds(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
     return auction_solve(cluster, pods, st, tie_k, cfg, max_rounds)[0]
 
 
-def auction_solve(cluster, pods, st, tie_k: int, cfg, max_rounds: int):
-    """auction_rounds' tuple and the reasons pass's i32[P], from the one
-    launch of kernel auction_loop."""
-    run = AuctionRun(cluster, pods, st, tie_k, cfg, max_rounds)
+def auction_solve(cluster, pods, st, tie_k: int, cfg, max_rounds: int, n_groups: int = 0):
+    """auction_rounds' tuple, the reasons pass's i32[P] and gang_dropped
+    bool[P], from the one launch of kernel auction_loop; with n_groups > 0
+    the tuple's assigned, bid_scores, requested and nonzero and the
+    reasons are after the gang post-pass."""
+    run = AuctionRun(cluster, pods, st, tie_k, cfg, max_rounds, n_groups)
     run.loop()
-    return run.result(), run.reasons
+    return run.result(), run.reasons, run.gang_dropped
 
 
 def auction_reasons(cluster, pods, st, assigned, requested, nonzero, sp_counts=None,

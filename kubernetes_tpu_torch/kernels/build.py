@@ -25,8 +25,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 KERNELS = ("match_terms", "class_statics", "greedy_scan", "wavefront", "auction_loop",
-           "auction_release", "class_extras", "partials_eval", "mirror_rows", "slice_stats",
-           "evaluate_single", "preempt_dry_run", "pod_filters", "family_prep")
+           "class_extras", "partials_eval", "mirror_rows", "slice_stats", "evaluate_single",
+           "preempt_dry_run", "pod_filters", "family_prep")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

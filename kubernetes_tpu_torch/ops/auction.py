@@ -26,19 +26,22 @@ least one pod, so the loop ends; `max_rounds` bounds it regardless.
 After the rounds, a staged filter pass names each unplaced pod's reason
 and gangs with an unplaced member release every placement.
 
-On the card the whole round loop is one launch, kernel `auction_loop`:
-one thread-block cluster runs every round — the bids, the acceptance,
-the spread repair and count commit, the anti-affinity repair and term-bit
-commit, the commit — until the device's continue flag falls, with no host
-sync — then, in the same launch, the reasons pass on the final state
-(csrc/auction_common.cuh; the stage entry points `auction_bids`,
-`auction_accept`, `auction_spread`, `auction_interpod` and
-`auction_reasons` launch one stage of the same kernel).  The gang
-post-pass's release is kernel `auction_release`; the spread, inter-pod
-and preferred preps are kernel `family_prep`; the repair's dense term
-tables and the rest of the gang post-pass are elementwise and scatter
-glue in torch; the preferred inter-pod and image extras are one row per
-joint class (kernel `class_extras`), built once.
+On the card the whole solve after the preps is one launch, kernel
+`auction_loop`: one thread-block cluster runs every round — the bids,
+the acceptance, the spread repair and count commit, the anti-affinity
+repair (its dense term tables written in the launch) and term-bit
+commit, the commit — until the device's continue flag falls, with no
+host sync —
+then, in the same launch, the reasons pass on the final state and, with
+gangs, the gang post-pass (csrc/auction_common.cuh; the stage entry
+points `auction_bids`, `auction_accept`, `auction_spread`,
+`auction_interpod`, `auction_reasons` and `auction_gang` launch one stage
+of the same kernel).  auction_assign reads every output of that launch.
+The spread, inter-pod and preferred preps are kernel `family_prep`; the
+preferred inter-pod and image extras are one row per joint class (kernel
+`class_extras`), built once.  On the CPU the same steps are the plain
+twins below: `_rounds_plain` (with the repair's dense tables,
+`repair_tables`), `failure_reasons_plain` and `gang_post_pass_plain`.
 
 The static, resource, gang, spread, inter-pod anti-affinity, preferred
 inter-pod and ImageLocality families are covered; batches with in-batch
@@ -162,11 +165,6 @@ class AuctionStatics(NamedTuple):
     sp: Optional[SpreadArgs] = None  # spread table + prep state (features.spread)
     tm: Optional[TermArgs] = None    # term table + prep state (features.interpod)
     extra: Optional[torch.Tensor] = None  # f32[C, N] each joint class's extras
-    # the anti-affinity repair's dense [P, T] tables (features.interpod):
-    # the valid terms each pod matches, and those it carries as anti terms
-    mi_dense: Optional[torch.Tensor] = None
-    anti_dense: Optional[torch.Tensor] = None
-    solve_pos: Optional[torch.Tensor] = None  # i32[P] each pod's solve position
 
 
 def auction_prep(
@@ -175,8 +173,8 @@ def auction_prep(
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
 ) -> Tuple[ClusterTensors, object, AuctionStatics]:
     """The selector/preferred masks (kernel match_terms), the spec-class
-    static tables (kernel class_statics), the spread and inter-pod preps,
-    the repair's dense term tables and each joint class's extra score row
+    static tables (kernel class_statics), the spread and inter-pod preps
+    and each joint class's extra score row
     (kernel class_extras: the preferred inter-pod row of its constraint
     class's representative normalised over its spec class's static row,
     and that representative's image score) the rounds read.  topo_z:
@@ -198,24 +196,22 @@ def auction_prep(
     k_reps = torch.clamp(pods.cons_rep, 0, p - 1).to(i32)
     order = solve_order(pods)
     tm_args = terms_prep(snapshot, features, z_terms)
-    mi_dense = anti_dense = solve_pos = None
-    if tm_args is not None:
-        mi_dense, anti_dense, solve_pos = repair_tables(tm_args.table, order)
     extra = extras_prep(snapshot, features, cfg, k_reps[jcons.long()], sfeas_s[jspec.long()],
                         z_terms)
     return cluster, pods, AuctionStatics(
         sfeas_s, aff_s, taint_s, s_reps.to(i32), jspec.to(i32), order,
         k_reps, jcons.to(i32), torch.clamp(pods.class_rep, 0, p - 1).to(i32),
         features, spread_prep(snapshot, sel_mask, features, z_spread),
-        tm_args, extra, mi_dense, anti_dense, solve_pos,
+        tm_args, extra,
     )
 
 
 def repair_tables(terms, order: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The anti-affinity repair's dense tables (plain torch on either
-    device): bool[P, T] the valid terms each pod matches, bool[P, T] the
-    valid terms it carries as anti terms, and i32[P] each pod's position
-    in the solve order."""
+    """The anti-affinity repair's dense tables, the plain loop's (on the
+    card kernel auction_loop writes the same tables into its scratch from
+    terms.matches_incoming and terms.anti_idx): bool[P, T] the
+    valid terms each pod matches, bool[P, T] the valid terms it carries as
+    anti terms, and i32[P] each pod's position in the solve order."""
     t_dim = terms.valid.shape[0]
     mi_dense = _unpack_bits_t(terms.matches_incoming, t_dim) & terms.valid[None, :]
     anti_dense = _idx_to_bits(terms.anti_idx, t_dim) & terms.valid[None, :]
@@ -497,13 +493,15 @@ def _term_groups(st: AuctionStatics, topo_pt: torch.Tensor, s: int):
     return table.slot == s, v_p, flat
 
 
-def commit_terms_plain(accept, nodes, st: AuctionStatics, topo_ids, term_bits):
+def commit_terms_plain(accept, nodes, st: AuctionStatics, topo_ids, term_bits, tables):
     """The batched interpod_update: every term an accepted pod matches
     turns present (and global) on each node sharing its bid node's value
     in the term's slot, and every anti term it carries turns blocked there
-    — OR-ed in value space, then mapped back to the nodes and packed."""
+    — OR-ed in value space, then mapped back to the nodes and packed.
+    `tables`: repair_tables' (mi_dense, anti_dense, solve_pos)."""
     table, _, z = st.tm
     t_dim = table.valid.shape[0]
+    mi_dense, anti_dense, _pos = tables
     present, blocked, global_any = term_bits
     topo_pt = topo_ids[nodes]
     for s in used_slots(st.features.term_slots, topo_ids.shape[1]):
@@ -512,8 +510,8 @@ def commit_terms_plain(accept, nodes, st: AuctionStatics, topo_ids, term_bits):
         vcp = torch.clamp(v_p, 0, z - 1).long()
         z_mi = torch.zeros((z, t_dim), dtype=torch.int32, device=nodes.device)
         z_an = torch.zeros_like(z_mi)
-        z_mi.index_add_(0, vcp, (st.mi_dense & rel_t[None, :] & ok_p[:, None]).to(torch.int32))
-        z_an.index_add_(0, vcp, (st.anti_dense & rel_t[None, :] & ok_p[:, None]).to(torch.int32))
+        z_mi.index_add_(0, vcp, (mi_dense & rel_t[None, :] & ok_p[:, None]).to(torch.int32))
+        z_an.index_add_(0, vcp, (anti_dense & rel_t[None, :] & ok_p[:, None]).to(torch.int32))
         z_mi, z_an = z_mi > 0, z_an > 0
         v_n = topo_ids[:, s]
         vn = torch.clamp(v_n, 0, z - 1).long()
@@ -524,12 +522,16 @@ def commit_terms_plain(accept, nodes, st: AuctionStatics, topo_ids, term_bits):
     return present, blocked, global_any
 
 
-def interpod_repair_plain(accept, bid, st: AuctionStatics, topo_ids, term_bits):
+def interpod_repair_plain(accept, bid, st: AuctionStatics, topo_ids, term_bits, tables=None):
     """Plain version of kernel `auction_interpod`: release the round's
     within-round anti-affinity conflicts — in each (term, topology value)
     group holding an accepted CARRIER of the term, only the first accepted
     involved pod (matching or carrying the term) in solve order stays —
-    then commit the kept pods' term bits.  Returns (kept bool[P], bits)."""
+    then commit the kept pods' term bits.  `tables`: repair_tables' output
+    (made here when None).  Returns (kept bool[P], bits)."""
+    if tables is None:
+        tables = repair_tables(st.tm.table, st.order)
+    mi_dense, anti_dense, solve_pos = tables
     table, _, z = st.tm
     t_dim = table.valid.shape[0]
     n = topo_ids.shape[0]
@@ -537,21 +539,21 @@ def interpod_repair_plain(accept, bid, st: AuctionStatics, topo_ids, term_bits):
     nodes = torch.clamp(bid, 0, n - 1).long()
     topo_pt = topo_ids[nodes]
     release = torch.zeros_like(accept)
-    pos_p = st.solve_pos[:, None].expand(p, t_dim)
+    pos_p = solve_pos[:, None].expand(p, t_dim)
     for s in used_slots(st.features.term_slots, topo_ids.shape[1]):
         rel_t, v_p, flat = _term_groups(st, topo_pt, s)
-        involved = ((st.mi_dense | st.anti_dense) & rel_t[None, :]
+        involved = ((mi_dense | anti_dense) & rel_t[None, :]
                     & accept[:, None] & (v_p >= 0)[:, None])
         pos = torch.where(involved, pos_p, _BIG_I)
         minpos = torch.full((z * t_dim,), _BIG_I, dtype=pos.dtype, device=pos.device)
         minpos = minpos.scatter_reduce(0, flat.reshape(-1), pos.reshape(-1), "amin")
-        carrier = (involved & st.anti_dense).to(torch.int32)
+        carrier = (involved & anti_dense).to(torch.int32)
         c_any = torch.zeros(z * t_dim, dtype=torch.int32, device=pos.device)
         c_any = c_any.index_add(0, flat.reshape(-1), carrier.reshape(-1)) > 0
         viol = involved & c_any[flat] & (pos_p > minpos[flat])
         release = release | viol.any(dim=1)
     kept = accept & ~release
-    return kept, commit_terms_plain(kept, nodes, st, topo_ids, term_bits)
+    return kept, commit_terms_plain(kept, nodes, st, topo_ids, term_bits, tables)
 
 
 def _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds):
@@ -567,6 +569,7 @@ def _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds):
     use_spread, use_terms = st.features.spread, st.features.interpod
     counts = st.sp.state.counts_node.clone() if use_spread else None
     bits = term_bits_copy(st.tm, st.features)
+    tables = repair_tables(st.tm.table, st.order) if use_terms else None
     rnd, progress = 0, True
     while rnd < max_rounds and progress and bool(((assigned < 0) & pods.valid).any()):
         bid, val = auction_bids_plain(
@@ -584,7 +587,7 @@ def _rounds_plain(cluster, pods, st, tie_k, cfg, max_rounds):
                 accept, bid, counts, st, cluster.topo_ids,
             )
         if use_terms:
-            accept, bits = interpod_repair_plain(accept, bid, st, cluster.topo_ids, bits)
+            accept, bits = interpod_repair_plain(accept, bid, st, cluster.topo_ids, bits, tables)
         assigned, bid_scores, requested, nonzero = auction_commit_plain(
             pods, accept, bid, val, requested, nonzero, assigned, bid_scores,
         )
@@ -608,9 +611,9 @@ def auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds=64):
 
 
 def gang_release_plain(pods, assigned, dropped, requested, nonzero):
-    """Plain version of the gang post-pass's subtraction (kernel
-    auction_release): (requested, nonzero) less every dropped pod's
-    requests on its node, each node's in pod index order."""
+    """The gang post-pass's subtraction, plain: (requested, nonzero) less
+    every dropped pod's requests on its node, each node's in pod index
+    order (auction_loop's gang stage subtracts in the same order)."""
     n = requested.shape[0]
     tgt = torch.clamp(assigned, 0, n - 1).long()
     w = dropped[:, None].to(pods.req.dtype)
@@ -618,17 +621,26 @@ def gang_release_plain(pods, assigned, dropped, requested, nonzero):
             add_rows(nonzero, tgt, -pods.nonzero_req * w))
 
 
-def gang_release(allocatable, pods, assigned, dropped, requested, nonzero):
-    """Wrapper of the release: the kernel for tensors on the card (on
-    copies of the usage), the plain version for tensors on the CPU."""
-    if requested.device.type == "cpu":
-        return gang_release_plain(pods, assigned, dropped, requested, nonzero)
-    from ..kernels import bindings
-
-    requested = requested.clone().contiguous()
-    nonzero = nonzero.clone().contiguous()
-    bindings.auction_release(allocatable, pods, assigned, dropped, requested, nonzero)
-    return requested, nonzero
+def gang_post_pass_plain(pods, assigned, bid_scores, reasons, requested, nonzero,
+                         n_groups: int):
+    """Plain version of auction_loop's gang stage (the reference's gang
+    post-pass): a gang with an unplaced valid member releases its placed
+    members, whose requests leave their nodes (gang_release_plain), who
+    take assigned -1, bid score -inf and REASON_GANG.  Returns (assigned,
+    bid_scores, reasons, gang_dropped bool[P], requested, nonzero);
+    n_groups == 0 returns the inputs and no drop."""
+    if n_groups <= 0:
+        return (assigned, bid_scores, reasons, torch.zeros_like(pods.valid), requested,
+                nonzero)
+    g = pods.group_id
+    gc = torch.clamp(g, 0, n_groups - 1).long()
+    unplaced = ((assigned < 0) & pods.valid & (g >= 0)).to(torch.int32)
+    incomplete = torch.zeros(n_groups, dtype=torch.int32, device=g.device)
+    incomplete = incomplete.index_add(0, gc, unplaced) > 0
+    dropped = (g >= 0) & incomplete[gc] & (assigned >= 0)
+    requested, nonzero = gang_release_plain(pods, assigned, dropped, requested, nonzero)
+    return (torch.where(dropped, -1, assigned), torch.where(dropped, NEG_INF, bid_scores),
+            torch.where(dropped, REASON_GANG, reasons), dropped, requested, nonzero)
 
 
 def failure_reasons(cluster, pods, st: AuctionStatics, assigned, requested, nonzero,
@@ -699,7 +711,8 @@ def auction_assign(
 ) -> AuctionResult:
     """Jointly assign the pending batch on the device its tensors lie on:
     rounds of (bid → per-node prefix acceptance → commit), then the staged
-    reasons pass and the gang post-pass (n_groups > 0)."""
+    reasons pass and the gang post-pass (n_groups > 0) — on the card all in
+    the one launch of kernel auction_loop."""
     if features is None:
         features = features_of(snapshot)
     if not auction_features_ok(features):
@@ -713,33 +726,21 @@ def auction_assign(
     cluster, pods, st = auction_prep(snapshot, features, topo_z, cfg)
     if cluster.allocatable.device.type == "cpu":
         out = auction_rounds(cluster, pods, st, tie_k, cfg, max_rounds)
-        reasons = failure_reasons_plain(cluster, pods, st, out[0], out[2], out[3], out[5],
-                                        tuple(out[6:]) if features.interpod else None)
+        (assigned, bid_scores, requested, nonzero, rounds, sp_counts, *term_bits) = out
+        term_bits = tuple(term_bits) if features.interpod else None
+        reasons = failure_reasons_plain(cluster, pods, st, assigned, requested, nonzero,
+                                        sp_counts, term_bits)
+        # all-or-nothing groups, after the reasons as in the reference
+        assigned, bid_scores, reasons, gang_dropped, requested, nonzero = gang_post_pass_plain(
+            pods, assigned, bid_scores, reasons, requested, nonzero, n_groups)
     else:
-        # the reasons pass runs in the loop's launch, after its rounds
+        # the rounds, the reasons pass and the gang post-pass: one launch
         from ..kernels import bindings
 
-        out, reasons = bindings.auction_solve(cluster, pods, st, tie_k, cfg, max_rounds)
-    (assigned, bid_scores, requested, nonzero, rounds, sp_counts, *term_bits) = out
-    term_bits = tuple(term_bits) if features.interpod else None
-
-    # gang post-pass: all-or-nothing groups; the release subtracts the
-    # dropped pods' requests from each node in pod index order, as the
-    # reference's masked scatter-add does (on the card: kernel
-    # auction_release)
-    gang_dropped = torch.zeros_like(pods.valid)
-    if n_groups > 0:
-        g = pods.group_id
-        gc = torch.clamp(g, 0, n_groups - 1).long()
-        unplaced = ((assigned < 0) & pods.valid & (g >= 0)).to(torch.int32)
-        incomplete = torch.zeros(n_groups, dtype=torch.int32, device=g.device)
-        incomplete = incomplete.index_add(0, gc, unplaced) > 0
-        gang_dropped = (g >= 0) & incomplete[gc] & (assigned >= 0)
-        requested, nonzero = gang_release(
-            cluster.allocatable, pods, assigned, gang_dropped, requested, nonzero)
-        assigned = torch.where(gang_dropped, -1, assigned)
-        bid_scores = torch.where(gang_dropped, NEG_INF, bid_scores)
-        reasons = torch.where(gang_dropped, REASON_GANG, reasons)
+        out, reasons, gang_dropped = bindings.auction_solve(cluster, pods, st, tie_k, cfg,
+                                                            max_rounds, n_groups)
+        (assigned, bid_scores, requested, nonzero, rounds, sp_counts, *term_bits) = out
+        term_bits = tuple(term_bits) if features.interpod else None
 
     final = cluster._replace(requested=requested, nonzero_requested=nonzero)
     return AuctionResult(assigned, bid_scores, rounds, gang_dropped, final, reasons,

@@ -71,8 +71,10 @@ def _binding_kinds(argtypes):
 
 
 @pytest.mark.parametrize("name", ["match_terms", "class_statics", "greedy_scan",
-                                  "wavefront", "auction_loop", "auction_release",
-                                  "preempt_dry_run", "pod_filters", "family_prep"])
+                                  "wavefront", "auction_loop", "class_extras",
+                                  "partials_eval", "mirror_rows", "slice_stats",
+                                  "evaluate_single", "preempt_dry_run", "pod_filters",
+                                  "family_prep"])
 def test_launch_signatures_match_bindings(name):
     from kubernetes_tpu_torch.kernels import bindings
 
