@@ -27,7 +27,11 @@ stdout; with --log also appended to PATH):
              the CPU, among them a gang released past float32's exact
              range: the gang stage inside the one auction_loop launch, and
              the stage alone timed with its bound, PG);
-             class_extras on the scan's and the auction's pairs
+             class_extras on the scan's and the auction's pairs;
+             class_statics (the cold statics prep in one launch) with and
+             without the selector mask against match_rows_plain +
+             class_statics_plain, and match_terms (the masks-only entry)
+             on both tables, on every batch
   overlay    the reservations overlay on the card against the CPU: twelve
              nominated pods with requests that are not whole MiB on a node
              already past float32's exact range, two on another; the
@@ -97,7 +101,9 @@ stdout; with --log also appended to PATH):
              variant pods (spread, soft spread, anti-affinity, preferred
              affinity, image) and a shaped pod on a c10 slice cluster under
              both policies; requests/s; evaluate_single timed at 8,192
-             padded nodes
+             padded nodes; the basic window's launches exactly one
+             class_statics and one evaluate_single a request, no
+             match_terms
   proto      one SolveRequest of 1,000 pods onto 5,000 nodes over the
              socket to the card's proto service (the auction, cold), the
              response equal to the CPU backend's
@@ -152,7 +158,10 @@ stdout; with --log also appended to PATH):
              the bound of its work on this run's data (partials_eval over
              every column and over 500, mirror_rows for a 500-row usage and
              a 64-row static delta, with index_copy_ a leaf as its library
-             call; the plain-torch gather, grows and packed copy)
+             call; the plain-torch gather, grows and packed copy;
+             class_statics, the one-launch cold prep, at B and match_terms,
+             the masks-only entry, at B and W, each the card's time behind
+             a spin with the host clock of the call beside it)
   small      SchedulingBasic/500Nodes on the card against the plain path on
              the CPU, default route: identical placements and scores
   north      one 10,000-pod batch onto 50,000 nodes (the auction: one
@@ -183,7 +192,10 @@ stdout; with --log also appended to PATH):
              entries at 65,536 padded nodes (2,000 bound color=red pods
              with preferred terms, a batch with hostname and zone spread
              rows, a zone anti-affinity term and the preferred term)
-             against their plain twins on the card and on CPU copies
+             against their plain twins on the card and on CPU copies; the
+             wavefront batches' cold statics prep (class_statics, with and
+             without the selector mask) at both widths against its plain
+             twin on CPU copies
   breakers   once, after every phase above (none arms a fault; the
              counters only count up): every scheduler built so far has its
              circuit breaker closed, no trip, no host fallback and no
@@ -219,18 +231,23 @@ In every part of main, greedy, wavefront, spread, interpod, extras,
 slices, extender, proto, resident, north and gang the launch counters are reset
 just before the part and
 read just after; the kernels expected are derived from the batches the
-part's schedulers encoded (route_kernels): the route's own — warm statics
-drop match_terms (kept for the spread family's selector mask) and
-class_statics —, the families' (family_prep once a family a batch,
+part's schedulers encoded (route_kernels): the route's own — a cold batch
+launches class_statics (its whole statics prep, the spread family's
+selector mask included) and no match_terms; warm statics drop
+class_statics and launch match_terms for the spread family's selector
+mask —, the families' (family_prep once a family a batch,
 class_extras with preferred inter-pod terms or images, slice_stats after
 a slice batch's scan) and the residents' (partials_eval, mirror_rows,
 each launched exactly as often as the residents recorded); every
 auction batch launches auction_loop exactly once — its reasons pass and
-its gang post-pass inside — and no stage entry point; and no card path
+its gang post-pass inside — and no stage entry point; every dispatch
+with a cold statics prep (every auction batch, a scan or wavefront batch
+without warm statics) launches class_statics exactly once (check_cold_preps;
+not in the windows that arm a fault); and no card path
 calls a plain twin of a ported prep, of the reasons pass, of the gang
 post-pass or of the repair's dense tables (install_plain_counters:
-"plain:<name>" counters held to 0 by the same check); the extender's windows expect match_terms,
-class_statics and evaluate_single (one fused launch a request of the
+"plain:<name>" counters held to 0 by the same check); the extender's windows expect
+class_statics (exactly one a request, no match_terms) and evaluate_single (one fused launch a request of the
 basic pod), with class_extras for the variants, and the proto request the
 cold auction's.
 Each part fails unless every expected kernel was launched and no other.
@@ -377,7 +394,8 @@ FAMILY_REPLACES = {"spread": "kubernetes_tpu/ops/topology.py:50",
 # so every launch check also holds them to 0)
 PLAIN_TWINS = (("topology", "prep_spread_plain"), ("interpod", "prep_terms_plain"),
                ("interpod", "prep_pref_pod_plain"), ("auction", "failure_reasons_plain"),
-               ("auction", "repair_tables"), ("auction", "gang_post_pass_plain"))
+               ("auction", "repair_tables"), ("auction", "gang_post_pass_plain"),
+               ("assign", "class_statics_plain"), ("filters", "match_rows_plain"))
 
 def install_plain_counters(bindings, torch) -> None:
     """Wrap each plain twin of PLAIN_TWINS in its module so that a call
@@ -412,19 +430,20 @@ def install_plain_counters(bindings, torch) -> None:
         setattr(mod, name, counted)
 
 
-# the kernels each route launches with cold statics (match_terms and
-# class_statics: all); route_kernels derives a batch's kernels from its
-# meta: warm statics (the partials) drop match_terms and class_statics
-# (match_terms stays with the spread family), the families add theirs, and
+# the kernels each route launches with cold statics (class_statics: the
+# whole cold prep, its rows and the spread family's selector mask, in one
+# launch); route_kernels derives a batch's kernels from its meta: warm
+# statics (the partials) drop class_statics (match_terms makes the spread
+# family's selector mask then), the families add theirs, and
 # the residents' recorded launches add partials_eval and mirror_rows.  The
 # auction is one launch of auction_loop a batch, its repairs inside; its
 # stage entry points (bindings.AUCTION_STAGES: auction_bids,
 # auction_accept's acceptance and commit, auction_spread, auction_interpod;
 # run_auction's round-by-round check launches them alone) run on no path
-_AUCTION = ("match_terms", "class_statics", "auction_loop")
+_AUCTION = ("class_statics", "auction_loop")
 ROUTE_KERNELS = {
-    "greedy": ("match_terms", "class_statics", "greedy_scan"),
-    "wavefront": ("match_terms", "class_statics", "wavefront"),
+    "greedy": ("class_statics", "greedy_scan"),
+    "wavefront": ("class_statics", "wavefront"),
     "auction": _AUCTION,
 }
 # kernels the residents launch while a batch is encoded
@@ -620,47 +639,80 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def match_terms_need(n: int, expr_ids, expr_op, expr_slot, term_valid, torch) -> tuple:
-    """(bytes, operations) one match_terms launch needs on this data: the
-    table, the output, and per node the label words and topology ids that
-    the valid expressions test (two integer operations per tested id)."""
+def _live_ids(expr_ids, expr_op, expr_slot, term_valid, torch) -> tuple:
+    """(label word indices, topology slots, expanded ids) that the valid
+    expressions of a table test."""
     live = term_valid[:, :, None] & ((expr_op == 1) | (expr_op == 2))
     ids = expr_ids[live]                      # [M, K]
     slots = expr_slot[live]                   # [M]
     label = ids[(slots < 0)[:, None].expand_as(ids) & (ids >= 0)]
-    words = int(torch.unique(label >> 5).numel()) if label.numel() else 0
-    topo = int(torch.unique(slots[slots >= 0]).numel())
+    return label >> 5, slots[slots >= 0], int((ids != -1).sum())
+
+
+def match_terms_need(n: int, expr_ids, expr_op, expr_slot, term_valid, torch) -> tuple:
+    """(bytes, operations) one match_terms launch needs on this data: the
+    table, the output, and per node the label words and topology ids that
+    the valid expressions test (two integer operations per tested id)."""
+    words, topo, ids = _live_ids(expr_ids, expr_op, expr_slot, term_valid, torch)
     need = (nbytes(expr_ids, expr_op, expr_slot, term_valid)
-            + n * 4 * (words + topo) + term_valid.shape[0] * n)
-    ops = n * int((ids != -1).sum()) * 2
-    return need, ops
+            + n * 4 * (int(torch.unique(words).numel()) + int(torch.unique(topo).numel()))
+            + term_valid.shape[0] * n)
+    return need, n * ids * 2
+
+
+def cold_statics_need(cluster, pods, sel, pref, reps, want_sel_mask: bool, torch) -> tuple:
+    """(bytes, operations) one class_statics launch (the cold prep) needs
+    on this data: the table rows it evaluates (those the classes name, and
+    every selector row with the mask asked for) and, per node, the label
+    words and topology ids their valid expressions test, read once for
+    both tables; class_statics_need's class side; the selector mask
+    written when asked for."""
+    n = cluster.node_valid.shape[0]
+    r = reps.long()
+    s_rows = sel.term_valid.shape[0]
+    f_rows = pref.valid.shape[0]
+    si = pods.sel_idx[r]
+    si = torch.clamp(si[si >= 0], max=s_rows - 1)
+    sel_used = torch.arange(s_rows, device=si.device) if want_sel_mask else torch.unique(si)
+    pi = pods.pref_idx[r]
+    pref_used = torch.unique(torch.clamp(pi[pi >= 0], max=f_rows - 1))
+    tabs = [(sel.expr_ids[sel_used], sel.expr_op[sel_used], sel.expr_slot[sel_used],
+             sel.term_valid[sel_used]),
+            (pref.expr_ids[pref_used][:, None], pref.expr_op[pref_used][:, None],
+             pref.expr_slot[pref_used][:, None], pref.valid[pref_used][:, None])]
+    words, topo, ids = [], [], 0
+    for t in tabs:
+        w, tp, k = _live_ids(*t, torch)
+        words.append(w)
+        topo.append(tp)
+        ids += k
+    node_words = (int(torch.unique(torch.cat(words)).numel())
+                  + int(torch.unique(torch.cat(topo)).numel()))
+    class_bytes, class_ops = class_statics_need(cluster, pods, reps, torch)
+    need = (sum(nbytes(*t) for t in tabs) + n * 4 * node_words + class_bytes
+            + (s_rows * n if want_sel_mask else 0))
+    return need, n * ids * 2 + class_ops
 
 
 def class_statics_need(cluster, pods, reps, torch) -> tuple:
-    """(bytes, operations) one class_statics launch needs on this data: the
-    representatives' pod fields; per node the valid byte, the name id only
-    where a class pins a node, the taint words of each effect that some
-    class does not tolerate wholesale, the port words that some class
-    claims (a zero claim word conflicts with nothing), one byte of each
-    selector and preferred mask row a class reads; the three [C, N]
+    """(bytes, operations) of the class side of the statics on this data:
+    the representatives' pod fields; per node the valid byte, the name id
+    only where a class pins a node, the taint words of each effect that
+    some class does not tolerate wholesale, the port words that some class
+    claims (a zero claim word conflicts with nothing); the three [C, N]
     outputs.  Two integer operations a tested word or live term."""
     n = cluster.node_valid.shape[0]
     c = reps.shape[0]
     r = reps.long()
     tw = cluster.taint_bits.shape[2]
-    mt = pods.pref_idx.shape[1]
     pod_bytes = nbytes(reps, pods.valid[r], pods.name_id[r], pods.sel_idx[r],
                        pods.tol_bits[:, r], pods.tol_all[:, r], pods.port_bits[r],
                        pods.pref_idx[r], pods.pref_weight[r])
     effects = int((~pods.tol_all[:, r]).any(dim=1).sum())
     port_words = int((pods.port_bits[r] != 0).any(dim=0).sum())
-    sel = pods.sel_idx[r]
-    sel_rows = int(torch.unique(sel[sel >= 0]).numel())
-    pref = pods.pref_idx[r]
-    live_pref = pref >= 0
-    pref_rows = int(torch.unique(pref[live_pref]).numel())
+    live_pref = pods.pref_idx[r] >= 0
     names = n * 4 if bool((pods.name_id[r] != -1).any()) else 0
-    node_bytes = n * (1 + 4 * effects * tw + 4 * port_words + sel_rows + pref_rows) + names
+    node_bytes = n * (1 + 4 * effects * tw + 4 * port_words) + names
     need = pod_bytes + node_bytes + c * n * 9
     per_class = (2 * tw * int((~pods.tol_all[:, r]).sum())
                  + 2 * port_words * c + 2 * int(live_pref.sum()) + 8 * c)
@@ -998,17 +1050,19 @@ def bound(need_bytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def drive_phase(name, fn, bindings, scheds, extra=()):
+def drive_phase(name, fn, bindings, scheds, extra=(), armed=False):
     """Run fn() with every launch counter at 0 and check the counters just
     after against the batches `scheds` (recording schedulers) encoded
     meanwhile: every kernel their routes, families and residents launch
     (route_kernels), and the kernels of `extra`, was launched and no other,
     and each resident kernel exactly as many times as the residents
-    recorded."""
+    recorded; unless a fault is `armed`, class_statics exactly once a
+    dispatch with a cold statics prep (its whole prep in one launch)."""
     import torch
 
     marks = [len(s.metas) for s in scheds]
     solves = [s.auction_solves for s in scheds]
+    preps = [s.cold_preps for s in scheds]
     torch.cuda.synchronize()
     bindings.reset_launches()
     out = fn()
@@ -1024,7 +1078,18 @@ def drive_phase(name, fn, bindings, scheds, extra=()):
                                  f"the residents recorded {want}")
     check_auction_launches(name, launches,
                            sum(s.auction_solves - k for s, k in zip(scheds, solves)))
+    if not armed:
+        check_cold_preps(name, launches, sum(s.cold_preps - k for s, k in zip(scheds, preps)))
     return out, launches
+
+
+def check_cold_preps(name, launches, preps: int) -> None:
+    """One class_statics launch a cold statics prep (a request's, or a
+    dispatched batch's: every auction batch, a scan or wavefront batch
+    without warm statics)."""
+    if launches["class_statics"] != preps:
+        raise AssertionError(f"phase {name}: class_statics launched "
+                             f"{launches['class_statics']} times for {preps} cold statics preps")
 
 
 def check_auction_launches(name, launches, batches: int) -> None:
@@ -1260,6 +1325,15 @@ def main() -> int:
         assign, filters, bindings, torch, timed=True,
     )
     snap_w, meta_w = wave["snap"]
+    # the masks-only entry and the cold prep at W (a 32-row selector table,
+    # one valid row)
+    err_w, _sm, _pm = check_match_terms("match_terms (W)", snap_w.cluster, snap_w.selectors,
+                                        filters, bindings, torch, snap_w.preferred)
+    summary.append(dict(masks_row(snap_w.cluster, snap_w.selectors, err_w, filters, bindings,
+                                  torch), shape="W"))
+    check_statics("class_statics (W)", snap_w,
+                  torch.clamp(snap_w.pods.class_rep, 0, snap_w.pods.req.shape[0] - 1), assign,
+                  bindings, torch)
     summary.append(dict(run_wavefront(
         snap_w, meta_w.features, meta_w.n_groups, wsched.score_config,
         meta_w.wave_plan.members, assign, bindings, torch, timed=True,
@@ -1267,7 +1341,10 @@ def main() -> int:
     summary.extend(dict(r, shape="B") if r["name"] in ("auction_loop", "auction_reasons") else r
                    for r in run_auction(snap_k, sched.score_config, meta_k.tie_k, auction,
                                         bindings, torch, timed=True))
-    launches_of = {"greedy_scan": greedy_launches, "wavefront": wave_launches}
+    # match_terms runs on no auction batch: its rows take the preemption
+    # phase's launches (one a pass, and the per-pod static rows)
+    launches_of = {"greedy_scan": greedy_launches, "wavefront": wave_launches,
+                   "match_terms": preempt["launches"]}
     for row in summary:
         row["launches"] = stage_launches(row["name"], launches_of.get(row["name"], main_launches))
     # the auction program and its reasons stage on the spread (T) and
@@ -1304,7 +1381,17 @@ def main() -> int:
           "greedy_scan_blocks_threads": {
               shape: bindings.scan_shape(n)
               for shape, n in (("B", snap_k.cluster.allocatable.shape[0]), ("C", 64 * 64))},
-          "shapes": {"match_terms, class_statics, auction_bids, auction_accept":
+          "shapes": {"class_statics": "B: SchedulingBasic/5000Nodes measured batch, the "
+                                      "cold statics prep in one launch (no mask), the "
+                                      "card's time behind a spin and the host clock of the "
+                                      "call; launches: the main phase's (one an auction "
+                                      "batch)",
+                     "match_terms": "the masks-only entry on the selector table, B: "
+                                    "SchedulingBasic/5000Nodes measured batch (one pad "
+                                    "row), W: SchedulingNodeAffinity/5000Nodes first "
+                                    "measured batch (32 rows, one valid); launches: "
+                                    "PreemptionBasic/5000Nodes (no auction batch runs it)",
+                     "auction_bids, auction_accept":
                      "SchedulingBasic/5000Nodes measured batch (the auction's stages: one "
                      "round at round 0, each launched alone; no path launches them)",
                      "auction_loop": "B: SchedulingBasic/5000Nodes measured batch; T: "
@@ -1556,8 +1643,9 @@ def parity_phase(wrappers, assign, auction, dv, filters, bindings, torch) -> dic
     gang_card = auction.auction_assign(dv.to_device(snap, "cuda"), n_groups=schema.num_groups(snap))
     torch.cuda.synchronize()
     gang_launches = dict(bindings.LAUNCHES)
-    check_launches("parity/gang", gang_launches, {"match_terms", "class_statics", "auction_loop"})
+    check_launches("parity/gang", gang_launches, {"class_statics", "auction_loop"})
     check_auction_launches("parity/gang", gang_launches, 1)
+    check_cold_preps("parity/gang", gang_launches, 1)
     gang_cpu = auction.auction_assign(dv.to_device(snap, "cpu"), n_groups=schema.num_groups(snap))
     if not bool(gang_cpu.gang_dropped.any()):
         raise AssertionError("parity: the fractional gang case released no gang")
@@ -2008,9 +2096,10 @@ def solve_route(route, snap, meta, assign, auction, cfg, statics=None):
 
 
 def route_kernels(meta) -> set:
-    """The kernels a batch launches, from its meta: the route's own; with
-    warm statics (meta.statics, the resident partials) no class_statics and
-    no match_terms unless the spread family needs the selector mask;
+    """The kernels a batch launches, from its meta: the route's own (cold:
+    class_statics, no match_terms); with warm statics (meta.statics, the
+    resident partials) no class_statics, and match_terms when the spread
+    family needs the selector mask;
     class_extras with preferred inter-pod terms or images; family_prep with
     the spread, inter-pod or preferred inter-pod family (one launch a
     family); and the kernels the residents launched while encoding it."""
@@ -2019,7 +2108,7 @@ def route_kernels(meta) -> set:
     if f.spread or f.interpod or f.interpod_pref:
         kernels.add("family_prep")
     if meta.statics is not None:
-        kernels -= {"match_terms", "class_statics"}
+        kernels.discard("class_statics")
         if f.spread:
             kernels.add("match_terms")
     kernels |= {k for k, v in (meta.resident_launches or {}).items() if v}
@@ -2375,6 +2464,8 @@ def extras_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
     # measured batch's shapes, timed
     snap, meta = recs[1]["snap"], recs[1]["meta"]
     _cl, _pods, st = auction.auction_prep(snap, meta.features, meta.topo_split, cfg)
+    # the auction's cold statics prep (P) against the plain prep
+    check_statics("class_statics (P)", snap, st.s_reps, assign, bindings, torch)
     pairs = (st.k_reps[st.jcons.long()], st.sfeas_s[st.jspec.long()])
     ext = run_class_extras(snap, meta.features, cfg, *pairs, assign, bindings, torch, timed=True)
     row = dict(ext["row"], launches=launches["class_extras"])
@@ -2864,36 +2955,18 @@ def _meta_of(snap, assign, auction, schema):
 
 def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
                 timed: bool = False):
-    """Run the three kernels of the greedy route on a snapshot on the card
+    """Run the kernels of the greedy route on a snapshot on the card —
+    class_statics (the cold prep, with and without the selector mask),
+    greedy_scan, and match_terms (the masks-only entry) on both tables —
     and hold each against its plain version on the same inputs.  With
     timed=True also time kernel and plain version and work out each
-    kernel's bound."""
+    kernel's bound (match_terms on the selector table)."""
     cluster, pods, sel, pref = snap[:4]
-    pref_rows = (pref.expr_ids[:, None], pref.expr_op[:, None],
-                 pref.expr_slot[:, None], pref.valid[:, None])
-    sel_rows = (sel.expr_ids, sel.expr_op, sel.expr_slot, sel.term_valid)
     rows = []
-
-    def k1():
-        return (bindings.match_terms(cluster.label_bits, cluster.topo_ids, *sel_rows),
-                bindings.match_terms(cluster.label_bits, cluster.topo_ids, *pref_rows))
-
-    def p1():
-        return (filters.match_rows_plain(cluster, *sel_rows),
-                filters.match_rows_plain(cluster, *pref_rows))
-
-    sel_mask, pref_mask = k1()
-    err1 = check_equal("match_terms", (sel_mask, pref_mask), p1(), torch)
+    err1, sel_mask, _ = check_match_terms("match_terms", cluster, sel, filters, bindings, torch,
+                                          pref)
     reps = torch.clamp(pods.class_rep, 0, pods.req.shape[0] - 1)
-
-    def k2():
-        return bindings.class_statics(cluster, pods, sel_mask, pref_mask, reps)
-
-    def p2():
-        return assign.class_statics_plain(cluster, pods, sel_mask, pref_mask, reps)
-
-    statics = k2()
-    err2 = check_equal("class_statics", statics, p2(), torch)
+    err2, statics = check_statics("class_statics", snap, reps, assign, bindings, torch)
     order = assign.solve_order(pods)
     sp_args = assign.spread_prep(snap, sel_mask, features)
     tm_args = assign.terms_prep(snap, features)
@@ -2922,26 +2995,93 @@ def run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
         rows.append(extras["row"])
     if not timed:
         return rows
-    k1_ms = cuda_ms(k1, 50, torch)
-    p1_ms = cuda_ms(p1, 10, torch)
-    k2_ms = cuda_ms(k2, 50, torch)
-    p2_ms = cuda_ms(p2, 10, torch)
+    rows.append(dict(masks_row(cluster, sel, err1, filters, bindings, torch), shape="B"))
+    rows.append(dict(statics_row(snap, reps, err2, assign, filters, bindings, torch),
+                     shape="B"))
     k3_ms = cuda_ms(k3, 3, torch)
-    n = cluster.label_bits.shape[0]
-    b1 = [match_terms_need(n, *sel_rows, torch), match_terms_need(n, *pref_rows, torch)]
-    need1 = (sum(x[0] for x in b1), sum(x[1] for x in b1))
-    need2 = class_statics_need(cluster, pods, reps, torch)
     need3 = greedy_scan_need(cluster, pods, statics[0], out[2], features, torch, sp_args,
                              tm_args, extra, out[0])
-    for name, err, ms, pms, need in (
-        ("match_terms", err1, k1_ms, p1_ms, need1),
-        ("class_statics", err2, k2_ms, p2_ms, need2),
-        ("greedy_scan", err3, k3_ms, plain3_ms, need3),
-    ):
-        bms, by = bound(*need)
-        rows.append({"name": name, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                     "bound_ms": bms, "bound_by": by})
+    bms, by = bound(*need3)
+    rows.append({"name": "greedy_scan", "max_abs_err": err3, "ms": k3_ms, "plain_ms": plain3_ms,
+                 "bound_ms": bms, "bound_by": by})
     return rows
+
+
+def table_rows(table) -> tuple:
+    """(expr_ids, expr_op, expr_slot, term_valid) of a selector table
+    [S, T, E, K], or of a preferred table [F, E, K] as T = 1."""
+    if hasattr(table, "term_valid"):
+        return table.expr_ids, table.expr_op, table.expr_slot, table.term_valid
+    return (table.expr_ids[:, None], table.expr_op[:, None], table.expr_slot[:, None],
+            table.valid[:, None])
+
+
+def check_match_terms(tag, cluster, sel, filters, bindings, torch, pref=None) -> tuple:
+    """Kernel match_terms (the masks-only entry) on the selector table, and
+    on the preferred table when given, against match_rows_plain, exact.
+    Returns (error, the plain selector mask, the plain preferred mask or
+    None)."""
+    nodes = (cluster.label_bits, cluster.topo_ids)
+    tables = [sel] + ([pref] if pref is not None else [])
+    got = tuple(bindings.match_terms(*nodes, *table_rows(t)) for t in tables)
+    want = tuple(filters.match_rows_plain(cluster, *table_rows(t)) for t in tables)
+    err = check_equal(tag, got, want, torch)
+    return err, want[0], (want[1] if pref is not None else None)
+
+
+def check_statics(tag, snap, reps, assign, bindings, torch, on_cpu=False) -> tuple:
+    """Kernel class_statics (the cold statics prep in one launch) on a
+    snapshot on the card, with and without the selector mask, against the
+    plain prep on the same inputs — match_rows_plain's masks, then
+    class_statics_plain — (on CPU copies with on_cpu), every field,
+    exact.  Returns (error, the tables without the mask)."""
+    from kubernetes_tpu_torch.ops import filters
+
+    cluster, pods, sel, pref = snap[:4]
+    got = bindings.class_statics(cluster, pods, sel, pref, reps, want_sel_mask=True)
+    bare = bindings.class_statics(cluster, pods, sel, pref, reps)
+    if bare[3] is not None:
+        raise AssertionError(f"{tag}: a selector mask nobody asked for")
+    c, p, s, f, r = cpu_args((cluster, pods, sel, pref, reps), torch) if on_cpu else (
+        cluster, pods, sel, pref, reps)
+    sm = filters.match_rows_plain(c, *table_rows(s))
+    want = (*assign.class_statics_plain(c, p, sm, filters.match_rows_plain(c, *table_rows(f)),
+                                        r), sm)
+    err = check_equal(f"{tag} (with the selector mask)", got, want, torch)
+    return max(err, check_equal(tag, bare[:3], want[:3], torch)), bare[:3]
+
+
+def masks_row(cluster, table, err, filters, bindings, torch) -> dict:
+    """match_terms' summary row on one table: the card's time of the call
+    alone and the host clock of the call (launch_ms), the plain version's
+    time (events over 10 calls), the bound on this data."""
+    rows = table_rows(table)
+    ms, host_ms = launch_ms(lambda: bindings.match_terms(cluster.label_bits, cluster.topo_ids,
+                                                         *rows), lambda: None, 50, torch)
+    b_ms, by = bound(*match_terms_need(cluster.label_bits.shape[0], *rows, torch))
+    return {"name": "match_terms", "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": cuda_ms(lambda: filters.match_rows_plain(cluster, *rows), 10, torch),
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def statics_row(snap, reps, err, assign, filters, bindings, torch) -> dict:
+    """class_statics' summary row: the cold prep's one launch without the
+    mask, the card's time alone and the host clock of the call
+    (launch_ms), the plain prep's time (both masks and
+    class_statics_plain, events over 10 calls), the bound on this data."""
+    cluster, pods, sel, pref = snap[:4]
+    ms, host_ms = launch_ms(lambda: bindings.class_statics(cluster, pods, sel, pref, reps),
+                            lambda: None, 50, torch)
+
+    def plain():
+        return assign.class_statics_plain(
+            cluster, pods, filters.match_rows_plain(cluster, *table_rows(sel)),
+            filters.match_rows_plain(cluster, *table_rows(pref)), reps)
+
+    b_ms, by = bound(*cold_statics_need(cluster, pods, sel, pref, reps, False, torch))
+    return {"name": "class_statics", "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": cuda_ms(plain, 10, torch), "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None}
 
 
 # ---- the inputs of the timed shapes (kernel_ab.py builds from these too) ----
@@ -3081,6 +3221,17 @@ def single_snapshot(wrappers, TorchBatchScheduler, preferred: bool):
            else make_pods(wrappers, 1, "ext-req")[0])
     snap, _meta = sched.builder.build_from_state(sched.state, [pod])
     return dv.to_device(snap, "cuda"), assign.features_of(snap)
+
+
+def c5_snapshot(wrappers, TorchBatchScheduler):
+    """Shape G: bench.py c5's first batch (10,000 pods in 100 gangs onto
+    50,000 32-CPU nodes; 16,384 and 65,536 padded) as the gang phase's
+    TorchBatchScheduler(mode="auto") encodes it.  Returns (scheduler,
+    snapshot, meta)."""
+    sched = TorchBatchScheduler(mode="auto")
+    for node in c5_nodes(wrappers, C5[0]):
+        sched.add_node(node)
+    return (sched, *sched.encode_pending(c5_pods(wrappers, "shape-g")))
 
 
 def wide_snapshot(wrappers, TorchBatchScheduler, n_pods: int):
@@ -3309,8 +3460,10 @@ def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bi
     pod-default pod (E: the fused launch) and one with a preferred
     inter-pod term (E+: filter, class_extras, score) through
     evaluate_single against its plain versions and the plain path on a CPU
-    copy.  Then on `big` kernel family_prep, every entry, against its plain
-    twins on a CPU copy (family_z_check)."""
+    copy; the wavefront batch's cold statics prep (class_statics, with and
+    without the selector mask) against its plain twin on CPU copies.  Then
+    on `big` kernel family_prep, every entry, against its plain twins on a
+    CPU copy (family_z_check)."""
     from kubernetes_tpu_torch.testing.cases import preferred_affinity_objects
 
     mid = TorchBatchScheduler()
@@ -3324,6 +3477,9 @@ def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bi
             raise AssertionError(f"wide_edges: a {WIDE_WAVE_PODS}-pod batch took {meta.route}")
         fallbacks = run_wavefront(snap, meta.features, meta.n_groups, sched.score_config,
                                   meta.wave_plan.members, assign, bindings, torch)
+        check_statics(f"class_statics ({n_pad} padded nodes)", snap,
+                      torch.clamp(snap.pods.class_rep, 0, snap.pods.req.shape[0] - 1), assign,
+                      bindings, torch, on_cpu=True)
         for preferred in (False, True):
             pod = (preferred_affinity_objects(wrappers, 1, 0, 1)[2][0] if preferred
                    else make_pods(wrappers, 1, f"edge-one{k}")[0])
@@ -3508,6 +3664,11 @@ def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, 
     whole, empty = gang_groups(dpods, dnames)
     check_result_capacity("gang/drops", res)
     dsnap, dmeta = sched.encode_pending(dpods)
+    # its cold statics prep (G: 65,536 padded nodes, a label selector with
+    # the 32-row floor) against the plain prep on the card
+    check_statics("class_statics (G)", dsnap,
+                  torch.clamp(dsnap.pods.spec_rep, 0, dsnap.pods.req.shape[0] - 1), assign,
+                  bindings, torch)
     dwant = solve_route("auction", cpu_copy(dsnap), dmeta, assign, auction, sched.score_config)
     check_equal("gang/drops (card against the plain path on the CPU)",
                 result_fields(res, True), result_fields(dwant, False), torch)
@@ -3562,6 +3723,7 @@ def recording(cls):
             super().__init__(*args, **kw)
             self.metas = []
             self.auction_solves = 0   # auction batches dispatched to the card
+            self.cold_preps = 0       # dispatches with a cold statics prep
             SCHEDULERS.append(self)
 
         def encode_pending(self, *args, **kw):
@@ -3571,6 +3733,9 @@ def recording(cls):
 
         def _dispatch(self, snap, meta):
             self.auction_solves += meta.route == "auction"
+            # on the card; the auction never takes warm statics
+            self.cold_preps += self.device.type == "cuda" and (
+                meta.route == "auction" or meta.statics is None)
             return super()._dispatch(snap, meta)
 
     return Recorded
@@ -3966,9 +4131,10 @@ def run_evaluate_single(snap, features, cfg, assign, bindings, torch, timed: boo
     host clock around the same calls beside the CUDA-event time."""
     topo_z = assign.required_topo_z(snap) if assign.needs_topo(features) else 1
     cluster, pods, sel, pref = snap[:4]
-    sel_mask, pref_mask = assign.selector_match(cluster, sel), assign.preferred_match(cluster, pref)
     reps = torch.zeros(1, dtype=torch.int32, device=cluster.allocatable.device)
-    sfeas, aff, taint = bindings.class_statics(cluster, pods, sel_mask, pref_mask, reps)
+    check_statics("class_statics (one pod)", snap, reps, assign, bindings, torch, on_cpu=True)
+    sfeas, aff, taint, sel_mask = bindings.class_statics(cluster, pods, sel, pref, reps,
+                                                         want_sel_mask=features.spread)
     sp_args = assign.spread_prep(snap, sel_mask, features, topo_z)
     tm_args = assign.terms_prep(snap, features, topo_z)
 
@@ -4291,12 +4457,12 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         basic_launches = dict(bindings.LAUNCHES)
-        check_launches("extender", basic_launches, {"match_terms", "class_statics",
-                                                    "evaluate_single"})
-        if basic_launches["evaluate_single"] != 2 * n_req:
-            raise AssertionError(f"extender: evaluate_single launched "
-                                 f"{basic_launches['evaluate_single']} times for {2 * n_req} "
-                                 "requests")
+        check_launches("extender", basic_launches, {"class_statics", "evaluate_single"})
+        # a request's cold statics prep is one class_statics launch, no match_terms
+        for k in ("evaluate_single", "class_statics"):
+            if basic_launches[k] != 2 * n_req:
+                raise AssertionError(f"extender: {k} launched {basic_launches[k]} times for "
+                                     f"{2 * n_req} requests")
         check("basic", got)
         placed = sum(len(f["NodeNames"]) for _b, f, _p in got)
         # variant pods over HTTP: the families evaluate_single covers
@@ -4361,8 +4527,7 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
         torch.cuda.synchronize()
         variant_launches = dict(bindings.LAUNCHES)
         check_launches("extender/variants", variant_launches,
-                       {"match_terms", "class_statics", "evaluate_single", "class_extras",
-                        "family_prep"})
+                       {"class_statics", "evaluate_single", "class_extras", "family_prep"})
         check("variants", got)
         # the timed kernel at SchedulingBasic/5000Nodes (8,192 padded nodes)
         be = backends["cuda"]
@@ -4430,6 +4595,7 @@ def proto_phase(wrappers, torch, bindings, card):
     finally:
         srv.stop()
     check_launches("proto", launches, set(ROUTE_KERNELS["auction"]))
+    check_cold_preps("proto", launches, 1)
     check_auction_launches("proto", launches, 1)
     want = ProtoBackend(device="cpu").solve(req)
     got = pb.SolveResponse()
@@ -5009,7 +5175,8 @@ def faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bi
     batch = make_pods(wrappers, FAULT_BATCH, "f2")
     t = time.perf_counter()
     got, pinned_launches = drive_phase("faults/pinned open",
-                                       lambda: s.schedule_pending(batch), bindings, [s])
+                                       lambda: s.schedule_pending(batch), bindings, [s],
+                                       armed=True)
     dt = time.perf_counter() - t
     expect("pinned open", not any(pinned_launches.values()), pinned_launches)
     expect("pinned open", got == twin.schedule_pending(batch), "placements differ")
@@ -5127,7 +5294,7 @@ def faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bi
     reg = faults.FaultRegistry(seed=2).fail("solve.partials", n=1)
     with faults.armed(reg):
         got, cold_launches = drive_phase("faults/partials fail", lambda: warm.schedule_pending(
-            batch), bindings, [warm])
+            batch), bindings, [warm], armed=True)
     expect("partials fail", warm.last_solve.meta.statics is None
            and cold_launches["class_statics"] > 0 and cold_launches["partials_eval"] == 0
            and got == cold.schedule_pending(batch), cold_launches)
@@ -5221,7 +5388,7 @@ def faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bi
             (results, rec), launches = drive_phase(
                 f"faults/batch.preemption {label}",
                 lambda: preemption_cycle(sch, cache, ev, preemptors[:PREEMPT_PASS]),
-                bindings, [sch], extra=PREEMPT_KERNELS)
+                bindings, [sch], extra=PREEMPT_KERNELS, armed=label == "faulted")
         runs[label] = ([result_key(r) for r in results], sorted(sch.state._pod_node.items()),
                        rec, breaker_state(sch), launches["preempt_dry_run"], dict(reg.fired))
     keys_h, pods_h, rec_h, br_h, batched_h, _ = runs["healthy"]

@@ -1,6 +1,7 @@
 """Time one kernel built from two sources, in one run on one card.
 
     python3 kernel_ab.py KERNEL OTHER_CSRC_DIR [SHAPE]
+    python3 kernel_ab.py statics OTHER_CSRC_DIR [SHAPE ...]
 
 KERNEL and its shapes (the first is the default):
 
@@ -32,6 +33,18 @@ KERNEL and its shapes (the first is the default):
                      extra row a class)
                   N  the north star's first batch (65,536 padded nodes,
                      16,384 padded pods)
+  statics         the cold statics prep (match_terms x2 + class_statics
+                  in an earlier tree, one class_statics launch in a tree
+                  with ops.assign.cold_statics), each shape named runs in
+                  one process, in this order (default B):
+                  B  SchedulingBasic/5000Nodes' measured batch
+                  W  SchedulingNodeAffinity/5000Nodes' first measured
+                     batch (a 32-row selector table, one valid row)
+                  P  the preferred-affinity variant's measured batch
+                  E  one pod-default pod behind the extender
+                  N  the north star's first batch
+                  G  bench.py c5's first batch (100 gangs, 65,536 padded
+                     nodes)
 
 Builds kubernetes_tpu_torch/csrc/KERNEL.cu ("change") and
 OTHER_CSRC_DIR/KERNEL.cu ("other") with build.py's flags plus -Xptxas -v,
@@ -58,6 +71,13 @@ sync) beside it; evaluate_single, whose calls the host bounds, also
 replays 20 calls from one CUDA graph (the card's time alone).  Prints the card's name and power limit, then one JSON
 object with every time, the cluster blocks at the shape and each
 library's ptxas report (registers, shared memory, spills).
+`statics` loads the other tree's package as `kt_other` (its match_terms
+and class_statics built by build_library) and runs each tree's own calls
+on the same inputs: every call of a prep alone and the whole prep, the
+card's time behind a spin and the host clock of the call
+(chip_smoke.launch_ms), other, change, change, other, each result equal
+to the plain prep's; it prints one JSON line a shape as it goes, then
+the card line and the ptxas reports.
 """
 
 from __future__ import annotations
@@ -88,6 +108,20 @@ SHAPES = {
     "evaluate_single": {
         "E": (200, "one pod-default pod against SchedulingBasic/5000Nodes, no extra row"),
         "E+": (200, "the same with a preferred inter-pod term (an extra row)"),
+    },
+    "statics": {
+        "B": (50, "SchedulingBasic/5000Nodes measured batch (8,192 padded nodes, 1,024 "
+                  "pods), the auction's spec classes"),
+        "W": (50, "SchedulingNodeAffinity/5000Nodes first measured 500-pod batch (a 32-row "
+                  "selector table, one valid row), the wavefront's classes"),
+        "P": (50, "the preferred-affinity variant's measured batch, the auction's spec "
+                  "classes"),
+        "E": (50, "one pod-default pod behind the extender (8,192 padded nodes), its one "
+                  "class"),
+        "N": (20, "the north star's first batch (65,536 padded nodes, 16,384 padded pods), "
+                  "the auction's spec classes"),
+        "G": (20, "bench.py c5's first batch (65,536 padded nodes, 100 gangs), the "
+                  "auction's spec classes"),
     },
     "auction": {
         "B": (10, "SchedulingBasic/5000Nodes measured batch, the whole round loop"),
@@ -197,10 +231,10 @@ def auction_case(shape: str, torch):
     return cluster, pods, st, meta.tie_k, cfg, want, snap.cluster.allocatable.shape[0]
 
 
-def load_other_bindings(csrc: Path, out_dir: Path):
+def load_other_bindings(csrc: Path, out_dir: Path, names=None):
     """The other tree's kernels.bindings (its package, csrc's parent,
-    loaded as `kt_other`), with its auction libraries built by
-    build_library (ptxas reports returned)."""
+    loaded as `kt_other`), with its libraries of `names` (default: its
+    auction sources) built by build_library (ptxas reports returned)."""
     import importlib
     import importlib.util
 
@@ -212,7 +246,7 @@ def load_other_bindings(csrc: Path, out_dir: Path):
     spec.loader.exec_module(mod)
     other = importlib.import_module("kt_other.kernels.bindings")
     other_build = importlib.import_module("kt_other.kernels.build")
-    names = auction_sources(csrc)
+    names = auction_sources(csrc) if names is None else names
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(lambda name: build_library(name, csrc, out_dir), names))
     reports = {}
@@ -302,6 +336,129 @@ def auction_ab(shape: str, other_dir: Path, out_dir: Path, torch) -> dict:
             "ptxas": {"change": change_reports, "other": other_reports}}
 
 
+def statics_case(shape: str, torch):
+    """(cluster, pods, sel, pref, reps, n) of a statics shape on the card:
+    the shape's snapshot and the class representatives its route's cold
+    prep reads (the auction's spec classes, the wavefront's classes, the
+    extender's pod 0)."""
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.testing import wrappers
+
+    if shape == "E":
+        snap, _features = chip_smoke.single_snapshot(wrappers, TorchBatchScheduler, False)
+        reps = torch.zeros(1, dtype=torch.int32, device=snap.pods.req.device)
+    else:
+        build = {
+            "B": chip_smoke.basic_snapshot, "W": chip_smoke.affinity_snapshot,
+            "P": lambda w, t: chip_smoke.measured_snapshot(w, t, "preferred_affinity_objects",
+                                                           chip_smoke.PREFERRED),
+            "N": chip_smoke.north_snapshot, "G": chip_smoke.c5_snapshot,
+        }[shape]
+        _sched, snap, meta = build(wrappers, TorchBatchScheduler)
+        rep = snap.pods.class_rep if meta.route != "auction" else snap.pods.spec_rep
+        reps = torch.clamp(rep, 0, snap.pods.req.shape[0] - 1).to(torch.int32)
+    cluster, pods, sel, pref = snap[:4]
+    return cluster, pods, sel, pref, reps, cluster.allocatable.shape[0]
+
+
+def cold_prep_calls(bindings, assign, cluster, pods, sel, pref, reps) -> dict:
+    """A tree's cold statics prep as its bindings run it, by name: a tree
+    with ops.assign.cold_statics makes it one class_statics call ("prep",
+    and "prep_mask" with the selector mask asked for); an earlier tree
+    makes three ("match_terms_sel", "match_terms_pref", "class_statics"
+    over masks made once beforehand, and "prep", the three in turn).
+    Each value is (call, what it returns that the plain prep gives)."""
+    if hasattr(assign, "cold_statics"):
+        return {
+            "prep": (lambda: bindings.class_statics(cluster, pods, sel, pref, reps),
+                     lambda out: out[:3]),
+            "prep_mask": (lambda: bindings.class_statics(cluster, pods, sel, pref, reps,
+                                                         want_sel_mask=True),
+                          lambda out: out),
+        }
+    sel_rows = (sel.expr_ids, sel.expr_op, sel.expr_slot, sel.term_valid)
+    pref_rows = (pref.expr_ids[:, None], pref.expr_op[:, None], pref.expr_slot[:, None],
+                 pref.valid[:, None])
+    nodes = (cluster.label_bits, cluster.topo_ids)
+    masks = (bindings.match_terms(*nodes, *sel_rows), bindings.match_terms(*nodes, *pref_rows))
+
+    def prep():
+        sm = bindings.match_terms(*nodes, *sel_rows)
+        pm = bindings.match_terms(*nodes, *pref_rows)
+        return (*bindings.class_statics(cluster, pods, sm, pm, reps), sm)
+
+    return {
+        "match_terms_sel": (lambda: bindings.match_terms(*nodes, *sel_rows), None),
+        "match_terms_pref": (lambda: bindings.match_terms(*nodes, *pref_rows), None),
+        "class_statics": (lambda: bindings.class_statics(cluster, pods, *masks, reps),
+                          lambda out: out),
+        "prep": (prep, lambda out: out[:3]),
+        "prep_mask": (prep, lambda out: out),
+    }
+
+
+def statics_ab(shapes, other_dir: Path, out_dir: Path, torch) -> list:
+    """The cold statics prep at each shape: the other tree's own calls
+    against this tree's, both equal to the plain prep (match_rows_plain,
+    class_statics_plain) on the same inputs; other, change, change, other;
+    each call's card time alone and host clock (chip_smoke.launch_ms:
+    events behind a spin of the card).  One row a shape."""
+    import importlib
+
+    from kubernetes_tpu_torch.kernels import bindings, build
+    from kubernetes_tpu_torch.ops import assign, filters
+
+    names = ["match_terms", "class_statics"]
+    change_reports = {}
+    for name in names:
+        build._libs[name], change_reports[name] = build_library(name, build.CSRC_DIR, out_dir)
+    other, other_reports = load_other_bindings(other_dir, out_dir, names)
+    other_assign = importlib.import_module("kt_other.ops.assign")
+    build.build_all([k for k in build.KERNELS if k not in names])   # the inputs' kernels
+    rows = []
+    for shape in shapes:
+        cluster, pods, sel, pref, reps, n_nodes = statics_case(shape, torch)
+        iters, workload = SHAPES["statics"][shape]
+        sm = filters.match_rows_plain(cluster, sel.expr_ids, sel.expr_op, sel.expr_slot,
+                                      sel.term_valid)
+        pm = filters.match_rows_plain(cluster, pref.expr_ids[:, None], pref.expr_op[:, None],
+                                      pref.expr_slot[:, None], pref.valid[:, None])
+        want = (*assign.class_statics_plain(cluster, pods, sm, pm, reps), sm)
+        calls = {"other": cold_prep_calls(other, other_assign, cluster, pods, sel, pref, reps),
+                 "change": cold_prep_calls(bindings, assign, cluster, pods, sel, pref, reps)}
+        card = {w: {k: [] for k in calls[w]} for w in calls}
+        host = {w: {k: [] for k in calls[w]} for w in calls}
+        for which in ("other", "change", "change", "other"):
+            for name, (call, view) in calls[which].items():
+                if view is not None:
+                    got = view(call())
+                    chip_smoke.check_equal(f"cold statics {shape} ({which} {name})", got,
+                                           want[: len(got)], torch)
+                ms, host_ms = chip_smoke.launch_ms(call, lambda: None, iters, torch)
+                card[which][name].append(ms)
+                host[which][name].append(host_ms)
+        need = chip_smoke.cold_statics_need(cluster, pods, sel, pref, reps, False, torch)
+        need_mask = chip_smoke.cold_statics_need(cluster, pods, sel, pref, reps, True, torch)
+        med = lambda d: {w: {k: statistics.median(v) for k, v in d[w].items()} for w in d}
+        rows.append({
+            "kernel": "statics", "shape": shape, "workload": workload,
+            "other_source": str(other_dir), "launches_a_timing": iters,
+            "padded_nodes": n_nodes, "classes": int(reps.shape[0]),
+            "selector_rows": int(sel.term_valid.shape[0]),
+            "valid_selector_rows": int(sel.term_valid.any(dim=1).sum()),
+            "preferred_rows": int(pref.valid.shape[0]),
+            "valid_preferred_rows": int(pref.valid.sum()),
+            "card_ms": card, "median_card_ms": med(card),
+            "host_ms": host, "median_host_ms": med(host),
+            "bound_ms": chip_smoke.bound(*need), "bound_ms_mask": chip_smoke.bound(*need_mask),
+            "equal_plain": True,
+        })
+        print(json.dumps(rows[-1]), flush=True)
+    for row in rows:
+        row["ptxas"] = {"change": change_reports, "other": other_reports}
+    return rows
+
+
 def single_case(snap, features, assign, bindings, torch):
     """(kern, plain) of evaluate_single on a one-pod snapshot on the card:
     the loaded library's own sequence — its fused launch where it has one
@@ -342,14 +499,16 @@ def single_case(snap, features, assign, bindings, torch):
 def main() -> int:
     import torch
 
-    if len(sys.argv) not in (3, 4) or sys.argv[1] not in SHAPES:
+    many = len(sys.argv) > 1 and sys.argv[1] == "statics"
+    if len(sys.argv) < 3 or sys.argv[1] not in SHAPES or (len(sys.argv) > 4 and not many):
         print(__doc__, file=sys.stderr)
         return 2
     kernel, other_dir = sys.argv[1], Path(sys.argv[2]).resolve()
-    shape = sys.argv[3] if len(sys.argv) == 4 else next(iter(SHAPES[kernel]))
-    if shape not in SHAPES[kernel]:
+    shapes = sys.argv[3:] or [next(iter(SHAPES[kernel]))]
+    if any(shape not in SHAPES[kernel] for shape in shapes):
         print(f"kernel_ab: {kernel} has shapes {sorted(SHAPES[kernel])}", file=sys.stderr)
         return 2
+    shape = shapes[0]
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 3
@@ -357,6 +516,12 @@ def main() -> int:
 
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
+    if kernel == "statics":
+        rows = statics_ab(shapes, other_dir, out_dir, torch)
+        print(chip_smoke.card_line(), flush=True)
+        print(json.dumps({"kernel": "statics", "shapes": shapes,
+                          "ptxas": rows[0]["ptxas"] if rows else None}), flush=True)
+        return 0
     if kernel == "auction":
         result = auction_ab(shape, other_dir, out_dir, torch)
         print(chip_smoke.card_line(), flush=True)

@@ -6,11 +6,15 @@
 // check of assign.py:316) and the two raw scores (scores.py:163, :173).
 // pod_filters.cu (the preemption and Filter-chain kernel) calls the static
 // slice without the port test.
-// Cold statics (match_terms, then class_statics over the batch's masks)
-// and warm statics (partials_eval over a resident slot's stored spec) call
-// these functions, so the two cannot drift.
+// Cold statics (class_statics: the rows its classes name, then the class
+// tables, in one launch), the masks-only entry (match_terms) and warm
+// statics (partials_eval over a resident slot's stored spec) call these
+// functions, so they cannot drift.  class_statics and match_terms share
+// the node tile below: a block stages its 32 nodes' rows in shared memory
+// once and evaluates every table row it needs from there.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace statics {
@@ -143,6 +147,76 @@ __device__ inline float prefer_taints(const Nodes& nd, const Spec& sp, int node)
 __device__ __forceinline__ float affinity_add(float a, float w, bool hit)
 {
     return __fadd_rn(a, __fmul_rn(w, hit ? 1.0f : 0.0f));
+}
+
+// ---- the node tile (class_statics.cu, match_terms.cu) -----------------------
+
+// Nodes a block: one 32-bit match word a table row, one lane a node.
+constexpr int kTile = 32;
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;
+
+// A constraint table: `rows` rows of T terms of E expressions of K ids.
+// The selector table as it is; the preferred table [F, E, K] as T = 1,
+// its `valid` the term-valid column.
+struct Table {
+    int rows, t, e, k;
+    const int32_t* ids;     // [rows, T, E, K]
+    const int32_t* op;      // [rows, T, E]
+    const int32_t* slot;    // [rows, T, E]
+    const uint8_t* tv;      // [rows, T]
+};
+
+// The tile's node rows in shared memory (zeros past the last node).
+struct Tile {
+    int node0, nt, lw, tk;
+    uint32_t* label;        // [kTile, LW], staged on first need
+    int32_t* topo;          // [kTile, TK]
+};
+
+// Copy rows [node0, node0 + nt) of a row-major [N, W] table into s[kTile, W],
+// zeros past nt: consecutive threads read consecutive words.
+template <typename T>
+__device__ inline void stage_rows(T* s, const T* __restrict__ g, int node0, int nt, int w)
+{
+    const size_t base = (size_t)node0 * w;
+    for (int i = threadIdx.x; i < kTile * w; i += blockDim.x) {
+        s[i] = i < nt * w ? g[base + i] : T(0);
+    }
+}
+
+// Whether the row's valid terms hold a live expression that tests label
+// words (match_row's label path: no topology slot, or no topology keys).
+__device__ inline bool row_reads_labels(const Table& tb, int row, int tk, int item)
+{
+    const int ti = item / tb.e;
+    const size_t ex = ((size_t)row * tb.t + ti) * tb.e + item % tb.e;
+    const int op = tb.op[ex];
+    return tb.tv[(size_t)row * tb.t + ti] && (op == kOpPos || op == kOpNeg)
+        && !(tb.slot[ex] >= 0 && tk > 0);
+}
+
+// Stage the tile's label words once, the first time a row to evaluate
+// reads them (`need`, block-uniform; `staged` a shared flag, 0 at first).
+// Every thread calls it.
+__device__ inline void stage_labels_if(Tile& tl, const uint32_t* __restrict__ label, bool need,
+                                       int* staged)
+{
+    if (need && !*staged) {
+        stage_rows(tl.label, label, tl.node0, tl.nt, tl.lw);
+        __syncthreads();
+        if (threadIdx.x == 0) *staged = 1;
+    }
+    __syncthreads();
+}
+
+// Row `row` of `tb` at the tile's node `lane`, from shared memory.
+__device__ inline bool tile_match(const Tile& tl, const Table& tb, int row, int lane)
+{
+    const size_t te = (size_t)row * tb.t * tb.e;
+    return match_row(tl.label + lane * tl.lw, tl.lw, tl.topo + lane * tl.tk, tl.tk,
+                     tb.ids + te * tb.k, tb.op + te, tb.slot + te,
+                     tb.tv + (size_t)row * tb.t, tb.t, tb.e, tb.k);
 }
 
 }  // namespace statics

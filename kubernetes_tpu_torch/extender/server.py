@@ -26,8 +26,9 @@ The store is duck-typed: the backend calls only `list(kind)` (returning
 
 Every request encodes the live state on the host (the reference's
 build_from_state), copies the snapshot to the scheduler's device and runs
-`ops.assign.evaluate_single` there: kernels match_terms, class_statics,
-evaluate_single (one launch; with an extra row its two stages, with
+`ops.assign.evaluate_single` there: kernels class_statics (the cold
+statics prep, one launch) and evaluate_single (one launch; with an extra
+row its two stages, with
 class_extras between them for a pod with preferred inter-pod terms or a
 known image).
 """

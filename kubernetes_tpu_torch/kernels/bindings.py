@@ -4,8 +4,10 @@ Each function takes tensors on one CUDA device, checks their dtypes,
 allocates the outputs with torch, launches the kernel on torch's current
 stream, raises if the launch returned a CUDA error, and adds one to
 `LAUNCHES[name]` for every call of the kernel's C launch function.  A call
-enqueues the kernel's work for one unit: one table (match_terms), one
-batch (class_statics, class_extras, greedy_scan, wavefront and
+enqueues the kernel's work for one unit: one table (match_terms, the
+masks-only entry), one batch (class_statics — the cold statics prep: the
+rows the classes name, the class tables and the selector mask when asked
+for —, class_extras, greedy_scan, wavefront and
 auction_loop — one thread-block cluster for the whole batch —,
 slice_stats — two kernels), one pod's evaluation (evaluate_single: filter
 and score in one call for a pod without an extra row, else its filter and
@@ -52,7 +54,8 @@ _SLICES = [_I] * 5 + [_P] * 9
 
 _ARGTYPES = {
     "match_terms": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "class_statics": [_I] * 8 + [_P] * 19,
+    # the cold statics prep: (ints array, pointer array, stream)
+    "class_statics": [_P, _P, _P],
     "greedy_scan": [_I] * 7 + [_P] * 16 + _SPREAD + _TERMS + _SLICES + [_P] * 9,
     "slice_stats": [_I] * 7 + [_P] * 18,
     "evaluate_single": [_I] * 4 + [_P] * 10 + _SPREAD + _TERMS + _SLICES + [_P] * 5,
@@ -144,6 +147,14 @@ def _launcher(name: str):
                                          "interpod", "reasons", "gang")))
             if got != want:
                 raise RuntimeError(f"auction_loop layout {got} != bindings {want}")
+        if name == "class_statics":
+            layout = getattr(lib, "class_statics_layout")
+            layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
+            got = tuple(layout(i) for i in range(5))
+            want = (len(STATICS_INTS), len(STATICS_PTRS), STATICS_TILE, STATICS_ROW_CHUNK,
+                    STATICS_CLASS_CHUNK)
+            if got != want:
+                raise RuntimeError(f"class_statics layout {got} != bindings {want}")
         if name == "family_prep":
             layout = getattr(lib, "family_prep_layout")
             layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
@@ -189,7 +200,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def match_terms(
     label_bits, topo_ids, expr_ids, expr_op, expr_slot, term_valid,
 ) -> torch.Tensor:
-    """bool[R, N]: per row, OR over valid terms of the AND of expressions."""
+    """bool[R, N]: per row, OR over valid terms of the AND of expressions
+    (the masks-only entry; the cold prep evaluates its rows inside
+    class_statics)."""
     dev = label_bits.device
     i32 = torch.int32
     label_bits = _arg(label_bits, i32, dev, "label_bits")
@@ -205,8 +218,6 @@ def match_terms(
         raise ValueError("expr_op / expr_slot must be [R, T, E]")
     if term_valid.shape != (rows, t) or topo_ids.shape[0] != n:
         raise ValueError("term_valid must be [R, T] and topo_ids [N, TK]")
-    if rows > MAX_GRID_Y:
-        raise ValueError(f"{rows} table rows exceed the grid's {MAX_GRID_Y}")
     out = torch.empty((rows, n), dtype=torch.uint8, device=dev)
     if n == 0 or rows == 0:
         return out.view(torch.bool)
@@ -219,49 +230,113 @@ def match_terms(
     return out.view(torch.bool)
 
 
-def class_statics(cluster, pods, sel_mask, pref_mask, reps) -> Tuple[torch.Tensor, ...]:
-    """(sfeas bool[C, N], aff f32[C, N], taint f32[C, N])."""
-    dev = cluster.allocatable.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    node_valid = _arg(cluster.node_valid, b, dev, "node_valid")
-    node_name = _arg(cluster.name_id, i32, dev, "name_id")
-    taint_bits = _arg(cluster.taint_bits, i32, dev, "taint_bits")
-    node_ports = _arg(cluster.port_bits, i32, dev, "port_bits")
-    reps = _arg(reps, i32, dev, "reps")
-    pod_valid = _arg(pods.valid, b, dev, "pods.valid")
-    pod_name = _arg(pods.name_id, i32, dev, "pods.name_id")
-    sel_idx = _arg(pods.sel_idx, i32, dev, "pods.sel_idx")
-    tol_bits = _arg(pods.tol_bits, i32, dev, "pods.tol_bits")
-    tol_all = _arg(pods.tol_all, b, dev, "pods.tol_all")
-    pod_ports = _arg(pods.port_bits, i32, dev, "pods.port_bits")
-    pref_idx = _arg(pods.pref_idx, i32, dev, "pods.pref_idx")
-    pref_weight = _arg(pods.pref_weight, f32, dev, "pods.pref_weight")
-    sel_mask = _arg(sel_mask, b, dev, "sel_mask")
-    pref_mask = _arg(pref_mask, b, dev, "pref_mask")
-    n = node_valid.shape[0]
-    p = pod_valid.shape[0]
-    c_dim = reps.shape[0]
-    tw = taint_bits.shape[2]
-    pw = node_ports.shape[1]
-    mt = pref_idx.shape[1]
-    if tol_bits.shape[2] != tw or pod_ports.shape[1] != pw:
-        raise ValueError("pod and node bitset widths differ")
-    if c_dim > MAX_GRID_Y:
-        raise ValueError(f"{c_dim} classes exceed the grid's {MAX_GRID_Y}")
-    sfeas = torch.empty((c_dim, n), dtype=torch.uint8, device=dev)
-    aff = torch.empty((c_dim, n), dtype=f32, device=dev)
-    taint = torch.empty((c_dim, n), dtype=f32, device=dev)
-    if n and c_dim:
-        _launch(
-            "class_statics", dev,
-            n, p, c_dim, tw, pw, mt, sel_mask.shape[0], pref_mask.shape[0],
-            _ptr(node_valid), _ptr(node_name), _ptr(taint_bits),
-            _ptr(node_ports), _ptr(reps), _ptr(pod_valid), _ptr(pod_name),
-            _ptr(sel_idx), _ptr(tol_bits), _ptr(tol_all), _ptr(pod_ports),
-            _ptr(pref_idx), _ptr(pref_weight), _ptr(sel_mask), _ptr(pref_mask),
-            _ptr(sfeas), _ptr(aff), _ptr(taint),
-        )
-    return sfeas.view(torch.bool), aff, taint
+# class_statics.cu's launch arguments: ints[k] and ptrs[k] in the order of
+# its kI_* / kP_* enums (class_statics_layout gives the lengths, the tile,
+# the row chunk and the class chunk, checked on load)
+STATICS_INTS = ("n", "lw", "tk", "tw", "pw", "p", "c", "mt", "s", "st", "se", "sk", "f", "fe",
+                "fk", "want_mask")
+STATICS_PTRS = (
+    "node_valid", "node_name", "label_bits", "topo_ids", "taint_bits", "node_ports",
+    "sel_ids", "sel_op", "sel_slot", "sel_tv",
+    "pref_ids", "pref_op", "pref_slot", "pref_valid",
+    "reps", "pod_valid", "pod_name", "sel_idx", "tol_bits", "tol_all", "pod_ports",
+    "pref_idx", "pref_weight",
+    "sfeas", "aff", "taint", "sel_mask",
+)
+STATICS_TILE, STATICS_ROW_CHUNK, STATICS_CLASS_CHUNK = 32, 1024, 64
+
+_I32, _F32, _U8 = torch.int32, torch.float32, torch.uint8
+
+
+def _checked(dev: torch.device, specs, keep: list) -> list:
+    """The data pointers of (tensor, dtype, what) triples, each checked
+    once: on `dev`, of `dtype` (bool as its uint8 storage); a tensor that
+    is not contiguous is copied (the copy kept in `keep` until the
+    launch is enqueued)."""
+    index = dev.index if dev.type == "cuda" else -1
+    ptrs = []
+    for t, dtype, what in specs:
+        if t.get_device() != index:
+            raise ValueError(f"{what}: tensor on {t.device}, kernel runs on {dev}")
+        if t.dtype is not dtype:
+            raise TypeError(f"{what}: dtype {t.dtype}, kernel takes {dtype}")
+        if not t.is_contiguous():
+            t = t.contiguous()
+            keep.append(t)
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def class_statics(cluster, pods, sel, pref, reps,
+                  want_sel_mask: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The cold statics prep in one launch: (sfeas bool[C, N], aff
+    f32[C, N], taint f32[C, N], the selector mask bool[S, N] or None)
+    from the selector and preferred tables and the classes'
+    representatives (reps, clipped to the pod axis by the kernel).  One
+    allocation; the outputs are views of it."""
+    dev = cluster.node_valid.device
+    b = torch.bool
+    n, lw = cluster.label_bits.shape
+    tk = cluster.topo_ids.shape[1]
+    tw = cluster.taint_bits.shape[2]
+    pw = cluster.port_bits.shape[1]
+    p = pods.valid.shape[0]
+    c = reps.shape[0]
+    mt = pods.pref_idx.shape[1]
+    s_rows, st, se, sk = sel.expr_ids.shape
+    f_rows, fe, fk = pref.expr_ids.shape
+    if (cluster.topo_ids.shape[0] != n or cluster.taint_bits.shape[:2] != (3, n)
+            or cluster.port_bits.shape[0] != n or cluster.node_valid.shape != (n,)
+            or cluster.name_id.shape != (n,)):
+        raise ValueError("node tables do not share the node axis")
+    if (sel.expr_op.shape != (s_rows, st, se) or sel.expr_slot.shape != (s_rows, st, se)
+            or sel.term_valid.shape != (s_rows, st) or pref.expr_op.shape != (f_rows, fe)
+            or pref.expr_slot.shape != (f_rows, fe) or pref.valid.shape != (f_rows,)
+            or s_rows < 1 or f_rows < 1):
+        raise ValueError("selector [S, T, E, K] or preferred [F, E, K] tables malformed")
+    if (pods.tol_bits.shape != (3, p, tw) or pods.port_bits.shape != (p, pw)
+            or pods.tol_all.shape != (3, p) or pods.pref_idx.shape[0] != p
+            or pods.pref_weight.shape != (p, mt)
+            or pods.name_id.shape != (p,) or pods.sel_idx.shape != (p,)
+            or reps.shape != (c,) or p < 1):
+        raise ValueError("pod tables do not match the pod axis or the node bitset widths")
+    # one buffer: aff, taint (f32), sfeas, then the mask (u8)
+    cn = c * n
+    mask_n = s_rows * n if want_sel_mask else 0
+    buf = torch.empty(8 * cn + cn + mask_n, dtype=_U8, device=dev)
+    aff, taint = buf[: 8 * cn].view(_F32).view(2, c, n).unbind(0)
+    if want_sel_mask:
+        sfeas, mask = buf[8 * cn :].split((cn, mask_n))
+        sfeas, mask = sfeas.view(c, n), mask.view(s_rows, n)
+    else:
+        sfeas, mask = buf[8 * cn :].view(c, n), None
+    keep = []
+    ptrs = _checked(dev, (
+        (cluster.node_valid, b, "node_valid"), (cluster.name_id, _I32, "name_id"),
+        (cluster.label_bits, _I32, "label_bits"), (cluster.topo_ids, _I32, "topo_ids"),
+        (cluster.taint_bits, _I32, "taint_bits"), (cluster.port_bits, _I32, "port_bits"),
+        (sel.expr_ids, _I32, "sel.expr_ids"), (sel.expr_op, _I32, "sel.expr_op"),
+        (sel.expr_slot, _I32, "sel.expr_slot"), (sel.term_valid, b, "sel.term_valid"),
+        (pref.expr_ids, _I32, "pref.expr_ids"), (pref.expr_op, _I32, "pref.expr_op"),
+        (pref.expr_slot, _I32, "pref.expr_slot"), (pref.valid, b, "pref.valid"),
+        (reps, _I32, "reps"), (pods.valid, b, "pods.valid"),
+        (pods.name_id, _I32, "pods.name_id"), (pods.sel_idx, _I32, "pods.sel_idx"),
+        (pods.tol_bits, _I32, "pods.tol_bits"), (pods.tol_all, b, "pods.tol_all"),
+        (pods.port_bits, _I32, "pods.port_bits"), (pods.pref_idx, _I32, "pods.pref_idx"),
+        (pods.pref_weight, _F32, "pods.pref_weight"),
+    ), keep)
+    if n and (c or want_sel_mask):
+        out = buf.data_ptr()
+        ptrs += [out + 8 * cn, out, out + 4 * cn, out + 9 * cn if want_sel_mask else None]
+        ints = (n, lw, tk, tw, pw, p, c, mt, s_rows, st, se, sk, f_rows, fe, fk,
+                int(want_sel_mask))
+        arr_i = (ctypes.c_int * len(STATICS_INTS))(*ints)
+        arr_p = (ctypes.c_void_p * len(STATICS_PTRS))(*ptrs)
+        with torch.cuda.device(dev):
+            code = _launcher("class_statics")(arr_i, arr_p, _stream(dev))
+        build.check("class_statics", code)
+        LAUNCHES["class_statics"] += 1
+    return (sfeas.view(b), aff, taint, mask.view(b) if mask is not None else None)
 
 
 def partials_eval(cluster, specs, slot_idx, col_idx, store) -> None:

@@ -13,9 +13,11 @@ NodeAffinity filter slice, the bound-port check and the raw
 affinity/taint score rows — is hoisted out of the loop per pod *class*
 (`class_statics`, schema.PodBatch.class_id).
 
-On the card the solve is three CUDA kernels: `match_terms` (selector and
-preferred masks), `class_statics` and `greedy_scan` (the whole sequential
-loop in one launch) — or `wavefront` in place of `greedy_scan` for the
+On the card the solve is two CUDA kernels: `class_statics` (the cold
+statics prep: the selector and preferred rows the classes name, the class
+tables and the spread family's selector mask, in one launch) and
+`greedy_scan` (the whole sequential loop in one launch) — or `wavefront`
+in place of `greedy_scan` for the
 wave-parallel solve of the same semantics (section below).  On the CPU the
 plain versions below run; they are what the tests hold against the
 reference package.
@@ -60,7 +62,7 @@ from .interpod import (
     prep_pref_pod,
     prep_terms,
 )
-from .schema import ClusterTensors, PodBatch, Snapshot
+from .schema import ClusterTensors, PodBatch, PreferredTable, SelectorTable, Snapshot
 from .slices import carveout_eval, corner_mask, free_devices, slice_stats
 from .scores import (
     DEFAULT_SCORE_CONFIG,
@@ -252,26 +254,33 @@ def class_statics_plain(
     return torch.stack(sfeas), torch.stack(aff), torch.stack(taint)
 
 
-def class_statics(
+def cold_statics(
     cluster: ClusterTensors,
     pods: PodBatch,
-    sel_mask: torch.Tensor,
-    pref_mask: torch.Tensor,
+    sel: SelectorTable,
+    pref: PreferredTable,
     reps: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-class hoisted tables: (static_feas bool[C, N], aff_raw f32[C, N],
-    taint_raw f32[C, N]).  The static feasibility folds in the port check
-    against *initial* (bound-pod) port claims; in-batch conflicts ride the
-    solve's carry.  Wrapper of kernel `class_statics`: the kernel for
-    tensors on the card, the plain version for tensors on the CPU."""
-    p = pods.req.shape[0]
+    want_sel_mask: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The cold statics prep: per-class hoisted tables (static_feas
+    bool[C, N], aff_raw f32[C, N], taint_raw f32[C, N]) from the selector
+    and preferred tables, and the selector mask bool[S, N] when
+    want_sel_mask (else None).  The static feasibility folds in the port
+    check against *initial* (bound-pod) port claims; in-batch conflicts
+    ride the solve's carry.  reps: the classes' representatives (default:
+    class_rep).  Wrapper of kernel `class_statics`: on the card one launch
+    (the rows the classes name, the tables and the mask); on the CPU
+    selector_match, preferred_match and class_statics_plain."""
     if reps is None:
-        reps = torch.clamp(pods.class_rep, 0, p - 1)
-    if cluster.allocatable.device.type == "cpu":
-        return class_statics_plain(cluster, pods, sel_mask, pref_mask, reps)
-    from ..kernels import bindings
+        reps = pods.class_rep
+    if cluster.allocatable.device.type != "cpu":
+        from ..kernels import bindings
 
-    return bindings.class_statics(cluster, pods, sel_mask, pref_mask, reps)
+        return bindings.class_statics(cluster, pods, sel, pref, reps, want_sel_mask)
+    sel_mask = selector_match(cluster, sel)
+    statics = class_statics_plain(cluster, pods, sel_mask, preferred_match(cluster, pref),
+                                  torch.clamp(reps, 0, pods.req.shape[0] - 1))
+    return (*statics, sel_mask if want_sel_mask else None)
 
 
 def solve_order(pods: PodBatch) -> torch.Tensor:
@@ -686,20 +695,19 @@ def _solver_prep(snapshot: Snapshot, features: FeatureFlags,
                  cfg: ScoreConfig = DEFAULT_SCORE_CONFIG, statics=None):
     """Per-batch device prep: the class-hoisted static tables, the spread
     and inter-pod states and the classes' extra score rows (kernel
-    class_extras).  Cold (statics None): the selector and preferred masks
-    (kernel match_terms), then class_statics.  Warm: `statics` is the
-    (sfeas, aff, taint) triple gathered from the resident partials
-    (ops.partials.ClassStatics), equal to what class_statics would give,
-    and neither match_terms nor class_statics runs — except the selector
-    mask when the spread family needs it (its owner eligibility).
+    class_extras).  Cold (statics None): cold_statics, one class_statics
+    launch (with the selector mask when the spread family needs it for
+    its owner eligibility).  Warm: `statics` is the (sfeas, aff, taint)
+    triple gathered from the resident partials (ops.partials.ClassStatics),
+    equal to what class_statics would give, and class_statics does not run
+    — the spread family's selector mask comes from match_terms.
     topo_z: (z_spread, z_terms).  Returns (cluster, pods, sfeas_c, aff_c,
     taint_c, sp_args, tm_args, extra_c)."""
     cluster, pods, sel, pref = snapshot[:4]
     z_spread, z_terms = family_z(snapshot, features, topo_z)
     if statics is None:
-        sel_mask = selector_match(cluster, sel)
-        pref_mask = preferred_match(cluster, pref)
-        sfeas_c, aff_c, taint_c = class_statics(cluster, pods, sel_mask, pref_mask)
+        sfeas_c, aff_c, taint_c, sel_mask = cold_statics(cluster, pods, sel, pref,
+                                                         want_sel_mask=features.spread)
     else:
         sfeas_c, aff_c, taint_c = statics
         sel_mask = selector_match(cluster, sel) if features.spread else None
@@ -1320,10 +1328,9 @@ def evaluate_single(
     if topo_z is None:
         topo_z = required_topo_z(snapshot) if needs_topo(features) else 1
     cluster, pods, sel, pref = snapshot[:4]
-    sel_mask = selector_match(cluster, sel)
-    pref_mask = preferred_match(cluster, pref)
     reps = torch.zeros(1, dtype=torch.int32, device=cluster.allocatable.device)
-    sfeas, aff, taint = class_statics(cluster, pods, sel_mask, pref_mask, reps)
+    sfeas, aff, taint, sel_mask = cold_statics(cluster, pods, sel, pref, reps,
+                                               want_sel_mask=features.spread)
     sp_args = spread_prep(snapshot, sel_mask, features, topo_z)
     tm_args = terms_prep(snapshot, features, topo_z)
     if not (features.interpod_pref or features.images):

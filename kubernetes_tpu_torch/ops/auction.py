@@ -70,7 +70,7 @@ from .assign import (
     TermArgs,
     _np,
     add_rows,
-    class_statics,
+    cold_statics,
     extras_prep,
     family_z,
     features_of,
@@ -80,7 +80,7 @@ from .assign import (
     terms_prep,
 )
 from .interpod import _idx_to_bits, _pack_bits_t, _unpack_bits_t, interpod_filter, used_slots
-from .filters import fits_resources, pod_view, preferred_match, selector_match
+from .filters import fits_resources, pod_view
 from .schema import ClusterTensors, Snapshot
 from .scores import (
     DEFAULT_SCORE_CONFIG,
@@ -172,8 +172,9 @@ def auction_prep(
     topo_z: Optional[Tuple[int, int]] = None,
     cfg: ScoreConfig = DEFAULT_SCORE_CONFIG,
 ) -> Tuple[ClusterTensors, object, AuctionStatics]:
-    """The selector/preferred masks (kernel match_terms), the spec-class
-    static tables (kernel class_statics), the spread and inter-pod preps
+    """The spec-class static tables and, with the spread family, the
+    selector mask (kernel class_statics: one launch), the spread and
+    inter-pod preps
     and each joint class's extra score row
     (kernel class_extras: the preferred inter-pod row of its constraint
     class's representative normalised over its spec class's static row,
@@ -184,12 +185,9 @@ def auction_prep(
     cluster, pods, sel, pref = snapshot[:4]
     p = pods.req.shape[0]
     z_spread, z_terms = family_z(snapshot, features, topo_z)
-    sel_mask = selector_match(cluster, sel)
-    pref_mask = preferred_match(cluster, pref)
     s_reps = torch.clamp(pods.spec_rep, 0, p - 1)
-    sfeas_s, aff_s, taint_s = class_statics(
-        cluster, pods, sel_mask, pref_mask, reps=s_reps
-    )
+    sfeas_s, aff_s, taint_s, sel_mask = cold_statics(cluster, pods, sel, pref, s_reps,
+                                                     want_sel_mask=features.spread)
     i32 = torch.int32
     jspec = torch.clamp(pods.joint_spec, 0, pods.spec_rep.shape[0] - 1)
     jcons = torch.clamp(pods.joint_cons, 0, pods.cons_rep.shape[0] - 1)

@@ -2,8 +2,11 @@
 
 Plain-torch versions of the reference package's filters (same names, same
 arguments, same axis order), plus the wrapper of the CUDA kernel
-`match_terms` (csrc/match_terms.cu) that computes the selector and
-preferred-term masks on the card.  Covered plugins:
+`match_terms` (csrc/match_terms.cu) that computes a table's match mask on
+the card for the callers that need only masks (warm spread batches, the
+preemption pass, feasible_batch); the cold statics prep evaluates its
+rows inside kernel class_statics (ops.assign.cold_statics).  Covered
+plugins:
 
   NodeResourcesFit     fitsRequest, noderesources/fit.go:421-480
   NodeName             nodename/node_name.go:52-72
@@ -145,8 +148,8 @@ def match_rows(
     expr_slot: torch.Tensor,
     term_valid: torch.Tensor,
 ) -> torch.Tensor:
-    """Wrapper of kernel `match_terms`: the kernel for tensors on the
-    card, the plain version for tensors on the CPU."""
+    """Wrapper of kernel `match_terms` (the masks-only entry): the kernel
+    for tensors on the card, the plain version for tensors on the CPU."""
     if cluster.label_bits.device.type == "cpu":
         return match_rows_plain(cluster, expr_ids, expr_op, expr_slot, term_valid)
     from ..kernels import bindings

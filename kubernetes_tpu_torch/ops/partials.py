@@ -2,7 +2,7 @@
 and the wavefront.
 
 Every greedy-family solve hoists a per-class triple out of its scan
-(ops.assign.class_statics): static feasibility (NodeName + taints +
+(ops.assign.cold_statics, kernel class_statics): static feasibility (NodeName + taints +
 NodeAffinity + bound-port conflicts), the raw preferred-node-affinity
 row and the raw PreferNoSchedule taint count — three [C, N] tables.
 Churn batches re-present the same classes, and few node rows change

@@ -132,11 +132,7 @@ def test_class_statics(name):
     jsel = jfilters.selector_match(js.cluster, js.selectors)
     jpref = jfilters.preferred_match(js.cluster, js.preferred)
     want = jassign.class_statics(js.cluster, js.pods, jsel, jpref)
-    got = tassign.class_statics(
-        ts.cluster, ts.pods,
-        tfilters.selector_match(ts.cluster, ts.selectors),
-        tfilters.preferred_match(ts.cluster, ts.preferred),
-    )
+    got = tassign.cold_statics(ts.cluster, ts.pods, ts.selectors, ts.preferred)[:3]
     for w, g in zip(want, got):
         assert same(w, g)
 
@@ -170,9 +166,14 @@ def test_wrappers_never_fall_back_for_device_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel launch attempted"):
         tfilters.selector_match(meta_cluster, sel)
     pods = type(ts.pods)(*(t.to("meta") for t in ts.pods))
-    with pytest.raises(RuntimeError, match="kernel launch attempted"):
-        tassign.class_statics(meta_cluster, pods, None, None)
-    assert len(calls) == 2
+    pref = type(ts.preferred)(*(t.to("meta") for t in ts.preferred))
+    for want_sel_mask in (False, True):
+        with pytest.raises(RuntimeError, match="kernel launch attempted"):
+            tassign.cold_statics(meta_cluster, pods, sel, pref, want_sel_mask=want_sel_mask)
+    assert len(calls) == 3
     # and the CPU path never touches the bindings
     tfilters.selector_match(ts.cluster, ts.selectors)
-    assert len(calls) == 2
+    for want_sel_mask in (False, True):
+        tassign.cold_statics(ts.cluster, ts.pods, ts.selectors, ts.preferred,
+                             want_sel_mask=want_sel_mask)
+    assert len(calls) == 3

@@ -38,7 +38,6 @@ from kubernetes_tpu_torch.analysis import epochs
 from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
 from kubernetes_tpu_torch.ops import assign as tassign
 from kubernetes_tpu_torch.ops import device as dv
-from kubernetes_tpu_torch.ops import filters as tfilters
 from kubernetes_tpu_torch.ops import partials as tpops
 from kubernetes_tpu_torch.ops import schema as tschema
 from kubernetes_tpu_torch.testing import wrappers as tw
@@ -209,13 +208,13 @@ def test_set_spec_rows_and_gather_match_reference(carried):
 
 
 def test_warm_statics_match_cold_class_statics(carried):
-    """The reference's gathered statics equal the port's cold class_statics
-    (match_terms, then class_statics) on the same resident cluster."""
+    """The reference's gathered statics equal the port's cold statics
+    (cold_statics: the masks, then class_statics) on the same resident
+    cluster."""
     snap = dv.snapshot_from_numpy(carried["host_snap"])
     cl, pods, sel, pref = dv.to_device(snap, "cpu")[:4]
     cluster = carried["cluster"]
-    sm, pm = tfilters.selector_match(cluster, sel), tfilters.preferred_match(cluster, pref)
-    cold = tassign.class_statics(cluster, pods, sm, pm)
+    cold = tassign.cold_statics(cluster, pods, sel, pref)[:3]
     for f, a, b in zip(tpops.ClassStatics._fields, cold, carried["statics"]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f)
 
@@ -321,9 +320,8 @@ def test_statics_match_cold_class_statics():
         _jsnap, jmeta = trio.j.encode_pending(jp)
         snap, meta = trio.t.encode_pending(tp)
         assert meta.statics is not None
-        sm = tfilters.selector_match(snap.cluster, snap.selectors)
-        pm = tfilters.preferred_match(snap.cluster, snap.preferred)
-        cold = tassign.class_statics(snap.cluster, snap.pods, sm, pm)
+        cold = tassign.cold_statics(snap.cluster, snap.pods, snap.selectors,
+                                    snap.preferred)[:3]
         for f, a, b, c in zip(tpops.ClassStatics._fields, meta.statics, cold, jmeta.statics):
             assert torch.equal(a, b), f
             np.testing.assert_array_equal(a.numpy(), np.asarray(c), err_msg=f)
