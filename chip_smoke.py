@@ -108,12 +108,15 @@ stdout; with --log also appended to PATH):
              socket to the card's proto service (the auction, cold), the
              response equal to the CPU backend's
   preemption_parity (after resident_parity)
-             preempt_dry_run (both entries) and pod_filters (both modes)
-             against their plain versions on the card, exact: victim axes
-             of 4 to 300 slots of not-whole-MiB memory, PDB reorders, three
-             levels, masks that are not prefixes, the mixed parity
-             snapshots; whether torch.cumsum would have summed as the
-             reference does
+             preempt_dry_run (both entries) and pod_filters (both modes,
+             its selector rows evaluated in the launch) against their plain
+             versions on the card, exact: victim axes of 4 to 300 slots and
+             256, 257, 513 and 4,096 (PARITY_K) of not-whole-MiB memory,
+             bounds 0, 1, K - 1, K, +inf free and junk, PDB reorders, three
+             levels, two pod groups, masks that are not prefixes, rows of 4,
+             8, 16 and 32 lanes (PARITY_NARROW); the mixed parity
+             snapshots; the pass's one binding call (preemption_pass);
+             whether torch.cumsum would have summed as the reference does
   scan_edges (after preemption_parity)
              greedy_scan, one thread-block cluster of 2 to 16 blocks (the
              blocks and their threads at 4,096 / 8,192 / 16,384 / 65,536
@@ -134,14 +137,17 @@ stdout; with --log also appended to PATH):
              node), measured pod-high-priority pods in cycles of 16 (solve,
              one PostFilter pass, the nominees solve onto their nominated
              nodes), 256 of them (the reference's candidate cap, PREEMPT);
-             every preemptor evicts exactly three victims, one batched
-             preempt_dry_run and pod_filters launch a pass, no pass falls
-             back; the first 64 preemptors equal through use_mirror=False;
-             PreemptionBasic/500Nodes card against the CPU
+             every preemptor evicts exactly three victims, a pass is one
+             binding call: one preempt_dry_run and one pod_filters launch,
+             no match_terms; no pass falls back; the first 64 preemptors
+             equal through use_mirror=False; PreemptionBasic/500Nodes card
+             against the CPU; the first pass's kernels timed (Q)
   c9         bench.py's c9 planning trace (20,000 nodes, 16 preemptors, 3
              levels, a zero-budget PDB on every fourth victim): the batched
-             pass's plans equal the classic per-pod walk's, both timed;
-             preempt_dry_run and pod_filters timed at this shape
+             pass's plans equal the classic per-pod walk's, both timed
+             (match_terms launched by neither); preempt_dry_run, pod_filters
+             and the pass's binding call timed at this shape (K), the walk's
+             one-pod static row (K1)
   resident   the same batches through TorchBatchScheduler() (warm) and
              TorchBatchScheduler(use_mirror=False) (cold), every batch equal
              field for field: SchedulingNodeAffinity/5000Nodes in 500-pod
@@ -161,7 +167,9 @@ stdout; with --log also appended to PATH):
              call; the plain-torch gather, grows and packed copy;
              class_statics, the one-launch cold prep, at B and match_terms,
              the masks-only entry, at B and W, each the card's time behind
-             a spin with the host clock of the call beside it)
+             a spin with the host clock of the call beside it; class_extras,
+             partials_eval and slice_stats also so, as card_ms and host_ms;
+             preempt_dry_run at Q, K, V and pod_filters at Q, K, K1 so)
   small      SchedulingBasic/500Nodes on the card against the plain path on
              the CPU, default route: identical placements and scores
   north      one 10,000-pod batch onto 50,000 nodes (the auction: one
@@ -208,7 +216,7 @@ stdout; with --log also appended to PATH):
              FAULT_BATCH = 64 pods), each step against a healthy twin:
              nan_parity (the scan, the wavefront, the auction's kernels and
              evaluate_single on +inf allocatable against their plain
-             versions, NaN for NaN; pod_filters' full mode timed);
+             versions, NaN for NaN; pod_filters' full mode timed, S64);
              batch.solve failing forever (the retry, the trip, the host
              fallback's pods/s); the breaker pinned open (no kernel
              launches) and its half-open probe (the route's kernels, the
@@ -224,8 +232,9 @@ stdout; with --log also appended to PATH):
              CPU); batch.preemption failing twice on PreemptionBasic/500Nodes
              (the per-pod path: preempt_dry_run's dry_run_victims entry
              launched — the fault fires before the batched entry's launch —
-             and timed at the next preemptor's per-pod inputs, the breaker
-             tripped, == the batched pass on a healthy twin)
+             and timed at the next preemptor's per-pod inputs (V), no
+             match_terms, the breaker tripped, == the batched pass on a
+             healthy twin)
 
 In every part of main, greedy, wavefront, spread, interpod, extras,
 slices, extender, proto, resident, north and gang the launch counters are reset
@@ -1030,7 +1039,9 @@ def run_class_extras(snap, features, cfg, reps, feas, assign, bindings, torch,
     res = {"out": out}
     if timed:
         bms, by = bound(*class_extras_need(snap, features, reps, feas, torch))
+        card_ms, host_ms = launch_ms(kern, lambda: None, 20, torch)
         res["row"] = {"name": "class_extras", "max_abs_err": err, "ms": cuda_ms(kern, 20, torch),
+                      "card_ms": card_ms, "host_ms": host_ms,
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
     return res
 
@@ -1289,7 +1300,7 @@ def main() -> int:
           "launches": wave_launches, "card": card})
 
     # ---- spread: TopologySpreading/5000Nodes, every route ------------------
-    spread_rows, spread_launches = spread_phase(
+    spread_rows, spread_launches, warm_masks = spread_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
     spread_wave_launches = next(r for r in spread_rows if r["name"] == "wavefront")["launches"]
 
@@ -1341,10 +1352,12 @@ def main() -> int:
     summary.extend(dict(r, shape="B") if r["name"] in ("auction_loop", "auction_reasons") else r
                    for r in run_auction(snap_k, sched.score_config, meta_k.tie_k, auction,
                                         bindings, torch, timed=True))
-    # match_terms runs on no auction batch: its rows take the preemption
-    # phase's launches (one a pass, and the per-pod static rows)
+    # match_terms runs on no auction batch and no preemption pass: its rows
+    # take the spread phase's warm scan and wavefront batches' launches
+    if not warm_masks:
+        raise AssertionError("match_terms: no warm spread batch launched it")
     launches_of = {"greedy_scan": greedy_launches, "wavefront": wave_launches,
-                   "match_terms": preempt["launches"]}
+                   "match_terms": {"match_terms": warm_masks}}
     for row in summary:
         row["launches"] = stage_launches(row["name"], launches_of.get(row["name"], main_launches))
     # the auction program and its reasons stage on the spread (T) and
@@ -1373,8 +1386,7 @@ def main() -> int:
     row = next(r for r in slice_rows if r["name"] == "slice_stats")
     summary.append(dict(row, launches=slice_launches["slice_stats"]))
     summary.extend(eval_rows)
-    for row in preempt["rows"]:
-        summary.append(dict(row, launches=preempt["launches"][row["name"]]))
+    summary.extend(preempt["rows"])
     order_ms = cuda_ms(lambda: assign.solve_order(snap_k.pods), 50, torch)
     order_bound = bound(*solve_order_need(snap_k.pods))
     emit({"phase": "kernels", "card": card,
@@ -1389,8 +1401,9 @@ def main() -> int:
                      "match_terms": "the masks-only entry on the selector table, B: "
                                     "SchedulingBasic/5000Nodes measured batch (one pad "
                                     "row), W: SchedulingNodeAffinity/5000Nodes first "
-                                    "measured batch (32 rows, one valid); launches: "
-                                    "PreemptionBasic/5000Nodes (no auction batch runs it)",
+                                    "measured batch (32 rows, one valid); launches: the "
+                                    "spread phase's warm scan and wavefront batches (no "
+                                    "auction batch and no preemption pass runs it)",
                      "auction_bids, auction_accept":
                      "SchedulingBasic/5000Nodes measured batch (the auction's stages: one "
                      "round at round 0, each launched alone; no path launches them)",
@@ -1433,9 +1446,15 @@ def main() -> int:
                                         "fused launch); E+: the same with a preferred "
                                         "inter-pod term (two stages); launches: the extender's "
                                         "basic and variant windows",
-                     "preempt_dry_run, pod_filters": "c9's batched pass (20,000 nodes, "
-                                                    "32,768 padded, 16 preemptors, 3 levels); "
-                                                    "launches: PreemptionBasic/5000Nodes"},
+                     "preempt_dry_run, pod_filters":
+                     "the card's time of the call alone (events behind a spin) and its host "
+                     "clock; Q: PreemptionBasic/5000Nodes' first pass (8,192 padded nodes, "
+                     "K 4, 16 preemptors; launches: the preemption phase's, one a pass); K: "
+                     "c9's batched pass (20,000 nodes, 32,768 padded, 16 preemptors, 3 "
+                     "levels; launches: one pass); K1 (pod_filters): one preemptor's static "
+                     "row on c9's snapshot (launches: the classic walk's, one a preemptor); "
+                     "V (preempt_dry_run, entry dry_run_victims): faults step 8's per-pod "
+                     "dry run (launches: the faulted pass's per-pod path)"},
           "kernels": [dict({k: row[k] for k in ("name", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms")},
                            shape=row.get("shape"), equal=True) for row in summary],
           "wavefront_launches_all_phases": wave_all,
@@ -1552,8 +1571,9 @@ def main() -> int:
           "trips": 0, "fallbacks": 0, "partials_sync_failures": 0})
 
     # ---- degraded mode: the fault points, the breaker, the host fallback ----
-    faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bindings, torch,
-                 card)
+    fault_out = faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv,
+                             bindings, torch, card)
+    summary.append(fault_out["batch_preemption"]["dry_run_victims"])
 
     print(card, flush=True)
     kernels = []
@@ -1565,8 +1585,8 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-            **{k: row[k] for k in ("shape", "host_ms", "device_ms", "rounds", "stage_of",
-                                   "entry") if k in row},
+            **{k: row[k] for k in ("shape", "card_ms", "host_ms", "device_ms", "rounds",
+                                   "stage_of", "entry") if k in row},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2077,7 +2097,8 @@ def spread_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
     out["kernels"] = rows
     out["card"] = card
     emit(out)
-    return rows, launches
+    # match_terms' launches: the warm scan and wavefront batches' selector masks
+    return rows, launches, glaunches["match_terms"] + wlaunches["match_terms"]
 
 
 def solve_route(route, snap, meta, assign, auction, cfg, statics=None):
@@ -3993,8 +4014,10 @@ def time_resident_kernels(warm, dv, dv_wrappers, pops, bindings, torch) -> tuple
         err = check_equal(f"partials_eval ({label})", got, plain(), torch)
         cols = n if col_idx is None else int(col_idx.numel())
         bms, by = bound(*partials_eval_need(cl, specs, cols, torch))
+        card_ms, host_ms = launch_ms(kern, lambda: None, 50, torch)
         rows.append({"name": "partials_eval", "shape": f"{label}: {g} slots x {cols} columns",
                      "max_abs_err": err, "ms": cuda_ms(kern, 50, torch),
+                     "card_ms": card_ms, "host_ms": host_ms,
                      "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by,
                      "library_ms": None})
     host = warm.state.tensors()
@@ -4099,7 +4122,9 @@ def run_slice_kernels(snap, features, n_groups, cfg, assign, filters, bindings, 
     if not timed:
         return []
     bms, by = bound(*slice_stats_need(final, pods, gang, features, torch))
+    card_ms, host_ms = launch_ms(kern, lambda: None, 50, torch)
     stats_row = {"name": "slice_stats", "max_abs_err": err, "ms": cuda_ms(kern, 50, torch),
+                 "card_ms": card_ms, "host_ms": host_ms,
                  "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by}
     return [r for r in rows if r["name"] == "greedy_scan"] + [stats_row]
 
@@ -4612,7 +4637,9 @@ def proto_phase(wrappers, torch, bindings, card):
 
 # ---- preemption ----------------------------------------------------------------
 
-PREEMPT_KERNELS = ("match_terms", "pod_filters", "preempt_dry_run")
+# a PostFilter pass's kernels: one binding call, these two launches
+# (match_terms none: pod_filters evaluates the selector rows itself)
+PREEMPT_KERNELS = ("pod_filters", "preempt_dry_run")
 
 
 def preemption_setup(TorchBatchScheduler, nodes, victims, preemptors, pdbs=(), **kw):
@@ -4667,14 +4694,20 @@ def preemption_cycle(sched, cache, ev, pods):
     t0 = time.perf_counter()
     with ev.shared_pass(failed) as ctx:
         results = ev.preempt_batch(failed)
+    pass_s = time.perf_counter() - t0
     split = {}
     for meta in sched.metas[mark:]:
         for k, v in meta.encode_split.items():
             split[k] = split.get(k, 0.0) + v
-    rec = {"pods": len(failed), "pass_s": time.perf_counter() - t0,
+    rec = {"pods": len(failed), "pass_s": pass_s,
            "verify_solves": len(sched.metas) - mark, "verify_encode_split": split,
            "fallback": ctx.fallback, "empty": ctx.empty, **ctx.timings,
            "nominated": sum(r is not None for r in results)}
+    if not (ctx.fallback or ctx.empty):
+        # the pass's device inputs and the dry run's need, for the Q rows
+        rec["inputs"] = ctx.inputs
+        rec["need_dry"] = dry_run_need(ctx, failed)
+        rec["live"] = (len(ctx.nodes), len(ctx.index))
     nominees = [(p, r.nominated_node) for p, r in zip(failed, results) if r is not None]
     if nominees:
         keys = {pod_key(p) for p, _ in nominees}
@@ -4714,6 +4747,59 @@ def preemption_run(sched, cache, ev, preemptors, n_cycles):
     return keys, recs, sorted(sched.state._pod_node.items()), wall
 
 
+def pass_inputs(ev, failed):
+    """(batch, snap) a shared PostFilter pass over `failed` encoded: the
+    dry-run's tables and the static snapshot of the pass's preemptors."""
+    with ev.shared_pass(failed) as ctx:
+        if ctx.fallback or ctx.empty:
+            raise AssertionError("a pass fell back or encoded no victim")
+        return ctx.inputs
+
+
+def preempt_shape(wrappers, TorchBatchScheduler, shape: str) -> tuple:
+    """(kind, inputs) of a timed preemption shape on the card:
+    Q   ("pass", (batch, snap)): PreemptionBasic/5000Nodes' first pass, 16
+        preemptors (8,192 padded candidate nodes, K 4, L 1);
+    K   ("pass", (batch, snap)): c9's batched pass (32,768 padded, L 4);
+    K1  ("static_row", snap): one preemptor's static snapshot on c9's
+        cluster, the classic walk's call (_encode_static);
+    V   ("victims", (free, victim_req, victim_valid, pod_req)): the per-pod
+        dry-run of `faults` step 8 (PreemptionBasic/500Nodes after one
+        pass, the next preemptor);
+    S64 ("full", snap): 64 pod-default pods at SchedulingBasic/5000Nodes
+        (the Filter chain's full mode, nan_parity's healthy snapshot)."""
+    from kubernetes_tpu_torch.scheduler.queue import pod_key
+    from kubernetes_tpu_torch.testing.cases import c9_objects
+
+    if shape == "Q":
+        sched, cache, ev, pods = preemption_basic(wrappers, TorchBatchScheduler, PREEMPT)
+        batch = pods[:PREEMPT_PASS]
+        names = sched.schedule_pending(
+            batch, reservations=cache.nominations_excluding({pod_key(p) for p in batch}))
+        failed = sorted([p for p, n in zip(batch, names) if n is None],
+                        key=lambda p: -p.spec.priority)
+        return "pass", pass_inputs(ev, failed)
+    if shape in ("K", "K1"):
+        nodes, victims, failed, pdb = c9_objects(wrappers, *C9)
+        _s, cache, ev = preemption_setup(TorchBatchScheduler, nodes, victims, failed, [pdb])
+        if shape == "K":
+            return "pass", pass_inputs(ev, failed)
+        with cache.lock:
+            return "static_row", ev._encode_static(failed[0])
+    if shape == "V":
+        sched, cache, ev, pods = preemption_basic(wrappers, TorchBatchScheduler, PREEMPT_SMALL)
+        preemption_cycle(sched, cache, ev, pods[:PREEMPT_PASS])
+        got = ev._classic_inputs(pods[PREEMPT_PASS])
+        if got is None:
+            raise AssertionError("V: no per-pod candidate for the next preemptor")
+        return "victims", tuple(ev._victim_tables(*got))
+    if shape == "S64":
+        cold = fault_cluster(wrappers, TorchBatchScheduler, use_mirror=False)
+        snap, _meta = cold.encode_pending(make_pods(wrappers, FAULT_BATCH, "nan"))
+        return "full", snap
+    raise ValueError(f"no preemption shape {shape}")
+
+
 def dry_run_need(ctx, pods) -> tuple:
     """(bytes, operations) of one batched dry-run on this pass's data, live
     rows only: each live node's free row, each victim's requests, the live
@@ -4740,63 +4826,119 @@ def dry_run_need(ctx, pods) -> tuple:
     return need, float(2 * levels * v * r + 2 * r * int(walked.sum()))
 
 
-def pod_filters_need(snap, n: int, p: int, torch) -> tuple:
-    """(bytes, operations) of the static Filter slice on this data, live
-    rows only: each live node's validity, name and NoSchedule / NoExecute
-    taint words, the selector-mask rows the pods use and each pod's fields
-    read once, the [P, N] mask written once; about 4 operations a taint
-    word and 6 more a (pod, node)."""
-    cl, pods = snap.cluster, snap.pods
+def pod_filters_need(snap, n: int, p: int, torch, pods=None, full: bool = False) -> tuple:
+    """(bytes, operations) of kernel pod_filters on this data, live rows
+    only: each live node's validity, name and NoSchedule / NoExecute taint
+    words, and the label words and topology ids that the named selector
+    rows' valid expressions test, read once; those rows and each pod's
+    fields read once, the [P, N] mask written once; about 4 operations a
+    taint word and 6 more a (pod, node), two a (row, node, tested id).
+    In full mode also each live node's allocatable, requested and port
+    words and each pod's requests and ports; 2 operations a (pod, node,
+    resource), one a (pod, node, port word)."""
+    cl, sel = snap.cluster, snap.selectors
+    pods = snap.pods if pods is None else pods
     tw = cl.taint_bits.shape[2]
-    sel = pods.sel_idx[:p]
-    rows = int(torch.unique(sel[sel >= 0]).numel())
-    need = n * (1 + 4 + 2 * 4 * tw) + rows * n + p * (1 + 4 + 4 + 2 * 4 * tw + 2) + p * n
-    return need, float(p * n * (4 * 2 * tw + 6))
+    si = pods.sel_idx[:p]
+    used = torch.unique(torch.clamp(si[si >= 0], max=sel.term_valid.shape[0] - 1))
+    tab = (sel.expr_ids[used], sel.expr_op[used], sel.expr_slot[used], sel.term_valid[used])
+    words, topo, ids = _live_ids(*tab, torch)
+    node_words = int(torch.unique(words).numel()) + int(torch.unique(topo).numel())
+    need = (n * (1 + 4 + 2 * 4 * tw) + n * 4 * node_words + nbytes(*tab)
+            + p * (1 + 4 + 4 + 2 * 4 * tw + 2) + p * n)
+    ops = float(p * n * (4 * 2 * tw + 6) + n * ids * 2)
+    if full:
+        r = cl.allocatable.shape[1]
+        pw = cl.port_bits.shape[1]
+        need += n * (2 * 4 * r + 4 * pw) + p * (4 * r + 4 * pw)
+        ops += float(p * n * (2 * r + pw))
+    return need, ops
+
+
+def preempt_row(name: str, shape: str, call, want, plain, need, torch, launches=None,
+                iters: int = 50) -> dict:
+    """A preemption kernel's summary row at one shape: its binding call
+    checked against the plain versions' result `want`, the card's time of
+    the call alone (launch_ms: events behind a spin) and its host clock,
+    the plain versions' host time, the bound of `need` (bytes,
+    operations)."""
+    got = call()
+    err = check_equal(f"{name} ({shape})", got if isinstance(got, tuple) else (got,), want,
+                      torch)
+    ms, host_ms = launch_ms(call, lambda: None, iters, torch)
+    b_ms, b_by = bound(*need)
+    row = {"name": name, "shape": shape, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+           "plain_ms": min(time_plain(plain, torch) for _ in range(3)), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "need_bytes": need[0], "need_ops": need[1]}
+    if launches is not None:
+        row["launches"] = launches
+    return row
+
+
+# the victim slots the parity batches hold: the scheduler's, then the edges
+# of the kernel's blocks of 16, its chunks of 256 and its widest axis
+PARITY_K = (4, 20, 64, 128, 300, 256, 257, 513, 4096)
+# (K, levels, lanes) of batches with more rows than the card's resident
+# warps: nodes doubled from 512 until a row gets at most that many lanes
+# (bindings.dry_run_lanes), so rows of 16, 8 and 4 lanes run (K 300: two
+# chunks)
+PARITY_NARROW = ((4, 3, 4), (20, 3, 8), (64, 1, 16), (300, 2, 8))
 
 
 def preemption_parity(wrappers, filters, bindings, torch) -> None:
     """preempt_dry_run and pod_filters against their plain versions on the
-    card, exact: batched dry-runs with K = 4, 20, 64, 128 and 300 victim
-    slots (not-whole-MiB memory, elig_len 0 and past the slots, rows where
-    nothing fits, PDB reorders, L = 3), dry_run_victims with masks that are
-    not prefixes, and the Filter chain in both modes on the mixed parity
-    snapshots.  Also records whether torch.cumsum would have summed the
-    victims as the reference does."""
-    import numpy as np
-
+    card, exact: batched dry-runs with K in PARITY_K victim slots
+    (not-whole-MiB memory, elig_len 0, 1, K - 1, K and past the slots, rows
+    where nothing fits, PDB reorders, +inf free and +inf junk, L up to 3,
+    40 pods — two pod groups — at K 257 and 513), the victims entry on the
+    same victims with masks that are not prefixes (bounds 0, 1, K - 1, K),
+    the Filter chain in both modes with its selector rows on the mixed
+    parity snapshots, and the pass's one binding call.  Also records
+    whether torch.cumsum would have summed the victims as the reference
+    does."""
     from kubernetes_tpu_torch.ops import device as dv
     from kubernetes_tpu_torch.ops import preemption as pre
     from kubernetes_tpu_torch.ops.schema import SnapshotBuilder
-    from kubernetes_tpu_torch.testing.cases import dry_run_inputs, mixed_objects
+    from kubernetes_tpu_torch.testing.cases import (dry_run_edges, dry_run_inputs,
+                                                     mixed_objects, victim_masks)
 
     dev = torch.device("cuda")
     cases, cumsum_equal, checked = [], [], 0
-    for seed, k, levels, frac in ((0, 4, 1, False), (1, 20, 3, True), (2, 64, 3, True),
-                                  (3, 128, 3, True), (4, 128, 1, True), (5, 300, 2, True)):
-        inputs = dry_run_inputs(seed, n=512, k=k, r=4, levels=levels, pods=16, frac=frac)
+    batches = []
+    shapes = [(k, 128 if k == 4096 else 512, (1, 3, 3, 3, 2, 2, 3, 2, 1)[i])
+              for i, k in enumerate(PARITY_K)]
+    for k, levels, lanes in PARITY_NARROW:
+        n = 512
+        while bindings.dry_run_lanes(levels, n, k, 4) > lanes:
+            n *= 2
+        shapes.append((k, n, levels))
+    for seed, (k, n, levels) in enumerate(shapes):
+        pods = 40 if k in (257, 513) else 16
+        inputs = dry_run_edges(dry_run_inputs(seed, n=n, k=k, r=4, levels=levels, pods=pods,
+                                              frac=seed > 0), seed)
         batch = pre.PreemptionBatch(*(torch.from_numpy(a).to(dev) for a in inputs))
+        batches.append(batch)
         got = bindings.batched_dry_run(*batch)
         check_equal(f"preempt_dry_run (seed {seed}, K {k})", got,
                     pre.batched_dry_run_plain(batch), torch)
-        l, n, _k, r = (*batch.perm.shape, batch.victim_req.shape[2])
+        l, r = batch.perm.shape[0], batch.victim_req.shape[2]
         ordered = torch.gather(batch.victim_req[None].expand(l, n, k, r), 2,
                                batch.perm.long()[..., None].expand(l, n, k, r))
         mask = torch.arange(k, device=dev)[None, None, :] < batch.elig_len[..., None]
-        x = ordered * mask[..., None].to(torch.float32)
+        x = torch.nan_to_num(ordered * mask[..., None].to(torch.float32), posinf=0.0, nan=0.0)
         cumsum_equal.append(bool(torch.equal(torch.cumsum(x, 2), pre._cumsum(x, 2))))
-        cases.append({"seed": seed, "k": k, "levels": levels, "frac": frac,
-                      "feasible": int(got[0].sum())})
-        checked += 1
-    for seed, k in ((6, 8), (7, 64)):
-        free, victim_req, _, _, _, pods_req, _ = dry_run_inputs(seed, n=512, k=k, frac=True)
-        valid = np.random.default_rng(seed).random((512, k)) < 0.7
-        args = [torch.from_numpy(a).to(dev) for a in (free, victim_req, valid)]
-        for p in range(pods_req.shape[0]):
-            req = torch.from_numpy(pods_req[p]).to(dev)
-            check_equal(f"preempt_dry_run victims entry (seed {seed}, pod {p})",
-                        bindings.dry_run_victims(*args, req),
-                        pre.dry_run_victims_plain(*args, req), torch)
+        valid = torch.from_numpy(victim_masks(seed, n, k)).to(dev)
+        for p in range(0, pods, 5):
+            args = (batch.free, batch.victim_req, valid, batch.pods_req[p])
+            check_equal(f"preempt_dry_run victims entry (seed {seed}, K {k}, pod {p})",
+                        bindings.dry_run_victims(*args), pre.dry_run_victims_plain(*args),
+                        torch)
             checked += 1
+        cases.append({"seed": seed, "k": k, "levels": levels, "pods": pods, "nodes": n,
+                      "row_lanes": bindings.dry_run_lanes(levels, n, k, 4),
+                      "victims_row_lanes": bindings.dry_run_lanes(1, n, k, 4),
+                      "feasible": int(got[0].sum()), "min_k_max": int(got[1].max())})
+        checked += 1
     for seed in range(6):
         nodes, pods, bound = mixed_objects(wrappers, seed)
         snap, _ = SnapshotBuilder().build(nodes, pods, bound_pods=bound)
@@ -4806,27 +4948,68 @@ def preemption_parity(wrappers, filters, bindings, torch) -> None:
                                         sel.term_valid)
         for full in (False, True):
             check_equal(f"pod_filters (mixed seed {seed}, full {full})",
-                        (bindings.pod_filters(snap.cluster, snap.pods, mask, full),),
+                        (bindings.pod_filters(snap.cluster, snap.pods, sel, full),),
                         (filters.filter_rows_plain(snap.cluster, snap.pods, mask, full),), torch)
             checked += 1
+        # the pass's one binding call: a dry-run batch beside this snapshot
+        batch = batches[seed % len(batches)]
+        check_equal(f"preemption_pass (mixed seed {seed})",
+                    bindings.preemption_pass(batch, snap.cluster, snap.pods, sel),
+                    (*pre.batched_dry_run_plain(batch),
+                     filters.filter_rows_plain(snap.cluster, snap.pods, mask, False)), torch)
+        checked += 1
+    lanes = {c["row_lanes"] for c in cases} | {c["victims_row_lanes"] for c in cases}
+    if not {4, 8, 16, 32} <= lanes:
+        raise AssertionError(f"preemption_parity: rows of {sorted(lanes)} lanes, not 4-32")
     emit({"phase": "preemption_parity", "checked": checked, "dry_run_cases": cases,
           "equal": True, "torch_cumsum_equal_block_order": cumsum_equal})
 
 
-def c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card) -> tuple:
+def pass_rows(shape: str, batch, snap, need_dry, live, filters, pre, bindings, torch,
+              launches: dict) -> tuple:
+    """The pass's kernels at one shape against their plain versions, each
+    call timed alone (preempt_row): preempt_dry_run's batched entry and
+    pod_filters' static mode with its selector rows; and the pass's one
+    binding call (bindings.preemption_pass), the card alone and its host
+    clock.  Returns (the two rows, the pass's times)."""
+    sel = snap.selectors
+    mask = filters.match_rows_plain(snap.cluster, sel.expr_ids, sel.expr_op, sel.expr_slot,
+                                    sel.term_valid)
+    static = lambda: filters.filter_rows_plain(snap.cluster, snap.pods, mask, False)
+    dry = lambda: pre.batched_dry_run_plain(batch)
+    want_static = (static(),)
+    want_dry = tuple(dry())
+    n_live, p_live = live
+    rows = [
+        preempt_row("preempt_dry_run", shape, lambda: bindings.batched_dry_run(*batch),
+                    want_dry, dry, need_dry, torch, launches["preempt_dry_run"]),
+        preempt_row("pod_filters", shape,
+                    lambda: bindings.pod_filters(snap.cluster, snap.pods, sel, False),
+                    want_static, static, pod_filters_need(snap, n_live, p_live, torch), torch,
+                    launches["pod_filters"]),
+    ]
+    one = lambda: bindings.preemption_pass(batch, snap.cluster, snap.pods, sel)
+    check_equal(f"preemption_pass ({shape})", one(), (*want_dry, *want_static), torch)
+    ms, host_ms = launch_ms(one, lambda: None, 50, torch)
+    return rows, {"ms": ms, "host_ms": host_ms, "launches_a_call": 2}
+
+
+def c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card) -> list:
     """bench.py's c9 frozen-trace planning (bench.py:1087-1120) on the card:
     20,000 nodes with one victim each (32,768 padded), the zero-budget PDB
     on every fourth, 16 preemptors over 3 priority levels.  The shared
     batched pass and the classic per-pod walk must plan alike; both are
-    timed, with their launches, and preempt_dry_run and pod_filters are
-    timed at this shape against their plain versions with the bound of
-    their work.  Returns the two kernels' rows."""
+    timed, with their launches (a pass: pod_filters and preempt_dry_run
+    once, match_terms never; the walk: both once a preemptor), and the
+    kernels are timed at this shape (K) against their plain versions with
+    the bound of their work, pod_filters also on the walk's one-pod static
+    row (K1).  Returns the kernels' rows."""
     from kubernetes_tpu_torch.ops import preemption as pre
     from kubernetes_tpu_torch.testing.cases import c9_objects
 
     nodes, victims, failed, pdb = c9_objects(wrappers, *C9)
     t0 = time.perf_counter()
-    sched, _cache, ev = preemption_setup(TorchBatchScheduler, nodes, victims, failed, [pdb])
+    sched, cache, ev = preemption_setup(TorchBatchScheduler, nodes, victims, failed, [pdb])
     setup_s = time.perf_counter() - t0
 
     def plan_key(got):
@@ -4851,7 +5034,7 @@ def c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card) -
         batch, snap = ctx.inputs
         timings = dict(ctx.timings)
         need_dry = dry_run_need(ctx, failed)
-        n_live, p_live = len(ctx.nodes), len(ctx.index)
+        live = (len(ctx.nodes), len(ctx.index))
     launches_b = dict(bindings.LAUNCHES)
     bindings.reset_launches()
     t0 = time.perf_counter()
@@ -4869,34 +5052,31 @@ def c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card) -
     if guarded:
         raise AssertionError(f"c9: {guarded} plans evict a PDB-guarded victim")
 
-    # each kernel at this shape against its plain version, timed
-    got = bindings.batched_dry_run(*batch)
-    err_dry = check_equal("preempt_dry_run (c9 shape)", got, pre.batched_dry_run_plain(batch),
-                          torch)
-    sel = filters.selector_match(snap.cluster, snap.selectors)
-    got = bindings.pod_filters(snap.cluster, snap.pods, sel, False)
-    err_pf = check_equal("pod_filters (c9 shape)", (got,),
-                         (filters.filter_rows_plain(snap.cluster, snap.pods, sel, False),), torch)
-    rows = []
-    for name, fn, plain, need, err in (
-        ("preempt_dry_run", lambda: bindings.batched_dry_run(*batch),
-         lambda: pre.batched_dry_run_plain(batch), need_dry, err_dry),
-        ("pod_filters", lambda: bindings.pod_filters(snap.cluster, snap.pods, sel, False),
-         lambda: filters.filter_rows_plain(snap.cluster, snap.pods, sel, False),
-         pod_filters_need(snap, n_live, p_live, torch), err_pf),
-    ):
-        b_ms, b_by = bound(*need)
-        rows.append({"name": name, "max_abs_err": err, "ms": cuda_ms(fn, 50, torch),
-                     "plain_ms": min(time_plain(plain, torch) for _ in range(3)),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                     "need_bytes": need[0], "need_ops": need[1]})
+    # the kernels at this shape (K), and the walk's one-pod static row (K1)
+    rows, pass_k = pass_rows("K", batch, snap, need_dry, live, filters, pre, bindings, torch,
+                             launches_b)
+    with cache.lock:
+        one = ev._encode_static(failed[0])
+    pod1 = filters._pod_rows(filters.pod_view(one.pods, 0))
+    sel1 = one.selectors
+    mask1 = filters.match_rows_plain(one.cluster, sel1.expr_ids, sel1.expr_op, sel1.expr_slot,
+                                     sel1.term_valid)
+    row1 = lambda: filters.filter_rows_plain(one.cluster, pod1, mask1, False)
+    rows.append(preempt_row("pod_filters", "K1",
+                            lambda: bindings.pod_filters(one.cluster, pod1, sel1, False),
+                            (row1(),), row1, pod_filters_need(one, live[0], 1, torch, pods=pod1),
+                            torch, launches_c["pod_filters"]))
+    rows[-1].update(entry="the classic walk's static row (_static_row_from_snap)",
+                    replaces="kubernetes_tpu/ops/filters.py:166")
     emit({"phase": "c9", "nodes": C9[0], "padded_nodes": int(batch.free.shape[0]),
           "preemptors": C9[1], "levels": int(batch.perm.shape[0]),
-          "victim_slots": int(batch.perm.shape[2]), "plans_equal": True, "setup_s": setup_s,
+          "victim_slots": int(batch.perm.shape[2]),
+          "row_lanes": bindings.dry_run_lanes(*batch.perm.shape, int(batch.free.shape[1])),
+          "plans_equal": True, "setup_s": setup_s,
           "batched_s": t_batched, "classic_s": t_classic,
-          "speedup": t_classic / t_batched, "pass_split": timings,
-          "launches_batched": {k: launches_b[k] for k in PREEMPT_KERNELS},
-          "launches_classic": {k: launches_c[k] for k in PREEMPT_KERNELS},
+          "speedup": t_classic / t_batched, "pass_split": timings, "pass_call": pass_k,
+          "launches_batched": {k: launches_b[k] for k in PREEMPT_KERNELS + ("match_terms",)},
+          "launches_classic": {k: launches_c[k] for k in PREEMPT_KERNELS + ("match_terms",)},
           "kernels": rows, "card": card})
     return rows
 
@@ -4905,7 +5085,10 @@ def preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, ca
     """PreemptionBasic through TorchBatchScheduler on the card: 5,000 nodes
     (warm; the first PREEMPT_COLD preemptors also through use_mirror=False,
     equal), /500Nodes card against the CPU, then c9's planning trace.
-    Returns the launch counts of the 5,000-node run and the kernels' rows."""
+    Returns the launch counts of the 5,000-node run and the kernels' rows
+    (Q: the first pass's inputs; c9's K and K1)."""
+    from kubernetes_tpu_torch.ops import preemption as pre
+
     cycles = PREEMPT_MEASURED // PREEMPT_PASS
     t0 = time.perf_counter()
     sched, cache, ev, pods = preemption_basic(wrappers, TorchBatchScheduler, PREEMPT)
@@ -4915,7 +5098,8 @@ def preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, ca
         "preemption", lambda: preemption_run(sched, cache, ev, pods, cycles + 1), bindings,
         [sched], extra=PREEMPT_KERNELS)
     passes = len(recs)
-    if launches["preempt_dry_run"] != passes or launches["pod_filters"] != passes:
+    if (launches["preempt_dry_run"] != passes or launches["pod_filters"] != passes
+            or launches["match_terms"]):
         raise AssertionError(f"preemption: {passes} passes, launches {launches}")
     if any(r["fallback"] or r["empty"] for r in recs):
         raise AssertionError("preemption: a pass fell back or encoded no victim")
@@ -4972,8 +5156,17 @@ def preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, ca
                     "preempted": len(small["cuda"][0]), "card_s": small["cuda"][3],
                     "cpu_s": small["cpu"][3]},
           "card": card})
+    q = recs[0]
+    q_rows, q_pass = pass_rows("Q", *q["inputs"], q["need_dry"], q["live"], filters, pre,
+                               bindings, torch, launches)
+    emit({"phase": "preemption_kernels", "workload": "PreemptionBasic/5000Nodes, the first "
+          "pass", "padded_nodes": int(q["inputs"][0].free.shape[0]),
+          "victim_slots": int(q["inputs"][0].perm.shape[2]),
+          "row_lanes": bindings.dry_run_lanes(*q["inputs"][0].perm.shape,
+                                              int(q["inputs"][0].free.shape[1])),
+          "kernels": q_rows, "pass_call": q_pass, "card": card})
     rows = c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card)
-    return {"launches": launches, "rows": rows}
+    return {"launches": launches, "rows": q_rows + rows}
 
 
 # ---- faults: degraded mode on the card ---------------------------------------
@@ -5082,31 +5275,19 @@ def nan_parity(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bind
     run_evaluate_single(one, assign.features_of(one_np), cfg, assign, bindings, torch)
 
     # pod_filters' full mode (feasible_batch: the Filter chain with fit and
-    # ports), timed on the healthy snapshot; no path of the scheduler calls it
+    # ports, its selector rows evaluated in the launch), timed on the
+    # healthy snapshot (S64); no path of the scheduler calls it
     sel = snap.selectors
     mask = filters.match_rows_plain(snap.cluster, sel.expr_ids, sel.expr_op, sel.expr_slot,
                                     sel.term_valid)
-    err = check_equal("pod_filters (full mode)",
-                      (bindings.pod_filters(snap.cluster, snap.pods, mask, True),),
-                      (filters.filter_rows_plain(snap.cluster, snap.pods, mask, True),), torch)
-    n_live, p_live = MAIN[0], FAULT_BATCH
-    nb, ops = pod_filters_need(snap, n_live, p_live, torch)
-    r = snap.cluster.allocatable.shape[1]
-    pw = snap.cluster.port_bits.shape[1]
-    # the full mode also reads each live node's allocatable, requested and
-    # port words and each pod's requests and ports; 2 operations a
-    # (pod, node, resource) and one a (pod, node, port word)
-    nb += n_live * (2 * 4 * r + 4 * pw) + p_live * (4 * r + 4 * pw)
-    ops += float(p_live * n_live * (2 * r + pw))
-    b_ms, b_by = bound(nb, ops)
-    full_row = {"name": "pod_filters (full mode: feasible_for_pod / feasible_batch)",
-                "shape": "SchedulingBasic/5000Nodes, 64 pods (8,192 padded nodes)",
-                "max_abs_err": err,
-                "ms": cuda_ms(lambda: bindings.pod_filters(snap.cluster, snap.pods, mask, True),
-                              50, torch),
-                "plain_ms": min(time_plain(lambda: filters.filter_rows_plain(
-                    snap.cluster, snap.pods, mask, True), torch) for _ in range(3)),
-                "bound_ms": b_ms, "bound_by": b_by, "launches": 0}
+    full = lambda: filters.filter_rows_plain(snap.cluster, snap.pods, mask, True)
+    full_row = preempt_row("pod_filters", "S64",
+                           lambda: bindings.pod_filters(snap.cluster, snap.pods, sel, True),
+                           (full(),), full,
+                           pod_filters_need(snap, MAIN[0], FAULT_BATCH, torch, full=True), torch,
+                           0)
+    full_row.update(entry="full mode: feasible_for_pod / feasible_batch",
+                    workload="SchedulingBasic/5000Nodes, 64 pods (8,192 padded nodes)")
     return {"allocatable_inf": {"scan_nan_scores": scan_nan, "auction_rounds": rounds,
                                 "kernels": ["match_terms", "class_statics", "greedy_scan",
                                             "wavefront", "auction_loop", "auction_bids",
@@ -5391,6 +5572,8 @@ def faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bi
                 bindings, [sch], extra=PREEMPT_KERNELS, armed=label == "faulted")
         runs[label] = ([result_key(r) for r in results], sorted(sch.state._pod_node.items()),
                        rec, breaker_state(sch), launches["preempt_dry_run"], dict(reg.fired))
+        if label == "faulted":
+            launches_f = launches
     keys_h, pods_h, rec_h, br_h, batched_h, _ = runs["healthy"]
     keys_f, pods_f, rec_f, br_f, n_calls, fired = runs["faulted"]
     expect("batch.preemption", not rec_h["fallback"] and batched_h == 1
@@ -5406,17 +5589,20 @@ def faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bi
     vout = bindings.dry_run_victims(*args)
     err = check_equal("preempt_dry_run victims entry (faults)", vout,
                       pre.dry_run_victims_plain(*args), torch)
-    b_ms, b_by = bound(*dry_run_victims_need(args, vout, torch))
+    row = preempt_row("preempt_dry_run", "V", lambda: bindings.dry_run_victims(*args),
+                      tuple(pre.dry_run_victims_plain(*args)),
+                      lambda: pre.dry_run_victims_plain(*args),
+                      dry_run_victims_need(args, vout, torch), torch, n_calls)
+    row.update(entry="dry_run_victims", replaces="kubernetes_tpu/ops/preemption.py:70",
+               max_abs_err=max(err, row["max_abs_err"]),
+               slots=f"{tuple(args[1].shape)} (candidates, slots, resources)",
+               row_lanes=bindings.dry_run_lanes(1, *args[1].shape))
     out["batch_preemption"] = {
         "workload": "PreemptionBasic/500Nodes", "preemptors": PREEMPT_PASS,
         "fallback": True, "breaker": br_f, "equal_healthy_batched_pass": True,
         "nominated": sum(k is not None for k in keys_f),
-        "dry_run_victims": {"launches": n_calls, "max_abs_err": err,
-                            "shape": f"{tuple(args[1].shape)} (candidates, slots, resources)",
-                            "ms": cuda_ms(lambda: bindings.dry_run_victims(*args), 50, torch),
-                            "plain_ms": min(time_plain(lambda: pre.dry_run_victims_plain(*args),
-                                                       torch) for _ in range(3)),
-                            "bound_ms": b_ms, "bound_by": b_by}}
+        "launches_faulted": {k: launches_f[k] for k in PREEMPT_KERNELS + ("match_terms",)},
+        "dry_run_victims": row}
     emit(out)
     return out
 

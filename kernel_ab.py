@@ -2,6 +2,7 @@
 
     python3 kernel_ab.py KERNEL OTHER_CSRC_DIR [SHAPE]
     python3 kernel_ab.py statics OTHER_CSRC_DIR [SHAPE ...]
+    python3 kernel_ab.py preempt OTHER_CSRC_DIR [SHAPE ...]
 
 KERNEL and its shapes (the first is the default):
 
@@ -45,6 +46,25 @@ KERNEL and its shapes (the first is the default):
                   N  the north star's first batch
                   G  bench.py c5's first batch (100 gangs, 65,536 padded
                      nodes)
+  preempt         a PostFilter pass's device work (match_terms +
+                  pod_filters + preempt_dry_run in a tree before the pass
+                  had one binding call; bindings.preemption_pass, or its
+                  kernels alone, in a tree with it), each shape named in
+                  one process, in this order (default Q):
+                  Q  PreemptionBasic/5000Nodes' first pass (8,192 padded
+                     candidate nodes, K 4, L 1, 16 preemptors)
+                  K  c9's batched pass (32,768 padded nodes, K 4, L 4)
+                  V  the per-pod dry-run of chip_smoke's `faults` step 8
+                     (dry_run_victims)
+                  K1 one preemptor's static row on c9's snapshot (the
+                     classic walk's Filter slice)
+                  S64 the Filter chain's full mode, 64 pods at
+                     SchedulingBasic/5000Nodes
+                  D  end to end: each tree's own chip_smoke.py helpers in a
+                     fresh process from the tree's root (OTHER_CSRC_DIR's
+                     grandparent), other, change, change, other: the
+                     PreemptionBasic/5000Nodes passes' dispatch_s and c9's
+                     batched pass (batched_s)
 
 Builds kubernetes_tpu_torch/csrc/KERNEL.cu ("change") and
 OTHER_CSRC_DIR/KERNEL.cu ("other") with build.py's flags plus -Xptxas -v,
@@ -77,7 +97,10 @@ on the same inputs: every call of a prep alone and the whole prep, the
 card's time behind a spin and the host clock of the call
 (chip_smoke.launch_ms), other, change, change, other, each result equal
 to the plain prep's; it prints one JSON line a shape as it goes, then
-the card line and the ptxas reports.
+the card line and the ptxas reports.  `preempt` does the same with
+each tree's preemption calls (preempt_calls), each result equal to the
+plain versions' (batched_dry_run_plain, static_feasible_batch_plain,
+filter_rows_plain, dry_run_victims_plain).
 """
 
 from __future__ import annotations
@@ -122,6 +145,18 @@ SHAPES = {
                   "the auction's spec classes"),
         "G": (20, "bench.py c5's first batch (65,536 padded nodes, 100 gangs), the "
                   "auction's spec classes"),
+    },
+    "preempt": {
+        "Q": (50, "PreemptionBasic/5000Nodes first pass (8,192 padded candidate nodes, "
+                  "K 4, L 1, 16 preemptors)"),
+        "K": (50, "c9's batched pass (20,000 nodes, 32,768 padded, 16 preemptors)"),
+        "V": (50, "faults step 8's per-pod dry-run (PreemptionBasic/500Nodes after one "
+                  "pass, the next preemptor)"),
+        "K1": (50, "one preemptor's static row on c9's snapshot (the classic walk)"),
+        "S64": (50, "64 pod-default pods at SchedulingBasic/5000Nodes, the full Filter "
+                    "chain"),
+        "D": (4, "end to end: PreemptionBasic/5000Nodes passes' dispatch_s (4 cycles) and "
+                 "c9's batched pass, a fresh process a tree"),
     },
     "auction": {
         "B": (10, "SchedulingBasic/5000Nodes measured batch, the whole round loop"),
@@ -459,6 +494,181 @@ def statics_ab(shapes, other_dir: Path, out_dir: Path, torch) -> list:
     return rows
 
 
+def preempt_calls(bindings, filters, kind: str, inputs) -> dict:
+    """A tree's device work of a preemption shape as its bindings run it,
+    by name: (call, view) with view(call()) what the plain versions give
+    ("want" of preempt_want), or None for a call with no plain twin of its
+    own.  A tree with bindings.preemption_pass hands pod_filters the
+    selector table; an earlier tree makes the mask with match_terms
+    first (once beforehand for the kernels timed alone)."""
+    if kind == "victims":
+        return {"dry_run_victims": (lambda: bindings.dry_run_victims(*inputs),
+                                    lambda out: out)}
+    batch, snap = inputs if kind == "pass" else (None, inputs)
+    cl, sel = snap.cluster, snap.selectors
+    pods = filters._pod_rows(filters.pod_view(snap.pods, 0)) if kind == "static_row" \
+        else snap.pods
+    full = kind == "full"
+    one = "pass" if kind == "pass" else "filters"
+    if hasattr(bindings, "preemption_pass"):
+        calls = {"pod_filters": (lambda: bindings.pod_filters(cl, pods, sel, full),
+                                 lambda out: (out,))}
+        if kind == "pass":
+            calls["preempt_dry_run"] = (lambda: bindings.batched_dry_run(*batch),
+                                        lambda out: out)
+            calls["pass"] = (lambda: bindings.preemption_pass(batch, cl, pods, sel),
+                             lambda out: out)
+        else:
+            calls[one] = calls["pod_filters"]
+        return calls
+    rows = (cl.label_bits, cl.topo_ids, sel.expr_ids, sel.expr_op, sel.expr_slot,
+            sel.term_valid)
+    mask = bindings.match_terms(*rows)
+
+    def whole():
+        out = (bindings.pod_filters(cl, pods, bindings.match_terms(*rows), full),)
+        return (*bindings.batched_dry_run(*batch), *out) if kind == "pass" else out
+
+    calls = {"match_terms": (lambda: bindings.match_terms(*rows), None),
+             "pod_filters": (lambda: bindings.pod_filters(cl, pods, mask, full),
+                             lambda out: (out,)),
+             one: (whole, lambda out: out)}
+    if kind == "pass":
+        calls["preempt_dry_run"] = (lambda: bindings.batched_dry_run(*batch),
+                                    lambda out: out)
+    return calls
+
+
+def preempt_want(kind: str, inputs, filters, pre) -> dict:
+    """The plain versions' results of a preemption shape, by call name."""
+    if kind == "victims":
+        return {"dry_run_victims": tuple(pre.dry_run_victims_plain(*inputs))}
+    batch, snap = inputs if kind == "pass" else (None, inputs)
+    cl, sel = snap.cluster, snap.selectors
+    pods = filters._pod_rows(filters.pod_view(snap.pods, 0)) if kind == "static_row" \
+        else snap.pods
+    mask = filters.match_rows_plain(cl, sel.expr_ids, sel.expr_op, sel.expr_slot,
+                                    sel.term_valid)
+    rows = (filters.filter_rows_plain(cl, pods, mask, kind == "full"),)
+    if kind != "pass":
+        return {"pod_filters": rows, "filters": rows}
+    dry = tuple(pre.batched_dry_run_plain(batch))
+    return {"pod_filters": rows, "preempt_dry_run": dry, "pass": (*dry, *rows)}
+
+
+# each tree's PreemptionBasic passes and c9's batched pass, end to end, in a
+# fresh process from the tree's root; only chip_smoke.py helpers that every
+# tree whose chip_smoke.py has the preemption phases has
+E2E_CODE = """
+import json, sys, time
+import torch
+import chip_smoke as c
+from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+from kubernetes_tpu_torch.testing import wrappers as w
+T = c.recording(TorchBatchScheduler)
+from kubernetes_tpu_torch.testing.cases import c9_objects
+s, ca, ev, pods = c.preemption_basic(w, T, c.PREEMPT)
+keys, recs, _pods, wall = c.preemption_run(s, ca, ev, pods, int(sys.argv[1]))
+nodes, victims, failed, pdb = c9_objects(w, *c.C9)
+_s, _c, ev9 = c.preemption_setup(T, nodes, victims, failed, [pdb])
+batched, split = [], []
+for i in range(4):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ev9.shared_pass(failed) as ctx:
+        [ev9._candidates(p) for p in failed]
+        torch.cuda.synchronize()
+        batched.append(time.perf_counter() - t0)
+        split.append(dict(ctx.timings))
+print(json.dumps({"dispatch_s": [r["dispatch_s"] for r in recs],
+                  "encode_s": [r["encode_s"] for r in recs],
+                  "pass_s": [r["pass_s"] for r in recs], "preempted": len(keys),
+                  "c9_batched_s": batched, "c9_pass_split": split}))
+"""
+
+
+def preempt_e2e(other_dir: Path, cycles: int) -> dict:
+    """dispatch_s of PreemptionBasic/5000Nodes' passes and c9's batched_s
+    (the first of its four passes pays the shapes' first use), each tree
+    in a fresh process from its root: other, change, change, other."""
+    roots = {"other": other_dir.parent.parent, "change": Path(__file__).resolve().parent}
+    runs = {"other": [], "change": []}
+    for which in ("other", "change", "change", "other"):
+        proc = subprocess.run([sys.executable, "-c", E2E_CODE, str(cycles)], cwd=roots[which],
+                              capture_output=True, text=True, check=True)
+        runs[which].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps({"kernel": "preempt", "shape": "D", "tree": which,
+                          **runs[which][-1]}), flush=True)
+    return {"kernel": "preempt", "shape": "D", "workload": SHAPES["preempt"]["D"][1],
+            "roots": {k: str(v) for k, v in roots.items()}, "runs": runs}
+
+
+def preempt_ab(shapes, other_dir: Path, out_dir: Path, torch) -> list:
+    """The preemption calls at each shape: the other tree's own sequence
+    against this tree's, each result equal to the plain versions' on the
+    same inputs; other, change, change, other; each call's card time
+    alone and host clock (chip_smoke.launch_ms).  One row a shape."""
+    import importlib
+
+    from kubernetes_tpu_torch.kernels import bindings, build
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.ops import filters
+    from kubernetes_tpu_torch.ops import preemption as pre
+    from kubernetes_tpu_torch.testing import wrappers
+
+    names = ["pod_filters", "preempt_dry_run"]
+    change_reports = {}
+    for name in names:
+        build._libs[name], change_reports[name] = build_library(name, build.CSRC_DIR, out_dir)
+    other_names = names + (["match_terms"] if (other_dir / "match_terms.cu").exists() else [])
+    other, other_reports = load_other_bindings(other_dir, out_dir, other_names)
+    other_filters = importlib.import_module("kt_other.ops.filters")
+    build.build_all([k for k in build.KERNELS if k not in names])   # the inputs' kernels
+    rows = []
+    for shape in shapes:
+        iters, workload = SHAPES["preempt"][shape]
+        if shape == "D":
+            rows.append(preempt_e2e(other_dir, iters))
+            continue
+        kind, inputs = chip_smoke.preempt_shape(wrappers, chip_smoke.recording(
+            TorchBatchScheduler), shape)
+        torch.cuda.synchronize()
+        want = preempt_want(kind, inputs, filters, pre)
+        calls = {"other": preempt_calls(other, other_filters, kind, inputs),
+                 "change": preempt_calls(bindings, filters, kind, inputs)}
+        card = {w: {k: [] for k in calls[w]} for w in calls}
+        host = {w: {k: [] for k in calls[w]} for w in calls}
+        for which in ("other", "change", "change", "other"):
+            for name, (call, view) in calls[which].items():
+                if view is not None:
+                    chip_smoke.check_equal(f"preempt {shape} ({which} {name})", view(call()),
+                                           want[name], torch)
+                ms, host_ms = chip_smoke.launch_ms(call, lambda: None, iters, torch)
+                card[which][name].append(ms)
+                host[which][name].append(host_ms)
+        med = lambda d: {w: {k: statistics.median(v) for k, v in d[w].items()} for w in d}
+        row = {"kernel": "preempt", "shape": shape, "workload": workload,
+               "other_source": str(other_dir), "launches_a_timing": iters,
+               "card_ms": card, "median_card_ms": med(card),
+               "host_ms": host, "median_host_ms": med(host), "equal_plain": True}
+        if kind == "pass":
+            batch, snap = inputs
+            row.update(padded_nodes=int(batch.free.shape[0]), slots=int(batch.perm.shape[2]),
+                       levels=int(batch.perm.shape[0]), pods=int(batch.pods_req.shape[0]),
+                       static_nodes=int(snap.cluster.node_valid.shape[0]),
+                       selector_rows=int(snap.selectors.term_valid.shape[0]))
+        elif kind == "victims":
+            row.update(shape_ckr=list(inputs[1].shape))
+        else:
+            row.update(padded_nodes=int(inputs.cluster.node_valid.shape[0]),
+                       selector_rows=int(inputs.selectors.term_valid.shape[0]))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    for row in rows:
+        row["ptxas"] = {"change": change_reports, "other": other_reports}
+    return rows
+
+
 def single_case(snap, features, assign, bindings, torch):
     """(kern, plain) of evaluate_single on a one-pod snapshot on the card:
     the loaded library's own sequence — its fused launch where it has one
@@ -499,7 +709,7 @@ def single_case(snap, features, assign, bindings, torch):
 def main() -> int:
     import torch
 
-    many = len(sys.argv) > 1 and sys.argv[1] == "statics"
+    many = len(sys.argv) > 1 and sys.argv[1] in ("statics", "preempt")
     if len(sys.argv) < 3 or sys.argv[1] not in SHAPES or (len(sys.argv) > 4 and not many):
         print(__doc__, file=sys.stderr)
         return 2
@@ -516,11 +726,12 @@ def main() -> int:
 
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    if kernel == "statics":
-        rows = statics_ab(shapes, other_dir, out_dir, torch)
+    if many:
+        run = statics_ab if kernel == "statics" else preempt_ab
+        rows = run(shapes, other_dir, out_dir, torch)
         print(chip_smoke.card_line(), flush=True)
-        print(json.dumps({"kernel": "statics", "shapes": shapes,
-                          "ptxas": rows[0]["ptxas"] if rows else None}), flush=True)
+        print(json.dumps({"kernel": kernel, "shapes": shapes,
+                          "ptxas": rows[0].get("ptxas") if rows else None}), flush=True)
         return 0
     if kernel == "auction":
         result = auction_ab(shape, other_dir, out_dir, torch)

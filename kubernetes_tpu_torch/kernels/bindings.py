@@ -65,13 +65,12 @@ _ARGTYPES = {
     "class_extras": [_I] * 6 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
     "partials_eval": [_I] * 12 + [_P] * 27,
     "mirror_rows": [_P, _I, _I, _P],
-    "preempt_dry_run": [_I] * 5 + [_P] * 14,
-    "pod_filters": [_I] * 7 + [_P] * 16,
+    # the dry run and the Filter chain: (ints array, pointer array, stream)
+    "preempt_dry_run": [_P, _P, _P],
+    "pod_filters": [_P, _P, _P],
     # the family preps: (entry, ints array, pointer array, stream)
     "family_prep": [_I, _P, _P, _P],
 }
-# preempt_dry_run's second entry (dry_run_victims): 3 ints, 9 pointers
-_DRY_RUN_VICTIMS = [_I] * 3 + [_P] * 9
 
 # greedy_scan.cu's static capacities and parameter-block layout
 MAX_R, MAX_PW, MAX_FIT, MAX_SHAPE, MAX_MC, MAX_TW = 32, 256, 8, 16, 8, 32
@@ -86,6 +85,7 @@ MAX_MI = 16          # class_extras.cu's images a pod
 MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
 LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
 MAX_VICTIM_SLOTS = 4096  # preempt_dry_run.cu's widest victim axis
+DRY_RUN_CHUNK, DRY_RUN_POD_GROUP = 256, 32   # its slots a chunk, pods a group
 SPREAD_SHARED_Z = 256    # the auction's spread value spaces counted in shared memory
 # auction_common.cuh's stage flags (auction_loop_layout(3..10) checked on load)
 STAGE = {"loop": 32, "bids": 4, "accept": 1, "commit": 2, "spread": 8, "interpod": 16,
@@ -133,11 +133,21 @@ def _launcher(name: str):
             if got != want:
                 raise RuntimeError(f"{name} limits {got} != bindings {want}")
         if name == "preempt_dry_run":
-            max_k = getattr(lib, "preempt_dry_run_max_k")
-            max_k.restype, max_k.argtypes = ctypes.c_int, []
-            if max_k() != MAX_VICTIM_SLOTS:
-                raise RuntimeError(f"preempt_dry_run max K {max_k()} != bindings "
-                                   f"{MAX_VICTIM_SLOTS}")
+            layout = getattr(lib, "preempt_dry_run_layout")
+            layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
+            got = tuple(layout(i) for i in range(5))
+            want = (len(DRY_RUN_INTS), len(DRY_RUN_PTRS), MAX_VICTIM_SLOTS, DRY_RUN_CHUNK,
+                    DRY_RUN_POD_GROUP)
+            if got != want:
+                raise RuntimeError(f"preempt_dry_run layout {got} != bindings {want}")
+        if name == "pod_filters":
+            layout = getattr(lib, "pod_filters_layout")
+            layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
+            got = tuple(layout(i) for i in range(5))
+            want = (len(FILTERS_INTS), len(FILTERS_PTRS), STATICS_TILE, FILTERS_ROW_CHUNK,
+                    FILTERS_POD_CHUNK)
+            if got != want:
+                raise RuntimeError(f"pod_filters layout {got} != bindings {want}")
         if name == "auction_loop":
             layout = getattr(lib, "auction_loop_layout")
             layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
@@ -1302,18 +1312,48 @@ def class_extras(cluster, prefpod, images, features, cfg, reps, feas, pp) -> tor
     return out
 
 
-def batched_dry_run(free, victim_req, perm, elig_len, viol, pods_req, pod_level):
-    """(feasible bool[P, N], min_k i32[P, N], viol_k i32[P, N]) of one
-    PostFilter pass (kernel preempt_dry_run, its batched entry)."""
+# ---- preemption: the dry run and the Filter chain ------------------------------
+
+# preempt_dry_run.cu's and pod_filters.cu's launch arguments: ints[k] and
+# ptrs[k] in the order of their kI_* / kP_* enums (the *_layout functions
+# give the lengths and the chunks, checked on load)
+DRY_RUN_INTS = ("l", "n", "k", "r", "p")
+DRY_RUN_PTRS = ("free", "victim_req", "perm", "elig_len", "valid", "viol", "pods_req",
+                "pod_level", "feasible", "min_k", "viol_k")
+FILTERS_INTS = ("n", "lw", "tk", "tw", "pw", "r", "p", "s", "st", "se", "sk", "full")
+FILTERS_PTRS = (
+    "node_valid", "node_name", "label_bits", "topo_ids", "taint_bits", "node_ports",
+    "requested", "allocatable", "sel_ids", "sel_op", "sel_slot", "sel_tv",
+    "pod_valid", "pod_name", "sel_idx", "tol_bits", "tol_all", "pod_ports", "pod_req", "out",
+)
+FILTERS_ROW_CHUNK, FILTERS_POD_CHUNK = 1024, 64
+
+
+def _enqueue(name: str, dev: torch.device, ints, ptrs) -> None:
+    """One launch of a kernel with the (ints, pointers, stream) interface."""
+    arr_i = (ctypes.c_int * len(ints))(*ints)
+    arr_p = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    with torch.cuda.device(dev):
+        code = _launcher(name)(arr_i, arr_p, _stream(dev))
+    build.check(name, code)
+    LAUNCHES[name] += 1
+
+
+def dry_run_lanes(l: int, n: int, k: int, r: int) -> int:
+    """The lanes preempt_dry_run gives a (level, node) row in a launch of
+    L x N rows of K slots and R resources on this card: 32, or 16, 8, 4
+    when the rows outnumber the card's resident warps."""
+    _launcher("preempt_dry_run")  # binds the library and checks its layout
+    fn = build.library("preempt_dry_run").preempt_dry_run_lanes
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 4
+    return fn(l, n, k, r)
+
+
+def _dry_run_args(batch, keep: list) -> tuple:
+    """(ints, input pointers, P, N) of the batched dry run, each table
+    checked once."""
+    free, victim_req, perm, elig_len, viol, pods_req, pod_level = batch
     dev = free.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    free = _arg(free, f32, dev, "free")
-    victim_req = _arg(victim_req, f32, dev, "victim_req")
-    perm = _arg(perm, i32, dev, "perm")
-    elig_len = _arg(elig_len, i32, dev, "elig_len")
-    viol = _arg(viol, b, dev, "viol")
-    pods_req = _arg(pods_req, f32, dev, "pods_req")
-    pod_level = _arg(pod_level, i32, dev, "pod_level")
     n, k, r = victim_req.shape
     l = perm.shape[0]
     p = pods_req.shape[0]
@@ -1323,32 +1363,84 @@ def batched_dry_run(free, victim_req, perm, elig_len, viol, pods_req, pod_level)
         raise ValueError("preemption batch tables do not match its axes "
                          "(free [N, R], victim_req [N, K, R], perm / viol [L, N, K], "
                          "elig_len [L, N], pods_req [P, R], pod_level [P])")
-    if not 1 <= k <= MAX_VICTIM_SLOTS or r < 1 or l < 1:
+    if not 1 <= k <= MAX_VICTIM_SLOTS or r < 1 or not 1 <= l <= MAX_GRID_Y:
         raise ValueError(f"victim slots {k} outside [1, {MAX_VICTIM_SLOTS}], or no "
-                         f"resources ({r}) or levels ({l})")
-    feasible = torch.empty((p, n), dtype=torch.uint8, device=dev)
-    min_k = torch.empty((p, n), dtype=i32, device=dev)
-    viol_k = torch.empty((p, n), dtype=i32, device=dev)
+                         f"resources ({r}), or levels ({l}) outside [1, {MAX_GRID_Y}]")
+    f = _checked(dev, ((free, _F32, "free"), (victim_req, _F32, "victim_req"),
+                       (perm, _I32, "perm"), (elig_len, _I32, "elig_len"),
+                       (viol, torch.bool, "viol"), (pods_req, _F32, "pods_req"),
+                       (pod_level, _I32, "pod_level")), keep)
+    # free, victim_req, perm, elig_len, valid (none), viol, pods_req, pod_level
+    return (l, n, k, r, p), [*f[:4], None, *f[4:]], p, n
+
+
+def _filters_args(cluster, pods, sel, full: bool, keep: list) -> tuple:
+    """(ints, pointers without the output, P, N) of pod_filters, each
+    table checked once; the resource pointers null in static mode."""
+    dev = cluster.node_valid.device
+    b = torch.bool
+    n, lw = cluster.label_bits.shape
+    tk = cluster.topo_ids.shape[1]
+    tw = cluster.taint_bits.shape[2]
+    pw = cluster.port_bits.shape[1]
+    p = pods.valid.shape[0]
+    s_rows, st, se, sk = sel.expr_ids.shape
+    if (cluster.topo_ids.shape[0] != n or cluster.taint_bits.shape[:2] != (3, n)
+            or cluster.port_bits.shape[0] != n or cluster.node_valid.shape != (n,)
+            or cluster.name_id.shape != (n,)):
+        raise ValueError("node tables do not share the node axis")
+    if (sel.expr_op.shape != (s_rows, st, se) or sel.expr_slot.shape != (s_rows, st, se)
+            or sel.term_valid.shape != (s_rows, st) or s_rows < 1):
+        raise ValueError("selector table not [S >= 1, T, E, K]")
+    if (pods.tol_bits.shape != (3, p, tw) or pods.tol_all.shape != (3, p)
+            or pods.port_bits.shape != (p, pw) or pods.name_id.shape != (p,)
+            or pods.sel_idx.shape != (p,)):
+        raise ValueError("pod tables do not match the pod axis or the node bitset widths")
+    res = ()
+    r = 0
+    if full:
+        r = cluster.allocatable.shape[1]
+        if cluster.requested.shape != (n, r) or pods.req.shape != (p, r):
+            raise ValueError("requested / allocatable [N, R] and pods.req [P, R] disagree")
+        res = ((cluster.requested, _F32, "requested"),
+               (cluster.allocatable, _F32, "allocatable"), (pods.req, _F32, "pods.req"))
+    ptrs = _checked(dev, (
+        (cluster.node_valid, b, "node_valid"), (cluster.name_id, _I32, "name_id"),
+        (cluster.label_bits, _I32, "label_bits"), (cluster.topo_ids, _I32, "topo_ids"),
+        (cluster.taint_bits, _I32, "taint_bits"), (cluster.port_bits, _I32, "port_bits"),
+        (sel.expr_ids, _I32, "sel.expr_ids"), (sel.expr_op, _I32, "sel.expr_op"),
+        (sel.expr_slot, _I32, "sel.expr_slot"), (sel.term_valid, b, "sel.term_valid"),
+        (pods.valid, b, "pods.valid"), (pods.name_id, _I32, "pods.name_id"),
+        (pods.sel_idx, _I32, "pods.sel_idx"), (pods.tol_bits, _I32, "pods.tol_bits"),
+        (pods.tol_all, b, "pods.tol_all"), (pods.port_bits, _I32, "pods.port_bits"),
+        *res), keep)
+    rq, cap, req = ptrs[16:] if full else (None, None, None)
+    ints = (n, lw, tk, tw, pw, r, p, s_rows, st, se, sk, int(full))
+    return ints, [*ptrs[:6], rq, cap, *ptrs[6:16], req], p, n
+
+
+def batched_dry_run(free, victim_req, perm, elig_len, viol, pods_req, pod_level):
+    """(feasible bool[P, N], min_k i32[P, N], viol_k i32[P, N]) of one
+    PostFilter pass (kernel preempt_dry_run, its batched entry): one
+    launch, one allocation (the outputs views of it)."""
+    keep = []
+    batch = (free, victim_req, perm, elig_len, viol, pods_req, pod_level)
+    ints, ptrs, p, n = _dry_run_args(batch, keep)
+    dev = free.device
+    buf = torch.empty(9 * p * n, dtype=_U8, device=dev)
+    min_k, viol_k = buf[: 8 * p * n].view(_I32).view(2, p, n).unbind(0)
+    feasible = buf[8 * p * n :].view(p, n)
     if n and p:
-        cum = torch.empty((l, n, k, r), dtype=f32, device=dev)
-        cum_viol = torch.empty((l, n, k), dtype=i32, device=dev)
-        bound = torch.empty((l, n), dtype=i32, device=dev)
-        _launch("preempt_dry_run", dev, l, n, k, r, p,
-                *(_ptr(t) for t in (free, victim_req, perm, elig_len, viol, pods_req,
-                                    pod_level, cum, cum_viol, bound, feasible, min_k,
-                                    viol_k)))
+        out = buf.data_ptr()
+        _enqueue("preempt_dry_run", dev, ints, ptrs + [out + 8 * p * n, out, out + 4 * p * n])
     return feasible.view(torch.bool), min_k, viol_k
 
 
 def dry_run_victims(free, victim_req, victim_valid, pod_req):
     """(feasible bool[C], min_k i32[C]) of one pod over its C candidates
-    (kernel preempt_dry_run, its dry_run_victims entry)."""
+    (kernel preempt_dry_run, its victims entry: L = P = 1, the mask
+    victim_valid): one launch, one allocation."""
     dev = free.device
-    i32, f32 = torch.int32, torch.float32
-    free = _arg(free, f32, dev, "free")
-    victim_req = _arg(victim_req, f32, dev, "victim_req")
-    victim_valid = _arg(victim_valid, torch.bool, dev, "victim_valid")
-    pod_req = _arg(pod_req, f32, dev, "pod_req")
     c, k, r = victim_req.shape
     if free.shape != (c, r) or victim_valid.shape != (c, k) or pod_req.shape != (r,):
         raise ValueError("dry-run tables do not match its axes (free [C, R], "
@@ -1356,68 +1448,55 @@ def dry_run_victims(free, victim_req, victim_valid, pod_req):
     if not 1 <= k <= MAX_VICTIM_SLOTS or r < 1:
         raise ValueError(f"victim slots {k} outside [1, {MAX_VICTIM_SLOTS}], or no "
                          f"resources ({r})")
-    feasible = torch.empty(c, dtype=torch.uint8, device=dev)
-    min_k = torch.empty(c, dtype=i32, device=dev)
+    keep = []
+    f = _checked(dev, ((free, _F32, "free"), (victim_req, _F32, "victim_req"),
+                       (victim_valid, torch.bool, "victim_valid"), (pod_req, _F32, "pod_req")),
+                 keep)
+    buf = torch.empty(5 * c, dtype=_U8, device=dev)
+    min_k, feasible = buf[: 4 * c].view(_I32), buf[4 * c :]
     if c:
-        cum = torch.empty((c, k, r), dtype=f32, device=dev)
-        cum_viol = torch.empty((c, k), dtype=i32, device=dev)
-        bound = torch.empty(c, dtype=i32, device=dev)
-        _launcher("preempt_dry_run")  # binds the library and checks its limits
-        fn = build.library("preempt_dry_run").preempt_dry_run_victims_launch
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = _DRY_RUN_VICTIMS + [_P]
-        with torch.cuda.device(dev):
-            code = fn(c, k, r, *(_ptr(t) for t in (free, victim_req, victim_valid, pod_req,
-                                                    cum, cum_viol, bound, feasible, min_k)),
-                      _stream(dev))
-        build.check("preempt_dry_run", code)
-        LAUNCHES["preempt_dry_run"] += 1
+        out = buf.data_ptr()
+        _enqueue("preempt_dry_run", dev, (1, c, k, r, 1),
+                 [f[0], f[1], None, None, f[2], None, f[3], None, out + 4 * c, out, None])
     return feasible.view(torch.bool), min_k
 
 
-def pod_filters(cluster, pods, sel_mask, full: bool) -> torch.Tensor:
+def pod_filters(cluster, pods, sel, full: bool) -> torch.Tensor:
     """bool[P, N]: per pod the static Filter slice, and with `full` the
-    whole chain with resources and ports (kernel pod_filters)."""
-    dev = cluster.node_valid.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    nodes = [_arg(cluster.node_valid, b, dev, "node_valid"),
-             _arg(cluster.name_id, i32, dev, "name_id"),
-             _arg(cluster.taint_bits, i32, dev, "taint_bits"),
-             _arg(cluster.port_bits, i32, dev, "port_bits")]
-    n = nodes[0].shape[0]
-    tw, pw = nodes[2].shape[2], nodes[3].shape[1]
-    spec = [_arg(pods.valid, b, dev, "pods.valid"),
-            _arg(pods.name_id, i32, dev, "pods.name_id"),
-            _arg(pods.sel_idx, i32, dev, "pods.sel_idx"),
-            _arg(pods.tol_bits, i32, dev, "pods.tol_bits"),
-            _arg(pods.tol_all, b, dev, "pods.tol_all"),
-            _arg(pods.port_bits, i32, dev, "pods.port_bits")]
-    p = spec[0].shape[0]
-    sel_mask = _arg(sel_mask, b, dev, "sel_mask")
-    if full:
-        res = [_arg(cluster.requested, f32, dev, "requested"),
-               _arg(cluster.allocatable, f32, dev, "allocatable")]
-        req = _arg(pods.req, f32, dev, "pods.req")
-        r = res[0].shape[1]
-        if res[1].shape != (n, r) or req.shape != (p, r):
-            raise ValueError("requested / allocatable [N, R] and pods.req [P, R] disagree")
-    else:
-        pad = torch.zeros(1, dtype=f32, device=dev)
-        res, req, r = [pad, pad], pad, 0
-    if (nodes[2].shape[:2] != (3, n) or spec[3].shape != (3, p, tw)
-            or spec[4].shape != (3, p) or spec[5].shape != (p, pw)):
-        raise ValueError("taint / toleration / port words do not match the axes")
-    s_rows = sel_mask.shape[0]
-    if sel_mask.shape[1:] != (n,) or s_rows < 1:
-        raise ValueError(f"selector mask {tuple(sel_mask.shape)} is not [S >= 1, {n}]")
-    if p > MAX_GRID_Y:
-        raise ValueError(f"{p} pods exceed the grid's {MAX_GRID_Y}")
-    out = torch.empty((p, n), dtype=torch.uint8, device=dev)
+    whole chain with resources and ports (kernel pod_filters, the pods'
+    selector rows of `sel` evaluated in the launch)."""
+    keep = []
+    ints, ptrs, p, n = _filters_args(cluster, pods, sel, full, keep)
+    out = torch.empty((p, n), dtype=_U8, device=cluster.node_valid.device)
     if n and p:
-        _launch("pod_filters", dev, n, p, tw, pw, r, s_rows, int(full),
-                *(_ptr(t) for t in nodes + res + spec + [req, sel_mask, out]))
+        _enqueue("pod_filters", cluster.node_valid.device, ints, ptrs + [out.data_ptr()])
     return out.view(torch.bool)
+
+
+def preemption_pass(batch, cluster, pods, sel) -> Tuple[torch.Tensor, ...]:
+    """A PostFilter pass's device work in one call: (feasible bool[P, N],
+    min_k i32[P, N], viol_k i32[P, N]) of the batched dry run and the
+    static Filter slice bool[Ps, Ns] of the pass's snapshot; kernels
+    preempt_dry_run and pod_filters enqueued back to back, the four
+    outputs views of one allocation (one readback copies them together)."""
+    keep = []
+    d_ints, d_ptrs, p, n = _dry_run_args(tuple(batch), keep)
+    f_ints, f_ptrs, ps, ns = _filters_args(cluster, pods, sel, False, keep)
+    dev = batch[0].device
+    if cluster.node_valid.device != dev:
+        raise ValueError(f"the static snapshot is on {cluster.node_valid.device}, the "
+                         f"batch on {dev}")
+    pn = p * n
+    buf = torch.empty(9 * pn + ps * ns, dtype=_U8, device=dev)
+    min_k, viol_k = buf[: 8 * pn].view(_I32).view(2, p, n).unbind(0)
+    feasible, static = buf[8 * pn :].split((pn, ps * ns))
+    out = buf.data_ptr()
+    if n and p:
+        _enqueue("preempt_dry_run", dev, d_ints, d_ptrs + [out + 8 * pn, out, out + 4 * pn])
+    if ns and ps:
+        _enqueue("pod_filters", dev, f_ints, f_ptrs + [out + 9 * pn])
+    return (feasible.view(p, n).view(torch.bool), min_k, viol_k,
+            static.view(ps, ns).view(torch.bool))
 
 
 # ---- the family preps (kernel family_prep) ----------------------------------

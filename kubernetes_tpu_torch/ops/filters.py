@@ -1,12 +1,13 @@
 """Feasibility functions — the Filter extension point as boolean masks.
 
 Plain-torch versions of the reference package's filters (same names, same
-arguments, same axis order), plus the wrapper of the CUDA kernel
-`match_terms` (csrc/match_terms.cu) that computes a table's match mask on
-the card for the callers that need only masks (warm spread batches, the
-preemption pass, feasible_batch); the cold statics prep evaluates its
-rows inside kernel class_statics (ops.assign.cold_statics).  Covered
-plugins:
+axis order), plus the wrappers of the CUDA kernels `match_terms`
+(csrc/match_terms.cu), which computes a table's match mask on the card for
+the callers that need only masks (warm spread batches), and `pod_filters`
+(csrc/pod_filters.cu, the per-pod Filter chain, which evaluates the pods'
+selector rows in its own launch: the Filter-chain entry points below take
+the selector table, not a mask); the cold statics prep evaluates its rows
+inside kernel class_statics (ops.assign.cold_statics).  Covered plugins:
 
   NodeResourcesFit     fitsRequest, noderesources/fit.go:421-480
   NodeName             nodename/node_name.go:52-72
@@ -252,31 +253,35 @@ def filter_rows_plain(
 
 
 def filter_rows(
-    cluster: ClusterTensors, pods: PodBatch, sel_mask: torch.Tensor, full: bool
+    cluster: ClusterTensors, pods: PodBatch, sel: SelectorTable, full: bool
 ) -> torch.Tensor:
-    """Wrapper of kernel `pod_filters`: the kernel for tensors on the card,
-    the plain version for tensors on the CPU."""
+    """Wrapper of kernel `pod_filters` (the pods' rows of the selector
+    table evaluated in its launch): the kernel for tensors on the card,
+    match_rows_plain + filter_rows_plain for tensors on the CPU."""
     if cluster.node_valid.device.type == "cpu":
+        sel_mask = match_rows_plain(cluster, sel.expr_ids, sel.expr_op, sel.expr_slot,
+                                    sel.term_valid)
         return filter_rows_plain(cluster, pods, sel_mask, full)
     from ..kernels import bindings
 
-    return bindings.pod_filters(cluster, pods, sel_mask, full)
+    return bindings.pod_filters(cluster, pods, sel, full)
 
 
 def static_filter_row(
-    cluster: ClusterTensors, pod: PodView, sel_match: torch.Tensor
+    cluster: ClusterTensors, pod: PodView, sel: SelectorTable
 ) -> torch.Tensor:
     """static_feasible_for_pod through the wrapper of kernel `pod_filters`
-    (one pod): the kernel on the card, the plain version on the CPU."""
-    return filter_rows(cluster, _pod_rows(pod), sel_match, full=False)[0]
+    (one pod; its selector row from the table `sel`): the kernel on the
+    card, the plain versions on the CPU."""
+    return filter_rows(cluster, _pod_rows(pod), sel, full=False)[0]
 
 
 def feasible_for_pod(
-    cluster: ClusterTensors, pod: PodView, sel_match: torch.Tensor
+    cluster: ClusterTensors, pod: PodView, sel: SelectorTable
 ) -> torch.Tensor:
-    """The fused Filter chain for one pod against every node: bool[N].
-    sel_match is the [S, N] selector mask from selector_match()."""
-    return filter_rows(cluster, _pod_rows(pod), sel_match, full=True)[0]
+    """The fused Filter chain for one pod against every node: bool[N]
+    (its selector row from the table `sel`)."""
+    return filter_rows(cluster, _pod_rows(pod), sel, full=True)[0]
 
 
 def feasible_batch(
@@ -284,4 +289,4 @@ def feasible_batch(
 ) -> torch.Tensor:
     """Filter the whole batch at once: bool[P, N] (no inter-pod
     interaction; the solves re-evaluate per step instead)."""
-    return filter_rows(cluster, pods, selector_match(cluster, sel), full=True)
+    return filter_rows(cluster, pods, sel, full=True)

@@ -28,8 +28,9 @@ the order of additions decides which k fits.
 Each entry point sends tensors on the CPU to its plain version (`*_plain`)
 and tensors on the card to the CUDA kernels: `preempt_dry_run`
 (csrc/preempt_dry_run.cu, both dry-runs) and `pod_filters`
-(csrc/pod_filters.cu, the Filter chain, after `match_terms` gave the
-selector mask).
+(csrc/pod_filters.cu, the Filter chain, the pods' selector rows evaluated
+in its launch).  A PostFilter pass is one binding call
+(`run_preemption_pass`: both kernels, one allocation).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import NamedTuple
 import torch
 
 from .auction import prefix_sum
-from .filters import filter_rows, selector_match
+from .filters import filter_rows
 
 
 class DryRunResult(NamedTuple):
@@ -157,6 +158,21 @@ def static_feasible_batch_plain(cluster, pods, selectors) -> torch.Tensor:
 def run_static_feasible_batch(cluster, pods, selectors) -> torch.Tensor:
     """bool[P, N]: the placement-independent Filter slice (NodeName /
     taints / affinity / validity) of every preemptor of the pass,
-    resources and ports excluded: kernels match_terms and pod_filters on
-    the card, the plain versions on the CPU."""
-    return filter_rows(cluster, pods, selector_match(cluster, selectors), full=False)
+    resources and ports excluded: kernel pod_filters on the card (the
+    selector rows evaluated in its launch), the plain versions on the
+    CPU."""
+    return filter_rows(cluster, pods, selectors, full=False)
+
+
+def run_preemption_pass(batch: PreemptionBatch, cluster, pods, selectors):
+    """One PostFilter pass's device work: (the batched dry run, the static
+    Filter slice of the pass's snapshot).  On the card one binding call
+    (kernels preempt_dry_run and pod_filters, the four outputs views of
+    one allocation); on the CPU the plain versions."""
+    if batch.free.device.type == "cpu":
+        return (batched_dry_run_plain(batch),
+                static_feasible_batch_plain(cluster, pods, selectors))
+    from ..kernels import bindings
+
+    feasible, min_k, viol_k, static = bindings.preemption_pass(batch, cluster, pods, selectors)
+    return BatchDryRunResult(feasible, min_k, viol_k), static

@@ -41,10 +41,11 @@ preempt_dry_run and pod_filters, one pod at a time): it is not a host
 fallback.
 
 A copy of kubernetes_tpu/scheduler/preemption.py on TorchBatchScheduler:
-the batched dry-run is kernel preempt_dry_run, the static slice kernels
-match_terms and pod_filters (ops/preemption.py); every input is copied to
-`tpu.device` through ops/device.py and the pass's results come back in one
-readback.  The kernels are built once, so there is no prewarm hook.
+the batched dry-run is kernel preempt_dry_run, the static slice kernel
+pod_filters (its selector rows evaluated in its launch), both enqueued by
+one binding call (ops/preemption.py run_preemption_pass); every input is
+copied to `tpu.device` through ops/device.py and the pass's results come
+back in one readback.  The kernels are built once, so there is no prewarm hook.
 `tpu.breaker` is the scheduler's SolveCircuitBreaker: a batched pass that
 fails twice trips it, and while it is open every pass runs the per-pod
 path (kernel preempt_dry_run's second entry, the port of
@@ -69,7 +70,7 @@ from ..models.batch_scheduler import (
     SolveUnhealthy, TorchBatchScheduler, solve_fault_recoverable)
 from ..ops import device as device_ops
 from ..ops import preemption as pre_ops
-from ..ops.filters import pod_view, selector_match, static_filter_row
+from ..ops.filters import pod_view, static_filter_row
 from ..testing import faults
 from ..utils.vocab import pad_dim
 from .cache import SchedulerCache
@@ -388,9 +389,8 @@ class PreemptionEvaluator:
         ), self.tpu.device)
         t1 = time.perf_counter()
         act = faults.fire("batch.preemption", pods=len(elig), nodes=n)
-        result = pre_ops.run_batched_dry_run(batch)
-        static = pre_ops.run_static_feasible_batch(
-            snap.cluster, snap.pods, snap.selectors
+        result, static = pre_ops.run_preemption_pass(
+            batch, snap.cluster, snap.pods, snap.selectors
         )
         # one coalesced readback
         res_feasible, min_k, res_viol_k, static_np = device_ops.readback(
@@ -980,7 +980,7 @@ class PreemptionEvaluator:
         """bool[rows]: NodeName/taints/affinity/validity feasibility of the
         preemptor on every node (resources deliberately excluded — that is
         what eviction frees).  Pure device dispatch — no lock needed:
-        kernels match_terms and pod_filters (one pod) on the card."""
-        sel_mask = selector_match(snap.cluster, snap.selectors)
-        feas = static_filter_row(snap.cluster, pod_view(snap.pods, 0), sel_mask)
+        kernel pod_filters (one pod, its selector row evaluated in the
+        launch) on the card."""
+        feas = static_filter_row(snap.cluster, pod_view(snap.pods, 0), snap.selectors)
         return device_ops.readback([feas])[0]

@@ -974,3 +974,41 @@ def dry_run_inputs(seed: int, n: int = 40, k: int = 8, r: int = 4, levels: int =
     pods_req[pods - 1] = 1e9  # fits nowhere
     pod_level = rng.integers(0, levels, size=pods).astype(np.int32)
     return free, victim_req, perm, elig_len, viol, pods_req, pod_level
+
+
+def dry_run_edges(inputs, seed: int):
+    """The batched dry-run's edges on inputs of dry_run_inputs (copies):
+    at rows 1-4 of each level the bound (elig_len) is 0, 1, K - 1 and K
+    over a random eviction order of every slot, its flags random, so the
+    padding's junk enters the prefix at K; the last three nodes have +inf
+    free memory; three more hold +inf junk at slot K // 2 (masked out:
+    0 x inf is NaN from there on, as in the reference; let in: +inf)."""
+    free, victim_req, perm, elig_len, viol, pods_req, pod_level = (a.copy() for a in inputs)
+    rng = np.random.default_rng(seed)
+    levels, n, k = perm.shape
+    for li in range(levels):
+        for j, e in enumerate((0, 1, k - 1, k)):
+            row = 1 + j
+            if row >= n - 6:
+                continue
+            elig_len[li, row] = e
+            perm[li, row] = rng.permutation(k).astype(np.int32)
+            viol[li, row] = rng.random(k) < 0.3
+    free[n - 3:, 1] = np.inf
+    victim_req[n - 6 : n - 3, k // 2, 1] = np.inf
+    return free, victim_req, perm, elig_len, viol, pods_req, pod_level
+
+
+def victim_masks(seed: int, n: int, k: int):
+    """bool[N, K] victim masks of the per-pod dry-run: random (not
+    prefixes), and at rows 1-4 no valid slot, one, all but one and all
+    (bounds 0, 1, K - 1 and K)."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((n, k)) < 0.7
+    valid[1] = False
+    valid[2] = False
+    valid[2, rng.integers(k)] = True
+    valid[3] = True
+    valid[3, rng.integers(k)] = False
+    valid[4] = True
+    return valid

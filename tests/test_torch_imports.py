@@ -100,10 +100,14 @@ def test_every_kernel_source_is_built():
 
 
 def test_dry_run_victims_entry_signature():
-    """preempt_dry_run.cu's second entry (dry_run_victims) against its
-    bindings argument list (the stream last)."""
+    """preempt_dry_run.cu's victims entry (dry_run_victims) shares the
+    batched entry's C launch (one body, the mask `valid` in place of the
+    orders): one launch function, (ints, pointers, stream) as the
+    bindings call it, and no second entry."""
     from kubernetes_tpu_torch.kernels import bindings
 
     src = (PORT / "csrc" / "preempt_dry_run.cu").read_text()
-    want = _binding_kinds(bindings._DRY_RUN_VICTIMS) + ["p"]
-    assert _launch_kinds(src, "preempt_dry_run_victims_launch") == want
+    assert _launch_kinds(src, "preempt_dry_run_launch") == ["p", "p", "p"]
+    assert _binding_kinds(bindings._ARGTYPES["preempt_dry_run"]) == ["p", "p", "p"]
+    assert len(re.findall(r'extern "C" int preempt_dry_run\w*_launch\(', src)) == 1
+    assert "valid" in bindings.DRY_RUN_PTRS and "perm" in bindings.DRY_RUN_PTRS

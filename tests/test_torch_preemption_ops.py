@@ -213,14 +213,16 @@ def test_feasible_batch_and_for_pod_match_reference(seed):
     # the full chain differs from the static slice somewhere (resources or ports)
     static = tpre.run_static_feasible_batch(tsnap.cluster, tsnap.pods, tsnap.selectors)
     assert not torch.equal(static, got)
+    # the reference takes the selector mask, the port's wrappers the table
+    # (kernel pod_filters evaluates the pods' rows in its launch)
     jsm = jfilters.selector_match(jsnap.cluster, jsnap.selectors)
-    tsm = tfilters.selector_match(tsnap.cluster, tsnap.selectors)
+    tsel = tsnap.selectors
     for i in range(0, tsnap.pods.valid.shape[0], 3):
         w = jfilters.feasible_for_pod(jsnap.cluster, jfilters.pod_view(jsnap.pods, i), jsm)
-        g = tfilters.feasible_for_pod(tsnap.cluster, tfilters.pod_view(tsnap.pods, i), tsm)
+        g = tfilters.feasible_for_pod(tsnap.cluster, tfilters.pod_view(tsnap.pods, i), tsel)
         assert same(w, g), i
         w = jfilters.static_feasible_for_pod(jsnap.cluster, jfilters.pod_view(jsnap.pods, i), jsm)
-        g = tfilters.static_filter_row(tsnap.cluster, tfilters.pod_view(tsnap.pods, i), tsm)
+        g = tfilters.static_filter_row(tsnap.cluster, tfilters.pod_view(tsnap.pods, i), tsel)
         assert same(w, g), i
 
 
