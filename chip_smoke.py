@@ -39,7 +39,11 @@ stdout; with --log also appended to PATH):
   resident_parity
              partials_eval and mirror_rows against their plain versions on
              the mixed and family batches (a warm scheduler's store, column
-             refreshes, a delta sync against the state) and on random leaves
+             refreshes, one sync's fresh store with missed slots, 0-33
+             dirty columns, a grow and a shrink, the old store unchanged,
+             a delta sync against the state) and on random leaves of every
+             dtype into fresh leaves (16-, 4- and 1-byte units, the old
+             leaves unchanged)
   main       SchedulingBasic/5000Nodes through TorchBatchScheduler() on its
              default route: 5,000 nodes, 1,000 init pods scheduled and
              assumed, then a measured 1,000-pod batch; both pad to 1,024
@@ -161,10 +165,16 @@ stdout; with --log also appended to PATH):
              step split, both residents' counters and the host->card bytes
   kernels    each kernel against its plain version at the shapes of the
              phase that launches it, exact, timed with CUDA events, with
-             the bound of its work on this run's data (partials_eval over
-             every column and over 500, mirror_rows for a 500-row usage and
-             a 64-row static delta, with index_copy_ a leaf as its library
-             call; the plain-torch gather, grows and packed copy;
+             the bound of its work on this run's data (partials_eval at R:
+             every column, R500: 500 columns, VR: a PreemptionBasic verify
+             solve's sync captured in the preemption phase, RI: the
+             crossing with 4 new classes; mirror_rows at U500, S64, VM:
+             the verify's delta, SP: RI's spec rows, beside clone +
+             index_copy_ a leaf as its library call; each a fresh store or
+             fresh leaves, equal to the reference's order on CPU copies,
+             the old ones byte-unchanged; one warm sync's device
+             operations at VR + VM; the plain-torch gather, the
+             mirror's grow and the packed copy;
              class_statics, the one-launch cold prep, at B and match_terms,
              the masks-only entry, at B and W, each the card's time behind
              a spin with the host clock of the call beside it; class_extras,
@@ -247,7 +257,9 @@ class_statics and launch match_terms for the spread family's selector
 mask —, the families' (family_prep once a family a batch,
 class_extras with preferred inter-pod terms or images, slice_stats after
 a slice batch's scan) and the residents' (partials_eval, mirror_rows,
-each launched exactly as often as the residents recorded); every
+each launched exactly as often as the residents recorded, and no batch's
+sync more than one partials_eval and two mirror_rows: the cluster's
+delta and the spec rows); every
 auction batch launches auction_loop exactly once — its reasons pass and
 its gang post-pass inside — and no stage entry point; every dispatch
 with a cold statics prep (every auction batch, a scan or wavefront batch
@@ -1082,6 +1094,11 @@ def drive_phase(name, fn, bindings, scheds, extra=(), armed=False):
     metas = [m for s, k in zip(scheds, marks) for m in s.metas[k:]]
     check_launches(name, launches,
                    set().union(*(route_kernels(m) for m in metas)) | set(extra))
+    for m in metas:
+        # one store update a sync; the cluster's delta and the spec rows
+        rl = m.resident_launches or {}
+        if rl.get("partials_eval", 0) > 1 or rl.get("mirror_rows", 0) > 2:
+            raise AssertionError(f"phase {name}: a batch's residents launched {rl}")
     for k in RESIDENT_KERNELS:
         want = sum((m.resident_launches or {}).get(k, 0) for m in metas)
         if launches[k] != want:
@@ -1329,8 +1346,8 @@ def main() -> int:
         wrappers, TorchBatchScheduler, bindings, torch, card)
 
     # ---- each kernel against its plain version at its phase's shapes -------
-    resident_rows, resident_extra = time_resident_kernels(wsched, dv, wrappers, pops, bindings,
-                                                          torch)
+    resident_rows, resident_extra = time_resident_kernels(
+        wsched, preempt["verify"], dv, wrappers, TorchBatchScheduler, pops, bindings, torch)
     summary = run_kernels(
         snap_k, meta_k.features, meta_k.n_groups, sched.score_config,
         assign, filters, bindings, torch, timed=True,
@@ -1380,9 +1397,15 @@ def main() -> int:
     summary.append(next(r for r in interpod_rows if r["name"] == "auction_interpod"))
     summary.append(extras_row)
     summary.append(gang_parity_row)
-    for name, shape in (("partials_eval", "full"), ("mirror_rows", "usage500")):
+    # the residents' kernels at the resident phase's shapes (R, U500) with
+    # its launches, and at a verify solve's (VR, VM) with the preemption
+    # phase's
+    for name, shape, launches_of_phase in (
+            ("partials_eval", "R:", resident_launches), ("mirror_rows", "U500:", resident_launches),
+            ("partials_eval", "VR:", preempt["launches"]),
+            ("mirror_rows", "VM:", preempt["launches"])):
         row = next(r for r in resident_rows if r["name"] == name and r["shape"].startswith(shape))
-        summary.append(dict(row, launches=resident_launches[name]))
+        summary.append(dict(row, launches=launches_of_phase[name]))
     row = next(r for r in slice_rows if r["name"] == "slice_stats")
     summary.append(dict(row, launches=slice_launches["slice_stats"]))
     summary.extend(eval_rows)
@@ -1436,9 +1459,15 @@ def main() -> int:
                      "auction_interpod": "SchedulingPodAntiAffinity/5000Nodes measured batch",
                      "class_extras": "the preferred-affinity variant's measured batch "
                                      "(the auction's class pairs)",
-                     "partials_eval, mirror_rows": "the wavefront phase's warm "
+                     "partials_eval, mirror_rows": "R (every entry), U500 (a 500-row usage "
+                                                   "delta): the wavefront phase's warm "
                                                    "SchedulingNodeAffinity/5000Nodes scheduler "
-                                                   "(8,192 padded nodes, 32 slots)",
+                                                   "(8,192 padded nodes, 32 slots; launches: the "
+                                                   "resident phase's); VR, VM: the last verify "
+                                                   "solve of PreemptionBasic/5000Nodes' first "
+                                                   "pass (launches: the preemption phase's); "
+                                                   "resident_kernels holds every shape: R, "
+                                                   "R500, VR, RI, U500, S64, VM, SP",
                      "slice_stats": "c10 (4,096 nodes, 256 padded pods, 26 gangs) after the "
                                     "scan (greedy_scan at this shape: the slices line)",
                      "evaluate_single": "E: one pod-default pod against "
@@ -1724,17 +1753,22 @@ def resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch) ->
     batch encoded by a warm TorchBatchScheduler(mode="greedy") on the card;
     its resident store equals the plain evaluation of every slot over every
     column, and kernel refreshes of random column subsets equal the plain
-    ones; after a few assumes a delta sync (mirror_rows) leaves the
-    resident cluster equal to the state's tensors and the store equal to a
-    full recompute; then mirror_rows on random leaves of every dtype and
-    both row axes."""
+    ones; one sync's fresh store (update_store: missed slots, 0-33 dirty
+    columns and the last, a grow and a shrink of the old width) equals its
+    plain version, the old store byte-unchanged; after a few assumes a
+    delta sync (mirror_rows) leaves the resident cluster equal to the
+    state's tensors and the store equal to a full recompute; then
+    mirror_rows on random leaves of every dtype and both row axes into
+    fresh leaves (16-, 4- and 1-byte units, a dense delta, the last row),
+    the old leaves byte-unchanged."""
     import numpy as np
     from kubernetes_tpu_torch.ops import schema
     from kubernetes_tpu_torch.testing.cases import mixed_objects
 
     cases = [mixed_objects(wrappers, seed) for seed in range(6)]
     cases += [c for _label, c in family_cases(wrappers)]
-    checked = {"stores": 0, "refreshes": 0, "deltas": 0, "leaves": 0}
+    checked = {"stores": 0, "refreshes": 0, "updates": 0, "deltas": 0, "leaves": 0,
+               "units": []}
     for k, (nodes, pending, bound_pods) in enumerate(cases):
         sched = TorchBatchScheduler(mode="greedy")
         for node in nodes:
@@ -1760,6 +1794,29 @@ def resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch) ->
                         tuple(t[:, cols.long()] for t in fresh),
                         pops.eval_cols_plain(cl, specs, slots, cols), torch)
             checked["refreshes"] += 1
+        # one sync's update against its plain version on the same tensors:
+        # missed slots and dirty columns (0, 1, 31, 32, 33 and the last),
+        # a grow (the old store narrower) and a shrink (wider); the old
+        # store byte-unchanged
+        for size in (0, 1, 31, 32, 33):
+            pick = np.sort(rng.choice(n, min(size, n), replace=False))
+            if size == 1:
+                pick = np.array([n - 1])
+            for miss_n, width in ((0, n), (2, n), (2, max(n - 40, 1)), (0, n + 24)):
+                miss = np.sort(rng.choice(g, miss_n, replace=False)).astype(np.int32)
+                old = pops.PartialsStore(*(
+                    t[:, :width].contiguous() if width <= n else
+                    torch.cat([t, t[:, :1].expand(-1, width - n)], dim=1) for t in store))
+                before = [t.clone() for t in old]
+                up = lambda a: (torch.from_numpy(a.astype(np.int32)).cuda() if a.shape[0]
+                                else None)
+                args = (specs, cl, up(miss), up(pick.astype(np.int32)))
+                check_equal(f"partials_eval (parity {k}, {miss_n} missed, {size} columns, "
+                            f"old width {width})", tuple(pops.update_store(old, *args)),
+                            tuple(pops.update_store_plain(old, *args)), torch)
+                if not all(torch.equal(a, b) for a, b in zip(old, before)):
+                    raise AssertionError(f"resident parity {k}: an update changed the old store")
+                checked["updates"] += 1
         names = sched.solve_encoded(snap, meta)
         placed = [(pod, name) for pod, name in zip(pending, names) if name is not None][:3]
         for pod, name in placed:
@@ -1776,18 +1833,26 @@ def resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch) ->
         if not sched._partials.verify(dev):
             raise AssertionError(f"resident parity {k}: the store differs from a full recompute")
         checked["deltas"] += bool(placed)
-    # random leaves, every dtype, node axis 0 and 1
+    # random leaves, every dtype, node axis 0 and 1, into fresh leaves;
+    # some at addresses that allow only 4- or 1-byte units (views of a
+    # larger buffer), dense deltas and a one-row delta at the last row;
+    # the old leaves byte-unchanged
     rng = np.random.default_rng(7)
     stage = dv.PinnedStage()
     for n in (8, 37, 8192):
-        targets_k, targets_p = [], []
-        for shape, dtype, ax in (((n, 4), np.float32, 0), ((n,), np.bool_, 0),
-                                 ((n, 3), np.int32, 0), ((n, 128), np.uint32, 0),
-                                 ((3, n, 8), np.uint32, 1), ((3, n), np.bool_, 1)):
+        targets = []
+        for shape, dtype, ax, shift in (((n, 4), np.float32, 0, 0), ((n,), np.bool_, 0, 0),
+                                        ((n, 3), np.int32, 0, 4), ((n, 128), np.uint32, 0, 0),
+                                        ((3, n, 8), np.uint32, 1, 0), ((3, n), np.bool_, 1, 1),
+                                        ((n, 2), np.float32, 0, 8), ((n,), np.bool_, 0, 3)):
             d = int(rng.integers(1, min(n, 600)))
+            if len(targets) == 6:
+                d = n   # every row
             idx = np.sort(rng.choice(n, d, replace=False)).astype(np.int32)
+            if len(targets) == 7:
+                idx = np.array([n - 1], dtype=np.int32)
             vshape = list(shape)
-            vshape[ax] = d
+            vshape[ax] = idx.shape[0]
             if dtype == np.bool_:
                 base, vals = rng.random(shape) < 0.5, rng.random(vshape) < 0.5
             elif dtype == np.float32:
@@ -1796,15 +1861,21 @@ def resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch) ->
             else:
                 base = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(dtype)
                 vals = rng.integers(0, 2**32, vshape, dtype=np.uint64).astype(dtype)
-            dst = torch.from_numpy(dv._canon(base).copy()).cuda()
-            targets_k.append(dv.RowTarget(dst, ax, idx, vals))
-            targets_p.append(dv.RowTarget(dst.clone(), ax, idx, vals))
-        dv.set_rows(targets_k, stage, torch.device("cuda"))
-        buf, lay, _units = dv.pack_rows(targets_p, stage, torch.device("cuda"))
-        dv.set_rows_plain(buf, targets_p, lay)
-        check_equal(f"mirror_rows (random leaves, {n} rows)", tuple(t.dst for t in targets_k),
-                    tuple(t.dst for t in targets_p), torch)
-        checked["leaves"] += len(targets_k)
+            host = torch.from_numpy(dv._canon(base).copy())
+            raw = torch.zeros(host.numel() * host.element_size() + shift, dtype=torch.uint8,
+                              device="cuda")
+            src = raw[shift:].view(host.dtype).view(host.shape)
+            src.copy_(host)
+            targets.append(dv.RowTarget(src, ax, idx, vals))
+        before = [t.src.clone() for t in targets]
+        got = dv.set_rows(targets, stage, torch.device("cuda"))
+        pack = dv.pack_rows(targets, stage, torch.device("cuda"))
+        check_equal(f"mirror_rows (random leaves, {n} rows)", tuple(got),
+                    tuple(dv.set_rows_plain(pack, targets)), torch)
+        if not all(torch.equal(t.src, b) for t, b in zip(targets, before)):
+            raise AssertionError(f"mirror_rows (random leaves, {n} rows): an old leaf changed")
+        checked["leaves"] += len(targets)
+        checked["units"] = sorted({lay.unit for lay in pack.layouts} | set(checked["units"]))
     torch.cuda.synchronize()
     emit({"phase": "resident_parity", "cases": checked, "exact": True})
 
@@ -3954,15 +4025,14 @@ def resident_phase(wrappers, TorchBatchScheduler, bindings, torch, card):
     return launches, out["churn"]["wavefront"]["launches"]["wavefront"]
 
 
-def partials_eval_need(cluster, specs, cols, torch) -> tuple:
-    """(bytes, operations) one partials_eval launch needs on this data:
-    every slot's spec; per evaluated column the valid byte, the name id
-    only where a slot pins a node, the taint words of each effect some
-    slot does not tolerate wholesale, the port words some slot claims,
-    the label words and topology ids the live selector and preferred
-    expressions test; the three [G, cols] outputs.  Two integer operations
-    a tested word or id, eight a (slot, column) pair besides."""
-    g = specs.valid.shape[0]
+def partials_node_need(cluster, specs, torch) -> tuple:
+    """(bytes a column, tested ids, operations a (slot, column) pair) of
+    the partials' evaluation on this data: a column's valid byte, its name
+    id only where a slot pins a node, the taint words of each effect some
+    slot does not tolerate wholesale, the port words some slot claims, the
+    label words and topology ids the live selector and preferred
+    expressions test; two integer operations a tested word or id, eight a
+    pair besides."""
     tw = cluster.taint_bits.shape[2]
     effects = int((~specs.tol_all).any(dim=1).sum())
     port_words = int((specs.port_bits != 0).any(dim=0).sum())
@@ -3976,88 +4046,389 @@ def partials_eval_need(cluster, specs, cols, torch) -> tuple:
     words = int(torch.unique(label >> 5).numel()) if label.numel() else 0
     topo = int(torch.unique(slots[slots >= 0]).numel())
     per_col = 1 + names + 4 * effects * tw + 4 * port_words + 4 * (words + topo)
-    need = nbytes(*specs) + cols * per_col + g * cols * 9
-    tested = int((ids != -1).sum())
-    return need, float(cols) * (2 * tested + g * (8 + 2 * effects * tw + 2 * port_words))
+    return per_col, int((ids != -1).sum()), 8 + 2 * effects * tw + 2 * port_words
 
 
-def time_resident_kernels(warm, dv, dv_wrappers, pops, bindings, torch) -> tuple:
-    """partials_eval (every slot over every column, and a 500-column
-    refresh) and mirror_rows (a 500-row usage delta and a 64-row static
-    delta) on a warm scheduler's residents, each against its plain version
-    (exact) and timed; mirror_rows also against index_copy_ a leaf (the
-    library call); then the plain-torch gather, grows and packed copy.
-    Returns (kernel rows, plain-torch rows)."""
+def partials_update_need(cluster, specs, old_n: int, n: int, d_all: int, m: int,
+                         torch) -> tuple:
+    """(bytes, operations) of one partials_eval launch on this data: a
+    fresh [G, n] store from an old one of old_n columns (0: none), every
+    slot evaluated at the d_all dirty or grown columns, the m missed slots
+    at every column, every other entry copied.  Bytes: the specs once, the
+    node rows of each evaluated column (partials_node_need), each copied
+    entry's 9 bytes read, the whole store's 9 bytes an entry written."""
+    g = specs.valid.shape[0]
+    per_col, tested, pair_ops = partials_node_need(cluster, specs, torch)
+    evaluated = g * d_all + m * (n - d_all)
+    copied = (g - m) * (n - d_all) if old_n else 0
+    staged = n if m else d_all
+    need = nbytes(*specs) + staged * per_col + 9 * copied + 9 * g * n
+    return need, float(staged) * 2 * tested + float(evaluated) * pair_ops
+
+
+def mirror_rows_need(leaves) -> tuple:
+    """(bytes, operations) of one mirror_rows launch: each leaf (field,
+    resident tensor, axis, rows, values) read once where the delta does not
+    overwrite it, its packed rows and indices read, the fresh leaf written
+    whole."""
+    need = 0
+    for _f, src, _ax, idx, vals in leaves:
+        whole = src.numel() * src.element_size()
+        delta = int(getattr(vals, "nbytes", 0))
+        need += (whole - delta) + delta + 4 * int(idx.shape[0]) + whole
+    return need, 0.0
+
+
+def capture_syncs(sched):
+    """Hook a scheduler's residents: while on["on"], every partials delta
+    sync and mirror delta appends what it started from (the resident
+    tensors it read, its index lists, the rows it wrote), and every spec
+    insert its rows.  Returns (partials syncs, mirror deltas, spec
+    inserts, on).  The tensors are the residents' own, which no later sync
+    changes."""
     import numpy as np
 
-    cl = warm._mirror.sync()
-    specs = warm._partials._specs
-    g, n = specs.valid.shape[0], cl.allocatable.shape[0]
+    from kubernetes_tpu_torch.models import mirror as mirror_mod
+    from kubernetes_tpu_torch.ops import partials as pops_mod
+
+    parts, mirrors, spec_rows, on = [], [], [], {"on": True}
+    p, m = sched._partials, sched._mirror
+    delta, apply = p._delta, m._apply_deltas
+    set_spec_rows = pops_mod.set_spec_rows
+
+    def spec_insert(specs, rows, idx, stage):
+        if on["on"]:
+            spec_rows.append({"specs": specs, "idx": np.array(idx, dtype=np.int32),
+                              "rows": {k: np.array(v) for k, v in rows.items()}})
+        return set_spec_rows(specs, rows, idx, stage)
+
+    def hooked_delta(cluster, snap, keys, misses, dirty, n, c_dim):
+        rec = {"store": p._store, "old_n": p._n, "n": n, "cluster": cluster,
+               "dirty": np.array(dirty, dtype=np.int32), "first_slot": len(p._slots),
+               "misses": len(misses)}
+        out = delta(cluster, snap, keys, misses, dirty, n, c_dim)
+        rec["specs"] = p._specs
+        rec["miss"] = np.arange(rec["first_slot"], rec["first_slot"] + rec["misses"],
+                                dtype=np.int32)
+        if on["on"]:
+            parts.append(rec)
+        return out
+
+    def hooked_apply(host, static_idx, usage_idx):
+        if on["on"]:
+            leaves = []
+            for fields, idx in ((mirror_mod._STATIC_LEAVES + ("taint_bits",), static_idx),
+                                (mirror_mod._USAGE_LEAVES, usage_idx)):
+                for f in fields if idx.shape[0] else ():
+                    ax = mirror_mod._node_axis(f)
+                    leaves.append((f, getattr(m._dev, f), ax, np.array(idx, dtype=np.int32),
+                                   np.take(np.asarray(getattr(host, f)), idx, axis=ax)))
+            mirrors.append({"leaves": leaves, "static": int(static_idx.shape[0]),
+                            "usage": int(usage_idx.shape[0])})
+        return apply(host, static_idx, usage_idx)
+
+    p._delta, m._apply_deltas = hooked_delta, hooked_apply
+    pops_mod.set_spec_rows = spec_insert
+    return parts, mirrors, spec_rows, on
+
+
+def hook_first_pass(sched, ev) -> dict:
+    """Capture the residents' syncs of the verify solves of ev's next
+    PostFilter pass, and nothing else.  The returned dict holds, once that
+    pass ran, "partials" and "mirror" (the pass's last verify's sync and
+    delta) and "seen" (every verify's dirty columns, misses and delta
+    rows)."""
+    parts, mirrors, _spec, on = capture_syncs(sched)
+    on["on"] = False
+    out = {}
+    preempt_batch = ev.preempt_batch
+
+    def first(failed):
+        if "seen" in out:
+            return preempt_batch(failed)
+        on["on"] = True
+        try:
+            return preempt_batch(failed)
+        finally:
+            on["on"] = False
+            out["seen"] = {"verify_partials_syncs": len(parts),
+                           "verify_dirty_columns": [int(r["dirty"].shape[0]) for r in parts],
+                           "verify_misses": [r["misses"] for r in parts],
+                           "verify_mirror_deltas": len(mirrors),
+                           "verify_delta_rows": [(r["static"], r["usage"]) for r in mirrors]}
+            if parts and mirrors:
+                out["partials"], out["mirror"] = parts[-1], mirrors[-1]
+            parts.clear()
+            mirrors.clear()
+
+    ev.preempt_batch = first
+    return out
+
+
+def partials_case(rec: dict, seen=None) -> dict:
+    """A partials shape from a captured sync."""
+    return {"kind": "partials", "full": False, "store": rec["store"], "specs": rec["specs"],
+            "cluster": rec["cluster"], "old_n": rec["old_n"], "n": rec["n"],
+            "miss": rec["miss"], "dirty": rec["dirty"], "seen": seen}
+
+
+def affinity_cases(sched, torch) -> dict:
+    """R, R500, U500, S64 on a warm SchedulingNodeAffinity/5000Nodes
+    scheduler's residents (8,192 padded nodes, 32 slots): the store's
+    full evaluation and a refresh of 500 random columns; a 500-row usage
+    and a 64-row static delta of random rows, from the state's values."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.models import mirror as mirror_mod
+
+    rng = np.random.default_rng(16)
+    cl, specs, store = sched._mirror.sync(), sched._partials._specs, sched._partials._store
+    n, high = int(cl.allocatable.shape[0]), sched.state._high
+    empty = np.zeros(0, dtype=np.int32)
+    base = {"kind": "partials", "store": store, "specs": specs, "cluster": cl, "old_n": n,
+            "n": n, "miss": empty, "seen": None}
+    cases = {"R": dict(base, full=True, dirty=empty),
+             "R500": dict(base, full=False, dirty=np.sort(
+                 rng.choice(high, min(500, high), replace=False)).astype(np.int32))}
+    host = sched.state.tensors()
+    for shape, fields, d in (("U500", mirror_mod._USAGE_LEAVES, 500),
+                             ("S64", mirror_mod._STATIC_LEAVES + ("taint_bits",), 64)):
+        idx = np.sort(rng.choice(high, min(d, high), replace=False)).astype(np.int32)
+        leaves = []
+        for f in fields:
+            ax = mirror_mod._node_axis(f)
+            leaves.append((f, getattr(cl, f), ax, idx,
+                           np.take(np.asarray(getattr(host, f)), idx, axis=ax)))
+        cases[shape] = {"kind": "mirror", "leaves": leaves, "seen": None}
+    return cases
+
+
+def verify_cases(verify: dict) -> dict:
+    """VR and VM from hook_first_pass's capture."""
+    if "partials" not in verify:
+        raise AssertionError(f"residents: the verify solves made no delta sync ({verify})")
+    seen = verify["seen"]
+    return {"VR": partials_case(verify["partials"], seen),
+            "VM": {"kind": "mirror", "leaves": verify["mirror"]["leaves"], "seen": seen}}
+
+
+def crossing_cases(wrappers, T, torch) -> dict:
+    """RI and SP: the resident phase's crossing — SchedulingNodeAffinity/
+    5000Nodes' two 500-pod batches solved and assumed, node-default nodes
+    added until the padded bucket moves past 8,192 — then one sync of the
+    next 500 affinity pods and 4 pods of classes the store has not seen
+    (pod-default, zone-3 and zone-4 required affinity, a zone-5 preferred
+    term): a grow, 4 misses and the dirty columns at once (RI), and its
+    spec insert of the 4 slots (SP)."""
+    sched = T()
+    for node in make_cluster(wrappers, AFFINITY[0]):
+        sched.add_node(node)
+    pods = affinity_pods(wrappers, 3 * AFFINITY_BATCH, "ri")
+    for lo in (0, AFFINITY_BATCH):
+        batch = pods[lo: lo + AFFINITY_BATCH]
+        for pod, name in zip(batch, sched.schedule_pending(batch)):
+            sched.assume(pod, name)
+    b0 = sched.state.node_axis_bucket
+    for node in make_cluster(wrappers, b0 + 1)[AFFINITY[0]:]:
+        sched.add_node(node)
+    api, mi = wrappers.api, wrappers.MI
+    fresh = [wrappers.make_pod("ri-default").req(cpu_milli=POD_CPU_MILLI, mem=POD_MEM_MI * mi)
+             .obj()]
+    fresh += [wrappers.make_pod(f"ri-zone{z}").req(cpu_milli=POD_CPU_MILLI, mem=POD_MEM_MI * mi)
+              .required_affinity(api.LABEL_ZONE, api.OP_IN, [f"zone-{z}"]).obj() for z in (3, 4)]
+    fresh.append(wrappers.make_pod("ri-pref").req(cpu_milli=POD_CPU_MILLI, mem=POD_MEM_MI * mi)
+                 .preferred_affinity(5, api.LABEL_ZONE, api.OP_IN, ["zone-5"]).obj())
+    parts, _mirrors, spec_rows, on = capture_syncs(sched)
+    _snap, meta = sched.encode_pending(pods[2 * AFFINITY_BATCH:] + fresh)
+    on["on"] = False
+    if meta.route != "wavefront" or len(parts) != 1 or len(spec_rows) != 1:
+        raise AssertionError(f"residents RI: route {meta.route}, {len(parts)} syncs")
+    rec = parts[0]
+    seen = {"old_n": rec["old_n"], "n": rec["n"], "misses": rec["misses"],
+            "dirty_columns": int(rec["dirty"].shape[0])}
+    if rec["n"] <= rec["old_n"] or rec["misses"] != 4:
+        raise AssertionError(f"residents RI: not a grow with 4 misses ({seen})")
+    from kubernetes_tpu_torch.ops import partials as pops
+
+    sp = spec_rows[0]
+    leaves = [(f, getattr(sp["specs"], f), 1 if f in pops.SPEC_AX1 else 0, sp["idx"],
+               sp["rows"][f]) for f in pops.ClassSpecs._fields]
+    return {"RI": partials_case(rec, seen),
+            "SP": {"kind": "mirror", "leaves": leaves, "seen": seen}}
+
+
+def partials_indices(case: dict, torch):
+    """(missed slots, the columns every slot re-evaluates: dirty and grown,
+    grown alone, dirty alone) as ascending int32 tensors on the card."""
+    import numpy as np
+
+    grown = np.arange(case["old_n"], case["n"], dtype=np.int32)
+    cols = np.union1d(case["dirty"], grown).astype(np.int32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
+    return up(case["miss"]), up(cols), up(grown), up(case["dirty"])
+
+
+def partials_want(case: dict, torch) -> tuple:
+    """The reference's order on CPU copies (the plain versions): grow,
+    refresh the grown columns, insert the missed slots, refresh the dirty
+    columns; or every slot over every column."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import partials as pops
+
+    cpu = lambda x: type(x)(*(t.cpu() for t in x))
+    st, specs, cl = cpu(case["store"]), cpu(case["specs"]), cpu(case["cluster"])
+    if case["full"]:
+        return tuple(pops.eval_store(cl, specs))
+    old_n, n = case["old_n"], case["n"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+    if n > old_n:
+        st = pops.refresh_rows(pops.grow_store_cols(st, n - old_n), specs, cl,
+                               t(np.arange(old_n, n)))
+    elif n < old_n:
+        st = pops.shrink_store_cols(st, n)
+    if case["miss"].shape[0]:
+        st = pops.insert_slots(st, specs, cl, t(case["miss"]))
+    if case["dirty"].shape[0]:
+        st = pops.refresh_rows(st, specs, cl, t(case["dirty"]))
+    return tuple(st)
+
+
+def mirror_want(case: dict, torch) -> tuple:
+    """clone + index_copy_ a leaf, on CPU copies."""
+    import numpy as np
+
+    out = []
+    for _f, src, ax, idx, vals in case["leaves"]:
+        v = np.asarray(vals)
+        v = v.view(np.int32) if v.dtype == np.uint32 else v
+        out.append(src.cpu().clone().index_copy_(ax, torch.from_numpy(idx).long(),
+                                                 torch.from_numpy(np.ascontiguousarray(v))))
+    return tuple(out)
+
+
+def device_ops(step, torch) -> dict:
+    """The device operations one call of step() enqueues (torch.profiler,
+    CUDA activity): kernels, device-to-device copies, host-to-device
+    copies, memsets; None where the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    counts = {"kernels": 0, "dtod": 0, "htod": 0, "memset": 0, "names": []}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name
+        key = ("dtod" if "DtoD" in name else "htod" if "HtoD" in name else
+               "memset" if "Memset" in name else "kernels")
+        counts[key] += 1
+        counts["names"].append(name[:60])
+    if not counts["names"]:
+        return None
+    return counts
+
+
+RESIDENT_SHAPES = ("R", "R500", "VR", "RI", "U500", "S64", "VM", "SP")
+
+
+def time_resident_kernels(warm, verify, dv, dv_wrappers, TorchBatchScheduler, pops, bindings,
+                          torch) -> tuple:
+    """partials_eval at R (every entry), R500 (500 columns), VR (a
+    PreemptionBasic verify's sync, captured in the preemption phase) and
+    RI (the crossing with 4 new classes: grow, misses, dirty columns) and
+    mirror_rows at U500, S64, VM (the same verify's delta) and SP (RI's
+    spec insert), each launch equal to the plain version exactly (the
+    reference's order / clone + index_copy_ on CPU copies) with the old
+    store or leaves byte-unchanged after it, and timed: events over
+    back-to-back calls, the card alone behind a spin and the host clock
+    of the call (launch_ms); mirror_rows beside the library call, clone +
+    index_copy_ a leaf.  Then the plain-torch gather, the mirror's grow
+    and the packed copy.  Returns (kernel rows, plain-torch rows)."""
+    cases = dict(affinity_cases(warm, torch))
+    cases.update(verify_cases(verify))
+    cases.update(crossing_cases(dv_wrappers, TorchBatchScheduler, torch))
+    stage = dv.PinnedStage()
     rows = []
-    all_slots = torch.arange(g, dtype=torch.int32, device=cl.allocatable.device)
-    rng = np.random.default_rng(5)
-    refresh = torch.from_numpy(np.sort(rng.choice(warm.state._high, 500, replace=False))
-                               .astype(np.int32)).cuda()
-    for label, col_idx in (("full", None), ("refresh500", refresh)):
-        def kern(col_idx=col_idx):
-            store = tuple(torch.empty((g, n), dtype=d, device="cuda")
-                          for d in (torch.bool, torch.float32, torch.float32))
-            bindings.partials_eval(cl, specs, all_slots, col_idx, pops.PartialsStore(*store))
-            return store
+    for shape in RESIDENT_SHAPES:
+        case = cases[shape]
+        if case["kind"] == "partials":
+            miss, cols, _grown, _dirty = partials_indices(case, torch)
+            cl, specs = case["cluster"], case["specs"]
+            old = None if case["full"] else case["store"]
+            slots = miss if miss.numel() else None
+            cols = cols if cols.numel() else None
+            want = partials_want(case, torch)
+            inputs = () if old is None else tuple(old)
+            reset = lambda: None
+            kern = lambda old=old, cl=cl, specs=specs, slots=slots, cols=cols: tuple(
+                pops.update_store(old, specs, cl, slots, cols))
+            plain = lambda old=old, cl=cl, specs=specs, slots=slots, cols=cols: tuple(
+                pops.update_store_plain(old, specs, cl, slots, cols))
+            d_all = case["n"] if case["full"] else (0 if cols is None else int(cols.numel()))
+            need = partials_update_need(cl, specs, 0 if case["full"] else case["old_n"],
+                                        case["n"], d_all, int(miss.numel()), torch)
+            name, lib_ms = "partials_eval", None
+            what = (f"{specs.valid.shape[0]} slots, {case['old_n']} -> {case['n']} columns, "
+                    f"{int(miss.numel())} missed, {int(case['dirty'].shape[0])} dirty")
+        else:
+            targets = [dv.RowTarget(src, ax, idx, vals)
+                       for _f, src, ax, idx, vals in case["leaves"]]
+            want = mirror_want(case, torch)
+            inputs = tuple(t.src for t in targets)
+            box = {"pack": dv.pack_rows(targets, stage, "cuda")}
 
-        def plain(col_idx=col_idx):
-            return pops.eval_cols_plain(cl, specs, all_slots, col_idx)
+            def reset(targets=targets, box=box):
+                box["pack"] = dv.pack_rows(targets, stage, "cuda")
 
-        got = kern()
-        if col_idx is not None:
-            got = tuple(t[:, col_idx.long()] for t in got)
-        err = check_equal(f"partials_eval ({label})", got, plain(), torch)
-        cols = n if col_idx is None else int(col_idx.numel())
-        bms, by = bound(*partials_eval_need(cl, specs, cols, torch))
-        card_ms, host_ms = launch_ms(kern, lambda: None, 50, torch)
-        rows.append({"name": "partials_eval", "shape": f"{label}: {g} slots x {cols} columns",
-                     "max_abs_err": err, "ms": cuda_ms(kern, 50, torch),
+            kern = lambda box=box: tuple(bindings.mirror_rows(box["pack"]))
+            plain = lambda box=box, targets=targets: tuple(dv.set_rows_plain(box["pack"],
+                                                                             targets))
+            idx_dev = [torch.from_numpy(t.idx).long().cuda() for t in targets]
+            vals_dev = [torch.from_numpy(dv._canon(t.vals).copy()).cuda() for t in targets]
+
+            def library(targets=targets, idx_dev=idx_dev, vals_dev=vals_dev):
+                return tuple(t.src.clone().index_copy_(t.axis, i, v)
+                             for t, i, v in zip(targets, idx_dev, vals_dev))
+
+            need = mirror_rows_need(case["leaves"])
+            name = "mirror_rows"
+            lib_ms = cuda_ms(library, 20, torch)
+            check_equal(f"clone + index_copy_ ({shape})", library(), want, torch)
+            what = (f"{len(targets)} leaves x {int(targets[0].idx.shape[0])} rows, "
+                    f"{sum(int(v.nbytes) for *_r, v in case['leaves'])} B packed")
+        before = [t.clone() for t in inputs]
+        err = check_equal(f"{name} ({shape})", kern(), want, torch)
+        check_equal(f"{name} ({shape}, the plain version)", plain(), want, torch)
+        ms = cuda_ms(kern, 50, torch)
+        card_ms, host_ms = launch_ms(kern, reset, 50, torch)
+        if not all(torch.equal(t, b) for t, b in zip(inputs, before)):
+            raise AssertionError(f"{name} ({shape}): an old store or leaf changed")
+        bms, by = bound(*need)
+        rows.append({"name": name, "shape": f"{shape}: {what}", "max_abs_err": err, "ms": ms,
                      "card_ms": card_ms, "host_ms": host_ms,
                      "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by,
-                     "library_ms": None})
-    host = warm.state.tensors()
-    stage = dv.PinnedStage()
+                     "library_ms": lib_ms, "seen": case.get("seen")})
+    # one warm delta sync's device operations at VR + VM: the mirror's
+    # launch and the store's (their index lists uploaded beforehand)
+    vr, vm = cases["VR"], cases["VM"]
+    miss, cols, _g, _d = partials_indices(vr, torch)
+    vm_pack = dv.pack_rows([dv.RowTarget(src, ax, idx, vals)
+                            for _f, src, ax, idx, vals in vm["leaves"]], stage, "cuda")
+    rows.append({"name": "device_ops", "shape": "VR + VM", "ops": device_ops(lambda: (
+        bindings.mirror_rows(vm_pack),
+        pops.update_store(vr["store"], vr["specs"], vr["cluster"],
+                          miss if miss.numel() else None, cols if cols.numel() else None)),
+        torch)})
+    cl = warm._mirror.sync()
+    n = cl.allocatable.shape[0]
     from kubernetes_tpu_torch.models import mirror as mirror_mod
-    for label, leaves, d in (("usage500", mirror_mod._USAGE_LEAVES, 500),
-                             ("static64", mirror_mod._STATIC_LEAVES + ("taint_bits",), 64)):
-        idx = np.sort(rng.choice(warm.state._high, d, replace=False)).astype(np.int32)
-        axes = [1 if f == "taint_bits" else 0 for f in leaves]
-        vals = [np.take(np.asarray(getattr(host, f)), idx, axis=a) for f, a in zip(leaves, axes)]
-
-        def targets():
-            return [dv.RowTarget(getattr(cl, f).clone(), a, idx, v)
-                    for f, a, v in zip(leaves, axes, vals)]
-
-        tk, tp = targets(), targets()
-        buf, lay, units = dv.pack_rows(tk, stage, torch.device("cuda"))
-        bindings.mirror_rows(buf, len(tk), units)
-        buf_p, lay_p, _u = dv.pack_rows(tp, stage, torch.device("cuda"))
-        dv.set_rows_plain(buf_p, tp, lay_p)
-        err = check_equal(f"mirror_rows ({label})", tuple(t.dst for t in tk),
-                          tuple(t.dst for t in tp), torch)
-        ms = cuda_ms(lambda: bindings.mirror_rows(buf, len(tk), units), 50, torch)
-        plain_ms = cuda_ms(lambda: dv.set_rows_plain(buf_p, tp, lay_p), 20, torch)
-        idx_dev = torch.from_numpy(idx).long().cuda()
-        dev_vals = [torch.from_numpy(np.ascontiguousarray(dv._canon(v))).cuda() for v in vals]
-
-        def library():
-            for t, v in zip(tp, dev_vals):
-                t.dst.index_copy_(t.axis, idx_dev, v)
-
-        lib_ms = cuda_ms(library, 20, torch)
-        data = sum(v.nbytes for v in vals)
-        bms, by = bound(2 * data + 4 * d * len(tk) + 48 * len(tk), 0.0)
-        rows.append({"name": "mirror_rows", "shape": f"{label}: {d} rows x {len(tk)} leaves, "
-                     f"{data} B", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
     # plain torch on the card, timed: the gather at the last warm batch's
-    # class count, the in-place grows (store columns, cluster leaves) to
-    # the next bucket, and a batch's fill shortcut plus packed copy
+    # class count, the mirror's in-place grow of the cluster leaves to the
+    # next bucket (the store's grow is inside partials_eval's launch), and
+    # a batch's fill shortcut plus packed copy
     c_dim = warm.metas[-1].statics.sfeas.shape[0]
     slots = torch.zeros(c_dim, dtype=torch.int32, device="cuda")
     store = warm._partials._store
@@ -4066,9 +4437,6 @@ def time_resident_kernels(warm, dv, dv_wrappers, pops, bindings, torch) -> tuple
                                 "bound_by": "bytes", "route": "plain torch (index_select)",
                                 "library_ms": cuda_ms(lambda: store.aff.index_select(
                                     0, slots.long()), 50, torch)}}
-    extra["grow_store_cols"] = {"ms": cuda_ms(lambda: pops.grow_store_cols(store, n), 20, torch),
-                                "bound_ms": bound(3 * g * n * 9, 0.0)[0], "bound_by": "bytes",
-                                "route": "plain torch (cat)"}
     extra["grow_rows"] = {"ms": cuda_ms(lambda: [mirror_mod._grow_rows(
         getattr(cl, f), n, 0, 1 if f == "taint_bits" else 0) for f in cl._fields], 20, torch),
         "bound_ms": bound(3 * nbytes(*cl), 0.0)[0], "bound_by": "bytes",
@@ -5093,6 +5461,9 @@ def preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, ca
     t0 = time.perf_counter()
     sched, cache, ev, pods = preemption_basic(wrappers, TorchBatchScheduler, PREEMPT)
     setup_s = time.perf_counter() - t0
+    # the first pass's verify solves' resident syncs: time_resident_kernels'
+    # VR and VM
+    verify = hook_first_pass(sched, ev)
     # the measured cycles, and one more past the reference's candidate cap
     (keys, recs, pod_node, wall), launches = drive_phase(
         "preemption", lambda: preemption_run(sched, cache, ev, pods, cycles + 1), bindings,
@@ -5166,7 +5537,7 @@ def preemption_phase(wrappers, TorchBatchScheduler, filters, bindings, torch, ca
                                               int(q["inputs"][0].free.shape[1])),
           "kernels": q_rows, "pass_call": q_pass, "card": card})
     rows = c9_planning(wrappers, TorchBatchScheduler, filters, bindings, torch, card)
-    return {"launches": launches, "rows": q_rows + rows}
+    return {"launches": launches, "rows": q_rows + rows, "verify": verify}
 
 
 # ---- faults: degraded mode on the card ---------------------------------------

@@ -3,6 +3,7 @@
     python3 kernel_ab.py KERNEL OTHER_CSRC_DIR [SHAPE]
     python3 kernel_ab.py statics OTHER_CSRC_DIR [SHAPE ...]
     python3 kernel_ab.py preempt OTHER_CSRC_DIR [SHAPE ...]
+    python3 kernel_ab.py residents OTHER_CSRC_DIR [SHAPE ...]
 
 KERNEL and its shapes (the first is the default):
 
@@ -157,6 +158,21 @@ SHAPES = {
                     "chain"),
         "D": (4, "end to end: PreemptionBasic/5000Nodes passes' dispatch_s (4 cycles) and "
                  "c9's batched pass, a fresh process a tree"),
+    },
+    "residents": {
+        "R": (50, "the resident phase's store (SchedulingNodeAffinity/5000Nodes warm: 32 "
+                  "slots x 8,192 columns), every entry evaluated"),
+        "R500": (50, "the same store, 500 random columns (ascending) re-evaluated"),
+        "VR": (50, "one PreemptionBasic/5000Nodes verify solve's partials sync (the last "
+                   "verify of the first cycle's pass)"),
+        "RI": (50, "the resident phase's crossing (8,192 -> 16,384 columns) with 4 new "
+                   "classes: grow, misses and dirty columns in one sync"),
+        "U500": (50, "a 500-row usage delta (requested, nonzero_requested, port_bits) at "
+                     "R's cluster"),
+        "S64": (50, "a 64-row static delta (the 10 static leaves and taint_bits) at R's "
+                    "cluster"),
+        "VM": (50, "the same verify solve's mirror delta"),
+        "SP": (50, "RI's spec rows: 4 missed slots x the 15 spec leaves"),
     },
     "auction": {
         "B": (10, "SchedulingBasic/5000Nodes measured batch, the whole round loop"),
@@ -669,6 +685,201 @@ def preempt_ab(shapes, other_dir: Path, out_dir: Path, torch) -> list:
     return rows
 
 
+# ---- the residents: partials_eval and mirror_rows, each tree's whole step ----
+
+
+def resident_trees(other_dir: Path, out_dir: Path):
+    """{"other": (ops.partials, ops.device, bindings), "change": ...}: the
+    other tree's package loaded as `kt_other` with its two resident
+    libraries built by build_library, this tree's with its own; the
+    kernels that make the inputs built as the package builds them.
+    Returns (trees, ptxas reports)."""
+    import importlib
+
+    from kubernetes_tpu_torch.kernels import bindings, build
+    from kubernetes_tpu_torch.ops import device as dv
+    from kubernetes_tpu_torch.ops import partials as pops
+
+    names = ["partials_eval", "mirror_rows"]
+    change_reports = {}
+    for name in names:
+        build._libs[name], change_reports[name] = build_library(name, build.CSRC_DIR, out_dir)
+    other, other_reports = load_other_bindings(other_dir, out_dir, names)
+    build.build_all([k for k in build.KERNELS if k not in names])
+    trees = {"other": (importlib.import_module("kt_other.ops.partials"),
+                       importlib.import_module("kt_other.ops.device"), other),
+             "change": (pops, dv, bindings)}
+    return trees, {"change": change_reports, "other": other_reports}
+
+
+def resident_case(shape: str, torch) -> dict:
+    """The inputs of a residents shape on the card, made with this tree's
+    package and chip_smoke.py's builders."""
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.testing import wrappers
+
+    T = chip_smoke.recording(TorchBatchScheduler)
+    if shape in ("R", "R500", "U500", "S64"):
+        sched, _snap, _meta = chip_smoke.affinity_snapshot(wrappers, T)
+        return chip_smoke.affinity_cases(sched, torch)[shape]
+    if shape in ("VR", "VM"):
+        sched, cache, ev, pods = chip_smoke.preemption_basic(wrappers, T, chip_smoke.PREEMPT)
+        verify = chip_smoke.hook_first_pass(sched, ev)
+        chip_smoke.preemption_cycle(sched, cache, ev, pods[: chip_smoke.PREEMPT_PASS])
+        cases = chip_smoke.verify_cases(verify)
+        return dict(cases["VR"], mirror=cases["VM"]) if shape == "VR" else cases["VM"]
+    if shape in ("RI", "SP"):
+        return chip_smoke.crossing_cases(wrappers, T, torch)[shape]
+    raise ValueError(f"no residents shape {shape}")
+
+
+def partials_step(pops, case: dict, torch):
+    """A tree's partials work for the case: a tree with ops.partials.
+    update_store makes one call (a fresh store, one launch); an earlier
+    tree runs the reference's order — the column grow and its refresh,
+    the insert of the missed slots, the dirty refresh — each
+    clone-then-launch.  Returns the step (no arguments -> the store)."""
+    miss, cols, grown, dirty = chip_smoke.partials_indices(case, torch)
+    st, specs, cl = case["store"], case["specs"], case["cluster"]
+    if case["full"]:
+        return lambda: tuple(pops.eval_store(cl, specs))
+    if hasattr(pops, "update_store"):
+        slots = miss if miss.numel() else None
+        return lambda: tuple(pops.update_store(st, specs, cl, slots, cols if cols.numel()
+                                               else None))
+    old_n, n = case["old_n"], case["n"]
+
+    def step():
+        out = st
+        if n > old_n:
+            out = pops.refresh_rows(pops.grow_store_cols(out, n - old_n), specs, cl, grown)
+        elif n < old_n:
+            out = pops.shrink_store_cols(out, n)
+        if miss.numel():
+            out = pops.insert_slots(out, specs, cl, miss)
+        if dirty.numel():
+            out = pops.refresh_rows(out, specs, cl, dirty)
+        return tuple(out)
+
+    return step
+
+
+def mirror_step(dv, bindings, case: dict, torch):
+    """(reset, step) of a tree's mirror delta: reset packs the rows
+    (outside the timing); the step of a tree whose RowTarget names the
+    resident leaf (`src`) is its one binding call (the fresh leaves made by
+    the launch); an earlier tree's is a copy of each leaf, then its launch
+    into the copies."""
+    leaves = case["leaves"]
+    stage = dv.PinnedStage()
+    dev = torch.device("cuda")
+    box = {}
+    if "src" in dv.RowTarget._fields:
+        targets = [dv.RowTarget(src, ax, idx, vals) for _f, src, ax, idx, vals in leaves]
+
+        def reset():
+            box["pack"] = dv.pack_rows(targets, stage, dev)
+
+        return reset, lambda: tuple(bindings.mirror_rows(box["pack"]))
+    copies = [torch.empty_like(src) for _f, src, _a, _i, _v in leaves]
+    targets = [dv.RowTarget(c, ax, idx, vals)
+               for c, (_f, _s, ax, idx, vals) in zip(copies, leaves)]
+
+    def reset():
+        box["pack"] = dv.pack_rows(targets, stage, dev)
+
+    def step():
+        for c, (_f, src, _a, _i, _v) in zip(copies, leaves):
+            c.copy_(src)
+        buf, _lay, units = box["pack"]
+        bindings.mirror_rows(buf, len(targets), units)
+        return tuple(copies)
+
+    return reset, step
+
+
+def resident_row(shape: str, other_dir: Path, out_dir: Path, torch) -> dict:
+    """One residents shape in this process: each tree's whole step on the
+    same inputs, other, change, change, other; each result equal to the
+    plain one (the reference's order / clone + index_copy_ on CPU copies)
+    and the resident inputs byte-unchanged after it; the card's time of
+    the step alone behind a spin and its host clock (chip_smoke.launch_ms)."""
+    import numpy as np
+
+    trees, reports = resident_trees(other_dir, out_dir)
+    case = resident_case(shape, torch)
+    torch.cuda.synchronize()
+    iters, workload = SHAPES["residents"][shape]
+    kind = case["kind"]
+    if kind == "partials":
+        want = chip_smoke.partials_want(case, torch)
+        inputs = tuple(case["store"])
+        calls = {w: (lambda: None, partials_step(pops, case, torch))
+                 for w, (pops, _dv, _b) in trees.items()}
+        cols = chip_smoke.partials_indices(case, torch)[1]
+        d_all = case["n"] if case["full"] else int(cols.numel())
+        need = chip_smoke.partials_update_need(
+            case["cluster"], case["specs"], 0 if case["full"] else case["old_n"], case["n"],
+            d_all, int(case["miss"].shape[0]), torch)
+    else:
+        want = chip_smoke.mirror_want(case, torch)
+        inputs = tuple(src for _f, src, _a, _i, _v in case["leaves"])
+        calls = {w: mirror_step(dv, b, case, torch) for w, (_p, dv, b) in trees.items()}
+        need = chip_smoke.mirror_rows_need(case["leaves"])
+    before = [t.cpu().clone() for t in inputs]
+    card = {"other": [], "change": []}
+    host = {"other": [], "change": []}
+    for which in ("other", "change", "change", "other"):
+        reset, step = calls[which]
+        reset()
+        chip_smoke.check_equal(f"residents {shape} ({which})", step(), want, torch)
+        ms, host_ms = chip_smoke.launch_ms(step, reset, iters, torch)
+        card[which].append(ms)
+        host[which].append(host_ms)
+    for t, b in zip(inputs, before):
+        if not torch.equal(t.cpu(), b):
+            raise AssertionError(f"residents {shape}: a resident input changed")
+    row = {"kernel": "residents", "shape": shape, "workload": workload,
+           "other_source": str(other_dir), "launches_a_timing": iters,
+           "card_ms": card, "median_card_ms": {k: statistics.median(v) for k, v in card.items()},
+           "host_ms": host, "median_host_ms": {k: statistics.median(v) for k, v in host.items()},
+           "bound_ms": chip_smoke.bound(*need), "equal_plain": True, "inputs_unchanged": True,
+           **{k: case[k] for k in ("seen",) if k in case}}
+    if kind == "partials":
+        row.update(slots=int(case["specs"].valid.shape[0]), old_n=case["old_n"], n=case["n"],
+                   missed=int(case["miss"].shape[0]), dirty=int(case["dirty"].shape[0]))
+    else:
+        row.update(leaves=len(case["leaves"]), rows=int(case["leaves"][0][3].shape[0]),
+                   packed_bytes=int(sum(np.asarray(v).nbytes
+                                        for *_r, v in case["leaves"])))
+    if shape == "VR":
+        # one warm delta sync's device operations at VR + VM, each tree
+        ops = {}
+        for which, (pops, dv, b) in trees.items():
+            reset, mstep = mirror_step(dv, b, case["mirror"], torch)
+            pstep = partials_step(pops, case, torch)
+            reset()
+            ops[which] = chip_smoke.device_ops(lambda: (mstep(), pstep()), torch)
+        row["device_ops_vr_vm"] = ops
+    row["ptxas"] = reports
+    return row
+
+
+def residents_ab(shapes, other_dir: Path, out_dir: Path, torch) -> list:
+    """Each residents shape in a fresh process of this script (its own
+    inputs, the build cached on disk), one JSON row each."""
+    rows = []
+    for shape in shapes:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "residents-one",
+                               str(other_dir), shape], capture_output=True, text=True)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr[-6000:])
+            raise RuntimeError(f"residents {shape}: exit {proc.returncode}")
+        rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps({k: v for k, v in rows[-1].items() if k != "ptxas"}), flush=True)
+    return rows
+
+
 def single_case(snap, features, assign, bindings, torch):
     """(kern, plain) of evaluate_single on a one-pod snapshot on the card:
     the loaded library's own sequence — its fused launch where it has one
@@ -709,12 +920,22 @@ def single_case(snap, features, assign, bindings, torch):
 def main() -> int:
     import torch
 
-    many = len(sys.argv) > 1 and sys.argv[1] in ("statics", "preempt")
+    if len(sys.argv) == 4 and sys.argv[1] == "residents-one":
+        # one residents shape, in the process residents_ab started
+        from kubernetes_tpu_torch.kernels import build
+
+        out_dir = build.BUILD_DIR / "ab"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        row = resident_row(sys.argv[3], Path(sys.argv[2]).resolve(), out_dir, torch)
+        print(json.dumps(row), flush=True)
+        return 0
+    many = len(sys.argv) > 1 and sys.argv[1] in ("statics", "preempt", "residents")
     if len(sys.argv) < 3 or sys.argv[1] not in SHAPES or (len(sys.argv) > 4 and not many):
         print(__doc__, file=sys.stderr)
         return 2
     kernel, other_dir = sys.argv[1], Path(sys.argv[2]).resolve()
-    shapes = sys.argv[3:] or [next(iter(SHAPES[kernel]))]
+    shapes = sys.argv[3:] or ([*SHAPES[kernel]] if kernel == "residents"
+                               else [next(iter(SHAPES[kernel]))])
     if any(shape not in SHAPES[kernel] for shape in shapes):
         print(f"kernel_ab: {kernel} has shapes {sorted(SHAPES[kernel])}", file=sys.stderr)
         return 2
@@ -727,7 +948,7 @@ def main() -> int:
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     if many:
-        run = statics_ab if kernel == "statics" else preempt_ab
+        run = {"statics": statics_ab, "preempt": preempt_ab, "residents": residents_ab}[kernel]
         rows = run(shapes, other_dir, out_dir, torch)
         print(chip_smoke.card_line(), flush=True)
         print(json.dumps({"kernel": kernel, "shapes": shapes,

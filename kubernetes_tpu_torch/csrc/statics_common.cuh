@@ -9,9 +9,11 @@
 // Cold statics (class_statics: the rows its classes name, then the class
 // tables, in one launch), the masks-only entry (match_terms) and warm
 // statics (partials_eval over a resident slot's stored spec) call these
-// functions, so they cannot drift.  class_statics and match_terms share
-// the node tile below: a block stages its 32 nodes' rows in shared memory
-// once and evaluates every table row it needs from there.
+// functions, so they cannot drift.  All four kernels share the node tile
+// below: a block stages its 32 nodes' rows in shared memory once and
+// evaluates every table row it needs from there (partials_eval gathers
+// its rows through its column list and stages them transposed, so its
+// entries read them without bank conflicts).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -149,7 +151,8 @@ __device__ __forceinline__ float affinity_add(float a, float w, bool hit)
     return __fadd_rn(a, __fmul_rn(w, hit ? 1.0f : 0.0f));
 }
 
-// ---- the node tile (class_statics.cu, match_terms.cu) -----------------------
+// ---- the node tile (class_statics.cu, match_terms.cu, pod_filters.cu,
+// partials_eval.cu) ------------------------------------------------------------
 
 // Nodes a block: one 32-bit match word a table row, one lane a node.
 constexpr int kTile = 32;

@@ -12,8 +12,9 @@ auction_loop — one thread-block cluster for the whole batch —,
 slice_stats — two kernels), one pod's evaluation (evaluate_single: filter
 and score in one call for a pod without an extra row, else its filter and
 its score, one call each, with class_extras between them), one
-index-list pair of the partials store (partials_eval), one packed row
-delta (mirror_rows: every leaf it names), one stage of an auction round
+sync of the partials store (partials_eval: a fresh store from the old
+one, the listed columns and slots evaluated, the rest copied), one packed
+row delta (mirror_rows: every leaf it names, into fresh leaves), one stage of an auction round
 (AuctionRun's stage methods: auction_loop's kernel launched for one stage,
 counted under the stage's own name — auction_bids, auction_accept for
 the acceptance, the commit or both, auction_spread, auction_interpod,
@@ -63,8 +64,10 @@ _ARGTYPES = {
     # the auction program: (stages, ints array, pointer array, stream)
     "auction_loop": [_I, _P, _P, _P],
     "class_extras": [_I] * 6 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
-    "partials_eval": [_I] * 12 + [_P] * 27,
-    "mirror_rows": [_P, _I, _I, _P],
+    # one sync of the partials store: (ints array, pointer array, stream)
+    "partials_eval": [_P, _P, _P],
+    # the packed delta, its leaves, its blocks, the fresh leaves' allocation
+    "mirror_rows": [_P, _I, _I, _P, _P],
     # the dry run and the Filter chain: (ints array, pointer array, stream)
     "preempt_dry_run": [_P, _P, _P],
     "pod_filters": [_P, _P, _P],
@@ -83,7 +86,8 @@ MAX_WAVE = 32        # wavefront.cu's widest wave
 EXTRAS_GRID = 132    # class_extras' blocks: one an SM, at most
 MAX_MI = 16          # class_extras.cu's images a pod
 MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
-LEAF_BYTES = 48      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
+LEAF_BYTES = 64      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
+MIRROR_BLOCK, MIRROR_CHUNK = 256, 16384   # its threads a block, bytes a block at most
 MAX_VICTIM_SLOTS = 4096  # preempt_dry_run.cu's widest victim axis
 DRY_RUN_CHUNK, DRY_RUN_POD_GROUP = 256, 32   # its slots a chunk, pods a group
 SPREAD_SHARED_Z = 256    # the auction's spread value spaces counted in shared memory
@@ -117,10 +121,12 @@ def _launcher(name: str):
             if max_k() != MAX_WAVE:
                 raise RuntimeError(f"wavefront max K {max_k()} != bindings {MAX_WAVE}")
         if name == "mirror_rows":
-            leaf = getattr(lib, "mirror_rows_leaf_bytes")
-            leaf.restype, leaf.argtypes = ctypes.c_int, []
-            if leaf() != LEAF_BYTES:
-                raise RuntimeError(f"mirror_rows descriptor {leaf()} B != bindings {LEAF_BYTES} B")
+            layout = getattr(lib, "mirror_rows_layout")
+            layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
+            got = tuple(layout(i) for i in range(3))
+            if got != (LEAF_BYTES, MIRROR_BLOCK, MIRROR_CHUNK):
+                raise RuntimeError(f"mirror_rows layout {got} != bindings "
+                                   f"{(LEAF_BYTES, MIRROR_BLOCK, MIRROR_CHUNK)}")
         if name in ("slice_stats", "evaluate_single"):
             lim = getattr(lib, f"{name}_limits")
             if name == "slice_stats":
@@ -165,6 +171,14 @@ def _launcher(name: str):
                     STATICS_CLASS_CHUNK)
             if got != want:
                 raise RuntimeError(f"class_statics layout {got} != bindings {want}")
+        if name == "partials_eval":
+            layout = getattr(lib, "partials_eval_layout")
+            layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
+            got = tuple(layout(i) for i in range(6))
+            want = (len(PARTIALS_INTS), len(PARTIALS_PTRS), STATICS_TILE, PARTIALS_COPY_COLS,
+                    PARTIALS_SLOT_CHUNK, PARTIALS_MAX_SLOTS)
+            if got != want:
+                raise RuntimeError(f"partials_eval layout {got} != bindings {want}")
         if name == "family_prep":
             layout = getattr(lib, "family_prep_layout")
             layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
@@ -349,84 +363,119 @@ def class_statics(cluster, pods, sel, pref, reps,
     return (sfeas.view(b), aff, taint, mask.view(b) if mask is not None else None)
 
 
-def partials_eval(cluster, specs, slot_idx, col_idx, store) -> None:
-    """Evaluate the partials store at (slot in slot_idx) x (column in
-    col_idx, or every column when None) from the slots' stored specs,
-    writing store.sfeas / aff / taint [G, N] in place (the caller hands in
-    fresh store tensors)."""
-    dev = cluster.allocatable.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    node_valid = _arg(cluster.node_valid, b, dev, "node_valid")
-    node_name = _arg(cluster.name_id, i32, dev, "name_id")
-    label_bits = _arg(cluster.label_bits, i32, dev, "label_bits")
-    topo_ids = _arg(cluster.topo_ids, i32, dev, "topo_ids")
-    taint_bits = _arg(cluster.taint_bits, i32, dev, "taint_bits")
-    node_ports = _arg(cluster.port_bits, i32, dev, "port_bits")
-    sp = [
-        _arg(specs.valid, b, dev, "specs.valid"),
-        _arg(specs.name_id, i32, dev, "specs.name_id"),
-        _arg(specs.has_sel, b, dev, "specs.has_sel"),
-        _arg(specs.sel_ids, i32, dev, "specs.sel_ids"),
-        _arg(specs.sel_op, i32, dev, "specs.sel_op"),
-        _arg(specs.sel_slot, i32, dev, "specs.sel_slot"),
-        _arg(specs.sel_tv, b, dev, "specs.sel_tv"),
-        _arg(specs.tol_bits, i32, dev, "specs.tol_bits"),
-        _arg(specs.tol_all, b, dev, "specs.tol_all"),
-        _arg(specs.port_bits, i32, dev, "specs.port_bits"),
-        _arg(specs.pref_ids, i32, dev, "specs.pref_ids"),
-        _arg(specs.pref_op, i32, dev, "specs.pref_op"),
-        _arg(specs.pref_slot, i32, dev, "specs.pref_slot"),
-        _arg(specs.pref_valid, b, dev, "specs.pref_valid"),
-        _arg(specs.pref_weight, f32, dev, "specs.pref_weight"),
-    ]
-    slot_idx = _arg(slot_idx, i32, dev, "slot_idx")
-    n, lw = label_bits.shape
-    tk = topo_ids.shape[1]
-    tw = taint_bits.shape[2]
-    pw = node_ports.shape[1]
-    g, t, e, k = sp[3].shape
-    mt = sp[10].shape[1]
-    if (sp[7].shape != (3, g, tw) or sp[9].shape != (g, pw) or sp[10].shape != (g, mt, e, k)
-            or sp[0].shape != (g,) or sp[6].shape != (g, t)):
+# partials_eval.cu's launch arguments: ints[k] and ptrs[k] in the order of
+# its kI_* / kP_* enums (partials_eval_layout gives the lengths, the tile,
+# a copy block's columns, the most slots a tile block and the most slots,
+# checked on load)
+PARTIALS_INTS = ("n", "lw", "tk", "tw", "pw", "g", "t", "e", "k", "mt", "old_n", "m", "d",
+                 "vec")
+PARTIALS_PTRS = (
+    "node_valid", "node_name", "label_bits", "topo_ids", "taint_bits", "node_ports",
+    "valid", "name_id", "has_sel", "sel_ids", "sel_op", "sel_slot", "sel_tv",
+    "tol_bits", "tol_all", "port_bits",
+    "pref_ids", "pref_op", "pref_slot", "pref_valid", "pref_weight",
+    "old_sfeas", "old_aff", "old_taint", "slots", "cols",
+    "sfeas", "aff", "taint",
+)
+PARTIALS_COPY_COLS, PARTIALS_SLOT_CHUNK, PARTIALS_MAX_SLOTS = 2048, 32, 1024
+
+
+def partials_eval(cluster, specs, old, slots, cols):
+    """One sync of the partials store in one launch: a fresh (sfeas
+    bool[G, N], aff f32[G, N], taint f32[G, N]) — one allocation, the
+    three views of it — with every slot evaluated at the columns `cols`
+    and from the old store's width up, the slots `slots` at every column,
+    every other entry copied from `old` (None: every entry evaluated).
+    `slots` and `cols` are ascending, distinct int32 lists (or None)."""
+    dev = cluster.node_valid.device
+    b = torch.bool
+    n, lw = cluster.label_bits.shape
+    tk = cluster.topo_ids.shape[1]
+    tw = cluster.taint_bits.shape[2]
+    pw = cluster.port_bits.shape[1]
+    g, t, e, k = specs.sel_ids.shape
+    mt = specs.pref_ids.shape[1]
+    if (cluster.topo_ids.shape[0] != n or cluster.taint_bits.shape[:2] != (3, n)
+            or cluster.port_bits.shape[0] != n or cluster.node_valid.shape != (n,)
+            or cluster.name_id.shape != (n,)):
+        raise ValueError("node tables do not share the node axis")
+    if (specs.tol_bits.shape != (3, g, tw) or specs.port_bits.shape != (g, pw)
+            or specs.pref_ids.shape != (g, mt, e, k) or specs.valid.shape != (g,)
+            or specs.sel_tv.shape != (g, t) or specs.tol_all.shape != (3, g) or mt < 1):
         raise ValueError("partials specs do not match the cluster's widths")
-    outs = []
-    for t_, dtype, what in ((store.sfeas, b, "sfeas"), (store.aff, f32, "aff"),
-                            (store.taint, f32, "taint")):
-        if (t_.device != dev or t_.dtype != dtype or not t_.is_contiguous()
-                or tuple(t_.shape) != (g, n)):
-            raise ValueError(f"store.{what}: a contiguous {dtype} [{g}, {n}] tensor on {dev}")
-        outs.append(t_.view(torch.uint8) if dtype == b else t_)
-    if col_idx is None:
-        n_cols, col_ptr = n, ctypes.c_void_p(None)
-    else:
-        col_idx = _arg(col_idx, i32, dev, "col_idx")
-        n_cols, col_ptr = col_idx.shape[0], _ptr(col_idx)
-    n_slots = slot_idx.shape[0]
-    if n_slots > MAX_GRID_Y:
-        raise ValueError(f"{n_slots} slots exceed the grid's {MAX_GRID_Y}")
-    if n_slots == 0 or n_cols == 0:
-        return
-    _launch(
-        "partials_eval", dev,
-        n, lw, tk, tw, pw, g, t, e, k, mt, n_slots, n_cols,
-        _ptr(node_valid), _ptr(node_name), _ptr(label_bits), _ptr(topo_ids),
-        _ptr(taint_bits), _ptr(node_ports), *[_ptr(x) for x in sp],
-        _ptr(slot_idx), col_ptr, *[_ptr(x) for x in outs],
-    )
+    if g > PARTIALS_MAX_SLOTS:
+        raise ValueError(f"{g} slots exceed partials_eval's {PARTIALS_MAX_SLOTS}")
+    old_n = 0 if old is None else old.aff.shape[1]
+    if old is not None and any(tuple(x.shape) != (g, old_n) for x in old):
+        raise ValueError("the old store's leaves do not share [G, N]")
+    gn = g * n
+    buf = torch.empty(9 * gn, dtype=_U8, device=dev)
+    aff, taint = buf[: 8 * gn].view(_F32).view(2, g, n).unbind(0)
+    sfeas = buf[8 * gn :].view(g, n)
+    keep = []
+    i32 = _I32
+    none = torch.empty(0, dtype=i32, device=dev)
+    slots = none if slots is None else slots
+    cols = none if cols is None else cols
+    old_t = (none.view(_U8), none.view(_F32), none.view(_F32)) if old is None else \
+        (old.sfeas.view(_U8) if old.sfeas.dtype is b else old.sfeas, old.aff, old.taint)
+    ptrs = _checked(dev, (
+        (cluster.node_valid, b, "node_valid"), (cluster.name_id, i32, "name_id"),
+        (cluster.label_bits, i32, "label_bits"), (cluster.topo_ids, i32, "topo_ids"),
+        (cluster.taint_bits, i32, "taint_bits"), (cluster.port_bits, i32, "port_bits"),
+        (specs.valid, b, "specs.valid"), (specs.name_id, i32, "specs.name_id"),
+        (specs.has_sel, b, "specs.has_sel"), (specs.sel_ids, i32, "specs.sel_ids"),
+        (specs.sel_op, i32, "specs.sel_op"), (specs.sel_slot, i32, "specs.sel_slot"),
+        (specs.sel_tv, b, "specs.sel_tv"), (specs.tol_bits, i32, "specs.tol_bits"),
+        (specs.tol_all, b, "specs.tol_all"), (specs.port_bits, i32, "specs.port_bits"),
+        (specs.pref_ids, i32, "specs.pref_ids"), (specs.pref_op, i32, "specs.pref_op"),
+        (specs.pref_slot, i32, "specs.pref_slot"), (specs.pref_valid, b, "specs.pref_valid"),
+        (specs.pref_weight, _F32, "specs.pref_weight"),
+        (old_t[0], _U8, "old.sfeas"), (old_t[1], _F32, "old.aff"),
+        (old_t[2], _F32, "old.taint"), (slots, i32, "slots"), (cols, i32, "cols"),
+    ), keep)
+    out = buf.data_ptr()
+    ptrs += [out + 8 * gn, out, out + 4 * gn]
+    aligned = all(p % 16 == 0 for p in ptrs[-8:-5] + ptrs[-3:])   # old and new leaves
+    vec = int(aligned and old_n % 16 == 0 and n % 16 == 0)
+    m, d = slots.numel(), cols.numel()
+    if m > g:
+        raise ValueError(f"{m} missed slots of {g}")
+    if n and g:
+        ints = (n, lw, tk, tw, pw, g, t, e, k, mt, old_n, m, d, vec)
+        arr_i = (ctypes.c_int * len(PARTIALS_INTS))(*ints)
+        arr_p = (ctypes.c_void_p * len(PARTIALS_PTRS))(*ptrs)
+        with torch.cuda.device(dev):
+            code = _launcher("partials_eval")(arr_i, arr_p, _stream(dev))
+        build.check("partials_eval", code)
+        LAUNCHES["partials_eval"] += 1
+    return sfeas.view(b), aff, taint
 
 
-def mirror_rows(buf: torch.Tensor, n_leaves: int, max_units: int) -> None:
-    """Scatter a packed row delta (ops/device.py pack_rows: descriptors,
-    indices, rows) into the leaves its descriptors name, in one launch."""
+def mirror_rows(pack) -> list:
+    """Apply a packed row delta (ops/device.py pack_rows: descriptors, the
+    prefix table of blocks, indices, rows) in one launch: the fresh leaves,
+    each the old leaf with its rows written, as views of one allocation."""
+    buf = pack.buf
     dev = buf.device
-    buf = _arg(buf, torch.uint8, dev, "packed rows")
-    if buf.numel() < n_leaves * LEAF_BYTES:
+    if buf.dtype != torch.uint8 or not buf.is_contiguous() or dev.type != "cuda":
+        raise ValueError("packed rows: a contiguous uint8 tensor on the card")
+    n_leaves = len(pack.layouts)
+    if buf.numel() < n_leaves * LEAF_BYTES + 4 * (n_leaves + 1):
         raise ValueError("packed rows shorter than their descriptors")
-    if n_leaves > MAX_GRID_Y:
-        raise ValueError(f"{n_leaves} leaves exceed the grid's {MAX_GRID_Y}")
-    if n_leaves == 0 or max_units == 0:
-        return
-    _launch("mirror_rows", dev, _ptr(buf), n_leaves, max_units)
+    for src in pack.srcs:
+        if src.device != dev or not src.is_contiguous():
+            raise ValueError(f"mirror_rows: a leaf on {src.device} or not contiguous")
+    out = torch.empty(max(pack.out_bytes, 256), dtype=torch.uint8, device=dev)
+    fresh, bases = [], {}
+    for src, lay in zip(pack.srcs, pack.layouts):
+        base = bases.get(src.dtype)
+        if base is None:
+            base = bases[src.dtype] = out.view(src.dtype)
+        fresh.append(base.as_strided(src.shape, src.stride(), lay.out_off // src.element_size()))
+    if pack.blocks:
+        _launch("mirror_rows", dev, _ptr(buf), n_leaves, pack.blocks, _ptr(out))
+    return fresh
 
 
 _PARAMS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}

@@ -16,13 +16,15 @@ A sync is one of:
     widened), more than FULL_SYNC_FRACTION of the rows dirty, or after
     invalidate();
   * a delta: the dirty rows of every leaf packed into one buffer, sent in
-    one copy and scattered by one launch of kernel `mirror_rows`
-    (ops/device.py set_rows);
+    one copy and written by one launch of kernel `mirror_rows`
+    (ops/device.py set_rows), which copies each touched leaf with its
+    dirty rows overlaid into a fresh leaf;
   * after a pad-bucket crossing: an in-place grow (a pad of default rows)
     or shrink (a slice) of every leaf on the device, then the delta.
 
-Deltas and grows write into FRESH tensors (a copy of each touched leaf),
-never into the buffer the previous sync returned: that buffer may still be
+Deltas and grows write FRESH tensors (the delta's launch copies each
+touched leaf itself; a grow pads a new one), never into the buffer the
+previous sync returned: that buffer may still be
 read by a solve in flight, a snapshot a caller kept, or a
 speculation_point() bookmark — the reference's arrays are immutable, and
 the port keeps that contract.  `resync_total`, `delta_rows_total`,
@@ -266,7 +268,7 @@ class DeviceClusterMirror:
         self.delta_syncs += 1
         self.delta_rows_total += int(static_idx.shape[0] + usage_idx.shape[0])
         self.last_sync = "delta"
-        targets, updates = [], {}
+        targets, names = [], []
         families = ((_STATIC_LEAVES + ("taint_bits",), static_idx),
                     (_USAGE_LEAVES, usage_idx))
         for leaves, idx in families:
@@ -274,11 +276,11 @@ class DeviceClusterMirror:
                 continue
             for f in leaves:
                 ax = _node_axis(f)
-                fresh = getattr(dev, f).clone()
-                updates[f] = fresh
                 vals = np.take(np.asarray(getattr(host, f)), idx, axis=ax)
-                targets.append(device_ops.RowTarget(fresh, ax, idx, vals))
-        self.last_sync_bytes = device_ops.set_rows(targets, self._stage, self.device)
+                targets.append(device_ops.RowTarget(getattr(dev, f), ax, idx, vals))
+                names.append(f)
+        fresh = device_ops.set_rows(targets, self._stage, self.device)
+        self.last_sync_bytes = self._stage.bytes_sent
         if targets:
             self.last_launches = {"mirror_rows": 1}
-        return dev._replace(**updates) if updates else dev
+        return dev._replace(**dict(zip(names, fresh))) if names else dev

@@ -12,12 +12,13 @@ across batches.
 
 Per sync (under the cache lock, right after mirror.sync()):
 
-  1. classes first seen this batch get a slot, their spec rows, and their
-     full [N] row (one `mirror_rows` launch for the specs, one
-     `partials_eval` launch for the rows);
-  2. every cached class re-evaluates ONLY the node rows dirtied since the
-     cache's last sync (ClusterState.dirty_rows, which includes the rows
-     the previous batch's assumes touched);
+  1. classes first seen this batch get a slot and their spec rows (one
+     `mirror_rows` launch, which writes fresh spec leaves);
+  2. one `partials_eval` launch writes a fresh store: the new classes'
+     full [N] rows, every cached class re-evaluated at ONLY the node rows
+     dirtied since the cache's last sync (ClusterState.dirty_rows, which
+     includes the rows the previous batch's assumes touched) and at the
+     columns a pad-bucket grow added, every other entry copied;
   3. the solve consumes the batch-ordered gather — the `statics=` operand
      of the greedy scan and the wavefront.
 
@@ -32,8 +33,8 @@ Resync discipline (the reference's, whole):
     classes than MAX_SLOTS declines (None: the solve runs cold);
   * a PERIODIC full recompute every `resync_interval` delta syncs, plus
     verify(), the oracle-parity gate the tests drive;
-  * a pad-bucket crossing resizes the store's columns in place and keeps
-    every class warm;
+  * a pad-bucket crossing resizes the store's columns in the same store
+    update and keeps every class warm;
   * speculation_point()/rollback() bookmark the resident tensors (updates
     are out of place, so holding the references is the double buffer),
     and invalidate() drops everything.
@@ -383,9 +384,12 @@ class PartialsCache:
         return outs
 
     def _delta(self, cluster, snap, keys, misses, dirty, n, c_dim) -> torch.Tensor:
-        """The warm path: resize across a bucket crossing, insert the
-        misses, refresh the dirty columns, in the reference's order and
-        with its counts."""
+        """The warm path: the reference's resize, insert and refresh, with
+        its counts, as one store update — one `partials_eval` launch over
+        the union of the grown columns, the dirty columns and the missed
+        slots, against the current cluster and the final specs (each of
+        the reference's steps evaluates the same cluster, and a missed
+        slot's row is overwritten whole)."""
         state = self.state
         class_rep = np.asarray(snap.pods.class_rep)
         miss_set = set(misses)
@@ -403,31 +407,28 @@ class PartialsCache:
         old_n = self._n
         grow_idx = np.arange(old_n, n, dtype=np.int32)
         miss_arr = np.asarray(miss_idx, dtype=np.int32)
-        grow_d, miss_d, dirty_d, slots_d = self._upload(
-            grow_idx, miss_arr, dirty, self._slot_order(keys, c_dim))
-        if old_n != n:
-            # elastic node axis: resize the columns in place; the new
-            # columns are evaluated at once against the grown cluster
-            if n > old_n:
-                self._store = pops.grow_store_cols(self._store, n - old_n)
-                self._store = pops.refresh_rows(self._store, self._specs, cluster, grow_d)
-                self._launched("partials_eval")
-                self.recomputed_rows_total += int(grow_idx.shape[0])
-            else:
-                self._store = pops.shrink_store_cols(self._store, n)
-            self.grows += 1
-            self._n = n
+        cols = np.union1d(dirty, grow_idx).astype(np.int32)
+        miss_d, cols_d, slots_d = self._upload(miss_arr, cols, self._slot_order(keys, c_dim))
         if misses:
             rows = self._stack_spec_rows(miss_rows)
             self._specs = pops.set_spec_rows(self._specs, rows, miss_arr, self._spec_stage)
             self.last_sync_bytes += self._spec_stage.bytes_sent
             self._launched("mirror_rows")
-            self._store = pops.insert_slots(self._store, self._specs, cluster, miss_d)
+        if old_n != n or misses or cols.shape[0]:
+            self._store = pops.update_store(self._store, self._specs, cluster,
+                                            miss_d if misses else None,
+                                            cols_d if cols.shape[0] else None)
             self._launched("partials_eval")
+        if old_n != n:
+            # elastic node axis: the columns resized in the same update;
+            # the grown ones evaluated against the grown cluster
+            if n > old_n:
+                self.recomputed_rows_total += int(grow_idx.shape[0])
+            self.grows += 1
+            self._n = n
+        if misses:
             self.recomputed_rows_total += len(miss_idx) * n
         if dirty.shape[0]:
-            self._store = pops.refresh_rows(self._store, self._specs, cluster, dirty_d)
-            self._launched("partials_eval")
             self.recomputed_rows_total += int(dirty.shape[0])
         self.hit_rows_total += max(hits, 0) * (n - int(dirty.shape[0]))
         self.delta_syncs += 1

@@ -18,8 +18,10 @@ The transfer path of a mirrored batch (models.batch_scheduler) is:
     and handed out as dtype views of slices of the device buffer (no
     unpack kernel);
   * `set_rows`: a row delta of several resident leaves packed the same
-    way and scattered by one launch of kernel `mirror_rows` (the resident
-    mirror's and the partials specs' deltas).
+    way and written by one launch of kernel `mirror_rows` into fresh
+    leaves, each the old leaf with the delta's rows overlaid (the resident
+    mirror's and the partials specs' deltas; the old leaves are only
+    read).
 
 A `PinnedStage` is reused batch after batch: before its host buffer is
 rewritten it waits on the CUDA event recorded after its previous copy.
@@ -120,13 +122,15 @@ def _view(buf: torch.Tensor, off: int, a: np.ndarray) -> torch.Tensor:
 def pack_leaves(arrs: Sequence[np.ndarray], stage: PinnedStage,
                 device: torch.device) -> List[torch.Tensor]:
     """Host arrays -> device tensors through ONE staging copy: each array
-    (canonical dtype) is written into its own aligned segment of the
+    (canonical dtype) is written into its own 16-byte aligned segment of the
     stage, the stage is sent, and each tensor is a dtype view of its
     slice of the device buffer."""
     arrs = [np.ascontiguousarray(_canon(a)) for a in arrs]
     offsets, off = [], 0
     for a in arrs:
-        off = _align(off, a.itemsize)
+        # 16-byte segments: kernel mirror_rows copies a leaf in 16-byte
+        # units where its address allows
+        off = _align(off, 16)
         offsets.append(off)
         off += a.nbytes
     nbytes = _align(off, 8)
@@ -229,107 +233,155 @@ def device_fill_shortcut(
 # one descriptor a leaf at the head of the packed buffer; the layout of
 # csrc/mirror_rows.cu's `Leaf`
 LEAF_DTYPE = np.dtype([
-    ("dst", "<u8"), ("outer_stride", "<u8"), ("row_stride", "<u8"),
-    ("src_off", "<u4"), ("idx_off", "<u4"), ("rows", "<i4"),
-    ("row_bytes", "<i4"), ("outer", "<i4"), ("unit", "<i4"),
+    ("src", "<u8"), ("out_off", "<u8"), ("slice_bytes", "<u8"),
+    ("idx_off", "<u4"), ("vals_off", "<u4"), ("rows", "<i4"), ("row_bytes", "<i4"),
+    ("outer", "<i4"), ("unit", "<i4"), ("chunk_bytes", "<i4"), ("chunks", "<i4"),
+    ("pad", "<i4", (2,)),
 ])
-assert LEAF_DTYPE.itemsize == 48
+assert LEAF_DTYPE.itemsize == 64
+ROW_CHUNK = 16384   # mirror_rows.cu's kChunk: bytes a block copies, at most
+OUT_ALIGN = 256     # each fresh leaf's offset in the launch's output allocation
 
 
 class RowTarget(NamedTuple):
-    """One leaf of a row delta: write vals into dst's rows idx on `axis`
-    (0, or 1 for the effect-major leaves)."""
+    """One leaf of a row delta: a fresh copy of `src` with vals written at
+    its rows idx on `axis` (0, or 1 for the effect-major leaves)."""
 
-    dst: torch.Tensor   # contiguous, on the target device; written in place
+    src: torch.Tensor   # the resident leaf, contiguous; only read
     axis: int
-    idx: np.ndarray     # i32[D] distinct row indices
-    vals: np.ndarray    # dst's shape with D rows on `axis` (canonical dtype)
+    idx: np.ndarray     # i32[D] ascending, distinct row indices
+    vals: np.ndarray    # src's shape with D rows on `axis` (canonical dtype)
 
 
 class RowLayout(NamedTuple):
-    """Where one target's indices and rows lie in the packed buffer."""
+    """Where one target's indices, rows and fresh leaf lie."""
 
     idx_off: int
-    src_off: int
+    vals_off: int
     outer: int
     rows: int
     row_bytes: int
-    unit: int
+    out_off: int    # byte offset of the fresh leaf in the output allocation
+    unit: int       # copy unit: 16, 4 or 1 bytes
+    blocks: int     # the launch's blocks for this leaf
 
 
-def _row_geometry(dst: torch.Tensor, axis: int) -> Tuple[int, int]:
-    """(outer count, row bytes) of dst's row axis: dst is contiguous, so
+class RowPack(NamedTuple):
+    """A packed row delta on its device: the buffer (descriptors, the
+    prefix table of blocks, indices, rows), each target's layout, the old
+    leaves, the launch's blocks and the bytes of its one output
+    allocation."""
+
+    buf: torch.Tensor
+    layouts: List[RowLayout]
+    srcs: List[torch.Tensor]
+    blocks: int
+    out_bytes: int
+
+
+def _row_geometry(src: torch.Tensor, axis: int) -> Tuple[int, int]:
+    """(outer count, row bytes) of src's row axis: src is contiguous, so
     rows lie row_bytes apart and outer slices rows * row_bytes apart."""
-    shape = tuple(dst.shape)
+    shape = tuple(src.shape)
     outer = int(np.prod(shape[:axis], dtype=np.int64))
-    return outer, int(np.prod(shape[axis + 1:], dtype=np.int64)) * dst.element_size()
+    return outer, int(np.prod(shape[axis + 1:], dtype=np.int64)) * src.element_size()
 
 
-def pack_rows(targets: Sequence[RowTarget], stage: PinnedStage,
-              device: torch.device) -> Tuple[torch.Tensor, List[RowLayout], int]:
-    """Pack every target's descriptor, indices and rows into the stage and
-    send it in one copy.  Returns (device buffer, layouts, widest leaf's
-    copy units)."""
+def _copy_unit(addr: int, slice_bytes: int) -> int:
+    """The widest copy unit (16, 4 or 1 bytes) that the old leaf's address
+    and its slice bytes allow (the fresh leaf lies at an OUT_ALIGN offset)."""
+    for unit in (16, 4):
+        if addr % unit == 0 and slice_bytes % unit == 0:
+            return unit
+    return 1
+
+
+def pack_rows(targets: Sequence[RowTarget], stage: PinnedStage, device) -> RowPack:
+    """Pack every target's descriptor, the prefix table of blocks, its
+    indices and rows into the stage and send it in one copy.  Raises
+    ValueError unless each target's indices are ascending and distinct
+    (the kernel finds a block's rows by binary search) and its rows match
+    its leaf."""
+    device = torch.device(device)
     n = len(targets)
-    off = _align(n * LEAF_DTYPE.itemsize, 8)
-    layouts, max_units = [], 0
-    for t in targets:
-        if not t.dst.is_contiguous():
+    off = _align(n * LEAF_DTYPE.itemsize + 4 * (n + 1), 16)
+    layouts, desc, out_off, blocks = [], np.zeros(n, LEAF_DTYPE), 0, 0
+    for i, t in enumerate(targets):
+        if not t.src.is_contiguous():
             raise ValueError("set_rows: a target leaf is not contiguous")
-        outer, row_bytes = _row_geometry(t.dst, t.axis)
-        rows = int(t.idx.shape[0])
+        idx = np.asarray(t.idx)
+        if idx.ndim != 1 or (idx.shape[0] > 1 and not (np.diff(idx) > 0).all()):
+            raise ValueError("set_rows: row indices must be ascending and distinct")
+        outer, row_bytes = _row_geometry(t.src, t.axis)
+        rows = int(idx.shape[0])
+        slice_bytes = int(t.src.shape[t.axis]) * row_bytes
+        unit = _copy_unit(t.src.data_ptr(), slice_bytes)
+        chunk = min(ROW_CHUNK, -(-slice_bytes // unit) * unit)
+        chunks = -(-slice_bytes // chunk) if slice_bytes else 0
         idx_off = off
-        off = _align(off + 4 * rows, 4)
-        src_off = off
-        off = _align(off + outer * rows * row_bytes, 4)
-        unit = 4 if row_bytes % 4 == 0 else 1
-        max_units = max(max_units, outer * rows * (row_bytes // unit))
-        layouts.append(RowLayout(idx_off, src_off, outer, rows, row_bytes, unit))
-    nbytes = _align(off, 8)
+        off = _align(off + 4 * rows, 16)
+        vals_off = off
+        off = _align(off + outer * rows * row_bytes, 16)
+        layouts.append(RowLayout(idx_off, vals_off, outer, rows, row_bytes, out_off, unit,
+                                 outer * chunks))
+        desc[i] = (t.src.data_ptr(), out_off, slice_bytes, idx_off, vals_off, rows, row_bytes,
+                   outer, unit, chunk, chunks, (0, 0))
+        out_off += -(-outer * slice_bytes // OUT_ALIGN) * OUT_ALIGN
+        blocks += outer * chunks
+    nbytes = _align(off, 16)
     host = stage.buffer(nbytes, device)
-    desc = np.zeros(n, LEAF_DTYPE)
+    prefix = np.zeros(n + 1, np.int32)
     for i, (t, lay) in enumerate(zip(targets, layouts)):
-        desc[i] = (t.dst.data_ptr(), t.dst.shape[t.axis] * lay.row_bytes, lay.row_bytes,
-                   lay.src_off, lay.idx_off, lay.rows, lay.row_bytes, lay.outer, lay.unit)
+        prefix[i + 1] = prefix[i] + lay.blocks
         host[lay.idx_off : lay.idx_off + 4 * lay.rows] = (
             np.ascontiguousarray(t.idx, dtype=np.int32).view(np.uint8))
         vals = np.ascontiguousarray(_canon(t.vals))
-        if vals.dtype.itemsize != t.dst.element_size() or vals.nbytes != lay.outer * lay.rows * lay.row_bytes:
+        if (vals.dtype.itemsize != t.src.element_size()
+                or vals.nbytes != lay.outer * lay.rows * lay.row_bytes):
             raise ValueError("set_rows: rows do not match their leaf")
-        host[lay.src_off : lay.src_off + vals.nbytes] = vals.reshape(-1).view(np.uint8)
+        host[lay.vals_off : lay.vals_off + vals.nbytes] = vals.reshape(-1).view(np.uint8)
     host[: desc.nbytes] = desc.view(np.uint8)
-    return stage.send(nbytes, device), layouts, max_units
+    host[desc.nbytes : desc.nbytes + prefix.nbytes] = prefix.view(np.uint8)
+    return RowPack(stage.send(nbytes, device), layouts, [t.src for t in targets], blocks,
+                   out_off)
 
 
-def set_rows_plain(buf: torch.Tensor, targets: Sequence[RowTarget],
-                   layouts: Sequence[RowLayout]) -> None:
+def set_rows_plain(pack: RowPack, targets: Sequence[RowTarget]) -> List[torch.Tensor]:
     """Plain version of kernel `mirror_rows`: read each target's indices
-    and rows back out of the packed buffer and index_copy_ them in."""
-    for t, lay in zip(targets, layouts):
+    and rows back out of the packed buffer; each fresh leaf is a clone of
+    the old one with the rows index_copy_'d in."""
+    buf, outs = pack.buf, []
+    for t, lay in zip(targets, pack.layouts):
         idx = buf[lay.idx_off : lay.idx_off + 4 * lay.rows].view(torch.int32).long()
-        seg = buf[lay.src_off : lay.src_off + lay.outer * lay.rows * lay.row_bytes]
-        shape = list(t.dst.shape)
+        seg = buf[lay.vals_off : lay.vals_off + lay.outer * lay.rows * lay.row_bytes]
+        shape = list(t.src.shape)
         shape[t.axis] = lay.rows
-        vals = seg.view(t.dst.dtype).reshape(shape)
-        t.dst.index_copy_(t.axis, idx.to(t.dst.device), vals.to(t.dst.device))
+        vals = seg.view(t.src.dtype).reshape(shape)
+        out = t.src.clone()
+        out.index_copy_(t.axis, idx.to(out.device), vals.to(out.device))
+        outs.append(out)
+    return outs
 
 
-def set_rows(targets: Sequence[RowTarget], stage: PinnedStage, device) -> int:
-    """Write every target's rows in place: one packed copy, then kernel
-    `mirror_rows` for tensors on the card or its plain version for tensors
-    on the CPU.  Returns the bytes sent."""
-    targets = [t for t in targets if t.idx.shape[0]]
-    if not targets:
-        return 0
+def set_rows(targets: Sequence[RowTarget], stage: PinnedStage, device) -> List[torch.Tensor]:
+    """Each target's fresh leaf (its `src` with its rows written; `src`
+    itself for a target with no rows): one packed copy, then kernel
+    `mirror_rows` for tensors on the card (the fresh leaves views of its
+    one output allocation) or its plain version for tensors on the CPU.
+    The bytes sent are the stage's `bytes_sent`."""
+    live = [t for t in targets if t.idx.shape[0]]
+    stage.bytes_sent = 0
+    if not live:
+        return [t.src for t in targets]
     device = torch.device(device)
-    buf, layouts, max_units = pack_rows(targets, stage, device)
+    pack = pack_rows(live, stage, device)
     if device.type == "cpu":
-        set_rows_plain(buf, targets, layouts)
+        fresh = iter(set_rows_plain(pack, live))
     else:
         from ..kernels import bindings
 
-        bindings.mirror_rows(buf, len(targets), max_units)
-    return int(buf.numel())
+        fresh = iter(bindings.mirror_rows(pack))
+    return [next(fresh) if t.idx.shape[0] else t.src for t in targets]
 
 
 def add_rows_in_order(dst: torch.Tensor, rows: Sequence[int],

@@ -17,20 +17,25 @@ re-evaluates only what changed:
   insert_slots    the slots of classes first seen this batch, every column
   gather_statics  the batch-ordered [C, N] view the solve consumes
 
-The three evaluations are one kernel, `partials_eval`
-(csrc/partials_eval.cu), over (slot list) x (column list); its plain
-version is `eval_cols_plain`, which runs `_eval_slot` — the port's own
-match_terms, static_feasible_for_pod, node_affinity_raw and
-taint_toleration_raw on the slot's stored spec — as the reference's
-`_eval_slot` runs the reference's.  Every function is elementwise over
-the node axis, so a column subset evaluated on gathered rows equals the
-same columns of a full evaluation, and a slot's row equals class_statics'
-row for a batch whose representative has the slot's spec.
+The three evaluations, and a warm sync's grow, insert and refresh
+together, are cases of one entry point, `update_store`: kernel
+`partials_eval` (csrc/partials_eval.cu) writes a fresh store in one
+launch, evaluating the listed columns for every slot, the columns from
+the old width up and the missed slots' rows, and copying every other
+entry from the old store.  Its plain version, `update_store_plain`, runs
+`eval_cols_plain`, which runs `_eval_slot` — the port's own match_terms,
+static_feasible_for_pod, node_affinity_raw and taint_toleration_raw on
+the slot's stored spec — as the reference's `_eval_slot` runs the
+reference's.  Every function is elementwise over the node axis, so a
+column subset evaluated on gathered rows equals the same columns of a
+full evaluation, and a slot's row equals class_statics' row for a batch
+whose representative has the slot's spec.
 
-Updates are out of place: refresh/insert write into a copy of the store,
-and set_spec_rows into copies of the spec leaves, so a store or spec set
-a solve or a speculation bookmark still holds never changes (the
-reference's arrays are immutable; the port keeps that contract).
+Updates are out of place: every sync writes a fresh store, and
+set_spec_rows fresh spec leaves (kernel mirror_rows copies the old leaf
+with the rows overlaid), so a store or spec set a solve or a speculation
+bookmark still holds never changes (the reference's arrays are
+immutable; the port keeps that contract).
 """
 
 from __future__ import annotations
@@ -155,23 +160,63 @@ def eval_cols_plain(cluster: ClusterTensors, specs: ClassSpecs,
     return tuple(torch.stack(x) for x in zip(*rows))
 
 
-def partials_eval(store: PartialsStore, cluster: ClusterTensors, specs: ClassSpecs,
-                  slot_idx: torch.Tensor, col_idx: Optional[torch.Tensor]) -> None:
-    """Write store[slot, col] for slot in slot_idx and col in col_idx
-    (every column when None) in place — `store` must be a fresh store the
-    caller owns.  Wrapper of kernel `partials_eval`: the kernel for tensors
-    on the card, the plain version for tensors on the CPU."""
+def _check_ascending(idx: Optional[torch.Tensor], what: str) -> None:
+    if idx is not None and idx.numel() > 1 and not bool((idx[1:] > idx[:-1]).all()):
+        raise ValueError(f"update_store: {what} must be ascending and distinct")
+
+
+def update_store_plain(old: Optional[PartialsStore], specs: ClassSpecs,
+                       cluster: ClusterTensors, slots: Optional[torch.Tensor],
+                       cols: Optional[torch.Tensor]) -> PartialsStore:
+    """Plain version of kernel `partials_eval`: a fresh [G, N] store with
+    every slot evaluated at the columns `cols` and at every column from the
+    old width up, the slots `slots` at every column (eval_cols_plain), and
+    every other entry copied from `old` (every entry evaluated without
+    one)."""
+    _check_ascending(slots, "slots")
+    _check_ascending(cols, "cols")
+    g = specs.valid.shape[0]
+    n = cluster.allocatable.shape[0]
+    dev = cluster.allocatable.device
+    old_n = 0 if old is None else old.aff.shape[1]
+    out = PartialsStore(
+        sfeas=torch.zeros((g, n), dtype=torch.bool, device=dev),
+        aff=torch.zeros((g, n), dtype=torch.float32, device=dev),
+        taint=torch.zeros((g, n), dtype=torch.float32, device=dev),
+    )
+    keep = min(old_n, n)
+    if keep:
+        for dst, src in zip(out, old):
+            dst[:, :keep] = src[:, :keep]
+    every = torch.arange(min(old_n, n), n, dtype=torch.int64, device=dev)   # grown columns
+    if cols is not None and cols.numel():
+        every = torch.cat([cols.long()[cols.long() < old_n], every])
+    if every.numel():
+        for dst, v in zip(out, eval_cols_plain(cluster, specs, _all_slots(specs), every)):
+            dst[:, every] = v
+    if slots is not None and slots.numel():
+        for dst, v in zip(out, eval_cols_plain(cluster, specs, slots, None)):
+            dst[slots.long()] = v
+    return out
+
+
+def update_store(old: Optional[PartialsStore], specs: ClassSpecs, cluster: ClusterTensors,
+                 slots: Optional[torch.Tensor], cols: Optional[torch.Tensor]) -> PartialsStore:
+    """One sync of the store: a FRESH store of the cluster's width, every
+    slot evaluated at the columns `cols` (the dirty ones) and from the old
+    store's width up (the grown ones), the slots `slots` (the missed
+    classes') at every column, every other entry copied from `old` (None:
+    every entry evaluated).  `slots` and `cols` are ascending, distinct
+    int32 tensors (or None).  This is the reference's grow -> insert ->
+    refresh sequence in one pass: each of those evaluates the same
+    cluster, and an inserted slot's row is overwritten whole.  Wrapper of
+    kernel `partials_eval` (one launch) for tensors on the card, its plain
+    version for tensors on the CPU; `old` is only read."""
     if cluster.allocatable.device.type == "cpu":
-        vals = eval_cols_plain(cluster, specs, slot_idx, col_idx)
-        s = slot_idx.long()[:, None]
-        c = (torch.arange(cluster.allocatable.shape[0]) if col_idx is None
-             else col_idx.long())[None, :]
-        for dst, v in zip(store, vals):
-            dst[s, c] = v
-        return
+        return update_store_plain(old, specs, cluster, slots, cols)
     from ..kernels import bindings
 
-    bindings.partials_eval(cluster, specs, slot_idx, col_idx, store)
+    return PartialsStore(*bindings.partials_eval(cluster, specs, old, slots, cols))
 
 
 def _all_slots(specs: ClassSpecs) -> torch.Tensor:
@@ -179,54 +224,44 @@ def _all_slots(specs: ClassSpecs) -> torch.Tensor:
     return torch.arange(g, dtype=torch.int32, device=specs.valid.device)
 
 
+def _ascending(idx: torch.Tensor) -> torch.Tensor:
+    return torch.sort(idx.to(torch.int32)).values
+
+
 def eval_store(cluster: ClusterTensors, specs: ClassSpecs) -> PartialsStore:
     """Full recompute: every slot over every column (a new store)."""
-    g = specs.valid.shape[0]
-    n = cluster.allocatable.shape[0]
-    dev = cluster.allocatable.device
-    store = PartialsStore(
-        sfeas=torch.empty((g, n), dtype=torch.bool, device=dev),
-        aff=torch.empty((g, n), dtype=torch.float32, device=dev),
-        taint=torch.empty((g, n), dtype=torch.float32, device=dev),
-    )
-    partials_eval(store, cluster, specs, _all_slots(specs), None)
-    return store
-
-
-def _copy(store: PartialsStore) -> PartialsStore:
-    return PartialsStore(*(t.clone() for t in store))
+    return update_store(None, specs, cluster, None, None)
 
 
 def refresh_rows(store: PartialsStore, specs: ClassSpecs, cluster: ClusterTensors,
                  idx: torch.Tensor) -> PartialsStore:
     """Every slot re-evaluated at the columns `idx` (the rows dirtied since
-    the last sync), into a copy of the store."""
-    out = _copy(store)
-    partials_eval(out, cluster, specs, _all_slots(specs), idx)
-    return out
+    the last sync, distinct), into a new store."""
+    return update_store(store, specs, cluster, None, _ascending(idx))
 
 
 def insert_slots(store: PartialsStore, specs: ClassSpecs, cluster: ClusterTensors,
                  idx: torch.Tensor) -> PartialsStore:
-    """Full rows for the slots `idx` (classes first seen this batch), into
-    a copy of the store."""
-    out = _copy(store)
-    partials_eval(out, cluster, specs, idx, None)
-    return out
+    """Full rows for the slots `idx` (classes first seen this batch,
+    distinct), into a new store."""
+    return update_store(store, specs, cluster, _ascending(idx), None)
 
 
 def set_spec_rows(specs: ClassSpecs, rows: dict, idx: np.ndarray,
                   stage: device_ops.PinnedStage) -> ClassSpecs:
     """Freshly encoded spec rows (host numpy, one entry a field, slots on
-    the field's slot axis) written at slots `idx` into copies of the
-    resident spec leaves: one packed copy and one `mirror_rows` launch."""
-    out = ClassSpecs(*(t.clone() for t in specs))
+    the field's slot axis) at slots `idx` (ascending) in fresh spec
+    leaves: one packed copy and one `mirror_rows` launch, which copies
+    each old leaf with the rows overlaid.  Slots given out of order are
+    sorted with their rows (the kernel takes ascending rows)."""
+    idx = np.asarray(idx, dtype=np.int32)
+    order = np.argsort(idx, kind="stable")
     targets = [
-        device_ops.RowTarget(getattr(out, f), 1 if f in SPEC_AX1 else 0, idx, rows[f])
-        for f in ClassSpecs._fields
+        device_ops.RowTarget(getattr(specs, f), ax, idx[order],
+                             np.take(np.asarray(rows[f]), order, axis=ax))
+        for f, ax in ((f, 1 if f in SPEC_AX1 else 0) for f in ClassSpecs._fields)
     ]
-    device_ops.set_rows(targets, stage, out.valid.device)
-    return out
+    return ClassSpecs(*device_ops.set_rows(targets, stage, specs.valid.device))
 
 
 def grow_store_cols(store: PartialsStore, dn: int) -> PartialsStore:

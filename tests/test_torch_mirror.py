@@ -309,12 +309,15 @@ def test_mirror_rows_plain_matches_set_rows(seed):
         vals = _random_leaf(rng, tuple(vshape), dtype)
         setter = jmirror._set_rows if ax == 0 else jmirror._set_rows_ax1
         want.append(_canon(np.asarray(setter(base, idx, vals))))
-        dst = torch.from_numpy(_canon(base).copy())
-        targets.append(dv.RowTarget(dst, ax, idx, vals))
-    sent = dv.set_rows(targets, dv.PinnedStage(), torch.device("cpu"))
-    assert sent > 0
-    for t, w in zip(targets, want):
-        np.testing.assert_array_equal(t.dst.numpy(), w)
+        src = torch.from_numpy(_canon(base).copy())
+        targets.append(dv.RowTarget(src, ax, idx, vals))
+    before = [t.src.clone() for t in targets]
+    stage = dv.PinnedStage()
+    fresh = dv.set_rows(targets, stage, torch.device("cpu"))
+    assert stage.bytes_sent > 0
+    for t, f, w, b in zip(targets, fresh, want, before):
+        np.testing.assert_array_equal(f.numpy(), w)
+        assert torch.equal(t.src, b)  # the old leaf is only read
 
 
 def test_scheduler_steps_use_mirror():
@@ -354,4 +357,4 @@ def test_new_launch_signatures_match_bindings(name):
     want = ["p" if t.__name__ == "c_void_p" else "i" for t in bindings._ARGTYPES[name]]
     assert kinds == want
     assert "Replaces:" in src and "Bound on this card:" in src and "Design:" in src
-    assert dv.LEAF_DTYPE.itemsize == bindings.LEAF_BYTES == 48
+    assert dv.LEAF_DTYPE.itemsize == bindings.LEAF_BYTES == 64
