@@ -78,7 +78,13 @@ stdout; with --log also appended to PATH):
              equal to the plain path on the CPU; auction_interpod and
              family_prep (entry terms: A timed, every other batch of the
              phase, F among them, checked against its plain twin on the
-             card and on the CPU) timed at these shapes
+             card and on the CPU) timed at these shapes; then the repair's
+             edges (interpod_edges: 40 terms in two words on the hostname
+             and zone slots, value capacities 32 and 5), stage by stage and
+             the whole loop against the plain versions.  Every family_prep
+             call of every phase leaves its scratch all zero; at T, A, P,
+             the 65,536-node batch and the extender's variants one more
+             call, captured into a CUDA graph, is exactly one kernel node
   extras     the preferred-affinity variant (upstream's
              SchedulingPreferredPodAffinity shape: 5,000 nodes, 1,000 init
              and 1,000 measured pods; the auction with class_extras, and the
@@ -2335,20 +2341,24 @@ def family_calls(snap, features, topo_split, filters, plain: bool) -> dict:
 
 
 def check_family(tag, snap, features, topo_split, filters, bindings, torch,
-                 timed: bool = False) -> dict:
+                 timed: bool = False, count_ops: bool = False) -> dict:
     """Kernel family_prep on a snapshot on the card against its plain twins
     on the card and on a CPU copy, exact, each family the batch uses: one
     launch an entry.  With timed=True each entry's row: the card's time of
     a call behind a spin (launch_ms over 20 calls; the outputs are fresh
     each call, so no reset) with the host clock of the call beside it, the
     plain twin on the card (CUDA events over 20 calls, as cuda_ms), the
-    bound of its work on this data.  Returns {entry: row or max_abs_err}."""
+    bound of its work on this data.  After every call its scratch must be
+    all zero; with timed or count_ops, one more call of each entry must be
+    exactly one device operation, its kernel (family_one_op).  Returns
+    {entry: row or max_abs_err}."""
     kern = family_calls(snap, features, topo_split, filters, False)
     plain = family_calls(snap, features, topo_split, filters, True)
     cpu = family_calls(cpu_copy(snap), features, topo_split, filters, True)
     if not kern:
         raise AssertionError(f"family_prep ({tag}): the batch uses no family")
     out = {}
+    dev = snap.cluster.node_valid.device
     for entry, fn in kern.items():
         before = bindings.LAUNCHES["family_prep"]
         got = fn()
@@ -2357,6 +2367,9 @@ def check_family(tag, snap, features, topo_split, filters, bindings, torch,
         err = check_equal(f"family_prep {entry} ({tag})", got, plain[entry](), torch)
         check_equal(f"family_prep {entry} ({tag}, card against the CPU)", got, cpu[entry](),
                     torch)
+        family_scratch_zero(f"{tag}, {entry}", dev, bindings)
+        if timed or count_ops:
+            family_one_op(f"{tag}, {entry}", fn, dev, bindings, torch)
         if not timed:
             out[entry] = err
             continue
@@ -2372,8 +2385,73 @@ def check_family(tag, snap, features, topo_split, filters, bindings, torch,
         b = bound(*need)
         out[entry] = {"name": "family_prep", "entry": entry, "replaces": FAMILY_REPLACES[entry],
                       "max_abs_err": err, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+                      "device_ops": 1}
     return out
+
+
+def family_scratch_zero(what, dev, bindings) -> None:
+    """family_prep's scratch on dev's stream is all zero (every launch
+    leaves it so)."""
+    scratch = bindings.family_scratch(dev)
+    if scratch is not None and bool(scratch.any()):
+        raise AssertionError(f"family_prep ({what}): its scratch is not zero after the call")
+
+
+def family_one_op(what, call, dev, bindings, torch) -> None:
+    """One more call of a family_prep entry captured into a CUDA graph on a
+    side stream (its zero scratch made there first): the graph holds
+    exactly one node, a kernel — no memset, no copy —; replayed once, it
+    gives the call's outputs and leaves the scratch zero.  (torch.profiler
+    has returned no device activity at all for such a launch late in this
+    script, after another session, so the count reads the graph.)"""
+    want = call()
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    stream = _SIDE_STREAMS[dev]
+    grown = bindings.family_scratch(dev)
+    bindings.family_scratch(dev, grown.numel() if grown is not None else 0, stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        got = call()
+    types = graph_node_types(graph)
+    if types != [CU_GRAPH_NODE_TYPE_KERNEL]:
+        raise AssertionError(f"family_prep ({what}): graph node types {types}, not one kernel")
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    check_equal(f"family_prep ({what}, one call in a graph)", tuple(got), tuple(want), torch)
+    scratch = bindings.family_scratch(dev, stream=stream)
+    if scratch is not None and bool(scratch.any()):
+        raise AssertionError(f"family_prep ({what}): its scratch is not zero after the replay")
+    family_scratch_zero(what, dev, bindings)
+
+
+CU_GRAPH_NODE_TYPE_KERNEL = 0   # cuda.h CUgraphNodeType
+_SIDE_STREAMS = {}              # family_one_op's capture stream, one a device
+
+
+def graph_node_types(graph) -> list:
+    """The node types (cuda.h CUgraphNodeType) of a captured
+    torch.cuda.CUDAGraph(keep_graph=True), from the driver API."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(kind.value)
+    return types
 
 
 def interpod_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch,
@@ -2492,11 +2570,45 @@ def interpod_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bind
                       *dense), 4.0 * dense[0].numel())
     out["repair_tables"] = {"ms": dense_ms, "bound_ms": db[0], "bound_by": db[1],
                             "route": "plain torch", "shape": "A"}
+    out["edges"] = interpod_edges(wrappers, assign, auction, filters, bindings, torch)
     out["kernels"] = rows
     out["cpu_check_s"] = timing
     out["card"] = card
     emit(out)
     return rows, launches, fam
+
+
+def interpod_edges(wrappers, assign, auction, filters, bindings, torch) -> dict:
+    """The inter-pod repair's edges on the card: cases.many_anti_terms_objects
+    (40 distinct anti-affinity terms, so two term words and padding terms
+    that are not valid, on the hostname and zone slots), with the batch's
+    own term value capacity and with 5 (hostname values past it clipped
+    onto its last bin); run_auction's stage-by-stage checks (the stage
+    alone over the cluster round by round) and the whole loop against the
+    plain loop on the card and on the CPU, exact; family_prep's terms entry
+    at both capacities."""
+    from kubernetes_tpu_torch.ops import device as dv, schema
+    from kubernetes_tpu_torch.testing.cases import many_anti_terms_objects
+
+    nodes, pods, bound = many_anti_terms_objects(wrappers)
+    snap, _ = schema.SnapshotBuilder().build(nodes, pods, bound_pods=bound)
+    features = assign.features_of(snap)
+    z_spread, z_terms = assign.required_topo_z_split(snap)
+    valid = snap.terms.valid
+    slots = sorted(set(snap.terms.slot[valid].tolist()))
+    if not (features.interpod and int(valid.sum()) > 32 and len(slots) == 2
+            and not valid.all() and z_terms > 5):
+        raise AssertionError("interpod/edges: the batch misses an edge")
+    card, cpu = dv.to_device(snap, "cuda"), dv.to_device(snap, "cpu")
+    cases_run = []
+    for z in (z_terms, 5):
+        rounds = run_auction(card, assign.DEFAULT_SCORE_CONFIG, None, auction, bindings, torch,
+                             cpu_snap=cpu, topo_z=(z_spread, z))
+        check_family(f"edges z={z}", card, features, (z_spread, z), filters, bindings, torch)
+        cases_run.append({"z_terms": z, "rounds": rounds})
+    return {"workload": "cases.many_anti_terms_objects", "terms": int(valid.shape[0]),
+            "valid_terms": int(valid.sum()), "words": (int(valid.shape[0]) + 31) // 32,
+            "slots": slots, "cases": cases_run, "equal_plain": True}
 
 
 def extras_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch,
@@ -2701,7 +2813,7 @@ def scan_case(snap, features, n_groups, cfg, assign, bindings, torch):
 
 
 def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
-                cpu_snap=None):
+                cpu_snap=None, topo_z=None):
     """The auction program against its plain versions, exact: each stage
     launched alone (bindings.AuctionRun's stage methods: the bids, the
     acceptance, the spread and inter-pod repairs, the commit) round by
@@ -2710,13 +2822,15 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     order) —, then the whole loop in one launch (kernel auction_loop)
     against the plain loop on CPU copies (given cpu_snap, the same
     snapshot on the CPU, also against the plain loop prepared there).
-    Returns the rounds, or with timed=True the summary rows: auction_loop
+    topo_z: the value capacities (z_spread, z_terms), None for the
+    snapshot's own.  Returns the rounds, or with timed=True the summary
+    rows: auction_loop
     (loop_row: the launch alone, its bound each round's stage bounds on
     that round's data along the trajectory, summed) and one round of each
     stage at round 0."""
     n = snap.cluster.allocatable.shape[0]
     tie_k = min(auction.default_tie_k(snap) if tie_k is None else tie_k, n)
-    cluster, pods, st = auction.auction_prep(snap, cfg=cfg)
+    cluster, pods, st = auction.auction_prep(snap, None, topo_z, cfg)
     use_spread, use_terms = st.features.spread, st.features.interpod
     split = use_spread or use_terms
     if st.extra is not None:
@@ -2794,8 +2908,8 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     got, loop_reasons, _ = bindings.auction_solve(cluster, pods, st, tie_k, cfg, max_rounds)
     check_equal("auction_loop", got, want, torch)
     if cpu_snap is not None:
-        on_cpu = auction._rounds_plain(*auction.auction_prep(cpu_snap, cfg=cfg), tie_k, cfg,
-                                        max_rounds)
+        on_cpu = auction._rounds_plain(*auction.auction_prep(cpu_snap, None, topo_z, cfg), tie_k,
+                                       cfg, max_rounds)
         check_equal("auction_loop (card against CPU)", got, on_cpu, torch)
     # the reasons stage: in the loop's launch, and alone on the final state,
     # against its plain twin on the plain loop's final state on the CPU
@@ -2976,14 +3090,15 @@ def round_kernels(inp: dict, bindings) -> dict:
         out["auction_spread"] = k_spread
     if bits_before is not None:
 
-        def k_interpod():
+        def reset_interpod():
             run.state.copy_(go)
             run.bufs["accept"].copy_(inp["accept_before"])
             for t, t0 in zip(run.bits, bits_before):
                 t.copy_(t0)
-            run.interpod()
 
-        out["auction_interpod"] = k_interpod
+        out["auction_interpod"] = lambda: (reset_interpod(), run.interpod())
+        # the launch and its reset apart, for the card's time alone
+        out["auction_interpod_parts"] = (run.interpod, reset_interpod)
     return out
 
 
@@ -3024,12 +3139,14 @@ def time_auction_round(inp: dict, auction, bindings, torch) -> list:
                      "bound_ms": b3[0], "bound_by": b3[1]})
     if bits_before is not None:
         accept_before = inp["accept_before"]
-        interpod_ms = cuda_ms(kern["auction_interpod"], 20, torch)
+        # the stage alone: the card behind a spin (the reset of its carries
+        # outside the events), the launch's host clock beside it
+        interpod_ms, interpod_host = launch_ms(*kern["auction_interpod_parts"], 20, torch)
         interpod_plain = time_plain(lambda: auction.interpod_repair_plain(
             accept_before, bid, st, cluster.topo_ids, bits_before), torch)
         b4 = bound(*auction_interpod_need(st, accept_before, bid, bits_before, cluster, torch))
-        rows.append({"name": "auction_interpod", "ms": interpod_ms, "plain_ms": interpod_plain,
-                     "bound_ms": b4[0], "bound_by": b4[1]})
+        rows.append({"name": "auction_interpod", "ms": interpod_ms, "host_ms": interpod_host,
+                     "plain_ms": interpod_plain, "bound_ms": b4[0], "bound_by": b4[1]})
     return rows
 
 
@@ -3585,15 +3702,15 @@ def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bi
     emit({"phase": "wide_edges", "cases": rows, "family_prep": fam, "equal_plain": True})
 
 
-def family_z_check(wrappers, sched, filters, bindings, torch) -> dict:
-    """Kernel family_prep at the north scheduler's width (65,536 padded
+def wide_family_snapshot(wrappers, sched) -> tuple:
+    """The wide family batch on the north scheduler's width (65,536 padded
     nodes): 2,000 color=red pods of the preferred-affinity template (a
     weight-1 preferred term over color=red on the hostname) assumed onto
-    spread-out nodes, then a batch encoded (not solved) whose pods carry
-    every family over them: hard spread rows on the hostname (a value
-    space of the padded node count) and the zone, a required
-    anti-affinity term on the zone, and the template's preferred term.
-    Each entry against its plain twins on the card and on a CPU copy."""
+    spread-out nodes of `sched` (NORTH[0] nodes), then a batch encoded (not
+    solved) whose pods carry every family over them: hard spread rows on
+    the hostname (a value space of the padded node count) and the zone, a
+    required anti-affinity term on the zone, and the template's preferred
+    term.  Returns (snapshot, meta)."""
     from kubernetes_tpu_torch.testing.cases import preferred_affinity_objects
 
     _nodes, bound_red, pref = preferred_affinity_objects(wrappers, 1, 2000, 8)
@@ -3612,9 +3729,20 @@ def family_z_check(wrappers, sched, filters, bindings, torch) -> dict:
     if not (f.spread and f.interpod and f.interpod_pref and f.bound_spread and f.bound_terms
             and f.bound_pref):
         raise AssertionError(f"wide_edges/family_prep: a family is missing ({f})")
-    errs = check_family("wide", snap, f, meta.topo_split, filters, bindings, torch)
+    return snap, meta
+
+
+def family_z_check(wrappers, sched, filters, bindings, torch) -> dict:
+    """Kernel family_prep at the north scheduler's width (65,536 padded
+    nodes) on wide_family_snapshot's batch: each entry against its plain
+    twins on the card and on a CPU copy, one device operation a call, its
+    scratch zero after it."""
+    snap, meta = wide_family_snapshot(wrappers, sched)
+    errs = check_family("wide", snap, meta.features, meta.topo_split, filters, bindings, torch,
+                        count_ops=True)
     return {"padded_nodes": int(snap.cluster.allocatable.shape[0]),
-            "z": list(meta.topo_split), "entries": sorted(errs), "max_abs_err": max(errs.values())}
+            "z": list(meta.topo_split), "entries": sorted(errs), "max_abs_err": max(errs.values()),
+            "device_ops": 1, "scratch_zero": True}
 
 
 def gang_groups(pods, names) -> tuple:
@@ -4805,6 +4933,7 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
 
     from kubernetes_tpu_torch.extender import ExtenderBackend, ExtenderServer
     from kubernetes_tpu_torch.extender.types import ExtenderArgs
+    from kubernetes_tpu_torch.ops import filters
     from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_CONFIG
     from kubernetes_tpu_torch.testing import cases
 
@@ -4922,6 +5051,22 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
         check_launches("extender/variants", variant_launches,
                        {"class_statics", "evaluate_single", "class_extras", "family_prep"})
         check("variants", got)
+        # family_prep on each variant's snapshot as the card backend builds
+        # it: exact, one device operation a call, its scratch zero after it
+        variant_family = {}
+        be = backends["cuda"]
+        for vname, body in variants.items():
+            vpod = ExtenderArgs.from_dict({"Pod": body, "Nodes": None,
+                                          "NodeNames": all_names}).pod
+            vsnap, _m = be.tpu.builder.build_from_state(be.tpu.state, [vpod])
+            vf = assign.features_of(vsnap)
+            if vf.spread or vf.interpod or vf.interpod_pref:
+                variant_family[vname] = sorted(check_family(
+                    f"extender/{vname}", dv.to_device(vsnap, "cuda"), vf,
+                    assign.required_topo_z_split(vsnap), filters, bindings, torch,
+                    count_ops=True))
+        if not {"spread", "anti_affinity", "preferred_affinity"} <= set(variant_family):
+            raise AssertionError(f"extender/variants: family_prep checked on {variant_family}")
         # the timed kernel at SchedulingBasic/5000Nodes (8,192 padded nodes)
         be = backends["cuda"]
         snap, _m = be.tpu.builder.build_from_state(be.tpu.state,
@@ -4939,7 +5084,8 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
           "nodes": n_nodes, "bound_pods": n_bound, "requests": 2 * n_req,
           "padded_nodes": int(snap.cluster.allocatable.shape[0]), "wall_s": wall,
           "requests_per_s": 2 * n_req / wall, "feasible_per_filter": placed / n_req,
-          "variants": sorted(variants), "shaped": {"nodes": len(slice_names), **policies},
+          "variants": sorted(variants), "variant_family_prep": variant_family,
+          "shaped": {"nodes": len(slice_names), **policies},
           "equal_cpu": True, "launches": basic_launches, "variant_launches": variant_launches,
           "card": card})
     return (dict(row, shape="E", launches=basic_launches["evaluate_single"]),

@@ -4,6 +4,8 @@
     python3 kernel_ab.py statics OTHER_CSRC_DIR [SHAPE ...]
     python3 kernel_ab.py preempt OTHER_CSRC_DIR [SHAPE ...]
     python3 kernel_ab.py residents OTHER_CSRC_DIR [SHAPE ...]
+    python3 kernel_ab.py interpod OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
+    python3 kernel_ab.py family OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
 
 KERNEL and its shapes (the first is the default):
 
@@ -25,6 +27,19 @@ KERNEL and its shapes (the first is the default):
                   E+ the same with a preferred inter-pod term (an extra row:
                      filter, then score; class_extras is made once, outside
                      the timing)
+  interpod        the auction_interpod stage alone (AuctionRun.interpod
+                  after AuctionRun.load, on round 0's inputs along the
+                  plain trajectory), each shape named (default all):
+                  A  SchedulingPodAntiAffinity/5000Nodes' measured batch
+                  W2 cases.many_anti_terms_objects at 5,000 nodes: 40
+                     valid of 64 terms (two words), hostname and zone
+  family          the family_prep binding calls of a batch (each entry it
+                  uses), each shape named (default all):
+                  T  TopologySpreading/5000Nodes' measured batch (spread)
+                  A  SchedulingPodAntiAffinity/5000Nodes' (terms)
+                  P  the preferred-affinity variant's (pref)
+                  WIDE  chip_smoke.wide_family_snapshot's batch at 65,536
+                     padded nodes (all three entries)
   auction         B  the whole round loop of SchedulingBasic/5000Nodes'
                      measured batch (8,192 padded nodes, 1,024 pods)
                   T  TopologySpreading/5000Nodes' measured batch (the spread
@@ -35,6 +50,8 @@ KERNEL and its shapes (the first is the default):
                      extra row a class)
                   N  the north star's first batch (65,536 padded nodes,
                      16,384 padded pods)
+                  G  bench.py c5's first batch (100 gangs; the loop's
+                     rounds and reasons)
   statics         the cold statics prep (match_terms x2 + class_statics
                   in an earlier tree, one class_statics launch in a tree
                   with ops.assign.cold_statics), each shape named runs in
@@ -101,7 +118,14 @@ to the plain prep's; it prints one JSON line a shape as it goes, then
 the card line and the ptxas reports.  `preempt` does the same with
 each tree's preemption calls (preempt_calls), each result equal to the
 plain versions' (batched_dry_run_plain, static_feasible_batch_plain,
-filter_rows_plain, dry_run_victims_plain).
+filter_rows_plain, dry_run_victims_plain).  `interpod` and `family` run
+each tree's own calls the same way (the other tree's package as
+`kt_other`; with --change, the change side another tree's package,
+`kt_change`, so the parent on both sides is step 0): other, change,
+change, other, each result equal to the plain version
+(interpod_repair_plain; the plain family preps), the card alone behind a
+spin and the host clock (chip_smoke.launch_ms), one JSON line a shape;
+`family` also counts each call's device operations (torch.profiler).
 """
 
 from __future__ import annotations
@@ -174,12 +198,28 @@ SHAPES = {
         "VM": (50, "the same verify solve's mirror delta"),
         "SP": (50, "RI's spec rows: 4 missed slots x the 15 spec leaves"),
     },
+    "interpod": {
+        "A": (20, "SchedulingPodAntiAffinity/5000Nodes measured batch, round 0's repair "
+                  "(32 terms, 1 valid, hostname-keyed; 8,192 padded nodes, 1,024 pods)"),
+        "W2": (20, "cases.many_anti_terms_objects at 5,000 nodes, 20 services x 50 pods "
+                   "(40 valid of 64 terms: two words; hostname and zone), round 0's repair"),
+    },
+    "family": {
+        "T": (50, "TopologySpreading/5000Nodes measured batch, entry spread"),
+        "A": (50, "SchedulingPodAntiAffinity/5000Nodes measured batch, entry terms"),
+        "P": (50, "the preferred-affinity variant's measured batch, entry pref"),
+        "WIDE": (50, "the wide family batch at 65,536 padded nodes (hostname-keyed spread "
+                     "rows), entries spread, terms and pref"),
+    },
     "auction": {
         "B": (10, "SchedulingBasic/5000Nodes measured batch, the whole round loop"),
         "T": (5, "TopologySpreading/5000Nodes measured batch, the whole round loop"),
         "A": (5, "SchedulingPodAntiAffinity/5000Nodes measured batch, the whole round loop"),
         "P": (5, "preferred-affinity variant's measured batch, the whole round loop"),
         "N": (3, "the north star's first batch (50,000 nodes, 10,000 pods), the whole loop"),
+        "G": (3, "bench.py c5's first batch (50,000 nodes, 10,000 pods in 100 gangs), the "
+                 "whole loop (its rounds and reasons; the gang stage is not in "
+                 "auction_rounds)"),
     },
 }
 
@@ -270,7 +310,7 @@ def auction_case(shape: str, torch):
                                                        chip_smoke.ANTI),
         "P": lambda w, t: chip_smoke.measured_snapshot(w, t, "preferred_affinity_objects",
                                                        chip_smoke.PREFERRED),
-        "N": chip_smoke.north_snapshot,
+        "N": chip_smoke.north_snapshot, "G": chip_smoke.c5_snapshot,
     }[shape]
     sched, snap, meta = build(wrappers, TorchBatchScheduler)
     if meta.route != "auction":
@@ -282,21 +322,21 @@ def auction_case(shape: str, torch):
     return cluster, pods, st, meta.tie_k, cfg, want, snap.cluster.allocatable.shape[0]
 
 
-def load_other_bindings(csrc: Path, out_dir: Path, names=None):
+def load_other_bindings(csrc: Path, out_dir: Path, names=None, module: str = "kt_other"):
     """The other tree's kernels.bindings (its package, csrc's parent,
-    loaded as `kt_other`), with its libraries of `names` (default: its
+    loaded as `module`), with its libraries of `names` (default: its
     auction sources) built by build_library (ptxas reports returned)."""
     import importlib
     import importlib.util
 
     pkg = csrc.parent
     spec = importlib.util.spec_from_file_location(
-        "kt_other", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        module, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules["kt_other"] = mod
+    sys.modules[module] = mod
     spec.loader.exec_module(mod)
-    other = importlib.import_module("kt_other.kernels.bindings")
-    other_build = importlib.import_module("kt_other.kernels.build")
+    other = importlib.import_module(f"{module}.kernels.bindings")
+    other_build = importlib.import_module(f"{module}.kernels.build")
     names = auction_sources(csrc) if names is None else names
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(lambda name: build_library(name, csrc, out_dir), names))
@@ -306,7 +346,7 @@ def load_other_bindings(csrc: Path, out_dir: Path, names=None):
     return other, reports
 
 
-def other_statics(st):
+def other_statics(st, module: str = "kt_other"):
     """st as the other tree's ops.auction.AuctionStatics: an earlier tree
     (before the launch wrote them itself) carries the inter-pod
     repair's dense tables, made here by this tree's repair_tables."""
@@ -314,12 +354,12 @@ def other_statics(st):
 
     from kubernetes_tpu_torch.ops import auction
 
-    fields = importlib.import_module("kt_other.ops.auction").AuctionStatics._fields
+    fields = importlib.import_module(f"{module}.ops.auction").AuctionStatics._fields
     vals = st._asdict()
     if "mi_dense" in fields and st.features.interpod:
         vals.update(zip(("mi_dense", "anti_dense", "solve_pos"),
                         auction.repair_tables(st.tm.table, st.order)))
-    cls = importlib.import_module("kt_other.ops.auction").AuctionStatics
+    cls = importlib.import_module(f"{module}.ops.auction").AuctionStatics
     return cls(**{k: vals.get(k) for k in fields})
 
 
@@ -880,6 +920,218 @@ def residents_ab(shapes, other_dir: Path, out_dir: Path, torch) -> list:
     return rows
 
 
+# ---- the inter-pod stage and the family preps, each tree's own calls ---------
+
+
+def tree_pair(names, other_dir: Path, out_dir: Path, change_dir=None):
+    """({"other": bindings, "change": bindings}, ptxas reports): the other
+    tree's package loaded as `kt_other`; the change side this tree's, or
+    with change_dir another tree's package loaded as `kt_change` (step 0:
+    the parent on both sides); each side's libraries of `names` built by
+    build_library, the inputs' kernels as the package builds them."""
+    from kubernetes_tpu_torch.kernels import bindings, build
+
+    other, other_reports = load_other_bindings(other_dir, out_dir, names)
+    if change_dir is not None:
+        change, change_reports = load_other_bindings(change_dir, out_dir, names, "kt_change")
+    else:
+        change, change_reports = bindings, {}
+        for name in names:
+            build._libs[name], change_reports[name] = build_library(name, build.CSRC_DIR,
+                                                                    out_dir)
+    build.build_all([k for k in build.KERNELS if k not in names])
+    return {"other": other, "change": change}, {"other": other_reports, "change": change_reports}
+
+
+def interpod_case(shape: str, torch) -> dict:
+    """Round 0's inputs of the inter-pod repair at a shape
+    (chip_smoke.auction_round_inputs along the plain trajectory)."""
+    from kubernetes_tpu_torch.kernels import bindings
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.ops import auction, device as dv, schema
+    from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_CONFIG
+    from kubernetes_tpu_torch.testing import cases, wrappers
+
+    if shape == "A":
+        sched, snap, meta = chip_smoke.measured_snapshot(
+            wrappers, TorchBatchScheduler, "pod_anti_affinity_objects", chip_smoke.ANTI)
+        cfg, tie_k = sched.score_config, meta.tie_k
+    else:
+        nodes, pods, bound = cases.many_anti_terms_objects(wrappers, 5000, 20, 50, 8)
+        snap = dv.to_device(schema.SnapshotBuilder().build(nodes, pods, bound_pods=bound)[0],
+                            "cuda")
+        cfg, tie_k = DEFAULT_SCORE_CONFIG, None
+    return chip_smoke.auction_round_inputs(snap, cfg, tie_k, auction, bindings, torch)
+
+
+def interpod_calls(trees: dict, inp: dict) -> dict:
+    """{side: (launch, reset, result)} of each tree's auction_interpod stage
+    alone on round 0's inputs: its AuctionRun made once, the state, the
+    accepted set and the term bits reset before each launch."""
+    from kubernetes_tpu_torch.kernels import bindings
+
+    calls = {}
+    for which, b in trees.items():
+        st = inp["st"] if b is bindings else other_statics(inp["st"], b.__name__.split(".")[0])
+        run = b.AuctionRun(inp["cluster"], inp["pods"], st, inp["tie_k"], inp["cfg"], 64)
+        run.load(0, inp["req"], inp["nz"], inp["assigned"], inp["bid_scores"], inp["counts"],
+                 inp["bits_before"])
+        run.bufs["bid"].copy_(inp["bid"])
+        run.bufs["val"].copy_(inp["val"])
+        go = run.state.clone()
+
+        def reset(run=run, go=go):
+            run.state.copy_(go)
+            run.bufs["accept"].copy_(inp["accept_before"])
+            for t, t0 in zip(run.bits, inp["bits_before"]):
+                t.copy_(t0)
+
+        calls[which] = (run.interpod, reset,
+                        lambda run=run: (run.bufs["accept"].bool(), *run.bits))
+    return calls
+
+
+def interpod_row(shape: str, trees: dict, torch) -> dict:
+    """The auction_interpod stage alone at a shape: each tree's launch on
+    the same round-0 inputs, other, change, change, other, each result
+    equal to interpod_repair_plain's; the card alone behind a spin and the
+    host clock (chip_smoke.launch_ms)."""
+    from kubernetes_tpu_torch.kernels import bindings
+    from kubernetes_tpu_torch.ops import auction
+
+    inp = interpod_case(shape, torch)
+    iters, workload = SHAPES["interpod"][shape]
+    st, cluster = inp["st"], inp["cluster"]
+    kept, bits = auction.interpod_repair_plain(inp["accept_before"], inp["bid"], st,
+                                               cluster.topo_ids, inp["bits_before"])
+    calls = interpod_calls(trees, inp)
+    card = {"other": [], "change": []}
+    host = {"other": [], "change": []}
+    for which in ("other", "change", "change", "other"):
+        launch, reset, result = calls[which]
+        reset()
+        launch()
+        chip_smoke.check_equal(f"interpod {shape} ({which})", result(), (kept, *bits), torch)
+        ms, host_ms = chip_smoke.launch_ms(launch, reset, iters, torch)
+        card[which].append(ms)
+        host[which].append(host_ms)
+    table = st.tm.table
+    accepted = inp["accept_before"]
+    return {"kernel": "interpod", "shape": shape, "workload": workload,
+            "launches_a_timing": iters, "card_ms": card,
+            "median_card_ms": {k: statistics.median(v) for k, v in card.items()},
+            "host_ms": host, "median_host_ms": {k: statistics.median(v) for k, v in host.items()},
+            "bound_ms": chip_smoke.bound(*chip_smoke.auction_interpod_need(
+                st, accepted, inp["bid"], inp["bits_before"], cluster, torch)),
+            "terms": int(table.valid.shape[0]), "valid_terms": int(table.valid.sum()),
+            "words": (int(table.valid.shape[0]) + 31) // 32, "accepted": int(accepted.sum()),
+            "kept": int(kept.sum()), "padded_nodes": int(cluster.topo_ids.shape[0]),
+            "padded_pods": int(accepted.shape[0]), "z_terms": int(st.tm.z),
+            "cluster_blocks_threads": list(bindings.scan_shape(cluster.topo_ids.shape[0])),
+            "equal_plain": True}
+
+
+def family_case(shape: str, torch):
+    """(snapshot, meta) of a family shape on the card."""
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.testing import wrappers
+
+    if shape == "T":
+        return chip_smoke.spread_snapshot(wrappers, TorchBatchScheduler)[1:]
+    if shape in ("A", "P"):
+        objects, dims = (("pod_anti_affinity_objects", chip_smoke.ANTI) if shape == "A"
+                         else ("preferred_affinity_objects", chip_smoke.PREFERRED))
+        return chip_smoke.measured_snapshot(wrappers, TorchBatchScheduler, objects, dims)[1:]
+    sched = TorchBatchScheduler()
+    for node in chip_smoke.make_cluster(wrappers, chip_smoke.NORTH[0]):
+        sched.add_node(node)
+    return chip_smoke.wide_family_snapshot(wrappers, sched)
+
+
+def family_tree_calls(b, snap, meta, sel_mask) -> dict:
+    """{entry: call} of a tree's family_prep bindings on a snapshot, with
+    the wrappers' arguments (ops/topology.py prep_spread,
+    ops/interpod.py prep_terms / prep_pref_pod)."""
+    from kubernetes_tpu_torch.ops import interpod
+
+    f, (z_spread, z_terms) = meta.features, meta.topo_split
+    cl = snap.cluster
+    calls = {}
+    if f.spread:
+        calls["spread"] = lambda: tuple(b.family_prep_spread(cl, sel_mask, snap.spread, z_spread,
+                                                             f.bound_spread))
+    if f.interpod:
+        slots = interpod.used_slots(f.term_slots, cl.topo_ids.shape[1])
+        calls["terms"] = lambda: tuple(b.family_prep_terms(cl, snap.terms, z_terms, slots,
+                                                           f.bound_terms))
+    if f.interpod_pref:
+        calls["pref"] = lambda: tuple(b.family_prep_pref(cl, snap.prefpod, z_terms,
+                                                         f.bound_pref))
+    return calls
+
+
+def family_row(shape: str, trees: dict, torch) -> dict:
+    """Every family_prep entry a shape's batch uses: each tree's binding
+    call on the same inputs, other, change, change, other, each result
+    equal to the plain twin's; the card alone behind a spin and the host
+    clock (chip_smoke.launch_ms); each call's device operations
+    (torch.profiler, one call each after the timing)."""
+    from kubernetes_tpu_torch.ops import filters
+
+    snap, meta = family_case(shape, torch)
+    iters, workload = SHAPES["family"][shape]
+    sel_mask = filters.selector_match(snap.cluster, snap.selectors)
+    plain = chip_smoke.family_calls(snap, meta.features, meta.topo_split, filters, True)
+    states = {e: fn() for e, fn in plain.items()}
+    want = {e: tuple(st) for e, st in states.items()}
+    calls = {w: family_tree_calls(b, snap, meta, sel_mask) for w, b in trees.items()}
+    card = {w: {e: [] for e in calls[w]} for w in calls}
+    host = {w: {e: [] for e in calls[w]} for w in calls}
+    for which in ("other", "change", "change", "other"):
+        for entry, call in calls[which].items():
+            chip_smoke.check_equal(f"family {shape} {entry} ({which})", call(), want[entry],
+                                   torch)
+            ms, host_ms = chip_smoke.launch_ms(call, lambda: None, iters, torch)
+            card[which][entry].append(ms)
+            host[which][entry].append(host_ms)
+    ops = {w: {e: chip_smoke.device_ops(c, torch) for e, c in calls[w].items()} for w in calls}
+    need = {"spread": lambda: chip_smoke.prep_spread_need(snap, sel_mask, states["spread"],
+                                                          torch),
+            "terms": lambda: chip_smoke.prep_terms_need(snap, meta.features, states["terms"],
+                                                        torch),
+            "pref": lambda: chip_smoke.prep_pref_pod_need(snap, states["pref"], torch)}
+    med = lambda d: {w: {e: statistics.median(v) for e, v in d[w].items()} for w in d}
+    return {"kernel": "family", "shape": shape, "workload": workload,
+            "launches_a_timing": iters, "card_ms": card, "median_card_ms": med(card),
+            "host_ms": host, "median_host_ms": med(host),
+            "bound_ms": {e: chip_smoke.bound(*need[e]()) for e in want},
+            "device_ops": {w: {e: (o["kernels"] + o["dtod"] + o["htod"] + o["memset"]
+                                   if o else None) for e, o in d.items()}
+                           for w, d in ops.items()},
+            "device_op_names": {w: {e: (o["names"] if o else None) for e, o in d.items()}
+                                for w, d in ops.items()},
+            "padded_nodes": int(snap.cluster.allocatable.shape[0]),
+            "z": list(meta.topo_split), "equal_plain": True}
+
+
+def pair_ab(kernel: str, shapes, other_dir: Path, out_dir: Path, torch, change_dir=None) -> list:
+    """`interpod` (auction_loop's library on each side) or `family`
+    (family_prep's) at each shape, one JSON row a shape."""
+    names = ["auction_loop"] if kernel == "interpod" else ["family_prep"]
+    trees, reports = tree_pair(names, other_dir, out_dir, change_dir)
+    row_of = interpod_row if kernel == "interpod" else family_row
+    rows = []
+    for shape in shapes:
+        row = row_of(shape, trees, torch)
+        row.update(other_source=str(other_dir),
+                   change_source=str(change_dir) if change_dir else "this tree")
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    for row in rows:
+        row["ptxas"] = reports
+    return rows
+
+
 def single_case(snap, features, assign, bindings, torch):
     """(kern, plain) of evaluate_single on a one-pod snapshot on the card:
     the loaded library's own sequence — its fused launch where it has one
@@ -929,12 +1181,18 @@ def main() -> int:
         row = resident_row(sys.argv[3], Path(sys.argv[2]).resolve(), out_dir, torch)
         print(json.dumps(row), flush=True)
         return 0
-    many = len(sys.argv) > 1 and sys.argv[1] in ("statics", "preempt", "residents")
+    change_dir = None
+    if "--change" in sys.argv:
+        k = sys.argv.index("--change")
+        change_dir = Path(sys.argv[k + 1]).resolve()
+        del sys.argv[k : k + 2]
+    many = len(sys.argv) > 1 and sys.argv[1] in ("statics", "preempt", "residents", "interpod",
+                                                "family")
     if len(sys.argv) < 3 or sys.argv[1] not in SHAPES or (len(sys.argv) > 4 and not many):
         print(__doc__, file=sys.stderr)
         return 2
     kernel, other_dir = sys.argv[1], Path(sys.argv[2]).resolve()
-    shapes = sys.argv[3:] or ([*SHAPES[kernel]] if kernel == "residents"
+    shapes = sys.argv[3:] or ([*SHAPES[kernel]] if kernel in ("residents", "interpod", "family")
                                else [next(iter(SHAPES[kernel]))])
     if any(shape not in SHAPES[kernel] for shape in shapes):
         print(f"kernel_ab: {kernel} has shapes {sorted(SHAPES[kernel])}", file=sys.stderr)
@@ -948,8 +1206,11 @@ def main() -> int:
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     if many:
-        run = {"statics": statics_ab, "preempt": preempt_ab, "residents": residents_ab}[kernel]
-        rows = run(shapes, other_dir, out_dir, torch)
+        if kernel in ("interpod", "family"):
+            rows = pair_ab(kernel, shapes, other_dir, out_dir, torch, change_dir)
+        else:
+            run = {"statics": statics_ab, "preempt": preempt_ab, "residents": residents_ab}[kernel]
+            rows = run(shapes, other_dir, out_dir, torch)
         print(chip_smoke.card_line(), flush=True)
         print(json.dumps({"kernel": kernel, "shapes": shapes,
                           "ptxas": rows[0].get("ptxas") if rows else None}), flush=True)

@@ -64,9 +64,11 @@
 //   acceptance   per sorted position: within = prefix - prefix[first] +
 //                req[first] against the node's remaining capacity;
 //                `progress` is the OR over the cluster.
-//   repairs      the spread repair and the inter-pod anti-affinity repair
-//                (bodies of the first design, written for any block size)
-//                on block 0 while the other blocks wait at the barrier.
+//   repairs      the spread repair (the first design's body, written for
+//                any block size) on block 0 while the other blocks wait at
+//                the barrier; then the inter-pod anti-affinity repair over
+//                the cluster (its pods and nodes split over the blocks,
+//                below).
 //   commit       each node group's first sorted position adds its accepted
 //                members' requests in pod index order (the group spans the
 //                same positions of perm_idx), the order of the reference's
@@ -114,6 +116,7 @@ constexpr int kShZ = 256;        // spread counters a warp keeps in shared memor
 constexpr int kBatch = 8;        // spread walk: chunks of 32 positions loaded at once
 constexpr int kRowChunk = 1024;  // spread rows listed at once
 constexpr int kBigI = 1 << 30;   // ops/auction.py _BIG_I
+constexpr int kMaxTK = 32767;    // topology keys: a live term's slot in 16 bits
 
 // The launch arguments: ints[kI_*] and ptrs[kP_*] (host arrays), in
 // kernels/bindings.py AUCTION_INTS / AUCTION_PTRS order.
@@ -133,7 +136,7 @@ enum {
     kP_TM_KEY_BITS, kP_TM_SLOT_V, kP_TM_MI_SLOT, kP_TM_ANTI_SLOT, kP_TM_AFF_BITS,
     kP_TM_ANTI_BITS, kP_TM_SELF_MATCH, kP_TM_PRESENT, kP_TM_BLOCKED, kP_TM_GLOBAL_ANY,
     kP_TOPO_IDS, kP_SLOT_OF_T, kP_TM_MATCHES_IN, kP_TM_ANTI_IDX, kP_TM_VALID, kP_SOLVE_POS,
-    kP_MI_DENSE, kP_ANTI_DENSE,
+    kP_PAIR_INV, kP_LIVE_TERMS,
     kP_ASSIGNED, kP_BID_SCORES, kP_STATE, kP_BID, kP_VAL, kP_INV_C, kP_CNT_C, kP_BEST_C,
     kP_MASKED, kP_SLOTS, kP_CPERM, kP_CFIRST, kP_CSEEN, kP_PERM, kP_PERM_IDX, kP_BFIRST,
     kP_RTMP, kP_RCNT, kP_RBASE, kP_PREFIX, kP_SCAN, kP_ACCEPT,
@@ -178,8 +181,8 @@ struct Ctx {
     const int32_t* anti_idx;     // [P, MA] terms.anti_idx (-1 pad)
     const uint8_t* term_valid;   // [T] terms.valid
     int32_t* solve_pos;          // [P] each pod's solve position (written by start)
-    uint8_t* mi_dense;           // [P, T] the valid terms a pod matches (written by start)
-    uint8_t* anti_dense;         // [P, T] the valid terms it carries as anti terms (start)
+    uint8_t* pair_inv;           // [P, L] a pod's flags of each live term (written by start)
+    int32_t* live_terms;         // [1 + T] L, then the live terms' keys (written by start)
     int32_t* assigned;           // [P] carry
     float* bid_scores;           // [P] carry
     int32_t* state;              // [3]
@@ -247,7 +250,7 @@ inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
         return (int)cudaErrorInvalidValue;
     }
     if (tm_on && (tm_w < 1 || tm_w > kMaxTW || tm_u < 1 || a.t_dim < 1 || a.tk < 1 || a.tz < 1
-                  || a.tm_ma < 1 || tm_w != (a.t_dim + 31) / 32)) {
+                  || a.tm_ma < 1 || tm_w != (a.t_dim + 31) / 32 || a.tk > kMaxTK)) {
         return (int)cudaErrorInvalidValue;
     }
     auto f = [&](int k) { return (const float*)ptrs[k]; };
@@ -286,8 +289,8 @@ inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
     a.anti_idx = i(kP_TM_ANTI_IDX);
     a.term_valid = u(kP_TM_VALID);
     a.solve_pos = (int32_t*)ptrs[kP_SOLVE_POS];
-    a.mi_dense = (uint8_t*)ptrs[kP_MI_DENSE];
-    a.anti_dense = (uint8_t*)ptrs[kP_ANTI_DENSE];
+    a.pair_inv = (uint8_t*)ptrs[kP_PAIR_INV];
+    a.live_terms = (int32_t*)ptrs[kP_LIVE_TERMS];
     a.assigned = (int32_t*)ptrs[kP_ASSIGNED];
     a.bid_scores = (float*)ptrs[kP_BID_SCORES];
     a.state = (int32_t*)ptrs[kP_STATE];
@@ -330,6 +333,26 @@ inline int make_ctx(const int* ints, void* const* ptrs, Ctx& a)
 
 // ---- shared memory ---------------------------------------------------------
 
+constexpr int kNoTerm = 0x7fffffff;   // an invalid term's key: after every live one
+
+// The inter-pod repair's live terms (listed by every block's start,
+// prepare_repair, and kept in the launch's scratch, live_terms: a round's
+// repair loads them into its shared memory).
+struct LiveTerms {
+    int n;                          // L: live terms
+    int32_t term[kMaxTW * 32];      // (slot << 16) | t, ascending
+};
+
+// The inter-pod repair's dynamic shared memory (the other stages' buffers
+// are free while it runs; the static shared memory stays the other
+// stages', as a larger one would shrink the SM's L1 cache for all).
+struct RepairSmem {
+    LiveTerms live;
+    int list[kClusterThreads];      // a chunk's accepted pods; the start's term keys
+    int count;
+    uint32_t gany[kMaxTW];          // the block's global_any bits
+};
+
 // The block's static shared memory (every stage).
 struct Shared {
     Config cfg;
@@ -369,8 +392,8 @@ struct SpreadSmem {
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // Dynamic shared memory of a launch (bytes).
-constexpr int kDynSmem = cmax(cmax((int)sizeof(HistSmem), (int)sizeof(RadixSmem)),
-                              (int)sizeof(SpreadSmem));
+constexpr int kDynSmem = cmax(cmax(cmax((int)sizeof(HistSmem), (int)sizeof(RadixSmem)),
+                                   (int)sizeof(SpreadSmem)), (int)sizeof(RepairSmem));
 
 // ---- teams and block helpers ---------------------------------------------
 
@@ -1196,7 +1219,11 @@ __device__ inline void spread_repair(const Ctx& a, SpreadSmem& sh)
     __syncthreads();
 }
 
-// ---- the inter-pod anti-affinity repair (block 0) ---------------------------
+// ---- the inter-pod anti-affinity repair (over the cluster) ----------------
+//
+// Replaces: kubernetes_tpu/ops/auction.py:587-614 `interpod_repair` and
+// :654-678 `commit_terms` (plain twins ops/auction.py interpod_repair_plain
+// and commit_terms_plain).
 //
 // A pod of the accepted set is involved in group (v, t) when it matches
 // term t or carries t as an anti-affinity term, and its bid node has value
@@ -1205,17 +1232,58 @@ __device__ inline void spread_repair(const Ctx& a, SpreadSmem& sh)
 // is released.  Then the kept pods commit: the terms they match turn
 // present, and their anti terms blocked, on every node that shares the bid
 // node's value in the term's slot; the terms they match turn globally
-// present.  The group minima are integer atomicMin and the flags plain
-// byte stores of 1, so the result does not depend on the threads' order.
-// Its [P, T] tables, as ops/auction.py repair_tables' dense rows, are
-// written once a launch by every block's start (write_repair_tables, over
-// the cluster): each pair's bits read from the batch's own term table and
-// ANDed with terms.valid — the terms a pod matches from the packed
-// terms.matches_incoming words, the anti terms it carries from
-// terms.anti_idx — and each pod's solve position.  The repair's three
-// passes then read one byte a pair: at A, reading the bits in every pass
-// instead made the loop's launch 28-31 us slower (0.390 against 0.362 ms
-// in turns, PERF.md §6), the tables written here cost ~1 us.
+// present.
+//
+// Once a launch, in every block's start (prepare_repair):
+//   live terms   the valid terms (every valid term has a slot: its slot is
+//                clipped into the key axis), listed by (slot, term), each
+//                as (slot << 16) | t; L of them, kept in the scratch
+//                (live_terms) and loaded into the dynamic shared memory at
+//                each round's repair.  A group is (value, live index):
+//                tables of Z x L entries, not Z x T.
+//   pair flags   [P, L] bytes over the cluster: bit 0 the pod matches the
+//                live term (terms.matches_incoming), bit 1 it carries it
+//                as an anti term (terms.anti_idx); each pod's solve
+//                position.  At A, reading the bits in every pass instead
+//                of a table made the loop's launch 28-31 us slower (0.390
+//                against 0.362 ms in turns on an NVIDIA H100 80GB HBM3 at
+//                700 W, PERF.md §6).
+//   groups       every group's minimum set to kBigI and its three flags to
+//                0, and every release flag to 0, over the cluster.
+// A round, over the cluster (a cluster barrier between passes):
+//   pairs        block b owns the pods [b P / G, (b + 1) P / G) (ceil),
+//                walked in chunks of its threads: the chunk's accepted pods
+//                are compacted into shared memory (warp ballots), and the
+//                block's threads walk (compacted pod, live term) pairs,
+//                skipping the pairs the flags leave out and the pods whose
+//                bid node has no value in the term's slot.
+//     1. minima  atomicMin of the pod's solve position into its group's
+//                minimum; a carrier stores 1 into the group's carrier flag.
+//     2. release a pod after its group's minimum in a group with a carrier
+//                is released (its flag, then accept cleared: the block owns
+//                the pod, so a block barrier orders them).
+//     3. commit  each kept pod stores 1 into its groups' z_mi (matched
+//                terms) and z_an (anti terms); the matched terms' bits are
+//                OR-ed into a block word set in shared memory, then into
+//                global_any (one atomicOr a word a block).
+//     4. nodes   a thread a node (the team's 32-node chunks): the node's
+//                value in each live slot read once (the list runs slot by
+//                slot), and for each live term its group's two flags; a
+//                set flag ORs the term's bit into the node's present /
+//                blocked word, which only this thread writes.
+//   clear        after the round's last barrier, each block walks its pods
+//                that were accepted before the release (accept | release)
+//                and resets their groups — every group the round wrote —
+//                and their release flags.  No block reads the groups again
+//                before the next round's pass 1, several cluster barriers
+//                later, so no stale group survives into the next round.
+// Exactness: the minima are integer atomicMin, the flags stores of 1, the
+// global words OR: each pass's result is the same whatever order its
+// threads run in and however the pods and nodes are split over the blocks,
+// so the cluster gives the bits one block gives, and the group tables a
+// round reads hold only that round's writes (the start's reset, then the
+// clear of each round's groups).  The group of (pod, term) is
+// (min(v, Z - 1), term) as before: only its index in the table changed.
 
 // Pod i matches valid term t / carries valid term t as an anti term.
 __device__ __forceinline__ bool term_mi(const Ctx& a, int i, int t)
@@ -1231,107 +1299,189 @@ __device__ __forceinline__ bool term_anti(const Ctx& a, int i, int t)
     return hit;
 }
 
-// solve_pos[order[s]] = s and the dense term tables, over the threads
-// (first, first + stride, ...).
-__device__ inline void write_repair_tables(const Ctx& a, int first, int stride)
+// The launch's repair tables (every block; its start, before its
+// cluster barrier): the block's list of live terms (block 0 keeps it in
+// live_terms), then over the cluster the solve positions, the pair flags
+// and the reset groups.
+__device__ inline void prepare_repair(const Ctx& a, RepairSmem& sm, const ExactTeam& team)
 {
-    for (int s = first; s < a.p; s += stride) a.solve_pos[a.order[s]] = s;
-    const size_t pairs = (size_t)a.p * a.t_dim;
-    for (size_t e = first; e < pairs; e += stride) {
-        const int i = (int)(e / a.t_dim), t = (int)(e % a.t_dim);
-        a.mi_dense[e] = term_mi(a, i, t);
-        a.anti_dense[e] = term_anti(a, i, t);
+    const int t_dim = a.t_dim;
+    LiveTerms& lt = sm.live;
+    if (threadIdx.x == 0) lt.n = 0;
+    for (int t = threadIdx.x; t < t_dim; t += blockDim.x) {
+        const int s = min(max(a.slot_of_t[t], 0), a.tk - 1);
+        sm.list[t] = a.term_valid[t] ? (s << 16) | t : kNoTerm;
     }
-}
-
-__device__ __forceinline__ int group_of(const Ctx& a, int i, int t)
-{
-    const int node = min(max(a.bid[i], 0), a.n - 1);
-    const int s = min(max(a.slot_of_t[t], 0), a.tk - 1);
-    const int v = a.topo_ids[(size_t)node * a.tk + s];
-    if (v < 0) return -1;
-    return min(v, a.tz - 1) * a.t_dim + t;
-}
-
-// Block-wide (any block size).
-__device__ inline void interpod_repair(const Ctx& a)
-{
-    const int p = a.p, t_dim = a.t_dim, w = a.tm.w;
-    const size_t groups = (size_t)a.tz * t_dim;
-    const size_t pairs = (size_t)p * t_dim;
-    for (size_t o = threadIdx.x; o < groups; o += blockDim.x) {
-        a.minpos[o] = kBigI;
-        a.carrier[o] = 0;
-        a.z_mi[o] = 0;
-        a.z_an[o] = 0;
-    }
-    for (int i = threadIdx.x; i < p; i += blockDim.x) a.release[i] = 0;
     __syncthreads();
-    // each group's first involved position in solve order, and its carriers
-    for (size_t e = threadIdx.x; e < pairs; e += blockDim.x) {
-        const int i = (int)(e / t_dim), t = (int)(e % t_dim);
-        if (!a.accept[i] || !(a.mi_dense[e] | a.anti_dense[e])) continue;
-        const int gi = group_of(a, i, t);
-        if (gi < 0) continue;
+    for (int t = threadIdx.x; t < t_dim; t += blockDim.x) {
+        const int key = sm.list[t];
+        if (key == kNoTerm) continue;
+        int rank = 0;
+        for (int u = 0; u < t_dim; ++u) rank += sm.list[u] < key;
+        lt.term[rank] = key;
+        atomicAdd(&lt.n, 1);
+    }
+    __syncthreads();
+    const int nl = lt.n;
+    if (team.rank_ == 0) {
+        for (int k = threadIdx.x; k < nl; k += blockDim.x) a.live_terms[1 + k] = lt.term[k];
+        if (threadIdx.x == 0) a.live_terms[0] = nl;
+    }
+    for (int s = team.rank(); s < a.p; s += team.size()) {
+        a.solve_pos[a.order[s]] = s;
+        a.release[s] = 0;
+    }
+    const size_t pairs = (size_t)a.p * nl;
+    for (size_t e = team.rank(); e < pairs; e += team.size()) {
+        const int i = (int)(e / nl), t = lt.term[e % nl] & 0xffff;
+        a.pair_inv[e] = (uint8_t)(term_mi(a, i, t) | (term_anti(a, i, t) << 1));
+    }
+    const size_t groups = (size_t)a.tz * nl;
+    for (size_t g = team.rank(); g < groups; g += team.size()) {
+        a.minpos[g] = kBigI;
+        a.carrier[g] = 0;
+        a.z_mi[g] = 0;
+        a.z_an[g] = 0;
+    }
+}
+
+// This block's pods [lo, hi): ceil(P / G) a block.
+__device__ __forceinline__ void block_pods(const Ctx& a, const ExactTeam& team, int& lo, int& hi)
+{
+    const int per = (a.p + (int)team.size_ - 1) / (int)team.size_;
+    lo = min(a.p, (int)team.rank_ * per);
+    hi = min(a.p, lo + per);
+}
+
+// fn(i, t, gi, inv) for every involved (pod, live term) pair of this
+// block's pods with keep(i) whose bid node has a value in the term's slot:
+// gi its group, inv its pair flags.  Block-wide; ends on a block barrier.
+template <class Keep, class Fn>
+__device__ inline void walk_pairs(const Ctx& a, RepairSmem& sm, const ExactTeam& team, Keep keep,
+                                  Fn fn)
+{
+    const LiveTerms& lt = sm.live;
+    int lo, hi;
+    block_pods(a, team, lo, hi);
+    const int nl = lt.n;
+    const int lane = threadIdx.x & 31;
+    for (int base = lo; base < hi; base += blockDim.x) {
+        if (threadIdx.x == 0) sm.count = 0;
+        __syncthreads();
+        const int i = base + threadIdx.x;
+        const bool take = i < hi && keep(i);
+        const unsigned mask = __ballot_sync(0xffffffffu, take);
+        int first = 0;
+        if (lane == 0 && mask) first = atomicAdd(&sm.count, __popc(mask));
+        first = __shfl_sync(0xffffffffu, first, 0);
+        if (take) sm.list[first + __popc(mask & ((1u << lane) - 1u))] = i;
+        __syncthreads();
+        const int pairs = sm.count * nl;
+        for (int e = threadIdx.x; e < pairs; e += blockDim.x) {
+            const int ip = sm.list[e / nl], k = e % nl;
+            const int inv = a.pair_inv[(size_t)ip * nl + k];
+            if (!inv) continue;
+            const int key = lt.term[k];
+            const int node = min(max(a.bid[ip], 0), a.n - 1);
+            const int v = a.topo_ids[(size_t)node * a.tk + (key >> 16)];
+            if (v < 0) continue;
+            fn(ip, key & 0xffff, min(v, a.tz - 1) * nl + k, inv);
+        }
+        __syncthreads();
+    }
+}
+
+// One round's repair of the accepted set and the kept pods' term commit,
+// over the cluster: the live terms loaded into shared memory, then the
+// passes.  Ends after the node pass (no barrier).
+__device__ inline void interpod_repair(const Ctx& a, RepairSmem& sm, const ExactTeam& team)
+{
+    LiveTerms& lt = sm.live;
+    const int nl = a.live_terms[0];
+    for (int k = threadIdx.x; k < nl; k += blockDim.x) lt.term[k] = a.live_terms[1 + k];
+    if (threadIdx.x == 0) lt.n = nl;
+    __syncthreads();
+    auto accepted = [&](int i) { return a.accept[i] != 0; };
+    // 1. each group's first involved position in solve order, and its carriers
+    walk_pairs(a, sm, team, accepted, [&](int i, int, int gi, int inv) {
         atomicMin(&a.minpos[gi], a.solve_pos[i]);
-        if (a.anti_dense[e]) a.carrier[gi] = 1;
-    }
-    __syncthreads();
-    // release every involved pod after the first of a group with a carrier
-    for (size_t e = threadIdx.x; e < pairs; e += blockDim.x) {
-        const int i = (int)(e / t_dim), t = (int)(e % t_dim);
-        if (!a.accept[i] || !(a.mi_dense[e] | a.anti_dense[e])) continue;
-        const int gi = group_of(a, i, t);
-        if (gi >= 0 && a.carrier[gi] && a.solve_pos[i] > a.minpos[gi]) a.release[i] = 1;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < p; i += blockDim.x) {
+        if (inv & 2) a.carrier[gi] = 1;
+    });
+    team.sync();
+    // 2. release every involved pod after the first of a group with a carrier
+    walk_pairs(a, sm, team, accepted, [&](int i, int, int gi, int) {
+        if (a.carrier[gi] && a.solve_pos[i] > a.minpos[gi]) a.release[i] = 1;
+    });
+    int lo, hi;
+    block_pods(a, team, lo, hi);
+    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
         if (a.release[i]) a.accept[i] = 0;
     }
-    __syncthreads();
-    // the kept pods' terms in value space, and the global bits
-    for (size_t e = threadIdx.x; e < pairs; e += blockDim.x) {
-        const int i = (int)(e / t_dim), t = (int)(e % t_dim);
-        if (!a.accept[i] || !(a.mi_dense[e] | a.anti_dense[e])) continue;
-        const int gi = group_of(a, i, t);
-        if (gi < 0) continue;
-        if (a.mi_dense[e]) {
+    if (threadIdx.x < a.tm.w) sm.gany[threadIdx.x] = 0u;
+    // 3. the kept pods' terms in value space, and the global bits
+    walk_pairs(a, sm, team, accepted, [&](int, int t, int gi, int inv) {
+        if (inv & 1) {
             a.z_mi[gi] = 1;
-            atomicOr(&a.tm.global_any[t >> 5], 1u << (t & 31));
+            atomicOr(&sm.gany[t >> 5], 1u << (t & 31));
         }
-        if (a.anti_dense[e]) a.z_an[gi] = 1;
-    }
-    __syncthreads();
-    // node space: bit t of a node turns on when its group in t's slot did
-    for (int nd = threadIdx.x; nd < a.n; nd += blockDim.x) {
-        for (int wi = 0; wi < w; ++wi) {
-            uint32_t pw = 0u, bw = 0u;
-            for (int b = 0; b < 32; ++b) {
-                const int t = wi * 32 + b;
-                if (t >= t_dim) break;
-                const int s = min(max(a.slot_of_t[t], 0), a.tk - 1);
-                const int v = a.topo_ids[(size_t)nd * a.tk + s];
-                if (v < 0) continue;
-                const size_t gi = (size_t)min(v, a.tz - 1) * t_dim + t;
-                if (a.z_mi[gi]) pw |= 1u << b;
-                if (a.z_an[gi]) bw |= 1u << b;
-            }
-            a.tm.present[(size_t)nd * w + wi] |= pw;
-            a.tm.blocked[(size_t)nd * w + wi] |= bw;
-        }
-    }
-    __syncthreads();
-}
-
-// The repairs of the round's accepted set, on block 0 while the others
-// wait.  Ends on a cluster barrier.
-__device__ inline void round_repairs(const Ctx& a, unsigned char* dyn, const ExactTeam& team)
-{
-    if (team.rank_ == 0) {
-        if (a.sp.on) spread_repair(a, *(SpreadSmem*)dyn);
-        if (a.tm.on) interpod_repair(a);
+        if (inv & 2) a.z_an[gi] = 1;
+    });
+    if (threadIdx.x < a.tm.w && sm.gany[threadIdx.x]) {
+        atomicOr(&a.tm.global_any[threadIdx.x], sm.gany[threadIdx.x]);
     }
     team.sync();
+    // 4. node space: bit t of a node turns on when its group in t's slot did
+    const int w = a.tm.w;
+    for (int nd = team.first(); nd < a.n; nd += team.stride()) {
+        int slot = -1, v = -1;
+        for (int k = 0; k < nl; ++k) {
+            const int key = lt.term[k];
+            if ((key >> 16) != slot) {
+                slot = key >> 16;
+                v = a.topo_ids[(size_t)nd * a.tk + slot];
+            }
+            if (v < 0) continue;
+            const size_t gi = (size_t)min(v, a.tz - 1) * nl + k;
+            const int t = key & 0xffff;
+            const uint32_t bit = 1u << (t & 31);
+            if (a.z_mi[gi]) a.tm.present[(size_t)nd * w + (t >> 5)] |= bit;
+            if (a.z_an[gi]) a.tm.blocked[(size_t)nd * w + (t >> 5)] |= bit;
+        }
+    }
+}
+
+// After the round's last cluster barrier: the groups of this block's pods
+// accepted before the release, and their release flags, back to their
+// reset values (the live terms still in shared memory from the repair).
+__device__ inline void interpod_clear(const Ctx& a, RepairSmem& sm, const ExactTeam& team)
+{
+    walk_pairs(a, sm, team, [&](int i) { return (a.accept[i] | a.release[i]) != 0; },
+               [&](int, int, int gi, int) {
+                   a.minpos[gi] = kBigI;
+                   a.carrier[gi] = 0;
+                   a.z_mi[gi] = 0;
+                   a.z_an[gi] = 0;
+               });
+    int lo, hi;
+    block_pods(a, team, lo, hi);
+    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) a.release[i] = 0;
+}
+
+// The repairs of the round's accepted set: the spread repair on block 0
+// while the others wait, then the inter-pod repair over the cluster.  The
+// inter-pod clear follows the last barrier.
+__device__ inline void round_repairs(const Ctx& a, unsigned char* dyn, const ExactTeam& team)
+{
+    if (a.sp.on) {
+        if (team.rank_ == 0) spread_repair(a, *(SpreadSmem*)dyn);
+        team.sync();
+    }
+    if (a.tm.on) {
+        RepairSmem& sm = *(RepairSmem*)dyn;
+        interpod_repair(a, sm, team);
+        team.sync();
+        interpod_clear(a, sm, team);
+    }
 }
 
 // ---- the reasons pass ------------------------------------------------------
@@ -1481,11 +1631,11 @@ __device__ inline void round_gang(const Ctx& a, unsigned char* dyn, const ExactT
 // The block's start: the team, the score parameters, the inter-pod
 // repair's tables, and a cluster barrier before any block writes another's
 // shared memory.
-__device__ inline void start(const Ctx& a, Shared& S, ExactTeam& team)
+__device__ inline void start(const Ctx& a, Shared& S, unsigned char* dyn, ExactTeam& team)
 {
     team.init(&S.slots);
     if (threadIdx.x == 0) load_config(S.cfg, a.iparams, a.fparams);
-    if (a.tm.on) write_repair_tables(a, team.rank(), team.size());
+    if (a.tm.on) prepare_repair(a, *(RepairSmem*)dyn, team);
     team.sync();
 }
 
@@ -1509,18 +1659,23 @@ __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
     const int rnd0 = a.state[0];
     const int progress0 = a.state[2];
     ExactTeam team;
-    if (stages & (kStageSpread | kStageInterpod)) {
-        // a repair alone: block 0, no exchange
-        if (cg::this_cluster().block_rank() != 0) return;
-        if ((stages & kStageSpread) && a.sp.on) spread_repair(a, *(SpreadSmem*)dyn);
-        if ((stages & kStageInterpod) && a.tm.on) {
-            write_repair_tables(a, threadIdx.x, blockDim.x);
-            __syncthreads();
-            interpod_repair(a);
-        }
+    if (stages & kStageSpread) {
+        // the spread repair alone: block 0, no exchange
+        if (cg::this_cluster().block_rank() == 0 && a.sp.on) spread_repair(a, *(SpreadSmem*)dyn);
         return;
     }
-    start(a, S, team);
+    start(a, S, dyn, team);
+    if (stages & kStageInterpod) {
+        // the inter-pod repair alone, over the cluster
+        if (a.tm.on) {
+            RepairSmem& sm = *(RepairSmem*)dyn;
+            interpod_repair(a, sm, team);
+            team.sync();
+            interpod_clear(a, sm, team);
+        }
+        team.sync();
+        return;
+    }
     if (stages & kStageLoop) {
         for (int rnd = rnd0; go; ++rnd) {
             round_bids(a, rnd, S, dyn, team);

@@ -59,11 +59,12 @@
 //             the port's ten torch ops and kernel auction_release (one
 //             thread a node over all P pods); auction_common.cuh
 //             round_gang has its bound and design.
-//   tables    the inter-pod repair's dense [P, T] term tables and each
-//             pod's solve position (mi_dense, anti_dense, solve_pos, built
-//             inside auction_assign_jit, :320-349): written once a launch
-//             into scratch by every block's start, from the bits of
-//             terms.matches_incoming and terms.anti_idx.
+//   tables    the inter-pod repair's term tables and each pod's solve
+//             position (mi_dense, anti_dense, solve_pos, built inside
+//             auction_assign_jit, :320-349): written once a launch by
+//             every block's start — the live terms, each pod's flags of
+//             them ([P, L] bytes, from the bits of terms.matches_incoming
+//             and terms.anti_idx) and the reset group tables.
 //
 // Bound on this card: per round, the class pass reads each active class's
 // static row, allocatable, requested and nonzero-requested (about 60 bytes
@@ -96,10 +97,12 @@
 // recursively, then each block's exclusive total added back: level 0 over
 // the cluster, the upper levels on block 0), so the kernel, its plain
 // version (ops/auction.py `prefix_sum`) and the reference on the CPU agree
-// for any request values; the repairs run on block 0 while the other
-// blocks wait (the spread repair's ranks a __match_any_sync warp walk, the
-// inter-pod repair's integer atomicMin group minima; its redesign is
-// queued); the commit adds each node's accepted requests in pod index
+// for any request values; the spread repair runs on block 0 while the
+// other blocks wait (its ranks a __match_any_sync warp walk); the
+// inter-pod repair runs over the cluster (each block its share of the
+// accepted pods x live terms, then of the nodes; integer atomicMin group
+// minima and stores of 1, order-free; auction_common.cuh has its
+// design); the commit adds each node's accepted requests in pod index
 // order, one thread a node group.  The reasons pass (a Python loop over
 // the spec classes and some twenty torch ops in its plain version) runs
 // every joint class over the whole cluster in turn — the

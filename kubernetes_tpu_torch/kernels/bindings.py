@@ -24,6 +24,7 @@ auction_reasons, auction_gang).  Nothing here synchronises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -180,13 +181,7 @@ def _launcher(name: str):
             if got != want:
                 raise RuntimeError(f"partials_eval layout {got} != bindings {want}")
         if name == "family_prep":
-            layout = getattr(lib, "family_prep_layout")
-            layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
-            got = tuple(layout(i) for i in range(6))
-            want = (len(FAMILY_INTS), len(FAMILY_PTRS), MAX_USED_SLOTS,
-                    *(FAMILY_ENTRIES[k] for k in ("spread", "terms", "pref")))
-            if got != want:
-                raise RuntimeError(f"family_prep layout {got} != bindings {want}")
+            _check_family_layout(lib)
         if name == "class_extras":
             max_mi = getattr(lib, "class_extras_limits")
             max_mi.restype, max_mi.argtypes = ctypes.c_int, []
@@ -994,7 +989,7 @@ AUCTION_PTRS = (
     "tm_key_bits", "tm_slot_v", "tm_mi_slot", "tm_anti_slot", "tm_aff_bits",
     "tm_anti_bits", "tm_self_match", "tm_present", "tm_blocked", "tm_global_any",
     "topo_ids", "slot_of_t", "tm_matches_in", "tm_anti_idx", "tm_valid", "solve_pos",
-    "mi_dense", "anti_dense",
+    "pair_inv", "live_terms",
     "assigned", "bid_scores", "state", "bid", "val", "inv_c", "cnt_c", "best_c",
     "masked", "slots", "cperm", "cfirst", "cseen", "perm", "perm_idx", "bfirst",
     "rtmp", "rcnt", "rbase", "prefix", "scan", "accept",
@@ -1023,8 +1018,9 @@ def auction_buffers(cluster, pods, tie_k: int, sp_args=None, tm_args=None,
                     n_groups: int = 0) -> Dict[str, torch.Tensor]:
     """Scratch and outputs of the auction program, allocated once a batch
     (with sp_args, the spread repair's too; with tm_args, the inter-pod
-    repair's group tables, dense term tables and solve positions, which
-    the launch writes; with gangs, their flags —
+    repair's group tables, pair flags and solve positions — room for all
+    T terms; the launch writes them over its live terms —; with gangs,
+    their flags —
     the gang stage's release sort reuses the bid sorts' buffers)."""
     dev = cluster.allocatable.device
     i32, f32, u8 = torch.int32, torch.float32, torch.uint8
@@ -1078,8 +1074,8 @@ def auction_buffers(cluster, pods, tie_k: int, sp_args=None, tm_args=None,
             "z_an": torch.empty(groups, dtype=u8, device=dev),
             "release": torch.empty(p, dtype=u8, device=dev),
             "solve_pos": torch.empty(p, dtype=i32, device=dev),
-            "mi_dense": torch.empty((p, t_dim), dtype=u8, device=dev),
-            "anti_dense": torch.empty((p, t_dim), dtype=u8, device=dev),
+            "pair_inv": torch.empty((p, t_dim), dtype=u8, device=dev),
+            "live_terms": torch.empty(1 + t_dim, dtype=i32, device=dev),
         })
     return out
 
@@ -1201,7 +1197,7 @@ class AuctionRun:
         else:
             t.update((k, pad) for k in term_names + repair)
         for k in ("counts_it", "adds", "minc", "kept", "cand", "admit", "minpos", "carrier",
-                  "z_mi", "z_an", "release", "solve_pos", "mi_dense", "anti_dense",
+                  "z_mi", "z_an", "release", "solve_pos", "pair_inv", "live_terms",
                   "gang_flags"):
             t.setdefault(k, pad)
         ptrs = [extra_ptr if k == "extra" else _ptr(t[k]) for k in AUCTION_PTRS]
@@ -1559,131 +1555,227 @@ FAMILY_PTRS = (
     "topo_ids", "node_valid", "row_valid", "row_slot", "vals_a", "vals_b",
     "owner_sel", "owner_keys", "sel_mask",
     "matches_incoming", "aff_idx", "anti_idx",
-    "scratch",
-    "eligible", "v", "counts", "sizes",
-    "present", "blocked", "key_bits", "global_any", "slot_v", "mi_slot",
-    "anti_slot", "aff_bits", "anti_bits",
-    "counts_dom", "ownerw_dom",
+    "scratch", "out",
 )
-MAX_USED_SLOTS = 32    # family_prep.cu's used topology slots (a lane each)
+MAX_USED_SLOTS = 32    # family_prep.cu's used topology slots
+FAMILY_ALIGN = 16      # its outputs' byte offsets in their one allocation
+FAMILY_MAX_ROWS = 16384   # its rows a launch (the valid-row list in shared memory)
+# each entry's outputs in allocation order (family_prep.cu outputs_of)
+FAMILY_OUTPUTS = {
+    "spread": (("v", _I32), ("counts", _F32), ("sizes", _F32), ("eligible", torch.bool)),
+    "terms": tuple((k, _I32) for k in ("present", "blocked", "key_bits", "global_any",
+                                       "slot_v", "mi_slot", "anti_slot", "aff_bits",
+                                       "anti_bits")),
+    "pref": (("counts_dom", _F32), ("ownerw_dom", _F32)),
+}
+# the zero scratch of each (device, stream): 2 R z + R words at least
+_FAMILY_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _family_launch(entry: str, dev: torch.device, ints: dict, ptrs: dict,
+def family_layout(entry: str, n: int, rows: int, p: int = 0, w: int = 0, u: int = 0):
+    """(((name, dtype, shape, byte offset), ...), bytes) of an entry's
+    outputs in their one allocation: each offset a multiple of
+    FAMILY_ALIGN, in FAMILY_OUTPUTS order (family_prep.cu out_offsets)."""
+    shapes = {
+        "spread": ((rows, n), (rows, n), (rows,), (rows, n)),
+        "terms": ((n, w), (n, w), (n, w), (w,), (u, n), (u, p, w), (u, p, w), (p, w),
+                  (p, w)),
+        "pref": ((rows, n), (rows, n)),
+    }[entry]
+    out, at = [], 0
+    for (name, dtype), shape in zip(FAMILY_OUTPUTS[entry], shapes):
+        out.append((name, dtype, shape, at))
+        size = 1 if dtype is torch.bool else 4
+        for d in shape:
+            size *= d
+        at += -(-size // FAMILY_ALIGN) * FAMILY_ALIGN
+    return tuple(out), at
+
+
+def _family_outputs(entry: str, dev, dims: dict):
+    """(allocation, {name: view}) of an entry's outputs: one allocation of
+    int32 words, split at family_layout's offsets (each output's words,
+    then its padding: one split, then a view an output)."""
+    layout, total = _family_pieces(entry, dims["n"], dims["rows"], dims.get("p", 0),
+                                   dims.get("w", 0), dims.get("u", 0))
+    buf = torch.empty(total // 4, dtype=_I32, device=dev)
+    parts = buf.split(layout[1])
+    views = {}
+    for k, (name, dtype, shape, size) in enumerate(layout[0]):
+        part = parts[2 * k]
+        if dtype is torch.bool:
+            part = part.view(_U8)[:size].view(torch.bool)
+        elif dtype is not _I32:
+            part = part.view(dtype)
+        views[name] = part.view(shape)
+    return buf, views
+
+
+@functools.lru_cache(maxsize=256)
+def _family_pieces(entry: str, n: int, rows: int, p: int, w: int, u: int):
+    """(((name, dtype, shape, elements), ...), the split's word counts —
+    each output's, then its padding's —), and the allocation's bytes."""
+    layout, total = family_layout(entry, n, rows, p, w, u)
+    total = max(total, FAMILY_ALIGN)
+    outs, pieces = [], []
+    for k, (name, dtype, shape, off) in enumerate(layout):
+        size = 1
+        for d in shape:
+            size *= d
+        words = -(-size // 4) if dtype is torch.bool else size
+        end = layout[k + 1][3] if k + 1 < len(layout) else total
+        outs.append((name, dtype, shape, size))
+        pieces += [words, (end - off) // 4 - words]
+    return (tuple(outs), tuple(pieces)), total
+
+
+def family_scratch(dev: torch.device, words: int = 0, stream=None):
+    """The zero scratch of family_prep on `dev`'s current stream (or the
+    torch stream `stream`): one buffer a (device, stream), zeroed when it
+    is allocated and grown to a power of two of at least `words` int32
+    words; every launch leaves it zero.  With words == 0, the buffer as it
+    is (None before the first)."""
+    stream = torch.cuda.current_stream(dev) if stream is None else stream
+    key = (stream.device.index, stream.cuda_stream)
+    buf = _FAMILY_SCRATCH.get(key)
+    if words and (buf is None or buf.numel() < words):
+        size = 1 << max(12, (words - 1).bit_length())
+        buf = _FAMILY_SCRATCH[key] = torch.zeros(size, dtype=_I32, device=dev)
+    return buf
+
+
+def _check_family_layout(lib) -> None:
+    """family_prep.cu's launch arrays, entries and output layout against
+    these bindings': its counts, then each entry's output offsets at a
+    probe shape (ragged sizes, so every alignment pad shows)."""
+    layout = lib.family_prep_layout
+    layout.restype, layout.argtypes = ctypes.c_int, [ctypes.c_int]
+    got = tuple(layout(i) for i in range(11))
+    want = (len(FAMILY_INTS), len(FAMILY_PTRS), MAX_USED_SLOTS,
+            *(FAMILY_ENTRIES[k] for k in ("spread", "terms", "pref")), FAMILY_ALIGN,
+            *(len(FAMILY_OUTPUTS[k]) for k in ("spread", "terms", "pref")), FAMILY_MAX_ROWS)
+    if got != want:
+        raise RuntimeError(f"family_prep layout {got} != bindings {want}")
+    offset = lib.family_prep_offset
+    offset.restype, offset.argtypes = ctypes.c_longlong, [ctypes.c_int, _P, ctypes.c_int]
+    probe = dict(n=37, tk=3, rows=5, z=7, p=11, w=2, u=3)
+    arr = (ctypes.c_int * len(FAMILY_INTS))(*(probe.get(k, 0) for k in FAMILY_INTS))
+    for entry, code in FAMILY_ENTRIES.items():
+        views, total = family_layout(entry, probe["n"], probe["rows"], probe["p"], probe["w"],
+                                     probe["u"])
+        mine = [off for _n, _d, _s, off in views] + [total]
+        theirs = [offset(code, ctypes.cast(arr, _P), k) for k in range(len(mine))]
+        if theirs != mine:
+            raise RuntimeError(f"family_prep {entry} offsets {theirs} != bindings {mine}")
+
+
+def _family_launch(entry: str, dev: torch.device, stream, ints: dict, ptrs: dict,
                    slots=()) -> None:
-    """One launch of kernel family_prep's `entry` (its scatter and gather
-    kernels); pointers not named are null (the entry reads none of them)."""
+    """One launch of kernel family_prep's `entry` on the torch stream
+    `stream`; pointers not named are null (the entry reads none of them)."""
     vals = [int(ints.get(k, 0)) for k in FAMILY_INTS] + [int(s) for s in slots]
     arr_i = (ctypes.c_int * len(vals))(*vals)
-    arr_p = (ctypes.c_void_p * len(FAMILY_PTRS))(
-        *(ptrs[k].data_ptr() if k in ptrs else None for k in FAMILY_PTRS))
+    arr_p = (ctypes.c_void_p * len(FAMILY_PTRS))(*(ptrs.get(k) for k in FAMILY_PTRS))
     with torch.cuda.device(dev):
-        code = _launcher("family_prep")(FAMILY_ENTRIES[entry], arr_i, arr_p, _stream(dev))
+        code = _launcher("family_prep")(FAMILY_ENTRIES[entry], arr_i, arr_p,
+                                        ctypes.c_void_p(stream.cuda_stream))
     build.check("family_prep", code)
     LAUNCHES["family_prep"] += 1
 
 
-def _family_nodes(cluster, dev):
-    """The node tables every entry reads: topo_ids i32[N, TK], node_valid."""
-    topo = _arg(cluster.topo_ids, torch.int32, dev, "topo_ids")
-    valid = _arg(cluster.node_valid, torch.bool, dev, "node_valid")
-    n, tk = topo.shape
-    if valid.shape != (n,) or tk < 1:
-        raise ValueError("topo_ids [N, TK >= 1] and node_valid [N] disagree")
-    return topo, valid, n, tk
-
-
-def _family_rows(valid, slot, vals, dev, n: int, what: str):
-    """A family's row tables: valid bool[R], slot i32[R] and the per-node
-    value tables f32[R, N]."""
-    valid = _arg(valid, torch.bool, dev, f"{what}.valid")
-    slot = _arg(slot, torch.int32, dev, f"{what}.slot")
+def _family_common(cluster, valid, slot, what: str, keep: list):
+    """The node and row tables every entry reads, checked once: (pointers,
+    n, tk, rows)."""
+    dev = cluster.node_valid.device
+    n, tk = cluster.topo_ids.shape
     rows = valid.shape[0]
-    vals = [_arg(t, torch.float32, dev, f"{what} node table") for t in vals]
-    if slot.shape != (rows,) or any(t.shape != (rows, n) for t in vals):
-        raise ValueError(f"{what} tables do not match the row and node axes")
-    return valid, slot, vals, rows
+    if cluster.node_valid.shape != (n,) or tk < 1 or slot.shape != (rows,):
+        raise ValueError(f"topo_ids [N, TK >= 1], node_valid [N] and {what}.slot [R] "
+                         f"disagree")
+    if rows > FAMILY_MAX_ROWS:
+        raise ValueError(f"{what}: {rows} rows exceed family_prep's {FAMILY_MAX_ROWS}")
+    topo, nv, rv, rs = _checked(dev, ((cluster.topo_ids, _I32, "topo_ids"),
+                                      (cluster.node_valid, torch.bool, "node_valid"),
+                                      (valid, torch.bool, f"{what}.valid"),
+                                      (slot, _I32, f"{what}.slot")), keep)
+    return dict(topo_ids=topo, node_valid=nv, row_valid=rv, row_slot=rs), n, tk, rows
 
 
-def _family_scratch(rows: int, z: int, dev) -> torch.Tensor:
-    """family_prep's scratch: 2 R z + R words (the (row, value) sums and a
-    word a row), zeroed by the launch."""
-    z = int(z)
-    if z < 1:
-        raise ValueError(f"value capacity {z} < 1")
-    return torch.empty(2 * rows * z + max(rows, 1), dtype=torch.int32, device=dev)
+def _family_vals(dev, n: int, rows: int, tables, what: str, keep: list) -> dict:
+    """vals_a / vals_b: a family's per-node tables f32[R, N], checked."""
+    if any(t.shape != (rows, n) for t in tables):
+        raise ValueError(f"{what} node tables do not match the row and node axes")
+    ptrs = _checked(dev, [(t, _F32, f"{what} node table") for t in tables], keep)
+    return dict(zip(("vals_a", "vals_b"), ptrs))
+
+
+def _family_ptrs(dev, entry: str, dims: dict, z: int, scatter: bool, ptrs: dict):
+    """The outputs' allocation and the scratch (where the scatter runs)
+    added to `ptrs`; returns (the views, torch's current stream)."""
+    buf, views = _family_outputs(entry, dev, dims)
+    ptrs["out"] = buf.data_ptr()
+    stream = torch.cuda.current_stream(dev)
+    if scatter:
+        if z < 1:
+            raise ValueError(f"value capacity {z} < 1")
+        ptrs["scratch"] = family_scratch(dev, 2 * dims["rows"] * z + dims["rows"],
+                                         stream).data_ptr()
+    return views, stream
 
 
 def family_prep_spread(cluster, sel_mask, spread, z: int, has_bound: bool):
     """prep_spread's SpreadState in one launch (kernel family_prep, entry
-    spread)."""
+    spread), its outputs views of one allocation."""
     from ..ops.topology import SpreadState
 
     dev = cluster.node_valid.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    topo, node_valid, n, tk = _family_nodes(cluster, dev)
-    valid, slot, (matches,), rows = _family_rows(spread.valid, spread.slot,
-                                                 (spread.node_matches,), dev, n, "spread")
-    owner_sel = _arg(spread.owner_sel_idx, i32, dev, "spread.owner_sel_idx")
-    owner_keys = _arg(spread.owner_keys, b, dev, "spread.owner_keys")
-    sel = _arg(sel_mask, b, dev, "sel_mask")
-    if owner_sel.shape != (rows,) or owner_keys.shape != (rows, tk) or sel.shape[1:] != (n,):
+    keep = []
+    ptrs, n, tk, rows = _family_common(cluster, spread.valid, spread.slot, "spread", keep)
+    if (spread.owner_sel_idx.shape != (rows,) or spread.owner_keys.shape != (rows, tk)
+            or sel_mask.shape[1:] != (n,)):
         raise ValueError("spread owner tables or the selector mask do not match the axes")
-    out = {
-        "eligible": torch.empty((rows, n), dtype=b, device=dev),
-        "v": torch.empty((rows, n), dtype=i32, device=dev),
-        "counts": torch.empty((rows, n), dtype=f32, device=dev),
-        "sizes": torch.empty(rows, dtype=f32, device=dev),
-        "scratch": _family_scratch(rows, z, dev),
-    }
-    ptrs = dict(out, topo_ids=topo, node_valid=node_valid, row_valid=valid, row_slot=slot,
-                vals_a=matches, owner_sel=owner_sel, owner_keys=owner_keys, sel_mask=sel)
-    _family_launch("spread", dev, dict(n=n, tk=tk, rows=rows, z=z, has_bound=int(has_bound),
-                                       s=sel.shape[0]), ptrs)
+    ptrs.update(zip(("owner_sel", "owner_keys", "sel_mask"), _checked(dev, (
+        (spread.owner_sel_idx, _I32, "spread.owner_sel_idx"),
+        (spread.owner_keys, torch.bool, "spread.owner_keys"),
+        (sel_mask, torch.bool, "sel_mask")), keep)))
+    if has_bound:
+        ptrs.update(_family_vals(dev, n, rows, (spread.node_matches,), "spread", keep))
+    dims = dict(n=n, tk=tk, rows=rows, z=int(z), has_bound=int(has_bound), s=sel_mask.shape[0])
+    out, stream = _family_ptrs(dev, "spread", dims, int(z), True, ptrs)
+    _family_launch("spread", dev, stream, dims, ptrs)
     return SpreadState(out["counts"], out["eligible"], out["v"], out["sizes"])
 
 
 def family_prep_terms(cluster, terms, z: int, slots, has_bound: bool):
     """prep_terms' TermState in one launch (kernel family_prep, entry
-    terms); `slots` the used topology slots (Python ints, passed in the
-    launch's int array: no host-to-card copy)."""
+    terms), its outputs views of one allocation; `slots` the used topology
+    slots (Python ints, passed in the launch's int array: no host-to-card
+    copy)."""
     from ..ops.interpod import TermState
 
     dev = cluster.node_valid.device
-    i32 = torch.int32
-    topo, node_valid, n, tk = _family_nodes(cluster, dev)
-    valid, slot, (matches, owners), t_dim = _family_rows(
-        terms.valid, terms.slot, (terms.node_matches, terms.node_owners), dev, n, "terms")
+    keep = []
+    ptrs, n, tk, t_dim = _family_common(cluster, terms.valid, terms.slot, "terms", keep)
     w = (t_dim + 31) // 32
-    mi = _arg(terms.matches_incoming, i32, dev, "terms.matches_incoming")
-    aff_idx = _arg(terms.aff_idx, i32, dev, "terms.aff_idx")
-    anti_idx = _arg(terms.anti_idx, i32, dev, "terms.anti_idx")
-    p = mi.shape[0]
+    p = terms.matches_incoming.shape[0]
     slots = tuple(int(s) for s in slots)
-    if t_dim < 1 or mi.shape != (p, w) or aff_idx.shape[0] != p or anti_idx.shape[0] != p:
+    if (t_dim < 1 or terms.matches_incoming.shape != (p, w) or terms.aff_idx.shape[0] != p
+            or terms.anti_idx.shape[0] != p):
         raise ValueError("term tables do not match the term and pod axes")
     if not 1 <= len(slots) <= MAX_USED_SLOTS or any(not 0 <= s < tk for s in slots):
         raise ValueError(f"used slots {slots} outside 0..{tk - 1} or more than "
                          f"{MAX_USED_SLOTS}")
-    u = len(slots)
-    out = {
-        "present": torch.empty((n, w), dtype=i32, device=dev),
-        "blocked": torch.empty((n, w), dtype=i32, device=dev),
-        "key_bits": torch.empty((n, w), dtype=i32, device=dev),
-        "global_any": torch.empty(w, dtype=i32, device=dev),
-        "slot_v": torch.empty((u, n), dtype=i32, device=dev),
-        "mi_slot": torch.empty((u, p, w), dtype=i32, device=dev),
-        "anti_slot": torch.empty((u, p, w), dtype=i32, device=dev),
-        "aff_bits": torch.empty((p, w), dtype=i32, device=dev),
-        "anti_bits": torch.empty((p, w), dtype=i32, device=dev),
-    }
-    # without bound pods the scatter does not run and reads no scratch
-    scratch = _family_scratch(t_dim if has_bound else 0, z, dev)
-    ptrs = dict(out, scratch=scratch, topo_ids=topo, node_valid=node_valid, row_valid=valid,
-                row_slot=slot, vals_a=matches, vals_b=owners, matches_incoming=mi,
-                aff_idx=aff_idx, anti_idx=anti_idx)
-    _family_launch("terms", dev, dict(n=n, tk=tk, rows=t_dim, z=z, has_bound=int(has_bound),
-                                      p=p, w=w, ma=aff_idx.shape[1], ma_anti=anti_idx.shape[1],
-                                      u=u), ptrs, slots)
+    ptrs.update(zip(("matches_incoming", "aff_idx", "anti_idx"), _checked(dev, (
+        (terms.matches_incoming, _I32, "terms.matches_incoming"),
+        (terms.aff_idx, _I32, "terms.aff_idx"), (terms.anti_idx, _I32, "terms.anti_idx")),
+        keep)))
+    if has_bound:
+        ptrs.update(_family_vals(dev, n, t_dim, (terms.node_matches, terms.node_owners),
+                                 "terms", keep))
+    dims = dict(n=n, tk=tk, rows=t_dim, z=int(z), has_bound=int(has_bound), p=p, w=w,
+                ma=terms.aff_idx.shape[1], ma_anti=terms.anti_idx.shape[1], u=len(slots))
+    out, stream = _family_ptrs(dev, "terms", dims, int(z), has_bound, ptrs)
+    _family_launch("terms", dev, stream, dims, ptrs, slots)
     return TermState(out["present"], out["blocked"], out["global_any"], out["key_bits"],
                      out["slot_v"], out["mi_slot"], out["anti_slot"], out["aff_bits"],
                      out["anti_bits"])
@@ -1691,19 +1783,16 @@ def family_prep_terms(cluster, terms, z: int, slots, has_bound: bool):
 
 def family_prep_pref(cluster, table, z: int, has_bound: bool):
     """prep_pref_pod's PrefPodState in one launch (kernel family_prep,
-    entry pref)."""
+    entry pref), its outputs views of one allocation."""
     from ..ops.interpod import PrefPodState
 
     dev = cluster.node_valid.device
-    f32 = torch.float32
-    topo, node_valid, n, tk = _family_nodes(cluster, dev)
-    valid, slot, (counts, weights), rows = _family_rows(
-        table.valid, table.slot, (table.node_counts, table.owner_weight), dev, n, "prefpod")
-    out = {"counts_dom": torch.empty((rows, n), dtype=f32, device=dev),
-           "ownerw_dom": torch.empty((rows, n), dtype=f32, device=dev)}
-    ptrs = dict(out, topo_ids=topo, node_valid=node_valid, row_valid=valid, row_slot=slot,
-                vals_a=counts, vals_b=weights,
-                scratch=_family_scratch(rows if has_bound else 0, z, dev))
-    _family_launch("pref", dev, dict(n=n, tk=tk, rows=rows, z=z, has_bound=int(has_bound)),
-                   ptrs)
+    keep = []
+    ptrs, n, tk, rows = _family_common(cluster, table.valid, table.slot, "prefpod", keep)
+    if has_bound:
+        ptrs.update(_family_vals(dev, n, rows, (table.node_counts, table.owner_weight),
+                                 "prefpod", keep))
+    dims = dict(n=n, tk=tk, rows=rows, z=int(z), has_bound=int(has_bound))
+    out, stream = _family_ptrs(dev, "pref", dims, int(z), has_bound, ptrs)
+    _family_launch("pref", dev, stream, dims, ptrs)
     return PrefPodState(out["counts_dom"], out["ownerw_dom"])

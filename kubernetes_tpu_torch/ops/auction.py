@@ -29,8 +29,8 @@ and gangs with an unplaced member release every placement.
 On the card the whole solve after the preps is one launch, kernel
 `auction_loop`: one thread-block cluster runs every round — the bids,
 the acceptance, the spread repair and count commit, the anti-affinity
-repair (its dense term tables written in the launch) and term-bit
-commit, the commit — until the device's continue flag falls, with no
+repair (over the cluster; its term tables written in the launch) and
+term-bit commit, the commit — until the device's continue flag falls, with no
 host sync —
 then, in the same launch, the reasons pass on the final state and, with
 gangs, the gang post-pass (csrc/auction_common.cuh; the stage entry
@@ -206,8 +206,9 @@ def auction_prep(
 
 def repair_tables(terms, order: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The anti-affinity repair's dense tables, the plain loop's (on the
-    card kernel auction_loop writes the same tables into its scratch from
-    terms.matches_incoming and terms.anti_idx): bool[P, T] the
+    card kernel auction_loop writes their live-term columns, both flags
+    in a byte, into its scratch from terms.matches_incoming and
+    terms.anti_idx): bool[P, T] the
     valid terms each pod matches, bool[P, T] the valid terms it carries as
     anti terms, and i32[P] each pod's position in the solve order."""
     t_dim = terms.valid.shape[0]

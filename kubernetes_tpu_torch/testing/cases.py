@@ -29,7 +29,8 @@ TopologySpreading workload at any scale.
 
 `interpod_objects`, `prefpod_objects` and `image_objects` build seeded
 batches of required inter-pod (anti-)affinity, preferred inter-pod terms
-and ImageLocality; `pod_anti_affinity_objects`, `pod_affinity_objects`
+and ImageLocality; `many_anti_terms_objects` anti-affinity over more
+than 32 distinct terms on two key slots; `pod_anti_affinity_objects`, `pod_affinity_objects`
 and `preferred_affinity_objects` are scheduler_perf's
 SchedulingPodAntiAffinity, SchedulingPodAffinity and (upstream's)
 SchedulingPreferredPodAffinity workloads at any scale.
@@ -444,6 +445,26 @@ def interpod_objects(wrappers, seed: int, n_nodes: int = 24, n_pods: int = 60,
                        req_anti=[_term(api, {"app": app}, api.LABEL_HOSTNAME)])
         pending.append(pod)
     return nodes, pending, bound
+
+
+def many_anti_terms_objects(wrappers, n_nodes: int = 24, services: int = 20,
+                            per_service: int = 3, zones: int = 3):
+    """Anti-affinity over many distinct terms: `services` apps, pod j of
+    app k anti-affine to app (k + j) % services on the hostname (even k)
+    or the zone (odd k), so the batch holds 2 x services distinct terms
+    (40 by default: a second term word, padded to 64 with terms that are
+    not valid) on two key slots, and apps contend for nodes and zones round
+    after round.
+    Returns (nodes, pending, bound)."""
+    api = wrappers.api
+    nodes = [wrappers.make_node(f"n{i}").capacity(cpu_milli=8000, mem=16 * wrappers.GI,
+                                                  pods=110).zone(f"z{i % zones}").obj()
+             for i in range(n_nodes)]
+    keys = (api.LABEL_HOSTNAME, api.LABEL_ZONE)
+    pods = [wrappers.make_pod(f"p{k}-{j}").req(cpu_milli=100).label("app", f"s{k}")
+            .pod_anti_affinity({"app": f"s{(k + j) % services}"}, keys[k % 2]).obj()
+            for k in range(services) for j in range(per_service)]
+    return nodes, pods, []
 
 
 def prefpod_objects(wrappers, seed: int, n_nodes: int = 24, n_pods: int = 60):

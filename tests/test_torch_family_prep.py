@@ -10,8 +10,12 @@ reference's solves run them):
     atomics' order is free), each value clipped into [0, z) and masked
     with v >= 0, float32 adds that skip a zero addend; the spread entry's
     `sizes` by first-presence flips of a (row, value) flag;
-  * the gather and the ballot pack: bit t % 32 of word t / 32 from the
-    lanes of a warp, the u32 word stored as its int32 view.
+  * the gather: the node words a node at a time, OR-ed from the valid
+    terms listed for each word; the pod words and global_any by the
+    ballot pack (bit t % 32 of word t / 32 from the lanes of a warp), the
+    u32 word stored as its int32 view;
+  * the clear: every valid row's bins and words back to zero, so a
+    scratch kept between calls of any rows and z stays zero.
 
 On testing/cases.py's spread, inter-pod and preferred seeds, and on
 synthetic tables: topology values >= z and < 0, has_bound False, a subset
@@ -79,12 +83,40 @@ def value_at(topo, nd, slot):
     return int(topo[nd, min(max(int(slot), 0), topo.shape[1] - 1)])
 
 
-def scatter(rows, n, z, ok_value, tables, rng):
+def scratch_views(scratch, rows: int, z: int):
+    """The kernel's scratch over an int32 buffer, which must be all zero on
+    entry: sum_a f32[R, z], sum_b f32[R, z] (spread's presence flags are its
+    words, seen i32[R, z]) and a word a row, row_count i32[R]."""
+    words = 2 * rows * z + rows
+    assert scratch.size >= words and not scratch.any()
+    f = scratch.view(np.float32)
+    return (f[: rows * z].reshape(rows, z), f[rows * z : 2 * rows * z].reshape(rows, z),
+            scratch[rows * z : 2 * rows * z].reshape(rows, z), scratch[2 * rows * z : words])
+
+
+def clear_scratch(scratch, row_valid, z: int) -> None:
+    """Step 3 of the launch: every bin of every valid row in both tables and
+    every row's word back to zero."""
+    rows = row_valid.shape[0]
+    f = scratch.view(np.float32)
+    for r in np.nonzero(row_valid)[0]:
+        f[r * z : (r + 1) * z] = 0.0
+        f[(rows + r) * z : (rows + r + 1) * z] = 0.0
+    scratch[2 * rows * z : 2 * rows * z + rows] = 0
+
+
+def fresh_scratch(rows: int, z: int):
+    return np.zeros(2 * rows * z + rows + 1, np.int32)
+
+
+def scatter(rows, n, z, ok_value, tables, rng, sums=None):
     """The scatter kernel: a (row, node) pair at a time in a shuffled order;
     ok_value(r, nd) gives the node's value, or None where the pair adds
     nothing; each table's float32 value added at bin (r, min(v, z - 1)),
-    a zero addend skipped.  Returns the [R, Z] sums and the pairs' values."""
-    sums = [np.zeros((rows, z), np.float32) for _ in tables]
+    a zero addend skipped, into `sums` (the scratch's tables; fresh zeros
+    when None).  Returns the [R, Z] sums."""
+    if sums is None:
+        sums = [np.zeros((rows, z), np.float32) for _ in tables]
     for k in rng.permutation(rows * n):
         r, nd = divmod(int(k), n)
         v = ok_value(r, nd)
@@ -100,16 +132,16 @@ def scatter(rows, n, z, ok_value, tables, rng):
 # ---- spread ------------------------------------------------------------------
 
 
-def emulate_spread(nodes: Nodes, sel: np.ndarray, table, z: int, has_bound: bool, rng):
+def emulate_spread(nodes: Nodes, sel: np.ndarray, table, z: int, has_bound: bool, rng,
+                   scratch=None):
     topo, nv = nodes.topo_ids, nodes.node_valid
     c_dim, tk = table.owner_keys.shape
     n = nv.shape[0]
     s_dim = sel.shape[0]
     eligible = np.zeros((c_dim, n), bool)
     v = np.zeros((c_dim, n), np.int32)
-    sums = np.zeros((c_dim, z), np.float32)
-    seen = np.zeros((c_dim, z), bool)
-    row_count = np.zeros(c_dim, np.int32)
+    scratch = fresh_scratch(c_dim, z) if scratch is None else scratch
+    sums, _sum_b, seen, row_count = scratch_views(scratch, c_dim, z)
     for k in rng.permutation(c_dim * n):
         c, nd = divmod(int(k), n)
         ok = bool(table.valid[c]) and bool(nv[nd])
@@ -127,15 +159,17 @@ def emulate_spread(nodes: Nodes, sel: np.ndarray, table, z: int, has_bound: bool
         m = np.float32(table.node_matches[c, nd])
         if has_bound and m != 0.0:
             sums[c, b] = np.float32(sums[c, b] + m)
-        if not seen[c, b]:          # atomicExch saw 0: the first presence
-            seen[c, b] = True
+        if seen[c, b] == 0:         # atomicExch saw 0: the first presence
+            seen[c, b] = 1
             row_count[c] += 1
     counts = np.zeros((c_dim, n), np.float32)
     for c in range(c_dim):
         for nd in range(n):
             if has_bound and v[c, nd] >= 0:
                 counts[c, nd] = sums[c, min(v[c, nd], z - 1)]
-    return counts, eligible, v, row_count.astype(np.float32)
+    sizes = row_count.astype(np.float32)
+    clear_scratch(scratch, table.valid, z)
+    return counts, eligible, v, sizes
 
 
 def spread_case(name):
@@ -198,7 +232,7 @@ def test_spread_entry(case, has_bound):
 # ---- terms -------------------------------------------------------------------
 
 
-def emulate_terms(nodes: Nodes, table, z: int, used, has_bound: bool, rng):
+def emulate_terms(nodes: Nodes, table, z: int, used, has_bound: bool, rng, scratch=None):
     topo, nv = nodes.topo_ids, nodes.node_valid
     t_dim = table.valid.shape[0]
     n, p = nv.shape[0], table.matches_incoming.shape[0]
@@ -211,36 +245,38 @@ def emulate_terms(nodes: Nodes, table, z: int, used, has_bound: bool, rng):
         v = value_at(topo, nd, table.slot[t])
         return v if v >= 0 else None
 
-    sum_m = np.zeros((t_dim, z), np.float32)
-    sum_o = np.zeros((t_dim, z), np.float32)
-    positive = np.zeros(t_dim, bool)
+    # without bound pods no scatter runs and the scratch is not read
+    scratch = fresh_scratch(t_dim, z) if scratch is None or not has_bound else scratch
+    sum_m, sum_o, _seen, positive = scratch_views(scratch, t_dim, z)
     if has_bound:
-        sum_m, sum_o = scatter(t_dim, n, z, ok_value, (table.node_matches, table.node_owners),
-                               rng)
+        scatter(t_dim, n, z, ok_value, (table.node_matches, table.node_owners), rng,
+                (sum_m, sum_o))
         for t in range(t_dim):
             for nd in range(n):
                 if ok_value(t, nd) is not None and table.node_matches[t, nd] > 0:
-                    positive[t] = True
-    out = {k: np.zeros((n, w_dim), np.int32) for k in ("present", "blocked", "key")}
+                    positive[t] = 1
+    # the node words, a thread a node: each word's bits from the valid terms
+    # listed for it in row order (list_rows: first[w] .. first[w + 1])
+    listed = [t for t in range(t_dim) if table.valid[t]]
+    first = [sum(t < 32 * w for t in listed) for w in range(w_dim + 1)]
+    out = {k: np.zeros((n, w_dim), np.uint32) for k in ("present", "blocked", "key")}
     slot_v = np.zeros((u, n), np.int32)
-    # the node words: a warp a (node, word), lane l term 32 w + l
     for nd in range(n):
         for w in range(w_dim):
-            key, pres, blk = (np.zeros(32, bool) for _ in range(3))
-            for lane in range(32):
-                t = 32 * w + lane
-                v = ok_value(t, nd) if t < t_dim else None
-                if v is None:
+            for t in listed[first[w] : first[w + 1]] if nv[nd] else ():
+                v = value_at(topo, nd, table.slot[t])
+                if v < 0:
                     continue
-                key[lane] = True
+                bit = np.uint32(1 << (t % 32))
+                out["key"][nd, w] |= bit
                 if has_bound:
-                    pres[lane] = sum_m[t, min(v, z - 1)] > 0
-                    blk[lane] = sum_o[t, min(v, z - 1)] > 0
-            out["key"][nd, w], out["present"][nd, w], out["blocked"][nd, w] = (
-                ballot(key), ballot(pres), ballot(blk))
-            if w == 0:
-                for lane in range(u):
-                    slot_v[lane, nd] = topo[nd, used[lane]]
+                    if sum_m[t, min(v, z - 1)] > 0:
+                        out["present"][nd, w] |= bit
+                    if sum_o[t, min(v, z - 1)] > 0:
+                        out["blocked"][nd, w] |= bit
+        for j in range(u):
+            slot_v[j, nd] = topo[nd, used[j]]
+    out = {k: x.view(np.int32) for k, x in out.items()}
     # the pod words
     mi_in = table.matches_incoming.view(np.int32)
     aff_bits = np.zeros((p, w_dim), np.int32)
@@ -275,6 +311,8 @@ def emulate_terms(nodes: Nodes, table, z: int, used, has_bound: bool, rng):
             t = 32 * w + lane
             lanes[lane] = has_bound and t < t_dim and bool(table.valid[t]) and positive[t]
         global_any[w] = ballot(lanes)
+    if has_bound:
+        clear_scratch(scratch, table.valid, z)
     return tinter.TermState(out["present"], out["blocked"], global_any, out["key"], slot_v,
                             mi_slot, anti_slot, aff_bits, anti_bits)
 
@@ -350,7 +388,7 @@ def test_terms_entry(case, has_bound, all_slots):
 # ---- pref --------------------------------------------------------------------
 
 
-def emulate_pref(nodes: Nodes, table, z: int, has_bound: bool, rng):
+def emulate_pref(nodes: Nodes, table, z: int, has_bound: bool, rng, scratch=None):
     topo, nv = nodes.topo_ids, nodes.node_valid
     u_dim, n = table.valid.shape[0], nv.shape[0]
 
@@ -364,12 +402,15 @@ def emulate_pref(nodes: Nodes, table, z: int, has_bound: bool, rng):
     ownerw = np.zeros((u_dim, n), np.float32)
     if not has_bound:
         return counts, ownerw
-    sum_c, sum_w = scatter(u_dim, n, z, ok_value, (table.node_counts, table.owner_weight), rng)
+    scratch = fresh_scratch(u_dim, z) if scratch is None else scratch
+    sum_c, sum_w, _seen, _row_count = scratch_views(scratch, u_dim, z)
+    scatter(u_dim, n, z, ok_value, (table.node_counts, table.owner_weight), rng, (sum_c, sum_w))
     for r in range(u_dim):
         for nd in range(n):
             v = ok_value(r, nd)
             if v is not None:
                 counts[r, nd], ownerw[r, nd] = sum_c[r, min(v, z - 1)], sum_w[r, min(v, z - 1)]
+    clear_scratch(scratch, table.valid, z)
     return counts, ownerw
 
 
@@ -434,3 +475,88 @@ def test_entries_follow_the_source():
     flags = dict((k.strip(), int(v)) for k, v in (e.split("=") for e in entries if "=" in e))
     assert {f"kEntry{k.capitalize()}": v for k, v in bindings.FAMILY_ENTRIES.items()} == flags
     assert "family_prep" in bindings.LAUNCHES
+
+
+# ---- one launch, one allocation, a scratch that clears itself ----------------
+
+
+@pytest.mark.parametrize("dims", [dict(n=37, rows=5, p=11, w=2, u=3),
+                                  dict(n=8192, rows=32, p=1024, w=1, u=1),
+                                  dict(n=65536, rows=3, p=16, w=1, u=2),
+                                  dict(n=0, rows=0, p=0, w=1, u=1)])
+@pytest.mark.parametrize("entry", ["spread", "terms", "pref"])
+def test_output_layout(entry, dims):
+    """The outputs' one allocation: offsets 16-byte aligned, in
+    FAMILY_OUTPUTS order, not overlapping, inside the allocation; each view
+    of its shape and dtype at its offset, writes to one leaving the others."""
+    layout, total = bindings.family_layout(entry, **dims)
+    assert [(k, d) for k, d, _s, _o in layout] == list(bindings.FAMILY_OUTPUTS[entry])
+    buf, views = bindings._family_outputs(entry, torch.device("cpu"), dims)
+    assert buf.dtype == torch.int32 and buf.numel() * 4 >= total
+    end = 0
+    for name, dtype, shape, off in layout:
+        size = int(np.prod(shape)) * (1 if dtype is torch.bool else 4)
+        assert off % bindings.FAMILY_ALIGN == 0 and off >= end and off + size <= total
+        end = off + size
+        view = views[name]
+        assert view.dtype is dtype and tuple(view.shape) == shape and view.is_contiguous()
+        if size:
+            assert view.data_ptr() == buf.data_ptr() + off
+    buf.zero_()
+    for k, (name, _dtype, _shape, _off) in enumerate(layout):
+        views[name].view(torch.uint8).fill_(k + 1)
+    for k, (name, _d, _s, _o) in enumerate(layout):
+        assert bool((views[name].view(torch.uint8) == k + 1).all()), name
+
+
+def test_output_offsets_follow_the_source():
+    """make_args hands out the outputs at off[k] in FAMILY_OUTPUTS order,
+    and the source's counts and alignment are the bindings'."""
+    text = SOURCE.read_text()
+    got = re.findall(r"a\.(\w+) = .*out \+ off\[(\d+)\]", text)
+    names = [k for e in ("spread", "terms", "pref") for k, _d in bindings.FAMILY_OUTPUTS[e]]
+    idx = [k for e in ("spread", "terms", "pref")
+           for k in range(len(bindings.FAMILY_OUTPUTS[e]))]
+    assert [(n, int(i)) for n, i in got] == list(zip(names, idx))
+    outs = dict(re.findall(r"kOut(\w+) = (\d+)", text))
+    assert {k.lower(): int(v) for k, v in outs.items()} == {
+        e: len(bindings.FAMILY_OUTPUTS[e]) for e in ("spread", "terms", "pref")}
+    assert int(re.search(r"kAlign = (\d+);", text).group(1)) == bindings.FAMILY_ALIGN
+    assert int(re.search(r"kMaxRows = (\d+);", text).group(1)) == bindings.FAMILY_MAX_ROWS
+
+
+def test_scratch_clears_itself_over_calls():
+    """One scratch buffer, zero when it was made, through calls of every
+    entry at different rows and z in turn (spread 7 x 6, terms 65 x 6,
+    pref 6 x 6, then the seeds' own z): each call reads it as zero, leaves
+    it zero, and equals the plain twin."""
+    scratch = np.zeros(1 << 14, np.int32)
+    rng = np.random.default_rng(3)
+    calls = [("spread", "synthetic"), ("terms", "T65"), ("pref", "synthetic"),
+             ("spread", "seed1"), ("terms", "seed0"), ("pref", "seed1"), ("terms", "T33")]
+    widths = set()
+    for entry, case in calls:
+        if entry == "spread":
+            nodes, sel, table, z = spread_case(case)
+            got = emulate_spread(nodes, sel, table, z, True, rng, scratch)
+            want = ttopo.prep_spread_plain(to_torch(nodes), torch.from_numpy(sel),
+                                           to_torch(table), z, True)
+            rows = table.valid.shape[0]
+        elif entry == "terms":
+            nodes, table, z, slots = terms_case(case)
+            used = tinter.used_slots(tuple(slots), nodes.topo_ids.shape[1])
+            got = emulate_terms(nodes, table, z, used, True, rng, scratch)
+            want = tinter.prep_terms_plain(to_torch(nodes), to_torch(table), z, tuple(slots),
+                                           True)
+            rows = table.valid.shape[0]
+        else:
+            nodes, table, z = pref_case(case)
+            got = emulate_pref(nodes, table, z, True, rng, scratch)
+            want = tinter.prep_pref_pod_plain(to_torch(nodes), to_torch(table), z, True)
+            rows = table.valid.shape[0]
+        widths.add((rows, z))
+        assert not scratch.any(), (entry, case)
+        for g, w in zip(got, want):
+            g = np.asarray(g)
+            assert np.array_equal(g, w.numpy().view(g.dtype) if g.dtype != bool else w.numpy())
+    assert len(widths) >= 5

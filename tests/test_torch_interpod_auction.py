@@ -218,3 +218,199 @@ def test_repair_releases_and_counts_as_progress():
     got = tauction.auction_assign(tsnap)
     a = got.assignment.numpy()[:40]
     assert int(got.rounds) >= 2 and sorted(a[a >= 0].tolist()) == list(range(16))
+
+
+# ---- the repair over the cluster (csrc/auction_common.cuh), emulated --------
+
+BIG_I = 1 << 30
+
+
+class ClusterRepair:
+    """auction_common.cuh's inter-pod repair over a cluster of G blocks of
+    `threads` threads, step for step in numpy, for one launch: the start's
+    tables once (the live terms by (slot, term), the [P, L] pair flags, the
+    solve positions, the reset groups), then a round per call.  Each block
+    owns the pods [b P / G, (b + 1) P / G) (ceil), walked in chunks of its
+    threads, the chunk's accepted pods compacted in any order, the pairs in
+    any order, and the 32-node chunks q with q % G == b; the blocks run a
+    pass in any order between barriers.  The group tables carry from round
+    to round: after a round's clear (the groups of the pods accepted before
+    the release) every group must be back at its reset value."""
+
+    def __init__(self, st, topo_ids, groups: int, threads: int, seed: int):
+        table, _state, z = st.tm
+        self.g, self.threads, self.z = groups, threads, int(z)
+        self.rng = np.random.default_rng(seed)
+        self.topo = topo_ids.numpy()
+        self.n, tk = self.topo.shape
+        valid, slot = table.valid.numpy(), table.slot.numpy()
+        self.live = sorted((min(max(int(slot[t]), 0), tk - 1) << 16) | t
+                           for t in range(valid.shape[0]) if valid[t])
+        mi = table.matches_incoming.numpy().view(np.uint32)
+        anti = table.anti_idx.numpy()
+        self.p = mi.shape[0]
+        nl = len(self.live)
+        self.inv = np.zeros((self.p, nl), np.uint8)
+        for i in range(self.p):
+            for k, key in enumerate(self.live):
+                t = key & 0xFFFF
+                self.inv[i, k] = ((int(mi[i, t >> 5]) >> (t & 31)) & 1) | (
+                    int((anti[i] == t).any()) << 1)
+        self.pos = np.empty(self.p, np.int64)
+        self.pos[st.order.numpy()] = np.arange(self.p)
+        self.minpos = np.full(self.z * nl, BIG_I, np.int64)
+        self.flags = np.zeros((3, self.z * nl), np.uint8)   # carrier, z_mi, z_an
+        self.release = np.zeros(self.p, np.uint8)
+        self.rounds = 0
+        # the partition covers every pod and node once
+        per = -(-self.p // self.g)
+        self.pods = [range(min(self.p, b * per), min(self.p, b * per + per))
+                     for b in range(self.g)]
+        self.nodes = [[nd for nd in range(self.n) if (nd >> 5) % self.g == b]
+                      for b in range(self.g)]
+        assert sorted(i for r in self.pods for i in r) == list(range(self.p))
+        assert sorted(nd for b in self.nodes for nd in b) == list(range(self.n))
+
+    def reset_state(self) -> bool:
+        return ((self.minpos == BIG_I).all() and not self.flags.any()
+                and not self.release.any())
+
+    def pairs(self, b: int, keep, bid):
+        """walk_pairs: block b's involved (pod, term, group, flags)."""
+        nl = len(self.live)
+        r = self.pods[b]
+        for base in range(r.start, r.stop, self.threads):
+            chunk = [i for i in range(base, min(base + self.threads, r.stop)) if keep(i)]
+            self.rng.shuffle(chunk)
+            pairs = [(i, k) for i in chunk for k in range(nl)]
+            for e in self.rng.permutation(len(pairs)):
+                i, k = pairs[e]
+                if not self.inv[i, k]:
+                    continue
+                key = self.live[k]
+                v = int(self.topo[min(max(int(bid[i]), 0), self.n - 1), key >> 16])
+                if v >= 0:
+                    yield i, key & 0xFFFF, min(v, self.z - 1) * nl + k, int(self.inv[i, k])
+
+    def __call__(self, accept, bid, term_bits):
+        assert self.reset_state()
+        accept = accept.numpy().astype(np.uint8)
+        bid = bid.numpy()
+        present, blocked, gany = (t.numpy().view(np.uint32).copy() for t in term_bits)
+        carrier, z_mi, z_an = self.flags
+        for b in self.rng.permutation(self.g):                       # pass 1
+            for i, _t, gi, inv in self.pairs(b, lambda i: accept[i], bid):
+                self.minpos[gi] = min(self.minpos[gi], self.pos[i])
+                if inv & 2:
+                    carrier[gi] = 1
+        for b in self.rng.permutation(self.g):                       # passes 2, 3
+            for i, _t, gi, _inv in self.pairs(b, lambda i: accept[i], bid):
+                if carrier[gi] and self.pos[i] > self.minpos[gi]:
+                    self.release[i] = 1
+            for i in self.pods[b]:
+                if self.release[i]:
+                    accept[i] = 0
+            block_any = np.zeros_like(gany)
+            for _i, t, gi, inv in self.pairs(b, lambda i: accept[i], bid):
+                if inv & 1:
+                    z_mi[gi] = 1
+                    block_any[t >> 5] |= np.uint32(1 << (t & 31))
+                if inv & 2:
+                    z_an[gi] = 1
+            gany |= block_any
+        nl = len(self.live)
+        for b in self.rng.permutation(self.g):                       # pass 4: nodes
+            for nd in self.nodes[b]:
+                slot, v = -1, -1
+                for k, key in enumerate(self.live):
+                    if key >> 16 != slot:
+                        slot = key >> 16
+                        v = int(self.topo[nd, slot])
+                    if v < 0:
+                        continue
+                    gi, t = min(v, self.z - 1) * nl + k, key & 0xFFFF
+                    if z_mi[gi]:
+                        present[nd, t >> 5] |= np.uint32(1 << (t & 31))
+                    if z_an[gi]:
+                        blocked[nd, t >> 5] |= np.uint32(1 << (t & 31))
+        for b in self.rng.permutation(self.g):                       # the clear
+            for _i, _t, gi, _inv in self.pairs(b, lambda i: accept[i] | self.release[i], bid):
+                self.minpos[gi] = BIG_I
+                self.flags[:, gi] = 0
+            for i in self.pods[b]:
+                self.release[i] = 0
+        assert self.reset_state(), "a group the round wrote survived its clear"
+        self.rounds += 1
+        return (torch.from_numpy(accept.astype(bool)),
+                tuple(torch.from_numpy(x.view(np.int32)) for x in (present, blocked, gany)))
+
+
+def many_terms():
+    """cases.many_anti_terms_objects: 40 distinct terms (more than 32: a
+    second word), valid and padding terms, hostname and zone slots."""
+    return cases.many_anti_terms_objects(jw)
+
+
+REPAIR_CASES = {f"anti{s}": (lambda s=s: cases.interpod_objects(jw, s, anti_only=True), None)
+                for s in range(3)}
+REPAIR_CASES.update({
+    "contended_host": (lambda: contended_anti(japi.LABEL_HOSTNAME, 16, 40), None),
+    "contended_zone": (lambda: contended_anti(japi.LABEL_ZONE, 8, 30), None),
+    "cross_anti": (cross_anti, None),
+    "many_terms": (many_terms, None),
+    # hostname values past the term value capacity, clipped onto its last bin
+    "many_terms_clipped": (many_terms, 5),
+})
+
+
+@pytest.mark.parametrize("shape", [(16, 512), (3, 32)])
+@pytest.mark.parametrize("case", sorted(REPAIR_CASES))
+def test_cluster_repair_matches_plain_and_reference(case, shape, monkeypatch):
+    """The repair over the cluster, emulated (16 blocks of 512 threads, the
+    A shape's; 3 blocks of 32, so a block walks several chunks), in place
+    of the plain repair inside the port's plain rounds: every round's kept
+    set and bits equal interpod_repair_plain's; the whole solve equals the
+    reference's jitted auction_assign (its interpod_repair and
+    commit_terms) where the value capacity is the reference's own."""
+    build, z_terms = REPAIR_CASES[case]
+    nodes, pods, bound = build()
+    snap, _ = jschema.SnapshotBuilder().build(nodes, pods, bound_pods=bound)
+    features = jassign.features_of(snap)
+    assert features.interpod and jauction.auction_features_ok(features)
+    tsnap = dv.to_device(dv.snapshot_from_numpy(snap), "cpu")
+    topo_z = None
+    if z_terms is not None:
+        topo_z = (jassign.required_topo_z_split(snap)[0], z_terms)
+    plain = tauction.interpod_repair_plain
+    emulators = {}
+
+    def repair(accept, bid, st, topo_ids, term_bits, tables=None):
+        em = emulators.setdefault(id(tables), ClusterRepair(st, topo_ids, *shape,
+                                                            seed=len(emulators)))
+        got = em(accept, bid, term_bits)
+        want = plain(accept, bid, st, topo_ids, term_bits, tables)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a, b)
+        return got
+
+    monkeypatch.setattr(tauction, "interpod_repair_plain", repair)
+    got = tauction.auction_assign(tsnap, topo_z=topo_z)
+    em = next(iter(emulators.values()))
+    assert em.rounds == int(got.rounds) >= 1
+    if case.startswith("contended") or case.startswith("many"):
+        assert em.rounds >= 2            # the groups carried across rounds
+    if case.startswith("many"):
+        assert 32 < len(em.live) < snap.terms.valid.shape[0] == 64     # w = 2
+        assert len({key >> 16 for key in em.live}) == 2
+    if z_terms is not None:
+        live_slots = sorted({key >> 16 for key in em.live})
+        assert (em.topo[:, live_slots] >= z_terms).any()
+        return
+    want = jauction.auction_assign_jit(jscores.ScoreConfig())(snap, n_groups=0)
+    for f in ("assignment", "scores", "reasons", "rounds"):
+        a, b = np.asarray(getattr(want, f)), getattr(got, f).numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    placed = [(i, int(a)) for i, a in enumerate(got.assignment.tolist()) if a >= 0]
+    for a, b in zip(reference_bits(snap, placed), got.debug_term_bits):
+        assert np.array_equal(a, b.numpy().view(np.uint32))
