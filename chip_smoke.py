@@ -202,11 +202,14 @@ stdout; with --log also appended to PATH):
              TorchBatchScheduler(mode="auto"): each batch the auction, one
              auction_loop launch (the gang stage inside), no stage alone,
              no plain twin; gangs all or nothing; usage within capacity;
-             the last batch == auction_assign on CPU copies, every field;
-             three gangs with an unplaceable member (released in the
-             launch, == the CPU bit for bit; the gang stage alone timed
-             there, G); 200 nodes (scarcity: the admission retry's solves
-             on the auction route, names == the port on the CPU)
+             the last batch == auction_assign on CPU copies, every field
+             (the reasons stage alone timed there, G, and the gang stage
+             with no drop, G0); three gangs with an unplaceable member
+             (released in the launch, == the CPU bit for bit; the gang
+             stage alone timed there, G); 200 nodes (scarcity: the
+             admission retry's solves on the auction route, names == the
+             port on the CPU; both stages alone timed on the full solve,
+             S200); each stage alone equal to its plain twin on CPU copies
   wide_edges the wavefront (a 256-pod SchedulingBasic batch, the planner's
              waves) and evaluate_single (E: the fused launch; E+: a
              preferred term, two stages) at 16,384 padded nodes (10,000
@@ -1446,8 +1449,11 @@ def main() -> int:
                                      "before the post-pass; PG: the parity phase's "
                                      "fractional gang batch (launches: its auction_assign "
                                      "on the card); G: bench.py c5 with three gangs given "
-                                     "an unplaceable member (launches: the gang phase's "
-                                     "auction_loop launches, every one a batch with gangs)",
+                                     "an unplaceable member (launches: the drops step's); "
+                                     "G0: the last c5 batch, no pod dropped (launches: the "
+                                     "c5 batches'); S200: the scarcity step's full solve on "
+                                     "200 nodes, no gang complete (launches: the step's "
+                                     "solves)",
                      "greedy_scan": "the same batch, mode=greedy",
                      "wavefront": "W: SchedulingNodeAffinity/5000Nodes first measured batch; "
                                   "S: TopologySpreading/5000Nodes first 500-pod measured batch "
@@ -1456,7 +1462,10 @@ def main() -> int:
                      "auction_spread": "TopologySpreading/5000Nodes measured batch",
                      "auction_reasons": "B, T, A, N as auction_loop: the stage alone on the "
                                         "loop's final state; launches: the loop's (it runs "
-                                        "once in each)",
+                                        "once in each); G: the gang phase's last c5 batch "
+                                        "(launches: the c5 batches' and the drops step's); "
+                                        "S200: the scarcity step's full solve (launches: "
+                                        "the step's solves)",
                      "family_prep": "T (entry spread): TopologySpreading/5000Nodes measured "
                                     "batch; A (terms): SchedulingPodAntiAffinity/5000Nodes "
                                     "measured batch; P (pref): the preferred-affinity "
@@ -1597,9 +1606,8 @@ def main() -> int:
     emit(north)
     wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bindings, torch)
     # ---- bench.py's c5: the gang burst, 10,000 pods in 100 gangs ---------
-    gang_c5_row, gang_loops = gang_phase(wrappers, TorchBatchScheduler, assign, auction,
-                                         bindings, torch, card)
-    summary.append(dict(gang_c5_row, launches=gang_loops))
+    summary.extend(gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch,
+                              card))
     # every phase so far arms no fault: breakers, fallbacks and cold
     # partials syncs only ever count up, so one check covers them all
     emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
@@ -2926,8 +2934,7 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
         return rounds
     rows = time_auction_round(auction_round_inputs(snap, cfg, tie_k, auction, bindings, torch),
                               auction, bindings, torch)
-    rows.append(reasons_row(cluster, pods, st, tie_k, cfg, final, want_reasons, auction,
-                            bindings, torch))
+    rows.append(reasons_row(cluster, pods, st, final, want_reasons, auction, bindings, torch))
     err_of = {"auction_bids": errs[0], "auction_accept": errs[1], "auction_spread": errs[2],
               "auction_interpod": errs[3], "auction_reasons": errs[4]}
     for row in rows:
@@ -2941,23 +2948,61 @@ def run_auction(snap, cfg, tie_k, auction, bindings, torch, timed: bool = False,
     return rows
 
 
-def reasons_row(cluster, pods, st, tie_k, cfg, final, want, auction, bindings, torch) -> dict:
+def reasons_stage_call(b, cluster, pods, st, final) -> tuple:
+    """(launch, reset, result) of a tree's reasons stage alone (its
+    bindings `b`: AuctionRun.reasons_stage, auction_loop's kernel) on a
+    final state (assigned, requested, nonzero, spread counts, term bits):
+    its AuctionRun made and loaded once (the stage rewrites only its
+    outputs, so no reset)."""
+    from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_CONFIG
+
+    assigned, requested, nonzero = final[0], final[1], final[2]
+    run = b.AuctionRun(cluster, pods, st, 1, DEFAULT_SCORE_CONFIG, 0)
+    run.load(0, requested, nonzero, assigned, run.bid_scores, final[3], final[4], go=False)
+    return run.reasons_stage, lambda: None, lambda: (run.reasons,)
+
+
+def reasons_row(cluster, pods, st, final, want, auction, bindings, torch) -> dict:
     """The reasons stage's summary row: the stage alone on the loop's final
-    state (launch_ms: its AuctionRun made and loaded beforehand; the stage
-    rewrites only its outputs, so no reset), equal to the plain twin's
+    state (launch_ms over reasons_stage_call), equal to the plain twin's
     `want` after the timing; the plain twin on the card (CUDA events over
     20 calls, as cuda_ms); the bound of its work on this data."""
     requested, nonzero, assigned = final[1], final[2], final[0]
-    run = bindings.AuctionRun(cluster, pods, st, tie_k, cfg, 0)
-    run.load(0, requested, nonzero, assigned, run.bid_scores, final[3], final[4], go=False)
-    ms, host_ms = launch_ms(run.reasons_stage, lambda: None, 10, torch)
-    check_equal("auction_reasons (timed)", (run.reasons,), (want,), torch)
+    launch, reset, result = reasons_stage_call(bindings, cluster, pods, st, final)
+    ms, host_ms = launch_ms(launch, reset, 10, torch)
+    check_equal("auction_reasons (timed)", result(), (want,), torch)
     plain_ms = cuda_ms(lambda: auction.failure_reasons_plain(
         cluster, pods, st, assigned, requested, nonzero, final[3], final[4]), 20, torch)
     b = bound(*reasons_need(cluster, pods, st, assigned, requested, nonzero, final[3],
                             final[4], torch=torch))
     return {"name": "auction_reasons", "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "classes": [int(st.jspec.shape[0]), int(st.s_reps.shape[0]),
+                        int(st.k_reps.shape[0])]}
+
+
+def final_state(snap, meta, cfg, auction, bindings, torch, convert=None) -> tuple:
+    """(cluster, pods, st, final, want) of an auction batch on the card:
+    the loop's launch without gangs (the rounds and the reasons; `bindings`
+    may be another tree's, `convert` mapping st to its statics), its final
+    state (assigned, requested, nonzero, spread counts, term bits) and the
+    plain twin's reasons on CPU copies of it; the loop's own reasons equal
+    them."""
+    cluster, pods, st = auction.auction_prep(snap, meta.features, meta.topo_split, cfg)
+    out, reasons, _ = bindings.auction_solve(cluster, pods, convert(st) if convert else st,
+                                             meta.tie_k, cfg, 64)
+    final = (out[0], out[2], out[3], out[5], tuple(out[6:]) if st.features.interpod else None)
+    want = auction.failure_reasons_plain(*cpu_args((cluster, pods, st) + final, torch))
+    check_equal("auction_reasons (in the loop)", (reasons,), (want,), torch)
+    return cluster, pods, st, final, want
+
+
+def stage_reasons_row(snap, meta, cfg, shape, auction, bindings, torch) -> dict:
+    """The reasons stage alone at a gang batch's shape (G, S200): its final
+    state by final_state, then reasons_row."""
+    cluster, pods, st, final, want = final_state(snap, meta, cfg, auction, bindings, torch)
+    row = reasons_row(cluster, pods, st, final, want, auction, bindings, torch)
+    return dict(row, shape=shape, max_abs_err=0.0, stage_of="auction_loop")
 
 
 # cycles the card spins (torch.cuda._sleep) before a timed launch's start
@@ -3443,6 +3488,38 @@ def c5_snapshot(wrappers, TorchBatchScheduler):
     return (sched, *sched.encode_pending(c5_pods(wrappers, "shape-g")))
 
 
+def c5_drops_snapshot(wrappers, TorchBatchScheduler):
+    """Shape G of the gang stage: the c5 batch of the gang phase's drops
+    step (one member of each of C5_DROP_GANGS unplaceable) onto 50,000
+    nodes.  Returns (scheduler, snapshot, meta)."""
+    sched = TorchBatchScheduler(mode="auto")
+    for node in c5_nodes(wrappers, C5[0]):
+        sched.add_node(node)
+    return (sched, *sched.encode_pending(c5_pods(wrappers, "drops", C5_DROP_GANGS)))
+
+
+def c5_scarce_snapshot(wrappers, TorchBatchScheduler):
+    """Shape S200: the gang phase's scarcity step's full solve, the c5
+    batch onto C5_SCARCE nodes (256 padded; no gang completes).  Returns
+    (scheduler, snapshot, meta)."""
+    sched = TorchBatchScheduler(mode="auto")
+    for node in c5_nodes(wrappers, C5_SCARCE):
+        sched.add_node(node)
+    return (sched, *sched.encode_pending(c5_pods(wrappers, "scarce")))
+
+
+def fractional_gang_snapshot(wrappers, torch):
+    """Shape PG: the parity phase's fractional gang batch on the card (an
+    incomplete gang on nodes past float32's exact range).  Returns
+    (snapshot, meta)."""
+    from kubernetes_tpu_torch.ops import assign, auction, device as dv, schema
+    from kubernetes_tpu_torch.testing.cases import fractional_gang_objects
+
+    nodes, pending, _b = fractional_gang_objects(wrappers, 1)
+    snap, _meta = schema.SnapshotBuilder().build(nodes, pending)
+    return dv.to_device(snap, "cuda"), _meta_of(snap, assign, auction, schema)
+
+
 def wide_snapshot(wrappers, TorchBatchScheduler, n_pods: int):
     """Shape L (16 pods): an n_pods-pod SchedulingBasic batch onto 50,000
     node-default nodes, 65,536 padded.  Returns (scheduler, snapshot, meta)."""
@@ -3769,41 +3846,70 @@ def check_result_capacity(what, res) -> None:
         raise AssertionError(f"{what}: a node's post-solve usage exceeds its allocatable")
 
 
-def gang_row(snap, meta, cfg, shape, auction, bindings, torch) -> dict:
-    """The gang stage alone (AuctionRun.gang_stage, auction_loop's kernel)
-    on a gang batch's state before the post-pass — the loop's launch
-    without gangs (n_groups 0: the rounds and the reasons) —, against
-    gang_post_pass_plain on CPU copies (it adds in pod index order on the
-    CPU only), exact; CUDA events behind a spin (launch_ms: the carries and
-    reasons reloaded before each call), the plain twin host-timed on the
-    CPU copies, and the bound: each pod's group, assignment and validity
-    read and its flag written, the dropped pods' two request rows read and
-    their assignment, score and reason written, their nodes' two usage rows
-    read and written, one subtraction a dropped pod and resource in each."""
+def gang_inputs(snap, meta, cfg, auction, bindings, convert=None) -> tuple:
+    """(cluster, pods, st, before) of a gang batch on the card: its state
+    before the post-pass (assigned, bid_scores, requested, nonzero,
+    reasons) from the loop's launch without gangs (the rounds and the
+    reasons; `bindings` and `convert` as in final_state)."""
     cluster, pods, st = auction.auction_prep(snap, meta.features, meta.topo_split, cfg)
-    out, reasons, _ = bindings.auction_solve(cluster, pods, st, meta.tie_k, cfg, 64)
-    assigned, bid_scores, req, nz = out[:4]
-    run = bindings.AuctionRun(cluster, pods, st, meta.tie_k, cfg, 0, meta.n_groups)
+    out, reasons, _ = bindings.auction_solve(cluster, pods, convert(st) if convert else st,
+                                             meta.tie_k, cfg, 64)
+    return cluster, pods, st, (out[0], out[1], out[2], out[3], reasons)
+
+
+def gang_stage_call(b, cluster, pods, st, tie_k, cfg, n_groups, before) -> tuple:
+    """(launch, reset, result) of a tree's gang stage alone (its bindings
+    `b`: AuctionRun.gang_stage, auction_loop's kernel) on the state before
+    the post-pass: its AuctionRun made once, the carries and the reasons
+    reloaded by reset; result as gang_post_pass_plain's tuple."""
+    assigned, bid_scores, req, nz, reasons = before
+    run = b.AuctionRun(cluster, pods, st, tie_k, cfg, 0, n_groups)
 
     def reset():
         run.load(0, req, nz, assigned, bid_scores, go=False)
         run.reasons.copy_(reasons)
 
-    ms, host_ms = launch_ms(run.gang_stage, reset, 10, torch)
-    c_args = cpu_args((pods, assigned, bid_scores, reasons, req, nz), torch)
-    want = auction.gang_post_pass_plain(*c_args, meta.n_groups)
-    got = (run.assigned, run.bid_scores, run.reasons, run.gang_dropped, run.requested,
-           run.nonzero)
-    err = check_equal(f"auction_gang ({shape})", got, want, torch)
-    dropped = want[3]
-    if not bool(dropped.any()):
-        raise AssertionError(f"auction_gang ({shape}): the batch drops no pod")
-    plain_ms = time_plain(lambda: auction.gang_post_pass_plain(*c_args, meta.n_groups), torch)
+    return run.gang_stage, reset, lambda: (run.assigned, run.bid_scores, run.reasons,
+                                           run.gang_dropped, run.requested, run.nonzero)
+
+
+def dropped_on(assigned, dropped, torch) -> tuple:
+    """(dropped pods, the nodes they were placed on)."""
+    dropped = dropped.cpu()
+    return int(dropped.sum()), int(torch.unique(assigned.cpu()[dropped]).numel())
+
+
+def gang_need(pods, d: int, nodes: int) -> tuple:
+    """(bytes, operations) of the gang stage with d pods dropped from
+    `nodes` nodes: each pod's group, assignment and validity read and its
+    flag written, the dropped pods' two request rows read and their
+    assignment, score and reason written, their nodes' two usage rows read
+    and written, one subtraction a dropped pod, resource and row."""
     p, r = pods.req.shape
-    d = int(dropped.sum())
-    nodes = int(torch.unique(assigned.cpu()[dropped]).numel())
-    b = bound(p * (4 + 4 + 1 + 1) + d * (2 * r * 4 + 12) + nodes * 2 * 2 * r * 4,
-              float(2 * d * r))
+    return p * (4 + 4 + 1 + 1) + d * (2 * r * 4 + 12) + nodes * 2 * 2 * r * 4, float(2 * d * r)
+
+
+def gang_row(snap, meta, cfg, shape, auction, bindings, torch, drops: bool = True) -> dict:
+    """The gang stage alone (gang_stage_call, this tree's bindings) on a
+    gang batch's state before the post-pass (gang_inputs), against
+    gang_post_pass_plain on CPU copies (it adds in pod index order on the
+    CPU only), exact; CUDA events behind a spin (launch_ms), the plain twin
+    host-timed on the CPU copies, and the bound (gang_need).  `drops`:
+    whether the batch must drop some pod (else none may)."""
+    cluster, pods, st, before = gang_inputs(snap, meta, cfg, auction, bindings)
+    launch, reset, result = gang_stage_call(bindings, cluster, pods, st, meta.tie_k, cfg,
+                                            meta.n_groups, before)
+    ms, host_ms = launch_ms(launch, reset, 10, torch)
+    c_args = cpu_args((pods, *before[:2], before[4], *before[2:4]), torch)
+    want = auction.gang_post_pass_plain(*c_args, meta.n_groups)
+    err = check_equal(f"auction_gang ({shape})", result(), want, torch)
+    dropped = want[3]
+    if bool(dropped.any()) != drops:
+        raise AssertionError(f"auction_gang ({shape}): {int(dropped.sum())} pods dropped")
+    plain_ms = time_plain(lambda: auction.gang_post_pass_plain(*c_args, meta.n_groups), torch)
+    p = pods.req.shape[0]
+    d, nodes = dropped_on(before[0], dropped, torch)
+    b = bound(*gang_need(pods, d, nodes))
     return {"name": "auction_gang", "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1], "max_abs_err": err, "library_ms": None,
             "stage_of": "auction_loop", "dropped": d, "nodes": nodes,
@@ -3811,7 +3917,7 @@ def gang_row(snap, meta, cfg, shape, auction, bindings, torch) -> dict:
                             f"{meta.n_groups} gangs, {d} dropped pods on {nodes} nodes"}
 
 
-def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, card) -> tuple:
+def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, card) -> list:
     """bench.py's c5 at full width (see C5): TorchBatchScheduler(mode=
     "auto") on 50,000 nodes, a warm-up batch and C5_TIMED batches of
     10,000 pods in 100 gangs under fresh names, nothing assumed; each batch
@@ -3823,8 +3929,11 @@ def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, 
     the launch, card == CPU, the usage bit for bit) and the scarcity step
     (C5_SCARCE nodes: the full solve completes no gang, the admission
     retry's solves on the auction route, names == the port on the CPU).
-    Returns the gang stage's summary row at c5 with drops and the phase's
-    auction_loop launches."""
+    Returns the summary rows of the auction's tail stages alone, each with
+    the launches of the phase's loops that ran it at its shape: the reasons
+    stage at G (the last c5 batch) and S200 (the scarcity step's full
+    solve), the gang stage at G0 (the last c5 batch: no drop), G (the drops
+    step) and S200."""
     t0 = time.perf_counter()
     sched = TorchBatchScheduler(mode="auto")
     for node in c5_nodes(wrappers, C5[0]):
@@ -3868,6 +3977,13 @@ def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, 
     check_equal("gang: the last batch (card against the plain path on the CPU)",
                 result_fields(sched.last_result, True), result_fields(want, False), torch)
     out["plain_check_s"] = time.perf_counter() - t0
+    # the tail's stages alone at this batch's shape: the reasons (G) and
+    # the gang stage with no drop (G0); launches: the c5 batches' loops
+    # (the drops step's too for the reasons)
+    c5_loops = loops
+    rows = [stage_reasons_row(snap, meta, sched.score_config, "G", auction, bindings, torch),
+            dict(gang_row(snap, meta, sched.score_config, "G0", auction, bindings, torch,
+                          drops=False), shape="G0", launches=c5_loops)]
 
     # drops at width: gangs with an unplaceable member come back incomplete
     # and their placed members are released inside the launch
@@ -3895,8 +4011,9 @@ def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, 
     out["drops"] = {"gangs_with_a_misfit": len(C5_DROP_GANGS), "complete_gangs": whole,
                     "unplaced_gangs": empty, "dropped_pods": int(res.gang_dropped.sum()),
                     "launches": dlaunches["auction_loop"], "usage_equal_cpu": True}
-    row = dict(gang_row(dsnap, dmeta, sched.score_config, "c5 drops", auction, bindings, torch),
-               shape="G")
+    rows[0]["launches"] = c5_loops + dlaunches["auction_loop"]
+    rows.append(dict(gang_row(dsnap, dmeta, sched.score_config, "c5 drops", auction, bindings,
+                              torch), shape="G", launches=dlaunches["auction_loop"]))
 
     # scarcity: the full solve completes no gang, so the admission retry
     # re-solves gang prefixes on the auction route
@@ -3919,6 +4036,15 @@ def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, 
         full = s.metas[0]
         if full.route != "auction":
             raise AssertionError(f"gang/scarcity ({dev}): route {full.route}")
+        if dev == "cuda":
+            # the full solve's snapshot (nothing assumed: the same state):
+            # the tail's stages alone at S200, with the step's launches
+            ssnap, smeta = s.encode_pending(spods)
+            rows.append(dict(stage_reasons_row(ssnap, smeta, s.score_config, "S200", auction,
+                                               bindings, torch),
+                             launches=slaunches["auction_loop"]))
+            rows.append(dict(gang_row(ssnap, smeta, s.score_config, "S200", auction, bindings,
+                                      torch), shape="S200", launches=slaunches["auction_loop"]))
     if names_of["cuda"] != names_of["cpu"]:
         raise AssertionError("gang/scarcity: card and CPU names differ")
     whole, empty = gang_groups(spods, names_of["cuda"])
@@ -3928,10 +4054,10 @@ def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, 
                        "complete_gangs": whole, "placed": sum(n is not None
                                                               for n in names_of["cuda"]),
                        "names_equal_cpu": True}
-    out["gang_stage"] = row
+    out["tail_stages"] = rows
     out["auction_loop_launches"] = loops
     emit(out)
-    return row, loops
+    return rows
 
 
 def recording(cls):

@@ -6,6 +6,7 @@
     python3 kernel_ab.py residents OTHER_CSRC_DIR [SHAPE ...]
     python3 kernel_ab.py interpod OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
     python3 kernel_ab.py family OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
+    python3 kernel_ab.py tail OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
 
 KERNEL and its shapes (the first is the default):
 
@@ -40,6 +41,27 @@ KERNEL and its shapes (the first is the default):
                   P  the preferred-affinity variant's (pref)
                   WIDE  chip_smoke.wide_family_snapshot's batch at 65,536
                      padded nodes (all three entries)
+  tail            the auction's tail stages alone, each on its batch's
+                  state after the loop (AuctionRun.reasons_stage /
+                  gang_stage after AuctionRun.load), each shape named
+                  (default all):
+                  reasons/B  SchedulingBasic/5000Nodes' measured batch
+                  reasons/T  TopologySpreading/5000Nodes' (spread rows)
+                  reasons/A  SchedulingPodAntiAffinity/5000Nodes' (terms)
+                  reasons/N  the north star's first batch (65,536 padded
+                     nodes, 16,384 padded pods)
+                  reasons/G  bench.py c5's first batch (100 gangs, 32
+                     padded classes)
+                  reasons/S200  the c5 batch onto 200 nodes (the gang
+                     phase's scarcity step, its full solve)
+                  gang/PG    the parity phase's fractional gang batch
+                  gang/G     c5 with three gangs given an unplaceable
+                     member (the gang phase's drops step)
+                  gang/G0    c5's first batch (every gang complete: no drop)
+                  gang/E0    the same launch with no gang (n_groups 0): the
+                     launch's start and last barrier alone, the floor
+                  gang/S200  the scarcity step's full solve (no gang
+                     complete: every placed pod drops)
   auction         B  the whole round loop of SchedulingBasic/5000Nodes'
                      measured batch (8,192 padded nodes, 1,024 pods)
                   T  TopologySpreading/5000Nodes' measured batch (the spread
@@ -126,6 +148,13 @@ change, other, each result equal to the plain version
 (interpod_repair_plain; the plain family preps), the card alone behind a
 spin and the host clock (chip_smoke.launch_ms), one JSON line a shape;
 `family` also counts each call's device operations (torch.profiler).
+`tail` does the same with each tree's auction_loop library: the state
+each shape's stage starts from comes from the change side's loop launch
+without gangs (the rounds and the reasons), each tree's stage alone runs on it
+(the other tree's AuctionRun with its own statics), other, change, change,
+other, each result equal to the plain twin on CPU copies
+(failure_reasons_plain, gang_post_pass_plain), with the bound and the
+shape's class and drop counts in its JSON line.
 """
 
 from __future__ import annotations
@@ -138,6 +167,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import chip_smoke
 
@@ -210,6 +240,26 @@ SHAPES = {
         "P": (50, "the preferred-affinity variant's measured batch, entry pref"),
         "WIDE": (50, "the wide family batch at 65,536 padded nodes (hostname-keyed spread "
                      "rows), entries spread, terms and pref"),
+    },
+    "tail": {
+        # in an order that builds each 50,000-node cluster once
+        "reasons/B": (20, "SchedulingBasic/5000Nodes measured batch, the reasons stage"),
+        "reasons/T": (20, "TopologySpreading/5000Nodes measured batch, the reasons stage"),
+        "reasons/A": (20, "SchedulingPodAntiAffinity/5000Nodes measured batch, the reasons "
+                          "stage"),
+        "reasons/N": (20, "the north star's first batch (65,536 padded nodes, 16,384 padded "
+                          "pods), the reasons stage"),
+        "reasons/G": (20, "bench.py c5's first batch (65,536 padded nodes, 100 gangs), the "
+                          "reasons stage"),
+        "gang/G0": (20, "bench.py c5's first batch (every gang complete), the gang stage"),
+        "gang/E0": (20, "the same launch with no gang (n_groups 0: the stage skipped, the "
+                        "launch's start and last barrier alone)"),
+        "reasons/S200": (20, "the c5 batch onto 200 nodes (the scarcity step's full solve), "
+                             "the reasons stage"),
+        "gang/S200": (20, "the c5 batch onto 200 nodes (no gang complete), the gang stage"),
+        "gang/PG": (20, "the parity phase's fractional gang batch, the gang stage"),
+        "gang/G": (20, "bench.py c5 with three gangs given an unplaceable member (the drops "
+                       "step), the gang stage"),
     },
     "auction": {
         "B": (10, "SchedulingBasic/5000Nodes measured batch, the whole round loop"),
@@ -296,6 +346,18 @@ def make_case(kernel: str, shape: str, torch):
     raise ValueError(f"no case for kernel {kernel}")
 
 
+# chip_smoke's builders of the auction batches' shapes: (scheduler, snapshot, meta)
+AUCTION_BUILDS = {
+    "B": chip_smoke.basic_snapshot, "T": chip_smoke.spread_snapshot,
+    "A": lambda w, t: chip_smoke.measured_snapshot(w, t, "pod_anti_affinity_objects",
+                                                   chip_smoke.ANTI),
+    "P": lambda w, t: chip_smoke.measured_snapshot(w, t, "preferred_affinity_objects",
+                                                   chip_smoke.PREFERRED),
+    "N": chip_smoke.north_snapshot, "G": chip_smoke.c5_snapshot,
+    "GD": chip_smoke.c5_drops_snapshot, "S200": chip_smoke.c5_scarce_snapshot,
+}
+
+
 def auction_case(shape: str, torch):
     """(cluster, pods, st, tie_k, cfg, want, n) of an auction shape: the
     auction's prep of the shape's snapshot on the card and the plain
@@ -304,15 +366,7 @@ def auction_case(shape: str, torch):
     from kubernetes_tpu_torch.ops import auction
     from kubernetes_tpu_torch.testing import wrappers
 
-    build = {
-        "B": chip_smoke.basic_snapshot, "T": chip_smoke.spread_snapshot,
-        "A": lambda w, t: chip_smoke.measured_snapshot(w, t, "pod_anti_affinity_objects",
-                                                       chip_smoke.ANTI),
-        "P": lambda w, t: chip_smoke.measured_snapshot(w, t, "preferred_affinity_objects",
-                                                       chip_smoke.PREFERRED),
-        "N": chip_smoke.north_snapshot, "G": chip_smoke.c5_snapshot,
-    }[shape]
-    sched, snap, meta = build(wrappers, TorchBatchScheduler)
+    sched, snap, meta = AUCTION_BUILDS[shape](wrappers, TorchBatchScheduler)
     if meta.route != "auction":
         raise AssertionError(f"shape {shape} took route {meta.route}")
     cfg = sched.score_config
@@ -1114,12 +1168,99 @@ def family_row(shape: str, trees: dict, torch) -> dict:
             "z": list(meta.topo_split), "equal_plain": True}
 
 
+def tail_snapshot(name: str, torch) -> tuple:
+    """(snapshot, meta, score config) of a tail shape's batch on the card."""
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_CONFIG
+    from kubernetes_tpu_torch.testing import wrappers
+
+    if name == "PG":
+        return (*chip_smoke.fractional_gang_snapshot(wrappers, torch), DEFAULT_SCORE_CONFIG)
+    sched, snap, meta = AUCTION_BUILDS[name](wrappers, TorchBatchScheduler)
+    if meta.route != "auction":
+        raise AssertionError(f"tail shape {name} took route {meta.route}")
+    return snap, meta, sched.score_config
+
+
+_TAIL_SNAP = {}   # the last tail snapshot built (G serves reasons/G and gang/G0)
+
+
+def tail_row(shape: str, trees: dict, torch) -> dict:
+    """A tail stage alone at a shape: each tree's launch on the same state,
+    other, change, change, other, each result equal to the plain twin's on
+    CPU copies; the card alone behind a spin and the host clock
+    (chip_smoke.launch_ms)."""
+    from kubernetes_tpu_torch.kernels import bindings
+    from kubernetes_tpu_torch.ops import auction
+
+    stage, key = shape.split("/")
+    name = {"G": "GD", "G0": "G", "E0": "G"}.get(key, key) if stage == "gang" else key
+    if name not in _TAIL_SNAP:
+        _TAIL_SNAP.clear()
+        _TAIL_SNAP[name] = tail_snapshot(name, torch)
+    snap, meta, cfg = _TAIL_SNAP[name]
+    if key == "E0":
+        meta = SimpleNamespace(features=meta.features, topo_split=meta.topo_split,
+                               tie_k=meta.tie_k, n_groups=0)
+    iters, workload = SHAPES["tail"][shape]
+    row = {"kernel": "tail", "shape": shape, "workload": workload, "launches_a_timing": iters}
+
+    def statics_of(b):   # st as tree b's statics
+        return (lambda st: st) if b is bindings else (
+            lambda st: other_statics(st, b.__name__.split(".")[0]))
+
+    # the state the stage starts from: the change side's loop launch
+    change = trees["change"]
+    if stage == "reasons":
+        cluster, pods, st, final, want = chip_smoke.final_state(
+            snap, meta, cfg, auction, change, torch, statics_of(change))
+        want = (want,)
+        need = chip_smoke.reasons_need(cluster, pods, st, *final, torch=torch)
+
+        def call(b, st_b):
+            return chip_smoke.reasons_stage_call(b, cluster, pods, st_b, final)
+    else:
+        cluster, pods, st, before = chip_smoke.gang_inputs(snap, meta, cfg, auction, change,
+                                                           statics_of(change))
+        c_args = chip_smoke.cpu_args((pods, *before[:2], before[4], *before[2:4]), torch)
+        want = auction.gang_post_pass_plain(*c_args, meta.n_groups)
+        d, nodes = chip_smoke.dropped_on(before[0], want[3], torch)
+        need = chip_smoke.gang_need(pods, d, nodes)
+        row["dropped"] = d
+
+        def call(b, st_b):
+            return chip_smoke.gang_stage_call(b, cluster, pods, st_b, meta.tie_k, cfg,
+                                              meta.n_groups, before)
+    calls = {which: call(b, statics_of(b)(st)) for which, b in trees.items()}
+    card = {"other": [], "change": []}
+    host = {"other": [], "change": []}
+    for which in ("other", "change", "change", "other"):
+        launch, reset, result = calls[which]
+        reset()
+        launch()
+        chip_smoke.check_equal(f"tail {shape} ({which})", result(), want, torch)
+        ms, host_ms = chip_smoke.launch_ms(launch, reset, iters, torch)
+        chip_smoke.check_equal(f"tail {shape} ({which}, timed)", result(), want, torch)
+        card[which].append(ms)
+        host[which].append(host_ms)
+    n = int(cluster.allocatable.shape[0])
+    row.update({
+        "card_ms": card, "median_card_ms": {k: statistics.median(v) for k, v in card.items()},
+        "host_ms": host, "median_host_ms": {k: statistics.median(v) for k, v in host.items()},
+        "bound_ms": chip_smoke.bound(*need), "padded_nodes": n,
+        "padded_pods": int(pods.req.shape[0]), "gangs": int(meta.n_groups),
+        "classes": {"joint": int(st.jspec.shape[0]), "spec": int(st.s_reps.shape[0]),
+                    "constraint": int(st.k_reps.shape[0])},
+        "cluster_blocks_threads": list(bindings.scan_shape(n)), "equal_plain": True})
+    return row
+
+
 def pair_ab(kernel: str, shapes, other_dir: Path, out_dir: Path, torch, change_dir=None) -> list:
-    """`interpod` (auction_loop's library on each side) or `family`
-    (family_prep's) at each shape, one JSON row a shape."""
-    names = ["auction_loop"] if kernel == "interpod" else ["family_prep"]
+    """`interpod` or `tail` (auction_loop's library on each side) or
+    `family` (family_prep's) at each shape, one JSON row a shape."""
+    names = ["family_prep"] if kernel == "family" else ["auction_loop"]
     trees, reports = tree_pair(names, other_dir, out_dir, change_dir)
-    row_of = interpod_row if kernel == "interpod" else family_row
+    row_of = {"interpod": interpod_row, "family": family_row, "tail": tail_row}[kernel]
     rows = []
     for shape in shapes:
         row = row_of(shape, trees, torch)
@@ -1187,12 +1328,13 @@ def main() -> int:
         change_dir = Path(sys.argv[k + 1]).resolve()
         del sys.argv[k : k + 2]
     many = len(sys.argv) > 1 and sys.argv[1] in ("statics", "preempt", "residents", "interpod",
-                                                "family")
+                                                "family", "tail")
     if len(sys.argv) < 3 or sys.argv[1] not in SHAPES or (len(sys.argv) > 4 and not many):
         print(__doc__, file=sys.stderr)
         return 2
     kernel, other_dir = sys.argv[1], Path(sys.argv[2]).resolve()
-    shapes = sys.argv[3:] or ([*SHAPES[kernel]] if kernel in ("residents", "interpod", "family")
+    shapes = sys.argv[3:] or ([*SHAPES[kernel]] if kernel in ("residents", "interpod", "family",
+                                                             "tail")
                                else [next(iter(SHAPES[kernel]))])
     if any(shape not in SHAPES[kernel] for shape in shapes):
         print(f"kernel_ab: {kernel} has shapes {sorted(SHAPES[kernel])}", file=sys.stderr)
@@ -1206,7 +1348,7 @@ def main() -> int:
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     if many:
-        if kernel in ("interpod", "family"):
+        if kernel in ("interpod", "family", "tail"):
             rows = pair_ab(kernel, shapes, other_dir, out_dir, torch, change_dir)
         else:
             run = {"statics": statics_ab, "preempt": preempt_ab, "residents": residents_ab}[kernel]

@@ -76,11 +76,11 @@
 //                flag = rounds < max_rounds && progress && some valid pod
 //                unplaced, an OR over the cluster.
 // After the rounds, in the same launch: the reasons pass (kStageReasons,
-// round_reasons below), one staged filter pass per joint class against the
-// final state, each pod's REASON_* into `reasons`; then, with gangs, the
-// gang post-pass (kStageGang, round_gang below): incomplete gangs release
-// their placed members, their requests subtracted node by node in pod
-// index order.
+// round_reasons below), one node pass for every joint class (32 a pass)
+// against the final state, each pod's REASON_* into `reasons`; then, with
+// gangs, the gang post-pass (kStageGang, round_gang below): incomplete
+// gangs release their placed members, their requests subtracted node by
+// node in pod index order, with no sort when no pod drops.
 // state (i32[3] on the card): rounds executed, the continue flag, the last
 // round's progress.  Every stage entry point of a round returns at once
 // when the flag is down; the reasons pass and the gang stage run whatever
@@ -198,7 +198,8 @@ struct Ctx {
     int32_t* cseen;              // [C + 1] the round a class last had an active pod
     int32_t* perm;               // [P] solve order sorted by bid
     int32_t* perm_idx;           // [P] pod index order sorted by bid
-    int32_t* bfirst;             // [N + 1] each bid's first position in perm
+    int32_t* bfirst;             // [N + 1] each bid's first position in perm; the gang
+                                 // stage's run starts
     int32_t* rtmp;               // [2, P] radix ping-pong
     int32_t* rcnt;               // [2, tiles, kRadix]
     int32_t* rbase;              // [2, tiles, kRadix]
@@ -373,10 +374,21 @@ struct HistSmem {
     int cand;              // ties in the buckets that reach rank cnt
 };
 
+// One of the sorts a radix_sort call runs side by side.
+struct SortSpec {
+    const int32_t* src;   // the initial order (null: the identity)
+    int32_t* out;         // the items stably sorted by key
+    int32_t* tmp;         // [P] ping-pong
+    int32_t* cnt;         // [tiles, kRadix] each tile's digit counts
+    int32_t* base;        // [tiles, kRadix] each tile's first slot of each digit
+};
+
 // A radix sort pass (dynamic shared memory).
 struct RadixSmem {
     int wc[kMaxWarps * kRadix];   // a warp's count of each digit, then its first slot
     int warp_sum[kMaxWarps];
+    SortSpec spec[2];             // the acceptance's two sorts (as an array on the stack
+                                  // they took local memory and the frame grew)
 };
 
 // The spread repair (dynamic shared memory, block 0).
@@ -607,15 +619,6 @@ __device__ inline void class_pass(const Ctx& a, int c, uint32_t rnd, Shared& S, 
 
 // ---- the radix sort --------------------------------------------------------
 
-// One of the sorts a radix_sort call runs side by side.
-struct SortSpec {
-    const int32_t* src;   // the initial order (null: the identity)
-    int32_t* out;         // the items stably sorted by key
-    int32_t* tmp;         // [P] ping-pong
-    int32_t* cnt;         // [tiles, kRadix] each tile's digit counts
-    int32_t* base;        // [tiles, kRadix] each tile's first slot of each digit
-};
-
 // The digit of sorted position s of a tile (kRadix past the items), its
 // lanes' match mask, and this warp's digit counts into R.wc.  Block-wide.
 template <class KeyFn>
@@ -810,12 +813,13 @@ __device__ inline bool round_accept(const Ctx& a, Shared& S, unsigned char* dyn,
     const int n = a.n, r = a.r, p = a.p;
     auto bkey = [&](int i) { return a.bid[i]; };
     const int tiles = (p + (int)blockDim.x - 1) / (int)blockDim.x;
-    SortSpec specs[2] = {
-        {a.order, a.perm, a.rtmp, a.rcnt, a.rbase},
-        {nullptr, a.perm_idx, a.rtmp + p, a.rcnt + (size_t)tiles * kRadix,
-         a.rbase + (size_t)tiles * kRadix},
-    };
-    radix_sort(p, n, 2, specs, bkey, R, team);
+    if (threadIdx.x == 0) {
+        R.spec[0] = SortSpec{a.order, a.perm, a.rtmp, a.rcnt, a.rbase};
+        R.spec[1] = SortSpec{nullptr, a.perm_idx, a.rtmp + p, a.rcnt + (size_t)tiles * kRadix,
+                             a.rbase + (size_t)tiles * kRadix};
+    }
+    __syncthreads();
+    radix_sort(p, n, 2, R.spec, bkey, R, team);
     run_starts(p, a.perm, bkey, a.bfirst, nullptr, 0, team);
 
     // level 0 of the prefix: each 16-row block summed in sequence, over
@@ -1486,48 +1490,81 @@ __device__ inline void round_repairs(const Ctx& a, unsigned char* dyn, const Exa
 
 // ---- the reasons pass ------------------------------------------------------
 //
-// After the loop's flag falls, against the final state (requested, the
-// spread counts and the term bits — before the gang stage below, as the
-// reference names its reasons before its gang post-pass): per joint class, block_eval's pass-1 filter chain for
-// its spec class's representative (static row, resource fit) and its
-// constraint class's (hard spread rows with their critical-path minima from
-// block_spread_pod, the inter-pod words from block_interpod_pod), the
-// stage anys OR-merged over the cluster; the first stage that empties the
-// set names the class's reason, and a class with survivors at every stage
-// parked on contention (a resource reason), as class_reason does
-// (kubernetes_tpu/ops/auction.py:797-818).  Every class is evaluated: a
-// padded pod takes its class's reason too.  No host port stage: the
-// auction takes no batch with in-batch host ports.
+// Replaces: kubernetes_tpu/ops/auction.py:765-823 (inside
+// auction_assign_jit, :855), after the loop's flag falls, against the
+// final state (requested, the spread counts and the term bits — before the
+// gang stage below, as the reference names its reasons before its gang
+// post-pass): per joint class, the stage anys of block_eval's pass-1
+// filter chain for its spec class's representative (static row, resource
+// fit) and its constraint class's (hard spread rows with their
+// critical-path minima, the inter-pod words); the first stage that empties
+// the set names the class's reason, and a class with survivors at every
+// stage parked on contention (a resource reason), as class_reason does
+// (:797-818).  Every class is evaluated: a padded pod takes its class's
+// reason too.  No host port stage: the auction takes no batch with
+// in-batch host ports.
+//
+// Bound on this card: allocatable and the final usage (8 R bytes a node),
+// each spec class's static row (a byte a node) and its representative's
+// requests read once; with the spread family each constraint class's hard
+// rows (eligible, value and count: 9 bytes a node a row), with the
+// inter-pod family the nodes' present, blocked and key words (12 W bytes
+// a node) and each constraint class's pod words; each pod's class and
+// assignment read and its reason written (12 bytes a pod).  A few flops a
+// node and class: microseconds of the card's memory rate
+// (chip_smoke.reasons_need).  What a design pays is its cluster barriers
+// and the passes over the nodes.
+//
+// Design, over the cluster: a class's flags are ORs of per-node bits, so
+// any order of the nodes gives the same flags.  The joint classes go in
+// groups of 32, a class a bit of a word.  A group's distinct spec classes
+// and distinct constraint classes (at most 32 each, __match_any_sync over
+// its jspec / jcons) are staged in the dynamic shared memory once: the
+// spec classes' representative requests, the constraint classes' spread
+// rows and term words (pod_spread_rows, pod_terms_words), and with the
+// spread family each hard row's block minimum, merged over the cluster by
+// one pull through distributed shared memory (one cluster barrier a group;
+// the minima double-buffered, so no second barrier).  Then one pass over
+// the nodes: for its node a thread ORs the group's class mask of each spec
+// class whose static row holds (static) and whose requests fit
+// (resources), then, where some class fits, of each constraint class
+// whose hard spread rows pass (spread) and then its inter-pod test; a
+// class's spread and inter-pod bits are those masks ANDed with the fit.
+// The four words reach the block by __reduce_or_sync and one shared
+// atomicOr a warp.  After the last group one cluster barrier, and each
+// block pulls every block's words (4 a group) through DSMEM, names each
+// class's reason and writes its pods'.  Cluster barriers: one a group
+// with the spread family, and one for the flags, whatever c_dim is (up to
+// 2,048 classes; past them, one more a batch of 2,048).
 
-// Class c's stage flags (Step.flags bits 0 static, 1 resources, 3 spread,
-// 5 inter-pod) against the carries.  Ends on a cluster barrier.
-__device__ inline int class_flags(const Ctx& a, int c, Shared& S, ExactTeam& team)
+constexpr int kReasonGroup = 32;     // joint classes of a node pass: a bit each
+constexpr int kReasonWords = 256;    // flag words merged at once: 4 a group
+
+// The reasons pass's dynamic shared memory (`flags` and `bmin` are read by
+// the other blocks of the cluster).
+struct ReasonsSmem {
+    float req[kReasonGroup * kMaxR];        // the group's spec classes' representative requests
+    PodSpread ps[kReasonGroup];             // its constraint classes' spread rows
+    PodTerms pt[kReasonGroup];              // and term words
+    float bmin[2][kReasonGroup * kMaxMC];   // this block's minimum of each hard row
+    uint32_t spec_mask[kReasonGroup];       // the group's joint classes of each spec class
+    uint32_t cons_mask[kReasonGroup];       // ... of each constraint class
+    int spec_of[kReasonGroup];              // the group's distinct spec classes
+    int cons_of[kReasonGroup];              // ... constraint classes
+    int n_spec, n_cons;
+    uint32_t flags[kReasonWords];           // this block's stage anys: word 4 g + f, bit c % 32
+    uint32_t all[kReasonWords];             // the cluster's
+};
+static_assert(sizeof(ReasonsSmem) <= kDynSmem, "the reasons pass fits the launch's buffers");
+
+// Joint class c's flags (Step.flags bits 0 static, 1 resources, 3 spread,
+// 5 inter-pod) in a batch's words: group c / 32, bit c % 32.
+__device__ __forceinline__ int class_flags_of(const uint32_t* words, int c)
 {
-    const int s = min(max(a.jspec[c], 0), a.cs_dim - 1);
-    const int rep = a.s_reps[s];
-    for (int t = threadIdx.x; t < a.r; t += blockDim.x) S.req[t] = a.pod_req[(size_t)rep * a.r + t];
-    __syncthreads();
-    const int k_rep = a.k_reps[min(max(a.jcons[c], 0), a.cc_dim - 1)];
-    if (a.sp.on) block_spread_pod(a.sp, a.n, k_rep, S.ps, S.sc, team);
-    if (a.tm.on) block_interpod_pod(a.tm, k_rep, S.pt);
-    const uint8_t* srow = a.sfeas_s + (size_t)s * a.n;
-    const bool sp_hard = a.sp.on && S.ps.any_hard;
-    Step st = step_zero();
-    for (int nd = team.first(); nd < team.end(a.n); nd += team.stride()) {
-        if (!srow[nd]) continue;
-        st.flags |= 1;
-        if (!node_fits(a.requested + (size_t)nd * a.r, a.alloc + (size_t)nd * a.r, S.req, a.r)) {
-            continue;
-        }
-        st.flags |= 2;
-        if (sp_hard && !spread_ok(a.sp, S.ps, a.n, nd)) continue;
-        st.flags |= 8;
-        if (a.tm.on && !interpod_ok(a.tm, S.pt, nd)) continue;
-        st.flags |= 32;
-    }
-    const int flags = team.reduce_step(st, S.sc).flags;
-    team.par ^= 1;
-    return flags;
+    const uint32_t* w = words + 4 * (c / kReasonGroup);
+    const int b = c % kReasonGroup;
+    return (int)((w[0] >> b) & 1u) | (int)((w[1] >> b) & 1u) << 1
+        | (int)((w[2] >> b) & 1u) << 3 | (int)((w[3] >> b) & 1u) << 5;
 }
 
 // class_reason's code of a class's stage flags.
@@ -1540,20 +1577,207 @@ __device__ __forceinline__ int reason_of(int flags)
         : kReasonInterpod;
 }
 
-// Every joint class's reason into reason_c, then each pod's: REASON_NONE
-// when placed, else its class's.  Ends on a cluster barrier.
-__device__ inline void round_reasons(const Ctx& a, Shared& S, ExactTeam& team)
+// The distinct spec and constraint classes of the joint classes [c0, c0 +
+// size): warp 0 matches their indices; each distinct class gets a slot,
+// its index and the mask of its joint classes.  Block-wide.
+__device__ inline void group_classes(const Ctx& a, int c0, int size, ReasonsSmem& R)
 {
-    for (int c = 0; c < a.c_dim; ++c) {
-        const int flags = class_flags(a, c, S, team);
-        if (team.rank() == 0) a.reason_c[c] = reason_of(flags);
+    if (threadIdx.x < 32) {
+        const int lane = (int)threadIdx.x;
+        const bool in = lane < size;
+        const int s = in ? min(max(a.jspec[c0 + lane], 0), a.cs_dim - 1) : -1;
+        const int k = in ? min(max(a.jcons[c0 + lane], 0), a.cc_dim - 1) : -1;
+        const unsigned below = (1u << lane) - 1u;
+        const unsigned s_peers = __match_any_sync(0xffffffffu, s);
+        const unsigned k_peers = __match_any_sync(0xffffffffu, k);
+        const bool s_lead = in && __ffs(s_peers) - 1 == lane;
+        const bool k_lead = in && __ffs(k_peers) - 1 == lane;
+        const unsigned s_leads = __ballot_sync(0xffffffffu, s_lead);
+        const unsigned k_leads = __ballot_sync(0xffffffffu, k_lead);
+        if (s_lead) {
+            const int u = __popc(s_leads & below);
+            R.spec_mask[u] = s_peers;
+            R.spec_of[u] = s;
+        }
+        if (k_lead) {
+            const int v = __popc(k_leads & below);
+            R.cons_mask[v] = k_peers;
+            R.cons_of[v] = k;
+        }
+        if (lane == 0) {
+            R.n_spec = __popc(s_leads);
+            R.n_cons = __popc(k_leads);
+        }
+    }
+    __syncthreads();
+}
+
+// The group's preps: its spec classes' representative requests, its
+// constraint classes' rows and words (a thread a class), and with the
+// spread family each hard row's minimum over the cluster — this block's
+// into bmin[par], one cluster barrier, every block's pulled.  Block-wide.
+__device__ inline void group_preps(const Ctx& a, int par, ReasonsSmem& R, Shared& S,
+                                   const ExactTeam& team)
+{
+    const int r = a.r, ns = R.n_spec, nc = R.n_cons;
+    for (int e = threadIdx.x; e < ns * r; e += blockDim.x) {
+        R.req[e] = a.pod_req[(size_t)a.s_reps[R.spec_of[e / r]] * r + e % r];
+    }
+    if ((int)threadIdx.x < nc) {
+        const int k_rep = a.k_reps[R.cons_of[threadIdx.x]];
+        if (a.sp.on) pod_spread_rows(a.sp, k_rep, R.ps[threadIdx.x]);
+        if (a.tm.on) pod_terms_words(a.tm, k_rep, R.pt[threadIdx.x]);
+    }
+    __syncthreads();
+    if (!a.sp.on) return;
+    const int mc = a.sp.mc;
+    for (int e = 0; e < nc * mc; ++e) {
+        const PodSpread& ps = R.ps[e / mc];
+        const int j = e % mc;
+        if (!ps.enforced[j]) continue;   // uniform: read from shared memory
+        const float m = block_spread_min(a.sp, a.n, team.first(), team.stride(), a.n, ps.c[j],
+                                         S.sc);
+        if (threadIdx.x == 0) R.bmin[par][(e / mc) * kMaxMC + j] = m;
     }
     team.sync();
-    for (int i = team.rank(); i < a.p; i += team.size()) {
-        a.reasons[i] = a.assigned[i] >= 0
-            ? kReasonNone : a.reason_c[min(max(a.class_id[i], 0), a.c_dim - 1)];
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int e = threadIdx.x; e < nc * mc; e += blockDim.x) {
+        PodSpread& ps = R.ps[e / mc];
+        const int j = e % mc;
+        if (!ps.enforced[j]) continue;
+        const int o = (e / mc) * kMaxMC + j;
+        float m = kBig;
+        for (unsigned b = 0; b < team.size_; ++b) {
+            m = fminf(m, *cluster.map_shared_rank(&R.bmin[par][o], b));
+        }
+        ps.minm[j] = spread_min_final(a.sp, ps.c[j], m);
     }
-    team.sync();
+    __syncthreads();
+}
+
+// The group's pass over this block's nodes: its four class words OR-ed
+// into the block's words at `w` (warp reductions, one shared atomicOr a
+// warp and word).  kR > 0: a node's usage and allocatable rows are read
+// once into registers (the batch's r <= kR, the rows padded with zero
+// requests, which every test passes); 0: read at each spec class's test
+// (an L1 hit after the first).
+template <int kR>
+__device__ inline void group_nodes(const Ctx& a, uint32_t* w, const ReasonsSmem& R,
+                                   const ExactTeam& team)
+{
+    const int n = a.n, r = a.r, ns = R.n_spec, nc = R.n_cons;
+    uint32_t hard = 0u;   // the constraint classes with a hard spread row
+    if (a.sp.on) {
+        for (int v = 0; v < nc; ++v) hard |= R.ps[v].any_hard ? 1u << v : 0u;
+    }
+    uint32_t f_static = 0u, f_res = 0u, f_spread = 0u, f_inter = 0u;
+    for (int nd = team.first(); nd < n; nd += team.stride()) {
+        const float* rq = a.requested + (size_t)nd * r;
+        const float* cap = a.alloc + (size_t)nd * r;
+        float rq_r[kR > 0 ? kR : 1], cap_r[kR > 0 ? kR : 1];
+        if constexpr (kR > 0) {
+#pragma unroll
+            for (int rr = 0; rr < kR; ++rr) {
+                rq_r[rr] = rr < r ? rq[rr] : 0.0f;
+                cap_r[rr] = rr < r ? cap[rr] : 0.0f;
+            }
+        }
+        uint32_t stat = 0u, fit = 0u;
+        for (int u = 0; u < ns; ++u) {
+            if (!a.sfeas_s[(size_t)R.spec_of[u] * n + nd]) continue;
+            stat |= R.spec_mask[u];
+            const float* req = R.req + u * r;
+            bool fits;
+            if constexpr (kR > 0) {
+                fits = true;
+#pragma unroll
+                for (int rr = 0; rr < kR; ++rr) {
+                    const float q = rr < r ? req[rr] : 0.0f;
+                    if (q > 0.0f && !(add(rq_r[rr], q) <= cap_r[rr])) fits = false;
+                }
+            } else {
+                fits = node_fits(rq, cap, req, r);
+            }
+            if (fits) fit |= R.spec_mask[u];
+        }
+        f_static |= stat;
+        f_res |= fit;
+        if (!fit) continue;
+        uint32_t spread = 0u, inter = 0u;
+        for (int v = 0; v < nc; ++v) {
+            const uint32_t m = R.cons_mask[v];
+            if (!(m & fit)) continue;
+            if (((hard >> v) & 1u) && !spread_ok(a.sp, R.ps[v], n, nd)) continue;
+            spread |= m;
+            if (a.tm.on && !interpod_ok(a.tm, R.pt[v], nd)) continue;
+            inter |= m;
+        }
+        f_spread |= fit & spread;
+        f_inter |= fit & inter;
+    }
+    f_static = __reduce_or_sync(0xffffffffu, f_static);
+    f_res = __reduce_or_sync(0xffffffffu, f_res);
+    f_spread = __reduce_or_sync(0xffffffffu, f_spread);
+    f_inter = __reduce_or_sync(0xffffffffu, f_inter);
+    if ((threadIdx.x & 31) == 0) {
+        if (f_static) atomicOr(&w[0], f_static);
+        if (f_res) atomicOr(&w[1], f_res);
+        if (f_spread) atomicOr(&w[2], f_spread);
+        if (f_inter) atomicOr(&w[3], f_inter);
+    }
+}
+
+constexpr int kRegR = 4;   // resources a node pass keeps in registers
+
+// Every joint class's reason into reason_c (block 0), then each pod's:
+// REASON_NONE when placed, else its class's.  Ends after the pods' writes
+// (no cluster barrier: the caller's next one publishes them, and no block
+// may leave or rewrite its flag words before it).
+__device__ inline void round_reasons(const Ctx& a, Shared& S, unsigned char* dyn,
+                                     const ExactTeam& team)
+{
+    ReasonsSmem& R = *(ReasonsSmem*)dyn;
+    cg::cluster_group cluster = cg::this_cluster();
+    constexpr int kBatch = kReasonWords / 4 * kReasonGroup;   // classes merged at once
+    int par = 0;
+    for (int base = 0; base < a.c_dim; base += kBatch) {
+        const int end = min(a.c_dim, base + kBatch);
+        const int words = 4 * ((end - base + kReasonGroup - 1) / kReasonGroup);
+        if (base > 0) team.sync();   // the last batch's words pulled by every block
+        for (int e = threadIdx.x; e < words; e += blockDim.x) R.flags[e] = 0u;
+        for (int c0 = base; c0 < end; c0 += kReasonGroup) {
+            group_classes(a, c0, min(kReasonGroup, end - c0), R);
+            group_preps(a, par, R, S, team);
+            par ^= 1;
+            uint32_t* w = R.flags + 4 * ((c0 - base) / kReasonGroup);
+            if (a.r <= kRegR) {
+                group_nodes<kRegR>(a, w, R, team);
+            } else {
+                group_nodes<0>(a, w, R, team);
+            }
+            __syncthreads();   // the group's tables read before the next group's
+        }
+        team.sync();
+        for (int e = threadIdx.x; e < words; e += blockDim.x) {
+            uint32_t x = 0u;
+            for (unsigned b = 0; b < team.size_; ++b) x |= *cluster.map_shared_rank(&R.flags[e], b);
+            R.all[e] = x;
+        }
+        __syncthreads();
+        if (team.rank_ == 0) {
+            for (int c = base + threadIdx.x; c < end; c += blockDim.x) {
+                a.reason_c[c] = reason_of(class_flags_of(R.all, c - base));
+            }
+        }
+        for (int i = team.rank(); i < a.p; i += team.size()) {
+            const int c = min(max(a.class_id[i], 0), a.c_dim - 1);
+            if (a.assigned[i] >= 0) {
+                if (base == 0) a.reasons[i] = kReasonNone;
+            } else if (c >= base && c < end) {
+                a.reasons[i] = reason_of(class_flags_of(R.all, c - base));
+            }
+        }
+    }
 }
 
 // ---- the gang post-pass ----------------------------------------------------
@@ -1566,78 +1790,275 @@ __device__ inline void round_reasons(const Ctx& a, Shared& S, ExactTeam& team)
 // scatter-add, in pod index order), and it takes assigned -1, bid score
 // -inf and REASON_GANG.  It runs after the reasons pass on the final state,
 // so the other reasons are named before the release, as in the reference.
-// Until this stage, the port ran the masks as some ten torch ops and the
-// release as kernel `auction_release` (one thread a node looping over all
-// P pods: O(N x P), 65,536 x 16,384 at the north star's padded shape).
 //
-// Bound on this card: each pod's group, assignment and flag read, the
-// dropped pods' requests read and their nodes' two usage rows read and
-// written once; microseconds of the card's memory rate.  What the design
-// pays is the cluster barriers and the release sort's passes.
+// Bound on this card: each pod's group, assignment and validity read and
+// its flag written (10 bytes a pod), and of the D dropped pods their two
+// request rows read (8 R bytes), their assignment, score and reason
+// written (12 bytes) and their nodes' two usage rows read and written (16
+// R bytes a node); one subtraction a dropped pod, resource and row.
+// Microseconds of the card's memory rate; what a design pays is its
+// cluster barriers and, when pods drop, ordering them by node.
 //
-// Design, over the cluster: the flags are plain int stores of 1 into a
-// [G] scratch (order-free); the dropped pods, stably radix-sorted by node
-// in pod index order (the dropped pods' node, N for any other; the bid
-// sorts' buffers, free after the last round), give each node group's run;
-// one thread a node group walks its run in pod index order and subtracts
-// with __fsub_rn — the reference's order, so the usage equals the plain
-// version's bit for bit past float32's exact range; no atomics.  O(P + N)
-// a pass.  G == 0 skips the stage: no barrier on a gang-free batch.
+// Design, over the cluster (each block its pod range [b P / G, (b + 1) P
+// / G), ceil): the [G] flags, 0 at the launch's entry, take plain stores
+// of 1 from the unplaced members (order-free) before a cluster barrier
+// the launch makes anyway (the start's when the stage runs alone, the one
+// after the reasons in the loop's launch); each block writes its pods'
+// gang_dropped and counts its dropped pods, and pushes the count into
+// every block's shared memory; one cluster barrier, after which every
+// block knows D and its offset, and the markers clear the flags (every
+// block has read them) for the next launch.
+//   D == 0    the stage ends: no sort, no release (every c5 batch whose
+//             gangs all complete).
+//   D ≤ kGangCap (and node and pod indices in 32 bits)
+//             each block writes its dropped pods, in pod index order at
+//             its offset (a block scan), as (node << bits(P)) | pod into
+//             block 0's shared memory through DSMEM; one cluster barrier;
+//             the other blocks leave, and block 0 sorts the keys (a bitonic
+//             network: the key orders by node, then pod index; up to a key
+//             a thread, the pairs within a warp by shuffles and the wider
+//             ones through shared memory), and one thread a (node run,
+//             resource) subtracts the run in pod index order with
+//             __fsub_rn; then the dropped pods' rewrites.
+//   above     the dropped pods compacted the same way into `perm`, stably
+//             radix-sorted by node over the cluster (radix_sort on D items,
+//             key N - 1: one pass up to 256 nodes), their nodes listed and
+//             each node's run start marked, then the same walk a (node,
+//             resource) over the cluster.
+// The subtraction order is the reference's, so the usage equals the plain
+// version's bit for bit past float32's exact range; no atomics on floats.
+// No block reads another's shared memory after the stage's last cluster
+// barrier, so the launch ends without one: with no drop the stage costs
+// one cluster barrier of its own.  G == 0 skips the stage: no barrier on a
+// gang-free batch.
 
-__device__ inline void round_gang(const Ctx& a, unsigned char* dyn, const ExactTeam& team)
+constexpr int kGangCap = 8192;   // dropped pods block 0 sorts in shared memory
+
+// The gang stage's dynamic shared memory (`count` and, in block 0, `keys`
+// are written by the other blocks of the cluster).
+struct GangSmem {
+    int count[kMaxCluster];     // each block's dropped pods
+    int warp_sum[kMaxWarps];
+    uint32_t keys[kGangCap];    // block 0: (node << bits(P)) | pod of every dropped pod
+};
+static_assert(sizeof(GangSmem) <= kDynSmem, "the gang stage fits the launch's buffers");
+
+// Bits to hold 0 .. x (x >= 0).
+__device__ __forceinline__ int bits_to_hold(int x)
 {
-    const int p = a.p, n = a.n, r = a.r, g_dim = a.n_groups;
-    auto grp = [&](int i) { return min(max(a.group_id[i], 0), g_dim - 1); };
-    for (int g = team.rank(); g < g_dim; g += team.size()) a.gang_flags[g] = 0;
-    team.sync();
-    for (int i = team.rank(); i < p; i += team.size()) {
-        if (a.group_id[i] >= 0 && a.assigned[i] < 0 && a.pod_valid[i]) a.gang_flags[grp(i)] = 1;
+    return 32 - __clz(max(x, 1));
+}
+
+// This block's dropped pods, in pod index order, each as key(i) at
+// dst[off + its rank] (dst may be another block's shared memory).
+// Block-wide; uniform trip count.
+template <class KeyFn>
+__device__ inline void compact_dropped(const Ctx& a, int lo, int hi, int off, uint32_t* dst,
+                                       KeyFn key, int* warp_sum)
+{
+    for (int base = lo; base < hi; base += blockDim.x) {
+        const int i = base + (int)threadIdx.x;
+        const int d = i < hi && a.gang_dropped[i];
+        int tot;
+        const int pos = block_exclusive_scan(d, tot, warp_sum);
+        if (d) dst[off + pos] = key(i);
+        off += tot;
+    }
+}
+
+// Release node `node`'s run of dropped pods pod(s), pod(s + 1), ... (while
+// node_at(t) == node, t < total) from its usage row at resource rr, in
+// pod index order; the next pod's index is read while the current one's
+// requests load.
+template <class NodeAt, class PodAt>
+__device__ inline void release_run(const Ctx& a, int s, int total, int rr, NodeAt node_at,
+                                   PodAt pod_at)
+{
+    const int node = node_at(s), r = a.r;
+    const size_t o = (size_t)node * r + rr;
+    float q = a.requested[o], z = a.nonzero[o];
+    for (int t = s, i = pod_at(s);;) {
+        const float dq = a.pod_req[(size_t)i * r + rr], dz = a.pod_nz[(size_t)i * r + rr];
+        const bool more = ++t < total && node_at(t) == node;
+        const int next = more ? pod_at(t) : 0;
+        q = sub(q, dq);
+        z = sub(z, dz);
+        if (!more) break;
+        i = next;
+    }
+    a.requested[o] = q;
+    a.nonzero[o] = z;
+}
+
+__device__ __forceinline__ void drop_pod(const Ctx& a, int i)
+{
+    a.assigned[i] = -1;
+    a.bid_scores[i] = -INFINITY;
+    a.reasons[i] = kReasonGang;
+}
+
+// Up to kGangCap dropped pods: compacted into block 0, sorted and released
+// there.  Ends without a cluster barrier.
+__device__ inline void gang_release_block(const Ctx& a, GangSmem& G, int lo, int hi, int off,
+                                          int count, int total, const ExactTeam& team)
+{
+    const int n = a.n, r = a.r, tid = (int)threadIdx.x, T = (int)blockDim.x;
+    const int ib = bits_to_hold(a.p - 1);
+    if (count > 0) {
+        uint32_t* keys = cg::this_cluster().map_shared_rank(G.keys, 0);
+        compact_dropped(a, lo, hi, off, keys, [&](int i) {
+            return ((uint32_t)min(a.assigned[i], n - 1) << ib) | (uint32_t)i;
+        }, G.warp_sum);
     }
     team.sync();
-    for (int i = team.rank(); i < p; i += team.size()) {
-        a.gang_dropped[i] = a.group_id[i] >= 0 && a.gang_flags[grp(i)] && a.assigned[i] >= 0;
-    }
-    team.sync();
-    // the dropped pods by node, in pod index order within a node
-    auto dkey = [&](int i) { return a.gang_dropped[i] ? min(a.assigned[i], n - 1) : n; };
-    SortSpec spec = {nullptr, a.perm_idx, a.rtmp, a.rcnt, a.rbase};
-    radix_sort(p, n, 1, &spec, dkey, *(RadixSmem*)dyn, team);
-    for (int s = team.rank(); s < p; s += team.size()) {
-        const int b = dkey(a.perm_idx[s]);
-        if (b >= n || (s > 0 && dkey(a.perm_idx[s - 1]) == b)) continue;
-        for (int q = s; q < p; ++q) {
-            const int i = a.perm_idx[q];
-            if (dkey(i) != b) break;
-            for (int rr = 0; rr < r; ++rr) {
-                a.requested[(size_t)b * r + rr] = sub(a.requested[(size_t)b * r + rr],
-                                                      a.pod_req[(size_t)i * r + rr]);
-                a.nonzero[(size_t)b * r + rr] = sub(a.nonzero[(size_t)b * r + rr],
-                                                    a.pod_nz[(size_t)i * r + rr]);
+    if (team.rank_ != 0) return;
+    // a bitonic network over the keys padded to a power of two: the pair
+    // (x, x + j) in order ascending where x & k is 0
+    const int m = total <= 1 ? 1 : 1 << bits_to_hold(total - 1);
+    for (int e = total + tid; e < m; e += T) G.keys[e] = 0xffffffffu;
+    __syncthreads();
+    if (m <= T) {
+        // a key a thread: the pairs within a warp (j < 32) by shuffles,
+        // the wider ones through shared memory
+        uint32_t key = tid < m ? G.keys[tid] : 0u;
+        for (int k = 2; k <= m; k <<= 1) {
+            for (int j = k >> 1; j > 0; j >>= 1) {
+                uint32_t other;
+                if (j >= 32) {
+                    __syncthreads();
+                    if (tid < m) G.keys[tid] = key;
+                    __syncthreads();
+                    other = tid < m ? G.keys[tid ^ j] : 0u;
+                } else {
+                    other = __shfl_xor_sync(0xffffffffu, key, j);
+                }
+                key = (((tid & j) == 0) == ((tid & k) == 0)) ? min(key, other) : max(key, other);
+            }
+        }
+        __syncthreads();
+        if (tid < m) G.keys[tid] = key;
+    } else {
+        for (int k = 2; k <= m; k <<= 1) {
+            for (int j = k >> 1; j > 0; j >>= 1) {
+                for (int t = tid; t < (m >> 1); t += T) {
+                    const int x = ((t & ~(j - 1)) << 1) | (t & (j - 1)), y = x + j;
+                    const uint32_t kx = G.keys[x], ky = G.keys[y];
+                    if ((kx > ky) == ((x & k) == 0)) {
+                        G.keys[x] = ky;
+                        G.keys[y] = kx;
+                    }
+                }
+                __syncthreads();
             }
         }
     }
+    __syncthreads();
+    const uint32_t mask = (1u << ib) - 1u;
+    auto node_at = [&](int t) { return (int)(G.keys[t] >> ib); };
+    auto pod_at = [&](int t) { return (int)(G.keys[t] & mask); };
+    for (int e = tid; e < total * r; e += T) {
+        const int s = e / r;
+        if (s > 0 && node_at(s - 1) == node_at(s)) continue;
+        release_run(a, s, total, e - s * r, node_at, pod_at);
+    }
+    for (int t = tid; t < total; t += T) drop_pod(a, pod_at(t));
+}
+
+// More dropped pods: compacted into perm, radix-sorted by node over the
+// cluster into perm_idx, their nodes into rtmp and each node's run start
+// into bfirst (-1 without one), then one thread a (node, resource)
+// releases the node's run.  Ends without a cluster barrier.
+__device__ inline void gang_release_cluster(const Ctx& a, GangSmem& G, unsigned char* dyn,
+                                            int lo, int hi, int off, int total,
+                                            const ExactTeam& team)
+{
+    const int n = a.n, r = a.r;
+    compact_dropped(a, lo, hi, off, (uint32_t*)a.perm, [](int i) { return (uint32_t)i; },
+                    G.warp_sum);
+    for (int b = team.rank(); b < n; b += team.size()) a.bfirst[b] = -1;
     team.sync();
+    auto node_of = [&](int i) { return min(a.assigned[i], n - 1); };
+    SortSpec spec = {a.perm, a.perm_idx, a.rtmp, a.rcnt, a.rbase};
+    radix_sort(total, n - 1, 1, &spec, node_of, *(RadixSmem*)dyn, team);
+    for (int s = team.rank(); s < total; s += team.size()) {
+        const int b = node_of(a.perm_idx[s]);
+        a.rtmp[s] = b;
+        if (s == 0 || node_of(a.perm_idx[s - 1]) != b) a.bfirst[b] = s;
+    }
+    team.sync();
+    auto node_at = [&](int t) { return a.rtmp[t]; };
+    auto pod_at = [&](int t) { return a.perm_idx[t]; };
+    for (int e = team.rank(); e < n * r; e += team.size()) {
+        const int s = a.bfirst[e / r];
+        if (s >= 0) release_run(a, s, total, e % r, node_at, pod_at);
+    }
+    for (int s = team.rank(); s < total; s += team.size()) drop_pod(a, a.perm_idx[s]);
+}
+
+// Pod i's gang, clipped into [0, G) as jnp.clip does.
+__device__ __forceinline__ int gang_of(const Ctx& a, int i)
+{
+    return min(max(a.group_id[i], 0), a.n_groups - 1);
+}
+
+// Pod i is an unplaced valid member: its gang is incomplete.
+__device__ __forceinline__ bool gang_marker(const Ctx& a, int i)
+{
+    return a.group_id[i] >= 0 && a.assigned[i] < 0 && a.pod_valid[i];
+}
+
+// The incomplete gangs' flags, set to 1 (order-free) over the cluster;
+// the caller's next cluster barrier publishes them.  The flags are 0 at
+// every launch's entry: zeroed when allocated, and cleared by the stage
+// that read them (round_gang).
+__device__ inline void gang_marks(const Ctx& a, const ExactTeam& team)
+{
+    for (int i = team.rank(); i < a.p; i += team.size()) {
+        if (gang_marker(a, i)) a.gang_flags[gang_of(a, i)] = 1;
+    }
+}
+
+// The gang post-pass, after gang_marks and a cluster barrier.  Ends
+// without a cluster barrier and reads no other block's shared memory
+// after its last one, so the launch needs none after it (with no drop, or
+// past the compaction, a block may leave at once).
+__device__ inline void round_gang(const Ctx& a, unsigned char* dyn, const ExactTeam& team)
+{
+    GangSmem& G = *(GangSmem*)dyn;
+    const int p = a.p;
+    auto grp = [&](int i) { return gang_of(a, i); };
+    int lo, hi;
+    block_pods(a, team, lo, hi);
+    int mine = 0;
+    for (int i = lo + (int)threadIdx.x; i < hi; i += blockDim.x) {
+        const bool d = a.group_id[i] >= 0 && a.gang_flags[grp(i)] && a.assigned[i] >= 0;
+        a.gang_dropped[i] = d;
+        mine += d;
+    }
+    mine = block_sum(mine, G.warp_sum);
+    if ((int)threadIdx.x < (int)team.size_) {
+        *cg::this_cluster().map_shared_rank(&G.count[team.rank_], threadIdx.x) = mine;
+    }
+    team.sync();
+    // every block has read the flags: their markers clear them for the next
+    // launch (the rewrites below only add dropped pods of flagged gangs)
     for (int i = team.rank(); i < p; i += team.size()) {
-        if (a.gang_dropped[i]) {
-            a.assigned[i] = -1;
-            a.bid_scores[i] = -INFINITY;
-            a.reasons[i] = kReasonGang;
-        }
+        if (gang_marker(a, i)) a.gang_flags[grp(i)] = 0;
+    }
+    int total = 0, off = 0;
+    for (unsigned b = 0; b < team.size_; ++b) {
+        total += G.count[b];
+        off += b < team.rank_ ? G.count[b] : 0;
+    }
+    if (total == 0) return;
+    if (total <= kGangCap && bits_to_hold(a.p - 1) + bits_to_hold(a.n - 1) <= 32) {
+        gang_release_block(a, G, lo, hi, off, mine, total, team);
+    } else {
+        gang_release_cluster(a, G, dyn, lo, hi, off, total, team);
     }
 }
 
 // ---- kernels -------------------------------------------------------------
-
-// The block's start: the team, the score parameters, the inter-pod
-// repair's tables, and a cluster barrier before any block writes another's
-// shared memory.
-__device__ inline void start(const Ctx& a, Shared& S, unsigned char* dyn, ExactTeam& team)
-{
-    team.init(&S.slots);
-    if (threadIdx.x == 0) load_config(S.cfg, a.iparams, a.fparams);
-    if (a.tm.on) prepare_repair(a, *(RepairSmem*)dyn, team);
-    team.sync();
-}
 
 // The stages of a launch: kStageBids, kStageAccept (1), kStageCommit (2),
 // kStageSpread, kStageInterpod, the whole loop, kStageReasons (alone, or
@@ -1645,6 +2066,19 @@ __device__ inline void start(const Ctx& a, Shared& S, unsigned char* dyn, ExactT
 // loop and the reasons pass in the same launch).
 enum { kStageAccept = 1, kStageCommit = 2, kStageBids = 4, kStageSpread = 8,
        kStageInterpod = 16, kStageLoop = 32, kStageReasons = 64, kStageGang = 128 };
+
+// The block's start: the team, the score parameters, the inter-pod
+// repair's tables, the gang stage's marks when it runs alone, and a
+// cluster barrier before any block writes another's shared memory.
+__device__ inline void start(const Ctx& a, int stages, Shared& S, unsigned char* dyn,
+                             ExactTeam& team)
+{
+    team.init(&S.slots);
+    if (threadIdx.x == 0) load_config(S.cfg, a.iparams, a.fparams);
+    if (a.tm.on) prepare_repair(a, *(RepairSmem*)dyn, team);
+    if (stages == kStageGang && a.n_groups > 0) gang_marks(a, team);
+    team.sync();
+}
 
 template <int kT>
 __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
@@ -1664,7 +2098,7 @@ __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
         if (cg::this_cluster().block_rank() == 0 && a.sp.on) spread_repair(a, *(SpreadSmem*)dyn);
         return;
     }
-    start(a, S, dyn, team);
+    start(a, stages, S, dyn, team);
     if (stages & kStageInterpod) {
         // the inter-pod repair alone, over the cluster
         if (a.tm.on) {
@@ -1692,8 +2126,22 @@ __global__ void __launch_bounds__(kT, 1) auction_kernel(Ctx a, int stages)
         }
         if (stages & kStageCommit) round_commit(a, rnd0, progress, S, team);
     }
-    if (stages & kStageReasons) round_reasons(a, S, team);
-    if ((stages & kStageGang) && a.n_groups > 0) round_gang(a, dyn, team);
+    const bool gang = (stages & kStageGang) && a.n_groups > 0;
+    if (stages & kStageReasons) {
+        round_reasons(a, S, dyn, team);
+        if (gang) {
+            // the reasons written, every block's flag words pulled and the
+            // gang marks published before the gang stage
+            gang_marks(a, team);
+            team.sync();
+        }
+    }
+    if (gang) {
+        // it reads no other block's shared memory after its last cluster
+        // barrier: no final barrier
+        round_gang(a, dyn, team);
+        return;
+    }
     // no block leaves while another may still read its shared memory
     team.sync();
 }

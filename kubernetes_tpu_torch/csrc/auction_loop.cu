@@ -48,17 +48,22 @@
 //             code or REASON_NONE.  The loop launch runs it once after the
 //             flag falls (stages kStageLoop | kStageReasons), on the final
 //             state, before the gang post-pass; alone (kStageReasons) it
-//             is the bindings' auction_reasons.
+//             is the bindings' auction_reasons.  Its bound: allocatable,
+//             the final usage (8 R bytes a node) and each spec class's
+//             static row (a byte a node) read once, with the families each
+//             constraint class's hard spread rows (9 bytes a node a row)
+//             and the nodes' term words (12 W bytes a node), 12 bytes a
+//             pod; a few flops a node and class.
 //   gang      :825-843, the gang post-pass after the reasons, in the same
 //             jitted program: `incomplete`, `gang_dropped`, the release of
 //             the dropped pods' requests (scatter_add_rows in pod index
 //             order) and the rewrites of assigned, bid_scores and reasons.
 //             The loop launch runs it last (stages kStageLoop |
 //             kStageReasons | kStageGang) when the batch has gangs; alone
-//             (kStageGang) it is the bindings' auction_gang.  It replaces
-//             the port's ten torch ops and kernel auction_release (one
-//             thread a node over all P pods); auction_common.cuh
-//             round_gang has its bound and design.
+//             (kStageGang) it is the bindings' auction_gang.  Its bound:
+//             10 bytes a pod, 8 R + 12 bytes a dropped pod, 16 R bytes a
+//             node that holds one; one subtraction a dropped pod, resource
+//             and row.
 //   tables    the inter-pod repair's term tables and each pod's solve
 //             position (mi_dense, anti_dense, solve_pos, built inside
 //             auction_assign_jit, :320-349): written once a launch by
@@ -103,14 +108,19 @@
 // accepted pods x live terms, then of the nodes; integer atomicMin group
 // minima and stores of 1, order-free; auction_common.cuh has its
 // design); the commit adds each node's accepted requests in pod index
-// order, one thread a node group.  The reasons pass (a Python loop over
-// the spec classes and some twenty torch ops in its plain version) runs
-// every joint class over the whole cluster in turn — the
-// filter chain of block_eval's first pass, reusing block_spread_pod's
-// critical-path minima and block_interpod_pod's words, the stage anys
-// OR-merged through the team's exchange (order-free: exact) — then one
-// write a pod; its bound is each class's static row, the resource rows and
-// the family rows it reads once.
+// order, one thread a node group.  The reasons pass evaluates every joint
+// class in one pass over the nodes (32 classes a pass: a class a bit of a
+// word; each group's distinct spec and constraint classes staged in shared
+// memory once, the hard spread rows' minima merged over the cluster in one
+// pull a group), the four stage words OR-merged over the cluster in one
+// pull through distributed shared memory (order-free: exact), then one
+// write a pod.  The gang stage marks the incomplete gangs, writes and
+// counts the drops (each block's count pushed into every block's shared
+// memory) and, when some pod drops, orders the dropped pods by node — in
+// block 0's shared memory up to 8,192 of them, past that by the radix
+// sort above over the dropped pods alone — and subtracts each node's run
+// in pod index order; with no drop it ends there.  auction_common.cuh has
+// both designs.
 
 #include "auction_common.cuh"
 

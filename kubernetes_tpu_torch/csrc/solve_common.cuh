@@ -483,30 +483,34 @@ struct BlockTeam : slices::BlockThreads {
     __device__ void reduce_mins(PodSpread&, int) const {}
 };
 
+// Pod i's rows into `ps`, minima 0 (one thread).
+__device__ inline void pod_spread_rows(const Spread& sp, int i, PodSpread& ps)
+{
+    ps.any_hard = ps.any_soft = 0;
+    for (int j = 0; j < sp.mc; ++j) {
+        const int cidx = sp.pod_idx[(size_t)i * sp.mc + j];
+        const int c = min(max(cidx, 0), sp.c_dim - 1);
+        const bool hard = sp.hard[c] != 0;
+        ps.c[j] = c;
+        ps.enforced[j] = cidx >= 0 && hard;
+        ps.soft[j] = cidx >= 0 && !hard;
+        ps.any_hard |= ps.enforced[j];
+        ps.any_soft |= ps.soft[j];
+        ps.self_m[j] = sp.pod_matches[(size_t)i * sp.c_dim + c] ? 1.0f : 0.0f;
+        ps.skew[j] = sp.max_skew[c];
+        ps.damp[j] = sub(sp.max_skew[c], 1.0f);
+        ps.weight[j] = log32(add(sp.sizes[c], 2.0f));
+        ps.minm[j] = 0.0f;
+    }
+}
+
 // Fill `ps` (shared) with pod i's rows and each hard row's minimum against
 // the current counts.  Every thread of the team calls it.
 template <class Team = BlockTeam>
 __device__ inline void block_spread_pod(const Spread& sp, int n, int i, PodSpread& ps, Scratch& sc,
                                         const Team& team = Team())
 {
-    if (threadIdx.x == 0) {
-        ps.any_hard = ps.any_soft = 0;
-        for (int j = 0; j < sp.mc; ++j) {
-            const int cidx = sp.pod_idx[(size_t)i * sp.mc + j];
-            const int c = min(max(cidx, 0), sp.c_dim - 1);
-            const bool hard = sp.hard[c] != 0;
-            ps.c[j] = c;
-            ps.enforced[j] = cidx >= 0 && hard;
-            ps.soft[j] = cidx >= 0 && !hard;
-            ps.any_hard |= ps.enforced[j];
-            ps.any_soft |= ps.soft[j];
-            ps.self_m[j] = sp.pod_matches[(size_t)i * sp.c_dim + c] ? 1.0f : 0.0f;
-            ps.skew[j] = sp.max_skew[c];
-            ps.damp[j] = sub(sp.max_skew[c], 1.0f);
-            ps.weight[j] = log32(add(sp.sizes[c], 2.0f));
-            ps.minm[j] = 0.0f;
-        }
-    }
+    if (threadIdx.x == 0) pod_spread_rows(sp, i, ps);
     __syncthreads();
     for (int j = 0; j < sp.mc; ++j) {
         if (!ps.enforced[j]) continue;  // uniform: read from shared memory
@@ -629,25 +633,29 @@ struct PodTerms {
     uint32_t aff[kMaxTW];    // its affinity terms
 };
 
+// Pod i's words against the current global bits into `pt` (one thread).
+__device__ inline void pod_terms_words(const Terms& tm, int i, PodTerms& pt)
+{
+    int any_aff = 0, none_anywhere = 1;
+    for (int w = 0; w < tm.w; ++w) {
+        uint32_t mi = 0u;
+        for (int j = 0; j < tm.u; ++j) mi |= tm.mi_slot[((size_t)j * tm.p + i) * tm.w + w];
+        const uint32_t aff = tm.aff_bits[(size_t)i * tm.w + w];
+        pt.mi[w] = mi;
+        pt.anti[w] = tm.anti_bits[(size_t)i * tm.w + w];
+        pt.aff[w] = aff;
+        any_aff |= aff != 0u;
+        if (aff & tm.global_any[w]) none_anywhere = 0;
+    }
+    pt.any_aff = any_aff;
+    pt.fallback = none_anywhere && tm.self_match[i];
+}
+
 // Fill `pt` (shared) with pod i's words against the current global bits.
 // Every thread of the block calls it.
 __device__ inline void block_interpod_pod(const Terms& tm, int i, PodTerms& pt)
 {
-    if (threadIdx.x == 0) {
-        int any_aff = 0, none_anywhere = 1;
-        for (int w = 0; w < tm.w; ++w) {
-            uint32_t mi = 0u;
-            for (int j = 0; j < tm.u; ++j) mi |= tm.mi_slot[((size_t)j * tm.p + i) * tm.w + w];
-            const uint32_t aff = tm.aff_bits[(size_t)i * tm.w + w];
-            pt.mi[w] = mi;
-            pt.anti[w] = tm.anti_bits[(size_t)i * tm.w + w];
-            pt.aff[w] = aff;
-            any_aff |= aff != 0u;
-            if (aff & tm.global_any[w]) none_anywhere = 0;
-        }
-        pt.any_aff = any_aff;
-        pt.fallback = none_anywhere && tm.self_match[i];
-    }
+    if (threadIdx.x == 0) pod_terms_words(tm, i, pt);
     __syncthreads();
 }
 

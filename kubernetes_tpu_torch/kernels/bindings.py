@@ -1053,7 +1053,8 @@ def auction_buffers(cluster, pods, tie_k: int, sp_args=None, tm_args=None,
         "gang_dropped": torch.zeros(p, dtype=torch.bool, device=dev),
     }
     if n_groups > 0:
-        out["gang_flags"] = torch.empty(n_groups, dtype=i32, device=dev)
+        # zero at every launch's entry: the gang stage clears what it set
+        out["gang_flags"] = torch.zeros(n_groups, dtype=i32, device=dev)
     if sp_args is not None:
         rows = sp_args.state.v.shape[0]
         out.update({

@@ -12,9 +12,16 @@ term table's bits on the card and are `repair_tables`' rows here.  Held exactly 
   on a reduced bench.py c5 (its generator: 1,000 pods in 20 gangs onto
   2,000 of its 32-CPU nodes), and the gang admission retry on the auction
   route under scarcity;
-- a numpy emulation of the stage's order (flags, drops, the stable sort of
-  the dropped pods by node, one walk a node group in pod index order)
-  against gang_post_pass_plain and the reference's scatter-add;
+- a numpy emulation of the stage's design on a cluster of 16 x 512 and
+  3 x 32 threads (the flags; each block's drops over its pod range and its
+  count, the counts' exchange; with no drop nothing more; up to 8,192
+  dropped pods their keys (node << bits(P)) | pod compacted in pod index
+  order into one block and bitonic-sorted there; past that the dropped
+  pods compacted and stably sorted by node over the cluster; then one walk
+  a (node run, resource) in pod index order) against gang_post_pass_plain
+  and the reference's scatter-add, with no drop, a few, more than 8,192
+  (c5's scarcity solve on 200 nodes among them), and fractional usage past
+  float32's exact range on nodes that hold several dropped pods;
 - the launch's bit reads of terms.matches_incoming / terms.anti_idx against
   repair_tables and the reference's dense tables, T = 31, 32, 33, 65.
 """
@@ -160,40 +167,112 @@ def test_gang_admission_retry_on_the_auction_route():
     assert 0 < _complete_gangs(tp, got) < 12
 
 
+GANG_CAP = 8192   # auction_common.cuh kGangCap
+
+
+def bits_to_hold(x: int) -> int:
+    return max(int(x), 1).bit_length()
+
+
+def bitonic_sort(keys: np.ndarray) -> np.ndarray:
+    """auction_common.cuh's bitonic network over a power-of-two count of
+    u32 keys: for k = 2, 4, ..., for j = k / 2, ..., 1, pair t joins x =
+    ((t & ~(j - 1)) << 1) | (t & (j - 1)) and x + j, ascending where x & k
+    is 0."""
+    keys = keys.copy()
+    m = keys.size
+    t = np.arange(m // 2)
+    k = 2
+    while k <= m:
+        j = k // 2
+        while j > 0:
+            x = ((t & ~(j - 1)) << 1) | (t & (j - 1))
+            y = x + j
+            kx, ky = keys[x], keys[y]
+            swap = (kx > ky) == ((x & k) == 0)
+            keys[x] = np.where(swap, ky, kx)
+            keys[y] = np.where(swap, kx, ky)
+            j //= 2
+        k *= 2
+    return keys
+
+
 def emulated_gang_stage(group_id, valid, assigned, bid_scores, reasons, req, nz, requested,
-                        nonzero, n_groups):
-    """auction_loop's gang stage in numpy: the [G] flags, the drops, the
-    dropped pods stably sorted by node (N for the rest: the radix sort's
-    keys), then one walk a node group, in its run's order, subtracting in
-    float32 one pod at a time."""
-    n = requested.shape[0]
+                        nonzero, n_groups, shape=(16, 512)):
+    """auction_loop's gang stage in numpy on a cluster of shape = (blocks,
+    threads): the [G] flags (back to 0 once read); each block's drops over
+    its pod range [b P / G, (b + 1) P / G) (ceil) and its count; D and each
+    block's offset; with D == 0 nothing more; up to GANG_CAP (and node and
+    pod indices in 32 bits) each block's dropped pods, in chunks of its
+    threads in pod index order (an exclusive scan), as (node << bits(P)) |
+    pod at its offset in block 0's keys, sorted there by the kernel's
+    bitonic network (which runs a key a thread with shuffles up to
+    blockDim keys: the same pairs); else the pods compacted the same
+    way and stably sorted by node (the radix sort); then one walk a (node
+    run, resource), subtracting in float32 one pod at a time, and the
+    dropped pods' rewrites.  Returns the plain twin's tuple and the path
+    ("none", "block" or "cluster")."""
+    blocks, threads = shape
+    p, n = group_id.shape[0], requested.shape[0]
     gc = np.clip(group_id, 0, n_groups - 1)
-    flags = np.zeros(n_groups, bool)
-    flags[gc[(group_id >= 0) & (assigned < 0) & valid]] = True
+    flags = np.zeros(n_groups, bool)          # 0 at the launch's entry
+    marker = (group_id >= 0) & (assigned < 0) & valid
+    flags[gc[marker]] = True
     dropped = (group_id >= 0) & flags[gc] & (assigned >= 0)
-    key = np.where(dropped, np.minimum(assigned, n - 1), n)
-    perm = np.argsort(key, kind="stable")
-    rq, nzr = requested.copy(), nonzero.copy()
-    for s in range(perm.size):
-        b = key[perm[s]]
-        if b >= n or (s > 0 and key[perm[s - 1]] == b):
-            continue
-        q = s
-        while q < perm.size and key[perm[q]] == b:
-            i = perm[q]
-            rq[b] = (rq[b] - req[i]).astype(np.float32)
-            nzr[b] = (nzr[b] - nz[i]).astype(np.float32)
-            q += 1
-    return (np.where(dropped, -1, assigned), np.where(dropped, -np.inf, bid_scores).astype(
-        np.float32), np.where(dropped, tassign.REASON_GANG, reasons), dropped, rq, nzr)
+    flags[gc[marker]] = False                 # cleared by their markers after the counts
+    assert not flags.any()
+    per = -(-p // blocks)
+    ranges = [(min(p, b * per), min(p, b * per + per)) for b in range(blocks)]
+    counts = [int(dropped[lo:hi].sum()) for lo, hi in ranges]
+    total = sum(counts)
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(int)
+    out_assigned, out_scores = assigned.copy(), bid_scores.copy()
+    out_reasons, rq, nzr = reasons.copy(), requested.copy(), nonzero.copy()
+    if total == 0:
+        return (out_assigned, out_scores, out_reasons, dropped, rq, nzr), "none"
+    node = np.minimum(assigned, n - 1).astype(np.int64)
+    ib = bits_to_hold(p - 1)
+    block_path = total <= GANG_CAP and ib + bits_to_hold(n - 1) <= 32
+    listed = np.full(total, -1, np.int64)   # the compaction's slots
+    for (lo, hi), off in zip(ranges, offsets):
+        for base in range(lo, hi, threads):
+            d = dropped[base:min(hi, base + threads)]
+            pos = np.cumsum(d) - d                          # the block's exclusive scan
+            idx = np.arange(base, base + d.size)[d]
+            assert (listed[off + pos[d]] == -1).all()
+            listed[off + pos[d]] = idx
+            off += int(d.sum())
+    assert (listed >= 0).all()
+    if block_path:
+        keys = (node[listed].astype(np.uint64) << ib) | listed.astype(np.uint64)
+        m = 1 << bits_to_hold(total - 1) if total > 1 else 1
+        keys = bitonic_sort(np.r_[keys, np.full(m - total, 0xFFFFFFFF, np.uint64)])[:total]
+        path = "block"
+        run_node, run_pod = (keys >> ib).astype(np.int64), (keys & ((1 << ib) - 1)).astype(
+            np.int64)
+    else:
+        order = np.argsort(node[listed], kind="stable")
+        run_pod = listed[order]
+        run_node = node[run_pod]
+        path = "cluster"
+    starts = np.flatnonzero(np.r_[True, run_node[1:] != run_node[:-1]])
+    ends = np.r_[starts[1:], total]
+    for s0, s1 in zip(starts, ends):
+        b, pods = run_node[s0], run_pod[s0:s1]
+        rq[b] = np.subtract.accumulate(np.vstack([rq[b:b + 1], req[pods]]), axis=0,
+                                       dtype=np.float32)[-1]
+        nzr[b] = np.subtract.accumulate(np.vstack([nzr[b:b + 1], nz[pods]]), axis=0,
+                                        dtype=np.float32)[-1]
+    out_assigned[run_pod] = -1
+    out_scores[run_pod] = -np.inf
+    out_reasons[run_pod] = tassign.REASON_GANG
+    return (out_assigned, out_scores, out_reasons, dropped, rq, nzr), path
 
 
-@pytest.mark.parametrize("seed,n_nodes,n_pods,n_groups",
-                         [(0, 4, 300, 6), (1, 16, 700, 40), (2, 64, 2000, 300), (3, 3, 90, 1)])
-def test_gang_stage_order_equals_plain_and_reference(seed, n_nodes, n_pods, n_groups):
-    """The stage's release order, bit for bit: fractional requests onto
-    nodes already past float32's exact range, against gang_post_pass_plain
-    and the reference's masked scatter-add."""
+def random_gang_state(seed, n_nodes, n_pods, n_groups, kind):
+    """Seeded post-loop state: usage in [2^24, 2^26) with fractions (past
+    float32's exact range), fractional requests, random gangs; `kind`
+    "none" places every gang member (no drop)."""
     rng = np.random.default_rng(seed)
     r = 3
     requested = (rng.integers(2**24, 2**26, (n_nodes, r)) + rng.random((n_nodes, r))).astype(
@@ -204,12 +283,63 @@ def test_gang_stage_order_equals_plain_and_reference(seed, n_nodes, n_pods, n_gr
     assigned = rng.integers(-1, n_nodes, n_pods).astype(np.int32)
     group_id = rng.integers(-1, n_groups, n_pods).astype(np.int32)
     valid = rng.random(n_pods) < 0.95
+    if kind == "none":
+        assigned = np.where(group_id >= 0, np.abs(assigned), assigned).astype(np.int32)
     bid_scores = rng.random(n_pods).astype(np.float32)
     reasons = np.where(assigned >= 0, tassign.REASON_NONE, tassign.REASON_RESOURCES).astype(
         np.int32)
-    want = emulated_gang_stage(group_id, valid, assigned, bid_scores, reasons, req, nz,
-                               requested, nonzero, n_groups)
-    assert want[3].any() and not want[3].all()
+    return group_id, valid, assigned, bid_scores, reasons, req, nz, requested, nonzero, n_groups
+
+
+def s200_state():
+    """c5's scarcity step's full solve: bench.py config5's 10,000 pods in
+    100 gangs onto 200 of its nodes (256 padded), the port's plain loop and
+    reasons on the CPU, before the post-pass; no gang completes."""
+    ts = TorchBatchScheduler(mode="auto", device="cpu")
+    for node in c5_nodes(tw, 200):
+        ts.add_node(node)
+    snap, meta = ts.encode_pending(c5_pods(tw, "scarce", 10000, 100))
+    cluster, pods, st = tauction.auction_prep(snap, meta.features, meta.topo_split,
+                                              ts.score_config)
+    out = tauction._rounds_plain(cluster, pods, st, meta.tie_k, ts.score_config, 64)
+    reasons = tauction.failure_reasons_plain(cluster, pods, st, out[0], out[2], out[3])
+    return (pods.group_id.numpy(), pods.valid.numpy(), out[0].numpy(), out[1].numpy(),
+            reasons.numpy(), pods.req.numpy(), pods.nonzero_req.numpy(), out[2].numpy(),
+            out[3].numpy(), meta.n_groups)
+
+
+@pytest.mark.parametrize("seed,n_nodes,n_pods,n_groups,kind", [
+    pytest.param(0, 4, 300, 6, "block", id="0-4-300-6"),
+    pytest.param(1, 16, 700, 40, "block", id="1-16-700-40"),
+    pytest.param(2, 64, 2000, 300, "block", id="2-64-2000-300"),
+    pytest.param(3, 3, 90, 1, "block", id="3-3-90-1"),
+    pytest.param(6, 128, 6000, 60, "block", id="block-3102"),
+    pytest.param(4, 16, 700, 40, "none", id="no-drop"),
+    pytest.param(5, 64, 20000, 20, "cluster", id="above-cap"),
+    pytest.param(None, None, None, None, "cluster", id="s200"),
+])
+def test_gang_stage_order_equals_plain_and_reference(seed, n_nodes, n_pods, n_groups, kind):
+    """The stage's design at 16 x 512 and 3 x 32 threads, bit for bit:
+    fractional requests onto nodes already past float32's exact range,
+    against gang_post_pass_plain and the reference's masked scatter-add;
+    no drop ends after the counts, a few (up to GANG_CAP) sort in one
+    block, more than GANG_CAP over the cluster (c5's scarcity solve on 200
+    nodes among them)."""
+    state = s200_state() if seed is None else random_gang_state(seed, n_nodes, n_pods,
+                                                                n_groups, kind)
+    group_id, valid, assigned, bid_scores, reasons, req, nz, requested, nonzero, n_groups = state
+    want, path = emulated_gang_stage(*state, shape=(16, 512))
+    d = int(want[3].sum())
+    assert path == kind
+    assert (d == 0) == (kind == "none") and (d > GANG_CAP) == (kind == "cluster")
+    if seed is not None and kind != "none":
+        # fractional usage past 2^24 on a node holding several dropped pods
+        held = np.bincount(assigned[want[3]], minlength=requested.shape[0])
+        assert ((held >= 2) & (requested.max(axis=1) > 2**24)).any()
+    other, other_path = emulated_gang_stage(*state, shape=(3, 32))
+    assert other_path == path
+    for a, b in zip(want, other):
+        assert np.array_equal(a, b)
 
     class Pods:
         pass
@@ -224,7 +354,7 @@ def test_gang_stage_order_equals_plain_and_reference(seed, n_nodes, n_pods, n_gr
     for a, b in zip(want, got):
         assert np.array_equal(np.asarray(a), b.numpy())
     # the reference's release: dst.at[nodes].add(-req * mask) on the CPU
-    nodes = jnp.clip(jnp.asarray(assigned), 0, n_nodes - 1)
+    nodes = jnp.clip(jnp.asarray(assigned), 0, requested.shape[0] - 1)
     mask = jnp.asarray(want[3]).astype(jnp.float32)[:, None]
     ref = jax.jit(lambda d, v: d.at[nodes].add(v * mask))
     assert np.array_equal(np.asarray(ref(jnp.asarray(requested), -jnp.asarray(req))), want[4])
