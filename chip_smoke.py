@@ -90,9 +90,9 @@ stdout; with --log also appended to PATH):
              and 1,000 measured pods; the auction with class_extras, and the
              scan) and a synthetic ImageLocality batch (5,000 nodes, 1,000
              pods; the auction and the scan), every batch equal to the plain
-             path on the CPU; class_extras and family_prep (entry pref: P
-             timed, the phase's other batches checked) timed at these
-             shapes
+             path on the CPU; class_extras timed at the preferred batch's
+             auction pairs (P) and the image batch's (I), family_prep
+             (entry pref: P timed, the phase's other batches checked)
   slices     the randomized slice cases (seeds 0-5) and a multi-core
              coordinate case under both policies, greedy_scan's carve-out
              stage, slice_stats and evaluate_single against their plain
@@ -183,8 +183,9 @@ stdout; with --log also appended to PATH):
              mirror's grow and the packed copy;
              class_statics, the one-launch cold prep, at B and match_terms,
              the masks-only entry, at B and W, each the card's time behind
-             a spin with the host clock of the call beside it; class_extras,
-             partials_eval and slice_stats also so, as card_ms and host_ms;
+             a spin with the host clock of the call beside it; class_extras
+             (P, I, and E+ from the extender phase), partials_eval and
+             slice_stats also so, as card_ms and host_ms;
              preempt_dry_run at Q, K, V and pod_filters at Q, K, K1 so)
   small      SchedulingBasic/500Nodes on the card against the plain path on
              the CPU, default route: identical placements and scores
@@ -1010,23 +1011,23 @@ def auction_interpod_need(st, accepted, bid, bits, cluster, torch) -> tuple:
 
 def class_extras_need(snap, features, reps, feas, torch) -> tuple:
     """(bytes, operations) one class_extras launch needs on this data: per
-    pair, its feasible row and its output row; the preferred rows its
-    representative reads (its own live rows of counts_dom, the rows it
-    matches of ownerw_dom) and the image words of its images, node
-    validity and sizes.  Operations per pair and node: 2 per preferred row
-    read and ~6 for the min / max normalisation; 2 per image and ~6 for
-    the clamp and scale."""
+    pair, its output row, and with preferred terms its feasible row and the
+    preferred rows its representative reads (its own live rows of
+    counts_dom, the rows it matches of ownerw_dom); with images the image
+    words of its images, node validity and sizes.  Operations per pair and
+    node: 2 per preferred row read and ~6 for the min / max normalisation;
+    2 per image and ~6 for the clamp and scale."""
     n = snap.cluster.allocatable.shape[0]
     c = reps.shape[0]
     r = reps.long()
-    need = c * n * (1 + 4) + nbytes(reps)
+    need = c * n * 4 + nbytes(reps)
     ops = 0
     if features.interpod_pref:
         pp = snap.prefpod
         own = int((pp.pod_idx[r] >= 0).sum())
         theirs = int(pp.matches_incoming[r].sum())
-        need += (own + theirs) * n * 4 + nbytes(pp.pod_idx[r], pp.pod_weight[r],
-                                                pp.matches_incoming[r])
+        need += c * n + (own + theirs) * n * 4 + nbytes(pp.pod_idx[r], pp.pod_weight[r],
+                                                        pp.matches_incoming[r])
         ops += n * (2 * (own + theirs) + 6 * c)
     if features.images:
         ids = snap.images.pod_ids[r]
@@ -1037,16 +1038,44 @@ def class_extras_need(snap, features, reps, feas, torch) -> tuple:
     return need, float(ops)
 
 
-def run_class_extras(snap, features, cfg, reps, feas, assign, bindings, torch,
-                     timed: bool = False) -> dict:
-    """Kernel class_extras against its plain version on CPU copies of the
-    same inputs, exact.  Returns {"out": the kernel's rows} and, timed, the
-    kernel's summary row."""
+def class_extras_args(snap, features, cfg, reps, feas, assign) -> tuple:
+    """bindings.class_extras' arguments for the (reps, feas) pairs of a
+    snapshot: its tables and, with preferred terms, prep_pref_pod's state."""
     pp = None
     if features.interpod_pref:
         pp = assign.prep_pref_pod(snap.cluster, snap.prefpod, assign.required_topo_z_split(snap)[1],
                                   has_bound=features.bound_pref)
-    args = (snap.cluster, snap.prefpod, snap.images, features, cfg, reps, feas, pp)
+    return (snap.cluster, snap.prefpod, snap.images, features, cfg, reps, feas, pp)
+
+
+def auction_pairs(snap, meta, cfg, auction) -> tuple:
+    """(reps, feas) of an auction batch's class_extras pairs: each joint
+    class's constraint representative and spec static row."""
+    _cl, _pods, st = auction.auction_prep(snap, meta.features, meta.topo_split, cfg)
+    return st.k_reps[st.jcons.long()], st.sfeas_s[st.jspec.long()]
+
+
+def single_pair(snap, features, assign, bindings, torch) -> tuple:
+    """(reps, feas) of evaluate_single's extra row: pod 0 over the feasible
+    row of its filter stage (the plain stage on the card's statics)."""
+    topo_z = assign.required_topo_z(snap) if assign.needs_topo(features) else 1
+    cluster, pods, sel, pref = snap[:4]
+    reps = torch.zeros(1, dtype=torch.int32, device=cluster.allocatable.device)
+    sfeas, _aff, _taint, sel_mask = bindings.class_statics(cluster, pods, sel, pref, reps,
+                                                           want_sel_mask=features.spread)
+    feas = assign.single_filter_plain(cluster, pods, sfeas[0], features,
+                                      assign.spread_prep(snap, sel_mask, features, topo_z),
+                                      assign.terms_prep(snap, features, topo_z))[0]
+    return reps, feas[None]
+
+
+def run_class_extras(snap, features, cfg, reps, feas, assign, bindings, torch,
+                     timed: bool = False) -> dict:
+    """Kernel class_extras against its plain version on CPU copies of the
+    same inputs, exact.  Returns {"out": the kernel's rows} and, timed, the
+    kernel's summary row (the card alone behind a spin and the host clock
+    of the call, the pairs and padded nodes)."""
+    args = class_extras_args(snap, features, cfg, reps, feas, assign)
 
     def kern():
         return bindings.class_extras(*args)
@@ -1063,7 +1092,10 @@ def run_class_extras(snap, features, cfg, reps, feas, assign, bindings, torch,
         card_ms, host_ms = launch_ms(kern, lambda: None, 20, torch)
         res["row"] = {"name": "class_extras", "max_abs_err": err, "ms": cuda_ms(kern, 20, torch),
                       "card_ms": card_ms, "host_ms": host_ms,
-                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "pairs": int(reps.shape[0]),
+                      "padded_nodes": int(snap.cluster.allocatable.shape[0]),
+                      "blocks_clusters": list(bindings.class_extras_shape(*args[:4], reps))}
     return res
 
 
@@ -1336,7 +1368,7 @@ def main() -> int:
     interpod_wave_launches = next(r for r in interpod_rows if r["name"] == "wavefront")["launches"]
 
     # ---- extras: preferred inter-pod affinity and ImageLocality -----------
-    extras_row, pref_row = extras_phase(
+    extras_rows, pref_row = extras_phase(
         wrappers, TorchBatchScheduler, assign, auction, filters, bindings, torch, card)
 
     # ---- slices: bench.py's c10 on the scan, card against CPU -------------
@@ -1404,7 +1436,7 @@ def main() -> int:
     row = next(r for r in spread_rows if r["name"] == "auction_spread")
     summary.append(dict(row, launches=spread_launches["auction_spread"]))
     summary.append(next(r for r in interpod_rows if r["name"] == "auction_interpod"))
-    summary.append(extras_row)
+    summary.extend(extras_rows)
     summary.append(gang_parity_row)
     # the residents' kernels at the resident phase's shapes (R, U500) with
     # its launches, and at a verify solve's (VR, VM) with the preemption
@@ -1472,8 +1504,15 @@ def main() -> int:
                                     "variant's measured batch; launches: one an entry a "
                                     "batch over that phase's default-route run",
                      "auction_interpod": "SchedulingPodAntiAffinity/5000Nodes measured batch",
-                     "class_extras": "the preferred-affinity variant's measured batch "
-                                     "(the auction's class pairs)",
+                     "class_extras": "the card alone behind a spin (card_ms) and the "
+                                     "host clock of the call (host_ms); P: the "
+                                     "preferred-affinity variant's measured batch (the "
+                                     "auction's class pairs; launches: the preferred "
+                                     "auction batches'); I: the synthetic image batch's "
+                                     "auction pairs (launches: the image batch's auction "
+                                     "and scan); E+: the extender's one pod with a "
+                                     "preferred term, between evaluate_single's stages "
+                                     "(launches: the extender's variant window)",
                      "partials_eval, mirror_rows": "R (every entry), U500 (a 500-row usage "
                                                    "delta): the wavefront phase's warm "
                                                    "SchedulingNodeAffinity/5000Nodes scheduler "
@@ -1483,8 +1522,9 @@ def main() -> int:
                                                    "pass (launches: the preemption phase's); "
                                                    "resident_kernels holds every shape: R, "
                                                    "R500, VR, RI, U500, S64, VM, SP",
-                     "slice_stats": "c10 (4,096 nodes, 256 padded pods, 26 gangs) after the "
-                                    "scan (greedy_scan at this shape: the slices line)",
+                     "slice_stats": "C: c10 (4,096 nodes, 256 padded pods, 26 gangs) after "
+                                    "the scan, one launch (greedy_scan at this shape: the "
+                                    "slices line); card_ms, host_ms as class_extras",
                      "evaluate_single": "E: one pod-default pod against "
                                         "SchedulingBasic/5000Nodes (8,192 padded nodes; the "
                                         "fused launch); E+: the same with a preferred "
@@ -1896,7 +1936,8 @@ def resident_parity(wrappers, TorchBatchScheduler, dv, pops, bindings, torch) ->
 
 def family_cases(wrappers):
     """(label, (nodes, pending, bound)) of the inter-pod, preferred
-    inter-pod and ImageLocality parity batches (testing/cases.py)."""
+    inter-pod and ImageLocality parity batches (testing/cases.py), and one
+    with both extras families."""
     from kubernetes_tpu_torch.testing import cases
 
     out = []
@@ -1905,6 +1946,15 @@ def family_cases(wrappers):
         out.append((f"anti{seed}", cases.interpod_objects(wrappers, seed, anti_only=True)))
         out.append((f"prefpod{seed}", cases.prefpod_objects(wrappers, seed)))
         out.append((f"image{seed}", cases.image_objects(wrappers, seed)))
+    # both extras families in one batch: a preferred-term batch on nodes
+    # that hold images, its pods with images
+    nodes, pods, bound = cases.prefpod_objects(wrappers, 5)
+    inodes, ipods, _b = cases.image_objects(wrappers, 5, n_nodes=len(nodes), n_pods=len(pods))
+    for node, inode in zip(nodes, inodes):
+        node.status.images = inode.status.images
+    for pod, ipod in zip(pods, ipods):
+        pod.spec.containers[0].image = ipod.spec.containers[0].image
+    out.append(("both5", (nodes, pods, bound)))
     return out
 
 
@@ -2625,9 +2675,9 @@ def extras_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
     shape) at 5,000 nodes / 1,000 / 1,000 and a synthetic image batch at
     5,000 nodes through TorchBatchScheduler on their default route (the
     auction, with class_extras) and on the scan, every batch against the
-    plain path on the CPU; class_extras and prep_pref_pod timed at the
-    preferred measured batch's shapes.  Returns (the class_extras row,
-    prep_pref_pod's timing row)."""
+    plain path on the CPU; class_extras timed at the preferred measured
+    batch's auction pairs (P) and the image batch's (I), prep_pref_pod at
+    P.  Returns (the class_extras rows, prep_pref_pod's timing row)."""
     from kubernetes_tpu_torch.testing.cases import image_objects, preferred_affinity_objects
 
     timing = {}
@@ -2678,9 +2728,16 @@ def extras_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
     _cl, _pods, st = auction.auction_prep(snap, meta.features, meta.topo_split, cfg)
     # the auction's cold statics prep (P) against the plain prep
     check_statics("class_statics (P)", snap, st.s_reps, assign, bindings, torch)
-    pairs = (st.k_reps[st.jcons.long()], st.sfeas_s[st.jspec.long()])
-    ext = run_class_extras(snap, meta.features, cfg, *pairs, assign, bindings, torch, timed=True)
-    row = dict(ext["row"], launches=launches["class_extras"])
+    ext = run_class_extras(snap, meta.features, cfg, *auction_pairs(snap, meta, cfg, auction),
+                           assign, bindings, torch, timed=True)
+    rows = [dict(ext["row"], shape="P", launches=launches["class_extras"])]
+    # and at the image batch's auction pairs (I), with the image batch's
+    # launches (its auction and its scan)
+    isnap, imeta = irecs[0]["snap"], irecs[0]["meta"]
+    ext = run_class_extras(isnap, imeta.features, cfg, *auction_pairs(isnap, imeta, cfg, auction),
+                           assign, bindings, torch, timed=True)
+    rows.append(dict(ext["row"], shape="I",
+                     launches=ilaunches["class_extras"] + iglaunches["class_extras"]))
     # kernel family_prep (the pref entry) against its plain twin on the
     # card and on the CPU, exact, timed at the preferred measured batch (P);
     # its init batch and its scan batch checked too
@@ -2692,11 +2749,11 @@ def extras_phase(wrappers, TorchBatchScheduler, assign, auction, filters, bindin
         check_family(tag, rec["snap"], rec["meta"].features, rec["meta"].topo_split, filters,
                      bindings, torch)
     out["family_prep"] = fam
-    out["class_extras"] = row
+    out["class_extras"] = rows
     out["cpu_check_s"] = timing
     out["card"] = card
     emit(out)
-    return row, fam
+    return rows, fam
 
 
 def check_capacity(state) -> None:
@@ -3393,6 +3450,19 @@ def measured_snapshot(wrappers, TorchBatchScheduler, objects: str, dims):
     return (sched, *sched.encode_pending(measured))
 
 
+def image_snapshot(wrappers, TorchBatchScheduler):
+    """Shape I: the extras phase's synthetic ImageLocality batch (IMAGES:
+    5,000 nodes, 1,000 pods, the auction).  Returns (scheduler, snapshot,
+    meta)."""
+    from kubernetes_tpu_torch.testing.cases import image_objects
+
+    nodes, pods, _b = image_objects(wrappers, 0, *IMAGES)
+    sched = TorchBatchScheduler()
+    for node in nodes:
+        sched.add_node(node)
+    return (sched, *sched.encode_pending(pods))
+
+
 def north_snapshot(wrappers, TorchBatchScheduler):
     """Shape N: the north star's first batch (10,000 pod-default pods onto
     50,000 node-default nodes; 16,384 and 65,536 padded), as the north
@@ -3749,7 +3819,8 @@ def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bi
     copy; the wavefront batch's cold statics prep (class_statics, with and
     without the selector mask) against its plain twin on CPU copies.  Then
     on `big` kernel family_prep, every entry, against its plain twins on a
-    CPU copy (family_z_check)."""
+    CPU copy (family_z_check), and class_extras at its edges on seeded
+    tables (class_extras_edges)."""
     from kubernetes_tpu_torch.testing.cases import preferred_affinity_objects
 
     mid = TorchBatchScheduler()
@@ -3776,7 +3847,57 @@ def wide_edges_phase(wrappers, TorchBatchScheduler, big, assign, dv, filters, bi
                      "wave_pods": WIDE_WAVE_PODS, "waves": len(meta.wave_plan.members),
                      "wave_fallbacks": fallbacks, "evaluate_single": ["E", "E+"]})
     fam = family_z_check(wrappers, big, filters, bindings, torch)
-    emit({"phase": "wide_edges", "cases": rows, "family_prep": fam, "equal_plain": True})
+    extras = class_extras_edges(bindings, assign, torch)
+    emit({"phase": "wide_edges", "cases": rows, "family_prep": fam, "class_extras": extras,
+          "equal_plain": True})
+
+
+def class_extras_edges(bindings, assign, torch) -> list:
+    """Kernel class_extras on seeded tables at its edges, against its plain
+    version on CPU copies, exact: "wide", 65,536 nodes and 64 pairs with
+    preferred terms (negative weights, rows matched by no pod) and images
+    (clusters of 8 blocks: 16 nodes a thread, past the kKeep kept in
+    registers); "many", 4,096 nodes and 1,024 image pairs over 300 images
+    (more named images in a cluster than a presence mask holds)."""
+    import numpy as np
+    from types import SimpleNamespace as NS
+
+    from kubernetes_tpu_torch.ops import scores
+
+    rows = []
+    for label, n, c_dim, i_dim, pref in (("wide", 65536, 64, 40, True),
+                                         ("many", 4096, 1024, 300, False)):
+        rng = np.random.default_rng(len(label))
+        p, u, ma, mi = 96, 16, 4, 8
+        iw = (i_dim + 31) // 32
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+        bits = rng.integers(0, 2 ** 32, (n, iw), dtype=np.uint64).astype(np.uint32)
+        cluster = NS(allocatable=t(np.zeros((n, 1), np.float32)), image_bits=t(bits.view(np.int32)),
+                     node_valid=t(rng.random(n) < 0.95))
+        images = NS(sizes=t((rng.integers(1, 1500, i_dim) * 1048576
+                             + rng.integers(0, 1048576, i_dim)).astype(np.float32)),
+                    pod_ids=t(rng.integers(-1, i_dim, (p, mi)).astype(np.int32)),
+                    n_containers=t(rng.integers(0, 8, p).astype(np.float32)))
+        prefpod = NS(pod_idx=t(rng.integers(-1, u, (p, ma)).astype(np.int32)),
+                     pod_weight=t(rng.integers(-100, 101, (p, ma)).astype(np.float32)),
+                     matches_incoming=t(rng.random((p, u)) < 0.3))
+        pp = NS(counts_dom=t(rng.integers(0, 30, (u, n)).astype(np.float32)),
+                ownerw_dom=t(rng.integers(-300, 300, (u, n)).astype(np.float32)))
+        features = NS(interpod_pref=pref, images=True)
+        cfg = scores.ScoreConfig(interpod_weight=1.3, image_weight=0.7)
+        reps = t(rng.integers(0, p, c_dim).astype(np.int32))
+        feas = t(rng.random((c_dim, n)) < 0.6)
+        card = lambda ns: NS(**{k: v.cuda() for k, v in vars(ns).items()})
+        out = bindings.class_extras(card(cluster), card(prefpod), card(images), features, cfg,
+                                    reps.cuda(), feas.cuda(), card(pp) if pref else None)
+        want = assign.class_extras_plain(cluster, prefpod, images, features, cfg, reps, feas,
+                                         pp if pref else None)
+        err = check_equal(f"class_extras ({label})", (out,), (want,), torch)
+        rows.append({"case": label, "nodes": n, "pairs": c_dim, "images": i_dim,
+                     "preferred": pref, "max_abs_err": err,
+                     "blocks_clusters": list(bindings.class_extras_shape(
+                         card(cluster), card(prefpod), card(images), features, reps))})
+    return rows
 
 
 def wide_family_snapshot(wrappers, sched) -> tuple:
@@ -4727,18 +4848,14 @@ def run_slice_kernels(snap, features, n_groups, cfg, assign, filters, bindings, 
 
     rows = run_kernels(snap, features, n_groups, cfg, assign, filters, bindings, torch,
                        timed=timed)
-    cluster, pods, sfeas, aff, taint, sp_args, tm_args, extra = assign._solver_prep(
-        snap, features, cfg=cfg)
-    out = bindings.greedy_scan(cluster, pods, sfeas, aff, taint, assign.solve_order(pods),
-                               features, n_groups, cfg, sp_args, tm_args, extra)
-    final = cluster._replace(requested=out[4], nonzero_requested=out[5])
-    gang = out[11:14] if len(out) > 11 else None
+    args = slice_stats_args(snap, features, n_groups, cfg, assign, bindings)
+    final, pods, _assignment, gang = args[:4]
 
     def kern():
-        return bindings.slice_stats(final, pods, out[0], gang, features, n_groups)
+        return bindings.slice_stats(*args)
 
     def plain():
-        return slices_ops.carve_stats_plain(final, pods, out[0], gang, features, n_groups)
+        return slices_ops.carve_stats_plain(*args)
 
     err = check_equal("slice_stats", kern(), plain(), torch)
     if not timed:
@@ -4749,6 +4866,63 @@ def run_slice_kernels(snap, features, n_groups, cfg, assign, filters, bindings, 
                  "card_ms": card_ms, "host_ms": host_ms,
                  "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by}
     return [r for r in rows if r["name"] == "greedy_scan"] + [stats_row]
+
+
+def slice_stats_args(snap, features, n_groups, cfg, assign, bindings) -> tuple:
+    """slice_stats' arguments after a slice batch's scan on the card: (the
+    post-release cluster, pods, assignment, the final carve-out carry or
+    None, features, n_groups)."""
+    cluster, pods, sfeas, aff, taint, sp_args, tm_args, extra = assign._solver_prep(
+        snap, features, cfg=cfg)
+    out = bindings.greedy_scan(cluster, pods, sfeas, aff, taint, assign.solve_order(pods),
+                               features, n_groups, cfg, sp_args, tm_args, extra)
+    final = cluster._replace(requested=out[4], nonzero_requested=out[5])
+    gang = out[11:14] if len(out) > 11 else None
+    return final, pods, out[0], gang, features, n_groups
+
+
+def slice_stats_edges(bindings, torch) -> list:
+    """Kernel slice_stats on seeded synthetic tables against its plain
+    version on CPU copies, exact: 8,192 nodes over 160 slices of extent up
+    to 16 (a block's cells past its shared memory: the grid in global
+    memory), random coordinates, usage and validity, 512 pods in 40 gangs
+    with random shapes, assignments and carve-out carry; and the same
+    without the carry."""
+    import numpy as np
+    from types import SimpleNamespace as NS
+
+    from kubernetes_tpu_torch.ops import slices as slices_ops
+    from kubernetes_tpu_torch.ops.schema import RESOURCE_PODS
+
+    rng = np.random.default_rng(19)
+    n, z, d, p, g = 8192, 160, 16, 512, 40
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    sid = rng.integers(-1, z, n).astype(np.int32)
+    ext = rng.integers(1, d + 1, (z, 3)).astype(np.int32)
+    requested = np.zeros((n, RESOURCE_PODS + 1), np.float32)
+    requested[:, RESOURCE_PODS] = rng.random(n) < 0.3
+    cluster = NS(node_valid=t(rng.random(n) < 0.95), slice_id=t(sid),
+                 torus_coords=t(rng.integers(-1, d, (n, 4)).astype(np.int32)),
+                 slice_dims=t(np.where(rng.random((n, 1)) < 0.9, ext[np.maximum(sid, 0)],
+                                       rng.integers(0, d + 1, (n, 3))).astype(np.int32)),
+                 requested=t(requested))
+    pods = NS(valid=t(rng.random(p) < 0.9), group_id=t(rng.integers(-1, g, p).astype(np.int32)),
+              pod_shape=t(rng.integers(0, 3, (p, 3)).astype(np.int32)))
+    assignment = t(rng.integers(-1, n, p).astype(np.int32))
+    gang = (t(rng.integers(-1, z, g).astype(np.int32)), t(rng.integers(0, d, (g, 3)).astype(np.int32)),
+            t(rng.random(g) < 0.5))
+    features = NS(slice_z=z, slice_dim=d)
+    card = lambda ns: NS(**{k: v.cuda() for k, v in vars(ns).items()})
+    rows = []
+    for label, carry, n_groups in (("carry", gang, g), ("no_carry", None, 0)):
+        got = bindings.slice_stats(card(cluster), card(pods), assignment.cuda(),
+                                   tuple(x.cuda() for x in carry) if carry else None, features,
+                                   n_groups)
+        want = slices_ops.carve_stats_plain(cluster, pods, assignment, carry, features, n_groups)
+        err = check_equal(f"slice_stats ({label})", got, want, torch)
+        rows.append({"case": label, "nodes": n, "slices": z, "slice_dim": d, "gangs": n_groups,
+                     "frag_score": float(want[0]), "max_abs_err": err})
+    return rows
 
 
 def slice_stats_need(cluster, pods, gang, features, torch) -> tuple:
@@ -4837,10 +5011,13 @@ def run_evaluate_single(snap, features, cfg, assign, bindings, torch, timed: boo
         need += n * 4
     bms, by = bound(need, float(n * (2 * r + 60)))
     ms, host_ms = cuda_host_ms(kern, 200, torch)
-    return whole, {"name": "evaluate_single", "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-                   "device_ms": graph_ms(kern, 20, 10, torch),
-                   "launches_a_call": 1 if fused else 2,
-                   "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by}
+    row = {"name": "evaluate_single", "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+           "device_ms": graph_ms(kern, 20, 10, torch), "launches_a_call": 1 if fused else 2,
+           "plain_ms": time_plain(plain, torch), "bound_ms": bms, "bound_by": by}
+    if extra is not None:   # the extra row's kernel between the stages, timed alone
+        row["extras_row"] = run_class_extras(snap, features, cfg, reps, feas[None], assign,
+                                             bindings, torch, timed=True)["row"]
+    return whole, row
 
 
 def overlay_parity(wrappers, TorchBatchScheduler, torch) -> None:
@@ -4889,8 +5066,8 @@ def slices_phase(wrappers, TorchBatchScheduler, assign, filters, dv, bindings, t
     """bench.py's c10 at full width through TorchBatchScheduler(
     carveout_policy=...) on the card and on the CPU in lockstep, both
     policies: every round equal field for field, on the scan; the
-    kernels at the c10 shape; the randomized slice cases and a multi-core
-    coordinate case against the plain versions."""
+    kernels at the c10 shape; the randomized slice cases, a multi-core
+    coordinate case and slice_stats_edges against the plain versions."""
     from kubernetes_tpu_torch.ops import schema
     from kubernetes_tpu_torch.ops import slices as slices_ops
     from kubernetes_tpu_torch.ops.scores import DEFAULT_SCORE_CONFIG
@@ -4923,10 +5100,12 @@ def slices_phase(wrappers, TorchBatchScheduler, assign, filters, dv, bindings, t
         run_slice_kernels(dv.to_device(snap, "cuda"), assign.features_of(snap, slice_policy=policy),
                           schema.num_groups(snap), DEFAULT_SCORE_CONFIG, assign, filters, bindings, torch)
         checked += 1
+    edges = slice_stats_edges(bindings, torch)
 
     out = {"phase": "slices", "workload": "c10 slice packing (bench.py config10)",
            "nodes": 64 * 64, "slices": 64, "slice_dims": "4x4x4", "rounds": C10_ROUNDS,
            "pods_per_round": 208, "gangs_per_round": 26, "parity_cases": checked,
+           "slice_stats_edges": edges,
            "gates": {"contiguous_rate_min": C10_CONTIG_MIN, "frag_score_final_max": C10_FRAG_MAX},
            "policies": {}, "card": card}
     launches_all = {}
@@ -5020,9 +5199,12 @@ def c10_round(scheds, churns, lives, r, torch, walls=None) -> dict:
     return names
 
 
-def c10_timed_snapshot(wrappers, TorchBatchScheduler, torch, policy: str = "prefer"):
+def c10_timed_snapshot(wrappers, TorchBatchScheduler, torch, policy: str = "prefer",
+                       gangs: bool = True):
     """Shape C: c10's pending batch after its six rounds on the card (the
-    slices phase's timed batch), as (snapshot, meta)."""
+    slices phase's timed batch), as (snapshot, meta); with gangs=False
+    (C0) the same pods each alone (no scheduling group: shaped pods, no
+    gang, no carve-out carry)."""
     from kubernetes_tpu_torch.testing import cases
 
     sched = {"cuda": TorchBatchScheduler(carveout_policy=policy)}
@@ -5032,7 +5214,12 @@ def c10_timed_snapshot(wrappers, TorchBatchScheduler, torch, policy: str = "pref
         sched["cuda"].add_node(node)
     for r in range(C10_ROUNDS):
         c10_round(sched, churn, live, r, torch)
-    return sched["cuda"].encode_pending(churn["cuda"].round_pods(C10_ROUNDS))
+    pods = churn["cuda"].round_pods(C10_ROUNDS)
+    if not gangs:
+        for pod in pods:
+            pod.spec.scheduling_group = None
+            pod.spec.scheduling_group_size = None
+    return sched["cuda"].encode_pending(pods)
 
 
 def _pod_json(name, labels=None, image="", spec=None):
@@ -5214,8 +5401,10 @@ def extender_phase(wrappers, TorchBatchScheduler, assign, dv, bindings, torch, c
           "shaped": {"nodes": len(slice_names), **policies},
           "equal_cpu": True, "launches": basic_launches, "variant_launches": variant_launches,
           "card": card})
+    extras_plus = row_plus.pop("extras_row")
     return (dict(row, shape="E", launches=basic_launches["evaluate_single"]),
-            dict(row_plus, shape="E+", launches=variant_launches["evaluate_single"]))
+            dict(row_plus, shape="E+", launches=variant_launches["evaluate_single"]),
+            dict(extras_plus, shape="E+", launches=variant_launches["class_extras"]))
 
 
 def proto_phase(wrappers, torch, bindings, card):

@@ -7,6 +7,8 @@
     python3 kernel_ab.py interpod OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
     python3 kernel_ab.py family OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
     python3 kernel_ab.py tail OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
+    python3 kernel_ab.py extras OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
+    python3 kernel_ab.py slices OTHER_CSRC_DIR [SHAPE ...] [--change CHANGE_CSRC_DIR]
 
 KERNEL and its shapes (the first is the default):
 
@@ -62,6 +64,19 @@ KERNEL and its shapes (the first is the default):
                      launch's start and last barrier alone, the floor
                   gang/S200  the scarcity step's full solve (no gang
                      complete: every placed pod drops)
+  extras          the class_extras binding call alone on a batch's pairs,
+                  each shape named (default all):
+                  P  the preferred-affinity variant's measured batch (the
+                     auction's class pairs)
+                  I  the synthetic image batch (5,000 nodes, 1,000 pods: the
+                     auction's 1,024 class pairs)
+                  E+ one pod with a preferred term behind the extender (one
+                     pair: the filter stage's feasible row)
+  slices          the slice_stats binding call alone after a c10 scan,
+                  each shape named (default all):
+                  C  c10's batch after its six rounds (4,096 nodes, 64
+                     slices of 4x4x4, 256 padded pods, 26 gangs)
+                  C0 the same pods each alone (no gang: no carve-out carry)
   auction         B  the whole round loop of SchedulingBasic/5000Nodes'
                      measured batch (8,192 padded nodes, 1,024 pods)
                   T  TopologySpreading/5000Nodes' measured batch (the spread
@@ -154,7 +169,10 @@ without gangs (the rounds and the reasons), each tree's stage alone runs on it
 (the other tree's AuctionRun with its own statics), other, change, change,
 other, each result equal to the plain twin on CPU copies
 (failure_reasons_plain, gang_post_pass_plain), with the bound and the
-shape's class and drop counts in its JSON line.
+shape's class and drop counts in its JSON line.  `extras` and `slices` do
+the same with each tree's class_extras and slice_stats bindings on the
+same inputs, each result equal to the plain version on CPU copies
+(class_extras_plain, carve_stats_plain), the bound beside each.
 """
 
 from __future__ import annotations
@@ -260,6 +278,18 @@ SHAPES = {
         "gang/PG": (20, "the parity phase's fractional gang batch, the gang stage"),
         "gang/G": (20, "bench.py c5 with three gangs given an unplaceable member (the drops "
                        "step), the gang stage"),
+    },
+    "extras": {
+        "P": (20, "the preferred-affinity variant's measured batch, the auction's class "
+                  "pairs"),
+        "I": (20, "the synthetic image batch (5,000 nodes, 1,000 pods), the auction's class "
+                  "pairs"),
+        "E+": (20, "one pod with a preferred term behind the extender, its one pair"),
+    },
+    "slices": {
+        "C": (50, "c10's batch after six rounds (4,096 nodes, 256 padded pods, 26 gangs), "
+                  "after the scan"),
+        "C0": (50, "the same pods each alone (no gang), after the scan"),
     },
     "auction": {
         "B": (10, "SchedulingBasic/5000Nodes measured batch, the whole round loop"),
@@ -1255,12 +1285,102 @@ def tail_row(shape: str, trees: dict, torch) -> dict:
     return row
 
 
+def extras_case(shape: str, torch) -> tuple:
+    """(class_extras' arguments, its bound) at an extras shape on the card."""
+    from kubernetes_tpu_torch.kernels import bindings
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.ops import assign, auction
+    from kubernetes_tpu_torch.testing import wrappers
+
+    if shape == "E+":
+        snap, features = chip_smoke.single_snapshot(wrappers, TorchBatchScheduler, True)
+        cfg = assign.DEFAULT_SCORE_CONFIG
+        reps, feas = chip_smoke.single_pair(snap, features, assign, bindings, torch)
+    else:
+        sched, snap, meta = (chip_smoke.image_snapshot(wrappers, TorchBatchScheduler)
+                             if shape == "I" else AUCTION_BUILDS["P"](wrappers,
+                                                                      TorchBatchScheduler))
+        if meta.route != "auction":
+            raise AssertionError(f"extras shape {shape} took route {meta.route}")
+        cfg, features = sched.score_config, meta.features
+        reps, feas = chip_smoke.auction_pairs(snap, meta, cfg, auction)
+    args = chip_smoke.class_extras_args(snap, features, cfg, reps, feas, assign)
+    return args, chip_smoke.bound(*chip_smoke.class_extras_need(snap, features, reps, feas,
+                                                                torch))
+
+
+def slices_case(shape: str, torch) -> tuple:
+    """(slice_stats' arguments, its bound) at a slices shape on the card:
+    the batch's scan, then its post-release state."""
+    from kubernetes_tpu_torch.kernels import bindings
+    from kubernetes_tpu_torch.models.batch_scheduler import TorchBatchScheduler
+    from kubernetes_tpu_torch.ops import assign
+    from kubernetes_tpu_torch.testing import wrappers
+
+    snap, meta = chip_smoke.c10_timed_snapshot(wrappers, TorchBatchScheduler, torch,
+                                               gangs=shape == "C")
+    if meta.route != "greedy" or not meta.features.slices:
+        raise AssertionError(f"slices shape {shape}: route {meta.route}, "
+                             f"slices {meta.features.slices}")
+    args = chip_smoke.slice_stats_args(snap, meta.features, meta.n_groups,
+                                       assign.DEFAULT_SCORE_CONFIG, assign, bindings)
+    return args, chip_smoke.bound(*chip_smoke.slice_stats_need(*args[:2], args[3], args[4],
+                                                               torch))
+
+
+def binding_row(kernel: str, shape: str, trees: dict, torch) -> dict:
+    """`extras` or `slices` at a shape: each tree's binding call (its
+    class_extras or slice_stats) on the same inputs, other, change,
+    change, other, each result equal to the plain version's on CPU
+    copies; the card alone behind a spin and the host clock
+    (chip_smoke.launch_ms)."""
+    from kubernetes_tpu_torch.ops import assign
+    from kubernetes_tpu_torch.ops import slices as slices_ops
+
+    if kernel == "extras":
+        args, (b_ms, by) = extras_case(shape, torch)
+        fn, plain = "class_extras", assign.class_extras_plain
+        want = (plain(*chip_smoke.cpu_args(args, torch)),)
+        wrap = lambda out: (out,)
+        size = {"pairs": int(args[5].shape[0]), "features": {
+            "interpod_pref": bool(args[3].interpod_pref), "images": bool(args[3].images)},
+            "change_blocks_clusters": list(trees["change"].class_extras_shape(*args[:4], args[5]))
+            if hasattr(trees["change"], "class_extras_shape") else None}
+    else:
+        args, (b_ms, by) = slices_case(shape, torch)
+        fn, plain = "slice_stats", slices_ops.carve_stats_plain
+        want = plain(*args)
+        wrap = lambda out: out
+        size = {"gangs": int(args[5]), "slices": int(args[4].slice_z),
+                "slice_dim": int(args[4].slice_dim), "padded_pods": int(args[1].req.shape[0])}
+    iters, workload = SHAPES[kernel][shape]
+    calls = {w: (lambda b=b: getattr(b, fn)(*args)) for w, b in trees.items()}
+    card = {"other": [], "change": []}
+    host = {"other": [], "change": []}
+    for which in ("other", "change", "change", "other"):
+        call = calls[which]
+        chip_smoke.check_equal(f"{kernel} {shape} ({which})", wrap(call()), want, torch)
+        ms, host_ms = chip_smoke.launch_ms(call, lambda: None, iters, torch)
+        chip_smoke.check_equal(f"{kernel} {shape} ({which}, timed)", wrap(call()), want, torch)
+        card[which].append(ms)
+        host[which].append(host_ms)
+    return {"kernel": kernel, "shape": shape, "workload": workload, "launches_a_timing": iters,
+            "card_ms": card, "median_card_ms": {k: statistics.median(v) for k, v in card.items()},
+            "host_ms": host, "median_host_ms": {k: statistics.median(v) for k, v in host.items()},
+            "bound_ms": b_ms, "bound_by": by,
+            "padded_nodes": int(args[0].allocatable.shape[0]), **size, "equal_plain": True}
+
+
 def pair_ab(kernel: str, shapes, other_dir: Path, out_dir: Path, torch, change_dir=None) -> list:
-    """`interpod` or `tail` (auction_loop's library on each side) or
-    `family` (family_prep's) at each shape, one JSON row a shape."""
-    names = ["family_prep"] if kernel == "family" else ["auction_loop"]
+    """`interpod` or `tail` (auction_loop's library on each side), `family`
+    (family_prep's), `extras` (class_extras') or `slices` (slice_stats') at
+    each shape, one JSON row a shape."""
+    names = {"family": ["family_prep"], "extras": ["class_extras"],
+             "slices": ["slice_stats"]}.get(kernel, ["auction_loop"])
     trees, reports = tree_pair(names, other_dir, out_dir, change_dir)
-    row_of = {"interpod": interpod_row, "family": family_row, "tail": tail_row}[kernel]
+    row_of = {"interpod": interpod_row, "family": family_row, "tail": tail_row,
+              "extras": lambda shape, t, torch: binding_row("extras", shape, t, torch),
+              "slices": lambda shape, t, torch: binding_row("slices", shape, t, torch)}[kernel]
     rows = []
     for shape in shapes:
         row = row_of(shape, trees, torch)
@@ -1327,14 +1447,13 @@ def main() -> int:
         k = sys.argv.index("--change")
         change_dir = Path(sys.argv[k + 1]).resolve()
         del sys.argv[k : k + 2]
-    many = len(sys.argv) > 1 and sys.argv[1] in ("statics", "preempt", "residents", "interpod",
-                                                "family", "tail")
+    pairs = ("interpod", "family", "tail", "extras", "slices")
+    many = len(sys.argv) > 1 and sys.argv[1] in ("statics", "preempt", "residents", *pairs)
     if len(sys.argv) < 3 or sys.argv[1] not in SHAPES or (len(sys.argv) > 4 and not many):
         print(__doc__, file=sys.stderr)
         return 2
     kernel, other_dir = sys.argv[1], Path(sys.argv[2]).resolve()
-    shapes = sys.argv[3:] or ([*SHAPES[kernel]] if kernel in ("residents", "interpod", "family",
-                                                             "tail")
+    shapes = sys.argv[3:] or ([*SHAPES[kernel]] if kernel in ("residents", *pairs)
                                else [next(iter(SHAPES[kernel]))])
     if any(shape not in SHAPES[kernel] for shape in shapes):
         print(f"kernel_ab: {kernel} has shapes {sorted(SHAPES[kernel])}", file=sys.stderr)
@@ -1348,7 +1467,7 @@ def main() -> int:
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     if many:
-        if kernel in ("interpod", "family", "tail"):
+        if kernel in pairs:
             rows = pair_ab(kernel, shapes, other_dir, out_dir, torch, change_dir)
         else:
             run = {"statics": statics_ab, "preempt": preempt_ab, "residents": residents_ab}[kernel]

@@ -249,22 +249,82 @@ __device__ inline void cluster_spread_update(const Spread& sp, int n, int i, int
     }
 }
 
-// Launch `kernel` as one cluster of shape.blocks blocks of shape.threads
-// threads with `smem` bytes of dynamic shared memory on `stream`.  Before
-// the first launch of each (kernel, shape, smem) the kernel's attributes
-// are set (non-portable cluster sizes above 8; its dynamic shared memory
-// limit raised to the largest `smem` asked for, so the static and dynamic
-// bytes may pass 48 KB) and the card is asked whether one such cluster
-// fits (cudaOccupancyMaxActiveClusters); a shape the card refuses is an
-// error, returned as the launch's.  Nothing retries.  Later launches of a
-// known shape make no attribute call (they may be captured in a CUDA
-// graph).
-template <class... Params, class... Args>
-inline cudaError_t launch_cluster(void (*kernel)(Params...), Shape shape, int smem,
-                                  cudaStream_t stream, Args... args)
+// Ready `kernel` for clusters of shape.blocks blocks of shape.threads
+// threads with `smem` bytes of dynamic shared memory, and give the clusters
+// of that shape the card holds at once (cudaOccupancyMaxActiveClusters).
+// Before the first launch of each (kernel, shape, smem) the kernel's
+// attributes are set (non-portable cluster sizes above 8; its dynamic
+// shared memory limit raised to the largest `smem` asked for, so the
+// static and dynamic bytes may pass 48 KB) and the card is asked how many
+// such clusters fit; a shape the card refuses (none fits) is an error,
+// returned as the launch's.  Nothing retries.  Later calls for a known
+// shape make no attribute call (a launch may be captured in a CUDA graph).
+template <class... Params>
+inline cudaError_t prepare_cluster(void (*kernel)(Params...), Shape shape, int smem,
+                                   int* capacity)
 {
+    // the (kernel, shape, smem) checked so far (one per block size and
+    // dynamic shared memory size in use; past 256, each launch checks
+    // again); a kernel's dynamic shared memory limit is the largest smem
+    // among its entries
+    struct Checked { const void* fn; int blocks, threads, smem, capacity; };
+    static Checked checked[256];
+    static int n_checked = 0;
+    static std::mutex mu;
+    std::lock_guard<std::mutex> lock(mu);
+    const void* fn = (const void*)kernel;
+    int limit = 0;
+    for (int k = 0; k < n_checked; ++k) {
+        const Checked& c = checked[k];
+        if (c.fn != fn) continue;
+        if (c.blocks == shape.blocks && c.threads == shape.threads && c.smem == smem) {
+            *capacity = c.capacity;
+            return cudaSuccess;
+        }
+        limit = max(limit, c.smem);
+    }
+    cudaError_t err = cudaSuccess;
+    if (shape.blocks > 8) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return err;
+    }
+    if (smem > limit) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+    }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(shape.blocks, 1, 1);
+    cfg.blockDim = dim3(shape.threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = shape.blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    if (n_checked < 256) checked[n_checked++] = {fn, shape.blocks, shape.threads, smem, clusters};
+    *capacity = clusters;
+    return cudaSuccess;
+}
+
+// Launch `kernel` as `count` clusters of shape.blocks blocks of
+// shape.threads threads (cluster k is blocks k * shape.blocks onwards) with
+// `smem` bytes of dynamic shared memory on `stream`, readied by
+// prepare_cluster.
+template <class... Params, class... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Params...), Shape shape, int count, int smem,
+                                   cudaStream_t stream, Args... args)
+{
+    int capacity = 0;
+    cudaError_t err = prepare_cluster(kernel, shape, smem, &capacity);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(count * shape.blocks, 1, 1);
     cfg.blockDim = dim3(shape.threads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
@@ -275,47 +335,17 @@ inline cudaError_t launch_cluster(void (*kernel)(Params...), Shape shape, int sm
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    cudaError_t err = cudaSuccess;
-    {
-        // the (kernel, shape, smem) checked so far (one per block size and
-        // dynamic shared memory size in use; past 256, each launch checks
-        // again); a kernel's dynamic shared memory limit is the largest
-        // smem among its entries
-        struct Checked { const void* fn; int blocks, threads, smem; };
-        static Checked checked[256];
-        static int n_checked = 0;
-        static std::mutex mu;
-        std::lock_guard<std::mutex> lock(mu);
-        const void* fn = (const void*)kernel;
-        bool seen = false;
-        int limit = 0;
-        for (int k = 0; k < n_checked; ++k) {
-            const Checked& c = checked[k];
-            if (c.fn != fn) continue;
-            seen |= c.blocks == shape.blocks && c.threads == shape.threads && c.smem == smem;
-            limit = max(limit, c.smem);
-        }
-        if (!seen) {
-            if (shape.blocks > 8) {
-                err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                                           1);
-                if (err != cudaSuccess) return err;
-            }
-            if (smem > limit) {
-                err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem);
-                if (err != cudaSuccess) return err;
-            }
-            int clusters = 0;
-            err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-            if (err != cudaSuccess) return err;
-            if (clusters < 1) return cudaErrorInvalidConfiguration;
-            if (n_checked < 256) checked[n_checked++] = {fn, shape.blocks, shape.threads, smem};
-        }
-    }
     err = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
+}
+
+// Launch `kernel` as one cluster (launch_clusters with count 1).
+template <class... Params, class... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), Shape shape, int smem,
+                                  cudaStream_t stream, Args... args)
+{
+    return launch_clusters(kernel, shape, 1, smem, stream, args...);
 }
 
 }  // namespace solve

@@ -9,7 +9,7 @@ masks-only entry), one batch (class_statics — the cold statics prep: the
 rows the classes name, the class tables and the selector mask when asked
 for —, class_extras, greedy_scan, wavefront and
 auction_loop — one thread-block cluster for the whole batch —,
-slice_stats — two kernels), one pod's evaluation (evaluate_single: filter
+slice_stats), one pod's evaluation (evaluate_single: filter
 and score in one call for a pod without an extra row, else its filter and
 its score, one call each, with class_extras between them), one
 sync of the partials store (partials_eval: a fresh store from the old
@@ -59,12 +59,12 @@ _ARGTYPES = {
     # the cold statics prep: (ints array, pointer array, stream)
     "class_statics": [_P, _P, _P],
     "greedy_scan": [_I] * 7 + [_P] * 16 + _SPREAD + _TERMS + _SLICES + [_P] * 9,
-    "slice_stats": [_I] * 7 + [_P] * 18,
+    "slice_stats": [_I] * 7 + [_P] * 14,
     "evaluate_single": [_I] * 4 + [_P] * 10 + _SPREAD + _TERMS + _SLICES + [_P] * 5,
     "wavefront": [_I] * 9 + [_P] * 16 + _SPREAD + _TERMS + [_P] * 13,
     # the auction program: (stages, ints array, pointer array, stream)
     "auction_loop": [_I, _P, _P, _P],
-    "class_extras": [_I] * 6 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
+    "class_extras": [_I] * 5 + [_F] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 7,
     # one sync of the partials store: (ints array, pointer array, stream)
     "partials_eval": [_P, _P, _P],
     # the packed delta, its leaves, its blocks, the fresh leaves' allocation
@@ -84,7 +84,6 @@ FP_COUNT = 5 + MAX_FIT + 2 * MAX_SHAPE + 1
 _STRATEGY = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_GRID_Y = 65535
 MAX_WAVE = 32        # wavefront.cu's widest wave
-EXTRAS_GRID = 132    # class_extras' blocks: one an SM, at most
 MAX_MI = 16          # class_extras.cu's images a pod
 MAX_SLICE_DIM = 16   # slices_common.cuh's widest slice extent
 LEAF_BYTES = 64      # mirror_rows.cu's descriptor (ops/device.py LEAF_DTYPE)
@@ -739,8 +738,9 @@ def scan_node_block(n: int, nd: int) -> int:
 
 def slice_stats(cluster, pods, assignment, gang, features, n_groups: int) -> tuple:
     """(frag_score f32[], carveouts, contiguous_gangs, carveout_fallbacks
-    i32[]) of the post-release cluster and assignment, in one call (two
-    kernels: the per-slice grids, then the totals).  gang: the scan's
+    i32[]) of the post-release cluster and assignment, in one launch; the
+    four are views of one allocation that also holds the launch's scratch
+    (the gang flags and the grid: slice_stats_words).  gang: the scan's
     final (gang_sl, gang_lo, gang_corner), or None."""
     from ..ops.schema import RESOURCE_PODS
 
@@ -765,22 +765,27 @@ def slice_stats(cluster, pods, assignment, gang, features, n_groups: int) -> tup
     p = tabs[5].shape[0]
     if gang is None:
         n_groups = 0
-        pad = torch.zeros(1, dtype=i32, device=dev)
-        gang = (pad, pad, pad)
+        gang = (tabs[1],) * 3   # not read without gangs
     else:
         gang = (_arg(gang[0], i32, dev, "gang_sl"), _arg(gang[1], i32, dev, "gang_lo"),
                 _arg(gang[2], b, dev, "gang_corner"))
         if gang[0].shape != (n_groups,) or gang[1].shape != (n_groups, 3):
             raise ValueError("the carve-out carry does not match n_groups")
-    largest = torch.empty(z, dtype=i32, device=dev)
-    free_count = torch.empty(z, dtype=i32, device=dev)
-    flags = torch.empty(max(n_groups, 1), dtype=i32, device=dev)
-    frag = torch.empty((), dtype=f32, device=dev)
-    counters = torch.empty(3, dtype=i32, device=dev)
+    buf = torch.empty(_slice_stats_words(z, d, int(n_groups)), dtype=i32, device=dev)
     _launch("slice_stats", dev, n, z, d, r, RESOURCE_PODS, p, int(n_groups),
-            *(_ptr(t) for t in tabs), *(_ptr(t) for t in gang), _ptr(largest),
-            _ptr(free_count), _ptr(flags), _ptr(frag), _ptr(counters))
-    return frag, counters[0], counters[1], counters[2]
+            *(_ptr(t) for t in tabs), *(_ptr(t) for t in gang), _ptr(buf))
+    counters = buf[1:4]
+    return buf[0].view(f32), counters[0], counters[1], counters[2]
+
+
+@functools.lru_cache(maxsize=64)
+def _slice_stats_words(z: int, d: int, n_groups: int) -> int:
+    """int32 words of slice_stats' one allocation (its library's
+    slice_stats_words: frag, the counters, the gang flags, the grid)."""
+    _launcher("slice_stats")   # binds the library and checks its limits
+    fn = build.library("slice_stats").slice_stats_words
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    return int(fn(z, d, n_groups))
 
 
 def evaluate_single_filter(cluster, pods, srow, features, sp_args=None, tm_args=None):
@@ -1350,12 +1355,27 @@ def class_extras(cluster, prefpod, images, features, cfg, reps, feas, pp) -> tor
     if n and c_dim and p:
         _launch(
             "class_extras", dev,
-            n, c_dim, p, max(1, min(c_dim, EXTRAS_GRID)), int(pref_on), int(img_on),
+            n, c_dim, p, int(pref_on), int(img_on),
             float(cfg.interpod_weight), float(cfg.image_weight), _ptr(reps), _ptr(feas),
             u_dim, ma, *(_ptr(t) for t in pref), iw, i_dim, mi, *(_ptr(t) for t in img),
             _ptr(out),
         )
     return out
+
+
+def class_extras_shape(cluster, prefpod, images, features, reps) -> Tuple[int, int]:
+    """(blocks a cluster, clusters) of class_extras' launch for these pairs
+    on this card (the library's class_extras_shape)."""
+    _launcher("class_extras")   # binds the library and checks its limits
+    fn = build.library("class_extras").class_extras_shape
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 9
+    pref_on, img_on = bool(features.interpod_pref), bool(features.images)
+    dims = (int(cluster.allocatable.shape[0]), int(reps.shape[0]), int(img_on),
+            int(cluster.image_bits.shape[1]) if img_on else 0,
+            int(images.sizes.shape[0]) if img_on else 0, int(pref_on),
+            int(prefpod.pod_idx.shape[1]) if pref_on else 0,
+            int(prefpod.matches_incoming.shape[1]) if pref_on else 0)
+    return fn(0, *dims), fn(1, *dims)
 
 
 # ---- preemption: the dry run and the Filter chain ------------------------------
