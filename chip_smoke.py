@@ -224,6 +224,31 @@ stdout; with --log also appended to PATH):
              wavefront batches' cold statics prep (class_statics, with and
              without the selector mask) at both widths against its plain
              twin on CPU copies
+  encode     (after gang; host only, no kernel launched) the columnar
+             encode, SnapshotBuilder's default, against the per-object one
+             on two builders fed identically: c5 (its 50,000 nodes, a
+             warm-up and 3 batches of 10,000 pods in 100 gangs under fresh
+             names) and the north star's second 10,000-pod batch after the
+             first one's placements; every leaf of both Snapshots and the
+             stable selector and preferred ids byte-equal; build_s both ways
+             (median, min) and one warm build's split into the pod tables,
+             the constraint tables, the image table and the class
+             refinement, each a separate timed call from here
+  profiles   the scheduler's front half: SchedulerConfiguration from a dict
+             (two profiles with different score weights, the default
+             gates), FrameworkRegistry on the card (two TorchBatchSchedulers,
+             one ClusterState, one DispatchArbiter), SchedulingBasic/
+             5000Nodes with 1,000 pod-default pods dealt between the
+             profiles, 10 pod-large-cpu pods, 10 pods whose selector no node
+             matches and 10 naming an unknown scheduler (never queued);
+             SchedulingQueue -> pop_batch(profiles={name}) -> encode ->
+             solve, placements assumed, failures parked with the card's
+             reason; 10 assumed pods deleted, AssignedPodDelete wakes the
+             fit failures only; 64 16-CPU nodes added, NodeAdd wakes every
+             parked pod, the large pods place on them and the selector pods
+             fail again with the same reason; every cycle equal to the same
+             sequence through FrameworkRegistry(device="cpu"); the arbiter
+             took one slot a dispatch, forced none and holds none
   breakers   once, after every phase above (none arms a fault; the
              counters only count up): every scheduler built so far has its
              circuit breaker closed, no trip, no host fallback and no
@@ -257,7 +282,8 @@ stdout; with --log also appended to PATH):
              healthy twin)
 
 In every part of main, greedy, wavefront, spread, interpod, extras,
-slices, extender, proto, resident, north and gang the launch counters are reset
+slices, extender, proto, resident, north, gang, encode and profiles the
+launch counters are reset
 just before the part and
 read just after; the kernels expected are derived from the batches the
 part's schedulers encoded (route_kernels): the route's own — a cold batch
@@ -366,6 +392,31 @@ C9 = (20000, 16)
 C5 = (50000, 10000, 100)
 C5_ZONES, C5_TIMED, C5_SCARCE = 10, 3, 200
 C5_DROP_GANGS = (3, 41, 97)
+# the encode phase's timed builds a side at the north star's second batch
+ENCODE_NORTH_BUILDS = 3
+# the profiles phase (the scheduler's front half): SchedulingBasic/5000Nodes
+# (nodes, pod-default pods split between the two profiles); PROFILES_ODD
+# pods each of MixedChurn's pod-large-cpu (cpu 9, 500Mi, priority 10), of a
+# node selector no node matches and of an unknown schedulerName; the
+# assumed pods deleted before the AssignedPodDelete event; the 16-CPU
+# nodes added before the NodeAdd event
+PROFILES = (5000, 1000)
+PROFILES_ODD, PROFILES_DELETE, PROFILES_NEW_NODES = 10, 10, 64
+# two profiles with different score weights, the default feature gates
+# (KubeSchedulerConfiguration as a dict: no YAML parser needed)
+PROFILES_CONFIG = {
+    "apiVersion": "kubescheduler.config.k8s.io/v1",
+    "kind": "KubeSchedulerConfiguration",
+    "profiles": [
+        {"schedulerName": "default-scheduler"},
+        {"schedulerName": "packing-scheduler",
+         "plugins": {"score": {"enabled": [
+             {"name": "NodeResourcesFit", "weight": 5},
+             {"name": "NodeResourcesBalancedAllocation", "weight": 3}]}},
+         "pluginConfig": [{"name": "NodeResourcesFit", "args": {
+             "scoringStrategy": {"type": "MostAllocated"}}}]},
+    ],
+}
 
 # H100 SXM published peaks (NVIDIA data sheet: HBM3 rate, non-tensor float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1648,6 +1699,11 @@ def main() -> int:
     # ---- bench.py's c5: the gang burst, 10,000 pods in 100 gangs ---------
     summary.extend(gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch,
                               card))
+    # ---- the scheduler's front half: the columnar encode, the profiles ----
+    encode, encode_launches = drive_phase(
+        "encode", lambda: encode_phase(wrappers, pods, got, card), bindings, [])
+    emit(dict(encode, launches=encode_launches))
+    emit(profiles_phase(wrappers, TorchBatchScheduler, bindings, torch, card))
     # every phase so far arms no fault: breakers, fallbacks and cold
     # partials syncs only ever count up, so one check covers them all
     emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
@@ -6437,6 +6493,334 @@ def faults_phase(wrappers, TorchBatchScheduler, assign, auction, filters, dv, bi
         "dry_run_victims": row}
     emit(out)
     return out
+
+
+# ---- the scheduler's front half: the columnar encode and the profiles ------
+
+def snapshots_equal(what, a, b, meta_a, meta_b) -> None:
+    """Every leaf of two host Snapshots byte-equal (dtype, shape and
+    bytes), and the stable selector and preferred ids of their metas."""
+    import numpy as np
+
+    for table in type(a)._fields:
+        ta, tb = getattr(a, table), getattr(b, table)
+        for f in type(ta)._fields:
+            x, y = np.asarray(getattr(ta, f)), np.asarray(getattr(tb, f))
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                raise AssertionError(f"{what}: {table}.{f} differs between the columnar "
+                                     "and the per-object encode")
+    if meta_a.sel_stable != meta_b.sel_stable or meta_a.pref_stable != meta_b.pref_stable:
+        raise AssertionError(f"{what}: the stable selector or preferred ids differ")
+
+
+def build_split(builder, state, pending, schema) -> dict:
+    """One build_from_state's steps, each a separate timed call from here:
+    the effective-requests pass with the resource intern and the cluster
+    views (prep_s), the pod tables (pods_s: _build_pods_columnar or
+    _build_pods, by the builder's switch), the constraint tables
+    (constraints_s), the image table (images_s) and the class refinement
+    (refine_s)."""
+    from kubernetes_tpu_torch.utils import vocab
+
+    clock = time.perf_counter
+    t0 = clock()
+    eff_list = [builder.effective_requests(p) for p in pending]
+    for eff in eff_list:
+        builder._resource_vector(eff, 0, grow=True)
+    state.ensure_resources()
+    r = len(builder.resource_names)
+    n = state.tensors().allocatable.shape[0]
+    p_dim = vocab.pad_dim(len(pending), builder.limits.min_pods)
+    t1 = clock()
+    if builder.columnar:
+        pods, _sel, _pref, sel_index = builder._build_pods_columnar(pending, p_dim, r, eff_list)
+    else:
+        pods, _sel, _pref, sel_index = builder._build_pods(pending, p_dim, r)
+    t2 = clock()
+    spread, terms, prefpod = builder._build_constraints(
+        pending, state.bound_pods(), sel_index, n, p_dim)
+    t3 = clock()
+    images = builder.image_table(pending, p_dim)
+    t4 = clock()
+    schema._refine_classes(pods, spread, terms, prefpod, images)
+    t5 = clock()
+    return {"prep_s": t1 - t0, "pods_s": t2 - t1, "constraints_s": t3 - t2,
+            "images_s": t4 - t3, "refine_s": t5 - t4, "sum_s": t5 - t0}
+
+
+def encode_phase(wrappers, north_pods, north_names, card) -> dict:
+    """The columnar encode (SnapshotBuilder's default) against the
+    per-object one, host only: two builders fed identically, each over
+    its own ClusterState.  c5 (C5: its 50,000 nodes, a warm-up and
+    C5_TIMED batches of 10,000 pods in 100 gangs under fresh names,
+    nothing assumed) and the north star's second batch (50,000 nodes, the
+    first batch's 10,000 pods accounted where the card placed them, a
+    second batch of 10,000: a warm-up and ENCODE_NORTH_BUILDS builds).
+    Every batch's Snapshots byte-equal leaf for leaf, the stable ids
+    equal; build_from_state's seconds both ways (median, min) and the
+    split of one warm build each way."""
+    import statistics
+
+    from kubernetes_tpu_torch.ops import schema
+
+    def sides(nodes, bound=()):
+        out = []
+        for columnar in (True, False):
+            b = schema.SnapshotBuilder()
+            b.columnar = columnar
+            st = schema.ClusterState(b)
+            for node in nodes:
+                st.add_node(node)
+            for pod, name in bound:
+                st.add_pod(pod, name)
+            out.append((b, st))
+        return out
+
+    def build_both(what, both, pods):
+        got, secs = [], []
+        for b, st in both:
+            t = time.perf_counter()
+            snap, meta = b.build_from_state(st, pods)
+            secs.append(time.perf_counter() - t)
+            got.append((snap, meta))
+        snapshots_equal(what, got[0][0], got[1][0], got[0][1], got[1][1])
+        return secs
+
+    def run(what, both, batches):
+        secs = {"columnar": [], "per_object": []}
+        for k, pods in enumerate(batches):
+            col, obj = build_both(f"{what}/{k}", both, pods)
+            if k:  # the first is the warm-up
+                secs["columnar"].append(col)
+                secs["per_object"].append(obj)
+        last = batches[-1]
+        return {
+            "timed_builds": len(batches) - 1, "equal": True,
+            "build_s": {side: {"median": statistics.median(v), "min": min(v), "all": v}
+                        for side, v in secs.items()},
+            "split": {"columnar": build_split(*both[0], last, schema),
+                      "per_object": build_split(*both[1], last, schema)},
+        }
+
+    out = {"phase": "encode", "card": card}
+    t0 = time.perf_counter()
+    c5 = sides(c5_nodes(wrappers, C5[0]))
+    out["c5"] = dict(run("encode/c5", c5, [
+        c5_pods(wrappers, f"enc-{tag}")
+        for tag in ("warmup",) + tuple(f"run{j}" for j in range(C5_TIMED))]),
+        workload="bench.py c5 (config5)", nodes=C5[0], pods=C5[1])
+    del c5
+    north = sides(make_cluster(wrappers, NORTH[0]), list(zip(north_pods, north_names)))
+    second = make_pods(wrappers, NORTH[2], "burst2")
+    out["north_second"] = dict(
+        run("encode/north-second", north, [second] * (1 + ENCODE_NORTH_BUILDS)),
+        nodes=NORTH[0], bound=len(north_pods), pods=NORTH[2])
+    del north
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def front_half_sequence(wrappers, assign, registry, SchedulerCache, SchedulingQueue,
+                        n_nodes: int, n_pods: int, odd: int = PROFILES_ODD,
+                        delete: int = PROFILES_DELETE,
+                        new_nodes: int = PROFILES_NEW_NODES) -> dict:
+    """The scheduler's front half as the reference's loop drives it up to
+    its binding stage, over `registry` (a FrameworkRegistry of two
+    profiles; duck-typed, so the reference's registry takes the same
+    sequence in the tests): SchedulingBasic's n_nodes node-default nodes
+    into a SchedulerCache over the registry's one ClusterState; n_pods
+    pod-default pods dealt between the two profiles, `odd` pods each of
+    pod-large-cpu (fit no 4-CPU node) and of a node selector no node
+    matches, dealt alike, and `odd` naming an unknown scheduler
+    (for_pod None: never queued).  A cycle pops each profile's own class
+    (pop_batch(profiles={name}), no window), solves it through that
+    profile's scheduler under the cache lock, assumes what placed and
+    parks what failed with the reason the solve read back.  Then `delete`
+    assumed pods leave and AssignedPodDelete wakes the fit failures only;
+    a cycle parks them again; `new_nodes` 16-CPU nodes arrive and NodeAdd
+    wakes every parked pod; a cycle places the large pods on the new
+    nodes and fails the selector pods with the same reason.  The queue's
+    clock is a counter stepped past the backoff between cycles.  Returns
+    each cycle's {pod: (profile, node, reason)}, the wake counts, the
+    dispatches with each one's last_timings, the cycles' walls and the
+    queue's final tiers."""
+    api = wrappers.api
+    cfg = registry.config
+    names = [f.scheduler_name for f in registry]
+    now = [0.0]
+    cache = SchedulerCache(registry.state)
+    queue = SchedulingQueue(backoff_base=cfg.pod_initial_backoff_seconds,
+                            backoff_max=cfg.pod_max_backoff_seconds,
+                            unschedulable_flush_after=cfg.unschedulable_flush_seconds,
+                            clock=lambda: now[0])
+    for node in make_cluster(wrappers, n_nodes):
+        cache.add_node(node)
+    mi = wrappers.MI
+    basic = make_pods(wrappers, n_pods, "fh")
+    large = [wrappers.make_pod(f"fh-large-{i}").req(cpu_milli=9000, mem=500 * mi)
+             .priority(10).obj() for i in range(odd)]
+    picky = [wrappers.make_pod(f"fh-picky-{i}")
+             .req(cpu_milli=POD_CPU_MILLI, mem=POD_MEM_MI * mi)
+             .node_selector_kv("front-half", "nowhere").obj() for i in range(odd)]
+    strays = make_pods(wrappers, odd, "fh-stray")
+    for group in (basic, large, picky):
+        for i, pod in enumerate(group):
+            pod.spec.scheduler_name = names[i % len(names)]
+    for pod in strays:
+        pod.spec.scheduler_name = "no-such-scheduler"
+    out = {"cycles": [], "walls": [], "timings": [], "dispatches": 0}
+    skipped = 0
+    for pod in basic + large + picky + strays:
+        if registry.for_pod(pod) is None:
+            skipped += 1
+            continue
+        queue.add(pod)
+    if skipped != odd:
+        raise AssertionError(f"front half: {skipped} pods skipped, {odd} name no profile")
+
+    def cycle():
+        t = time.perf_counter()
+        rec = {}
+        for fwk in registry:
+            infos = queue.pop_batch(cfg.batch_size, timeout=0, window=0,
+                                    profiles={fwk.scheduler_name})
+            if not infos:
+                continue
+            pods = [info.pod for info in infos]
+            placed = fwk.tpu.schedule_pending(pods, lock=cache.lock)
+            reasons = fwk.tpu.last_solve.reasons()
+            out["dispatches"] += 1
+            out["timings"].append(dict(fwk.tpu.last_timings, profile=fwk.scheduler_name,
+                                       pods=len(pods)))
+            for info, node, reason in zip(infos, placed, reasons):
+                if node is None:
+                    queue.add_unschedulable(info, reason=reason)
+                else:
+                    cache.assume(info.pod, node)
+                    queue.done(info.pod)
+                rec[info.pod.meta.name] = (fwk.scheduler_name, node, int(reason))
+        out["walls"].append(time.perf_counter() - t)
+        out["cycles"].append(rec)
+        return rec
+
+    def expect_failed(what, rec, pods, reason):
+        for pod in pods:
+            got = rec.get(pod.meta.name)
+            if got is None or got[1] is not None or got[2] != reason:
+                raise AssertionError(f"front half {what}: {pod.meta.name} -> {got}, "
+                                     f"expected unplaced with reason {reason}")
+
+    first = cycle()
+    for pod in basic:
+        if first.get(pod.meta.name, (None, None))[1] is None:
+            raise AssertionError(f"front half: {pod.meta.name} was not placed")
+    expect_failed("cycle 1", first, large, assign.REASON_RESOURCES)
+    expect_failed("cycle 1", first, picky, assign.REASON_STATIC)
+    if any(queue.contains(f"{p.meta.namespace}/{p.meta.name}") for p in strays):
+        raise AssertionError("front half: a pod of an unknown scheduler was queued")
+    for pod in basic[:delete]:
+        cache.remove_pod(pod)
+    moved_delete = queue.move_for_event("AssignedPodDelete")
+    parked = queue.stats()["unschedulable"]
+    if moved_delete != len(large) or parked != len(picky):
+        raise AssertionError(f"front half: AssignedPodDelete woke {moved_delete} "
+                             f"(parked {parked}); expected {len(large)} ({len(picky)})")
+    now[0] += cfg.pod_max_backoff_seconds + 1.0
+    second = cycle()
+    expect_failed("cycle 2", second, large, assign.REASON_RESOURCES)
+    if set(second) != {p.meta.name for p in large}:
+        raise AssertionError(f"front half cycle 2 popped {sorted(second)}")
+    gi = wrappers.GI
+    fresh = [wrappers.make_node(f"fh-big-{i}")
+             .capacity(cpu_milli=16000, mem=NODE_MEM_GI * gi, pods=NODE_PODS)
+             .zone(f"zone-{i % ZONES}").obj() for i in range(new_nodes)]
+    for node in fresh:
+        cache.add_node(node)
+    moved_add = queue.move_for_event("NodeAdd")
+    if moved_add != len(large) + len(picky):
+        raise AssertionError(f"front half: NodeAdd woke {moved_add}, expected "
+                             f"{len(large) + len(picky)}")
+    now[0] += cfg.pod_max_backoff_seconds + 1.0
+    third = cycle()
+    big = {n.meta.name for n in fresh}
+    for pod in large:
+        got = third.get(pod.meta.name)
+        if got is None or got[1] not in big:
+            raise AssertionError(f"front half cycle 3: {pod.meta.name} -> {got}")
+    expect_failed("cycle 3", third, picky, assign.REASON_STATIC)
+    stats = queue.stats()
+    if (stats["unschedulable"] != len(picky) or stats["inflight"] or stats["active"]
+            or stats["backoff"]):
+        raise AssertionError(f"front half: queue ends {stats}")
+    out.update(moved={"AssignedPodDelete": moved_delete, "NodeAdd": moved_add},
+               skipped=skipped, queue=stats, assumed=cache.assumed_count())
+    return out
+
+
+def profiles_phase(wrappers, TorchBatchScheduler, bindings, torch, card) -> dict:
+    """SchedulerConfiguration from a dict (two profiles with different
+    score weights, the default gates) -> FrameworkRegistry on the card
+    (two TorchBatchSchedulers, one ClusterState, one DispatchArbiter) ->
+    front_half_sequence at SchedulingBasic/5000Nodes, its launch counters
+    at 0 before and read after (drive_phase); the same sequence through
+    FrameworkRegistry(..., device="cpu"): every cycle's placements and
+    reasons equal; the arbiter took one slot a dispatch, forced none and
+    holds none at the end."""
+    from kubernetes_tpu_torch.ops import assign
+    from kubernetes_tpu_torch.scheduler import config, framework
+    from kubernetes_tpu_torch.scheduler.cache import SchedulerCache
+    from kubernetes_tpu_torch.scheduler.queue import SchedulingQueue
+
+    saved = framework.TorchBatchScheduler
+    # the registry builds the recording class, so the launch checks and
+    # assert_healthy see its schedulers
+    framework.TorchBatchScheduler = TorchBatchScheduler
+    try:
+        reg = framework.FrameworkRegistry(config.load_config(PROFILES_CONFIG))
+        cpu_reg = framework.FrameworkRegistry(config.load_config(PROFILES_CONFIG), device="cpu")
+    finally:
+        framework.TorchBatchScheduler = saved
+    scheds = [f.tpu for f in reg]
+    arb = reg.arbiter
+    if (len(scheds) != 2 or arb is None or any(s.arbiter is not arb for s in scheds)
+            or scheds[0].state is not scheds[1].state
+            or any(s.device.type != "cuda" for s in scheds)
+            or scheds[0].score_config == scheds[1].score_config):
+        raise AssertionError("profiles: not two card schedulers with their own weights over "
+                             "one state and one arbiter")
+    marks = [len(s.metas) for s in scheds]
+
+    def run():
+        return front_half_sequence(wrappers, assign, reg, SchedulerCache, SchedulingQueue,
+                                   *PROFILES)
+
+    got, launches = drive_phase("profiles", run, bindings, scheds)
+    t0 = time.perf_counter()
+    want = front_half_sequence(wrappers, assign, cpu_reg, SchedulerCache, SchedulingQueue,
+                               *PROFILES)
+    cpu_s = time.perf_counter() - t0
+    if got["cycles"] != want["cycles"]:
+        raise AssertionError("profiles: the card's placements or reasons differ from the CPU's")
+    encodes = sum(len(s.metas) - k for s, k in zip(scheds, marks))
+    if arb.acquires != got["dispatches"] or encodes != got["dispatches"]:
+        raise AssertionError(f"profiles: {arb.acquires} arbiter acquires, {encodes} encodes, "
+                             f"{got['dispatches']} dispatches")
+    if arb.forced or arb.inflight():
+        raise AssertionError(f"profiles: arbiter forced {arb.forced}, {arb.inflight()} held")
+    routes = [[m.route for m in s.metas[k:]] for s, k in zip(scheds, marks)]
+    return {"phase": "profiles", "workload": "SchedulingBasic/5000Nodes, two profiles",
+            "nodes": PROFILES[0], "pods": PROFILES[1], "odd": PROFILES_ODD,
+            "profiles": [f.scheduler_name for f in reg], "routes": routes,
+            "placed": [sum(v[1] is not None for v in c.values()) for c in got["cycles"]],
+            "popped": [len(c) for c in got["cycles"]], "moved": got["moved"],
+            "skipped": got["skipped"], "queue": got["queue"], "assumed": got["assumed"],
+            "dispatches": got["dispatches"],
+            "arbiter": {"depth": arb.depth, "acquires": arb.acquires, "forced": arb.forced,
+                        "inflight": arb.inflight()},
+            "encode_rows_per_s": [s.last_encode_rows_per_s for s in scheds],
+            "cycle_s": got["walls"], "last_timings": got["timings"],
+            "cpu_cycle_s": want["walls"], "cpu_s": cpu_s,
+            "equal_cpu": True, "launches": launches, "card": card}
 
 
 

@@ -46,6 +46,12 @@ card only SolveUnhealthy and an injected fault take these paths
 CUDA error, re-raises.  The fault points `batch.solve`,
 `solve.carveout` (here), `solve.partials` (models/partials.py) and
 `mirror.grow` (models/mirror.py) drive these paths (testing/faults.py).
+
+Profiles that share one card (scheduler/framework.py FrameworkRegistry)
+share one DispatchArbiter: a dispatch takes a slot before its launch and
+the decode gives it back once the readback's event completed, so at most
+`depth` solves are in flight across the profiles.  One profile passes
+arbiter=None and takes no slot.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ import numpy as np
 import torch
 
 from ..analysis import epochs
+from ..analysis import ledger as _ledger
 from ..api import types as api
 from ..ops import assign as assign_ops
 from ..ops import auction as auction_ops
@@ -170,6 +177,67 @@ class SolveCircuitBreaker:
             self._open_until = 0.0
 
 
+class DispatchArbiter:
+    """Device-admission control for concurrent profile lanes sharing one
+    card (the reference's, whole).
+
+    Each lane runs its own pop→encode→solve pipeline; encodes already
+    serialize under the scheduler-cache lock, but device dispatch must be
+    arbitrated: the arbiter bounds in-flight device solves to `depth`
+    (default 2 — double-buffering: lane A's batch N+1 dispatches while
+    batch N reads back, and a third program cannot pile onto the card's
+    stream ahead of another lane's turn).  A slot is taken before the
+    launch and given back by DeviceSolve's decode once the readback's
+    event has completed (or by an explicit release_slot on an
+    invalidation path that never decodes).
+
+    The wait is deadline-bounded as a safety valve: a leaked slot (a
+    caller that dispatched and never decoded) degrades fairness, never
+    wedges a lane — forced admissions are counted in `forced`."""
+
+    def __init__(self, depth: int = 2, timeout: float = 30.0,
+                 clock=time.monotonic):
+        self.depth = max(int(depth), 1)
+        self.timeout = timeout
+        self._clock = clock
+        self._cv = threading.Condition()
+        self._inflight = 0
+        self.acquires = 0
+        self.forced = 0
+
+    def acquire(self) -> bool:
+        """Take a dispatch slot; False means the deadline expired and
+        admission was forced (the safety valve, not the normal path)."""
+        with self._cv:
+            self.acquires += 1
+            deadline = self._clock() + self.timeout
+            while self._inflight >= self.depth:
+                remaining = deadline - self._clock()
+                if remaining <= 0:
+                    self.forced += 1
+                    self._inflight += 1
+                    _ledger.push("slot", id(self))
+                    return False
+                self._cv.wait(min(remaining, 0.2))
+            self._inflight += 1
+            _ledger.push("slot", id(self))
+            return True
+
+    def release(self) -> None:
+        with self._cv:
+            # the ledger pop sits BEFORE the below-zero guard on purpose:
+            # the guard keeps the counter sane, but a release with no
+            # matching acquire is the double-discharge the ledger surfaces
+            _ledger.pop("slot", id(self))
+            if self._inflight > 0:
+                self._inflight -= 1
+            self._cv.notify_all()
+
+    def inflight(self) -> int:
+        with self._cv:
+            return self._inflight
+
+
 class HostSolve:
     """A completed host-fallback solve with DeviceSolve's surface: the
     names are already there; there is no device future, no pinned buffer
@@ -200,6 +268,9 @@ class HostSolve:
 
     def reasons(self) -> Optional[List[int]]:
         return None
+
+    def release_slot(self) -> None:
+        """No-op: the host fallback never held a dispatch slot."""
 
 
 class DeviceSolve:
@@ -245,6 +316,10 @@ class DeviceSolve:
         else:
             self._host = fields
             self._event = None
+        # DispatchArbiter slot held for this in-flight solve (multi-lane
+        # admission); released by the decode, or explicitly by an
+        # invalidation path that never decodes
+        self._slot: Optional[DispatchArbiter] = None
         self.dispatched_at = clock()
         # step wall split, filled by schedule_pending_async / _decode
         self.encode_s = 0.0        # snapshot encode + host->device transfer
@@ -256,12 +331,24 @@ class DeviceSolve:
         """Non-blocking: has the device finished the solve and its readback?"""
         return self._event is None or bool(self._event.query())
 
+    def release_slot(self) -> None:
+        """Give the dispatch-arbiter slot back (idempotent).  Runs from
+        the decode's finally and from an invalidation path."""
+        slot, self._slot = self._slot, None
+        if slot is not None:
+            slot.release()
+
     def _decode(self):
         if self._decoded is None:
             t0 = self._clock()
             self.deferred_s = t0 - self.dispatched_at
-            if self._event is not None:
-                self._event.synchronize()
+            try:
+                if self._event is not None:
+                    self._event.synchronize()
+            finally:
+                # the card finished (or failed) this program and its
+                # readback: the next lane's dispatch may proceed either way
+                self.release_slot()
             self.decode_wait_s = self._clock() - t0
             assignment, scores, reasons = (h.numpy() for h in self._host[:3])
             # health check: a NaN score, or a placed pod whose winning score
@@ -329,7 +416,9 @@ class TorchBatchScheduler:
     classic scan.  use_mirror / use_partials / partials_resync_interval:
     the resident cluster mirror and the warm partials (the module
     docstring); the partials need the mirror.  carveout_policy:
-    "prefer" | "require" | "off" for the TPU slice carve-out family."""
+    "prefer" | "require" | "off" for the TPU slice carve-out family.
+    arbiter: a DispatchArbiter shared by the profile lanes of one card
+    (FrameworkRegistry builds one for two or more profiles)."""
 
     # Greedy-family batches at least this large (padded) solve through the
     # wavefront (ops.assign.wavefront_assign), as in the reference package.
@@ -352,6 +441,7 @@ class TorchBatchScheduler:
         use_partials: bool = True,
         partials_resync_interval: int = PartialsCache.DEFAULT_RESYNC_INTERVAL,
         carveout_policy: str = "prefer",
+        arbiter: Optional[DispatchArbiter] = None,
     ):
         if mode not in ("auto", "greedy", "auction"):
             raise ValueError(f"mode must be auto|greedy|auction, got {mode!r}")
@@ -377,6 +467,12 @@ class TorchBatchScheduler:
             self.state = schema.ClusterState(self.builder)
         self.score_config = score_config
         self.mode = mode
+        # shared across the profile lanes of one card (FrameworkRegistry);
+        # None (one profile) takes no slot and pays nothing
+        self.arbiter = arbiter
+        # throughput of the most recent snapshot build (pods/s over the
+        # build_from_state wall time), as the reference records it
+        self.last_encode_rows_per_s = 0.0
         self.use_wavefront = use_wavefront
         self.use_mirror = use_mirror
         self._mirror = DeviceClusterMirror(self.state, self.device)
@@ -489,6 +585,8 @@ class TorchBatchScheduler:
                 self.state, pending, num_pods_hint=num_pods_hint
             )
             split = {"build_s": time.perf_counter() - t0}
+            if pending and split["build_s"] > 0.0:
+                self.last_encode_rows_per_s = len(pending) / split["build_s"]
             rows, reqs, nzs = [], [], []
             for node_name, pod in reservations:
                 row = self.state._rows.get(node_name)
@@ -613,11 +711,25 @@ class TorchBatchScheduler:
         if (meta.features is not None and meta.features.slices
                 and (meta.n_groups or 0) > 0):
             faults.fire("solve.carveout", gangs=meta.n_groups)
-        result = self._dispatch(snap, meta)
-        if act == faults.CORRUPT and getattr(result, "scores", None) is not None:
-            result = result._replace(scores=torch.full_like(result.scores, float("nan")))
+        slot = self.arbiter
+        if slot is not None:
+            # multi-lane admission: at most `depth` device programs in
+            # flight across every profile lane of this card, taken before
+            # the launch and never between the launch and the readback
+            slot.acquire()
+        try:
+            result = self._dispatch(snap, meta)
+            if act == faults.CORRUPT and getattr(result, "scores", None) is not None:
+                result = result._replace(
+                    scores=torch.full_like(result.scores, float("nan")))
+            ds = DeviceSolve(result, meta)
+        except BaseException:
+            if slot is not None:
+                slot.release()
+            raise
         self.last_result = result
-        return DeviceSolve(result, meta)
+        ds._slot = slot
+        return ds
 
     def solve_encoded(
         self, snap: schema.Snapshot, meta: schema.SnapshotMeta

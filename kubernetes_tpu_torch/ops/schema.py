@@ -1,7 +1,8 @@
 """Dense tensor schema for cluster state + the snapshot builder.
 
-A numpy-only copy of the reference package's encoder (the per-object
-`SnapshotBuilder` path and `ClusterState`), kept in this package so the
+A numpy-only copy of the reference package's encoder (`SnapshotBuilder`
+with its columnar path, the default, and the per-object path that is its
+parity oracle, and `ClusterState`), kept in this package so the
 torch port never imports the JAX package.  Field names, dtypes, axis
 order, vocabulary interning and the node-row discipline are identical:
 row order decides first-max-index ties, so any drift here would change
@@ -427,6 +428,12 @@ class SnapshotBuilder:
         # carve-out shape (scheduler/deviceclaims.py pod_shape) on top
         # of any pod.spec.tpu_topology request.
         self.pod_shape_hook = None
+        # Columnar fast path for build_from_state: persistent cross-batch
+        # spec-row store + vectorized batch assembly
+        # (_build_pods_columnar).  The per-object _build_pods stays the
+        # parity oracle — flip this off to force it.
+        self.columnar = True
+        self._spec_store = _PodSpecStore()
 
     def _transform(self, pod: api.Pod):
         if self.pod_transform is None:
@@ -810,8 +817,11 @@ class SnapshotBuilder:
         O(pending + changed), not O(cluster)."""
         if state.builder is not self:
             raise ValueError("state was built by a different SnapshotBuilder")
-        for p in pending_pods:
-            self._resource_vector(self.effective_requests(p), 0, grow=True)
+        # one effective-requests derivation per pod for the whole build:
+        # the intern pass here and the columnar signature pass reuse it
+        eff_list = [self.effective_requests(p) for p in pending_pods]
+        for eff in eff_list:
+            self._resource_vector(eff, 0, grow=True)
         state.ensure_resources()
         r = len(self.resource_names)
         cluster = state.tensors()
@@ -819,7 +829,11 @@ class SnapshotBuilder:
         p_dim = vb.pad_dim(
             max(len(pending_pods), num_pods_hint), self.limits.min_pods
         )
-        pods, sel, pref, sel_index = self._build_pods(pending_pods, p_dim, r)
+        pods, sel, pref, sel_index = (
+            self._build_pods_columnar(pending_pods, p_dim, r, eff_list)
+            if self.columnar
+            else self._build_pods(pending_pods, p_dim, r)
+        )
         spread, terms, prefpod = self._build_constraints(
             pending_pods, state.bound_pods(), sel_index, n, p_dim
         )
@@ -1181,8 +1195,11 @@ class SnapshotBuilder:
         eff: Optional[Dict[str, int]] = None,
     ) -> tuple:
         """The spec-row identity: exactly the fields a pod's encoded row
-        is derived from, keyed by the per-batch cache (_build_pods) on
-        the SOURCE strings, not vocab ids.  `eff` is an optional precomputed
+        is derived from.  Shared by the per-batch cache (_build_pods) and
+        the persistent columnar store (_build_pods_columnar) — keying on
+        the SOURCE strings, not vocab ids, so a key stays valid across
+        vocabulary growth and the store's staleness gates re-derive the
+        id-dependent columns.  `eff` is an optional precomputed
         effective_requests(pod) (pure) to avoid re-deriving it."""
         spec = pod.spec
         aff = spec.affinity
@@ -1210,6 +1227,127 @@ class SnapshotBuilder:
             # shaped and unshaped pods must not share a row
             shape,
         )
+
+    def _build_pods_columnar(
+        self, pods: Sequence[api.Pod], p_dim: int, r: int,
+        eff_list: Optional[Sequence[Dict[str, int]]] = None,
+    ) -> Tuple[PodBatch, SelectorTable, PreferredTable, Dict[tuple, int]]:
+        """Columnar twin of _build_pods, bit-identical by construction.
+
+        The Python loop below touches only the per-POD fields (validity,
+        priority, group, carve-out shape, spec-key lookup); everything
+        per-SPEC comes out of the persistent _PodSpecStore as column
+        blocks, so a warm batch assembles its arrays with a handful of
+        fancy-index gathers — O(P) dict hits + O(distinct specs) encodes
+        instead of P x fields attribute walks.  The per-object
+        _build_pods stays byte-for-byte the parity oracle
+        (tests/test_encoder_parity.py)."""
+        lim = self.limits
+        mt = lim.max_preferred
+        store = self._spec_store
+        store.sync(self, r)
+        npods = len(pods)
+
+        valid = np.zeros(p_dim, dtype=bool)
+        priority = np.zeros(p_dim, dtype=np.float32)
+        group_id = np.full(p_dim, -1, dtype=np.int32)
+        pod_shape = np.zeros((p_dim, 3), dtype=np.int32)
+        group_index: Dict[str, int] = {}
+        rows = np.zeros(npods, dtype=np.int32)
+        row_of = store.rows
+        for i, pod in enumerate(pods):
+            valid[i] = True
+            priority[i] = float(pod.spec.priority)
+            shape = self.pod_carveout_shape(pod)
+            pod_shape[i] = shape
+            if pod.spec.scheduling_group:
+                group_id[i] = group_index.setdefault(
+                    pod.spec.scheduling_group, len(group_index)
+                )
+            extra_sel, _extra_req = self._transform(pod)
+            eff = eff_list[i] if eff_list is not None else None
+            key = self._spec_signature(pod, extra_sel, shape, eff)
+            row = row_of.get(key)
+            if row is None:
+                row = store.encode_row(self, pod, extra_sel, key, r, eff)
+            rows[i] = row
+
+        req = np.zeros((p_dim, r), dtype=np.float32)
+        nonzero = np.zeros((p_dim, r), dtype=np.float32)
+        name_id = np.full(p_dim, -1, dtype=np.int32)
+        tol_bits = np.zeros((3, p_dim, lim.taint_words), dtype=np.uint32)
+        tol_all = np.zeros((3, p_dim), dtype=bool)
+        port_bits = np.zeros((p_dim, lim.port_words), dtype=np.uint32)
+        pref_weight = np.zeros((p_dim, mt), dtype=np.float32)
+        sel_idx = np.full(p_dim, -1, dtype=np.int32)
+        pref_idx = np.full((p_dim, mt), -1, dtype=np.int32)
+
+        if npods:
+            # the columnar gathers: one fancy-index per field
+            req[:npods] = store.req[rows, :r]
+            nonzero[:npods] = store.nonzero[rows, :r]
+            name_id[:npods] = store.name_id[rows]
+            tol_bits[:, :npods, :] = store.tol_bits[:, rows, :]
+            tol_all[:, :npods] = store.tol_all[:, rows]
+            port_bits[:npods] = store.port_bits[rows]
+            pref_weight[:npods] = store.pref_weight[rows]
+            sel_order, sel_remap = _first_encounter(store.sel_lid[rows])
+            sel_idx[:npods] = sel_remap
+            pref_order, pref_remap = _first_encounter(
+                store.pref_lid[rows].ravel()
+            )
+            pref_idx[:npods] = pref_remap.reshape(npods, mt)
+        else:
+            sel_order, pref_order = [], []
+
+        sel = _fill_selector_table(
+            [store.sel_encoding(self, lid) for lid in sel_order],
+            lim.max_terms, lim.max_exprs, lim.max_ids_per_expr,
+        )
+        pref = _fill_preferred_table(
+            [store.pref_encoding(self, lid) for lid in pref_order],
+            lim.max_exprs, lim.max_ids_per_expr,
+        )
+        sel_index = {store.sel_sigs[lid]: j for j, lid in enumerate(sel_order)}
+        self._last_stable = (
+            tuple(
+                self._stable_id(("sel", store.sel_sigs[lid]))
+                for lid in sel_order
+            ),
+            tuple(
+                self._stable_id(("pref", store.pref_sigs[lid]))
+                for lid in pref_order
+            ),
+        )
+        store.finish(self)
+
+        class_id, class_rep = _pod_classes(
+            valid, name_id, sel_idx, tol_bits, tol_all, port_bits,
+            pref_idx, pref_weight, req, nonzero, pod_shape,
+        )
+        batch = PodBatch(
+            valid=valid,
+            req=req,
+            nonzero_req=nonzero,
+            name_id=name_id,
+            sel_idx=sel_idx,
+            tol_bits=tol_bits,
+            tol_all=tol_all,
+            port_bits=port_bits,
+            pref_idx=pref_idx,
+            pref_weight=pref_weight,
+            class_id=class_id,
+            class_rep=class_rep,
+            priority=priority,
+            group_id=group_id,
+            pod_shape=pod_shape,
+            # unrefined: joint == spec, one trivial constraint class
+            spec_rep=class_rep,
+            joint_spec=np.arange(class_rep.shape[0], dtype=np.int32),
+            cons_rep=np.zeros(1, dtype=np.int32),
+            joint_cons=np.zeros(class_rep.shape[0], dtype=np.int32),
+        )
+        return batch, sel, pref, sel_index
 
     def _topo_slot(self, key: str) -> int:
         try:
@@ -1541,6 +1679,266 @@ class SnapshotBuilder:
             term_valid[t] = True
             ids[t], ops[t], slots[t] = self._encode_term(term.match_expressions, e_cap, k_cap)
         return ids, ops, slots, term_valid
+
+
+class _PodSpecStore:
+    """Persistent cross-batch spec-row store: the columnar half of the
+    host plane (_build_pods_columnar).
+
+    _build_pods' per-batch spec cache already collapses repeated specs
+    inside ONE batch; this store makes the collapse survive across
+    batches and keeps the encoded rows as COLUMN blocks, so a batch
+    whose specs are warm assembles its PodBatch with a handful of numpy
+    fancy-index gathers instead of P x fields Python attribute walks.
+    Each distinct spec (keyed by the same 10-field signature the
+    per-batch cache walks) is encoded ONCE via the per-object helpers —
+    the per-object path stays the parity oracle, and the gathered rows
+    are byte-identical to what it would re-encode.
+
+    Cached rows go stale exactly three ways, each re-checked in sync()
+    before every batch (vocabularies are append-only, so a length /
+    watermark comparison is an exact staleness test):
+
+    * resource-axis growth — new columns are resources no cached spec
+      requested (all of a spec's resources are interned at its encode
+      time), so req/nonzero zero-widen exactly;
+    * name_vocab growth — rows encoded "named but unknown" (-2) may now
+      resolve;
+    * taint_vocab growth — toleration expansions may cover new taints,
+      so rows with nonempty tolerations re-encode;
+    * label/topology growth under a REFERENCED key (the
+      expansion_watermark) — cached selector/preferred row ENCODINGS
+      drop and re-encode lazily; signatures and source objects stay.
+
+    Selector/preferred contents are held as store-local ids (sel_lid /
+    pref_lid columns) so the per-batch dense table indices fall out of
+    one _first_encounter pass per table.
+    """
+
+    _GROW = 64
+
+    def __init__(self) -> None:
+        self.rows: Dict[tuple, int] = {}
+        self.count = 0
+        self.cap = 0
+        self.r = 0
+        # column blocks [cap, ...] (tol_bits is [3, cap, W])
+        self.req = np.zeros((0, 0), dtype=np.float32)
+        self.nonzero = np.zeros((0, 0), dtype=np.float32)
+        self.name_id = np.zeros(0, dtype=np.int32)
+        self.tol_bits = np.zeros((3, 0, 0), dtype=np.uint32)
+        self.tol_all = np.zeros((3, 0), dtype=bool)
+        self.port_bits = np.zeros((0, 0), dtype=np.uint32)
+        self.sel_lid = np.zeros(0, dtype=np.int32)      # -1 = no selector
+        self.pref_lid = np.zeros((0, 0), dtype=np.int32)  # -1 pad
+        self.pref_weight = np.zeros((0, 0), dtype=np.float32)
+        # store-local selector/preferred id spaces: signature, source
+        # object (for lazy re-encode), cached encoding (None = stale)
+        self.sel_sigs: List[tuple] = []
+        self.sel_objs: List[object] = []
+        self.sel_enc: List[Optional[tuple]] = []
+        self._sel_by_sig: Dict[tuple, int] = {}
+        self.pref_sigs: List[tuple] = []
+        self.pref_objs: List[object] = []
+        self.pref_enc: List[Optional[tuple]] = []
+        self._pref_by_sig: Dict[tuple, int] = {}
+        # staleness gates
+        self._unresolved: Dict[int, str] = {}   # row -> node_name (-2 rows)
+        self._tol_rows: Dict[int, tuple] = {}   # row -> tolerations
+        self._name_len = 0
+        self._taint_len = 0
+        self._wm: Optional[tuple] = None
+
+    # -- staleness ---------------------------------------------------------
+
+    def sync(self, b: "SnapshotBuilder", r: int) -> None:
+        """Bring cached rows up to date with the builder's vocabularies
+        before a batch.  Exactness argument per gate is in the class
+        docstring."""
+        if r > self.r:
+            pad = ((0, 0), (0, r - self.r))
+            self.req = np.pad(self.req, pad)
+            self.nonzero = np.pad(self.nonzero, pad)
+            self.r = r
+        if len(b.name_vocab) != self._name_len:
+            for row, nm in list(self._unresolved.items()):
+                nid = b.name_vocab.get(nm)
+                if nid >= 0:
+                    self.name_id[row] = nid
+                    del self._unresolved[row]
+            self._name_len = len(b.name_vocab)
+        if len(b.taint_vocab) != self._taint_len:
+            for row, tols in self._tol_rows.items():
+                bits, tall = b._encode_tolerations(tols)
+                self.tol_bits[:, row, :] = bits
+                self.tol_all[:, row] = tall
+            self._taint_len = len(b.taint_vocab)
+        wm = b.expansion_watermark()
+        if wm != self._wm:
+            self.sel_enc = [None] * len(self.sel_enc)
+            self.pref_enc = [None] * len(self.pref_enc)
+            self._wm = wm
+
+    def finish(self, b: "SnapshotBuilder") -> None:
+        """Refresh the watermark AFTER a batch's encodes: new selectors
+        may have referenced new keys (watermark grows without any cached
+        encoding going stale)."""
+        self._wm = b.expansion_watermark()
+
+    # -- row encode (miss path: per-object helpers, once per spec) ---------
+
+    def _ensure_capacity(self, b: "SnapshotBuilder") -> None:
+        if self.count < self.cap:
+            return
+        lim = b.limits
+        new_cap = max(self.cap * 2, self._GROW)
+        grown = new_cap - self.cap
+
+        def widen(a: np.ndarray, axis: int) -> np.ndarray:
+            pad = [(0, 0)] * a.ndim
+            pad[axis] = (0, grown)
+            return np.pad(a, pad)
+
+        if self.cap == 0:
+            self.req = np.zeros((new_cap, self.r), dtype=np.float32)
+            self.nonzero = np.zeros((new_cap, self.r), dtype=np.float32)
+            self.name_id = np.full(new_cap, -1, dtype=np.int32)
+            self.tol_bits = np.zeros(
+                (3, new_cap, lim.taint_words), dtype=np.uint32
+            )
+            self.tol_all = np.zeros((3, new_cap), dtype=bool)
+            self.port_bits = np.zeros(
+                (new_cap, lim.port_words), dtype=np.uint32
+            )
+            self.sel_lid = np.full(new_cap, -1, dtype=np.int32)
+            self.pref_lid = np.full(
+                (new_cap, lim.max_preferred), -1, dtype=np.int32
+            )
+            self.pref_weight = np.zeros(
+                (new_cap, lim.max_preferred), dtype=np.float32
+            )
+        else:
+            self.req = widen(self.req, 0)
+            self.nonzero = widen(self.nonzero, 0)
+            self.name_id = np.concatenate(
+                [self.name_id, np.full(grown, -1, dtype=np.int32)]
+            )
+            self.tol_bits = widen(self.tol_bits, 1)
+            self.tol_all = widen(self.tol_all, 1)
+            self.port_bits = widen(self.port_bits, 0)
+            self.sel_lid = np.concatenate(
+                [self.sel_lid, np.full(grown, -1, dtype=np.int32)]
+            )
+            self.pref_lid = np.concatenate(
+                [self.pref_lid,
+                 np.full((grown, self.pref_lid.shape[1]), -1, dtype=np.int32)]
+            )
+            self.pref_weight = widen(self.pref_weight, 0)
+        self.cap = new_cap
+
+    def _sel_local(self, sig: tuple, selector) -> int:
+        lid = self._sel_by_sig.get(sig)
+        if lid is None:
+            lid = len(self.sel_sigs)
+            self._sel_by_sig[sig] = lid
+            self.sel_sigs.append(sig)
+            self.sel_objs.append(selector)
+            self.sel_enc.append(None)
+        return lid
+
+    def _pref_local(self, sig: tuple, term) -> int:
+        lid = self._pref_by_sig.get(sig)
+        if lid is None:
+            lid = len(self.pref_sigs)
+            self._pref_by_sig[sig] = lid
+            self.pref_sigs.append(sig)
+            self.pref_objs.append(term)
+            self.pref_enc.append(None)
+        return lid
+
+    def encode_row(
+        self, b: "SnapshotBuilder", pod: api.Pod, extra_sel, key: tuple,
+        r: int, eff=None,
+    ) -> int:
+        """Encode one distinct spec into the next column row via the
+        per-object helpers (the oracle's exact code paths)."""
+        self._ensure_capacity(b)
+        row = self.count
+        mt = b.limits.max_preferred
+
+        if eff is None:
+            eff = b.effective_requests(pod)
+        rv = b._resource_vector(eff, r, grow=False)
+        rv[RESOURCE_PODS] = 1.0
+        b._check_f32_exact(pod.meta.name, rv, kind="pod")
+        self.req[row] = rv
+        nz = rv.copy()
+        nz_cpu, nz_mem = pod.nonzero_requests()
+        nz[RESOURCE_CPU] = nz_cpu
+        nz[RESOURCE_MEMORY] = nz_mem / DEVICE_UNIT_DIVISOR[api.MEMORY]
+        self.nonzero[row] = nz
+
+        nid = -1
+        if pod.spec.node_name:
+            got = b.name_vocab.get(pod.spec.node_name)
+            nid = got if got >= 0 else -2
+            if nid == -2:
+                self._unresolved[row] = pod.spec.node_name
+        self.name_id[row] = nid
+
+        selector = pod.required_node_selector()
+        if extra_sel is not None:
+            selector = api.and_selectors(selector, extra_sel)
+        self.sel_lid[row] = (
+            self._sel_local(_selector_signature(selector), selector)
+            if selector is not None else -1
+        )
+
+        bits, tall = b._encode_tolerations(pod.spec.tolerations)
+        self.tol_bits[:, row, :] = bits
+        self.tol_all[:, row] = tall
+        if pod.spec.tolerations:
+            self._tol_rows[row] = tuple(pod.spec.tolerations)
+        self.port_bits[row] = b._encode_ports(pod.host_ports())
+
+        preferred = pod.preferred_node_affinity()
+        if len(preferred) > mt:
+            raise OverflowError(
+                f"{len(preferred)} preferred terms exceed max_preferred={mt}"
+            )
+        for j, pt in enumerate(preferred):
+            self.pref_lid[row, j] = self._pref_local(
+                _term_signature(pt.preference), pt.preference
+            )
+            self.pref_weight[row, j] = float(pt.weight)
+
+        self.rows[key] = row
+        self.count += 1
+        return row
+
+    # -- lazy (re-)encode of dedup-table rows ------------------------------
+
+    def sel_encoding(self, b: "SnapshotBuilder", lid: int) -> tuple:
+        enc = self.sel_enc[lid]
+        if enc is None:
+            lim = b.limits
+            enc = b._encode_selector(
+                self.sel_objs[lid], lim.max_terms, lim.max_exprs,
+                lim.max_ids_per_expr,
+            )
+            self.sel_enc[lid] = enc
+        return enc
+
+    def pref_encoding(self, b: "SnapshotBuilder", lid: int) -> tuple:
+        enc = self.pref_enc[lid]
+        if enc is None:
+            lim = b.limits
+            enc = b._encode_term(
+                self.pref_objs[lid].match_expressions, lim.max_exprs,
+                lim.max_ids_per_expr,
+            )
+            self.pref_enc[lid] = enc
+        return enc
 
 
 class ClusterState:
@@ -2279,6 +2677,36 @@ def _fill_preferred_table(
         pref.expr_slot[f] = slots
         pref.valid[f] = True
     return pref
+
+
+def _term_signature(term: api.NodeSelectorTerm) -> tuple:
+    return tuple(
+        (r.key, r.op, tuple(sorted(r.values))) for r in term.match_expressions
+    )
+
+
+def _selector_signature(sel: api.NodeSelector) -> tuple:
+    return tuple(_term_signature(t) for t in sel.terms)
+
+
+def _first_encounter(lids: np.ndarray) -> Tuple[List[int], np.ndarray]:
+    """Dense per-batch indices for a vector of store-local ids: returns
+    (distinct ids >= 0 in FIRST-ENCOUNTER order, an int32 array of the
+    same shape remapping each id to its rank in that order, -1 kept).
+    First-encounter order is the per-object dedup tables' insertion
+    order, which the columnar path must reproduce exactly for
+    bit-identical sel_idx/pref_idx and stable-id tuples."""
+    uniq, first = np.unique(lids, return_index=True)
+    mask = uniq >= 0
+    uniq, first = uniq[mask], first[mask]
+    if uniq.size == 0:
+        return [], np.full(lids.shape, -1, dtype=np.int32)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(uniq.size, dtype=np.int32)
+    rank[order] = np.arange(uniq.size, dtype=np.int32)
+    pos = np.clip(np.searchsorted(uniq, lids), 0, uniq.size - 1)
+    remap = np.where(lids >= 0, rank[pos], -1).astype(np.int32)
+    return [int(i) for i in uniq[order]], remap
 
 
 def _term_signature(term: api.NodeSelectorTerm) -> tuple:

@@ -8,8 +8,9 @@ ARE the snapshot (no separate UpdateSnapshot walk — updating a row is
 updating the snapshot, the end state the generation protocol exists to
 approximate).
 
-A copy of kubernetes_tpu/scheduler/cache.py without its obligation-ledger
-hooks (analysis/ledger.py is not ported yet).
+A copy of kubernetes_tpu/scheduler/cache.py, its obligation-ledger hooks
+(analysis/ledger.py: acquire on assume, discharge on confirm or forget)
+included.
 
 Lifecycle (cache.go's state machine):
 
@@ -32,6 +33,7 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from ..analysis import ledger as _ledger
 from ..api import types as api
 from ..ops import schema
 from .queue import pod_key
@@ -105,6 +107,7 @@ class SchedulerCache:
             for key, a in list(self._assumed.items()):
                 if a.node == name:
                     self._assumed.pop(key)
+                    _ledger.discharge("assume", key)
             self._waiting_on_node.pop(name, None)
             self.state.remove_node(name)
 
@@ -117,6 +120,7 @@ class SchedulerCache:
                 raise ValueError(f"pod {key} already assumed")
             self.state.add_pod(pod, node)
             self._assumed[key] = _Assumed(pod=pod, node=node)
+            _ledger.acquire("assume", key)
             # the pod landed — its nomination's reservation is spent
             self._nominated.pop(key, None)
 
@@ -168,6 +172,7 @@ class SchedulerCache:
         with self._lock:
             a = self._assumed.pop(key, None)
             if a is not None:
+                _ledger.discharge("assume", key)
                 self.state.remove_pod(a.pod)
                 return True
             return False
@@ -191,6 +196,7 @@ class SchedulerCache:
             if a is None or (node is not None and a.node != node):
                 return False
             self._assumed.pop(key)
+            _ledger.discharge("assume", key)
             self.state.remove_pod(a.pod)
             return True
 
@@ -212,6 +218,7 @@ class SchedulerCache:
         with self._lock:
             a = self._assumed.pop(key, None)
             if a is not None:
+                _ledger.discharge("assume", key)
                 if a.node == pod.spec.node_name:
                     return  # confirmed; resources already accounted
                 # scheduled elsewhere than assumed: re-account
@@ -244,7 +251,8 @@ class SchedulerCache:
     def remove_pod(self, pod: api.Pod) -> None:
         key = pod_key(pod)
         with self._lock:
-            self._assumed.pop(key, None)
+            if self._assumed.pop(key, None) is not None:
+                _ledger.discharge("assume", key)
             for waiting in self._waiting_on_node.values():
                 waiting.pop(key, None)
             if self.state.has_pod(pod):
@@ -262,6 +270,7 @@ class SchedulerCache:
             for key, a in list(self._assumed.items()):
                 if a.binding_finished and a.deadline is not None and now > a.deadline:
                     self._assumed.pop(key)
+                    _ledger.discharge("assume", key)
                     self.state.remove_pod(a.pod)
                     expired.append(a.pod)
         return expired

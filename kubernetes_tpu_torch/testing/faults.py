@@ -1,6 +1,7 @@
 """Deterministic, seeded fault injection: a copy of
-kubernetes_tpu/testing/faults.py without its obligation-ledger hook and
-its store-journal crash harness.
+kubernetes_tpu/testing/faults.py without its store-journal crash
+harness (its obligation-ledger hook included: arm acquires, disarm
+discharges).
 
 Named fault points are threaded through the hot path, and each point
 consults the armed registry through one module-level indirection.
@@ -38,6 +39,8 @@ import time
 from dataclasses import dataclass, field
 from random import Random
 from typing import Dict, List, Optional
+
+from ..analysis import ledger as _ledger
 
 
 # Every fault point the hot path exposes.  fail()/crash()/... validate
@@ -243,12 +246,19 @@ _registry: Optional[FaultRegistry] = None
 
 def arm(registry: FaultRegistry) -> FaultRegistry:
     global _registry
+    if _registry is not None:
+        # re-arm over a live registry: the previous arming's obligation
+        # is retired by being overwritten, not leaked
+        _ledger.discharge("fault", 0)
     _registry = registry
+    _ledger.acquire("fault", 0)
     return registry
 
 
 def disarm() -> None:
     global _registry
+    if _registry is not None:
+        _ledger.discharge("fault", 0)
     _registry = None
 
 

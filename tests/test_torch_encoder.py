@@ -86,12 +86,12 @@ def test_to_device_keeps_dtypes_and_bits():
     assert not np.array_equal(dev.cluster.requested.numpy(), snap.cluster.requested)
 
 
-def _state_pair():
+def _state_pair(columnar: bool = True):
+    """Both packages' builders on the same encode path: the columnar one
+    (both defaults) or the per-object one."""
     jb = jschema.SnapshotBuilder()
     tb = tschema.SnapshotBuilder()
-    # columnar=False on the reference: the per-object path the port copies
-    # (the reference pins its columnar path bit-identical to it)
-    jb.columnar = False
+    jb.columnar = tb.columnar = columnar
     return jschema.ClusterState(jb), tschema.ClusterState(tb)
 
 
@@ -107,8 +107,7 @@ def _compare_states(js, ts, jpending, tpending):
 
 @pytest.mark.parametrize("columnar", [False, True])
 def test_cluster_state_lifecycle(columnar):
-    js, ts = _state_pair()
-    js.builder.columnar = columnar
+    js, ts = _state_pair(columnar)
     jn, jp, jbound = mixed_objects(jw, 3, n_nodes=40, n_pods=30)
     tn, tp, tbound = mixed_objects(tw, 3, n_nodes=40, n_pods=30)
     for a, b in zip(jn, tn):

@@ -49,7 +49,10 @@ def test_scan_covers_the_port():
     for want in ("ops/schema.py", "ops/assign.py", "ops/filters.py",
                  "ops/scores.py", "ops/device.py", "ops/auction.py",
                  "kernels/bindings.py", "models/batch_scheduler.py",
-                 "ops/preemption.py", "scheduler/preemption.py"):
+                 "ops/preemption.py", "scheduler/preemption.py",
+                 "utils/featuregate.py", "scheduler/config.py",
+                 "scheduler/framework.py", "scheduler/queue.py",
+                 "scheduler/waitingpods.py", "analysis/ledger.py"):
         assert want in names
 
 
