@@ -249,6 +249,28 @@ stdout; with --log also appended to PATH):
              fail again with the same reason; every cycle equal to the same
              sequence through FrameworkRegistry(device="cpu"); the arbiter
              took one slot a dispatch, forced none and holds none
+  loop       the scheduler loop, Scheduler(store) on the card in the
+             default configuration (one profile, the default gates,
+             speculative_solve and the adaptive window on): Store.create ->
+             Store.watch -> the informers -> the queue -> schedule_batch ->
+             TorchBatchScheduler -> assume + Permit -> a bind wave on the
+             binder thread -> Store.update_wave -> the informers' echo.
+             Step A: SchedulingBasic/5000Nodes (5,000 node-default nodes,
+             1,000 init pods cycled and flushed, then 1,000 measured pods
+             once all are queued): both batches on the auction, every pod
+             bound in the store, no node over capacity, no assume left,
+             the breaker closed with 0 fallbacks, the placements equal to
+             a TorchBatchScheduler() driven directly with the same two
+             batches; each cycle's wall and trace split, last_timings, the
+             binder's commit seconds, the seconds from the measured pods'
+             creation to the last echo and the measured batch's pods/s from
+             its pop to its flushed wave.  Step B: PreemptionBasic/500Nodes
+             (500 nodes, 2,000 victims created bound, 16 preemptors) cycled
+             until every preemptor is bound (at most 20 cycles): the scan,
+             the PostFilter pass's preempt_dry_run and pod_filters launched;
+             every preemptor's node and the evicted victims equal to the
+             same sequence through Scheduler(..., device="cpu").  Both
+             stop their schedulers and close their stores
   breakers   once, after every phase above (none arms a fault; the
              counters only count up): every scheduler built so far has its
              circuit breaker closed, no trip, no host fallback and no
@@ -282,7 +304,7 @@ stdout; with --log also appended to PATH):
              healthy twin)
 
 In every part of main, greedy, wavefront, spread, interpod, extras,
-slices, extender, proto, resident, north, gang, encode and profiles the
+slices, extender, proto, resident, north, gang, encode, profiles and loop the
 launch counters are reset
 just before the part and
 read just after; the kernels expected are derived from the batches the
@@ -404,6 +426,18 @@ PROFILES = (5000, 1000)
 PROFILES_ODD, PROFILES_DELETE, PROFILES_NEW_NODES = 10, 10, 64
 # two profiles with different score weights, the default feature gates
 # (KubeSchedulerConfiguration as a dict: no YAML parser needed)
+# the loop phase (the scheduler loop, Scheduler over the port's Store):
+# SchedulingBasic/5000Nodes (nodes, init pods, measured pods; both batches
+# pad to 1,024 -> the auction) and PreemptionBasic/500Nodes (nodes,
+# victims created bound, preemptors), cycled at most LOOP_PREEMPT_CYCLES
+# times; every wait of the phase bounded by LOOP_WAIT_S
+LOOP = (5000, 1000, 1000)
+LOOP_PREEMPT = (500, 2000, 16)
+LOOP_PREEMPT_CYCLES = 20
+LOOP_WAIT_S = 120.0
+# the informers Scheduler.start() runs
+LOOP_INFORMERS = ("Node", "Pod", "PersistentVolume", "PersistentVolumeClaim",
+                  "StorageClass", "ResourceClaim", "DeviceClass")
 PROFILES_CONFIG = {
     "apiVersion": "kubescheduler.config.k8s.io/v1",
     "kind": "KubeSchedulerConfiguration",
@@ -1167,7 +1201,8 @@ def bound(need_bytes: float, ops: float) -> tuple:
 
 def drive_phase(name, fn, bindings, scheds, extra=(), armed=False):
     """Run fn() with every launch counter at 0 and check the counters just
-    after against the batches `scheds` (recording schedulers) encoded
+    after against the batches `scheds` (recording schedulers; one that fn()
+    builds and appends to the list counts from its first batch) encoded
     meanwhile: every kernel their routes, families and residents launch
     (route_kernels), and the kernels of `extra`, was launched and no other,
     and each resident kernel exactly as many times as the residents
@@ -1175,15 +1210,16 @@ def drive_phase(name, fn, bindings, scheds, extra=(), armed=False):
     dispatch with a cold statics prep (its whole prep in one launch)."""
     import torch
 
-    marks = [len(s.metas) for s in scheds]
-    solves = [s.auction_solves for s in scheds]
-    preps = [s.cold_preps for s in scheds]
+    # a scheduler that fn() builds and appends to `scheds` starts from 0
+    marks = {id(s): len(s.metas) for s in scheds}
+    solves = {id(s): s.auction_solves for s in scheds}
+    preps = {id(s): s.cold_preps for s in scheds}
     torch.cuda.synchronize()
     bindings.reset_launches()
     out = fn()
     torch.cuda.synchronize()
     launches = dict(bindings.LAUNCHES)
-    metas = [m for s, k in zip(scheds, marks) for m in s.metas[k:]]
+    metas = [m for s in scheds for m in s.metas[marks.get(id(s), 0):]]
     check_launches(name, launches,
                    set().union(*(route_kernels(m) for m in metas)) | set(extra))
     for m in metas:
@@ -1197,9 +1233,10 @@ def drive_phase(name, fn, bindings, scheds, extra=(), armed=False):
             raise AssertionError(f"phase {name}: kernel {k} launched {launches[k]} times, "
                                  f"the residents recorded {want}")
     check_auction_launches(name, launches,
-                           sum(s.auction_solves - k for s, k in zip(scheds, solves)))
+                           sum(s.auction_solves - solves.get(id(s), 0) for s in scheds))
     if not armed:
-        check_cold_preps(name, launches, sum(s.cold_preps - k for s, k in zip(scheds, preps)))
+        check_cold_preps(name, launches,
+                         sum(s.cold_preps - preps.get(id(s), 0) for s in scheds))
     return out, launches
 
 
@@ -1704,6 +1741,8 @@ def main() -> int:
         "encode", lambda: encode_phase(wrappers, pods, got, card), bindings, [])
     emit(dict(encode, launches=encode_launches))
     emit(profiles_phase(wrappers, TorchBatchScheduler, bindings, torch, card))
+    # ---- the scheduler loop: Store -> informers -> Scheduler -> bind waves ----
+    emit(loop_phase(wrappers, TorchBatchScheduler, bindings, torch, card))
     # every phase so far arms no fault: breakers, fallbacks and cold
     # partials syncs only ever count up, so one check covers them all
     emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
@@ -6822,6 +6861,330 @@ def profiles_phase(wrappers, TorchBatchScheduler, bindings, torch, card) -> dict
             "cpu_cycle_s": want["walls"], "cpu_s": cpu_s,
             "equal_cpu": True, "launches": launches, "card": card}
 
+
+
+def _wait_for(cond, timeout: float, what: str, step: float = 0.001) -> float:
+    """Poll cond() until it holds; the seconds waited.  Raises past the
+    timeout."""
+    t0 = time.perf_counter()
+    deadline = t0 + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"loop: timed out after {timeout} s waiting for {what}")
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def _loop_scheduler(Scheduler, store, **kw):
+    """Scheduler(store, **kw) with its informers started and synced (the
+    scheduling thread is not started: the caller drives schedule_batch),
+    each popped batch's pod names recorded in `sched.popped` and each
+    finished cycle's trace in `sched.traces` (its steps and total)."""
+    sched = Scheduler(store, **kw)
+    sched.popped, sched.traces = [], []
+    pop, finish = sched.queue.pop_batch, sched._finish_cycle
+
+    def pop_batch(*a, **k):
+        batch = pop(*a, **k)
+        if batch:
+            sched.popped.append([info.pod.meta.name for info in batch])
+        return batch
+
+    def finish_cycle(cycle):
+        try:
+            return finish(cycle)
+        finally:
+            sched.traces.append({"steps": list(cycle.trace.steps),
+                                 "total_s": cycle.trace.total})
+
+    sched.queue.pop_batch, sched._finish_cycle = pop_batch, finish_cycle
+    for kind in LOOP_INFORMERS:
+        sched.informers.informer(kind).start()
+    if not sched.informers.wait_for_sync(LOOP_WAIT_S):
+        raise AssertionError("loop: the informers did not sync")
+    return sched
+
+
+def _loop_cycles(sched, n_pods: int, what: str) -> list:
+    """schedule_batch cycles until n_pods were staged into bind waves,
+    then flush the waves; each cycle's wall, counters, route and
+    last_timings."""
+    out, staged = [], 0
+    deadline = time.perf_counter() + LOOP_WAIT_S
+    while staged < n_pods:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"loop {what}: {staged} of {n_pods} pods staged")
+        t = time.perf_counter()
+        stats = sched.schedule_batch(timeout=1.0)
+        wall = time.perf_counter() - t
+        if not stats["popped"]:
+            continue
+        if stats["unschedulable"] or stats["bind_errors"]:
+            raise AssertionError(f"loop {what}: a cycle failed pods: {stats}")
+        staged += stats["scheduled"]
+        out.append({"stats": stats, "wall_s": wall, "trace": sched.traces[-1],
+                    "route": sched.tpu.last_solve.meta.route,
+                    "last_timings": dict(sched.tpu.last_timings)})
+    if not sched.flush_binds(LOOP_WAIT_S):
+        raise AssertionError(f"loop {what}: the bind waves did not drain")
+    return out
+
+
+def loop_basic_sequence(wrappers, Store, Scheduler, n_nodes: int, n_init: int,
+                        n_measured: int, **kw) -> dict:
+    """SchedulingBasic through the scheduler loop as a user runs it, over
+    any package's Store and Scheduler (duck-typed, so the tests drive the
+    reference's the same way): n_nodes node-default nodes and n_init
+    pod-default pods created in the store; Scheduler(store, **kw) with
+    its informers started and synced; once every init pod is active in
+    the queue, schedule_batch cycles until all are staged, then
+    flush_binds; then n_measured pods created, the same wait, cycles and
+    flush.  Returns every pod's node in the store, the popped batches,
+    each cycle's record, the binder's commit seconds, the seconds from the
+    measured pods' creation to the last informer echo (every measured pod
+    bound in the store and no assume left), the measured batch's seconds
+    from its first pop to its flushed wave, and the metrics the loop
+    mirrors."""
+    store = Store()
+    sched = None
+    try:
+        for node in make_cluster(wrappers, n_nodes):
+            store.create(node)
+        for pod in make_pods(wrappers, n_init, "init"):
+            store.create(pod)
+        sched = _loop_scheduler(Scheduler, store, **kw)
+        _wait_for(lambda: sched.queue.stats()["active"] == n_init, LOOP_WAIT_S,
+                  "the init pods in the queue")
+        init = _loop_cycles(sched, n_init, "init")
+        t_create = time.perf_counter()
+        measured = make_pods(wrappers, n_measured, "measured")
+        for pod in measured:
+            store.create(pod)
+        # both runs pop the same batch: every measured pod is queued first
+        _wait_for(lambda: sched.queue.stats()["active"] == n_measured, LOOP_WAIT_S,
+                  "the measured pods in the queue")
+        t_pop = time.perf_counter()
+        meas = _loop_cycles(sched, n_measured, "measured")
+        t_flushed = time.perf_counter()
+
+        def echoed():
+            if sched.cache.assumed_count():
+                return False
+            pods, _ = store.list("Pod")
+            return all(p.spec.node_name for p in pods)
+
+        _wait_for(echoed, LOOP_WAIT_S, "the informers' echo of the binds")
+        t_echo = time.perf_counter()
+        pods, _ = store.list("Pod")
+        m = sched.metrics
+        return {
+            "placed": {p.meta.name: p.spec.node_name for p in pods},
+            "popped": sched.popped, "init": init, "measured": meas,
+            "commit_subwave_s": {"n": m.commit_subwave_duration.n,
+                                 "total": m.commit_subwave_duration.total,
+                                 "max": m.commit_subwave_duration.max},
+            "commit_wave_s": {"n": m.commit_wave_duration.n,
+                              "total": m.commit_wave_duration.total,
+                              "max": m.commit_wave_duration.max},
+            "create_to_echo_s": t_echo - t_create,
+            "measured_pop_to_flushed_s": t_flushed - t_pop,
+            "measured_pods_per_s": n_measured / (t_flushed - t_pop),
+            "assumed": sched.cache.assumed_count(),
+            "breaker_state": m.solve_breaker_state.get(),
+            "fallback_total": m.solve_fallback_total.get(),
+            "retrace_total": m.solve_retrace_total.get(),
+            "watch": store.watch_stats(),
+            "queue": sched.queue.stats(),
+        }
+    finally:
+        if sched is not None:
+            sched.stop()
+        store.close()
+
+
+def loop_preemption_sequence(wrappers, Store, Scheduler, dims, max_cycles: int,
+                             **kw) -> dict:
+    """PreemptionBasic through the scheduler loop's PostFilter pass: the
+    nodes, the victims (created bound, four a node) and the preemptors in
+    the store before the informers start; schedule_batch cycles (each
+    followed by flush_binds) until every preemptor is bound in the store
+    or max_cycles ran.  Returns each preemptor's node, the victims evicted
+    (gone from the store), each cycle's counters and the pass metrics."""
+    from kubernetes_tpu_torch.testing.cases import preemption_basic_objects
+
+    nodes, victims, preemptors = preemption_basic_objects(wrappers, *dims)
+    store = Store()
+    sched = None
+    try:
+        for obj in list(nodes) + list(victims) + list(preemptors):
+            store.create(obj)
+        sched = _loop_scheduler(Scheduler, store, **kw)
+        names = [p.meta.name for p in preemptors]
+        cycles = []
+
+        def placed():
+            return {n: store.get("Pod", n).spec.node_name for n in names}
+
+        t0 = time.perf_counter()
+        for _ in range(max_cycles):
+            t = time.perf_counter()
+            stats = sched.schedule_batch(timeout=1.5)
+            if not sched.flush_binds(LOOP_WAIT_S):
+                raise AssertionError("loop preemption: the bind waves did not drain")
+            cycles.append({"stats": stats, "wall_s": time.perf_counter() - t})
+            if all(placed().values()):
+                break
+        wall = time.perf_counter() - t0
+        _wait_for(lambda: sched.cache.assumed_count() == 0, LOOP_WAIT_S,
+                  "the informers' echo of the binds")
+        alive = {p.meta.name for p in store.list("Pod")[0]}
+        m = sched.metrics
+        return {
+            "nodes": placed(),
+            "evicted": sorted(v.meta.name for v in victims if v.meta.name not in alive),
+            "cycles": cycles, "wall_s": wall,
+            "preempted": sum(c["stats"].get("preempted", 0) for c in cycles),
+            "passes": m.preemption_batch_size.n,
+            "pass_s": m.preemption_solve_duration.total,
+            "breaker_state": m.solve_breaker_state.get(),
+            "fallback_total": m.solve_fallback_total.get(),
+        }
+    finally:
+        if sched is not None:
+            sched.stop()
+        store.close()
+
+
+def loop_phase(wrappers, TorchBatchScheduler, bindings, torch, card) -> dict:
+    """The scheduler loop on the card: Store.create -> Store.watch ->
+    SharedInformer -> Scheduler._on_pod -> SchedulingQueue ->
+    schedule_batch -> TorchBatchScheduler (the default configuration: one
+    profile, the default gates, speculative_solve and the adaptive window
+    on) -> assume + Permit -> a bind wave on the binder thread ->
+    Store.update_wave -> the informer's echo.
+
+    Step A, SchedulingBasic/5000Nodes through the loop
+    (loop_basic_sequence; its launch counters at 0 before and read after,
+    drive_phase): both batches on the auction, every pod bound, no node
+    over capacity, no assume left, the breaker closed with 0 fallbacks;
+    the placements equal to a TorchBatchScheduler() on the card driven
+    directly with the same two batches, the first assumed before the
+    second.  Step B, PreemptionBasic/500Nodes through the loop's PostFilter
+    pass (loop_preemption_sequence, its own drive_phase: the scan, the
+    pass's preempt_dry_run and pod_filters); the same sequence through
+    Scheduler(..., device="cpu"): every preemptor's node and the evicted
+    victims equal."""
+    from kubernetes_tpu_torch.api.store import Store
+    from kubernetes_tpu_torch.scheduler import framework
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+
+    out = {"phase": "loop", "card": card}
+    t_phase = time.perf_counter()
+    saved = framework.TorchBatchScheduler
+    # the registry builds the recording class, so the launch checks and
+    # assert_healthy see the loop's schedulers
+    framework.TorchBatchScheduler = TorchBatchScheduler
+    try:
+        scheds = []
+
+        def loop_scheduler(store, **kw):
+            s = Scheduler(store, **kw)
+            if kw.get("device") is None:
+                if s.tpu.device.type != "cuda":
+                    raise AssertionError("loop: Scheduler(store) is not on the card")
+                scheds.append(s.tpu)
+            return s
+
+        def run_basic():
+            return loop_basic_sequence(wrappers, Store, loop_scheduler, *LOOP)
+
+        got, launches = drive_phase("loop/basic", run_basic, bindings, scheds)
+        tpu = scheds[0]
+        routes = [c["route"] for c in got["init"] + got["measured"]]
+        if routes != ["auction", "auction"] or [len(b) for b in got["popped"]] != list(LOOP[1:]):
+            raise AssertionError(f"loop: routes {routes}, batches "
+                                 f"{[len(b) for b in got['popped']]}")
+        if not all(got["placed"].values()) or len(got["placed"]) != LOOP[1] + LOOP[2]:
+            raise AssertionError("loop: a pod is not bound in the store")
+        check_capacity(tpu.state)
+        if got["assumed"] or got["breaker_state"] or got["fallback_total"]:
+            raise AssertionError(f"loop: {got['assumed']} assumes left, breaker "
+                                 f"{got['breaker_state']}, {got['fallback_total']} fallbacks")
+        # the same two batches through TorchBatchScheduler() directly
+        direct = TorchBatchScheduler()
+        for node in make_cluster(wrappers, LOOP[0]):
+            direct.add_node(node)
+        pods = {p.meta.name: p for p in make_pods(wrappers, LOOP[1], "init")
+                + make_pods(wrappers, LOOP[2], "measured")}
+        want = {}
+
+        def run_direct():
+            for batch in got["popped"]:
+                names = direct.schedule_pending([pods[n] for n in batch])
+                for n, node in zip(batch, names):
+                    want[n] = node
+                    direct.assume(pods[n], node)
+
+        _, direct_launches = drive_phase("loop/direct", run_direct, bindings, [direct])
+        if want != got["placed"]:
+            bad = [n for n in want if want[n] != got["placed"].get(n)][:5]
+            raise AssertionError(f"loop: placements differ from the direct solver at {bad}")
+        out["basic"] = {
+            "workload": "SchedulingBasic/5000Nodes", "nodes": LOOP[0], "init": LOOP[1],
+            "measured": LOOP[2], "routes": routes,
+            "cycles": [{"phase": label, "wall_s": c["wall_s"], "stats": c["stats"],
+                        "trace_s": c["trace"]["steps"], "trace_total_s": c["trace"]["total_s"],
+                        "last_timings": c["last_timings"]}
+                       for label, cs in (("init", got["init"]), ("measured", got["measured"]))
+                       for c in cs],
+            **{k: got[k] for k in ("commit_subwave_s", "commit_wave_s", "create_to_echo_s",
+                                   "measured_pop_to_flushed_s", "measured_pods_per_s",
+                                   "retrace_total", "watch", "queue")},
+            "equal_direct": True, "launches": launches, "direct_launches": direct_launches,
+        }
+
+        # step B: the PostFilter pass through the loop, card against the CPU
+        pre_scheds = []
+
+        def pre_scheduler(store, **kw):
+            s = Scheduler(store, **kw)
+            pre_scheds.append(s.tpu)
+            return s
+
+        def run_pre():
+            return loop_preemption_sequence(wrappers, Store, pre_scheduler, LOOP_PREEMPT,
+                                            LOOP_PREEMPT_CYCLES)
+
+        pre, pre_launches = drive_phase("loop/preemption", run_pre, bindings, pre_scheds,
+                                        extra=PREEMPT_KERNELS)
+        t0 = time.perf_counter()
+        cpu = loop_preemption_sequence(wrappers, Store, Scheduler, LOOP_PREEMPT,
+                                       LOOP_PREEMPT_CYCLES, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if not all(pre["nodes"].values()):
+            raise AssertionError(f"loop preemption: preemptors left unbound: {pre['nodes']}")
+        if pre["nodes"] != cpu["nodes"] or pre["evicted"] != cpu["evicted"]:
+            raise AssertionError("loop preemption: the card's nodes or evictions differ "
+                                 "from the CPU loop's")
+        if pre["breaker_state"] or pre["fallback_total"] or not pre["passes"]:
+            raise AssertionError(f"loop preemption: breaker {pre['breaker_state']}, "
+                                 f"{pre['fallback_total']} fallbacks, {pre['passes']} passes")
+        for k in ("greedy_scan",) + PREEMPT_KERNELS:
+            if not pre_launches.get(k):
+                raise AssertionError(f"loop preemption: kernel {k} was not launched")
+        out["preemption"] = {
+            "workload": "PreemptionBasic/500Nodes", "nodes": LOOP_PREEMPT[0],
+            "victims": LOOP_PREEMPT[1], "preemptors": LOOP_PREEMPT[2],
+            "evicted": len(pre["evicted"]), "cycles": len(pre["cycles"]),
+            "cycle_s": [c["wall_s"] for c in pre["cycles"]], "wall_s": pre["wall_s"],
+            "passes": pre["passes"], "pass_s": pre["pass_s"], "preempted": pre["preempted"],
+            "cpu_cycles": len(cpu["cycles"]), "cpu_s": cpu_s, "equal_cpu": True,
+            "launches": pre_launches,
+        }
+    finally:
+        framework.TorchBatchScheduler = saved
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
-"""Core API object model: the Pod/Node subset the scheduler port encodes.
+"""Core API object model: the Pod/Node subset the scheduler port encodes,
+and the storage, device-claim and Event objects its loop's binders and
+event recorder read and write.
 
-A copy of the reference package's object model, cut to what the encoder
-and the test builders read.  Field names are identical, so the encoder
+A copy of the reference package's object model, cut to what the encoder,
+the scheduler loop and the test builders read.  Field names are identical, so the encoder
 also reads the reference package's objects by duck typing.
 
 The Python-native equivalent of the reference's versioned API types
@@ -623,5 +625,197 @@ class PodDisruptionBudget:
         return sel is not None and sel.matches(pod.meta.labels)
 
 
-# kinds that live outside namespaces (the store keys them at namespace "")
-CLUSTER_SCOPED_KINDS = frozenset({"Node"})
+
+# ---------------------------------------------------------------------------
+# Storage APIs (reference: staging/src/k8s.io/api/core/v1/types.go
+# PersistentVolume/PersistentVolumeClaim, storage/v1/types.go
+# StorageClass) — the slice VolumeBinding schedules against.
+# ---------------------------------------------------------------------------
+
+STORAGE = "storage"                       # PVC resource request key
+VOLUME_BINDING_IMMEDIATE = "Immediate"
+VOLUME_BINDING_WAIT = "WaitForFirstConsumer"
+PV_AVAILABLE = "Available"
+PV_BOUND = "Bound"
+PV_RELEASED = "Released"
+PVC_PENDING = "Pending"
+PVC_BOUND = "Bound"
+# node-allocatable key prefix for attach limits (the reference models
+# CSI attach limits as node-published countable resources —
+# nodevolumelimits/csi.go GetVolumeLimitKey)
+ATTACH_LIMIT_PREFIX = "attachable-volumes-"
+
+
+def attach_limit_resource(driver: str) -> str:
+    return ATTACH_LIMIT_PREFIX + driver
+
+
+@dataclass
+class PersistentVolumeSpec:
+    capacity: Dict[str, int] = field(default_factory=dict)  # {storage: bytes}
+    access_modes: List[str] = field(default_factory=list)
+    storage_class_name: str = ""
+    # topology constraint: node must satisfy this to mount the volume
+    # (core/v1 VolumeNodeAffinity.required)
+    node_affinity: Optional[NodeSelector] = None
+    claim_ref: Optional[str] = None       # "namespace/name" of bound claim
+    claim_uid: str = ""                   # that claim's uid: a deleted-and-
+    # recreated same-name PVC must NOT silently inherit the volume
+    # (pv_controller.go checks claimRef.UID for exactly this)
+    driver: str = ""                      # CSI driver (attach-limit bucket)
+    # Retain | Delete | Recycle (core/v1 PersistentVolumeReclaimPolicy;
+    # acted on by the PV controller when the claim goes away)
+    reclaim_policy: str = "Retain"
+
+
+@dataclass
+class PersistentVolumeStatus:
+    phase: str = PV_AVAILABLE
+
+
+@dataclass
+class PersistentVolume:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PersistentVolumeSpec = field(default_factory=PersistentVolumeSpec)
+    status: PersistentVolumeStatus = field(
+        default_factory=PersistentVolumeStatus
+    )
+
+    KIND = "PersistentVolume"
+
+    def storage(self) -> int:
+        return int(self.spec.capacity.get(STORAGE, 0))
+
+
+@dataclass
+class PersistentVolumeClaimSpec:
+    access_modes: List[str] = field(default_factory=list)
+    storage_class_name: str = ""
+    resources: Dict[str, int] = field(default_factory=dict)  # {storage: bytes}
+    volume_name: str = ""                 # set when bound to a PV
+
+
+@dataclass
+class PersistentVolumeClaimStatus:
+    phase: str = PVC_PENDING
+
+
+@dataclass
+class PersistentVolumeClaim:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PersistentVolumeClaimSpec = field(
+        default_factory=PersistentVolumeClaimSpec
+    )
+    status: PersistentVolumeClaimStatus = field(
+        default_factory=PersistentVolumeClaimStatus
+    )
+
+    KIND = "PersistentVolumeClaim"
+
+    def requested_storage(self) -> int:
+        return int(self.spec.resources.get(STORAGE, 0))
+
+
+@dataclass
+class StorageClass:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    provisioner: str = ""
+    volume_binding_mode: str = VOLUME_BINDING_IMMEDIATE
+    # restrict dynamic provisioning to these topologies (storage/v1
+    # StorageClass.allowedTopologies, as OR-of-AND selector terms)
+    allowed_topologies: Optional[NodeSelector] = None
+
+    KIND = "StorageClass"
+
+
+# ---------------------------------------------------------------------------
+# Dynamic resource allocation (reference: resource.k8s.io ResourceClaim /
+# DeviceClass, scheduled by plugins/dynamicresources/dynamicresources.go)
+# — device claims as first-class objects with allocation lifecycle.
+# ---------------------------------------------------------------------------
+
+
+def device_resource(class_name: str) -> str:
+    """The node-allocatable resource name carrying a device class's
+    per-node capacity (the devicemanager-published countable-resource
+    convention)."""
+    return f"devices/{class_name}"
+
+
+@dataclass
+class DeviceClass:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    driver: str = ""
+
+    KIND = "DeviceClass"
+
+
+@dataclass
+class ResourceClaimSpec:
+    device_class_name: str = ""
+    count: int = 1                 # devices requested from the class
+    # Topology-shaped claim: request an "AxBxC" contiguous carve-out of
+    # one TPU slice instead of `count` loose devices.  Allocation
+    # records the carve-out (status.carveout) and every consumer is
+    # pinned INSIDE it via slice/coord label selector terms — matched
+    # in the batched filter, not host Python.
+    topology: str = ""
+
+
+@dataclass
+class ResourceClaimStatus:
+    phase: str = "Pending"         # Pending | Allocated
+    allocated_node: str = ""       # set at allocation (Reserve/PreBind)
+    # the consumer pod (ns/name) whose resource accounting carries the
+    # claim's device count — keeps usage stable across the pod's
+    # lifetime while sharers add only the co-location pin
+    carrier: str = ""
+    # topology-shaped allocation record: "slice=<name>;lo=x,y,z;shape=AxBxC"
+    # (scheduler/deviceclaims.py format_carveout) — the carved sub-cuboid
+    # consumers are pinned inside
+    carveout: str = ""
+
+
+@dataclass
+class ResourceClaim:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ResourceClaimSpec = field(default_factory=ResourceClaimSpec)
+    status: ResourceClaimStatus = field(default_factory=ResourceClaimStatus)
+
+    KIND = "ResourceClaim"
+
+
+@dataclass
+class ObjectReference:
+    """core/v1 ObjectReference — the involved object of an Event."""
+
+    kind: str = ""
+    name: str = ""
+    namespace: str = "default"
+    uid: str = ""
+
+
+@dataclass
+class Event:
+    """core/v1 Event, the slice the scheduler's EventRecorder emits
+    (schedule_one.go:1003 Eventf; aggregated by count like
+    client-go's correlator)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    involved_object: ObjectReference = field(default_factory=ObjectReference)
+    reason: str = ""
+    message: str = ""
+    type: str = "Normal"          # Normal | Warning
+    count: int = 1
+    first_timestamp: float = 0.0
+    last_timestamp: float = 0.0
+    source_component: str = ""
+
+    KIND = "Event"
+
+
+# kinds that live outside namespaces (the store keys them at namespace ""),
+# the reference's set restricted to the kinds this package defines
+CLUSTER_SCOPED_KINDS = frozenset({
+    "Node", "PersistentVolume", "StorageClass", "DeviceClass",
+})

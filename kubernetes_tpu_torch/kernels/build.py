@@ -36,6 +36,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# kernel libraries loaded into this process (each at most once; a load
+# whose library was missing built every kernel first) — the count
+# analysis/retrace.py reads
+loads_total = 0
 
 
 def nvcc_path() -> str:
@@ -100,6 +104,8 @@ def library(name: str) -> ctypes.CDLL:
             if not _target(name).exists():
                 build_all()
             lib = ctypes.CDLL(str(_target(name)))
+            global loads_total
+            loads_total += 1
             err = getattr(lib, f"{name}_error_string")
             err.restype = ctypes.c_char_p
             err.argtypes = [ctypes.c_int]

@@ -643,7 +643,7 @@ class TorchBatchScheduler:
             except Exception as exc:  # noqa: BLE001 — cold solve instead
                 if not solve_fault_recoverable(exc, self.device):
                     raise
-                self._partials.invalidate()
+                self._partials.invalidate()  # graftlint: disable=coherence -- partials-only fault: the mirror synced cleanly above and is not a suspect
                 self._partials.sync_failures += 1
                 _log.exception("partials sync failed; cold solve for this batch")
             for k, v in self._partials.last_launches.items():

@@ -95,7 +95,7 @@ class DeviceClusterMirror:
     def __init__(self, state: schema.ClusterState, device="cuda"):
         self.state = state
         self.device = torch.device(device)
-        self._dev: Optional[schema.ClusterTensors] = None
+        self._dev: Optional[schema.ClusterTensors] = None  # resident: fault=mirror.grow chaos=NODE_CHURN_SEEDS oracle=full-resync
         self._synced_gen = 0
         self._struct_gen = 0
         self._shape: Optional[Tuple] = None

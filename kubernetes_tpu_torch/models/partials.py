@@ -91,7 +91,7 @@ class PartialsCache:
         self.state = state
         self.device = torch.device(device)
         self.resync_interval = max(int(resync_interval), 1)
-        self._store: Optional[pops.PartialsStore] = None
+        self._store: Optional[pops.PartialsStore] = None  # resident: fault=solve.partials chaos=PARTIALS_SEEDS
         self._specs: Optional[pops.ClassSpecs] = None
         self._slots: Dict[tuple, int] = {}
         self._cap = 0

@@ -117,6 +117,8 @@ def _domain_sum(v: torch.Tensor, ok: torch.Tensor, z: int, vals: torch.Tensor) -
     return out.view(rows, z)
 
 
+# coherence: rebuilt-per-solve -- affinity term grids derive from THIS
+# snapshot's cluster tensors; a cached copy would score a stale generation
 def prep_terms(
     cluster: ClusterTensors,
     terms: TermTable,

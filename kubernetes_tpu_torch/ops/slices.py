@@ -82,6 +82,8 @@ def _has_coords(cluster: ClusterTensors) -> torch.Tensor:
     return (cluster.slice_id >= 0) & (xyz >= 0).all(dim=-1)
 
 
+# coherence: rebuilt-per-solve -- the occupancy grid tightens as the solve
+# places gangs; a copy cached across solves would double-place
 def _cell_grid(cluster: ClusterTensors, free: torch.Tensor, slice_z: int,
                dmax: int) -> torch.Tensor:
     """bool[S, D, D, D]: coordinate (s, x, y, z) is present and free.  A

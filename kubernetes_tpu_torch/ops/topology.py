@@ -46,6 +46,8 @@ class SpreadState(NamedTuple):
     sizes: torch.Tensor        # f32[C] distinct eligible values (scoring weight)
 
 
+# coherence: rebuilt-per-solve -- spread grids derive from THIS snapshot's
+# cluster tensors; a cached copy would count against a stale generation
 def prep_spread(
     cluster: ClusterTensors,
     sel_mask: torch.Tensor,

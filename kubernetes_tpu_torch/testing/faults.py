@@ -9,9 +9,12 @@ Disarmed — the production state — the check is a single global load and
 an early return.  The points wired in this package (KNOWN_POINTS):
 `batch.solve` and `solve.carveout` (models/batch_scheduler.py
 solve_encoded_async), `solve.partials` (models/partials.py sync),
-`mirror.grow` (models/mirror.py _resize_resident) and `batch.preemption`
-(scheduler/preemption.py).  The reference's store, watch, binder, leader
-and serving points come with the scheduler loop.
+`mirror.grow` (models/mirror.py _resize_resident), `batch.preemption`
+(scheduler/preemption.py), the store's `store.update_wave`, `store.list`,
+`watch.offer` and `watch.consume` (api/store.py), and the loop's
+`binder.commit_wave`, `binder.stream_subwave` and `solve.speculate`
+(scheduler/scheduler.py).  The reference's journal, checkpoint, leader
+and serving points have no counterpart here yet.
 
 Schedules are bounded and seeded: a `FaultRegistry(seed=N)` draws every
 probabilistic decision from its own `random.Random(N)`, so a failing
@@ -47,6 +50,34 @@ from ..analysis import ledger as _ledger
 # against this set so a typo'd point name fails the test loudly instead
 # of silently never firing.
 KNOWN_POINTS = frozenset({
+    # -- the store and its watch streams (api/store.py) ----------------
+    # the wave transaction (Store.update_wave, fired before the commit):
+    # fail-grade schedules fail the whole wave (the binder retries once,
+    # then splits it per pod)
+    "store.update_wave",
+    # the list/relist path (Store.list): delay-grade models a contended
+    # snapshot path under a relist storm
+    "store.list",
+    # one event offered to one watcher's coalescing buffer: DROP expires
+    # the watcher as if coalescing overflowed (its informer relists)
+    "watch.offer",
+    # the consumer side of a watch stream (Watch.get / iteration):
+    # delay-grade models a slow consumer
+    "watch.consume",
+    # -- the scheduler loop (scheduler/scheduler.py) --------------------
+    # one bind wave's commit on the binding stage: fail-grade schedules
+    # fail the wave (retried once, then split per pod); crash-grade
+    # schedules kill the binder (its watchdog restarts it)
+    "binder.commit_wave",
+    # a batch dispatched SPECULATIVELY — encode/solve over an earlier
+    # wave's assumed placements while that wave is still committing;
+    # fail-grade schedules kill the dispatch (the cycle containment
+    # requeues exactly the speculative batch)
+    "solve.speculate",
+    # a streamed per-store-shard sub-wave handed to the commit pool (a
+    # store of one shard never streams; kept for the reference's set)
+    "binder.stream_subwave",
+    # -- the solve --------------------------------------------------------
     # the device solve's dispatch (TorchBatchScheduler.solve_encoded_async):
     # fail-grade schedules kill the dispatch (retried once, then the
     # circuit breaker trips to the host fallback); CORRUPT fills the score

@@ -1,4 +1,5 @@
-"""Builder-style test object constructors (Pod/Node subset).
+"""Builder-style test object constructors (Pod/Node subset, and the
+storage objects the volume binder reads).
 
 The equivalent of the reference's st.MakePod()/MakeNode() wrappers
 (pkg/scheduler/testing/wrappers.go) — fluent builders so tests and
@@ -22,6 +23,16 @@ class PodWrapper:
 
     def obj(self) -> api.Pod:
         return self.pod
+
+    def pvc(self, claim_name: str) -> "PodWrapper":
+        """Mount a PVC-backed volume (core/v1 Volume.persistentVolumeClaim)."""
+        self.pod.spec.volumes.append(
+            api.Volume(
+                name=f"vol-{len(self.pod.spec.volumes)}",
+                persistent_volume_claim=claim_name,
+            )
+        )
+        return self
 
     def req(self, cpu_milli: int = 0, mem: int = 0, **scalars: int) -> "PodWrapper":
         r = self.pod.spec.containers[0].requests
@@ -209,6 +220,80 @@ class NodeWrapper:
     def unschedulable(self, flag: bool = True) -> "NodeWrapper":
         self.node.spec.unschedulable = flag
         return self
+
+
+def make_pv(
+    name: str,
+    storage: int,
+    storage_class: str = "",
+    zone: Optional[str] = None,
+    driver: str = "",
+    access_modes: Sequence[str] = ("ReadWriteOnce",),
+) -> api.PersistentVolume:
+    affinity = None
+    if zone is not None:
+        affinity = api.NodeSelector(
+            terms=[
+                api.NodeSelectorTerm(
+                    match_expressions=[
+                        api.Requirement(api.LABEL_ZONE, api.OP_IN, [zone])
+                    ]
+                )
+            ]
+        )
+    return api.PersistentVolume(
+        meta=api.ObjectMeta(name=name),
+        spec=api.PersistentVolumeSpec(
+            capacity={api.STORAGE: storage},
+            access_modes=list(access_modes),
+            storage_class_name=storage_class,
+            node_affinity=affinity,
+            driver=driver,
+        ),
+    )
+
+
+def make_pvc(
+    name: str,
+    storage: int,
+    storage_class: str = "",
+    namespace: str = "default",
+    access_modes: Sequence[str] = ("ReadWriteOnce",),
+) -> api.PersistentVolumeClaim:
+    return api.PersistentVolumeClaim(
+        meta=api.ObjectMeta(name=name, namespace=namespace),
+        spec=api.PersistentVolumeClaimSpec(
+            access_modes=list(access_modes),
+            storage_class_name=storage_class,
+            resources={api.STORAGE: storage},
+        ),
+    )
+
+
+def make_storage_class(
+    name: str,
+    provisioner: str = "",
+    mode: str = api.VOLUME_BINDING_WAIT,
+    zones: Optional[Sequence[str]] = None,
+) -> api.StorageClass:
+    topo = None
+    if zones is not None:
+        topo = api.NodeSelector(
+            terms=[
+                api.NodeSelectorTerm(
+                    match_expressions=[
+                        api.Requirement(api.LABEL_ZONE, api.OP_IN, [z])
+                    ]
+                )
+                for z in zones
+            ]
+        )
+    return api.StorageClass(
+        meta=api.ObjectMeta(name=name),
+        provisioner=provisioner,
+        volume_binding_mode=mode,
+        allowed_topologies=topo,
+    )
 
 
 def make_pod(name: str, namespace: str = "default") -> PodWrapper:
