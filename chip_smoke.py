@@ -271,6 +271,46 @@ stdout; with --log also appended to PATH):
              every preemptor's node and the evicted victims equal to the
              same sequence through Scheduler(..., device="cpu").  Both
              stop their schedulers and close their stores
+  perf       upstream's scheduler_perf workloads as a user runs them:
+             select(load_config(DEFAULT_CONFIG), label="performance") —
+             SchedulingBasic, SchedulingPodAntiAffinity,
+             SchedulingPodAffinity, SchedulingNodeAffinity,
+             TopologySpreading and SchedulingWithMixedChurn, all /5000Nodes
+             — plus PreemptionBasic/500Nodes and Unschedulable/500Pods, at
+             upstream's sizes, each through run_workloads on the card
+             (WorkloadRunner: its own Store, Scheduler(store) with its
+             informers and loop thread, the kernel warmup, the collectors).
+             Each workload: every Scheduler on the card, every measured pod
+             bound in the store (Unschedulable's parked with the static
+             reason instead), no node over capacity, CacheComparer finds
+             nothing, the breaker closed with 0 fallbacks, the kernels of
+             every recorded batch launched; TopologySpreading's zone skew
+             <= 5, no two anti-affinity pods on a node, every PodAffinity
+             measured pod in a zone of an init pod, every preemptor bound
+             with preempt_dry_run and pod_filters launched;
+             SchedulingBasic and TopologySpreading's recorded batches
+             replayed in order through a TorchBatchScheduler() driven
+             directly, the warmup batches left out, each placement
+             assumed: every pod's node equal.  During SchedulingBasic one
+             scrape of /metrics (the text exposition parses) and /readyz
+             (200) from a HealthServer on 127.0.0.1.  Then the CLI once in
+             a fresh process: python3 -m kubernetes_tpu_torch.perf --name
+             SchedulingBasic/500Nodes --out FILE, exit 0 with a
+             WallClockThroughput item.  Prints each workload's DataItems,
+             routes, batch sizes, launches and seconds
+  leader     two Schedulers on the card over one Store with Lease-based
+             leader election (lease 1 s, renew 0.1 s), SchedulingBasic/
+             5000Nodes: A leads and binds the 1,000 init pods while B
+             stands by (no batch encoded, /readyz 503; A's 200); A hard-
+             stopped (its loop, and its elector with no release): B leads
+             within lease + renew (failover_s), reconciles once and binds
+             the 1,000 measured pods; a wave with A's stale fence token is
+             refused whole (Fenced, fenced_writes_total + 1, the pod
+             unchanged); a watch from the start sees every pod get a node
+             exactly once and never change it; no node over capacity;
+             CacheComparer finds nothing on B; A's and B's batches replayed
+             in order through a TorchBatchScheduler() driven directly give
+             every pod's node
   breakers   once, after every phase above (none arms a fault; the
              counters only count up): every scheduler built so far has its
              circuit breaker closed, no trip, no host fallback and no
@@ -304,8 +344,8 @@ stdout; with --log also appended to PATH):
              healthy twin)
 
 In every part of main, greedy, wavefront, spread, interpod, extras,
-slices, extender, proto, resident, north, gang, encode, profiles and loop the
-launch counters are reset
+slices, extender, proto, resident, north, gang, encode, profiles, loop, perf
+(each workload) and leader the launch counters are reset
 just before the part and
 read just after; the kernels expected are derived from the batches the
 part's schedulers encoded (route_kernels): the route's own — a cold batch
@@ -341,8 +381,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 
 # SchedulingBasic templates (kubernetes_tpu/perf/config: node-default.yaml,
@@ -438,6 +480,29 @@ LOOP_WAIT_S = 120.0
 # the informers Scheduler.start() runs
 LOOP_INFORMERS = ("Node", "Pod", "PersistentVolume", "PersistentVolumeClaim",
                   "StorageClass", "ResourceClaim", "DeviceClass")
+# the perf phase: upstream's workloads by label, two more by name, run
+# uncut through kubernetes_tpu_torch.perf on the card; the cases whose
+# recorded batches are replayed through a TorchBatchScheduler() (no
+# delete, no preemption), the case scraped over HTTP, and the CLI's one
+# workload in a fresh process
+PERF_LABEL = "performance"
+PERF_EXTRA = ("PreemptionBasic/500Nodes", "Unschedulable/500Pods")
+PERF_REPLAY = ("SchedulingBasic", "TopologySpreading")
+PERF_SCRAPE = "SchedulingBasic"
+PERF_CLI = ("--name", "SchedulingBasic/500Nodes")
+PERF_CLI_TIMEOUT_S = 300.0
+# where every Scheduler of the perf and leader phases must solve
+CARD_DEVICE = "cuda"
+# the DataItems a workload's line prints (every item goes to --log)
+PERF_ITEMS = ("WallClockThroughput", "WarmupDuration", "WallClockThroughputIncludingWarmup",
+              "SchedulingThroughput", "scheduler_scheduling_attempt_duration_seconds",
+              "scheduler_scheduling_algorithm_duration_seconds")
+# the leader phase: SchedulingBasic/5000Nodes (nodes, init pods, measured
+# pods) under two electors of one Lease
+LEADER = (5000, 1000, 1000)
+LEADER_LEASE_S = 1.0
+LEADER_RENEW_S = 0.1
+LEADER_WATCH_CAPACITY = 1 << 16
 PROFILES_CONFIG = {
     "apiVersion": "kubescheduler.config.k8s.io/v1",
     "kind": "KubeSchedulerConfiguration",
@@ -1743,6 +1808,9 @@ def main() -> int:
     emit(profiles_phase(wrappers, TorchBatchScheduler, bindings, torch, card))
     # ---- the scheduler loop: Store -> informers -> Scheduler -> bind waves ----
     emit(loop_phase(wrappers, TorchBatchScheduler, bindings, torch, card))
+    # ---- the scheduler process: scheduler_perf workloads, leader election ----
+    emit(perf_phase(TorchBatchScheduler, bindings, card))
+    emit(leader_phase(wrappers, TorchBatchScheduler, bindings, card))
     # every phase so far arms no fault: breakers, fallbacks and cold
     # partials syncs only ever count up, so one check covers them all
     emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
@@ -4277,20 +4345,23 @@ def gang_phase(wrappers, TorchBatchScheduler, assign, auction, bindings, torch, 
 
 
 def recording(cls):
-    """TorchBatchScheduler keeping the meta of every batch it encodes: the
-    launch checks derive each phase's kernels from them.  Each one is
+    """TorchBatchScheduler keeping the meta and the pod names of every
+    batch it encodes: the launch checks derive each phase's kernels from
+    the metas, the replays solve the same batches again.  Each one is
     registered in SCHEDULERS for assert_healthy."""
     class Recorded(cls):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.metas = []
+            self.batches = []         # (pod names, num_pods_hint) an encode, in order
             self.auction_solves = 0   # auction batches dispatched to the card
             self.cold_preps = 0       # dispatches with a cold statics prep
             SCHEDULERS.append(self)
 
-        def encode_pending(self, *args, **kw):
-            snap, meta = super().encode_pending(*args, **kw)
+        def encode_pending(self, pending, num_pods_hint=0, *args, **kw):
+            snap, meta = super().encode_pending(pending, num_pods_hint, *args, **kw)
             self.metas.append(meta)
+            self.batches.append(([p.meta.name for p in pending], num_pods_hint))
             return snap, meta
 
         def _dispatch(self, snap, meta):
@@ -7183,6 +7254,509 @@ def loop_phase(wrappers, TorchBatchScheduler, bindings, torch, card) -> dict:
         }
     finally:
         framework.TorchBatchScheduler = saved
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def http_get(port: int, path: str) -> tuple:
+    """(status, body) of GET http://127.0.0.1:<port><path>."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def parse_exposition(text: str) -> dict:
+    """Prometheus text exposition -> {series: value}; raises on a line that
+    is neither a comment, a TYPE line nor `name[{labels}] value`."""
+    import re
+
+    series = {}
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^{}]*\})? (\S+)$')
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            if line.startswith("# TYPE ") and len(line.split()) != 4:
+                raise AssertionError(f"bad TYPE line {line!r}")
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise AssertionError(f"bad exposition line {line!r}")
+        series[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return series
+
+
+def health_scrape(sched, server) -> dict:
+    """One scrape of /metrics and /readyz from a HealthServer of `sched`:
+    the exposition parses and holds the loop's attempt counter, /readyz
+    answers 200."""
+    code, text = http_get(server.port, "/metrics")
+    series = parse_exposition(text)
+    if code != 200 or not any(k.startswith("scheduler_schedule_attempts_total")
+                              for k in series):
+        raise AssertionError(f"/metrics answered {code} with {len(series)} series")
+    ready, body = http_get(server.port, "/readyz")
+    if ready != 200:
+        raise AssertionError(f"/readyz answered {ready}: {body!r}")
+    live, _ = http_get(server.port, "/healthz")
+    return {"metrics_status": code, "series": len(series), "bytes": len(text),
+            "readyz": ready, "readyz_body": body, "healthz": live}
+
+
+def measured_of(wl) -> tuple:
+    """The names and namespace of a workload's measured pods (its
+    collectMetrics createPods op), and the names of the pods every earlier
+    createPods op made: the runner names them pod-<index>, counted over the
+    workload's createPods ops."""
+    base = 0
+    for op in wl.ops:
+        if op.opcode != "createPods":
+            continue
+        if op.collect_metrics:
+            return ([f"pod-{base + i}" for i in range(op.count)], op.namespace or "default",
+                    [f"pod-{i}" for i in range(base)])
+        base += op.count
+    raise AssertionError(f"perf {wl.full_name}: no measured createPods op")
+
+
+def replay_direct(what, sched, batches, bindings, TorchBatchScheduler):
+    """Solve `batches` (pod names, num_pods_hint) in order through a
+    TorchBatchScheduler() driven directly, over the nodes of the loop's
+    cluster state in its row order and the pods as the store holds them
+    (unbound), each placement assumed before the next batch; the warmup
+    batches (pods named warmup-*) are left out.  Returns each pod's last
+    node and the launches."""
+    import copy
+
+    state = sched.tpu.state
+    store = sched.store
+    pods = {p.meta.name: p for p in store.list("Pod")[0]}
+    direct = TorchBatchScheduler()
+    for name in sorted(state._rows, key=state._rows.get):
+        direct.add_node(state._node_objs[name])
+    placed = {}
+
+    def run():
+        for names, hint in batches:
+            if all(n.startswith("warmup-") for n in names):
+                continue
+            batch = []
+            for n in names:
+                pod = copy.deepcopy(pods[n])
+                pod.spec.node_name = ""
+                batch.append(pod)
+            got = direct.schedule_pending(batch, num_pods_hint=hint)
+            for pod, node in zip(batch, got):
+                placed[pod.meta.name] = node
+                if node is not None:
+                    direct.assume(pod, node)
+
+    _, launches = drive_phase(what, run, bindings, [direct])
+    check_capacity(direct.state)
+    return placed, launches
+
+
+def perf_checks(wl, sched, REASON_STATIC, SPREAD_SKEW) -> dict:
+    """The checks every perf workload passes, and its case's own."""
+    from kubernetes_tpu_torch.scheduler.debugger import CacheComparer
+
+    store = sched.store
+    pods = {p.meta.name: p for p in store.list("Pod")[0]}
+    names, namespace, earlier = measured_of(wl)
+    case = wl.case_name
+    tag = f"perf {wl.full_name}"
+    if sched.tpu.device.type != CARD_DEVICE:
+        raise AssertionError(f"{tag}: the Scheduler is not on the card")
+    out = {}
+    if case == "Unschedulable":
+        parked = {k: info.unschedulable_reason
+                  for k, info in dict(sched.queue._unschedulable).items()}
+        bad = [n for n in names if pods[n].spec.node_name
+               or parked.get(f"{namespace}/{n}") != REASON_STATIC]
+        if bad:
+            raise AssertionError(f"{tag}: pods not parked with the static reason: {bad[:5]}")
+        out["parked"] = len(names)
+    else:
+        unbound = [n for n in names if not pods[n].spec.node_name]
+        if unbound:
+            raise AssertionError(f"{tag}: {len(unbound)} measured pods unbound: {unbound[:5]}")
+        out["bound"] = len(names)
+    check_capacity(sched.tpu.state)
+    problems = CacheComparer(store, sched.cache).compare()
+    if problems:
+        raise AssertionError(f"{tag}: the cache differs from the store: {problems[:5]}")
+    b = sched.tpu.breaker
+    if b.state != b.CLOSED or b.trips or b.fallback_count():
+        raise AssertionError(f"{tag}: breaker {b.state}, {b.trips} trips, "
+                             f"{b.fallback_count()} fallbacks")
+    zone_of = {n.meta.name: n.meta.labels.get("topology.kubernetes.io/zone")
+               for n in store.list("Node")[0]}
+    if case == "TopologySpreading":
+        out["zone_skew"] = zone_skew([pods[n].spec.node_name for n in names], zone_of)
+        if out["zone_skew"] > SPREAD_SKEW:
+            raise AssertionError(f"{tag}: zone skew {out['zone_skew']} > {SPREAD_SKEW}")
+    elif case == "SchedulingPodAntiAffinity":
+        green = [p.spec.node_name for p in pods.values()
+                 if p.meta.labels.get("color") == "green" and p.spec.node_name]
+        if len(set(green)) != len(green):
+            raise AssertionError(f"{tag}: two color=green pods on one node")
+        out["green_nodes"] = len(green)
+    elif case == "SchedulingPodAffinity":
+        blue_zones = {zone_of[pods[n].spec.node_name] for n in earlier}
+        if any(zone_of[pods[n].spec.node_name] not in blue_zones for n in names):
+            raise AssertionError(f"{tag}: a measured pod outside the init pods' zones")
+        out["zones"] = sorted(blue_zones)
+    elif case == "PreemptionBasic":
+        out["preemption_passes"] = sched.metrics.preemption_batch_size.n
+        out["preemption_attempts"] = sched.metrics.preemption_attempts.total
+    return out
+
+
+def perf_phase(TorchBatchScheduler, bindings, card, workloads=None) -> dict:
+    """upstream's scheduler_perf workloads through kubernetes_tpu_torch.perf
+    on the card, as a user runs them, one run_workloads call a workload
+    (see the module docstring).  `workloads` defaults to perf_workloads();
+    the checks key on the case name."""
+    import tempfile
+
+    from kubernetes_tpu_torch import perf
+    from kubernetes_tpu_torch.ops import assign as assign_ops
+    from kubernetes_tpu_torch.perf import runner
+    from kubernetes_tpu_torch.scheduler import framework
+    from kubernetes_tpu_torch.scheduler.http import HealthServer
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+
+    out = {"phase": "perf", "card": card, "workloads": []}
+    t_phase = time.perf_counter()
+    if workloads is None:
+        every = perf.load_config(perf.DEFAULT_CONFIG)
+        workloads = perf.select(every, label=PERF_LABEL)
+        for name in PERF_EXTRA:
+            picked = perf.select(every, name=name)
+            if [w.full_name for w in picked] != [name]:
+                raise AssertionError(f"perf: {name} selects {[w.full_name for w in picked]}")
+            workloads = workloads + picked
+    saved = framework.TorchBatchScheduler, runner.Scheduler
+    # the registry builds the recording class; the runner's Scheduler is
+    # wrapped so the phase reaches the store and scheduler of each run
+    framework.TorchBatchScheduler = TorchBatchScheduler
+    try:
+        for wl in workloads:
+            built, scheds, scrape = [], [], {}
+
+            def make(store, _wl=wl, **kw):
+                s = Scheduler(store, **kw)
+                if s.tpu.device.type != CARD_DEVICE:
+                    raise AssertionError(f"perf {_wl.full_name}: Scheduler(store) is not on the card")
+                built.append(s)
+                scheds.append(s.tpu)
+                if _wl.case_name == PERF_SCRAPE:
+                    threading.Thread(target=scrape_when_bound, args=(s,), daemon=True).start()
+                return s
+
+            def scrape_when_bound(s):
+                # once the loop has bound pods: scrape while it runs
+                try:
+                    _wait_for(lambda: s.metrics.schedule_attempts.total > 0, LOOP_WAIT_S,
+                              "the first scheduled pod")
+                    server = HealthServer(s).start()
+                    try:
+                        scrape.update(health_scrape(s, server))
+                    finally:
+                        server.stop()
+                except BaseException as exc:  # handed to the phase below
+                    scrape["error"] = repr(exc)
+
+            runner.Scheduler = make
+            extra = PREEMPT_KERNELS if wl.case_name == "PreemptionBasic" else ()
+            t0 = time.perf_counter()
+            result, launches = drive_phase(f"perf/{wl.full_name}",
+                                           lambda: perf.run_workloads([wl]),
+                                           bindings, scheds, extra=extra)
+            run_s = time.perf_counter() - t0
+            if len(built) != 1:
+                raise AssertionError(f"perf {wl.full_name}: {len(built)} schedulers built")
+            sched = built[0]
+            row = {"workload": wl.full_name, "run_s": run_s,
+                   **perf_checks(wl, sched, assign_ops.REASON_STATIC, SPREAD_MAX_SKEW)}
+            items = result["dataItems"]
+            metrics = {i["labels"]["Metric"] for i in items}
+            if "WallClockThroughput" not in metrics:
+                raise AssertionError(f"perf {wl.full_name}: no WallClockThroughput item")
+            row["items"] = {i["labels"]["Metric"]: i["data"] for i in items
+                            if i["labels"]["Metric"] in PERF_ITEMS}
+            metas = sched.tpu.metas
+            row["batches"] = [{"route": m.route, "pods": len(names)}
+                              for m, (names, _) in zip(metas, sched.tpu.batches)
+                              if not all(n.startswith("warmup-") for n in names)]
+            row["warmup_batches"] = sum(all(n.startswith("warmup-") for n in names)
+                                        for names, _ in sched.tpu.batches)
+            row["launches"] = {k: v for k, v in launches.items() if v}
+            if wl.case_name == "PreemptionBasic":
+                for k in PREEMPT_KERNELS:
+                    if not launches.get(k):
+                        raise AssertionError(f"perf {wl.full_name}: kernel {k} was not launched")
+            if wl.case_name in PERF_REPLAY:
+                want, direct_launches = replay_direct(f"perf/{wl.full_name}/direct", sched,
+                                                      sched.tpu.batches, bindings,
+                                                      TorchBatchScheduler)
+                got = {p.meta.name: p.spec.node_name for p in sched.store.list("Pod")[0]}
+                bad = [n for n in got if want.get(n) != got[n]]
+                if bad or len(want) != len(got):
+                    raise AssertionError(f"perf {wl.full_name}: the loop's placements differ "
+                                         f"from the direct replay at {bad[:5]}")
+                row["equal_direct"] = True
+                row["direct_launches"] = {k: v for k, v in direct_launches.items() if v}
+            sched.store.close()
+            if wl.case_name == PERF_SCRAPE:
+                if "error" in scrape or not scrape:
+                    raise AssertionError(f"perf {wl.full_name}: the scrape failed: {scrape}")
+                row["scrape"] = scrape
+            if LOG is not None:
+                with open(LOG, "a") as f:
+                    f.write(json.dumps({"phase": "perf/items", "workload": wl.full_name,
+                                        "dataItems": items}) + "\n")
+            out["workloads"].append(row)
+    finally:
+        framework.TorchBatchScheduler, runner.Scheduler = saved
+    # the CLI once, in a fresh process, as a user runs it
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "perf.json")
+        proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.perf", *PERF_CLI,
+                               "--out", path], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=PERF_CLI_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"perf CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(path) as f:
+            cli = json.load(f)
+    cli_items = {i["labels"]["Metric"]: i["data"] for i in cli["dataItems"]}
+    if cli.get("version") != "v1" or "WallClockThroughput" not in cli_items:
+        raise AssertionError(f"perf CLI: no WallClockThroughput item in {sorted(cli_items)}")
+    out["cli"] = {"args": list(PERF_CLI), "s": time.perf_counter() - t0,
+                  "items": {k: v for k, v in cli_items.items() if k in PERF_ITEMS}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def leader_sequence(wrappers, Store, Scheduler, LeaderElector, HealthServer, dims,
+                    lease_s: float, renew_s: float) -> dict:
+    """Two Schedulers over one Store under Lease-based leader election,
+    duck-typed over either package: A leads and binds dims[1] init pods
+    while B stands by; A is hard-stopped (its loop, and its elector with no
+    release); B takes over, reconciles and binds dims[2] measured pods; a
+    wave with A's stale fence token is refused.  Returns what the checks
+    read; raises where the sequence itself fails."""
+    store = Store(watch_capacity=LEADER_WATCH_CAPACITY)
+    events, stop = [], threading.Event()
+    watch = store.watch("Pod")
+
+    def drain():
+        while not stop.is_set() or watch._pending:
+            ev = watch.get(timeout=0.05)
+            if ev is not None:
+                events.append((ev.type, ev.obj.meta.name, ev.obj.spec.node_name))
+
+    drainer = threading.Thread(target=drain, daemon=True)
+    drainer.start()
+    el_a = el_b = sa = sb = None
+    try:
+        for node in make_cluster(wrappers, dims[0]):
+            store.create(node)
+        for pod in make_pods(wrappers, dims[1], "init"):
+            store.create(pod)
+        el_a = LeaderElector(store, "kube-scheduler", "A", lease_duration=lease_s,
+                             renew_period=renew_s).start()
+        if not el_a.wait_for_leadership(LOOP_WAIT_S):
+            raise AssertionError("leader: A never led")
+        el_b = LeaderElector(store, "kube-scheduler", "B", lease_duration=lease_s,
+                             renew_period=renew_s).start()
+        sa = Scheduler(store, leader_elector=el_a)
+        sb = Scheduler(store, leader_elector=el_b)
+        sa.start()
+        sb.start()
+
+        def bound(s, prefix, n):
+            return lambda: (sum(1 for p in s.informers.informer("Pod").list()
+                                if p.meta.name.startswith(prefix) and p.spec.node_name) == n
+                            and not s.cache.assumed_count())
+
+        init_s = _wait_for(bound(sa, "init-", dims[1]), LOOP_WAIT_S, "A's binds")
+        _wait_for(bound(sb, "init-", dims[1]), LOOP_WAIT_S, "B's echo of A's binds")
+        if el_b.is_leader():
+            raise AssertionError("leader: B leads beside A")
+        # B's dispatches while it stands by: batches its recording
+        # solver encoded (where it records) and scheduling attempts
+        standby = {"b_batches": len(getattr(sb.tpu, "metas", ())),
+                   "b_attempts": sb.metrics.schedule_attempts.total}
+        servers = [HealthServer(sa).start(), HealthServer(sb).start()]
+        try:
+            standby["readyz_a"] = http_get(servers[0].port, "/readyz")[0]
+            standby["readyz_b"] = http_get(servers[1].port, "/readyz")[0]
+        finally:
+            for srv in servers:
+                srv.stop()
+        # hard stop: A's loop and elector, no release (a crash)
+        t_stop = time.monotonic()
+        sa._stop.set()
+        el_a._stop.set()
+        el_a._thread.join(timeout=5)
+        last_renew = store.get("Lease", "kube-scheduler", "kube-system").spec.renew_time
+        if not el_b.wait_for_leadership(lease_s + renew_s + LOOP_WAIT_S):
+            raise AssertionError("leader: B never took over")
+        lease = store.get("Lease", "kube-scheduler", "kube-system")
+        _wait_for(lambda: sb.metrics.leader_reconcile_total.total >= 1, LOOP_WAIT_S,
+                  "B's reconcile")
+        t_create = time.perf_counter()
+        for pod in make_pods(wrappers, dims[2], "measured"):
+            store.create(pod)
+        measured_s = _wait_for(bound(sb, "measured-", dims[2]), LOOP_WAIT_S, "B's binds")
+        total_s = time.perf_counter() - t_create
+        # A's late wave, carrying its stale token, against a measured pod
+        victim = store.get("Pod", "measured-0")
+        other = next(n for n in (f"node-{i}" for i in range(dims[0]))
+                     if n != victim.spec.node_name)
+        fenced_before = store.fenced_writes_total
+
+        def move(pod):
+            pod.spec.node_name = other
+
+        refused = False
+        try:
+            store.update_wave("Pod", [(victim.meta.name, victim.meta.namespace, move)],
+                              fence=el_a.fence_token())
+        except Exception as exc:  # the store's Fenced, whichever package
+            refused = type(exc).__name__ == "Fenced"
+            if not refused:
+                raise
+        after = store.get("Pod", "measured-0")
+        sa._thread.join(timeout=LOOP_WAIT_S)
+        return {
+            "store": store, "a": sa, "b": sb, "standby": standby,
+            "a_generation": el_a.fence_token().generation,
+            "b_generation": el_b.fence_token().generation,
+            "failover_s": lease.spec.acquire_time - t_stop,
+            "since_last_renew_s": lease.spec.acquire_time - last_renew,
+            "holder": lease.spec.holder_identity, "transitions": lease.spec.lease_transitions,
+            "b_reconciles": sb.metrics.leader_reconcile_total.total,
+            "init_bound_s": init_s, "measured_bound_s": measured_s,
+            "measured_pods_per_s": dims[2] / total_s,
+            "refused": refused, "fenced": store.fenced_writes_total - fenced_before,
+            "stale_wave_applied": (after.spec.node_name != victim.spec.node_name
+                                   or after.meta.resource_version != victim.meta.resource_version),
+            "a_batches": list(getattr(sa.tpu, "batches", ())),
+            "b_batches": list(getattr(sb.tpu, "batches", ())),
+            "events": events, "watch_expired": watch.expired,
+            "watch_coalesced": watch.coalesced,
+        }
+    finally:
+        for s in (sb, sa):
+            if s is not None:
+                s.stop()
+        for el, release in ((el_b, True), (el_a, False)):
+            if el is not None:
+                el.stop(release=release)
+        stop.set()
+        drainer.join(timeout=10)
+        watch.stop()
+
+
+def bind_transcript(events) -> dict:
+    """Per pod, the nodes its watch events carried once it had one: a pod
+    bound once shows one event with a node and no other."""
+    seen = {}
+    for typ, name, node in events:
+        if node:
+            seen.setdefault(name, []).append((typ, node))
+    return seen
+
+
+def leader_phase(wrappers, TorchBatchScheduler, bindings, card) -> dict:
+    """Lease-based leader election between two card schedulers over one
+    Store (see the module docstring; leader_sequence)."""
+    from kubernetes_tpu_torch.api.store import Store
+    from kubernetes_tpu_torch.client.leaderelection import LeaderElector
+    from kubernetes_tpu_torch.scheduler import framework
+    from kubernetes_tpu_torch.scheduler.debugger import CacheComparer
+    from kubernetes_tpu_torch.scheduler.http import HealthServer
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+
+    out = {"phase": "leader", "card": card, "workload": "SchedulingBasic/5000Nodes",
+           "nodes": LEADER[0], "init": LEADER[1], "measured": LEADER[2],
+           "lease_s": LEADER_LEASE_S, "renew_s": LEADER_RENEW_S}
+    t_phase = time.perf_counter()
+    saved = framework.TorchBatchScheduler
+    framework.TorchBatchScheduler = TorchBatchScheduler
+    scheds = []
+
+    def make(store, **kw):
+        s = Scheduler(store, **kw)
+        if s.tpu.device.type != CARD_DEVICE:
+            raise AssertionError("leader: Scheduler(store) is not on the card")
+        scheds.append(s.tpu)
+        return s
+
+    try:
+        got, launches = drive_phase(
+            "leader", lambda: leader_sequence(wrappers, Store, make, LeaderElector,
+                                              HealthServer, LEADER, LEADER_LEASE_S,
+                                              LEADER_RENEW_S), bindings, scheds)
+    finally:
+        framework.TorchBatchScheduler = saved
+    sd = got["standby"]
+    if sd["b_batches"] or sd["b_attempts"] or sd["readyz_a"] != 200 or sd["readyz_b"] == 200:
+        raise AssertionError(f"leader: standby B encoded {sd['b_batches']} batches "
+                             f"({sd['b_attempts']} attempts), /readyz A {sd['readyz_a']}, "
+                             f"B {sd['readyz_b']}")
+    if got["failover_s"] > LEADER_LEASE_S + LEADER_RENEW_S or got["holder"] != "B":
+        raise AssertionError(f"leader: B took over after {got['failover_s']} s "
+                             f"(holder {got['holder']})")
+    if got["b_reconciles"] != 1:
+        raise AssertionError(f"leader: B reconciled {got['b_reconciles']} times")
+    if not got["refused"] or got["fenced"] != 1 or got["stale_wave_applied"]:
+        raise AssertionError(f"leader: the stale wave was not refused whole (refused "
+                             f"{got['refused']}, fenced {got['fenced']}, applied "
+                             f"{got['stale_wave_applied']})")
+    store, sa, sb = got["store"], got["a"], got["b"]
+    placed = {p.meta.name: p.spec.node_name for p in store.list("Pod")[0]}
+    if len(placed) != LEADER[1] + LEADER[2] or not all(placed.values()):
+        raise AssertionError("leader: a pod is not bound in the store")
+    if got["watch_expired"]:
+        raise AssertionError("leader: the watch expired")
+    seen = bind_transcript(got["events"])
+    twice = [n for n, evs in seen.items() if len(evs) != 1]
+    if twice or set(seen) != set(placed):
+        raise AssertionError(f"leader: pods bound other than once: {twice[:5]}")
+    check_capacity(sb.tpu.state)
+    problems = CacheComparer(store, sb.cache).compare()
+    if problems:
+        raise AssertionError(f"leader: B's cache differs from the store: {problems[:5]}")
+    if not got["a_batches"] or not got["b_batches"]:
+        raise AssertionError("leader: A or B encoded no batch")
+    want, direct_launches = replay_direct("leader/direct", sb,
+                                          got["a_batches"] + got["b_batches"],
+                                          bindings, TorchBatchScheduler)
+    bad = [n for n in placed if want.get(n) != placed[n]]
+    if bad:
+        raise AssertionError(f"leader: placements differ from the direct replay at {bad[:5]}")
+    store.close()
+    out.update({
+        "failover_s": got["failover_s"], "since_last_renew_s": got["since_last_renew_s"],
+        "transitions": got["transitions"], "a_generation": got["a_generation"],
+        "b_generation": got["b_generation"], "b_reconciles": got["b_reconciles"],
+        "standby": sd, "fenced_writes": got["fenced"],
+        "init_bound_s": got["init_bound_s"], "measured_bound_s": got["measured_bound_s"],
+        "measured_pods_per_s": got["measured_pods_per_s"],
+        "a_batches": [len(n) for n, _ in got["a_batches"]],
+        "b_batches": [len(n) for n, _ in got["b_batches"]],
+        "a_routes": [m.route for m in sa.tpu.metas], "b_routes": [m.route for m in sb.tpu.metas],
+        "watch_events": len(got["events"]), "watch_coalesced": got["watch_coalesced"],
+        "equal_direct": True, "launches": {k: v for k, v in launches.items() if v},
+        "direct_launches": {k: v for k, v in direct_launches.items() if v},
+    })
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 

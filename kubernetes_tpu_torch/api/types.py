@@ -1,6 +1,6 @@
 """Core API object model: the Pod/Node subset the scheduler port encodes,
-and the storage, device-claim and Event objects its loop's binders and
-event recorder read and write.
+the storage, device-claim and Event objects its loop's binders and
+event recorder read and write, and the Lease its leader election holds.
 
 A copy of the reference package's object model, cut to what the encoder,
 the scheduler loop and the test builders read.  Field names are identical, so the encoder
@@ -812,6 +812,25 @@ class Event:
     source_component: str = ""
 
     KIND = "Event"
+
+
+@dataclass
+class LeaseSpec:
+    """coordination.k8s.io/v1 LeaseSpec — the leader-election record."""
+
+    holder_identity: str = ""
+    lease_duration_seconds: int = 15
+    acquire_time: float = 0.0
+    renew_time: float = 0.0
+    lease_transitions: int = 0
+
+
+@dataclass
+class Lease:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: LeaseSpec = field(default_factory=LeaseSpec)
+
+    KIND = "Lease"
 
 
 # kinds that live outside namespaces (the store keys them at namespace ""),

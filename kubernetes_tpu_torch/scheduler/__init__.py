@@ -4,8 +4,10 @@ committing bind waves through it; `OverloadController`), the scheduler
 cache (cache.py), the configuration (config.py), the profiles and their
 extension points (framework.py), the scheduling queue (queue.py), the
 Permit wait map (waitingpods.py), the metrics (metrics.py), the PostFilter
-preemption evaluator (preemption.py) and the volume and device-claim
-binders (volumebinding.py, deviceclaims.py).
+preemption evaluator (preemption.py), the volume and device-claim
+binders (volumebinding.py, deviceclaims.py), the cache debugger
+(debugger.py: `CacheComparer`) and the health and metrics server
+(http.py: `HealthServer`, `render_prometheus`).
 """
 
 from .cache import SchedulerCache

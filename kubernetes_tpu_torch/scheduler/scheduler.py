@@ -42,9 +42,10 @@ binder thread, the informers and the event broadcaster work on host
 objects only.
 
 Left out of the reference's loop: nothing of the cycle.  The leader
-elector stays an optional duck-typed argument (client/leaderelection.py
-is not ported yet), and `warmup` runs its buckets one after another
-instead of on four threads (see there).
+elector is an optional client/leaderelection.py `LeaderElector` (the loop
+dispatches while `is_leader()`, reconciles on each acquisition and fences
+its bind waves with `fence_token()`), and `warmup` runs its buckets one
+after another instead of on four threads (see there).
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ solve_encoded_async), `solve.partials` (models/partials.py sync),
 (scheduler/preemption.py), the store's `store.update_wave`, `store.list`,
 `watch.offer` and `watch.consume` (api/store.py), and the loop's
 `binder.commit_wave`, `binder.stream_subwave` and `solve.speculate`
-(scheduler/scheduler.py).  The reference's journal, checkpoint, leader
-and serving points have no counterpart here yet.
+(scheduler/scheduler.py), and the elector's `leader.renew`
+(client/leaderelection.py).  The reference's journal, checkpoint and
+serving points have no counterpart here yet.
 
 Schedules are bounded and seeded: a `FaultRegistry(seed=N)` draws every
 probabilistic decision from its own `random.Random(N)`, so a failing
@@ -102,6 +103,12 @@ KNOWN_POINTS = frozenset({
     # allocatable with +inf so the fit scores go NaN and the decode
     # health check trips (the retry's invalidation re-uploads in full)
     "mirror.grow",
+    # -- leader election (client/leaderelection.py) ---------------------
+    # one tryAcquireOrRenew attempt: fail-grade schedules make the renew
+    # raise, which the elector counts as a FAILED renew (renew_errors) —
+    # the holder steps down exactly once and re-acquires on a later
+    # healthy period
+    "leader.renew",
 })
 
 # caller-interpreted actions returned by fire()

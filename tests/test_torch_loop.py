@@ -19,7 +19,6 @@ testing/oracle.py.  Every wait is bounded; every test stops its
 schedulers and closes its stores in a `finally`.
 """
 
-import dataclasses
 import time
 from types import SimpleNamespace
 
@@ -913,35 +912,13 @@ def test_informer_relists_after_expired_like_the_reference():
     assert got[0] == [("ADDED", "a0"), ("ADDED", "a1"), ("ADDED", "x"), ("ADDED", "y")]
 
 
-@dataclasses.dataclass
-class _LeaseSpec:
-    holder_identity: str = ""
-    lease_transitions: int = 0
-
-
-@dataclasses.dataclass
-class _Lease:
-    """A Lease-shaped object for the port's store (its Lease type comes
-    with leader election); the fence reads only holder and generation."""
-
-    meta: tapi.ObjectMeta = dataclasses.field(default_factory=tapi.ObjectMeta)
-    spec: _LeaseSpec = dataclasses.field(default_factory=_LeaseSpec)
-
-    KIND = "Lease"
-
-
 def _store_wave(pkg):
     w_ = pkg.w
     store = _store(pkg)
     for name in ("p0", "p1", "p2"):
         store.create(w_.make_pod(name).obj())
-    if pkg is PORT:
-        lease = _Lease(meta=tapi.ObjectMeta(name="sched", namespace="kube-system"),
-                       spec=_LeaseSpec("me", 3))
-    else:
-        lease = japi.Lease(meta=japi.ObjectMeta(name="sched", namespace="kube-system"),
-                           spec=japi.LeaseSpec(holder_identity="me", lease_transitions=3))
-    store.create(lease)
+    store.create(pkg.api.Lease(meta=pkg.api.ObjectMeta(name="sched", namespace="kube-system"),
+                               spec=pkg.api.LeaseSpec(holder_identity="me", lease_transitions=3)))
     w = store.watch("Pod")
     try:
         def bind(node):
