@@ -311,6 +311,30 @@ stdout; with --log also appended to PATH):
              CacheComparer finds nothing on B; A's and B's batches replayed
              in order through a TorchBatchScheduler() driven directly give
              every pod's node
+  front      the API front: SchedulingBasic/5000Nodes's cluster written
+             over HTTP by 8 RestClients through an APIServer over
+             Store(admission=default_chain()) with the PodGroup CRD, a
+             TokenAuthenticator, an RBACAuthorizer (create/get/list/
+             watch/delete on pods, nodes and PodGroups) and an APFGate
+             from a dict; a Scheduler on the card with CoschedulingPermit
+             over a PodGroupDirectory at Permit, its loop running while
+             the pods arrive: 5,000 nodes, 20 PodGroups (minMember 100,
+             30 s) and their 2,000 members, 1,000 ungrouped pods, a short
+             group (minMember 50, 2 s) of 40, all make_pods's shape; three
+             writes admission refuses (a negative request, minMember 0,
+             over a ResourceQuota) equal to a host-only server's.  Every
+             group released once with 99 members parked and bound whole,
+             every pod bound once (a RestClient watch opened first), no
+             node over capacity, the short group cycling Permit ->
+             timeout -> requeue until deleted over HTTP and then gone
+             from the waiting map and the cache, CacheComparer empty,
+             and every recorded batch solved again through a
+             TorchBatchScheduler() driven directly over the state the
+             loop held at its encode (front_replay).  Prints the creates
+             per second, the first create to the last bind, the batches
+             by route, Permit's waits, releases and timeouts, APF's
+             seats and rejections, and the steps of every loop cycle
+             over its 1 s trace threshold
   breakers   once, after every phase above (none arms a fault; the
              counters only count up): every scheduler built so far has its
              circuit breaker closed, no trip, no host fallback and no
@@ -345,7 +369,7 @@ stdout; with --log also appended to PATH):
 
 In every part of main, greedy, wavefront, spread, interpod, extras,
 slices, extender, proto, resident, north, gang, encode, profiles, loop, perf
-(each workload) and leader the launch counters are reset
+(each workload), leader and front the launch counters are reset
 just before the part and
 read just after; the kernels expected are derived from the batches the
 part's schedulers encoded (route_kernels): the route's own — a cold batch
@@ -503,6 +527,22 @@ LEADER = (5000, 1000, 1000)
 LEADER_LEASE_S = 1.0
 LEADER_RENEW_S = 0.1
 LEADER_WATCH_CAPACITY = 1 << 16
+# the front phase: SchedulingBasic/5000Nodes's cluster written over HTTP
+# through the port's APIServer (admission chain, the PodGroup CRD, RBAC,
+# APF), PodGroup members held at Permit by CoschedulingPermit: (nodes,
+# PodGroups, minMember = members of each, ungrouped pods, (the short
+# group's minMember, its members))
+FRONT = (5000, 20, 100, 1000, (50, 40))
+FRONT_TIMEOUTS = (30.0, 2.0)    # scheduleTimeoutSeconds: the groups', the short group's
+FRONT_CLIENTS = 8               # client threads, each its own RestClient
+FRONT_SHORT_WAITS = 2           # Permit waits each short member shows before its delete
+FRONT_WAIT_S = 90.0
+FRONT_USER, FRONT_TOKEN = "front", "front-token"
+FRONT_VERBS = ["create", "get", "list", "watch", "delete"]
+FRONT_KINDS = ["Pod", "Node", "PodGroup"]
+FRONT_QUOTA = ("quota", {"cpu": 50})  # (namespace, ResourceQuota hard)
+FRONT_APF = {"apfLevels": {"workload-high": {"seats": 16, "queueLimit": 128}},
+             "queueWaitSeconds": 5.0}
 PROFILES_CONFIG = {
     "apiVersion": "kubescheduler.config.k8s.io/v1",
     "kind": "KubeSchedulerConfiguration",
@@ -1811,6 +1851,8 @@ def main() -> int:
     # ---- the scheduler process: scheduler_perf workloads, leader election ----
     emit(perf_phase(TorchBatchScheduler, bindings, card))
     emit(leader_phase(wrappers, TorchBatchScheduler, bindings, card))
+    # ---- the API front: pods and PodGroups over HTTP, held at Permit ----
+    emit(front_phase(TorchBatchScheduler, bindings, card))
     # every phase so far arms no fault: breakers, fallbacks and cold
     # partials syncs only ever count up, so one check covers them all
     emit({"phase": "breakers", "schedulers_checked": assert_healthy(), "state": "closed",
@@ -7756,6 +7798,506 @@ def leader_phase(wrappers, TorchBatchScheduler, bindings, card) -> dict:
         "watch_events": len(got["events"]), "watch_coalesced": got["watch_coalesced"],
         "equal_direct": True, "launches": {k: v for k, v in launches.items() if v},
         "direct_launches": {k: v for k, v in direct_launches.items() if v},
+    })
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- the API front: pods and PodGroups over HTTP, held at Permit -------------
+
+
+def front_package():
+    """The port's API front and loop, as front_sequence reads them (the
+    tests build the same namespace over the reference package)."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.api import admission, auth, crd, flowcontrol, wire
+    from kubernetes_tpu_torch.api import store as st
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.server import APIServer
+    from kubernetes_tpu_torch.client.rest import RestClient
+    from kubernetes_tpu_torch.scheduler.coscheduling import CoschedulingPermit
+    from kubernetes_tpu_torch.scheduler.debugger import CacheComparer
+    from kubernetes_tpu_torch.testing import wrappers
+
+    return SimpleNamespace(w=wrappers, api=api, st=st, adm=admission, auth=auth, crd=crd,
+                           flowcontrol=flowcontrol, wire=wire, APIServer=APIServer,
+                           RestClient=RestClient, CoschedulingPermit=CoschedulingPermit,
+                           CacheComparer=CacheComparer)
+
+
+def front_pod(m, name: str, group=None, namespace: str = "default", cpu: int = POD_CPU_MILLI):
+    """make_pods's shape (pod-default: 100m / 500Mi), in `group` (no
+    declared size: CoschedulingPermit reads minMember from the PodGroup)."""
+    w = m.w.make_pod(name, namespace=namespace).req(cpu_milli=cpu, mem=POD_MEM_MI * m.w.MI)
+    if group is not None:
+        w = w.group(group)
+    return w.obj()
+
+
+def front_objects(m, dims, timeouts) -> tuple:
+    """(nodes, PodGroups, pods in creation order, the short group's pod
+    names): make_cluster's nodes; dims[1] PodGroups gang-<g> of minMember
+    dims[2] and dims[2] members each; dims[3] ungrouped pods free-<i>; the
+    short PodGroup (minMember dims[4][0]) with dims[4][1] members.  The
+    pods are dealt in a seeded shuffle, so every batch mixes them."""
+    import random
+
+    n_nodes, n_groups, size, n_free, (short_min, n_short) = dims
+    groups = [m.crd.pod_group(f"gang-{g}", size, timeout_s=timeouts[0]) for g in range(n_groups)]
+    groups.append(m.crd.pod_group("short", short_min, timeout_s=timeouts[1]))
+    pods = [front_pod(m, f"gang-{g}-{i}", f"gang-{g}") for g in range(n_groups)
+            for i in range(size)]
+    pods += [front_pod(m, f"free-{i}") for i in range(n_free)]
+    short = [front_pod(m, f"short-{i}", "short") for i in range(n_short)]
+    pods += short
+    random.Random(23).shuffle(pods)
+    return make_cluster(m.w, n_nodes), groups, pods, [p.meta.name for p in short]
+
+
+def front_store(m):
+    """Store(admission=default_chain()) with the PodGroup CRD, a
+    ClusterRole granting FRONT_VERBS on FRONT_KINDS bound to FRONT_USER,
+    and FRONT_QUOTA's ResourceQuota in its namespace."""
+    api = m.api
+    store = m.st.Store(admission=m.adm.default_chain())
+    m.crd.install_podgroup_crd(store)
+    store.create(api.ClusterRole(meta=api.ObjectMeta(name="front-writer", namespace=""),
+                                 rules=[api.PolicyRule(verbs=list(FRONT_VERBS),
+                                                       resources=list(FRONT_KINDS))]))
+    store.create(api.ClusterRoleBinding(
+        meta=api.ObjectMeta(name="front-writer", namespace=""),
+        subjects=[api.RbacSubject(kind="User", name=FRONT_USER)],
+        role_ref=api.RoleRef(kind="ClusterRole", name="front-writer")))
+    ns, hard = FRONT_QUOTA
+    store.create(api.ResourceQuota(meta=api.ObjectMeta(name="cap", namespace=ns),
+                                   spec=api.ResourceQuotaSpec(hard=dict(hard))))
+    return store
+
+
+def refused_writes(m, client) -> list:
+    """Three writes admission refuses, over `client`: a pod with a
+    negative request, a PodGroup with minMember 0 (the CRD's schema), a
+    pod over FRONT_QUOTA.  Each one's (exception class, message)."""
+    bad = front_pod(m, "refused-negative")
+    bad.spec.containers[0].requests[m.api.CPU] = -5
+    writes = [bad, m.crd.pod_group("refused-zero", 0),
+              front_pod(m, "refused-quota", namespace=FRONT_QUOTA[0])]
+    out = []
+    for obj in writes:
+        try:
+            client.create(obj)
+        except Exception as exc:  # noqa: BLE001 — the refusal is the result
+            out.append((type(exc).__name__, str(exc)))
+        else:
+            raise AssertionError(f"front: the write of {obj.meta.name} was admitted")
+    return out
+
+
+def front_refusals(m) -> list:
+    """refused_writes on a fresh front_store behind an APIServer with no
+    scheduler (host only): what the front phase's refusals must equal."""
+    store = front_store(m)
+    server = m.APIServer(store).start()
+    try:
+        return refused_writes(m, m.RestClient(server.url))
+    finally:
+        server.stop()
+        store.close()
+
+
+def _fan_out(objs, clients: int, call) -> float:
+    """call(client_index, obj) for every obj, dealt round robin over
+    `clients` threads; the seconds it took.  Raises the first failure."""
+    errors = []
+
+    def run(k):
+        for obj in objs[k::clients]:
+            try:
+                call(k, obj)
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                errors.append(exc)
+                return
+
+    threads = [threading.Thread(target=run, args=(k,), daemon=True) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0
+
+
+def front_sequence(m, make_sched, dims, timeouts, clients: int, hand: bool = False,
+                   wait_s: float = FRONT_WAIT_S) -> dict:
+    """The API front, duck-typed over either package (`m`, as
+    front_package builds it): front_store behind an APIServer with a
+    TokenAuthenticator, an RBACAuthorizer and an APFGate from FRONT_APF;
+    a scheduler from make_sched(store) with CoschedulingPermit over a
+    PodGroupDirectory at Permit on every profile.  Over HTTP, from
+    `clients` RestClients, with a RestClient watch on pods opened first:
+    the nodes, the PodGroups, the three refused writes, then the pods
+    (front_objects).  `hand` creates everything before the first
+    schedule_batch and drives the cycles by hand (the batches are then
+    fixed); otherwise the scheduler's own loop runs while the pods
+    arrive.  Once every other pod is bound and each short member has
+    waited FRONT_SHORT_WAITS times at Permit, the short group is deleted
+    over HTTP.  Returns what front_checks and the phase read.
+
+    Private names it reads, the same in both packages (no public
+    counterpart gives what it needs): `store._watchers` (the pod watch is
+    open before the first create), `CoschedulingPermit._waiting_members`
+    (wrapped: the parked count a release saw), `sched.waiting.add`
+    (replaced on the instance: every WaitingPod parked) and
+    `WaitingPod._locked_verdict()` (how each parked pod ended)."""
+    auth = m.auth
+    store = front_store(m)
+    gate = m.flowcontrol.APFGate.from_config(FRONT_APF)
+    server = m.APIServer(
+        store, authn=auth.TokenAuthenticator(
+            {FRONT_TOKEN: auth.Subject(FRONT_USER, ("system:authenticated",))}),
+        authz=auth.RBACAuthorizer(store), apf=gate).start()
+    rest = [m.RestClient(server.url, token=FRONT_TOKEN) for _ in range(clients)]
+    nodes, groups, pods, short = front_objects(m, dims, timeouts)
+    short_set = set(short)
+    events, bound, watch_errors = [], {}, []
+    stop = threading.Event()
+
+    def consume():
+        try:
+            for typ, obj, _rv in rest[0].watch("Pod"):
+                node = obj.spec.node_name
+                events.append((typ, obj.meta.name, node))
+                if node and obj.meta.name not in bound:
+                    bound[obj.meta.name] = time.perf_counter()
+                if stop.is_set():
+                    return
+        except Exception as exc:  # noqa: BLE001 — read by front_checks
+            watch_errors.append(repr(exc))
+
+    watcher = threading.Thread(target=consume, daemon=True)
+    sched, t0 = None, time.perf_counter()
+    try:
+        watcher.start()
+        _wait_for(lambda: store._watchers.get("Pod"), 2.0, "the pod watch to open")
+        node_s = _fan_out(nodes, clients, lambda k, o: rest[k].create(o))
+        sched = make_sched(store)
+        cos = m.CoschedulingPermit(sched.waiting, directory=m.crd.PodGroupDirectory(store))
+        waits, releases, parked_pods = {}, [], []
+        # the parked count a release saw is the length of the plugin's own
+        # walk of the waiting map (one walk a Permit call, as without the
+        # phase), kept per thread
+        walked, members = threading.local(), cos._waiting_members
+
+        def waiting_members(namespace, group):
+            parked = members(namespace, group)
+            walked.n = len(parked)
+            return parked
+
+        cos._waiting_members = waiting_members
+
+        def permit(pod, node):
+            walked.n = 0
+            verdict, timeout = cos.permit(pod, node)
+            if verdict == "wait":
+                waits[pod.meta.name] = waits.get(pod.meta.name, 0) + 1
+            elif verdict == "allow" and pod.spec.scheduling_group is not None:
+                releases.append((pod.spec.scheduling_group, walked.n, time.perf_counter()))
+            return verdict, timeout
+
+        for fwk in sched.profiles:
+            fwk.register("permit", permit)
+        add = sched.waiting.add
+
+        def parked_add(wp):
+            parked_pods.append(wp)
+            add(wp)
+
+        sched.waiting.add = parked_add
+        if hand:
+            for kind in LOOP_INFORMERS:
+                sched.informers.informer(kind).start()
+            if not sched.informers.wait_for_sync(wait_s):
+                raise AssertionError("front: the informers did not sync")
+        else:
+            sched.start()
+        _fan_out(groups, clients, lambda k, o: rest[k].create(o))
+        refusals = refused_writes(m, rest[1 % clients])
+        t_pods = time.perf_counter()
+        pod_s = _fan_out(pods, clients, lambda k, o: rest[k].create(o))
+        others = [p.meta.name for p in pods if p.meta.name not in short_set]
+        if hand:
+            # the informer delivers the creates on its own thread: the
+            # first batch pops only once the queue holds every pod
+            _wait_for(lambda: sched.queue.stats()["active"] >= len(pods), wait_s,
+                      "the queue to hold every pod")
+
+        def settled():
+            return (all(n in bound for n in others)
+                    and all(waits.get(n, 0) >= FRONT_SHORT_WAITS for n in short))
+
+        deadline = time.perf_counter() + wait_s
+        while not settled():
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"front: {sum(n in bound for n in others)} of {len(others)} pods bound, "
+                    f"short waits {sorted(waits.get(n, 0) for n in short)[:3]}...")
+            if hand:
+                sched.schedule_batch(timeout=0.2)
+            else:
+                time.sleep(0.02)
+        settled_s = time.perf_counter() - t_pods
+        seen = {p.meta.name: p for p in store.list("Pod")[0]}
+        short_bound = sorted(n for n in short if seen[n].spec.node_name)
+        _fan_out(short, clients, lambda k, n: rest[k].delete("Pod", n, "default"))
+
+        def left():
+            keys = {f"default/{n}" for n in short}
+            waiting = [wp for wp in sched.waiting.iterate() if wp.pod.meta.name in short_set]
+            return waiting, sorted(keys & set(sched.cache.assumed_nodes()))
+
+        _wait_for(lambda: left() == ([], []), timeouts[1] + 5.0, "the short group's release")
+        _wait_for(lambda: not any(p.meta.name in short_set
+                                  for p in sched.informers.informer("Pod").list()),
+                  5.0, "the informer's echo of the deletes")
+        problems = m.CacheComparer(store, sched.cache).compare()
+        verdicts = [wp._locked_verdict() for wp in parked_pods]
+        last_bind = max(bound[n] for n in others)
+        return {
+            "store": store, "sched": sched, "events": events, "bound_at": dict(bound),
+            "watch_errors": watch_errors, "refusals": refusals, "waits": waits,
+            "releases": releases, "permit_waits": len(parked_pods),
+            "permit_timeouts": verdicts.count("timeout"),
+            "permit_allowed": verdicts.count("allow"), "short": short,
+            "short_bound": short_bound, "others": others, "pods_seen": seen,
+            "left": left(), "cache_problems": problems,
+            "node_creates_per_s": len(nodes) / node_s,
+            "pod_creates_per_s": len(pods) / pod_s,
+            "first_create_to_last_bind_s": last_bind - t_pods, "settled_s": settled_s,
+            "apf_seats_current": gate.seats_current(),
+            "apf_rejected_total": gate.rejected_total(),
+            "sequence_s": time.perf_counter() - t0,
+        }
+    finally:
+        if sched is not None:
+            sched.stop()
+        stop.set()
+        # one event wakes the watch's reader to see `stop`: a pod no
+        # scheduler claims, written past the front
+        sentinel = front_pod(m, "front-sentinel")
+        sentinel.spec.scheduler_name = "no-scheduler"
+        store.create(sentinel)
+        watcher.join(timeout=10)
+        store.delete("Pod", "front-sentinel", "default")
+        server.stop()
+
+
+def front_checks(got, dims) -> dict:
+    """The front's checks, either package: every PodGroup released once,
+    with minMember - 1 members parked and by then, so no member bound
+    before its group was whole; every member and every ungrouped pod
+    bound, each once (the watch), no node over its allocatable; the short
+    group never bound, every member back at Permit after a timeout, and
+    none left in the waiting map or the cache after the delete; the
+    cache equal to the store; the watch never failed.  Returns the
+    transcript two packages' hand-driven runs must share."""
+    n_nodes, n_groups, size, n_free, (short_min, n_short) = dims
+    store = got["store"]
+    if got["watch_errors"]:
+        raise AssertionError(f"front: the pod watch failed: {got['watch_errors']}")
+    rel = {}
+    for group, parked, t in got["releases"]:
+        rel.setdefault(group, []).append((parked, t))
+    want = {f"gang-{g}" for g in range(n_groups)}
+    if set(rel) != want or any(len(v) != 1 or v[0][0] != size - 1 for v in rel.values()):
+        raise AssertionError(f"front: releases {sorted((g, [p for p, _ in v]) for g, v in rel.items())}")
+    placed = {p.meta.name: p.spec.node_name for p in store.list("Pod")[0]}
+    if set(placed) != set(got["others"]) or not all(placed.values()):
+        raise AssertionError("front: a member or an ungrouped pod is not bound, or a short "
+                             "member is left in the store")
+    early = [n for n in placed if n.startswith("gang-")
+             and got["bound_at"][n] < rel[n.rsplit("-", 1)[0]][0][1]]
+    if early:
+        raise AssertionError(f"front: members bound before their group was released: {early[:5]}")
+    seen = bind_transcript(got["events"])
+    twice = [n for n, evs in seen.items() if len(evs) != 1]
+    if twice or set(seen) != set(placed):
+        raise AssertionError(f"front: pods bound other than once: {twice[:5]}")
+    if got["short_bound"] or any(got["waits"].get(n, 0) < FRONT_SHORT_WAITS for n in got["short"]):
+        raise AssertionError("front: a short member bound, or did not cycle through Permit")
+    if got["permit_timeouts"] < FRONT_SHORT_WAITS * n_short:
+        raise AssertionError(f"front: {got['permit_timeouts']} Permit timeouts")
+    if got["left"] != ([], []):
+        raise AssertionError(f"front: short members left after the delete: {got['left']}")
+    if got["cache_problems"]:
+        raise AssertionError(f"front: the cache differs from the store: "
+                             f"{got['cache_problems'][:5]}")
+    used = {}
+    for pod in store.list("Pod")[0]:
+        if pod.spec.node_name:
+            row = used.setdefault(pod.spec.node_name, {"pods": 0})
+            row["pods"] += 1
+            for k, v in pod.resource_requests().items():
+                row[k] = row.get(k, 0) + v
+    for node in store.list("Node")[0]:
+        alloc = node.status.allocatable
+        over = [k for k, v in used.get(node.meta.name, {}).items() if v > alloc.get(k, 0)]
+        if over:
+            raise AssertionError(f"front: node {node.meta.name} over allocatable in {over}")
+    return {"placed": placed, "releases": {g: v[0][0] for g, v in rel.items()},
+            "member_waits": {n: c for n, c in got["waits"].items() if n in placed},
+            "refusals": got["refusals"], "permit_allowed": got["permit_allowed"]}
+
+
+def front_recording(cls):
+    """The recording class `cls` (recording(...)) that also keeps, for
+    every batch the loop
+    dispatches (schedule_pending_async), its pod keys, its
+    num_pods_hint, every pod the cluster state held then (key -> node,
+    from `state.bound_pods()`, read under the cache lock in the same hold
+    as the encode) and its placements (finalize_pending): what
+    front_replay needs to solve each batch again over the same state."""
+    class Front(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.front = []
+            self._held = None
+
+        def encode_pending(self, pending, num_pods_hint=0, lock=None, *args, **kw):
+            with lock if lock is not None else contextlib.nullcontext():
+                names = self.state.node_names
+                self._held = {f"{p.meta.namespace}/{p.meta.name}": names[row]
+                              for p, row in self.state.bound_pods()}
+                return super().encode_pending(pending, num_pods_hint, lock, *args, **kw)
+
+        def schedule_pending_async(self, pending, num_pods_hint=0, lock=None, reservations=()):
+            ds = super().schedule_pending_async(pending, num_pods_hint, lock=lock,
+                                                reservations=reservations)
+            if ds is not None:
+                self.front.append({"keys": [f"{p.meta.namespace}/{p.meta.name}" for p in pending],
+                                   "hint": num_pods_hint, "held": self._held, "ds": ds,
+                                   "placed": None, "reservations": len(reservations)})
+            return ds
+
+        def finalize_pending(self, pending, ds, lock=None, reservations=()):
+            names = super().finalize_pending(pending, ds, lock=lock, reservations=reservations)
+            for rec in reversed(self.front):
+                if rec["ds"] is ds:
+                    rec["ds"], rec["placed"] = None, list(names)
+                    break
+            return names
+
+    return Front
+
+
+def front_replay(what, sched, batches, pods, bindings, TorchBatchScheduler) -> tuple:
+    """Solve the loop's batches again, in order, through a
+    TorchBatchScheduler() driven directly over the loop's nodes in its row
+    order: before each batch its state is set to what the loop's held then
+    (forget what the loop no longer held — a Permit timeout's forget —,
+    assume what it did), then the batch's pods, unbound, are solved with
+    its num_pods_hint.  Returns the batches whose placements differ and
+    the launches."""
+    import copy
+
+    nodes = {n.meta.name: n for n in sched.informers.informer("Node").list()}
+    direct = TorchBatchScheduler()
+    for name in sched.tpu.state.node_names:
+        direct.add_node(nodes[name])
+    held, differ = {}, []
+
+    def run():
+        for i, rec in enumerate(batches):
+            for key in [k for k, n in held.items() if rec["held"].get(k) != n]:
+                direct.forget(pods[key])
+                del held[key]
+            for key, node in rec["held"].items():
+                if key not in held:
+                    direct.assume(pods[key], node)
+                    held[key] = node
+            batch = []
+            for key in rec["keys"]:
+                pod = copy.deepcopy(pods[key])
+                pod.spec.node_name = ""
+                batch.append(pod)
+            got = direct.schedule_pending(batch, num_pods_hint=rec["hint"])
+            if list(got) != rec["placed"]:
+                differ.append(i)
+
+    _, launches = drive_phase(what, run, bindings, [direct])
+    return differ, launches
+
+
+def front_phase(TorchBatchScheduler, bindings, card) -> dict:
+    """The API front on the card (see the module docstring;
+    front_sequence, front_checks, front_replay)."""
+    from collections import Counter
+
+    from kubernetes_tpu_torch.scheduler import framework
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+    from kubernetes_tpu_torch.utils import trace
+
+    m = front_package()
+    out = {"phase": "front", "card": card, "workload": "SchedulingBasic/5000Nodes",
+           "nodes": FRONT[0], "groups": FRONT[1], "min_member": FRONT[2],
+           "ungrouped": FRONT[3], "short": {"min_member": FRONT[4][0], "members": FRONT[4][1]},
+           "timeouts_s": list(FRONT_TIMEOUTS), "clients": FRONT_CLIENTS}
+    t_phase = time.perf_counter()
+    Front = front_recording(TorchBatchScheduler)
+    saved = framework.TorchBatchScheduler
+    framework.TorchBatchScheduler = Front
+    scheds = []
+
+    def make(store):
+        s = Scheduler(store)
+        if s.tpu.device.type != CARD_DEVICE:
+            raise AssertionError("front: Scheduler(store) is not on the card")
+        scheds.append(s.tpu)
+        return s
+
+    trace.drain_overruns()
+    try:
+        got, launches = drive_phase(
+            "front", lambda: front_sequence(m, make, FRONT, FRONT_TIMEOUTS, FRONT_CLIENTS),
+            bindings, scheds)
+    finally:
+        framework.TorchBatchScheduler = saved
+    # the loop's cycles over their 1 s trace threshold, each with its steps
+    slow = [{"pods": t["fields"].get("pods"), "total_s": t["total_s"], "steps": t["steps"]}
+            for t in trace.drain_overruns() if t["name"] == "schedule_batch"]
+    checks = front_checks(got, FRONT)
+    want = front_refusals(m)
+    if got["refusals"] != want:
+        raise AssertionError(f"front: refusals {got['refusals']} != the host run's {want}")
+    sched, store = got["sched"], got["store"]
+    batches = [r for s in scheds for r in s.front]
+    if not batches or any(r["placed"] is None or r["reservations"] for r in batches):
+        raise AssertionError("front: a batch was not finalized, or carried reservations")
+    pods = {f"{p.meta.namespace}/{p.meta.name}": p for p in got["pods_seen"].values()}
+    differ, direct_launches = front_replay("front/direct", sched, batches, pods, bindings,
+                                           TorchBatchScheduler)
+    if differ:
+        raise AssertionError(f"front: batches {differ[:5]} differ from the direct replay")
+    routes = Counter(m_.route for s in scheds for m_ in s.metas)
+    store.close()
+    out.update({
+        "node_creates_per_s": got["node_creates_per_s"],
+        "pod_creates_per_s": got["pod_creates_per_s"],
+        "first_create_to_last_bind_s": got["first_create_to_last_bind_s"],
+        "settled_s": got["settled_s"], "batches": len(batches),
+        "batches_by_route": dict(routes),
+        "batch_sizes": [len(r["keys"]) for r in batches],
+        "permit": {"waits": got["permit_waits"], "releases": len(got["releases"]),
+                   "allowed": got["permit_allowed"], "timeouts": got["permit_timeouts"]},
+        "apf": {"seats_current": got["apf_seats_current"],
+                "rejected_total": got["apf_rejected_total"]},
+        "refusals": [c for c, _ in got["refusals"]], "bound": len(checks["placed"]),
+        "watch_events": len(got["events"]), "equal_direct": True,
+        "launches": {k: v for k, v in launches.items() if v},
+        "direct_launches": {k: v for k, v in direct_launches.items() if v},
+        "sequence_s": got["sequence_s"], "slow_cycles": slow,
     })
     out["phase_s"] = time.perf_counter() - t_phase
     return out

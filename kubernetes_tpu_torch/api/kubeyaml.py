@@ -1,11 +1,11 @@
 """Kubernetes JSON/YAML objects -> api.types, for the wire surfaces.
 
-A copy of the reference package's api/kubeyaml.py, cut to the two
-converters the extender's wire types read (`pod_from_dict`,
-`node_from_dict`) and what they call.  Quantities parse per
-apimachinery resource.Quantity suffixes (binary Ki..Ei, decimal k..E,
-milli): cpu normalizes to millicores, everything else to base units
-(bytes for memory).
+A copy of the reference package's api/kubeyaml.py: the scheduler_perf
+harness's pod and node converters, the extender's wire types, and
+`CONVERTERS`, the kinds the API server's discovery document lists.
+Quantities parse per apimachinery resource.Quantity suffixes (binary
+Ki..Ei, decimal k..E, milli): cpu normalizes to millicores, everything
+else to base units (bytes for memory).
 """
 
 from __future__ import annotations
@@ -236,3 +236,288 @@ def node_from_dict(d: Dict[str, Any]) -> api.Node:
             )
         )
     return node
+
+
+def _pod_template_from_dict(d: Dict[str, Any]) -> api.PodTemplateSpec:
+    meta = d.get("metadata") or {}
+    pod = pod_from_dict({"spec": d.get("spec") or {}})
+    return api.PodTemplateSpec(
+        meta=api.ObjectMeta(name="", labels=dict(meta.get("labels") or {})),
+        spec=pod.spec,
+    )
+
+
+def deployment_from_dict(d: Dict[str, Any]) -> api.Deployment:
+    meta = d.get("metadata") or {}
+    spec = d.get("spec") or {}
+    return api.Deployment(
+        meta=api.ObjectMeta(
+            name=meta.get("name", ""),
+            namespace=meta.get("namespace", "default"),
+            labels=dict(meta.get("labels") or {}),
+        ),
+        spec=api.DeploymentSpec(
+            replicas=int(spec.get("replicas", 1)),
+            selector=_label_selector(spec.get("selector")) or api.LabelSelector(),
+            template=_pod_template_from_dict(spec.get("template") or {}),
+        ),
+    )
+
+
+def _job_spec_from_dict(spec: Dict[str, Any]) -> api.JobSpec:
+    return api.JobSpec(
+        parallelism=int(spec.get("parallelism", 1)),
+        completions=(
+            int(spec["completions"]) if "completions" in spec else 1
+        ),
+        template=_pod_template_from_dict(spec.get("template") or {}),
+        backoff_limit=int(spec.get("backoffLimit", 6)),
+    )
+
+
+def job_from_dict(d: Dict[str, Any]) -> api.Job:
+    meta = d.get("metadata") or {}
+    return api.Job(
+        meta=api.ObjectMeta(
+            name=meta.get("name", ""),
+            namespace=meta.get("namespace", "default"),
+            labels=dict(meta.get("labels") or {}),
+        ),
+        spec=_job_spec_from_dict(d.get("spec") or {}),
+    )
+
+
+def _meta_from_dict(d: Dict[str, Any], namespace="default") -> api.ObjectMeta:
+    meta = d.get("metadata") or {}
+    return api.ObjectMeta(
+        name=meta.get("name", ""),
+        namespace=meta.get("namespace", namespace),
+        labels=dict(meta.get("labels") or {}),
+        annotations=dict(meta.get("annotations") or {}),
+    )
+
+
+def statefulset_from_dict(d: Dict[str, Any]) -> api.StatefulSet:
+    spec = d.get("spec") or {}
+    return api.StatefulSet(
+        meta=_meta_from_dict(d),
+        spec=api.StatefulSetSpec(
+            replicas=int(spec.get("replicas", 1)),
+            selector=_label_selector(spec.get("selector")) or api.LabelSelector(),
+            template=_pod_template_from_dict(spec.get("template") or {}),
+            service_name=spec.get("serviceName", ""),
+            pod_management_policy=spec.get("podManagementPolicy", "OrderedReady"),
+            volume_claim_templates=[
+                pvc_from_dict(t) for t in spec.get("volumeClaimTemplates") or []
+            ],
+        ),
+    )
+
+
+def daemonset_from_dict(d: Dict[str, Any]) -> api.DaemonSet:
+    spec = d.get("spec") or {}
+    return api.DaemonSet(
+        meta=_meta_from_dict(d),
+        spec=api.DaemonSetSpec(
+            selector=_label_selector(spec.get("selector")) or api.LabelSelector(),
+            template=_pod_template_from_dict(spec.get("template") or {}),
+        ),
+    )
+
+
+def cronjob_from_dict(d: Dict[str, Any]) -> api.CronJob:
+    spec = d.get("spec") or {}
+    job_tpl = (spec.get("jobTemplate") or {}).get("spec") or {}
+    return api.CronJob(
+        meta=_meta_from_dict(d),
+        spec=api.CronJobSpec(
+            schedule=spec.get("schedule", "* * * * *"),
+            suspend=bool(spec.get("suspend", False)),
+            concurrency_policy=spec.get("concurrencyPolicy", "Allow"),
+            starting_deadline_seconds=(
+                float(spec["startingDeadlineSeconds"])
+                if "startingDeadlineSeconds" in spec else None
+            ),
+            job_template=_job_spec_from_dict(job_tpl),
+        ),
+    )
+
+
+def pvc_from_dict(d: Dict[str, Any]) -> api.PersistentVolumeClaim:
+    spec = d.get("spec") or {}
+    storage = parse_quantity(
+        ((spec.get("resources") or {}).get("requests") or {}).get("storage", 0)
+    )
+    return api.PersistentVolumeClaim(
+        meta=_meta_from_dict(d),
+        spec=api.PersistentVolumeClaimSpec(
+            access_modes=list(spec.get("accessModes") or []),
+            storage_class_name=spec.get("storageClassName", ""),
+            resources={api.STORAGE: storage} if storage else {},
+            volume_name=spec.get("volumeName", ""),
+        ),
+    )
+
+
+def pv_from_dict(d: Dict[str, Any]) -> api.PersistentVolume:
+    spec = d.get("spec") or {}
+    affinity = None
+    na = (spec.get("nodeAffinity") or {}).get("required")
+    if na:
+        affinity = api.NodeSelector(
+            terms=[
+                _node_selector_term(t)
+                for t in na.get("nodeSelectorTerms") or []
+            ]
+        )
+    storage = parse_quantity((spec.get("capacity") or {}).get("storage", 0))
+    csi = spec.get("csi") or {}
+    return api.PersistentVolume(
+        meta=_meta_from_dict(d, namespace=""),
+        spec=api.PersistentVolumeSpec(
+            capacity={api.STORAGE: storage} if storage else {},
+            access_modes=list(spec.get("accessModes") or []),
+            storage_class_name=spec.get("storageClassName", ""),
+            node_affinity=affinity,
+            driver=csi.get("driver", ""),
+            reclaim_policy=spec.get(
+                "persistentVolumeReclaimPolicy", "Retain"
+            ),
+        ),
+    )
+
+
+def storageclass_from_dict(d: Dict[str, Any]) -> api.StorageClass:
+    topo = None
+    allowed = d.get("allowedTopologies")
+    if allowed:
+        terms = []
+        for entry in allowed:
+            exprs = [
+                api.Requirement(
+                    e.get("key", ""), api.OP_IN, list(e.get("values") or [])
+                )
+                for e in entry.get("matchLabelExpressions") or []
+            ]
+            terms.append(api.NodeSelectorTerm(match_expressions=exprs))
+        topo = api.NodeSelector(terms=terms)
+    return api.StorageClass(
+        meta=_meta_from_dict(d, namespace=""),
+        provisioner=d.get("provisioner", ""),
+        volume_binding_mode=d.get("volumeBindingMode", api.VOLUME_BINDING_IMMEDIATE),
+        allowed_topologies=topo,
+    )
+
+
+def pdb_from_dict(d: Dict[str, Any]) -> api.PodDisruptionBudget:
+    spec = d.get("spec") or {}
+    return api.PodDisruptionBudget(
+        meta=_meta_from_dict(d),
+        spec=api.PodDisruptionBudgetSpec(
+            selector=_label_selector(spec.get("selector")),
+            min_available=(
+                int(spec["minAvailable"]) if "minAvailable" in spec else None
+            ),
+            max_unavailable=(
+                int(spec["maxUnavailable"])
+                if "maxUnavailable" in spec else None
+            ),
+        ),
+    )
+
+
+def namespace_from_dict(d: Dict[str, Any]) -> api.Namespace:
+    return api.Namespace(meta=_meta_from_dict(d, namespace=""))
+
+
+def resourceclaim_from_dict(d: Dict[str, Any]) -> api.ResourceClaim:
+    spec = d.get("spec") or {}
+    return api.ResourceClaim(
+        meta=_meta_from_dict(d),
+        spec=api.ResourceClaimSpec(
+            device_class_name=spec.get("deviceClassName", ""),
+            count=int(spec.get("count", 1)),
+        ),
+    )
+
+
+def deviceclass_from_dict(d: Dict[str, Any]) -> api.DeviceClass:
+    return api.DeviceClass(
+        meta=_meta_from_dict(d, namespace=""),
+        driver=(d.get("spec") or {}).get("driver", d.get("driver", "")),
+    )
+
+
+# kind -> converter, the CLI's `create -f` dispatch table
+def service_from_dict(d: Dict[str, Any]) -> api.Service:
+    """core/v1 Service (types.go:5517): selector + ports + clusterIP."""
+    spec = d.get("spec") or {}
+    ports = []
+    for p in spec.get("ports") or []:
+        tp = p.get("targetPort", 0)
+        ports.append(
+            api.ServicePort(
+                name=p.get("name", ""),
+                protocol=p.get("protocol", "TCP"),
+                port=int(p.get("port", 0)),
+                target_port=int(tp) if isinstance(tp, int) else 0,
+                target_port_name=tp if isinstance(tp, str) else "",
+                node_port=int(p.get("nodePort", 0)),
+            )
+        )
+    return api.Service(
+        meta=_meta_from_dict(d),
+        spec=api.ServiceSpec(
+            selector=dict(spec.get("selector") or {}),
+            ports=ports,
+            cluster_ip=spec.get("clusterIP", ""),
+            type=spec.get("type", "ClusterIP"),
+            external_name=spec.get("externalName", ""),
+            session_affinity=spec.get("sessionAffinity", "None"),
+            publish_not_ready_addresses=bool(
+                spec.get("publishNotReadyAddresses", False)
+            ),
+        ),
+    )
+
+
+def configmap_from_dict(d: Dict[str, Any]) -> api.ConfigMap:
+    return api.ConfigMap(
+        meta=_meta_from_dict(d),
+        data={k: str(v) for k, v in (d.get("data") or {}).items()},
+        binary_data=dict(d.get("binaryData") or {}),
+        immutable=bool(d.get("immutable", False)),
+    )
+
+
+def secret_from_dict(d: Dict[str, Any]) -> api.Secret:
+    return api.Secret(
+        meta=_meta_from_dict(d),
+        type=d.get("type", "Opaque"),
+        data=dict(d.get("data") or {}),
+        string_data={
+            k: str(v) for k, v in (d.get("stringData") or {}).items()
+        },
+        immutable=bool(d.get("immutable", False)),
+    )
+
+
+CONVERTERS = {
+    "Service": service_from_dict,
+    "ConfigMap": configmap_from_dict,
+    "Secret": secret_from_dict,
+    "Node": node_from_dict,
+    "Pod": pod_from_dict,
+    "Deployment": deployment_from_dict,
+    "Job": job_from_dict,
+    "StatefulSet": statefulset_from_dict,
+    "DaemonSet": daemonset_from_dict,
+    "CronJob": cronjob_from_dict,
+    "PersistentVolume": pv_from_dict,
+    "PersistentVolumeClaim": pvc_from_dict,
+    "StorageClass": storageclass_from_dict,
+    "PodDisruptionBudget": pdb_from_dict,
+    "Namespace": namespace_from_dict,
+    "ResourceClaim": resourceclaim_from_dict,
+    "DeviceClass": deviceclass_from_dict,
+}

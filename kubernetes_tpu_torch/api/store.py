@@ -32,13 +32,22 @@ capacity is it marked Expired — bookmark rv + forced relist — never
 silently terminated.  With one shard and one fan-out thread every
 stream is totally ordered by resourceVersion.
 
-Lock order: ``Store._lock`` -> ``Store._dispatch_cv`` / ``Watch._mu``.
+Admission: ``Store(admission=chain)`` (an api.admission.AdmissionChain)
+runs mutate-then-validate on every create and update, and on every
+mutated object of an ``update_wave``, before the commit;
+the chain's plugins that read the store get it through the plugin
+initializer (``chain.store``).  Admission-armed writes serialize on
+``_admission_lock``, held through the commit, so store-reading plugins
+(the quota validator, ClusterIP allocation) stay check-then-act-safe.
+
+Lock order: ``Store._admission_lock`` (admission-armed writers only) ->
+``Store._lock`` -> ``Store._dispatch_cv`` / ``Watch._mu``.
 
 Left out of the reference's store (this package has no use for them
 yet): sharding (``shard_count`` is 1 and ``shard_index`` always 0, so
 the scheduler's binder keeps the single-transaction commit), the
 journal, its framing, snapshots and checkpoints, resharding and
-recovery, admission, ``kinds`` and ``state_fingerprint``.
+recovery, ``serving_plane`` and ``state_fingerprint``.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import threading
 import time
 import weakref
 from collections import OrderedDict, deque
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import (
     Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple,
@@ -349,6 +359,7 @@ class Store:
         # can't hold buffer_size events couldn't relist-recover either,
         # and a 4k bind wave must not kill the scheduler's own informer
         watch_capacity: int = 4096,
+        admission=None,
     ):
         self._lock = threading.RLock()
         self._objects: Dict[str, Dict[str, Any]] = {}   # kind -> key -> obj
@@ -387,6 +398,16 @@ class Store:
         self._dispatch_backlog: deque = deque()
         self._dispatch_inflight = False
         self._dispatch_thread: Optional[threading.Thread] = None
+        # optional api.admission.AdmissionChain: mutate-then-validate on
+        # every create/update before the commit (the apiserver admission
+        # chain's position in the write path, server/config.go:983).
+        # Admission-armed writes serialize on _admission_lock (held
+        # through the commit) so store-reading plugins (quota validator,
+        # ClusterIP allocation) stay check-then-act-safe.
+        self._admission = admission
+        self._admission_lock = threading.RLock()
+        if admission is not None and getattr(admission, "store", None) is None:
+            admission.store = self  # plugin initializer (wants_store)
 
     # -- the one shard -----------------------------------------------------
 
@@ -412,6 +433,15 @@ class Store:
         # resource scope normalization: cluster-scoped objects live at
         # namespace "" regardless of what the caller set
         return "" if kind in api.CLUSTER_SCOPED_KINDS else namespace
+
+    def _write_guard(self):
+        """Admission-armed writes hold the admission lock THROUGH the
+        commit (check-then-act atomicity — two concurrent creates must
+        not both pass quota or allocate one ClusterIP); plain stores pay
+        nothing."""
+        if self._admission is not None:
+            return self._admission_lock
+        return nullcontext()
 
     def _dispatch(self, ev: Event) -> None:
         # caller holds the store lock: ring append + backlog hand-off —
@@ -533,19 +563,30 @@ class Store:
     # -- CRUD --------------------------------------------------------------
 
     def create(self, obj: Any) -> Any:
-        kind = self._kind_of(obj)
-        namespace = self._namespace(kind, obj.meta.namespace)
-        key = _key(namespace, obj.meta.name)
-        with self._lock:
-            objs = self._objects.setdefault(kind, {})
-            if key in objs:
-                raise AlreadyExists(f"{kind} {key} exists")
-            obj = copy.deepcopy(obj)
-            obj.meta.namespace = namespace
-            if not obj.meta.creation_timestamp:
-                obj.meta.creation_timestamp = time.time()
-            self._publish_one_locked(ADDED, kind, key, obj)
-            return copy.deepcopy(obj)
+        with self._write_guard():
+            admitted = False
+            if self._admission is not None:
+                # admit a server-side COPY: mutators must never edit the
+                # caller's object (a rejected or conflicting write would
+                # leave the caller's template silently modified).  The
+                # admission lock is held through the commit, so
+                # store-reading plugins stay check-then-act-safe.
+                obj = self._admission.admit(copy.deepcopy(obj), "CREATE")
+                admitted = True
+            kind = self._kind_of(obj)
+            namespace = self._namespace(kind, obj.meta.namespace)
+            key = _key(namespace, obj.meta.name)
+            with self._lock:
+                objs = self._objects.setdefault(kind, {})
+                if key in objs:
+                    raise AlreadyExists(f"{kind} {key} exists")
+                if not admitted:  # the admitted copy is already unaliased
+                    obj = copy.deepcopy(obj)
+                obj.meta.namespace = namespace
+                if not obj.meta.creation_timestamp:
+                    obj.meta.creation_timestamp = time.time()
+                self._publish_one_locked(ADDED, kind, key, obj)
+                return copy.deepcopy(obj)
 
     def get(self, kind: str, name: str, namespace: str = "default") -> Any:
         key = _key(self._namespace(kind, namespace), name)
@@ -564,34 +605,40 @@ class Store:
         deep copy of the return value for hot-path callers that discard
         it (the scheduler's binds, the event recorder) — the returned
         object is then the COMMITTED one and must not be mutated."""
-        kind = self._kind_of(obj)
-        namespace = self._namespace(kind, obj.meta.namespace)
-        key = _key(namespace, obj.meta.name)
-        with self._lock:
-            objs = self._objects.get(kind, {})
-            if key not in objs:
-                raise NotFound(f"{kind} {key}")
-            current_rv = self._versions[kind][key]
-            if not force and obj.meta.resource_version != current_rv:
-                raise Conflict(
-                    f"{kind} {key}: rv {obj.meta.resource_version} != "
-                    f"{current_rv}"
-                )
-            obj = copy.deepcopy(obj)
-            obj.meta.namespace = namespace
-            if (
-                obj.meta.deletion_timestamp is not None
-                and not obj.meta.finalizers
-            ):
-                # last finalizer dropped on a deleting object: the
-                # update completes the two-phase delete (store.go:1176)
-                self._publish_one_locked(
-                    DELETED, kind, key, obj,
-                    event_copy=True,  # obj is handed back below
-                )
-                return obj
-            self._publish_one_locked(MODIFIED, kind, key, obj)
-            return copy.deepcopy(obj) if copy_result else obj
+        with self._write_guard():
+            admitted = False
+            if self._admission is not None:
+                obj = self._admission.admit(copy.deepcopy(obj), "UPDATE")
+                admitted = True
+            kind = self._kind_of(obj)
+            namespace = self._namespace(kind, obj.meta.namespace)
+            key = _key(namespace, obj.meta.name)
+            with self._lock:
+                objs = self._objects.get(kind, {})
+                if key not in objs:
+                    raise NotFound(f"{kind} {key}")
+                current_rv = self._versions[kind][key]
+                if not force and obj.meta.resource_version != current_rv:
+                    raise Conflict(
+                        f"{kind} {key}: rv {obj.meta.resource_version} != "
+                        f"{current_rv}"
+                    )
+                if not admitted:
+                    obj = copy.deepcopy(obj)
+                obj.meta.namespace = namespace
+                if (
+                    obj.meta.deletion_timestamp is not None
+                    and not obj.meta.finalizers
+                ):
+                    # last finalizer dropped on a deleting object: the
+                    # update completes the two-phase delete (store.go:1176)
+                    self._publish_one_locked(
+                        DELETED, kind, key, obj,
+                        event_copy=True,  # obj is handed back below
+                    )
+                    return obj
+                self._publish_one_locked(MODIFIED, kind, key, obj)
+                return copy.deepcopy(obj) if copy_result else obj
 
     def update_wave(
         self,
@@ -609,10 +656,11 @@ class Store:
         hand-off — the scheduler's bind wave pays per-pod costs only for
         the copy and the mutation.
 
-        Failure splits per object, never per wave: a missing object or a
-        mutate() exception lands in the returned error map under its
-        "namespace/name" key and the rest of the wave commits.  Returns
-        (applied_keys, errors).
+        Failure splits per object, never per wave: a missing object, a
+        mutate() exception, or an admission rejection (each mutated copy
+        goes through the store's admission chain)
+        lands in the returned error map under its "namespace/name" key
+        and the rest of the wave commits.  Returns (applied_keys, errors).
 
         Each committed object still gets its own resourceVersion and its
         own watch Event, so watch/informer semantics are those of
@@ -630,48 +678,51 @@ class Store:
         faults.fire("store.update_wave", kind=kind, updates=len(updates))
         applied: List[str] = []
         errors: Dict[str, Exception] = {}
-        with self._lock:
-            if fence is not None:
-                # an already-stale wave commits NOTHING
-                self._check_fence_locked(fence)
-            objs = self._objects.get(kind, {})
-            prepared: List[Tuple[str, Any]] = []   # (key, mutated copy)
-            for name, namespace, mutate in updates:
-                key = _key(self._namespace(kind, namespace), name)
-                cur = objs.get(key)
-                if cur is None:
-                    errors[key] = NotFound(f"{kind} {key}")
-                    continue
-                obj = copy.deepcopy(cur)
-                try:
-                    mutate(obj)
-                except Exception as e:  # noqa: BLE001 — per-object split
-                    errors[key] = e
-                    continue
-                prepared.append((key, obj))
-            if not prepared:
-                return applied, errors
-            events: List[Event] = []
-            vers = self._versions.setdefault(kind, {})
-            for key, obj in prepared:
-                self._rv += 1
-                rv = self._rv
-                obj.meta.resource_version = rv
-                if (
-                    obj.meta.deletion_timestamp is not None
-                    and not obj.meta.finalizers
-                ):
-                    # mirror update(): dropping the last finalizer on a
-                    # deleting object completes the two-phase delete
-                    objs.pop(key, None)
-                    vers.pop(key, None)
-                    events.append(Event(DELETED, kind, obj, rv))
-                else:
-                    objs[key] = obj
-                    vers[key] = rv
-                    events.append(Event(MODIFIED, kind, obj, rv))
-                applied.append(key)
-            self._dispatch_wave(kind, events)
+        with self._write_guard():
+            with self._lock:
+                if fence is not None:
+                    # an already-stale wave commits NOTHING
+                    self._check_fence_locked(fence)
+                objs = self._objects.get(kind, {})
+                prepared: List[Tuple[str, Any]] = []   # (key, mutated copy)
+                for name, namespace, mutate in updates:
+                    key = _key(self._namespace(kind, namespace), name)
+                    cur = objs.get(key)
+                    if cur is None:
+                        errors[key] = NotFound(f"{kind} {key}")
+                        continue
+                    obj = copy.deepcopy(cur)
+                    try:
+                        mutate(obj)
+                        if self._admission is not None:
+                            obj = self._admission.admit(obj, "UPDATE")
+                    except Exception as e:  # noqa: BLE001 — per-object split
+                        errors[key] = e
+                        continue
+                    prepared.append((key, obj))
+                if not prepared:
+                    return applied, errors
+                events: List[Event] = []
+                vers = self._versions.setdefault(kind, {})
+                for key, obj in prepared:
+                    self._rv += 1
+                    rv = self._rv
+                    obj.meta.resource_version = rv
+                    if (
+                        obj.meta.deletion_timestamp is not None
+                        and not obj.meta.finalizers
+                    ):
+                        # mirror update(): dropping the last finalizer on a
+                        # deleting object completes the two-phase delete
+                        objs.pop(key, None)
+                        vers.pop(key, None)
+                        events.append(Event(DELETED, kind, obj, rv))
+                    else:
+                        objs[key] = obj
+                        vers[key] = rv
+                        events.append(Event(MODIFIED, kind, obj, rv))
+                    applied.append(key)
+                self._dispatch_wave(kind, events)
         return applied, errors
 
     def _check_fence_locked(self, fence: FenceToken) -> None:
@@ -751,6 +802,13 @@ class Store:
             and (selector is None or selector(o))
         ]
         return items, rv
+
+    def kinds(self) -> List[str]:
+        """Object kinds the store currently holds (the GC/namespace
+        controllers sweep every kind, like the reference's
+        RESTMapper-driven resource discovery)."""
+        with self._lock:
+            return [k for k, objs in self._objects.items() if objs]
 
     # -- watch -------------------------------------------------------------
 

@@ -1,10 +1,10 @@
-"""Core API object model: the Pod/Node subset the scheduler port encodes,
-the storage, device-claim and Event objects its loop's binders and
-event recorder read and write, and the Lease its leader election holds.
+"""Core API object model: every kind of the reference package's object
+model, with the same field names, defaults and KINDs, so the wire codec
+(api/wire.py) decodes any document the reference's API server accepts.
 
-A copy of the reference package's object model, cut to what the encoder,
-the scheduler loop and the test builders read.  Field names are identical, so the encoder
-also reads the reference package's objects by duck typing.
+A copy of the reference package's api/types.py.  Field names are
+identical, so the encoder also reads the reference package's objects by
+duck typing.
 
 The Python-native equivalent of the reference's versioned API types
 (reference: staging/src/k8s.io/api/core/v1/types.go and
@@ -413,15 +413,6 @@ class Container:
 
 
 @dataclass
-class Volume:
-    """Pod volume: only the PVC source is modelled (the scheduling-
-    relevant one; core/v1/types.go Volume has ~30 sources)."""
-
-    name: str = ""
-    persistent_volume_claim: Optional[str] = None  # claim name in pod ns
-
-
-@dataclass
 class PodSpec:
     node_name: str = ""           # set at bind time
     containers: List[Container] = field(default_factory=list)
@@ -452,7 +443,7 @@ class PodSpec:
     restart_policy: str = "Always"
     termination_grace_period_seconds: int = 30
     service_account: str = ""  # defaulted to "default" at admission
-    volumes: List[Volume] = field(default_factory=list)  # unused by the solves
+    volumes: List["Volume"] = field(default_factory=list)
     # ResourceClaim names (pod namespace) this pod consumes — the
     # pod.spec.resourceClaims reference (DRA)
     resource_claims: List[str] = field(default_factory=list)
@@ -585,9 +576,26 @@ class Node:
         return taints
 
 
+@dataclass
+class NamespaceStatus:
+    phase: str = "Active"  # Active | Terminating
+
+
+@dataclass
+class Namespace:
+    """core/v1 Namespace: the unit of multi-tenancy; deleting one reaps
+    its objects (namespace lifecycle controller)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    status: NamespaceStatus = field(default_factory=NamespaceStatus)
+
+    KIND = "Namespace"
+
+
 # ---------------------------------------------------------------------------
 # Policy APIs (reference: staging/src/k8s.io/api/policy/v1/types.go
-# PodDisruptionBudget) — consumed by preemption's victim ranking.
+# PodDisruptionBudget) — consumed by preemption's victim ranking and
+# maintained by the disruption controller.
 # ---------------------------------------------------------------------------
 
 
@@ -625,7 +633,6 @@ class PodDisruptionBudget:
         return sel is not None and sel.matches(pod.meta.labels)
 
 
-
 # ---------------------------------------------------------------------------
 # Storage APIs (reference: staging/src/k8s.io/api/core/v1/types.go
 # PersistentVolume/PersistentVolumeClaim, storage/v1/types.go
@@ -648,6 +655,15 @@ ATTACH_LIMIT_PREFIX = "attachable-volumes-"
 
 def attach_limit_resource(driver: str) -> str:
     return ATTACH_LIMIT_PREFIX + driver
+
+
+@dataclass
+class Volume:
+    """Pod volume: only the PVC source is modelled (the scheduling-
+    relevant one; core/v1/types.go Volume has ~30 sources)."""
+
+    name: str = ""
+    persistent_volume_claim: Optional[str] = None  # claim name in pod ns
 
 
 @dataclass
@@ -785,6 +801,81 @@ class ResourceClaim:
     KIND = "ResourceClaim"
 
 
+# ---------------------------------------------------------------------------
+# Workload APIs (reference: staging/src/k8s.io/api/apps/v1/types.go
+# ReplicaSet/Deployment, batch/v1/types.go Job) — the slice the workload
+# controllers reconcile.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PodTemplateSpec:
+    """v1.PodTemplateSpec: metadata (labels) + spec stamped onto pods."""
+
+    meta: ObjectMeta = field(default_factory=lambda: ObjectMeta(name=""))
+    spec: PodSpec = field(default_factory=PodSpec)
+
+
+@dataclass
+class ReplicaSetSpec:
+    replicas: int = 1
+    selector: LabelSelector = field(default_factory=LabelSelector)
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+
+
+@dataclass
+class ReplicaSetStatus:
+    replicas: int = 0
+    ready_replicas: int = 0
+    observed_generation: int = 0
+
+
+@dataclass
+class ReplicaSet:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ReplicaSetSpec = field(default_factory=ReplicaSetSpec)
+    status: ReplicaSetStatus = field(default_factory=ReplicaSetStatus)
+
+    KIND = "ReplicaSet"
+
+
+@dataclass
+class DeploymentStrategy:
+    # "RollingUpdate" steps the new ReplicaSet up and old ones down under
+    # the surge/unavailable bounds (pkg/controller/deployment/rolling.go);
+    # "Recreate" drains old revisions fully before scaling the new one.
+    type: str = "RollingUpdate"
+    # absolute counts (the reference also accepts percentages; validation
+    # rejects 0/0 — ours falls back to max_unavailable=1 in that case)
+    max_surge: int = 1
+    max_unavailable: int = 0
+
+
+@dataclass
+class DeploymentSpec:
+    replicas: int = 1
+    selector: LabelSelector = field(default_factory=LabelSelector)
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+    strategy: DeploymentStrategy = field(default_factory=DeploymentStrategy)
+
+
+@dataclass
+class DeploymentStatus:
+    replicas: int = 0
+    updated_replicas: int = 0
+    ready_replicas: int = 0
+    observed_generation: int = 0
+
+
+@dataclass
+class Deployment:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: DeploymentSpec = field(default_factory=DeploymentSpec)
+    status: DeploymentStatus = field(default_factory=DeploymentStatus)
+
+    KIND = "Deployment"
+
+
 @dataclass
 class ObjectReference:
     """core/v1 ObjectReference — the involved object of an Event."""
@@ -833,8 +924,519 @@ class Lease:
     KIND = "Lease"
 
 
-# kinds that live outside namespaces (the store keys them at namespace ""),
-# the reference's set restricted to the kinds this package defines
+@dataclass
+class JobSpec:
+    parallelism: int = 1
+    completions: Optional[int] = 1
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+    backoff_limit: int = 6
+    # ttlafterfinished controller: delete the Job (and its pods via GC)
+    # this many seconds after it finishes (batch/v1 TTLSecondsAfterFinished)
+    ttl_seconds_after_finished: Optional[float] = None
+
+
+@dataclass
+class JobStatus:
+    active: int = 0
+    succeeded: int = 0
+    failed: int = 0
+    completion_time: Optional[float] = None
+
+
+@dataclass
+class Job:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: JobSpec = field(default_factory=JobSpec)
+    status: JobStatus = field(default_factory=JobStatus)
+
+    KIND = "Job"
+
+
+@dataclass
+class StatefulSetSpec:
+    """apps/v1 StatefulSetSpec: ordered, identity-stable replicas with
+    per-replica volume claims."""
+
+    replicas: int = 1
+    selector: LabelSelector = field(default_factory=LabelSelector)
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+    service_name: str = ""
+    # one PVC per (template, ordinal): claim "<tpl>-<set>-<i>"
+    volume_claim_templates: List["PersistentVolumeClaim"] = field(
+        default_factory=list
+    )
+    pod_management_policy: str = "OrderedReady"  # or "Parallel"
+
+
+@dataclass
+class StatefulSetStatus:
+    replicas: int = 0
+    ready_replicas: int = 0
+    observed_generation: int = 0
+
+
+@dataclass
+class StatefulSet:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: StatefulSetSpec = field(default_factory=StatefulSetSpec)
+    status: StatefulSetStatus = field(default_factory=StatefulSetStatus)
+
+    KIND = "StatefulSet"
+
+
+@dataclass
+class DaemonSetSpec:
+    selector: LabelSelector = field(default_factory=LabelSelector)
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+
+
+@dataclass
+class DaemonSetStatus:
+    desired_number_scheduled: int = 0
+    current_number_scheduled: int = 0
+    number_ready: int = 0
+
+
+@dataclass
+class DaemonSet:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: DaemonSetSpec = field(default_factory=DaemonSetSpec)
+    status: DaemonSetStatus = field(default_factory=DaemonSetStatus)
+
+    KIND = "DaemonSet"
+
+
+@dataclass
+class CronJobSpec:
+    schedule: str = "* * * * *"       # standard 5-field cron
+    job_template: JobSpec = field(default_factory=JobSpec)
+    suspend: bool = False
+    concurrency_policy: str = "Allow"  # Allow | Forbid | Replace
+    starting_deadline_seconds: Optional[float] = None
+    # batch/v1 spec.timeZone: None = the controller's local time (the
+    # reference's default, DST caveats included); "UTC"/"Etc/UTC" pins
+    # evaluation to UTC, immune to DST double-fire/skip
+    time_zone: Optional[str] = None
+
+
+@dataclass
+class CronJobStatus:
+    last_schedule_time: Optional[float] = None
+    active: List[str] = field(default_factory=list)  # job names
+
+
+@dataclass
+class CronJob:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: CronJobSpec = field(default_factory=CronJobSpec)
+    status: CronJobStatus = field(default_factory=CronJobStatus)
+
+    KIND = "CronJob"
+
+
+# ---------------------------------------------------------------------------
+# Services & endpoints (reference: staging/src/k8s.io/api/core/v1/types.go:5517
+# Service, :6088 Endpoints; staging/src/k8s.io/api/discovery/v1/types.go
+# EndpointSlice).  A Service names a virtual IP + port set; the
+# endpointslice controller materialises "what backs this VIP" from the
+# ready pods matching the selector.
+# ---------------------------------------------------------------------------
+
+
+LABEL_SERVICE_NAME = "kubernetes.io/service-name"  # discovery/v1 well-known
+
+
+@dataclass
+class ServicePort:
+    name: str = ""
+    protocol: str = "TCP"
+    port: int = 0
+    # target port on the backend pods; 0 means same as `port`.  Named
+    # targetPorts (string form) resolve against container port names at
+    # slice-build time, like the reference's findPort
+    # (pkg/api/v1/pod/util.go FindPort).
+    target_port: int = 0
+    target_port_name: str = ""
+    node_port: int = 0
+
+
+@dataclass
+class ServiceSpec:
+    selector: Dict[str, str] = field(default_factory=dict)
+    ports: List[ServicePort] = field(default_factory=list)
+    cluster_ip: str = ""   # allocated at admission ("" = allocate; "None" = headless)
+    type: str = "ClusterIP"  # ClusterIP | NodePort | LoadBalancer | ExternalName
+    external_name: str = ""
+    session_affinity: str = "None"  # None | ClientIP
+    publish_not_ready_addresses: bool = False
+
+
+@dataclass
+class LoadBalancerIngress:
+    ip: str = ""
+    hostname: str = ""
+
+
+@dataclass
+class ServiceStatus:
+    load_balancer: List[LoadBalancerIngress] = field(default_factory=list)
+
+
+@dataclass
+class Service:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ServiceSpec = field(default_factory=ServiceSpec)
+    status: ServiceStatus = field(default_factory=ServiceStatus)
+
+    KIND = "Service"
+
+
+@dataclass
+class EndpointConditions:
+    ready: bool = True
+    serving: bool = True
+    terminating: bool = False
+
+
+@dataclass
+class Endpoint:
+    """discovery/v1 Endpoint: one backend of a slice."""
+
+    addresses: List[str] = field(default_factory=list)
+    conditions: EndpointConditions = field(default_factory=EndpointConditions)
+    node_name: str = ""
+    target_ref_kind: str = "Pod"
+    target_ref_name: str = ""
+    zone: str = ""
+
+
+@dataclass
+class EndpointPort:
+    name: str = ""
+    protocol: str = "TCP"
+    port: int = 0
+
+
+@dataclass
+class EndpointSlice:
+    """discovery/v1 EndpointSlice: a bounded chunk (<=100 endpoints by
+    default) of a Service's backends, labeled kubernetes.io/service-name.
+    Slicing bounds the write amplification of large services: one pod's
+    readiness flip rewrites one slice, not the whole endpoint set."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    address_type: str = "IPv4"
+    endpoints: List[Endpoint] = field(default_factory=list)
+    ports: List[EndpointPort] = field(default_factory=list)
+
+    KIND = "EndpointSlice"
+
+
+@dataclass
+class EndpointAddress:
+    ip: str = ""
+    node_name: str = ""
+    target_ref_name: str = ""
+
+
+@dataclass
+class EndpointSubset:
+    addresses: List[EndpointAddress] = field(default_factory=list)
+    not_ready_addresses: List[EndpointAddress] = field(default_factory=list)
+    ports: List[EndpointPort] = field(default_factory=list)
+
+
+@dataclass
+class Endpoints:
+    """core/v1 Endpoints (legacy aggregate view; kubectl get endpoints).
+    Maintained alongside slices by the endpoints controller
+    (pkg/controller/endpoint/endpoints_controller.go)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    subsets: List[EndpointSubset] = field(default_factory=list)
+
+    KIND = "Endpoints"
+
+
+# ---------------------------------------------------------------------------
+# Autoscaling + quota + identity (reference: autoscaling/v1 types.go
+# HorizontalPodAutoscaler; core/v1 ResourceQuota :6392, ServiceAccount
+# :5190; metrics.k8s.io PodMetrics).
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ScaleTargetRef:
+    kind: str = "Deployment"
+    name: str = ""
+
+
+@dataclass
+class HorizontalPodAutoscalerSpec:
+    scale_target_ref: ScaleTargetRef = field(default_factory=ScaleTargetRef)
+    min_replicas: int = 1
+    max_replicas: int = 10
+    # autoscaling/v1 shape: average CPU utilization across pods as a
+    # percentage of their requests
+    target_cpu_utilization_percentage: int = 80
+
+
+@dataclass
+class HorizontalPodAutoscalerStatus:
+    current_replicas: int = 0
+    desired_replicas: int = 0
+    current_cpu_utilization_percentage: Optional[int] = None
+    last_scale_time: Optional[float] = None
+
+
+@dataclass
+class HorizontalPodAutoscaler:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: HorizontalPodAutoscalerSpec = field(
+        default_factory=HorizontalPodAutoscalerSpec
+    )
+    status: HorizontalPodAutoscalerStatus = field(
+        default_factory=HorizontalPodAutoscalerStatus
+    )
+
+    KIND = "HorizontalPodAutoscaler"
+
+
+@dataclass
+class PodMetrics:
+    """metrics.k8s.io PodMetrics reduced: the node agent reports each
+    running pod's usage (hollow runtime: scripted via the
+    agent.kubernetes.io/cpu-usage annotation, else ~60% of request)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    usage: Dict[str, int] = field(default_factory=dict)  # {CPU: millicores}
+    window_seconds: float = 10.0
+    timestamp: float = 0.0
+
+    KIND = "PodMetrics"
+
+
+@dataclass
+class ResourceQuotaSpec:
+    # hard limits by resource name: "pods", CPU ("cpu"), MEMORY
+    hard: Dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class ResourceQuotaStatus:
+    hard: Dict[str, int] = field(default_factory=dict)
+    used: Dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class ResourceQuota:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ResourceQuotaSpec = field(default_factory=ResourceQuotaSpec)
+    status: ResourceQuotaStatus = field(default_factory=ResourceQuotaStatus)
+
+    KIND = "ResourceQuota"
+
+
+@dataclass
+class ServiceAccount:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    secrets: List[str] = field(default_factory=list)
+
+    KIND = "ServiceAccount"
+
+
+# ---------------------------------------------------------------------------
+# Config & secrets (core/v1 ConfigMap :5789, Secret :5561): plain keyed
+# payloads workloads mount/reference; Secrets carry an opaque type tag
+# and base64-on-the-wire data semantics are the client's concern here.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ConfigMap:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+    binary_data: Dict[str, str] = field(default_factory=dict)  # b64
+    immutable: bool = False
+
+    KIND = "ConfigMap"
+
+
+@dataclass
+class Secret:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    type: str = "Opaque"
+    data: Dict[str, str] = field(default_factory=dict)  # b64 values
+    string_data: Dict[str, str] = field(default_factory=dict)
+    immutable: bool = False
+
+    KIND = "Secret"
+
+
+# ---------------------------------------------------------------------------
+# Dynamic admission (reference: admissionregistration.k8s.io/v1 —
+# Mutating/ValidatingWebhookConfiguration, ValidatingAdmissionPolicy).
+# Webhooks are HTTP callouts on the write path; policies are in-process
+# expression checks (the CEL ValidatingAdmissionPolicy family).
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class WebhookRule:
+    operations: List[str] = field(default_factory=lambda: ["*"])  # CREATE/UPDATE
+    kinds: List[str] = field(default_factory=lambda: ["*"])
+
+
+@dataclass
+class Webhook:
+    name: str = ""
+    url: str = ""                      # clientConfig.url
+    rules: List[WebhookRule] = field(default_factory=list)
+    failure_policy: str = "Fail"       # Fail | Ignore
+    timeout_seconds: float = 10.0
+
+
+@dataclass
+class MutatingWebhookConfiguration:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    webhooks: List[Webhook] = field(default_factory=list)
+
+    KIND = "MutatingWebhookConfiguration"
+
+
+@dataclass
+class ValidatingWebhookConfiguration:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    webhooks: List[Webhook] = field(default_factory=list)
+
+    KIND = "ValidatingWebhookConfiguration"
+
+
+@dataclass
+class PolicyValidation:
+    expression: str = ""   # CEL-style over `object` / `oldObject`
+    message: str = ""
+
+
+@dataclass
+class ValidatingAdmissionPolicySpec:
+    match: WebhookRule = field(default_factory=WebhookRule)
+    validations: List[PolicyValidation] = field(default_factory=list)
+
+
+@dataclass
+class ValidatingAdmissionPolicy:
+    """ValidatingAdmissionPolicy folded with its binding (our policies
+    apply cluster-wide to their match rule — the binding indirection is
+    a multi-tenancy refinement this control plane doesn't need yet)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ValidatingAdmissionPolicySpec = field(
+        default_factory=ValidatingAdmissionPolicySpec
+    )
+
+    KIND = "ValidatingAdmissionPolicy"
+
+
+# ---------------------------------------------------------------------------
+# RBAC (reference: staging/src/k8s.io/api/rbac/v1/types.go; evaluated by
+# plugin/pkg/auth/authorizer/rbac/rbac.go:75).  Role/RoleBinding are
+# namespace-scoped grants; ClusterRole/ClusterRoleBinding are
+# cluster-wide.  A RoleBinding may reference a ClusterRole to grant its
+# rules within the binding's namespace only.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PolicyRule:
+    verbs: List[str] = field(default_factory=lambda: ["*"])
+    resources: List[str] = field(default_factory=lambda: ["*"])  # kinds
+
+
+@dataclass
+class RoleRef:
+    kind: str = "Role"  # Role | ClusterRole
+    name: str = ""
+
+
+@dataclass
+class RbacSubject:
+    kind: str = "User"  # User | Group
+    name: str = ""
+
+
+@dataclass
+class Role:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    rules: List[PolicyRule] = field(default_factory=list)
+
+    KIND = "Role"
+
+
+@dataclass
+class ClusterRole:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    rules: List[PolicyRule] = field(default_factory=list)
+
+    KIND = "ClusterRole"
+
+
+@dataclass
+class RoleBinding:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    subjects: List[RbacSubject] = field(default_factory=list)
+    role_ref: RoleRef = field(default_factory=RoleRef)
+
+    KIND = "RoleBinding"
+
+
+@dataclass
+class ClusterRoleBinding:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    subjects: List[RbacSubject] = field(default_factory=list)
+    role_ref: RoleRef = field(default_factory=RoleRef)
+
+    KIND = "ClusterRoleBinding"
+
+
+def pod_is_ready(pod: "Pod") -> bool:
+    """The Ready condition when the node agent reports one, else the
+    Running-phase fallback (hollow kubelets flip phase without
+    conditions) — podutil.IsPodReady."""
+    for c in pod.status.conditions:
+        if c.get("type") == "Ready":
+            return c.get("status") in (True, "True")
+    return pod.status.phase == "Running"
+
+
+# Kinds that live outside any namespace (the reference's
+# resource-scope machinery, apimachinery RESTScope): the store
+# normalizes their namespace to "" on every path so callers using the
+# "default" convenience still find them, and namespace sweeps skip them.
 CLUSTER_SCOPED_KINDS = frozenset({
-    "Node", "PersistentVolume", "StorageClass", "DeviceClass",
+    "Node", "PersistentVolume", "StorageClass", "Namespace",
+    "CustomResourceDefinition", "ClusterRole", "ClusterRoleBinding",
+    "DeviceClass", "MutatingWebhookConfiguration",
+    "ValidatingWebhookConfiguration", "ValidatingAdmissionPolicy",
 })
+
+
+def clone(obj):
+    """Deep copy an API object (the reference's generated DeepCopy)."""
+    return dataclasses.replace(
+        obj,
+        **{
+            f.name: _deep(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+        },
+    )
+
+
+def _deep(v):
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return clone(v)
+    if isinstance(v, dict):
+        return {k: _deep(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_deep(x) for x in v]
+    return v

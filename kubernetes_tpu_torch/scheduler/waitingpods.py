@@ -7,7 +7,7 @@ plugin may return Wait with a timeout; the pod parks in the waiting map
 while its binding goroutine blocks in WaitOnPermit
 (schedule_one.go:278).  Any plugin may later Allow or Reject it; the
 timeout rejects.  This is the extension point real coscheduling
-plugins are built on (scheduler/coscheduling.py).
+plugins are built on (CoschedulingPermit, scheduler/coscheduling.py).
 """
 
 from __future__ import annotations

@@ -13,9 +13,11 @@ solve_encoded_async), `solve.partials` (models/partials.py sync),
 (scheduler/preemption.py), the store's `store.update_wave`, `store.list`,
 `watch.offer` and `watch.consume` (api/store.py), and the loop's
 `binder.commit_wave`, `binder.stream_subwave` and `solve.speculate`
-(scheduler/scheduler.py), and the elector's `leader.renew`
-(client/leaderelection.py).  The reference's journal, checkpoint and
-serving points have no counterpart here yet.
+(scheduler/scheduler.py), the elector's `leader.renew`
+(client/leaderelection.py), and the API front's `server.request`,
+`server.watch.write` (api/server.py) and `apf.admit`
+(api/flowcontrol.py).  The reference's journal and checkpoint points
+have no counterpart here yet.
 
 Schedules are bounded and seeded: a `FaultRegistry(seed=N)` draws every
 probabilistic decision from its own `random.Random(N)`, so a failing
@@ -109,6 +111,21 @@ KNOWN_POINTS = frozenset({
     # the holder steps down exactly once and re-acquires on a later
     # healthy period
     "leader.renew",
+    # -- the API front (api/server.py, api/flowcontrol.py) ---------------
+    # every authorized HTTP request, fired before dispatch: fail-grade
+    # schedules surface as 4xx/5xx to the client (retry containment),
+    # delay-grade as server-side latency
+    "server.request",
+    # one watch frame written to an HTTP watch stream: delay-grade is a
+    # stalled TCP consumer (full socket buffer), fail-grade a mid-frame
+    # client disconnect, torn-grade a partial frame write then error —
+    # the per-watcher write deadline must expire the watch, never pin
+    # the handler thread
+    "server.watch.write",
+    # APF admission (flowcontrol.APFGate.acquire): delay-grade stalls
+    # admission (queue-wait coverage), fail-grade rejects the request
+    # at the gate (surfaced as a 4xx by the handler's containment)
+    "apf.admit",
 })
 
 # caller-interpreted actions returned by fire()
